@@ -1,0 +1,74 @@
+"""Kernel 2 wrapper: fused BWT window gather + log-prob gather
+(``csrc/window_gather.cu``).
+
+Replaces ``seal_tpu/ops/fm_ops.py:bwt_at`` (:205) with
+``seal_tpu/ops/_generic.py:window_continuations`` (:41) and the
+``take_along_axis`` of the log-probs after them
+(``seal_tpu/decoding/constrained.py:385-387`` and ``:632-634``).  Integer
+outputs and gathered floats, so the kernel equals the plain version
+exactly.  Latency bound (two dependent scattered loads per slot); one
+thread per slot.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from seal_tpu.index.fm_index import SHIFT
+
+
+def window_rows(lo, hi, w: int):
+    """Rows sampled from [lo, hi): exhaustive when it has <= w rows, else
+    strided.  Returns (rows int64 [..., w], in_range bool [..., w])."""
+    size = (hi - lo).clamp(min=0)
+    stride = (size // w).clamp(min=1)[..., None]
+    offs = torch.arange(w, dtype=torch.int32, device=lo.device)
+    rows = lo[..., None] + offs * stride
+    return rows, rows < hi[..., None]
+
+
+def window_gather_plain(index, lo, hi, w: int, lp, fill: int):
+    rows, ok = window_rows(lo, hi, w)
+    sym = index.bwt[torch.where(ok, rows, 0).long()] - SHIFT
+    ok = ok & (sym >= 0) & (sym < index.vocab)
+    tok = torch.where(ok, sym, fill).to(torch.int32)
+    R = lo.numel()
+    lp_out = torch.gather(lp, 1, tok.reshape(R, w).long()).reshape(tok.shape)
+    return tok, ok, lp_out
+
+
+def window_gather(index, lo, hi, w: int, lp, fill: int):
+    """Window continuations of ranges [lo, hi) and their log-probs.
+
+    lo/hi: int32 [...] with ``lo.numel()`` == lp rows; lp: f32 [R, V] (row r
+    scores range r in flattened order).  Returns (tok int32 [..., w],
+    valid bool [..., w], lp f32 [..., w]); invalid slots (past the range,
+    sentinel, out of vocab) carry token ``fill`` and its log-prob.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    if lp.dim() != 2 or lp.shape[0] != lo.numel():
+        raise ValueError(f"window_gather: lp {tuple(lp.shape)} vs ranges {tuple(lo.shape)}")
+    if not lp.is_cuda:
+        return window_gather_plain(index, lo, hi, w, lp, fill)
+    from seal_tpu_torch.kernels import build
+
+    if lp.dtype != torch.float32 or lp.stride(1) != 1:
+        raise ValueError("window_gather: lp must be f32 with unit column stride")
+    lo_c = lo.to(torch.int32).contiguous()
+    hi_c = hi.to(torch.int32).contiguous()
+    shape = tuple(lo.shape) + (w,)
+    tok = torch.empty(shape, dtype=torch.int32, device=lp.device)
+    valid = torch.empty(shape, dtype=torch.bool, device=lp.device)
+    lp_out = torch.empty(shape, dtype=torch.float32, device=lp.device)
+    rc = build.lib().seal_window_gather(
+        index.bwt.data_ptr(), lp.data_ptr(), lp.stride(0), lo_c.data_ptr(),
+        hi_c.data_ptr(), lo_c.numel(), w, index.vocab, fill, tok.data_ptr(),
+        valid.data_ptr(), lp_out.data_ptr(), build.stream_ptr(lp),
+    )
+    build.check(rc, "window_gather")
+    window_gather.launches += 1
+    return tok, valid, lp_out
+
+
+window_gather.launches = 0
