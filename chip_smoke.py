@@ -20,9 +20,20 @@
    main path's shapes, on the card, and times both; runs the port on the
    card against its plain CPU path on a small input; checks the bf16 LM
    head's f32 result.
+6. Drives the second path, ``SEALSearcher.batch_search`` at the
+   end-to-end bench point of ``seal_tpu_torch.bench_search`` (BART-large
+   bf16, a 10k-document word corpus, 32 queries in units of 16, every key
+   path on): reports queries/s, the phase split and each kernel's launches
+   in that run; checks that the raw body and title keys of one unit are
+   grounded and that a ``force_full`` re-run of its title decode is
+   identical; profiles one unit; holds kernels 5-7 against their plain
+   versions at the path's shapes; runs the tiny searcher on the card
+   against its CPU path.
 
-Prints one JSON object with the kernel table on the line before the last,
-and ``{"ok": true, "device": {...}}`` as the last line.  Imports no jax.
+Each path's launch counts come from that path's own run (every count set
+to 0 just before it, read just after).  Prints one JSON object with the
+kernel table on the line before the last, and ``{"ok": true, "device":
+{...}}`` as the last line.  Imports no jax.
 """
 
 from __future__ import annotations
@@ -42,16 +53,39 @@ REPLACES = {
     "window_gather": "seal_tpu/ops/_generic.py:41",
     "row_topk": "seal_tpu/decoding/constrained.py:395",
     "log_softmax_min_len": "seal_tpu/decoding/constrained.py:276",
+    "fm_sequences": "seal_tpu/ops/_generic.py:17",
+    "bucket_counts": "seal_tpu/ops/fm_ops.py:238",
+    "rescore_logprob": "seal_tpu/scoring/keys.py:102",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
     "window_gather": ("cuda", "seal_tpu_torch/kernels/csrc/window_gather.cu"),
     "row_topk": ("cuda", "seal_tpu_torch/kernels/csrc/row_topk.cu"),
     "log_softmax_min_len": ("triton", "seal_tpu_torch/kernels/triton_logsoftmax.py"),
+    "fm_sequences": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
+    "bucket_counts": ("cuda", "seal_tpu_torch/kernels/csrc/bucket_counts.cu"),
+    "rescore_logprob": ("cuda", "seal_tpu_torch/kernels/csrc/rescore.cu"),
+}
+# the kernels each driven path must launch (bucket_counts runs only in the
+# proven loop's later rounds, which the force_full re-runs reach; kernel 4
+# must also show from the unigram call on its own)
+PATH_KERNELS = {
+    "generate": ("fm_search", "window_gather", "row_topk", "log_softmax_min_len"),
+    "generate_force_full": ("bucket_counts",),
+    "batch_search": ("fm_search", "window_gather", "row_topk", "log_softmax_min_len",
+                     "fm_sequences", "rescore_logprob"),
+    "unigram": ("log_softmax_min_len",),
+    "grounding_unit": ("fm_sequences",),
 }
 # kernel 4 sums a 50265-wide row in another order than torch: f32 rounding
 # of a log-sum-exp near 11 is ~1e-6; 1e-4 leaves room for the sum order
 LOGSOFTMAX_ATOL = 1e-4
+# kernel 7 sums <= 16 log-probs per key, each off by f32 rounding of a
+# 50265-wide log-sum-exp (~1e-6): 1e-4 per key leaves room for the order
+RESCORE_ATOL = 1e-4
+# the tiny searcher on the card against its CPU path (same f32 weights):
+# doc scores are sums of log-odds of f32 log-probs
+SEARCH_RTOL = 1e-4
 # the bf16 LM head must return its f32 accumulator: against the f32 matmul it
 # is off by ~1e-5 (summation order), while rounding the output to bf16 (logits
 # up to ~3.5 here) would cost up to ~8e-3
@@ -222,6 +256,154 @@ def small_parity(np, torch):
     return n_keys
 
 
+def search_kernel_phases(np, torch, host, index, vocab):
+    """Kernels 5-7 against their plain versions at the searcher path's
+    shapes, on the searcher's index."""
+    from seal_tpu_torch.kernels import bucket_counts as k6
+    from seal_tpu_torch.kernels import fm_search as k5
+    from seal_tpu_torch.kernels import rescore as k7
+
+    dev = index.device
+    rng = np.random.default_rng(2)
+    g = torch.Generator(device=dev).manual_seed(2)
+    text = host.text[:-1] - 1  # the documents, each reversed
+    table = []
+
+    # kernel 5: 4096 corpus n-grams (forward), lengths 1-16; an eighth are
+    # random ids, some out of the vocab
+    n, L = 4096, 16
+    starts = rng.integers(0, text.size - L, size=n)
+    toks = np.stack([text[s : s + L][::-1] for s in starts]).astype(np.int32)
+    toks[: n // 8] = rng.integers(-1, vocab + 2, size=(n // 8, L))
+    toks = torch.as_tensor(toks, device=dev)
+    lens = torch.as_tensor(rng.integers(1, L + 1, size=n).astype(np.int32), device=dev)
+    got = k5.fm_sequences(index, toks, lens)
+    want = k5.sequences_plain(index, toks, lens)
+    err5 = max(int((a - b).abs().max()) for a, b in zip(got, want))
+    if err5:
+        fail(f"fm_sequences differs from its plain version (max err {err5})")
+    table.append(dict(
+        name="fm_sequences", max_abs_err=err5,
+        ms=time_ms(lambda: k5.fm_sequences(index, toks, lens)),
+        plain_ms=time_ms(lambda: k5.sequences_plain(index, toks, lens)),
+        shape=f"[{n}, {L}], lengths 1-{L}, {int(((want[1] - want[0]) > 0).sum())} non-empty",
+    ))
+
+    # kernel 6: [16, 15] ranges of one- and two-token corpus prefixes, plus
+    # the full range, a whole bucket block and an empty range
+    B, K = 16, 15
+    first = torch.as_tensor(rng.choice(text, size=(2, B, K)).astype(np.int32), device=dev)
+    full_lo, full_hi = index.full_range((B, K))
+    lo1, hi1 = k5.backward_step_plain(index, first[0], full_lo, full_hi)
+    lo2, hi2 = k5.backward_step_plain(index, first[1], lo1, hi1)
+    even = torch.arange(K, device=dev) % 2 == 0
+    lo, hi = torch.where(even, lo1, lo2), torch.where(even, hi1, hi2)
+    lo[0, 0], hi[0, 0] = 0, index.n_rows
+    lo[0, 1], hi[0, 1] = 1024, 2048
+    lo[0, 2], hi[0, 2] = 5, 5
+    err6 = int((k6.bucket_counts(index, lo, hi) - k6.bucket_counts_plain(index, lo, hi))
+               .abs().max())
+    if err6:
+        fail(f"bucket_counts differs from its plain version (max err {err6})")
+    table.append(dict(
+        name="bucket_counts", max_abs_err=err6,
+        ms=time_ms(lambda: k6.bucket_counts(index, lo, hi)),
+        plain_ms=time_ms(lambda: k6.bucket_counts_plain(index, lo, hi)),
+        shape=f"[{B},{K}] ranges x {index.n_buckets} buckets",
+    ))
+
+    # kernel 7: a full rescoring sub-batch of f32 logits, with the SEAL
+    # bias's -inf columns and pad targets
+    N, T = 256, 16
+    logits = torch.randn((N, T, vocab), generator=g, device=dev) * 3
+    logits[..., 1] = float("-inf")
+    tgt = torch.randint(2, vocab, (N, T), generator=g, device=dev, dtype=torch.int32)
+    tgt[:, -4:] = 1
+    err7 = 0.0
+    for n_prefix in (0, 1):
+        got = k7.rescore_logprob(logits, tgt, n_prefix)
+        want = k7.rescore_logprob_plain(logits, tgt, n_prefix)
+        err7 = max(err7, float((got - want).abs().max()))
+        if not torch.equal(got, k7.rescore_logprob(logits, tgt, n_prefix)):
+            fail("rescore_logprob gives other bits on a second run")
+    if err7 > RESCORE_ATOL:
+        fail(f"rescore_logprob differs from its plain version (max err {err7})")
+    table.append(dict(
+        name="rescore_logprob", max_abs_err=err7, atol=RESCORE_ATOL,
+        ms=time_ms(lambda: k7.rescore_logprob(logits, tgt, 0)),
+        plain_ms=time_ms(lambda: k7.rescore_logprob_plain(logits, tgt, 0)),
+        shape=f"[{N},{T},{vocab}] f32",
+    ))
+    del logits
+    torch.cuda.synchronize()
+    return table
+
+
+def searcher_grounding(searcher, queries):
+    """One unit's raw body and title hypotheses, decoded as
+    ``process_batch`` decodes them: every body key occurs in the corpus; a
+    title key occurs after the forced prefix from its second token on (its
+    first token is chosen under the dense corpus mask, the JAX decoder's
+    step-0 rule, and occurs on its own); a ``force_full`` re-run of the
+    title decode gives identical hypotheses.  Returns (body keys, title
+    keys) checked."""
+    s = searcher
+    cfg, host = s.model_cfg, s.fm_index
+    inputs = [" " + q.strip() for q in queries]
+    common = dict(num_beams=s.beam, forced_bos_token_id=None, top_m=s.top_m, window=s.window)
+    special = (cfg.eos_token_id, cfg.pad_token_id, cfg.bos_token_id)
+    body = s._generate(s.params, s._tokenize_batch(s._marked(inputs, "body")),
+                       min_length=s.length, max_length=s.length, **common)
+    n_body = 0
+    for hyps in body:
+        for _, toks in hyps:
+            key = [t for t in toks[1:] if t not in special]
+            if key:
+                n_body += 1
+                if host.get_count(key) <= 0:
+                    fail(f"body key not in the corpus: {key}")
+    title_toks = s._tokenize_batch(s._marked(inputs, "title"))
+    title_kw = dict(min_length=1, max_length=15, eos_token_id=s.title_eos_token_id,
+                    force_decoding_from=[s.title_bos_token_id], **common)
+    title = s._generate(s.title_params, title_toks, **title_kw)
+    n_title = 0
+    for hyps in title:
+        for _, toks in hyps:
+            key = [t for t in toks[1:] if t not in (cfg.pad_token_id, cfg.bos_token_id)]
+            n_title += 1
+            want = [s.title_bos_token_id] + key if len(key) >= 2 else key
+            if host.get_count(want) <= 0:
+                fail(f"title key not in the corpus: {want}")
+    full = s._generate(s.title_params, title_toks, force_full=True, **title_kw)
+    if [sorted((tuple(t), sc) for sc, t in h) for h in title] != [
+        sorted((tuple(t), sc) for sc, t in h) for h in full
+    ]:
+        fail("force_full title hypotheses differ from the fast path's")
+    if not n_body or not n_title:
+        fail(f"grounding check saw {n_body} body and {n_title} title keys")
+    return n_body, n_title
+
+
+def small_search_parity(np):
+    """The tiny searcher on the card vs on the CPU: same doc ids in the same
+    order, scores within SEARCH_RTOL."""
+    from seal_tpu_torch import bench_search
+
+    cpu = bench_search.tiny_searcher("cpu").batch_search(bench_search.TINY_QUERIES, k=5)
+    gpu = bench_search.tiny_searcher("cuda").batch_search(bench_search.TINY_QUERIES, k=5)
+    n = 0
+    for a, b in zip(cpu, gpu):
+        if [d.docid for d in a] != [d.docid for d in b]:
+            fail("small searcher parity: doc ids differ between card and CPU")
+        elif a and np.max(np.abs(np.subtract([d.score for d in b], [d.score for d in a]))
+                          / np.abs([d.score for d in a])) > SEARCH_RTOL:
+            fail("small searcher parity: scores differ by more than the tolerance")
+        n += len(a)
+    if n == 0:
+        fail("small searcher parity: no documents retrieved")
+    return n
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -254,17 +436,41 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
 
-    from seal_tpu_torch import bench_generate
+    from seal_tpu_torch import bench_generate, bench_search
     from seal_tpu_torch.decoding import generate
-    from seal_tpu_torch.kernels import build, fm_search, row_topk, triton_logsoftmax, window_gather
+    from seal_tpu_torch.kernels import (
+        bucket_counts,
+        build,
+        fm_search,
+        rescore,
+        row_topk,
+        triton_logsoftmax,
+        window_gather,
+    )
     from seal_tpu_torch.models import bart
+    from seal_tpu_torch.scoring import keys as scoring
 
     counters = {
         "fm_search": fm_search.fm_search,
         "window_gather": window_gather.window_gather,
         "row_topk": row_topk.row_topk,
         "log_softmax_min_len": triton_logsoftmax.log_softmax_ban,
+        "fm_sequences": fm_search.fm_sequences,
+        "bucket_counts": bucket_counts.bucket_counts,
+        "rescore_logprob": rescore.rescore_logprob,
     }
+    by_path: dict = {}  # path -> {kernel: launches in that path's run}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts(path):
+        by_path[path] = {name: fn.launches for name, fn in counters.items()}
+        for name in PATH_KERNELS[path]:
+            if by_path[path][name] <= 0:
+                fail(f"kernel {name} was not launched on the {path} path")
+        return by_path[path]
 
     t0 = time.perf_counter()
     build.lib()
@@ -283,8 +489,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return out
 
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     hyps = run()
     first_s = time.perf_counter() - t0
@@ -293,7 +498,7 @@ def main() -> int:
         t0 = time.perf_counter()
         hyps = run()
         times.append(time.perf_counter() - t0)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts("generate")
     fallback = dict(generate.LAST_DECODE_STATS)
     per_batch = statistics.median(times)
     log(f"main path: first call {first_s:.3f} s, then {[round(t, 4) for t in times]} s/batch; "
@@ -301,9 +506,6 @@ def main() -> int:
         f"(batch {B}, beam {K}, length {kw['max_length']}, BART-large bf16, {index.n_rows - 1} tokens); "
         f"fallback_steps {fallback['fallback_steps']} of {fallback['num_steps']}")
     log(f"launches in the main-path run: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
 
     # ---- checks of the main path's output ----------------------------------
     special = (cfg.eos_token_id, cfg.pad_token_id, cfg.bos_token_id)
@@ -322,7 +524,9 @@ def main() -> int:
         fail("no keys emitted")
     log(f"checked {n_keys} keys of {n_hyps} hypotheses: every one occurs in the corpus"
         if not FAILURES else f"checked {n_keys} keys")
+    zero_counts()
     full = run(force_full=True)
+    log(f"launches in the force_full re-run: {read_counts('generate_force_full')}")
     canon = [sorted((tuple(t), s) for s, t in q) for q in hyps]
     if canon != [sorted((tuple(t), s) for s, t in q) for q in full]:
         fail("force_full hypotheses differ from the fast path's")
@@ -356,17 +560,96 @@ def main() -> int:
     if head.dtype != torch.float32 or head_err > LM_HEAD_ATOL:
         fail(f"lm_logits bf16 head is off (dtype {head.dtype}, err {head_err})")
 
+    # ---- second path: SEALSearcher.batch_search at the e2e bench point ----
+    try:
+        from seal_tpu.cpp import native
+
+        native.load()
+        native_state = "loaded"
+    except (ImportError, OSError, RuntimeError, subprocess.SubprocessError) as e:
+        native_state = f"NOT loaded ({type(e).__name__}: {e}); the ranker runs its Python mirror"
+    log(f"seal_tpu.cpp.native (the ranker's C++ helpers): {native_state}")
+    t0 = time.perf_counter()
+    searcher, queries = bench_search.operating_point("cuda")
+    log(f"searcher set-up {time.perf_counter() - t0:.1f} s: {searcher.num_docs} docs, "
+        f"{searcher.device_index.n_rows - 1} tokens, vocab {searcher.tokenizer.vocab_size}, "
+        f"title marker {searcher.title_eos_token_id}; knobs beam {searcher.beam}, length "
+        f"{searcher.length}, batch_size {searcher.batch_size}, pipeline {searcher.pipeline}")
+    unit = queries[: searcher.batch_size]
+    t0 = time.perf_counter()
+    searcher.batch_search(unit, k=bench_search.TOP_K)  # warm-up unit
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    searcher.phase_timer.enabled = True
+    zero_counts()
+    t0 = time.perf_counter()
+    results = searcher.batch_search(queries, k=bench_search.TOP_K)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    search_launches = read_counts("batch_search")
+    phases = dict(searcher.phase_timer.totals)
+    searcher.phase_timer.enabled = False
+    nonempty = sum(1 for r in results if r)
+    e2e_qps = len(queries) / search_s
+    log(f"batch_search: warm-up unit {warm_s:.3f} s; {len(queries)} queries in {search_s:.3f} s "
+        f"= {e2e_qps:.2f} queries/s; phases (s, they overlap under the pipeline) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items()))
+        + f"; {nonempty}/{len(queries)} results non-empty, {sum(len(r) for r in results)} docs; "
+        f"fallback_steps of the last decode {generate.LAST_DECODE_STATS['fallback_steps']}")
+    log(f"launches in the batch_search run: {search_launches}")
+    if nonempty == 0 or any(len(r) > bench_search.TOP_K for r in results):
+        fail(f"batch_search results: {nonempty} non-empty")
+    for r in results:
+        scores = [d.score for d in r]
+        if not all(np.isfinite(scores)) or scores != sorted(scores, reverse=True):
+            fail("batch_search returned non-finite or unsorted scores")
+    marked = searcher._tokenize_batch(searcher._marked([" " + q for q in unit], "body"))
+    zero_counts()
+    us = scoring.compute_unigram_scores(searcher.model_cfg, searcher.scorer_params, marked,
+                                        tolist=False)
+    log(f"launches in one unigram call: {read_counts('unigram')}")
+    if us.shape != (len(unit), searcher.model_cfg.vocab_size) or not np.isfinite(us.max()):
+        fail(f"unigram scores of shape {us.shape}")
+    zero_counts()
+    n_body, n_title = searcher_grounding(searcher, unit)
+    log(f"launches in the grounding unit (body, title, title force_full): "
+        f"{read_counts('grounding_unit')}")
+    log(f"grounding unit: {n_body} raw body keys and {n_title} raw title keys checked"
+        + ("; title force_full re-run identical" if not FAILURES else ""))
+    sprof = bench_generate.profile_batch(lambda: searcher.batch_search(unit, k=bench_search.TOP_K))
+    log(f"profiled unit ({len(unit)} queries): {sprof['kernels']} kernels, device busy "
+        f"{sprof['device_busy_ms']:.2f} ms of {sprof['wall_ms']:.2f} ms wall "
+        f"({100 * sprof['busy_share']:.1f}%, the profiler slows the host)")
+    for row in sprof["top"][:12]:
+        log(f"  {row['ms']:8.3f} ms {row['calls']:6d} calls  {row['name']}")
+    stable = search_kernel_phases(np, torch, searcher.fm_index, searcher.device_index,
+                                  searcher.model_cfg.vocab_size)
+    for row in stable:
+        log(f"kernel {row['name']}: {row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms "
+            f"at {row['shape']}, max err {row['max_abs_err']}")
+    table += stable
+    n_small_search = small_search_parity(np)
+    log(f"small searcher parity (card vs CPU): {n_small_search} documents compared")
+    total = {name: sum(p[name] for p in by_path.values()) for name in counters}
+    for name, n in total.items():
+        if n <= 0:
+            fail(f"kernel {name} was launched on no path")
+
     # the run's readings again, next to the result lines at the end of stdout
     log(f"summary: {card}; {B / per_batch:.1f} queries/s (median {per_batch:.4f} s/batch of "
         f"{len(times)}); fallback_steps {fallback['fallback_steps']}; {n_keys} keys checked; "
         f"busy {100 * prof['busy_share']:.1f}% under the profiler; "
-        f"lm_logits err {head_err:.3e}; nvcc {build.BUILD_SECONDS} s")
+        f"lm_logits err {head_err:.3e}; nvcc {build.BUILD_SECONDS} s; batch_search "
+        f"{e2e_qps:.2f} queries/s ({len(queries)} queries, {nonempty} non-empty), phases "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items()))
+        + f"; searcher unit busy {100 * sprof['busy_share']:.1f}% under the profiler")
+    log(f"launches by path: {json.dumps(by_path)}")
     kernels = []
     for row in table:
         route, src = SOURCES[row["name"]]
         kernels.append({
             "name": row["name"], "route": route, "source": src,
-            "replaces": REPLACES[row["name"]], "launches": launches[row["name"]],
+            "replaces": REPLACES[row["name"]], "launches": total[row["name"]],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
         })
     print(json.dumps({"kernels": kernels}))

@@ -22,10 +22,13 @@ What changed in translation:
   ``DENSE_GUARD_BACKENDS`` (a TPU worker fault) and the one-hot-matmul
   block gather of ``_exact_topk`` (the TPU's slow scalar gathers).  Every
   top-k is one exact row top-k, ``kernels.row_topk``.
+* ``force_decoding_from`` starts every beam's range at the forced
+  sequence's (kernel 5).  Step 0 still picks its token under the dense
+  corpus mask and then extends the forced range, as the JAX decoder does.
 * Not ported yet (``DecodeConfig`` raises ``NotImplementedError``): the
   sample, diverse, speculative, ``exact_mask``, ``exact_ties`` and
-  ``disable_fm_index`` modes, ``force_decoding_from``, ``forced_bos``, the
-  top-k warper and ``adjust_logits_fn``.
+  ``disable_fm_index`` modes, ``forced_bos``, the top-k warper and
+  ``adjust_logits_fn``.
 """
 
 from __future__ import annotations
@@ -53,6 +56,9 @@ class SingleIndexOps:
 
     def full_range(self, shape):
         return self.index.full_range(shape)
+
+    def range_for(self, tokens, lengths):
+        return fm_ops.range_for_sequences(self.index, tokens, lengths)
 
     def corpus_mask(self):
         return self.index.corpus_counts > 0
@@ -100,9 +106,10 @@ class DecodeConfig:
     exact_chunk: int = 64  # LM candidates validated in proposal round 0
     exact_loop_chunk: int = 0  # LM candidates per straggler round (0 = auto)
     force_full: bool = False  # every step through the proven proposal loop
+    force_decoding_from: Optional[Tuple[int, ...]] = None  # forced range prefix
+    top_m: int = 256  # read by the speculative and sample modes only
     # --- modes of the JAX package not ported yet: must stay at defaults ---
     forced_bos_token_id: Optional[int] = None
-    force_decoding_from: Optional[Tuple[int, ...]] = None
     disable_fm_index: bool = False
     speculative: bool = False
     exact_mask: bool = False
@@ -116,7 +123,6 @@ class DecodeConfig:
     def __post_init__(self):
         unported = {
             "forced_bos_token_id": self.forced_bos_token_id is not None,
-            "force_decoding_from": bool(self.force_decoding_from),
             "disable_fm_index": self.disable_fm_index,
             "speculative": self.speculative,
             "exact_mask": self.exact_mask,
@@ -452,7 +458,13 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     tokens[:, 0] = cfg.decoder_start_token_id
     beam_scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
     beam_scores[:, 0] = 0.0
-    lo0, hi0 = ops.full_range((B, K))
+    if cfg.force_decoding_from:
+        fseq = torch.as_tensor(cfg.force_decoding_from, dtype=i32, device=dev)
+        flen = torch.tensor([fseq.numel()], dtype=i32, device=dev)
+        flo, fhi = ops.range_for(fseq[None, :], flen)
+        lo0, hi0 = flo.expand(B, K), fhi.expand(B, K)
+    else:
+        lo0, hi0 = ops.full_range((B, K))
     brow = torch.arange(B, device=dev)[:, None]
 
     # ---- step 0: first constrained token (dense corpus mask) -----------

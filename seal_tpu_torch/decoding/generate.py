@@ -121,9 +121,12 @@ def fm_index_generate_async(
     disable_fm_index: bool = False,
     stop_at_count: int = 0,
     forced_bos_token_id: Optional[int] = "default",
+    top_m: int = 256,
     window: int = 0,  # 0 = auto (constrained.resolve_window)
     exact_chunk: int = 64,
+    exact_topk_blk: int = 0,  # the TPU's block width for its top-k: no effect here
     exact_loop_chunk: int = 0,
+    dense_chunk: int = 2048,  # read by the exact_mask mode only (not ported)
     speculative: bool = False,
     exact_mask: bool = False,
     exact_ties: bool = False,
@@ -132,6 +135,8 @@ def fm_index_generate_async(
     adjust_logits_fn=None,
     diverse_bs_groups: int = 1,
     diverse_bs_penalty: float = 0.0,
+    seed: int = 0,  # read by the sample mode only (not ported)
+    mesh=None,
     force_full: bool = False,
 ):
     """Run constrained generation on the index's device; returns a
@@ -139,9 +144,13 @@ def fm_index_generate_async(
     batch with ``force_full`` when some step's fast proof failed, and
     extracts the hypotheses.  ``force_full=True`` runs every step through
     the proven loop from the start (a check of the fast path: the
-    hypotheses must be identical).  Modes not ported yet raise
-    ``NotImplementedError`` (from ``DecodeConfig``)."""
+    hypotheses must be identical).  Takes every keyword of the JAX
+    function.  Modes not ported yet raise ``NotImplementedError`` (from
+    ``DecodeConfig``, and for a ``mesh``)."""
     del length_penalty, keep_history  # no effect on the exact beam path
+    del exact_topk_blk, dense_chunk, seed
+    if mesh is not None:
+        raise NotImplementedError("not ported to seal_tpu_torch yet: mesh (data-parallel decode)")
     dev = index.device
     if isinstance(input_ids, (list, tuple)):
         input_ids, attention_mask = pad_batch(input_ids, model_cfg.pad_token_id)
@@ -165,6 +174,7 @@ def fm_index_generate_async(
         stop_at_count=stop_at_count,
         always_allow_eos=always_allow_eos,
         disable_fm_index=disable_fm_index,
+        top_m=min(top_m, model_cfg.vocab_size),
         window=resolve_window(window, num_beams),
         exact_chunk=exact_chunk,
         exact_loop_chunk=exact_loop_chunk,

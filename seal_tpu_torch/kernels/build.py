@@ -25,10 +25,10 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu")
+SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu", "bucket_counts.cu", "rescore.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -43,10 +43,18 @@ SIGNATURES = {
     # psi, sym_dir, head_pair, n_rows, sigma, dir_shift,
     # tokens, lo, hi, out, n_ranges, m, stream
     "seal_fm_contains": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _P],
+    # psi, sym_dir, head_pair, n_rows, sigma, dir_shift,
+    # tokens, lengths, out_lo, out_hi, n, L, stream
+    "seal_fm_sequences": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _P],
     # bwt, lp, lp_stride, lo, hi, n, w, vocab, fill, tok, valid, lp_out, stream
     "seal_window_gather": [_P, _P, _L, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
     # x, n_rows, width, k, vals, idx, stream
     "seal_row_topk": [_P, _L, _I, _I, _P, _P, _P],
+    # bwt, bucket_occ, lo, hi, out, n, n_rows, bucket_rows, bucket_size,
+    # n_buckets, stream
+    "seal_bucket_counts": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # logits, targets, out, n, T, V, n_prefix, stream
+    "seal_rescore_logprob": [_P, _P, _P, _L, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()
@@ -64,7 +72,10 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile the kernel library if it is missing or stale; returns its path."""
+    """Compile the kernel library if it is missing or stale; returns its path.
+
+    One ``nvcc`` per source, all started together, then one link.
+    """
     global BUILD_SECONDS
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs = [os.path.join(CSRC, s) for s in SOURCES]
@@ -73,12 +84,32 @@ def build() -> str:
         os.path.getmtime(out) >= os.path.getmtime(s) for s in srcs
     ):
         return out
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s], stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True)
+        for s, o in zip(srcs, objs)
+    ]
+    errors = []
+    for s, p in zip(srcs, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{os.path.basename(s)} ({p.returncode}):\n{err[-4000:]}")
+    try:
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        tmp = f"{out}.{tag}"
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     BUILD_SECONDS = time.perf_counter() - t0
     os.replace(tmp, out)
     return out

@@ -1,4 +1,5 @@
-// Kernel 1: FM-index rank search over the Psi layout.
+// Kernel 1: FM-index rank search over the Psi layout, and kernel 5, the
+// same search chained over padded sequences (sequences_kernel below).
 //
 // Replaces seal_tpu/ops/fm_ops.py: _symbol_bounds + _searchsorted_impl +
 // backward_step (mode "backward_step") and contains_tokens (mode
@@ -108,7 +109,66 @@ contains_kernel(const int* __restrict__ psi, const int* __restrict__ sym_dir,
   out[t] = ok ? 1 : 0;
 }
 
+// Kernel 5: row ranges of padded token sequences (replaces
+// seal_tpu/ops/_generic.py:range_for_sequences, the lax.scan of backward
+// steps behind fm_ops.range_for_sequences and count_sequences).  The same
+// lane pair as backward_step_kernel, looping over the sequence in
+// registers: one launch for the whole chain instead of one per position.
+// The trip count is L for every lane, so each lane reaches the shuffle;
+// positions at or past a sequence's length leave its range as it is, and
+// an empty range stays at (x, x) unless an out-of-range token resets it
+// to (0, 0), as the scan does.
+__global__ void __launch_bounds__(THREADS)
+sequences_kernel(const int* __restrict__ psi, const int* __restrict__ sym_dir,
+                 const int* __restrict__ head_pair, int n_rows, int sigma, int dir_shift,
+                 const int* __restrict__ tokens, const int* __restrict__ lengths,
+                 int* __restrict__ out_lo, int* __restrict__ out_hi, long long n, int L) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long q = t >> 1;
+  const int bound = (int)(t & 1);
+  const bool active = q < n;
+  const int len = active ? lengths[q] : 0;
+  int lo = 0, hi = n_rows;
+  for (int j = 0; j < L; ++j) {
+    const bool keep = j < len;
+    int row = 0;  // an out-of-range token gives (0, 0)
+    if (keep) {
+      const int c = tokens[q * L + j] + SHIFT;
+      if (c >= 1 && c < sigma) {
+        const int pos = bound ? hi : lo;
+        const Bounds b = symbol_bounds(sym_dir, head_pair, n_rows, dir_shift, c, pos);
+        row = search(psi, b.dlo, b.dhi, pos);
+      }
+    }
+    const int other = __shfl_xor_sync(0xffffffffu, row, 1);
+    if (keep) {
+      lo = bound ? other : row;
+      hi = max(lo, bound ? row : other);
+    }
+  }
+  if (active) {
+    if (bound == 0) {
+      out_lo[q] = lo;
+    } else {
+      out_hi[q] = hi;
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int seal_fm_sequences(const int* psi, const int* sym_dir, const int* head_pair,
+                                 int n_rows, int sigma, int dir_shift, const int* tokens,
+                                 const int* lengths, int* out_lo, int* out_hi, long long n, int L,
+                                 void* stream) {
+  if (n > 0) {
+    const long long threads = 2 * n;
+    const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
+    sequences_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        psi, sym_dir, head_pair, n_rows, sigma, dir_shift, tokens, lengths, out_lo, out_hi, n, L);
+  }
+  return (int)cudaGetLastError();
+}
 
 extern "C" int seal_fm_backward_step(const int* psi, const int* sym_dir, const int* head_pair,
                                      int n_rows, int sigma, int dir_shift, const int* token,

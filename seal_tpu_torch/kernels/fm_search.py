@@ -1,12 +1,16 @@
-"""Kernel 1 wrapper: the FM-index rank search (``csrc/fm_search.cu``).
+"""Kernel 1 and kernel 5 wrappers: the FM-index rank search
+(``csrc/fm_search.cu``).
 
-Replaces ``seal_tpu/ops/fm_ops.py``: ``_symbol_bounds`` (:113),
-``_searchsorted_impl`` (:42), ``backward_step`` (:166) and
-``contains_tokens`` (:288).  The plain PyTorch version below is the
-specification: the CPU path and the reference the card's kernel is held to
-(integer results, so exactly equal).  The kernel is latency bound: a chain
-of dependent psi loads per query, one thread per (query, bound); see the
-source for the design.
+Kernel 1, ``fm_search``, replaces ``seal_tpu/ops/fm_ops.py``:
+``_symbol_bounds`` (:113), ``_searchsorted_impl`` (:42), ``backward_step``
+(:166) and ``contains_tokens`` (:288).  Kernel 5, ``fm_sequences``, chains
+the backward step over padded token sequences in one launch and replaces
+``seal_tpu/ops/_generic.py:range_for_sequences`` (:17), the scan behind
+``fm_ops.range_for_sequences`` and ``count_sequences``.  The plain
+PyTorch versions below are the specification: the CPU path and the
+reference the card's kernels are held to (integer results, so exactly
+equal).  The kernels are latency bound: a chain of dependent psi loads per
+query, one thread per (query, bound); see the source for the design.
 """
 
 from __future__ import annotations
@@ -83,6 +87,59 @@ def contains_plain(index, tokens, lo, hi):
     return valid & (row < bhi) & (first < hi[..., None])
 
 
+def sequences_plain(index, tokens, lengths):
+    """The JAX scan: one backward step per position from the full range;
+    positions at or past a sequence's length keep its range."""
+    lo, hi = index.full_range(tokens.shape[:-1])
+    for t in range(tokens.shape[-1]):
+        new_lo, new_hi = backward_step_plain(index, tokens[..., t], lo, hi)
+        keep = t < lengths
+        lo = torch.where(keep, new_lo, lo)
+        hi = torch.where(keep, new_hi, hi)
+    return lo, hi
+
+
+def fm_sequences(index, tokens, lengths):
+    """Row ranges of padded token sequences: tokens int32 [..., L]
+    (unshifted), lengths int32 [...]; returns int32 (lo, hi) [...].
+
+    CPU tensors run the plain version; CUDA tensors launch kernel 5.
+    """
+    tokens = torch.as_tensor(tokens, dtype=torch.int32, device=index.device)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=index.device)
+    if tokens.shape[:-1] != lengths.shape:
+        raise ValueError(f"fm_sequences: tokens {tuple(tokens.shape)} vs lengths "
+                         f"{tuple(lengths.shape)}")
+    if not tokens.is_cuda:
+        return sequences_plain(index, tokens, lengths)
+    from seal_tpu_torch.kernels import build
+
+    tokens, lengths = tokens.contiguous(), lengths.contiguous()
+    out_lo = torch.empty_like(lengths)
+    out_hi = torch.empty_like(lengths)
+    rc = build.lib().seal_fm_sequences(
+        *_index_args(index), tokens.data_ptr(), lengths.data_ptr(), out_lo.data_ptr(),
+        out_hi.data_ptr(), lengths.numel(), tokens.shape[-1], build.stream_ptr(tokens),
+    )
+    build.check(rc, "fm_sequences")
+    fm_sequences.launches += 1
+    return out_lo, out_hi
+
+
+fm_sequences.launches = 0
+
+
+def _index_args(index):
+    return (
+        index.psi.data_ptr(),
+        index.sym_dir.data_ptr(),
+        index.head_pair.data_ptr() if index.head_pair is not None else None,
+        index.n_rows,
+        index.sigma,
+        index.dir_shift,
+    )
+
+
 def fm_search(index, mode: str, tokens, lo, hi):
     """Rank search in one of two modes.
 
@@ -114,14 +171,7 @@ def _launch(index, mode, tokens, lo, hi):
     from seal_tpu_torch.kernels import build
 
     so = build.lib()
-    common = (
-        index.psi.data_ptr(),
-        index.sym_dir.data_ptr(),
-        index.head_pair.data_ptr() if index.head_pair is not None else None,
-        index.n_rows,
-        index.sigma,
-        index.dir_shift,
-    )
+    common = _index_args(index)
     stream = build.stream_ptr(tokens)
     if mode == "backward_step":
         tokens, lo, hi = (t.contiguous() for t in (tokens, lo, hi))

@@ -241,6 +241,35 @@ def decode_step(cfg: BartConfig, params: Params, token_ids, step: int, self_cach
     return lm_logits(cfg, params, x[:, 0, :]), self_cache
 
 
+def decode_full(cfg: BartConfig, params: Params, enc_out, enc_mask, decoder_input_ids,
+                decoder_mask=None):
+    """Teacher-forced decoder forward: f32 logits [B, L, V] (key rescoring
+    and unigram scores).  A causal mask over the decoder ids (plus their
+    padding bias when ``decoder_mask`` is given) and full cross-attention
+    over the encoder output."""
+    dec = params["decoder"]
+    n_heads = cfg.decoder_attention_heads
+    l = decoder_input_ids.shape[1]
+    dev = decoder_input_ids.device
+    positions = torch.arange(l, device=dev)[None, :]
+    x = _embed(cfg, params["shared"], dec["embed_positions"], decoder_input_ids,
+               dec["layernorm_embedding"], positions)
+    rows = torch.arange(l, device=dev)
+    causal = torch.where(rows[:, None] >= rows[None, :], 0.0, NEG_INF)
+    causal = causal.to(torch.float32)[None, None]  # [1, 1, L(query), L(key)]
+    if decoder_mask is not None:
+        causal = causal + _padding_bias(decoder_mask)
+    enc_bias = _padding_bias(enc_mask)
+    for p, ckv in zip(dec["layers"], precompute_cross_kv(cfg, params, enc_out)):
+        kv = _project_kv(p["self_attn"], x, n_heads)
+        h = _attention(p["self_attn"], x, kv, causal, n_heads, cfg.compute_dtype)
+        x = _ln(p["self_attn_ln"], x + h)
+        h = _attention(p["cross_attn"], x, ckv, enc_bias, n_heads, cfg.compute_dtype)
+        x = _ln(p["cross_attn_ln"], x + h)
+        x = _ln(p["final_ln"], x + _ffn(p, x))
+    return lm_logits(cfg, params, x)
+
+
 def lm_logits(cfg: BartConfig, params: Params, hidden):
     """Tied LM head: hidden @ shared.T + final_logits_bias, f32 out.
 

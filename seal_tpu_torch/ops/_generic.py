@@ -9,23 +9,6 @@ import torch
 from seal_tpu_torch.kernels.window_gather import window_rows
 
 
-def range_for_sequences(backward_step, index, tokens, lengths):
-    """Row ranges for padded token sequences.
-
-    tokens: int32 [..., L] (unshifted); lengths: int32 [...].  Positions
-    >= length are ignored.  Returns (lo, hi) of shape [...].
-    """
-    tokens = torch.as_tensor(tokens, dtype=torch.int32, device=index.device)
-    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=index.device)
-    lo, hi = index.full_range(tokens.shape[:-1])
-    for t in range(tokens.shape[-1]):
-        new_lo, new_hi = backward_step(index, tokens[..., t], lo, hi)
-        keep = t < lengths
-        lo = torch.where(keep, new_lo, lo)
-        hi = torch.where(keep, new_hi, hi)
-    return lo, hi
-
-
 def window_continuations(bwt_at, index, lo, hi, window: int):
     """Continuation tokens sampled from rows of [lo, hi): exhaustive when
     ``hi - lo <= window``, strided otherwise.  Returns (tokens, valid), each

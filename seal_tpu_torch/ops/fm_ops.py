@@ -3,8 +3,10 @@
 
 All ops take *unshifted* token ids and shift internally (SHIFT == 1).
 ``backward_step``/``extend_ranges`` and ``contains_tokens`` go through the
-rank-search kernel (``kernels/fm_search.py``), and ``window_gather`` through
-the window kernel; the other ops are plain torch on every device.
+rank-search kernel and ``range_for_sequences``/``count_sequences`` through
+its sequence mode (``kernels/fm_search.py``), ``window_gather`` through the
+window kernel and ``bucket_counts`` through the bucket kernel; the other
+ops are plain torch on every device.
 """
 
 from __future__ import annotations
@@ -12,7 +14,13 @@ from __future__ import annotations
 import torch
 
 from seal_tpu.index.fm_index import SHIFT
-from seal_tpu_torch.kernels.fm_search import fm_search, searchsorted_psi, symbol_bounds
+from seal_tpu_torch.kernels.bucket_counts import bucket_counts  # noqa: F401
+from seal_tpu_torch.kernels.fm_search import (
+    fm_search,
+    fm_sequences,
+    searchsorted_psi,
+    symbol_bounds,
+)
 from seal_tpu_torch.kernels.window_gather import window_gather  # noqa: F401
 from seal_tpu_torch.ops import _generic
 
@@ -51,8 +59,10 @@ def contains_tokens(index, tokens, lo, hi):
 
 
 def range_for_sequences(index, tokens, lengths):
-    """Row ranges for padded token sequences (see ``ops._generic``)."""
-    return _generic.range_for_sequences(backward_step, index, tokens, lengths)
+    """Row ranges for padded token sequences: tokens int32 [..., L]
+    (unshifted), lengths int32 [...]; positions >= length are ignored.
+    Returns int32 (lo, hi) [...]."""
+    return fm_sequences(index, tokens, lengths)
 
 
 def count_sequences(index, tokens, lengths):
@@ -74,29 +84,6 @@ def window_continuations(index, lo, hi, window: int):
 def bucket_counts_width(index) -> int:
     """Width of ``bucket_counts`` output."""
     return int(index.bucket_occ.shape[-1])
-
-
-def bucket_counts(index, lo, hi):
-    """Exact per-bucket symbol counts of BWT[lo:hi): int32 [..., n_buckets].
-
-    ``bucket_occ`` rows at both bounds plus a recount of the at most
-    ``bucket_rows`` rows of each bound's partial block.
-    """
-    lo = _i32(index, lo).clamp(0, index.n_rows)
-    hi = _i32(index, hi).clamp(0, index.n_rows)
-    pos = torch.stack([lo, hi], 0)
-    R, nb = index.bucket_rows, index.n_buckets
-    blk = pos // R
-    base = index.bucket_occ[blk.long()]  # [2, ..., nb]
-    rows = blk[..., None] * R + torch.arange(R, dtype=torch.int32, device=index.device)
-    valid = rows < pos[..., None]
-    sym = index.bwt[torch.where(valid, rows, 0).long()]
-    # out-of-vocab symbols land past the last bucket, in the dropped column
-    bid = torch.where(valid, (sym // index.bucket_size).clamp(max=nb), nb).long()
-    partial = torch.zeros(pos.shape + (nb + 1,), dtype=torch.int32, device=index.device)
-    partial.scatter_add_(-1, bid, torch.ones_like(bid, dtype=torch.int32))
-    pre = base + partial[..., :nb]
-    return pre[1] - pre[0]
 
 
 def validate_tokens(index, tokens, lo, hi):

@@ -125,6 +125,28 @@ def test_decode_steps_match_jax(models, beams):
         np.testing.assert_allclose(tcache[1]["v"].numpy(), np.asarray(jcache[1]["v"]), **TOL)
 
 
+@pytest.mark.parametrize("with_dec_mask", [False, True])
+def test_decode_full_matches_jax(models, with_dec_mask):
+    """Teacher-forced logits (the rescoring forward), with pad in the
+    decoder ids; optionally with the decoder padding mask too."""
+    jcfg, tcfg, params, tparams = models
+    src, mask = _batch(jcfg, b=3)
+    rng = np.random.default_rng(4)
+    dec = rng.integers(3, jcfg.vocab_size, size=(3, 7)).astype(np.int32)
+    dec[:, 0] = jcfg.decoder_start_token_id
+    dec[1, 4:] = jcfg.pad_token_id
+    dmask = (dec != jcfg.pad_token_id).astype(np.int32) if with_dec_mask else None
+    jenc = jbart.encode(jcfg, params, jnp.asarray(src), jnp.asarray(mask))
+    tenc = tbart.encode(tcfg, tparams, torch.as_tensor(src), torch.as_tensor(mask))
+    want = np.asarray(jbart.decode_full(
+        jcfg, params, jenc, jnp.asarray(mask), jnp.asarray(dec),
+        None if dmask is None else jnp.asarray(dmask)))
+    got = tbart.decode_full(tcfg, tparams, tenc, torch.as_tensor(mask), torch.as_tensor(dec),
+                            None if dmask is None else torch.as_tensor(dmask))
+    assert got.dtype == torch.float32 and got.shape == (3, 7, jcfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 def test_lm_logits_matches_jax(models):
     jcfg, tcfg, params, tparams = models
     h = np.random.default_rng(3).normal(size=(5, jcfg.d_model)).astype(np.float32)

@@ -1,6 +1,7 @@
 """The port's kernels on the card against their plain versions, and the
-port's generation on the card against its CPU path.  Needs a CUDA device
-and skips without one; imports no jax, so it runs where the card is:
+port's generation and searcher on the card against their CPU paths.
+Needs a CUDA device and skips without one; imports no jax, so it runs
+where the card is:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
@@ -14,7 +15,15 @@ from seal_tpu.index import FMIndex
 from seal_tpu_torch.decoding import constrained as tc
 from seal_tpu_torch.decoding import generate as tg
 from seal_tpu_torch.index.device_index import TorchFMIndex
-from seal_tpu_torch.kernels import fm_search, row_topk, triton_logsoftmax, window_gather
+from seal_tpu_torch import bench_search
+from seal_tpu_torch.kernels import (
+    bucket_counts,
+    fm_search,
+    rescore,
+    row_topk,
+    triton_logsoftmax,
+    window_gather,
+)
 from seal_tpu_torch.models import bart
 from seal_tpu_torch.models.config import bart_tiny
 
@@ -126,3 +135,63 @@ def test_generate_on_card_matches_cpu(cuda, seed):
         ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
         assert [t for t, _ in ka] == [t for t, _ in kb]
         np.testing.assert_allclose([s for _, s in kb], [s for _, s in ka], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("n,L", [(48, 3), (4096, 16)])
+def test_fm_sequences_matches_plain(cuda, n, L):
+    """Kernel 5: corpus n-grams (non-empty ranges), random and
+    out-of-range tokens, every length 0..L; exactly equal."""
+    host = _zipf_host()
+    t = TorchFMIndex.from_host(host, vocab=40, device=cuda)
+    rng = np.random.default_rng(n)
+    text = host.text[:-1] - 1  # the documents, each reversed
+    starts = rng.integers(0, text.size - L, size=n)
+    toks = np.stack([text[s : s + L][::-1] for s in starts]).astype(np.int32)
+    toks[: n // 8] = rng.integers(-2, 45, size=(n // 8, L))
+    lens = rng.integers(0, L + 1, size=n).astype(np.int32)
+    toks_c, lens_c = torch.as_tensor(toks).cuda(), torch.as_tensor(lens).cuda()
+    n0 = fm_search.fm_sequences.launches
+    got = fm_search.fm_sequences(t, toks_c, lens_c)
+    assert fm_search.fm_sequences.launches == n0 + 1
+    want = fm_search.sequences_plain(t, toks_c, lens_c)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ((got[1] - got[0]) > 0).any()
+
+
+@pytest.mark.parametrize("shape", [(48,), (16, 15)])
+def test_bucket_counts_matches_plain(cuda, shape):
+    """Kernel 6: random ranges, block edges, the sentinel row, clamping."""
+    host = _zipf_host()
+    t = TorchFMIndex.from_host(host, vocab=30, device=cuda)  # symbols 30, 31 are OOV
+    lo, hi = _ranges(host, np.random.default_rng(len(shape)), n=int(np.prod(shape)))
+    lo[3], hi[3] = 1024, 2048
+    lo[4], hi[4] = 1023, 1025
+    lo[5], hi[5] = -7, host.size() + 9
+    lo, hi = lo.reshape(shape), hi.reshape(shape)
+    got = bucket_counts.bucket_counts(t, lo, hi)
+    assert torch.equal(got, bucket_counts.bucket_counts_plain(t, lo, hi))
+
+
+@pytest.mark.parametrize("shape,n_prefix", [((8, 7, 99), 0), ((64, 16, 50265), 1)])
+def test_rescore_logprob_matches_plain(cuda, shape, n_prefix):
+    """Kernel 7 within 1e-4 per key (f32 row sums in another order), and
+    the same bits from run to run."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    logits = torch.randn(shape, generator=g, device=cuda) * 3
+    logits[..., 1] = float("-inf")
+    tgt = torch.randint(0, shape[-1], shape[:2], generator=g, device=cuda, dtype=torch.int32)
+    tgt[:, -3:] = 1  # pad
+    got = rescore.rescore_logprob(logits, tgt, n_prefix)
+    want = rescore.rescore_logprob_plain(logits, tgt, n_prefix)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert torch.equal(got, rescore.rescore_logprob(logits, tgt, n_prefix))
+
+
+def test_searcher_on_card_matches_cpu(cuda):
+    """The tiny searcher on the card gives the CPU path's ranking: the same
+    doc ids in the same order, scores within 1e-4 relative."""
+    cpu = bench_search.tiny_searcher("cpu").batch_search(bench_search.TINY_QUERIES, k=5)
+    gpu = bench_search.tiny_searcher(cuda).batch_search(bench_search.TINY_QUERIES, k=5)
+    for a, b in zip(cpu, gpu):
+        assert [d.docid for d in b] == [d.docid for d in a]
+        np.testing.assert_allclose([d.score for d in b], [d.score for d in a], rtol=1e-4)

@@ -171,6 +171,66 @@ def test_rank_and_sequences_match_host(pair):
     assert cnt.tolist() == [host.get_count(p) for p in pats]
 
 
+@pytest.mark.parametrize("L", [1, 5, 16])
+def test_sequences_match_jax_and_host(pair, L):
+    """Kernel 5's plain version (``range_for_sequences``/``count_sequences``)
+    == JAX's scan and host ``get_count``, at every length 0..L: corpus
+    n-grams (non-empty ranges that may empty out), random tokens (empty
+    ranges that stay empty) and out-of-vocab tokens (reset to (0, 0))."""
+    _, host, j, t = pair
+    rng = np.random.default_rng(10 + L)
+    text = (host.text[:-1] - 1).tolist()  # the documents, each reversed
+    seqs = []
+    for _ in range(30):
+        i = int(rng.integers(0, len(text) - L))
+        seqs.append(text[i : i + L][::-1])
+    seqs += [rng.integers(0, 34, size=L).tolist() for _ in range(10)]
+    oov = [list(s) for s in seqs[:6]]
+    for k, s in enumerate(oov):
+        s[k % L] = 999 if k % 2 else -2
+    seqs += oov
+    tk = np.asarray(seqs, np.int32)
+    n = len(seqs)
+    lens = (np.arange(n) % (L + 1)).astype(np.int32)  # every length 0..L
+    lo, hi = tops.range_for_sequences(t, tk, lens)
+    jlo, jhi = jops.range_for_sequences(j, tk, lens)
+    _eq(jlo, lo)
+    _eq(jhi, hi)
+    assert ((hi - lo) > 0).sum() >= 30 and ((hi - lo) == 0).any()
+    cnt = tops.count_sequences(t, tk, lens)
+    _eq(jops.count_sequences(j, tk, lens), cnt)
+    assert cnt.tolist() == [host.get_count(s[:n_]) for s, n_ in zip(seqs, lens.tolist())]
+    before = fm_search.fm_sequences.launches
+    assert torch.equal(fm_search.fm_sequences(t, torch.as_tensor(tk), torch.as_tensor(lens))[0],
+                       lo)
+    assert fm_search.fm_sequences.launches == before  # CPU: the plain version
+
+
+def test_bucket_counts_block_edges_match_jax(pair):
+    """Kernel 6's plain version == JAX at ranges that start and end inside
+    a bucket block and on its edges, and over the sentinel's row."""
+    _, host, j, t = pair
+    N, R = host.size(), t.bucket_rows
+    sentinel = int(np.flatnonzero(np.asarray(host.bwt) == 0)[0])
+    edges = [0, 1, R - 1, R, R + 1, 2 * R - 1, 2 * R, N - 1, N]
+    edges = [e for e in edges if 0 <= e <= N]
+    los, his = [], []
+    for a in edges:
+        for b in edges:
+            if a <= b:
+                los.append(a)
+                his.append(b)
+    los += [sentinel, sentinel, max(sentinel - 3, 0), 0, 5]
+    his += [sentinel + 1, N, sentinel + 7, -4, N + 9]  # clamped to [0, N]
+    los, his = np.asarray(los, np.int32), np.asarray(his, np.int32)
+    got = tops.bucket_counts(t, los, his)
+    _eq(jops.bucket_counts(j, los, his), got)
+    assert int(got[-5, 0]) == 1  # the sentinel row counts in bucket 0
+    # the [B, K] ranges of the decode loop
+    _eq(jops.bucket_counts(j, los[:12].reshape(3, 4), his[:12].reshape(3, 4)),
+        tops.bucket_counts(t, los[:12].reshape(3, 4), his[:12].reshape(3, 4)))
+
+
 @pytest.mark.parametrize("w", [4, 16])
 def test_window_continuations_matches_jax(pair, w):
     _, host, j, t = pair

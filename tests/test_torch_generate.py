@@ -3,8 +3,10 @@
 runs its kernels' plain versions): identical hypotheses -- token lists
 equal, scores within atol 1e-4 (f32 sums in another order) -- and
 identical per-step candidates, parents and selections.  Also the host redo
-of an unsound step, fast == force_full within the port, the numpy copies
-of the JAX helpers, the modes not ported yet, and the import guard."""
+of an unsound step, fast == force_full within the port, the forced-prefix
+decode with a custom EOS, the keyword parity with the JAX entry point, the
+numpy copies of the JAX helpers, the modes not ported yet, and the import
+guard."""
 
 import os
 import subprocess
@@ -253,12 +255,81 @@ def test_extract_hypotheses_and_pad_batch_match_jax():
             np.testing.assert_array_equal(a, b)
 
 
+def _title_corpus(seed, marker=50):
+    """Docs of ``title tokens, marker, body tokens, EOS``: a forced prefix
+    [2] (EOS) pins a decode to the starts of documents, and the marker is
+    the title decode's custom EOS."""
+    rng = np.random.default_rng(seed)
+    docs = [rng.integers(4, 40, size=rng.integers(1, 4)).tolist() + [marker]
+            + rng.integers(4, 90, size=rng.integers(5, 20)).tolist() + [2] for _ in range(30)]
+    host = FMIndex()
+    host.initialize(docs)
+    queries = [[0] + rng.integers(4, 90, size=5).tolist() + [2] for _ in range(3)]
+    return host, queries
+
+
+@pytest.mark.parametrize(
+    "seed,forced,budget",
+    [(0, [2], "tiny"), (1, [2], "default"), (2, "two", "tiny"), (3, [2, 95], "tiny")],
+)
+def test_force_decoding_from_matches_jax(models, seed, forced, budget):
+    """Title-decode settings (the searcher's): a forced range prefix, a
+    custom EOS (the title marker) and min_length 1; a two-token prefix
+    taken from the corpus; and a prefix absent from the corpus (empty
+    start range).  Hypotheses equal JAX's, and the fast path equals
+    ``force_full`` within the port."""
+    host, queries = _title_corpus(seed)
+    if forced == "two":
+        forced = [2, int(host.text[0]) - 1]  # EOS, then the first token of a document
+    kw = dict(window=4, exact_chunk=4) if budget == "tiny" else {}
+    kw.update(num_beams=4, max_length=7, min_length=1, eos_token_id=50,
+              force_decoding_from=forced, forced_bos_token_id=None)
+    jh, th = _both(models, host, queries, **kw)
+    assert sum(len(h) for h in th) > 0
+    _assert_same_hyps(jh, th)
+    _, tcfg, _, tparams = models
+    full = tg.fm_index_generate(tcfg, tparams, TorchFMIndex.from_host(host, vocab=96), queries,
+                                force_full=True, **kw)
+    assert [sorted((tuple(t), s) for s, t in h) for h in th] == [
+        sorted((tuple(t), s) for s, t in h) for h in full
+    ]
+
+
+def test_generate_keywords_match_jax():
+    """Every keyword of the JAX ``fm_index_generate_async`` is accepted by
+    the port's, with the same default (the searcher passes them all)."""
+    import inspect
+
+    want = inspect.signature(jg.fm_index_generate_async).parameters
+    got = inspect.signature(tg.fm_index_generate_async).parameters
+    for name, p in want.items():
+        assert name in got, name
+        assert got[name].default == p.default, name
+    _, tcfg, _, _ = _models(V=30)
+    host, _ = _random_corpus(0, hi=28)
+    # top_m is clamped to the vocab and stored, as in JAX
+    captured = {}
+    real = tg._search
+
+    def spy(model_cfg, params, index, dcfg, ids, mask):
+        captured["dcfg"] = dcfg
+        return real(model_cfg, params, index, dcfg, ids, mask)
+
+    tg._search = spy
+    try:
+        tg.fm_index_generate(tcfg, tbart.init_params(tcfg), TorchFMIndex.from_host(host, vocab=30),
+                             [[0, 5, 6, 2]], num_beams=2, max_length=3, top_m=256)
+    finally:
+        tg._search = real
+    assert captured["dcfg"].top_m == 30
+
+
 @pytest.mark.parametrize(
     "option",
-    [dict(forced_bos_token_id=0), dict(force_decoding_from=[5, 6]), dict(sample=True),
+    [dict(forced_bos_token_id=0), dict(sample=True),
      dict(diverse_bs_groups=2), dict(speculative=True), dict(exact_mask=True),
      dict(exact_ties=True), dict(topk=5), dict(adjust_logits_fn=lambda x, t: x),
-     dict(disable_fm_index=True)],
+     dict(disable_fm_index=True), dict(mesh=object())],
 )
 def test_unported_modes_raise(models, option):
     jcfg, tcfg, _, tparams = models
