@@ -16,10 +16,13 @@
    that a ``force_full`` re-run gives identical hypotheses, and that every
    kernel of the path was launched; profiles one more batch (device time
    by kernel, the device's busy share).
-5. Holds each of the four kernels against its plain PyTorch version at the
-   main path's shapes, on the card, and times both; runs the port on the
-   card against its plain CPU path on a small input; checks the bf16 LM
-   head's f32 result.
+5. Holds kernels 1-4 and 8-11 against their plain PyTorch versions at the
+   main path's shapes, on the card, and times both beside each kernel's
+   bound and, where one PyTorch call computes the same function, that
+   call (``torch.topk``, ``torch.log_softmax``,
+   ``scaled_dot_product_attention``); runs the port on the card against
+   its plain CPU path on a small input; checks the bf16 LM head's f32
+   result.
 6. Drives the second path, ``SEALSearcher.batch_search`` at the
    end-to-end bench point of ``seal_tpu_torch.bench_search`` (BART-large
    bf16, a 10k-document word corpus, 32 queries in units of 16, every key
@@ -31,7 +34,9 @@
    against its CPU path.
 
 Each path's launch counts come from that path's own run (every count set
-to 0 just before it, read just after).  Prints one JSON object with the
+to 0 just before it, read just after); on both decoding paths kernels 9
+and 10 must launch once per decoder layer and decode step, kernels 8
+(select) and 11 once per decode step.  Prints one JSON object with the
 kernel table on the line before the last, and ``{"ok": true, "device":
 {...}}`` as the last line.  Imports no jax.
 """
@@ -56,6 +61,11 @@ REPLACES = {
     "fm_sequences": "seal_tpu/ops/_generic.py:17",
     "bucket_counts": "seal_tpu/ops/fm_ops.py:238",
     "rescore_logprob": "seal_tpu/scoring/keys.py:102",
+    "beam_merge": "seal_tpu/decoding/constrained.py:612",
+    "beam_select": "seal_tpu/decoding/constrained.py:1046",
+    "cross_attention_step": "seal_tpu/models/bart.py:156",
+    "self_attention_step": "seal_tpu/models/bart.py:275",
+    "reorder_cache": "seal_tpu/models/bart.py:356",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -65,15 +75,22 @@ SOURCES = {
     "fm_sequences": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
     "bucket_counts": ("cuda", "seal_tpu_torch/kernels/csrc/bucket_counts.cu"),
     "rescore_logprob": ("cuda", "seal_tpu_torch/kernels/csrc/rescore.cu"),
+    "beam_merge": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
+    "beam_select": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
+    "cross_attention_step": ("cuda", "seal_tpu_torch/kernels/csrc/decode_attention.cu"),
+    "self_attention_step": ("cuda", "seal_tpu_torch/kernels/csrc/decode_attention.cu"),
+    "reorder_cache": ("cuda", "seal_tpu_torch/kernels/csrc/reorder_cache.cu"),
 }
-# the kernels each driven path must launch (bucket_counts runs only in the
-# proven loop's later rounds, which the force_full re-runs reach; kernel 4
-# must also show from the unigram call on its own)
+# the kernels each driven path must launch (bucket_counts and the loop
+# rounds' merges run only in the proven loop, which the force_full re-runs
+# reach; kernel 4 must also show from the unigram call on its own)
+DECODE_STEP = ("beam_merge", "beam_select", "cross_attention_step", "self_attention_step",
+               "reorder_cache")
 PATH_KERNELS = {
-    "generate": ("fm_search", "window_gather", "row_topk", "log_softmax_min_len"),
-    "generate_force_full": ("bucket_counts",),
+    "generate": ("fm_search", "window_gather", "row_topk", "log_softmax_min_len") + DECODE_STEP,
+    "generate_force_full": ("bucket_counts", "beam_merge"),
     "batch_search": ("fm_search", "window_gather", "row_topk", "log_softmax_min_len",
-                     "fm_sequences", "rescore_logprob"),
+                     "fm_sequences", "rescore_logprob") + DECODE_STEP,
     "unigram": ("log_softmax_min_len",),
     "grounding_unit": ("fm_sequences",),
 }
@@ -90,6 +107,14 @@ SEARCH_RTOL = 1e-4
 # is off by ~1e-5 (summation order), while rounding the output to bf16 (logits
 # up to ~3.5 here) would cost up to ~8e-3
 LM_HEAD_ATOL = 1e-4
+# kernels 9/10 against their plain versions: bf16 outputs within one output
+# ulp plus one bf16 step of each probability (f32 sums in another order can
+# round a probability the other way; decode_attention.bf16_error_ratio <= 1),
+# f32 outputs within f32 rounding of sums of <= 14 terms
+ATTN_F32_ATOL = 1e-5
+# the card's peaks for the bound column (H100 SXM data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 FAILURES: list[str] = []
 
@@ -116,6 +141,23 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def log_kernel(row) -> None:
+    """One kernel line, with its bound (the least time the card could take:
+    the bytes it must move at the HBM rate, or its flops at the f32 rate,
+    whichever is larger)."""
+    byte_ms = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    flop_ms = row.get("flops", 0) / F32_FLOPS * 1e3
+    row["bound_ms"] = max(byte_ms, flop_ms)
+    row["bound_by"] = "bytes" if byte_ms >= flop_ms else "operations"
+    lib = f", library {row['library_ms']:.4f} ms" if row["library_ms"] is not None else ""
+    log(f"kernel {row['name']}: {row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms{lib}, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {row['bytes']} B) at {row['shape']}, "
+        f"max err {row['max_abs_err']}"
+        + "".join(f", {k} {row[k]}" for k in ("tol_ratio", "f32_max_abs_err", "step0_ms",
+                                               "step0_plain_ms", "long_ms", "long_plain_ms")
+                  if k in row))
 
 
 def kernel_phases(np, torch, host, index, V, B, K):
@@ -161,7 +203,10 @@ def kernel_phases(np, torch, host, index, V, B, K):
         ms=time_ms(lambda: k1.fm_search(index, "contains", cand, lo, hi)),
         plain_ms=time_ms(lambda: k1.contains_plain(index, cand, lo, hi)),
         shape=f"contains [{B},{K},65]; backward_step [{B},{K}]",
-        members=int(want_c.sum()),
+        members=int(want_c.sum()), library_ms=None,
+        # tokens, membership, ranges, and one dependent psi read per search
+        # step (search_iters bounds the chain) plus the symbol's directory row
+        bytes=cand.numel() * (4 + 1 + 16 + 4 * index.search_iters) + 8 * B * K,
     ))
 
     # kernel 2: window [B*K rows, w=32, fill pad] and a slab (w=64, fill 0)
@@ -178,7 +223,8 @@ def kernel_phases(np, torch, host, index, V, B, K):
         name="window_gather", max_abs_err=err2,
         ms=time_ms(lambda: k2.window_gather(index, lo, hi, 32, lp, 1)),
         plain_ms=time_ms(lambda: k2.window_gather_plain(index, lo, hi, 32, lp, 1)),
-        shape=f"[{B * K}, w=32] over lp [{B * K},{V}]",
+        shape=f"[{B * K}, w=32] over lp [{B * K},{V}]", library_ms=None,
+        bytes=B * K * (8 + 32 * (4 + 4) + 32 * 9),
     ))
 
     # kernel 3: every top-k of the path; values rounded so ties abound
@@ -199,7 +245,8 @@ def kernel_phases(np, torch, host, index, V, B, K):
         name="row_topk", max_abs_err=err3,
         ms=time_ms(lambda: k3.row_topk(lp, 64)),
         plain_ms=time_ms(lambda: k3.row_topk_plain(lp, 64)),
-        shape=f"[{B * K},{V}] k=64",
+        shape=f"[{B * K},{V}] k=64", bytes=lp.numel() * 4 + B * K * 64 * 12,
+        library_ms=time_ms(lambda: torch.topk(lp, 64)),
     ))
 
     # kernel 4: log-softmax with the EOS ban over f32 logits
@@ -215,7 +262,231 @@ def kernel_phases(np, torch, host, index, V, B, K):
         name="log_softmax_min_len", max_abs_err=err4, atol=LOGSOFTMAX_ATOL,
         ms=time_ms(lambda: k4.log_softmax_ban(logits, 2, -1.7e38)),
         plain_ms=time_ms(lambda: k4.log_softmax_ban_plain(logits, 2, -1.7e38)),
-        shape=f"[{B * K},{V}]",
+        shape=f"[{B * K},{V}]", bytes=2 * logits.numel() * 4, flops=4 * logits.numel(),
+        library_ms=time_ms(lambda: torch.log_softmax(logits, -1)),
+    ))
+    torch.cuda.synchronize()
+    return table
+
+
+def mismatches(torch, got, want) -> int:
+    """Elements that differ; floats compared bit for bit."""
+    n = 0
+    for a, b in zip(got, want):
+        if a is None and b is None:
+            continue
+        if a.is_floating_point():
+            a, b = a.view(torch.int32 if a.element_size() == 4 else torch.int16), b.view(
+                torch.int32 if b.element_size() == 4 else torch.int16)
+        n += int((a != b).sum())
+    return n
+
+
+def decode_kernel_phases(np, torch, cfg, V, B, K, window, enc_len, key_len, device="cuda"):
+    """Kernels 8-11 against their plain versions at the generation path's
+    shapes, each beside its library yardstick where one PyTorch call
+    computes the same function."""
+    import torch.nn.functional as F
+
+    from seal_tpu_torch.kernels import beam_select as k8
+    from seal_tpu_torch.kernels import decode_attention as k910
+    from seal_tpu_torch.kernels import reorder_cache as k11
+    from seal_tpu_torch.kernels.row_topk import row_topk
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(3)
+    i32, f32 = torch.int32, torch.float32
+    table = []
+    n_buf = 2 * K
+    rows = B * K
+    lp = torch.log_softmax(torch.randn(rows, V, generator=g, device=dev) * 2, -1)
+    lp = torch.round(lp * 4) / 4  # ties
+    lp[:, 5] = 0.0
+    lp[::2, 6] = -0.0
+    lp[::3, cfg.pad_token_id] = float("-inf")
+
+    def rint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=i32)
+
+    def rbool(p, shape):
+        return torch.rand(shape, generator=g, device=dev) < p
+
+    def take(tok):  # the log-probs of [B, K, n] tokens
+        return torch.gather(lp, 1, tok.reshape(rows, -1).long()).reshape(tok.shape)
+
+    # kernel 8, merge: round 0 [B, K, 30 + 64 + 64] (empty buffer, strided
+    # membership view) and a loop round [B, K, 30 + 256 + 256]
+    err8m = 0
+    timed = None
+    for n_top, with_buf in ((64, False), (256, True)):
+        top_lp, top_idx = row_topk(lp, n_top)
+        top_tok = top_idx.to(i32).reshape(B, K, n_top)
+        top_lp = top_lp.reshape(B, K, n_top)
+        ok = rbool(0.5, (B, K, n_top + 1))[..., :n_top]
+        slab_tok = rint(0, 300, (B, K, n_top))  # repeats tokens and the LM top
+        slab_lp, slab_ok = take(slab_tok), rbool(0.8, (B, K, n_top))
+        buf = None
+        if with_buf:
+            btok = rint(0, 300, (B, K, n_buf))
+            buf = (btok, take(btok), rbool(0.7, (B, K, n_buf)))
+        args = (buf, top_tok, top_lp, ok, slab_tok, slab_lp, slab_ok, V, n_buf)
+        err8m += mismatches(torch, k8.beam_merge(*args), k8.beam_merge_plain(*args))
+        nbytes = sum(t.numel() * t.element_size() for t in (top_tok, top_lp, slab_tok, slab_lp))
+        nbytes += (ok.numel() + slab_ok.numel()) + (0 if buf is None else 9 * B * K * n_buf)
+        nbytes += 9 * B * K * n_buf  # outputs
+        timed = timed or dict(
+            name="beam_merge", ms=time_ms(lambda: k8.beam_merge(*args)),
+            plain_ms=time_ms(lambda: k8.beam_merge_plain(*args)), bytes=nbytes,
+            shape=f"[{B},{K},{n_buf}+{n_top}+{n_top}] (round 0); the loop round also checked",
+        )
+    if err8m:
+        fail(f"beam_merge differs from its plain version ({err8m} elements)")
+    table.append(dict(timed, max_abs_err=err8m, library_ms=None))
+
+    # kernel 8, select: [B, K, 30 + 32 + 2] with the soundness test, and
+    # step 0's epilogue after kernel 3 on [B, 1, V]
+    btok = rint(0, 400, (B, K, n_buf))
+    buf = (btok, take(btok), rbool(0.7, (B, K, n_buf)))
+    win_valid = rbool(0.7, (B, K, window))
+    win_tok = torch.where(win_valid, rint(0, 400, (B, K, window)), cfg.pad_token_id)
+    eos_ok = rbool(0.5, (B, K, 2))[..., 1:]
+    prev_count = rint(0, 50, (B, K))
+    finished = rbool(0.1, (B, K))
+    bs = torch.round(torch.randn(B, K, generator=g, device=dev) * 2) / 2 - 3
+    bs[0, 1] = k8.NEG_INF  # a dead beam
+    need, th_lp = rbool(0.5, (B, K)), torch.round(torch.randn(B, K, generator=g, device=dev)) - 4
+    sargs = (buf, n_buf, win_tok, win_valid, take(win_tok), eos_ok, lp, prev_count, finished, bs,
+             need, th_lp)
+    skw = dict(K=K, eos=cfg.eos_token_id, pad=cfg.pad_token_id)
+    err8s = 0
+    for a in (sargs, (None,) + sargs[1:]):
+        (gout, gbad), (wout, wbad) = k8.beam_select(*a, **skw), k8.beam_select_plain(
+            *a, stop_at_count=0, always_allow_eos=False, **skw)
+        err8s += mismatches(torch, gout + (gbad,), wout + (wbad,))
+    lp0 = lp[:B]
+    cons0 = torch.where(rbool(0.6, (V,)), lp0, k8.NEG_INF)
+    top_cons, top_idx = row_topk(cons0, 2 * K)
+    bs0 = torch.full((B, K), k8.NEG_INF, device=dev)
+    bs0[:, 0] = 0.0
+    targs = (top_cons, top_idx, lp0, bs0, 1, K, cfg.eos_token_id)
+    err8s += mismatches(torch, k8.beam_select_top(*targs), k8.beam_select_top_plain(*targs))
+    if err8s:
+        fail(f"beam_select differs from its plain version ({err8s} elements)")
+    ncand = n_buf + window + 2
+    sel_bytes = (B * K * (n_buf * 9 + window * 9 + 1 + 4 + 1 + 4 + 1 + 4) + rows * 8
+                 + B * (2 * K * 13 + K * 13 + 1))
+    table.append(dict(
+        name="beam_select", max_abs_err=err8s, library_ms=None, bytes=sel_bytes,
+        ms=time_ms(lambda: k8.beam_select(*sargs, **skw)),
+        plain_ms=time_ms(lambda: k8.beam_select_plain(*sargs, stop_at_count=0,
+                                                      always_allow_eos=False, **skw)),
+        step0_ms=time_ms(lambda: k8.beam_select_top(*targs)),
+        step0_plain_ms=time_ms(lambda: k8.beam_select_top_plain(*targs)),
+        shape=f"[{B},{K},{ncand}] with the soundness test; step 0's epilogue on [{B},1,{V}]",
+    ))
+
+    # kernels 9 and 10: bf16 at the generation point (and f32 once)
+    H, Dh = cfg.decoder_attention_heads, cfg.head_dim
+    bf = torch.bfloat16
+    q = (torch.randn(rows, H, Dh, generator=g, device=dev) * 0.125).to(bf)
+    kx = torch.randn(B, enc_len, H, Dh, generator=g, device=dev).to(bf)
+    vx = torch.randn(B, enc_len, H, Dh, generator=g, device=dev).to(bf)
+    bias = torch.zeros(B, enc_len, device=dev)
+    bias[::3, -3:] = -1e9  # padded encoder positions
+    step = key_len - 2  # the last decode step
+    kc = torch.zeros(rows, key_len, H, Dh, device=dev, dtype=bf)
+    vc = torch.zeros(rows, key_len, H, Dh, device=dev, dtype=bf)
+    kc[:, : step + 1] = torch.randn(rows, step + 1, H, Dh, generator=g, device=dev).to(bf)
+    vc[:, : step + 1] = torch.randn(rows, step + 1, H, Dh, generator=g, device=dev).to(bf)
+
+    # the encoder's longest input (max_position_embeddings positions, staged
+    # by the kernel in tiles), a third of the queries padded
+    m_long = cfg.max_position_embeddings
+    kl = torch.randn(B, m_long, H, Dh, generator=g, device=dev).to(bf)
+    vl = torch.randn(B, m_long, H, Dh, generator=g, device=dev).to(bf)
+    bias_l = torch.zeros(B, m_long, device=dev)
+    bias_l[::3, -300:] = -1e9
+
+    def attn_err(got, want, *args):
+        """(share of the bf16 tolerance, absolute error)"""
+        return (k910.bf16_error_ratio(got, want, *args),
+                float((got.float() - want.float()).abs().max()))
+
+    e9 = [attn_err(k910.cross_attention_step(*a), k910.decode_attention_plain(*a), *a)
+          for a in ((q, kx, vx, bias), (q[:B], kx, vx, bias), (q, kl, vl, bias_l))]
+    e10 = [attn_err(k910.self_attention_step(qq, kk, vv, s),
+                    k910.self_attention_plain(qq, kk, vv, s), qq, kk, vv, None, s + 1)
+           for qq, kk, vv, s in ((q, kc, vc, step), (q[:B], kc[:B], vc[:B], 0))]
+    r9, a9 = max(r for r, _ in e9), max(a for _, a in e9)
+    r10, a10 = max(r for r, _ in e10), max(a for _, a in e10)
+    qf, kf, vf = q[:64].float(), kx[:4].float(), vx[:4].float()
+    f9 = float((k910.cross_attention_step(qf, kf, vf, bias[:4])
+                - k910.decode_attention_plain(qf, kf, vf, bias[:4])).abs().max())
+    kcf, vcf = kc[:64].float(), vc[:64].float()
+    f10 = float((k910.self_attention_step(qf, kcf, vcf, step)
+                 - k910.self_attention_plain(qf, kcf, vcf, step)).abs().max())
+    if r9 > 1.0 or f9 > ATTN_F32_ATOL:
+        fail(f"cross_attention_step differs from its plain version (bf16 {r9} of the "
+             f"tolerance, {a9} absolute; f32 {f9})")
+    if r10 > 1.0 or f10 > ATTN_F32_ATOL:
+        fail(f"self_attention_step differs from its plain version (bf16 {r10} of the "
+             f"tolerance, {a10} absolute; f32 {f10})")
+    # the library yardstick: one fused attention call on [batch, heads, len, Dh]
+    g_ = K
+    q4 = q.reshape(B, g_, H, Dh).permute(0, 2, 1, 3).contiguous()
+    k4, v4 = kx.permute(0, 2, 1, 3).contiguous(), vx.permute(0, 2, 1, 3).contiguous()
+    mask4 = bias[:, None, None, :].to(bf)
+    qs = q[:, :, None, :].contiguous()  # [rows, H, 1, Dh]
+    ks = kc[:, : step + 1].permute(0, 2, 1, 3).contiguous()
+    vs = vc[:, : step + 1].permute(0, 2, 1, 3).contiguous()
+    cross_bytes = 2 * (q.numel() * 2) + 2 * kx.numel() * 2 + bias.numel() * 4
+    self_bytes = 2 * (q.numel() * 2) + 2 * rows * (step + 1) * H * Dh * 2
+    cross_flops = 4 * rows * H * enc_len * Dh  # QK and PV
+    self_flops = 4 * rows * H * (step + 1) * Dh
+    table.append(dict(
+        name="cross_attention_step", max_abs_err=a9, tol_ratio=r9, f32_max_abs_err=f9,
+        bytes=cross_bytes, flops=cross_flops,
+        ms=time_ms(lambda: k910.cross_attention_step(q, kx, vx, bias)),
+        plain_ms=time_ms(lambda: k910.decode_attention_plain(q, kx, vx, bias)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask4)),
+        long_ms=time_ms(lambda: k910.cross_attention_step(q, kl, vl, bias_l)),
+        long_plain_ms=time_ms(lambda: k910.decode_attention_plain(q, kl, vl, bias_l)),
+        shape=f"q [{rows},{H},{Dh}] bf16, K/V [{B},{enc_len},{H},{Dh}] (long: {m_long} "
+              "positions); max err absolute, tol_ratio its share of the bf16 tolerance",
+    ))
+    table.append(dict(
+        name="self_attention_step", max_abs_err=a10, tol_ratio=r10, f32_max_abs_err=f10,
+        bytes=self_bytes, flops=self_flops,
+        ms=time_ms(lambda: k910.self_attention_step(q, kc, vc, step)),
+        plain_ms=time_ms(lambda: k910.self_attention_plain(q, kc, vc, step)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+        shape=f"q [{rows},{H},{Dh}] bf16, cache [{rows},{key_len},{H},{Dh}] at step {step}; "
+              "max err absolute, tol_ratio its share of the bf16 tolerance",
+    ))
+
+    # kernel 11: 12 layers x {k, v} [rows, 10, H, Dh] bf16 at step 8, and
+    # step 0's fan-out from B rows
+    n_t = 2 * cfg.decoder_layers
+    src = [torch.zeros(rows, key_len, H, Dh, device=dev, dtype=bf) for _ in range(n_t)]
+    for t in src:
+        t[:, : step + 1] = torch.randn(rows, step + 1, H, Dh, generator=g, device=dev).to(bf)
+    dst = [torch.zeros_like(t) for t in src]
+    dst_p = [torch.zeros_like(t) for t in src]
+    idx = (torch.arange(B, device=dev)[:, None] * K + rint(0, K, (B, K))).reshape(-1)
+    k11.reorder_cache(src, idx, step + 1, dst)
+    k11.reorder_cache_plain(src, idx, step + 1, dst_p)
+    err11 = mismatches(torch, dst, dst_p) + mismatches(torch, dst, [t[idx] for t in src])
+    fan = torch.arange(B, device=dev).repeat_interleave(K)  # step 0: K0 = 1
+    k11.reorder_cache([t[:B] for t in src], fan, 1, dst)
+    err11 += mismatches(torch, [t[:, :1] for t in dst], [t[fan, :1] for t in src])
+    if err11:
+        fail(f"reorder_cache differs from its plain version ({err11} elements)")
+    table.append(dict(
+        name="reorder_cache", max_abs_err=err11, library_ms=None,
+        bytes=2 * n_t * rows * (step + 1) * H * Dh * 2,
+        ms=time_ms(lambda: k11.reorder_cache(src, idx, step + 1, dst)),
+        plain_ms=time_ms(lambda: k11.reorder_cache_plain(src, idx, step + 1, dst_p)),
+        shape=f"{n_t} x [{rows},{key_len},{H},{Dh}] bf16, live columns 0..{step}",
     ))
     torch.cuda.synchronize()
     return table
@@ -224,7 +495,7 @@ def kernel_phases(np, torch, host, index, V, B, K):
 def small_parity(np, torch):
     """The port on the card vs the port's plain CPU path, on a tiny model
     and corpus (the CPU path is held to the JAX package by the tests)."""
-    from seal_tpu.index import FMIndex
+    from seal_tpu_torch.index.fm_index import FMIndex
     from seal_tpu_torch.decoding.generate import fm_index_generate, pad_batch
     from seal_tpu_torch.index.device_index import TorchFMIndex
     from seal_tpu_torch.models import bart
@@ -287,6 +558,10 @@ def search_kernel_phases(np, torch, host, index, vocab):
         ms=time_ms(lambda: k5.fm_sequences(index, toks, lens)),
         plain_ms=time_ms(lambda: k5.sequences_plain(index, toks, lens)),
         shape=f"[{n}, {L}], lengths 1-{L}, {int(((want[1] - want[0]) > 0).sum())} non-empty",
+        library_ms=None,
+        # tokens, lengths, ranges out, and per position two search chains of
+        # at most search_iters dependent psi reads
+        bytes=n * (L * 4 + 4 + 8) + int(lens.sum()) * 2 * 4 * index.search_iters,
     ))
 
     # kernel 6: [16, 15] ranges of one- and two-token corpus prefixes, plus
@@ -303,13 +578,20 @@ def search_kernel_phases(np, torch, host, index, vocab):
     lo[0, 2], hi[0, 2] = 5, 5
     err6 = int((k6.bucket_counts(index, lo, hi) - k6.bucket_counts_plain(index, lo, hi))
                .abs().max())
+    # the rows each range recounts from the BWT: its partial blocks
+    br = index.bucket_rows
+    lo_c, hi_c = lo.clamp(0, index.n_rows).long(), hi.clamp(0, index.n_rows).long()
+    same = lo_c // br == hi_c // br
+    partial = torch.where(same, (hi_c - lo_c).clamp(min=0),
+                          (lo_c // br + 1) * br - lo_c + hi_c - hi_c // br * br)
     if err6:
         fail(f"bucket_counts differs from its plain version (max err {err6})")
     table.append(dict(
         name="bucket_counts", max_abs_err=err6,
         ms=time_ms(lambda: k6.bucket_counts(index, lo, hi)),
         plain_ms=time_ms(lambda: k6.bucket_counts_plain(index, lo, hi)),
-        shape=f"[{B},{K}] ranges x {index.n_buckets} buckets",
+        shape=f"[{B},{K}] ranges x {index.n_buckets} buckets", library_ms=None,
+        bytes=B * K * (8 + 2 * 4 * index.n_buckets + 4 * index.n_buckets) + int(partial.sum()) * 4,
     ))
 
     # kernel 7: a full rescoring sub-batch of f32 logits, with the SEAL
@@ -332,7 +614,8 @@ def search_kernel_phases(np, torch, host, index, vocab):
         name="rescore_logprob", max_abs_err=err7, atol=RESCORE_ATOL,
         ms=time_ms(lambda: k7.rescore_logprob(logits, tgt, 0)),
         plain_ms=time_ms(lambda: k7.rescore_logprob_plain(logits, tgt, 0)),
-        shape=f"[{N},{T},{vocab}] f32",
+        shape=f"[{N},{T},{vocab}] f32", library_ms=None,
+        bytes=logits.numel() * 4 + tgt.numel() * 4 + N * 4, flops=3 * logits.numel(),
     ))
     del logits
     torch.cuda.synchronize()
@@ -439,9 +722,12 @@ def main() -> int:
     from seal_tpu_torch import bench_generate, bench_search
     from seal_tpu_torch.decoding import generate
     from seal_tpu_torch.kernels import (
+        beam_select,
         bucket_counts,
         build,
+        decode_attention,
         fm_search,
+        reorder_cache,
         rescore,
         row_topk,
         triton_logsoftmax,
@@ -458,18 +744,46 @@ def main() -> int:
         "fm_sequences": fm_search.fm_sequences,
         "bucket_counts": bucket_counts.bucket_counts,
         "rescore_logprob": rescore.rescore_logprob,
+        "beam_merge": beam_select.beam_merge,
+        "beam_select": beam_select.beam_select,
+        "cross_attention_step": decode_attention.cross_attention_step,
+        "self_attention_step": decode_attention.self_attention_step,
+        "reorder_cache": reorder_cache.reorder_cache,
     }
     by_path: dict = {}  # path -> {kernel: launches in that path's run}
+    # decode steps each path runs (the beam search calls bart.decode_step
+    # through the module, so a counting wrapper sees every step)
+    real_decode_step = bart.decode_step
+    steps = {"n": 0}
+
+    def counted_decode_step(*a, **k):
+        steps["n"] += 1
+        return real_decode_step(*a, **k)
+
+    bart.decode_step = counted_decode_step
 
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
+        steps["n"] = 0
 
     def read_counts(path):
         by_path[path] = {name: fn.launches for name, fn in counters.items()}
         for name in PATH_KERNELS[path]:
             if by_path[path][name] <= 0:
                 fail(f"kernel {name} was not launched on the {path} path")
+        if path in ("generate", "batch_search"):
+            # every decode step ran both attentions in every layer, one
+            # reorder and one selection: no plain attention, gather or
+            # selection is left on the card, step 0 included
+            n, layers = steps["n"], cfg.decoder_layers
+            want = {"cross_attention_step": layers * n, "self_attention_step": layers * n,
+                    "reorder_cache": n, "beam_select": n}
+            for name, count in want.items():
+                if by_path[path][name] != count:
+                    fail(f"{path}: {name} launched {by_path[path][name]} times for {n} decode "
+                         f"steps (want {count})")
+            by_path[path]["decode_steps"] = n
         return by_path[path]
 
     t0 = time.perf_counter()
@@ -542,9 +856,13 @@ def main() -> int:
 
     # ---- each kernel against its plain version, at main-path shapes ------
     table = kernel_phases(np, torch, host, index, V, B, K)
+    table += decode_kernel_phases(np, torch, cfg, V, B, K, generate.resolve_window(0, K),
+                                  ids.shape[1], kw["max_length"])
     for row in table:
-        log(f"kernel {row['name']}: {row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms "
-            f"at {row['shape']}, max err {row['max_abs_err']}")
+        log_kernel(row)
+    one = torch.empty(1, device="cuda")
+    log(f"launch floor: one eager zero_() of one element, {time_ms(lambda: one.zero_()):.4f} ms "
+        "a launch back to back (CUDA events, 20 launches)")
 
     n_small = small_parity(np, torch)
     log(f"small-input parity (card vs CPU plain path): {n_small} keys compared")
@@ -562,13 +880,13 @@ def main() -> int:
 
     # ---- second path: SEALSearcher.batch_search at the e2e bench point ----
     try:
-        from seal_tpu.cpp import native
+        from seal_tpu_torch.cpp import native
 
         native.load()
         native_state = "loaded"
     except (ImportError, OSError, RuntimeError, subprocess.SubprocessError) as e:
         native_state = f"NOT loaded ({type(e).__name__}: {e}); the ranker runs its Python mirror"
-    log(f"seal_tpu.cpp.native (the ranker's C++ helpers): {native_state}")
+    log(f"seal_tpu_torch.cpp.native (the ranker's C++ helpers): {native_state}")
     t0 = time.perf_counter()
     searcher, queries = bench_search.operating_point("cuda")
     log(f"searcher set-up {time.perf_counter() - t0:.1f} s: {searcher.num_docs} docs, "
@@ -625,8 +943,7 @@ def main() -> int:
     stable = search_kernel_phases(np, torch, searcher.fm_index, searcher.device_index,
                                   searcher.model_cfg.vocab_size)
     for row in stable:
-        log(f"kernel {row['name']}: {row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms "
-            f"at {row['shape']}, max err {row['max_abs_err']}")
+        log_kernel(row)
     table += stable
     n_small_search = small_search_parity(np)
     log(f"small searcher parity (card vs CPU): {n_small_search} documents compared")
@@ -651,7 +968,13 @@ def main() -> int:
             "name": row["name"], "route": route, "source": src,
             "replaces": REPLACES[row["name"]], "launches": total[row["name"]],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            **({"tol_ratio": row["tol_ratio"]} if "tol_ratio" in row else {}),
         })
+    missing = set(SOURCES) - {k["name"] for k in kernels}
+    if missing:
+        fail(f"kernels not held against their plain versions: {sorted(missing)}")
     print(json.dumps({"kernels": kernels}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)

@@ -4,7 +4,8 @@ FM-index-constrained key generation (``decoding.generate.fm_index_generate``)
 with BART, over a device FM-index (``index.device_index.TorchFMIndex``).
 The device ops the JAX package leaves to XLA are hand-written kernels here
 (``kernels/``: CUDA C++ for sm_90a and Triton), each beside a plain PyTorch
-version that runs on CPU tensors.  Imports torch, numpy and the jax-free
-host modules of ``seal_tpu`` (``index.fm_index``, ``index.suffix_array``,
-``cpp.native``), never jax.
+version that runs on CPU tensors.  Imports torch and numpy, never jax and
+nothing of ``seal_tpu``: the host modules it needs from there have copies
+here (``index.fm_index``, ``index.suffix_array``, ``cpp.native``,
+``retrieval.document``, ``utils.profiling``).
 """

@@ -54,7 +54,7 @@ def build_queries(rng, pad_id: int):
 
 def operating_point(device="cuda"):
     """(host FMIndex, TorchFMIndex, cfg, params, ids, mask, generate kwargs)."""
-    from seal_tpu.index import FMIndex
+    from seal_tpu_torch.index.fm_index import FMIndex
     from seal_tpu_torch.index.device_index import TorchFMIndex
 
     rng, tokens, docs = build_corpus()

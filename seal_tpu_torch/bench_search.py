@@ -46,7 +46,7 @@ def build_queries(rng, texts, n: int = N_QUERIES):
 
 def operating_point(device="cuda", seed: int = 0):
     """(searcher, queries) at the end-to-end bench point on ``device``."""
-    from seal_tpu.index import FMIndex
+    from seal_tpu_torch.index.fm_index import FMIndex
     from seal_tpu_torch.models import bart, convert
     from seal_tpu_torch.models.config import bart_large
     from seal_tpu_torch.models.tokenizer import WordVocabTokenizer
@@ -83,7 +83,7 @@ def tiny_searcher(device, seed: int = 0):
     stand-in for a trained model) boosts the documents' words, and their
     titles and the title marker most, each by a random amount so no two
     are tied.  The same seed gives the same weights on every device."""
-    from seal_tpu.index import FMIndex
+    from seal_tpu_torch.index.fm_index import FMIndex
     from seal_tpu_torch.models import bart
     from seal_tpu_torch.models.config import bart_tiny
     from seal_tpu_torch.models.tokenizer import WordVocabTokenizer

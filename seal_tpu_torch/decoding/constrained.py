@@ -16,8 +16,14 @@ What changed in translation:
 * The ``lax.scan`` over steps is a Python loop, and ``lax.cond`` /
   ``lax.while_loop`` are Python control flow on ``.any()``; each costs a
   host sync.
-* ``_sel1`` (masked reductions that dodge TPU scalar gathers) is
-  ``torch.gather``.
+* ``_sel1`` (masked reductions that dodge TPU scalar gathers) has no
+  counterpart: the proposal merge and the selection are kernel 8
+  (``kernels/beam_select.py``), which reads its candidates straight from
+  the proposal buffer, the window slots and ``lp``'s EOS and PAD columns,
+  and turns unfilled buffer slots into PAD candidates itself.
+* The decoder's self-attention cache lives in two preallocated buffers:
+  each step's beam reorder (kernel 11) copies the live columns from one
+  into the other instead of gathering a new cache.
 * Not ported, because they work around the TPU: ``check_dense_budget`` /
   ``DENSE_GUARD_BACKENDS`` (a TPU worker fault) and the one-hot-matmul
   block gather of ``_exact_topk`` (the TPU's slow scalar gathers).  Every
@@ -36,16 +42,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
-import numpy as np
 import torch
 
-from seal_tpu.index.fm_index import SHIFT
+from seal_tpu_torch.index.fm_index import SHIFT
+from seal_tpu_torch.kernels.beam_select import NEG_INF, beam_merge, beam_select, beam_select_top
 from seal_tpu_torch.kernels.row_topk import row_topk
 from seal_tpu_torch.kernels.triton_logsoftmax import log_softmax_ban
 from seal_tpu_torch.models import bart
 from seal_tpu_torch.ops import fm_ops
-
-NEG_INF = float(np.finfo(np.float32).min) / 2  # large-negative, -inf-safe
 
 
 class SingleIndexOps:
@@ -182,35 +186,8 @@ def _gather(x, idx):
     return torch.gather(x, -1, idx.long())
 
 
-def _top_idx(score, k: int):
-    """Indices of the top-k by score, ties to the lower index (kernel 3)."""
-    lead = score.shape[:-1]
-    return row_topk(score.reshape(-1, score.shape[-1]), k)[1].reshape(*lead, k)
-
-
-def _dedup_mask(tokens):
-    """Keep-mask of the FIRST instance of each token id within a row."""
-    n = tokens.shape[-1]
-    j_lt_i = torch.ones((n, n), dtype=torch.bool, device=tokens.device).tril(-1)
-    dup = ((tokens[..., :, None] == tokens[..., None, :]) & j_lt_i).any(-1)
-    return ~dup
-
-
-def _exact_slots(ops, cfg: DecodeConfig, lp, lo, hi):
-    """Window slots (with log-probs, kernel 2) plus explicit EOS/PAD slots.
-    ``lp`` is FLAT [B*K, V]."""
-    B, K = lo.shape
-    win_tok, win_valid, win_lp = ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id)
-    dev = lo.device
-    eos_tok = torch.full((B, K, 1), cfg.eos_token_id, dtype=torch.int32, device=dev)
-    eos_lp = lp[:, cfg.eos_token_id].reshape(B, K, 1)
-    pad_tok = torch.full((B, K, 1), cfg.pad_token_id, dtype=torch.int32, device=dev)
-    pad_lp = lp[:, cfg.pad_token_id].reshape(B, K, 1)
-    return win_tok, win_valid, win_lp, eos_tok, eos_lp, pad_tok, pad_lp
-
-
 def _exact_proposals(
-    ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, pad_lp, eos_tok,
+    ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, eos_tok,
     round0_only: bool = False,
 ):
     """Per beam, the ``2K`` best *allowed* tokens by LM log-prob.
@@ -219,9 +196,13 @@ def _exact_proposals(
     ``chunk``-row slab of the interval; later rounds (the full loop only)
     sweep wider chunks past the consumed (lp, token) threshold under
     bucket-support pruning until every beam is complete, covered, dead or
-    exempt.  ``round0_only`` stops after round 0 and also returns the
-    beams still unproven (``need``) and their threshold (``th_lp``).
-    ``lp`` is FLAT [B*K, V].  See the JAX function for the proofs.
+    exempt.  Each round's merge is kernel 8 (``beam_merge``).  Returns the
+    raw buffer (tok, lp, valid) [B, K, 2K] -- or None when every beam is
+    exempt and no round ran -- and the EOS membership; ``round0_only`` stops
+    after round 0 and also returns the beams still unproven (``need``) and
+    their threshold (``th_lp``).  Unfilled buffer slots become PAD
+    candidates in the selection (``beam_select``).  ``lp`` is FLAT [B*K, V].
+    See the JAX function for the proofs.
     """
     B, K = lo.shape
     V = lp.shape[-1]
@@ -235,79 +216,44 @@ def _exact_proposals(
     exempt = finished | stop_trig | ops.window_exhaustive(lo, hi, cfg.window)
     v_idx = torch.arange(V, dtype=torch.int32, device=dev)
 
-    def merge_round(buf_tok, buf_lp, buf_valid, top_tok, top_lp, valid, rows_prev, width):
+    def merge_round(buf, top_tok, top_lp, top_ok, rows_prev, width):
         # the interval's own BWT rows [lo + rows_prev, +width): allowed by
         # construction
         s_lo = torch.minimum(lo + rows_prev, hi)
         s_hi = torch.minimum(s_lo + width, hi)
         slab_tok, slab_ok, slab_lp = ops.window_gather(s_lo, s_hi, width, lp, 0)
-        slab_ok = slab_ok & (slab_lp > NEG_INF / 2)
-        all_tok = torch.cat([buf_tok, top_tok, slab_tok], -1)
-        all_lp = torch.cat([buf_lp, top_lp, slab_lp], -1)
-        all_valid = torch.cat([buf_valid, valid, slab_ok], -1)
-        n = all_tok.shape[-1]
-        uniq = torch.where(
-            all_valid, all_tok, V + torch.arange(n, dtype=torch.int32, device=dev)
-        )
-        fresh = _dedup_mask(uniq)
-        rank_score = torch.where(all_valid & fresh, all_lp, NEG_INF)
-        keep = _top_idx(rank_score, n_buf)
-        return _gather(all_tok, keep), _gather(all_lp, keep), _gather(all_valid & fresh, keep)
+        return beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, V, n_buf)
 
     def round0():
-        buf_tok = torch.zeros((B, K, n_buf), dtype=torch.int32, device=dev)
-        buf_lp = torch.full((B, K, n_buf), NEG_INF, dtype=torch.float32, device=dev)
-        buf_valid = torch.zeros((B, K, n_buf), dtype=torch.bool, device=dev)
         top_lp0, top_tok0 = row_topk(lp, chunk)
         top_tok0 = top_tok0.reshape(B, K, chunk).to(torch.int32)
         top_lp0 = top_lp0.reshape(B, K, chunk)
         ok0 = ops.contains(torch.cat([top_tok0, eos_tok], -1), lo, hi)
-        eos_ok = ok0[..., chunk:]
-        valid0 = ok0[..., :chunk] & (top_lp0 > NEG_INF / 2)
-        buf = merge_round(buf_tok, buf_lp, buf_valid, top_tok0, top_lp0, valid0, 0, chunk)
+        buf = merge_round(None, top_tok0, top_lp0, ok0[..., :chunk], 0, chunk)
         th_lp = top_lp0[..., -1]
         th_ix = top_tok0[..., -1]
         dead = top_lp0[..., 0] <= NEG_INF / 2  # proposal space exhausted
         covered = ops.interval_covered(lo, hi, chunk)
-        return buf, th_lp, th_ix, dead, covered, eos_ok
+        return buf, th_lp, th_ix, dead, covered, ok0[..., chunk:]
 
     def unproven(buf, th_lp, dead, covered):
         _, buf_lp, buf_valid = buf
         complete = (buf_valid.sum(-1) >= n_buf) & (buf_lp[..., -1] >= th_lp)
         return ~exempt & ~dead & ~covered & ~complete
 
-    def skipped():
-        # every beam exempt: the window slots enumerate each live interval
-        # exactly, so LM proposals could only duplicate them
-        return (
-            torch.full((B, K, n_buf), cfg.pad_token_id, dtype=torch.int32, device=dev),
-            pad_lp.expand(B, K, n_buf),
-            torch.zeros((B, K, n_buf), dtype=torch.bool, device=dev),
-        ), ops.contains(eos_tok, lo, hi)
-
-    def finish(buf):
-        buf_tok, buf_lp, buf_valid = buf
-        # unfilled slots become PAD candidates at PAD's true log-prob
-        return (
-            torch.where(buf_valid, buf_tok, cfg.pad_token_id),
-            torch.where(buf_valid, buf_lp, pad_lp),
-            buf_valid,
-        )
-
+    # every beam exempt: the window slots enumerate each live interval
+    # exactly, so LM proposals could only duplicate them
     any_live = bool((~exempt).any())
     if round0_only:
         if any_live:
             buf, th_lp, _, dead, covered, eos_ok = round0()
-            need = unproven(buf, th_lp, dead, covered)
-        else:
-            buf, eos_ok = skipped()
-            need = torch.zeros((B, K), dtype=torch.bool, device=dev)
-            th_lp = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
-        return (*finish(buf), eos_ok, need, th_lp)
+            return buf, eos_ok, unproven(buf, th_lp, dead, covered), th_lp
+        need = torch.zeros((B, K), dtype=torch.bool, device=dev)
+        th_lp = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
+        return None, ops.contains(eos_tok, lo, hi), need, th_lp
 
     if not any_live:
-        buf, eos_ok = skipped()
-        return (*finish(buf), eos_ok)
+        return None, ops.contains(eos_tok, lo, hi)
 
     buf, th_lp, th_ix, dead, covered, eos_ok = round0()
     v_bucket = ((v_idx + SHIFT) // ops.bucket_size()).long()
@@ -326,61 +272,14 @@ def _exact_proposals(
         top_lp, top_tok = row_topk(work, chunk_l)
         top_tok = top_tok.reshape(B, K, chunk_l).to(torch.int32)
         top_lp = top_lp.reshape(B, K, chunk_l)
-        valid = ops.contains(top_tok, lo, hi) & (top_lp > NEG_INF / 2)
         rows_prev = chunk + (it - 1) * chunk_l  # slab rows already enumerated
-        buf = merge_round(*buf, top_tok, top_lp, valid, rows_prev, chunk_l)
+        buf = merge_round(buf, top_tok, top_lp, ops.contains(top_tok, lo, hi), rows_prev, chunk_l)
         th_lp = top_lp[..., -1]
         th_ix = top_tok[..., -1]
         dead = top_lp[..., 0] <= NEG_INF / 2
         covered = ops.interval_covered(lo, hi, rows_prev + chunk_l)
         it += 1
-    return (*finish(buf), eos_ok)
-
-
-def _apply_branches(cfg: DecodeConfig, tokens, fm_valid, prev_count, finished):
-    """Reference branch logic (beam_search.py:114-138) on candidate level:
-    stop-forced beams allow only EOS, finished beams only PAD, the rest the
-    FM-valid set.  Returns the allowed mask."""
-    is_eos = tokens == cfg.eos_token_id
-    is_pad = tokens == cfg.pad_token_id
-    count_eff = torch.where(finished, 0, prev_count)
-    stop_trig = (count_eff <= cfg.stop_at_count) & (cfg.stop_at_count > 0)
-    allowed = torch.where(
-        stop_trig[..., None], is_eos, torch.where(finished[..., None], is_pad, fm_valid)
-    )
-    if cfg.always_allow_eos:
-        allowed = allowed | is_eos
-    return allowed
-
-
-def _select(cfg: DecodeConfig, cons_scores, uncons_scores, tokens, K: int):
-    """top-2K by constrained score + the first-K-non-EOS continuation rule
-    (``beam_search.py:301-320``).  The candidate-beam axis may be narrower
-    than K (step 0)."""
-    B, n_par, ncand = cons_scores.shape
-    flat_cons = cons_scores.reshape(B, n_par * ncand)
-    flat_uncons = uncons_scores.reshape(B, n_par * ncand)
-    flat_tok = tokens.reshape(B, n_par * ncand)
-    top_idx = _top_idx(flat_cons, 2 * K)
-    top_cons = _gather(flat_cons, top_idx)
-    top_tok = _gather(flat_tok, top_idx)
-    top_uncons = _gather(flat_uncons, top_idx)
-    top_parent = (top_idx // ncand).to(torch.int32)
-
-    is_eos = (top_tok == cfg.eos_token_id).to(torch.int8)
-    cont = torch.argsort(is_eos, dim=-1, stable=True)[:, :K]
-    finite = top_cons > NEG_INF / 4
-    return (
-        top_tok,
-        top_parent,
-        top_uncons,
-        finite,
-        _gather(top_tok, cont),
-        _gather(top_parent, cont),
-        _gather(top_uncons, cont),
-        _gather(finite, cont),
-        top_cons,  # [B, 2K] desc; top_cons[:, -1] is the selection cutoff
-    )
+    return buf, eos_ok
 
 
 def _fast_exact_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished,
@@ -391,41 +290,28 @@ def _fast_exact_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished,
     bound is below the global 2K-th selected score for every unproven beam,
     the round-0 set was sufficient.  Returns ``(result8, unsound)`` with
     ``unsound`` a bool scalar tensor; ``force_full`` runs the proven loop.
+    The candidate build, branches, dedup, selection and the test are
+    kernel 8 (``beam_select``); the window slots are kernel 2.
     """
     B = lo.shape[0]
-    win_tok, win_valid, win_lp, eos_tok, eos_lp, pad_tok, pad_lp = _exact_slots(
-        ops, cfg, lp, lo, hi
-    )
+    win_tok, win_valid, win_lp = ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id)
+    eos_tok = torch.full((B, K, 1), cfg.eos_token_id, dtype=torch.int32, device=lo.device)
+    n_buf = 2 * cfg.num_beams
 
-    def build_and_select(buf_tok, buf_lp, buf_valid, eos_ok):
-        tokens = torch.cat([buf_tok, win_tok, eos_tok, pad_tok], -1)
-        fm_valid = torch.cat(
-            [buf_valid, win_valid, eos_ok,
-             torch.zeros((B, K, 1), dtype=torch.bool, device=lo.device)], -1
-        )
-        cand_lp = torch.cat([buf_lp, win_lp, eos_lp, pad_lp], -1)
-        allowed = _apply_branches(cfg, tokens, fm_valid, prev_count, finished)
-        # proposal slots can repeat a window token; keep one per token id
-        cons = torch.where(allowed & _dedup_mask(tokens), cand_lp, NEG_INF)
-        return _select(
-            cfg, cons + beam_scores[..., None], cand_lp + beam_scores[..., None], tokens, K
+    def select(buf, eos_ok, need=None, th_lp=None):
+        return beam_select(
+            buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished,
+            beam_scores, need, th_lp, K=K, eos=cfg.eos_token_id, pad=cfg.pad_token_id,
+            stop_at_count=cfg.stop_at_count, always_allow_eos=cfg.always_allow_eos,
         )
 
     if force_full:
-        out = build_and_select(
-            *_exact_proposals(ops, cfg, lp, lo, hi, prev_count, finished, pad_lp, eos_tok)
-        )
+        out, _ = select(*_exact_proposals(ops, cfg, lp, lo, hi, prev_count, finished, eos_tok))
         return out[:8], torch.zeros((), dtype=torch.bool, device=lo.device)
-
-    buf_tok, buf_lp, buf_valid, eos_ok, need, th_lp = _exact_proposals(
-        ops, cfg, lp, lo, hi, prev_count, finished, pad_lp, eos_tok, round0_only=True
-    )
-    fast = build_and_select(buf_tok, buf_lp, buf_valid, eos_ok)
-    s_star = fast[8][:, -1]  # global 2K-th selected constrained score
-    # ">=": an exact tie with the cutoff would make tie resolution depend on
-    # the sweep schedule -- fall back instead
-    unsound = need & (beam_scores + th_lp >= s_star[:, None])
-    return fast[:8], unsound.any()
+    out, unsound = select(*_exact_proposals(
+        ops, cfg, lp, lo, hi, prev_count, finished, eos_tok, round0_only=True
+    ))
+    return out[:8], unsound.any()
 
 
 def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out,
@@ -452,7 +338,10 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     slim0 = V >= 2 * K
     rows0 = B if slim0 else B * K
     K0 = 1 if slim0 else K
-    self_cache = bart.empty_self_cache(model_cfg, rows0, L, dev)
+    # two [B*K]-row caches: each step's reorder (kernel 11) copies the live
+    # columns from one into the other; step 0 runs on the first rows0 rows
+    caches = [bart.empty_self_cache(model_cfg, B * K, L, dev) for _ in range(2)]
+    self_cache = [{n: c[n][:rows0] for n in ("k", "v")} for c in caches[0]]
 
     tokens = torch.full((B * K, L), cfg.pad_token_id, dtype=i32, device=dev)
     tokens[:, 0] = cfg.decoder_start_token_id
@@ -474,16 +363,16 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
         torch.full((rows0,), cfg.decoder_start_token_id, dtype=i32, device=dev),
         0, self_cache, cross_kv, enc_bias,
     )
-    lp = _log_softmax(logits, start_col, cfg).reshape(B, K0, V)
+    lp = _log_softmax(logits, start_col, cfg)  # [rows0, V]
     corpus_mask = ops.corpus_mask()
     if cfg.always_allow_eos:
         corpus_mask = corpus_mask.clone()
         corpus_mask[cfg.eos_token_id] = True
-    cons0 = torch.where(corpus_mask, lp, NEG_INF)
-    tokens_all = torch.arange(V, dtype=i32, device=dev).expand(B, K0, V)
-    bs0 = beam_scores[:, :K0, None]
-    c_tok, c_par, c_sco, c_fin, sel_tok, sel_par, beam_scores, sel_fin = _select(
-        cfg, cons0 + bs0, lp + bs0, tokens_all, K
+    # kernel 3 ranks the V-wide rows; kernel 8 takes its top-2K from there
+    cons0 = torch.where(corpus_mask, lp.reshape(B, K0, V), NEG_INF) + beam_scores[:, :K0, None]
+    top_cons, top_idx = row_topk(cons0.reshape(B, K0 * V), 2 * K)
+    c_tok, c_par, c_sco, c_fin, sel_tok, sel_par, beam_scores, sel_fin = beam_select_top(
+        top_cons, top_idx, lp, beam_scores, K0, K, cfg.eos_token_id
     )[:8]
     tainted = ~sel_fin
 
@@ -491,7 +380,8 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     # in [rows0] rows -- gather it with the K0 stride
     tokens = tokens[(brow * K + sel_par).reshape(-1).long()]
     tokens[:, start_col] = sel_tok.reshape(-1)
-    self_cache = bart.reorder_cache(self_cache, (brow * K0 + sel_par).reshape(-1))
+    self_cache = bart.reorder_cache(self_cache, (brow * K0 + sel_par).reshape(-1), step=0,
+                                    out=caches[1])
     prev_count = _gather(ops.range_size(lo0, hi0), sel_par)
     lo, hi = ops.extend(sel_tok, _gather(lo0, sel_par), _gather(hi0, sel_par))
     hist = [(c_tok, c_par, c_sco, c_fin, sel_tok, sel_par)]
@@ -516,7 +406,8 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
 
         tokens = tokens[(brow * K + sel_par).reshape(-1).long()]
         tokens[:, cur_col + 1] = sel_tok.reshape(-1)
-        self_cache = bart.reorder_cache(self_cache, (brow * K + sel_par).reshape(-1))
+        self_cache = bart.reorder_cache(self_cache, (brow * K + sel_par).reshape(-1), step=1 + t,
+                                        out=caches[t % 2])
 
         new_prev_count = _gather(ops.range_size(lo, hi), sel_par)
         # EOS/PAD selections end the constraint sequence (range (0, 0)),

@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from seal_tpu.index.fm_index import FMIndex, SHIFT
+from seal_tpu_torch.index.fm_index import FMIndex, SHIFT
 
 BUCKET_ROWS = 1024  # BWT rows per bucket-occ block
 N_BUCKETS = 256  # symbol buckets (one coarse wavelet level)

@@ -1,0 +1,341 @@
+"""Kernel 8 wrappers: the decode step's candidate merge and beam selection
+(``csrc/beam_select.cu``), with their plain versions.
+
+Replaces, in ``seal_tpu/decoding/constrained.py``:
+
+* ``beam_merge``: ``_exact_proposals.merge_round`` (:612-663) -- buffer,
+  LM top and interval slab, ``_dedup_mask`` (:1014), top-``n_buf``.
+* ``beam_select``: ``_fast_exact_select``'s ``build_and_select``
+  (:850-871) -- the buffer's PAD finish (:798-799), ``_exact_slots``' EOS
+  and PAD slots (:388-391), ``_apply_branches`` (:897), ``_dedup_mask``,
+  ``_select`` (:1046) -- and the soundness test (:889-894).
+* ``beam_select_top``: ``_select``'s epilogue after kernel 3 ranked step
+  0's V-wide rows (gathers, the first-K-non-EOS rule, ``finite``).
+
+Every output is a selection or one f32 add done in the plain code's order,
+so the kernels equal the plain versions exactly, floats bit for bit.  The
+order is ``lax.top_k``'s (f32 total order, ties to the lower slot).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from seal_tpu_torch.kernels.row_topk import row_topk_plain
+
+NEG_INF = float(np.finfo(np.float32).min) / 2  # the decoder's masking constant
+
+
+def dedup_mask(tokens):
+    """Keep-mask of the FIRST instance of each token id within a row."""
+    n = tokens.shape[-1]
+    j_lt_i = torch.ones((n, n), dtype=torch.bool, device=tokens.device).tril(-1)
+    dup = ((tokens[..., :, None] == tokens[..., None, :]) & j_lt_i).any(-1)
+    return ~dup
+
+
+def apply_branches(tokens, fm_valid, prev_count, finished, *, eos: int, pad: int,
+                   stop_at_count: int, always_allow_eos: bool):
+    """Reference branch logic (beam_search.py:114-138) on candidate level:
+    stop-forced beams allow only EOS, finished beams only PAD, the rest the
+    FM-valid set.  Returns the allowed mask."""
+    is_eos = tokens == eos
+    is_pad = tokens == pad
+    count_eff = torch.where(finished, 0, prev_count)
+    stop_trig = (count_eff <= stop_at_count) & (stop_at_count > 0)
+    allowed = torch.where(
+        stop_trig[..., None], is_eos, torch.where(finished[..., None], is_pad, fm_valid)
+    )
+    if always_allow_eos:
+        allowed = allowed | is_eos
+    return allowed
+
+
+def _g(x, idx):
+    return torch.gather(x, -1, idx.long())
+
+
+# ------------------------------------------------------------------ merge
+
+
+def beam_merge_plain(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: int,
+                     n_buf: int):
+    lead = top_tok.shape[:-1]
+    dev = top_tok.device
+    if buf is None:
+        buf = (torch.zeros((*lead, n_buf), dtype=torch.int32, device=dev),
+               torch.full((*lead, n_buf), NEG_INF, dtype=torch.float32, device=dev),
+               torch.zeros((*lead, n_buf), dtype=torch.bool, device=dev))
+    buf_tok, buf_lp, buf_valid = buf
+    all_tok = torch.cat([buf_tok, top_tok, slab_tok], -1)
+    all_lp = torch.cat([buf_lp, top_lp, slab_lp], -1)
+    all_valid = torch.cat(
+        [buf_valid, top_ok & (top_lp > NEG_INF / 2), slab_ok & (slab_lp > NEG_INF / 2)], -1
+    )
+    n = all_tok.shape[-1]
+    # an invalid slot gets an id of its own, so it cannot shadow a valid copy
+    uniq = torch.where(all_valid, all_tok, vocab + torch.arange(n, dtype=torch.int32, device=dev))
+    fresh = dedup_mask(uniq)
+    rank = torch.where(all_valid & fresh, all_lp, NEG_INF)
+    keep = row_topk_plain(rank, n_buf)[1]
+    return _g(all_tok, keep), _g(all_lp, keep), _g(all_valid & fresh, keep)
+
+
+def beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: int,
+               n_buf: int):
+    """One proposal round's merge, per beam row.
+
+    ``buf``: (tok int32, lp f32, valid bool) [..., n_buf], or None for round
+    0's empty buffer (token 0, NEG_INF, invalid).  ``top_*`` [..., n_top]:
+    LM top tokens, their log-probs and membership; ``slab_*`` [..., n_slab]:
+    the interval's own rows.  An LM or slab slot is valid when its flag is
+    set and its log-prob > NEG_INF/2.  Returns the ``n_buf`` best valid,
+    first-instance candidates (tok, lp, valid), unfilled slots after them.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    ``top_tok``/``top_lp`` and ``top_ok`` may be row-strided views.
+    """
+    if not top_tok.is_cuda:
+        return beam_merge_plain(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab,
+                                n_buf)
+    from seal_tpu_torch.kernels import build
+
+    lead = top_tok.shape[:-1]
+    n_top, n_slab = top_tok.shape[-1], slab_tok.shape[-1]
+    rows = top_tok[..., 0].numel()
+    n = n_buf + n_top + n_slab
+    if build.lib().seal_beam_merge_smem(n) > build.SMEM_LIMIT:
+        raise ValueError(f"beam_merge: {n} candidates per row exceed the shared memory")
+    top_stride = _row_stride(top_tok, "top_tok")
+    if _row_stride(top_lp, "top_lp") != top_stride:
+        raise ValueError("beam_merge: top_tok and top_lp need one row stride")
+    ok_stride = _row_stride(top_ok, "top_ok")
+    slab_tok, slab_lp, slab_ok = (t.contiguous() for t in (slab_tok, slab_lp, slab_ok))
+    _check(top_tok, torch.int32, top_lp, torch.float32, top_ok, torch.bool, slab_tok, torch.int32,
+           slab_lp, torch.float32, slab_ok, torch.bool)
+    if buf is not None:
+        buf = tuple(t.contiguous() for t in buf)
+        _check(buf[0], torch.int32, buf[1], torch.float32, buf[2], torch.bool)
+        if buf[0].shape[-1] != n_buf:
+            raise ValueError("beam_merge: buffer width differs from n_buf")
+    dev = top_tok.device
+    out_tok = torch.empty((*lead, n_buf), dtype=torch.int32, device=dev)
+    out_lp = torch.empty((*lead, n_buf), dtype=torch.float32, device=dev)
+    out_valid = torch.empty((*lead, n_buf), dtype=torch.bool, device=dev)
+    ptr = (lambda i: buf[i].data_ptr()) if buf is not None else (lambda i: None)
+    rc = build.lib().seal_beam_merge(
+        ptr(0), ptr(1), ptr(2), top_tok.data_ptr(), top_lp.data_ptr(), top_ok.data_ptr(),
+        top_stride, ok_stride, slab_tok.data_ptr(), slab_lp.data_ptr(), slab_ok.data_ptr(),
+        rows, n_buf, n_top, n_slab, NEG_INF, out_tok.data_ptr(), out_lp.data_ptr(),
+        out_valid.data_ptr(), build.stream_ptr(top_tok),
+    )
+    build.check(rc, "beam_merge")
+    beam_merge.launches += 1
+    return out_tok, out_lp, out_valid
+
+
+beam_merge.launches = 0
+
+
+# ----------------------------------------------------------------- select
+
+
+def select_top_plain(cons_scores, uncons_scores, tokens, K: int, eos: int):
+    """top-2K by constrained score + the first-K-non-EOS continuation rule
+    (``beam_search.py:301-320``) over [B, n_par, ncand] candidates; the
+    candidate-beam axis may be narrower than K (step 0)."""
+    B, n_par, ncand = cons_scores.shape
+    flat_cons = cons_scores.reshape(B, n_par * ncand)
+    top_cons, top_idx = row_topk_plain(flat_cons, 2 * K)
+    return _epilogue(top_cons, top_idx, uncons_scores.reshape(B, -1),
+                     tokens.reshape(B, -1), ncand, K, eos)
+
+
+def _epilogue(top_cons, top_idx, flat_uncons, flat_tok, ncand, K, eos):
+    top_tok = _g(flat_tok, top_idx)
+    top_uncons = _g(flat_uncons, top_idx)
+    top_parent = (top_idx // ncand).to(torch.int32)
+    is_eos = (top_tok == eos).to(torch.int8)
+    cont = torch.argsort(is_eos, dim=-1, stable=True)[:, :K]
+    finite = top_cons > NEG_INF / 4
+    return (
+        top_tok, top_parent, top_uncons, finite,
+        _g(top_tok, cont), _g(top_parent, cont), _g(top_uncons, cont), _g(finite, cont),
+        top_cons,  # [B, 2K] desc; top_cons[:, -1] is the selection cutoff
+    )
+
+
+def beam_select_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
+                      finished, beam_scores, need, th_lp, *, K: int, eos: int, pad: int,
+                      stop_at_count: int, always_allow_eos: bool):
+    B, n_par = prev_count.shape
+    dev = lp.device
+    eos_lp = lp[:, eos].reshape(B, n_par, 1)
+    pad_lp = lp[:, pad].reshape(B, n_par, 1)
+    if buf is None:
+        buf = (torch.zeros((B, n_par, n_buf), dtype=torch.int32, device=dev),
+               torch.zeros((B, n_par, n_buf), dtype=torch.float32, device=dev),
+               torch.zeros((B, n_par, n_buf), dtype=torch.bool, device=dev))
+    buf_tok, buf_lp, buf_valid = buf
+    # unfilled slots become PAD candidates at PAD's log-prob
+    buf_tok = torch.where(buf_valid, buf_tok, pad)
+    buf_lp = torch.where(buf_valid, buf_lp, pad_lp)
+    eos_tok = torch.full((B, n_par, 1), eos, dtype=torch.int32, device=dev)
+    pad_tok = torch.full((B, n_par, 1), pad, dtype=torch.int32, device=dev)
+    tokens = torch.cat([buf_tok, win_tok, eos_tok, pad_tok], -1)
+    fm_valid = torch.cat(
+        [buf_valid, win_valid, eos_ok.reshape(B, n_par, 1),
+         torch.zeros((B, n_par, 1), dtype=torch.bool, device=dev)], -1
+    )
+    cand_lp = torch.cat([buf_lp, win_lp, eos_lp, pad_lp], -1)
+    allowed = apply_branches(tokens, fm_valid, prev_count, finished, eos=eos, pad=pad,
+                             stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
+    # proposal slots can repeat a window token; keep one per token id
+    cons = torch.where(allowed & dedup_mask(tokens), cand_lp, NEG_INF)
+    bs = beam_scores[..., None]
+    out = select_top_plain(cons + bs, cand_lp + bs, tokens, K, eos)
+    if need is None:
+        return out, None
+    unsound = (need & (beam_scores + th_lp >= out[8][:, -1:])).any(-1)
+    return out, unsound
+
+
+def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished,
+                beam_scores, need=None, th_lp=None, *, K: int, eos: int, pad: int, stop_at_count: int = 0,
+                always_allow_eos: bool = False):
+    """Candidate build, branches, dedup, top-2K and the continuation rule of
+    one decode step, per query.
+
+    ``buf``: the proposal buffer (tok, lp, valid) [B, n_par, n_buf], or
+    None when no proposal round ran (``n_buf`` unfilled slots); unfilled
+    slots are PAD candidates at PAD's log-prob.  ``win_*`` [B, n_par, w]: window slots; ``eos_ok``
+    [B, n_par, 1] (may be a strided view): EOS membership; ``lp`` [B*n_par,
+    V] f32: log-probs (the EOS and PAD columns are read from it);
+    ``prev_count``, ``finished``, ``beam_scores`` [B, n_par].  With ``need``
+    and ``th_lp`` [B, n_par], also the per-query ``unsound`` flag [B].
+
+    Returns (nine outputs of ``_select``, unsound or None).  CPU tensors run
+    the plain version; CUDA tensors launch the kernel.
+    """
+    kw = dict(K=K, eos=eos, pad=pad, stop_at_count=stop_at_count,
+              always_allow_eos=always_allow_eos)
+    if not lp.is_cuda:
+        return beam_select_plain(buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
+                                 finished, beam_scores, need, th_lp, **kw)
+    from seal_tpu_torch.kernels import build
+
+    B, n_par = prev_count.shape
+    w = win_tok.shape[-1]
+    n = n_par * (n_buf + w + 2)
+    if n < 2 * K:
+        raise ValueError(f"beam_select: {n} candidates for a top-{2 * K}")
+    if build.lib().seal_beam_select_smem(n, 2 * K, K) > build.SMEM_LIMIT:
+        raise ValueError(f"beam_select: {n} candidates per query exceed the shared memory")
+    if lp.dtype != torch.float32 or lp.stride(1) != 1 or lp.shape[0] != B * n_par:
+        raise ValueError("beam_select: lp must be f32 [B*n_par, V] with unit column stride")
+    if (need is None) != (th_lp is None):
+        raise ValueError("beam_select: need and th_lp go together")
+    win_tok, win_valid, win_lp = (t.contiguous() for t in (win_tok, win_valid, win_lp))
+    prev_count = prev_count.to(torch.int32).contiguous()
+    finished, beam_scores = finished.contiguous(), beam_scores.contiguous()
+    _check(win_tok, torch.int32, win_valid, torch.bool, win_lp, torch.float32, eos_ok,
+           torch.bool, finished, torch.bool, beam_scores, torch.float32)
+    eos_stride = _row_stride(eos_ok, "eos_ok")
+    if buf is not None:
+        buf = tuple(t.contiguous() for t in buf)
+        _check(buf[0], torch.int32, buf[1], torch.float32, buf[2], torch.bool)
+        if buf[0].shape[-1] != n_buf:
+            raise ValueError("beam_select: buffer width differs from n_buf")
+    if need is not None:
+        need, th_lp = need.contiguous(), th_lp.contiguous()
+        _check(need, torch.bool, th_lp, torch.float32)
+    dev = lp.device
+    outs = _select_outputs(B, K, dev)
+    unsound = torch.empty((B,), dtype=torch.bool, device=dev) if need is not None else None
+    ptr = (lambda i: buf[i].data_ptr()) if buf is not None else (lambda i: None)
+    opt = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    rc = build.lib().seal_beam_select(
+        ptr(0), ptr(1), ptr(2), win_tok.data_ptr(), win_valid.data_ptr(), win_lp.data_ptr(),
+        eos_ok.data_ptr(), eos_stride, lp.data_ptr(), lp.stride(0), prev_count.data_ptr(),
+        finished.data_ptr(), beam_scores.data_ptr(), opt(need), opt(th_lp), B, n_par, n_buf, w,
+        K, eos, pad, stop_at_count, int(always_allow_eos), NEG_INF,
+        *(t.data_ptr() for t in outs), opt(unsound), build.stream_ptr(lp),
+    )
+    build.check(rc, "beam_select")
+    beam_select.launches += 1
+    return outs, unsound
+
+
+beam_select.launches = 0
+
+
+def beam_select_top_plain(top_cons, top_idx, lp, beam_scores, n_par: int, K: int, eos: int):
+    B = top_cons.shape[0]
+    V = lp.shape[-1]
+    flat_lp = lp.reshape(B, n_par * V)
+    bs = beam_scores[:, :n_par, None].expand(B, n_par, V).reshape(B, n_par * V)
+    flat_tok = torch.arange(V, dtype=torch.int32, device=lp.device).repeat(n_par).expand(B, -1)
+    return _epilogue(top_cons, top_idx, flat_lp + bs, flat_tok, V, K, eos)
+
+
+def beam_select_top(top_cons, top_idx, lp, beam_scores, n_par: int, K: int, eos: int):
+    """Step 0's selection after kernel 3: ``top_cons``/``top_idx`` [B, 2K]
+    rank the flat [B, n_par * V] constrained scores (token = slot % V);
+    ``lp`` [B*n_par, V] gives the unconstrained scores (plus the parent's
+    ``beam_scores``).  Returns ``_select``'s nine outputs.
+
+    CPU tensors run the plain version; CUDA tensors launch kernel 8.
+    """
+    if not lp.is_cuda:
+        return beam_select_top_plain(top_cons, top_idx, lp, beam_scores, n_par, K, eos)
+    from seal_tpu_torch.kernels import build
+
+    B = top_cons.shape[0]
+    V = lp.shape[-1]
+    if top_cons.shape != (B, 2 * K) or top_idx.dtype != torch.int64:
+        raise ValueError("beam_select_top: top_cons/top_idx must be [B, 2K] (f32, int64)")
+    if lp.dtype != torch.float32 or lp.stride(1) != 1 or lp.shape[0] != B * n_par:
+        raise ValueError("beam_select_top: lp must be f32 [B*n_par, V] with unit column stride")
+    top_cons, top_idx = top_cons.contiguous(), top_idx.contiguous()
+    if beam_scores.dtype != torch.float32 or beam_scores.stride(1) != 1:
+        raise ValueError("beam_select_top: beam_scores must be f32 with unit column stride")
+    outs = _select_outputs(B, K, lp.device)
+    rc = build.lib().seal_beam_select_top(
+        top_cons.data_ptr(), top_idx.data_ptr(), lp.data_ptr(), lp.stride(0),
+        beam_scores.data_ptr(), beam_scores.stride(0), B, n_par, V, K, eos, NEG_INF,
+        *(t.data_ptr() for t in outs), build.stream_ptr(lp),
+    )
+    build.check(rc, "beam_select_top")
+    beam_select.launches += 1
+    return outs
+
+
+def _select_outputs(B, K, dev):
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    return tuple(
+        torch.empty(shape, dtype=dt, device=dev)
+        for shape, dt in (((B, 2 * K), i32), ((B, 2 * K), i32), ((B, 2 * K), f32),
+                          ((B, 2 * K), b8), ((B, K), i32), ((B, K), i32), ((B, K), f32),
+                          ((B, K), b8), ((B, 2 * K), f32))
+    )
+
+
+def _row_stride(t, name):
+    """Element stride between the rows of ``t`` [..., n] (unit column
+    stride, rows evenly spaced); raises otherwise."""
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        raise ValueError(f"{name}: unit column stride required")
+    if t.dim() == 1:
+        return t.shape[-1]
+    s = t.stride(-2)
+    for d in range(t.dim() - 2):
+        if t.shape[d] > 1 and t.stride(d) != s * int(np.prod(t.shape[d + 1:-1])):
+            raise ValueError(f"{name}: rows must be evenly spaced")
+    return s
+
+
+def _check(*pairs):
+    for t, dt in zip(pairs[::2], pairs[1::2]):
+        if t.dtype != dt or not t.is_cuda:
+            raise ValueError(f"kernel 8: expected a CUDA {dt} tensor, got {t.dtype} on {t.device}")

@@ -25,7 +25,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu", "bucket_counts.cu", "rescore.cu")
+SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu", "bucket_counts.cu", "rescore.cu",
+           "beam_select.cu", "decode_attention.cu", "reorder_cache.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -34,6 +35,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures: every pointer (and the stream) as c_void_p, so ctypes never
 # truncates one to a 32-bit int
 SIGNATURES = {
@@ -55,7 +57,34 @@ SIGNATURES = {
     "seal_bucket_counts": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     # logits, targets, out, n, T, V, n_prefix, stream
     "seal_rescore_logprob": [_P, _P, _P, _L, _I, _I, _I, _P],
+    # buf_tok, buf_lp, buf_valid, top_tok, top_lp, top_ok, top_stride,
+    # top_ok_stride, slab_tok, slab_lp, slab_ok, rows, n_buf, n_top, n_slab,
+    # neg_inf, out_tok, out_lp, out_valid, stream
+    "seal_beam_merge": [_P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _L, _I, _I, _I, _F,
+                        _P, _P, _P, _P],
+    # buf_tok, buf_lp, buf_valid, win_tok, win_valid, win_lp, eos_ok,
+    # eos_ok_stride, lp, lp_stride, prev_count, finished, beam_scores, need,
+    # th_lp, n_queries, n_par, n_buf, w, k, eos, pad, stop_at_count,
+    # always_allow_eos, neg_inf, 9 outputs, unsound, stream
+    "seal_beam_select": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _L, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _F] + [_P] * 11,
+    # top_cons, top_idx, lp, lp_stride, beam_scores, bs_stride, n_queries,
+    # n_par, vocab, k, eos, neg_inf, 9 outputs, stream
+    "seal_beam_select_top": [_P, _P, _P, _L, _P, _L, _L, _I, _I, _I, _I, _F] + [_P] * 10,
+    # q, k, v, bias, out, n_queries, group, heads, m, head_dim, q_stride,
+    # kv_row_stride, bias_stride, dtype (0 f32, 1 bf16), stream
+    "seal_decode_attention": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _L, _L, _I, _P],
+    # table (host array of 2*n_tensors pointers), n_tensors, index, rows,
+    # src_rows, copy_bytes, row_bytes, stream
+    "seal_reorder_cache": [_P, _I, _P, _L, _L, _L, _L, _P],
 }
+# C functions that return a size rather than an error code
+SIZE_QUERIES = {"seal_beam_merge_smem": [_I], "seal_beam_select_smem": [_I, _I, _I],
+                "seal_decode_attention_smem": [_I, _I, _I]}
+
+# shared memory one block may opt into on Hopper (the wrappers refuse shapes
+# that need more)
+SMEM_LIMIT = 227 * 1024
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -125,6 +154,10 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(so, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, argtypes in SIZE_QUERIES.items():
+                fn = getattr(so, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_longlong
             _LIB = so
         return _LIB
 

@@ -1,0 +1,135 @@
+"""Kernels 9 and 10 wrappers: one-token decode attention over cached K/V
+(``csrc/decode_attention.cu``), with their plain versions.
+
+* ``cross_attention_step`` (kernel 9) replaces
+  ``seal_tpu/models/bart.py:_cross_attention_step`` (:156-182): the g beams
+  of a query share its encoder K/V; g = 1 at step 0.
+* ``self_attention_step`` (kernel 10) replaces ``decode_step``'s cached
+  self-attention (``bart.py`` :275-285 through ``_attention`` :142), over
+  the live slots [0, step] only.
+
+The inputs are the plain code's: q after the query projection and scaling
+[rows, H, Dh], K/V [Bq, M, H, Dh] (a cache may have more rows and columns
+than are used), the additive f32 bias [Bq, M] (0 or -1e9); M may be as
+long as the encoder's positions, since the kernel stages them in tiles and
+its shared memory does not grow with M.  Scores and
+softmax in f32, the probabilities rounded to the compute dtype before PV,
+PV accumulated in f32 (the plain einsums' numerics).  The sum orders
+differ, so a bf16 output may differ from the plain version's by one ulp plus
+one bf16 step of any probability (``bf16_error_ratio``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_BIAS = -1e9  # BART's attention-mask bias (``models/bart.py``)
+
+
+def decode_attention_plain(q, k, v, bias, m: int | None = None):
+    """q [Bq*g, H, Dh], k/v [Bq, M', H, Dh] (first ``m`` positions used),
+    bias f32 [Bq, m] or None -> [Bq*g, H, Dh] in q's dtype."""
+    bq = k.shape[0]
+    g = q.shape[0] // bq
+    m = k.shape[1] if m is None else m
+    k, v = k[:, :m], v[:, :m]
+    qg = q.reshape(bq, g, *q.shape[1:])
+    scores = torch.einsum("bghd,bmhd->bghm", qg.float(), k.float())
+    if bias is not None:
+        scores = scores + bias[:, None, None, :m]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bghm,bmhd->bghd", probs, v)
+    return out.reshape(q.shape)
+
+
+def bf16_error_ratio(got, want, q, k, v, bias=None, m: int | None = None) -> float:
+    """Largest |got - want| over the bf16 tolerance, elementwise.
+
+    Two bf16 decode attentions whose f32 sums run in other orders may round
+    a probability to bf16 the other way (one bf16 ulp, <= 2^-7 p_j) and the
+    output one step apart, so the tolerance of an element is one output ulp
+    plus 2^-7 * sum_j p_j |v_j|.  A ratio <= 1 is within it.
+    """
+    a = torch.maximum(got.float().abs(), want.float().abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+    weight = decode_attention_plain(q, k, v.abs(), bias, m).float()
+    return float(((got.float() - want.float()).abs() / (ulp + 2.0 ** -7 * weight)).max())
+
+
+def cross_attention_step(q, k, v, bias):
+    """Grouped decode cross-attention (kernel 9): q [Bq*g, H, Dh], per-query
+    K/V [Bq, M, H, Dh], bias f32 [Bq, M] or None.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    if not q.is_cuda:
+        return decode_attention_plain(q, k, v, bias)
+    out = _launch(q, k, v, bias, k.shape[1])
+    cross_attention_step.launches += 1
+    return out
+
+
+cross_attention_step.launches = 0
+
+
+def self_attention_plain(q, k_cache, v_cache, step: int):
+    """The plain code's cached self-attention: every cache slot, with the
+    -1e9 bias past ``step``."""
+    max_len = k_cache.shape[1]
+    slots = torch.arange(max_len, device=q.device)
+    bias = torch.where(slots <= step, 0.0, NEG_BIAS).to(torch.float32)
+    return decode_attention_plain(q, k_cache, v_cache, bias.expand(k_cache.shape[0], max_len))
+
+
+def self_attention_step(q, k_cache, v_cache, step: int):
+    """Cached decode self-attention (kernel 10): q [rows, H, Dh], cache
+    [rows, max_len, H, Dh] written at slots [0, step].  The kernel reads the
+    live slots only; the plain version all of them under the -1e9 bias past
+    ``step`` (exp(-1e9 - max) is 0.0 in f32, so both sums are the same).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    if not q.is_cuda:
+        return self_attention_plain(q, k_cache, v_cache, step)
+    if not 0 <= step < k_cache.shape[1]:
+        raise ValueError(f"self_attention_step: step {step} outside the cache")
+    out = _launch(q, k_cache, v_cache, None, step + 1)
+    self_attention_step.launches += 1
+    return out
+
+
+self_attention_step.launches = 0
+
+
+def _launch(q, k, v, bias, m: int):
+    from seal_tpu_torch.kernels import build
+
+    rows, heads, head_dim = q.shape
+    bq = k.shape[0]
+    if rows % bq or k.shape[2:] != (heads, head_dim) or k.shape != v.shape:
+        raise ValueError(f"decode attention: q {tuple(q.shape)} vs K/V {tuple(k.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"decode attention: f32 or bf16 operands of one dtype, got {q.dtype}")
+    if q.stride(2) != 1 or q.stride(1) != head_dim:
+        raise ValueError("decode attention: q rows must be [H, Dh] contiguous")
+    for t in (k, v):
+        if t.stride(3) != 1 or t.stride(2) != head_dim or t.stride(1) != heads * head_dim:
+            raise ValueError("decode attention: K/V rows must be [M, H, Dh] contiguous")
+    if k.stride(0) != v.stride(0):
+        raise ValueError("decode attention: K and V need one row stride")
+    g = rows // bq
+    if build.lib().seal_decode_attention_smem(g, m, head_dim) > build.SMEM_LIMIT:
+        raise ValueError(f"decode attention: {g} beams x head_dim {head_dim} exceed the shared "
+                         "memory")
+    if bias is not None:
+        if bias.dtype != torch.float32 or bias.shape != (bq, k.shape[1]) or bias.stride(1) != 1:
+            raise ValueError(f"decode attention: bias must be f32 [{bq}, {k.shape[1]}]")
+    out = torch.empty((rows, heads, head_dim), dtype=q.dtype, device=q.device)
+    rc = build.lib().seal_decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr() if bias is not None else None,
+        out.data_ptr(), bq, g, heads, m, head_dim, q.stride(0), k.stride(0),
+        bias.stride(0) if bias is not None else 0, int(q.dtype == torch.bfloat16),
+        build.stream_ptr(q),
+    )
+    build.check(rc, "decode_attention")
+    return out

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from seal_tpu.index.fm_index import SHIFT
+from seal_tpu_torch.index.fm_index import SHIFT
 
 MODES = ("backward_step", "contains")
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from seal_tpu.index.fm_index import SHIFT
+from seal_tpu_torch.index.fm_index import SHIFT
 
 
 def window_rows(lo, hi, w: int):

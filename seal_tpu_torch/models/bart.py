@@ -8,6 +8,12 @@ leaf-by-leaf copy.  Semantics follow the JAX module: learned positions with
 a +2 offset, post-LayerNorm blocks with LayerNorm in f32 (eps 1e-5),
 exact (erf) GELU, attention scores and softmax in f32, and grouped decode
 cross-attention over per-query K/V.  Inference only.
+
+The decode step's attentions and the beam reorder of its cache are kernels
+(``kernels/decode_attention.py``: 9 cross, 10 self; ``kernels/
+reorder_cache.py``: 11).  The encoder and ``decode_full`` keep the generic
+``_attention``: plain large products over whole sequences, which the JAX
+package also leaves to XLA outside any kernel.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from seal_tpu_torch.kernels import decode_attention
+from seal_tpu_torch.kernels import reorder_cache as k_reorder
 from seal_tpu_torch.models.config import BartConfig
 
 Params = Dict[str, Any]
@@ -121,24 +129,17 @@ def _attention(p, x_q, kv, bias, n_heads, dtype):
     return _dense(p["o"], _merge_heads(out))
 
 
-def _cross_attention_step(p, x_q, kv, bias, n_heads, dtype):
+def _cross_attention_step(p, x_q, kv, bias, n_heads):
     """Decode-step cross-attention with PER-QUERY K/V [Bq, M, H, Dh]: the
     beams of a query share its encoder K/V, so the beam axis becomes the
-    query axis of one grouped attention."""
+    query axis of one grouped attention (kernel 9; one beam per query at
+    step 0)."""
     k, v = kv
-    bq, b = k.shape[0], x_q.shape[0]
-    if bq == b:
-        return _attention(p, x_q, kv, bias, n_heads, dtype)
-    g = b // bq
-    q = _query(p, x_q, n_heads)  # [b, 1, H, Dh]
-    qg = q[:, 0].reshape(bq, g, n_heads, q.shape[-1])
-    scores = torch.einsum("bghd,bmhd->bghm", qg.float(), k.float())
-    if bias is not None:
-        scores = scores + bias  # [Bq,1,1,M] broadcasts over (g, H)
-    probs = torch.softmax(scores, dim=-1).to(dtype)
-    out = torch.einsum("bghm,bmhd->bghd", probs, v)
-    out = out.reshape(b, 1, n_heads, q.shape[-1])
-    return _dense(p["o"], _merge_heads(out))
+    b = x_q.shape[0]
+    q = _query(p, x_q, n_heads)[:, 0]  # [b, H, Dh]
+    bias2 = bias.reshape(k.shape[0], k.shape[1]) if bias is not None else None
+    out = decode_attention.cross_attention_step(q, k, v, bias2)
+    return _dense(p["o"], out.reshape(b, 1, -1))
 
 
 def _project_kv(p, x, n_heads):
@@ -221,21 +222,19 @@ def decode_step(cfg: BartConfig, params: Params, token_ids, step: int, self_cach
     b = token_ids.shape[0]
     max_len = self_cache[0]["k"].shape[1]
     dev = token_ids.device
+    if not 0 <= step < max_len:
+        raise ValueError(f"decode_step: step {step} outside a cache of {max_len} slots")
     positions = torch.full((b, 1), step, dtype=torch.int32, device=dev)
     x = _embed(cfg, params["shared"], dec["embed_positions"], token_ids[:, None],
                dec["layernorm_embedding"], positions)
-    slot_ids = torch.arange(max_len, device=dev)
-    self_bias = torch.where(slot_ids <= step, 0.0, NEG_INF).to(torch.float32)
-    self_bias = self_bias.view(1, 1, 1, max_len)
     for p, sc, ckv in zip(dec["layers"], self_cache, cross_kv):
         k_new, v_new = _project_kv(p["self_attn"], x, n_heads)  # [B,1,H,Dh]
         sc["k"][:, step] = k_new[:, 0].to(sc["k"].dtype)
         sc["v"][:, step] = v_new[:, 0].to(sc["v"].dtype)
-        h = _attention(p["self_attn"], x, (sc["k"], sc["v"]), self_bias, n_heads,
-                       cfg.compute_dtype)
-        x = _ln(p["self_attn_ln"], x + h)
-        h = _cross_attention_step(p["cross_attn"], x, ckv, enc_bias, n_heads,
-                                  cfg.compute_dtype)
+        q = _query(p["self_attn"], x, n_heads)[:, 0]  # [B, H, Dh]
+        h = decode_attention.self_attention_step(q, sc["k"], sc["v"], step)  # kernel 10
+        x = _ln(p["self_attn_ln"], x + _dense(p["self_attn"]["o"], h.reshape(b, 1, -1)))
+        h = _cross_attention_step(p["cross_attn"], x, ckv, enc_bias, n_heads)
         x = _ln(p["cross_attn_ln"], x + h)
         x = _ln(p["final_ln"], x + _ffn(p, x))
     return lm_logits(cfg, params, x[:, 0, :]), self_cache
@@ -290,7 +289,15 @@ def lm_logits(cfg: BartConfig, params: Params, hidden):
     return logits + params["final_logits_bias"]
 
 
-def reorder_cache(self_cache, beam_idx):
-    """Gather cache rows along the batch dim after a beam permutation."""
-    idx = beam_idx.long()
-    return [{"k": c["k"][idx], "v": c["v"][idx]} for c in self_cache]
+def reorder_cache(self_cache, beam_idx, step: int, out):
+    """Gather cache rows along the batch dim after a beam permutation
+    (kernel 11, one launch for every layer's K and V).
+
+    ``out``: a preallocated cache with ``len(beam_idx)`` rows to gather into
+    (the beam search ping-pongs between two).  Only the live columns
+    [0, step] are copied: the columns past it were never written in either
+    cache, so the result equals the full gather.  Returns ``out``.
+    """
+    k_reorder.reorder_cache([c[n] for c in self_cache for n in ("k", "v")], beam_idx, step + 1,
+                            [c[n] for c in out for n in ("k", "v")])
+    return out

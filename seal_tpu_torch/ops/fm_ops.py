@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from seal_tpu.index.fm_index import SHIFT
+from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.kernels.bucket_counts import bucket_counts  # noqa: F401
 from seal_tpu_torch.kernels.fm_search import (
     fm_search,

@@ -33,15 +33,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from seal_tpu.index.fm_index import FMIndex
-from seal_tpu.retrieval.document import SEALDocument
-from seal_tpu.utils.profiling import PhaseTimer, ServingMetrics
 from seal_tpu_torch.decoding.generate import fm_index_generate
 from seal_tpu_torch.index.device_index import TorchFMIndex
+from seal_tpu_torch.index.fm_index import FMIndex
 from seal_tpu_torch.models import convert
 from seal_tpu_torch.models.config import BartConfig
 from seal_tpu_torch.ops import fm_ops
+from seal_tpu_torch.retrieval.document import SEALDocument
 from seal_tpu_torch.scoring import keys as rk
+from seal_tpu_torch.utils.profiling import PhaseTimer, ServingMetrics
 
 # parity: reference module-level debug switch printing scored ngrams
 DEBUG = False

@@ -14,7 +14,8 @@
   full-vocab log-softmax per query, through kernel 4
   (``kernels/triton_logsoftmax.py``), then f64 on the host.
 * ``_stable_top_k_desc``, ``_log_odds_score`` and ``aggregate_evidence``
-  (the host ranker: numpy and the C++ helpers of ``seal_tpu.cpp.native``)
+  (the host ranker: numpy and the C++ helpers of ``seal_tpu_torch.cpp.native``,
+  the port's copy of ``seal_tpu.cpp.native``)
   are copied line for line from ``seal_tpu/scoring/keys.py:237-749``;
   nothing in them differs but the imports.  The tests hold the copy's
   output identical to the original's.
@@ -395,7 +396,7 @@ def aggregate_evidence(
     covered = np.zeros(n_corpus + 2, dtype=np.uint8)  # vectorized covered_points
 
     try:
-        from seal_tpu.cpp import native as _native
+        from seal_tpu_torch.cpp import native as _native
 
         nat = _native.load()
     except Exception:  # pragma: no cover - g++ unavailable

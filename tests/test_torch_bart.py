@@ -109,7 +109,8 @@ def test_decode_steps_match_jax(models, beams):
     np.testing.assert_array_equal(np.asarray(jbias), tbias.numpy())
     rows, L = 2 * beams, 6
     jcache = jbart.empty_self_cache(jcfg, rows, L)
-    tcache = tbart.empty_self_cache(tcfg, rows, L)
+    caches = [tbart.empty_self_cache(tcfg, rows, L) for _ in range(2)]  # ping-pong
+    tcache = caches[0]
     rng = np.random.default_rng(beams)
     for step in range(4):
         toks = rng.integers(3, jcfg.vocab_size, size=rows).astype(np.int32)
@@ -121,7 +122,7 @@ def test_decode_steps_match_jax(models, beams):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         perm = rng.permutation(rows).astype(np.int32)
         jcache = jbart.reorder_cache(jcache, jnp.asarray(perm))
-        tcache = tbart.reorder_cache(tcache, torch.as_tensor(perm))
+        tcache = tbart.reorder_cache(tcache, torch.as_tensor(perm), step, caches[(step + 1) % 2])
         np.testing.assert_allclose(tcache[1]["v"].numpy(), np.asarray(jcache[1]["v"]), **TOL)
 
 

@@ -1,0 +1,225 @@
+"""The port's copies of ``seal_tpu``'s host modules against the originals:
+``FMIndex`` (every array, the query API, the on-disk format both ways), the
+suffix array (native and numpy routes), every method of the native helper
+library, ``SEALDocument``, ``PhaseTimer`` and ``ServingMetrics``.  All
+outputs must be identical."""
+
+import copy
+
+import numpy as np
+import pytest
+
+from seal_tpu.cpp import native as jnative
+from seal_tpu.index import suffix_array as jsa
+from seal_tpu.index.fm_index import FMIndex as JFMIndex
+from seal_tpu.retrieval.document import SEALDocument as JDoc
+from seal_tpu.scoring import keys as jk
+from seal_tpu.utils import profiling as jprof
+from seal_tpu_torch.cpp import native as tnative
+from seal_tpu_torch.index import suffix_array as tsa
+from seal_tpu_torch.index.fm_index import SHIFT
+from seal_tpu_torch.index.fm_index import FMIndex as TFMIndex
+from seal_tpu_torch.retrieval.document import SEALDocument as TDoc
+from seal_tpu_torch.utils import profiling as tprof
+
+ARRAYS = ("text", "sa", "psi", "C", "bwt")
+LISTS = ("beginnings", "occurring", "occurring_distinct", "occurring_counts", "labels")
+
+
+def _docs(seed, n_docs=40, hi=60):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(4, hi, size=rng.integers(3, 40)).tolist() + [2] for _ in range(n_docs)]
+
+
+def _build(cls, docs, how):
+    idx = cls()
+    labels = [f"doc{i}" for i in range(len(docs))]
+    if how == "memory":
+        idx.initialize(docs, labels=labels)
+    elif how == "stream":
+        idx.initialize(iter(docs), in_memory=False, labels=labels)
+    else:
+        idx.initialize_from_arrays(np.concatenate(docs), np.array([len(d) for d in docs]),
+                                   labels=labels)
+    return idx
+
+
+def _assert_same_index(a, b):
+    for name in ARRAYS:
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.dtype == y.dtype, name
+        np.testing.assert_array_equal(x, y, name)
+    for name in LISTS:
+        assert getattr(a, name) == getattr(b, name), name
+
+
+@pytest.mark.parametrize("how", ["memory", "stream", "arrays"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fm_index_arrays_equal(seed, how):
+    docs = _docs(seed)
+    _assert_same_index(_build(TFMIndex, docs, how), _build(JFMIndex, docs, how))
+    assert SHIFT == 1
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fm_index_queries_equal(seed):
+    docs = _docs(seed)
+    t, j = _build(TFMIndex, docs, "memory"), _build(JFMIndex, docs, "memory")
+    rng = np.random.default_rng(seed + 10)
+    text = (j.text[:-1] - 1).tolist()
+    seqs = []
+    for _ in range(60):
+        i = int(rng.integers(0, len(text) - 5))
+        seqs.append(text[i : i + int(rng.integers(1, 5))][::-1])  # forward n-grams
+    seqs += [rng.integers(0, 70, size=3).tolist() for _ in range(20)] + [[], [999]]
+    for s in seqs:
+        assert t.get_range(s) == j.get_range(s)
+        assert t.get_count(s) == j.get_count(s)
+        assert t.get_continuations(s) == j.get_continuations(s)
+    assert t.get_ranges_batch(seqs[:-2]) == j.get_ranges_batch(seqs[:-2])
+    rngs = [j.get_range(s) for s in seqs[:30]]
+    for s, r in zip(seqs[:30], rngs):
+        for a, b in zip(t.occurrences(s, 7), j.occurrences(s, 7)):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(t.occurrences_multi(seqs[:30], 9, rngs), j.occurrences_multi(seqs[:30], 9, rngs)):
+        np.testing.assert_array_equal(a, b)
+    ids = rng.integers(0, len(docs), size=12)
+    for a, b in zip(t.get_docs_flat(ids), j.get_docs_flat(ids)):
+        np.testing.assert_array_equal(a, b)
+    assert [t.get_doc(i) for i in ids] == [j.get_doc(i) for i in ids]
+    np.testing.assert_array_equal(t.token_counts(np.arange(-2, 70)), j.token_counts(np.arange(-2, 70)))
+    assert [t.get_distinct_count(lo, hi) for lo, hi in rngs] == [
+        j.get_distinct_count(lo, hi) for lo, hi in rngs]
+    assert [t.get_doc_index_from_row(r) for r in range(0, t.size(), 7)] == [
+        j.get_doc_index_from_row(r) for r in range(0, j.size(), 7)]
+
+
+@pytest.mark.parametrize("saver,loader", [(TFMIndex, JFMIndex), (JFMIndex, TFMIndex)])
+def test_fm_index_files_load_in_the_other_package(tmp_path, saver, loader):
+    docs = _docs(3)
+    src = _build(saver, docs, "memory")
+    src.save(str(tmp_path / "idx"))
+    got = loader.load(str(tmp_path / "idx"))
+    assert type(got) is loader
+    _assert_same_index(got, src)
+    assert got.get_count(docs[5][:3]) == src.get_count(docs[5][:3]) > 0
+
+
+@pytest.mark.parametrize("prefer_native", [True, False])
+def test_build_suffix_array_equal(prefer_native):
+    rng = np.random.default_rng(4)
+    for n in (1, 2, 50, 3000):
+        text = np.concatenate([rng.integers(1, 9, size=n - 1), [0]]).astype(np.int32)
+        want = jsa.build_suffix_array(text, prefer_native=prefer_native)
+        got = tsa.build_suffix_array(text, prefer_native=prefer_native)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, tsa.brute_force_suffix_array(text) if n <= 50 else want)
+    with pytest.raises(ValueError):
+        tsa.build_suffix_array(np.array([3, 1, 2], np.int32))
+
+
+def test_native_library_is_the_ports_own():
+    t, j = tnative.load(), jnative.load()
+    assert t is not j
+    assert t._lib._name != j._lib._name
+    assert "seal_tpu_torch" in t._lib._name and t._lib._name.endswith("libseal_torch_native.so")
+    assert tsa._load_native() is t
+
+
+def _record_native_calls(monkeypatch):
+    """Every Native method call the JAX ranker makes, with a deep copy of
+    its arguments taken before the call (some mutate their inputs)."""
+    calls = []
+    for name in ("stage1_claim", "ac_match", "ranges_multi", "stage1_accumulate", "stage2_score",
+                 "suffix_array"):
+        real = getattr(jnative.Native, name)
+
+        def spy(self, *args, _real=real, _name=name):
+            calls.append((_name, copy.deepcopy(args)))
+            return _real(self, *args)
+
+        monkeypatch.setattr(jnative.Native, name, spy)
+    return calls
+
+
+def _same(a, b):
+    if isinstance(a, tuple):
+        assert isinstance(b, tuple) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    else:
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+
+
+def test_native_methods_equal(monkeypatch):
+    """The original's methods, called by the JAX ranker on a real query,
+    replayed on both libraries: identical outputs (and identical mutations
+    of the inputs)."""
+    calls = _record_native_calls(monkeypatch)
+    docs = _docs(5, n_docs=60)
+    host = _build(JFMIndex, docs, "memory")
+    text = (host.text[:-1] - 1).tolist()
+    rng = np.random.default_rng(5)
+    keys = [(text[i : i + 3][::-1], -float(rng.random() * 5))
+            for i in rng.integers(0, len(text) - 4, size=30)]
+    jk.aggregate_evidence(keys, index=host, unigram_scores=(-rng.random(70) * 9).tolist())
+    host.get_ranges_batch([k for k, _ in keys])
+    covered = np.zeros(50, np.uint8)
+    covered[3:7] = 1
+    calls.append(("stage1_claim", (covered, np.array([2, 5, 12, 20, 12]), 3)))
+    calls.append(("suffix_array", (host.text,)))
+    names = {n for n, _ in calls}
+    assert names == {"stage1_claim", "ac_match", "ranges_multi", "stage1_accumulate",
+                     "stage2_score", "suffix_array"}, names
+    monkeypatch.undo()
+    t, j = tnative.load(), jnative.load()
+    for name, args in calls:
+        ta, ja = copy.deepcopy(args), copy.deepcopy(args)
+        _same(getattr(t, name)(*ta), getattr(j, name)(*ja))
+        for x, y in zip(ta, ja):
+            if isinstance(x, np.ndarray):
+                np.testing.assert_array_equal(x, y)
+
+
+class _Tok:
+    def decode(self, ids, skip_special_tokens=False):
+        return " ".join(f"w{i}" for i in ids if not (skip_special_tokens and i < 3))
+
+
+@pytest.mark.parametrize("delims", [(None, None), (50, None), (50, 51)])
+def test_seal_document_equal(delims):
+    docs = [[7, 8, 50, 9, 51, 10, 11, 2], [4, 5, 6, 2], [50, 9, 2]]
+    t, j = _build(TFMIndex, docs, "memory"), _build(JFMIndex, docs, "memory")
+    for i in range(len(docs)):
+        a = TDoc(i, 1.5, t, _Tok(), *delims, keys=[(1,)], query="q")
+        b = JDoc(i, 1.5, j, _Tok(), *delims, keys=[(1,)], query="q")
+        assert (a.docid, a.id(), a.raw_tokens(), a.raw_text(), a.text(), repr(a)) == (
+            b.docid, b.id(), b.raw_tokens(), b.raw_text(), b.text(), repr(b))
+    t.labels = j.labels = None
+    assert TDoc(2, 0.0, t, _Tok()).docid == JDoc(2, 0.0, j, _Tok()).docid == "2"
+
+
+def test_phase_timer_and_serving_metrics_equal(monkeypatch):
+    """Same phases on the same (fake) clock: same totals, counts, summary
+    and snapshot."""
+    out = []
+    for mod in (tprof, jprof):
+        ticks = iter(np.arange(0.0, 100.0, 0.25).tolist())
+        monkeypatch.setattr(mod.time, "time", lambda: next(ticks))
+        timer = mod.PhaseTimer(enabled=True)
+        for name in ("decode", "rescore", "decode", "aggregate"):
+            with timer.phase(name):
+                pass
+        off = mod.PhaseTimer(enabled=False)
+        with off.phase("x"):
+            pass
+        metrics = mod.ServingMetrics()
+        metrics.observe_batch(16, 120, 150, 2.5, timer)
+        metrics.observe_batch(16, 100, 140, 1.5)
+        out.append((timer.totals, timer.counts, timer.summary(), off.totals, metrics.snapshot()))
+        metrics.reset()
+        out.append(metrics.snapshot())
+        monkeypatch.undo()
+    assert out[0] == out[2] and out[1] == out[3]
+    assert out[0][4]["queries"] == 32 and out[0][4]["phase_decode_s"] == 0.5

@@ -11,14 +11,17 @@ import numpy as np
 import pytest
 import torch
 
-from seal_tpu.index import FMIndex
+from seal_tpu_torch.index.fm_index import FMIndex
 from seal_tpu_torch.decoding import constrained as tc
 from seal_tpu_torch.decoding import generate as tg
 from seal_tpu_torch.index.device_index import TorchFMIndex
 from seal_tpu_torch import bench_search
 from seal_tpu_torch.kernels import (
+    beam_select,
     bucket_counts,
+    decode_attention,
     fm_search,
+    reorder_cache,
     rescore,
     row_topk,
     triton_logsoftmax,
@@ -195,3 +198,163 @@ def test_searcher_on_card_matches_cpu(cuda):
     for a, b in zip(cpu, gpu):
         assert [d.docid for d in b] == [d.docid for d in a]
         np.testing.assert_allclose([d.score for d in b], [d.score for d in a], rtol=1e-4)
+
+
+def _same(got, want):
+    """Every output equal; floats bit for bit."""
+    for a, b in zip(got, want):
+        if a is None and b is None:
+            continue
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def _lp(g, rows, V, cuda):
+    lp = torch.round(torch.log_softmax(torch.randn(rows, V, generator=g, device=cuda) * 2, -1) * 4) / 4
+    lp[:, 5] = 0.0
+    lp[::2, 6] = -0.0  # +0.0 ranks above -0.0
+    lp[::3, 1] = float("-inf")
+    return lp
+
+
+@pytest.mark.parametrize("B,K,n_top,with_buf", [(32, 15, 64, False), (32, 15, 256, True),
+                                                 (4, 32, 512, True)])
+def test_beam_merge_matches_plain(cuda, B, K, n_top, with_buf):
+    """Kernel 8, merge: buffer + LM top (a strided membership view) + slab,
+    with repeated tokens, ties and signed zeros; exactly equal."""
+    g = torch.Generator(device=cuda).manual_seed(n_top)
+    V, n_buf = 3000, 2 * K
+    lp = _lp(g, B * K, V, cuda)
+    top_lp, top_idx = row_topk.row_topk_plain(lp, n_top)
+    top_tok = top_idx.to(torch.int32).reshape(B, K, n_top)
+    ok = (torch.rand(B, K, n_top + 1, generator=g, device=cuda) < 0.5)[..., :n_top]
+    slab_tok = torch.randint(0, 300, (B, K, n_top), generator=g, device=cuda, dtype=torch.int32)
+    slab_lp = torch.gather(lp, 1, slab_tok.reshape(B * K, -1).long()).reshape(B, K, n_top)
+    slab_ok = torch.rand(B, K, n_top, generator=g, device=cuda) < 0.8
+    buf = None
+    if with_buf:
+        btok = torch.randint(0, 300, (B, K, n_buf), generator=g, device=cuda, dtype=torch.int32)
+        buf = (btok, torch.gather(lp, 1, btok.reshape(B * K, -1).long()).reshape(B, K, n_buf),
+               torch.rand(B, K, n_buf, generator=g, device=cuda) < 0.7)
+    args = (buf, top_tok, top_lp.reshape(B, K, n_top), ok, slab_tok, slab_lp, slab_ok, V, n_buf)
+    n0 = beam_select.beam_merge.launches
+    got = beam_select.beam_merge(*args)
+    assert beam_select.beam_merge.launches == n0 + 1
+    _same(got, beam_select.beam_merge_plain(*args))
+
+
+@pytest.mark.parametrize("B,K,w,case", [(32, 15, 32, "need"), (32, 15, 32, "no_buffer"),
+                                         (8, 32, 128, "need"), (8, 15, 32, "branches")])
+def test_beam_select_matches_plain(cuda, B, K, w, case):
+    """Kernel 8, select: beam 15 at the generation point and beam 32 with a
+    128-row window (6,208 candidates a query); exactly equal."""
+    g = torch.Generator(device=cuda).manual_seed(B * K + w)
+    V, n_buf = 3000, 2 * K
+    lp = _lp(g, B * K, V, cuda)
+
+    def take(tok):
+        return torch.gather(lp, 1, tok.reshape(B * K, -1).long()).reshape(tok.shape)
+
+    btok = torch.randint(0, 400, (B, K, n_buf), generator=g, device=cuda, dtype=torch.int32)
+    buf = (btok, take(btok), torch.rand(B, K, n_buf, generator=g, device=cuda) < 0.7)
+    if case == "no_buffer":
+        buf = None
+    win_valid = torch.rand(B, K, w, generator=g, device=cuda) < 0.7
+    win_tok = torch.where(win_valid, torch.randint(0, 400, (B, K, w), generator=g, device=cuda,
+                                                   dtype=torch.int32), 1)
+    eos_ok = (torch.rand(B, K, 3, generator=g, device=cuda) < 0.5)[..., 2:]
+    prev_count = torch.randint(0, 6, (B, K), generator=g, device=cuda, dtype=torch.int32)
+    finished = torch.rand(B, K, generator=g, device=cuda) < 0.2
+    bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
+    bs[0, 1] = tc.NEG_INF
+    need = torch.rand(B, K, generator=g, device=cuda) < 0.5
+    th_lp = torch.round(torch.randn(B, K, generator=g, device=cuda)) - 4
+    kw = dict(K=K, eos=2, pad=1, stop_at_count=2 if case == "branches" else 0,
+              always_allow_eos=case == "branches")
+    args = (buf, n_buf, win_tok, win_valid, take(win_tok), eos_ok, lp, prev_count, finished, bs,
+            need, th_lp)
+    (got, bad), (want, wbad) = beam_select.beam_select(*args, **kw), \
+        beam_select.beam_select_plain(*args, **kw)
+    _same(got + (bad,), want + (wbad,))
+
+
+@pytest.mark.parametrize("B,n_par,V,K", [(32, 1, 50265, 15), (4, 4, 1000, 4)])
+def test_beam_select_top_matches_plain(cuda, B, n_par, V, K):
+    """Kernel 8 on step 0: the epilogue after kernel 3's V-wide top-2K."""
+    g = torch.Generator(device=cuda).manual_seed(V)
+    lp = _lp(g, B * n_par, V, cuda)
+    lp[0, 2] = 1.0  # EOS among the picks
+    bs = torch.full((B, K), tc.NEG_INF, device=cuda)
+    bs[:, 0] = 0.0
+    cons = torch.where(torch.rand(V, generator=g, device=cuda) < 0.6, lp.reshape(B, n_par, V),
+                       tc.NEG_INF) + bs[:, :n_par, None]
+    top_cons, top_idx = row_topk.row_topk(cons.reshape(B, -1), 2 * K)
+    args = (top_cons, top_idx, lp, bs, n_par, K, 2)
+    _same(beam_select.beam_select_top(*args), beam_select.beam_select_top_plain(*args))
+
+
+@pytest.mark.parametrize("Bq,g,M,dtype", [(32, 15, 14, torch.bfloat16), (32, 1, 14, torch.bfloat16),
+                                          (6, 4, 37, torch.float32),
+                                          (32, 15, 1024, torch.bfloat16),
+                                          (4, 32, 1024, torch.bfloat16),
+                                          (4, 3, 200, torch.float32)])
+def test_cross_attention_matches_plain(cuda, Bq, g, M, dtype):
+    """Kernel 9 over padded encoder positions: in bf16 within one output
+    ulp plus one bf16 step of each probability (sums in another order),
+    in f32 within 1e-5.  M up to the encoder's 1024 positions, staged in
+    tiles (200 ends in a partial one)."""
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    H, Dh = 16, 64
+    q = (torch.randn(Bq * g, H, Dh, generator=gen, device=cuda) * 0.125).to(dtype)
+    k = torch.randn(Bq, M, H, Dh, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(Bq, M, H, Dh, generator=gen, device=cuda).to(dtype)
+    bias = torch.zeros(Bq, M, device=cuda)
+    bias[::2, -3:] = -1e9
+    got = decode_attention.cross_attention_step(q, k, v, bias)
+    want = decode_attention.decode_attention_plain(q, k, v, bias)
+    if dtype == torch.bfloat16:
+        assert decode_attention.bf16_error_ratio(got, want, q, k, v, bias) <= 1.0
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("rows,L,step,dtype", [(480, 10, 8, torch.bfloat16),
+                                               (32, 10, 0, torch.bfloat16),
+                                               (20, 25, 13, torch.float32),
+                                               (16, 160, 150, torch.bfloat16)])
+def test_self_attention_matches_plain(cuda, rows, L, step, dtype):
+    """Kernel 10 over the live slots [0, step] of a cache against the plain
+    version over every slot under the -1e9 bias."""
+    gen = torch.Generator(device=cuda).manual_seed(step)
+    H, Dh = 16, 64
+    q = (torch.randn(rows, H, Dh, generator=gen, device=cuda) * 0.125).to(dtype)
+    kc = torch.zeros(rows, L, H, Dh, device=cuda, dtype=dtype)
+    vc = torch.zeros(rows, L, H, Dh, device=cuda, dtype=dtype)
+    kc[:, : step + 1] = torch.randn(rows, step + 1, H, Dh, generator=gen, device=cuda).to(dtype)
+    vc[:, : step + 1] = torch.randn(rows, step + 1, H, Dh, generator=gen, device=cuda).to(dtype)
+    got = decode_attention.self_attention_step(q, kc, vc, step)
+    want = decode_attention.self_attention_plain(q, kc, vc, step)
+    if dtype == torch.bfloat16:
+        assert decode_attention.bf16_error_ratio(got, want, q, kc, vc, None, step + 1) <= 1.0
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("rows_src,rows,cols", [(480, 480, 9), (32, 480, 1)])
+def test_reorder_cache_matches_plain(cuda, rows_src, rows, cols):
+    """Kernel 11: 24 tensors in one launch, live columns only; equal to the
+    plain copy and to the full gather (the columns past them are zero)."""
+    gen = torch.Generator(device=cuda).manual_seed(cols)
+    src = []
+    for _ in range(24):
+        t = torch.zeros(rows_src, 10, 16, 64, device=cuda, dtype=torch.bfloat16)
+        t[:, :cols] = torch.randn(rows_src, cols, 16, 64, generator=gen, device=cuda).to(t.dtype)
+        src.append(t)
+    idx = torch.randint(0, rows_src, (rows,), generator=gen, device=cuda)
+    dst = [torch.zeros(rows, 10, 16, 64, device=cuda, dtype=torch.bfloat16) for _ in src]
+    n0 = reorder_cache.reorder_cache.launches
+    reorder_cache.reorder_cache(src, idx, cols, dst)
+    assert reorder_cache.reorder_cache.launches == n0 + 1
+    for d, s in zip(dst, src):
+        assert torch.equal(d.view(torch.int16), s[idx].view(torch.int16))

@@ -341,10 +341,12 @@ def test_unported_modes_raise(models, option):
 
 def test_port_imports_without_jax():
     """``seal_tpu_torch`` and ``chip_smoke`` import with jax, flax and regex
-    blocked: the machine with the card has none of them."""
+    blocked (the machine with the card has none of them), and with
+    ``seal_tpu`` blocked too: the port keeps its own copies of the host
+    modules it needs."""
     code = r"""
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "regex")
+BLOCKED = ("jax", "jaxlib", "flax", "regex", "seal_tpu")
 class Block:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:

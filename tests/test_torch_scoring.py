@@ -131,12 +131,15 @@ def test_aggregate_evidence_copy_is_identical(seed, native, monkeypatch):
     """Same keys, same host index: the same ranked documents, scores,
     matched keys and best keys, bit for bit."""
     from seal_tpu.cpp import native as nat_mod
+    from seal_tpu_torch.cpp import native as tnat_mod
 
     if not native:
         def no_native():
             raise OSError("native ranker disabled for this test")
 
+        # both packages' copies of the native helpers
         monkeypatch.setattr(nat_mod, "load", no_native)
+        monkeypatch.setattr(tnat_mod, "load", no_native)
     host, keys, uni = _corpus(seed)
     for kw in (dict(unigram_scores=uni, add_best_unigrams_to_ngrams=True),
                dict(unigram_scores=None, max_occurrences_1=5, n_docs_complete_score=10),
