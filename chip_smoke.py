@@ -21,20 +21,36 @@
    bound and, where one PyTorch call computes the same function, that
    call (``torch.topk``, ``torch.log_softmax``,
    ``scaled_dot_product_attention``); runs the port on the card against
-   its plain CPU path on a small input; checks the bf16 LM head's f32
-   result.
-6. Drives the second path, ``SEALSearcher.batch_search`` at the
+   its plain CPU path on a small input (over each index layout); checks
+   the bf16 LM head's f32 result.
+6. Builds the compact and hybrid wavelet indexes of the same corpus
+   (``bench_generate.build_index``), logs each layout's device bytes and
+   bytes/token beside the Psi index's, and drives the same generation
+   point over each: queries/s, the run's launches (kernels 12-13 and none
+   of the Psi index kernels 1, 2, 5, 6), every key grounded, hypotheses
+   identical to the Psi layout's (tokens, score bits), a ``force_full``
+   re-run identical and through kernel 14, one profiled batch; then times
+   the three layouts in turns (the host clock drifts between phases) and
+   profiles one batch of each again in the reverse order.  Holds
+   kernels 12-14 against their plain versions at the path's shapes on both
+   layouts, exactly, each timed beside its Psi counterpart.
+7. Drives the second path, ``SEALSearcher.batch_search`` at the
    end-to-end bench point of ``seal_tpu_torch.bench_search`` (BART-large
    bf16, a 10k-document word corpus, 32 queries in units of 16, every key
    path on): reports queries/s, the phase split and each kernel's launches
    in that run; checks that the raw body and title keys of one unit are
    grounded and that a ``force_full`` re-run of its title decode is
    identical; profiles one unit; holds kernels 5-7 against their plain
-   versions at the path's shapes; runs the tiny searcher on the card
-   against its CPU path.
+   versions at the path's shapes; builds the searcher with
+   ``compact_index`` and with ``hybrid_index`` from the same host index,
+   tokenizer and parameters and runs ``batch_search`` on the same queries
+   (queries/s, phases, launches; documents and order equal to the Psi
+   searcher's, scores within 1e-6 relative), then all three in turns;
+   runs the tiny searcher on the card, over each layout, against its CPU
+   path.
 
 Each path's launch counts come from that path's own run (every count set
-to 0 just before it, read just after); on both decoding paths kernels 9
+to 0 just before it, read just after); on every decoding path kernels 9
 and 10 must launch once per decoder layer and decode step, kernels 8
 (select) and 11 once per decode step.  Prints one JSON object with the
 kernel table on the line before the last, and ``{"ok": true, "device":
@@ -66,6 +82,9 @@ REPLACES = {
     "cross_attention_step": "seal_tpu/models/bart.py:156",
     "self_attention_step": "seal_tpu/models/bart.py:275",
     "reorder_cache": "seal_tpu/models/bart.py:356",
+    "wt_search": "seal_tpu/ops/wt_ops.py:136",
+    "wt_window_gather": "seal_tpu/ops/wt_ops.py:115",
+    "wt_bucket_counts": "seal_tpu/ops/wt_ops.py:203",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -80,6 +99,9 @@ SOURCES = {
     "cross_attention_step": ("cuda", "seal_tpu_torch/kernels/csrc/decode_attention.cu"),
     "self_attention_step": ("cuda", "seal_tpu_torch/kernels/csrc/decode_attention.cu"),
     "reorder_cache": ("cuda", "seal_tpu_torch/kernels/csrc/reorder_cache.cu"),
+    "wt_search": ("cuda", "seal_tpu_torch/kernels/csrc/wt_search.cu"),
+    "wt_window_gather": ("cuda", "seal_tpu_torch/kernels/csrc/wt_window.cu"),
+    "wt_bucket_counts": ("cuda", "seal_tpu_torch/kernels/csrc/wt_bucket_counts.cu"),
 }
 # the kernels each driven path must launch (bucket_counts and the loop
 # rounds' merges run only in the proven loop, which the force_full re-runs
@@ -94,6 +116,21 @@ PATH_KERNELS = {
     "unigram": ("log_softmax_min_len",),
     "grounding_unit": ("fm_sequences",),
 }
+# the compact and hybrid wavelet layouts: the same paths through kernels
+# 12-14, and none of the Psi index kernels they replace (1, 2, 5, 6); the
+# hybrid window is kernel 13's direct mode, not kernel 2
+WAVELET_LAYOUTS = ("compact", "hybrid")
+PSI_INDEX_KERNELS = ("fm_search", "window_gather", "fm_sequences", "bucket_counts")
+for _layout in WAVELET_LAYOUTS:
+    PATH_KERNELS[f"generate_{_layout}"] = (
+        "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len") + DECODE_STEP
+    PATH_KERNELS[f"generate_{_layout}_force_full"] = ("wt_bucket_counts", "beam_merge")
+    PATH_KERNELS[f"batch_search_{_layout}"] = (
+        "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len",
+        "rescore_logprob") + DECODE_STEP
+# the searchers' documents on the wavelet layouts against the Psi
+# searcher's: the same computation but for the index arithmetic
+LAYOUT_SEARCH_RTOL = 1e-6
 # kernel 4 sums a 50265-wide row in another order than torch: f32 rounding
 # of a log-sum-exp near 11 is ~1e-6; 1e-4 leaves room for the sum order
 LOGSOFTMAX_ATOL = 1e-4
@@ -156,7 +193,9 @@ def log_kernel(row) -> None:
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {row['bytes']} B) at {row['shape']}, "
         f"max err {row['max_abs_err']}"
         + "".join(f", {k} {row[k]}" for k in ("tol_ratio", "f32_max_abs_err", "step0_ms",
-                                               "step0_plain_ms", "long_ms", "long_plain_ms")
+                                               "step0_plain_ms", "long_ms", "long_plain_ms",
+                                               "psi_ms", "sequences_ms", "sequences_psi_ms",
+                                               "hybrid_ms", "hybrid_plain_ms")
                   if k in row))
 
 
@@ -493,11 +532,13 @@ def decode_kernel_phases(np, torch, cfg, V, B, K, window, enc_len, key_len, devi
 
 
 def small_parity(np, torch):
-    """The port on the card vs the port's plain CPU path, on a tiny model
-    and corpus (the CPU path is held to the JAX package by the tests)."""
+    """The port on the card, over each index layout, vs the port's plain
+    CPU path, on a tiny model and corpus (the CPU path is held to the JAX
+    package by the tests)."""
     from seal_tpu_torch.index.fm_index import FMIndex
     from seal_tpu_torch.decoding.generate import fm_index_generate, pad_batch
     from seal_tpu_torch.index.device_index import TorchFMIndex
+    from seal_tpu_torch.index.wavelet import WaveletIndex
     from seal_tpu_torch.models import bart
     from seal_tpu_torch.models.config import bart_tiny
 
@@ -517,13 +558,19 @@ def small_parity(np, torch):
         for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
             idx = TorchFMIndex.from_host(host, vocab=96, device=dev)
             out[dev] = fm_index_generate(cfg, params, idx, ids, mask, **kw)
-        for a, b in zip(out["cpu"], out["cuda"]):
-            ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
-            if [t for t, _ in ka] != [t for t, _ in kb]:
-                fail(f"small-input parity: keys differ between card and CPU (seed {seed})")
-            elif ka and max(abs(x[1] - y[1]) for x, y in zip(ka, kb)) > 1e-4:
-                fail(f"small-input parity: scores differ by > 1e-4 (seed {seed})")
-            n_keys += len(ka)
+        for layout in WAVELET_LAYOUTS:
+            idx = WaveletIndex.from_host(host, vocab=96, keep_bwt=layout == "hybrid",
+                                         device="cuda")
+            out[layout] = fm_index_generate(cfg, params_gpu, idx, ids, mask, **kw)
+        for run in ("cuda",) + WAVELET_LAYOUTS:
+            for a, b in zip(out["cpu"], out[run]):
+                ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
+                if [t for t, _ in ka] != [t for t, _ in kb]:
+                    fail(f"small-input parity: keys differ between card ({run}) and CPU "
+                         f"(seed {seed})")
+                elif ka and max(abs(x[1] - y[1]) for x, y in zip(ka, kb)) > 1e-4:
+                    fail(f"small-input parity: scores differ by > 1e-4 ({run}, seed {seed})")
+                n_keys += len(ka)
     return n_keys
 
 
@@ -622,6 +669,186 @@ def search_kernel_phases(np, torch, host, index, vocab):
     return table
 
 
+def block_sectors(torch, x, d=None) -> int:
+    """Distinct 32-byte sectors of one level's 192-byte blocks (6 sectors:
+    count words in 0-1, code words in 2-5) that ranks at positions ``x``
+    read: the sector of count word ``d`` (both count sectors when ``d`` is
+    None: every digit), and the code sectors up to the word holding x."""
+    x = x.reshape(-1).long()
+    base = (x >> 8) * 6
+    last = 2 + ((x & 255) >> 6)  # the sector of code word 16 + (x & 255) / 8
+    code = base[:, None] + torch.minimum(torch.arange(2, 6, device=x.device), last[:, None])
+    if d is None:
+        count = base[:, None] + torch.arange(2, device=x.device)
+    else:
+        count = (base + (d.reshape(-1).long() >> 3))[:, None]
+    return torch.unique(torch.cat([count.reshape(-1), code.reshape(-1)])).numel()
+
+
+def touched_bytes(torch, *traces) -> int:
+    """Bytes of the distinct 32-byte sectors that descents read, each
+    counted once: what the data needs, not one block per query.  Each
+    trace is a plain descent's per-level (position, node, digit) list
+    (``wt_search.rank_plain`` / ``access_plain``); per level it counts the
+    block sectors, the node_start words and the node_cnt words read."""
+    n = 0
+    for level in zip(*traces):
+        x, node, d = (torch.cat([t[i].reshape(-1) for t in level]).long() for i in range(3))
+        n += 32 * (block_sectors(torch, x, d) + torch.unique(node >> 3).numel()
+                   + torch.unique((node * 16 + d) >> 3).numel())
+    return n
+
+
+def wavelet_kernel_phases(np, torch, host, psi, layouts, V, B, K):
+    """Kernels 12-14 against their plain versions at the generation path's
+    shapes on both wavelet layouts, exactly, each timed beside its Psi
+    counterpart (kernels 1, 5, 2 and 6) on the same ranges.  The bound is
+    bytes: the distinct 32-byte sectors of blocks and node tables that the
+    inputs' descents read, each once, beside a dependent chain of
+    ``digits`` levels."""
+    from seal_tpu_torch.kernels import bucket_counts as k6
+    from seal_tpu_torch.kernels import fm_search as k1
+    from seal_tpu_torch.kernels import window_gather as k2
+    from seal_tpu_torch.kernels import wt_bucket_counts as k14
+    from seal_tpu_torch.kernels import wt_search as k12
+    from seal_tpu_torch.kernels import wt_window as k13
+
+    compact, hybrid = layouts["compact"], layouts["hybrid"]
+    dev = compact.device
+    g = torch.Generator(device=dev).manual_seed(4)
+    rng = np.random.default_rng(4)
+    N, digits = compact.n_rows, compact.digits
+    table = []
+
+    # the decode's ranges: one- and two-token prefixes of corpus text, the
+    # full range, an empty range and the empty range at the end; the same
+    # rows in every layout
+    text = host.text[:-1] - 1
+    first = torch.as_tensor(rng.choice(text, size=(2, B, K)).astype(np.int32), device=dev)
+    full_lo, full_hi = psi.full_range((B, K))
+    lo1, hi1 = k1.backward_step_plain(psi, first[0], full_lo, full_hi)
+    lo2, hi2 = k1.backward_step_plain(psi, first[1], lo1, hi1)
+    even = torch.arange(K, device=dev) % 2 == 0
+    lo, hi = torch.where(even, lo1, lo2), torch.where(even, hi1, hi2)
+    lo[0, 0], hi[0, 0] = 0, N
+    lo[0, 1], hi[0, 1] = 5, 5
+    lo[0, 2], hi[0, 2] = N, N
+    wlo, whi = k12.backward_step_plain(compact, first[1], lo1, hi1)
+    if not (torch.equal(wlo, lo2) and torch.equal(whi, hi2)):
+        fail("the wavelet layout's ranges differ from the Psi layout's")
+
+    # kernel 12: membership [B, K, 65], backward step [B, K], 4096 sequences
+    cand = torch.randint(0, V, (B, K, 65), generator=g, device=dev, dtype=torch.int32)
+    cand[..., :32] = first[0, :, :, None]
+    cand[..., -1] = 2
+    ext = torch.randint(-1, V + 2, (B, K), generator=g, device=dev, dtype=torch.int32)
+    n_seq, L = 4096, 16
+    starts = rng.integers(0, text.size - L, size=n_seq)
+    seqs = np.stack([text[s : s + L][::-1] for s in starts]).astype(np.int32)
+    seqs[: n_seq // 8] = rng.integers(-1, V + 2, size=(n_seq // 8, L))
+    seqs = torch.as_tensor(seqs, device=dev)
+    lens = torch.as_tensor(rng.integers(1, L + 1, size=n_seq).astype(np.int32), device=dev)
+    err12 = 0
+    for ix in (compact, hybrid):
+        err12 += int((k12.wt_search(ix, "contains", cand, lo, hi)
+                      != k12.contains_plain(ix, cand, lo, hi)).sum())
+        err12 += int((k12.wt_search(ix, "contains", cand, lo, hi)
+                      != k1.contains_plain(psi, cand, lo, hi)).sum())
+        for a, b in zip(k12.wt_search(ix, "backward_step", ext, lo, hi),
+                        k12.backward_step_plain(ix, ext, lo, hi)):
+            err12 = max(err12, int((a - b).abs().max()))
+        for a, b in zip(k12.wt_sequences(ix, seqs, lens), k12.sequences_plain(ix, seqs, lens)):
+            err12 = max(err12, int((a - b).abs().max()))
+    if err12:
+        fail(f"wt_search differs from its plain version (max err {err12})")
+    n_q = cand.numel()
+    c = cand + 1
+    c = torch.where((c >= 1) & (c < compact.sigma), c, 0)
+    traces = ([], [])
+    for pos, trace in zip((lo, hi), traces):
+        k12.rank_plain(compact, c, pos[..., None], trace=trace)
+    index12 = touched_bytes(torch, *traces)
+    table.append(dict(
+        name="wt_search", max_abs_err=err12, library_ms=None,
+        ms=time_ms(lambda: k12.wt_search(compact, "contains", cand, lo, hi)),
+        plain_ms=time_ms(lambda: k12.contains_plain(compact, cand, lo, hi)),
+        psi_ms=time_ms(lambda: k1.fm_search(psi, "contains", cand, lo, hi)),
+        sequences_ms=time_ms(lambda: k12.wt_sequences(compact, seqs, lens)),
+        sequences_psi_ms=time_ms(lambda: k1.fm_sequences(psi, seqs, lens)),
+        shape=f"contains [{B},{K},65] (compact; hybrid checked too); backward_step [{B},{K}]; "
+              f"sequences [{n_seq},{L}]; a chain of {digits} dependent levels",
+        # tokens, membership out, the range pair, and the index bytes read
+        bytes=n_q * (4 + 1) + B * K * 8 + index12, index_bytes=index12,
+    ))
+
+    # kernel 13: the window [B*K rows, w=32, fill pad] and a slab (w=64,
+    # fill 0), descent (compact) and direct (hybrid)
+    lp = torch.log_softmax(torch.randn(B * K, V, generator=g, device=dev), -1)
+    err13 = 0.0
+    for ix in (compact, hybrid):
+        for w, fill in ((32, 1), (64, 0)):
+            got = k13.wt_window_gather(ix, lo, hi, w, lp, fill)
+            want = k13.wt_window_gather_plain(ix, lo, hi, w, lp, fill)
+            psi_out = k2.window_gather_plain(psi, lo, hi, w, lp, fill)
+            for ref in (want, psi_out):
+                err13 = max(err13, float((got[0] - ref[0]).abs().max()),
+                            float((got[1] != ref[1]).sum()), float((got[2] - ref[2]).abs().max()))
+    if err13:
+        fail(f"wt_window_gather differs from its plain version (max err {err13})")
+    slots = B * K * 32
+    rows, ok = k2.window_rows(lo, hi, 32)
+    trace = []
+    k12.access_plain(compact, rows[ok], trace=trace)
+    index13 = touched_bytes(torch, trace)
+    table.append(dict(
+        name="wt_window_gather", max_abs_err=err13, library_ms=None,
+        ms=time_ms(lambda: k13.wt_window_gather(compact, lo, hi, 32, lp, 1)),
+        plain_ms=time_ms(lambda: k13.wt_window_gather_plain(compact, lo, hi, 32, lp, 1)),
+        psi_ms=time_ms(lambda: k2.window_gather(psi, lo, hi, 32, lp, 1)),
+        hybrid_ms=time_ms(lambda: k13.wt_window_gather(hybrid, lo, hi, 32, lp, 1)),
+        hybrid_plain_ms=time_ms(lambda: k13.wt_window_gather_plain(hybrid, lo, hi, 32, lp, 1)),
+        shape=f"[{B * K}, w=32] over lp [{B * K},{V}], descent (compact; {digits} levels a slot) "
+              "and direct (hybrid_ms: one 2-byte read a slot)",
+        # ranges, the descents' index bytes, the lp reads and the outputs
+        bytes=B * K * 8 + index13 + slots * (4 + 9), index_bytes=index13,
+    ))
+
+    # kernel 14: [B, K] ranges into 256 buckets, plus a range inside one
+    # block and one across a block edge
+    blo, bhi = lo.clone(), hi.clone()
+    blo[0, 3], bhi[0, 3] = 256, 300
+    blo[0, 4], bhi[0, 4] = 255, 1025
+    width = k14.bucket_counts_width(compact)
+    err14 = 0
+    for ix in (compact, hybrid):
+        got = k14.wt_bucket_counts(ix, blo, bhi)
+        err14 += int((got != k14.wt_bucket_counts_plain(ix, blo, bhi)).sum())
+        err14 += int((got.sum(-1) != (bhi - blo).clamp(min=0)).sum())
+    if err14:
+        fail(f"wt_bucket_counts differs from its plain version ({err14} counts)")
+    # level 0 ranks every digit at the bounds, level 1 at the 16 children's
+    # positions of each bound (every count word, the code words up to x);
+    # the node tables' first 17 rows
+    x0 = torch.stack([blo, bhi]).reshape(-1, 1).expand(-1, k14.RADIX)
+    digit = torch.arange(k14.RADIX, device=dev, dtype=torch.int32).expand(x0.shape)
+    child = (k12.rank_from_block(k12.load_block(compact, 0, x0), x0, digit)
+             - compact.node_cnt[0])
+    x1 = compact.node_start[1 : 1 + k14.RADIX] + child
+    index14 = (block_sectors(torch, x0[:, 0]) + block_sectors(torch, x1)) * 32 \
+        + (1 + k14.RADIX) * k14.RADIX * 4 + (1 + k14.RADIX) * 4
+    table.append(dict(
+        name="wt_bucket_counts", max_abs_err=err14, library_ms=None,
+        ms=time_ms(lambda: k14.wt_bucket_counts(compact, blo, bhi)),
+        plain_ms=time_ms(lambda: k14.wt_bucket_counts_plain(compact, blo, bhi)),
+        psi_ms=time_ms(lambda: k6.bucket_counts(psi, blo, bhi)),
+        shape=f"[{B},{K}] ranges x {width} buckets ({k14.bucket_size_of(compact)} symbols each)",
+        # ranges in, counts out, and the index bytes read
+        bytes=B * K * (8 + 4 * width) + index14, index_bytes=index14,
+    ))
+    torch.cuda.synchronize()
+    return table
+
+
 def searcher_grounding(searcher, queries):
     """One unit's raw body and title hypotheses, decoded as
     ``process_batch`` decodes them: every body key occurs in the corpus; a
@@ -668,20 +895,24 @@ def searcher_grounding(searcher, queries):
 
 
 def small_search_parity(np):
-    """The tiny searcher on the card vs on the CPU: same doc ids in the same
-    order, scores within SEARCH_RTOL."""
+    """The tiny searcher on the card, over each index layout, vs on the CPU
+    over the Psi layout: same doc ids in the same order, scores within
+    SEARCH_RTOL."""
     from seal_tpu_torch import bench_search
 
     cpu = bench_search.tiny_searcher("cpu").batch_search(bench_search.TINY_QUERIES, k=5)
-    gpu = bench_search.tiny_searcher("cuda").batch_search(bench_search.TINY_QUERIES, k=5)
     n = 0
-    for a, b in zip(cpu, gpu):
-        if [d.docid for d in a] != [d.docid for d in b]:
-            fail("small searcher parity: doc ids differ between card and CPU")
-        elif a and np.max(np.abs(np.subtract([d.score for d in b], [d.score for d in a]))
-                          / np.abs([d.score for d in a])) > SEARCH_RTOL:
-            fail("small searcher parity: scores differ by more than the tolerance")
-        n += len(a)
+    for layout in ("psi",) + WAVELET_LAYOUTS:
+        gpu = bench_search.tiny_searcher("cuda", layout=layout).batch_search(
+            bench_search.TINY_QUERIES, k=5)
+        for a, b in zip(cpu, gpu):
+            if [d.docid for d in a] != [d.docid for d in b]:
+                fail(f"small searcher parity: doc ids differ between card ({layout}) and CPU")
+            elif a and np.max(np.abs(np.subtract([d.score for d in b], [d.score for d in a]))
+                              / np.abs([d.score for d in a])) > SEARCH_RTOL:
+                fail(f"small searcher parity ({layout}): scores differ by more than the "
+                     "tolerance")
+            n += len(a)
     if n == 0:
         fail("small searcher parity: no documents retrieved")
     return n
@@ -732,8 +963,12 @@ def main() -> int:
         row_topk,
         triton_logsoftmax,
         window_gather,
+        wt_bucket_counts,
+        wt_search,
+        wt_window,
     )
     from seal_tpu_torch.models import bart
+    from seal_tpu_torch.retrieval.searcher import SEALSearcher
     from seal_tpu_torch.scoring import keys as scoring
 
     counters = {
@@ -749,6 +984,9 @@ def main() -> int:
         "cross_attention_step": decode_attention.cross_attention_step,
         "self_attention_step": decode_attention.self_attention_step,
         "reorder_cache": reorder_cache.reorder_cache,
+        "wt_search": wt_search.wt_search,
+        "wt_window_gather": wt_window.wt_window_gather,
+        "wt_bucket_counts": wt_bucket_counts.wt_bucket_counts,
     }
     by_path: dict = {}  # path -> {kernel: launches in that path's run}
     # decode steps each path runs (the beam search calls bart.decode_step
@@ -772,7 +1010,12 @@ def main() -> int:
         for name in PATH_KERNELS[path]:
             if by_path[path][name] <= 0:
                 fail(f"kernel {name} was not launched on the {path} path")
-        if path in ("generate", "batch_search"):
+        if path.endswith(WAVELET_LAYOUTS + tuple(f"{w}_force_full" for w in WAVELET_LAYOUTS)):
+            for name in PSI_INDEX_KERNELS:
+                if by_path[path][name]:
+                    fail(f"{path}: the Psi index kernel {name} was launched "
+                         f"{by_path[path][name]} times")
+        if path.startswith(("generate", "batch_search")) and not path.endswith("force_full"):
             # every decode step ran both attentions in every layer, one
             # reorder and one selection: no plain attention, gather or
             # selection is left on the card, step 0 included
@@ -878,6 +1121,100 @@ def main() -> int:
     if head.dtype != torch.float32 or head_err > LM_HEAD_ATOL:
         fail(f"lm_logits bf16 head is off (dtype {head.dtype}, err {head_err})")
 
+    # ---- the compact and hybrid layouts at the same generation point -------
+    def hyp_keys(hyp_lists, what):
+        """Check every key of ``hyp_lists`` against the host index."""
+        n = 0
+        for q in hyp_lists:
+            for score, toks in q:
+                key = [t for t in toks[1:] if t not in special]
+                if not np.isfinite(score):
+                    fail(f"{what}: non-finite score {score} for {toks}")
+                if key:
+                    n += 1
+                    if host.get_count(key) <= 0:
+                        fail(f"{what}: key not in the corpus: {key}")
+        return n
+
+    psi_bytes = index.memory_bytes()
+    log(f"index bytes: psi {psi_bytes} ({psi_bytes / (index.n_rows - 1):.2f} B/token)")
+    layouts, wt_runs = {}, {}
+    for layout in WAVELET_LAYOUTS:
+        t0 = time.perf_counter()
+        wix = layouts[layout] = bench_generate.build_index(host, layout, "cuda")
+        nbytes = wix.memory_bytes()
+        log(f"index bytes: {layout} {nbytes} ({nbytes / (wix.n_rows - 1):.2f} B/token), digits "
+            f"{wix.digits}, set-up {time.perf_counter() - t0:.1f} s")
+
+        def run_layout(wix=wix, **extra):
+            out = generate.fm_index_generate(cfg, params, wix, ids, mask, **kw, **extra)
+            torch.cuda.synchronize()
+            return out
+
+        zero_counts()
+        run_layout()  # warm-up
+        l_times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            l_hyps = run_layout()
+            l_times.append(time.perf_counter() - t0)
+        l_launches = read_counts(f"generate_{layout}")
+        l_fallback = generate.LAST_DECODE_STATS["fallback_steps"]
+        l_batch = statistics.median(l_times)
+        log(f"{layout} layout: {[round(t, 4) for t in l_times]} s/batch; median {l_batch:.4f} s = "
+            f"{B / l_batch:.1f} queries/s (psi {B / per_batch:.1f} in this call); "
+            f"fallback_steps {l_fallback}")
+        log(f"launches in the {layout} run: {l_launches}")
+        n_l = hyp_keys(l_hyps, layout)
+        if n_l == 0:
+            fail(f"{layout}: no keys emitted")
+        if [sorted((tuple(t), s) for s, t in q) for q in l_hyps] != canon:
+            fail(f"{layout}: hypotheses differ from the psi layout's (tokens or score bits)")
+        zero_counts()
+        l_full = run_layout(force_full=True)
+        log(f"launches in the {layout} force_full re-run: "
+            f"{read_counts(f'generate_{layout}_force_full')}")
+        if [sorted((tuple(t), s) for s, t in q) for q in l_full] != canon:
+            fail(f"{layout}: force_full hypotheses differ from the fast path's")
+        l_prof = bench_generate.profile_batch(run_layout)
+        log(f"{layout} checks: {n_l} keys grounded; hypotheses bit-identical to the psi layout's; "
+            f"force_full identical" if not FAILURES else f"{layout} checks: {n_l} keys")
+        log(f"{layout} profiled batch: {l_prof['kernels']} kernels, device busy "
+            f"{l_prof['device_busy_ms']:.2f} ms of {l_prof['wall_ms']:.2f} ms wall "
+            f"({100 * l_prof['busy_share']:.1f}%)")
+        for row in l_prof["top"][:8]:
+            log(f"  {row['ms']:8.3f} ms {row['calls']:6d} calls  {row['name']}")
+        wt_runs[layout] = dict(qps=B / l_batch, bytes=nbytes, busy=l_prof["busy_share"])
+    # the host clock drifts between phases: compare the layouts only in
+    # turns (five rounds of psi, compact, hybrid; launches not counted)
+    turns = {"psi": [], **{layout: [] for layout in WAVELET_LAYOUTS}}
+    for _ in range(5):
+        for layout, ix in (("psi", index), *layouts.items()):
+            t0 = time.perf_counter()
+            generate.fm_index_generate(cfg, params, ix, ids, mask, **kw)
+            torch.cuda.synchronize()
+            turns[layout].append(time.perf_counter() - t0)
+    for layout, ts in turns.items():
+        wt_runs.setdefault(layout, {})["turns_qps"] = B / statistics.median(ts)
+    log("generation in turns (5 rounds of psi, compact, hybrid): " + "; ".join(
+        f"{k} {[round(t, 4) for t in ts]} s, median {B / statistics.median(ts):.1f} queries/s"
+        for k, ts in turns.items()))
+    # one more profiled batch of each, in the reverse order (hybrid,
+    # compact, psi): whether a profiled batch's host wall follows the layout
+    # or its place in the call
+    again = []
+    for layout, ix in reversed((("psi", index), *layouts.items())):
+        p = bench_generate.profile_batch(
+            lambda ix=ix: generate.fm_index_generate(cfg, params, ix, ids, mask, **kw))
+        again.append(f"{layout} busy {p['device_busy_ms']:.2f} ms of {p['wall_ms']:.2f} ms wall "
+                     f"({100 * p['busy_share']:.1f}%)")
+    log("profiled again, reverse order: " + "; ".join(again))
+    wt_table = wavelet_kernel_phases(np, torch, host, index, layouts, V, B, K)
+    for row in wt_table:
+        log_kernel(row)
+    table += wt_table
+    del layouts
+
     # ---- second path: SEALSearcher.batch_search at the e2e bench point ----
     try:
         from seal_tpu_torch.cpp import native
@@ -945,6 +1282,58 @@ def main() -> int:
     for row in stable:
         log_kernel(row)
     table += stable
+    # ---- the searcher over the compact and hybrid layouts -----------------
+    psi_docs = [[(d.docid, d.score) for d in r] for r in results]
+    searchers = {"psi": searcher}
+    for layout in WAVELET_LAYOUTS:
+        t0 = time.perf_counter()
+        ws = SEALSearcher(searcher.fm_index, searcher.tokenizer, searcher.model_cfg,
+                          searcher.params, backbone=searcher.backbone,
+                          batch_size=searcher.batch_size, **bench_search.layout_knobs(layout))
+        nbytes = ws.device_index.memory_bytes()
+        log(f"{layout} searcher set-up {time.perf_counter() - t0:.1f} s: index {nbytes} B "
+            f"({nbytes / (ws.device_index.n_rows - 1):.2f} B/token; psi "
+            f"{searcher.device_index.memory_bytes() / (ws.device_index.n_rows - 1):.2f})")
+        ws.batch_search(unit, k=bench_search.TOP_K)  # warm-up unit
+        torch.cuda.synchronize()
+        ws.phase_timer.enabled = True
+        zero_counts()
+        t0 = time.perf_counter()
+        wres = ws.batch_search(queries, k=bench_search.TOP_K)
+        torch.cuda.synchronize()
+        ws_s = time.perf_counter() - t0
+        ws_launches = read_counts(f"batch_search_{layout}")
+        ws_phases = dict(ws.phase_timer.totals)
+        log(f"{layout} batch_search: {len(queries)} queries in {ws_s:.3f} s = "
+            f"{len(queries) / ws_s:.2f} queries/s (psi {e2e_qps:.2f} in this call); phases "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(ws_phases.items())))
+        log(f"launches in the {layout} batch_search run: {ws_launches}")
+        n_same = 0
+        for want, got in zip(psi_docs, wres):
+            got = [(d.docid, d.score) for d in got]
+            if [d for d, _ in got] != [d for d, _ in want]:
+                fail(f"{layout} batch_search: documents differ from the psi searcher's")
+            elif want and max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, want)) \
+                    > LAYOUT_SEARCH_RTOL:
+                fail(f"{layout} batch_search: scores differ from the psi searcher's by more "
+                     f"than {LAYOUT_SEARCH_RTOL} relative")
+            n_same += len(got)
+        log(f"{layout} batch_search: {n_same} documents compared with the psi searcher's")
+        wt_runs[layout]["search_qps"] = len(queries) / ws_s
+        searchers[layout] = ws
+    search_turns = {layout: [] for layout in searchers}
+    for _ in range(2):  # in turns, as the generation runs above
+        for layout, srch in searchers.items():
+            t0 = time.perf_counter()
+            srch.batch_search(queries, k=bench_search.TOP_K)
+            torch.cuda.synchronize()
+            search_turns[layout].append(time.perf_counter() - t0)
+    for layout, ts in search_turns.items():
+        wt_runs[layout]["search_turns_qps"] = len(queries) / statistics.median(ts)
+    log("batch_search in turns (2 rounds of psi, compact, hybrid): " + "; ".join(
+        f"{k} {[round(t, 3) for t in ts]} s, {len(queries) / statistics.median(ts):.2f} queries/s"
+        for k, ts in search_turns.items()))
+    del searchers
     n_small_search = small_search_parity(np)
     log(f"small searcher parity (card vs CPU): {n_small_search} documents compared")
     total = {name: sum(p[name] for p in by_path.values()) for name in counters}
@@ -959,7 +1348,12 @@ def main() -> int:
         f"lm_logits err {head_err:.3e}; nvcc {build.BUILD_SECONDS} s; batch_search "
         f"{e2e_qps:.2f} queries/s ({len(queries)} queries, {nonempty} non-empty), phases "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items()))
-        + f"; searcher unit busy {100 * sprof['busy_share']:.1f}% under the profiler")
+        + f"; searcher unit busy {100 * sprof['busy_share']:.1f}% under the profiler; "
+        + "; ".join(f"{k}: {v['qps']:.1f} queries/s, {v['bytes']} index bytes, busy "
+                    f"{100 * v['busy']:.1f}%, batch_search {v['search_qps']:.2f} queries/s"
+                    for k, v in wt_runs.items() if k != "psi")
+        + "; in turns (generation, batch_search queries/s): " + ", ".join(
+            f"{k} {v['turns_qps']:.1f} / {v['search_turns_qps']:.2f}" for k, v in wt_runs.items()))
     log(f"launches by path: {json.dumps(by_path)}")
     kernels = []
     for row in table:
@@ -970,7 +1364,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            **({"tol_ratio": row["tol_ratio"]} if "tol_ratio" in row else {}),
+            **{k: row[k] for k in ("tol_ratio", "psi_ms") if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}
     if missing:

@@ -5,6 +5,9 @@ The operating point is the JAX package's bench (``bench.py:147-193``): a
 random weights from a seed plus a corpus-unigram logit bias, bf16, batch
 32, beam 15, key length 10.  ``chip_smoke.py`` builds it on the card,
 times generation over it and profiles one batch with ``profile_batch``.
+``build_index`` builds the device index of a host index in one of
+``LAYOUTS``: ``"psi"`` (``TorchFMIndex``), ``"compact"`` or ``"hybrid"``
+(``WaveletIndex`` without or with the raw BWT).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 BATCH, BEAM, KEY_LEN, VOCAB = 32, 15, 10, 50265
+LAYOUTS = ("psi", "compact", "hybrid")
 
 
 def build_corpus(seed: int = 0):
@@ -52,15 +56,27 @@ def build_queries(rng, pad_id: int):
     return pad_batch(queries, pad_id)
 
 
-def operating_point(device="cuda"):
-    """(host FMIndex, TorchFMIndex, cfg, params, ids, mask, generate kwargs)."""
-    from seal_tpu_torch.index.fm_index import FMIndex
+def build_index(host, layout: str, device, vocab: int = VOCAB):
+    """The device index of ``host`` in ``layout`` (one of ``LAYOUTS``)."""
     from seal_tpu_torch.index.device_index import TorchFMIndex
+    from seal_tpu_torch.index.wavelet import WaveletIndex
+
+    if layout == "psi":
+        return TorchFMIndex.from_host(host, vocab=vocab, device=device)
+    if layout in ("compact", "hybrid"):
+        return WaveletIndex.from_host(host, vocab=vocab, keep_bwt=layout == "hybrid",
+                                      device=device)
+    raise ValueError(f"unknown index layout {layout!r} (one of {LAYOUTS})")
+
+
+def operating_point(device="cuda"):
+    """(host FMIndex, device index, cfg, params, ids, mask, generate kwargs)."""
+    from seal_tpu_torch.index.fm_index import FMIndex
 
     rng, tokens, docs = build_corpus()
     host = FMIndex()
     host.initialize(docs)
-    index = TorchFMIndex.from_host(host, vocab=VOCAB, device=device)
+    index = build_index(host, "psi", device)
     cfg, params = build_model(tokens, device)
     ids, mask = build_queries(rng, cfg.pad_token_id)
     kw = dict(num_beams=BEAM, max_length=KEY_LEN, min_length=KEY_LEN - 1, forced_bos_token_id=None)

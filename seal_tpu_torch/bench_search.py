@@ -11,7 +11,8 @@ SEAL logit bias, and the searcher's default knobs (beam 15, key length 10,
 body and title decodes, rescoring, query decomposition, unigram scores,
 pipelining) at batch size 16.  The queries are 6-word spans of random
 documents.  ``chip_smoke.py`` builds it on the card and times
-``batch_search`` over it.
+``batch_search`` over it.  ``layout_knobs`` gives the searcher knobs that
+pick its device index (``"psi"``, ``"compact"`` or ``"hybrid"``).
 """
 
 from __future__ import annotations
@@ -21,8 +22,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from seal_tpu_torch.bench_generate import LAYOUTS
+
 N_DOCS, N_WORDS, DOC_WORDS, ZIPF_A = 10_000, 30_000, 110, 0.8
 BATCH_SIZE, N_QUERIES, TOP_K = 16, 32, 10
+
+
+def layout_knobs(layout: str) -> dict:
+    """The searcher knobs that build ``layout``'s device index."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown index layout {layout!r} (one of {LAYOUTS})")
+    return dict(compact_index=layout == "compact", hybrid_index=layout == "hybrid")
 
 
 def build_texts(rng, n_docs: int = N_DOCS):
@@ -77,7 +87,7 @@ TINY_QUERIES = ["eating soup with a fork", "two wheels pedals bicycle",
                 "fresh water river ocean", "chess board game", "spearing solid food"]
 
 
-def tiny_searcher(device, seed: int = 0):
+def tiny_searcher(device, seed: int = 0, layout: str = "psi"):
     """A bart_tiny f32 searcher over the five ``TINY_CORPUS`` documents and
     20 filler documents, with every key path on.  The logit bias (a
     stand-in for a trained model) boosts the documents' words, and their
@@ -100,7 +110,7 @@ def tiny_searcher(device, seed: int = 0):
     host.initialize([tok.encode_plain(" " + t) + [tok.eos_token_id] for t in texts],
                     labels=[d for d, _, _ in corpus])
     cfg = bart_tiny(vocab_size=tok.vocab_size)
-    params = bart.init_params(cfg, seed=seed)
+    params = bart.init_params(cfg, seed=seed, device="cpu")
     bias = np.zeros(cfg.vocab_size, np.float32)
     for _, title, body in TINY_CORPUS:
         for t in tok.encode_plain(" " + body.lower()) + tok.encode_plain(" " + body):
@@ -111,7 +121,7 @@ def tiny_searcher(device, seed: int = 0):
     params["final_logits_bias"] = torch.as_tensor(bias)
     params = _tree_to(params, device)
     return SEALSearcher(host, tok, cfg, params, backbone="word-vocab", beam=4, length=4,
-                        batch_size=2)
+                        batch_size=2, **layout_knobs(layout))
 
 
 def _tree_to(tree, device):

@@ -48,33 +48,42 @@ from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.kernels.beam_select import NEG_INF, beam_merge, beam_select, beam_select_top
 from seal_tpu_torch.kernels.row_topk import row_topk
 from seal_tpu_torch.kernels.triton_logsoftmax import log_softmax_ban
+from seal_tpu_torch.index.wavelet import WaveletIndex
 from seal_tpu_torch.models import bart
-from seal_tpu_torch.ops import fm_ops
+from seal_tpu_torch.ops import fm_ops, wt_ops
+
+
+def index_ops(index):
+    """The op module of ``index``'s layout: ``wt_ops`` for the compact and
+    hybrid wavelet layouts, ``fm_ops`` for the Psi layout."""
+    return wt_ops if isinstance(index, WaveletIndex) else fm_ops
 
 
 class SingleIndexOps:
-    """Constraint-op adapter over one :class:`TorchFMIndex`."""
+    """Constraint-op adapter over one device index: a :class:`TorchFMIndex`
+    or a :class:`WaveletIndex`, dispatched to its layout's op module."""
 
     def __init__(self, index):
         self.index = index
+        self._ops = index_ops(index)
 
     def full_range(self, shape):
         return self.index.full_range(shape)
 
     def range_for(self, tokens, lengths):
-        return fm_ops.range_for_sequences(self.index, tokens, lengths)
+        return self._ops.range_for_sequences(self.index, tokens, lengths)
 
     def corpus_mask(self):
         return self.index.corpus_counts > 0
 
     def contains(self, tokens, lo, hi):
-        return fm_ops.contains_tokens(self.index, tokens, lo, hi)
+        return self._ops.contains_tokens(self.index, tokens, lo, hi)
 
     def window_gather(self, lo, hi, w, lp, fill):
-        return fm_ops.window_gather(self.index, lo, hi, w, lp, fill)
+        return self._ops.window_gather(self.index, lo, hi, w, lp, fill)
 
     def extend(self, tokens, lo, hi):
-        return fm_ops.extend_ranges(self.index, tokens, lo, hi)
+        return self._ops.extend_ranges(self.index, tokens, lo, hi)
 
     def range_size(self, lo, hi):
         return hi - lo
@@ -88,10 +97,12 @@ class SingleIndexOps:
         return (hi - lo) <= rows_done
 
     def bucket_counts(self, lo, hi):
-        return fm_ops.bucket_counts(self.index, lo, hi)
+        return self._ops.bucket_counts(self.index, lo, hi)
 
     def bucket_size(self):
-        return self.index.bucket_size
+        """Symbols per ``bucket_counts`` bucket: the layout's own (wavelet
+        buckets are 16^(digits-2) symbols, Psi buckets ceil(sigma/256))."""
+        return self._ops.bucket_size_of(self.index)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from seal_tpu_torch.index.fm_index import FMIndex, SHIFT
+from seal_tpu_torch.utils.device import DEFAULT_DEVICE, checked_device, tensor_bytes
 
 BUCKET_ROWS = 1024  # BWT rows per bucket-occ block
 N_BUCKETS = 256  # symbol buckets (one coarse wavelet level)
@@ -149,15 +150,21 @@ class TorchFMIndex:
     def device(self) -> torch.device:
         return self.psi.device
 
+    def memory_bytes(self) -> int:
+        """Device bytes of every array."""
+        return tensor_bytes(self)
+
     @classmethod
     def from_host(
         cls,
         index: FMIndex,
         vocab: int | None = None,
-        device="cpu",
+        device=DEFAULT_DEVICE,
         dir_shift: int | None = None,
     ) -> "TorchFMIndex":
-        """Ship a host-built index to ``device``; refuses >= 2^31 rows."""
+        """Ship a host-built index to ``device`` (the card unless the caller
+        asks for the CPU); refuses >= 2^31 rows."""
+        device = checked_device(device)
         n_rows = index.size()
         if n_rows >= 2**31:
             raise ValueError("corpora >= 2^31 rows need the sharded index")

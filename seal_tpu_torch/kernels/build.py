@@ -26,7 +26,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu", "bucket_counts.cu", "rescore.cu",
-           "beam_select.cu", "decode_attention.cu", "reorder_cache.cu")
+           "beam_select.cu", "decode_attention.cu", "reorder_cache.cu", "wt_search.cu",
+           "wt_window.cu", "wt_bucket_counts.cu")
+HEADERS = ("wt_common.cuh",)  # included by the wt_*.cu sources
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -36,6 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_WT = [_P, _P, _P, _P, _L, _I, _I, _I]  # a wavelet index (kernels/wt_search.py:index_args)
 # C signatures: every pointer (and the stream) as c_void_p, so ctypes never
 # truncates one to a 32-bit int
 SIGNATURES = {
@@ -77,6 +80,18 @@ SIGNATURES = {
     # table (host array of 2*n_tensors pointers), n_tensors, index, rows,
     # src_rows, copy_bytes, row_bytes, stream
     "seal_reorder_cache": [_P, _I, _P, _L, _L, _L, _L, _P],
+    # the wavelet index (blocks, node_start, node_cnt, C, n_blocks, n_rows,
+    # digits, sigma), then token, lo, hi, out_lo, out_hi, n, stream
+    "seal_wt_backward_step": _WT + [_P, _P, _P, _P, _P, _L, _P],
+    # the wavelet index, tokens, lo, hi, out, n_ranges, m, stream
+    "seal_wt_contains": _WT + [_P, _P, _P, _P, _L, _I, _P],
+    # the wavelet index, tokens, lengths, out_lo, out_hi, n, L, stream
+    "seal_wt_sequences": _WT + [_P, _P, _P, _P, _L, _I, _P],
+    # the wavelet index, bwt (None: descent), bwt_bytes, lp, lp_stride, lo,
+    # hi, n, w, vocab, fill, tok, valid, lp_out, stream
+    "seal_wt_window_gather": _WT + [_P, _I, _P, _L, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
+    # the wavelet index, lo, hi, out, n, depth, stream
+    "seal_wt_bucket_counts": _WT + [_P, _P, _P, _L, _I, _P],
 }
 # C functions that return a size rather than an error code
 SIZE_QUERIES = {"seal_beam_merge_smem": [_I], "seal_beam_select_smem": [_I, _I, _I],
@@ -109,8 +124,9 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs = [os.path.join(CSRC, s) for s in SOURCES]
     out = os.path.join(BUILD_DIR, "libseal_kernels.so")
+    deps = srcs + [os.path.join(CSRC, h) for h in HEADERS]
     if os.path.exists(out) and all(
-        os.path.getmtime(out) >= os.path.getmtime(s) for s in srcs
+        os.path.getmtime(out) >= os.path.getmtime(s) for s in deps
     ):
         return out
     nvcc = _nvcc()

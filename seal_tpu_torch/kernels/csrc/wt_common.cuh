@@ -1,0 +1,108 @@
+// The 16-ary wavelet tree's device functions, shared by kernels 12-14
+// (wt_search.cu, wt_window.cu, wt_bucket_counts.cu).
+//
+// Layout (seal_tpu_torch/index/wavelet.py): blocks [digits, n_blocks, 48]
+// uint32, per 256 rows of a level 16 cumulative digit counts (the rank
+// directory) then 32 code words of 8 four-bit digits each, little-endian;
+// node_start / node_cnt give each heap node's start in its level sequence
+// and the per-digit ranks at that start.  A rank of digit d at level
+// position x is one block: the directory word d plus the popcount of the
+// matched nibbles of the code words before x & 255.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace seal_wt {
+
+constexpr int SHIFT = 1;  // real token ids are stored +1; 0 is the sentinel
+constexpr int DIGIT_BITS = 4;
+constexpr int RADIX = 16;
+constexpr int WORDS_PER_BLOCK = 48;
+
+struct Index {
+  const uint32_t* blocks;   // [digits, n_blocks, 48]
+  const int* node_start;    // [heap]
+  const int* node_cnt;      // [heap, 16]
+  const int* C;             // [sigma_bound + 1]
+  long long n_blocks;
+  int n_rows;
+  int digits;
+  int sigma;                // symbols >= sigma never occur: rank 0
+};
+
+// start of level `level` in the 16-ary node heap: sum of 16^j, j < level
+__device__ __forceinline__ int heap_base(int level) {
+  return ((1 << (DIGIT_BITS * level)) - 1) / (RADIX - 1);
+}
+
+// nibble-low bits of the digits of w equal to the digit broadcast in pat:
+// XOR, OR each nibble down to its bit 0, complement under the lane mask
+__device__ __forceinline__ uint32_t match_nibbles(uint32_t w, uint32_t pat) {
+  uint32_t x = w ^ pat;
+  x |= x >> 2;
+  x |= x >> 1;
+  return ~x & 0x11111111u;
+}
+
+// the 48 words of the block that holds level position x (x clamped to
+// [0, n_rows]; block n_rows >> 8 exists, as the builder adds one)
+__device__ __forceinline__ const uint32_t* block_of(const Index& ix, int level, int& x) {
+  x = min(max(x, 0), ix.n_rows);
+  return ix.blocks + ((long long)level * ix.n_blocks + (x >> 8)) * WORDS_PER_BLOCK;
+}
+
+// occurrences of digit d among the level positions before x, x in blk
+__device__ __forceinline__ int rank_in_block(const uint32_t* blk, int x, int d) {
+  const int within = x & 255;
+  const int last = within >> 3;  // the code word that holds x
+  const uint32_t pat = (uint32_t)d * 0x11111111u;
+  int cnt = (int)__ldg(blk + d);
+  // blocks are 192 bytes and the codes start 64 bytes in: 16-byte aligned
+  const uint4* codes = reinterpret_cast<const uint4*>(blk + RADIX);
+  for (int q = 0; q <= (last >> 2); ++q) {
+    const uint4 v = __ldg(codes + q);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = 4 * q + k;
+      uint32_t m = match_nibbles(w[k], pat);
+      if (i == last) m &= (1u << ((within & 7) << 2)) - 1u;
+      cnt += i <= last ? __popc(m) : 0;
+    }
+  }
+  return cnt;
+}
+
+// Occ(c, pos) for a shifted symbol c in [0, sigma): `digits` dependent levels
+__device__ __forceinline__ int rank(const Index& ix, int c, int pos) {
+  const int L = ix.digits;
+  int p = pos;
+  for (int l = 0; l < L; ++l) {
+    const int node = heap_base(l) + (c >> (DIGIT_BITS * (L - l)));
+    const int d = (c >> (DIGIT_BITS * (L - 1 - l))) & 15;
+    int x = __ldg(ix.node_start + node) + p;
+    const uint32_t* blk = block_of(ix, l, x);
+    p = rank_in_block(blk, x, d) - __ldg(ix.node_cnt + node * RADIX + d);
+  }
+  return p;
+}
+
+// the shifted BWT symbol at row (in [0, n_rows)): read each level's digit
+// and descend by its rank
+__device__ __forceinline__ int access(const Index& ix, int row) {
+  int p = row;
+  int c = 0;
+  for (int l = 0; l < ix.digits; ++l) {
+    const int node = heap_base(l) + c;
+    int x = __ldg(ix.node_start + node) + p;
+    const uint32_t* blk = block_of(ix, l, x);
+    const int d = (int)((__ldg(blk + RADIX + ((x & 255) >> 3)) >> ((x & 7) << 2)) & 15u);
+    p = rank_in_block(blk, x, d) - __ldg(ix.node_cnt + node * RADIX + d);
+    c = (c << DIGIT_BITS) | d;
+  }
+  return c;
+}
+
+}  // namespace seal_wt

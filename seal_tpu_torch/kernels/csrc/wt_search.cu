@@ -1,0 +1,152 @@
+// Kernel 12: FM-index rank search over the 16-ary wavelet layouts (compact
+// and hybrid), in three modes.
+//
+// Replaces seal_tpu/ops/wt_ops.py: rank (:96) with _load_block,
+// _match_nibbles, _rank_from_block and _rank_digit, behind backward_step
+// (:136, mode "backward_step"), contains_tokens (:184, == validate > 0,
+// mode "contains") and the scan of backward steps behind
+// range_for_sequences (:167) and count_sequences (mode "sequences", one
+// launch for the whole chain).  The new range of token t over [lo, hi) is
+// (C[c] + Occ(c, lo), C[c] + Occ(c, hi)) with c = t + 1; a token outside
+// [0, sigma - 1) gives the empty range (0, 0).
+//
+// Bound on the card: latency.  Occ(c, pos) descends `digits` levels (4 for
+// a 16-bit alphabet), and each level is a dependent chain: the node's start
+// and start rank, then one 192-byte block (its directory word and up to
+// eight 16-byte code loads), so the bytes are few and the chain is all.
+// One thread per (query, bound), no shared memory: occupancy keeps many
+// chains in flight.  The two bounds of a query run in neighbouring lanes
+// and meet with one warp shuffle, as in fm_search.cu.
+
+#include "wt_common.cuh"
+
+namespace {
+
+using seal_wt::Index;
+using seal_wt::SHIFT;
+
+constexpr int THREADS = 256;
+
+// C[c] + Occ(c, pos) for an unshifted token, or 0 when it is out of range
+__device__ __forceinline__ int step_bound(const Index& ix, int token, int pos) {
+  const int c = token + SHIFT;
+  if (c < 1 || c >= ix.sigma) return 0;
+  return __ldg(ix.C + c) + seal_wt::rank(ix, c, pos);
+}
+
+__global__ void __launch_bounds__(THREADS)
+backward_step_kernel(Index ix, const int* __restrict__ token, const int* __restrict__ lo,
+                     const int* __restrict__ hi, int* __restrict__ out_lo,
+                     int* __restrict__ out_hi, long long n) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long q = t >> 1;
+  const int bound = (int)(t & 1);
+  const bool active = q < n;
+  const int row = active ? step_bound(ix, token[q], bound ? hi[q] : lo[q]) : 0;
+  // the pair (q, 0), (q, 1) sits in neighbouring lanes of one warp
+  const int other = __shfl_xor_sync(0xffffffffu, row, 1);
+  if (active) {
+    if (bound == 0) {
+      out_lo[q] = row;
+    } else {
+      out_hi[q] = max(other, row);  // new_hi = max(new_lo, new_hi)
+    }
+  }
+}
+
+// membership of token j of range r: Occ(c, hi) > Occ(c, lo), one lane each
+__global__ void __launch_bounds__(THREADS)
+contains_kernel(Index ix, const int* __restrict__ tokens, const int* __restrict__ lo,
+                const int* __restrict__ hi, unsigned char* __restrict__ out, long long n,
+                int m) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long q = t >> 1;  // flat (range, token) index
+  const int bound = (int)(t & 1);
+  const bool active = q < n * m;
+  int row = 0;
+  bool valid = false;
+  if (active) {
+    const long long r = q / m;
+    const int c = tokens[q] + SHIFT;
+    valid = c >= 1 && c < ix.sigma;
+    if (valid) row = seal_wt::rank(ix, c, bound ? hi[r] : lo[r]);
+  }
+  const int other = __shfl_xor_sync(0xffffffffu, row, 1);
+  if (active && bound == 0) out[q] = (valid && other > row) ? 1 : 0;
+}
+
+// Row ranges of padded token sequences: the lane pair of
+// backward_step_kernel loops over the sequence in registers.  The trip
+// count is L for every lane, so each lane reaches the shuffle; positions at
+// or past a sequence's length leave its range as it is.
+__global__ void __launch_bounds__(THREADS)
+sequences_kernel(Index ix, const int* __restrict__ tokens, const int* __restrict__ lengths,
+                 int* __restrict__ out_lo, int* __restrict__ out_hi, long long n, int L) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long q = t >> 1;
+  const int bound = (int)(t & 1);
+  const bool active = q < n;
+  const int len = active ? lengths[q] : 0;
+  int lo = 0, hi = ix.n_rows;
+  for (int j = 0; j < L; ++j) {
+    const bool keep = j < len;
+    const int row = keep ? step_bound(ix, tokens[q * L + j], bound ? hi : lo) : 0;
+    const int other = __shfl_xor_sync(0xffffffffu, row, 1);
+    if (keep) {
+      lo = bound ? other : row;
+      hi = max(lo, bound ? row : other);
+    }
+  }
+  if (active) {
+    if (bound == 0) {
+      out_lo[q] = lo;
+    } else {
+      out_hi[q] = hi;
+    }
+  }
+}
+
+unsigned blocks_for(long long threads) {
+  return (unsigned)((threads + THREADS - 1) / THREADS);
+}
+
+}  // namespace
+
+extern "C" int seal_wt_backward_step(const uint32_t* blocks, const int* node_start,
+                                     const int* node_cnt, const int* C, long long n_blocks,
+                                     int n_rows, int digits, int sigma, const int* token,
+                                     const int* lo, const int* hi, int* out_lo, int* out_hi,
+                                     long long n, void* stream) {
+  if (n > 0) {
+    const Index ix{blocks, node_start, node_cnt, C, n_blocks, n_rows, digits, sigma};
+    backward_step_kernel<<<blocks_for(2 * n), THREADS, 0, (cudaStream_t)stream>>>(
+        ix, token, lo, hi, out_lo, out_hi, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int seal_wt_contains(const uint32_t* blocks, const int* node_start,
+                                const int* node_cnt, const int* C, long long n_blocks,
+                                int n_rows, int digits, int sigma, const int* tokens,
+                                const int* lo, const int* hi, unsigned char* out, long long n,
+                                int m, void* stream) {
+  if (n > 0 && m > 0) {
+    const Index ix{blocks, node_start, node_cnt, C, n_blocks, n_rows, digits, sigma};
+    contains_kernel<<<blocks_for(2 * n * m), THREADS, 0, (cudaStream_t)stream>>>(
+        ix, tokens, lo, hi, out, n, m);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int seal_wt_sequences(const uint32_t* blocks, const int* node_start,
+                                 const int* node_cnt, const int* C, long long n_blocks,
+                                 int n_rows, int digits, int sigma, const int* tokens,
+                                 const int* lengths, int* out_lo, int* out_hi, long long n,
+                                 int L, void* stream) {
+  if (n > 0) {
+    const Index ix{blocks, node_start, node_cnt, C, n_blocks, n_rows, digits, sigma};
+    sequences_kernel<<<blocks_for(2 * n), THREADS, 0, (cudaStream_t)stream>>>(
+        ix, tokens, lengths, out_lo, out_hi, n, L);
+  }
+  return (int)cudaGetLastError();
+}

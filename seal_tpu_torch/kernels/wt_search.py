@@ -1,0 +1,256 @@
+"""Kernel 12 wrappers: the 16-ary wavelet rank search
+(``csrc/wt_search.cu``).
+
+Replaces ``seal_tpu/ops/wt_ops.py``: ``rank`` (:96) with ``_load_block``
+(:41), ``_match_nibbles`` (:52), ``_rank_from_block`` (:65) and
+``_rank_digit`` (:83), behind ``backward_step`` (:136) -- mode
+``"backward_step"`` -- and ``contains_tokens`` (:184) -- mode
+``"contains"``; and, through ``wt_sequences``, the scan of backward steps
+behind ``range_for_sequences`` (:167) and ``count_sequences`` -- mode
+``"sequences"``.  The three modes share one launch counter,
+``wt_search.launches``.
+
+The plain PyTorch versions below are the specification: the CPU path and
+the reference the kernel is held to on the card (integer results, so
+exactly equal).  The 32-bit words are widened to int64 and masked, because
+``d * 0x11111111`` overflows int32 and torch has no popcount: the
+population count is the SWAR one.  The kernel is latency bound: ``digits``
+dependent levels, each a node-table read and then one 192-byte block; one
+thread per (query, bound), see the source.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from seal_tpu_torch.index.fm_index import SHIFT
+from seal_tpu_torch.index.wavelet import CODE_WORDS, DIGIT_BITS, RADIX, heap_base
+
+MODES = ("backward_step", "contains")
+_WORD = 0xFFFFFFFF
+_ONES = 0x11111111  # bit 0 of each nibble
+
+
+def load_block(index, level: int, pos):
+    """The 48 words of ``pos``'s block on ``level``, as int64 [..., 48]
+    holding the uint32 values."""
+    return index.blocks[level][(pos >> 8).long()].long() & _WORD
+
+
+def popcount32(x):
+    """Set bits of each 32-bit value held in an int64 tensor (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & _WORD) >> 24
+
+
+def match_nibbles(w, d):
+    """Per code word, the nibble-low bits of the rows whose digit is ``d``:
+    XOR with the broadcast digit, OR each nibble down to its bit 0, and
+    complement under the lane mask."""
+    codes = w[..., RADIX:]
+    x = codes ^ (d[..., None].long() * _ONES)
+    y = x | (x >> 2)
+    y = y | (y >> 1)
+    return ~y & _ONES
+
+
+def rank_from_block(w, pos, d):
+    """Count of digit ``d`` in the level sequence before ``pos``, given the
+    block words ``w`` (= ``load_block`` at ``pos``)."""
+    base = torch.gather(w, -1, d[..., None].long())[..., 0]
+    match = match_nibbles(w, d)
+    within = (pos & 255).long()
+    word_idx = within >> 3
+    bit_lim = (within & 7) << 2
+    lane = torch.arange(CODE_WORDS, device=w.device)
+    partial = match & ((1 << bit_lim[..., None]) - 1)
+    counts = torch.where(
+        lane < word_idx[..., None],
+        popcount32(match),
+        torch.where(lane == word_idx[..., None], popcount32(partial), 0),
+    )
+    return (base + counts.sum(-1)).to(torch.int32)
+
+
+def digit_at(w, pos):
+    """The 4-bit digit of row ``pos`` from its block words."""
+    within = (pos & 255).long()
+    word = torch.gather(w, -1, (RADIX + (within >> 3))[..., None])[..., 0]
+    return ((word >> ((within & 7) << 2)) & 15).to(torch.int32)
+
+
+def _node_cnt(index, node, d):
+    return index.node_cnt[node.long(), d.long()]
+
+
+def rank_plain(index, symbol, pos, trace=None):
+    """Occ(symbol, pos) for *shifted* symbols by the ``digits``-level
+    descent; symbols outside [0, sigma) give 0.  A list ``trace`` gets each
+    level's (position, node, digit) read."""
+    symbol, pos = torch.broadcast_tensors(symbol, pos)
+    valid = (symbol >= 0) & (symbol < index.sigma)
+    c = torch.where(valid, symbol, 0)
+    L = index.digits
+    p = pos
+    for lvl in range(L):
+        node = heap_base(lvl) + (c >> (DIGIT_BITS * (L - lvl)))
+        d = (c >> (DIGIT_BITS * (L - 1 - lvl))) & 15
+        x = index.node_start[node.long()] + p
+        if trace is not None:
+            trace.append((x, node, d))
+        p = rank_from_block(load_block(index, lvl, x), x, d) - _node_cnt(index, node, d)
+    return torch.where(valid, p, 0)
+
+
+def access_plain(index, rows, trace=None):
+    """Shifted BWT symbols at ``rows`` by descent; rows outside [0, N) give
+    0.  A list ``trace`` gets each level's (position, node, digit) read."""
+    ok = (rows >= 0) & (rows < index.n_rows)
+    p = torch.where(ok, rows, 0)
+    c = torch.zeros_like(p)
+    for lvl in range(index.digits):
+        node = heap_base(lvl) + c
+        x = index.node_start[node.long()] + p
+        w = load_block(index, lvl, x)
+        d = digit_at(w, x)
+        if trace is not None:
+            trace.append((x, node, d))
+        p = rank_from_block(w, x, d) - _node_cnt(index, node, d)
+        c = (c << DIGIT_BITS) | d
+    return torch.where(ok, c, 0)
+
+
+def backward_step_plain(index, token, lo, hi):
+    c = token + SHIFT
+    valid = (c >= 1) & (c < index.sigma)
+    safe_c = torch.where(valid, c, 0)
+    base = index.C[safe_c.long()]
+    r = rank_plain(index, torch.stack([safe_c, safe_c], 0), torch.stack([lo, hi], 0))
+    new_lo = torch.where(valid, base + r[0], 0)
+    new_hi = torch.where(valid, base + r[1], 0)
+    return new_lo, torch.maximum(new_lo, new_hi)
+
+
+def contains_plain(index, tokens, lo, hi):
+    shape = tokens.shape
+    new_lo, new_hi = backward_step_plain(
+        index, tokens, lo[..., None].expand(shape), hi[..., None].expand(shape)
+    )
+    return new_hi - new_lo > 0
+
+
+def sequences_plain(index, tokens, lengths):
+    """The JAX scan: one backward step per position from the full range;
+    positions at or past a sequence's length keep its range."""
+    lo, hi = index.full_range(tokens.shape[:-1])
+    for t in range(tokens.shape[-1]):
+        new_lo, new_hi = backward_step_plain(index, tokens[..., t], lo, hi)
+        keep = t < lengths
+        lo = torch.where(keep, new_lo, lo)
+        hi = torch.where(keep, new_hi, hi)
+    return lo, hi
+
+
+def index_args(index):
+    """The wavelet arrays as the C entry points take them."""
+    return (
+        index.blocks.data_ptr(),
+        index.node_start.data_ptr(),
+        index.node_cnt.data_ptr(),
+        index.C.data_ptr(),
+        index.n_blocks,
+        index.n_rows,
+        index.digits,
+        index.sigma,
+    )
+
+
+def check_index(index, name: str) -> None:
+    """Refuse arrays the kernels cannot read as they are laid out."""
+    for field in ("blocks", "node_start", "node_cnt", "C"):
+        a = getattr(index, field)
+        if a.dtype != torch.int32 or not a.is_contiguous() or not a.is_cuda:
+            raise ValueError(f"{name}: index.{field} must be a contiguous int32 CUDA tensor")
+    if index.blocks.data_ptr() % 16:
+        raise ValueError(f"{name}: index.blocks must be 16-byte aligned (16-byte code loads)")
+
+
+def wt_sequences(index, tokens, lengths):
+    """Row ranges of padded token sequences: tokens int32 [..., L]
+    (unshifted), lengths int32 [...]; returns int32 (lo, hi) [...].
+
+    CPU tensors run the plain version; CUDA tensors launch kernel 12 in its
+    sequences mode.
+    """
+    tokens = torch.as_tensor(tokens, dtype=torch.int32, device=index.device)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=index.device)
+    if tokens.shape[:-1] != lengths.shape:
+        raise ValueError(f"wt_sequences: tokens {tuple(tokens.shape)} vs lengths "
+                         f"{tuple(lengths.shape)}")
+    if not tokens.is_cuda:
+        return sequences_plain(index, tokens, lengths)
+    from seal_tpu_torch.kernels import build
+
+    check_index(index, "wt_sequences")
+    tokens, lengths = tokens.contiguous(), lengths.contiguous()
+    out_lo = torch.empty_like(lengths)
+    out_hi = torch.empty_like(lengths)
+    rc = build.lib().seal_wt_sequences(
+        *index_args(index), tokens.data_ptr(), lengths.data_ptr(), out_lo.data_ptr(),
+        out_hi.data_ptr(), lengths.numel(), tokens.shape[-1], build.stream_ptr(tokens),
+    )
+    build.check(rc, "wt_search(sequences)")
+    wt_search.launches += 1
+    return out_lo, out_hi
+
+
+def wt_search(index, mode: str, tokens, lo, hi):
+    """Wavelet rank search in one of two modes.
+
+    * ``"backward_step"``: tokens, lo, hi broadcast to one shape; returns
+      the (new_lo, new_hi) int32 ranges after appending each token.
+    * ``"contains"``: tokens [..., M], lo/hi [...]; returns bool [..., M],
+      whether each token continues its range.
+
+    CPU tensors run the plain version; CUDA tensors launch kernel 12.
+    """
+    if mode not in MODES:
+        raise ValueError(f"unknown wt_search mode {mode!r}")
+    tokens = torch.as_tensor(tokens, dtype=torch.int32, device=index.device)
+    lo = torch.as_tensor(lo, dtype=torch.int32, device=index.device)
+    hi = torch.as_tensor(hi, dtype=torch.int32, device=index.device)
+    if mode == "backward_step":
+        tokens, lo, hi = torch.broadcast_tensors(tokens, lo, hi)
+    elif tokens.shape[:-1] != lo.shape or lo.shape != hi.shape:
+        raise ValueError(f"contains: tokens {tuple(tokens.shape)} vs ranges {tuple(lo.shape)}")
+    if not tokens.is_cuda:
+        if mode == "backward_step":
+            return backward_step_plain(index, tokens, lo, hi)
+        return contains_plain(index, tokens, lo, hi)
+    from seal_tpu_torch.kernels import build
+
+    check_index(index, f"wt_search({mode})")
+    tokens, lo, hi = (t.contiguous() for t in (tokens, lo, hi))
+    stream = build.stream_ptr(tokens)
+    if mode == "backward_step":
+        out_lo = torch.empty_like(tokens)
+        out_hi = torch.empty_like(tokens)
+        rc = build.lib().seal_wt_backward_step(
+            *index_args(index), tokens.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            out_lo.data_ptr(), out_hi.data_ptr(), tokens.numel(), stream,
+        )
+        out = (out_lo, out_hi)
+    else:
+        out = torch.empty(tokens.shape, dtype=torch.bool, device=tokens.device)
+        rc = build.lib().seal_wt_contains(
+            *index_args(index), tokens.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            out.data_ptr(), lo.numel(), tokens.shape[-1], stream,
+        )
+    build.check(rc, f"wt_search({mode})")
+    wt_search.launches += 1
+    return out
+
+
+wt_search.launches = 0

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from seal_tpu_torch.kernels import decode_attention
 from seal_tpu_torch.kernels import reorder_cache as k_reorder
 from seal_tpu_torch.models.config import BartConfig
+from seal_tpu_torch.utils.device import DEFAULT_DEVICE, checked_device
 
 Params = Dict[str, Any]
 
@@ -36,9 +37,11 @@ NEG_INF = -1e9  # attention-mask bias (not the constrained decoder's constant)
 # ----------------------------------------------------------------- init
 
 
-def init_params(cfg: BartConfig, seed: int = 0, device="cpu") -> Params:
+def init_params(cfg: BartConfig, seed: int = 0, device=DEFAULT_DEVICE) -> Params:
     """Random f32 parameters from a seeded ``torch.Generator`` (N(0, 0.02)
-    matrices, zero biases, unit LayerNorm scales), in the JAX layout."""
+    matrices, zero biases, unit LayerNorm scales), in the JAX layout, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = checked_device(device)
     g = torch.Generator(device=device).manual_seed(seed)
 
     def normal(*shape):
@@ -200,7 +203,8 @@ def precompute_cross_kv(cfg: BartConfig, params: Params, enc_out):
     ]
 
 
-def empty_self_cache(cfg: BartConfig, batch: int, max_len: int, device="cpu"):
+def empty_self_cache(cfg: BartConfig, batch: int, max_len: int, device=DEFAULT_DEVICE):
+    device = checked_device(device)
     h, dh = cfg.decoder_attention_heads, cfg.head_dim
 
     def z():

@@ -8,6 +8,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from seal_tpu_torch.utils.device import DEFAULT_DEVICE, checked_device
+
 NEG_INF = float("-inf")
 
 
@@ -19,11 +21,13 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def params_from_jax(np_tree, cfg, device="cpu") -> Dict[str, Any]:
+def params_from_jax(np_tree, cfg, device=DEFAULT_DEVICE) -> Dict[str, Any]:
     """The JAX parameter tree, as numpy arrays (``jax.device_get``), as
-    torch tensors on ``device``.  The layouts are the same: dense kernels
-    stay [d_in, d_out] and the tied ``shared`` table stays the LM head."""
+    torch tensors on ``device`` (the card unless the caller asks for the
+    CPU).  The layouts are the same: dense kernels stay [d_in, d_out] and
+    the tied ``shared`` table stays the LM head."""
     del cfg  # the layout does not depend on the config
+    device = checked_device(device)
 
     def leaf(a):
         return torch.as_tensor(np.array(a, copy=True)).to(device)

@@ -86,6 +86,11 @@ def bucket_counts_width(index) -> int:
     return int(index.bucket_occ.shape[-1])
 
 
+def bucket_size_of(index) -> int:
+    """Shifted-symbol span of one ``bucket_counts`` bucket."""
+    return index.bucket_size
+
+
 def validate_tokens(index, tokens, lo, hi):
     """Counts of each candidate continuation token of ranges [lo, hi)."""
     return _generic.validate_tokens(backward_step, index, tokens, lo, hi)

@@ -18,10 +18,13 @@ What changed in translation:
   program to one compiled shape, which eager torch does not need.  Every
   query's result is independent of its batch-mates, so the output is the
   same.
-* Not ported yet (``NotImplementedError`` naming the knob):
-  ``compact_index``, ``hybrid_index``, ``index_shards`` > 1, ``jobs`` >= 2
-  (forked workers after CUDA init), ``free_generation``, ``decode_code``,
-  T5 backbones, and the decode modes ``DecodeConfig`` refuses.  ``load``,
+* ``compact_index`` / ``hybrid_index`` build a :class:`WaveletIndex` as the
+  JAX searcher builds its ``WaveletFMIndex``; the decoder dispatches on the
+  index's layout.
+* Not ported yet (``NotImplementedError`` naming the knob): ``index_shards``
+  > 1, ``jobs`` >= 2 (forked workers after CUDA init), ``free_generation``,
+  ``decode_code``, T5 backbones, and the decode modes ``DecodeConfig``
+  refuses, at the first search.  ``load``,
   ``from_args`` and the CLIs wait for a checkpoint loader without jax.
 """
 
@@ -29,16 +32,17 @@ from __future__ import annotations
 
 import time
 from itertools import islice
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from seal_tpu_torch.decoding.constrained import index_ops
 from seal_tpu_torch.decoding.generate import fm_index_generate
 from seal_tpu_torch.index.device_index import TorchFMIndex
 from seal_tpu_torch.index.fm_index import FMIndex
+from seal_tpu_torch.index.wavelet import WaveletIndex
 from seal_tpu_torch.models import convert
 from seal_tpu_torch.models.config import BartConfig
-from seal_tpu_torch.ops import fm_ops
 from seal_tpu_torch.retrieval.document import SEALDocument
 from seal_tpu_torch.scoring import keys as rk
 from seal_tpu_torch.utils.profiling import PhaseTimer, ServingMetrics
@@ -49,8 +53,6 @@ DEBUG = False
 # knobs of the JAX searcher whose modes are not ported, and when they ask
 # for one
 UNPORTED = {
-    "compact_index": bool,
-    "hybrid_index": bool,
     "index_shards": lambda v: (v or 0) > 1,
     "jobs": lambda v: v >= 2,
     "free_generation": bool,
@@ -124,7 +126,7 @@ class SEALSearcher:
         scorer_params=None,
         title_params=None,
         code_params=None,
-        device_index: Optional[TorchFMIndex] = None,
+        device_index: Optional[Union[TorchFMIndex, WaveletIndex]] = None,
         device=None,  # where the index goes; default: the device of ``params``
         **kwargs,
     ):
@@ -147,8 +149,16 @@ class SEALSearcher:
         self.set_params(kwargs)
         if device_index is None:
             device = params["shared"].device if device is None else device
-            device_index = TorchFMIndex.from_host(fm_index, vocab=model_cfg.vocab_size,
-                                                  device=device)
+            if self.compact_index or self.hybrid_index:
+                # capacity mode: ~3.0 B/token wavelet-tree layout; hybrid
+                # adds the raw BWT back (~5.0 B/token) for one-read windows
+                device_index = WaveletIndex.from_host(
+                    fm_index, vocab=model_cfg.vocab_size, keep_bwt=bool(self.hybrid_index),
+                    device=device,
+                )
+            else:
+                device_index = TorchFMIndex.from_host(fm_index, vocab=model_cfg.vocab_size,
+                                                      device=device)
         self.device_index = device_index
         self.docid2idx = (
             {k: i for i, k in enumerate(fm_index.labels)} if fm_index.labels else {}
@@ -225,8 +235,9 @@ class SEALSearcher:
 
     def _device_ranges(self, seqs: Sequence[Sequence[int]]):
         """get_range for many keys in one call: the host's native batch when
-        the host index has psi (sub-ms, no device round trip), else kernel 5
-        on the device index."""
+        the host index has psi (sub-ms, no device round trip), else the
+        device index's sequence kernel (kernel 5 on the Psi layout, kernel
+        12 on the wavelet layouts)."""
         seqs = list(seqs)
         if not seqs:
             return []
@@ -238,7 +249,7 @@ class SEALSearcher:
         for i, s in enumerate(seqs):
             toks[i, : len(s)] = s
             lens[i] = len(s)
-        lo, hi = fm_ops.range_for_sequences(self.device_index, toks, lens)
+        lo, hi = index_ops(self.device_index).range_for_sequences(self.device_index, toks, lens)
         return list(zip(lo.cpu().tolist(), hi.cpu().tolist()))
 
     def _device_counts(self, seqs: Sequence[Sequence[int]]) -> List[int]:

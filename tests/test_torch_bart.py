@@ -63,7 +63,7 @@ def test_config_matches_jax():
 def test_init_params_layout_matches_jax():
     jcfg, tcfg = jconfig.bart_tiny(vocab_size=50), tconfig.bart_tiny(vocab_size=50)
     jp = jax.tree_util.tree_leaves_with_path(jbart.init_params(jax.random.PRNGKey(0), jcfg))
-    tp = tbart.init_params(tcfg, seed=0)
+    tp = tbart.init_params(tcfg, seed=0, device="cpu")
     flat = {}
 
     def walk(prefix, node):
@@ -109,7 +109,7 @@ def test_decode_steps_match_jax(models, beams):
     np.testing.assert_array_equal(np.asarray(jbias), tbias.numpy())
     rows, L = 2 * beams, 6
     jcache = jbart.empty_self_cache(jcfg, rows, L)
-    caches = [tbart.empty_self_cache(tcfg, rows, L) for _ in range(2)]  # ping-pong
+    caches = [tbart.empty_self_cache(tcfg, rows, L, device="cpu") for _ in range(2)]  # ping-pong
     tcache = caches[0]
     rng = np.random.default_rng(beams)
     for step in range(4):

@@ -15,6 +15,7 @@ from seal_tpu_torch.index.fm_index import FMIndex
 from seal_tpu_torch.decoding import constrained as tc
 from seal_tpu_torch.decoding import generate as tg
 from seal_tpu_torch.index.device_index import TorchFMIndex
+from seal_tpu_torch.index.wavelet import WaveletIndex
 from seal_tpu_torch import bench_search
 from seal_tpu_torch.kernels import (
     beam_select,
@@ -26,6 +27,9 @@ from seal_tpu_torch.kernels import (
     row_topk,
     triton_logsoftmax,
     window_gather,
+    wt_bucket_counts,
+    wt_search,
+    wt_window,
 )
 from seal_tpu_torch.models import bart
 from seal_tpu_torch.models.config import bart_tiny
@@ -124,14 +128,15 @@ def test_generate_on_card_matches_cpu(cuda, seed):
     """The kernels' path gives the CPU plain path's hypotheses: equal
     token lists, scores within 1e-4."""
     cfg = bart_tiny(vocab_size=96)
-    params = bart.init_params(cfg, seed=0)
+    params = bart.init_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(seed)
     docs = [rng.integers(4, 90, size=rng.integers(5, 30)).tolist() + [2] for _ in range(30)]
     host = FMIndex()
     host.initialize(docs)
     queries = [[0] + rng.integers(4, 90, size=5).tolist() + [2] for _ in range(3)]
     kw = dict(num_beams=4, max_length=6, min_length=1, window=4, exact_chunk=4)
-    cpu = tg.fm_index_generate(cfg, params, TorchFMIndex.from_host(host, vocab=96), queries, **kw)
+    cpu = tg.fm_index_generate(cfg, params, TorchFMIndex.from_host(host, vocab=96, device="cpu"),
+                               queries, **kw)
     gpu = tg.fm_index_generate(cfg, _to(params, cuda),
                                TorchFMIndex.from_host(host, vocab=96, device=cuda), queries, **kw)
     for a, b in zip(cpu, gpu):
@@ -358,3 +363,151 @@ def test_reorder_cache_matches_plain(cuda, rows_src, rows, cols):
     assert reorder_cache.reorder_cache.launches == n0 + 1
     for d, s in zip(dst, src):
         assert torch.equal(d.view(torch.int16), s[idx].view(torch.int16))
+
+
+# wavelet corpora at 1, 2, 4 and 5 four-bit digits: (vocab, largest symbol
+# + 1, n_docs), as in tests/test_torch_wavelet.py
+WT_CASES = {"d1": (14, 14, 12), "d2": (96, 90, 30), "d4": (50265, 50200, 30),
+            "d5": (65600, 65590, 8)}
+
+
+def _wt_host(name):
+    vocab, hi, n_docs = WT_CASES[name]
+    rng = np.random.default_rng(vocab)
+    docs = [rng.integers(0, hi, size=rng.integers(2, 40)).tolist() for _ in range(n_docs)]
+    docs[0] += [hi - 1, hi - 1]
+    host = FMIndex()
+    host.initialize(docs)
+    return host
+
+
+def _check_wt_kernels(t, host, vocab, lo, hi, toks, seqs, lens, lp):
+    """Kernels 12-14 on the card against their plain versions, exactly."""
+    n0 = wt_search.wt_search.launches
+    got = wt_search.wt_search(t, "contains", toks, lo, hi)
+    assert wt_search.wt_search.launches == n0 + 1
+    assert torch.equal(got, wt_search.contains_plain(t, toks, lo, hi))
+    args = torch.broadcast_tensors(toks, lo[..., None], hi[..., None])
+    got = wt_search.wt_search(t, "backward_step", *args)
+    want = wt_search.backward_step_plain(t, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = wt_search.wt_sequences(t, seqs, lens)
+    want = wt_search.sequences_plain(t, seqs, lens)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ((got[1] - got[0]) > 0).any()
+    for w, fill in ((4, 1), (32, 0)):
+        n0 = wt_window.wt_window_gather.launches
+        got = wt_window.wt_window_gather(t, lo, hi, w, lp, fill)
+        assert wt_window.wt_window_gather.launches == n0 + 1
+        want = wt_window.wt_window_gather_plain(t, lo, hi, w, lp, fill)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    n0 = wt_bucket_counts.wt_bucket_counts.launches
+    got = wt_bucket_counts.wt_bucket_counts(t, lo, hi)
+    assert wt_bucket_counts.wt_bucket_counts.launches == n0 + 1
+    assert torch.equal(got, wt_bucket_counts.wt_bucket_counts_plain(t, lo, hi))
+    assert torch.equal(got.sum(-1), (hi - lo).clamp(min=0))
+
+
+def _wt_sequences(host, rng, n, L, vocab, cuda):
+    text = host.text[:-1] - 1  # the documents, each reversed
+    starts = rng.integers(0, text.size - L, size=n)
+    seqs = np.stack([text[s : s + L][::-1] for s in starts]).astype(np.int32)
+    seqs[: n // 8] = rng.integers(-2, vocab + 3, size=(n // 8, L))
+    lens = rng.integers(0, L + 1, size=n).astype(np.int32)
+    return torch.as_tensor(seqs, device=cuda), torch.as_tensor(lens, device=cuda)
+
+
+@pytest.mark.parametrize("keep_bwt", [False, True])
+@pytest.mark.parametrize("name", sorted(WT_CASES))
+def test_wt_kernels_match_plain(cuda, name, keep_bwt):
+    """Kernels 12-14 (compact and hybrid) at 1, 2, 4 and 5 digits: full,
+    empty and end-of-index ranges, out-of-range tokens, every sequence
+    length 0..L; exactly equal."""
+    host = _wt_host(name)
+    vocab = WT_CASES[name][0]
+    t = WaveletIndex.from_host(host, vocab=vocab, keep_bwt=keep_bwt, device=cuda)
+    rng = np.random.default_rng(len(name))
+    lo, hi = _ranges(host, rng)
+    toks = torch.as_tensor(rng.integers(-2, vocab + 3, size=(lo.numel(), 9)).astype(np.int32),
+                           device=cuda)
+    toks[:, -1] = torch.as_tensor((np.resize(host.text, lo.numel()) - 1).astype(np.int32),
+                                  device=cuda)  # likely members
+    seqs, lens = _wt_sequences(host, rng, 64, 5, vocab, cuda)
+    lp = torch.log_softmax(torch.randn(lo.numel(), vocab, device=cuda), -1)
+    _check_wt_kernels(t, host, vocab, lo, hi, toks, seqs, lens, lp)
+
+
+@pytest.mark.parametrize("keep_bwt", [False, True])
+def test_wt_kernels_match_plain_at_bench_shapes(cuda, keep_bwt):
+    """The generation point's shapes on a 240k-token Zipf corpus at BART's
+    vocab (4 digits): ranges [32, 15] of one- and two-token prefixes,
+    membership [32, 15, 65], windows over lp [480, 50265], 4096 sequences
+    of up to 16 tokens."""
+    V, B, K = 50265, 32, 15
+    rng = np.random.default_rng(9)
+    zipf = rng.zipf(1.3, size=2000 * 120)
+    docs = (zipf % (V - 10) + 4).reshape(2000, 120)
+    host = FMIndex()
+    host.initialize([d.tolist() + [2] for d in docs])
+    t = WaveletIndex.from_host(host, vocab=V, keep_bwt=keep_bwt, device=cuda)
+    assert t.digits == 4
+    text = host.text[:-1] - 1
+    first = torch.as_tensor(rng.choice(text, size=(2, B, K)).astype(np.int32), device=cuda)
+    flo, fhi = t.full_range((B, K))
+    lo1, hi1 = wt_search.backward_step_plain(t, first[0], flo, fhi)
+    lo2, hi2 = wt_search.backward_step_plain(t, first[1], lo1, hi1)
+    even = torch.arange(K, device=cuda) % 2 == 0
+    lo, hi = torch.where(even, lo1, lo2), torch.where(even, hi1, hi2)
+    lo[0, 0], hi[0, 0] = 0, t.n_rows
+    lo[0, 1], hi[0, 1] = t.n_rows, t.n_rows
+    toks = torch.randint(0, V, (B, K, 65), device=cuda, dtype=torch.int32)
+    toks[..., :32] = first[0, :, :, None]
+    toks[..., -1] = 2
+    seqs, lens = _wt_sequences(host, rng, 4096, 16, V, cuda)
+    lp = torch.log_softmax(torch.randn(B * K, V, device=cuda), -1)
+    _check_wt_kernels(t, host, V, lo, hi, toks, seqs, lens, lp)
+
+
+@pytest.mark.parametrize("layout", ["compact", "hybrid"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_wavelet_generate_on_card_matches_cpu(cuda, seed, layout):
+    """Compact and hybrid generation through kernels 12-14 gives the CPU
+    plain path's hypotheses (token lists equal, scores within 1e-4), and
+    the card's Psi-layout run's exactly; kernels 12 and 13 launched."""
+    cfg = bart_tiny(vocab_size=96)
+    params = bart.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(seed)
+    docs = [rng.integers(4, 90, size=rng.integers(5, 30)).tolist() + [2] for _ in range(30)]
+    host = FMIndex()
+    host.initialize(docs)
+    queries = [[0] + rng.integers(4, 90, size=5).tolist() + [2] for _ in range(3)]
+    kw = dict(num_beams=4, max_length=6, min_length=1, window=4, exact_chunk=4)
+    keep = layout == "hybrid"
+    cpu = tg.fm_index_generate(cfg, params, WaveletIndex.from_host(host, vocab=96, keep_bwt=keep,
+                                                                   device="cpu"), queries, **kw)
+    n12, n13 = wt_search.wt_search.launches, wt_window.wt_window_gather.launches
+    gpu_params = _to(params, cuda)
+    gpu = tg.fm_index_generate(cfg, gpu_params, WaveletIndex.from_host(
+        host, vocab=96, keep_bwt=keep, device=cuda), queries, **kw)
+    assert wt_search.wt_search.launches > n12 and wt_window.wt_window_gather.launches > n13
+    psi = tg.fm_index_generate(cfg, gpu_params, TorchFMIndex.from_host(host, vocab=96,
+                                                                       device=cuda), queries, **kw)
+    for a, b, c in zip(cpu, gpu, psi):
+        ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
+        assert [t for t, _ in ka] == [t for t, _ in kb]
+        np.testing.assert_allclose([s for _, s in kb], [s for _, s in ka], atol=1e-4, rtol=0)
+        assert kb == sorted((tuple(t), s) for s, t in c)
+
+
+@pytest.mark.parametrize("layout", ["compact", "hybrid"])
+def test_wavelet_searcher_on_card_matches_cpu(cuda, layout):
+    """The tiny searcher over a wavelet layout on the card gives its CPU
+    path's ranking: the same doc ids in the same order, scores within 1e-4
+    relative."""
+    cpu = bench_search.tiny_searcher("cpu", layout=layout).batch_search(
+        bench_search.TINY_QUERIES, k=5)
+    gpu = bench_search.tiny_searcher(cuda, layout=layout).batch_search(
+        bench_search.TINY_QUERIES, k=5)
+    for a, b in zip(cpu, gpu):
+        assert [d.docid for d in b] == [d.docid for d in a]
+        np.testing.assert_allclose([d.score for d in b], [d.score for d in a], rtol=1e-4)

@@ -72,7 +72,7 @@ def _index(seed, V=96):
     host = FMIndex()
     host.initialize(docs)
     return host, jc.SingleIndexOps(DeviceFMIndex.from_host(host, vocab=V)), \
-        tc.SingleIndexOps(TorchFMIndex.from_host(host, vocab=V))
+        tc.SingleIndexOps(TorchFMIndex.from_host(host, vocab=V, device="cpu"))
 
 
 def _ranges(host, rng, B, K):
@@ -294,7 +294,7 @@ def test_select_top_matches_jax(n_par):
 def models():
     jcfg, tcfg = jtiny(vocab_size=99), ttiny(vocab_size=99)
     params = jbart.init_params(jax.random.PRNGKey(1), jcfg)
-    return jcfg, tcfg, params, tconvert.params_from_jax(jax.device_get(params), tcfg)
+    return jcfg, tcfg, params, tconvert.params_from_jax(jax.device_get(params), tcfg, device="cpu")
 
 
 def _encoded(models, b=3, lsrc=9, seed=2):
@@ -333,7 +333,7 @@ def test_decode_steps_with_pingpong_cache_match_jax(models):
     jkv, jbias, tkv, tbias = _encoded(models)
     B, K, L = 3, 4, 6
     rng = np.random.default_rng(3)
-    caches = [tbart.empty_self_cache(tcfg, B * K, L) for _ in range(2)]
+    caches = [tbart.empty_self_cache(tcfg, B * K, L, device="cpu") for _ in range(2)]
     tcache = [{n: c[n][:B] for n in ("k", "v")} for c in caches[0]]
     jcache = jbart.empty_self_cache(jcfg, B, L)
     toks = np.full(B, 2, np.int32)

@@ -50,7 +50,7 @@ def pair(request):
     build, shift = VARIANTS[request.param]
     host = build()
     j = jdi.DeviceFMIndex.from_host(host, vocab=40, dir_shift=shift)
-    t = tdi.TorchFMIndex.from_host(host, vocab=40, dir_shift=shift)
+    t = tdi.TorchFMIndex.from_host(host, vocab=40, dir_shift=shift, device="cpu")
     return request.param, host, j, t
 
 
@@ -119,7 +119,7 @@ def test_int32_row_guard_raises_cleanly():
             return 2**31
 
     with pytest.raises(ValueError, match="sharded index"):
-        tdi.TorchFMIndex.from_host(Huge(), vocab=50265)
+        tdi.TorchFMIndex.from_host(Huge(), vocab=50265, device="cpu")
 
 
 def test_backward_step_matches_jax(pair):

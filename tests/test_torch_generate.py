@@ -40,7 +40,7 @@ def _models(V=96, bias=None, scale_bias=1.0):
     params = dict(jbart.init_params(jax.random.PRNGKey(0), jcfg))
     if bias is not None:
         params["final_logits_bias"] = params["final_logits_bias"] * scale_bias + jnp.asarray(bias)
-    tparams = tconvert.params_from_jax(jax.device_get(params), tcfg)
+    tparams = tconvert.params_from_jax(jax.device_get(params), tcfg, device="cpu")
     return jcfg, tcfg, params, tparams
 
 
@@ -71,7 +71,8 @@ def _both(models, host, queries, V=96, **kw):
     jcfg, tcfg, params, tparams = models
     ids, mask = jg.pad_batch(queries, jcfg.pad_token_id)
     jh = jg.fm_index_generate(jcfg, params, DeviceFMIndex.from_host(host, vocab=V), ids, mask, **kw)
-    th = tg.fm_index_generate(tcfg, tparams, TorchFMIndex.from_host(host, vocab=V), ids, mask, **kw)
+    th = tg.fm_index_generate(tcfg, tparams, TorchFMIndex.from_host(host, vocab=V, device="cpu"),
+                              ids, mask, **kw)
     return jh, th
 
 
@@ -146,7 +147,8 @@ def test_step_outputs_match_jax(models):
                                     jenc, jnp.asarray(mask))
     tids, tmask = torch.as_tensor(ids), torch.as_tensor(mask)
     tenc = tbart.encode(tcfg, tparams, tids, tmask)
-    to = tc.constrained_beam_search(tcfg, tparams, TorchFMIndex.from_host(host, vocab=96), tdc,
+    to = tc.constrained_beam_search(tcfg, tparams,
+                                    TorchFMIndex.from_host(host, vocab=96, device="cpu"), tdc,
                                     tenc, tmask)
     for f in ("cand_tokens", "cand_parents", "cand_finite", "sel_tokens", "sel_parents",
               "final_tokens", "final_valid", "fallback_steps"):
@@ -196,7 +198,7 @@ def test_fast_select_flags_unsound_step():
     """``_fast_exact_select`` raises the flag when a missed token could
     reach the cutoff, and ``force_full`` selects it (token 15)."""
     host, _ = _fallback_setup()
-    idx = TorchFMIndex.from_host(host, vocab=30)
+    idx = TorchFMIndex.from_host(host, vocab=30, device="cpu")
     ops = tc.SingleIndexOps(idx)
     lo, hi = host.get_range([10])
     B, K, V = 1, 2, 30
@@ -220,7 +222,7 @@ def test_fast_select_flags_unsound_step():
 def test_fast_equals_force_full(models):
     host, queries = _random_corpus(2)
     jcfg, tcfg, _, tparams = models
-    idx = TorchFMIndex.from_host(host, vocab=96)
+    idx = TorchFMIndex.from_host(host, vocab=96, device="cpu")
     kw = dict(window=4, exact_chunk=2, **COMMON)
     fast = tg.fm_index_generate(tcfg, tparams, idx, queries, **kw)
     full = tg.fm_index_generate(tcfg, tparams, idx, queries, force_full=True, **kw)
@@ -288,7 +290,8 @@ def test_force_decoding_from_matches_jax(models, seed, forced, budget):
     assert sum(len(h) for h in th) > 0
     _assert_same_hyps(jh, th)
     _, tcfg, _, tparams = models
-    full = tg.fm_index_generate(tcfg, tparams, TorchFMIndex.from_host(host, vocab=96), queries,
+    full = tg.fm_index_generate(tcfg, tparams,
+                                TorchFMIndex.from_host(host, vocab=96, device="cpu"), queries,
                                 force_full=True, **kw)
     assert [sorted((tuple(t), s) for s, t in h) for h in th] == [
         sorted((tuple(t), s) for s, t in h) for h in full
@@ -317,7 +320,8 @@ def test_generate_keywords_match_jax():
 
     tg._search = spy
     try:
-        tg.fm_index_generate(tcfg, tbart.init_params(tcfg), TorchFMIndex.from_host(host, vocab=30),
+        tg.fm_index_generate(tcfg, tbart.init_params(tcfg, device="cpu"),
+                             TorchFMIndex.from_host(host, vocab=30, device="cpu"),
                              [[0, 5, 6, 2]], num_beams=2, max_length=3, top_m=256)
     finally:
         tg._search = real
@@ -335,8 +339,8 @@ def test_unported_modes_raise(models, option):
     jcfg, tcfg, _, tparams = models
     host, queries = _random_corpus(0)
     with pytest.raises(NotImplementedError):
-        tg.fm_index_generate(tcfg, tparams, TorchFMIndex.from_host(host, vocab=96), queries,
-                             num_beams=4, max_length=4, **option)
+        tg.fm_index_generate(tcfg, tparams, TorchFMIndex.from_host(host, vocab=96, device="cpu"),
+                             queries, num_beams=4, max_length=4, **option)
 
 
 def test_port_imports_without_jax():

@@ -26,7 +26,7 @@ V = 120
 def models():
     jcfg, tcfg = jtiny(vocab_size=V), ttiny(vocab_size=V)
     params = jbart.init_params(jax.random.PRNGKey(3), jcfg)
-    return jcfg, tcfg, params, tconvert.params_from_jax(jax.device_get(params), tcfg)
+    return jcfg, tcfg, params, tconvert.params_from_jax(jax.device_get(params), tcfg, device="cpu")
 
 
 def _inputs(rng, n):

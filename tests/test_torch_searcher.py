@@ -63,7 +63,7 @@ def _build(corpus, seed=0):
         for t in jtok.encode_plain(" " + title + " @@"):
             bias[t] = 8.0 + rng.random()
     params["final_logits_bias"] = jnp.asarray(bias)
-    tparams = tconvert.params_from_jax(jax.device_get(params), tcfg)
+    tparams = tconvert.params_from_jax(jax.device_get(params), tcfg, device="cpu")
     return index, jtok, ttok, jcfg, tcfg, params, tparams
 
 
@@ -188,15 +188,21 @@ def test_defaults_match_jax():
     assert TSearcher.DEFAULTS == JSearcher.DEFAULTS
 
 
-@pytest.mark.parametrize("knob", [dict(compact_index=True), dict(hybrid_index=True),
+@pytest.mark.parametrize("knob", [dict(exact_mask=True), dict(exact_ties=True),
                                   dict(index_shards=2), dict(jobs=2), dict(free_generation=True),
                                   dict(decode_code=True), dict(backbone="t5-small")])
 def test_unported_knobs_raise(searchers, knob):
     _, ts = searchers
+    name, value = next(iter(knob.items()))
+    if name in ("exact_mask", "exact_ties"):  # decode modes: DecodeConfig refuses them
+        s = TSearcher(ts.fm_index, ts.tokenizer, ts.model_cfg, ts.params,
+                      device_index=ts.device_index, **dict(KNOBS, **knob))
+        with pytest.raises(NotImplementedError, match=name):
+            s.batch_search(QUERIES[:1], k=1)
+        return
     with pytest.raises(NotImplementedError):
         TSearcher(ts.fm_index, ts.tokenizer, ts.model_cfg, ts.params,
                   device_index=ts.device_index, **dict(KNOBS, **knob))
-    name, value = next(iter(knob.items()))
     if name != "backbone":  # flipped after construction: refused at the next search
         old = getattr(ts, name)
         setattr(ts, name, value)
