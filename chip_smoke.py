@@ -16,10 +16,10 @@
    that a ``force_full`` re-run gives identical hypotheses, and that every
    kernel of the path was launched; profiles one more batch (device time
    by kernel, the device's busy share).
-5. Holds kernels 1-4 and 8-11 against their plain PyTorch versions at the
-   main path's shapes, on the card, and times both beside each kernel's
-   bound and, where one PyTorch call computes the same function, that
-   call (``torch.topk``, ``torch.log_softmax``,
+5. Holds kernels 1-4 and 8-11 (8 in both orders) against their plain
+   PyTorch versions at the main path's shapes, on the card, and times both
+   beside each kernel's bound and, where one PyTorch call computes the same
+   function, that call (``torch.topk``, ``torch.log_softmax``,
    ``scaled_dot_product_attention``); runs the port on the card against
    its plain CPU path on a small input (over each index layout); checks
    the bf16 LM head's f32 result.
@@ -48,6 +48,15 @@
    searcher's, scores within 1e-6 relative), then all three in turns;
    runs the tiny searcher on the card, over each layout, against its CPU
    path.
+8. Drives the dense parity mode (``exact_mask``) at the generation point
+   over the three layouts (kernels 15, 16 and 17, kernel 3 on [B, K * V]
+   rows, kernel 8's epilogue; no proposal merge): queries/s, launches,
+   every key grounded, hypotheses bit-identical to the fast path's; the
+   fast path with ``exact_ties`` (kernel 8's ties mode), identical too;
+   a tiny model with exact logit ties (fast with ``exact_ties`` == dense,
+   card == CPU); one searcher unit with ``exact_mask`` (documents equal to
+   the fast searcher's); kernels 15-17 and the ties mode against their
+   plain versions at the path's shapes, on both routes of 15 and 16.
 
 Each path's launch counts come from that path's own run (every count set
 to 0 just before it, read just after); on every decoding path kernels 9
@@ -85,6 +94,10 @@ REPLACES = {
     "wt_search": "seal_tpu/ops/wt_ops.py:136",
     "wt_window_gather": "seal_tpu/ops/wt_ops.py:115",
     "wt_bucket_counts": "seal_tpu/ops/wt_ops.py:203",
+    "fm_dense_counts": "seal_tpu/ops/fm_ops.py:339",
+    "wt_dense_counts": "seal_tpu/ops/wt_ops.py:237",
+    "dense_scores": "seal_tpu/decoding/constrained.py:321",
+    "beam_select_ties": "seal_tpu/decoding/constrained.py:934",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -102,6 +115,10 @@ SOURCES = {
     "wt_search": ("cuda", "seal_tpu_torch/kernels/csrc/wt_search.cu"),
     "wt_window_gather": ("cuda", "seal_tpu_torch/kernels/csrc/wt_window.cu"),
     "wt_bucket_counts": ("cuda", "seal_tpu_torch/kernels/csrc/wt_bucket_counts.cu"),
+    "fm_dense_counts": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
+    "wt_dense_counts": ("cuda", "seal_tpu_torch/kernels/csrc/wt_search.cu"),
+    "dense_scores": ("cuda", "seal_tpu_torch/kernels/csrc/dense_scores.cu"),
+    "beam_select_ties": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
 }
 # the kernels each driven path must launch (bucket_counts and the loop
 # rounds' merges run only in the proven loop, which the force_full re-runs
@@ -120,7 +137,8 @@ PATH_KERNELS = {
 # 12-14, and none of the Psi index kernels they replace (1, 2, 5, 6); the
 # hybrid window is kernel 13's direct mode, not kernel 2
 WAVELET_LAYOUTS = ("compact", "hybrid")
-PSI_INDEX_KERNELS = ("fm_search", "window_gather", "fm_sequences", "bucket_counts")
+PSI_INDEX_KERNELS = ("fm_search", "window_gather", "fm_sequences", "bucket_counts",
+                     "fm_dense_counts")
 for _layout in WAVELET_LAYOUTS:
     PATH_KERNELS[f"generate_{_layout}"] = (
         "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len") + DECODE_STEP
@@ -128,6 +146,18 @@ for _layout in WAVELET_LAYOUTS:
     PATH_KERNELS[f"batch_search_{_layout}"] = (
         "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len",
         "rescore_logprob") + DECODE_STEP
+# the dense parity mode (exact_mask): each step's count vector (kernel 15,
+# or 16 on the wavelet layouts), the candidate pass (17), the flat top-2K
+# (3) and kernel 8's epilogue; no proposal merge.  The tie order
+# (exact_ties): the fast path with kernel 8 in its ties mode.
+DENSE_STEP = ("dense_scores", "row_topk", "log_softmax_min_len", "beam_select",
+              "cross_attention_step", "self_attention_step", "reorder_cache")
+PATH_KERNELS["generate_dense"] = ("fm_dense_counts", "fm_search") + DENSE_STEP
+for _layout in WAVELET_LAYOUTS:
+    PATH_KERNELS[f"generate_dense_{_layout}"] = ("wt_dense_counts", "wt_search") + DENSE_STEP
+PATH_KERNELS["generate_ties"] = PATH_KERNELS["generate"] + ("beam_select_ties",)
+PATH_KERNELS["batch_search_dense"] = ("fm_dense_counts", "fm_search", "fm_sequences",
+                                      "rescore_logprob") + DENSE_STEP
 # the searchers' documents on the wavelet layouts against the Psi
 # searcher's: the same computation but for the index arithmetic
 LAYOUT_SEARCH_RTOL = 1e-6
@@ -195,7 +225,11 @@ def log_kernel(row) -> None:
         + "".join(f", {k} {row[k]}" for k in ("tol_ratio", "f32_max_abs_err", "step0_ms",
                                                "step0_plain_ms", "long_ms", "long_plain_ms",
                                                "psi_ms", "sequences_ms", "sequences_psi_ms",
-                                               "hybrid_ms", "hybrid_plain_ms")
+                                               "hybrid_ms", "hybrid_plain_ms", "rank_route_ms",
+                                               "histogram_route_ms", "hybrid_rank_route_ms",
+                                               "topk_dense_ms", "topk_dense_plain_ms",
+                                               "default_ms", "merge_ms", "merge_plain_ms",
+                                               "merge_default_ms")
                   if k in row))
 
 
@@ -411,6 +445,16 @@ def decode_kernel_phases(np, torch, cfg, V, B, K, window, enc_len, key_len, devi
     err8s += mismatches(torch, k8.beam_select_top(*targs), k8.beam_select_top_plain(*targs))
     if err8s:
         fail(f"beam_select differs from its plain version ({err8s} elements)")
+    # kernel 8's ties mode (exact_ties) on the same inputs: the loop round's
+    # merge and the selection, against its plain version and timed beside
+    # the default mode
+    errt = mismatches(torch, k8.beam_merge(*args, ties=True), k8.beam_merge_plain(*args, ties=True))
+    for a in (sargs, (None,) + sargs[1:]):
+        (gout, gbad), (wout, wbad) = k8.beam_select(*a, ties=True, **skw), k8.beam_select_plain(
+            *a, stop_at_count=0, always_allow_eos=False, ties=True, **skw)
+        errt += mismatches(torch, gout + (gbad,), wout + (wbad,))
+    if errt:
+        fail(f"beam_select_ties differs from its plain version ({errt} elements)")
     ncand = n_buf + window + 2
     sel_bytes = (B * K * (n_buf * 9 + window * 9 + 1 + 4 + 1 + 4 + 1 + 4) + rows * 8
                  + B * (2 * K * 13 + K * 13 + 1))
@@ -422,6 +466,18 @@ def decode_kernel_phases(np, torch, cfg, V, B, K, window, enc_len, key_len, devi
         step0_ms=time_ms(lambda: k8.beam_select_top(*targs)),
         step0_plain_ms=time_ms(lambda: k8.beam_select_top_plain(*targs)),
         shape=f"[{B},{K},{ncand}] with the soundness test; step 0's epilogue on [{B},1,{V}]",
+    ))
+    table.append(dict(
+        name="beam_select_ties", max_abs_err=errt, library_ms=None, bytes=sel_bytes,
+        ms=time_ms(lambda: k8.beam_select(*sargs, ties=True, **skw)),
+        plain_ms=time_ms(lambda: k8.beam_select_plain(*sargs, stop_at_count=0,
+                                                      always_allow_eos=False, ties=True, **skw)),
+        default_ms=time_ms(lambda: k8.beam_select(*sargs, **skw)),
+        merge_ms=time_ms(lambda: k8.beam_merge(*args, ties=True)),
+        merge_plain_ms=time_ms(lambda: k8.beam_merge_plain(*args, ties=True)),
+        merge_default_ms=time_ms(lambda: k8.beam_merge(*args)),
+        shape=f"select [{B},{K},{ncand}] with the soundness test (default_ms: the default "
+              f"mode on the same inputs); merge (loop round) [{B},{K},{n_buf}+256+256]",
     ))
 
     # kernels 9 and 10: bf16 at the generation point (and f32 once)
@@ -571,7 +627,54 @@ def small_parity(np, torch):
                 elif ka and max(abs(x[1] - y[1]) for x, y in zip(ka, kb)) > 1e-4:
                     fail(f"small-input parity: scores differ by > 1e-4 ({run}, seed {seed})")
                 n_keys += len(ka)
-    return n_keys
+    return n_keys + small_tie_parity(np, torch, cfg, params_cpu)
+
+
+def small_tie_parity(np, torch, cfg, params_cpu):
+    """Exact logit ties (a block of tokens shares one embedding row, and the
+    corpus holds only them; ``tests/test_exact_proposals.py:61``): on the
+    card, over each layout, the fast path with ``exact_ties`` equals the
+    dense mode bit for bit, and both equal the CPU plain path's."""
+    from seal_tpu_torch.decoding.generate import fm_index_generate, pad_batch
+    from seal_tpu_torch.index.device_index import TorchFMIndex
+    from seal_tpu_torch.index.fm_index import FMIndex
+    from seal_tpu_torch.index.wavelet import WaveletIndex
+
+    rng = np.random.default_rng(11)
+    tied = list(range(10, 26))
+    host = FMIndex()
+    host.initialize([[int(t) for t in rng.choice(tied, size=10)] + [2] for _ in range(30)])
+    params = dict(params_cpu)
+    params["shared"] = params["shared"].clone()
+    params["shared"][tied] = params["shared"][tied[0]].clone()
+    params_gpu = _tree_to(params, "cuda")
+    ids, mask = pad_batch([[0] + rng.integers(4, 90, size=4).tolist() + [2] for _ in range(2)],
+                          cfg.pad_token_id)
+    kw = dict(num_beams=4, max_length=5, min_length=1, window=4, exact_chunk=4,
+              exact_ties=True)
+    canon = lambda hyps: [sorted((tuple(t), s) for s, t in q) for q in hyps]  # noqa: E731
+    cpu_idx = TorchFMIndex.from_host(host, vocab=96, device="cpu")
+    want = canon(fm_index_generate(cfg, params, cpu_idx, ids, mask, **kw))
+    if want != canon(fm_index_generate(cfg, params, cpu_idx, ids, mask, exact_mask=True, **kw)):
+        fail("tie parity: the CPU fast path with exact_ties differs from its dense mode")
+    n = 0
+    for layout in ("psi",) + WAVELET_LAYOUTS:
+        idx = (TorchFMIndex.from_host(host, vocab=96, device="cuda") if layout == "psi" else
+               WaveletIndex.from_host(host, vocab=96, keep_bwt=layout == "hybrid",
+                                      device="cuda"))
+        fast = canon(fm_index_generate(cfg, params_gpu, idx, ids, mask, **kw))
+        dense = canon(fm_index_generate(cfg, params_gpu, idx, ids, mask, exact_mask=True, **kw))
+        if fast != dense:
+            fail(f"tie parity ({layout}): exact_ties fast path differs from the dense mode")
+        for a, b in zip(want, fast):
+            if [t for t, _ in a] != [t for t, _ in b]:
+                fail(f"tie parity ({layout}): keys differ between card and CPU")
+            elif a and max(abs(x[1] - y[1]) for x, y in zip(a, b)) > 1e-4:
+                fail(f"tie parity ({layout}): scores differ by > 1e-4")
+            n += len(b)
+    if n == 0:
+        fail("tie parity: no keys emitted")
+    return n
 
 
 def search_kernel_phases(np, torch, host, index, vocab):
@@ -849,6 +952,144 @@ def wavelet_kernel_phases(np, torch, host, psi, layouts, V, B, K):
     return table
 
 
+def rows_bytes(torch, index_rows, lo, hi, hist_max, row_bytes: float) -> int:
+    """Bytes of the distinct index rows that the histogram route's ranges
+    (at most ``hist_max`` rows) cover, each counted once at ``row_bytes``
+    a row, in 32-byte sectors: what the data needs of the index, not one
+    read per slice.  The rank route's ranges add nothing: a lower bound."""
+    width = (hi - lo).reshape(-1).long()
+    keep = (width > 0) & (width <= hist_max)
+    cover = torch.zeros(index_rows + 1, dtype=torch.int64, device=lo.device)
+    cover.index_add_(0, lo.reshape(-1).long()[keep], torch.ones_like(width[keep]))
+    cover.index_add_(0, hi.reshape(-1).long()[keep], -torch.ones_like(width[keep]))
+    rows = torch.nonzero(torch.cumsum(cover, 0)[:index_rows] > 0).reshape(-1)
+    per_sector = max(1, int(32 / row_bytes))
+    return 32 * torch.unique(rows // per_sector).numel()
+
+
+def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
+    """Kernels 15-17 against their plain versions at the dense decode's
+    shapes: the count vector of [B, K] ranges of one- and two-token
+    prefixes (the ranges of steps 1 and 2, plus the full range and empty
+    ones) over the three layouts, on both routes, exactly; the candidate
+    pass over those counts, bit for bit; kernel 3 on the [B, K * V] rows it
+    writes.  Each bound is its output (R x V int32; kernel 17 also reads the
+    counts and log-probs) plus the index rows the histogram route reads."""
+    from seal_tpu_torch.kernels import beam_select as k8
+    from seal_tpu_torch.kernels import dense_scores as k17
+    from seal_tpu_torch.kernels import fm_search as k15
+    from seal_tpu_torch.kernels import row_topk as k3
+    from seal_tpu_torch.kernels import wt_search as k16
+
+    compact, hybrid = layouts["compact"], layouts["hybrid"]
+    dev = psi.device
+    g = torch.Generator(device=dev).manual_seed(5)
+    rng = np.random.default_rng(5)
+    N, R = psi.n_rows, B * K
+    text = host.text[:-1] - 1
+    first = torch.as_tensor(rng.choice(text, size=(2, B, K)).astype(np.int32), device=dev)
+    full_lo, full_hi = psi.full_range((B, K))
+    lo1, hi1 = k15.backward_step_plain(psi, first[0], full_lo, full_hi)
+    lo2, hi2 = k15.backward_step_plain(psi, first[1], lo1, hi1)
+    even = torch.arange(K, device=dev) % 2 == 0
+    lo, hi = torch.where(even, lo1, lo2), torch.where(even, hi1, hi2)
+    lo[0, 0], hi[0, 0] = 0, N
+    lo[0, 1], hi[0, 1] = 5, 5
+    lo[0, 2], hi[0, 2] = N, N
+    widths = (hi - lo).reshape(-1)
+    log(f"dense ranges: {R}, rows a range median {int(widths.median())}, max {int(widths.max())}, "
+        f"sum {int(widths.sum())}; histogram route (<= {k15.HIST_MAX_ROWS} rows) on "
+        f"{int((widths <= k15.HIST_MAX_ROWS).sum())}")
+    table = []
+    t0 = time.perf_counter()
+    want = k15.dense_counts_plain(psi, lo, hi, 2048)
+    err15 = 0
+    for hist_max in (k15.HIST_MAX_ROWS, 0, 2**31 - 1):
+        err15 += int((k15.fm_dense_counts(psi, lo, hi, hist_max=hist_max) != want).sum())
+    if err15:
+        fail(f"fm_dense_counts differs from its plain version ({err15} counts)")
+    out_bytes = R * 8 + R * V * 4
+    table.append(dict(
+        name="fm_dense_counts", max_abs_err=err15, library_ms=None,
+        ms=time_ms(lambda: k15.fm_dense_counts(psi, lo, hi)),
+        plain_ms=time_ms(lambda: k15.dense_counts_plain(psi, lo, hi, 2048), iters=2),
+        rank_route_ms=time_ms(lambda: k15.fm_dense_counts(psi, lo, hi, hist_max=0), iters=5),
+        histogram_route_ms=time_ms(lambda: k15.fm_dense_counts(psi, lo, hi, hist_max=2**31 - 1)),
+        shape=f"[{B},{K}] ranges x {V} tokens (rank route: every range by kernel 1's search)",
+        bytes=out_bytes + rows_bytes(torch, N, lo, hi, k15.HIST_MAX_ROWS, 4),
+    ))
+    err16 = 0
+    for ix in (compact, hybrid):
+        for hist_max in (None, 0, 2**31 - 1):
+            err16 += int((k16.wt_dense_counts(ix, lo, hi, hist_max=hist_max) != want).sum())
+    if err16:
+        fail(f"wt_dense_counts differs from its plain version ({err16} counts)")
+    hmax = k16.HIST_MAX_ROWS
+    # the route threshold: ranges of at most this many rows take the
+    # histogram, wider ones the rank route (the defaults are marked *)
+    sweep = []
+    for name, fn, ix, default in (("psi", k15.fm_dense_counts, psi, k15.HIST_MAX_ROWS),
+                                  ("compact", k16.wt_dense_counts, compact, hmax["compact"]),
+                                  ("hybrid", k16.wt_dense_counts, hybrid, hmax["hybrid"])):
+        cells = []
+        for h in (0, 1 << 10, 1 << 12, 1 << 14, 1 << 16, 1 << 18, 1 << 20, 2**31 - 1):
+            ms = time_ms(lambda: fn(ix, lo, hi, hist_max=h), iters=5)
+            cells.append(f"{h}{'*' if h == default else ''} {ms:.4f}")
+        sweep.append(f"{name}: " + ", ".join(cells))
+    log("dense counts by histogram threshold (rows: ms): " + "; ".join(sweep))
+    table.append(dict(
+        name="wt_dense_counts", max_abs_err=err16, library_ms=None,
+        ms=time_ms(lambda: k16.wt_dense_counts(compact, lo, hi)),
+        plain_ms=time_ms(lambda: k16.dense_counts_plain(compact, lo, hi, 2048), iters=1),
+        hybrid_ms=time_ms(lambda: k16.wt_dense_counts(hybrid, lo, hi)),
+        rank_route_ms=time_ms(lambda: k16.wt_dense_counts(compact, lo, hi, hist_max=0), iters=5),
+        hybrid_rank_route_ms=time_ms(lambda: k16.wt_dense_counts(hybrid, lo, hi, hist_max=0),
+                                     iters=5),
+        psi_ms=time_ms(lambda: k15.fm_dense_counts(psi, lo, hi)),
+        shape=f"[{B},{K}] ranges x {V} tokens, compact (descent a row; histogram route <= "
+              f"{hmax['compact']} rows) and hybrid (hybrid_ms: one 2-byte read a row, <= "
+              f"{hmax['hybrid']} rows); checked on both routes against the plain sweep",
+        # the compact layout's rows: one 4-bit code of each of `digits` levels
+        bytes=out_bytes + rows_bytes(torch, N, lo, hi, hmax["compact"], compact.digits / 2),
+    ))
+    # kernel 17 over the step's counts, with the branches' states
+    lp = torch.log_softmax(torch.randn(R, V, generator=g, device=dev) * 2, -1)
+    lp = torch.round(lp * 4) / 4
+    prev_count = (hi - lo).to(torch.int32)
+    finished = torch.rand(B, K, generator=g, device=dev) < 0.1
+    bs = torch.round(torch.randn(B, K, generator=g, device=dev) * 2) / 2 - 3
+    bs[0, 1] = k8.NEG_INF
+    dargs = (want, lp, prev_count, finished, bs)
+    dkw = dict(eos=2, pad=1, stop_at_count=0, always_allow_eos=False)
+    got = k17.dense_scores(*dargs, **dkw)
+    plain17 = k17.dense_scores_plain(*dargs, **dkw)
+    err17 = mismatches(torch, (got,), (plain17,))
+    bkw = dict(dkw, stop_at_count=2, always_allow_eos=True)
+    err17 += mismatches(torch, (k17.dense_scores(*dargs, **bkw),),
+                        (k17.dense_scores_plain(*dargs, **bkw),))
+    if err17:
+        fail(f"dense_scores differs from its plain version ({err17} elements)")
+    gv, gi = k3.row_topk(got, 2 * K)
+    wv, wi = k3.row_topk_plain(got, 2 * K)
+    if not (torch.equal(gi, wi) and torch.equal(gv, wv)):
+        fail("row_topk differs from its plain version on the dense rows")
+    table.append(dict(
+        name="dense_scores", max_abs_err=err17, library_ms=None,
+        ms=time_ms(lambda: k17.dense_scores(*dargs, **dkw)),
+        plain_ms=time_ms(lambda: k17.dense_scores_plain(*dargs, **dkw)),
+        topk_dense_ms=time_ms(lambda: k3.row_topk(got, 2 * K), iters=5),
+        topk_dense_plain_ms=time_ms(lambda: k3.row_topk_plain(got, 2 * K), iters=2),
+        shape=f"counts [{B},{K},{V}] -> [{B},{K * V}] f32 (topk_dense_ms: kernel 3's top-{2 * K} "
+              "of those rows)",
+        # counts and log-probs read, scores written, the row state once
+        bytes=R * V * 12 + R * 9,
+    ))
+    log(f"dense kernel phases: {time.perf_counter() - t0:.1f} s")
+    del got, plain17, want, lp
+    torch.cuda.synchronize()
+    return table
+
+
 def searcher_grounding(searcher, queries):
     """One unit's raw body and title hypotheses, decoded as
     ``process_batch`` decodes them: every body key occurs in the corpus; a
@@ -957,6 +1198,7 @@ def main() -> int:
         bucket_counts,
         build,
         decode_attention,
+        dense_scores,
         fm_search,
         reorder_cache,
         rescore,
@@ -987,6 +1229,10 @@ def main() -> int:
         "wt_search": wt_search.wt_search,
         "wt_window_gather": wt_window.wt_window_gather,
         "wt_bucket_counts": wt_bucket_counts.wt_bucket_counts,
+        "fm_dense_counts": fm_search.fm_dense_counts,
+        "wt_dense_counts": wt_search.wt_dense_counts,
+        "dense_scores": dense_scores.dense_scores,
+        "beam_select_ties": beam_select.TIES,
     }
     by_path: dict = {}  # path -> {kernel: launches in that path's run}
     # decode steps each path runs (the beam search calls bart.decode_step
@@ -1027,6 +1273,9 @@ def main() -> int:
                     fail(f"{path}: {name} launched {by_path[path][name]} times for {n} decode "
                          f"steps (want {count})")
             by_path[path]["decode_steps"] = n
+        if "dense" in path and by_path[path]["beam_merge"]:
+            fail(f"{path}: the dense mode launched the proposal merge "
+                 f"{by_path[path]['beam_merge']} times")
         return by_path[path]
 
     t0 = time.perf_counter()
@@ -1107,8 +1356,10 @@ def main() -> int:
     log(f"launch floor: one eager zero_() of one element, {time_ms(lambda: one.zero_()):.4f} ms "
         "a launch back to back (CUDA events, 20 launches)")
 
+    t0 = time.perf_counter()
     n_small = small_parity(np, torch)
-    log(f"small-input parity (card vs CPU plain path): {n_small} keys compared")
+    log(f"small-input parity (card vs CPU plain path, exact ties included): {n_small} keys "
+        f"compared; phase wall {time.perf_counter() - t0:.1f} s")
 
     # ---- the bf16 LM head keeps an f32 result ----------------------------
     h = torch.randn(B * K, cfg.d_model, device="cuda").to(torch.bfloat16)
@@ -1213,6 +1464,98 @@ def main() -> int:
     for row in wt_table:
         log_kernel(row)
     table += wt_table
+
+    # ---- the dense parity mode over the three layouts, and the tie order --
+    # exact_mask: every step's allowed set is the whole count vector
+    # (kernel 15 or 16, then 17, 3 and 8's epilogue); a parity mode, so two
+    # timed batches after one warm-up.  Hypotheses must be bit-identical to
+    # the fast path's (canon).
+    t_dense = time.perf_counter()
+    dense_runs = {}
+    for layout, ix in (("psi", index), *layouts.items()):
+        path = "generate_dense" + ("" if layout == "psi" else f"_{layout}")
+
+        def run_dense(ix=ix, **extra):
+            out = generate.fm_index_generate(cfg, params, ix, ids, mask, exact_mask=True, **kw,
+                                             **extra)
+            torch.cuda.synchronize()
+            return out
+
+        t_layout = time.perf_counter()
+        run_dense()  # warm-up
+        zero_counts()
+        d_times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            d_hyps = run_dense()
+            d_times.append(time.perf_counter() - t0)
+        d_launches = read_counts(path)
+        d_batch = statistics.median(d_times)
+        d_canon = [sorted((tuple(t), s) for s, t in q) for q in d_hyps]
+        same = d_canon == canon
+        # hypotheses equal to the main path's are its grounded keys; any
+        # other set is grounded here, key by key
+        n_d = n_keys if same else hyp_keys(d_hyps, path)
+        if not same:
+            # the only admissible cause is an exact score tie at the 2K
+            # cutoff: then both paths agree under exact_ties, and the tie
+            # order changes at least one of them
+            ties_f = [sorted((tuple(t), s) for s, t in q)
+                      for q in generate.fm_index_generate(cfg, params, ix, ids, mask,
+                                                          exact_ties=True, **kw)]
+            ties_d = [sorted((tuple(t), s) for s, t in q) for q in run_dense(exact_ties=True)]
+            if ties_f != ties_d or (ties_f == canon and ties_d == d_canon):
+                fail(f"{path}: dense hypotheses differ from the fast path's, and no exact tie "
+                     "explains it")
+            else:
+                log(f"{path}: dense and fast hypotheses differ by an exact score tie; under "
+                    "exact_ties both paths agree")
+        log(f"{path}: {[round(t, 4) for t in d_times]} s/batch; median {d_batch:.4f} s = "
+            f"{B / d_batch:.1f} queries/s (fast path psi {B / per_batch:.1f}); {n_d} keys "
+            f"grounded; hypotheses bit-identical to the fast path's (tokens and score bits): "
+            f"{same}")
+        log(f"launches in the {path} run: {d_launches}; phase wall "
+            f"{time.perf_counter() - t_layout:.1f} s")
+        dense_runs[layout] = dict(qps=B / d_batch, canon=d_canon)
+    t0 = time.perf_counter()
+    d_prof = bench_generate.profile_batch(
+        lambda: generate.fm_index_generate(cfg, params, index, ids, mask, exact_mask=True, **kw))
+    topk_ms = sum(r["ms"] for r in d_prof["top"] if "row_topk" in r["name"])
+    log(f"dense profiled batch (psi): {d_prof['kernels']} kernels, device busy "
+        f"{d_prof['device_busy_ms']:.2f} ms of {d_prof['wall_ms']:.2f} ms wall "
+        f"({100 * d_prof['busy_share']:.1f}%); kernel 3 {topk_ms:.2f} ms = "
+        f"{100 * topk_ms / d_prof['device_busy_ms']:.1f}% of the busy time; phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    for row in d_prof["top"][:10]:
+        log(f"  {row['ms']:8.3f} ms {row['calls']:6d} calls  {row['name']}")
+    dense_runs["psi"].update(busy=d_prof["busy_share"],
+                             topk_share=topk_ms / d_prof["device_busy_ms"])
+
+    # exact_ties on the fast path (kernel 8's ties mode): the same
+    # hypotheses as without it and as the dense run
+    t0 = time.perf_counter()
+    run(exact_ties=True)  # warm-up
+    zero_counts()
+    t_times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        t_hyps = run(exact_ties=True)
+        t_times.append(time.perf_counter() - t0)
+    t_launches = read_counts("generate_ties")
+    t_canon = [sorted((tuple(t), s) for s, t in q) for q in t_hyps]
+    if t_canon != canon or t_canon != dense_runs["psi"]["canon"]:
+        fail("generate_ties: exact_ties hypotheses differ from the fast path's or the dense run's")
+    log(f"generate_ties: {[round(t, 4) for t in t_times]} s/batch, "
+        f"{B / statistics.median(t_times):.1f} queries/s; hypotheses equal to the fast path's and "
+        f"the dense run's: {t_canon == canon == dense_runs['psi']['canon']}; fallback_steps "
+        f"{generate.LAST_DECODE_STATS['fallback_steps']}")
+    log(f"launches in the generate_ties run: {t_launches}; phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    dense_table = dense_kernel_phases(np, torch, host, index, layouts, V, B, K)
+    for row in dense_table:
+        log_kernel(row)
+    table += dense_table
+    log(f"dense and tie phases: {time.perf_counter() - t_dense:.1f} s")
     del layouts
 
     # ---- second path: SEALSearcher.batch_search at the e2e bench point ----
@@ -1282,6 +1625,29 @@ def main() -> int:
     for row in stable:
         log_kernel(row)
     table += stable
+    # ---- the searcher in the dense parity mode: one unit, Psi index ------
+    t0 = time.perf_counter()
+    dsearch = SEALSearcher(searcher.fm_index, searcher.tokenizer, searcher.model_cfg,
+                           searcher.params, backbone=searcher.backbone,
+                           batch_size=searcher.batch_size, device_index=searcher.device_index,
+                           exact_mask=True)
+    zero_counts()
+    d_res = dsearch.batch_search(unit, k=bench_search.TOP_K)
+    torch.cuda.synchronize()
+    d_search_s = time.perf_counter() - t0
+    log(f"launches in the batch_search_dense unit: {read_counts('batch_search_dense')}")
+    n_dense_docs = 0
+    for want, got in zip(results[: len(unit)], d_res):
+        if [d.docid for d in got] != [d.docid for d in want]:
+            fail("batch_search_dense: documents differ from the fast searcher's")
+        elif want and max(abs(a.score - b.score) / abs(b.score) for a, b in zip(got, want)) \
+                > LAYOUT_SEARCH_RTOL:
+            fail(f"batch_search_dense: scores differ from the fast searcher's by more than "
+                 f"{LAYOUT_SEARCH_RTOL} relative")
+        n_dense_docs += len(got)
+    log(f"batch_search_dense: one unit of {len(unit)} queries in {d_search_s:.3f} s (set-up "
+        f"included); {n_dense_docs} documents compared with the fast searcher's")
+    del dsearch
     # ---- the searcher over the compact and hybrid layouts -----------------
     psi_docs = [[(d.docid, d.score) for d in r] for r in results]
     searchers = {"psi": searcher}
@@ -1353,7 +1719,11 @@ def main() -> int:
                     f"{100 * v['busy']:.1f}%, batch_search {v['search_qps']:.2f} queries/s"
                     for k, v in wt_runs.items() if k != "psi")
         + "; in turns (generation, batch_search queries/s): " + ", ".join(
-            f"{k} {v['turns_qps']:.1f} / {v['search_turns_qps']:.2f}" for k, v in wt_runs.items()))
+            f"{k} {v['turns_qps']:.1f} / {v['search_turns_qps']:.2f}" for k, v in wt_runs.items())
+        + "; dense (exact_mask) generation queries/s: " + ", ".join(
+            f"{k} {v['qps']:.1f}" for k, v in dense_runs.items())
+        + f", psi busy {100 * dense_runs['psi']['busy']:.1f}% under the profiler, kernel 3 "
+        f"{100 * dense_runs['psi']['topk_share']:.1f}% of it")
     log(f"launches by path: {json.dumps(by_path)}")
     kernels = []
     for row in table:
@@ -1364,7 +1734,8 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            **{k: row[k] for k in ("tol_ratio", "psi_ms") if k in row},
+            **{k: row[k] for k in ("tol_ratio", "psi_ms", "hybrid_ms", "rank_route_ms",
+                                   "default_ms", "merge_ms", "topk_dense_ms") if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}
     if missing:

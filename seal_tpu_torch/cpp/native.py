@@ -285,8 +285,17 @@ def _build() -> str:
         os.path.getmtime(out) >= os.path.getmtime(s) for s in srcs
     ):
         return out
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", out, *srcs]
-    subprocess.run(cmd, check=True, capture_output=True)
+    # link under a name of this process's own and rename it into place: a
+    # process that finds ``out`` sees no library or a whole one, never a
+    # file another process is still writing
+    tmp = f"{out}.{os.getpid()}.tmp"
+    try:
+        cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp, *srcs]
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return out
 
 

@@ -1,5 +1,5 @@
-"""FM-index-constrained beam search, fast-exact path (counterpart of
-``seal_tpu/decoding/constrained.py``).
+"""FM-index-constrained beam search, fast-exact path and dense parity mode
+(counterpart of ``seal_tpu/decoding/constrained.py``).
 
 Semantics are the JAX module's (see its docstring): candidates are selected
 by constrained scores and accumulate unconstrained ones; every candidate of
@@ -10,6 +10,14 @@ the beam's own interval), selects, and then proves that no token the round
 missed could have reached the selection cutoff.  A step that cannot be
 proven sound is flagged, and the caller re-runs the whole decode with
 ``force_full=True`` (every step through the proven proposal loop).
+
+``exact_mask`` is the dense parity mode the fast path is held to: each
+step's allowed set is the whole count vector of every beam's interval
+(``dense_counts``, kernels 15/16), the candidate pass is kernel 17, and
+kernel 3 ranks the flat [B, K*V] scores for the step's top 2K, as at step
+0.  ``exact_ties`` orders equal scores by (beam, token) in the fast path's
+merge and selection (kernel 8's ties mode); the dense mode needs no tie
+mode, since its flat index already rises with (beam, token).
 
 What changed in translation:
 
@@ -32,9 +40,8 @@ What changed in translation:
   sequence's (kernel 5).  Step 0 still picks its token under the dense
   corpus mask and then extends the forced range, as the JAX decoder does.
 * Not ported yet (``DecodeConfig`` raises ``NotImplementedError``): the
-  sample, diverse, speculative, ``exact_mask``, ``exact_ties`` and
-  ``disable_fm_index`` modes, ``forced_bos``, the top-k warper and
-  ``adjust_logits_fn``.
+  sample, diverse, speculative and ``disable_fm_index`` modes,
+  ``forced_bos``, the top-k warper and ``adjust_logits_fn``.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch
 
 from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.kernels.beam_select import NEG_INF, beam_merge, beam_select, beam_select_top
+from seal_tpu_torch.kernels.dense_scores import dense_scores
 from seal_tpu_torch.kernels.row_topk import row_topk
 from seal_tpu_torch.kernels.triton_logsoftmax import log_softmax_ban
 from seal_tpu_torch.index.wavelet import WaveletIndex
@@ -104,6 +112,9 @@ class SingleIndexOps:
         buckets are 16^(digits-2) symbols, Psi buckets ceil(sigma/256))."""
         return self._ops.bucket_size_of(self.index)
 
+    def dense_counts(self, lo, hi, chunk):
+        return self._ops.dense_counts(self.index, lo, hi, chunk=chunk)
+
 
 @dataclasses.dataclass(frozen=True)
 class DecodeConfig:
@@ -123,12 +134,13 @@ class DecodeConfig:
     force_full: bool = False  # every step through the proven proposal loop
     force_decoding_from: Optional[Tuple[int, ...]] = None  # forced range prefix
     top_m: int = 256  # read by the speculative and sample modes only
+    exact_mask: bool = False  # dense O(vocab) mask (parity mode)
+    dense_chunk: int = 2048  # tokens a plain dense_counts sweep takes at once
+    exact_ties: bool = False  # resolve equal-score ties (beam, token)-asc
     # --- modes of the JAX package not ported yet: must stay at defaults ---
     forced_bos_token_id: Optional[int] = None
     disable_fm_index: bool = False
     speculative: bool = False
-    exact_mask: bool = False
-    exact_ties: bool = False
     sample: bool = False
     topk: int = 0
     adjust_logits_fn: Optional[Callable] = None
@@ -140,8 +152,6 @@ class DecodeConfig:
             "forced_bos_token_id": self.forced_bos_token_id is not None,
             "disable_fm_index": self.disable_fm_index,
             "speculative": self.speculative,
-            "exact_mask": self.exact_mask,
-            "exact_ties": self.exact_ties,
             "sample": self.sample,
             "topk": self.topk > 0,
             "adjust_logits_fn": self.adjust_logits_fn is not None,
@@ -233,7 +243,8 @@ def _exact_proposals(
         s_lo = torch.minimum(lo + rows_prev, hi)
         s_hi = torch.minimum(s_lo + width, hi)
         slab_tok, slab_ok, slab_lp = ops.window_gather(s_lo, s_hi, width, lp, 0)
-        return beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, V, n_buf)
+        return beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, V, n_buf,
+                          ties=cfg.exact_ties)
 
     def round0():
         top_lp0, top_tok0 = row_topk(lp, chunk)
@@ -314,6 +325,7 @@ def _fast_exact_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished,
             buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished,
             beam_scores, need, th_lp, K=K, eos=cfg.eos_token_id, pad=cfg.pad_token_id,
             stop_at_count=cfg.stop_at_count, always_allow_eos=cfg.always_allow_eos,
+            ties=cfg.exact_ties,
         )
 
     if force_full:
@@ -323,6 +335,31 @@ def _fast_exact_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished,
         ops, cfg, lp, lo, hi, prev_count, finished, eos_tok, round0_only=True
     ))
     return out[:8], unsound.any()
+
+
+def _dense_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam_scores,
+                  K: int):
+    """The dense parity mode's step: every beam's whole count vector
+    (kernel 15 or 16), the branches, mask and beam score over [B, K, V]
+    (kernel 17), the flat top-2K (kernel 3) and ``_select``'s epilogue
+    (kernel 8's ``beam_select_top``), as step 0 selects.
+
+    The candidate at flat index k * V + v is (beam k, token v), so kernel
+    3's order, value descending and index ascending, is also the
+    ``exact_ties`` order (the (beam, token) tie id rises with the index):
+    the dense mode needs no tie mode.
+    """
+    B = lo.shape[0]
+    V = lp.shape[-1]
+    counts = ops.dense_counts(lo, hi, cfg.dense_chunk)  # [B, K, index vocab]
+    if counts.shape[-1] != V:
+        raise ValueError(f"exact_mask: the index's vocab {counts.shape[-1]} differs from the "
+                         f"model's {V}")
+    cons = dense_scores(counts, lp, prev_count, finished, beam_scores, eos=cfg.eos_token_id,
+                        pad=cfg.pad_token_id, stop_at_count=cfg.stop_at_count,
+                        always_allow_eos=cfg.always_allow_eos)
+    top_cons, top_idx = row_topk(cons, 2 * K)
+    return beam_select_top(top_cons, top_idx, lp, beam_scores, K, K, cfg.eos_token_id)[:8]
 
 
 def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out,
@@ -407,11 +444,15 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
         )
         lp = _log_softmax(logits, cur_col + 1, cfg)
         finished = ((last == cfg.eos_token_id) | (last == cfg.pad_token_id)).reshape(B, K)
-        (c_tok, c_par, c_sco, c_fin, sel_tok, sel_par, new_scores, sel_fin), bad = (
-            _fast_exact_select(ops, cfg, lp, lo, hi, prev_count, finished, beam_scores, K,
-                               force_full=cfg.force_full)
-        )
-        unsound.append(bad)
+        if cfg.exact_mask:
+            (c_tok, c_par, c_sco, c_fin, sel_tok, sel_par, new_scores, sel_fin) = _dense_select(
+                ops, cfg, lp, lo, hi, prev_count, finished, beam_scores, K)
+        else:
+            (c_tok, c_par, c_sco, c_fin, sel_tok, sel_par, new_scores, sel_fin), bad = (
+                _fast_exact_select(ops, cfg, lp, lo, hi, prev_count, finished, beam_scores, K,
+                                   force_full=cfg.force_full)
+            )
+            unsound.append(bad)
         # candidates of tainted (back-filled) parents are ungrounded: drop
         c_fin = c_fin & ~_gather(tainted, c_par)
 

@@ -126,7 +126,7 @@ def fm_index_generate_async(
     exact_chunk: int = 64,
     exact_topk_blk: int = 0,  # the TPU's block width for its top-k: no effect here
     exact_loop_chunk: int = 0,
-    dense_chunk: int = 2048,  # read by the exact_mask mode only (not ported)
+    dense_chunk: int = 2048,  # tokens a plain (CPU) exact_mask count sweep takes at once
     speculative: bool = False,
     exact_mask: bool = False,
     exact_ties: bool = False,
@@ -148,7 +148,7 @@ def fm_index_generate_async(
     function.  Modes not ported yet raise ``NotImplementedError`` (from
     ``DecodeConfig``, and for a ``mesh``)."""
     del length_penalty, keep_history  # no effect on the exact beam path
-    del exact_topk_blk, dense_chunk, seed
+    del exact_topk_blk, seed
     if mesh is not None:
         raise NotImplementedError("not ported to seal_tpu_torch yet: mesh (data-parallel decode)")
     dev = index.device
@@ -178,6 +178,7 @@ def fm_index_generate_async(
         window=resolve_window(window, num_beams),
         exact_chunk=exact_chunk,
         exact_loop_chunk=exact_loop_chunk,
+        dense_chunk=dense_chunk,
         speculative=speculative,
         exact_mask=exact_mask,
         exact_ties=exact_ties,

@@ -15,6 +15,15 @@ Replaces, in ``seal_tpu/decoding/constrained.py``:
 Every output is a selection or one f32 add done in the plain code's order,
 so the kernels equal the plain versions exactly, floats bit for bit.  The
 order is ``lax.top_k``'s (f32 total order, ties to the lower slot).
+
+Under ``exact_ties`` (``ties=True``) ``beam_merge`` and ``beam_select`` take
+``_top_idx``'s other order, ``_top_by_score_then_id`` (:934): equal scores
+order by a tie id, ascending -- the dedup id in the merge, the (parent
+beam, token) id of ``_beam_tok_tie`` (:958) in the selection.  The plain
+versions sort one int64 key, (score's order key << 32) | (2^32 - 1 -
+tie id), stably; torch has int64, so JAX's two-key ``lax.sort`` (a
+workaround for x64 being off) is not carried over.  Launches in that mode
+also count on ``TIES``.
 """
 
 from __future__ import annotations
@@ -22,9 +31,48 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from seal_tpu_torch.kernels.row_topk import row_topk_plain
+from seal_tpu_torch.kernels.row_topk import order_key, row_topk_plain
 
 NEG_INF = float(np.finfo(np.float32).min) / 2  # the decoder's masking constant
+TOK_BITS = 17  # minimum token-id field width in selection tie ids
+
+
+class _Launches:
+    """A launch counter that is not a wrapper's own."""
+
+    launches = 0
+
+
+TIES = _Launches()  # kernel 8 launches in the ties mode (merge and select)
+
+
+def top_by_score_then_id(score, tie_id, k: int):
+    """Indices of the ``k`` best entries of each row by (score desc in f32's
+    total order, tie id asc); equal pairs keep slot order.  Tie ids are in
+    [0, 2^31)."""
+    key = (order_key(score).long() << 32) | (0xFFFFFFFF - tie_id.long())
+    return torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :k]
+
+
+def tie_bits(vocab: int, n_parents: int) -> int:
+    """Token bits of the (parent, token) tie id; raises the JAX package's
+    ``ValueError`` where the packed id would leave int32."""
+    bits = max(TOK_BITS, int(vocab - 1).bit_length())
+    if (n_parents << bits) > 2**31 - 1:
+        raise ValueError(
+            f"exact_ties tie ids need {bits} token bits x {n_parents} beams "
+            f"-- exceeds int32; reduce beams or disable exact_ties"
+        )
+    return bits
+
+
+def beam_tok_tie(flat_tok, ncand: int, vocab: int):
+    """Tie ids for a [B, n_par * ncand] candidate axis: (parent beam << bits)
+    + token, the token clipped to the field (``_beam_tok_tie``)."""
+    n = flat_tok.shape[-1]
+    bits = tie_bits(vocab, -(-n // ncand))
+    parent = torch.arange(n, dtype=torch.int32, device=flat_tok.device) // ncand
+    return (parent << bits) + flat_tok.clamp(0, (1 << bits) - 1)
 
 
 def dedup_mask(tokens):
@@ -60,7 +108,7 @@ def _g(x, idx):
 
 
 def beam_merge_plain(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: int,
-                     n_buf: int):
+                     n_buf: int, ties: bool = False):
     lead = top_tok.shape[:-1]
     dev = top_tok.device
     if buf is None:
@@ -78,12 +126,12 @@ def beam_merge_plain(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, v
     uniq = torch.where(all_valid, all_tok, vocab + torch.arange(n, dtype=torch.int32, device=dev))
     fresh = dedup_mask(uniq)
     rank = torch.where(all_valid & fresh, all_lp, NEG_INF)
-    keep = row_topk_plain(rank, n_buf)[1]
+    keep = top_by_score_then_id(rank, uniq, n_buf) if ties else row_topk_plain(rank, n_buf)[1]
     return _g(all_tok, keep), _g(all_lp, keep), _g(all_valid & fresh, keep)
 
 
 def beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: int,
-               n_buf: int):
+               n_buf: int, ties: bool = False):
     """One proposal round's merge, per beam row.
 
     ``buf``: (tok int32, lp f32, valid bool) [..., n_buf], or None for round
@@ -91,21 +139,23 @@ def beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: 
     LM top tokens, their log-probs and membership; ``slab_*`` [..., n_slab]:
     the interval's own rows.  An LM or slab slot is valid when its flag is
     set and its log-prob > NEG_INF/2.  Returns the ``n_buf`` best valid,
-    first-instance candidates (tok, lp, valid), unfilled slots after them.
+    first-instance candidates (tok, lp, valid), unfilled slots after them;
+    equal log-probs keep slot order, or with ``ties`` the order of their
+    dedup ids (the token if valid, else ``vocab`` + slot).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     ``top_tok``/``top_lp`` and ``top_ok`` may be row-strided views.
     """
     if not top_tok.is_cuda:
         return beam_merge_plain(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab,
-                                n_buf)
+                                n_buf, ties)
     from seal_tpu_torch.kernels import build
 
     lead = top_tok.shape[:-1]
     n_top, n_slab = top_tok.shape[-1], slab_tok.shape[-1]
     rows = top_tok[..., 0].numel()
     n = n_buf + n_top + n_slab
-    if build.lib().seal_beam_merge_smem(n) > build.SMEM_LIMIT:
+    if build.lib().seal_beam_merge_smem(n, int(ties)) > build.SMEM_LIMIT:
         raise ValueError(f"beam_merge: {n} candidates per row exceed the shared memory")
     top_stride = _row_stride(top_tok, "top_tok")
     if _row_stride(top_lp, "top_lp") != top_stride:
@@ -127,11 +177,12 @@ def beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: 
     rc = build.lib().seal_beam_merge(
         ptr(0), ptr(1), ptr(2), top_tok.data_ptr(), top_lp.data_ptr(), top_ok.data_ptr(),
         top_stride, ok_stride, slab_tok.data_ptr(), slab_lp.data_ptr(), slab_ok.data_ptr(),
-        rows, n_buf, n_top, n_slab, NEG_INF, out_tok.data_ptr(), out_lp.data_ptr(),
-        out_valid.data_ptr(), build.stream_ptr(top_tok),
+        rows, n_buf, n_top, n_slab, vocab, int(ties), NEG_INF, out_tok.data_ptr(),
+        out_lp.data_ptr(), out_valid.data_ptr(), build.stream_ptr(top_tok),
     )
     build.check(rc, "beam_merge")
     beam_merge.launches += 1
+    TIES.launches += int(ties)
     return out_tok, out_lp, out_valid
 
 
@@ -141,15 +192,20 @@ beam_merge.launches = 0
 # ----------------------------------------------------------------- select
 
 
-def select_top_plain(cons_scores, uncons_scores, tokens, K: int, eos: int):
+def select_top_plain(cons_scores, uncons_scores, tokens, K: int, eos: int, tie_vocab=None):
     """top-2K by constrained score + the first-K-non-EOS continuation rule
     (``beam_search.py:301-320``) over [B, n_par, ncand] candidates; the
-    candidate-beam axis may be narrower than K (step 0)."""
+    candidate-beam axis may be narrower than K (step 0).  With
+    ``tie_vocab``, equal scores order by (parent beam, token)."""
     B, n_par, ncand = cons_scores.shape
     flat_cons = cons_scores.reshape(B, n_par * ncand)
-    top_cons, top_idx = row_topk_plain(flat_cons, 2 * K)
-    return _epilogue(top_cons, top_idx, uncons_scores.reshape(B, -1),
-                     tokens.reshape(B, -1), ncand, K, eos)
+    flat_tok = tokens.reshape(B, -1)
+    if tie_vocab is None:
+        top_cons, top_idx = row_topk_plain(flat_cons, 2 * K)
+    else:
+        top_idx = top_by_score_then_id(flat_cons, beam_tok_tie(flat_tok, ncand, tie_vocab), 2 * K)
+        top_cons = _g(flat_cons, top_idx)
+    return _epilogue(top_cons, top_idx, uncons_scores.reshape(B, -1), flat_tok, ncand, K, eos)
 
 
 def _epilogue(top_cons, top_idx, flat_uncons, flat_tok, ncand, K, eos):
@@ -168,7 +224,7 @@ def _epilogue(top_cons, top_idx, flat_uncons, flat_tok, ncand, K, eos):
 
 def beam_select_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
                       finished, beam_scores, need, th_lp, *, K: int, eos: int, pad: int,
-                      stop_at_count: int, always_allow_eos: bool):
+                      stop_at_count: int, always_allow_eos: bool, ties: bool = False):
     B, n_par = prev_count.shape
     dev = lp.device
     eos_lp = lp[:, eos].reshape(B, n_par, 1)
@@ -194,7 +250,8 @@ def beam_select_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, p
     # proposal slots can repeat a window token; keep one per token id
     cons = torch.where(allowed & dedup_mask(tokens), cand_lp, NEG_INF)
     bs = beam_scores[..., None]
-    out = select_top_plain(cons + bs, cand_lp + bs, tokens, K, eos)
+    out = select_top_plain(cons + bs, cand_lp + bs, tokens, K, eos,
+                           tie_vocab=lp.shape[-1] if ties else None)
     if need is None:
         return out, None
     unsound = (need & (beam_scores + th_lp >= out[8][:, -1:])).any(-1)
@@ -203,7 +260,7 @@ def beam_select_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, p
 
 def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished,
                 beam_scores, need=None, th_lp=None, *, K: int, eos: int, pad: int, stop_at_count: int = 0,
-                always_allow_eos: bool = False):
+                always_allow_eos: bool = False, ties: bool = False):
     """Candidate build, branches, dedup, top-2K and the continuation rule of
     one decode step, per query.
 
@@ -214,12 +271,14 @@ def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_co
     V] f32: log-probs (the EOS and PAD columns are read from it);
     ``prev_count``, ``finished``, ``beam_scores`` [B, n_par].  With ``need``
     and ``th_lp`` [B, n_par], also the per-query ``unsound`` flag [B].
+    Equal scores keep slot order, or with ``ties`` the (parent beam, token)
+    order (V = ``lp``'s width sizes the token field).
 
     Returns (nine outputs of ``_select``, unsound or None).  CPU tensors run
     the plain version; CUDA tensors launch the kernel.
     """
     kw = dict(K=K, eos=eos, pad=pad, stop_at_count=stop_at_count,
-              always_allow_eos=always_allow_eos)
+              always_allow_eos=always_allow_eos, ties=ties)
     if not lp.is_cuda:
         return beam_select_plain(buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
                                  finished, beam_scores, need, th_lp, **kw)
@@ -230,8 +289,9 @@ def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_co
     n = n_par * (n_buf + w + 2)
     if n < 2 * K:
         raise ValueError(f"beam_select: {n} candidates for a top-{2 * K}")
-    if build.lib().seal_beam_select_smem(n, 2 * K, K) > build.SMEM_LIMIT:
+    if build.lib().seal_beam_select_smem(n, 2 * K, K, int(ties)) > build.SMEM_LIMIT:
         raise ValueError(f"beam_select: {n} candidates per query exceed the shared memory")
+    bits = tie_bits(lp.shape[-1], n_par) if ties else 0
     if lp.dtype != torch.float32 or lp.stride(1) != 1 or lp.shape[0] != B * n_par:
         raise ValueError("beam_select: lp must be f32 [B*n_par, V] with unit column stride")
     if (need is None) != (th_lp is None):
@@ -259,11 +319,12 @@ def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_co
         ptr(0), ptr(1), ptr(2), win_tok.data_ptr(), win_valid.data_ptr(), win_lp.data_ptr(),
         eos_ok.data_ptr(), eos_stride, lp.data_ptr(), lp.stride(0), prev_count.data_ptr(),
         finished.data_ptr(), beam_scores.data_ptr(), opt(need), opt(th_lp), B, n_par, n_buf, w,
-        K, eos, pad, stop_at_count, int(always_allow_eos), NEG_INF,
+        K, eos, pad, stop_at_count, int(always_allow_eos), bits, NEG_INF,
         *(t.data_ptr() for t in outs), opt(unsound), build.stream_ptr(lp),
     )
     build.check(rc, "beam_select")
     beam_select.launches += 1
+    TIES.launches += int(ties)
     return outs, unsound
 
 

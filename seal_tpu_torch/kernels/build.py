@@ -27,8 +27,9 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu", "bucket_counts.cu", "rescore.cu",
            "beam_select.cu", "decode_attention.cu", "reorder_cache.cu", "wt_search.cu",
-           "wt_window.cu", "wt_bucket_counts.cu")
-HEADERS = ("wt_common.cuh",)  # included by the wt_*.cu sources
+           "wt_window.cu", "wt_bucket_counts.cu", "dense_scores.cu")
+# included by the wt_*.cu sources, and by fm_search.cu and wt_search.cu
+HEADERS = ("wt_common.cuh", "dense_counts.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -51,6 +52,9 @@ SIGNATURES = {
     # psi, sym_dir, head_pair, n_rows, sigma, dir_shift,
     # tokens, lengths, out_lo, out_hi, n, L, stream
     "seal_fm_sequences": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _P],
+    # psi, sym_dir, head_pair, n_rows, sigma, dir_shift,
+    # bwt, lo, hi, out, n, vocab, hist_max, stream
+    "seal_fm_dense_counts": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
     # bwt, lp, lp_stride, lo, hi, n, w, vocab, fill, tok, valid, lp_out, stream
     "seal_window_gather": [_P, _P, _L, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
     # x, n_rows, width, k, vals, idx, stream
@@ -62,15 +66,16 @@ SIGNATURES = {
     "seal_rescore_logprob": [_P, _P, _P, _L, _I, _I, _I, _P],
     # buf_tok, buf_lp, buf_valid, top_tok, top_lp, top_ok, top_stride,
     # top_ok_stride, slab_tok, slab_lp, slab_ok, rows, n_buf, n_top, n_slab,
-    # neg_inf, out_tok, out_lp, out_valid, stream
-    "seal_beam_merge": [_P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _L, _I, _I, _I, _F,
+    # vocab, ties, neg_inf, out_tok, out_lp, out_valid, stream
+    "seal_beam_merge": [_P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F,
                         _P, _P, _P, _P],
     # buf_tok, buf_lp, buf_valid, win_tok, win_valid, win_lp, eos_ok,
     # eos_ok_stride, lp, lp_stride, prev_count, finished, beam_scores, need,
     # th_lp, n_queries, n_par, n_buf, w, k, eos, pad, stop_at_count,
-    # always_allow_eos, neg_inf, 9 outputs, unsound, stream
+    # always_allow_eos, tie_bits (0: no ties mode), neg_inf, 9 outputs,
+    # unsound, stream
     "seal_beam_select": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _L, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _F] + [_P] * 11,
+                         _I, _I, _I, _I, _I, _I, _I, _F] + [_P] * 11,
     # top_cons, top_idx, lp, lp_stride, beam_scores, bs_stride, n_queries,
     # n_par, vocab, k, eos, neg_inf, 9 outputs, stream
     "seal_beam_select_top": [_P, _P, _P, _L, _P, _L, _L, _I, _I, _I, _I, _F] + [_P] * 10,
@@ -92,9 +97,15 @@ SIGNATURES = {
     "seal_wt_window_gather": _WT + [_P, _I, _P, _L, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
     # the wavelet index, lo, hi, out, n, depth, stream
     "seal_wt_bucket_counts": _WT + [_P, _P, _P, _L, _I, _P],
+    # the wavelet index, bwt (None: descent), bwt_bytes, lo, hi, out, n,
+    # vocab, hist_max, stream
+    "seal_wt_dense_counts": _WT + [_P, _I, _P, _P, _P, _L, _I, _I, _P],
+    # counts, lp, lp_stride, prev_count, finished, beam_scores, rows, V, eos,
+    # pad, stop_at_count, always_allow_eos, neg_inf, out, stream
+    "seal_dense_scores": [_P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _P, _P],
 }
 # C functions that return a size rather than an error code
-SIZE_QUERIES = {"seal_beam_merge_smem": [_I], "seal_beam_select_smem": [_I, _I, _I],
+SIZE_QUERIES = {"seal_beam_merge_smem": [_I, _I], "seal_beam_select_smem": [_I, _I, _I, _I],
                 "seal_decode_attention_smem": [_I, _I, _I]}
 
 # shared memory one block may opt into on Hopper (the wrappers refuse shapes

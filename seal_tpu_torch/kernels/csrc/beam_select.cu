@@ -17,6 +17,14 @@
 // values and one f32 add (score + beam score, in the order of the plain
 // code), so every output equals the plain version bit for bit.
 //
+// The ties mode (exact_ties) replaces _top_idx's lax.top_k with
+// _top_by_score_then_id (:934): equal scores order by a tie id, ascending,
+// whichever slot holds the candidate.  The key's low word is then ~tie_id:
+// in merge the dedup id (`uniq`: the token if valid, else vocab + slot), in
+// select the (parent beam, token) id of _beam_tok_tie (:958), (parent <<
+// tie_bits) + token.  Each key carries its slot beside it, and equal keys
+// order by slot, as the plain version's stable sort does.
+//
 // Bound on the card: latency.  A CTA handles a few hundred to a few thousand
 // candidates; the O(n^2 / 2) first-instance dedup within a beam and the
 // log2(n)^2 / 2 barrier-separated sort stages are its cost, and the inputs
@@ -45,8 +53,11 @@ __device__ __forceinline__ int key_slot(u64 key) {
 }
 
 // Descending bitonic sort of n2 (a power of two) keys in shared memory; the
-// caller pads with key 0, which sorts last (real keys are >= 2^32).
-__device__ void sort_desc(u64* keys, int n2) {
+// caller pads with key 0, which sorts last (real keys are >= 2^32).  With
+// TIES, slots[i] travels with keys[i] and breaks equal keys, lower slot
+// first (the caller pads slots with INT_MAX); without, keys are unique.
+template <bool TIES>
+__device__ void sort_desc(u64* keys, int* slots, int n2) {
   for (int size = 2; size <= n2; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       __syncthreads();
@@ -55,9 +66,19 @@ __device__ void sort_desc(u64* keys, int n2) {
         const int hi = lo + stride;
         const bool desc = (lo & size) == 0;
         const u64 a = keys[lo], b = keys[hi];
-        if (desc ? a < b : a > b) {
+        bool b_first = a < b, a_first = a > b;  // b (a) ranks strictly before a (b)
+        if (TIES && a == b) {
+          b_first = slots[hi] < slots[lo];
+          a_first = !b_first;
+        }
+        if (desc ? b_first : a_first) {
           keys[lo] = b;
           keys[hi] = a;
+          if (TIES) {
+            const int sa = slots[lo];
+            slots[lo] = slots[hi];
+            slots[hi] = sa;
+          }
         }
       }
     }
@@ -71,17 +92,20 @@ __device__ void sort_desc(u64* keys, int n2) {
 // round 0: token 0, NEG_INF, invalid), LM top [n_top], slab [n_slab].  An
 // invalid slot never shadows a valid copy (its dedup id is unique); a valid
 // LM or slab slot needs lp > NEG_INF/2.  Keeps n_buf by (lp if valid and
-// first instance, else NEG_INF).
+// first instance, else NEG_INF), ties to the lower slot, or with TIES to
+// the lower dedup id (token if valid, else vocab + slot).
+template <bool TIES>
 __global__ void merge_kernel(const int* buf_tok, const float* buf_lp, const unsigned char* buf_valid,
                              const int* top_tok, const float* top_lp, const unsigned char* top_ok,
                              long long top_stride, long long top_ok_stride, const int* slab_tok,
                              const float* slab_lp, const unsigned char* slab_ok, int n_buf,
-                             int n_top, int n_slab, int n2, float neg_inf, int* out_tok,
+                             int n_top, int n_slab, int n2, int vocab, float neg_inf, int* out_tok,
                              float* out_lp, unsigned char* out_valid) {
   extern __shared__ unsigned long long smem[];
   const int n = n_buf + n_top + n_slab;
   u64* keys = smem;
-  int* s_tok = (int*)(keys + n2);
+  int* s_slot = (int*)(keys + n2);  // TIES only
+  int* s_tok = s_slot + (TIES ? n2 : 0);
   int* s_uid = s_tok + n;
   float* s_lp = (float*)(s_uid + n);
   unsigned char* s_vf = (unsigned char*)(s_lp + n);
@@ -116,8 +140,12 @@ __global__ void merge_kernel(const int* buf_tok, const float* buf_lp, const unsi
     s_tok[j] = tok;
     s_lp[j] = lp;
     s_uid[j] = ok ? tok : -1 - j;  // valid tokens are >= 0
+    if (TIES) s_slot[j] = j;
   }
-  for (int j = n + threadIdx.x; j < n2; j += blockDim.x) keys[j] = 0ull;
+  for (int j = n + threadIdx.x; j < n2; j += blockDim.x) {
+    keys[j] = 0ull;
+    if (TIES) s_slot[j] = 0x7fffffff;
+  }
   __syncthreads();
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const int u = s_uid[j];
@@ -132,11 +160,11 @@ __global__ void merge_kernel(const int* buf_tok, const float* buf_lp, const unsi
     }
     const bool vf = u >= 0 && fresh;
     s_vf[j] = vf ? 1 : 0;
-    keys[j] = pack(vf ? s_lp[j] : neg_inf, j);
+    keys[j] = pack(vf ? s_lp[j] : neg_inf, TIES ? (u >= 0 ? u : vocab + j) : j);
   }
-  sort_desc(keys, n2);
+  sort_desc<TIES>(keys, s_slot, n2);
   for (int t = threadIdx.x; t < n_buf; t += blockDim.x) {
-    const int j = key_slot(keys[t]);
+    const int j = TIES ? s_slot[t] : key_slot(keys[t]);
     out_tok[r * n_buf + t] = s_tok[j];
     out_lp[r * n_buf + t] = s_lp[j];
     out_valid[r * n_buf + t] = s_vf[j];
@@ -214,15 +242,20 @@ struct SelectIn {
 };
 
 // One CTA per query: the n_par * ncand candidates (ncand = n_buf + w + 2:
-// buffer, window, EOS, PAD) of its beams.
+// buffer, window, EOS, PAD) of its beams.  With TIES, equal scores order by
+// (parent beam, token): tie id (k << tie_bits) + token, the token clipped
+// to [0, 2^tie_bits) as _beam_tok_tie clips it.
+template <bool TIES>
 __global__ void select_kernel(SelectIn in, SelectOut o, unsigned char* unsound, int n_par,
                               int n_buf, int w, int two_k, int k_out, int n2, int eos, int pad,
-                              int stop_at_count, int always_allow_eos, float neg_inf) {
+                              int stop_at_count, int always_allow_eos, int tie_bits,
+                              float neg_inf) {
   extern __shared__ unsigned long long smem[];
   const int ncand = n_buf + w + 2;
   const int n = n_par * ncand;
   u64* keys = smem;
-  int* s_tok = (int*)(keys + n2);
+  int* s_slot = (int*)(keys + n2);  // TIES only
+  int* s_tok = s_slot + (TIES ? n2 : 0);
   float* s_lp = (float*)(s_tok + n);
   float* e_cons = s_lp + n;
   float* e_lp = e_cons + two_k;
@@ -254,8 +287,12 @@ __global__ void select_kernel(SelectIn in, SelectOut o, unsigned char* unsound, 
     }
     s_tok[f] = tok;
     s_lp[f] = lp;
+    if (TIES) s_slot[f] = f;
   }
-  for (int f = n + threadIdx.x; f < n2; f += blockDim.x) keys[f] = 0ull;
+  for (int f = n + threadIdx.x; f < n2; f += blockDim.x) {
+    keys[f] = 0ull;
+    if (TIES) s_slot[f] = 0x7fffffff;
+  }
   __syncthreads();
   for (int f = threadIdx.x; f < n; f += blockDim.x) {
     const int k = f / ncand, j = f - k * ncand;
@@ -283,12 +320,13 @@ __global__ void select_kernel(SelectIn in, SelectOut o, unsigned char* unsound, 
     bool allowed = stop_trig ? tok == eos : (fin ? tok == pad : fm_valid);
     if (always_allow_eos) allowed = allowed || tok == eos;
     const float cons = (allowed && keep) ? s_lp[f] : neg_inf;
-    keys[f] = pack(__fadd_rn(cons, bs_row[k]), f);
+    const int tie = TIES ? (k << tie_bits) + min(max(tok, 0), (1 << tie_bits) - 1) : f;
+    keys[f] = pack(__fadd_rn(cons, bs_row[k]), tie);
   }
-  sort_desc(keys, n2);
+  sort_desc<TIES>(keys, s_slot, n2);
   for (int t = threadIdx.x; t < two_k; t += blockDim.x) {
     const u64 key = keys[t];
-    const int f = key_slot(key);
+    const int f = TIES ? s_slot[t] : key_slot(key);
     e_cons[t] = key_value(key);
     e_slot[t] = f;
     e_tok[t] = s_tok[f];
@@ -354,31 +392,32 @@ int set_smem(K kernel, size_t smem) {
 extern "C" {
 
 // Shared memory each mode needs (bytes); the wrapper refuses shapes past
-// the card's 227 KB.
-long long seal_beam_merge_smem(int n) {
-  return 8LL * pow2_at_least(n) + 13LL * n;
+// the card's 227 KB.  The ties mode adds each key's slot.
+long long seal_beam_merge_smem(int n, int ties) {
+  return (ties ? 12LL : 8LL) * pow2_at_least(n) + 13LL * n;
 }
 
-long long seal_beam_select_smem(int n, int two_k, int k_out) {
-  return 8LL * pow2_at_least(n) + 8LL * n + 16LL * two_k + 4LL * k_out;
+long long seal_beam_select_smem(int n, int two_k, int k_out, int ties) {
+  return (ties ? 12LL : 8LL) * pow2_at_least(n) + 8LL * n + 16LL * two_k + 4LL * k_out;
 }
 
 int seal_beam_merge(const int* buf_tok, const float* buf_lp, const unsigned char* buf_valid,
                     const int* top_tok, const float* top_lp, const unsigned char* top_ok,
                     long long top_stride, long long top_ok_stride, const int* slab_tok,
                     const float* slab_lp, const unsigned char* slab_ok, long long rows, int n_buf,
-                    int n_top, int n_slab, float neg_inf, int* out_tok, float* out_lp,
-                    unsigned char* out_valid, void* stream) {
+                    int n_top, int n_slab, int vocab, int ties, float neg_inf, int* out_tok,
+                    float* out_lp, unsigned char* out_valid, void* stream) {
   if (rows <= 0) return (int)cudaGetLastError();
   const int n = n_buf + n_top + n_slab;
   const int n2 = pow2_at_least(n);
-  const size_t smem = (size_t)seal_beam_merge_smem(n);
-  const int rc = set_smem(merge_kernel, smem);
+  const size_t smem = (size_t)seal_beam_merge_smem(n, ties);
+  const auto kernel = ties ? merge_kernel<true> : merge_kernel<false>;
+  const int rc = set_smem(kernel, smem);
   if (rc) return rc;
   const int threads = n2 >= 1024 ? 512 : 256;
-  merge_kernel<<<(unsigned)rows, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)rows, threads, smem, (cudaStream_t)stream>>>(
       buf_tok, buf_lp, buf_valid, top_tok, top_lp, top_ok, top_stride, top_ok_stride, slab_tok,
-      slab_lp, slab_ok, n_buf, n_top, n_slab, n2, neg_inf, out_tok, out_lp, out_valid);
+      slab_lp, slab_ok, n_buf, n_top, n_slab, n2, vocab, neg_inf, out_tok, out_lp, out_valid);
   return (int)cudaGetLastError();
 }
 
@@ -388,7 +427,7 @@ int seal_beam_select(const int* buf_tok, const float* buf_lp, const unsigned cha
                      long long lp_stride, const int* prev_count, const unsigned char* finished,
                      const float* beam_scores, const unsigned char* need, const float* th_lp,
                      long long n_queries, int n_par, int n_buf, int w, int k_out, int eos,
-                     int pad, int stop_at_count, int always_allow_eos, float neg_inf,
+                     int pad, int stop_at_count, int always_allow_eos, int tie_bits, float neg_inf,
                      int* top_tok, int* top_parent, float* top_uncons, unsigned char* finite,
                      int* sel_tok, int* sel_parent, float* sel_uncons, unsigned char* sel_finite,
                      float* top_cons, unsigned char* unsound, void* stream) {
@@ -401,13 +440,14 @@ int seal_beam_select(const int* buf_tok, const float* buf_lp, const unsigned cha
   const int two_k = 2 * k_out;
   const int n = n_par * (n_buf + w + 2);
   const int n2 = pow2_at_least(n);
-  const size_t smem = (size_t)seal_beam_select_smem(n, two_k, k_out);
-  const int rc = set_smem(select_kernel, smem);
+  const size_t smem = (size_t)seal_beam_select_smem(n, two_k, k_out, tie_bits > 0);
+  const auto kernel = tie_bits > 0 ? select_kernel<true> : select_kernel<false>;
+  const int rc = set_smem(kernel, smem);
   if (rc) return rc;
   const int threads = n2 >= 2048 ? 1024 : 256;
-  select_kernel<<<(unsigned)n_queries, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)n_queries, threads, smem, (cudaStream_t)stream>>>(
       in, o, unsound, n_par, n_buf, w, two_k, k_out, n2, eos, pad, stop_at_count,
-      always_allow_eos, neg_inf);
+      always_allow_eos, tie_bits, neg_inf);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,7 @@
-// Kernel 1: FM-index rank search over the Psi layout, and kernel 5, the
-// same search chained over padded sequences (sequences_kernel below).
+// Kernel 1: FM-index rank search over the Psi layout; kernel 5, the same
+// search chained over padded sequences (sequences_kernel below); and kernel
+// 15, the dense count vector of every token over a range (PsiDense below,
+// with dense_counts.cuh).
 //
 // Replaces seal_tpu/ops/fm_ops.py: _symbol_bounds + _searchsorted_impl +
 // backward_step (mode "backward_step") and contains_tokens (mode
@@ -19,6 +21,8 @@
 // carried over: a GPU thread reads psi directly.
 
 #include <cuda_runtime.h>
+
+#include "dense_counts.cuh"
 
 namespace {
 
@@ -155,7 +159,36 @@ sequences_kernel(const int* __restrict__ psi, const int* __restrict__ sym_dir,
   }
 }
 
+// Kernel 15: replaces seal_tpu/ops/fm_ops.py:dense_counts (:339) through
+// seal_tpu/ops/_generic.py:dense_counts (:75) and validate_tokens (:66): the
+// plain version sweeps the vocab a chunk at a time through backward steps.
+// The histogram route reads the Psi index's int32 BWT; the rank route is
+// kernel 1's search at both bounds.
+struct PsiDense {
+  const int* psi;
+  const int* sym_dir;
+  const int* head_pair;
+  const int* bwt;
+  int n_rows, sigma, dir_shift;
+
+  __device__ bool valid(int c) const { return c >= 1 && c < sigma; }
+  __device__ int rank(int c, int pos) const {
+    const Bounds b = symbol_bounds(sym_dir, head_pair, n_rows, dir_shift, c, pos);
+    return search(psi, b.dlo, b.dhi, pos);
+  }
+  __device__ int symbol(int row) const { return __ldg(bwt + row); }
+};
+
 }  // namespace
+
+extern "C" int seal_fm_dense_counts(const int* psi, const int* sym_dir, const int* head_pair,
+                                    int n_rows, int sigma, int dir_shift, const int* bwt,
+                                    const int* lo, const int* hi, int* out, long long n, int vocab,
+                                    int hist_max, void* stream) {
+  const PsiDense ix{psi, sym_dir, head_pair, bwt, n_rows, sigma, dir_shift};
+  return seal_dense::launch_dense_counts(ix, lo, hi, out, n, vocab, hist_max,
+                                         (cudaStream_t)stream);
+}
 
 extern "C" int seal_fm_sequences(const int* psi, const int* sym_dir, const int* head_pair,
                                  int n_rows, int sigma, int dir_shift, const int* tokens,

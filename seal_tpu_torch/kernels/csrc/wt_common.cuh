@@ -1,5 +1,5 @@
-// The 16-ary wavelet tree's device functions, shared by kernels 12-14
-// (wt_search.cu, wt_window.cu, wt_bucket_counts.cu).
+// The 16-ary wavelet tree's device functions, shared by kernels 12-14 and
+// 16 (wt_search.cu, wt_window.cu, wt_bucket_counts.cu).
 //
 // Layout (seal_tpu_torch/index/wavelet.py): blocks [digits, n_blocks, 48]
 // uint32, per 256 rows of a level 16 cumulative digit counts (the rank
@@ -103,6 +103,16 @@ __device__ __forceinline__ int access(const Index& ix, int row) {
     c = (c << DIGIT_BITS) | d;
   }
   return c;
+}
+
+// the shifted BWT symbol at row (in [0, n_rows)): one read of the hybrid
+// layout's raw BWT at the JAX width (BWT_BYTES 2: uint16, 4: int32), or
+// the descent in the compact layout (BWT_BYTES 0)
+template <int BWT_BYTES>
+__device__ __forceinline__ int symbol_at(const Index& ix, const void* bwt, long long row) {
+  if (BWT_BYTES == 2) return (int)__ldg(static_cast<const unsigned short*>(bwt) + row);
+  if (BWT_BYTES == 4) return __ldg(static_cast<const int*>(bwt) + row);
+  return access(ix, (int)row);
 }
 
 }  // namespace seal_wt

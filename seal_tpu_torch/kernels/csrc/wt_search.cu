@@ -1,5 +1,6 @@
 // Kernel 12: FM-index rank search over the 16-ary wavelet layouts (compact
-// and hybrid), in three modes.
+// and hybrid), in three modes; and kernel 16, their dense count vector
+// (WtDense below, with dense_counts.cuh).
 //
 // Replaces seal_tpu/ops/wt_ops.py: rank (:96) with _load_block,
 // _match_nibbles, _rank_from_block and _rank_digit, behind backward_step
@@ -18,6 +19,7 @@
 // chains in flight.  The two bounds of a query run in neighbouring lanes
 // and meet with one warp shuffle, as in fm_search.cu.
 
+#include "dense_counts.cuh"
 #include "wt_common.cuh"
 
 namespace {
@@ -106,6 +108,23 @@ sequences_kernel(Index ix, const int* __restrict__ tokens, const int* __restrict
   }
 }
 
+// Kernel 16: replaces seal_tpu/ops/wt_ops.py:dense_counts (:237) through
+// seal_tpu/ops/_generic.py:dense_counts (:75) and wt_ops.validate_tokens
+// (:180).  The histogram route reads each row's symbol (one read of the
+// hybrid layout's raw BWT, or the compact layout's descent); the rank route
+// descends both bounds.  The validity gate is the true alphabet `sigma`,
+// not the wider `sigma_bound` the digits are sized for.
+template <int BWT_BYTES>
+struct WtDense {
+  Index ix;
+  const void* bwt;
+  int n_rows;
+
+  __device__ bool valid(int c) const { return c >= 1 && c < ix.sigma; }
+  __device__ int rank(int c, int pos) const { return seal_wt::rank(ix, c, pos); }
+  __device__ int symbol(int row) const { return seal_wt::symbol_at<BWT_BYTES>(ix, bwt, row); }
+};
+
 unsigned blocks_for(long long threads) {
   return (unsigned)((threads + THREADS - 1) / THREADS);
 }
@@ -149,4 +168,23 @@ extern "C" int seal_wt_sequences(const uint32_t* blocks, const int* node_start,
         ix, tokens, lengths, out_lo, out_hi, n, L);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int seal_wt_dense_counts(const uint32_t* blocks, const int* node_start,
+                                    const int* node_cnt, const int* C, long long n_blocks,
+                                    int n_rows, int digits, int sigma, const void* bwt,
+                                    int bwt_bytes, const int* lo, const int* hi, int* out,
+                                    long long n, int vocab, int hist_max, void* stream) {
+  const Index ix{blocks, node_start, node_cnt, C, n_blocks, n_rows, digits, sigma};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bwt == nullptr)
+    return seal_dense::launch_dense_counts(WtDense<0>{ix, bwt, n_rows}, lo, hi, out, n, vocab,
+                                           hist_max, s);
+  if (bwt_bytes == 2)
+    return seal_dense::launch_dense_counts(WtDense<2>{ix, bwt, n_rows}, lo, hi, out, n, vocab,
+                                           hist_max, s);
+  if (bwt_bytes == 4)
+    return seal_dense::launch_dense_counts(WtDense<4>{ix, bwt, n_rows}, lo, hi, out, n, vocab,
+                                           hist_max, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -48,14 +48,7 @@ wt_window_kernel(Index ix, const void* __restrict__ bwt, const float* __restrict
   bool ok = row < h;
   int sym = -1;
   if (ok) {
-    if (BWT_BYTES == 2) {
-      sym = (int)__ldg(static_cast<const unsigned short*>(bwt) + row);
-    } else if (BWT_BYTES == 4) {
-      sym = __ldg(static_cast<const int*>(bwt) + row);
-    } else {
-      sym = seal_wt::access(ix, (int)row);
-    }
-    sym -= SHIFT;
+    sym = seal_wt::symbol_at<BWT_BYTES>(ix, bwt, row) - SHIFT;
     ok = sym >= 0 && sym < vocab;
   }
   const int tk = ok ? sym : fill;

@@ -1,4 +1,4 @@
-"""Kernel 1 and kernel 5 wrappers: the FM-index rank search
+"""Kernel 1, kernel 5 and kernel 15 wrappers: the FM-index rank search
 (``csrc/fm_search.cu``).
 
 Kernel 1, ``fm_search``, replaces ``seal_tpu/ops/fm_ops.py``:
@@ -6,11 +6,17 @@ Kernel 1, ``fm_search``, replaces ``seal_tpu/ops/fm_ops.py``:
 (:166) and ``contains_tokens`` (:288).  Kernel 5, ``fm_sequences``, chains
 the backward step over padded token sequences in one launch and replaces
 ``seal_tpu/ops/_generic.py:range_for_sequences`` (:17), the scan behind
-``fm_ops.range_for_sequences`` and ``count_sequences``.  The plain
-PyTorch versions below are the specification: the CPU path and the
-reference the card's kernels are held to (integer results, so exactly
-equal).  The kernels are latency bound: a chain of dependent psi loads per
-query, one thread per (query, bound); see the source for the design.
+``fm_ops.range_for_sequences`` and ``count_sequences``.  Kernel 15,
+``fm_dense_counts``, counts every token of the vocab over each range in one
+launch and replaces ``seal_tpu/ops/fm_ops.py:dense_counts`` (:339), the
+chunked ``validate_tokens`` sweep of ``seal_tpu/ops/_generic.py:
+dense_counts`` (:75).  The plain PyTorch versions below are the
+specification: the CPU path and the reference the card's kernels are held
+to (integer results, so exactly equal).  Kernels 1 and 5 are latency
+bound: a chain of dependent psi loads per query, one thread per (query,
+bound); see the source for the design.  Kernel 15 is bound by its
+[ranges, vocab] output; a range of at most ``HIST_MAX_ROWS`` rows counts
+its BWT rows (``csrc/dense_counts.cuh``).
 """
 
 from __future__ import annotations
@@ -18,8 +24,12 @@ from __future__ import annotations
 import torch
 
 from seal_tpu_torch.index.fm_index import SHIFT
+from seal_tpu_torch.ops import _generic
 
 MODES = ("backward_step", "contains")
+# kernel 15 counts a range of at most this many rows by a histogram of its
+# BWT rows, a wider one by kernel 1's rank at both bounds of every token
+HIST_MAX_ROWS = 1 << 18
 
 
 def symbol_bounds(index, c, pos):
@@ -196,3 +206,44 @@ def _launch(index, mode, tokens, lo, hi):
     build.check(rc, "fm_search(contains)")
     fm_search.launches += 1
     return out
+
+
+def dense_counts_plain(index, lo, hi, chunk: int = 4096):
+    """The JAX sweep: ``chunk`` tokens at a time, each counted by one plain
+    backward step (``_generic.validate_tokens``)."""
+    return _generic.dense_counts(
+        lambda ix, toks, a, b: _generic.validate_tokens(backward_step_plain, ix, toks, a, b),
+        index, lo, hi, chunk,
+    )
+
+
+def fm_dense_counts(index, lo, hi, chunk: int = 4096, hist_max: int = HIST_MAX_ROWS):
+    """Continuation count of every token ``0..index.vocab-1`` over ranges
+    [lo, hi): int32 [..., vocab].
+
+    CPU tensors run the plain version, ``chunk`` tokens at a time; CUDA
+    tensors launch kernel 15 once for the whole vocab (``chunk`` has no
+    effect there), which histograms ranges of at most ``hist_max`` rows.
+    """
+    lo = torch.as_tensor(lo, dtype=torch.int32, device=index.device)
+    hi = torch.as_tensor(hi, dtype=torch.int32, device=index.device)
+    if lo.shape != hi.shape:
+        raise ValueError(f"fm_dense_counts: lo {tuple(lo.shape)} vs hi {tuple(hi.shape)}")
+    if not lo.is_cuda:
+        return dense_counts_plain(index, lo, hi, chunk)
+    from seal_tpu_torch.kernels import build
+
+    if index.bwt.dtype != torch.int32 or not index.bwt.is_contiguous():
+        raise ValueError("fm_dense_counts: index.bwt must be contiguous int32")
+    lo, hi = lo.contiguous(), hi.contiguous()
+    out = torch.empty((*lo.shape, index.vocab), dtype=torch.int32, device=lo.device)
+    rc = build.lib().seal_fm_dense_counts(
+        *_index_args(index), index.bwt.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
+        lo.numel(), index.vocab, hist_max, build.stream_ptr(lo),
+    )
+    build.check(rc, "fm_dense_counts")
+    fm_dense_counts.launches += 1
+    return out
+
+
+fm_dense_counts.launches = 0

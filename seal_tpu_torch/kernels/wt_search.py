@@ -1,4 +1,4 @@
-"""Kernel 12 wrappers: the 16-ary wavelet rank search
+"""Kernel 12 and kernel 16 wrappers: the 16-ary wavelet rank search
 (``csrc/wt_search.cu``).
 
 Replaces ``seal_tpu/ops/wt_ops.py``: ``rank`` (:96) with ``_load_block``
@@ -8,7 +8,13 @@ Replaces ``seal_tpu/ops/wt_ops.py``: ``rank`` (:96) with ``_load_block``
 ``"contains"``; and, through ``wt_sequences``, the scan of backward steps
 behind ``range_for_sequences`` (:167) and ``count_sequences`` -- mode
 ``"sequences"``.  The three modes share one launch counter,
-``wt_search.launches``.
+``wt_search.launches``.  Kernel 16, ``wt_dense_counts``, counts every
+token of the vocab over each range in one launch and replaces
+``seal_tpu/ops/wt_ops.py:dense_counts`` (:237), the chunked
+``validate_tokens`` sweep of ``seal_tpu/ops/_generic.py:dense_counts``
+(:75); a range of at most ``hist_max`` rows counts its rows' symbols (the
+hybrid layout's raw BWT, or the compact layout's descent), a wider one
+descends both bounds of every token (``csrc/dense_counts.cuh``).
 
 The plain PyTorch versions below are the specification: the CPU path and
 the reference the kernel is held to on the card (integer results, so
@@ -25,8 +31,16 @@ import torch
 
 from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.index.wavelet import CODE_WORDS, DIGIT_BITS, RADIX, heap_base
+from seal_tpu_torch.ops import _generic
 
 MODES = ("backward_step", "contains")
+# kernel 16's histogram route up to these many rows: one read a row of the
+# hybrid layout's raw BWT, a descent of ``digits`` levels a row without it.
+# The wavelet rank route costs 2 x ``digits`` dependent levels for every
+# token of the vocab, so the hybrid layout histograms all but the widest
+# ranges (a sweep at the generation point on an H100: ``chip_smoke.py``'s
+# "dense counts by histogram threshold" line)
+HIST_MAX_ROWS = {"hybrid": 1 << 20, "compact": 1 << 14}
 _WORD = 0xFFFFFFFF
 _ONES = 0x11111111  # bit 0 of each nibble
 
@@ -254,3 +268,51 @@ def wt_search(index, mode: str, tokens, lo, hi):
 
 
 wt_search.launches = 0
+
+
+def dense_counts_plain(index, lo, hi, chunk: int = 4096):
+    """The JAX sweep: ``chunk`` tokens at a time, each counted by one plain
+    backward step (``_generic.validate_tokens``)."""
+    return _generic.dense_counts(
+        lambda ix, toks, a, b: _generic.validate_tokens(backward_step_plain, ix, toks, a, b),
+        index, lo, hi, chunk,
+    )
+
+
+def wt_dense_counts(index, lo, hi, chunk: int = 4096, hist_max=None):
+    """Continuation count of every token ``0..index.vocab-1`` over ranges
+    [lo, hi): int32 [..., vocab].
+
+    CPU tensors run the plain version, ``chunk`` tokens at a time; CUDA
+    tensors launch kernel 16 once for the whole vocab (``chunk`` has no
+    effect there), which histograms ranges of at most ``hist_max`` rows
+    (default: the layout's ``HIST_MAX_ROWS``).
+    """
+    lo = torch.as_tensor(lo, dtype=torch.int32, device=index.device)
+    hi = torch.as_tensor(hi, dtype=torch.int32, device=index.device)
+    if lo.shape != hi.shape:
+        raise ValueError(f"wt_dense_counts: lo {tuple(lo.shape)} vs hi {tuple(hi.shape)}")
+    if not lo.is_cuda:
+        return dense_counts_plain(index, lo, hi, chunk)
+    from seal_tpu_torch.kernels import build
+
+    check_index(index, "wt_dense_counts")
+    bwt, bwt_bytes = None, 0
+    if index.bwt is not None:
+        if index.bwt.dtype not in (torch.int16, torch.int32) or not index.bwt.is_contiguous():
+            raise ValueError("wt_dense_counts: index.bwt must be contiguous int16 or int32")
+        bwt, bwt_bytes = index.bwt.data_ptr(), index.bwt.element_size()
+    if hist_max is None:
+        hist_max = HIST_MAX_ROWS["hybrid" if bwt is not None else "compact"]
+    lo, hi = lo.contiguous(), hi.contiguous()
+    out = torch.empty((*lo.shape, index.vocab), dtype=torch.int32, device=lo.device)
+    rc = build.lib().seal_wt_dense_counts(
+        *index_args(index), bwt, bwt_bytes, lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
+        lo.numel(), index.vocab, hist_max, build.stream_ptr(lo),
+    )
+    build.check(rc, "wt_dense_counts")
+    wt_dense_counts.launches += 1
+    return out
+
+
+wt_dense_counts.launches = 0

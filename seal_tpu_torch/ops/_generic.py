@@ -31,3 +31,18 @@ def validate_tokens(backward_step, index, tokens, lo, hi):
     )
     return new_hi - new_lo
 
+
+def dense_counts(validate_fn, index, lo, hi, chunk: int):
+    """Exact continuation-count vector over the whole model vocab: int32
+    [..., vocab], the count of every possible next token of each range.
+    Sweeps ``chunk`` tokens at a time through ``validate_fn`` (the last
+    chunk runs past the vocab and is cut), which bounds the memory of a
+    plain sweep."""
+    lo = torch.as_tensor(lo, dtype=torch.int32, device=index.device)
+    hi = torch.as_tensor(hi, dtype=torch.int32, device=index.device)
+    vocab = index.vocab
+    out = []
+    for start in range(0, vocab, chunk):
+        toks = torch.arange(start, start + chunk, dtype=torch.int32, device=index.device)
+        out.append(validate_fn(index, toks.expand(*lo.shape, chunk), lo, hi))
+    return torch.cat(out, -1)[..., :vocab]

@@ -3,10 +3,11 @@
 
 All ops take *unshifted* token ids and shift internally (SHIFT == 1).
 ``backward_step``/``extend_ranges`` and ``contains_tokens`` go through the
-rank-search kernel and ``range_for_sequences``/``count_sequences`` through
-its sequence mode (``kernels/fm_search.py``), ``window_gather`` through the
-window kernel and ``bucket_counts`` through the bucket kernel; the other
-ops are plain torch on every device.
+rank-search kernel, ``range_for_sequences``/``count_sequences`` through
+its sequence mode and ``dense_counts`` through its dense kernel
+(``kernels/fm_search.py``), ``window_gather`` through the window kernel
+and ``bucket_counts`` through the bucket kernel; the other ops are plain
+torch on every device.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.kernels.bucket_counts import bucket_counts  # noqa: F401
 from seal_tpu_torch.kernels.fm_search import (
+    fm_dense_counts,
     fm_search,
     fm_sequences,
     searchsorted_psi,
@@ -95,3 +97,9 @@ def validate_tokens(index, tokens, lo, hi):
     """Counts of each candidate continuation token of ranges [lo, hi)."""
     return _generic.validate_tokens(backward_step, index, tokens, lo, hi)
 
+
+
+def dense_counts(index, lo, hi, chunk: int = 4096):
+    """Exact continuation-count vector over the whole model vocab: int32
+    [..., vocab] (kernel 15 on the card, the chunked sweep on the CPU)."""
+    return fm_dense_counts(index, lo, hi, chunk)

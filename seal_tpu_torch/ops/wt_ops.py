@@ -6,9 +6,10 @@ decoder runs unchanged on either index.  All ops take *unshifted* token ids
 and shift internally (SHIFT == 1).  ``backward_step``/``extend_ranges``,
 ``contains_tokens`` and ``range_for_sequences``/``count_sequences`` go
 through the rank-search kernel (kernel 12, ``kernels/wt_search.py``),
-``window_gather`` through the window kernel (13) and ``bucket_counts``
-through the bisection kernel (14); ``rank``, ``access``, ``bwt_at`` and
-``window_continuations`` are plain torch on every device.
+``dense_counts`` through its dense kernel (16), ``window_gather`` through
+the window kernel (13) and ``bucket_counts`` through the bisection kernel
+(14); ``rank``, ``access``, ``bwt_at`` and ``window_continuations`` are
+plain torch on every device.
 """
 
 from __future__ import annotations
@@ -20,7 +21,13 @@ from seal_tpu_torch.kernels.wt_bucket_counts import (  # noqa: F401
     bucket_size_of,
 )
 from seal_tpu_torch.kernels.wt_bucket_counts import wt_bucket_counts as bucket_counts  # noqa: F401
-from seal_tpu_torch.kernels.wt_search import access_plain, rank_plain, wt_search, wt_sequences
+from seal_tpu_torch.kernels.wt_search import (
+    access_plain,
+    rank_plain,
+    wt_dense_counts,
+    wt_search,
+    wt_sequences,
+)
 from seal_tpu_torch.kernels.wt_window import bwt_at  # noqa: F401
 from seal_tpu_torch.kernels.wt_window import wt_window_gather as window_gather  # noqa: F401
 from seal_tpu_torch.ops import _generic
@@ -78,3 +85,9 @@ def window_continuations(index, lo, hi, window: int):
 def validate_tokens(index, tokens, lo, hi):
     """Counts of each candidate continuation token of ranges [lo, hi)."""
     return _generic.validate_tokens(backward_step, index, tokens, lo, hi)
+
+
+def dense_counts(index, lo, hi, chunk: int = 4096):
+    """Exact continuation-count vector over the whole model vocab: int32
+    [..., vocab] (kernel 16 on the card, the chunked sweep on the CPU)."""
+    return wt_dense_counts(index, lo, hi, chunk)

@@ -126,6 +126,41 @@ def test_native_library_is_the_ports_own():
     assert tsa._load_native() is t
 
 
+_LOAD_IN_FRESH_PROCESS = """
+import sys
+from seal_tpu_torch.cpp import native
+from seal_tpu_torch.index import suffix_array
+native._BUILD_DIR = sys.argv[1]
+lib = suffix_array._load_native()
+assert lib is not None, "suffix_array fell back to numpy"
+assert lib is native.load()
+assert lib._lib._name.startswith(sys.argv[1]), lib._lib._name
+print("loaded", lib._lib._name)
+"""
+
+
+def test_native_library_builds_atomically_under_concurrent_loads(tmp_path):
+    """Four fresh processes build the library into one empty directory at
+    once: each loads a whole library (none sees a half-written file and
+    falls back to numpy), and no temporary file is left behind."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [
+        subprocess.Popen([sys.executable, "-c", _LOAD_IN_FRESH_PROCESS, str(tmp_path)], env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for _ in range(4)
+    ]
+    for p in procs:
+        out, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-2000:]
+        assert out.startswith("loaded ")
+    assert sorted(os.listdir(tmp_path)) == ["libseal_torch_native.so"]
+
+
 def _record_native_calls(monkeypatch):
     """Every Native method call the JAX ranker makes, with a deep copy of
     its arguments taken before the call (some mutate their inputs)."""

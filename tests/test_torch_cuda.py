@@ -21,6 +21,7 @@ from seal_tpu_torch.kernels import (
     beam_select,
     bucket_counts,
     decode_attention,
+    dense_scores,
     fm_search,
     reorder_cache,
     rescore,
@@ -511,3 +512,152 @@ def test_wavelet_searcher_on_card_matches_cpu(cuda, layout):
     for a, b in zip(cpu, gpu):
         assert [d.docid for d in b] == [d.docid for d in a]
         np.testing.assert_allclose([d.score for d in b], [d.score for d in a], rtol=1e-4)
+
+
+# kernel 15 and 16 routes: every non-empty range by rank, the default
+# threshold, every range by its rows' histogram
+ROUTES = {"rank": 0, "default": None, "histogram": 2**31 - 1}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("layout", ["psi", "compact", "hybrid"])
+@pytest.mark.parametrize("name", sorted(WT_CASES))
+def test_dense_counts_match_plain(cuda, name, layout, route):
+    """Kernels 15 (Psi) and 16 (compact, hybrid) at 1, 2, 4 and 5 digits on
+    both routes: full, empty and end-of-index ranges; exactly equal to the
+    plain sweep, one launch each."""
+    host = _wt_host(name)
+    vocab = WT_CASES[name][0]
+    rng = np.random.default_rng(vocab)
+    lo, hi = _ranges(host, rng, n=48 if vocab < 1000 else 12)
+    if layout == "psi":
+        t = TorchFMIndex.from_host(host, vocab=vocab, device=cuda)
+        fn, plain = fm_search.fm_dense_counts, fm_search.dense_counts_plain
+    else:
+        t = WaveletIndex.from_host(host, vocab=vocab, keep_bwt=layout == "hybrid", device=cuda)
+        fn, plain = wt_search.wt_dense_counts, wt_search.dense_counts_plain
+    hist_max = ROUTES[route]
+    n0 = fn.launches
+    got = fn(t, lo, hi) if hist_max is None else fn(t, lo, hi, hist_max=hist_max)
+    assert fn.launches == n0 + 1
+    want = plain(t, lo, hi, 4096)
+    assert torch.equal(got, want)
+    assert bool((got.sum(-1) <= (hi - lo).clamp(min=0)).all())
+
+
+@pytest.mark.parametrize("case", ["plain", "branches"])
+def test_dense_scores_match_plain(cuda, case):
+    """Kernel 17 at the generation point's shape [32, 15, 50265], bit for
+    bit, with dead beams, signed zeros and the branch options."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    B, K, V = 32, 15, 50265
+    lp = _lp(g, B * K, V, cuda)
+    counts = torch.randint(0, 3, (B, K, V), generator=g, device=cuda, dtype=torch.int32)
+    prev_count = torch.randint(0, 6, (B, K), generator=g, device=cuda, dtype=torch.int32)
+    finished = torch.rand(B, K, generator=g, device=cuda) < 0.2
+    bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
+    bs[0, 1] = tc.NEG_INF
+    kw = dict(eos=2, pad=1, stop_at_count=2 if case == "branches" else 0,
+              always_allow_eos=case == "branches")
+    n0 = dense_scores.dense_scores.launches
+    got = dense_scores.dense_scores(counts, lp, prev_count, finished, bs, **kw)
+    assert dense_scores.dense_scores.launches == n0 + 1
+    _same((got,), (dense_scores.dense_scores_plain(counts, lp, prev_count, finished, bs, **kw),))
+
+
+@pytest.mark.parametrize("B,K,n_top,with_buf", [(32, 15, 64, False), (32, 15, 256, True)])
+def test_beam_merge_ties_match_plain(cuda, B, K, n_top, with_buf):
+    """Kernel 8's ties mode, merge: equal log-probs kept by dedup id."""
+    g = torch.Generator(device=cuda).manual_seed(n_top + 1)
+    V, n_buf = 3000, 2 * K
+    lp = _lp(g, B * K, V, cuda)
+    top_lp, top_idx = row_topk.row_topk_plain(lp, n_top)
+    top_tok = top_idx.to(torch.int32).reshape(B, K, n_top)
+    ok = torch.rand(B, K, n_top, generator=g, device=cuda) < 0.5
+    slab_tok = torch.randint(0, 300, (B, K, n_top), generator=g, device=cuda, dtype=torch.int32)
+    slab_lp = torch.gather(lp, 1, slab_tok.reshape(B * K, -1).long()).reshape(B, K, n_top)
+    slab_ok = torch.rand(B, K, n_top, generator=g, device=cuda) < 0.8
+    buf = None
+    if with_buf:
+        btok = torch.randint(0, 300, (B, K, n_buf), generator=g, device=cuda, dtype=torch.int32)
+        buf = (btok, torch.gather(lp, 1, btok.reshape(B * K, -1).long()).reshape(B, K, n_buf),
+               torch.rand(B, K, n_buf, generator=g, device=cuda) < 0.7)
+    args = (buf, top_tok, top_lp.reshape(B, K, n_top), ok, slab_tok, slab_lp, slab_ok, V, n_buf)
+    n0 = beam_select.TIES.launches
+    got = beam_select.beam_merge(*args, ties=True)
+    assert beam_select.TIES.launches == n0 + 1
+    _same(got, beam_select.beam_merge_plain(*args, ties=True))
+
+
+@pytest.mark.parametrize("B,K,w,case", [(32, 15, 32, "need"), (8, 15, 32, "branches"),
+                                         (8, 32, 128, "no_buffer")])
+def test_beam_select_ties_match_plain(cuda, B, K, w, case):
+    """Kernel 8's ties mode, select: equal scores ordered by (parent beam,
+    token); exactly equal to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(B * K + w + 1)
+    V, n_buf = 3000, 2 * K
+    lp = _lp(g, B * K, V, cuda)
+
+    def take(tok):
+        return torch.gather(lp, 1, tok.reshape(B * K, -1).long()).reshape(tok.shape)
+
+    btok = torch.randint(0, 400, (B, K, n_buf), generator=g, device=cuda, dtype=torch.int32)
+    buf = None if case == "no_buffer" else (
+        btok, take(btok), torch.rand(B, K, n_buf, generator=g, device=cuda) < 0.7)
+    win_valid = torch.rand(B, K, w, generator=g, device=cuda) < 0.7
+    win_tok = torch.where(win_valid, torch.randint(0, 400, (B, K, w), generator=g, device=cuda,
+                                                   dtype=torch.int32), 1)
+    eos_ok = torch.rand(B, K, 1, generator=g, device=cuda) < 0.5
+    prev_count = torch.randint(0, 6, (B, K), generator=g, device=cuda, dtype=torch.int32)
+    finished = torch.rand(B, K, generator=g, device=cuda) < 0.2
+    bs = torch.zeros(B, K, device=cuda)  # equal beam scores: ties across beams
+    bs[0, 1] = tc.NEG_INF
+    need = torch.rand(B, K, generator=g, device=cuda) < 0.5
+    th_lp = torch.round(torch.randn(B, K, generator=g, device=cuda)) - 4
+    kw = dict(K=K, eos=2, pad=1, stop_at_count=2 if case == "branches" else 0,
+              always_allow_eos=case == "branches", ties=True)
+    args = (buf, n_buf, win_tok, win_valid, take(win_tok), eos_ok, lp, prev_count, finished, bs,
+            need, th_lp)
+    n0 = beam_select.TIES.launches
+    (got, bad), (want, wbad) = beam_select.beam_select(*args, **kw), \
+        beam_select.beam_select_plain(*args, **kw)
+    assert beam_select.TIES.launches == n0 + 1
+    _same(got + (bad,), want + (wbad,))
+
+
+@pytest.mark.parametrize("layout", ["psi", "compact", "hybrid"])
+def test_dense_and_tie_modes_on_card_match_cpu(cuda, layout):
+    """``exact_mask`` and ``exact_ties`` generation on the card: the CPU
+    plain path's hypotheses (token lists equal, scores within 1e-4), the
+    dense run bit for bit equal to the fast runs; kernels 15 or 16, 17 and
+    8's ties mode launched."""
+    cfg = bart_tiny(vocab_size=96)
+    params = bart.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    docs = [rng.integers(4, 90, size=rng.integers(5, 30)).tolist() + [2] for _ in range(30)]
+    host = FMIndex()
+    host.initialize(docs)
+    queries = [[0] + rng.integers(4, 90, size=5).tolist() + [2] for _ in range(3)]
+    kw = dict(num_beams=4, max_length=6, min_length=1, window=4, exact_chunk=4)
+
+    def index(device):
+        if layout == "psi":
+            return TorchFMIndex.from_host(host, vocab=96, device=device)
+        return WaveletIndex.from_host(host, vocab=96, keep_bwt=layout == "hybrid", device=device)
+
+    gpu_params = _to(params, cuda)
+    counts = fm_search.fm_dense_counts if layout == "psi" else wt_search.wt_dense_counts
+    n15, n17 = counts.launches, dense_scores.dense_scores.launches
+    canon = []
+    for modes in (dict(exact_mask=True), dict(exact_ties=True), {}):
+        cpu = tg.fm_index_generate(cfg, params, index("cpu"), queries, **kw, **modes)
+        n8 = beam_select.TIES.launches
+        gpu = tg.fm_index_generate(cfg, gpu_params, index(cuda), queries, **kw, **modes)
+        assert (beam_select.TIES.launches > n8) == ("exact_ties" in modes)
+        for a, b in zip(cpu, gpu):
+            ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
+            assert [t for t, _ in ka] == [t for t, _ in kb]
+            np.testing.assert_allclose([s for _, s in kb], [s for _, s in ka], atol=1e-4, rtol=0)
+        canon.append([sorted((tuple(t), s) for s, t in h) for h in gpu])
+    assert counts.launches > n15 and dense_scores.dense_scores.launches > n17
+    assert canon[0] == canon[1] == canon[2]

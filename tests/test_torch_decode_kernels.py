@@ -6,7 +6,8 @@
   flag, and step 0's epilogue after the row top-k -- integers equal,
   floats bit for bit, on rows with signed zeros, exact ties, duplicate
   tokens, dead beams, finished and stop-triggered beams, ``always_allow_eos``
-  and fewer than K non-EOS candidates;
+  and fewer than K non-EOS candidates; the merge and the selection in the
+  ``exact_ties`` order too (kernel 8's ties mode);
 * kernels 9-11: the grouped cross-attention over padded encoder positions
   and ``decode_step`` through the beam search's ping-pong cache within
   1e-4 of JAX (f32 sums in another order), ``reorder_cache`` exactly.
@@ -97,7 +98,8 @@ def _finish(buf, lp, B, K, n_buf):
     return np.where(valid, tok, PAD), np.where(valid, blp, pad_lp), valid
 
 
-def _proposals(seed, window, chunk, stop_at_count, round0_only, V=96, B=2, K=4, averse=False):
+def _proposals(seed, window, chunk, stop_at_count, round0_only, V=96, B=2, K=4, averse=False,
+               ties=False):
     host, jops, tops = _index(seed, V)
     rng = np.random.default_rng(seed)
     lo, hi = _ranges(host, rng, B, K)
@@ -108,9 +110,9 @@ def _proposals(seed, window, chunk, stop_at_count, round0_only, V=96, B=2, K=4, 
     finished = np.zeros((B, K), bool)
     finished[1, 1] = True
     jcfg = jc.DecodeConfig(num_beams=K, window=window, exact_chunk=chunk,
-                           stop_at_count=stop_at_count)
+                           stop_at_count=stop_at_count, exact_ties=ties)
     tcfg = tc.DecodeConfig(num_beams=K, window=window, exact_chunk=chunk,
-                           stop_at_count=stop_at_count)
+                           stop_at_count=stop_at_count, exact_ties=ties)
     eos_tok = np.full((B, K, 1), EOS, np.int32)
     want = jc._exact_proposals(jops, jcfg, jnp.asarray(lp), jnp.asarray(lo), jnp.asarray(hi),
                                jnp.asarray(prev_count), jnp.asarray(finished),
@@ -143,9 +145,21 @@ def test_merge_loop_rounds_match_jax(seed, monkeypatch):
     wider LM chunks and slabs."""
     calls = []
     real = tc.beam_merge
-    monkeypatch.setattr(tc, "beam_merge", lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setattr(tc, "beam_merge", lambda *a, **k: calls.append(1) or real(*a, **k))
     want, got, lp, (B, K, n_buf) = _proposals(seed, 2, 1, 0, False, averse=True)
     assert len(calls) >= 2  # round 0 and at least one loop round
+    for g, w, name in zip(_finish(got[0], lp, B, K, n_buf), want[:3], ("tok", "lp", "valid")):
+        _assert_equal(g, w, name)
+    _assert_equal(got[1], want[3], "eos_ok")
+
+
+@pytest.mark.parametrize("seed,round0_only", [(0, True), (4, False), (1, False)])
+def test_merge_ties_matches_jax(seed, round0_only):
+    """Kernel 8's ties mode, merge (``exact_ties``): round 0 and the proven
+    loop's rounds keep equal log-probs in dedup-id order, as
+    ``_top_by_score_then_id`` does; ties abound (log-probs rounded to 1/4,
+    an LM-averse row flooding the buffer with 0.0)."""
+    want, got, lp, (B, K, n_buf) = _proposals(seed, 2, 1, 0, round0_only, averse=True, ties=True)
     for g, w, name in zip(_finish(got[0], lp, B, K, n_buf), want[:3], ("tok", "lp", "valid")):
         _assert_equal(g, w, name)
     _assert_equal(got[1], want[3], "eos_ok")
@@ -204,12 +218,12 @@ def _select_inputs(seed, case, B=3, K=4, n_buf=8, w=4, V=40):
                 always_allow_eos=always_allow_eos)
 
 
-def _jax_select(x):
+def _jax_select(x, ties=False):
     """``_fast_exact_select``'s build_and_select (+ the buffer finish and
     the EOS/PAD slots) and the soundness test, as the JAX package runs them."""
     B, K = x["prev_count"].shape
     jcfg = jc.DecodeConfig(num_beams=x["K"], stop_at_count=x["stop_at_count"],
-                           always_allow_eos=x["always_allow_eos"])
+                           always_allow_eos=x["always_allow_eos"], exact_ties=ties)
     lp = jnp.asarray(x["lp"])
     pad_lp = lp[:, PAD].reshape(B, K, 1)
     eos_lp = lp[:, EOS].reshape(B, K, 1)
@@ -238,20 +252,24 @@ def _jax_select(x):
     return out, unsound.any(-1)
 
 
+def _port_select(x, ties=False):
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a))  # noqa: E731
+    return k8.beam_select(
+        tuple(t(a) for a in x["buf"]) if x["buf"] is not None else None, x["n_buf"],
+        t(x["win_tok"]), t(x["win_valid"]), t(x["win_lp"]), t(x["eos_ok"]), t(x["lp"]),
+        t(x["prev_count"]), t(x["finished"]), t(x["bs"]), t(x["need"]), t(x["th_lp"]),
+        K=x["K"], eos=EOS, pad=PAD, stop_at_count=x["stop_at_count"],
+        always_allow_eos=x["always_allow_eos"], ties=ties,
+    )
+
+
 @pytest.mark.parametrize("case", ["plain", "stop", "always_eos", "eos_heavy", "dead_query",
                                   "tie_cutoff", "no_buffer"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_select_matches_jax(seed, case):
     x = _select_inputs(seed, case)
     want, want_unsound = _jax_select(x)
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a))  # noqa: E731
-    got, unsound = k8.beam_select(
-        tuple(t(a) for a in x["buf"]) if x["buf"] is not None else None, x["n_buf"],
-        t(x["win_tok"]), t(x["win_valid"]), t(x["win_lp"]), t(x["eos_ok"]), t(x["lp"]),
-        t(x["prev_count"]), t(x["finished"]), t(x["bs"]), t(x["need"]), t(x["th_lp"]),
-        K=x["K"], eos=EOS, pad=PAD, stop_at_count=x["stop_at_count"],
-        always_allow_eos=x["always_allow_eos"],
-    )
+    got, unsound = _port_select(x)
     names = ("top_tok", "top_parent", "top_uncons", "finite", "sel_tok", "sel_parent",
              "sel_uncons", "sel_finite", "top_cons")
     for g, w, name in zip(got, want, names):
@@ -394,3 +412,18 @@ def test_self_attention_live_slots_equal_biased_slots(step):
     k, v = torch.randn(2, 5, 7, 2, 8, generator=g)
     live = k910.decode_attention_plain(q, k, v, None, m=step + 1)
     torch.testing.assert_close(live, k910.self_attention_step(q, k, v, step), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["plain", "stop", "eos_heavy", "no_buffer"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_select_ties_matches_jax(seed, case):
+    """Kernel 8's ties mode, select (``exact_ties``): equal scores across
+    beams (query 2's beams share one score) order by (parent beam, token),
+    as ``_select`` with ``_top_by_score_then_id`` does; bit for bit."""
+    x = _select_inputs(seed, case)
+    want, want_unsound = _jax_select(x, ties=True)
+    got, unsound = _port_select(x, ties=True)
+    for g, w, name in zip(got, want, ("top_tok", "top_parent", "top_uncons", "finite", "sel_tok",
+                                      "sel_parent", "sel_uncons", "sel_finite", "top_cons")):
+        _assert_equal(g.numpy(), w, name)
+    _assert_equal(unsound.numpy(), want_unsound, "unsound")

@@ -6,7 +6,8 @@ identical per-step candidates, parents and selections.  Also the host redo
 of an unsound step, fast == force_full within the port, the forced-prefix
 decode with a custom EOS, the keyword parity with the JAX entry point, the
 numpy copies of the JAX helpers, the modes not ported yet, and the import
-guard."""
+guard.  The dense parity mode and the tie order are held in
+``test_torch_dense.py``."""
 
 import os
 import subprocess
@@ -331,9 +332,9 @@ def test_generate_keywords_match_jax():
 @pytest.mark.parametrize(
     "option",
     [dict(forced_bos_token_id=0), dict(sample=True),
-     dict(diverse_bs_groups=2), dict(speculative=True), dict(exact_mask=True),
-     dict(exact_ties=True), dict(topk=5), dict(adjust_logits_fn=lambda x, t: x),
-     dict(disable_fm_index=True), dict(mesh=object())],
+     dict(diverse_bs_groups=2), dict(speculative=True), dict(topk=5),
+     dict(adjust_logits_fn=lambda x, t: x), dict(disable_fm_index=True),
+     dict(exact_mask=True, disable_fm_index=True), dict(mesh=object())],
 )
 def test_unported_modes_raise(models, option):
     jcfg, tcfg, _, tparams = models

@@ -188,18 +188,11 @@ def test_defaults_match_jax():
     assert TSearcher.DEFAULTS == JSearcher.DEFAULTS
 
 
-@pytest.mark.parametrize("knob", [dict(exact_mask=True), dict(exact_ties=True),
-                                  dict(index_shards=2), dict(jobs=2), dict(free_generation=True),
+@pytest.mark.parametrize("knob", [dict(index_shards=2), dict(jobs=2), dict(free_generation=True),
                                   dict(decode_code=True), dict(backbone="t5-small")])
 def test_unported_knobs_raise(searchers, knob):
     _, ts = searchers
     name, value = next(iter(knob.items()))
-    if name in ("exact_mask", "exact_ties"):  # decode modes: DecodeConfig refuses them
-        s = TSearcher(ts.fm_index, ts.tokenizer, ts.model_cfg, ts.params,
-                      device_index=ts.device_index, **dict(KNOBS, **knob))
-        with pytest.raises(NotImplementedError, match=name):
-            s.batch_search(QUERIES[:1], k=1)
-        return
     with pytest.raises(NotImplementedError):
         TSearcher(ts.fm_index, ts.tokenizer, ts.model_cfg, ts.params,
                   device_index=ts.device_index, **dict(KNOBS, **knob))
@@ -211,3 +204,21 @@ def test_unported_knobs_raise(searchers, knob):
                 ts.batch_search(QUERIES[:1], k=1)
         finally:
             setattr(ts, name, old)
+
+
+@pytest.mark.parametrize("modes", [dict(exact_mask=True), dict(exact_ties=True),
+                                   dict(exact_mask=True, exact_ties=True)])
+def test_dense_and_tie_modes_match_jax(searchers, modes):
+    """``SEALSearcher(exact_mask=True)`` (every body and title decode step
+    through the dense count vector) and ``exact_ties=True`` equal the JAX
+    searcher with the same knobs, and the port's default searcher."""
+    js, ts = searchers
+    jm = JSearcher(js.fm_index, js.tokenizer, js.model_cfg, js.params, **dict(KNOBS, **modes))
+    tm = TSearcher(ts.fm_index, ts.tokenizer, ts.model_cfg, ts.params,
+                   device_index=ts.device_index, **dict(KNOBS, **modes))
+    assert all(getattr(tm, k) for k in modes)
+    tres = tm.batch_search(QUERIES, k=5)
+    _assert_same_results(jm.batch_search(QUERIES, k=5), tres)
+    base = ts.batch_search(QUERIES, k=5)
+    assert [[(d.docid, d.score) for d in r] for r in tres] == [
+        [(d.docid, d.score) for d in r] for r in base]
