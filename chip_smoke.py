@@ -57,6 +57,23 @@
    card == CPU); one searcher unit with ``exact_mask`` (documents equal to
    the fast searcher's); kernels 15-17 and the ties mode against their
    plain versions at the path's shapes, on both routes of 15 and 16.
+9. Drives the decode modes at the generation point: free generation
+   (``disable_fm_index``: kernel 19's top-256, kernel 3, kernel 8's
+   token-table epilogue; no index kernel; hypotheses identical at
+   ``top_m`` 256 and 2K), ``speculative`` over the three layouts (kernel
+   19, one membership query and the window a step, kernel 8's
+   ``keep_invalid`` mode; every key grounded, hypotheses bit-identical
+   across layouts; how many queries equal the fast path's is logged),
+   ``forced_bos_token_id=0`` (column 1 pinned, keys grounded, ``force_full``
+   identical) and the top-k warper (``topk=50``: kernel 19's k-th value and
+   kernel 4's threshold every step); a tiny model's modes on the card
+   against its CPU path (``topk=1`` free generation collapses to one
+   path); one ``free_generation`` searcher unit at the e2e point and the
+   tiny searcher's; ``locate_rows`` / ``doc_index_of`` (kernel 18) on every
+   occurrence row of one unit's keys (at most ``max_hits`` each) of a
+   ``keep_sa`` index, against their plain versions and the host index.
+   Kernels 18-19 and the new modes of 4 and 8 against their plain versions,
+   kernel 19 also at k = 64 beside kernel 3.
 
 Each path's launch counts come from that path's own run (every count set
 to 0 just before it, read just after); on every decoding path kernels 9
@@ -98,6 +115,13 @@ REPLACES = {
     "wt_dense_counts": "seal_tpu/ops/wt_ops.py:237",
     "dense_scores": "seal_tpu/decoding/constrained.py:321",
     "beam_select_ties": "seal_tpu/decoding/constrained.py:934",
+    "locate_rows": "seal_tpu/ops/fm_ops.py:322",
+    "doc_index_of": "seal_tpu/ops/fm_ops.py:330",
+    "row_select": "seal_tpu/decoding/constrained.py:332",
+    "row_kth": "seal_tpu/decoding/constrained.py:289",
+    "beam_select_free": "seal_tpu/decoding/constrained.py:329",
+    "beam_select_spec": "seal_tpu/decoding/constrained.py:343",
+    "log_softmax_topk": "seal_tpu/decoding/constrained.py:294",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -119,6 +143,13 @@ SOURCES = {
     "wt_dense_counts": ("cuda", "seal_tpu_torch/kernels/csrc/wt_search.cu"),
     "dense_scores": ("cuda", "seal_tpu_torch/kernels/csrc/dense_scores.cu"),
     "beam_select_ties": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
+    "locate_rows": ("cuda", "seal_tpu_torch/kernels/csrc/locate.cu"),
+    "doc_index_of": ("cuda", "seal_tpu_torch/kernels/csrc/locate.cu"),
+    "row_select": ("cuda", "seal_tpu_torch/kernels/csrc/row_select.cu"),
+    "row_kth": ("cuda", "seal_tpu_torch/kernels/csrc/row_select.cu"),
+    "beam_select_free": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
+    "beam_select_spec": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
+    "log_softmax_topk": ("triton", "seal_tpu_torch/kernels/triton_logsoftmax.py"),
 }
 # the kernels each driven path must launch (bucket_counts and the loop
 # rounds' merges run only in the proven loop, which the force_full re-runs
@@ -158,6 +189,25 @@ for _layout in WAVELET_LAYOUTS:
 PATH_KERNELS["generate_ties"] = PATH_KERNELS["generate"] + ("beam_select_ties",)
 PATH_KERNELS["batch_search_dense"] = ("fm_dense_counts", "fm_search", "fm_sequences",
                                       "rescore_logprob") + DENSE_STEP
+# the decode modes: free generation runs no index kernel (kernel 19's
+# top-256, kernel 3 and kernel 8's token-table epilogue); speculative takes
+# kernel 19, one membership query and the window a step, and kernel 8's
+# keep_invalid mode; forced BOS is the main path plus one decode step with
+# no selection; the warper adds kernel 19's k-th value and kernel 4's
+# threshold; locate is kernel 18 in both modes
+ATTN_STEP = ("cross_attention_step", "self_attention_step", "reorder_cache")
+FREE_STEP = ("row_select", "row_topk", "log_softmax_min_len", "beam_select",
+             "beam_select_free") + ATTN_STEP
+PATH_KERNELS["generate_free"] = FREE_STEP
+PATH_KERNELS["batch_search_free"] = FREE_STEP + ("rescore_logprob",)
+SPEC_STEP = ("row_select", "row_topk", "log_softmax_min_len", "beam_select",
+             "beam_select_spec") + ATTN_STEP
+PATH_KERNELS["generate_spec"] = ("fm_search", "window_gather") + SPEC_STEP
+for _layout in WAVELET_LAYOUTS:
+    PATH_KERNELS[f"generate_spec_{_layout}"] = ("wt_search", "wt_window_gather") + SPEC_STEP
+PATH_KERNELS["generate_bos"] = PATH_KERNELS["generate"]
+PATH_KERNELS["generate_topk"] = PATH_KERNELS["generate"] + ("row_kth", "log_softmax_topk")
+PATH_KERNELS["locate"] = ("locate_rows", "doc_index_of")
 # the searchers' documents on the wavelet layouts against the Psi
 # searcher's: the same computation but for the index arithmetic
 LAYOUT_SEARCH_RTOL = 1e-6
@@ -229,7 +279,8 @@ def log_kernel(row) -> None:
                                                "histogram_route_ms", "hybrid_rank_route_ms",
                                                "topk_dense_ms", "topk_dense_plain_ms",
                                                "default_ms", "merge_ms", "merge_plain_ms",
-                                               "merge_default_ms")
+                                               "merge_default_ms", "k64_ms", "row_topk_k64_ms",
+                                               "library_k64_ms")
                   if k in row))
 
 
@@ -1090,6 +1141,248 @@ def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
     return table
 
 
+def mode_kernel_phases(np, torch, cfg, V, B, K, window):
+    """Kernel 19 (top-256 and k-th value at 50 on [B*K, V] log-probs; top-64
+    beside kernel 3), kernel 8's free and speculative modes and kernel 4's
+    threshold against their plain versions at the decode modes' shapes,
+    each timed beside its default mode and its library yardstick."""
+    from seal_tpu_torch.kernels import beam_select as k8
+    from seal_tpu_torch.kernels import row_select as k19
+    from seal_tpu_torch.kernels import row_topk as k3
+    from seal_tpu_torch.kernels import triton_logsoftmax as k4
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    i32, rows, m = torch.int32, B * K, 256
+    eos, pad = cfg.eos_token_id, cfg.pad_token_id
+    table = []
+    lp = torch.log_softmax(torch.randn(rows, V, generator=g, device=dev) * 2, -1)
+    lp[:, pad] = float("-inf")  # a SEAL-bias column
+    lpq = torch.round(lp * 8) / 8  # ties
+    lpq[0, ::2] = 0.0
+    lpq[0, 1::2] = -0.0
+
+    # kernel 19: every k of the modes, and 1024, on plain and tied rows
+    err19 = 0
+    for x, k in ((lp, m), (lpq, m), (lpq, 64), (lpq[:B], m), (lpq, 1024), (lpq, 1)):
+        gv, gi = k19.row_select(x, k)
+        wv, wi = k19.row_select_plain(x, k)
+        err19 += int((gi != wi).sum()) + mismatches(torch, (gv,), (wv,))
+    for x, k in ((lp, 50), (lpq, 50), (lpq, 1), (lpq, 1024)):
+        err19 += mismatches(torch, (k19.row_kth(x, k),), (k19.row_kth_plain(x, k),))
+    if err19:
+        fail(f"row_select differs from its plain version ({err19} elements)")
+    table.append(dict(
+        name="row_select", max_abs_err=err19,
+        ms=time_ms(lambda: k19.row_select(lp, m)),
+        plain_ms=time_ms(lambda: k19.row_select_plain(lp, m), iters=5),
+        library_ms=time_ms(lambda: torch.topk(lp, m)),
+        k64_ms=time_ms(lambda: k19.row_select(lp, 64)),
+        row_topk_k64_ms=time_ms(lambda: k3.row_topk(lp, 64)),
+        library_k64_ms=time_ms(lambda: torch.topk(lp, 64)),
+        shape=f"[{rows},{V}] k={m} (k64_ms: k=64 beside kernel 3, row_topk_k64_ms)",
+        bytes=lp.numel() * 4 + rows * m * 12,
+    ))
+    table.append(dict(
+        name="row_kth", max_abs_err=err19,
+        ms=time_ms(lambda: k19.row_kth(lp, 50)),
+        plain_ms=time_ms(lambda: k19.row_kth_plain(lp, 50), iters=5),
+        library_ms=time_ms(lambda: torch.topk(lp, 50)),
+        shape=f"[{rows},{V}] k=50, one f32 a row", bytes=lp.numel() * 4 + rows * 4,
+    ))
+
+    # kernel 8, free generation: kernel 3's top-2K of [B, K*256] scores,
+    # then the epilogue through kernel 19's token table
+    top_lp, tok = k19.row_select(lpq, m)
+    tok = tok.to(i32)
+    bs = torch.round(torch.randn(B, K, generator=g, device=dev) * 2) / 2 - 3
+    bs[0, 1] = k8.NEG_INF
+    top_cons, top_idx = k3.row_topk((top_lp.reshape(B, K, m) + bs[..., None]).reshape(B, -1),
+                                    2 * K)
+    targs = (top_cons, top_idx, lpq, bs, K, K, eos)
+    err8f = mismatches(torch, k8.beam_select_top(*targs, tokens=tok),
+                       k8.beam_select_top_plain(*targs, tokens=tok))
+    if err8f:
+        fail(f"beam_select_free differs from its plain version ({err8f} elements)")
+    table.append(dict(
+        name="beam_select_free", max_abs_err=err8f, library_ms=None,
+        ms=time_ms(lambda: k8.beam_select_top(*targs, tokens=tok)),
+        plain_ms=time_ms(lambda: k8.beam_select_top_plain(*targs, tokens=tok)),
+        default_ms=time_ms(lambda: k8.beam_select_top(*targs)),
+        shape=f"top-{2 * K} of [{B},{K * m}] through a [{rows},{m}] token table (default_ms: "
+              "the step-0 epilogue on the same picks)",
+        # the picks, their table and log-prob reads, the nine outputs
+        bytes=B * 2 * K * (12 + 4 + 4) + B * (2 * K * 17 + K * 13),
+    ))
+
+    # kernel 8, speculative: a 256-slot proposal buffer whose failed slots
+    # stay candidates, the window, EOS and PAD, beam 15
+    def rbool(p, shape):
+        return torch.rand(shape, generator=g, device=dev) < p
+
+    buf = (tok.reshape(B, K, m), top_lp.reshape(B, K, m), rbool(0.4, (B, K, m)))
+    win_valid = rbool(0.7, (B, K, window))
+    win_tok = torch.where(win_valid, torch.randint(0, 400, (B, K, window), generator=g,
+                                                   device=dev, dtype=i32), pad)
+    win_lp = torch.gather(lpq, 1, win_tok.reshape(rows, -1).long()).reshape(B, K, window)
+    eos_ok = rbool(0.5, (B, K, m + 1))[..., m:]
+    prev_count = torch.randint(0, 6, (B, K), generator=g, device=dev, dtype=i32)
+    finished = rbool(0.1, (B, K))
+    sargs = (buf, m, win_tok, win_valid, win_lp, eos_ok, lpq, prev_count, finished, bs)
+    skw = dict(K=K, eos=eos, pad=pad, stop_at_count=0, always_allow_eos=False)
+    err8s = 0
+    for ties in (False, True):
+        (got, _), (want, _) = (k8.beam_select(*sargs, ties=ties, keep_invalid=True, **skw),
+                               k8.beam_select_plain(*sargs, None, None, ties=ties,
+                                                    keep_invalid=True, **skw))
+        err8s += mismatches(torch, got, want)
+    if err8s:
+        fail(f"beam_select_spec differs from its plain version ({err8s} elements)")
+    ncand = m + window + 2
+    table.append(dict(
+        name="beam_select_spec", max_abs_err=err8s, library_ms=None,
+        ms=time_ms(lambda: k8.beam_select(*sargs, keep_invalid=True, **skw)),
+        plain_ms=time_ms(lambda: k8.beam_select_plain(*sargs, None, None, keep_invalid=True,
+                                                      **skw)),
+        default_ms=time_ms(lambda: k8.beam_select(*sargs, **skw)),
+        shape=f"[{B},{K},{ncand}] ({K * ncand} candidates a query; default_ms: the fast "
+              "path's mode on the same inputs)",
+        bytes=rows * (m * 9 + window * 9 + 1 + 4 + 1 + 4) + rows * 8
+        + B * (2 * K * 13 + K * 13 + 4 * K),
+    ))
+
+    # kernel 4 with the warper's threshold (kernel 19's 50th value)
+    logits = torch.randn(rows, V, generator=g, device=dev) * 3
+    logits[:, pad] = float("-inf")
+    kth = k19.row_kth(logits, 50)
+    got = k4.log_softmax_ban(logits, eos, k8.NEG_INF, kth)
+    want = k4.log_softmax_ban_plain(logits, eos, k8.NEG_INF, kth)
+    live = want > k8.NEG_INF / 2
+    err4 = float((got[live] - want[live]).abs().max())
+    if err4 > LOGSOFTMAX_ATOL or not torch.equal(got > k8.NEG_INF / 2, live):
+        fail(f"log_softmax_topk differs from its plain version (max err {err4})")
+    table.append(dict(
+        name="log_softmax_topk", max_abs_err=err4, atol=LOGSOFTMAX_ATOL, library_ms=None,
+        ms=time_ms(lambda: k4.log_softmax_ban(logits, eos, k8.NEG_INF, kth)),
+        plain_ms=time_ms(lambda: k4.log_softmax_ban_plain(logits, eos, k8.NEG_INF, kth)),
+        default_ms=time_ms(lambda: k4.log_softmax_ban(logits, eos, k8.NEG_INF)),
+        shape=f"[{rows},{V}] with a per-row threshold (default_ms: without one)",
+        bytes=2 * logits.numel() * 4 + rows * 4, flops=5 * logits.numel(),
+    ))
+    torch.cuda.synchronize()
+    return table
+
+
+def locate_phase(np, torch, searcher, unit, zero_counts, read_counts):
+    """Kernel 18 on the ranker's workload: every occurrence row of one
+    unit's keys (at most ``max_hits`` a key), located in a ``keep_sa`` copy
+    of the searcher's index, then the documents of those positions; both
+    against their plain versions, and a sample against the host index."""
+    from seal_tpu_torch.index.device_index import TorchFMIndex
+    from seal_tpu_torch.kernels import locate as k18
+    from seal_tpu_torch.ops import fm_ops
+
+    host = searcher.fm_index
+    six = TorchFMIndex.from_host(host, vocab=searcher.model_cfg.vocab_size, device="cuda",
+                                 keep_sa=True)
+    n_tok = six.n_rows - 1
+    log(f"index bytes: psi with keep_sa {six.memory_bytes()} ({six.memory_bytes() / n_tok:.2f} "
+        f"B/token); default {searcher.device_index.memory_bytes()} "
+        f"({searcher.device_index.memory_bytes() / n_tok:.2f} B/token)")
+    keys = [list(n) for item in searcher.process_batch(unit)
+            for n, _ in (item[0] if isinstance(item, tuple) else item)]
+    spans = [(lo, min(hi, lo + searcher.max_hits)) for lo, hi in searcher._device_ranges(keys)]
+    rows = torch.as_tensor(np.concatenate([np.arange(a, b) for a, b in spans if b > a])
+                           .astype(np.int32), device="cuda")
+    zero_counts()
+    pos = fm_ops.locate_rows(six, rows)
+    docs = fm_ops.doc_index_of(six, pos)
+    torch.cuda.synchronize()
+    launches = read_counts("locate")
+    err = int((pos != k18.locate_rows_plain(six.sa, rows)).sum())
+    err += int((docs != k18.doc_index_of_plain(six.beginnings, pos)).sum())
+    pick = np.random.default_rng(7).choice(rows.numel(), size=min(300, rows.numel()),
+                                           replace=False)
+    rows_h, pos_h, docs_h = rows.cpu().numpy(), pos.cpu().numpy(), docs.cpu().numpy()
+    err += sum(int(host.locate(int(rows_h[i])) != pos_h[i])
+               + int(host.get_doc_index(int(pos_h[i])) != docs_h[i]) for i in pick)
+    if err:
+        fail(f"locate_rows / doc_index_of differ from their plain versions or the host ({err})")
+    n = rows.numel()
+    log(f"locate: {len(keys)} keys of one {len(unit)}-query unit, {n} occurrence rows (at most "
+        f"{searcher.max_hits} a key) -> {len(np.unique(docs_h))} documents; launches {launches}; "
+        f"{len(pick)} sampled rows equal the host's locate / get_doc_index")
+    beg = six.beginnings
+    shape = f"{n} rows of {len(keys)} keys"
+    return [
+        dict(name="locate_rows", max_abs_err=err, library_ms=None, shape=shape,
+             ms=time_ms(lambda: k18.locate_rows(six.sa, rows)),
+             plain_ms=time_ms(lambda: k18.locate_rows_plain(six.sa, rows)),
+             bytes=n * 12),  # a row in, its sa word, a position out
+        dict(name="doc_index_of", max_abs_err=err, shape=f"{n} positions over {beg.numel()} "
+             "beginnings", ms=time_ms(lambda: k18.doc_index_of(beg, pos)),
+             plain_ms=time_ms(lambda: k18.doc_index_of_plain(beg, pos)),
+             library_ms=time_ms(lambda: torch.searchsorted(beg, pos, right=True)),
+             bytes=n * 8 + beg.numel() * 4),
+    ]
+
+
+def _ban_even_tokens(logits, cur_len):
+    """A torch ``adjust_logits_fn``: even token ids from 4 up get -inf."""
+    import torch
+
+    del cur_len
+    v = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where((v % 2 == 0) & (v >= 4), float("-inf"), logits)
+
+
+def small_mode_parity(np, torch):
+    """The decode modes on a tiny model and corpus, on the card against the
+    port's CPU path: free generation, speculative, forced BOS, the top-k
+    warper and a ban-even-tokens hook; under ``topk=1`` free generation
+    collapses every query to one path."""
+    from seal_tpu_torch.decoding.generate import fm_index_generate, pad_batch
+    from seal_tpu_torch.index.device_index import TorchFMIndex
+    from seal_tpu_torch.index.fm_index import FMIndex
+    from seal_tpu_torch.models import bart
+    from seal_tpu_torch.models.config import bart_tiny
+
+    cfg = bart_tiny(vocab_size=96)
+    params_cpu = bart.init_params(cfg, seed=0, device="cpu")
+    params_gpu = _tree_to(params_cpu, "cuda")
+    rng = np.random.default_rng(4)
+    host = FMIndex()
+    host.initialize([rng.integers(4, 90, size=rng.integers(5, 30)).tolist() + [2]
+                     for _ in range(30)])
+    ids, mask = pad_batch([[0] + rng.integers(4, 90, size=5).tolist() + [2] for _ in range(3)],
+                          cfg.pad_token_id)
+    idx = {dev: TorchFMIndex.from_host(host, vocab=96, device=dev) for dev in ("cpu", "cuda")}
+    base = dict(num_beams=4, max_length=6, min_length=2, window=4)
+    modes = {"free": dict(disable_fm_index=True), "speculative": dict(speculative=True, top_m=8),
+             "forced_bos": dict(forced_bos_token_id=0), "topk": dict(topk=5),
+             "hook": dict(adjust_logits_fn=_ban_even_tokens),
+             # min_length 0: under the top-1 warper a banned EOS leaves nothing
+             "free_topk1": dict(disable_fm_index=True, topk=1, min_length=0)}
+    n = 0
+    for name, extra in modes.items():
+        out = {dev: fm_index_generate(cfg, p, idx[dev], ids, mask, **{**base, **extra})
+               for dev, p in (("cpu", params_cpu), ("cuda", params_gpu))}
+        for a, b in zip(out["cpu"], out["cuda"]):
+            ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
+            if [t for t, _ in ka] != [t for t, _ in kb]:
+                fail(f"small mode parity ({name}): keys differ between card and CPU")
+            elif ka and max(abs(x[1] - y[1]) for x, y in zip(ka, kb)) > 1e-4:
+                fail(f"small mode parity ({name}): scores differ by > 1e-4")
+            n += len(kb)
+        if name == "free_topk1":
+            # one live beam: every hypothesis is a prefix of the longest
+            for h in out["cuda"]:
+                paths = sorted((t for _, t in h), key=len)
+                if not paths or any(p != paths[-1][:len(p)] for p in paths):
+                    fail("small mode parity: topk=1 free generation did not collapse to one path")
+    return n
+
+
 def searcher_grounding(searcher, queries):
     """One unit's raw body and title hypotheses, decoded as
     ``process_batch`` decodes them: every body key occurs in the corpus; a
@@ -1135,17 +1428,21 @@ def searcher_grounding(searcher, queries):
     return n_body, n_title
 
 
-def small_search_parity(np):
+def small_search_parity(np, free_generation=False):
     """The tiny searcher on the card, over each index layout, vs on the CPU
     over the Psi layout: same doc ids in the same order, scores within
-    SEARCH_RTOL."""
+    SEARCH_RTOL.  ``free_generation`` runs both so."""
     from seal_tpu_torch import bench_search
 
-    cpu = bench_search.tiny_searcher("cpu").batch_search(bench_search.TINY_QUERIES, k=5)
+    def tiny(dev, layout="psi"):
+        s = bench_search.tiny_searcher(dev, layout=layout)
+        s.free_generation = free_generation
+        return s
+
+    cpu = tiny("cpu").batch_search(bench_search.TINY_QUERIES, k=5)
     n = 0
     for layout in ("psi",) + WAVELET_LAYOUTS:
-        gpu = bench_search.tiny_searcher("cuda", layout=layout).batch_search(
-            bench_search.TINY_QUERIES, k=5)
+        gpu = tiny("cuda", layout).batch_search(bench_search.TINY_QUERIES, k=5)
         for a, b in zip(cpu, gpu):
             if [d.docid for d in a] != [d.docid for d in b]:
                 fail(f"small searcher parity: doc ids differ between card ({layout}) and CPU")
@@ -1200,8 +1497,10 @@ def main() -> int:
         decode_attention,
         dense_scores,
         fm_search,
+        locate,
         reorder_cache,
         rescore,
+        row_select,
         row_topk,
         triton_logsoftmax,
         window_gather,
@@ -1233,6 +1532,13 @@ def main() -> int:
         "wt_dense_counts": wt_search.wt_dense_counts,
         "dense_scores": dense_scores.dense_scores,
         "beam_select_ties": beam_select.TIES,
+        "locate_rows": locate.locate_rows,
+        "doc_index_of": locate.doc_index_of,
+        "row_select": row_select.row_select,
+        "row_kth": row_select.row_kth,
+        "beam_select_free": beam_select.FREE,
+        "beam_select_spec": beam_select.SPEC,
+        "log_softmax_topk": triton_logsoftmax.THRESHOLD,
     }
     by_path: dict = {}  # path -> {kernel: launches in that path's run}
     # decode steps each path runs (the beam search calls bart.decode_step
@@ -1251,7 +1557,9 @@ def main() -> int:
             fn.launches = 0
         steps["n"] = 0
 
-    def read_counts(path):
+    def read_counts(path, no_select=0):
+        """The launches of ``path``'s run; ``no_select``: its decode steps
+        that select nothing (forced-BOS steps)."""
         by_path[path] = {name: fn.launches for name, fn in counters.items()}
         for name in PATH_KERNELS[path]:
             if by_path[path][name] <= 0:
@@ -1267,7 +1575,7 @@ def main() -> int:
             # selection is left on the card, step 0 included
             n, layers = steps["n"], cfg.decoder_layers
             want = {"cross_attention_step": layers * n, "self_attention_step": layers * n,
-                    "reorder_cache": n, "beam_select": n}
+                    "reorder_cache": n - no_select, "beam_select": n - no_select}
             for name, count in want.items():
                 if by_path[path][name] != count:
                     fail(f"{path}: {name} launched {by_path[path][name]} times for {n} decode "
@@ -1556,6 +1864,131 @@ def main() -> int:
         log_kernel(row)
     table += dense_table
     log(f"dense and tie phases: {time.perf_counter() - t_dense:.1f} s")
+
+    # ---- the decode modes at the generation point --------------------------
+    # modes, not the operating point: one warm-up and three timed batches each
+    # (speculative on the wavelet layouts: one batch), counted from the
+    # timed batches; q/s beside the fast path's from the top of this call
+    def run_mode(path, ix=index, batches=3, warm=True, no_select=0, **extra):
+        def once():
+            out = generate.fm_index_generate(cfg, params, ix, ids, mask, **{**kw, **extra})
+            torch.cuda.synchronize()
+            return out
+
+        t_phase = time.perf_counter()
+        if warm:
+            once()
+        zero_counts()
+        ts = []
+        for _ in range(batches):
+            t0 = time.perf_counter()
+            out = once()
+            ts.append(time.perf_counter() - t0)
+        counts = read_counts(path, no_select=no_select * batches)
+        qps = B / statistics.median(ts)
+        log(f"{path}: {[round(t, 4) for t in ts]} s/batch, {qps:.1f} queries/s (fast path "
+            f"{B / per_batch:.1f}); phase wall {time.perf_counter() - t_phase:.1f} s")
+        log(f"launches in the {path} run: {counts}")
+        return out, counts, batches, qps
+
+    def expect(path, counts, want):
+        for name, n in want.items():
+            if counts[name] != n:
+                fail(f"{path}: {name} launched {counts[name]} times (want {n})")
+
+    def canon_of(hyps):
+        return [sorted((tuple(t), s) for s, t in q) for q in hyps]
+
+    mode_qps = {}
+    # free generation: kernel 19's top-256 each step >= 1, no index kernel
+    f_hyps, c, nb, mode_qps["free"] = run_mode("generate_free", disable_fm_index=True)
+    n = c["decode_steps"]
+    expect("generate_free", c, {"row_select": n - nb, "beam_select_free": n - nb, "fm_search": 0,
+                                "window_gather": 0, "beam_merge": 0, "bucket_counts": 0,
+                                "fm_sequences": 0})
+    f_canon = canon_of(f_hyps)
+    narrow = canon_of(generate.fm_index_generate(cfg, params, index, ids, mask, **kw,
+                                                 disable_fm_index=True, top_m=2 * K))
+    if narrow != f_canon:
+        fail("generate_free: hypotheses differ between top_m 256 and 2K")
+    if not all(np.isfinite(sc) for q in f_hyps for sc, _ in q) or not any(f_hyps):
+        fail("generate_free: no or non-finite hypotheses")
+    n_off = sum(1 for q in f_hyps for _, t in q
+                if [x for x in t[1:] if x not in special]
+                and host.get_count([x for x in t[1:] if x not in special]) <= 0)
+    log(f"generate_free: {sum(map(len, f_hyps))} hypotheses, identical at top_m 256 and "
+        f"{2 * K}: {narrow == f_canon}; {n_off} keys leave the corpus (free generation)")
+
+    # speculative over the three layouts: kernel 19, one membership query and
+    # the window a step >= 1; every key grounded, bit-identical across layouts
+    s_hyps, c, nb, mode_qps["speculative"] = run_mode("generate_spec", speculative=True)
+    n = c["decode_steps"]
+    expect("generate_spec", c, {"row_select": n - nb, "beam_select_spec": n - nb,
+                                "window_gather": n - nb, "fm_search": 2 * n - nb,
+                                "beam_merge": 0})
+    s_canon = canon_of(s_hyps)
+    n_s = hyp_keys(s_hyps, "generate_spec")
+    spec_same = True
+    for layout, wix in layouts.items():
+        path = f"generate_spec_{layout}"
+        l_hyps, c, nb, _ = run_mode(path, ix=wix, batches=1, warm=False, speculative=True)
+        n = c["decode_steps"]
+        expect(path, c, {"row_select": n - nb, "wt_window_gather": n - nb,
+                         "wt_search": 2 * n - nb, "beam_merge": 0})
+        if canon_of(l_hyps) != s_canon:
+            spec_same = False
+            fail(f"{path}: hypotheses differ from the psi layout's (tokens or score bits)")
+    same_fast = sum(a == b for a, b in zip(s_canon, canon))
+    log(f"speculative: {n_s} keys grounded; bit-identical across psi, compact and hybrid: "
+        f"{spec_same}; {same_fast} of {B} queries' hypotheses equal the fast path's")
+    mode_qps["speculative_same_as_fast"] = same_fast
+
+    # forced BOS on the fast path: one more decode step, no selection in it.
+    # BOS 0 carries the SEAL bias's NEG_INF logit, so its forced step leaves
+    # every beam at NEG_INF and extraction drops every hypothesis (the JAX
+    # decoder's semantics: the step adds lp[bos]); the timed run forces the
+    # corpus's most frequent token instead, whose logit the bias leaves
+    b0 = generate.fm_index_generate(cfg, params, index, ids, mask,
+                                    **{**kw, "forced_bos_token_id": 0})
+    if any(t[1] != 0 for q in b0 for _, t in q):
+        fail("forced BOS 0: a hypothesis without BOS in column 1")
+    bos = int(index.corpus_counts.argmax())
+    b_hyps, c, nb, mode_qps["forced_bos"] = run_mode("generate_bos", no_select=1,
+                                                      forced_bos_token_id=bos)
+    n_b = 0
+    for q in b_hyps:
+        for sc, t in q:
+            key = [x for x in t[2:] if x not in special]  # the BOS column is forced
+            if t[:2] != [cfg.decoder_start_token_id, bos] or not np.isfinite(sc):
+                fail(f"generate_bos: column 1 not pinned or a non-finite score: {t}")
+            if key:
+                n_b += 1
+                if host.get_count(key) <= 0:
+                    fail(f"generate_bos: key not in the corpus: {key}")
+    b_full = generate.fm_index_generate(cfg, params, index, ids, mask,
+                                        **{**kw, "forced_bos_token_id": bos}, force_full=True)
+    if canon_of(b_full) != canon_of(b_hyps) or n_b == 0:
+        fail("generate_bos: no keys, or force_full hypotheses differ from the fast path's")
+    log(f"forced BOS: with BOS 0, {sum(map(len, b0))} hypotheses (its logit is NEG_INF); with "
+        f"BOS {bos}, {n_b} keys grounded after the pinned column, force_full identical "
+        f"{canon_of(b_full) == canon_of(b_hyps)}; {c['decode_steps']} decode steps")
+
+    # the top-k warper: kernel 19's k-th value and kernel 4's threshold at
+    # every step, step 0 included
+    t_hyps, c, nb, mode_qps["topk"] = run_mode("generate_topk", topk=50)
+    n = c["decode_steps"]
+    expect("generate_topk", c, {"row_kth": n, "log_softmax_topk": n})
+    log(f"topk=50: {hyp_keys(t_hyps, 'generate_topk')} keys grounded")
+    mode_table = mode_kernel_phases(np, torch, cfg, V, B, K,
+                                    generate.resolve_window(0, K, speculative=True))
+    for row in mode_table:
+        log_kernel(row)
+    table += mode_table
+    t0 = time.perf_counter()
+    n_small_modes = small_mode_parity(np, torch)
+    log(f"small-input mode parity (card vs CPU plain path: free, speculative, forced BOS, topk, "
+        f"hook, topk=1 free): {n_small_modes} keys compared; phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
     del layouts
 
     # ---- second path: SEALSearcher.batch_search at the e2e bench point ----
@@ -1648,6 +2081,34 @@ def main() -> int:
     log(f"batch_search_dense: one unit of {len(unit)} queries in {d_search_s:.3f} s (set-up "
         f"included); {n_dense_docs} documents compared with the fast searcher's")
     del dsearch
+    # ---- the searcher with free_generation: one unit, Psi index -----------
+    fsearch = SEALSearcher(searcher.fm_index, searcher.tokenizer, searcher.model_cfg,
+                           searcher.params, backbone=searcher.backbone,
+                           batch_size=searcher.batch_size, device_index=searcher.device_index,
+                           free_generation=True)
+    fsearch.phase_timer.enabled = True
+    zero_counts()
+    t0 = time.perf_counter()
+    f_res = fsearch.batch_search(unit, k=bench_search.TOP_K)
+    torch.cuda.synchronize()
+    f_search_s = time.perf_counter() - t0
+    f_launches = read_counts("batch_search_free")
+    for name in ("fm_search", "window_gather", "beam_merge", "bucket_counts"):
+        if f_launches[name]:
+            fail(f"batch_search_free: the index kernel {name} was launched in the decodes")
+    f_nonempty = sum(1 for r in f_res if r)
+    if not f_nonempty or any(not all(np.isfinite([d.score for d in r])) for r in f_res):
+        fail(f"batch_search_free: {f_nonempty} non-empty results, or non-finite scores")
+    log(f"batch_search_free: one unit of {len(unit)} queries in {f_search_s:.3f} s = "
+        f"{len(unit) / f_search_s:.2f} queries/s (no warm-up); phases "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(fsearch.phase_timer.totals.items()))
+        + f"; {f_nonempty}/{len(unit)} results non-empty; launches {f_launches}")
+    mode_qps["batch_search_free"] = len(unit) / f_search_s
+    del fsearch
+    loc_table = locate_phase(np, torch, searcher, unit, zero_counts, read_counts)
+    for row in loc_table:
+        log_kernel(row)
+    table += loc_table
     # ---- the searcher over the compact and hybrid layouts -----------------
     psi_docs = [[(d.docid, d.score) for d in r] for r in results]
     searchers = {"psi": searcher}
@@ -1702,6 +2163,8 @@ def main() -> int:
     del searchers
     n_small_search = small_search_parity(np)
     log(f"small searcher parity (card vs CPU): {n_small_search} documents compared")
+    n_small_free = small_search_parity(np, free_generation=True)
+    log(f"small free_generation searcher parity (card vs CPU): {n_small_free} documents compared")
     total = {name: sum(p[name] for p in by_path.values()) for name in counters}
     for name, n in total.items():
         if n <= 0:
@@ -1723,7 +2186,8 @@ def main() -> int:
         + "; dense (exact_mask) generation queries/s: " + ", ".join(
             f"{k} {v['qps']:.1f}" for k, v in dense_runs.items())
         + f", psi busy {100 * dense_runs['psi']['busy']:.1f}% under the profiler, kernel 3 "
-        f"{100 * dense_runs['psi']['topk_share']:.1f}% of it")
+        f"{100 * dense_runs['psi']['topk_share']:.1f}% of it; decode modes queries/s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in mode_qps.items()))
     log(f"launches by path: {json.dumps(by_path)}")
     kernels = []
     for row in table:
@@ -1735,7 +2199,8 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             **{k: row[k] for k in ("tol_ratio", "psi_ms", "hybrid_ms", "rank_route_ms",
-                                   "default_ms", "merge_ms", "topk_dense_ms") if k in row},
+                                   "default_ms", "merge_ms", "topk_dense_ms", "k64_ms",
+                                   "row_topk_k64_ms", "library_k64_ms") if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}
     if missing:

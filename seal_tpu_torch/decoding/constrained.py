@@ -35,13 +35,24 @@ What changed in translation:
 * Not ported, because they work around the TPU: ``check_dense_budget`` /
   ``DENSE_GUARD_BACKENDS`` (a TPU worker fault) and the one-hot-matmul
   block gather of ``_exact_topk`` (the TPU's slow scalar gathers).  Every
-  top-k is one exact row top-k, ``kernels.row_topk``.
+  top-k is one exact row top-k: ``kernels.row_topk`` (kernel 3), or
+  ``kernels.row_select`` (kernel 19) for the decode modes' top-``top_m``
+  and the warper's k-th value.
 * ``force_decoding_from`` starts every beam's range at the forced
   sequence's (kernel 5).  Step 0 still picks its token under the dense
   corpus mask and then extends the forced range, as the JAX decoder does.
+* ``disable_fm_index`` (free generation) takes each beam's exact
+  top-``top_m`` (kernel 19), ranks the flat [B, K*top_m] scores (kernel 3)
+  and selects through a token table (kernel 8's ``beam_select_top``); no
+  index op runs.  ``speculative`` takes one exact top-``top_m`` round
+  (kernel 19: its recall is 1, above ``approx_max_k``'s 0.95 target) with
+  one membership query, and kernel 8 keeps the slots that fail it as masked
+  candidates.  The top-k warper is kernel 19's k-th value and a threshold
+  input of kernel 4.  ``adjust_logits_fn`` is a Python hook on the raw f32
+  logits [rows, V], given ``cur_len`` as a Python ``int`` (a traced int32
+  in JAX).  ``forced_bos_token_id`` adds one decode step that pins column 1.
 * Not ported yet (``DecodeConfig`` raises ``NotImplementedError``): the
-  sample, diverse, speculative and ``disable_fm_index`` modes,
-  ``forced_bos``, the top-k warper and ``adjust_logits_fn``.
+  sample and diverse-group modes.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import torch
 from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.kernels.beam_select import NEG_INF, beam_merge, beam_select, beam_select_top
 from seal_tpu_torch.kernels.dense_scores import dense_scores
+from seal_tpu_torch.kernels.row_select import row_kth, row_select
 from seal_tpu_torch.kernels.row_topk import row_topk
 from seal_tpu_torch.kernels.triton_logsoftmax import log_softmax_ban
 from seal_tpu_torch.index.wavelet import WaveletIndex
@@ -137,24 +149,24 @@ class DecodeConfig:
     exact_mask: bool = False  # dense O(vocab) mask (parity mode)
     dense_chunk: int = 2048  # tokens a plain dense_counts sweep takes at once
     exact_ties: bool = False  # resolve equal-score ties (beam, token)-asc
+    forced_bos_token_id: Optional[int] = None  # one extra step pins column 1
+    disable_fm_index: bool = False  # free generation: no constraint at all
+    speculative: bool = False  # one exact top-top_m proposal round, no proof
+    topk: int = 0  # TopKLogitsWarper on the raw logits (0 = off)
+    adjust_logits_fn: Optional[Callable] = None  # (logits f32 [rows, V], cur_len: int)
+    #   -> logits: a torch function on the raw logits, before the warper
     # --- modes of the JAX package not ported yet: must stay at defaults ---
-    forced_bos_token_id: Optional[int] = None
-    disable_fm_index: bool = False
-    speculative: bool = False
     sample: bool = False
-    topk: int = 0
-    adjust_logits_fn: Optional[Callable] = None
     num_groups: int = 1
     diversity_penalty: float = 0.0
 
     def __post_init__(self):
+        if self.num_groups > 1 and self.num_beams % self.num_groups:
+            raise ValueError("num_beams must be divisible by num_groups")
+        if self.sample and self.num_groups > 1:
+            raise ValueError("sample and diverse groups are mutually exclusive")
         unported = {
-            "forced_bos_token_id": self.forced_bos_token_id is not None,
-            "disable_fm_index": self.disable_fm_index,
-            "speculative": self.speculative,
             "sample": self.sample,
-            "topk": self.topk > 0,
-            "adjust_logits_fn": self.adjust_logits_fn is not None,
             "diverse groups": self.num_groups > 1 or self.diversity_penalty != 0.0,
         }
         asked = [name for name, on in unported.items() if on]
@@ -166,7 +178,10 @@ class DecodeConfig:
 
     @property
     def num_steps(self) -> int:
-        return max(self.max_length - 1, 0)
+        n = self.max_length - 1
+        if self.forced_bos_token_id is not None:
+            n -= 1
+        return max(n, 0)
 
 
 @dataclasses.dataclass
@@ -185,11 +200,14 @@ class BeamSearchOutput:
     fallback_steps: Any = None  # int []   steps whose fast proof failed
 
 
-def resolve_window(window: int, num_beams: int) -> int:
-    """0/None = auto: 32 rows for beams <= 16, else 128 (the JAX package's
-    rule for the exact path)."""
+def resolve_window(window: int, num_beams: int, speculative: bool = False) -> int:
+    """0/None = auto: the JAX package's rule -- 128 rows in speculative mode
+    (there the window is a fidelity budget), else 32 for beams <= 16 and
+    128 above."""
     if window:
         return window
+    if speculative:
+        return 128
     return 32 if num_beams <= 16 else 128
 
 
@@ -198,9 +216,21 @@ def _apply_min_length(cur_len: int, cfg: DecodeConfig) -> int:
     return cfg.eos_token_id if cur_len < cfg.min_length else -1
 
 
+def _adjust_logits(logits, cur_len: int, cfg: DecodeConfig):
+    """The ``adjust_logits_fn`` hook on the raw logits (HF semantics: cur_len
+    is the column the chosen token will occupy)."""
+    if cfg.adjust_logits_fn is None:
+        return logits
+    return cfg.adjust_logits_fn(logits, cur_len).float()
+
+
 def _log_softmax(logits, cur_len: int, cfg: DecodeConfig):
-    """f32 log-softmax with the min-length EOS ban (kernel 4)."""
-    return log_softmax_ban(logits, _apply_min_length(cur_len, cfg), NEG_INF)
+    """The hook, the top-k warper (kernel 19's k-th value, the mask inside
+    kernel 4) and the f32 log-softmax with the min-length EOS ban (kernel
+    4), as the JAX step applies them."""
+    logits = _adjust_logits(logits, cur_len, cfg)
+    kth = row_kth(logits, cfg.topk) if cfg.topk > 0 else None
+    return log_softmax_ban(logits, _apply_min_length(cur_len, cfg), NEG_INF, kth)
 
 
 def _gather(x, idx):
@@ -362,6 +392,57 @@ def _dense_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam
     return beam_select_top(top_cons, top_idx, lp, beam_scores, K, K, cfg.eos_token_id)[:8]
 
 
+def _free_select(cfg: DecodeConfig, lp, beam_scores, K: int):
+    """Free generation's step (``disable_fm_index``): each beam's exact
+    top-``top_m`` (kernel 19), the flat top-2K of their scores plus the beam
+    score (kernel 3) and ``_select``'s epilogue through the token table
+    (kernel 8).  Every candidate is allowed, finished beams included.
+
+    Within a beam the top-``top_m`` list is in (lp desc, token asc) order,
+    so among equal scores the flat index rises with (beam, token): kernel
+    3's order is the ``exact_ties`` order, and no tie mode is needed.  Only
+    two log-probs that differ but round to one score with the beam score
+    added would break that; under ``exact_ties`` the list is therefore
+    taken on the scores themselves (lp + beam score, a [B*K, V] add), whose
+    (score desc, token asc) order is exact.
+    """
+    B = beam_scores.shape[0]
+    m = cfg.top_m
+    bs = beam_scores.reshape(B * K, 1)
+    if cfg.exact_ties:
+        cons, tok = row_select(lp + bs, m)
+    else:
+        top_lp, tok = row_select(lp, m)
+        cons = top_lp + bs
+    top_cons, top_idx = row_topk(cons.reshape(B, K * m), 2 * K)
+    return beam_select_top(top_cons, top_idx, lp, beam_scores, K, K, cfg.eos_token_id,
+                           tokens=tok.to(torch.int32))[:8]
+
+
+def _speculative_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam_scores,
+                        K: int):
+    """The speculative mode's step: one proposal round of each beam's exact
+    top-``top_m`` (kernel 19), checked with one membership query (kernel 1
+    or 12, the EOS column included), plus the window (kernel 2 or 13), EOS
+    and PAD slots; the branches, first-instance dedup and selection are
+    kernel 8 with ``keep_invalid`` (a proposal that fails membership stays a
+    masked candidate, as ``_candidates_general`` :359-367 builds it)."""
+    B = lo.shape[0]
+    m = cfg.top_m
+    win_tok, win_valid, win_lp = ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id)
+    top_lp, top_idx = row_select(lp, m)
+    top_tok = top_idx.to(torch.int32).reshape(B, K, m)
+    eos_tok = torch.full((B, K, 1), cfg.eos_token_id, dtype=torch.int32, device=lo.device)
+    ok = ops.contains(torch.cat([top_tok, eos_tok], -1), lo, hi)
+    buf = (top_tok, top_lp.reshape(B, K, m), ok[..., :m].contiguous())
+    out, _ = beam_select(
+        buf, m, win_tok, win_valid, win_lp, ok[..., m:], lp, prev_count, finished, beam_scores,
+        K=K, eos=cfg.eos_token_id, pad=cfg.pad_token_id, stop_at_count=cfg.stop_at_count,
+        always_allow_eos=cfg.always_allow_eos, ties=cfg.exact_ties, keep_invalid=True,
+    )
+    return out[:8]
+
+
 def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out,
                             enc_mask) -> BeamSearchOutput:
     """Constrained beam search for a batch of queries (tensors on the
@@ -374,15 +455,17 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     dev = enc_out.device
     ops = SingleIndexOps(index)
     i32 = torch.int32
+    # free generation runs no index op: every candidate is allowed
+    constrained = not cfg.disable_fm_index
 
     # per-QUERY encoder state, never beam-tiled: decode_step's grouped
     # cross-attention reads it once per query
     cross_kv = bart.precompute_cross_kv(model_cfg, params, enc_out)
     enc_bias = bart.encoder_bias(enc_mask)
 
-    # step 0 has ONE live beam per query (beam 0 at score 0, the rest at
-    # NEG_INF never win) and identical model state across beams: run it on
-    # [B] rows and fan out at the first selection
+    # step 0 (and the forced-BOS step) has ONE live beam per query (beam 0
+    # at score 0, the rest at NEG_INF never win) and identical model state
+    # across beams: run it on [B] rows and fan out at the first selection
     slim0 = V >= 2 * K
     rows0 = B if slim0 else B * K
     K0 = 1 if slim0 else K
@@ -395,7 +478,9 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     tokens[:, 0] = cfg.decoder_start_token_id
     beam_scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
     beam_scores[:, 0] = 0.0
-    if cfg.force_decoding_from:
+    if not constrained:
+        lo0 = hi0 = None
+    elif cfg.force_decoding_from:
         fseq = torch.as_tensor(cfg.force_decoding_from, dtype=i32, device=dev)
         flen = torch.tensor([fseq.numel()], dtype=i32, device=dev)
         flo, fhi = ops.range_for(fseq[None, :], flen)
@@ -404,20 +489,37 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
         lo0, hi0 = ops.full_range((B, K))
     brow = torch.arange(B, device=dev)[:, None]
 
-    # ---- step 0: first constrained token (dense corpus mask) -----------
-    start_col = 1
+    # ---- optional forced-BOS step: the hook only, no ban, no warper ------
+    pos0 = 0  # decoder position of step 0
+    tok0 = cfg.decoder_start_token_id
+    if cfg.forced_bos_token_id is not None:
+        bos = cfg.forced_bos_token_id
+        logits, self_cache = bart.decode_step(
+            model_cfg, params, torch.full((rows0,), tok0, dtype=i32, device=dev), 0, self_cache,
+            cross_kv, enc_bias,
+        )
+        lp = log_softmax_ban(_adjust_logits(logits, 1, cfg), -1, NEG_INF)
+        # every beam takes the add, the NEG_INF ones too ([B, K] + [B, K0])
+        beam_scores = beam_scores + lp[:, bos].reshape(B, K0)
+        tokens[:, 1] = bos
+        pos0, tok0 = 1, bos
+
+    # ---- step 0: first token (dense corpus mask; none when free) --------
+    start_col = pos0 + 1
     logits, self_cache = bart.decode_step(
-        model_cfg, params,
-        torch.full((rows0,), cfg.decoder_start_token_id, dtype=i32, device=dev),
-        0, self_cache, cross_kv, enc_bias,
+        model_cfg, params, torch.full((rows0,), tok0, dtype=i32, device=dev), pos0, self_cache,
+        cross_kv, enc_bias,
     )
     lp = _log_softmax(logits, start_col, cfg)  # [rows0, V]
-    corpus_mask = ops.corpus_mask()
-    if cfg.always_allow_eos:
-        corpus_mask = corpus_mask.clone()
-        corpus_mask[cfg.eos_token_id] = True
+    cons0 = lp.reshape(B, K0, V)
+    if constrained:
+        corpus_mask = ops.corpus_mask()
+        if cfg.always_allow_eos:
+            corpus_mask = corpus_mask.clone()
+            corpus_mask[cfg.eos_token_id] = True
+        cons0 = torch.where(corpus_mask, cons0, NEG_INF)
     # kernel 3 ranks the V-wide rows; kernel 8 takes its top-2K from there
-    cons0 = torch.where(corpus_mask, lp.reshape(B, K0, V), NEG_INF) + beam_scores[:, :K0, None]
+    cons0 = cons0 + beam_scores[:, :K0, None]
     top_cons, top_idx = row_topk(cons0.reshape(B, K0 * V), 2 * K)
     c_tok, c_par, c_sco, c_fin, sel_tok, sel_par, beam_scores, sel_fin = beam_select_top(
         top_cons, top_idx, lp, beam_scores, K0, K, cfg.eos_token_id
@@ -428,51 +530,56 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     # in [rows0] rows -- gather it with the K0 stride
     tokens = tokens[(brow * K + sel_par).reshape(-1).long()]
     tokens[:, start_col] = sel_tok.reshape(-1)
-    self_cache = bart.reorder_cache(self_cache, (brow * K0 + sel_par).reshape(-1), step=0,
+    self_cache = bart.reorder_cache(self_cache, (brow * K0 + sel_par).reshape(-1), step=pos0,
                                     out=caches[1])
-    prev_count = _gather(ops.range_size(lo0, hi0), sel_par)
-    lo, hi = ops.extend(sel_tok, _gather(lo0, sel_par), _gather(hi0, sel_par))
+    if constrained:
+        prev_count = _gather(ops.range_size(lo0, hi0), sel_par)
+        lo, hi = ops.extend(sel_tok, _gather(lo0, sel_par), _gather(hi0, sel_par))
     hist = [(c_tok, c_par, c_sco, c_fin, sel_tok, sel_par)]
     unsound = []
 
     # ---- steps 1..S-1 ---------------------------------------------------
     for t in range(S - 1):
         cur_col = start_col + t  # column holding the last written token
+        step = pos0 + 1 + t  # decoder position
         last = tokens[:, cur_col]
         logits, self_cache = bart.decode_step(
-            model_cfg, params, last, 1 + t, self_cache, cross_kv, enc_bias
+            model_cfg, params, last, step, self_cache, cross_kv, enc_bias
         )
         lp = _log_softmax(logits, cur_col + 1, cfg)
         finished = ((last == cfg.eos_token_id) | (last == cfg.pad_token_id)).reshape(B, K)
-        if cfg.exact_mask:
-            (c_tok, c_par, c_sco, c_fin, sel_tok, sel_par, new_scores, sel_fin) = _dense_select(
-                ops, cfg, lp, lo, hi, prev_count, finished, beam_scores, K)
+        if not constrained:
+            out = _free_select(cfg, lp, beam_scores, K)
+        elif cfg.exact_mask:
+            out = _dense_select(ops, cfg, lp, lo, hi, prev_count, finished, beam_scores, K)
+        elif cfg.speculative:
+            out = _speculative_select(ops, cfg, lp, lo, hi, prev_count, finished, beam_scores, K)
         else:
-            (c_tok, c_par, c_sco, c_fin, sel_tok, sel_par, new_scores, sel_fin), bad = (
-                _fast_exact_select(ops, cfg, lp, lo, hi, prev_count, finished, beam_scores, K,
-                                   force_full=cfg.force_full)
-            )
+            out, bad = _fast_exact_select(ops, cfg, lp, lo, hi, prev_count, finished,
+                                          beam_scores, K, force_full=cfg.force_full)
             unsound.append(bad)
+        c_tok, c_par, c_sco, c_fin, sel_tok, sel_par, new_scores, sel_fin = out
         # candidates of tainted (back-filled) parents are ungrounded: drop
         c_fin = c_fin & ~_gather(tainted, c_par)
 
         tokens = tokens[(brow * K + sel_par).reshape(-1).long()]
         tokens[:, cur_col + 1] = sel_tok.reshape(-1)
-        self_cache = bart.reorder_cache(self_cache, (brow * K + sel_par).reshape(-1), step=1 + t,
+        self_cache = bart.reorder_cache(self_cache, (brow * K + sel_par).reshape(-1), step=step,
                                         out=caches[t % 2])
 
-        new_prev_count = _gather(ops.range_size(lo, hi), sel_par)
-        # EOS/PAD selections end the constraint sequence (range (0, 0)),
-        # and a finished parent stays finished
-        elo, ehi = ops.extend(sel_tok, _gather(lo, sel_par), _gather(hi, sel_par))
-        stop = (
-            (sel_tok == cfg.eos_token_id)
-            | (sel_tok == cfg.pad_token_id)
-            | _gather(finished, sel_par)
-        )
-        lo = torch.where(stop, 0, elo)
-        hi = torch.where(stop, 0, ehi)
-        prev_count = new_prev_count
+        if constrained:
+            new_prev_count = _gather(ops.range_size(lo, hi), sel_par)
+            # EOS/PAD selections end the constraint sequence (range (0, 0)),
+            # and a finished parent stays finished
+            elo, ehi = ops.extend(sel_tok, _gather(lo, sel_par), _gather(hi, sel_par))
+            stop = (
+                (sel_tok == cfg.eos_token_id)
+                | (sel_tok == cfg.pad_token_id)
+                | _gather(finished, sel_par)
+            )
+            lo = torch.where(stop, 0, elo)
+            hi = torch.where(stop, 0, ehi)
+            prev_count = new_prev_count
         tainted = _gather(tainted, sel_par) | ~sel_fin
         beam_scores = new_scores
         hist.append((c_tok, c_par, c_sco, c_fin, sel_tok, sel_par))

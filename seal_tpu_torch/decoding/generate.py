@@ -145,8 +145,12 @@ def fm_index_generate_async(
     extracts the hypotheses.  ``force_full=True`` runs every step through
     the proven loop from the start (a check of the fast path: the
     hypotheses must be identical).  Takes every keyword of the JAX
-    function.  Modes not ported yet raise ``NotImplementedError`` (from
-    ``DecodeConfig``, and for a ``mesh``)."""
+    function: ``disable_fm_index`` (free generation), ``speculative``,
+    ``topk``, ``forced_bos_token_id`` and ``adjust_logits_fn`` (a torch
+    function of the raw f32 logits [rows, V] and ``cur_len``, a Python
+    ``int``) run as in JAX.  Modes not ported yet raise
+    ``NotImplementedError`` (``sample`` and diverse groups from
+    ``DecodeConfig``, and a ``mesh``)."""
     del length_penalty, keep_history  # no effect on the exact beam path
     del exact_topk_blk, seed
     if mesh is not None:
@@ -175,7 +179,7 @@ def fm_index_generate_async(
         always_allow_eos=always_allow_eos,
         disable_fm_index=disable_fm_index,
         top_m=min(top_m, model_cfg.vocab_size),
-        window=resolve_window(window, num_beams),
+        window=resolve_window(window, num_beams, speculative),
         exact_chunk=exact_chunk,
         exact_loop_chunk=exact_loop_chunk,
         dense_chunk=dense_chunk,

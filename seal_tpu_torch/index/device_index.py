@@ -145,6 +145,7 @@ class TorchFMIndex:
     bucket_rows: int = BUCKET_ROWS
     bucket_size: int = 1
     n_buckets: int = N_BUCKETS
+    sa: Optional[torch.Tensor] = None  # int32 [N] suffix array (``keep_sa``)
 
     @property
     def device(self) -> torch.device:
@@ -161,9 +162,11 @@ class TorchFMIndex:
         vocab: int | None = None,
         device=DEFAULT_DEVICE,
         dir_shift: int | None = None,
+        keep_sa: bool = False,
     ) -> "TorchFMIndex":
         """Ship a host-built index to ``device`` (the card unless the caller
-        asks for the CPU); refuses >= 2^31 rows."""
+        asks for the CPU); refuses >= 2^31 rows.  ``keep_sa`` adds the
+        suffix array (+4 B/token) for ``fm_ops.locate_rows``."""
         device = checked_device(device)
         n_rows = index.size()
         if n_rows >= 2**31:
@@ -207,6 +210,7 @@ class TorchFMIndex:
             search_iters=iters,
             dir_shift=dshift,
             bucket_size=bucket_size,
+            sa=t(index.sa) if keep_sa else None,
         )
 
     def full_range(self, shape=()) -> tuple[torch.Tensor, torch.Tensor]:

@@ -24,6 +24,18 @@ versions sort one int64 key, (score's order key << 32) | (2^32 - 1 -
 tie id), stably; torch has int64, so JAX's two-key ``lax.sort`` (a
 workaround for x64 being off) is not carried over.  Launches in that mode
 also count on ``TIES``.
+
+Two more modes, for the decode modes of ``_candidates_general`` (:305):
+
+* ``beam_select(..., keep_invalid=True)`` (speculative, :343-367): the
+  buffer is the LM proposal round itself, and a slot that fails membership
+  keeps its token and log-prob with ``fm_valid`` false, where the fast path
+  turns it into a PAD candidate.  The two differ only among masked
+  candidates, which ``cand_tokens`` records too.  Counts on ``SPEC``.
+* ``beam_select_top(..., tokens=table)`` (free generation, :329-336): the
+  ranked flat axis is [B, n_par * ncand] slots of a per-beam token table
+  (kernel 19's top-``top_m``), token = table[parent, slot % ncand].  Counts
+  on ``FREE``.
 """
 
 from __future__ import annotations
@@ -31,19 +43,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from seal_tpu_torch.kernels import Launches
 from seal_tpu_torch.kernels.row_topk import order_key, row_topk_plain
 
 NEG_INF = float(np.finfo(np.float32).min) / 2  # the decoder's masking constant
 TOK_BITS = 17  # minimum token-id field width in selection tie ids
 
 
-class _Launches:
-    """A launch counter that is not a wrapper's own."""
-
-    launches = 0
-
-
-TIES = _Launches()  # kernel 8 launches in the ties mode (merge and select)
+TIES = Launches()  # kernel 8 launches in the ties mode (merge and select)
+FREE = Launches()  # beam_select_top launches with a candidate token table
+SPEC = Launches()  # beam_select launches that keep invalid buffer slots
 
 
 def top_by_score_then_id(score, tie_id, k: int):
@@ -224,7 +233,8 @@ def _epilogue(top_cons, top_idx, flat_uncons, flat_tok, ncand, K, eos):
 
 def beam_select_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
                       finished, beam_scores, need, th_lp, *, K: int, eos: int, pad: int,
-                      stop_at_count: int, always_allow_eos: bool, ties: bool = False):
+                      stop_at_count: int, always_allow_eos: bool, ties: bool = False,
+                      keep_invalid: bool = False):
     B, n_par = prev_count.shape
     dev = lp.device
     eos_lp = lp[:, eos].reshape(B, n_par, 1)
@@ -234,9 +244,10 @@ def beam_select_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, p
                torch.zeros((B, n_par, n_buf), dtype=torch.float32, device=dev),
                torch.zeros((B, n_par, n_buf), dtype=torch.bool, device=dev))
     buf_tok, buf_lp, buf_valid = buf
-    # unfilled slots become PAD candidates at PAD's log-prob
-    buf_tok = torch.where(buf_valid, buf_tok, pad)
-    buf_lp = torch.where(buf_valid, buf_lp, pad_lp)
+    if not keep_invalid:
+        # unfilled slots become PAD candidates at PAD's log-prob
+        buf_tok = torch.where(buf_valid, buf_tok, pad)
+        buf_lp = torch.where(buf_valid, buf_lp, pad_lp)
     eos_tok = torch.full((B, n_par, 1), eos, dtype=torch.int32, device=dev)
     pad_tok = torch.full((B, n_par, 1), pad, dtype=torch.int32, device=dev)
     tokens = torch.cat([buf_tok, win_tok, eos_tok, pad_tok], -1)
@@ -260,7 +271,7 @@ def beam_select_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, p
 
 def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished,
                 beam_scores, need=None, th_lp=None, *, K: int, eos: int, pad: int, stop_at_count: int = 0,
-                always_allow_eos: bool = False, ties: bool = False):
+                always_allow_eos: bool = False, ties: bool = False, keep_invalid: bool = False):
     """Candidate build, branches, dedup, top-2K and the continuation rule of
     one decode step, per query.
 
@@ -272,13 +283,15 @@ def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_co
     ``prev_count``, ``finished``, ``beam_scores`` [B, n_par].  With ``need``
     and ``th_lp`` [B, n_par], also the per-query ``unsound`` flag [B].
     Equal scores keep slot order, or with ``ties`` the (parent beam, token)
-    order (V = ``lp``'s width sizes the token field).
+    order (V = ``lp``'s width sizes the token field).  With ``keep_invalid``
+    a buffer slot that is not valid keeps its token and log-prob (the
+    speculative mode's candidates).
 
     Returns (nine outputs of ``_select``, unsound or None).  CPU tensors run
     the plain version; CUDA tensors launch the kernel.
     """
     kw = dict(K=K, eos=eos, pad=pad, stop_at_count=stop_at_count,
-              always_allow_eos=always_allow_eos, ties=ties)
+              always_allow_eos=always_allow_eos, ties=ties, keep_invalid=keep_invalid)
     if not lp.is_cuda:
         return beam_select_plain(buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
                                  finished, beam_scores, need, th_lp, **kw)
@@ -319,37 +332,49 @@ def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_co
         ptr(0), ptr(1), ptr(2), win_tok.data_ptr(), win_valid.data_ptr(), win_lp.data_ptr(),
         eos_ok.data_ptr(), eos_stride, lp.data_ptr(), lp.stride(0), prev_count.data_ptr(),
         finished.data_ptr(), beam_scores.data_ptr(), opt(need), opt(th_lp), B, n_par, n_buf, w,
-        K, eos, pad, stop_at_count, int(always_allow_eos), bits, NEG_INF,
+        K, eos, pad, stop_at_count, int(always_allow_eos), bits, int(keep_invalid), NEG_INF,
         *(t.data_ptr() for t in outs), opt(unsound), build.stream_ptr(lp),
     )
     build.check(rc, "beam_select")
     beam_select.launches += 1
     TIES.launches += int(ties)
+    SPEC.launches += int(keep_invalid)
     return outs, unsound
 
 
 beam_select.launches = 0
 
 
-def beam_select_top_plain(top_cons, top_idx, lp, beam_scores, n_par: int, K: int, eos: int):
+def beam_select_top_plain(top_cons, top_idx, lp, beam_scores, n_par: int, K: int, eos: int,
+                          tokens=None):
     B = top_cons.shape[0]
     V = lp.shape[-1]
-    flat_lp = lp.reshape(B, n_par * V)
-    bs = beam_scores[:, :n_par, None].expand(B, n_par, V).reshape(B, n_par * V)
-    flat_tok = torch.arange(V, dtype=torch.int32, device=lp.device).repeat(n_par).expand(B, -1)
-    return _epilogue(top_cons, top_idx, flat_lp + bs, flat_tok, V, K, eos)
+    if tokens is None:
+        ncand = V
+        cand_lp = lp.reshape(B, n_par * V)
+        flat_tok = torch.arange(V, dtype=torch.int32, device=lp.device).repeat(n_par).expand(B, -1)
+    else:
+        ncand = tokens.shape[-1]
+        cand_lp = torch.gather(lp, 1, tokens.long()).reshape(B, n_par * ncand)
+        flat_tok = tokens.reshape(B, n_par * ncand)
+    bs = beam_scores[:, :n_par, None].expand(B, n_par, ncand).reshape(B, n_par * ncand)
+    return _epilogue(top_cons, top_idx, cand_lp + bs, flat_tok, ncand, K, eos)
 
 
-def beam_select_top(top_cons, top_idx, lp, beam_scores, n_par: int, K: int, eos: int):
+def beam_select_top(top_cons, top_idx, lp, beam_scores, n_par: int, K: int, eos: int,
+                    tokens=None):
     """Step 0's selection after kernel 3: ``top_cons``/``top_idx`` [B, 2K]
     rank the flat [B, n_par * V] constrained scores (token = slot % V);
     ``lp`` [B*n_par, V] gives the unconstrained scores (plus the parent's
-    ``beam_scores``).  Returns ``_select``'s nine outputs.
+    ``beam_scores``).  With ``tokens`` (int32 [B*n_par, ncand]) the flat
+    axis is [B, n_par * ncand] and slot s of parent k is token
+    ``tokens[k, s % ncand]`` (free generation).  Returns ``_select``'s nine
+    outputs.
 
     CPU tensors run the plain version; CUDA tensors launch kernel 8.
     """
     if not lp.is_cuda:
-        return beam_select_top_plain(top_cons, top_idx, lp, beam_scores, n_par, K, eos)
+        return beam_select_top_plain(top_cons, top_idx, lp, beam_scores, n_par, K, eos, tokens)
     from seal_tpu_torch.kernels import build
 
     B = top_cons.shape[0]
@@ -361,14 +386,23 @@ def beam_select_top(top_cons, top_idx, lp, beam_scores, n_par: int, K: int, eos:
     top_cons, top_idx = top_cons.contiguous(), top_idx.contiguous()
     if beam_scores.dtype != torch.float32 or beam_scores.stride(1) != 1:
         raise ValueError("beam_select_top: beam_scores must be f32 with unit column stride")
+    ncand = V
+    if tokens is not None:
+        tokens = tokens.contiguous()
+        _check(tokens, torch.int32)
+        if tokens.dim() != 2 or tokens.shape[0] != B * n_par:
+            raise ValueError("beam_select_top: tokens must be int32 [B*n_par, ncand]")
+        ncand = tokens.shape[1]
     outs = _select_outputs(B, K, lp.device)
     rc = build.lib().seal_beam_select_top(
         top_cons.data_ptr(), top_idx.data_ptr(), lp.data_ptr(), lp.stride(0),
-        beam_scores.data_ptr(), beam_scores.stride(0), B, n_par, V, K, eos, NEG_INF,
+        beam_scores.data_ptr(), beam_scores.stride(0),
+        tokens.data_ptr() if tokens is not None else None, B, n_par, ncand, K, eos, NEG_INF,
         *(t.data_ptr() for t in outs), build.stream_ptr(lp),
     )
     build.check(rc, "beam_select_top")
     beam_select.launches += 1
+    FREE.launches += int(tokens is not None)
     return outs
 
 

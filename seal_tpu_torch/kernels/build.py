@@ -27,7 +27,8 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu", "bucket_counts.cu", "rescore.cu",
            "beam_select.cu", "decode_attention.cu", "reorder_cache.cu", "wt_search.cu",
-           "wt_window.cu", "wt_bucket_counts.cu", "dense_scores.cu")
+           "wt_window.cu", "wt_bucket_counts.cu", "dense_scores.cu", "locate.cu",
+           "row_select.cu")
 # included by the wt_*.cu sources, and by fm_search.cu and wt_search.cu
 HEADERS = ("wt_common.cuh", "dense_counts.cuh")
 NVCC_FLAGS = (
@@ -72,13 +73,14 @@ SIGNATURES = {
     # buf_tok, buf_lp, buf_valid, win_tok, win_valid, win_lp, eos_ok,
     # eos_ok_stride, lp, lp_stride, prev_count, finished, beam_scores, need,
     # th_lp, n_queries, n_par, n_buf, w, k, eos, pad, stop_at_count,
-    # always_allow_eos, tie_bits (0: no ties mode), neg_inf, 9 outputs,
-    # unsound, stream
+    # always_allow_eos, tie_bits (0: no ties mode), keep_invalid, neg_inf,
+    # 9 outputs, unsound, stream
     "seal_beam_select": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _L, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _I, _F] + [_P] * 11,
-    # top_cons, top_idx, lp, lp_stride, beam_scores, bs_stride, n_queries,
-    # n_par, vocab, k, eos, neg_inf, 9 outputs, stream
-    "seal_beam_select_top": [_P, _P, _P, _L, _P, _L, _L, _I, _I, _I, _I, _F] + [_P] * 10,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _F] + [_P] * 11,
+    # top_cons, top_idx, lp, lp_stride, beam_scores, bs_stride, table (None:
+    # token = slot % V), n_queries, n_par, ncand, k, eos, neg_inf, 9 outputs,
+    # stream
+    "seal_beam_select_top": [_P, _P, _P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _F] + [_P] * 10,
     # q, k, v, bias, out, n_queries, group, heads, m, head_dim, q_stride,
     # kv_row_stride, bias_stride, dtype (0 f32, 1 bf16), stream
     "seal_decode_attention": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _L, _L, _I, _P],
@@ -103,10 +105,15 @@ SIGNATURES = {
     # counts, lp, lp_stride, prev_count, finished, beam_scores, rows, V, eos,
     # pad, stop_at_count, always_allow_eos, neg_inf, out, stream
     "seal_dense_scores": [_P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _P, _P],
+    # table (sa or beginnings), n_table, in, n, search (0 gather, 1 search),
+    # out, stream
+    "seal_locate": [_P, _I, _P, _L, _I, _P, _P],
+    # x, n_rows, width, k, kth_only, vals, idx, kth, stream
+    "seal_row_select": [_P, _L, _I, _I, _I, _P, _P, _P, _P],
 }
 # C functions that return a size rather than an error code
 SIZE_QUERIES = {"seal_beam_merge_smem": [_I, _I], "seal_beam_select_smem": [_I, _I, _I, _I],
-                "seal_decode_attention_smem": [_I, _I, _I]}
+                "seal_decode_attention_smem": [_I, _I, _I], "seal_row_select_max_k": []}
 
 # shared memory one block may opt into on Hopper (the wrappers refuse shapes
 # that need more)

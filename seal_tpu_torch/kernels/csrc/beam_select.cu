@@ -29,6 +29,13 @@
 // candidates; the O(n^2 / 2) first-instance dedup within a beam and the
 // log2(n)^2 / 2 barrier-separated sort stages are its cost, and the inputs
 // are read once.
+//
+// Two modes for the decode modes of _candidates_general (:305): select with
+// keep_invalid (speculative, :343-367) takes a buffer slot that failed
+// membership as it is, token and log-prob, with fm_valid false, where the
+// fast path makes it a PAD candidate at PAD's log-prob (:798-799); and the
+// step-0 epilogue with a token table (free generation, :329-336) reads the
+// token of flat slot f from table[parent, f % ncand] instead of f % V.
 
 #include <cuda_runtime.h>
 
@@ -239,6 +246,7 @@ struct SelectIn {
   const float* beam_scores;  // [B, n_par]
   const unsigned char* need;  // [B, n_par], or null: no soundness test
   const float* th_lp;
+  int keep_invalid;  // a buffer slot that is not valid keeps its token and lp
 };
 
 // One CTA per query: the n_par * ncand candidates (ncand = n_buf + w + 2:
@@ -271,7 +279,8 @@ __global__ void select_kernel(SelectIn in, SelectOut o, unsigned char* unsound, 
     int tok;
     float lp;
     if (j < n_buf) {
-      const bool v = in.buf_tok != nullptr && in.buf_valid[row * n_buf + j] != 0;
+      const bool v = in.buf_tok != nullptr &&
+                     (in.keep_invalid || in.buf_valid[row * n_buf + j] != 0);
       // unfilled slots are PAD candidates at PAD's log-prob
       tok = v ? in.buf_tok[row * n_buf + j] : pad;
       lp = v ? in.buf_lp[row * n_buf + j] : in.lp[row * in.lp_stride + pad];
@@ -350,11 +359,13 @@ __global__ void select_kernel(SelectIn in, SelectOut o, unsigned char* unsound, 
 }
 
 // Step 0: kernel 3 already ranked the V-wide rows (flat [B, n_par * V],
-// token = slot % V); only the epilogue runs here.
+// token = slot % V); only the epilogue runs here.  With a token table
+// (free generation) the flat axis is [B, n_par * ncand] and slot f of parent
+// k is token table[(b * n_par + k) * ncand + f % ncand].
 __global__ void select_top_kernel(const float* top_cons, const long long* top_idx, const float* lp,
                                   long long lp_stride, const float* beam_scores,
-                                  long long bs_stride, SelectOut o, int n_par, int vocab,
-                                  int two_k, int k_out, int eos, float neg_inf) {
+                                  long long bs_stride, const int* table, SelectOut o, int n_par,
+                                  int ncand, int two_k, int k_out, int eos, float neg_inf) {
   extern __shared__ unsigned long long smem[];
   float* e_cons = (float*)smem;
   float* e_lp = e_cons + two_k;
@@ -364,14 +375,15 @@ __global__ void select_top_kernel(const float* top_cons, const long long* top_id
   const long long b = blockIdx.x;
   for (int t = threadIdx.x; t < two_k; t += blockDim.x) {
     const int f = (int)top_idx[b * two_k + t];
-    const int parent = f / vocab, tok = f - parent * vocab;
+    const int parent = f / ncand, slot = f - parent * ncand;
+    const int tok = table != nullptr ? table[(b * n_par + parent) * ncand + slot] : slot;
     e_cons[t] = top_cons[b * two_k + t];
     e_slot[t] = f;
     e_tok[t] = tok;
     e_lp[t] = lp[(b * n_par + parent) * lp_stride + tok];
   }
   __syncthreads();
-  select_epilogue(b, two_k, k_out, vocab, eos, neg_inf, e_cons, e_slot, e_tok, e_lp,
+  select_epilogue(b, two_k, k_out, ncand, eos, neg_inf, e_cons, e_slot, e_tok, e_lp,
                   beam_scores + b * bs_stride, o, s_cont);
 }
 
@@ -427,14 +439,15 @@ int seal_beam_select(const int* buf_tok, const float* buf_lp, const unsigned cha
                      long long lp_stride, const int* prev_count, const unsigned char* finished,
                      const float* beam_scores, const unsigned char* need, const float* th_lp,
                      long long n_queries, int n_par, int n_buf, int w, int k_out, int eos,
-                     int pad, int stop_at_count, int always_allow_eos, int tie_bits, float neg_inf,
+                     int pad, int stop_at_count, int always_allow_eos, int tie_bits,
+                     int keep_invalid, float neg_inf,
                      int* top_tok, int* top_parent, float* top_uncons, unsigned char* finite,
                      int* sel_tok, int* sel_parent, float* sel_uncons, unsigned char* sel_finite,
                      float* top_cons, unsigned char* unsound, void* stream) {
   if (n_queries <= 0) return (int)cudaGetLastError();
   const SelectIn in{buf_tok, buf_lp,     buf_valid,  win_tok,  win_valid, win_lp,
                     eos_ok,  eos_ok_stride, lp,      lp_stride, prev_count, finished,
-                    beam_scores, need,  th_lp};
+                    beam_scores, need,  th_lp,  keep_invalid};
   const SelectOut o{top_tok, top_parent, top_uncons, finite, sel_tok,
                     sel_parent, sel_uncons, sel_finite, top_cons};
   const int two_k = 2 * k_out;
@@ -453,7 +466,8 @@ int seal_beam_select(const int* buf_tok, const float* buf_lp, const unsigned cha
 
 int seal_beam_select_top(const float* top_cons_in, const long long* top_idx, const float* lp,
                          long long lp_stride, const float* beam_scores, long long bs_stride,
-                         long long n_queries, int n_par, int vocab, int k_out, int eos,
+                         const int* table, long long n_queries, int n_par, int ncand, int k_out,
+                         int eos,
                          float neg_inf, int* top_tok, int* top_parent, float* top_uncons,
                          unsigned char* finite, int* sel_tok, int* sel_parent, float* sel_uncons,
                          unsigned char* sel_finite, float* top_cons, void* stream) {
@@ -463,8 +477,8 @@ int seal_beam_select_top(const float* top_cons_in, const long long* top_idx, con
   const int two_k = 2 * k_out;
   const size_t smem = 16 * (size_t)two_k + 4 * (size_t)k_out;
   select_top_kernel<<<(unsigned)n_queries, 64, smem, (cudaStream_t)stream>>>(
-      top_cons_in, top_idx, lp, lp_stride, beam_scores, bs_stride, o, n_par, vocab, two_k, k_out,
-      eos, neg_inf);
+      top_cons_in, top_idx, lp, lp_stride, beam_scores, bs_stride, table, o, n_par, ncand, two_k,
+      k_out, eos, neg_inf);
   return (int)cudaGetLastError();
 }
 

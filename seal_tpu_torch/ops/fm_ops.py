@@ -5,9 +5,10 @@ All ops take *unshifted* token ids and shift internally (SHIFT == 1).
 ``backward_step``/``extend_ranges`` and ``contains_tokens`` go through the
 rank-search kernel, ``range_for_sequences``/``count_sequences`` through
 its sequence mode and ``dense_counts`` through its dense kernel
-(``kernels/fm_search.py``), ``window_gather`` through the window kernel
-and ``bucket_counts`` through the bucket kernel; the other ops are plain
-torch on every device.
+(``kernels/fm_search.py``), ``window_gather`` through the window kernel,
+``bucket_counts`` through the bucket kernel and ``locate_rows`` /
+``doc_index_of`` through kernel 18 (``kernels/locate.py``); the other ops
+are plain torch on every device.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from seal_tpu_torch.kernels.fm_search import (
     searchsorted_psi,
     symbol_bounds,
 )
+from seal_tpu_torch.kernels import locate
 from seal_tpu_torch.kernels.window_gather import window_gather  # noqa: F401
 from seal_tpu_torch.ops import _generic
 
@@ -97,6 +99,21 @@ def validate_tokens(index, tokens, lo, hi):
     """Counts of each candidate continuation token of ranges [lo, hi)."""
     return _generic.validate_tokens(backward_step, index, tokens, lo, hi)
 
+
+def locate_rows(index, rows):
+    """Corpus positions (reversed-text coordinates) of index rows: ``sa[row]``
+    for rows in [0, n_rows), else -1.  Needs the index built with
+    ``keep_sa=True``."""
+    if index.sa is None:
+        raise ValueError("locate_rows needs the suffix array on the device: build the index "
+                         "with TorchFMIndex.from_host(..., keep_sa=True)")
+    return locate.locate_rows(index.sa, _i32(index, rows))
+
+
+def doc_index_of(index, positions):
+    """Document index containing each corpus position (bisect_right - 1 over
+    the document beginnings)."""
+    return locate.doc_index_of(index.beginnings, _i32(index, positions))
 
 
 def dense_counts(index, lo, hi, chunk: int = 4096):

@@ -22,9 +22,9 @@ What changed in translation:
   JAX searcher builds its ``WaveletFMIndex``; the decoder dispatches on the
   index's layout.
 * Not ported yet (``NotImplementedError`` naming the knob): ``index_shards``
-  > 1, ``jobs`` >= 2 (forked workers after CUDA init), ``free_generation``,
-  ``decode_code``, T5 backbones, and the decode modes ``DecodeConfig``
-  refuses, at the first search.  ``load``,
+  > 1, ``jobs`` >= 2 (forked workers after CUDA init), ``decode_code``, T5
+  backbones, and the decode modes ``DecodeConfig`` refuses (diverse
+  groups), at the first search.  ``load``,
   ``from_args`` and the CLIs wait for a checkpoint loader without jax.
 """
 
@@ -55,7 +55,6 @@ DEBUG = False
 UNPORTED = {
     "index_shards": lambda v: (v or 0) > 1,
     "jobs": lambda v: v >= 2,
-    "free_generation": bool,
     "decode_code": bool,
 }
 
@@ -282,8 +281,10 @@ class SEALSearcher:
             fk = [(sc, k) for sc, k in fk if len(k) == self.min_length]
         return self._count_filter(fk)
 
-    def process_batch(self, inputs: Sequence[str]):
-        """Key generation for one query batch (reference retrieval.py:54-305)."""
+    def process_batch(self, inputs: Sequence[str], constrained_generation: bool = True):
+        """Key generation for one query batch (reference retrieval.py:54-305);
+        ``constrained_generation=False`` decodes freely (``free_generation``):
+        the count filters drop the keys that leave the corpus."""
         if not inputs:
             return []
         inputs = [
@@ -291,6 +292,7 @@ class SEALSearcher:
         ]
         gen_common = dict(
             num_beams=self.beam,
+            disable_fm_index=not constrained_generation,
             forced_bos_token_id=None,
             top_m=self.top_m,
             window=self.window,
@@ -425,7 +427,10 @@ class SEALSearcher:
     def batch_generate_keys(self, queries: Sequence[str]):
         self._check_ported()
         for off in range(0, len(queries), self.batch_size):
-            yield from self.process_batch(queries[off : off + self.batch_size])
+            yield from self.process_batch(
+                queries[off : off + self.batch_size],
+                constrained_generation=not self.free_generation,
+            )
 
     def _pipelined_keys(self, queries: Sequence[str]):
         """Key generation in a producer thread, so the device work of batch

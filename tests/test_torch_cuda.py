@@ -23,8 +23,10 @@ from seal_tpu_torch.kernels import (
     decode_attention,
     dense_scores,
     fm_search,
+    locate,
     reorder_cache,
     rescore,
+    row_select,
     row_topk,
     triton_logsoftmax,
     window_gather,
@@ -661,3 +663,188 @@ def test_dense_and_tie_modes_on_card_match_cpu(cuda, layout):
         canon.append([sorted((tuple(t), s) for s, t in h) for h in gpu])
     assert counts.launches > n15 and dense_scores.dense_scores.launches > n17
     assert canon[0] == canon[1] == canon[2]
+
+
+# ---- kernels 18-19, kernel 8's free and speculative modes, kernel 4's
+# threshold, and the decode modes on the card
+
+
+def test_locate_matches_plain(cuda):
+    """Kernel 18 in both modes: rows in and out of range, positions at every
+    document's start and end and past the corpus; exactly equal."""
+    host = _zipf_host()
+    t = TorchFMIndex.from_host(host, vocab=40, device=cuda, keep_sa=True)
+    rng = np.random.default_rng(8)
+    N = host.size()
+    rows = np.concatenate([rng.integers(-3, N + 3, size=5000), [-(2**31), 2**31 - 1]])
+    rows = torch.as_tensor(rows.astype(np.int32)).cuda()
+    n0 = (locate.locate_rows.launches, locate.doc_index_of.launches)
+    got = locate.locate_rows(t.sa, rows)
+    assert torch.equal(got, locate.locate_rows_plain(t.sa, rows))
+    begin = np.asarray(host.beginnings, np.int64)
+    pos = np.concatenate([rng.integers(-2, len(host) + 2, size=5000), begin, begin - 1])
+    pos = torch.as_tensor(pos.astype(np.int32)).cuda()
+    got = locate.doc_index_of(t.beginnings, pos)
+    assert torch.equal(got, locate.doc_index_of_plain(t.beginnings, pos))
+    assert (locate.locate_rows.launches, locate.doc_index_of.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+def _select_rows(rng, rows, n):
+    x = np.round(rng.normal(-4, 2, size=(rows, n)), 1).astype(np.float32)  # ties
+    x[0, ::3] = 0.0
+    x[0, 1::3] = -0.0  # +0.0 ranks above -0.0
+    x[1] = -np.inf
+    x[1, 7:2000] = -1.5  # a plateau wider than k
+    x[2, : n // 3] = 7.5
+    x[3, n - 5:] = 50.0
+    x[4] = np.float32(tc.NEG_INF)
+    x[4, ::13] = -1.0
+    x[5, : n // 2] = -np.inf
+    return x
+
+
+@pytest.mark.parametrize("n", [50265, 70000])
+@pytest.mark.parametrize("k", [1, 64, 256, 1024])
+def test_row_select_matches_plain(cuda, n, k):
+    """Kernel 19 at vocab width and past the staged part of a row (the
+    tail re-read from device memory), in both modes; values bit for bit,
+    indices equal."""
+    x = torch.as_tensor(_select_rows(np.random.default_rng(k), 8, n)).cuda()
+    n0 = (row_select.row_select.launches, row_select.row_kth.launches)
+    gv, gi = row_select.row_select(x, k)
+    wv, wi = row_select.row_select_plain(x, k)
+    assert torch.equal(gi, wi)
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+    kth = row_select.row_kth(x, k)
+    assert torch.equal(kth.view(torch.int32), row_select.row_kth_plain(x, k).view(torch.int32))
+    assert (row_select.row_select.launches, row_select.row_kth.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+def test_row_select_at_the_decode_shapes(cuda):
+    """[480, 50265] log-prob rows (the speculative and free steps, k = 256;
+    the warper, k = 50) and [32, 50265] (step 0)."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    lp = _lp(g, 480, 50265, cuda)
+    for x, k in ((lp, 256), (lp[:32], 256), (lp, 50)):
+        gv, gi = row_select.row_select(x, k)
+        wv, wi = row_select.row_select_plain(x, k)
+        assert torch.equal(gi, wi) and torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+        assert torch.equal(row_select.row_kth(x, k), wv[:, -1])
+
+
+def test_log_softmax_threshold_matches_plain(cuda):
+    logits = torch.randn(40, 50265, device=cuda) * 3
+    logits[:, 1] = float("-inf")
+    kth = row_select.row_kth(logits, 50)
+    n0 = triton_logsoftmax.THRESHOLD.launches
+    for ban in (-1, 2):
+        got = triton_logsoftmax.log_softmax_ban(logits, ban, tc.NEG_INF, kth)
+        want = triton_logsoftmax.log_softmax_ban_plain(logits, ban, tc.NEG_INF, kth)
+        masked = want <= tc.NEG_INF / 2
+        assert torch.equal(got <= tc.NEG_INF / 2, masked)
+        torch.testing.assert_close(got[~masked], want[~masked], atol=1e-4, rtol=0)
+    assert triton_logsoftmax.THRESHOLD.launches == n0 + 2
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_beam_select_keep_invalid_matches_plain(cuda, ties):
+    """Kernel 8's speculative mode at the generation point: a 256-slot
+    proposal buffer, 128-row window, beam 15 (5,790 candidates a query)."""
+    g = torch.Generator(device=cuda).manual_seed(256 + ties)
+    B, K, V, m, w = 32, 15, 3000, 256, 128
+    lp = _lp(g, B * K, V, cuda)
+    top_lp, top_idx = row_topk.row_topk_plain(lp, m)
+    buf = (top_idx.to(torch.int32).reshape(B, K, m), top_lp.reshape(B, K, m),
+           torch.rand(B, K, m, generator=g, device=cuda) < 0.4)
+    win_valid = torch.rand(B, K, w, generator=g, device=cuda) < 0.7
+    win_tok = torch.where(win_valid, torch.randint(0, 400, (B, K, w), generator=g, device=cuda,
+                                                   dtype=torch.int32), 1)
+    win_lp = torch.gather(lp, 1, win_tok.reshape(B * K, -1).long()).reshape(B, K, w)
+    eos_ok = (torch.rand(B, K, m + 1, generator=g, device=cuda) < 0.5)[..., m:]
+    prev_count = torch.randint(0, 6, (B, K), generator=g, device=cuda, dtype=torch.int32)
+    finished = torch.rand(B, K, generator=g, device=cuda) < 0.2
+    bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
+    kw = dict(K=K, eos=2, pad=1, stop_at_count=1, always_allow_eos=False, ties=ties,
+              keep_invalid=True)
+    args = (buf, m, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished, bs)
+    n0 = beam_select.SPEC.launches
+    (got, _), (want, _) = beam_select.beam_select(*args, **kw), \
+        beam_select.beam_select_plain(*args, None, None, **kw)
+    _same(got, want)
+    assert beam_select.SPEC.launches == n0 + 1
+
+
+@pytest.mark.parametrize("B,K,m", [(32, 15, 256), (32, 15, 30), (4, 4, 7)])
+def test_beam_select_top_token_table_matches_plain(cuda, B, K, m):
+    """Kernel 8's free-generation epilogue: kernel 3's top-2K of [B, K*m]
+    scores through a token table (kernel 19's top-m)."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    lp = _lp(g, B * K, 50265 if m == 256 else 1000, cuda)
+    top_lp, tok = row_select.row_select(lp, m)
+    bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
+    bs[0, 1] = tc.NEG_INF
+    top_cons, top_idx = row_topk.row_topk((top_lp.reshape(B, K, m) + bs[..., None]).reshape(B, -1),
+                                          2 * K)
+    args = (top_cons, top_idx, lp, bs, K, K, 2)
+    n0 = beam_select.FREE.launches
+    got = beam_select.beam_select_top(*args, tokens=tok.to(torch.int32))
+    _same(got, beam_select.beam_select_top_plain(*args, tokens=tok.to(torch.int32)))
+    assert beam_select.FREE.launches == n0 + 1
+
+
+def _ban_even(logits, cur_len):
+    v = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where((v % 2 == 0) & (v >= 4) & (cur_len > 1), float("-inf"), logits)
+
+
+MODES = {
+    "free": dict(disable_fm_index=True),
+    "free_topk": dict(disable_fm_index=True, topk=3),
+    "speculative": dict(speculative=True, top_m=8),
+    "speculative_ties": dict(speculative=True, top_m=8, exact_ties=True),
+    "forced_bos": dict(forced_bos_token_id=0),
+    "topk": dict(topk=5),
+    "hook": dict(adjust_logits_fn=_ban_even),
+}
+
+
+@pytest.mark.parametrize("layout", ["psi", "compact", "hybrid"])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_decode_modes_on_card_match_cpu(cuda, mode, layout):
+    """Free generation, speculative, forced BOS, the top-k warper and a
+    ban-even-tokens hook: the card's hypotheses equal the CPU plain path's
+    (token lists equal, scores within 1e-4), on every layout."""
+    cfg = bart_tiny(vocab_size=96)
+    params = bart.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    docs = [rng.integers(4, 90, size=rng.integers(5, 30)).tolist() + [2] for _ in range(30)]
+    host = FMIndex()
+    host.initialize(docs)
+    queries = [[0] + rng.integers(4, 90, size=5).tolist() + [2] for _ in range(3)]
+    kw = dict(num_beams=4, max_length=6, min_length=2, window=4, **MODES[mode])
+
+    def index(dev):
+        if layout == "psi":
+            return TorchFMIndex.from_host(host, vocab=96, device=dev)
+        return WaveletIndex.from_host(host, vocab=96, keep_bwt=layout == "hybrid", device=dev)
+
+    cpu = tg.fm_index_generate(cfg, params, index("cpu"), queries, **kw)
+    gpu = tg.fm_index_generate(cfg, _to(params, cuda), index(cuda), queries, **kw)
+    assert sum(map(len, gpu)) > 0
+    for a, b in zip(cpu, gpu):
+        ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
+        assert [t for t, _ in ka] == [t for t, _ in kb]
+        np.testing.assert_allclose([s for _, s in kb], [s for _, s in ka], atol=1e-4, rtol=0)
+
+
+def test_free_generation_searcher_on_card_matches_cpu(cuda):
+    def run(dev):
+        s = bench_search.tiny_searcher(dev)
+        s.free_generation = True
+        return s.batch_search(bench_search.TINY_QUERIES, k=5)
+
+    cpu, gpu = run("cpu"), run(cuda)
+    assert any(gpu)
+    for a, b in zip(cpu, gpu):
+        assert [d.docid for d in b] == [d.docid for d in a]
+        np.testing.assert_allclose([d.score for d in b], [d.score for d in a], rtol=1e-4)

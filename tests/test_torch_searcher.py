@@ -188,8 +188,8 @@ def test_defaults_match_jax():
     assert TSearcher.DEFAULTS == JSearcher.DEFAULTS
 
 
-@pytest.mark.parametrize("knob", [dict(index_shards=2), dict(jobs=2), dict(free_generation=True),
-                                  dict(decode_code=True), dict(backbone="t5-small")])
+@pytest.mark.parametrize("knob", [dict(index_shards=2), dict(jobs=2), dict(decode_code=True),
+                                  dict(backbone="t5-small")])
 def test_unported_knobs_raise(searchers, knob):
     _, ts = searchers
     name, value = next(iter(knob.items()))
