@@ -74,6 +74,23 @@
    ``keep_sa`` index, against their plain versions and the host index.
    Kernels 18-19 and the new modes of 4 and 8 against their plain versions,
    kernel 19 also at k = 64 beside kernel 3.
+10. Drives constrained sampling (``sample``: kernel 20 every step, the V-wide
+   step 0 under the corpus mask; steps >= 1 through the proven loop and
+   kernel 8's candidate mode; kernel 8 selects nothing) at the generation
+   point: seeds 0 and 1 on the Psi layout (three batches each: one seed
+   gives identical hypotheses every batch, the two seeds differ, a query's
+   chains end in more than one key), the compact and hybrid layouts
+   (identical to the Psi layout's draws), ``exact_mask`` and free
+   generation; diverse groups (three groups, penalty 0.5: kernel 21 every
+   step) on the three layouts, with ``exact_mask`` and ``exact_ties``
+   (hypotheses bit-identical across layouts and between the proposal route
+   and ``exact_mask``); every key grounded; one searcher unit with
+   ``diverse_bs_groups=3``; the tiny model's sampling and diverse groups on
+   the card against its CPU path.  Kernels 20, 21 and 8's candidate mode
+   against their plain versions at the path's shapes: Philox words exactly,
+   Gumbel values within 8 ulps, draws equal away from near-ties, and 2^16
+   draws of one row against its softmax (chi-square); 21 and 8c bit for
+   bit.
 
 Each path's launch counts come from that path's own run (every count set
 to 0 just before it, read just after); on every decoding path kernels 9
@@ -122,6 +139,9 @@ REPLACES = {
     "beam_select_free": "seal_tpu/decoding/constrained.py:329",
     "beam_select_spec": "seal_tpu/decoding/constrained.py:343",
     "log_softmax_topk": "seal_tpu/decoding/constrained.py:294",
+    "sample_select": "seal_tpu/decoding/constrained.py:1092",
+    "diverse_select": "seal_tpu/decoding/constrained.py:1125",
+    "beam_candidates": "seal_tpu/decoding/constrained.py:359",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -150,6 +170,9 @@ SOURCES = {
     "beam_select_free": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "beam_select_spec": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "log_softmax_topk": ("triton", "seal_tpu_torch/kernels/triton_logsoftmax.py"),
+    "sample_select": ("cuda", "seal_tpu_torch/kernels/csrc/sample_select.cu"),
+    "diverse_select": ("cuda", "seal_tpu_torch/kernels/csrc/diverse_select.cu"),
+    "beam_candidates": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
 }
 # the kernels each driven path must launch (bucket_counts and the loop
 # rounds' merges run only in the proven loop, which the force_full re-runs
@@ -208,6 +231,27 @@ for _layout in WAVELET_LAYOUTS:
 PATH_KERNELS["generate_bos"] = PATH_KERNELS["generate"]
 PATH_KERNELS["generate_topk"] = PATH_KERNELS["generate"] + ("row_kth", "log_softmax_topk")
 PATH_KERNELS["locate"] = ("locate_rows", "doc_index_of")
+# sampling and diverse groups: kernel 20 or 21 selects every step (step 0 on
+# the V-wide rows); steps >= 1 take the proven loop's buffer (kernels 3, 1
+# or 12, kernel 8's merge) and window through kernel 8's candidate mode, or
+# the dense route (15 or 16, 17), or free generation's top-top_m (19)
+LOOP_STEP = ("row_topk", "log_softmax_min_len", "beam_merge", "beam_candidates") + ATTN_STEP
+for _mode, _select in (("sample", "sample_select"), ("diverse", "diverse_select")):
+    PATH_KERNELS[f"generate_{_mode}"] = ("fm_search", "window_gather", _select) + LOOP_STEP
+    for _layout in WAVELET_LAYOUTS:
+        PATH_KERNELS[f"generate_{_mode}_{_layout}"] = (
+            "wt_search", "wt_window_gather", _select) + LOOP_STEP
+    PATH_KERNELS[f"generate_{_mode}_dense"] = ("fm_dense_counts", "fm_search", "dense_scores",
+                                               "log_softmax_min_len", _select) + ATTN_STEP
+PATH_KERNELS["generate_sample_seed1"] = PATH_KERNELS["generate_sample"]
+PATH_KERNELS["generate_sample_free"] = ("row_select", "log_softmax_min_len",
+                                        "sample_select") + ATTN_STEP
+PATH_KERNELS["generate_diverse_ties"] = PATH_KERNELS["generate_diverse"]
+PATH_KERNELS["batch_search_diverse"] = ("fm_search", "window_gather", "fm_sequences",
+                                        "rescore_logprob", "diverse_select") + LOOP_STEP
+# the selection kernel of each path whose selection is not kernel 8's
+SELECTS = {path: ("sample_select" if "sample" in path else "diverse_select")
+           for path in PATH_KERNELS if "sample" in path or "diverse" in path}
 # the searchers' documents on the wavelet layouts against the Psi
 # searcher's: the same computation but for the index arithmetic
 LAYOUT_SEARCH_RTOL = 1e-6
@@ -229,11 +273,19 @@ LM_HEAD_ATOL = 1e-4
 # round a probability the other way; decode_attention.bf16_error_ratio <= 1),
 # f32 outputs within f32 rounding of sums of <= 14 terms
 ATTN_F32_ATOL = 1e-5
+# kernel 20 against its plain version: the Philox words are equal; logf
+# and torch's log may round a Gumbel value apart by a few ulps of max(|g|, 1)
+# (CUDA's logf is within 1 ulp; near g = 0 the outer log of a value near 1
+# keeps an absolute, not a relative, error), so a draw is compared where its
+# best two perturbed scores differ by more than 4e-5
+SAMPLE_ULPS = 8
+SAMPLE_MARGIN = 4e-5
 # the card's peaks for the bound column (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 FAILURES: list[str] = []
+CARD = "unknown"  # nvidia-smi's name and power limit, beside every kernel line
 
 
 def fail(msg: str) -> None:
@@ -269,7 +321,8 @@ def log_kernel(row) -> None:
     row["bound_ms"] = max(byte_ms, flop_ms)
     row["bound_by"] = "bytes" if byte_ms >= flop_ms else "operations"
     lib = f", library {row['library_ms']:.4f} ms" if row["library_ms"] is not None else ""
-    log(f"kernel {row['name']}: {row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms{lib}, "
+    log(f"kernel {row['name']} ({CARD}): {row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms"
+        f"{lib}, "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {row['bytes']} B) at {row['shape']}, "
         f"max err {row['max_abs_err']}"
         + "".join(f", {k} {row[k]}" for k in ("tol_ratio", "f32_max_abs_err", "step0_ms",
@@ -280,7 +333,9 @@ def log_kernel(row) -> None:
                                                "topk_dense_ms", "topk_dense_plain_ms",
                                                "default_ms", "merge_ms", "merge_plain_ms",
                                                "merge_default_ms", "k64_ms", "row_topk_k64_ms",
-                                               "library_k64_ms")
+                                               "library_k64_ms", "narrow_ms", "narrow_plain_ms",
+                                               "ulps", "chi_square_p", "ties_ms", "wide_ms",
+                                               "wide_plain_ms", "sample_ms", "spec_ms")
                   if k in row))
 
 
@@ -1273,6 +1328,180 @@ def mode_kernel_phases(np, torch, cfg, V, B, K, window):
     return table
 
 
+def draw_margin(torch, cons, noise, mask=None):
+    """Each chain's gap between its best two perturbed finite scores [rows];
+    infinite for a chain with no finite slot (it takes EOS whatever the
+    noise)."""
+    from seal_tpu_torch.kernels.beam_select import NEG_INF
+
+    if mask is not None:
+        cons = torch.where(mask, cons, NEG_INF)
+    scored = torch.where(cons > NEG_INF / 4, cons + noise, NEG_INF)
+    top2 = scored.reshape(-1, scored.shape[-1]).topk(2, -1).values
+    return torch.where(top2[:, 0] > NEG_INF / 2, top2[:, 0] - top2[:, 1], float("inf"))
+
+
+def sample_mismatches(torch, got, want, clear):
+    """Kernel 20's outputs against the plain version's on the chains whose
+    draw is clear of a near-tie (``clear`` [B*K]); floats bit for bit."""
+    B = got[0].shape[0]
+    hist = clear.reshape(B, -1).repeat(1, 2).reshape(-1)
+    return sum(mismatches(torch, (a.reshape(-1)[m],), (b.reshape(-1)[m],))
+               for a, b, m in zip(got, want, (hist,) * 4 + (clear,) * 4))
+
+
+def sample_kernel_phases(np, torch, cfg, V, B, K, window, device="cuda"):
+    """Kernel 8's candidate mode at the diverse, sampling and speculative
+    routes' widths; kernel 20 on step 0's [B*K, V] rows under a corpus mask
+    and on the sampling route's candidates (its Philox words against the
+    plain version's exactly, Gumbel values within SAMPLE_ULPS, draws equal on
+    chains clear of a near-tie, 2^16 draws of one row against its softmax);
+    kernel 21 at three groups, penalty 0.5, on the diverse route's
+    candidates in both orders and on V-wide rows; all against their plain
+    versions, timed."""
+    from scipy import stats
+
+    from seal_tpu_torch.kernels import beam_select as k8
+    from seal_tpu_torch.kernels import diverse_select as k21
+    from seal_tpu_torch.kernels import row_topk as k3
+    from seal_tpu_torch.kernels import sample_select as k20
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(20)
+    i32, rows = torch.int32, B * K
+    eos, pad = cfg.eos_token_id, cfg.pad_token_id
+    table = []
+    lp = torch.log_softmax(torch.randn(rows, V, generator=g, device=dev) * 2, -1)
+    lp[:, pad] = float("-inf")  # a SEAL-bias column
+    corpus = torch.rand(V, generator=g, device=dev) < 0.8
+    bs = torch.round(torch.randn(B, K, generator=g, device=dev) * 2) / 2 - 3
+    bs[:, 1::5] = k8.NEG_INF
+
+    def rbool(p, shape):
+        return torch.rand(shape, generator=g, device=dev) < p
+
+    def candidate_inputs(n_buf, w, keep_invalid):
+        top_lp, top_idx = k3.row_topk(lp, n_buf)
+        buf = (top_idx.to(i32).reshape(B, K, n_buf), top_lp.reshape(B, K, n_buf),
+               rbool(0.5, (B, K, n_buf)))
+        win_valid = rbool(0.7, (B, K, w))
+        win_tok = torch.where(win_valid, torch.randint(0, 400, (B, K, w), generator=g, device=dev,
+                                                       dtype=i32), pad)
+        win_lp = torch.gather(lp, 1, win_tok.reshape(rows, -1).long()).reshape(B, K, w)
+        args = (buf, n_buf, win_tok, win_valid, win_lp, rbool(0.5, (B, K, 2))[..., 1:], lp,
+                torch.randint(0, 6, (B, K), generator=g, device=dev, dtype=i32),
+                rbool(0.1, (B, K)))
+        return args, dict(eos=eos, pad=pad, keep_invalid=keep_invalid)
+
+    # kernel 8, candidate mode: the diverse proposal route (2K-slot buffer),
+    # sampling's (a max(2K, 256)-slot buffer) and the speculative round's
+    n_samp = max(2 * K, 256)
+    widths = {"diverse": (2 * K, window, False), "sample": (n_samp, window, False),
+              "spec": (256, 128, True)}
+    inputs = {r: candidate_inputs(*v) for r, v in widths.items()}
+    err8c = sum(mismatches(torch, k8.beam_candidates(*a, **kw), k8.candidates_plain(*a, **kw))
+                for a, kw in inputs.values())
+    if err8c:
+        fail(f"beam_candidates differs from its plain version ({err8c} elements)")
+    ms8 = {r: time_ms(lambda a=a, kw=kw: k8.beam_candidates(*a, **kw))
+           for r, (a, kw) in inputs.items()}
+    n8 = {r: n_buf + w + 2 for r, (n_buf, w, _) in widths.items()}
+    table.append(dict(
+        name="beam_candidates", max_abs_err=err8c, library_ms=None, ms=ms8["diverse"],
+        plain_ms=time_ms(lambda: k8.candidates_plain(*inputs["diverse"][0],
+                                                     **inputs["diverse"][1])),
+        sample_ms=ms8["sample"], spec_ms=ms8["spec"],
+        shape=f"[{B},{K},{n8['diverse']}] (sample_ms: [{B},{K},{n8['sample']}]; spec_ms: "
+              f"[{B},{K},{n8['spec']}] with keep_invalid)",
+        # buffer (tok, lp, valid), window (tok, valid, lp), EOS membership,
+        # the EOS and PAD log-probs, count and finished flag in; three outputs
+        bytes=rows * (2 * K * 9 + window * 9 + 1 + 8 + 5) + rows * n8["diverse"] * 12,
+    ))
+
+    # kernel 20: the noise, then step 0's rows and the sampling candidates
+    words, g20 = k20.noise_on_card(0, 0, rows, V, dev)
+    want_words = k20.philox_words(0, 0, rows, V, dev)
+    err_words = int((words != want_words).sum())
+    g_plain = k20.gumbel_of_words(want_words)
+    ulps = float(((g20 - g_plain).abs() / (g_plain.abs().clamp(min=1.0) * 2.0**-23)).max())
+    del words, want_words, g20, g_plain
+    args0 = (lp, lp, None, torch.zeros(B, K, device=dev), 5, 0)
+    got = k20.sample_select(*args0, eos=eos, pad=pad, mask=corpus)
+    want = k20.sample_select_plain(*args0, eos=eos, pad=pad, mask=corpus)
+    clear0 = draw_margin(torch, lp, k20.gumbel_noise(5, 0, rows, V, dev), corpus) > SAMPLE_MARGIN
+    err20 = sample_mismatches(torch, got, want, clear0)
+    tok8, cons8, lp8 = k8.beam_candidates(*inputs["sample"][0], **inputs["sample"][1])
+    args1 = (cons8, lp8, tok8, bs, 5, 3)
+    got = k20.sample_select(*args1, eos=eos, pad=pad)
+    want = k20.sample_select_plain(*args1, eos=eos, pad=pad)
+    clear1 = draw_margin(torch, cons8, k20.gumbel_noise(5, 3, rows, n8["sample"], dev)
+                         .reshape(cons8.shape)) > SAMPLE_MARGIN
+    err20 += sample_mismatches(torch, got, want, clear1)
+    # 2^16 chains of one 16-candidate row, 4 slots masked: the draws against
+    # the softmax of the 12 allowed log-probs
+    rng = np.random.default_rng(7)
+    row = torch.as_tensor(np.log(rng.dirichlet(np.ones(16))).astype(np.float32), device=dev)
+    allowed = torch.ones(16, dtype=torch.bool, device=dev)
+    allowed[[0, 5, 9, 15]] = False
+    many = row.expand(1, 1 << 16, 16).contiguous()
+    drawn = k20.sample_select(many, many, None, torch.zeros(1, 1 << 16, device=dev), 5, 3, eos=eos,
+                              pad=pad, mask=allowed)[4][0]
+    counts = torch.bincount(drawn.long(), minlength=16).cpu().numpy()
+    ok = allowed.cpu().numpy()
+    p_chi = float(stats.chisquare(counts[ok], torch.softmax(row[allowed].double(), 0).cpu()
+                                  .numpy() * (1 << 16)).pvalue)
+    if err_words or ulps > SAMPLE_ULPS or err20 or counts[~ok].sum() or p_chi <= 1e-3:
+        fail(f"sample_select: {err_words} Philox words differ, Gumbel values {ulps:.2f} ulps apart, "
+             f"{err20} outputs differ on clear draws, chi-square p {p_chi:.3g}")
+    log(f"sample_select checks: Philox words equal on [{rows},{V}]: {err_words == 0}; Gumbel "
+        f"values within {ulps:.2f} ulps of max(|g|, 1); clear draws {int(clear0.sum())}/{rows} (step 0) and "
+        f"{int(clear1.sum())}/{rows} (candidates), all equal: {err20 == 0}; 2^16 draws of one "
+        f"row: chi-square p {p_chi:.4f}")
+    table.append(dict(
+        name="sample_select", max_abs_err=err20, library_ms=None,
+        ms=time_ms(lambda: k20.sample_select(*args0, eos=eos, pad=pad, mask=corpus)),
+        plain_ms=time_ms(lambda: k20.sample_select_plain(*args0, eos=eos, pad=pad, mask=corpus),
+                         iters=3),
+        narrow_ms=time_ms(lambda: k20.sample_select(*args1, eos=eos, pad=pad)),
+        narrow_plain_ms=time_ms(lambda: k20.sample_select_plain(*args1, eos=eos, pad=pad)),
+        ulps=ulps, chi_square_p=p_chi,
+        shape=f"[{rows},{V}] under a corpus mask (narrow_ms: [{B},{K},{n8['sample']}] "
+              "candidates)",
+        # the log-probs once (cons and cand_lp are one tensor), the mask, the
+        # chain scores, the eight outputs; two logf, an add and a compare a slot
+        bytes=rows * V * 4 + V + rows * 4 + B * (2 * K * 13 + K * 13), flops=4 * rows * V,
+    ))
+
+    # kernel 21: three groups, penalty 0.5, on the diverse route's candidates
+    # (both orders) and on step 0's V-wide rows under the corpus mask
+    tok8, cons8, _ = k8.beam_candidates(*inputs["diverse"][0], **inputs["diverse"][1])
+    kw21 = dict(groups=3, penalty=0.5, eos=eos, vocab=V)
+    err21 = 0
+    for ties in (False, True):
+        err21 += mismatches(torch, k21.diverse_select(cons8, tok8, bs, ties=ties, **kw21),
+                            k21.diverse_select_plain(cons8, tok8, bs, ties=ties, **kw21))
+    wide = lp.reshape(B, K, V)
+    err21 += mismatches(torch, k21.diverse_select(wide, None, bs, mask=corpus, **kw21),
+                        k21.diverse_select_plain(wide, None, bs, mask=corpus, **kw21))
+    if err21:
+        fail(f"diverse_select differs from its plain version ({err21} elements)")
+    table.append(dict(
+        name="diverse_select", max_abs_err=err21, library_ms=None,
+        ms=time_ms(lambda: k21.diverse_select(cons8, tok8, bs, **kw21)),
+        plain_ms=time_ms(lambda: k21.diverse_select_plain(cons8, tok8, bs, **kw21)),
+        ties_ms=time_ms(lambda: k21.diverse_select(cons8, tok8, bs, ties=True, **kw21)),
+        wide_ms=time_ms(lambda: k21.diverse_select(wide, None, bs, mask=corpus, **kw21)),
+        wide_plain_ms=time_ms(lambda: k21.diverse_select_plain(wide, None, bs, mask=corpus,
+                                                               **kw21), iters=3),
+        shape=f"[{B},{K},{n8['diverse']}] in 3 groups (ties_ms: exact_ties; wide_ms: [{B},{K},"
+              f"{V}] under a corpus mask)",
+        # candidates (score, token) and beam scores in, the eight outputs
+        bytes=rows * n8["diverse"] * 8 + rows * 4 + B * (2 * K * 13 + K * 13),
+    ))
+    torch.cuda.synchronize()
+    return table
+
+
 def locate_phase(np, torch, searcher, unit, zero_counts, read_counts):
     """Kernel 18 on the ranker's workload: every occurrence row of one
     unit's keys (at most ``max_hits`` a key), located in a ``keep_sa`` copy
@@ -1339,8 +1568,8 @@ def _ban_even_tokens(logits, cur_len):
 def small_mode_parity(np, torch):
     """The decode modes on a tiny model and corpus, on the card against the
     port's CPU path: free generation, speculative, forced BOS, the top-k
-    warper and a ban-even-tokens hook; under ``topk=1`` free generation
-    collapses every query to one path."""
+    warper, a ban-even-tokens hook, sampling (one seed) and diverse groups;
+    under ``topk=1`` free generation collapses every query to one path."""
     from seal_tpu_torch.decoding.generate import fm_index_generate, pad_batch
     from seal_tpu_torch.index.device_index import TorchFMIndex
     from seal_tpu_torch.index.fm_index import FMIndex
@@ -1362,7 +1591,14 @@ def small_mode_parity(np, torch):
              "forced_bos": dict(forced_bos_token_id=0), "topk": dict(topk=5),
              "hook": dict(adjust_logits_fn=_ban_even_tokens),
              # min_length 0: under the top-1 warper a banned EOS leaves nothing
-             "free_topk1": dict(disable_fm_index=True, topk=1, min_length=0)}
+             "free_topk1": dict(disable_fm_index=True, topk=1, min_length=0),
+             # one seed on both: the same Philox draws (logf and log agree
+             # but for a near-tie)
+             "sample": dict(sample=True, seed=3),
+             "sample_dense": dict(sample=True, seed=3, exact_mask=True),
+             "diverse": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5),
+             "diverse_dense": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5, exact_mask=True),
+             "diverse_ties": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5, exact_ties=True)}
     n = 0
     for name, extra in modes.items():
         out = {dev: fm_index_generate(cfg, p, idx[dev], ids, mask, **{**base, **extra})
@@ -1394,7 +1630,8 @@ def searcher_grounding(searcher, queries):
     s = searcher
     cfg, host = s.model_cfg, s.fm_index
     inputs = [" " + q.strip() for q in queries]
-    common = dict(num_beams=s.beam, forced_bos_token_id=None, top_m=s.top_m, window=s.window)
+    common = dict(num_beams=s.beam, forced_bos_token_id=None, top_m=s.top_m, window=s.window,
+                  diverse_bs_groups=s.diverse_bs_groups, diverse_bs_penalty=s.diverse_bs_penalty)
     special = (cfg.eos_token_id, cfg.pad_token_id, cfg.bos_token_id)
     body = s._generate(s.params, s._tokenize_batch(s._marked(inputs, "body")),
                        min_length=s.length, max_length=s.length, **common)
@@ -1482,7 +1719,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     )
+    global CARD
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "unknown"
+    CARD = card
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1496,12 +1735,14 @@ def main() -> int:
         build,
         decode_attention,
         dense_scores,
+        diverse_select,
         fm_search,
         locate,
         reorder_cache,
         rescore,
         row_select,
         row_topk,
+        sample_select,
         triton_logsoftmax,
         window_gather,
         wt_bucket_counts,
@@ -1539,6 +1780,9 @@ def main() -> int:
         "beam_select_free": beam_select.FREE,
         "beam_select_spec": beam_select.SPEC,
         "log_softmax_topk": triton_logsoftmax.THRESHOLD,
+        "sample_select": sample_select.sample_select,
+        "diverse_select": diverse_select.diverse_select,
+        "beam_candidates": beam_select.beam_candidates,
     }
     by_path: dict = {}  # path -> {kernel: launches in that path's run}
     # decode steps each path runs (the beam search calls bart.decode_step
@@ -1574,8 +1818,11 @@ def main() -> int:
             # reorder and one selection: no plain attention, gather or
             # selection is left on the card, step 0 included
             n, layers = steps["n"], cfg.decoder_layers
+            select = SELECTS.get(path, "beam_select")
             want = {"cross_attention_step": layers * n, "self_attention_step": layers * n,
-                    "reorder_cache": n - no_select, "beam_select": n - no_select}
+                    "reorder_cache": n - no_select, select: n - no_select}
+            if select != "beam_select":  # kernel 20 or 21 selects, kernel 8 nothing
+                want["beam_select"] = 0
             for name, count in want.items():
                 if by_path[path][name] != count:
                     fail(f"{path}: {name} launched {by_path[path][name]} times for {n} decode "
@@ -1681,18 +1928,22 @@ def main() -> int:
         fail(f"lm_logits bf16 head is off (dtype {head.dtype}, err {head_err})")
 
     # ---- the compact and hybrid layouts at the same generation point -------
+    grounded = {}  # key -> occurs in the corpus (the host count, once a key)
+
     def hyp_keys(hyp_lists, what):
         """Check every key of ``hyp_lists`` against the host index."""
         n = 0
         for q in hyp_lists:
             for score, toks in q:
-                key = [t for t in toks[1:] if t not in special]
+                key = tuple(t for t in toks[1:] if t not in special)
                 if not np.isfinite(score):
                     fail(f"{what}: non-finite score {score} for {toks}")
                 if key:
                     n += 1
-                    if host.get_count(key) <= 0:
-                        fail(f"{what}: key not in the corpus: {key}")
+                    if key not in grounded:
+                        grounded[key] = host.get_count(list(key)) > 0
+                    if not grounded[key]:
+                        fail(f"{what}: key not in the corpus: {list(key)}")
         return n
 
     psi_bytes = index.memory_bytes()
@@ -1869,7 +2120,7 @@ def main() -> int:
     # modes, not the operating point: one warm-up and three timed batches each
     # (speculative on the wavelet layouts: one batch), counted from the
     # timed batches; q/s beside the fast path's from the top of this call
-    def run_mode(path, ix=index, batches=3, warm=True, no_select=0, **extra):
+    def run_mode(path, ix=index, batches=3, warm=True, no_select=0, outs=None, **extra):
         def once():
             out = generate.fm_index_generate(cfg, params, ix, ids, mask, **{**kw, **extra})
             torch.cuda.synchronize()
@@ -1884,6 +2135,8 @@ def main() -> int:
             t0 = time.perf_counter()
             out = once()
             ts.append(time.perf_counter() - t0)
+            if outs is not None:
+                outs.append(out)
         counts = read_counts(path, no_select=no_select * batches)
         qps = B / statistics.median(ts)
         log(f"{path}: {[round(t, 4) for t in ts]} s/batch, {qps:.1f} queries/s (fast path "
@@ -1987,8 +2240,118 @@ def main() -> int:
     t0 = time.perf_counter()
     n_small_modes = small_mode_parity(np, torch)
     log(f"small-input mode parity (card vs CPU plain path: free, speculative, forced BOS, topk, "
-        f"hook, topk=1 free): {n_small_modes} keys compared; phase wall "
+        f"hook, topk=1 free, sample, diverse): {n_small_modes} keys compared; phase wall "
         f"{time.perf_counter() - t0:.1f} s")
+    # ---- constrained sampling and diverse groups at the generation point ----
+    # modes, not the operating point: counted and timed as the decode modes
+    # above.  Sampling: kernel 20 every step (step 0 on the V-wide rows under
+    # the corpus mask), the proven loop's buffer through kernel 8's candidate
+    # mode, no selection by kernel 8.  Under one seed the draws depend only
+    # on (seed, step, chain, slot), so every batch and every layout (whose
+    # candidates are identical) gives the same hypotheses.
+    t_sd = time.perf_counter()
+    L = kw["max_length"]
+    s_outs = {0: [], 1: []}
+    _, c, nb, mode_qps["sample"] = run_mode("generate_sample", outs=s_outs[0], sample=True, seed=0)
+    n = c["decode_steps"]
+    expect("generate_sample", c, {"sample_select": n, "beam_candidates": n - nb})
+    _, c, nb, mode_qps["sample_seed1"] = run_mode("generate_sample_seed1", warm=False,
+                                                  outs=s_outs[1], sample=True, seed=1)
+    s_canon = {seed: [canon_of(o) for o in outs] for seed, outs in s_outs.items()}
+    same_seed = all(x == xs[0] for xs in s_canon.values() for x in xs)
+    seeds_differ = s_canon[0][0] != s_canon[1][0]
+    if not same_seed or not seeds_differ:
+        fail(f"generate_sample: one seed identical in every batch {same_seed}, seeds 0 and 1 "
+             f"differ {seeds_differ}")
+    n_ks = hyp_keys(s_outs[0][0], "generate_sample") + hyp_keys(s_outs[1][0], "generate_sample")
+    spread = sum(len({tuple(x for x in t[1:] if x not in special) for _, t in q if len(t) == L})
+                 > 1 for q in s_outs[0][0])
+    if 2 * spread <= B:
+        fail(f"generate_sample: the chains of {B - spread} of {B} queries end in one key")
+    sample_layouts = True
+    for layout, wix in layouts.items():
+        l_hyps, c, nb, _ = run_mode(f"generate_sample_{layout}", ix=wix, batches=1, warm=False,
+                                    sample=True, seed=0)
+        n_ks += hyp_keys(l_hyps, f"generate_sample_{layout}")
+        if canon_of(l_hyps) != s_canon[0][0]:
+            sample_layouts = False
+            fail(f"generate_sample_{layout}: draws differ from the psi layout's under one seed")
+    d_hyps, c, nb, mode_qps["sample_dense"] = run_mode(
+        "generate_sample_dense", batches=1, warm=False, sample=True, seed=0, exact_mask=True)
+    n = c["decode_steps"]
+    expect("generate_sample_dense", c, {"sample_select": n, "fm_dense_counts": n - nb,
+                                        "dense_scores": n - nb, "beam_candidates": 0,
+                                        "beam_merge": 0})
+    n_ks += hyp_keys(d_hyps, "generate_sample_dense")
+    f_hyps, c, nb, mode_qps["sample_free"] = run_mode(
+        "generate_sample_free", batches=1, warm=False, sample=True, seed=0, disable_fm_index=True)
+    n = c["decode_steps"]
+    expect("generate_sample_free", c, {"sample_select": n, "row_select": n - nb, "fm_search": 0,
+                                       "window_gather": 0, "beam_candidates": 0, "beam_merge": 0})
+    if not any(f_hyps) or not all(np.isfinite(sc) for q in f_hyps for sc, _ in q):
+        fail("generate_sample_free: no or non-finite hypotheses")
+    log(f"sampling: {n_ks} keys grounded; one seed identical in every batch: {same_seed}; seeds "
+        f"0 and 1 differ: {seeds_differ}; {spread} of {B} queries' chains end in more than one "
+        f"key; compact and hybrid draws identical to psi's: {sample_layouts}; free generation "
+        f"{sum(map(len, f_hyps))} hypotheses")
+
+    # diverse groups: three groups of five at penalty 0.5 (fairseq's
+    # --diverse-beam-strength default), kernel 21 every step.  Each beam's
+    # buffer holds its top 2K allowed tokens; the earlier groups' picks
+    # penalize at most 2/3 of them, so no token outside the buffer can enter
+    # a group's top 2*gs: the proposal route equals exact_mask bit for bit
+    dkw = dict(diverse_bs_groups=3, diverse_bs_penalty=0.5)
+    dv_hyps, c, nb, mode_qps["diverse"] = run_mode("generate_diverse", **dkw)
+    n = c["decode_steps"]
+    expect("generate_diverse", c, {"diverse_select": n, "beam_candidates": n - nb})
+    dv_canon = canon_of(dv_hyps)
+    n_kd = hyp_keys(dv_hyps, "generate_diverse")
+    dv_same = {}
+    for layout, wix in layouts.items():
+        l_hyps, *_ = run_mode(f"generate_diverse_{layout}", ix=wix, batches=1, warm=False, **dkw)
+        n_kd += hyp_keys(l_hyps, f"generate_diverse_{layout}")
+        dv_same[layout] = canon_of(l_hyps) == dv_canon
+        if not dv_same[layout]:
+            fail(f"generate_diverse_{layout}: hypotheses differ from the psi layout's")
+    dd_hyps, c, nb, mode_qps["diverse_dense"] = run_mode(
+        "generate_diverse_dense", batches=1, warm=False, exact_mask=True, **dkw)
+    n = c["decode_steps"]
+    expect("generate_diverse_dense", c, {"diverse_select": n, "fm_dense_counts": n - nb,
+                                         "dense_scores": n - nb, "beam_candidates": 0,
+                                         "beam_merge": 0})
+    n_kd += hyp_keys(dd_hyps, "generate_diverse_dense")
+    dv_same["exact_mask"] = canon_of(dd_hyps) == dv_canon
+    if not dv_same["exact_mask"]:
+        # the only admissible cause is an exact score tie at a group's cutoff:
+        # then both routes agree under exact_ties
+        ties_p, ties_d = (canon_of(generate.fm_index_generate(
+            cfg, params, index, ids, mask, **kw, **dkw, exact_ties=True, exact_mask=em))
+            for em in (False, True))
+        if ties_p != ties_d:
+            fail("generate_diverse_dense: hypotheses differ from the proposal route's, and no "
+                 "exact tie explains it")
+        else:
+            log("generate_diverse_dense: the routes differ by an exact score tie; under "
+                "exact_ties they agree")
+    dt_hyps, c, nb, mode_qps["diverse_ties"] = run_mode(
+        "generate_diverse_ties", batches=1, warm=False, exact_ties=True, **dkw)
+    n_kd += hyp_keys(dt_hyps, "generate_diverse_ties")
+    dv_same["exact_ties"] = canon_of(dt_hyps) == dv_canon
+    log(f"diverse groups: {n_kd} keys grounded; bit-identical to the psi proposal route's: "
+        f"{dv_same}; phase wall {time.perf_counter() - t_sd:.1f} s")
+    for name, extra in (("sample", dict(sample=True, seed=0)), ("diverse", dkw)):
+        p = bench_generate.profile_batch(
+            lambda extra=extra: generate.fm_index_generate(cfg, params, index, ids, mask, **kw,
+                                                           **extra))
+        log(f"{name} profiled batch (psi): {p['kernels']} kernels, device busy "
+            f"{p['device_busy_ms']:.2f} ms of {p['wall_ms']:.2f} ms wall "
+            f"({100 * p['busy_share']:.1f}%)")
+        for row in p["top"][:8]:
+            log(f"  {row['ms']:8.3f} ms {row['calls']:6d} calls  {row['name']}")
+    sd_table = sample_kernel_phases(np, torch, cfg, V, B, K, generate.resolve_window(0, K))
+    for row in sd_table:
+        log_kernel(row)
+    table += sd_table
     del layouts
 
     # ---- second path: SEALSearcher.batch_search at the e2e bench point ----
@@ -2105,6 +2468,29 @@ def main() -> int:
         + f"; {f_nonempty}/{len(unit)} results non-empty; launches {f_launches}")
     mode_qps["batch_search_free"] = len(unit) / f_search_s
     del fsearch
+    # ---- the searcher with diverse groups: one unit, Psi index ------------
+    dvsearch = SEALSearcher(searcher.fm_index, searcher.tokenizer, searcher.model_cfg,
+                            searcher.params, backbone=searcher.backbone,
+                            batch_size=searcher.batch_size, device_index=searcher.device_index,
+                            diverse_bs_groups=3, diverse_bs_penalty=0.5)
+    dvsearch.phase_timer.enabled = True
+    zero_counts()
+    t0 = time.perf_counter()
+    dv_res = dvsearch.batch_search(unit, k=bench_search.TOP_K)
+    torch.cuda.synchronize()
+    dv_search_s = time.perf_counter() - t0
+    dv_launches = read_counts("batch_search_diverse")
+    dv_nonempty = sum(1 for r in dv_res if r)
+    if not dv_nonempty or any(not all(np.isfinite([d.score for d in r])) for r in dv_res):
+        fail(f"batch_search_diverse: {dv_nonempty} non-empty results, or non-finite scores")
+    n_dv_body, n_dv_title = searcher_grounding(dvsearch, unit)
+    log(f"batch_search_diverse: one unit of {len(unit)} queries in {dv_search_s:.3f} s = "
+        f"{len(unit) / dv_search_s:.2f} queries/s (no warm-up); phases "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(dvsearch.phase_timer.totals.items()))
+        + f"; {dv_nonempty}/{len(unit)} results non-empty; {n_dv_body} raw body and "
+        f"{n_dv_title} raw title keys grounded; launches {dv_launches}")
+    mode_qps["batch_search_diverse"] = len(unit) / dv_search_s
+    del dvsearch
     loc_table = locate_phase(np, torch, searcher, unit, zero_counts, read_counts)
     for row in loc_table:
         log_kernel(row)
@@ -2200,7 +2586,8 @@ def main() -> int:
             "library_ms": row["library_ms"],
             **{k: row[k] for k in ("tol_ratio", "psi_ms", "hybrid_ms", "rank_route_ms",
                                    "default_ms", "merge_ms", "topk_dense_ms", "k64_ms",
-                                   "row_topk_k64_ms", "library_k64_ms") if k in row},
+                                   "row_topk_k64_ms", "library_k64_ms", "narrow_ms", "ties_ms",
+                                   "wide_ms", "sample_ms", "spec_ms") if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}
     if missing:

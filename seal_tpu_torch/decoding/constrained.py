@@ -51,8 +51,18 @@ What changed in translation:
   input of kernel 4.  ``adjust_logits_fn`` is a Python hook on the raw f32
   logits [rows, V], given ``cur_len`` as a Python ``int`` (a traced int32
   in JAX).  ``forced_bos_token_id`` adds one decode step that pins column 1.
-* Not ported yet (``DecodeConfig`` raises ``NotImplementedError``): the
-  sample and diverse-group modes.
+* ``sample`` (K independent sampler chains) and diverse groups
+  (``num_groups``, ``diversity_penalty``) take JAX's beam-tiled step 0 and
+  ``_candidates_general``'s routes: the proven proposal loop (its buffer
+  ``max(2K, top_m)`` wide under sampling), written out as candidates by
+  kernel 8's candidate mode; ``speculative`` through the same mode with
+  ``keep_invalid``; ``exact_mask`` through kernel 17; free generation
+  through kernel 19's top-``top_m``.  Kernel 20 draws each chain's token by
+  Gumbel-max with counter-based Philox noise keyed by (``seed``, step), in
+  place of JAX's threefry key chain: the same distribution and seed
+  contract, not the same draws.  Kernel 21 runs the groups' selection with
+  the Hamming penalty.  Step 0 hands both kernels the V-wide rows and the
+  corpus mask.
 """
 
 from __future__ import annotations
@@ -63,10 +73,18 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from seal_tpu_torch.index.fm_index import SHIFT
-from seal_tpu_torch.kernels.beam_select import NEG_INF, beam_merge, beam_select, beam_select_top
+from seal_tpu_torch.kernels.beam_select import (
+    NEG_INF,
+    beam_candidates,
+    beam_merge,
+    beam_select,
+    beam_select_top,
+)
 from seal_tpu_torch.kernels.dense_scores import dense_scores
+from seal_tpu_torch.kernels.diverse_select import diverse_select
 from seal_tpu_torch.kernels.row_select import row_kth, row_select
 from seal_tpu_torch.kernels.row_topk import row_topk
+from seal_tpu_torch.kernels.sample_select import sample_select
 from seal_tpu_torch.kernels.triton_logsoftmax import log_softmax_ban
 from seal_tpu_torch.index.wavelet import WaveletIndex
 from seal_tpu_torch.models import bart
@@ -155,26 +173,15 @@ class DecodeConfig:
     topk: int = 0  # TopKLogitsWarper on the raw logits (0 = off)
     adjust_logits_fn: Optional[Callable] = None  # (logits f32 [rows, V], cur_len: int)
     #   -> logits: a torch function on the raw logits, before the warper
-    # --- modes of the JAX package not ported yet: must stay at defaults ---
-    sample: bool = False
-    num_groups: int = 1
-    diversity_penalty: float = 0.0
+    sample: bool = False  # num_beams independent constrained samplers
+    num_groups: int = 1  # diverse beam groups
+    diversity_penalty: float = 0.0  # Hamming diversity between groups
 
     def __post_init__(self):
         if self.num_groups > 1 and self.num_beams % self.num_groups:
             raise ValueError("num_beams must be divisible by num_groups")
         if self.sample and self.num_groups > 1:
             raise ValueError("sample and diverse groups are mutually exclusive")
-        unported = {
-            "sample": self.sample,
-            "diverse groups": self.num_groups > 1 or self.diversity_penalty != 0.0,
-        }
-        asked = [name for name, on in unported.items() if on]
-        if asked:
-            raise NotImplementedError(
-                f"not ported to seal_tpu_torch yet: {', '.join(asked)} "
-                "(use seal_tpu for these modes)"
-            )
 
     @property
     def num_steps(self) -> int:
@@ -182,6 +189,18 @@ class DecodeConfig:
         if self.forced_bos_token_id is not None:
             n -= 1
         return max(n, 0)
+
+    @property
+    def group_size(self) -> int:
+        return self.num_beams // self.num_groups
+
+    @property
+    def n_buf(self) -> int:
+        """Proposal buffer slots per beam: sampling draws from the whole
+        allowed distribution, so it gets the ``top_m`` budget; beam modes
+        only ever select 2K."""
+        two_k = 2 * self.num_beams
+        return max(two_k, self.top_m) if self.sample else two_k
 
 
 @dataclasses.dataclass
@@ -241,14 +260,14 @@ def _exact_proposals(
     ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, eos_tok,
     round0_only: bool = False,
 ):
-    """Per beam, the ``2K`` best *allowed* tokens by LM log-prob.
+    """Per beam, the ``cfg.n_buf`` best *allowed* tokens by LM log-prob.
 
     Round 0 validates the exact top-``chunk`` LM tokens and enumerates a
     ``chunk``-row slab of the interval; later rounds (the full loop only)
     sweep wider chunks past the consumed (lp, token) threshold under
     bucket-support pruning until every beam is complete, covered, dead or
     exempt.  Each round's merge is kernel 8 (``beam_merge``).  Returns the
-    raw buffer (tok, lp, valid) [B, K, 2K] -- or None when every beam is
+    raw buffer (tok, lp, valid) [B, K, n_buf] -- or None when every beam is
     exempt and no round ran -- and the EOS membership; ``round0_only`` stops
     after round 0 and also returns the beams still unproven (``need``) and
     their threshold (``th_lp``).  Unfilled buffer slots become PAD
@@ -258,7 +277,7 @@ def _exact_proposals(
     B, K = lo.shape
     V = lp.shape[-1]
     dev = lo.device
-    n_buf = 2 * cfg.num_beams
+    n_buf = cfg.n_buf
     chunk = min(V, max(cfg.exact_chunk, 2 * n_buf))
     chunk_l = min(V, max(cfg.exact_loop_chunk or 4 * chunk, chunk))
 
@@ -379,17 +398,22 @@ def _dense_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam
     ``exact_ties`` order (the (beam, token) tie id rises with the index):
     the dense mode needs no tie mode.
     """
-    B = lo.shape[0]
-    V = lp.shape[-1]
-    counts = ops.dense_counts(lo, hi, cfg.dense_chunk)  # [B, K, index vocab]
-    if counts.shape[-1] != V:
-        raise ValueError(f"exact_mask: the index's vocab {counts.shape[-1]} differs from the "
-                         f"model's {V}")
-    cons = dense_scores(counts, lp, prev_count, finished, beam_scores, eos=cfg.eos_token_id,
-                        pad=cfg.pad_token_id, stop_at_count=cfg.stop_at_count,
-                        always_allow_eos=cfg.always_allow_eos)
+    cons = _dense_scores(ops, cfg, lp, lo, hi, prev_count, finished, beam_scores)
     top_cons, top_idx = row_topk(cons, 2 * K)
     return beam_select_top(top_cons, top_idx, lp, beam_scores, K, K, cfg.eos_token_id)[:8]
+
+
+def _dense_scores(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam_scores):
+    """Every beam's whole count vector (kernel 15 or 16) and the dense
+    candidate pass (kernel 17): the flat [B, K * V] allowed log-probs plus
+    the beam scores."""
+    counts = ops.dense_counts(lo, hi, cfg.dense_chunk)  # [B, K, index vocab]
+    if counts.shape[-1] != lp.shape[-1]:
+        raise ValueError(f"exact_mask: the index's vocab {counts.shape[-1]} differs from the "
+                         f"model's {lp.shape[-1]}")
+    return dense_scores(counts, lp, prev_count, finished, beam_scores, eos=cfg.eos_token_id,
+                        pad=cfg.pad_token_id, stop_at_count=cfg.stop_at_count,
+                        always_allow_eos=cfg.always_allow_eos)
 
 
 def _free_select(cfg: DecodeConfig, lp, beam_scores, K: int):
@@ -419,34 +443,92 @@ def _free_select(cfg: DecodeConfig, lp, beam_scores, K: int):
                            tokens=tok.to(torch.int32))[:8]
 
 
-def _speculative_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam_scores,
-                        K: int):
-    """The speculative mode's step: one proposal round of each beam's exact
+def _speculative_round(ops, cfg: DecodeConfig, lp, lo, hi, eos_tok):
+    """The speculative mode's one proposal round: each beam's exact
     top-``top_m`` (kernel 19), checked with one membership query (kernel 1
-    or 12, the EOS column included), plus the window (kernel 2 or 13), EOS
-    and PAD slots; the branches, first-instance dedup and selection are
-    kernel 8 with ``keep_invalid`` (a proposal that fails membership stays a
-    masked candidate, as ``_candidates_general`` :359-367 builds it)."""
-    B = lo.shape[0]
+    or 12, the EOS column included).  Returns the buffer (tok, lp, valid)
+    [B, K, top_m] and the EOS membership."""
+    B, K = lo.shape
     m = cfg.top_m
-    win_tok, win_valid, win_lp = ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id)
     top_lp, top_idx = row_select(lp, m)
     top_tok = top_idx.to(torch.int32).reshape(B, K, m)
-    eos_tok = torch.full((B, K, 1), cfg.eos_token_id, dtype=torch.int32, device=lo.device)
     ok = ops.contains(torch.cat([top_tok, eos_tok], -1), lo, hi)
-    buf = (top_tok, top_lp.reshape(B, K, m), ok[..., :m].contiguous())
+    return (top_tok, top_lp.reshape(B, K, m), ok[..., :m].contiguous()), ok[..., m:]
+
+
+def _speculative_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam_scores,
+                        K: int):
+    """The speculative mode's step: the proposal round, plus the window
+    (kernel 2 or 13), EOS and PAD slots; the branches, first-instance dedup
+    and selection are kernel 8 with ``keep_invalid`` (a proposal that fails
+    membership stays a masked candidate, as ``_candidates_general``
+    :359-367 builds it)."""
+    B = lo.shape[0]
+    win_tok, win_valid, win_lp = ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id)
+    eos_tok = torch.full((B, K, 1), cfg.eos_token_id, dtype=torch.int32, device=lo.device)
+    buf, eos_ok = _speculative_round(ops, cfg, lp, lo, hi, eos_tok)
     out, _ = beam_select(
-        buf, m, win_tok, win_valid, win_lp, ok[..., m:], lp, prev_count, finished, beam_scores,
-        K=K, eos=cfg.eos_token_id, pad=cfg.pad_token_id, stop_at_count=cfg.stop_at_count,
-        always_allow_eos=cfg.always_allow_eos, ties=cfg.exact_ties, keep_invalid=True,
+        buf, cfg.top_m, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished,
+        beam_scores, K=K, eos=cfg.eos_token_id, pad=cfg.pad_token_id,
+        stop_at_count=cfg.stop_at_count, always_allow_eos=cfg.always_allow_eos,
+        ties=cfg.exact_ties, keep_invalid=True,
     )
     return out[:8]
 
 
+def _general_candidates(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, K: int):
+    """``_candidates_general`` (:305-367) with its mask and dedup (:1394-1399):
+    the candidates of the sampling and diverse-group modes' steps >= 1.
+
+    Returns (tokens int32 or None where the token is the column, cons,
+    cand_lp), each [B, K, N]: ``cons`` holds the allowed, first-instance
+    log-probs (``NEG_INF`` elsewhere) without the beam scores.  The proven
+    proposal loop's buffer and the speculative round go through kernel 8's
+    candidate mode (N = n_buf + w + 2, slots [buffer, window, EOS, PAD]);
+    ``exact_mask`` through kernels 15/16 and 17 at zero beam scores (N = V);
+    free generation through kernel 19's exact top-``top_m`` (N = ``top_m``).
+    """
+    B = lp.shape[0] // K
+    V = lp.shape[-1]
+    if cfg.disable_fm_index:
+        top_lp, tok = row_select(lp, cfg.top_m)
+        top_lp = top_lp.reshape(B, K, -1)
+        return tok.to(torch.int32).reshape(B, K, -1), top_lp, top_lp
+    if cfg.exact_mask:
+        zero = torch.zeros((B, K), dtype=torch.float32, device=lp.device)
+        cons = _dense_scores(ops, cfg, lp, lo, hi, prev_count, finished, zero)
+        return None, cons.reshape(B, K, V), lp.reshape(B, K, V)
+    win_tok, win_valid, win_lp = ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id)
+    eos_tok = torch.full((B, K, 1), cfg.eos_token_id, dtype=torch.int32, device=lo.device)
+    if cfg.speculative:
+        n_buf = cfg.top_m
+        buf, eos_ok = _speculative_round(ops, cfg, lp, lo, hi, eos_tok)
+    else:
+        n_buf = cfg.n_buf
+        buf, eos_ok = _exact_proposals(ops, cfg, lp, lo, hi, prev_count, finished, eos_tok)
+    return beam_candidates(buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
+                           finished, eos=cfg.eos_token_id, pad=cfg.pad_token_id,
+                           stop_at_count=cfg.stop_at_count, always_allow_eos=cfg.always_allow_eos,
+                           keep_invalid=cfg.speculative)
+
+
+def _mode_select(cfg: DecodeConfig, cons, cand_lp, tokens, beam_scores, seed: int, step: int,
+                 V: int, mask=None):
+    """``dispatch_select`` (:1268-1286) for the sampling (kernel 20) and
+    diverse-group (kernel 21) modes; ``step`` keys draw ``step``'s noise,
+    ``V`` sizes the tie id's token field."""
+    if cfg.sample:
+        return sample_select(cons, cand_lp, tokens, beam_scores, seed, step,
+                             eos=cfg.eos_token_id, pad=cfg.pad_token_id, mask=mask)
+    return diverse_select(cons, tokens, beam_scores, groups=cfg.num_groups,
+                          penalty=cfg.diversity_penalty, eos=cfg.eos_token_id,
+                          ties=cfg.exact_ties, vocab=V, mask=mask)
+
+
 def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out,
-                            enc_mask) -> BeamSearchOutput:
+                            enc_mask, seed: int = 0) -> BeamSearchOutput:
     """Constrained beam search for a batch of queries (tensors on the
-    index's device)."""
+    index's device); ``seed`` keys the sampling mode's noise."""
     B = enc_out.shape[0]
     K = cfg.num_beams
     L = cfg.max_length
@@ -465,8 +547,11 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
 
     # step 0 (and the forced-BOS step) has ONE live beam per query (beam 0
     # at score 0, the rest at NEG_INF never win) and identical model state
-    # across beams: run it on [B] rows and fan out at the first selection
-    slim0 = V >= 2 * K
+    # across beams: run it on [B] rows and fan out at the first selection.
+    # Sampling (every chain live) and diverse groups (one live beam per
+    # group) keep the [B*K] rows.
+    modes = cfg.sample or cfg.num_groups > 1
+    slim0 = not modes and V >= 2 * K
     rows0 = B if slim0 else B * K
     K0 = 1 if slim0 else K
     # two [B*K]-row caches: each step's reorder (kernel 11) copies the live
@@ -477,7 +562,10 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     tokens = torch.full((B * K, L), cfg.pad_token_id, dtype=i32, device=dev)
     tokens[:, 0] = cfg.decoder_start_token_id
     beam_scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
-    beam_scores[:, 0] = 0.0
+    if cfg.sample:
+        beam_scores.fill_(0.0)  # independent chains, all live
+    else:  # beam 0 of each group (diverse groups), else of the query
+        beam_scores[:, ::cfg.group_size] = 0.0
     if not constrained:
         lo0 = hi0 = None
     elif cfg.force_decoding_from:
@@ -511,19 +599,24 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
         cross_kv, enc_bias,
     )
     lp = _log_softmax(logits, start_col, cfg)  # [rows0, V]
-    cons0 = lp.reshape(B, K0, V)
+    corpus_mask = None
     if constrained:
         corpus_mask = ops.corpus_mask()
         if cfg.always_allow_eos:
             corpus_mask = corpus_mask.clone()
             corpus_mask[cfg.eos_token_id] = True
-        cons0 = torch.where(corpus_mask, cons0, NEG_INF)
-    # kernel 3 ranks the V-wide rows; kernel 8 takes its top-2K from there
-    cons0 = cons0 + beam_scores[:, :K0, None]
-    top_cons, top_idx = row_topk(cons0.reshape(B, K0 * V), 2 * K)
-    c_tok, c_par, c_sco, c_fin, sel_tok, sel_par, beam_scores, sel_fin = beam_select_top(
-        top_cons, top_idx, lp, beam_scores, K0, K, cfg.eos_token_id
-    )[:8]
+    if modes:
+        # kernel 20 or 21 reads the V-wide rows under the corpus mask
+        out = _mode_select(cfg, lp, lp, None, beam_scores, seed, 0, V, mask=corpus_mask)
+    else:
+        cons0 = lp.reshape(B, K0, V)
+        if corpus_mask is not None:
+            cons0 = torch.where(corpus_mask, cons0, NEG_INF)
+        # kernel 3 ranks the V-wide rows; kernel 8 takes its top-2K from there
+        cons0 = cons0 + beam_scores[:, :K0, None]
+        top_cons, top_idx = row_topk(cons0.reshape(B, K0 * V), 2 * K)
+        out = beam_select_top(top_cons, top_idx, lp, beam_scores, K0, K, cfg.eos_token_id)
+    c_tok, c_par, c_sco, c_fin, sel_tok, sel_par, beam_scores, sel_fin = out[:8]
     tainted = ~sel_fin
 
     # fan out: tokens live in [B*K] rows (identical per query), the cache
@@ -532,6 +625,7 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     tokens[:, start_col] = sel_tok.reshape(-1)
     self_cache = bart.reorder_cache(self_cache, (brow * K0 + sel_par).reshape(-1), step=pos0,
                                     out=caches[1])
+    prev_count = lo = hi = None  # free generation keeps no constraint state
     if constrained:
         prev_count = _gather(ops.range_size(lo0, hi0), sel_par)
         lo, hi = ops.extend(sel_tok, _gather(lo0, sel_par), _gather(hi0, sel_par))
@@ -548,7 +642,11 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
         )
         lp = _log_softmax(logits, cur_col + 1, cfg)
         finished = ((last == cfg.eos_token_id) | (last == cfg.pad_token_id)).reshape(B, K)
-        if not constrained:
+        if modes:
+            tok_c, cons, cand_lp = _general_candidates(ops, cfg, lp, lo, hi, prev_count, finished,
+                                                       K)
+            out = _mode_select(cfg, cons, cand_lp, tok_c, beam_scores, seed, t + 1, V)
+        elif not constrained:
             out = _free_select(cfg, lp, beam_scores, K)
         elif cfg.exact_mask:
             out = _dense_select(ops, cfg, lp, lo, hi, prev_count, finished, beam_scores, K)

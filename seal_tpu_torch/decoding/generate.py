@@ -98,10 +98,10 @@ def _to_host(out: BeamSearchOutput) -> BeamSearchOutput:
     )
 
 
-def _search(model_cfg, params, index, dcfg, ids, mask) -> BeamSearchOutput:
+def _search(model_cfg, params, index, dcfg, ids, mask, seed: int = 0) -> BeamSearchOutput:
     with torch.inference_mode():
         enc = bart.encode(model_cfg, params, ids, mask)
-        return constrained_beam_search(model_cfg, params, index, dcfg, enc, mask)
+        return constrained_beam_search(model_cfg, params, index, dcfg, enc, mask, seed=seed)
 
 
 def fm_index_generate_async(
@@ -135,7 +135,7 @@ def fm_index_generate_async(
     adjust_logits_fn=None,
     diverse_bs_groups: int = 1,
     diverse_bs_penalty: float = 0.0,
-    seed: int = 0,  # read by the sample mode only (not ported)
+    seed: int = 0,  # keys the sample mode's noise
     mesh=None,
     force_full: bool = False,
 ):
@@ -146,13 +146,16 @@ def fm_index_generate_async(
     the proven loop from the start (a check of the fast path: the
     hypotheses must be identical).  Takes every keyword of the JAX
     function: ``disable_fm_index`` (free generation), ``speculative``,
-    ``topk``, ``forced_bos_token_id`` and ``adjust_logits_fn`` (a torch
+    ``topk``, ``forced_bos_token_id``, ``adjust_logits_fn`` (a torch
     function of the raw f32 logits [rows, V] and ``cur_len``, a Python
-    ``int``) run as in JAX.  Modes not ported yet raise
-    ``NotImplementedError`` (``sample`` and diverse groups from
-    ``DecodeConfig``, and a ``mesh``)."""
+    ``int``), ``sample`` with its ``seed`` and diverse groups
+    (``diverse_bs_groups``, ``diverse_bs_penalty``) run as in JAX; the
+    sampler's noise is the port's own (counter-based Philox keyed by
+    ``seed``), so a seed gives other draws than JAX's.  A ``mesh``
+    (data-parallel decode) is not ported and raises
+    ``NotImplementedError``."""
     del length_penalty, keep_history  # no effect on the exact beam path
-    del exact_topk_blk, seed
+    del exact_topk_blk
     if mesh is not None:
         raise NotImplementedError("not ported to seal_tpu_torch yet: mesh (data-parallel decode)")
     dev = index.device
@@ -193,7 +196,7 @@ def fm_index_generate_async(
         diversity_penalty=diverse_bs_penalty,
         force_full=force_full,
     )
-    out = _search(model_cfg, params, index, dcfg, ids, mask)
+    out = _search(model_cfg, params, index, dcfg, ids, mask, seed)
 
     def finalize() -> List[List[Tuple[float, List[int]]]]:
         fetched = _to_host(out)
@@ -204,7 +207,7 @@ def fm_index_generate_async(
             # some step's round-0 candidate set could not be proven
             # sufficient: redecode the batch through the proven loop
             full = dataclasses.replace(dcfg, force_full=True)
-            fetched = _to_host(_search(model_cfg, params, index, full, ids, mask))
+            fetched = _to_host(_search(model_cfg, params, index, full, ids, mask, seed))
         return extract_hypotheses(fetched, dcfg)
 
     return finalize

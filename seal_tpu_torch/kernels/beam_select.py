@@ -25,7 +25,7 @@ tie id), stably; torch has int64, so JAX's two-key ``lax.sort`` (a
 workaround for x64 being off) is not carried over.  Launches in that mode
 also count on ``TIES``.
 
-Two more modes, for the decode modes of ``_candidates_general`` (:305):
+Three more modes, for the decode modes of ``_candidates_general`` (:305):
 
 * ``beam_select(..., keep_invalid=True)`` (speculative, :343-367): the
   buffer is the LM proposal round itself, and a slot that fails membership
@@ -36,6 +36,11 @@ Two more modes, for the decode modes of ``_candidates_general`` (:305):
   ranked flat axis is [B, n_par * ncand] slots of a per-beam token table
   (kernel 19's top-``top_m``), token = table[parent, slot % ncand].  Counts
   on ``FREE``.
+* ``beam_candidates`` (sampling and diverse groups, :359-367 with
+  ``_dedup_mask`` :1394-1399): ``beam_select``'s candidates, the branches
+  and first-instance dedup applied, written out in slot order (token,
+  constrained log-prob, log-prob) for kernels 20 and 21 to select from; no
+  selection.  Its plain version is ``beam_select``'s first half.
 """
 
 from __future__ import annotations
@@ -231,10 +236,11 @@ def _epilogue(top_cons, top_idx, flat_uncons, flat_tok, ncand, K, eos):
     )
 
 
-def beam_select_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
-                      finished, beam_scores, need, th_lp, *, K: int, eos: int, pad: int,
-                      stop_at_count: int, always_allow_eos: bool, ties: bool = False,
-                      keep_invalid: bool = False):
+def candidates_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
+                     finished, *, eos: int, pad: int, stop_at_count: int = 0,
+                     always_allow_eos: bool = False, keep_invalid: bool = False):
+    """The candidates of ``beam_select`` before selection: (tokens,
+    constrained log-probs, log-probs) [B, n_par, n_buf + w + 2]."""
     B, n_par = prev_count.shape
     dev = lp.device
     eos_lp = lp[:, eos].reshape(B, n_par, 1)
@@ -260,6 +266,16 @@ def beam_select_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, p
                              stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
     # proposal slots can repeat a window token; keep one per token id
     cons = torch.where(allowed & dedup_mask(tokens), cand_lp, NEG_INF)
+    return tokens, cons, cand_lp
+
+
+def beam_select_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
+                      finished, beam_scores, need, th_lp, *, K: int, eos: int, pad: int,
+                      stop_at_count: int, always_allow_eos: bool, ties: bool = False,
+                      keep_invalid: bool = False):
+    tokens, cons, cand_lp = candidates_plain(
+        buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished, eos=eos, pad=pad,
+        stop_at_count=stop_at_count, always_allow_eos=always_allow_eos, keep_invalid=keep_invalid)
     bs = beam_scores[..., None]
     out = select_top_plain(cons + bs, cand_lp + bs, tokens, K, eos,
                            tie_vocab=lp.shape[-1] if ties else None)
@@ -305,36 +321,25 @@ def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_co
     if build.lib().seal_beam_select_smem(n, 2 * K, K, int(ties)) > build.SMEM_LIMIT:
         raise ValueError(f"beam_select: {n} candidates per query exceed the shared memory")
     bits = tie_bits(lp.shape[-1], n_par) if ties else 0
-    if lp.dtype != torch.float32 or lp.stride(1) != 1 or lp.shape[0] != B * n_par:
-        raise ValueError("beam_select: lp must be f32 [B*n_par, V] with unit column stride")
     if (need is None) != (th_lp is None):
         raise ValueError("beam_select: need and th_lp go together")
-    win_tok, win_valid, win_lp = (t.contiguous() for t in (win_tok, win_valid, win_lp))
-    prev_count = prev_count.to(torch.int32).contiguous()
-    finished, beam_scores = finished.contiguous(), beam_scores.contiguous()
-    _check(win_tok, torch.int32, win_valid, torch.bool, win_lp, torch.float32, eos_ok,
-           torch.bool, finished, torch.bool, beam_scores, torch.float32)
-    eos_stride = _row_stride(eos_ok, "eos_ok")
-    if buf is not None:
-        buf = tuple(t.contiguous() for t in buf)
-        _check(buf[0], torch.int32, buf[1], torch.float32, buf[2], torch.bool)
-        if buf[0].shape[-1] != n_buf:
-            raise ValueError("beam_select: buffer width differs from n_buf")
+    keep, args = _candidate_args(buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
+                                 finished, "beam_select")
+    beam_scores = beam_scores.contiguous()
+    _check(beam_scores, torch.float32)
     if need is not None:
         need, th_lp = need.contiguous(), th_lp.contiguous()
         _check(need, torch.bool, th_lp, torch.float32)
     dev = lp.device
     outs = _select_outputs(B, K, dev)
     unsound = torch.empty((B,), dtype=torch.bool, device=dev) if need is not None else None
-    ptr = (lambda i: buf[i].data_ptr()) if buf is not None else (lambda i: None)
     opt = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     rc = build.lib().seal_beam_select(
-        ptr(0), ptr(1), ptr(2), win_tok.data_ptr(), win_valid.data_ptr(), win_lp.data_ptr(),
-        eos_ok.data_ptr(), eos_stride, lp.data_ptr(), lp.stride(0), prev_count.data_ptr(),
-        finished.data_ptr(), beam_scores.data_ptr(), opt(need), opt(th_lp), B, n_par, n_buf, w,
-        K, eos, pad, stop_at_count, int(always_allow_eos), bits, int(keep_invalid), NEG_INF,
+        *args, beam_scores.data_ptr(), opt(need), opt(th_lp), B, n_par, n_buf, w, K, eos, pad,
+        stop_at_count, int(always_allow_eos), bits, int(keep_invalid), NEG_INF,
         *(t.data_ptr() for t in outs), opt(unsound), build.stream_ptr(lp),
     )
+    del keep
     build.check(rc, "beam_select")
     beam_select.launches += 1
     TIES.launches += int(ties)
@@ -343,6 +348,51 @@ def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_co
 
 
 beam_select.launches = 0
+
+
+def beam_candidates(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished,
+                    *, eos: int, pad: int, stop_at_count: int = 0, always_allow_eos: bool = False,
+                    keep_invalid: bool = False):
+    """The candidate mode: ``beam_select``'s candidates of each beam, the
+    branches and first-instance dedup applied, without selecting.
+
+    Takes ``beam_select``'s candidate inputs and returns (tokens int32,
+    constrained log-probs f32 -- ``NEG_INF`` where not allowed or a repeat
+    --, log-probs f32), each [B, n_par, n_buf + w + 2] in slot order
+    [buffer, window, EOS, PAD].
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    kw = dict(eos=eos, pad=pad, stop_at_count=stop_at_count, always_allow_eos=always_allow_eos,
+              keep_invalid=keep_invalid)
+    if not lp.is_cuda:
+        return candidates_plain(buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
+                                finished, **kw)
+    from seal_tpu_torch.kernels import build
+
+    B, n_par = prev_count.shape
+    w = win_tok.shape[-1]
+    ncand = n_buf + w + 2
+    if 4 * ncand > build.SMEM_LIMIT:
+        raise ValueError(f"beam_candidates: {ncand} candidates per beam exceed the shared memory")
+    keep, args = _candidate_args(buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
+                                 finished, "beam_candidates")
+    dev = lp.device
+    tokens = torch.empty((B, n_par, ncand), dtype=torch.int32, device=dev)
+    cons = torch.empty((B, n_par, ncand), dtype=torch.float32, device=dev)
+    cand_lp = torch.empty((B, n_par, ncand), dtype=torch.float32, device=dev)
+    rc = build.lib().seal_beam_candidates(
+        *args, B * n_par, n_buf, w, eos, pad, stop_at_count, int(always_allow_eos),
+        int(keep_invalid), NEG_INF, tokens.data_ptr(), cons.data_ptr(), cand_lp.data_ptr(),
+        build.stream_ptr(lp),
+    )
+    del keep
+    build.check(rc, "beam_candidates")
+    beam_candidates.launches += 1
+    return tokens, cons, cand_lp
+
+
+beam_candidates.launches = 0
 
 
 def beam_select_top_plain(top_cons, top_idx, lp, beam_scores, n_par: int, K: int, eos: int,
@@ -404,6 +454,34 @@ def beam_select_top(top_cons, top_idx, lp, beam_scores, n_par: int, K: int, eos:
     beam_select.launches += 1
     FREE.launches += int(tokens is not None)
     return outs
+
+
+def _candidate_args(buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished,
+                    name):
+    """Checks the candidate inputs that ``beam_select`` and
+    ``beam_candidates`` share and returns (the tensors the pointers point
+    into, which the caller keeps alive over the call; the C arguments buffer
+    tok/lp/valid, window tok/valid/lp, eos_ok and its row stride, lp and its
+    row stride, prev_count, finished)."""
+    B, n_par = prev_count.shape
+    if lp.dtype != torch.float32 or lp.stride(1) != 1 or lp.shape[0] != B * n_par:
+        raise ValueError(f"{name}: lp must be f32 [B*n_par, V] with unit column stride")
+    win_tok, win_valid, win_lp = (t.contiguous() for t in (win_tok, win_valid, win_lp))
+    prev_count = prev_count.to(torch.int32).contiguous()
+    finished = finished.contiguous()
+    _check(win_tok, torch.int32, win_valid, torch.bool, win_lp, torch.float32, eos_ok,
+           torch.bool, finished, torch.bool)
+    eos_stride = _row_stride(eos_ok, "eos_ok")
+    if buf is not None:
+        buf = tuple(t.contiguous() for t in buf)
+        _check(buf[0], torch.int32, buf[1], torch.float32, buf[2], torch.bool)
+        if buf[0].shape[-1] != n_buf:
+            raise ValueError(f"{name}: buffer width differs from n_buf")
+    keep = (buf, win_tok, win_valid, win_lp, prev_count, finished)
+    ptrs = tuple(t.data_ptr() for t in buf) if buf is not None else (None, None, None)
+    return keep, (*ptrs, win_tok.data_ptr(), win_valid.data_ptr(), win_lp.data_ptr(),
+                  eos_ok.data_ptr(), eos_stride, lp.data_ptr(), lp.stride(0),
+                  prev_count.data_ptr(), finished.data_ptr())
 
 
 def _select_outputs(B, K, dev):

@@ -28,9 +28,10 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu", "bucket_counts.cu", "rescore.cu",
            "beam_select.cu", "decode_attention.cu", "reorder_cache.cu", "wt_search.cu",
            "wt_window.cu", "wt_bucket_counts.cu", "dense_scores.cu", "locate.cu",
-           "row_select.cu")
-# included by the wt_*.cu sources, and by fm_search.cu and wt_search.cu
-HEADERS = ("wt_common.cuh", "dense_counts.cuh")
+           "row_select.cu", "sample_select.cu", "diverse_select.cu")
+# included by the wt_*.cu sources, by fm_search.cu and wt_search.cu, and by
+# beam_select.cu and diverse_select.cu
+HEADERS = ("wt_common.cuh", "dense_counts.cuh", "select_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -110,10 +111,27 @@ SIGNATURES = {
     "seal_locate": [_P, _I, _P, _L, _I, _P, _P],
     # x, n_rows, width, k, kth_only, vals, idx, kth, stream
     "seal_row_select": [_P, _L, _I, _I, _I, _P, _P, _P, _P],
+    # buf_tok, buf_lp, buf_valid, win_tok, win_valid, win_lp, eos_ok,
+    # eos_ok_stride, lp, lp_stride, prev_count, finished, rows, n_buf, w, eos,
+    # pad, stop_at_count, always_allow_eos, keep_invalid, neg_inf, tok, cons,
+    # cand_lp, stream
+    "seal_beam_candidates": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I,
+                             _I, _I, _I, _F, _P, _P, _P, _P],
+    # cons, cand_lp, tokens (None: token = column), mask (None), beam_scores,
+    # rows, K, N, seed, step, eos, pad, neg_inf, 8 outputs, stream
+    "seal_sample_select": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I, _F] + [_P] * 9,
+    # rows, n, seed, step, words, g, stream
+    "seal_gumbel_noise": [_L, _I, _L, _L, _P, _P, _P],
+    # cons, tokens (None: token = column), mask (None), beam_scores, n_queries,
+    # K, N, G, eos, tie_bits (0: lax.top_k's order), penalize, penalty,
+    # neg_inf, part_key, part_slot, 8 outputs, stream
+    "seal_diverse_select": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P]
+                           + [_P] * 9,
 }
 # C functions that return a size rather than an error code
 SIZE_QUERIES = {"seal_beam_merge_smem": [_I, _I], "seal_beam_select_smem": [_I, _I, _I, _I],
-                "seal_decode_attention_smem": [_I, _I, _I], "seal_row_select_max_k": []}
+                "seal_decode_attention_smem": [_I, _I, _I], "seal_row_select_max_k": [],
+                "seal_diverse_chunks": [_I], "seal_diverse_smem": [_I, _I, _I]}
 
 # shared memory one block may opt into on Hopper (the wrappers refuse shapes
 # that need more)

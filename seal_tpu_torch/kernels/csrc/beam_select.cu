@@ -9,11 +9,9 @@
 //             _dedup_mask (:1014), _select (:1046) and the soundness test
 //             (:889-894); and step 0's selection epilogue after kernel 3.
 //
-// Order: lax.top_k's.  Each candidate maps to a 64-bit key, (monotone f32
-// bits << 32) | ~slot, so the largest key is the best score and, among equal
-// scores, the lowest slot; +0.0 ranks above -0.0 (f32 total order, as
-// lax.top_k).  A CTA sorts its keys descending with a bitonic network in
-// shared memory and reads the first n.  The float outputs are selected
+// Order: lax.top_k's, as 64-bit keys (select_common.cuh).  A CTA sorts its
+// keys descending with a bitonic network in shared memory and reads the
+// first n.  The float outputs are selected
 // values and one f32 add (score + beam score, in the order of the plain
 // code), so every output equals the plain version bit for bit.
 //
@@ -36,62 +34,13 @@
 // fast path makes it a PAD candidate at PAD's log-prob (:798-799); and the
 // step-0 epilogue with a token table (free generation, :329-336) reads the
 // token of flat slot f from table[parent, f % ncand] instead of f % V.
+// The candidate mode (sampling and diverse groups, _candidates_general
+// :359-367) writes select's candidates, branches and dedup applied, and
+// selects nothing.
 
-#include <cuda_runtime.h>
+#include "select_common.cuh"
 
 namespace {
-
-typedef unsigned long long u64;
-
-__device__ __forceinline__ u64 pack(float v, int slot) {
-  const unsigned u = __float_as_uint(v);
-  const unsigned mono = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((u64)mono << 32) | (u64)(~(unsigned)slot);
-}
-
-__device__ __forceinline__ float key_value(u64 key) {
-  const unsigned mono = (unsigned)(key >> 32);
-  const unsigned u = (mono & 0x80000000u) ? (mono & 0x7fffffffu) : ~mono;
-  return __uint_as_float(u);
-}
-
-__device__ __forceinline__ int key_slot(u64 key) {
-  return (int)(~(unsigned)(key & 0xffffffffull));
-}
-
-// Descending bitonic sort of n2 (a power of two) keys in shared memory; the
-// caller pads with key 0, which sorts last (real keys are >= 2^32).  With
-// TIES, slots[i] travels with keys[i] and breaks equal keys, lower slot
-// first (the caller pads slots with INT_MAX); without, keys are unique.
-template <bool TIES>
-__device__ void sort_desc(u64* keys, int* slots, int n2) {
-  for (int size = 2; size <= n2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      __syncthreads();
-      for (int t = threadIdx.x; t < n2 / 2; t += blockDim.x) {
-        const int lo = 2 * t - (t & (stride - 1));
-        const int hi = lo + stride;
-        const bool desc = (lo & size) == 0;
-        const u64 a = keys[lo], b = keys[hi];
-        bool b_first = a < b, a_first = a > b;  // b (a) ranks strictly before a (b)
-        if (TIES && a == b) {
-          b_first = slots[hi] < slots[lo];
-          a_first = !b_first;
-        }
-        if (desc ? b_first : a_first) {
-          keys[lo] = b;
-          keys[hi] = a;
-          if (TIES) {
-            const int sa = slots[lo];
-            slots[lo] = slots[hi];
-            slots[hi] = sa;
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
 
 // ---------------------------------------------------------------- merge
 
@@ -249,6 +198,58 @@ struct SelectIn {
   int keep_invalid;  // a buffer slot that is not valid keeps its token and lp
 };
 
+// Candidate slot j of beam row `row` (buffer [n_buf], window [w], EOS, PAD):
+// its token and log-prob.  An unfilled buffer slot (or every buffer slot,
+// when there is no buffer) is a PAD candidate at PAD's log-prob, unless
+// keep_invalid keeps a buffer slot's own token and log-prob.
+__device__ __forceinline__ void load_slot(const SelectIn& in, long long row, int j, int n_buf,
+                                          int w, int eos, int pad, int* tok, float* lp) {
+  if (j < n_buf) {
+    const bool v = in.buf_tok != nullptr &&
+                   (in.keep_invalid || in.buf_valid[row * n_buf + j] != 0);
+    *tok = v ? in.buf_tok[row * n_buf + j] : pad;
+    *lp = v ? in.buf_lp[row * n_buf + j] : in.lp[row * in.lp_stride + pad];
+  } else if (j < n_buf + w) {
+    *tok = in.win_tok[row * w + (j - n_buf)];
+    *lp = in.win_lp[row * w + (j - n_buf)];
+  } else if (j == n_buf + w) {
+    *tok = eos;
+    *lp = in.lp[row * in.lp_stride + eos];
+  } else {
+    *tok = pad;
+    *lp = in.lp[row * in.lp_stride + pad];
+  }
+}
+
+// The reference branches (_apply_branches): a stop-forced beam allows only
+// EOS, a finished beam only PAD, any other the slot's FM membership;
+// always_allow_eos adds EOS.
+__device__ __forceinline__ bool slot_allowed(const SelectIn& in, long long row, int j, int tok,
+                                             int n_buf, int w, int eos, int pad,
+                                             int stop_at_count, int always_allow_eos) {
+  bool fm_valid;
+  if (j < n_buf)
+    fm_valid = in.buf_tok != nullptr && in.buf_valid[row * n_buf + j] != 0;
+  else if (j < n_buf + w)
+    fm_valid = in.win_valid[row * w + (j - n_buf)] != 0;
+  else if (j == n_buf + w)
+    fm_valid = in.eos_ok[row * in.eos_ok_stride] != 0;
+  else
+    fm_valid = false;
+  const bool fin = in.finished[row] != 0;
+  const int count_eff = fin ? 0 : in.prev_count[row];
+  const bool stop_trig = stop_at_count > 0 && count_eff <= stop_at_count;
+  const bool allowed = stop_trig ? tok == eos : (fin ? tok == pad : fm_valid);
+  return allowed || (always_allow_eos && tok == eos);
+}
+
+// True where s_tok[f] is the first instance of its token in s_tok[first..f].
+__device__ __forceinline__ bool first_instance(const int* s_tok, int first, int f) {
+  for (int i = first; i < f; ++i)
+    if (s_tok[i] == s_tok[f]) return false;
+  return true;
+}
+
 // One CTA per query: the n_par * ncand candidates (ncand = n_buf + w + 2:
 // buffer, window, EOS, PAD) of its beams.  With TIES, equal scores order by
 // (parent beam, token): tie id (k << tie_bits) + token, the token clipped
@@ -274,28 +275,8 @@ __global__ void select_kernel(SelectIn in, SelectOut o, unsigned char* unsound, 
   const float* bs_row = in.beam_scores + b * n_par;
 
   for (int f = threadIdx.x; f < n; f += blockDim.x) {
-    const int k = f / ncand, j = f - k * ncand;
-    const long long row = b * n_par + k;
-    int tok;
-    float lp;
-    if (j < n_buf) {
-      const bool v = in.buf_tok != nullptr &&
-                     (in.keep_invalid || in.buf_valid[row * n_buf + j] != 0);
-      // unfilled slots are PAD candidates at PAD's log-prob
-      tok = v ? in.buf_tok[row * n_buf + j] : pad;
-      lp = v ? in.buf_lp[row * n_buf + j] : in.lp[row * in.lp_stride + pad];
-    } else if (j < n_buf + w) {
-      tok = in.win_tok[row * w + (j - n_buf)];
-      lp = in.win_lp[row * w + (j - n_buf)];
-    } else if (j == n_buf + w) {
-      tok = eos;
-      lp = in.lp[row * in.lp_stride + eos];
-    } else {
-      tok = pad;
-      lp = in.lp[row * in.lp_stride + pad];
-    }
-    s_tok[f] = tok;
-    s_lp[f] = lp;
+    const int k = f / ncand;
+    load_slot(in, b * n_par + k, f - k * ncand, n_buf, w, eos, pad, &s_tok[f], &s_lp[f]);
     if (TIES) s_slot[f] = f;
   }
   for (int f = n + threadIdx.x; f < n2; f += blockDim.x) {
@@ -307,28 +288,10 @@ __global__ void select_kernel(SelectIn in, SelectOut o, unsigned char* unsound, 
     const int k = f / ncand, j = f - k * ncand;
     const long long row = b * n_par + k;
     const int tok = s_tok[f];
-    bool keep = true;  // first instance of the token within the beam
-    for (int i = k * ncand; i < f; ++i) {
-      if (s_tok[i] == tok) {
-        keep = false;
-        break;
-      }
-    }
-    bool fm_valid;
-    if (j < n_buf)
-      fm_valid = in.buf_tok != nullptr && in.buf_valid[row * n_buf + j] != 0;
-    else if (j < n_buf + w)
-      fm_valid = in.win_valid[row * w + (j - n_buf)] != 0;
-    else if (j == n_buf + w)
-      fm_valid = in.eos_ok[row * in.eos_ok_stride] != 0;
-    else
-      fm_valid = false;
-    const bool fin = in.finished[row] != 0;
-    const int count_eff = fin ? 0 : in.prev_count[row];
-    const bool stop_trig = stop_at_count > 0 && count_eff <= stop_at_count;
-    bool allowed = stop_trig ? tok == eos : (fin ? tok == pad : fm_valid);
-    if (always_allow_eos) allowed = allowed || tok == eos;
-    const float cons = (allowed && keep) ? s_lp[f] : neg_inf;
+    const bool allowed = first_instance(s_tok, k * ncand, f) &&
+                         slot_allowed(in, row, j, tok, n_buf, w, eos, pad, stop_at_count,
+                                      always_allow_eos);
+    const float cons = allowed ? s_lp[f] : neg_inf;
     const int tie = TIES ? (k << tie_bits) + min(max(tok, 0), (1 << tie_bits) - 1) : f;
     keys[f] = pack(__fadd_rn(cons, bs_row[k]), tie);
   }
@@ -355,6 +318,33 @@ __global__ void select_kernel(SelectIn in, SelectOut o, unsigned char* unsound, 
       if (in.need[row] != 0 && __fadd_rn(bs_row[k], in.th_lp[row]) >= s_star) bad = 1;
     }
     unsound[b] = bad;
+  }
+}
+
+// The candidate mode (_candidates_general :359-367 with _apply_branches and
+// _dedup_mask, :1394-1399): one CTA per beam row writes its ncand candidates
+// in slot order -- token, constrained log-prob (NEG_INF where the branches or
+// the first-instance dedup drop the slot) and log-prob -- and selects
+// nothing.  Sampling and diverse groups select from them (kernels 20, 21).
+__global__ void candidates_kernel(SelectIn in, int n_buf, int w, int eos, int pad,
+                                  int stop_at_count, int always_allow_eos, float neg_inf,
+                                  int* out_tok, float* out_cons, float* out_lp) {
+  extern __shared__ unsigned long long smem[];
+  int* s_tok = (int*)smem;
+  const int ncand = n_buf + w + 2;
+  const long long row = blockIdx.x;
+  for (int j = threadIdx.x; j < ncand; j += blockDim.x) {
+    float lp;
+    load_slot(in, row, j, n_buf, w, eos, pad, &s_tok[j], &lp);
+    out_tok[row * ncand + j] = s_tok[j];
+    out_lp[row * ncand + j] = lp;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < ncand; j += blockDim.x) {
+    const bool ok = first_instance(s_tok, 0, j) &&
+                    slot_allowed(in, row, j, s_tok[j], n_buf, w, eos, pad, stop_at_count,
+                                 always_allow_eos);
+    out_cons[row * ncand + j] = ok ? out_lp[row * ncand + j] : neg_inf;
   }
 }
 
@@ -385,18 +375,6 @@ __global__ void select_top_kernel(const float* top_cons, const long long* top_id
   __syncthreads();
   select_epilogue(b, two_k, k_out, ncand, eos, neg_inf, e_cons, e_slot, e_tok, e_lp,
                   beam_scores + b * bs_stride, o, s_cont);
-}
-
-int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
-
-template <typename K>
-int set_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
@@ -461,6 +439,27 @@ int seal_beam_select(const int* buf_tok, const float* buf_lp, const unsigned cha
   kernel<<<(unsigned)n_queries, threads, smem, (cudaStream_t)stream>>>(
       in, o, unsound, n_par, n_buf, w, two_k, k_out, n2, eos, pad, stop_at_count,
       always_allow_eos, tie_bits, neg_inf);
+  return (int)cudaGetLastError();
+}
+
+int seal_beam_candidates(const int* buf_tok, const float* buf_lp, const unsigned char* buf_valid,
+                         const int* win_tok, const unsigned char* win_valid, const float* win_lp,
+                         const unsigned char* eos_ok, long long eos_ok_stride, const float* lp,
+                         long long lp_stride, const int* prev_count,
+                         const unsigned char* finished, long long rows, int n_buf, int w, int eos,
+                         int pad, int stop_at_count, int always_allow_eos, int keep_invalid,
+                         float neg_inf, int* out_tok, float* out_cons, float* out_lp,
+                         void* stream) {
+  if (rows <= 0) return (int)cudaGetLastError();
+  const SelectIn in{buf_tok, buf_lp,     buf_valid,  win_tok,  win_valid, win_lp,
+                    eos_ok,  eos_ok_stride, lp,      lp_stride, prev_count, finished,
+                    nullptr, nullptr,   nullptr, keep_invalid};
+  const size_t smem = 4 * (size_t)(n_buf + w + 2);
+  const int rc = set_smem(candidates_kernel, smem);
+  if (rc) return rc;
+  candidates_kernel<<<(unsigned)rows, 128, smem, (cudaStream_t)stream>>>(
+      in, n_buf, w, eos, pad, stop_at_count, always_allow_eos, neg_inf, out_tok, out_cons,
+      out_lp);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,170 @@
+"""Kernel 20 wrapper: constrained sampling's per-chain Gumbel-max draw
+(``csrc/sample_select.cu``), with its plain version.
+
+Replaces ``seal_tpu/decoding/constrained.py:_select_sample`` (:1092-1122),
+its ``jax.random.gumbel`` noise and ``dispatch_select``'s EOS slot
+(:1270-1282): each of a query's K chains draws one candidate from its own
+row, by the largest constrained log-prob plus Gumbel noise over the finite
+slots, and accumulates that slot's log-prob; a chain with no finite slot
+takes EOS.
+
+The noise is counter-based, as the source states: Philox4x32-10 words
+under key (seed mod 2^32, step) and counter (column // 4, row, 0, 0), u =
+((w >> 9) + 0.5) * 2^-23 and g = -log(-log(u)).  The plain version computes
+the words in int64 torch arithmetic (32-bit words, products in 16-bit
+halves), so they equal the kernel's bit for bit; ``log`` may differ from
+the kernel's ``logf`` by an ulp.  It also takes a ``noise`` tensor in place
+of its own, and looks up :func:`gumbel_noise` at each call, so that a test
+can replay another generator's draws.  JAX's threefry draws are not
+reproduced: the two generators agree in distribution, not in bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from seal_tpu_torch.kernels.beam_select import NEG_INF, _check, _select_outputs
+
+MASK32 = 0xFFFFFFFF
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # Random123's Philox4x32 multipliers
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # and its key increments (Weyl sequence)
+
+
+def _mulhilo(a, m: int):
+    """(hi, lo) 32-bit words of a * m for int64 ``a`` < 2^32 and a 32-bit
+    constant ``m``; each partial product stays below 2^49."""
+    t_lo = (a & 0xFFFF) * m
+    t_hi = (a >> 16) * m
+    mid = t_lo + ((t_hi & 0xFFFF) << 16)
+    return (t_hi >> 16) + (mid >> 32), mid & MASK32
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int, rounds: int = 10):
+    """Philox4x32-``rounds`` (Random123) on int64 tensors of 32-bit words."""
+    for r in range(rounds):
+        if r:
+            k0, k1 = (k0 + PHILOX_W[0]) & MASK32, (k1 + PHILOX_W[1]) & MASK32
+        hi0, lo0 = _mulhilo(c0, PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_words(seed: int, step: int, rows: int, n: int, device="cpu"):
+    """The 32-bit word of every (row, column) of a [rows, n] draw, int64."""
+    q = (n + 3) // 4
+    c0 = torch.arange(q, dtype=torch.int64, device=device).expand(rows, q)
+    c1 = torch.arange(rows, dtype=torch.int64, device=device)[:, None].expand(rows, q)
+    zero = torch.zeros((rows, q), dtype=torch.int64, device=device)
+    words = philox4x32(c0, c1, zero, zero, seed & MASK32, step & MASK32)
+    return torch.stack(words, -1).reshape(rows, 4 * q)[:, :n]
+
+
+def gumbel_of_words(words):
+    """Gumbel(0, 1) f32 values of 32-bit words: u = ((w >> 9) + 0.5) * 2^-23,
+    exact in f32 and strictly inside (0, 1), then -log(-log(u))."""
+    u = ((words >> 9).to(torch.float32) + 0.5) * 2.0**-23
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_noise(seed: int, step: int, rows: int, n: int, device="cpu"):
+    """The plain version's noise for draw ``step`` of a [rows, n] candidate
+    matrix under ``seed``."""
+    return gumbel_of_words(philox_words(seed, step, rows, n, device))
+
+
+def noise_on_card(seed: int, step: int, rows: int, n: int, device):
+    """The kernel's own words (int64) and Gumbel values for the same draw,
+    for checking the generator against :func:`philox_words`."""
+    from seal_tpu_torch.kernels import build
+
+    words = torch.empty((rows, n), dtype=torch.int32, device=device)
+    g = torch.empty((rows, n), dtype=torch.float32, device=device)
+    rc = build.lib().seal_gumbel_noise(rows, n, seed, step, words.data_ptr(), g.data_ptr(),
+                                       build.stream_ptr(words))
+    build.check(rc, "gumbel_noise")
+    return words.to(torch.int64) & MASK32, g
+
+
+def sample_select_plain(cons, cand_lp, tokens, beam_scores, seed: int, step: int, *, eos: int,
+                        pad: int, mask=None, noise=None):
+    B, K = beam_scores.shape
+    N = cons.shape[-1]
+    cons = cons.reshape(B, K, N)
+    cand_lp = cand_lp.reshape(B, K, N)
+    if mask is not None:
+        cons = torch.where(mask, cons, NEG_INF)
+    if tokens is None:
+        tokens = torch.arange(N, dtype=torch.int32, device=cons.device).expand(B, K, N)
+    tokens = tokens.reshape(B, K, N)
+    if noise is None:
+        noise = gumbel_noise(seed, step, B * K, N, cons.device)
+    finite = cons > NEG_INF / 4
+    idx = torch.where(finite, cons + noise.reshape(B, K, N), NEG_INF).argmax(-1, keepdim=True)
+    dead = ~finite.any(-1)
+    # dispatch_select's EOS slot: the first slot holding EOS, else slot 0
+    eos_slot = (tokens == eos).to(torch.int32).argmax(-1, keepdim=True)
+    slot = torch.where(dead[..., None], eos_slot, idx)
+    sel_tok = torch.where(dead, eos, torch.gather(tokens, -1, slot)[..., 0]).to(torch.int32)
+    sel_sco = torch.gather(cand_lp, -1, slot)[..., 0] + beam_scores
+    par = torch.arange(K, dtype=torch.int32, device=cons.device).expand(B, K)
+    fin = torch.ones((B, K), dtype=torch.bool, device=cons.device)
+    return (
+        torch.cat([sel_tok, torch.full_like(sel_tok, pad)], -1),
+        torch.cat([par, par], -1),
+        torch.cat([sel_sco, torch.full_like(sel_sco, NEG_INF)], -1),
+        torch.cat([fin, ~fin], -1),
+        sel_tok, par.contiguous(), sel_sco, fin,
+    )
+
+
+def sample_select(cons, cand_lp, tokens, beam_scores, seed: int, step: int, *, eos: int, pad: int,
+                  mask=None):
+    """One sampling step of K independent chains per query.
+
+    ``cons`` f32 [B, K, N]: constrained log-probs, without the chain scores
+    (``NEG_INF`` where not allowed); ``cand_lp`` f32 [B, K, N]: log-probs;
+    ``tokens`` int32 [B, K, N], or None where the token is the column;
+    ``beam_scores`` f32 [B, K]; ``mask`` bool [N] (with ``tokens`` None):
+    columns allowed at all, applied to ``cons``.  ``seed`` and ``step`` key
+    the noise.  Returns ``_select_sample``'s eight outputs: the [B, 2K]
+    history (the K draws, then K PAD slots at ``NEG_INF``; parents 0..K-1
+    twice; finite true then false) and the [B, K] selection (token, parent
+    = the chain itself, score, finite = true).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    if not cons.is_cuda:
+        return sample_select_plain(cons, cand_lp, tokens, beam_scores, seed, step, eos=eos,
+                                   pad=pad, mask=mask)
+    from seal_tpu_torch.kernels import build
+
+    B, K = beam_scores.shape
+    N = cons.shape[-1]
+    if cons.numel() != B * K * N or cand_lp.numel() != B * K * N:
+        raise ValueError(f"sample_select: cons/cand_lp must be [B, K, N] = [{B}, {K}, {N}]")
+    if mask is not None and (tokens is not None or mask.shape != (N,)):
+        raise ValueError("sample_select: a mask [N] goes with token = column only")
+    cons, cand_lp, beam_scores = cons.contiguous(), cand_lp.contiguous(), beam_scores.contiguous()
+    _check(cons, torch.float32, cand_lp, torch.float32, beam_scores, torch.float32)
+    if tokens is not None:
+        tokens = tokens.contiguous()
+        _check(tokens, torch.int32)
+        if tokens.numel() != B * K * N:
+            raise ValueError("sample_select: tokens must be [B, K, N]")
+    if mask is not None:
+        mask = mask.contiguous()
+        _check(mask, torch.bool)
+    dev = cons.device
+    outs = _select_outputs(B, K, dev)[:8]
+    opt = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    rc = build.lib().seal_sample_select(
+        cons.data_ptr(), cand_lp.data_ptr(), opt(tokens), opt(mask), beam_scores.data_ptr(), B * K,
+        K, N, seed, step, eos, pad, NEG_INF, *(t.data_ptr() for t in outs), build.stream_ptr(cons),
+    )
+    build.check(rc, "sample_select")
+    sample_select.launches += 1
+    return outs
+
+
+sample_select.launches = 0

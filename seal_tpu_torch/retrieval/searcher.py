@@ -21,11 +21,12 @@ What changed in translation:
 * ``compact_index`` / ``hybrid_index`` build a :class:`WaveletIndex` as the
   JAX searcher builds its ``WaveletFMIndex``; the decoder dispatches on the
   index's layout.
+* ``diverse_bs_groups`` / ``diverse_bs_penalty`` reach every body and
+  title decode, as in JAX (kernel 21 selects the groups).
 * Not ported yet (``NotImplementedError`` naming the knob): ``index_shards``
-  > 1, ``jobs`` >= 2 (forked workers after CUDA init), ``decode_code``, T5
-  backbones, and the decode modes ``DecodeConfig`` refuses (diverse
-  groups), at the first search.  ``load``,
-  ``from_args`` and the CLIs wait for a checkpoint loader without jax.
+  > 1, ``jobs`` >= 2 (forked workers after CUDA init), ``decode_code`` and
+  T5 backbones, at the first search.  ``load``, ``from_args`` and the CLIs
+  wait for a checkpoint loader without jax.
 """
 
 from __future__ import annotations

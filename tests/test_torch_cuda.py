@@ -22,12 +22,14 @@ from seal_tpu_torch.kernels import (
     bucket_counts,
     decode_attention,
     dense_scores,
+    diverse_select,
     fm_search,
     locate,
     reorder_cache,
     rescore,
     row_select,
     row_topk,
+    sample_select,
     triton_logsoftmax,
     window_gather,
     wt_bucket_counts,
@@ -814,6 +816,10 @@ def test_decode_modes_on_card_match_cpu(cuda, mode, layout):
     """Free generation, speculative, forced BOS, the top-k warper and a
     ban-even-tokens hook: the card's hypotheses equal the CPU plain path's
     (token lists equal, scores within 1e-4), on every layout."""
+    _modes_on_card(cuda, MODES[mode], layout)
+
+
+def _modes_on_card(cuda, mode_kw, layout):
     cfg = bart_tiny(vocab_size=96)
     params = bart.init_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(3)
@@ -821,7 +827,7 @@ def test_decode_modes_on_card_match_cpu(cuda, mode, layout):
     host = FMIndex()
     host.initialize(docs)
     queries = [[0] + rng.integers(4, 90, size=5).tolist() + [2] for _ in range(3)]
-    kw = dict(num_beams=4, max_length=6, min_length=2, window=4, **MODES[mode])
+    kw = dict(num_beams=4, max_length=6, min_length=2, window=4, **mode_kw)
 
     def index(dev):
         if layout == "psi":
@@ -841,6 +847,185 @@ def test_free_generation_searcher_on_card_matches_cpu(cuda):
     def run(dev):
         s = bench_search.tiny_searcher(dev)
         s.free_generation = True
+        return s.batch_search(bench_search.TINY_QUERIES, k=5)
+
+    cpu, gpu = run("cpu"), run(cuda)
+    assert any(gpu)
+    for a, b in zip(cpu, gpu):
+        assert [d.docid for d in b] == [d.docid for d in a]
+        np.testing.assert_allclose([d.score for d in b], [d.score for d in a], rtol=1e-4)
+
+
+# ------------------------------------------- sampling and diverse groups
+
+
+def test_philox_noise_matches_plain(cuda):
+    """Kernel 20's Philox words equal the plain version's exactly (counter
+    (0, 0) under key (0, 0) is Random123's first known answer), and its
+    Gumbel values (logf) torch's log within 8 f32 ulps of max(|g|, 1)."""
+    words, g = sample_select.noise_on_card(0, 0, 480, 50265, cuda)
+    want = sample_select.philox_words(0, 0, 480, 50265, cuda)
+    assert torch.equal(words, want)
+    assert [int(w) for w in words[0, :4]] == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+    g_plain = sample_select.gumbel_of_words(want)
+    assert float(((g - g_plain).abs() / (g_plain.abs().clamp(min=1.0) * 2.0**-23)).max()) <= 8
+    w2, _ = sample_select.noise_on_card(-7, 9, 3, 10, cuda)
+    assert torch.equal(w2, sample_select.philox_words(-7, 9, 3, 10, cuda))
+
+
+def _sample_inputs(g, case, cuda):
+    """Step 0's V-wide rows under a corpus mask, or 8c-shaped candidate
+    lists at the sampling proposal route's width (256 + 32 + 2)."""
+    B, K = 32, 15
+    if case == "step0":
+        lp = _lp(g, B * K, 50265, cuda)
+        mask = torch.rand(50265, generator=g, device=cuda) < 0.8
+        return lp, lp, None, torch.zeros(B, K, device=cuda), mask
+    N = 290
+    lp = _lp(g, B * K, N, cuda).reshape(B, K, N)
+    cons = torch.where(torch.rand(B, K, N, generator=g, device=cuda) < 0.6, lp, tc.NEG_INF)
+    cons[0, 3] = tc.NEG_INF  # an all-dead chain
+    tokens = torch.randint(3, 5000, (B, K, N), generator=g, device=cuda, dtype=torch.int32)
+    tokens[:, :, N - 2] = 2
+    bs = torch.randn(B, K, generator=g, device=cuda) - 3
+    return cons, lp, tokens, bs, None
+
+
+def _drawn_margin(cons, noise, mask):
+    """Each chain's gap between its best two perturbed finite scores."""
+    if mask is not None:
+        cons = torch.where(mask, cons, tc.NEG_INF)
+    scored = torch.where(cons > tc.NEG_INF / 4, cons + noise, tc.NEG_INF)
+    top2 = scored.topk(2, -1).values
+    dead = top2[..., 0] <= tc.NEG_INF / 2  # takes EOS whatever the noise
+    return torch.where(dead, float("inf"), top2[..., 0] - top2[..., 1]).reshape(-1)
+
+
+@pytest.mark.parametrize("case", ["step0", "candidates"])
+def test_sample_select_matches_plain(cuda, case):
+    """Kernel 20 against its plain version: every output equal on every
+    chain whose best two perturbed scores differ by more than 4e-5 (logf
+    and torch's log may round a Gumbel value an ulp apart)."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    cons, lp, tokens, bs, mask = _sample_inputs(g, case, cuda)
+    B, K = bs.shape
+    n0 = sample_select.sample_select.launches
+    got = sample_select.sample_select(cons, lp, tokens, bs, 3, 4, eos=2, pad=1, mask=mask)
+    want = sample_select.sample_select_plain(cons, lp, tokens, bs, 3, 4, eos=2, pad=1, mask=mask)
+    assert sample_select.sample_select.launches == n0 + 1
+    noise = sample_select.gumbel_noise(3, 4, B * K, cons.shape[-1], cuda)
+    clear = (_drawn_margin(cons.reshape(B, K, -1), noise.reshape(B, K, -1), mask) > 4e-5)
+    assert float(clear.float().mean()) > 0.99
+    for a, b in zip(got[4:], want[4:]):
+        _same([a.reshape(-1)[clear]], [b.reshape(-1)[clear]])
+    hist = clear.reshape(B, K).repeat(1, 2).reshape(-1)
+    for a, b in zip(got[:4], want[:4]):
+        _same([a.reshape(-1)[hist]], [b.reshape(-1)[hist]])
+
+
+def test_sampler_draws_the_softmax_on_card(cuda):
+    """2^16 chains of one 16-candidate row, 4 slots masked: the kernel's
+    draws fit the softmax of the allowed log-probs (chi-square p > 1e-3)."""
+    from scipy import stats
+
+    rng = np.random.default_rng(7)
+    N, n = 16, 1 << 16
+    lp = torch.as_tensor(np.log(rng.dirichlet(np.ones(N))).astype(np.float32), device=cuda)
+    allowed = torch.ones(N, dtype=torch.bool, device=cuda)
+    allowed[[0, 5, 9, 15]] = False
+    rows = lp.expand(1, n, N).contiguous()
+    out = sample_select.sample_select(rows, rows, None, torch.zeros(1, n, device=cuda), 5, 3, eos=2,
+                                      pad=1, mask=allowed)
+    counts = torch.bincount(out[4][0].long(), minlength=N).cpu().numpy()
+    ok = allowed.cpu().numpy()
+    assert counts[~ok].sum() == 0
+    p = torch.softmax(lp[allowed].double(), 0).cpu().numpy()
+    assert stats.chisquare(counts[ok], p * n).pvalue > 1e-3
+
+
+def _diverse_inputs(g, case, cuda):
+    B, K = 32, 15
+    V = 50265 if case == "wide" else 64
+    lp = _lp(g, B * K, V, cuda).reshape(B, K, V)
+    cons = torch.where(torch.rand(B, K, V, generator=g, device=cuda) < 0.7, lp, tc.NEG_INF)
+    bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
+    bs[:, 1::5] = tc.NEG_INF
+    if case == "wide":
+        return cons, None, bs, torch.rand(V, generator=g, device=cuda) < 0.8
+    tokens = torch.randint(0, 40, (B, K, V), generator=g, device=cuda, dtype=torch.int32)
+    tokens[:, :, -2] = 2
+    return cons, tokens, bs, None
+
+
+@pytest.mark.parametrize("case,ties", [("candidates", False), ("candidates", True),
+                                       ("wide", False), ("wide", True)])
+def test_diverse_select_matches_plain(cuda, case, ties):
+    """Kernel 21 at beam 15 in three groups, penalty 0.5: a [32, 15, 64]
+    candidate list (tokens repeat, so the penalty bites) and V-wide rows
+    under a corpus mask; every output bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(21 + ties)
+    cons, tokens, bs, mask = _diverse_inputs(g, case, cuda)
+    kw = dict(groups=3, penalty=0.5, eos=2, ties=ties, vocab=50265, mask=mask)
+    n0 = diverse_select.diverse_select.launches
+    got = diverse_select.diverse_select(cons, tokens, bs, **kw)
+    assert diverse_select.diverse_select.launches == n0 + 1
+    _same(got, diverse_select.diverse_select_plain(cons, tokens, bs, **kw))
+
+
+@pytest.mark.parametrize("n_buf,w,keep_invalid,with_buf", [(30, 32, False, True),
+                                                           (30, 32, False, False),
+                                                           (256, 32, False, True),
+                                                           (256, 128, True, True)])
+def test_beam_candidates_matches_plain(cuda, n_buf, w, keep_invalid, with_buf):
+    """Kernel 8's candidate mode at the routes' widths: the diverse
+    proposal route (64 slots a beam, with a buffer or none), sampling's
+    (290) and the speculative route (386); every output bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(n_buf + w)
+    B, K, V = 32, 15, 3000
+    lp = _lp(g, B * K, V, cuda)
+    top_lp, top_idx = row_topk.row_topk_plain(lp, n_buf)
+    buf = (top_idx.to(torch.int32).reshape(B, K, n_buf), top_lp.reshape(B, K, n_buf),
+           torch.rand(B, K, n_buf, generator=g, device=cuda) < 0.5) if with_buf else None
+    win_valid = torch.rand(B, K, w, generator=g, device=cuda) < 0.7
+    win_tok = torch.where(win_valid, torch.randint(0, 400, (B, K, w), generator=g, device=cuda,
+                                                   dtype=torch.int32), 1)
+    win_lp = torch.gather(lp, 1, win_tok.reshape(B * K, -1).long()).reshape(B, K, w)
+    eos_ok = (torch.rand(B, K, 2, generator=g, device=cuda) < 0.5)[..., 1:]
+    prev_count = torch.randint(0, 6, (B, K), generator=g, device=cuda, dtype=torch.int32)
+    finished = torch.rand(B, K, generator=g, device=cuda) < 0.2
+    args = (buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished)
+    kw = dict(eos=2, pad=1, stop_at_count=1, always_allow_eos=False, keep_invalid=keep_invalid)
+    n0 = beam_select.beam_candidates.launches
+    got = beam_select.beam_candidates(*args, **kw)
+    assert beam_select.beam_candidates.launches == n0 + 1
+    _same(got, beam_select.candidates_plain(*args, **kw))
+
+
+SAMPLE_MODES = {
+    "sample": dict(sample=True, seed=3),
+    "sample_dense": dict(sample=True, seed=3, exact_mask=True),
+    "sample_free": dict(sample=True, seed=3, disable_fm_index=True, top_m=8),
+    "sample_spec": dict(sample=True, seed=3, speculative=True, top_m=8),
+    "diverse": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5),
+    "diverse_dense": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5, exact_mask=True),
+    "diverse_ties": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5, exact_ties=True),
+    "diverse_free": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5, disable_fm_index=True),
+}
+
+
+@pytest.mark.parametrize("layout", ["psi", "compact", "hybrid"])
+@pytest.mark.parametrize("mode", sorted(SAMPLE_MODES))
+def test_sample_and_diverse_on_card_match_cpu(cuda, mode, layout):
+    """Sampling (the same seed) and diverse groups: the card's hypotheses
+    equal the CPU plain path's on every layout (sampled draws too: the
+    generators agree but where logf and log round a near-tie apart)."""
+    _modes_on_card(cuda, SAMPLE_MODES[mode], layout)
+
+
+def test_diverse_searcher_on_card_matches_cpu(cuda):
+    def run(dev):
+        s = bench_search.tiny_searcher(dev)
+        s.diverse_bs_groups, s.diverse_bs_penalty = 2, 0.5
         return s.batch_search(bench_search.TINY_QUERIES, k=5)
 
     cpu, gpu = run("cpu"), run(cuda)

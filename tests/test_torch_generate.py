@@ -5,10 +5,12 @@ equal, scores within atol 1e-4 (f32 sums in another order) -- and
 identical per-step candidates, parents and selections.  Also the host redo
 of an unsound step, fast == force_full within the port, the forced-prefix
 decode with a custom EOS, the keyword parity with the JAX entry point, the
-numpy copies of the JAX helpers, the modes not ported yet, and the import
-guard.  The dense parity mode and the tie order are held in
+numpy copies of the JAX helpers, the mode not ported yet (a mesh), and the
+import guard.  The dense parity mode and the tie order are held in
 ``test_torch_dense.py``, free generation in ``test_torch_free.py``, the
-speculative, top-k, forced-BOS and hook modes in ``test_torch_modes.py``."""
+speculative, top-k, forced-BOS and hook modes in ``test_torch_modes.py``,
+sampling in ``test_torch_sample.py`` and diverse groups in
+``test_torch_diverse.py``."""
 
 import os
 import subprocess
@@ -316,9 +318,9 @@ def test_generate_keywords_match_jax():
     captured = {}
     real = tg._search
 
-    def spy(model_cfg, params, index, dcfg, ids, mask):
+    def spy(model_cfg, params, index, dcfg, ids, mask, *seed):
         captured["dcfg"] = dcfg
-        return real(model_cfg, params, index, dcfg, ids, mask)
+        return real(model_cfg, params, index, dcfg, ids, mask, *seed)
 
     tg._search = spy
     try:
@@ -330,10 +332,7 @@ def test_generate_keywords_match_jax():
     assert captured["dcfg"].top_m == 30
 
 
-@pytest.mark.parametrize(
-    "option",
-    [dict(sample=True), dict(diverse_bs_groups=2), dict(mesh=object())],
-)
+@pytest.mark.parametrize("option", [dict(mesh=object())])
 def test_unported_modes_raise(models, option):
     jcfg, tcfg, _, tparams = models
     host, queries = _random_corpus(0)

@@ -10,7 +10,7 @@ speculative paths; forced BOS on the fast and dense paths; a torch
 ban-even-tokens hook equals JAX's, and a hook that reads ``cur_len`` gets
 the same columns as a Python ``int``.  Kernel 8's speculative mode and
 kernel 4's threshold equal the JAX ops bit for bit / to f32 rounding.
-``DecodeConfig`` still refuses sampling and diverse groups."""
+``DecodeConfig`` accepts what JAX's accepts and raises its errors."""
 
 import jax
 import jax.numpy as jnp
@@ -328,11 +328,13 @@ def test_adjust_logits_hook_reads_cur_len(world, bos):
 # --------------------------------------------------------------- the config
 
 
-def test_decode_config_refuses_sampling_and_diverse_groups():
-    for kw in (dict(sample=True), dict(num_beams=4, num_groups=2), dict(diversity_penalty=1.0)):
-        with pytest.raises(NotImplementedError):
-            tc.DecodeConfig(**kw)
-    # the JAX package's ValueErrors come first
+def test_decode_config_validation_matches_jax():
+    """``DecodeConfig`` accepts what JAX's accepts (sampling, groups, a lone
+    penalty) and raises JAX's two ``ValueError``s."""
+    for kw in (dict(sample=True), dict(num_beams=4, num_groups=2), dict(diversity_penalty=1.0),
+               dict(num_beams=6, num_groups=3, diversity_penalty=0.5)):
+        t, j = tc.DecodeConfig(**kw), jc.DecodeConfig(**kw)
+        assert (t.group_size, t.sample, t.num_groups) == (j.group_size, j.sample, j.num_groups)
     for kw in (dict(num_beams=5, num_groups=2), dict(sample=True, num_groups=2, num_beams=4)):
         with pytest.raises(ValueError):
             jc.DecodeConfig(**kw)
