@@ -92,10 +92,29 @@
    draws of one row against its softmax (chi-square); 21 and 8c bit for
    bit.
 
+11. Drives T5-base (``T5Config()``, random weights from a seed, f32 as the
+   JAX searcher builds it for a ``t5`` backbone; ``bench_generate.
+   t5_operating_point``) through ``fm_index_generate`` at the generation
+   point's shape (10k docs x 120 Zipf ids in [2, 32000) ending in eos 1,
+   batch 32, beam 15, length 10) on the Psi layout: queries/s, launches
+   (kernels 9 and 10's relative-bias mode once per decoder layer and step,
+   BART's self-attention mode never, 11 once per step), every key grounded,
+   ``force_full``, ``exact_mask`` and the hybrid layout identical (tokens,
+   score bits), one profiled batch, one batch in bf16; kernel 10's
+   relative-bias mode against its plain version at rows 480, 12 heads of
+   64, every step 0-9, in f32 and bf16 (timed beside SDPA with the bias as
+   its mask and scale 1), kernel 9 with an un-scaled q, the card's
+   bucket-of-distance vector against the CPU's; one 16-query
+   ``batch_search`` unit at ``backbone="t5-base"`` (``bench_search.
+   t5_operating_point``: titles on, its corpus carries T5's markers) with
+   its raw keys grounded; the tiny T5 on the card against its CPU path
+   (fast path and ``exact_mask``).
+
 Each path's launch counts come from that path's own run (every count set
 to 0 just before it, read just after); on every decoding path kernels 9
-and 10 must launch once per decoder layer and decode step, kernels 8
-(select) and 11 once per decode step.  Prints one JSON object with the
+and 10 (BART's mode, or the relative-bias mode on the T5 paths) must launch
+once per decoder layer and decode step, kernels 8 (select) and 11 once per
+decode step.  Prints one JSON object with the
 kernel table on the line before the last, and ``{"ok": true, "device":
 {...}}`` as the last line.  Imports no jax.
 """
@@ -142,6 +161,7 @@ REPLACES = {
     "sample_select": "seal_tpu/decoding/constrained.py:1092",
     "diverse_select": "seal_tpu/decoding/constrained.py:1125",
     "beam_candidates": "seal_tpu/decoding/constrained.py:359",
+    "self_attention_step_t5": "seal_tpu/models/t5.py:349",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -173,6 +193,7 @@ SOURCES = {
     "sample_select": ("cuda", "seal_tpu_torch/kernels/csrc/sample_select.cu"),
     "diverse_select": ("cuda", "seal_tpu_torch/kernels/csrc/diverse_select.cu"),
     "beam_candidates": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
+    "self_attention_step_t5": ("cuda", "seal_tpu_torch/kernels/csrc/decode_attention.cu"),
 }
 # the kernels each driven path must launch (bucket_counts and the loop
 # rounds' merges run only in the proven loop, which the force_full re-runs
@@ -249,6 +270,22 @@ PATH_KERNELS["generate_sample_free"] = ("row_select", "log_softmax_min_len",
 PATH_KERNELS["generate_diverse_ties"] = PATH_KERNELS["generate_diverse"]
 PATH_KERNELS["batch_search_diverse"] = ("fm_search", "window_gather", "fm_sequences",
                                         "rescore_logprob", "diverse_select") + LOOP_STEP
+# T5: the same decode loop with kernel 10's relative-bias mode in place of
+# BART's self-attention mode
+T5_STEP = ("beam_merge", "beam_select", "cross_attention_step", "self_attention_step_t5",
+           "reorder_cache")
+PATH_KERNELS["generate_t5"] = ("fm_search", "window_gather", "row_topk",
+                               "log_softmax_min_len") + T5_STEP
+PATH_KERNELS["generate_t5_bf16"] = PATH_KERNELS["generate_t5"]
+PATH_KERNELS["generate_t5_force_full"] = ("bucket_counts", "beam_merge")
+PATH_KERNELS["generate_t5_dense"] = (
+    "fm_dense_counts", "fm_search", "dense_scores", "row_topk", "log_softmax_min_len",
+    "beam_select", "cross_attention_step", "self_attention_step_t5", "reorder_cache")
+PATH_KERNELS["generate_t5_hybrid"] = ("wt_search", "wt_window_gather", "row_topk",
+                                      "log_softmax_min_len") + T5_STEP
+PATH_KERNELS["batch_search_t5"] = ("fm_search", "window_gather", "row_topk",
+                                   "log_softmax_min_len", "fm_sequences",
+                                   "rescore_logprob") + T5_STEP
 # the selection kernel of each path whose selection is not kernel 8's
 SELECTS = {path: ("sample_select" if "sample" in path else "diverse_select")
            for path in PATH_KERNELS if "sample" in path or "diverse" in path}
@@ -335,7 +372,11 @@ def log_kernel(row) -> None:
                                                "merge_default_ms", "k64_ms", "row_topk_k64_ms",
                                                "library_k64_ms", "narrow_ms", "narrow_plain_ms",
                                                "ulps", "chi_square_p", "ties_ms", "wide_ms",
-                                               "wide_plain_ms", "sample_ms", "spec_ms")
+                                               "wide_plain_ms", "sample_ms", "spec_ms",
+                                               "bf16_ms", "bf16_plain_ms", "cross_ms",
+                                               "cross_plain_ms", "cross_tol_ratio",
+                                               "cross_f32_ms", "cross_f32_plain_ms",
+                                               "cross_f32_tol_ratio", "f32_tol_ratio")
                   if k in row))
 
 
@@ -1693,6 +1734,276 @@ def small_search_parity(np, free_generation=False):
     return n
 
 
+def t5_kernel_phase(np, torch, cfg, B, K, enc_len, key_len):
+    """Kernel 10's relative-bias mode against its plain version at the T5
+    path's shapes (rows B*K, T5-base's heads, every step of the cache) in
+    f32 and bf16, kernel 9 with T5's un-scaled q, and the card's
+    bucket-of-distance vector against the CPU's."""
+    import torch.nn.functional as F
+
+    from seal_tpu_torch.kernels import decode_attention as k910
+    from seal_tpu_torch.models import t5
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows, H, Dh = B * K, cfg.num_heads, cfg.d_kv
+    bf, f32 = torch.bfloat16, torch.float32
+    far = t5.bucket_of_distance(cfg, 1024, dev)
+    if far.device.type != "cuda" or not torch.equal(far.cpu(),
+                                                    t5.bucket_of_distance(cfg, 1024, "cpu")):
+        fail("T5: the card's bucket-of-distance vector differs from the CPU's")
+    buckets = t5.bucket_of_distance(cfg, key_len, dev)
+    table = torch.randn(cfg.relative_attention_num_buckets, H, generator=g, device=dev)
+    # un-scaled q and K at T5-base's magnitudes (entries ~N(0, 1.4^2)), the
+    # cache filled at every slot
+    inputs = {}
+    for dt in (f32, bf):
+        q = (torch.randn(rows, H, Dh, generator=g, device=dev) * 1.4).to(dt)
+        kc = (torch.randn(rows, key_len, H, Dh, generator=g, device=dev) * 1.4).to(dt)
+        vc = torch.randn(rows, key_len, H, Dh, generator=g, device=dev).to(dt)
+        inputs[dt] = (q, kc, vc)
+    # the table in the compute dtype, as cast_params leaves it (the kernel
+    # widens a bf16 table)
+    tables = {f32: table, bf: table.to(bf)}
+    # each dtype within its tolerance: the un-scaled scores reach ~50 here,
+    # so f32 rounding is held to decode_attention.f32_error_ratio, bf16 to
+    # bf16_error_ratio
+    f32_err, f32_ratio, ratio, bf_abs = 0.0, 0.0, 0.0, 0.0
+    for step in range(key_len):
+        for dt, (q, kc, vc) in inputs.items():
+            got = k910.self_attention_step_rel(q, kc, vc, step, tables[dt], buckets)
+            want = k910.self_attention_rel_plain(q, kc, vc, step, tables[dt], buckets)
+            err = float((got.float() - want.float()).abs().max())
+            head_bias = k910.relative_bias_row(tables[dt], buckets, step, key_len)
+            if dt == f32:
+                f32_err = max(f32_err, err)
+                f32_ratio = max(f32_ratio, k910.f32_error_ratio(got, want, q, kc, vc,
+                                                                m=key_len, head_bias=head_bias))
+            else:
+                ratio = max(ratio, k910.bf16_error_ratio(got, want, q, kc, vc,
+                                                         head_bias=head_bias))
+                bf_abs = max(bf_abs, err)
+    if f32_ratio > 1.0 or ratio > 1.0:
+        fail(f"self_attention_step_t5 differs from its plain version (f32 {f32_ratio} of the "
+             f"tolerance, {f32_err} absolute; bf16 {ratio} of the tolerance, {bf_abs} absolute)")
+    # kernel 9 with T5's un-scaled q over the encoder's positions, padded, in
+    # f32 (the path's dtype) and bf16, each within its dtype's tolerance
+    bias = torch.zeros(B, enc_len, device=dev)
+    bias[::3, -3:] = -1e9
+    cross, r9 = {}, {}
+    for dt, ratio_of in ((f32, k910.f32_error_ratio), (bf, k910.bf16_error_ratio)):
+        qx = (torch.randn(rows, H, Dh, generator=g, device=dev) * 1.4).to(dt)
+        kx = (torch.randn(B, enc_len, H, Dh, generator=g, device=dev) * 1.4).to(dt)
+        vx = torch.randn(B, enc_len, H, Dh, generator=g, device=dev).to(dt)
+        cross[dt] = (qx, kx, vx)
+        r9[dt] = ratio_of(k910.cross_attention_step(qx, kx, vx, bias),
+                          k910.decode_attention_plain(qx, kx, vx, bias), qx, kx, vx, bias)
+    if r9[f32] > 1.0 or r9[bf] > 1.0:
+        fail(f"cross_attention_step with an un-scaled q: f32 {r9[f32]} of the f32 tolerance, "
+             f"bf16 {r9[bf]} of the bf16 tolerance")
+    step = key_len - 1  # the last step: every slot live
+    q, kc, vc = inputs[f32]
+    es = 4
+    qs = q[:, :, None, :]
+    ks, vs = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+    mask4 = k910.relative_bias_row(table, buckets, step, key_len)[None, :, None, :]
+    qb, kb, vb = inputs[bf]
+    row = dict(
+        name="self_attention_step_t5", max_abs_err=f32_err, tol_ratio=ratio,
+        f32_max_abs_err=f32_err, f32_tol_ratio=f32_ratio, cross_tol_ratio=r9[bf],
+        cross_f32_tol_ratio=r9[f32],
+        bytes=2 * q.numel() * es + 2 * rows * (step + 1) * H * Dh * es + table.numel() * 4
+        + (step + 1) * 4,
+        flops=4 * rows * H * (step + 1) * Dh,
+        ms=time_ms(lambda: k910.self_attention_step_rel(q, kc, vc, step, table, buckets)),
+        plain_ms=time_ms(lambda: k910.self_attention_rel_plain(q, kc, vc, step, table, buckets)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask4,
+                                                                  scale=1.0)),
+        bf16_ms=time_ms(lambda: k910.self_attention_step_rel(qb, kb, vb, step, tables[bf],
+                                                             buckets)),
+        bf16_plain_ms=time_ms(lambda: k910.self_attention_rel_plain(qb, kb, vb, step, tables[bf],
+                                                                    buckets)),
+        cross_ms=time_ms(lambda: k910.cross_attention_step(*cross[bf], bias)),
+        cross_plain_ms=time_ms(lambda: k910.decode_attention_plain(*cross[bf], bias)),
+        cross_f32_ms=time_ms(lambda: k910.cross_attention_step(*cross[f32], bias)),
+        cross_f32_plain_ms=time_ms(lambda: k910.decode_attention_plain(*cross[f32], bias)),
+        shape=f"q [{rows},{H},{Dh}] f32 un-scaled, cache [{rows},{key_len},{H},{Dh}] at step "
+              f"{step}, table [{table.shape[0]},{H}]; checked at steps 0-{key_len - 1} in f32 "
+              f"and bf16 (tol_ratio / f32_tol_ratio: each dtype's share of its tolerance); "
+              f"cross: kernel 9, q [{rows},{H},{Dh}] un-scaled, K/V [{B},{enc_len},{H},{Dh}], "
+              f"padded; cross_* bf16, cross_f32_* f32 (the path's dtype)",
+    )
+    torch.cuda.synchronize()
+    return [row]
+
+
+def small_t5_parity(np, torch):
+    """The tiny T5 on the card vs its plain CPU path (the fast path and
+    ``exact_mask``; the CPU path is held to the JAX package by the tests).
+    Returns the keys compared."""
+    from seal_tpu_torch.decoding.generate import fm_index_generate
+    from seal_tpu_torch.index.device_index import TorchFMIndex
+    from seal_tpu_torch.index.fm_index import FMIndex
+    from seal_tpu_torch.models import t5
+
+    cfg = t5.t5_tiny(vocab_size=60)
+    params_cpu = t5.init_params(cfg, seed=0, device="cpu")
+    params_gpu = _tree_to(params_cpu, "cuda")
+    n_keys = 0
+    for seed in range(2):
+        rng = np.random.default_rng(seed)
+        docs = [rng.integers(2, 60, size=rng.integers(5, 25)).tolist() + [1] for _ in range(30)]
+        host = FMIndex()
+        host.initialize(docs)
+        queries = [rng.integers(2, 60, size=5).tolist() + [1] for _ in range(3)]
+        for extra in ({}, {"exact_mask": True}):
+            kw = dict(num_beams=4, max_length=6, min_length=1, forced_bos_token_id=None, **extra)
+            out = [fm_index_generate(cfg, p, TorchFMIndex.from_host(host, vocab=60, device=d),
+                                     queries, **kw)
+                   for d, p in (("cpu", params_cpu), ("cuda", params_gpu))]
+            for a, b in zip(*out):
+                ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
+                if [t for t, _ in ka] != [t for t, _ in kb]:
+                    fail(f"small T5 parity: keys differ between card and CPU ({extra}, seed "
+                         f"{seed})")
+                elif ka and max(abs(x[1] - y[1]) for x, y in zip(ka, kb)) > 1e-4:
+                    fail(f"small T5 parity: scores differ by > 1e-4 ({extra}, seed {seed})")
+                n_keys += len(ka)
+    if n_keys == 0:
+        fail("small T5 parity: no keys")
+    return n_keys
+
+
+def t5_phase(np, torch, zero_counts, read_counts):
+    """T5-base on the card through both entry points (the module
+    docstring's item 11).  Returns (kernel rows, readings)."""
+    import dataclasses
+
+    from seal_tpu_torch import bench_generate, bench_search
+    from seal_tpu_torch.decoding import generate
+    from seal_tpu_torch.models import convert
+
+    t0 = time.perf_counter()
+    host, index, cfg, params, ids, mask, kw = bench_generate.t5_operating_point("cuda")
+    B, K = ids.shape[0], kw["num_beams"]
+    layers = cfg.decoder_layers
+    log(f"T5 set-up: T5-base {cfg.dtype} ({cfg.num_layers} + {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads, vocab {cfg.vocab_size}), {index.n_rows - 1} "
+        f"tokens; {time.perf_counter() - t0:.1f} s")
+    special = (cfg.eos_token_id, cfg.pad_token_id, cfg.bos_token_id)
+    grounded = {}
+
+    def check(hyp_lists, what):
+        n = 0
+        for q in hyp_lists:
+            for score, toks in q:
+                key = tuple(t for t in toks[1:] if t not in special)
+                if toks[0] != cfg.decoder_start_token_id or not np.isfinite(score):
+                    fail(f"{what}: hypothesis {toks} with score {score}")
+                if key:
+                    n += 1
+                    if key not in grounded:
+                        grounded[key] = host.get_count(list(key)) > 0
+                    if not grounded[key]:
+                        fail(f"{what}: key not in the corpus: {list(key)}")
+        if n == 0:
+            fail(f"{what}: no keys emitted")
+        return n
+
+    def run(c=cfg, p=params, idx=index, **extra):
+        out = generate.fm_index_generate(c, p, idx, ids, mask, **kw, **extra)
+        torch.cuda.synchronize()
+        return out
+
+    def canon(hyps):
+        return [sorted((tuple(t), s) for s, t in q) for q in hyps]
+
+    run()  # warm-up
+    zero_counts()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        hyps = run()
+        times.append(time.perf_counter() - t0)
+    launches = read_counts("generate_t5", layers=layers)
+    fallback = generate.LAST_DECODE_STATS["fallback_steps"]
+    per_batch = statistics.median(times)
+    n_keys = check(hyps, "generate_t5")
+    log(f"generate_t5: {[round(t, 4) for t in times]} s/batch; median {per_batch:.4f} s = "
+        f"{B / per_batch:.1f} queries/s (batch {B}, beam {K}, length {kw['max_length']}, "
+        f"T5-base f32); fallback_steps {fallback}; {n_keys} keys grounded")
+    log(f"launches in the generate_t5 run: {launches}")
+    same = {}
+    for path, extra, idx in (("generate_t5_force_full", {"force_full": True}, index),
+                             ("generate_t5_dense", {"exact_mask": True}, index),
+                             ("generate_t5_hybrid", {},
+                              bench_generate.build_index(host, "hybrid", "cuda",
+                                                         vocab=cfg.vocab_size))):
+        zero_counts()
+        other = run(idx=idx, **extra)
+        log(f"launches in the {path} run: {read_counts(path, layers=layers)}")
+        check(other, path)
+        same[path] = canon(other) == canon(hyps)
+        if not same[path]:
+            fail(f"{path}: hypotheses differ from the fast Psi path's (tokens or score bits)")
+    log("T5 checks: force_full, exact_mask and the hybrid layout give hypotheses bit-identical "
+        f"to the fast path's: {same}")
+    prof = bench_generate.profile_batch(run)
+    log(f"T5 profiled batch: {prof['kernels']} kernels, device busy {prof['device_busy_ms']:.2f} "
+        f"ms of {prof['wall_ms']:.2f} ms wall ({100 * prof['busy_share']:.1f}%)")
+    for row in prof["top"][:10]:
+        log(f"  {row['ms']:8.3f} ms {row['calls']:6d} calls  {row['name']}")
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+    bparams = convert.cast_params(bcfg, params)
+    run(c=bcfg, p=bparams)  # warm-up
+    zero_counts()
+    t0 = time.perf_counter()
+    bhyps = run(c=bcfg, p=bparams)
+    bf16_s = time.perf_counter() - t0
+    b_launches = read_counts("generate_t5_bf16", layers=layers)
+    n_bkeys = check(bhyps, "generate_t5_bf16")
+    log(f"generate_t5_bf16: one batch in {bf16_s:.4f} s = {B / bf16_s:.1f} queries/s; "
+        f"{n_bkeys} keys grounded; launches {b_launches}")
+    del bparams
+
+    table = t5_kernel_phase(np, torch, cfg, B, K, ids.shape[1], kw["max_length"])
+
+    t0 = time.perf_counter()
+    searcher, queries = bench_search.t5_operating_point("cuda")
+    log(f"T5 searcher set-up {time.perf_counter() - t0:.1f} s: backbone {searcher.backbone}, "
+        f"title markers {searcher.title_bos_token_id} / {searcher.title_eos_token_id} (the "
+        f"corpus carries them: titles on), prepend_space {searcher.prepend_space}, "
+        f"strip {searcher.strip_token_ids}")
+    searcher.batch_search(queries, k=bench_search.TOP_K)  # warm-up unit
+    torch.cuda.synchronize()
+    searcher.phase_timer.enabled = True
+    zero_counts()
+    t0 = time.perf_counter()
+    res = searcher.batch_search(queries, k=bench_search.TOP_K)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    s_launches = read_counts("batch_search_t5", layers=layers)
+    nonempty = sum(1 for r in res if r)
+    if not nonempty or any(not all(np.isfinite([d.score for d in r])) for r in res):
+        fail(f"batch_search_t5: {nonempty} non-empty results, or non-finite scores")
+    n_body, n_title = searcher_grounding(searcher, queries)
+    keys, _ = searcher.generate_keys(queries[0])
+    n_title_keys = sum(1 for k, _ in keys if k[0] == searcher.title_bos_token_id)
+    log(f"batch_search_t5: one unit of {len(queries)} queries in {search_s:.3f} s = "
+        f"{len(queries) / search_s:.2f} queries/s (after a warm-up unit); phases "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(searcher.phase_timer.totals.items()))
+        + f"; {nonempty}/{len(queries)} results non-empty; {n_body} raw body and {n_title} raw "
+        f"title keys grounded; {n_title_keys} title keys among query 0's {len(keys)} keys (the "
+        f"JAX searcher drops T5 title keys: a hypothesis starts with decoder start 0, not the "
+        f"title BOS 1)")
+    log(f"launches in the batch_search_t5 run: {s_launches}")
+    del searcher
+    n_small = small_t5_parity(np, torch)
+    log(f"small T5 parity (card vs CPU, fast and exact_mask): {n_small} keys compared")
+    return table, dict(qps=B / per_batch, bf16_qps=B / bf16_s, busy=prof["busy_share"],
+                       search_qps=len(queries) / search_s, keys=n_keys)
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -1749,7 +2060,7 @@ def main() -> int:
         wt_search,
         wt_window,
     )
-    from seal_tpu_torch.models import bart
+    from seal_tpu_torch.models import bart, t5
     from seal_tpu_torch.retrieval.searcher import SEALSearcher
     from seal_tpu_torch.scoring import keys as scoring
 
@@ -1783,27 +2094,31 @@ def main() -> int:
         "sample_select": sample_select.sample_select,
         "diverse_select": diverse_select.diverse_select,
         "beam_candidates": beam_select.beam_candidates,
+        "self_attention_step_t5": decode_attention.self_attention_step_rel,
     }
     by_path: dict = {}  # path -> {kernel: launches in that path's run}
-    # decode steps each path runs (the beam search calls bart.decode_step
-    # through the module, so a counting wrapper sees every step)
-    real_decode_step = bart.decode_step
+    # decode steps each path runs (the beam search calls the family's
+    # decode_step through its module, so a counting wrapper sees every step)
     steps = {"n": 0}
 
-    def counted_decode_step(*a, **k):
-        steps["n"] += 1
-        return real_decode_step(*a, **k)
+    def counting(decode_step):
+        def counted_decode_step(*a, **k):
+            steps["n"] += 1
+            return decode_step(*a, **k)
+        return counted_decode_step
 
-    bart.decode_step = counted_decode_step
+    bart.decode_step = counting(bart.decode_step)
+    t5.decode_step = counting(t5.decode_step)
 
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
         steps["n"] = 0
 
-    def read_counts(path, no_select=0):
+    def read_counts(path, no_select=0, layers=None):
         """The launches of ``path``'s run; ``no_select``: its decode steps
-        that select nothing (forced-BOS steps)."""
+        that select nothing (forced-BOS steps); ``layers``: its model's
+        decoder layers (default: BART-large's)."""
         by_path[path] = {name: fn.launches for name, fn in counters.items()}
         for name in PATH_KERNELS[path]:
             if by_path[path][name] <= 0:
@@ -1817,9 +2132,12 @@ def main() -> int:
             # every decode step ran both attentions in every layer, one
             # reorder and one selection: no plain attention, gather or
             # selection is left on the card, step 0 included
-            n, layers = steps["n"], cfg.decoder_layers
+            n, layers = steps["n"], layers or cfg.decoder_layers
             select = SELECTS.get(path, "beam_select")
-            want = {"cross_attention_step": layers * n, "self_attention_step": layers * n,
+            self_attn, other = ("self_attention_step_t5", "self_attention_step")
+            if "t5" not in path:
+                self_attn, other = other, self_attn
+            want = {"cross_attention_step": layers * n, self_attn: layers * n, other: 0,
                     "reorder_cache": n - no_select, select: n - no_select}
             if select != "beam_select":  # kernel 20 or 21 selects, kernel 8 nothing
                 want["beam_select"] = 0
@@ -2551,6 +2869,13 @@ def main() -> int:
     log(f"small searcher parity (card vs CPU): {n_small_search} documents compared")
     n_small_free = small_search_parity(np, free_generation=True)
     log(f"small free_generation searcher parity (card vs CPU): {n_small_free} documents compared")
+    # ---- T5-base: generation, the kernel mode, a searcher unit -------------
+    t0 = time.perf_counter()
+    t5_table, t5_run = t5_phase(np, torch, zero_counts, read_counts)
+    for row in t5_table:
+        log_kernel(row)
+    table += t5_table
+    log(f"T5 phase wall {time.perf_counter() - t0:.1f} s")
     total = {name: sum(p[name] for p in by_path.values()) for name in counters}
     for name, n in total.items():
         if n <= 0:
@@ -2573,7 +2898,10 @@ def main() -> int:
             f"{k} {v['qps']:.1f}" for k, v in dense_runs.items())
         + f", psi busy {100 * dense_runs['psi']['busy']:.1f}% under the profiler, kernel 3 "
         f"{100 * dense_runs['psi']['topk_share']:.1f}% of it; decode modes queries/s: "
-        + ", ".join(f"{k} {v:.1f}" for k, v in mode_qps.items()))
+        + ", ".join(f"{k} {v:.1f}" for k, v in mode_qps.items())
+        + f"; T5-base f32 generation {t5_run['qps']:.1f} queries/s (bf16 batch "
+        f"{t5_run['bf16_qps']:.1f}), busy {100 * t5_run['busy']:.1f}% under the profiler, "
+        f"batch_search_t5 {t5_run['search_qps']:.2f} queries/s")
     log(f"launches by path: {json.dumps(by_path)}")
     kernels = []
     for row in table:
@@ -2587,7 +2915,10 @@ def main() -> int:
             **{k: row[k] for k in ("tol_ratio", "psi_ms", "hybrid_ms", "rank_route_ms",
                                    "default_ms", "merge_ms", "topk_dense_ms", "k64_ms",
                                    "row_topk_k64_ms", "library_k64_ms", "narrow_ms", "ties_ms",
-                                   "wide_ms", "sample_ms", "spec_ms") if k in row},
+                                   "wide_ms", "sample_ms", "spec_ms", "bf16_ms", "cross_ms",
+                                   "f32_tol_ratio", "cross_tol_ratio", "cross_f32_ms",
+                                   "cross_f32_tol_ratio")
+               if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}
     if missing:

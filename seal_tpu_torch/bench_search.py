@@ -13,6 +13,12 @@ pipelining) at batch size 16.  The queries are 6-word spans of random
 documents.  ``chip_smoke.py`` builds it on the card and times
 ``batch_search`` over it.  ``layout_knobs`` gives the searcher knobs that
 pick its device index (``"psi"``, ``"compact"`` or ``"hybrid"``).
+
+``t5_operating_point`` is a searcher unit over T5-base (f32, as the JAX
+searcher builds it for a ``t5`` backbone) at ``backbone="t5-base"`` and the
+default knobs: the T5 generation corpus's bodies (``bench_generate``,
+Zipf ids in [2, 32000)) behind 3-id titles and T5's title marker 32000,
+each document ending in eos 1, read by ``IdTokenizer``.
 """
 
 from __future__ import annotations
@@ -74,6 +80,59 @@ def operating_point(device="cuda", seed: int = 0):
     searcher = SEALSearcher(host, tok, cfg, params, backbone="word-vocab-large",
                             batch_size=BATCH_SIZE)
     return searcher, build_queries(rng, texts)
+
+
+class IdTokenizer:
+    """An id-level tokenizer with T5's special ids (pad = bos = 0, eos 1):
+    the word ``tN`` is id N; other words are dropped."""
+
+    pad_token_id = bos_token_id = unk_token_id = mask_token_id = 0
+    eos_token_id = 1
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def __len__(self):
+        return self.vocab_size
+
+    def encode_plain(self, text):
+        return [int(w[1:]) for w in text.split() if w[:1] == "t" and w[1:].isdigit()]
+
+    def encode(self, text, add_special_tokens=True):
+        ids = self.encode_plain(text)
+        return ids + [self.eos_token_id] if add_special_tokens else ids
+
+    def decode(self, ids, skip_special_tokens=False):
+        return " ".join(f"t{i}" for i in ids if not (skip_special_tokens and i < 2))
+
+    def batch_decode(self, seqs, **kw):
+        return [self.decode(s, **kw) for s in seqs]
+
+
+def t5_operating_point(device="cuda", seed: int = 0, n_queries: int = BATCH_SIZE):
+    """(searcher, queries): one unit of ``n_queries`` 6-id body spans over
+    T5-base f32 (``bench_generate.build_t5_model``: random weights from
+    ``seed``, the corpus-unigram logit bias, the SEAL bias), 10k documents
+    ``title (3 ids) 32000 body (120 ids) 1``."""
+    from seal_tpu_torch.bench_generate import T5_CONTENT, build_corpus, build_t5_model
+    from seal_tpu_torch.index.fm_index import FMIndex
+    from seal_tpu_torch.retrieval.searcher import SEALSearcher
+
+    lo, hi = T5_CONTENT
+    rng, bodies, _ = build_corpus(seed, lo=lo, hi=hi, eos=1)
+    titles = rng.integers(lo, hi, size=(len(bodies), 3))
+    host = FMIndex()
+    host.initialize([t.tolist() + [32000] + b.tolist() + [1] for t, b in zip(titles, bodies)],
+                    labels=[f"d{i}" for i in range(len(bodies))])
+    cfg, params = build_t5_model(bodies, device, seed=seed)
+    searcher = SEALSearcher(host, IdTokenizer(cfg.vocab_size), cfg, params, backbone="t5-base",
+                            batch_size=BATCH_SIZE)
+    queries = []
+    for _ in range(n_queries):
+        body = bodies[int(rng.integers(0, len(bodies)))]
+        s = int(rng.integers(0, len(body) - 6))
+        queries.append(" ".join(f"t{t}" for t in body[s : s + 6]))
+    return searcher, queries
 
 
 TINY_CORPUS = [

@@ -87,7 +87,7 @@ from seal_tpu_torch.kernels.row_topk import row_topk
 from seal_tpu_torch.kernels.sample_select import sample_select
 from seal_tpu_torch.kernels.triton_logsoftmax import log_softmax_ban
 from seal_tpu_torch.index.wavelet import WaveletIndex
-from seal_tpu_torch.models import bart
+from seal_tpu_torch.models import api as model_api
 from seal_tpu_torch.ops import fm_ops, wt_ops
 
 
@@ -540,10 +540,11 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     # free generation runs no index op: every candidate is allowed
     constrained = not cfg.disable_fm_index
 
+    model = model_api.module_for(model_cfg)  # family dispatch (bart / t5)
     # per-QUERY encoder state, never beam-tiled: decode_step's grouped
     # cross-attention reads it once per query
-    cross_kv = bart.precompute_cross_kv(model_cfg, params, enc_out)
-    enc_bias = bart.encoder_bias(enc_mask)
+    cross_kv = model.precompute_cross_kv(model_cfg, params, enc_out)
+    enc_bias = model.encoder_bias(enc_mask)
 
     # step 0 (and the forced-BOS step) has ONE live beam per query (beam 0
     # at score 0, the rest at NEG_INF never win) and identical model state
@@ -556,7 +557,7 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     K0 = 1 if slim0 else K
     # two [B*K]-row caches: each step's reorder (kernel 11) copies the live
     # columns from one into the other; step 0 runs on the first rows0 rows
-    caches = [bart.empty_self_cache(model_cfg, B * K, L, dev) for _ in range(2)]
+    caches = [model.empty_self_cache(model_cfg, B * K, L, dev) for _ in range(2)]
     self_cache = [{n: c[n][:rows0] for n in ("k", "v")} for c in caches[0]]
 
     tokens = torch.full((B * K, L), cfg.pad_token_id, dtype=i32, device=dev)
@@ -582,7 +583,7 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     tok0 = cfg.decoder_start_token_id
     if cfg.forced_bos_token_id is not None:
         bos = cfg.forced_bos_token_id
-        logits, self_cache = bart.decode_step(
+        logits, self_cache = model.decode_step(
             model_cfg, params, torch.full((rows0,), tok0, dtype=i32, device=dev), 0, self_cache,
             cross_kv, enc_bias,
         )
@@ -594,7 +595,7 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
 
     # ---- step 0: first token (dense corpus mask; none when free) --------
     start_col = pos0 + 1
-    logits, self_cache = bart.decode_step(
+    logits, self_cache = model.decode_step(
         model_cfg, params, torch.full((rows0,), tok0, dtype=i32, device=dev), pos0, self_cache,
         cross_kv, enc_bias,
     )
@@ -623,7 +624,7 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     # in [rows0] rows -- gather it with the K0 stride
     tokens = tokens[(brow * K + sel_par).reshape(-1).long()]
     tokens[:, start_col] = sel_tok.reshape(-1)
-    self_cache = bart.reorder_cache(self_cache, (brow * K0 + sel_par).reshape(-1), step=pos0,
+    self_cache = model.reorder_cache(self_cache, (brow * K0 + sel_par).reshape(-1), step=pos0,
                                     out=caches[1])
     prev_count = lo = hi = None  # free generation keeps no constraint state
     if constrained:
@@ -637,7 +638,7 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
         cur_col = start_col + t  # column holding the last written token
         step = pos0 + 1 + t  # decoder position
         last = tokens[:, cur_col]
-        logits, self_cache = bart.decode_step(
+        logits, self_cache = model.decode_step(
             model_cfg, params, last, step, self_cache, cross_kv, enc_bias
         )
         lp = _log_softmax(logits, cur_col + 1, cfg)
@@ -662,7 +663,7 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
 
         tokens = tokens[(brow * K + sel_par).reshape(-1).long()]
         tokens[:, cur_col + 1] = sel_tok.reshape(-1)
-        self_cache = bart.reorder_cache(self_cache, (brow * K + sel_par).reshape(-1), step=step,
+        self_cache = model.reorder_cache(self_cache, (brow * K + sel_par).reshape(-1), step=step,
                                         out=caches[t % 2])
 
         if constrained:

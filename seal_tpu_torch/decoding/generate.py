@@ -20,7 +20,7 @@ from seal_tpu_torch.decoding.constrained import (
     constrained_beam_search,
     resolve_window,
 )
-from seal_tpu_torch.models import bart
+from seal_tpu_torch.models import api as model_api
 
 #: Most recent decode's fast-path fallback counters (single-dispatch
 #: diagnostics; see BeamSearchOutput.fallback_steps).
@@ -100,7 +100,7 @@ def _to_host(out: BeamSearchOutput) -> BeamSearchOutput:
 
 def _search(model_cfg, params, index, dcfg, ids, mask, seed: int = 0) -> BeamSearchOutput:
     with torch.inference_mode():
-        enc = bart.encode(model_cfg, params, ids, mask)
+        enc = model_api.module_for(model_cfg).encode(model_cfg, params, ids, mask)
         return constrained_beam_search(model_cfg, params, index, dcfg, enc, mask, seed=seed)
 
 

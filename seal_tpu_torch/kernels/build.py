@@ -82,9 +82,11 @@ SIGNATURES = {
     # token = slot % V), n_queries, n_par, ncand, k, eos, neg_inf, 9 outputs,
     # stream
     "seal_beam_select_top": [_P, _P, _P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _F] + [_P] * 10,
-    # q, k, v, bias, out, n_queries, group, heads, m, head_dim, q_stride,
-    # kv_row_stride, bias_stride, dtype (0 f32, 1 bf16), stream
-    "seal_decode_attention": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _L, _L, _I, _P],
+    # q, k, v, bias, rel_table, rel_bf16, rel_bucket, out, n_queries, group,
+    # heads, m, head_dim, q_stride, kv_row_stride, bias_stride, dtype (0 f32,
+    # 1 bf16), stream
+    "seal_decode_attention": [_P, _P, _P, _P, _P, _I, _P, _P, _L, _I, _I, _I, _I, _L, _L, _L,
+                              _I, _P],
     # table (host array of 2*n_tensors pointers), n_tensors, index, rows,
     # src_rows, copy_bytes, row_bytes, stream
     "seal_reorder_cache": [_P, _I, _P, _L, _L, _L, _L, _P],

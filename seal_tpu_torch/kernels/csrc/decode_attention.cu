@@ -33,6 +33,18 @@
 // because exp(-1e9 - max) is 0.0 in f32, so they add nothing to the softmax
 // sum or to the PV product.
 //
+// Kernel 10's relative-position-bias mode replaces T5's cached
+// self-attention (seal_tpu/models/t5.py:decode_step :358-371 with
+// _position_bias :188): the caller passes an un-scaled q, the bucket table
+// [num_buckets, H] (f32, or bf16 as the serving cast leaves it: read and
+// widened to f32 here, exactly as T5 widens the gathered rows) and the
+// decoder's bucket of each distance, int32 [max_len], and the kernel adds
+// table[bucket[step - j]][h] to the f32 score of slot j <= step, where T5
+// adds its [1, H, 1, max_len] bias row (built per step there by arange,
+// log, where, gather and transpose).  The table's entries are read through
+// the read-only cache: shared memory does not grow with it.  Slots past step stay unread, exact for the reason
+// above (rel + -1e9 leaves exp at 0.0).
+//
 // Bound on the card: latency.  At the generation point a CTA moves a few KB
 // (cross: 14 positions x 64 x 2 x bf16; self: <= 10 positions) and does
 // ~30 k flops, so the launch and the dependent load -> reduce -> store chain
@@ -90,12 +102,15 @@ __device__ __forceinline__ void stage(float* s, const T* __restrict__ x, long lo
 
 // grid (n_queries, heads); q rows b*group .. b*group + group - 1 at stride
 // q_stride; K/V row b at kv_row_stride, positions at heads * head_dim;
-// bias [n_queries, m] at bias_stride or null.
+// bias [n_queries, m] at bias_stride or null; rel_table [buckets, heads]
+// (bf16 if rel_bf16, else f32) and rel_bucket [>= m] (the bucket of each
+// distance m - 1 - j) or null.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const float* __restrict__ bias,
-                        T* __restrict__ out, int group, int heads, int m, int head_dim, int tile,
+                        const void* __restrict__ rel_table, int rel_bf16,
+                        const int* __restrict__ rel_bucket, T* __restrict__ out, int group, int heads, int m, int head_dim, int tile,
                         long long q_stride, long long kv_row_stride, long long bias_stride) {
   extern __shared__ float smem[];
   const int ld = head_dim + 1;
@@ -140,6 +155,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           float s = 0.0f;
           for (int d = 0; d < head_dim; ++d) s = fmaf(qr[d], kr[d], s);
           if (bias != nullptr) s += bias[b * bias_stride + j0 + jj];
+          if (rel_table != nullptr) {
+            const long long e = (long long)__ldg(rel_bucket + (m - 1 - j0 - jj)) * heads + h;
+            s += rel_bf16 ? __bfloat162float(__ldg((const __nv_bfloat16*)rel_table + e))
+                          : __ldg((const float*)rel_table + e);
+          }
           s_p[g * tile + jj] = s;
         }
         __syncthreads();
@@ -186,8 +206,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const float* bias, void* out,
-           long long n_queries, int group, int heads, int m, int head_dim, long long q_stride,
+int launch(const void* q, const void* k, const void* v, const float* bias,
+           const void* rel_table, int rel_bf16, const int* rel_bucket, void* out,
+           long long n_queries,
+           int group, int heads, int m, int head_dim, long long q_stride,
            long long kv_row_stride, long long bias_stride, cudaStream_t stream) {
   const int tile = m < TILE ? m : TILE;
   const size_t smem = sizeof(float) * smem_floats(group, tile, head_dim);
@@ -198,8 +220,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias, void*
   }
   const dim3 grid((unsigned)n_queries, (unsigned)heads);
   decode_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, bias, (T*)out, group, heads, m, head_dim, tile,
-      q_stride, kv_row_stride, bias_stride);
+      (const T*)q, (const T*)k, (const T*)v, bias, rel_table, rel_bf16, rel_bucket, (T*)out,
+      group, heads, m, head_dim, tile, q_stride, kv_row_stride, bias_stride);
   return (int)cudaGetLastError();
 }
 
@@ -212,14 +234,17 @@ extern "C" long long seal_decode_attention_smem(int group, int m, int head_dim) 
 }
 
 extern "C" int seal_decode_attention(const void* q, const void* k, const void* v,
-                                     const float* bias, void* out, long long n_queries, int group,
-                                     int heads, int m, int head_dim, long long q_stride,
-                                     long long kv_row_stride, long long bias_stride, int bf16,
-                                     void* stream) {
+                                     const float* bias, const void* rel_table, int rel_bf16,
+                                     const int* rel_bucket, void* out, long long n_queries,
+                                     int group, int heads, int m, int head_dim,
+                                     long long q_stride, long long kv_row_stride,
+                                     long long bias_stride, int bf16, void* stream) {
   if (n_queries <= 0 || group <= 0 || m <= 0) return (int)cudaGetLastError();
   if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, bias, out, n_queries, group, heads, m, head_dim,
-                                 q_stride, kv_row_stride, bias_stride, (cudaStream_t)stream);
-  return launch<float>(q, k, v, bias, out, n_queries, group, heads, m, head_dim, q_stride,
-                       kv_row_stride, bias_stride, (cudaStream_t)stream);
+    return launch<__nv_bfloat16>(q, k, v, bias, rel_table, rel_bf16, rel_bucket, out,
+                                 n_queries, group, heads, m, head_dim, q_stride, kv_row_stride,
+                                 bias_stride, (cudaStream_t)stream);
+  return launch<float>(q, k, v, bias, rel_table, rel_bf16, rel_bucket, out, n_queries, group,
+                       heads, m, head_dim, q_stride, kv_row_stride, bias_stride,
+                       (cudaStream_t)stream);
 }

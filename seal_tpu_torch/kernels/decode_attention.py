@@ -7,6 +7,13 @@
 * ``self_attention_step`` (kernel 10) replaces ``decode_step``'s cached
   self-attention (``bart.py`` :275-285 through ``_attention`` :142), over
   the live slots [0, step] only.
+* ``self_attention_step_rel`` (kernel 10's relative-position-bias mode)
+  replaces T5's (``seal_tpu/models/t5.py:decode_step`` :358-371 with
+  ``_position_bias`` :188): the kernel adds ``table[bucket[step - j], h]``
+  to the score of slot j, from the bucket table [num_buckets, H] (f32, or
+  bf16 as ``cast_params`` leaves it, widened in the kernel) and the
+  decoder's bucket-of-distance vector int32 [max_len].  T5 feeds both
+  modes, and kernel 9, an un-scaled q.
 
 The inputs are the plain code's: q after the query projection and scaling
 [rows, H, Dh], K/V [Bq, M, H, Dh] (a cache may have more rows and columns
@@ -26,9 +33,10 @@ import torch
 NEG_BIAS = -1e9  # BART's attention-mask bias (``models/bart.py``)
 
 
-def decode_attention_plain(q, k, v, bias, m: int | None = None):
+def decode_attention_plain(q, k, v, bias, m: int | None = None, head_bias=None):
     """q [Bq*g, H, Dh], k/v [Bq, M', H, Dh] (first ``m`` positions used),
-    bias f32 [Bq, m] or None -> [Bq*g, H, Dh] in q's dtype."""
+    bias f32 [Bq, m] or None, head_bias f32 [H, m] (one row per head, the
+    same for every query) or None -> [Bq*g, H, Dh] in q's dtype."""
     bq = k.shape[0]
     g = q.shape[0] // bq
     m = k.shape[1] if m is None else m
@@ -37,12 +45,15 @@ def decode_attention_plain(q, k, v, bias, m: int | None = None):
     scores = torch.einsum("bghd,bmhd->bghm", qg.float(), k.float())
     if bias is not None:
         scores = scores + bias[:, None, None, :m]
+    if head_bias is not None:
+        scores = scores + head_bias[None, None, :, :m]
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bghm,bmhd->bghd", probs, v)
     return out.reshape(q.shape)
 
 
-def bf16_error_ratio(got, want, q, k, v, bias=None, m: int | None = None) -> float:
+def bf16_error_ratio(got, want, q, k, v, bias=None, m: int | None = None,
+                     head_bias=None) -> float:
     """Largest |got - want| over the bf16 tolerance, elementwise.
 
     Two bf16 decode attentions whose f32 sums run in other orders may round
@@ -52,8 +63,42 @@ def bf16_error_ratio(got, want, q, k, v, bias=None, m: int | None = None) -> flo
     """
     a = torch.maximum(got.float().abs(), want.float().abs()).clamp(min=2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
-    weight = decode_attention_plain(q, k, v.abs(), bias, m).float()
-    return float(((got.float() - want.float()).abs() / (ulp + 2.0 ** -7 * weight)).max())
+    weight = decode_attention_plain(q, k, v.abs(), bias, m, head_bias).float()
+    return _max_ratio(got, want, ulp + 2.0 ** -7 * weight)
+
+
+def f32_error_ratio(got, want, q, k, v, bias=None, m: int | None = None,
+                    head_bias=None) -> float:
+    """Largest |got - want| over the f32 tolerance, elementwise: the
+    tolerance of un-scaled scores (T5), whose f32 rounding grows with them.
+
+    An f32 dot of Dh products is off by at most Dh 2^-24 sum_d |q_d k_d|,
+    so with e the largest such bound over a row's positions each
+    probability moves by at most a factor exp(2e), and the output by about
+    2e sum_j p_j |v_j|; the PV sum adds m 2^-24 sum_j p_j |v_j|.  Positions
+    under the -1e9 bias carry no probability and are left out of e.  A
+    ratio <= 1 is within it.
+    """
+    bq, dh = k.shape[0], q.shape[-1]
+    m = k.shape[1] if m is None else m
+    qa = q.float().abs().reshape(bq, q.shape[0] // bq, *q.shape[1:])
+    dots = torch.einsum("bghd,bmhd->bghm", qa, k[:, :m].float().abs())
+    if bias is not None:
+        dots = dots.masked_fill(bias[:, None, None, :m] <= NEG_BIAS / 2, 0.0)
+    if head_bias is not None:
+        dots = dots.masked_fill(head_bias[None, None, :, :m] <= NEG_BIAS / 2, 0.0)
+    e = dh * 2.0 ** -24 * dots.amax(-1)
+    weight = decode_attention_plain(q.float(), k.float(), v.float().abs(), bias, m,
+                                    head_bias).float()
+    tol = (2 * e.reshape(q.shape[0], q.shape[1], 1) + (m + 2) * 2.0 ** -24) * weight
+    return _max_ratio(got, want, tol.clamp(min=2.0 ** -126))
+
+
+def _max_ratio(got, want, tol) -> float:
+    """max |got - want| / tol in f32, a NaN on either side counted as
+    infinitely far (a NaN ratio would compare as within any tolerance)."""
+    ratio = (got.float() - want.float()).abs() / tol
+    return float(ratio.nan_to_num(nan=float("inf")).max())
 
 
 def cross_attention_step(q, k, v, bias):
@@ -101,7 +146,54 @@ def self_attention_step(q, k_cache, v_cache, step: int):
 self_attention_step.launches = 0
 
 
-def _launch(q, k, v, bias, m: int):
+def relative_bias_row(table, buckets, step: int, max_len: int):
+    """T5's decode-step bias over every cache slot, f32 [H, max_len]: the
+    bucket table's row of slot j's distance step - j (slots past ``step``
+    are in bucket 0, as T5 computes them) plus -1e9 past ``step``."""
+    slots = torch.arange(max_len, device=table.device)
+    rel = table[buckets[(step - slots).clamp(min=0)].long()].T.to(torch.float32)
+    return rel + torch.where(slots <= step, 0.0, NEG_BIAS).to(torch.float32)
+
+
+def self_attention_rel_plain(q, k_cache, v_cache, step: int, table, buckets):
+    """The plain code's T5 cached self-attention: every cache slot, under
+    ``relative_bias_row``."""
+    head_bias = relative_bias_row(table, buckets, step, k_cache.shape[1])
+    return decode_attention_plain(q, k_cache, v_cache, None, head_bias=head_bias)
+
+
+def self_attention_step_rel(q, k_cache, v_cache, step: int, table, buckets):
+    """Cached decode self-attention with T5's relative position bias (kernel
+    10's relative-bias mode): q [rows, H, Dh] un-scaled, cache [rows,
+    max_len, H, Dh] written at slots [0, step], ``table`` f32 or bf16
+    [num_buckets, H], ``buckets`` int32 [max_len] with every entry <
+    num_buckets (the decoder's bucket of each distance,
+    ``models/t5.py:bucket_of_distance``).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    if not q.is_cuda:
+        return self_attention_rel_plain(q, k_cache, v_cache, step, table, buckets)
+    if not 0 <= step < k_cache.shape[1]:
+        raise ValueError(f"self_attention_step_rel: step {step} outside the cache")
+    heads = q.shape[1]
+    if (table.dtype not in (torch.float32, torch.bfloat16) or table.dim() != 2
+            or table.shape[1] != heads or not table.is_contiguous() or table.device != q.device):
+        raise ValueError(f"self_attention_step_rel: table must be f32 or bf16 [buckets, "
+                         f"{heads}] contiguous on {q.device}")
+    if (buckets.dtype != torch.int32 or buckets.dim() != 1 or buckets.numel() <= step
+            or not buckets.is_contiguous() or buckets.device != q.device):
+        raise ValueError(f"self_attention_step_rel: buckets must be int32 [> {step}] "
+                         f"contiguous on {q.device}")
+    out = _launch(q, k_cache, v_cache, None, step + 1, rel=(table, buckets))
+    self_attention_step_rel.launches += 1
+    return out
+
+
+self_attention_step_rel.launches = 0
+
+
+def _launch(q, k, v, bias, m: int, rel=None):
     from seal_tpu_torch.kernels import build
 
     rows, heads, head_dim = q.shape
@@ -125,8 +217,12 @@ def _launch(q, k, v, bias, m: int):
         if bias.dtype != torch.float32 or bias.shape != (bq, k.shape[1]) or bias.stride(1) != 1:
             raise ValueError(f"decode attention: bias must be f32 [{bq}, {k.shape[1]}]")
     out = torch.empty((rows, heads, head_dim), dtype=q.dtype, device=q.device)
+    table, buckets = rel if rel is not None else (None, None)
     rc = build.lib().seal_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr() if bias is not None else None,
+        table.data_ptr() if table is not None else None,
+        int(table is not None and table.dtype == torch.bfloat16),
+        buckets.data_ptr() if buckets is not None else None,
         out.data_ptr(), bq, g, heads, m, head_dim, q.stride(0), k.stride(0),
         bias.stride(0) if bias is not None else 0, int(q.dtype == torch.bfloat16),
         build.stream_ptr(q),

@@ -11,7 +11,8 @@ cross-attention over per-query K/V.  Inference only.
 
 The decode step's attentions and the beam reorder of its cache are kernels
 (``kernels/decode_attention.py``: 9 cross, 10 self; ``kernels/
-reorder_cache.py``: 11).  The encoder and ``decode_full`` keep the generic
+reorder_cache.py``: 11, through ``models/common.py``, which both families
+share with the tied head's matmul).  The encoder and ``decode_full`` keep the generic
 ``_attention``: plain large products over whole sequences, which the JAX
 package also leaves to XLA outside any kernel.
 """
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from seal_tpu_torch.kernels import decode_attention
-from seal_tpu_torch.kernels import reorder_cache as k_reorder
+from seal_tpu_torch.models.common import reorder_cache, tied_head  # noqa: F401 (re-exported)
 from seal_tpu_torch.models.config import BartConfig
 from seal_tpu_torch.utils.device import DEFAULT_DEVICE, checked_device
 
@@ -274,34 +275,6 @@ def decode_full(cfg: BartConfig, params: Params, enc_out, enc_mask, decoder_inpu
 
 
 def lm_logits(cfg: BartConfig, params: Params, hidden):
-    """Tied LM head: hidden @ shared.T + final_logits_bias, f32 out.
-
-    Operands in the compute dtype with f32 accumulation AND an f32 result:
-    a bf16 ``torch.matmul`` would round its output to bf16, so on the card
-    the bf16 head is ``torch.mm(..., out_dtype=torch.float32)``.  Elsewhere
-    (f32 configs, or bf16 on the CPU, which lacks that op) the operands are
-    widened to f32 first, which computes the same products exactly.
-    """
-    dt = cfg.compute_dtype
-    w = params["shared"].to(dt)
-    h2 = hidden.to(dt).reshape(-1, hidden.shape[-1])
-    if dt != torch.float32 and h2.is_cuda:
-        logits = torch.mm(h2, w.T, out_dtype=torch.float32)
-    else:
-        logits = h2.float() @ w.float().T
-    logits = logits.reshape(*hidden.shape[:-1], w.shape[0])
-    return logits + params["final_logits_bias"]
-
-
-def reorder_cache(self_cache, beam_idx, step: int, out):
-    """Gather cache rows along the batch dim after a beam permutation
-    (kernel 11, one launch for every layer's K and V).
-
-    ``out``: a preallocated cache with ``len(beam_idx)`` rows to gather into
-    (the beam search ping-pongs between two).  Only the live columns
-    [0, step] are copied: the columns past it were never written in either
-    cache, so the result equals the full gather.  Returns ``out``.
-    """
-    k_reorder.reorder_cache([c[n] for c in self_cache for n in ("k", "v")], beam_idx, step + 1,
-                            [c[n] for c in out for n in ("k", "v")])
-    return out
+    """Tied LM head: hidden @ shared.T + final_logits_bias, f32 out
+    (``tied_head``)."""
+    return tied_head(cfg, params["shared"], hidden) + params["final_logits_bias"]

@@ -32,7 +32,9 @@ class BartConfig:
     # the checkpoints depend on
     position_offset: int = 2
     dtype: str = "float32"  # compute dtype: "float32" | "bfloat16"
-    remat: bool = False  # training knob of the JAX package; unused here
+    # a training knob of the JAX package, unused here: kept so a JAX
+    # config loads as BartConfig(**dataclasses.asdict(jax_cfg))
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:

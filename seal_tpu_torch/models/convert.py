@@ -1,5 +1,14 @@
 """Parameter conversion and serving casts (counterparts of
-``seal_tpu/models/convert.py:189-201`` and ``seal_tpu/models/api.py:21-49``)."""
+``seal_tpu/models/convert.py:138-201`` and ``seal_tpu/models/api.py:21-49``).
+
+``from_hf_t5_state_dict`` converts a HF ``T5ForConditionalGeneration``
+state dict (torch tensors; neither transformers nor jax is needed) to the
+T5 tree of ``models/t5.py``, as the JAX converter does: q/k/v/o and
+wi/wi_0/wi_1/wo transposed to [d_in, d_out], each stack's layer-0
+``relative_attention_bias``, ``shared.weight``.  Like the JAX converter it
+never reads ``lm_head.weight``: an untied checkpoint (T5 v1.1, flan-T5,
+mT5) is served against its input embedding table, as in the JAX package.
+"""
 
 from __future__ import annotations
 
@@ -33,6 +42,46 @@ def params_from_jax(np_tree, cfg, device=DEFAULT_DEVICE) -> Dict[str, Any]:
         return torch.as_tensor(np.array(a, copy=True)).to(device)
 
     return _tree_map(leaf, np_tree)
+
+
+def from_hf_t5_state_dict(sd: Dict[str, Any], cfg, device=DEFAULT_DEVICE) -> Dict[str, Any]:
+    """A HF ``T5ForConditionalGeneration.state_dict()`` as the port's T5
+    tree, f32 on ``device`` (the card unless the caller asks for the CPU)."""
+    device = checked_device(device)
+    gated = cfg.feed_forward_proj == "gated-gelu"
+
+    def t(key, transpose=False):
+        a = sd[key].detach().to(device=device, dtype=torch.float32)
+        return a.T.contiguous() if transpose else a.clone()
+
+    def attn(prefix):
+        return {n: t(f"{prefix}.{n}.weight", True) for n in ("q", "k", "v", "o")}
+
+    def ffn(prefix):
+        names = ("wi_0", "wi_1", "wo") if gated else ("wi", "wo")
+        return {n: t(f"{prefix}.{n}.weight", True) for n in names}
+
+    def stack(side: str, cross: bool):
+        layers = []
+        for i in range(cfg.num_layers):
+            b = f"{side}.block.{i}.layer"
+            p = {"self_attn": attn(f"{b}.0.SelfAttention"),
+                 "ln_self": t(f"{b}.0.layer_norm.weight")}
+            if cross:
+                p["cross_attn"] = attn(f"{b}.1.EncDecAttention")
+                p["ln_cross"] = t(f"{b}.1.layer_norm.weight")
+            f = 2 if cross else 1
+            p["ffn"] = ffn(f"{b}.{f}.DenseReluDense")
+            p["ln_ffn"] = t(f"{b}.{f}.layer_norm.weight")
+            layers.append(p)
+        return {
+            "rel_bias": t(f"{side}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"),
+            "layers": layers,
+            "final_ln": t(f"{side}.final_layer_norm.weight"),
+        }
+
+    return {"shared": t("shared.weight"), "encoder": stack("encoder", False),
+            "decoder": stack("decoder", True)}
 
 
 def apply_seal_logits_bias(params: Dict[str, Any], cfg) -> Dict[str, Any]:

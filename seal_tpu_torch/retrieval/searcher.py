@@ -23,10 +23,14 @@ What changed in translation:
   index's layout.
 * ``diverse_bs_groups`` / ``diverse_bs_penalty`` reach every body and
   title decode, as in JAX (kernel 21 selects the groups).
+* Both model families: a ``backbone`` naming ``t5`` takes the reference's
+  T5 token constants (``retrieval.py:494-504``), and the model calls go
+  through ``models/api.py:module_for`` with a ``T5Config`` (``models/t5.py``)
+  as with a ``BartConfig``.
 * Not ported yet (``NotImplementedError`` naming the knob): ``index_shards``
-  > 1, ``jobs`` >= 2 (forked workers after CUDA init), ``decode_code`` and
-  T5 backbones, at the first search.  ``load``, ``from_args`` and the CLIs
-  wait for a checkpoint loader without jax.
+  > 1, ``jobs`` >= 2 (forked workers after CUDA init) and ``decode_code``,
+  at the first search.  ``load``, ``from_args`` and the CLIs wait for a
+  checkpoint loader without jax.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from seal_tpu_torch.index.fm_index import FMIndex
 from seal_tpu_torch.index.wavelet import WaveletIndex
 from seal_tpu_torch.models import convert
 from seal_tpu_torch.models.config import BartConfig
+from seal_tpu_torch.models.t5 import T5Config
 from seal_tpu_torch.retrieval.document import SEALDocument
 from seal_tpu_torch.scoring import keys as rk
 from seal_tpu_torch.utils.profiling import PhaseTimer, ServingMetrics
@@ -121,7 +126,7 @@ class SEALSearcher:
         self,
         fm_index: FMIndex,
         tokenizer,
-        model_cfg: BartConfig,
+        model_cfg: Union[BartConfig, T5Config],
         params,
         scorer_params=None,
         title_params=None,
@@ -172,8 +177,6 @@ class SEALSearcher:
         self.phase_timer = PhaseTimer(enabled=False)
 
         backbone = self.backbone
-        if "t5" in backbone:
-            raise NotImplementedError("not ported to seal_tpu_torch yet: T5 backbones")
         if "bart" in backbone:
             # reference retrieval.py:482-493
             self.title_bos_token_id = 2
@@ -182,6 +185,14 @@ class SEALSearcher:
             self.code_eos_token_id = 45056  # '||'
             self.prepend_space = True
             self.strip_token_ids = (0, 2)
+        elif "t5" in backbone:
+            # reference retrieval.py:494-504
+            self.title_bos_token_id = 1
+            self.title_eos_token_id = 32000
+            self.code_bos_token_id = 32000
+            self.code_eos_token_id = 32001
+            self.prepend_space = False
+            self.strip_token_ids = (0, 1)
         else:
             # generic backbone: the '@@' / '||' marker ids come from the
             # tokenizer, so word-vocab backbones work out of the box

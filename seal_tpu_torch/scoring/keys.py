@@ -6,7 +6,7 @@
   decomposition is the port's ``regex``-free ``word_tokenize``.
 * ``rescore_keys``: the teacher-forced log-prob of each key.  The queries
   are encoded once; each sub-batch of keys gathers its queries' encoder
-  rows, runs ``bart.decode_full`` and reduces the logits to one score per
+  rows, runs the family's ``decode_full`` and reduces the logits to one score per
   key with kernel 7 (``kernels/rescore.py``).  The JAX function pads the
   last sub-batch to the full size to keep one compiled shape; eager torch
   needs no such padding.
@@ -33,7 +33,7 @@ import torch
 
 from seal_tpu_torch.kernels.rescore import rescore_logprob
 from seal_tpu_torch.kernels.triton_logsoftmax import log_softmax_ban
-from seal_tpu_torch.models import bart
+from seal_tpu_torch.models import api as model_api
 from seal_tpu_torch.models.tokenizer import word_tokenize
 
 
@@ -136,16 +136,17 @@ def rescore_keys(
     if not jobs:
         return [all_out[i] for i in range(len(list_of_decoded))]
     dev = params["shared"].device
+    model = model_api.module_for(model_cfg)
     pending = []  # launch every sub-batch, then fetch once
     with torch.inference_mode():
         enc_ids = torch.as_tensor(_pad_to(inputs, pad), device=dev)
         enc_mask = (enc_ids != pad).to(torch.int32)
-        enc_out = bart.encode(model_cfg, params, enc_ids, enc_mask)
+        enc_out = model.encode(model_cfg, params, enc_ids, enc_mask)
         for off in range(0, len(jobs), batch_size):
             batch = jobs[off : off + batch_size]
             dec_ids = torch.as_tensor(_pad_to([d for _, _, d in batch], pad), device=dev)
             qidx = torch.as_tensor([q for q, _, _ in batch], device=dev)
-            logits = bart.decode_full(
+            logits = model.decode_full(
                 model_cfg, params, enc_out[qidx], enc_mask[qidx], dec_ids[:, :-1]
             )
             pending.append((batch, rescore_logprob(logits, dec_ids[:, 1:], len(prefix))))
@@ -175,11 +176,12 @@ def compute_unigram_scores(
     for i, t in enumerate(prefix, start=1):
         dec[:, i] = t
     dev = params["shared"].device
+    model = model_api.module_for(model_cfg)
     with torch.inference_mode():
         ids = torch.as_tensor(_pad_to([list(i) for i in inputs], pad), device=dev)
         mask = (ids != pad).to(torch.int32)
-        enc = bart.encode(model_cfg, params, ids, mask)
-        logits = bart.decode_full(model_cfg, params, enc, mask, torch.as_tensor(dec, device=dev))
+        enc = model.encode(model_cfg, params, ids, mask)
+        logits = model.decode_full(model_cfg, params, enc, mask, torch.as_tensor(dec, device=dev))
         lp = log_softmax_ban(logits[:, len(prefix)], -1, 0.0)
     lp = lp.cpu().numpy().astype(np.float64)
     if temperature != 1.0:

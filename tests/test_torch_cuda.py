@@ -36,7 +36,7 @@ from seal_tpu_torch.kernels import (
     wt_search,
     wt_window,
 )
-from seal_tpu_torch.models import bart
+from seal_tpu_torch.models import bart, t5
 from seal_tpu_torch.models.config import bart_tiny
 
 pytestmark = pytest.mark.cuda
@@ -349,6 +349,106 @@ def test_self_attention_matches_plain(cuda, rows, L, step, dtype):
         assert decode_attention.bf16_error_ratio(got, want, q, kc, vc, None, step + 1) <= 1.0
     else:
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("rows,L,step,dtype", [(480, 10, 9, torch.bfloat16),
+                                               (480, 10, 0, torch.float32),
+                                               (32, 10, 4, torch.bfloat16),
+                                               (16, 160, 150, torch.bfloat16),
+                                               (20, 25, 13, torch.float32)])
+def test_self_attention_rel_matches_plain(cuda, rows, L, step, dtype):
+    """Kernel 10's relative-bias mode (T5): an un-scaled q, T5-base's 12
+    heads of 64, the bucket table in the compute dtype (a bf16 table is
+    widened in the kernel) and the decoder's bucket-of-distance vector,
+    against the plain version over every slot under the
+    relative-bias row plus -1e9 past ``step`` (160 slots: three tiles and
+    distances past the last bucket's 128)."""
+    gen = torch.Generator(device=cuda).manual_seed(step + L)
+    H, Dh = 12, 64
+    q = (torch.randn(rows, H, Dh, generator=gen, device=cuda) * 0.2).to(dtype)
+    kc = torch.zeros(rows, L, H, Dh, device=cuda, dtype=dtype)
+    vc = torch.zeros(rows, L, H, Dh, device=cuda, dtype=dtype)
+    kc[:, : step + 1] = torch.randn(rows, step + 1, H, Dh, generator=gen, device=cuda).to(dtype)
+    vc[:, : step + 1] = torch.randn(rows, step + 1, H, Dh, generator=gen, device=cuda).to(dtype)
+    table = (torch.randn(32, H, generator=gen, device=cuda) * 2).to(dtype)  # cast_params' dtype
+    buckets = t5.bucket_of_distance(t5.T5Config(), L, cuda)
+    n0 = decode_attention.self_attention_step_rel.launches
+    got = decode_attention.self_attention_step_rel(q, kc, vc, step, table, buckets)
+    assert decode_attention.self_attention_step_rel.launches == n0 + 1
+    want = decode_attention.self_attention_rel_plain(q, kc, vc, step, table, buckets)
+    if dtype == torch.bfloat16:
+        head_bias = decode_attention.relative_bias_row(table, buckets, step, L)
+        assert decode_attention.bf16_error_ratio(got, want, q, kc, vc, head_bias=head_bias) <= 1.0
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError):  # the table must be f32 or bf16
+        decode_attention.self_attention_step_rel(q, kc, vc, step, table.half(), buckets)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_unscaled_matches_plain(cuda, dtype):
+    """Kernel 9 as T5 calls it: q un-scaled at T5-base's magnitudes, 15
+    beams per query over a padded encoder of 40 positions, each dtype
+    within its tolerance (f32: ``f32_error_ratio``, the scores reach ~50)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    bq, beams, M, H, Dh = 8, 15, 40, 12, 64
+    q = (torch.randn(bq * beams, H, Dh, generator=gen, device=cuda) * 1.4).to(dtype)
+    k = (torch.randn(bq, M, H, Dh, generator=gen, device=cuda) * 1.4).to(dtype)
+    v = torch.randn(bq, M, H, Dh, generator=gen, device=cuda).to(dtype)
+    bias = torch.zeros(bq, M, device=cuda)
+    bias[::3, -3:] = decode_attention.NEG_BIAS
+    got = decode_attention.cross_attention_step(q, k, v, bias)
+    want = decode_attention.decode_attention_plain(q, k, v, bias)
+    ratio_of = (decode_attention.f32_error_ratio if dtype == torch.float32
+                else decode_attention.bf16_error_ratio)
+    assert ratio_of(got, want, q, k, v, bias) <= 1.0
+
+
+def test_t5_buckets_on_card_equal_the_cpus(cuda):
+    """The bucket indices are made on the CPU and moved: the card's
+    bucket-of-distance vector over distances 0-1023 and the encoder's and
+    decoder's [L, L] position biases equal the CPU's."""
+    cfg = t5.T5Config()
+    got = t5.bucket_of_distance(cfg, 1024, cuda)
+    assert got.is_cuda and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), t5.bucket_of_distance(cfg, 1024, "cpu"))
+    table = torch.randn(32, 12)
+    for bidirectional in (True, False):
+        want = t5._position_bias(cfg, table, 300, 300, bidirectional)
+        assert torch.equal(t5._position_bias(cfg, table.to(cuda), 300, 300, bidirectional).cpu(),
+                           want)
+
+
+@pytest.mark.parametrize("mode", ["fast", "exact_mask"])
+def test_t5_generate_on_card_matches_cpu(cuda, mode):
+    """Tiny T5 through the kernels' path against the CPU plain path: equal
+    token lists, scores within 1e-4; kernel 10's relative-bias mode and
+    kernel 9 launch once per decoder layer and step, BART's self-attention
+    mode never."""
+    cfg = t5.t5_tiny(vocab_size=60)
+    params = t5.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    docs = [rng.integers(2, 60, size=rng.integers(5, 25)).tolist() + [1] for _ in range(30)]
+    host = FMIndex()
+    host.initialize(docs)
+    queries = [rng.integers(2, 60, size=5).tolist() + [1] for _ in range(3)]
+    kw = dict(num_beams=4, max_length=6, min_length=1, forced_bos_token_id=None,
+              exact_mask=mode == "exact_mask")
+    cpu = tg.fm_index_generate(cfg, params, TorchFMIndex.from_host(host, vocab=60, device="cpu"),
+                               queries, **kw)
+    counts = (decode_attention.self_attention_step_rel, decode_attention.cross_attention_step,
+              decode_attention.self_attention_step)
+    n0 = [f.launches for f in counts]
+    gpu = tg.fm_index_generate(cfg, _to(params, cuda),
+                               TorchFMIndex.from_host(host, vocab=60, device=cuda), queries, **kw)
+    n = [f.launches - a for f, a in zip(counts, n0)]
+    per_decode = cfg.num_layers * (kw["max_length"] - 1)  # a force_full redo decodes twice
+    assert n[0] == n[1] and n[0] in (per_decode, 2 * per_decode) and n[2] == 0
+    assert sum(map(len, gpu)) > 0
+    for a, b in zip(cpu, gpu):
+        ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
+        assert [t for t, _ in ka] == [t for t, _ in kb]
+        np.testing.assert_allclose([s for _, s in kb], [s for _, s in ka], atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("rows_src,rows,cols", [(480, 480, 9), (32, 480, 1)])

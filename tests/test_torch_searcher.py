@@ -189,21 +189,29 @@ def test_defaults_match_jax():
 
 
 @pytest.mark.parametrize("knob", [dict(index_shards=2), dict(jobs=2), dict(decode_code=True),
-                                  dict(backbone="t5-small")])
+                                  dict(index_shards=2, backbone="t5-small")])
 def test_unported_knobs_raise(searchers, knob):
+    """Each knob not ported yet raises at construction, and when flipped
+    after it, at the next search; a T5 backbone is ported (its searcher is
+    held to JAX's in ``test_torch_t5_generate.py``) and raises only for
+    such a knob, which is then flipped on a T5 searcher."""
     _, ts = searchers
     name, value = next(iter(knob.items()))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=name):
         TSearcher(ts.fm_index, ts.tokenizer, ts.model_cfg, ts.params,
                   device_index=ts.device_index, **dict(KNOBS, **knob))
-    if name != "backbone":  # flipped after construction: refused at the next search
-        old = getattr(ts, name)
-        setattr(ts, name, value)
-        try:
-            with pytest.raises(NotImplementedError, match=name):
-                ts.batch_search(QUERIES[:1], k=1)
-        finally:
-            setattr(ts, name, old)
+    rest = {k: v for k, v in knob.items() if k != name}
+    if rest:
+        ts = TSearcher(ts.fm_index, ts.tokenizer, ts.model_cfg, ts.params,
+                       device_index=ts.device_index, **dict(KNOBS, **rest))
+        assert ts.title_eos_token_id == 32000  # the t5 branch's constants
+    old = getattr(ts, name)
+    setattr(ts, name, value)
+    try:
+        with pytest.raises(NotImplementedError, match=name):
+            ts.batch_search(QUERIES[:1], k=1)
+    finally:
+        setattr(ts, name, old)
 
 
 @pytest.mark.parametrize("modes", [dict(exact_mask=True), dict(exact_ties=True),
