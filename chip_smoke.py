@@ -109,6 +109,25 @@
    t5_operating_point``: titles on, its corpus carries T5's markers) with
    its raw keys grounded; the tiny T5 on the card against its CPU path
    (fast path and ``exact_mask``).
+12. Drives the corpus-sharded index with every shard on the card
+   (``bench_generate.sharded_index``: the generation corpus split
+   round-robin into 4 shards, ``ShardedTorchIndex``) through
+   ``sharded_fm_index_generate`` at the generation point: queries/s beside
+   the monolithic Psi index's in turns, the index's bytes/token, launches
+   (the shard modes of kernels 1, 2, 5, 6 and 15, none of the monolithic
+   index kernels, each shard mode once per op call); every key grounded in
+   the union (the shards' summed counts), the fast path identical to
+   ``force_full`` and ``exact_mask``, 4 shards identical to the monolithic
+   index and one shard identical with the monolithic kernels' launches
+   (an exact score tie, shown by both agreeing under ``exact_ties``, is the
+   only admissible difference); beam 32 over the shards (``BASELINE.md``'s
+   config-5 shape) through kernel 8's large-n route, identical to
+   ``force_full`` and ``exact_mask``; ``SEALSearcher.build_sharded`` at the
+   e2e point (``bench_search.sharded_searcher``) beside the monolithic
+   searcher: queries/s, raw keys grounded in the union, body keys identical,
+   the top-10 overlap and score difference.  The shard modes and kernel 8's
+   large-n route against their plain versions at the path's shapes,
+   exactly.
 
 Each path's launch counts come from that path's own run (every count set
 to 0 just before it, read just after); on every decoding path kernels 9
@@ -121,6 +140,7 @@ kernel table on the line before the last, and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -162,6 +182,12 @@ REPLACES = {
     "diverse_select": "seal_tpu/decoding/constrained.py:1125",
     "beam_candidates": "seal_tpu/decoding/constrained.py:359",
     "self_attention_step_t5": "seal_tpu/models/t5.py:349",
+    "fm_search_sharded": "seal_tpu/parallel/sharded_decode.py:95",
+    "window_gather_sharded": "seal_tpu/parallel/sharded_decode.py:100",
+    "fm_sequences_sharded": "seal_tpu/parallel/sharded_index.py:455",
+    "bucket_counts_sharded": "seal_tpu/parallel/sharded_decode.py:138",
+    "fm_dense_counts_sharded": "seal_tpu/parallel/sharded_decode.py:147",
+    "beam_select_large": "seal_tpu/decoding/constrained.py:1046",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -194,6 +220,12 @@ SOURCES = {
     "diverse_select": ("cuda", "seal_tpu_torch/kernels/csrc/diverse_select.cu"),
     "beam_candidates": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "self_attention_step_t5": ("cuda", "seal_tpu_torch/kernels/csrc/decode_attention.cu"),
+    "fm_search_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
+    "window_gather_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/window_gather.cu"),
+    "fm_sequences_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
+    "bucket_counts_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/bucket_counts.cu"),
+    "fm_dense_counts_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
+    "beam_select_large": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
 }
 # the kernels each driven path must launch (bucket_counts and the loop
 # rounds' merges run only in the proven loop, which the force_full re-runs
@@ -286,6 +318,37 @@ PATH_KERNELS["generate_t5_hybrid"] = ("wt_search", "wt_window_gather", "row_topk
 PATH_KERNELS["batch_search_t5"] = ("fm_search", "window_gather", "row_topk",
                                    "log_softmax_min_len", "fm_sequences",
                                    "rescore_logprob") + T5_STEP
+# the corpus-sharded index on the card: the same decode loop through the
+# shard modes of kernels 1, 2, 5, 6 and 15 (and none of the monolithic
+# index kernels); beam 32 over the shards' union window through kernel 8's
+# large-n route.  The proven loop may prove a sharded step in round 0, so
+# its bucket counts are held only where one shard repeats the monolithic
+# run; the generate_mono* paths are those monolithic runs
+SHARDED_STEP = ("fm_search_sharded", "window_gather_sharded", "row_topk",
+                "log_softmax_min_len") + DECODE_STEP
+SHARDED_DENSE = ("fm_dense_counts_sharded", "fm_search_sharded") + DENSE_STEP
+for _path in ("generate_sharded", "generate_sharded_once", "generate_sharded_s1"):
+    PATH_KERNELS[_path] = SHARDED_STEP
+for _path in ("generate_sharded_dense", "generate_sharded_s1_dense",
+              "generate_sharded_beam32_dense"):
+    PATH_KERNELS[_path] = SHARDED_DENSE
+PATH_KERNELS["generate_sharded_force_full"] = ("beam_merge",)
+PATH_KERNELS["generate_sharded_beam32_force_full"] = ("beam_merge",)
+PATH_KERNELS["generate_sharded_s1_force_full"] = ("bucket_counts_sharded", "beam_merge")
+PATH_KERNELS["generate_sharded_beam32"] = SHARDED_STEP + ("beam_select_large",)
+# (a searcher's key lengths leave every shard's interval inside the window
+# after step 1, so no proposal round, and no merge, need run)
+PATH_KERNELS["batch_search_sharded"] = ("fm_search_sharded", "window_gather_sharded", "row_topk",
+                                        "log_softmax_min_len", "fm_sequences_sharded",
+                                        "rescore_logprob", "beam_select", "cross_attention_step",
+                                        "self_attention_step", "reorder_cache")
+for _path in ("generate_once", "generate_mono"):
+    PATH_KERNELS[_path] = PATH_KERNELS["generate"]
+PATH_KERNELS["generate_mono_force_full"] = PATH_KERNELS["generate_force_full"]
+PATH_KERNELS["generate_mono_dense"] = PATH_KERNELS["generate_dense"]
+# the calls of each ShardedIndexOps method that a shard mode serves
+SHARD_OPS = ("extend", "contains", "validate", "window_gather", "range_for", "bucket_counts",
+             "dense_counts")
 # the selection kernel of each path whose selection is not kernel 8's
 SELECTS = {path: ("sample_select" if "sample" in path else "diverse_select")
            for path in PATH_KERNELS if "sample" in path or "diverse" in path}
@@ -376,7 +439,8 @@ def log_kernel(row) -> None:
                                                "bf16_ms", "bf16_plain_ms", "cross_ms",
                                                "cross_plain_ms", "cross_tol_ratio",
                                                "cross_f32_ms", "cross_f32_plain_ms",
-                                               "cross_f32_tol_ratio", "f32_tol_ratio")
+                                               "cross_f32_tol_ratio", "f32_tol_ratio",
+                                               "extend_ms", "ranges_ms", "spec_plain_ms")
                   if k in row))
 
 
@@ -2004,6 +2068,488 @@ def t5_phase(np, torch, zero_counts, read_counts):
                        search_qps=len(queries) / search_s, keys=n_keys)
 
 
+def sharded_kernel_phases(np, torch, si, hosts, V, B, K):
+    """Kernels 1, 2, 5, 6 and 15 in their shard modes against their plain
+    versions at the sharded generation path's shapes (S shards stacked on
+    the card, ranges [S, B, K]), exactly: integer results and gathered
+    floats.  Each bound counts every shard's inputs read once and the merged
+    output written once."""
+    from seal_tpu_torch.kernels import bucket_counts as k6
+    from seal_tpu_torch.kernels import fm_search as k1
+    from seal_tpu_torch.kernels import window_gather as k2
+
+    dev = si.device
+    S = si.n_shards
+    g = torch.Generator(device=dev).manual_seed(11)
+    rng = np.random.default_rng(11)
+    table = []
+    # each shard's ranges of one- and two-token prefixes of its own text,
+    # plus its full range, an empty range and one into the padded rows
+    los, his = [], []
+    for s, h in enumerate(hosts):
+        v = si.block_view(s)
+        text = h.text[:-1] - 1
+        first = torch.as_tensor(rng.choice(text, size=(2, B, K)).astype(np.int32), device=dev)
+        flo = torch.zeros((B, K), dtype=torch.int32, device=dev)
+        fhi = torch.full((B, K), h.size(), dtype=torch.int32, device=dev)
+        lo1, hi1 = k1.backward_step_plain(v, first[0], flo, fhi)
+        lo2, hi2 = k1.backward_step_plain(v, first[1], lo1, hi1)
+        even = torch.arange(K, device=dev) % 2 == 0
+        lo, hi = torch.where(even, lo1, lo2), torch.where(even, hi1, hi2)
+        lo[0, 0], hi[0, 0] = 0, h.size()
+        lo[0, 1], hi[0, 1] = 5, 5
+        lo[0, 2], hi[0, 2] = max(h.size() - 3, 0), si.n_max
+        los.append(lo)
+        his.append(hi)
+    lo, hi = torch.stack(los), torch.stack(his)
+    R = B * K
+
+    # kernel 1: per-shard backward steps [S, B, K]; membership [B, K, 65]
+    # ORed and counts summed over the shards
+    ext = torch.randint(-1, V + 2, (B, K), generator=g, device=dev, dtype=torch.int32)
+    err1 = sum(int((a != b).sum()) for a, b in zip(
+        k1.fm_search_sharded(si, "backward_step", ext, lo, hi),
+        k1.fm_search_sharded_plain(si, "backward_step", ext, lo, hi)))
+    cand = torch.randint(0, V, (B, K, 65), generator=g, device=dev, dtype=torch.int32)
+    cand[..., :32] = torch.as_tensor(rng.choice(hosts[0].text[:-1] - 1, size=(B, K, 1)),
+                                     device=dev).int()
+    cand[..., -1] = 2
+    want_c = k1.fm_search_sharded_plain(si, "contains", cand, lo, hi)
+    err1 += int((k1.fm_search_sharded(si, "contains", cand, lo, hi) != want_c).sum())
+    err1 += int((k1.fm_search_sharded(si, "validate", cand, lo, hi)
+                 != k1.fm_search_sharded_plain(si, "validate", cand, lo, hi)).sum())
+    if err1:
+        fail(f"fm_search_sharded differs from its plain version ({err1} elements)")
+    table.append(dict(
+        name="fm_search_sharded", max_abs_err=err1, library_ms=None,
+        ms=time_ms(lambda: k1.fm_search_sharded(si, "contains", cand, lo, hi)),
+        plain_ms=time_ms(lambda: k1.fm_search_sharded_plain(si, "contains", cand, lo, hi)),
+        extend_ms=time_ms(lambda: k1.fm_search_sharded(si, "backward_step", ext, lo, hi)),
+        shape=f"contains [{B},{K},65] over {S} shards; backward_step [{S},{B},{K}]",
+        members=int(want_c.sum()),
+        # tokens and membership once; per shard the ranges, the symbol's
+        # directory row and a chain of at most search_iters psi reads
+        bytes=cand.numel() * (4 + 1 + S * (16 + 4 * si.search_iters)) + 8 * S * R,
+    ))
+
+    # kernel 2: the union window [B*K rows, S*32 slots, fill pad] and a
+    # slab (S*64, fill 0)
+    lp = torch.log_softmax(torch.randn(R, V, generator=g, device=dev), -1)
+    err2 = 0
+    for w, fill in ((32, 1), (64, 0)):
+        got = k2.window_gather_sharded(si, lo, hi, w, lp, fill)
+        want = k2.window_gather_sharded_plain(si, lo, hi, w, lp, fill)
+        err2 += sum(int((a != b).sum()) for a, b in zip(got, want))
+    if err2:
+        fail(f"window_gather_sharded differs from its plain version ({err2} elements)")
+    table.append(dict(
+        name="window_gather_sharded", max_abs_err=err2, library_ms=None,
+        ms=time_ms(lambda: k2.window_gather_sharded(si, lo, hi, 32, lp, 1)),
+        plain_ms=time_ms(lambda: k2.window_gather_sharded_plain(si, lo, hi, 32, lp, 1)),
+        shape=f"[{S},{R}] ranges, {S}x32 union slots over lp [{R},{V}]",
+        bytes=S * R * (8 + 32 * (4 + 4) + 32 * 9),
+    ))
+
+    # kernel 5: 4096 corpus n-grams of lengths 1-16 (an eighth random ids),
+    # per-shard ranges and summed counts
+    n, L = 4096, 16
+    text = np.concatenate([h.text[:-1] - 1 for h in hosts])
+    starts = rng.integers(0, text.size - L, size=n)
+    toks = np.stack([text[s : s + L][::-1] for s in starts]).astype(np.int32)
+    toks[: n // 8] = rng.integers(-1, V + 2, size=(n // 8, L))
+    toks = torch.as_tensor(toks, device=dev)
+    lens = torch.as_tensor(rng.integers(1, L + 1, size=n).astype(np.int32), device=dev)
+    want5 = k1.sequences_sharded_plain(si, toks, lens)
+    err5 = sum(int((a != b).sum()) for a, b in zip(k1.fm_sequences_sharded(si, toks, lens),
+                                                    want5))
+    wcount = k1.sequences_sharded_plain(si, toks, lens, count=True)
+    err5 += int((k1.fm_sequences_sharded(si, toks, lens, count=True) != wcount).sum())
+    if err5:
+        fail(f"fm_sequences_sharded differs from its plain version ({err5} elements)")
+    table.append(dict(
+        name="fm_sequences_sharded", max_abs_err=err5, library_ms=None,
+        ms=time_ms(lambda: k1.fm_sequences_sharded(si, toks, lens, count=True)),
+        plain_ms=time_ms(lambda: k1.sequences_sharded_plain(si, toks, lens, count=True)),
+        ranges_ms=time_ms(lambda: k1.fm_sequences_sharded(si, toks, lens)),
+        shape=f"[{n},{L}] over {S} shards, counts summed; {int((wcount > 0).sum())} non-empty",
+        bytes=n * (L * 4 + 4 + 4) + S * int(lens.sum()) * 2 * 4 * si.search_iters,
+    ))
+
+    # kernel 6: every shard's bucket counts of its [B, K] ranges, summed
+    err6 = int((k6.bucket_counts_sharded(si, lo, hi)
+                != k6.bucket_counts_sharded_plain(si, lo, hi)).sum())
+    br = si.bucket_rows
+    lo_c, hi_c = lo.clamp(0, si.n_max).long(), hi.clamp(0, si.n_max).long()
+    same = lo_c // br == hi_c // br
+    partial = torch.where(same, (hi_c - lo_c).clamp(min=0),
+                          (lo_c // br + 1) * br - lo_c + hi_c - hi_c // br * br)
+    if err6:
+        fail(f"bucket_counts_sharded differs from its plain version ({err6} counts)")
+    nb = si.n_buckets
+    table.append(dict(
+        name="bucket_counts_sharded", max_abs_err=err6, library_ms=None,
+        ms=time_ms(lambda: k6.bucket_counts_sharded(si, lo, hi)),
+        plain_ms=time_ms(lambda: k6.bucket_counts_sharded_plain(si, lo, hi)),
+        shape=f"[{S},{B},{K}] ranges x {nb} buckets, summed",
+        bytes=S * R * (8 + 2 * 4 * nb) + R * 4 * nb + int(partial.sum()) * 4,
+    ))
+
+    # kernel 15: every shard's count vector of its [B, K] ranges, summed,
+    # on both routes
+    want15 = k1.dense_counts_sharded_plain(si, lo, hi, 4096)
+    err15 = 0
+    for hist_max in (k1.HIST_MAX_ROWS, 0, 2**31 - 1):
+        err15 += int((k1.fm_dense_counts_sharded(si, lo, hi, hist_max=hist_max) != want15).sum())
+    if err15:
+        fail(f"fm_dense_counts_sharded differs from its plain version ({err15} counts)")
+    hist_rows = sum(rows_bytes(torch, si.n_max, lo[s], hi[s], k1.HIST_MAX_ROWS, 4)
+                    for s in range(S))
+    table.append(dict(
+        name="fm_dense_counts_sharded", max_abs_err=err15, library_ms=None,
+        ms=time_ms(lambda: k1.fm_dense_counts_sharded(si, lo, hi)),
+        plain_ms=time_ms(lambda: k1.dense_counts_sharded_plain(si, lo, hi, 4096), iters=2),
+        rank_route_ms=time_ms(lambda: k1.fm_dense_counts_sharded(si, lo, hi, hist_max=0),
+                              iters=5),
+        histogram_route_ms=time_ms(
+            lambda: k1.fm_dense_counts_sharded(si, lo, hi, hist_max=2**31 - 1)),
+        shape=f"[{S},{B},{K}] ranges x {V} tokens, summed",
+        bytes=S * R * 8 + R * V * 4 + hist_rows,
+    ))
+    torch.cuda.synchronize()
+    return table
+
+
+def large_select_phase(np, torch, cfg, V, B, K, S):
+    """Kernel 8's large-n route at beam K over S shards' union window
+    (n = K * (2K + S * 128 + 2) candidates a query), against
+    ``beam_select_plain`` and the route's own two-stage specification, bit
+    for bit, in both orders."""
+    from seal_tpu_torch.kernels import beam_select as k8
+    from seal_tpu_torch.kernels import build
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    i32 = torch.int32
+    n_buf, w = 2 * K, S * 128
+    n = K * (n_buf + w + 2)
+    one_block = build.lib().seal_beam_select_smem(n, 2 * K, K, 0)
+    if one_block <= build.SMEM_LIMIT:
+        fail(f"beam_select_large: {n} candidates fit one block ({one_block} B)")
+    rows = B * K
+    lp = torch.log_softmax(torch.randn(rows, V, generator=g, device=dev) * 2, -1)
+    lp = torch.round(lp * 4) / 4  # ties
+    lp[:, 5] = 0.0
+
+    def rint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=i32)
+
+    def rbool(p, shape):
+        return torch.rand(shape, generator=g, device=dev) < p
+
+    def take(tok):
+        return torch.gather(lp, 1, tok.reshape(rows, -1).long()).reshape(tok.shape)
+
+    btok = rint(0, 400, (B, K, n_buf))
+    win_valid = rbool(0.6, (B, K, w))
+    win_tok = torch.where(win_valid, rint(0, 400, (B, K, w)), cfg.pad_token_id)
+    bs = torch.round(torch.randn(B, K, generator=g, device=dev) * 2) / 2 - 3
+    bs[0, 1] = k8.NEG_INF
+    args = ((btok, take(btok), rbool(0.7, (B, K, n_buf))), n_buf, win_tok, win_valid,
+            take(win_tok), rbool(0.5, (B, K, 2))[..., 1:], lp, rint(0, 50, (B, K)),
+            rbool(0.1, (B, K)), bs, rbool(0.5, (B, K)),
+            torch.round(torch.randn(B, K, generator=g, device=dev)) - 4)
+    kw = dict(K=K, eos=cfg.eos_token_id, pad=cfg.pad_token_id)
+    plain_kw = dict(kw, stop_at_count=0, always_allow_eos=False)
+    err = 0
+    for ties in (False, True):
+        n0 = k8.LARGE.launches
+        got, gbad = k8.beam_select(*args, ties=ties, **kw)
+        if k8.LARGE.launches != n0 + 1:
+            fail("beam_select_large: the large-n route did not run")
+        want, wbad = k8.beam_select_plain(*args, ties=ties, **plain_kw)
+        spec, sbad = k8.beam_select_large_plain(*args, ties=ties, **plain_kw)
+        err += mismatches(torch, got + (gbad,), want + (wbad,))
+        err += mismatches(torch, spec + (sbad,), want + (wbad,))
+    if err:
+        fail(f"beam_select_large differs from its plain version ({err} elements)")
+    ncand = n_buf + w + 2
+    return [dict(
+        name="beam_select_large", max_abs_err=err, library_ms=None,
+        ms=time_ms(lambda: k8.beam_select(*args, **kw)),
+        plain_ms=time_ms(lambda: k8.beam_select_plain(*args, **plain_kw), iters=3),
+        spec_plain_ms=time_ms(lambda: k8.beam_select_large_plain(*args, **plain_kw), iters=3),
+        ties_ms=time_ms(lambda: k8.beam_select(*args, ties=True, **kw)),
+        shape=f"[{B},{K},{ncand}]: {n} candidates a query (one block would need "
+              f"{one_block} B of shared memory)",
+        bytes=(B * K * (n_buf * 9 + w * 9 + 1 + 4 + 1 + 4 + 1 + 4) + rows * 8
+               + B * (2 * K * 13 + K * 13 + 1)),
+    )]
+
+
+def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
+    """The corpus-sharded index (the module docstring's item 12): generation
+    over 4 shards on the card beside the monolithic Psi index, the gates,
+    the config-5 shape (beam 32) through kernel 8's large-n route, the
+    sharded searcher beside the monolithic one, and the shard modes
+    against their plain versions.  ``m`` carries the main path's objects.
+    Returns (kernel rows, readings)."""
+    from seal_tpu_torch import bench_generate, bench_search
+    from seal_tpu_torch.decoding import generate
+    from seal_tpu_torch.kernels import beam_select
+    from seal_tpu_torch.parallel.sharded_decode import sharded_fm_index_generate
+    from seal_tpu_torch.parallel.sharded_index import ShardedTorchIndex
+
+    cfg, params, ids, mask, kw = m["cfg"], m["params"], m["ids"], m["mask"], m["kw"]
+    host, index, canon = m["host"], m["index"], m["canon"]
+    B, K = ids.shape[0], kw["num_beams"]
+    special = (cfg.eos_token_id, cfg.pad_token_id, cfg.bos_token_id)
+    t0 = time.perf_counter()
+    si, hosts = bench_generate.sharded_index("cuda")
+    S = si.n_shards
+    n_tokens = sum(len(h) for h in hosts)
+    log(f"sharded index: {S} shards of {list(si.shard_rows)} rows (padded to {si.n_max}), "
+        f"{si.memory_bytes()} B = {si.memory_bytes() / n_tokens:.2f} B/token (psi "
+        f"{index.memory_bytes() / (index.n_rows - 1):.2f}); set-up {time.perf_counter() - t0:.1f} s")
+    si1 = ShardedTorchIndex.from_hosts([host], bench_generate.VOCAB, device="cuda")
+    grounded = {}
+
+    def hyp_keys(hyp_lists, what):
+        n = 0
+        for q in hyp_lists:
+            for score, toks in q:
+                key = tuple(t for t in toks[1:] if t not in special)
+                if not np.isfinite(score):
+                    fail(f"{what}: non-finite score {score} for {toks}")
+                if key:
+                    n += 1
+                    if key not in grounded:
+                        grounded[key] = sum(h.get_count(list(key)) for h in hosts) > 0
+                    if not grounded[key]:
+                        fail(f"{what}: key in no shard: {list(key)}")
+        if n == 0:
+            fail(f"{what}: no keys emitted")
+        return n
+
+    def run(ix=si, **extra):
+        out = sharded_fm_index_generate(cfg, params, ix, None, ids, mask, **{**kw, **extra})
+        torch.cuda.synchronize()
+        return out
+
+    def run_mono(**extra):
+        out = generate.fm_index_generate(cfg, params, index, ids, mask, **{**kw, **extra})
+        torch.cuda.synchronize()
+        return out
+
+    def canon_of(hyps):
+        return [sorted((tuple(t), s) for s, t in q) for q in hyps]
+
+    def same_or_tie(a, b, rerun_a, rerun_b, what):
+        """``a`` == ``b``, or they differ by an exact score tie: then both
+        agree under exact_ties, and the tie order changes one of them."""
+        if a == b:
+            return True
+        ta, tb = canon_of(rerun_a()), canon_of(rerun_b())
+        if ta != tb or (ta == a and tb == b):
+            fail(f"{what}: hypotheses differ, and no exact tie explains it")
+        else:
+            log(f"{what}: the hypotheses differ by an exact score tie; under exact_ties both "
+                "agree")
+        return False
+
+    def once_per_call(path, counts):
+        """Each shard mode launched once per op call of its run."""
+        want = {"fm_search_sharded": op_calls["extend"] + op_calls["contains"]
+                + op_calls["validate"],
+                "window_gather_sharded": op_calls["window_gather"],
+                "fm_sequences_sharded": op_calls["range_for"],
+                "bucket_counts_sharded": op_calls["bucket_counts"],
+                "fm_dense_counts_sharded": op_calls["dense_counts"]}
+        for name, n in want.items():
+            if counts[name] != n:
+                fail(f"{path}: {name} launched {counts[name]} times for {n} op calls")
+        return want
+
+    # ---- generation over 4 shards: timed, counted, grounded --------------
+    t_phase = time.perf_counter()
+    run()  # warm-up
+    zero_counts()
+    op_calls.clear()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        hyps = run()
+        times.append(time.perf_counter() - t0)
+    counts = read_counts("generate_sharded")
+    calls = once_per_call("generate_sharded", counts)
+    fallback = generate.LAST_DECODE_STATS["fallback_steps"]
+    per_batch = statistics.median(times)
+    n_keys = hyp_keys(hyps, "generate_sharded")
+    log(f"generate_sharded ({S} shards): {[round(t, 4) for t in times]} s/batch; median "
+        f"{per_batch:.4f} s = {B / per_batch:.1f} queries/s; fallback_steps {fallback}; {n_keys} "
+        f"keys grounded in the union; op calls {dict(calls)}")
+    log(f"launches in the generate_sharded run: {counts}")
+    # the same call's monolithic Psi index, in turns (5 rounds)
+    turns = {"psi": [], "sharded": []}
+    for _ in range(5):
+        for name, fn in (("psi", run_mono), ("sharded", run)):
+            t0 = time.perf_counter()
+            fn()
+            turns[name].append(time.perf_counter() - t0)
+    qps = {k: B / statistics.median(v) for k, v in turns.items()}
+    log("generation in turns (5 rounds of psi, sharded): " + "; ".join(
+        f"{k} {[round(t, 4) for t in v]} s, median {qps[k]:.1f} queries/s"
+        for k, v in turns.items()))
+    # one monolithic batch and one of each sharded route, counted
+    zero_counts()
+    run_mono()
+    mono_counts = read_counts("generate_once")
+    zero_counts()
+    op_calls.clear()
+    one = run()
+    one_counts = read_counts("generate_sharded_once")
+    once_per_call("generate_sharded_once", one_counts)
+    pairs = {"fm_search": "fm_search_sharded", "window_gather": "window_gather_sharded",
+             "bucket_counts": "bucket_counts_sharded", "fm_dense_counts": "fm_dense_counts_sharded",
+             "fm_sequences": "fm_sequences_sharded"}
+    log("one batch, launches: monolithic kernel / its shard mode at 4 shards: " + ", ".join(
+        f"{a} {mono_counts[a]} / {one_counts[b]}" for a, b in pairs.items()))
+    if canon_of(one) != canon_of(hyps):
+        fail("generate_sharded: a batch differs from the timed batches")
+
+    # ---- the gates --------------------------------------------------------
+    zero_counts()
+    op_calls.clear()
+    full = run(force_full=True)
+    once_per_call("generate_sharded_force_full", read_counts("generate_sharded_force_full"))
+    same_ff = same_or_tie(canon_of(full), canon_of(hyps),
+                          lambda: run(force_full=True, exact_ties=True),
+                          lambda: run(exact_ties=True), "generate_sharded force_full")
+    zero_counts()
+    op_calls.clear()
+    dense = run(exact_mask=True)
+    once_per_call("generate_sharded_dense", read_counts("generate_sharded_dense"))
+    same_dense = same_or_tie(canon_of(dense), canon_of(hyps),
+                             lambda: run(exact_mask=True, exact_ties=True),
+                             lambda: run(exact_ties=True), "generate_sharded_dense")
+    hyp_keys(full, "generate_sharded_force_full")
+    hyp_keys(dense, "generate_sharded_dense")
+    same_mono = same_or_tie(canon_of(hyps), canon, lambda: run(exact_ties=True),
+                            lambda: run_mono(exact_ties=True), "generate_sharded vs monolithic")
+    # one shard is the monolithic index: identical hypotheses and, route by
+    # route, the same launches as the monolithic kernels
+    s1 = {}
+    for path, extra in (("generate_sharded_s1", {}),
+                        ("generate_sharded_s1_force_full", {"force_full": True}),
+                        ("generate_sharded_s1_dense", {"exact_mask": True})):
+        zero_counts()
+        mono = canon_of(run_mono(**extra))
+        want = read_counts(path.replace("sharded_s1", "mono"))
+        zero_counts()
+        got = canon_of(run(ix=si1, **extra))
+        have = read_counts(path)
+        s1[path] = got == mono
+        if not s1[path]:
+            fail(f"{path}: one shard's hypotheses differ from the monolithic index's")
+        for a, b in pairs.items():
+            if have[b] != want[a]:
+                fail(f"{path}: {b} launched {have[b]} times, the monolithic {a} {want[a]}")
+    log(f"sharded gates: {n_keys} keys grounded; force_full identical {same_ff}; exact_mask "
+        f"identical {same_dense}; 4 shards identical to the monolithic index {same_mono}; one "
+        f"shard identical with the monolithic launches {s1}; each shard mode once per op call")
+
+    # ---- the config-5 shape: beam 32 over the shards ----------------------
+    K32 = 32
+    kw32 = dict(num_beams=K32, window=0)
+    zero_counts()
+    t0 = time.perf_counter()
+    h32 = run(**kw32)
+    b32_s = time.perf_counter() - t0
+    c32 = read_counts("generate_sharded_beam32")
+    n_large = beam_select.LARGE.launches
+    n_dec = c32["decode_steps"] // (kw["max_length"] - 1)  # decodes, a redo included
+    if n_large != c32["decode_steps"] - n_dec:
+        fail(f"generate_sharded_beam32: the large-n route ran {n_large} times for "
+             f"{c32['decode_steps'] - n_dec} selections")
+    n32 = hyp_keys(h32, "generate_sharded_beam32")
+    zero_counts()
+    f32_ = run(force_full=True, **kw32)
+    read_counts("generate_sharded_beam32_force_full")
+    same32 = same_or_tie(canon_of(f32_), canon_of(h32),
+                         lambda: run(force_full=True, exact_ties=True, **kw32),
+                         lambda: run(exact_ties=True, **kw32), "beam 32 force_full")
+    zero_counts()
+    d32 = run(exact_mask=True, **kw32)
+    read_counts("generate_sharded_beam32_dense")
+    same32d = same_or_tie(canon_of(d32), canon_of(h32),
+                          lambda: run(exact_mask=True, exact_ties=True, **kw32),
+                          lambda: run(exact_ties=True, **kw32), "beam 32 exact_mask")
+    hyp_keys(f32_, "generate_sharded_beam32_force_full")
+    hyp_keys(d32, "generate_sharded_beam32_dense")
+    log(f"beam 32 over {S} shards: one batch in {b32_s:.3f} s = {B / b32_s:.1f} queries/s; "
+        f"kernel 8's large-n route {n_large} times; {n32} keys grounded; force_full identical "
+        f"{same32}; exact_mask identical {same32d}; launches {c32}")
+    log(f"sharded generation phase wall {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the searcher over 4 shards beside the monolithic one -------------
+    searcher, queries = m["searcher"], m["queries"]
+    t0 = time.perf_counter()
+    sharded = bench_search.sharded_searcher(searcher)
+    ssi = sharded.sharded_index
+    s_tokens = len(sharded.fm_index)
+    log(f"sharded searcher set-up {time.perf_counter() - t0:.1f} s: {ssi.n_shards} shards, "
+        f"{ssi.memory_bytes() / s_tokens:.2f} B/token")
+    unit = queries[: searcher.batch_size]
+    sharded.batch_search(unit, k=bench_search.TOP_K)  # warm-up unit
+    torch.cuda.synchronize()
+    sharded.phase_timer.enabled = True
+    zero_counts()
+    t0 = time.perf_counter()
+    s_res = sharded.batch_search(queries, k=bench_search.TOP_K)
+    torch.cuda.synchronize()
+    s_search = time.perf_counter() - t0
+    s_counts = read_counts("batch_search_sharded")
+    t0 = time.perf_counter()
+    m_res = searcher.batch_search(queries, k=bench_search.TOP_K)
+    torch.cuda.synchronize()
+    m_search = time.perf_counter() - t0
+    for r in s_res:
+        sc = [d.score for d in r]
+        if not r or not all(np.isfinite(sc)) or sc != sorted(sc, reverse=True):
+            fail("batch_search_sharded: an empty result, or non-finite or unsorted scores")
+    n_body, n_title = searcher_grounding(sharded, unit)
+    # the generated keys: the body decode's hypotheses of one unit
+    inputs = [" " + q.strip() for q in unit]
+
+    def body(s, **extra):
+        return s._generate(s.params, s._tokenize_batch(s._marked(inputs, "body")),
+                           min_length=s.length, max_length=s.length, num_beams=s.beam,
+                           forced_bos_token_id=None, top_m=s.top_m, window=s.window, **extra)
+
+    same_keys = same_or_tie(canon_of(body(sharded)), canon_of(body(searcher)),
+                            lambda: body(sharded, exact_ties=True),
+                            lambda: body(searcher, exact_ties=True),
+                            "batch_search_sharded body keys")
+    overlap = [len({d.docid for d in a} & {d.docid for d in b}) for a, b in zip(s_res, m_res)]
+    diffs = [abs(x.score - y.score) / abs(y.score) for a, b in zip(s_res, m_res)
+             for x, y in zip(a, b) if x.docid == y.docid and y.score]
+    log(f"batch_search_sharded: {len(queries)} queries in {s_search:.3f} s = "
+        f"{len(queries) / s_search:.2f} queries/s (monolithic {len(queries) / m_search:.2f} in "
+        f"turn, {m['e2e_qps']:.2f} earlier in this call); phases "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(sharded.phase_timer.totals.items()))
+        + f"; {n_body} raw body and {n_title} raw title keys grounded in the union; body keys "
+        f"identical to the monolithic searcher's {same_keys}; top-{bench_search.TOP_K} docids in "
+        f"common with the monolithic searcher: mean {statistics.mean(overlap):.2f}, min "
+        f"{min(overlap)}; largest relative score difference on shared docids "
+        f"{max(diffs, default=0.0):.3e} (the ranker counts a sentinel a shard)")
+    log(f"launches in the batch_search_sharded run: {s_counts}")
+    del sharded
+    table = sharded_kernel_phases(np, torch, si, hosts, bench_generate.VOCAB, B, K)
+    table += large_select_phase(np, torch, cfg, bench_generate.VOCAB, B, K32, S)
+    return table, dict(qps=B / per_batch, turns=qps, beam32_qps=B / b32_s,
+                       bytes_per_token=si.memory_bytes() / n_tokens,
+                       search_qps=len(queries) / s_search, mono_search_qps=len(queries) / m_search)
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -2061,6 +2607,7 @@ def main() -> int:
         wt_window,
     )
     from seal_tpu_torch.models import bart, t5
+    from seal_tpu_torch.parallel import sharded_decode
     from seal_tpu_torch.retrieval.searcher import SEALSearcher
     from seal_tpu_torch.scoring import keys as scoring
 
@@ -2095,7 +2642,25 @@ def main() -> int:
         "diverse_select": diverse_select.diverse_select,
         "beam_candidates": beam_select.beam_candidates,
         "self_attention_step_t5": decode_attention.self_attention_step_rel,
+        "fm_search_sharded": fm_search.fm_search_sharded,
+        "window_gather_sharded": window_gather.window_gather_sharded,
+        "fm_sequences_sharded": fm_search.fm_sequences_sharded,
+        "bucket_counts_sharded": bucket_counts.bucket_counts_sharded,
+        "fm_dense_counts_sharded": fm_search.fm_dense_counts_sharded,
+        "beam_select_large": beam_select.LARGE,
     }
+    # the calls of the sharded index's ops (each must be one launch)
+    op_calls: collections.Counter = collections.Counter()
+
+    def counting_op(name, method):
+        def counted_op(*a, **k):
+            op_calls[name] += 1
+            return method(*a, **k)
+        return counted_op
+
+    for _name in SHARD_OPS:
+        setattr(sharded_decode.ShardedIndexOps, _name,
+                counting_op(_name, getattr(sharded_decode.ShardedIndexOps, _name)))
     by_path: dict = {}  # path -> {kernel: launches in that path's run}
     # decode steps each path runs (the beam search calls the family's
     # decode_step through its module, so a counting wrapper sees every step)
@@ -2123,7 +2688,8 @@ def main() -> int:
         for name in PATH_KERNELS[path]:
             if by_path[path][name] <= 0:
                 fail(f"kernel {name} was not launched on the {path} path")
-        if path.endswith(WAVELET_LAYOUTS + tuple(f"{w}_force_full" for w in WAVELET_LAYOUTS)):
+        if "sharded" in path or path.endswith(WAVELET_LAYOUTS + tuple(
+                f"{w}_force_full" for w in WAVELET_LAYOUTS)):
             for name in PSI_INDEX_KERNELS:
                 if by_path[path][name]:
                     fail(f"{path}: the Psi index kernel {name} was launched "
@@ -2876,6 +3442,16 @@ def main() -> int:
         log_kernel(row)
     table += t5_table
     log(f"T5 phase wall {time.perf_counter() - t0:.1f} s")
+    # ---- the corpus-sharded index on one card -----------------------------
+    t0 = time.perf_counter()
+    sh_table, sh_run = sharded_phase(
+        np, torch, dict(cfg=cfg, params=params, ids=ids, mask=mask, kw=kw, host=host, index=index,
+                        canon=canon, searcher=searcher, queries=queries, e2e_qps=e2e_qps),
+        zero_counts, read_counts, op_calls)
+    for row in sh_table:
+        log_kernel(row)
+    table += sh_table
+    log(f"sharded phase wall {time.perf_counter() - t0:.1f} s")
     total = {name: sum(p[name] for p in by_path.values()) for name in counters}
     for name, n in total.items():
         if n <= 0:
@@ -2901,7 +3477,12 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f}" for k, v in mode_qps.items())
         + f"; T5-base f32 generation {t5_run['qps']:.1f} queries/s (bf16 batch "
         f"{t5_run['bf16_qps']:.1f}), busy {100 * t5_run['busy']:.1f}% under the profiler, "
-        f"batch_search_t5 {t5_run['search_qps']:.2f} queries/s")
+        f"batch_search_t5 {t5_run['search_qps']:.2f} queries/s"
+        f"; 4 shards on the card: generation {sh_run['qps']:.1f} queries/s (in turns: psi "
+        f"{sh_run['turns']['psi']:.1f}, sharded {sh_run['turns']['sharded']:.1f}), "
+        f"{sh_run['bytes_per_token']:.2f} index B/token, beam 32 {sh_run['beam32_qps']:.1f} "
+        f"queries/s, batch_search {sh_run['search_qps']:.2f} (monolithic "
+        f"{sh_run['mono_search_qps']:.2f})")
     log(f"launches by path: {json.dumps(by_path)}")
     kernels = []
     for row in table:
@@ -2917,7 +3498,8 @@ def main() -> int:
                                    "row_topk_k64_ms", "library_k64_ms", "narrow_ms", "ties_ms",
                                    "wide_ms", "sample_ms", "spec_ms", "bf16_ms", "cross_ms",
                                    "f32_tol_ratio", "cross_tol_ratio", "cross_f32_ms",
-                                   "cross_f32_tol_ratio")
+                                   "cross_f32_tol_ratio", "extend_ms", "ranges_ms",
+                                   "histogram_route_ms")
                if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}

@@ -11,6 +11,9 @@ f32 by default: content ids [2, 32000), documents ending in T5's eos 1,
 queries without a BOS.  ``build_index`` builds the device index of a host
 index in one of ``LAYOUTS``: ``"psi"`` (``TorchFMIndex``), ``"compact"``
 or ``"hybrid"`` (``WaveletIndex`` without or with the raw BWT).
+``sharded_index`` is the sharded operating point's index: the same corpus
+split round-robin into ``SHARDS`` shards on one device
+(``ShardedTorchIndex``), decoded with the same model and queries.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 BATCH, BEAM, KEY_LEN, VOCAB = 32, 15, 10, 50265
+SHARDS = 4  # the sharded operating point: the generation corpus in 4 shards
 LAYOUTS = ("psi", "compact", "hybrid")
 # T5-base's content ids: below the extra ids of T5's 32128-id vocabulary,
 # past pad 0 and eos 1
@@ -111,6 +115,16 @@ def operating_point(device="cuda"):
     cfg, params = build_model(tokens, device)
     ids, mask = build_queries(rng, cfg.pad_token_id)
     return host, index, cfg, params, ids, mask, _decode_kw()
+
+
+def sharded_index(device="cuda", n_shards: int = SHARDS):
+    """(``ShardedTorchIndex``, per-shard host FMIndexes) of the generation
+    corpus split round-robin into ``n_shards`` shards on ``device``."""
+    from seal_tpu_torch.parallel.sharded_index import ShardedTorchIndex
+
+    _, _, docs = build_corpus()
+    si, hosts, _ = ShardedTorchIndex.build(docs, n_shards, VOCAB, device=device)
+    return si, hosts
 
 
 def _decode_kw():

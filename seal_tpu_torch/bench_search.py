@@ -14,6 +14,11 @@ documents.  ``chip_smoke.py`` builds it on the card and times
 ``batch_search`` over it.  ``layout_knobs`` gives the searcher knobs that
 pick its device index (``"psi"``, ``"compact"`` or ``"hybrid"``).
 
+``sharded_searcher`` is the sharded operating point: the same documents,
+tokenizer, model and knobs through ``SEALSearcher.build_sharded``, the
+index split round-robin into ``bench_generate.SHARDS`` shards on one
+device.
+
 ``t5_operating_point`` is a searcher unit over T5-base (f32, as the JAX
 searcher builds it for a ``t5`` backbone) at ``backbone="t5-base"`` and the
 default knobs: the T5 generation corpus's bodies (``bench_generate``,
@@ -28,7 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from seal_tpu_torch.bench_generate import LAYOUTS
+from seal_tpu_torch.bench_generate import LAYOUTS, SHARDS
 
 N_DOCS, N_WORDS, DOC_WORDS, ZIPF_A = 10_000, 30_000, 110, 0.8
 BATCH_SIZE, N_QUERIES, TOP_K = 16, 32, 10
@@ -80,6 +85,19 @@ def operating_point(device="cuda", seed: int = 0):
     searcher = SEALSearcher(host, tok, cfg, params, backbone="word-vocab-large",
                             batch_size=BATCH_SIZE)
     return searcher, build_queries(rng, texts)
+
+
+def sharded_searcher(searcher, n_shards: int = SHARDS):
+    """``searcher``'s documents, tokenizer, parameters and knobs over an
+    index split round-robin into ``n_shards`` shards on its device
+    (``SEALSearcher.build_sharded``)."""
+    from seal_tpu_torch.retrieval.searcher import SEALSearcher
+
+    host = searcher.fm_index
+    docs = [host.get_doc(i) for i in range(host.n_docs)]
+    knobs = {k: getattr(searcher, k) for k in SEALSearcher.DEFAULTS}
+    return SEALSearcher.build_sharded(docs, host.labels, searcher.tokenizer, searcher.model_cfg,
+                                      searcher.params, n_shards, **knobs)
 
 
 class IdTokenizer:

@@ -63,6 +63,11 @@ What changed in translation:
   contract, not the same draws.  Kernel 21 runs the groups' selection with
   the Hamming penalty.  Step 0 hands both kernels the V-wide rows and the
   corpus mask.
+* ``index_ops`` (JAX's adapter argument) takes
+  ``parallel.sharded_decode.ShardedIndexOps`` for a corpus-sharded index
+  on one device: the decode's ranges then carry a leading shard axis
+  ([S, B, K]), so B and K come from the beam state and ``_gather`` expands
+  its index over the leading axes; every merged op returns [B, K, ...].
 """
 
 from __future__ import annotations
@@ -253,7 +258,10 @@ def _log_softmax(logits, cur_len: int, cfg: DecodeConfig):
 
 
 def _gather(x, idx):
-    return torch.gather(x, -1, idx.long())
+    """``x`` [..., n] gathered along its last axis by ``idx`` [*, m], the
+    index shared over ``x``'s leading axes (a sharded index's shard axis)."""
+    idx = idx.long()
+    return torch.gather(x, -1, idx.expand(*x.shape[: x.dim() - idx.dim()], *idx.shape))
 
 
 def _exact_proposals(
@@ -274,7 +282,7 @@ def _exact_proposals(
     candidates in the selection (``beam_select``).  ``lp`` is FLAT [B*K, V].
     See the JAX function for the proofs.
     """
-    B, K = lo.shape
+    B, K = prev_count.shape  # lo/hi may carry a leading shard axis
     V = lp.shape[-1]
     dev = lo.device
     n_buf = cfg.n_buf
@@ -364,7 +372,7 @@ def _fast_exact_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished,
     The candidate build, branches, dedup, selection and the test are
     kernel 8 (``beam_select``); the window slots are kernel 2.
     """
-    B = lo.shape[0]
+    B = prev_count.shape[0]
     win_tok, win_valid, win_lp = ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id)
     eos_tok = torch.full((B, K, 1), cfg.eos_token_id, dtype=torch.int32, device=lo.device)
     n_buf = 2 * cfg.num_beams
@@ -448,7 +456,7 @@ def _speculative_round(ops, cfg: DecodeConfig, lp, lo, hi, eos_tok):
     top-``top_m`` (kernel 19), checked with one membership query (kernel 1
     or 12, the EOS column included).  Returns the buffer (tok, lp, valid)
     [B, K, top_m] and the EOS membership."""
-    B, K = lo.shape
+    B, K = eos_tok.shape[:2]
     m = cfg.top_m
     top_lp, top_idx = row_select(lp, m)
     top_tok = top_idx.to(torch.int32).reshape(B, K, m)
@@ -463,7 +471,7 @@ def _speculative_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished
     and selection are kernel 8 with ``keep_invalid`` (a proposal that fails
     membership stays a masked candidate, as ``_candidates_general``
     :359-367 builds it)."""
-    B = lo.shape[0]
+    B = prev_count.shape[0]
     win_tok, win_valid, win_lp = ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id)
     eos_tok = torch.full((B, K, 1), cfg.eos_token_id, dtype=torch.int32, device=lo.device)
     buf, eos_ok = _speculative_round(ops, cfg, lp, lo, hi, eos_tok)
@@ -526,16 +534,19 @@ def _mode_select(cfg: DecodeConfig, cons, cand_lp, tokens, beam_scores, seed: in
 
 
 def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out,
-                            enc_mask, seed: int = 0) -> BeamSearchOutput:
+                            enc_mask, seed: int = 0, index_ops=None) -> BeamSearchOutput:
     """Constrained beam search for a batch of queries (tensors on the
-    index's device); ``seed`` keys the sampling mode's noise."""
+    index's device); ``seed`` keys the sampling mode's noise.
+    ``index_ops``: the constraint-op adapter (default ``SingleIndexOps``
+    over ``index``; ``parallel.sharded_decode.ShardedIndexOps`` for a
+    sharded index, whose ranges carry a leading shard axis)."""
     B = enc_out.shape[0]
     K = cfg.num_beams
     L = cfg.max_length
     S = cfg.num_steps
     V = model_cfg.vocab_size
     dev = enc_out.device
-    ops = SingleIndexOps(index)
+    ops = index_ops if index_ops is not None else SingleIndexOps(index)
     i32 = torch.int32
     # free generation runs no index op: every candidate is allowed
     constrained = not cfg.disable_fm_index
@@ -572,8 +583,8 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     elif cfg.force_decoding_from:
         fseq = torch.as_tensor(cfg.force_decoding_from, dtype=i32, device=dev)
         flen = torch.tensor([fseq.numel()], dtype=i32, device=dev)
-        flo, fhi = ops.range_for(fseq[None, :], flen)
-        lo0, hi0 = flo.expand(B, K), fhi.expand(B, K)
+        flo, fhi = ops.range_for(fseq[None, :], flen)  # [..., 1]
+        lo0, hi0 = (x[..., None].expand(*x.shape[:-1], B, K) for x in (flo, fhi))
     else:
         lo0, hi0 = ops.full_range((B, K))
     brow = torch.arange(B, device=dev)[:, None]

@@ -21,6 +21,7 @@ from seal_tpu_torch.decoding.constrained import (
     resolve_window,
 )
 from seal_tpu_torch.models import api as model_api
+from seal_tpu_torch.parallel.sharded_index import ShardedTorchIndex
 
 #: Most recent decode's fast-path fallback counters (single-dispatch
 #: diagnostics; see BeamSearchOutput.fallback_steps).
@@ -99,9 +100,15 @@ def _to_host(out: BeamSearchOutput) -> BeamSearchOutput:
 
 
 def _search(model_cfg, params, index, dcfg, ids, mask, seed: int = 0) -> BeamSearchOutput:
+    ops = None
+    if isinstance(index, ShardedTorchIndex):  # sharded_fm_index_generate's route
+        from seal_tpu_torch.parallel.sharded_decode import ShardedIndexOps
+
+        ops = ShardedIndexOps(index)
     with torch.inference_mode():
         enc = model_api.module_for(model_cfg).encode(model_cfg, params, ids, mask)
-        return constrained_beam_search(model_cfg, params, index, dcfg, enc, mask, seed=seed)
+        return constrained_beam_search(model_cfg, params, index, dcfg, enc, mask, seed=seed,
+                                       index_ops=ops)
 
 
 def fm_index_generate_async(

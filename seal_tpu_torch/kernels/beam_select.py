@@ -41,6 +41,14 @@ Three more modes, for the decode modes of ``_candidates_general`` (:305):
   and first-instance dedup applied, written out in slot order (token,
   constrained log-prob, log-prob) for kernels 20 and 21 to select from; no
   selection.  Its plain version is ``beam_select``'s first half.
+
+``beam_select`` sorts a query's n = n_par * (n_buf + w + 2) candidates in
+one CTA while that fits the shared memory, and otherwise takes its
+large-n route (beam 32 over a 4-shard union window: n = 18,496): each
+beam's top 2K by the same key, then the query's finish over the n_par * 2K
+survivors -- two launches, the same result bit for bit (dedup and branches
+are per beam, and the key order is total).  ``beam_select_large_plain``
+is that route's specification.  Its launches also count on ``LARGE``.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ TOK_BITS = 17  # minimum token-id field width in selection tie ids
 TIES = Launches()  # kernel 8 launches in the ties mode (merge and select)
 FREE = Launches()  # beam_select_top launches with a candidate token table
 SPEC = Launches()  # beam_select launches that keep invalid buffer slots
+LARGE = Launches()  # beam_select calls through the two-launch large-n route
 
 
 def top_by_score_then_id(score, tie_id, k: int):
@@ -285,6 +294,41 @@ def beam_select_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, p
     return out, unsound
 
 
+def beam_select_large_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp,
+                            prev_count, finished, beam_scores, need, th_lp, *, K: int, eos: int,
+                            pad: int, stop_at_count: int, always_allow_eos: bool,
+                            ties: bool = False, keep_invalid: bool = False):
+    """The large-n route's two stages, as the kernel takes them: each beam's
+    best 2K candidates by (score, slot) -- or (score, tie id, slot) --, then
+    the query's best 2K of those survivors in the same order.  Equals
+    ``beam_select_plain``."""
+    tokens, cons, cand_lp = candidates_plain(
+        buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished, eos=eos, pad=pad,
+        stop_at_count=stop_at_count, always_allow_eos=always_allow_eos, keep_invalid=keep_invalid)
+    B, n_par, ncand = tokens.shape
+    bs = beam_scores[..., None]
+    score = cons + bs
+    keep = min(2 * K, ncand)
+    tie = beam_tok_tie(tokens.reshape(B, -1), ncand, lp.shape[-1]) if ties else None
+    if ties:
+        idx = top_by_score_then_id(score, tie.reshape(B, n_par, ncand), keep)
+    else:
+        idx = row_topk_plain(score, keep)[1]
+    base = torch.arange(n_par, device=lp.device)[:, None] * ncand
+    surv = torch.sort((idx + base).reshape(B, n_par * keep), -1)[0]  # flat slots, ascending
+    flat = score.reshape(B, -1)
+    if ties:
+        pick = top_by_score_then_id(_g(flat, surv), _g(tie, surv), 2 * K)
+    else:
+        pick = row_topk_plain(_g(flat, surv), 2 * K)[1]
+    top_idx = _g(surv, pick)
+    out = _epilogue(_g(flat, top_idx), top_idx, (cand_lp + bs).reshape(B, -1),
+                    tokens.reshape(B, -1), ncand, K, eos)
+    if need is None:
+        return out, None
+    return out, (need & (beam_scores + th_lp >= out[8][:, -1:])).any(-1)
+
+
 def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished,
                 beam_scores, need=None, th_lp=None, *, K: int, eos: int, pad: int, stop_at_count: int = 0,
                 always_allow_eos: bool = False, ties: bool = False, keep_invalid: bool = False):
@@ -315,11 +359,16 @@ def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_co
 
     B, n_par = prev_count.shape
     w = win_tok.shape[-1]
-    n = n_par * (n_buf + w + 2)
+    ncand = n_buf + w + 2
+    n = n_par * ncand
     if n < 2 * K:
         raise ValueError(f"beam_select: {n} candidates for a top-{2 * K}")
-    if build.lib().seal_beam_select_smem(n, 2 * K, K, int(ties)) > build.SMEM_LIMIT:
-        raise ValueError(f"beam_select: {n} candidates per query exceed the shared memory")
+    so = build.lib()
+    large = so.seal_beam_select_smem(n, 2 * K, K, int(ties)) > build.SMEM_LIMIT
+    if large and so.seal_beam_select_large_smem(n_par, ncand, 2 * K, K,
+                                                int(ties)) > build.SMEM_LIMIT:
+        raise ValueError(f"beam_select: {ncand} candidates per beam or {n_par} x {2 * K} "
+                         "survivors per query exceed the shared memory")
     bits = tie_bits(lp.shape[-1], n_par) if ties else 0
     if (need is None) != (th_lp is None):
         raise ValueError("beam_select: need and th_lp go together")
@@ -333,17 +382,24 @@ def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_co
     dev = lp.device
     outs = _select_outputs(B, K, dev)
     unsound = torch.empty((B,), dtype=torch.bool, device=dev) if need is not None else None
+    scratch_keys = scratch_slots = None
+    if large:  # each beam's top 2K keys (and their slots in the ties mode)
+        scratch_keys = torch.empty((B * n_par, 2 * K), dtype=torch.int64, device=dev)
+        if ties:
+            scratch_slots = torch.empty((B * n_par, 2 * K), dtype=torch.int32, device=dev)
     opt = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    rc = build.lib().seal_beam_select(
+    rc = so.seal_beam_select(
         *args, beam_scores.data_ptr(), opt(need), opt(th_lp), B, n_par, n_buf, w, K, eos, pad,
         stop_at_count, int(always_allow_eos), bits, int(keep_invalid), NEG_INF,
-        *(t.data_ptr() for t in outs), opt(unsound), build.stream_ptr(lp),
+        *(t.data_ptr() for t in outs), opt(unsound), opt(scratch_keys), opt(scratch_slots),
+        build.stream_ptr(lp),
     )
     del keep
     build.check(rc, "beam_select")
     beam_select.launches += 1
     TIES.launches += int(ties)
     SPEC.launches += int(keep_invalid)
+    LARGE.launches += int(large)
     return outs, unsound
 
 

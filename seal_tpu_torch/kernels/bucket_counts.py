@@ -7,6 +7,13 @@ support-pruning input of the exact proposal loop's later rounds: the
 ``bucket_rows`` rows of each bound's partial block.  Integer counts, so
 the kernel equals the plain version exactly.  One CTA per range with a
 shared-memory histogram; see the source.
+
+``bucket_counts_sharded`` is its shard mode over a ``ShardedTorchIndex``
+(``seal_tpu_torch/parallel/sharded_index.py``), for
+``seal_tpu/parallel/sharded_decode.py:ShardedIndexOps.bucket_counts``
+(:138): every shard's counts of its own range, summed over the shards (the
+shards share one bucket partition, so their columns line up), in one
+launch.
 """
 
 from __future__ import annotations
@@ -63,3 +70,42 @@ def bucket_counts(index, lo, hi):
 
 
 bucket_counts.launches = 0
+
+
+def bucket_counts_sharded_plain(si, lo, hi):
+    return sum(bucket_counts_plain(si.block_view(s), lo[s], hi[s]) for s in range(si.n_shards))
+
+
+def bucket_counts_sharded(si, lo, hi):
+    """Per-bucket counts of the (shifted) BWT symbols in each shard's rows
+    [lo[s], hi[s]), summed over the shards: int32 [..., n_buckets] for
+    ranges lo/hi [S, ...] (clamped to the padded shard size).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    lo = torch.as_tensor(lo, dtype=torch.int32, device=si.device)
+    hi = torch.as_tensor(hi, dtype=torch.int32, device=si.device)
+    if lo.shape != hi.shape or lo.dim() == 0 or lo.shape[0] != si.n_shards:
+        raise ValueError(f"bucket_counts_sharded: ranges {tuple(lo.shape)} / {tuple(hi.shape)} "
+                         f"for {si.n_shards} shards")
+    if not lo.is_cuda:
+        return bucket_counts_sharded_plain(si, lo, hi)
+    from seal_tpu_torch.kernels import build
+
+    lo, hi = lo.contiguous(), hi.contiguous()
+    nb = si.n_buckets
+    if si.bucket_occ.shape[2] != nb or not si.bucket_occ.is_contiguous():
+        raise ValueError(f"bucket_counts_sharded: bucket_occ {tuple(si.bucket_occ.shape)} vs "
+                         f"{nb} buckets")
+    out = torch.empty(tuple(lo.shape[1:]) + (nb,), dtype=torch.int32, device=lo.device)
+    rc = build.lib().seal_bucket_counts_sharded(
+        si.bwt.data_ptr(), si.bucket_occ.data_ptr(), si.n_max, si.bucket_occ.shape[1],
+        si.n_shards, lo.data_ptr(), hi.data_ptr(), out.data_ptr(), lo[0].numel(), si.bucket_rows,
+        si.bucket_size, nb, build.stream_ptr(lo),
+    )
+    build.check(rc, "bucket_counts_sharded")
+    bucket_counts_sharded.launches += 1
+    return out
+
+
+bucket_counts_sharded.launches = 0

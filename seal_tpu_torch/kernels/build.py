@@ -57,13 +57,31 @@ SIGNATURES = {
     # psi, sym_dir, head_pair, n_rows, sigma, dir_shift,
     # bwt, lo, hi, out, n, vocab, hist_max, stream
     "seal_fm_dense_counts": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
+    # the shard modes take a sharded index as psi, sym_dir, n_max (row
+    # stride), sigma (sym_dir rows a shard), n_shards
+    # (kernels/fm_search.py:_shard_args), then
+    # token, lo, hi, out_lo, out_hi, n (ranges a shard), stream
+    "seal_fm_backward_step_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _L, _P],
+    # tokens, lo, hi, out, n_ranges, m, count (0 membership, 1 counts), stream
+    "seal_fm_contains_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
+    # n_rows, tokens, lengths, out_lo, out_hi, out_count (None: ranges), n,
+    # L, stream
+    "seal_fm_sequences_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I, _P],
+    # bwt, lo, hi, out, n, vocab, hist_max, stream
+    "seal_fm_dense_counts_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
     # bwt, lp, lp_stride, lo, hi, n, w, vocab, fill, tok, valid, lp_out, stream
     "seal_window_gather": [_P, _P, _L, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
+    # bwt, n_max, n_shards, lp, lp_stride, lo, hi, n, w, vocab, fill, tok,
+    # valid, lp_out, stream
+    "seal_window_gather_sharded": [_P, _L, _I, _P, _L, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
     # x, n_rows, width, k, vals, idx, stream
     "seal_row_topk": [_P, _L, _I, _I, _P, _P, _P],
     # bwt, bucket_occ, lo, hi, out, n, n_rows, bucket_rows, bucket_size,
     # n_buckets, stream
     "seal_bucket_counts": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # bwt, bucket_occ, n_max, occ_rows, n_shards, lo, hi, out, n,
+    # bucket_rows, bucket_size, n_buckets, stream
+    "seal_bucket_counts_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _L, _I, _I, _I, _P],
     # logits, targets, out, n, T, V, n_prefix, stream
     "seal_rescore_logprob": [_P, _P, _P, _L, _I, _I, _I, _P],
     # buf_tok, buf_lp, buf_valid, top_tok, top_lp, top_ok, top_stride,
@@ -75,9 +93,10 @@ SIGNATURES = {
     # eos_ok_stride, lp, lp_stride, prev_count, finished, beam_scores, need,
     # th_lp, n_queries, n_par, n_buf, w, k, eos, pad, stop_at_count,
     # always_allow_eos, tie_bits (0: no ties mode), keep_invalid, neg_inf,
-    # 9 outputs, unsound, stream
+    # 9 outputs, unsound, scratch keys and slots (None: the one-CTA route),
+    # stream
     "seal_beam_select": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _L, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _F] + [_P] * 11,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _F] + [_P] * 13,
     # top_cons, top_idx, lp, lp_stride, beam_scores, bs_stride, table (None:
     # token = slot % V), n_queries, n_par, ncand, k, eos, neg_inf, 9 outputs,
     # stream
@@ -132,6 +151,7 @@ SIGNATURES = {
 }
 # C functions that return a size rather than an error code
 SIZE_QUERIES = {"seal_beam_merge_smem": [_I, _I], "seal_beam_select_smem": [_I, _I, _I, _I],
+                "seal_beam_select_large_smem": [_I, _I, _I, _I, _I],
                 "seal_decode_attention_smem": [_I, _I, _I], "seal_row_select_max_k": [],
                 "seal_diverse_chunks": [_I], "seal_diverse_smem": [_I, _I, _I]}
 

@@ -321,6 +321,106 @@ __global__ void select_kernel(SelectIn in, SelectOut o, unsigned char* unsound, 
   }
 }
 
+// The large-n route of select, for queries whose n_par * ncand candidates
+// do not fit one CTA's shared memory (beam 32 over a 4-shard union window:
+// 18,496 candidates, a 411 KB sort).  Two launches, the same order:
+//
+// 1. select_beams_kernel, one CTA per beam row: the row's ncand candidates
+//    (branches, first-instance dedup), keyed exactly as select_kernel keys
+//    them (flat slot f = k * ncand + j), sorted, and its first two_k keys
+//    (with their slots under TIES) written out.
+// 2. select_finish_kernel, one CTA per query: the n_par * two_k survivors
+//    sorted again, the first two_k reloaded by slot, select's epilogue and
+//    soundness test.
+//
+// A query's two_k best candidates hold at most two_k of any one beam, and
+// the key order is total (slot breaks every tie), so the survivors contain
+// them and the result equals the one-CTA sort bit for bit.
+template <bool TIES>
+__global__ void select_beams_kernel(SelectIn in, int n_par, int n_buf, int w, int two_k, int n2,
+                                    int eos, int pad, int stop_at_count, int always_allow_eos,
+                                    int tie_bits, float neg_inf, u64* out_keys, int* out_slots) {
+  extern __shared__ unsigned long long smem[];
+  const int ncand = n_buf + w + 2;
+  u64* keys = smem;
+  int* s_slot = (int*)(keys + n2);  // TIES only
+  int* s_tok = s_slot + (TIES ? n2 : 0);
+  float* s_lp = (float*)(s_tok + ncand);
+  const long long row = blockIdx.x;
+  const int k = (int)(row % n_par);
+  const float bs = in.beam_scores[row];
+
+  for (int j = threadIdx.x; j < ncand; j += blockDim.x) {
+    load_slot(in, row, j, n_buf, w, eos, pad, &s_tok[j], &s_lp[j]);
+    if (TIES) s_slot[j] = k * ncand + j;
+  }
+  for (int j = ncand + threadIdx.x; j < n2; j += blockDim.x) {
+    keys[j] = 0ull;
+    if (TIES) s_slot[j] = 0x7fffffff;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < ncand; j += blockDim.x) {
+    const int tok = s_tok[j];
+    const bool allowed = first_instance(s_tok, 0, j) &&
+                         slot_allowed(in, row, j, tok, n_buf, w, eos, pad, stop_at_count,
+                                      always_allow_eos);
+    const float cons = allowed ? s_lp[j] : neg_inf;
+    const int tie = TIES ? (k << tie_bits) + min(max(tok, 0), (1 << tie_bits) - 1)
+                         : k * ncand + j;
+    keys[j] = pack(__fadd_rn(cons, bs), tie);
+  }
+  sort_desc<TIES>(keys, s_slot, n2);
+  for (int t = threadIdx.x; t < two_k; t += blockDim.x) {
+    out_keys[row * two_k + t] = t < n2 ? keys[t] : 0ull;
+    if (TIES) out_slots[row * two_k + t] = t < n2 ? s_slot[t] : 0x7fffffff;
+  }
+}
+
+template <bool TIES>
+__global__ void select_finish_kernel(SelectIn in, SelectOut o, unsigned char* unsound,
+                                     int n_par, int n_buf, int w, int two_k, int k_out, int n2,
+                                     int eos, int pad, float neg_inf, const u64* in_keys,
+                                     const int* in_slots) {
+  extern __shared__ unsigned long long smem[];
+  const int ncand = n_buf + w + 2;
+  const int m = n_par * two_k;
+  u64* keys = smem;
+  int* s_slot = (int*)(keys + n2);  // TIES only
+  float* e_cons = (float*)(s_slot + (TIES ? n2 : 0));
+  float* e_lp = e_cons + two_k;
+  int* e_slot = (int*)(e_lp + two_k);
+  int* e_tok = e_slot + two_k;
+  int* s_cont = e_tok + two_k;
+  const long long b = blockIdx.x;
+  const float* bs_row = in.beam_scores + b * n_par;
+
+  for (int i = threadIdx.x; i < n2; i += blockDim.x) {
+    keys[i] = i < m ? in_keys[b * m + i] : 0ull;
+    if (TIES) s_slot[i] = i < m ? in_slots[b * m + i] : 0x7fffffff;
+  }
+  sort_desc<TIES>(keys, s_slot, n2);
+  for (int t = threadIdx.x; t < two_k; t += blockDim.x) {
+    const u64 key = keys[t];
+    const int f = TIES ? s_slot[t] : key_slot(key);
+    const int k = f / ncand;
+    e_cons[t] = key_value(key);
+    e_slot[t] = f;
+    load_slot(in, b * n_par + k, f - k * ncand, n_buf, w, eos, pad, &e_tok[t], &e_lp[t]);
+  }
+  __syncthreads();
+  select_epilogue(b, two_k, k_out, ncand, eos, neg_inf, e_cons, e_slot, e_tok, e_lp, bs_row, o,
+                  s_cont);
+  if (unsound != nullptr && threadIdx.x == 0) {
+    const float s_star = e_cons[two_k - 1];
+    unsigned char bad = 0;
+    for (int k = 0; k < n_par; ++k) {
+      const long long row = b * n_par + k;
+      if (in.need[row] != 0 && __fadd_rn(bs_row[k], in.th_lp[row]) >= s_star) bad = 1;
+    }
+    unsound[b] = bad;
+  }
+}
+
 // The candidate mode (_candidates_general :359-367 with _apply_branches and
 // _dedup_mask, :1394-1399): one CTA per beam row writes its ncand candidates
 // in slot order -- token, constrained log-prob (NEG_INF where the branches or
@@ -391,6 +491,15 @@ long long seal_beam_select_smem(int n, int two_k, int k_out, int ties) {
   return (ties ? 12LL : 8LL) * pow2_at_least(n) + 8LL * n + 16LL * two_k + 4LL * k_out;
 }
 
+// The large-n route: the larger of its two launches' needs (a beam row's
+// ncand candidates; a query's n_par * two_k survivors).
+long long seal_beam_select_large_smem(int n_par, int ncand, int two_k, int k_out, int ties) {
+  const long long per_key = ties ? 12LL : 8LL;
+  const long long beams = per_key * pow2_at_least(ncand) + 8LL * ncand;
+  const long long finish = per_key * pow2_at_least(n_par * two_k) + 16LL * two_k + 4LL * k_out;
+  return beams > finish ? beams : finish;
+}
+
 int seal_beam_merge(const int* buf_tok, const float* buf_lp, const unsigned char* buf_valid,
                     const int* top_tok, const float* top_lp, const unsigned char* top_ok,
                     long long top_stride, long long top_ok_stride, const int* slab_tok,
@@ -421,7 +530,8 @@ int seal_beam_select(const int* buf_tok, const float* buf_lp, const unsigned cha
                      int keep_invalid, float neg_inf,
                      int* top_tok, int* top_parent, float* top_uncons, unsigned char* finite,
                      int* sel_tok, int* sel_parent, float* sel_uncons, unsigned char* sel_finite,
-                     float* top_cons, unsigned char* unsound, void* stream) {
+                     float* top_cons, unsigned char* unsound, u64* scratch_keys,
+                     int* scratch_slots, void* stream) {
   if (n_queries <= 0) return (int)cudaGetLastError();
   const SelectIn in{buf_tok, buf_lp,     buf_valid,  win_tok,  win_valid, win_lp,
                     eos_ok,  eos_ok_stride, lp,      lp_stride, prev_count, finished,
@@ -429,6 +539,33 @@ int seal_beam_select(const int* buf_tok, const float* buf_lp, const unsigned cha
   const SelectOut o{top_tok, top_parent, top_uncons, finite, sel_tok,
                     sel_parent, sel_uncons, sel_finite, top_cons};
   const int two_k = 2 * k_out;
+  if (scratch_keys != nullptr) {
+    // the large-n route: scratch holds [n_queries * n_par, two_k] keys (and
+    // slots under the ties mode)
+    const int ncand = n_buf + w + 2;
+    const int ties = tie_bits > 0;
+    const int n2b = pow2_at_least(ncand);
+    const size_t smem_b = (size_t)((ties ? 12LL : 8LL) * n2b + 8LL * ncand);
+    const auto beams = ties ? select_beams_kernel<true> : select_beams_kernel<false>;
+    int rc = set_smem(beams, smem_b);
+    if (rc) return rc;
+    beams<<<(unsigned)(n_queries * n_par), n2b >= 1024 ? 512 : 256, smem_b,
+            (cudaStream_t)stream>>>(in, n_par, n_buf, w, two_k, n2b, eos, pad, stop_at_count,
+                                    always_allow_eos, tie_bits, neg_inf, scratch_keys,
+                                    scratch_slots);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+    const int n2f = pow2_at_least(n_par * two_k);
+    const size_t smem_f =
+        (size_t)((ties ? 12LL : 8LL) * n2f + 16LL * two_k + 4LL * k_out);
+    const auto finish = ties ? select_finish_kernel<true> : select_finish_kernel<false>;
+    rc = set_smem(finish, smem_f);
+    if (rc) return rc;
+    finish<<<(unsigned)n_queries, n2f >= 2048 ? 1024 : 256, smem_f, (cudaStream_t)stream>>>(
+        in, o, unsound, n_par, n_buf, w, two_k, k_out, n2f, eos, pad, neg_inf, scratch_keys,
+        scratch_slots);
+    return (int)cudaGetLastError();
+  }
   const int n = n_par * (n_buf + w + 2);
   const int n2 = pow2_at_least(n);
   const size_t smem = (size_t)seal_beam_select_smem(n, two_k, k_out, tie_bits > 0);

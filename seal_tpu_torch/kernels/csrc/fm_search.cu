@@ -179,7 +179,229 @@ struct PsiDense {
   __device__ int symbol(int row) const { return __ldg(bwt + row); }
 };
 
+// ---------------------------------------------------------------- shard modes
+//
+// Replace seal_tpu/parallel/sharded_decode.py:ShardedIndexOps (:48-148) and
+// seal_tpu/parallel/sharded_index.py (:401-483): the same searches over a
+// corpus-sharded index whose shards are stacked shard-major on one card
+// (psi [S, n_max], sym_dir [S, sigma, 4], ranges [S, n]; no head
+// directory).  The JAX package runs one shard per device and merges with a
+// psum; here one launch covers every shard and the merge is a loop over the
+// shard axis in registers, so a decode step's launches do not grow with S.
+// Shard s's rows never reach its padding: its own C ends at its true row
+// count, and a symbol it lacks has an empty block.
+
+struct Shards {
+  const int* psi;
+  const int* sym_dir;
+  long long n_max;  // row stride of psi (and bwt)
+  int sigma;        // sym_dir rows per shard
+  int n_shards;
+
+  __device__ const int* psi_of(int s) const { return psi + s * n_max; }
+  __device__ const int* dir_of(int s) const { return sym_dir + (long long)s * sigma * 4; }
+  // smallest row of symbol c's block in shard s with psi >= pos
+  __device__ int rank(int s, int c, int pos) const {
+    const Bounds b = symbol_bounds(dir_of(s), nullptr, 0, 0, c, pos);
+    return search(psi_of(s), b.dlo, b.dhi, pos);
+  }
+};
+
+// Kernel 1, backward step: one thread per (shard, range, bound); shard s's
+// range q reads the token of range q (the same for every shard).
+__global__ void __launch_bounds__(THREADS)
+backward_step_sharded_kernel(Shards sh, const int* __restrict__ token,
+                             const int* __restrict__ lo, const int* __restrict__ hi,
+                             int* __restrict__ out_lo, int* __restrict__ out_hi, long long n) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long q = t >> 1;  // shard-major: q = s * n + i
+  const int bound = (int)(t & 1);
+  const bool active = q < n * sh.n_shards;
+  int row = 0;
+  if (active) {
+    const int s = (int)(q / n);
+    const int c = token[q - s * n] + SHIFT;
+    if (c >= 1 && c < sh.sigma) row = sh.rank(s, c, bound ? hi[q] : lo[q]);
+  }
+  const int other = __shfl_xor_sync(0xffffffffu, row, 1);
+  if (active) {
+    if (bound == 0) {
+      out_lo[q] = row;
+    } else {
+      out_hi[q] = max(other, row);
+    }
+  }
+}
+
+// Kernel 1, membership (ORed over the shards) or counts (summed): one
+// thread per (range, token) walks the shards; their chains are independent.
+__global__ void __launch_bounds__(THREADS)
+contains_sharded_kernel(Shards sh, const int* __restrict__ tokens, const int* __restrict__ lo,
+                        const int* __restrict__ hi, void* __restrict__ out, long long n, int m,
+                        int count) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (t >= n * m) return;
+  const long long r = t / m;
+  const int c = tokens[t] + SHIFT;
+  int acc = 0;
+  if (c >= 1 && c < sh.sigma) {
+    for (int s = 0; s < sh.n_shards; ++s) {
+      const int l = lo[s * n + r], h = hi[s * n + r];
+      if (count) {
+        acc += max(sh.rank(s, c, h) - sh.rank(s, c, l), 0);
+      } else {
+        const Bounds b = symbol_bounds(sh.dir_of(s), nullptr, 0, 0, c, l);
+        const int row = search(sh.psi_of(s), b.dlo, b.dhi, l);
+        acc |= row < b.bhi && __ldg(sh.psi_of(s) + row) < h;
+      }
+    }
+  }
+  if (count) {
+    static_cast<int*>(out)[t] = acc;
+  } else {
+    static_cast<unsigned char*>(out)[t] = acc ? 1 : 0;
+  }
+}
+
+// Kernel 5: the lane pair of sequences_kernel per (shard, sequence), from
+// shard s's full range [0, n_rows[s]); in the count mode one lane pair per
+// sequence walks the shards and sums hi - lo.
+__global__ void __launch_bounds__(THREADS)
+sequences_sharded_kernel(Shards sh, const int* __restrict__ n_rows,
+                         const int* __restrict__ tokens, const int* __restrict__ lengths,
+                         int* __restrict__ out_lo, int* __restrict__ out_hi,
+                         int* __restrict__ out_count, long long n, int L) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long q = t >> 1;  // range mode: s * n + i; count mode: i
+  const int bound = (int)(t & 1);
+  const bool counting = out_count != nullptr;
+  const long long n_pairs = counting ? n : n * sh.n_shards;
+  const bool active = q < n_pairs;
+  const int s0 = counting ? 0 : (active ? (int)(q / n) : 0);
+  const long long i = counting ? q : q - (long long)s0 * n;
+  const int s1 = counting ? sh.n_shards : s0 + 1;
+  const int len = active ? lengths[i] : 0;
+  int total = 0, lo = 0, hi = 0;
+  for (int s = s0; s < s1; ++s) {
+    lo = 0;
+    hi = active ? n_rows[s] : 0;
+    for (int j = 0; j < L; ++j) {
+      const bool keep = j < len;
+      int row = 0;  // an out-of-range token gives (0, 0)
+      if (keep) {
+        const int c = tokens[i * L + j] + SHIFT;
+        if (c >= 1 && c < sh.sigma) row = sh.rank(s, c, bound ? hi : lo);
+      }
+      const int other = __shfl_xor_sync(0xffffffffu, row, 1);
+      if (keep) {
+        lo = bound ? other : row;
+        hi = max(lo, bound ? row : other);
+      }
+    }
+    total += hi - lo;
+  }
+  if (!active || bound != 0) return;
+  if (counting) {
+    out_count[i] = total;
+  } else {
+    out_lo[q] = lo;
+    out_hi[q] = hi;
+  }
+}
+
+// Kernel 15: one block per (range, slice) adds every shard's count vector
+// into one shared histogram, each shard by its own route (its rows below
+// hist_max, else both bounds' ranks), and writes the sum once.
+__global__ void __launch_bounds__(seal_dense::THREADS)
+dense_counts_sharded_kernel(Shards sh, const int* __restrict__ bwt, const int* __restrict__ lo,
+                            const int* __restrict__ hi, int* __restrict__ out, long long n,
+                            int vocab, int hist_max) {
+  constexpr int T = seal_dense::THREADS;
+  __shared__ int hist[seal_dense::SLICE];
+  const long long r = blockIdx.x;
+  const int t0 = blockIdx.y * seal_dense::SLICE;
+  const int t1 = min(t0 + seal_dense::SLICE, vocab);
+  for (int i = threadIdx.x; i < t1 - t0; i += T) hist[i] = 0;
+  __syncthreads();
+  for (int s = 0; s < sh.n_shards; ++s) {
+    const int l = lo[s * n + r], h = hi[s * n + r];
+    const int r0 = (int)min(max((long long)l, 0LL), sh.n_max);
+    const int r1 = (int)min(max((long long)h, 0LL), sh.n_max);
+    if (r1 - r0 <= hist_max) {
+      const int* b = bwt + s * sh.n_max;
+      for (int row = r0 + threadIdx.x; row < r1; row += T) {
+        const int tok = __ldg(b + row) - SHIFT;
+        if (tok >= t0 && tok < t1) atomicAdd(hist + (tok - t0), 1);
+      }
+    } else {
+      for (int tok = t0 + threadIdx.x; tok < t1; tok += T) {
+        const int c = tok + SHIFT;
+        if (c < sh.sigma) atomicAdd(hist + (tok - t0), max(sh.rank(s, c, h) - sh.rank(s, c, l), 0));
+      }
+    }
+  }
+  __syncthreads();
+  int* row_out = out + r * vocab;
+  for (int i = threadIdx.x; i < t1 - t0; i += T) row_out[t0 + i] = hist[i];
+}
+
 }  // namespace
+
+extern "C" int seal_fm_backward_step_sharded(const int* psi, const int* sym_dir, long long n_max,
+                                             int sigma, int n_shards, const int* token,
+                                             const int* lo, const int* hi, int* out_lo,
+                                             int* out_hi, long long n, void* stream) {
+  if (n > 0 && n_shards > 0) {
+    const Shards sh{psi, sym_dir, n_max, sigma, n_shards};
+    const long long threads = 2 * n * n_shards;
+    const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
+    backward_step_sharded_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        sh, token, lo, hi, out_lo, out_hi, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int seal_fm_contains_sharded(const int* psi, const int* sym_dir, long long n_max,
+                                        int sigma, int n_shards, const int* tokens, const int* lo,
+                                        const int* hi, void* out, long long n, int m, int count,
+                                        void* stream) {
+  if (n > 0 && m > 0) {
+    const Shards sh{psi, sym_dir, n_max, sigma, n_shards};
+    const long long threads = n * m;
+    const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
+    contains_sharded_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(sh, tokens, lo, hi, out,
+                                                                          n, m, count);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int seal_fm_sequences_sharded(const int* psi, const int* sym_dir, long long n_max,
+                                         int sigma, int n_shards, const int* n_rows,
+                                         const int* tokens, const int* lengths, int* out_lo,
+                                         int* out_hi, int* out_count, long long n, int L,
+                                         void* stream) {
+  if (n > 0) {
+    const Shards sh{psi, sym_dir, n_max, sigma, n_shards};
+    const long long threads = 2 * n * (out_count != nullptr ? 1 : n_shards);
+    const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
+    sequences_sharded_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        sh, n_rows, tokens, lengths, out_lo, out_hi, out_count, n, L);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int seal_fm_dense_counts_sharded(const int* psi, const int* sym_dir, long long n_max,
+                                            int sigma, int n_shards, const int* bwt,
+                                            const int* lo, const int* hi, int* out, long long n,
+                                            int vocab, int hist_max, void* stream) {
+  if (n > 0 && vocab > 0) {
+    const Shards sh{psi, sym_dir, n_max, sigma, n_shards};
+    const dim3 grid((unsigned)n, (unsigned)((vocab + seal_dense::SLICE - 1) / seal_dense::SLICE));
+    dense_counts_sharded_kernel<<<grid, seal_dense::THREADS, 0, (cudaStream_t)stream>>>(
+        sh, bwt, lo, hi, out, n, vocab, hist_max);
+  }
+  return (int)cudaGetLastError();
+}
 
 extern "C" int seal_fm_dense_counts(const int* psi, const int* sym_dir, const int* head_pair,
                                     int n_rows, int sigma, int dir_shift, const int* bwt,

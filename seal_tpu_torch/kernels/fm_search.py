@@ -17,6 +17,20 @@ bound: a chain of dependent psi loads per query, one thread per (query,
 bound); see the source for the design.  Kernel 15 is bound by its
 [ranges, vocab] output; a range of at most ``HIST_MAX_ROWS`` rows counts
 its BWT rows (``csrc/dense_counts.cuh``).
+
+Each kernel has a shard mode over a :class:`ShardedTorchIndex`
+(``seal_tpu_torch/parallel/sharded_index.py``: shard-major stacked arrays,
+ranges [S, ...]) for ``seal_tpu/parallel/sharded_decode.py:
+ShardedIndexOps`` (:48-148) and ``sharded_index.py`` (:401-483):
+``fm_search_sharded`` (kernel 1: per-shard backward steps; membership ORed
+or counts summed over the shards, ``contains`` :95 / ``validate`` :91),
+``fm_sequences_sharded`` (kernel 5: per-shard sequence ranges, or their
+summed counts, ``_range_scan`` :401 / ``sharded_count_sequences`` :455) and
+``fm_dense_counts_sharded`` (kernel 15: the count vectors summed,
+``dense_counts`` :147).  One launch per call whatever the shard count:
+the JAX ``psum`` is a loop over the shard axis inside the kernel.  Their
+plain versions run the plain version above on each shard's block
+(``ShardedTorchIndex.block_view``) and sum, OR or stack the results.
 """
 
 from __future__ import annotations
@@ -247,3 +261,176 @@ def fm_dense_counts(index, lo, hi, chunk: int = 4096, hist_max: int = HIST_MAX_R
 
 
 fm_dense_counts.launches = 0
+
+
+# ------------------------------------------------------------ shard modes
+
+SHARD_MODES = ("backward_step", "contains", "validate")
+
+
+def _shard_args(si):
+    """The stacked Psi arrays of a sharded index and their strides."""
+    if si.psi.dtype != torch.int32 or not si.psi.is_contiguous() \
+            or not si.sym_dir.is_contiguous():
+        raise ValueError("shard mode: the index's psi and sym_dir must be contiguous int32")
+    return (si.psi.data_ptr(), si.sym_dir.data_ptr(), si.n_max, si.sigma, si.n_shards)
+
+
+def _ranges_of(si, lo, hi, name):
+    lo = torch.as_tensor(lo, dtype=torch.int32, device=si.device)
+    hi = torch.as_tensor(hi, dtype=torch.int32, device=si.device)
+    if lo.shape != hi.shape or lo.dim() == 0 or lo.shape[0] != si.n_shards:
+        raise ValueError(f"{name}: ranges must be [{si.n_shards}, ...], got lo "
+                         f"{tuple(lo.shape)} hi {tuple(hi.shape)}")
+    return lo, hi
+
+
+def fm_search_sharded_plain(si, mode: str, tokens, lo, hi):
+    views = [si.block_view(s) for s in range(si.n_shards)]
+    if mode == "backward_step":
+        outs = [backward_step_plain(v, tokens, lo[s], hi[s]) for s, v in enumerate(views)]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    if mode == "contains":
+        out = contains_plain(views[0], tokens, lo[0], hi[0])
+        for s, v in enumerate(views[1:], 1):
+            out = out | contains_plain(v, tokens, lo[s], hi[s])
+        return out
+    return sum(_generic.validate_tokens(backward_step_plain, v, tokens, lo[s], hi[s])
+               for s, v in enumerate(views))
+
+
+def fm_search_sharded(si, mode: str, tokens, lo, hi):
+    """Kernel 1's shard mode: the rank search of every shard, in one launch.
+
+    lo/hi: int32 [S, ...], each shard's own ranges.
+
+    * ``"backward_step"``: tokens [...] (one per range, the same for every
+      shard); returns each shard's (new_lo, new_hi) [S, ...].
+    * ``"contains"``: tokens [..., M]; returns bool [..., M], whether each
+      token continues its range in some shard (ORed over the shards).
+    * ``"validate"``: tokens [..., M]; returns int32 [..., M], each token's
+      continuation count summed over the shards.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    if mode not in SHARD_MODES:
+        raise ValueError(f"unknown fm_search_sharded mode {mode!r}")
+    lo, hi = _ranges_of(si, lo, hi, "fm_search_sharded")
+    tokens = torch.as_tensor(tokens, dtype=torch.int32, device=si.device)
+    if mode == "backward_step":
+        tokens = tokens.expand(lo.shape[1:])
+    elif tokens.shape[:-1] != lo.shape[1:]:
+        raise ValueError(f"fm_search_sharded: tokens {tuple(tokens.shape)} vs ranges "
+                         f"{tuple(lo.shape)}")
+    if not tokens.is_cuda:
+        return fm_search_sharded_plain(si, mode, tokens, lo, hi)
+    from seal_tpu_torch.kernels import build
+
+    so = build.lib()
+    tokens, lo, hi = (t.contiguous() for t in (tokens, lo, hi))
+    n = lo[0].numel()
+    stream = build.stream_ptr(tokens)
+    if mode == "backward_step":
+        out_lo, out_hi = torch.empty_like(lo), torch.empty_like(hi)
+        rc = so.seal_fm_backward_step_sharded(
+            *_shard_args(si), tokens.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            out_lo.data_ptr(), out_hi.data_ptr(), n, stream,
+        )
+        build.check(rc, "fm_search_sharded(backward_step)")
+        fm_search_sharded.launches += 1
+        return out_lo, out_hi
+    count = mode == "validate"
+    out = torch.empty(tokens.shape, dtype=torch.int32 if count else torch.bool,
+                      device=tokens.device)
+    rc = so.seal_fm_contains_sharded(
+        *_shard_args(si), tokens.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), n,
+        tokens.shape[-1], int(count), stream,
+    )
+    build.check(rc, f"fm_search_sharded({mode})")
+    fm_search_sharded.launches += 1
+    return out
+
+
+fm_search_sharded.launches = 0
+
+
+def sequences_sharded_plain(si, tokens, lengths, count: bool = False):
+    outs = [sequences_plain(si.shard_view(s), tokens, lengths) for s in range(si.n_shards)]
+    if count:
+        return sum(hi - lo for lo, hi in outs)
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def fm_sequences_sharded(si, tokens, lengths, count: bool = False):
+    """Kernel 5's shard mode: each shard's row ranges of padded token
+    sequences (tokens int32 [..., L], lengths [...]) from its own full range,
+    as int32 (lo, hi) [S, ...]; with ``count``, their counts summed over the
+    shards, int32 [...].
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    tokens = torch.as_tensor(tokens, dtype=torch.int32, device=si.device)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=si.device)
+    if tokens.shape[:-1] != lengths.shape:
+        raise ValueError(f"fm_sequences_sharded: tokens {tuple(tokens.shape)} vs lengths "
+                         f"{tuple(lengths.shape)}")
+    if not tokens.is_cuda:
+        return sequences_sharded_plain(si, tokens, lengths, count)
+    from seal_tpu_torch.kernels import build
+
+    tokens, lengths = tokens.contiguous(), lengths.contiguous()
+    if count:
+        out_lo = out_hi = None
+        out_count = torch.empty_like(lengths)
+    else:
+        out_lo = torch.empty((si.n_shards, *lengths.shape), dtype=torch.int32,
+                             device=lengths.device)
+        out_hi = torch.empty_like(out_lo)
+        out_count = None
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    rc = build.lib().seal_fm_sequences_sharded(
+        *_shard_args(si), si.n_rows.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
+        ptr(out_lo), ptr(out_hi), ptr(out_count), lengths.numel(), tokens.shape[-1],
+        build.stream_ptr(tokens),
+    )
+    build.check(rc, "fm_sequences_sharded")
+    fm_sequences_sharded.launches += 1
+    return out_count if count else (out_lo, out_hi)
+
+
+fm_sequences_sharded.launches = 0
+
+
+def dense_counts_sharded_plain(si, lo, hi, chunk: int = 4096):
+    return sum(dense_counts_plain(si.block_view(s), lo[s], hi[s], chunk)
+               for s in range(si.n_shards))
+
+
+def fm_dense_counts_sharded(si, lo, hi, chunk: int = 4096, hist_max: int = HIST_MAX_ROWS):
+    """Kernel 15's shard mode: the continuation count of every token
+    ``0..si.vocab-1`` over each shard's ranges lo/hi [S, ...], summed over
+    the shards: int32 [..., vocab].  A shard's range of at most ``hist_max``
+    rows adds a histogram of its BWT rows, a wider one both bounds' ranks.
+
+    CPU tensors run the plain version, ``chunk`` tokens at a time; CUDA
+    tensors launch the kernel once for the whole vocab and every shard.
+    """
+    lo, hi = _ranges_of(si, lo, hi, "fm_dense_counts_sharded")
+    if not lo.is_cuda:
+        return dense_counts_sharded_plain(si, lo, hi, chunk)
+    from seal_tpu_torch.kernels import build
+
+    if si.bwt.dtype != torch.int32 or not si.bwt.is_contiguous():
+        raise ValueError("fm_dense_counts_sharded: the index's bwt must be contiguous int32")
+    lo, hi = lo.contiguous(), hi.contiguous()
+    out = torch.empty((*lo.shape[1:], si.vocab), dtype=torch.int32, device=lo.device)
+    rc = build.lib().seal_fm_dense_counts_sharded(
+        *_shard_args(si), si.bwt.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
+        lo[0].numel(), si.vocab, hist_max, build.stream_ptr(lo),
+    )
+    build.check(rc, "fm_dense_counts_sharded")
+    fm_dense_counts_sharded.launches += 1
+    return out
+
+
+fm_dense_counts_sharded.launches = 0

@@ -1,0 +1,98 @@
+"""Constrained generation over the corpus-sharded FM-index (counterpart of
+``seal_tpu/parallel/sharded_decode.py``), every shard on one card.
+
+The JAX package runs the whole beam search inside ``shard_map`` over the
+mesh's ``data`` axis: each device keeps its shard's ``[lo, hi)`` beam
+ranges, and the constraint decisions merge with collectives.  Here the
+decoder runs once, its ranges carry a leading shard axis ([S, B, K]), and
+each merge is a loop over that axis inside one kernel launch
+(:class:`ShardedIndexOps`).  The merges are JAX's: membership ORs over the
+shards, counts and range sizes sum, window slots are the union of every
+shard's window (shard s in slots [s * w, (s + 1) * w)), and the window is
+exhaustive only where every shard's interval fits it.  Keys are grounded
+in the union corpus: a key is valid iff it occurs in at least one shard.
+
+A ``mesh`` (shards on several cards, ``torch.distributed``) is not ported
+and raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from seal_tpu_torch.decoding.generate import fm_index_generate
+from seal_tpu_torch.kernels.bucket_counts import bucket_counts_sharded
+from seal_tpu_torch.kernels.fm_search import (
+    fm_dense_counts_sharded,
+    fm_search_sharded,
+    fm_sequences_sharded,
+)
+from seal_tpu_torch.kernels.window_gather import window_gather_sharded
+from seal_tpu_torch.parallel.sharded_index import ShardedTorchIndex, require_no_mesh
+
+
+class ShardedIndexOps:
+    """Constraint ops over a :class:`ShardedTorchIndex` with the JAX
+    merges (``sharded_decode.py:48-148``); the adapter interface of
+    ``decoding.constrained.SingleIndexOps``.  Ranges are [S, ...]; every
+    merged result drops the shard axis."""
+
+    def __init__(self, index: ShardedTorchIndex):
+        self.index = index
+
+    def full_range(self, shape):
+        return self.index.full_range(shape)
+
+    def range_for(self, tokens, lengths):
+        return fm_sequences_sharded(self.index, tokens, lengths)
+
+    def corpus_mask(self):
+        return self.index.corpus_counts > 0  # global counts
+
+    def validate(self, tokens, lo, hi):
+        return fm_search_sharded(self.index, "validate", tokens, lo, hi)
+
+    def contains(self, tokens, lo, hi):
+        return fm_search_sharded(self.index, "contains", tokens, lo, hi)
+
+    def window_gather(self, lo, hi, w, lp, fill):
+        return window_gather_sharded(self.index, lo, hi, w, lp, fill)
+
+    def extend(self, tokens, lo, hi):
+        return fm_search_sharded(self.index, "backward_step", tokens, lo, hi)
+
+    def range_size(self, lo, hi):
+        return (hi - lo).sum(0, dtype=torch.int32)
+
+    def window_exhaustive(self, lo, hi, w):
+        """True where every shard's interval fits its w window slots (then
+        the union window holds the union's whole distinct set)."""
+        return ((hi - lo) <= w).all(0)
+
+    def interval_covered(self, lo, hi, rows_done):
+        """True where ``rows_done`` rows a shard enumerate every shard's
+        interval."""
+        return ((hi - lo) <= rows_done).all(0)
+
+    def bucket_counts(self, lo, hi):
+        return bucket_counts_sharded(self.index, lo, hi)
+
+    def bucket_size(self):
+        return self.index.bucket_size
+
+    def dense_counts(self, lo, hi, chunk):
+        return fm_dense_counts_sharded(self.index, lo, hi, chunk)
+
+
+def sharded_fm_index_generate(model_cfg, params, sharded_index: ShardedTorchIndex, mesh,
+                              input_ids, attention_mask=None, **kwargs):
+    """``fm_index_generate`` over a sharded index: the same keywords, every
+    decode mode included, and the same host ``force_full`` redo of a batch
+    whose fast proof failed.  ``mesh`` must be ``None``: the decode runs on
+    ``sharded_index.device``."""
+    require_no_mesh(mesh)
+    if not isinstance(sharded_index, ShardedTorchIndex):
+        raise TypeError(f"sharded_fm_index_generate: a ShardedTorchIndex, not "
+                        f"{type(sharded_index).__name__}")
+    return fm_index_generate(model_cfg, params, sharded_index, input_ids, attention_mask,
+                             **kwargs)

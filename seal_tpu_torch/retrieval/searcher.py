@@ -27,10 +27,14 @@ What changed in translation:
   T5 token constants (``retrieval.py:494-504``), and the model calls go
   through ``models/api.py:module_for`` with a ``T5Config`` (``models/t5.py``)
   as with a ``BartConfig``.
-* Not ported yet (``NotImplementedError`` naming the knob): ``index_shards``
-  > 1, ``jobs`` >= 2 (forked workers after CUDA init) and ``decode_code``,
-  at the first search.  ``load``, ``from_args`` and the CLIs wait for a
-  checkpoint loader without jax.
+* ``index_shards`` > 1: ``build_sharded`` or ``sharded_index=`` (a
+  ``ShardedTorchIndex`` with every shard on one card, ranked over a
+  ``UnionHostIndex``), as the JAX searcher's sharded serving mode; a
+  ``mesh`` (shards on several cards) raises ``NotImplementedError``.
+* Not ported yet (``NotImplementedError`` naming the knob): ``jobs`` >= 2
+  (forked workers after CUDA init) and ``decode_code``, at the first
+  search.  ``load`` (and so ``_load_sharded_manifest``), ``from_args`` and
+  the CLIs wait for a checkpoint loader without jax.
 """
 
 from __future__ import annotations
@@ -49,6 +53,13 @@ from seal_tpu_torch.index.wavelet import WaveletIndex
 from seal_tpu_torch.models import convert
 from seal_tpu_torch.models.config import BartConfig
 from seal_tpu_torch.models.t5 import T5Config
+from seal_tpu_torch.parallel.sharded_decode import sharded_fm_index_generate
+from seal_tpu_torch.parallel.sharded_index import (
+    ShardedTorchIndex,
+    UnionHostIndex,
+    require_no_mesh,
+    sharded_count_sequences,
+)
 from seal_tpu_torch.retrieval.document import SEALDocument
 from seal_tpu_torch.scoring import keys as rk
 from seal_tpu_torch.utils.profiling import PhaseTimer, ServingMetrics
@@ -57,9 +68,8 @@ from seal_tpu_torch.utils.profiling import PhaseTimer, ServingMetrics
 DEBUG = False
 
 # knobs of the JAX searcher whose modes are not ported, and when they ask
-# for one
+# for one (``index_shards`` > 1 is ported: it needs a sharded index)
 UNPORTED = {
-    "index_shards": lambda v: (v or 0) > 1,
     "jobs": lambda v: v >= 2,
     "decode_code": bool,
 }
@@ -132,9 +142,12 @@ class SEALSearcher:
         title_params=None,
         code_params=None,
         device_index: Optional[Union[TorchFMIndex, WaveletIndex]] = None,
+        sharded_index: Optional[ShardedTorchIndex] = None,  # serving mode over shards
+        mesh=None,
         device=None,  # where the index goes; default: the device of ``params``
         **kwargs,
     ):
+        require_no_mesh(mesh)
         self.fm_index = fm_index
         self.tokenizer = tokenizer
         self.model_cfg = model_cfg
@@ -152,7 +165,14 @@ class SEALSearcher:
         self.title_params = _cast(title_params) if title_params is not None else self.params
         self.code_params = _cast(code_params) if code_params is not None else self.params
         self.set_params(kwargs)
-        if device_index is None:
+        self.sharded_index = sharded_index
+        self.mesh = mesh
+        if self.index_shards > 1 and sharded_index is None:
+            raise ValueError(
+                "index_shards>1 requires the sharded build path: use "
+                "SEALSearcher.load(..., index_shards=N) or build_sharded()"
+            )
+        if device_index is None and sharded_index is None:
             device = params["shared"].device if device is None else device
             if self.compact_index or self.hybrid_index:
                 # capacity mode: ~3.0 B/token wavelet-tree layout; hybrid
@@ -164,7 +184,7 @@ class SEALSearcher:
             else:
                 device_index = TorchFMIndex.from_host(fm_index, vocab=model_cfg.vocab_size,
                                                       device=device)
-        self.device_index = device_index
+        self.device_index = device_index  # None in the sharded mode
         self.docid2idx = (
             {k: i for i, k in enumerate(fm_index.labels)} if fm_index.labels else {}
         )
@@ -228,10 +248,38 @@ class SEALSearcher:
                 "(use seal_tpu for these modes)"
             )
 
+    @classmethod
+    def build_sharded(
+        cls,
+        docs: Sequence[Sequence[int]],
+        labels: Sequence[str],
+        tokenizer,
+        model_cfg: Union[BartConfig, T5Config],
+        params,
+        n_shards: int,
+        mesh=None,
+        **kwargs,
+    ) -> "SEALSearcher":
+        """Serving mode with the FM-index split into ``n_shards`` shards, all
+        on the device of ``params`` (or ``device=``): generation runs the
+        sharded decoder, ranking runs against the union host view."""
+        require_no_mesh(mesh)
+        device = kwargs.pop("device", None)
+        device = params["shared"].device if device is None else device
+        si, hosts, assignments = ShardedTorchIndex.build(
+            docs, n_shards=n_shards, vocab=model_cfg.vocab_size, labels=labels, device=device
+        )
+        union = UnionHostIndex(hosts, assignments, labels=labels)
+        return cls(union, tokenizer, model_cfg, params, sharded_index=si, **kwargs)
+
     # ---------------------------------------------------------- key generation
 
     def _generate(self, params, toks, **kw):
         with self.phase_timer.phase("decode"):
+            if self.sharded_index is not None:
+                return sharded_fm_index_generate(
+                    self.model_cfg, params, self.sharded_index, self.mesh, toks, **kw
+                )
             return fm_index_generate(self.model_cfg, params, self.device_index, toks, **kw)
 
     def _rescore_keys(self, *args, **kw):
@@ -245,14 +293,16 @@ class SEALSearcher:
     # ------------------------------------------------- batched index queries
 
     def _device_ranges(self, seqs: Sequence[Sequence[int]]):
-        """get_range for many keys in one call: the host's native batch when
-        the host index has psi (sub-ms, no device round trip), else the
-        device index's sequence kernel (kernel 5 on the Psi layout, kernel
-        12 on the wavelet layouts)."""
+        """get_range for many keys in one call: over a sharded index, (0,
+        count) surrogate ranges of the summed shard counts (kernel 5's shard
+        count mode); else the host's native batch when the host index has
+        psi (sub-ms, no device round trip), else the device index's sequence
+        kernel (kernel 5 on the Psi layout, kernel 12 on the wavelet
+        layouts)."""
         seqs = list(seqs)
         if not seqs:
             return []
-        if getattr(self.fm_index, "psi", None) is not None:
+        if self.sharded_index is None and getattr(self.fm_index, "psi", None) is not None:
             return self.fm_index.get_ranges_batch(seqs)
         L = max(len(s) for s in seqs)
         toks = np.zeros((len(seqs), L), np.int32)
@@ -260,6 +310,10 @@ class SEALSearcher:
         for i, s in enumerate(seqs):
             toks[i, : len(s)] = s
             lens[i] = len(s)
+        if self.sharded_index is not None:
+            counts = sharded_count_sequences(self.sharded_index, self.mesh, toks, lens)
+            # only the difference of a surrogate range is meaningful
+            return [(0, c) for c in counts.cpu().tolist()]
         lo, hi = index_ops(self.device_index).range_for_sequences(self.device_index, toks, lens)
         return list(zip(lo.cpu().tolist(), hi.cpu().tolist()))
 

@@ -1,7 +1,9 @@
 """The port's copies of ``seal_tpu``'s host modules against the originals:
 ``FMIndex`` (every array, the query API, the on-disk format both ways), the
 suffix array (native and numpy routes), every method of the native helper
-library, ``SEALDocument``, ``PhaseTimer`` and ``ServingMetrics``.  All
+library, ``SEALDocument``, ``PhaseTimer`` and ``ServingMetrics``, and the
+sharded index's host helpers (``round_robin_assignments``, ``shard_path``,
+``save_shard_manifest``, ``load_sharded_hosts``, ``UnionHostIndex``).  All
 outputs must be identical."""
 
 import copy
@@ -12,6 +14,7 @@ import pytest
 from seal_tpu.cpp import native as jnative
 from seal_tpu.index import suffix_array as jsa
 from seal_tpu.index.fm_index import FMIndex as JFMIndex
+from seal_tpu.parallel import sharded_index as jsi
 from seal_tpu.retrieval.document import SEALDocument as JDoc
 from seal_tpu.scoring import keys as jk
 from seal_tpu.utils import profiling as jprof
@@ -19,6 +22,7 @@ from seal_tpu_torch.cpp import native as tnative
 from seal_tpu_torch.index import suffix_array as tsa
 from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.index.fm_index import FMIndex as TFMIndex
+from seal_tpu_torch.parallel import sharded_index as tsi
 from seal_tpu_torch.retrieval.document import SEALDocument as TDoc
 from seal_tpu_torch.utils import profiling as tprof
 
@@ -258,3 +262,67 @@ def test_phase_timer_and_serving_metrics_equal(monkeypatch):
         monkeypatch.undo()
     assert out[0] == out[2] and out[1] == out[3]
     assert out[0][4]["queries"] == 32 and out[0][4]["phase_decode_s"] == 0.5
+
+
+@pytest.mark.parametrize("n_docs,n_shards", [(0, 3), (7, 1), (24, 8), (25, 4)])
+def test_shard_assignment_equal(n_docs, n_shards):
+    assert tsi.round_robin_assignments(n_docs, n_shards) == \
+        jsi.round_robin_assignments(n_docs, n_shards)
+    assert tsi.shard_path("a/b", n_shards) == jsi.shard_path("a/b", n_shards)
+
+
+def test_shard_manifest_and_hosts_load_equal(tmp_path):
+    """A shard-wise build (per-shard ``FMIndex.save`` + the manifest) loads
+    to the same hosts, assignments and labels in both packages; each
+    package's manifest is byte-identical, and a wrong one is refused alike."""
+    docs = _docs(3, n_docs=22)
+    labels = [f"doc{i}" for i in range(len(docs))]
+    assign = tsi.round_robin_assignments(len(docs), 4)
+    for s, ids in enumerate(assign):
+        _build(TFMIndex, [docs[i] for i in ids], "memory").save(
+            tsi.shard_path(str(tmp_path / "t"), s))
+    for pkg, base in ((tsi, "t"), (jsi, "j")):
+        pkg.save_shard_manifest(str(tmp_path / base), 4, len(docs))
+    assert (tmp_path / "t.manifest.json").read_bytes() == \
+        (tmp_path / "j.manifest.json").read_bytes()
+    t_hosts, t_assign, t_labels = tsi.load_sharded_hosts(str(tmp_path / "t"))
+    j_hosts, j_assign, j_labels = jsi.load_sharded_hosts(str(tmp_path / "t"))
+    assert t_assign == j_assign == assign
+    # _build labels each shard's documents doc0.. locally; the global labels
+    # come from the manifest's assignment
+    assert t_labels == j_labels
+    for a, b in zip(t_hosts, j_hosts):
+        _assert_same_index(a, b)
+    tsi.save_shard_manifest(str(tmp_path / "t"), 4, len(docs) + 1)
+    for pkg in (tsi, jsi):
+        with pytest.raises(ValueError, match="manifest says"):
+            pkg.load_sharded_hosts(str(tmp_path / "t"))
+
+
+def test_union_host_index_equal():
+    """``UnionHostIndex`` over the same shards: counts, token counts,
+    occurrences in the canonical order (capped too), documents."""
+    docs = _docs(4, n_docs=30)
+    labels = [f"d{i}" for i in range(len(docs))]
+    assign = tsi.round_robin_assignments(len(docs), 3)
+    hosts = [_build(TFMIndex, [docs[i] for i in ids], "memory") for ids in assign]
+    t = tsi.UnionHostIndex(hosts, assign, labels=labels)
+    j = jsi.UnionHostIndex(hosts, assign, labels=labels)
+    assert (len(t), t.n_docs, t.n_sentinels, t.labels, t.beginnings) == \
+        (len(j), j.n_docs, j.n_sentinels, j.labels, j.beginnings)
+    np.testing.assert_array_equal(t.offsets, j.offsets)
+    rng = np.random.default_rng(0)
+    for _ in range(25):
+        d = docs[int(rng.integers(len(docs)))]
+        i = int(rng.integers(0, len(d) - 1))
+        pat = d[i : i + int(rng.integers(1, 3))]
+        assert t.get_count(pat) == j.get_count(pat) and t.get_range(pat) == j.get_range(pat)
+        for cap in (100, 2):
+            for a, b in zip(t.occurrences(pat, cap), j.occurrences(pat, cap)):
+                np.testing.assert_array_equal(a, b)
+    assert t.occurrences([99, 98], 5)[0].size == j.occurrences([99, 98], 5)[0].size == 0
+    for tok in range(0, 62):
+        assert t.token_count(tok) == j.token_count(tok)
+    for g in range(len(docs)):
+        assert t.get_doc(g) == j.get_doc(g) == docs[g]
+        assert t.get_doc_length(g) == j.get_doc_length(g)

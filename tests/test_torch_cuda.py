@@ -38,6 +38,7 @@ from seal_tpu_torch.kernels import (
 )
 from seal_tpu_torch.models import bart, t5
 from seal_tpu_torch.models.config import bart_tiny
+from seal_tpu_torch.parallel import sharded_decode, sharded_index
 
 pytestmark = pytest.mark.cuda
 
@@ -1133,3 +1134,146 @@ def test_diverse_searcher_on_card_matches_cpu(cuda):
     for a, b in zip(cpu, gpu):
         assert [d.docid for d in b] == [d.docid for d in a]
         np.testing.assert_allclose([d.score for d in b], [d.score for d in a], rtol=1e-4)
+
+
+# ------------------------------------------------------ the sharded index
+
+
+def _sharded(S, device):
+    """A Zipf corpus split round-robin into S shards (their alphabets differ),
+    and per-shard ranges [S, 6, 8]: prefixes of each shard's text, its full
+    range, an empty one and one into the padded rows."""
+    rng = np.random.default_rng(S)
+    toks = (rng.zipf(1.2, size=6000) % 28 + 4).astype(np.int64)
+    docs = [d.tolist() + [2] for d in np.array_split(toks, 120)]
+    docs[3] = docs[3][:-1] + [39, 38, 2]
+    si, hosts, _ = sharded_index.ShardedTorchIndex.build(docs, S, 40, device=device)
+    B, K = 6, 8
+    los, his = [], []
+    for s_, h in enumerate(hosts):
+        v = si.block_view(s_)
+        first = torch.as_tensor(rng.choice(h.text[:-1] - 1, size=(2, B, K)).astype(np.int32),
+                                device=device)
+        flo = torch.zeros((B, K), dtype=torch.int32, device=device)
+        fhi = torch.full((B, K), h.size(), dtype=torch.int32, device=device)
+        lo1, hi1 = fm_search.backward_step_plain(v, first[0], flo, fhi)
+        lo2, hi2 = fm_search.backward_step_plain(v, first[1], lo1, hi1)
+        lo, hi = torch.where(torch.arange(K, device=device) % 2 == 0, lo1, lo2), \
+            torch.where(torch.arange(K, device=device) % 2 == 0, hi1, hi2)
+        lo[0, :3] = torch.tensor([0, 5, max(h.size() - 3, 0)], dtype=torch.int32)
+        hi[0, :3] = torch.tensor([h.size(), 5, si.n_max], dtype=torch.int32)
+        los.append(lo)
+        his.append(hi)
+    return si, hosts, torch.stack(los), torch.stack(his)
+
+
+@pytest.mark.parametrize("S", [1, 4, 8])
+def test_shard_modes_match_plain(cuda, S):
+    """Kernels 1, 2, 5, 6 and 15 in their shard modes: one launch a call
+    whatever S, each equal to its plain version (every shard's plain
+    result, then the OR, sum or concatenation), padded rows included."""
+    si, hosts, lo, hi = _sharded(S, cuda)
+    g = torch.Generator(device=cuda).manual_seed(S)
+    V = si.vocab
+    B, K = lo.shape[1:]
+    ext = torch.randint(-1, V + 2, (B, K), generator=g, device=cuda, dtype=torch.int32)
+    cand = torch.randint(-1, V + 2, (B, K, 9), generator=g, device=cuda, dtype=torch.int32)
+    n0 = fm_search.fm_search_sharded.launches
+    for mode, toks in (("backward_step", ext), ("contains", cand), ("validate", cand)):
+        _same(_as_tuple(fm_search.fm_search_sharded(si, mode, toks, lo, hi)),
+              _as_tuple(fm_search.fm_search_sharded_plain(si, mode, toks, lo, hi)))
+    assert fm_search.fm_search_sharded.launches == n0 + 3
+    lp = torch.log_softmax(torch.randn(B * K, V, generator=g, device=cuda), -1)
+    for w, fill in ((4, 1), (16, 0)):
+        n0 = window_gather.window_gather_sharded.launches
+        got = window_gather.window_gather_sharded(si, lo, hi, w, lp, fill)
+        assert window_gather.window_gather_sharded.launches == n0 + 1
+        assert got[0].shape == (B, K, S * w)
+        _same(got, window_gather.window_gather_sharded_plain(si, lo, hi, w, lp, fill))
+    n0 = bucket_counts.bucket_counts_sharded.launches
+    _same((bucket_counts.bucket_counts_sharded(si, lo, hi),),
+          (bucket_counts.bucket_counts_sharded_plain(si, lo, hi),))
+    assert bucket_counts.bucket_counts_sharded.launches == n0 + 1
+    want = fm_search.dense_counts_sharded_plain(si, lo, hi, 16)
+    for hist_max in (fm_search.HIST_MAX_ROWS, 0, 7):
+        _same((fm_search.fm_dense_counts_sharded(si, lo, hi, hist_max=hist_max),), (want,))
+    rng = np.random.default_rng(S)
+    seqs = torch.as_tensor(rng.integers(0, V + 2, size=(50, 6)).astype(np.int32), device=cuda)
+    text = hosts[0].text[:-1] - 1
+    for i in range(25):  # corpus n-grams of the first shard
+        seqs[i] = torch.as_tensor(text[i * 7 : i * 7 + 6][::-1].copy())
+    lens = torch.as_tensor(rng.integers(0, 7, size=50).astype(np.int32), device=cuda)
+    n0 = fm_search.fm_sequences_sharded.launches
+    _same(fm_search.fm_sequences_sharded(si, seqs, lens),
+          fm_search.sequences_sharded_plain(si, seqs, lens))
+    count = fm_search.fm_sequences_sharded(si, seqs, lens, count=True)
+    assert fm_search.fm_sequences_sharded.launches == n0 + 2
+    _same((count,), (fm_search.sequences_sharded_plain(si, seqs, lens, count=True),))
+    host_counts = [sum(h.get_count(seqs[i, : lens[i]].tolist()) for h in hosts)
+                   for i in range(50)]
+    assert count.tolist() == host_counts and sum(c > 0 for c in host_counts) >= 25
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("ties,keep_invalid", [(False, False), (True, False), (False, True)])
+def test_beam_select_large_route_matches_plain(cuda, ties, keep_invalid):
+    """Kernel 8's large-n route at beam 32 over a 4-shard union window
+    (18,496 candidates a query): two launches, equal to ``beam_select_plain``
+    and to the route's two-stage specification bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(int(ties) + 2 * int(keep_invalid))
+    B, K, V = 8, 32, 3000
+    n_buf, w = 2 * K, 4 * 128
+    lp = _lp(g, B * K, V, cuda)
+
+    def take(tok):
+        return torch.gather(lp, 1, tok.reshape(B * K, -1).long()).reshape(tok.shape)
+
+    btok = torch.randint(0, 400, (B, K, n_buf), generator=g, device=cuda, dtype=torch.int32)
+    win_valid = torch.rand(B, K, w, generator=g, device=cuda) < 0.6
+    win_tok = torch.where(win_valid, torch.randint(0, 400, (B, K, w), generator=g, device=cuda,
+                                                   dtype=torch.int32), 1)
+    bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
+    bs[0, 1] = tc.NEG_INF
+    bs[1, :] = bs[1, 0]
+    args = ((btok, take(btok), torch.rand(B, K, n_buf, generator=g, device=cuda) < 0.7), n_buf,
+            win_tok, win_valid, take(win_tok),
+            (torch.rand(B, K, 3, generator=g, device=cuda) < 0.5)[..., 2:], lp,
+            torch.randint(0, 6, (B, K), generator=g, device=cuda, dtype=torch.int32),
+            torch.rand(B, K, generator=g, device=cuda) < 0.2, bs,
+            torch.rand(B, K, generator=g, device=cuda) < 0.5,
+            torch.round(torch.randn(B, K, generator=g, device=cuda)) - 4)
+    kw = dict(K=K, eos=2, pad=1, stop_at_count=0, always_allow_eos=False, ties=ties,
+              keep_invalid=keep_invalid)
+    n0 = beam_select.LARGE.launches
+    got, bad = beam_select.beam_select(*args, **kw)
+    assert beam_select.LARGE.launches == n0 + 1
+    want, wbad = beam_select.beam_select_plain(*args, **kw)
+    _same(got + (bad,), want + (wbad,))
+    spec, sbad = beam_select.beam_select_large_plain(*args, **kw)
+    _same(spec + (sbad,), want + (wbad,))
+
+
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("mode", ["fast", "force_full", "exact_mask", "beam32"])
+def test_sharded_generate_on_card_matches_cpu(cuda, S, mode):
+    """The sharded decoder on the card equals its CPU path (tiny BART, f32):
+    hypotheses, scores within 1e-4."""
+    si_cpu, hosts, _, _ = _sharded(S, "cpu")
+    si = sharded_index.ShardedTorchIndex.from_hosts(hosts, 40, device=cuda)
+    cfg = bart_tiny(vocab_size=40)
+    params = bart.init_params(cfg, seed=1, device="cpu")
+    queries = [[0, 5, 7, 9, 11, 2], [0, 6, 6, 8, 2], [0, 12, 4, 2]]
+    kw = dict(num_beams=32 if mode == "beam32" else 4, max_length=5, min_length=1,
+              forced_bos_token_id=None, force_full=mode == "force_full",
+              exact_mask=mode == "exact_mask", window=128 if mode == "beam32" else 4)
+    want = sharded_decode.sharded_fm_index_generate(cfg, params, si_cpu, None, queries, **kw)
+    got = sharded_decode.sharded_fm_index_generate(cfg, _to(params, cuda), si, None, queries,
+                                                   **kw)
+    for a, b in zip(want, got):
+        ka, kb = sorted((tuple(t), sc) for sc, t in a), sorted((tuple(t), sc) for sc, t in b)
+        assert [t for t, _ in ka] == [t for t, _ in kb]
+        np.testing.assert_allclose([sc for _, sc in kb], [sc for _, sc in ka], atol=1e-4)
+

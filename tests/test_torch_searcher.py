@@ -194,9 +194,18 @@ def test_unported_knobs_raise(searchers, knob):
     """Each knob not ported yet raises at construction, and when flipped
     after it, at the next search; a T5 backbone is ported (its searcher is
     held to JAX's in ``test_torch_t5_generate.py``) and raises only for
-    such a knob, which is then flipped on a T5 searcher."""
-    _, ts = searchers
+    such a knob, which is then flipped on a T5 searcher.  ``index_shards``
+    > 1 is ported (``tests/test_torch_sharded_generate.py``): without a
+    sharded index both packages raise JAX's ``ValueError`` at construction,
+    on a BART and on a T5 searcher."""
+    js, ts = searchers
     name, value = next(iter(knob.items()))
+    if name == "index_shards":
+        for cls, s in ((JSearcher, js), (TSearcher, ts)):
+            with pytest.raises(ValueError, match="index_shards>1 requires the sharded build path"):
+                cls(s.fm_index, s.tokenizer, s.model_cfg, s.params,
+                    device_index=s.device_index, **dict(KNOBS, **knob))
+        return
     with pytest.raises(NotImplementedError, match=name):
         TSearcher(ts.fm_index, ts.tokenizer, ts.model_cfg, ts.params,
                   device_index=ts.device_index, **dict(KNOBS, **knob))
