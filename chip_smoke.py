@@ -20,7 +20,9 @@
    PyTorch versions at the main path's shapes, on the card, and times both
    beside each kernel's bound and, where one PyTorch call computes the same
    function, that call (``torch.topk``, ``torch.log_softmax``,
-   ``scaled_dot_product_attention``); runs the port on the card against
+   ``scaled_dot_product_attention``); kernel 3 also at every call site's
+   shape and k (the ``row_topk sites:`` line: bit-equal to its plain
+   version, beside ``torch.topk`` at the same k and its bound); runs the port on the card against
    its plain CPU path on a small input (over each index layout); checks
    the bf16 LM head's f32 result.
 6. Builds the compact and hybrid wavelet indexes of the same corpus
@@ -71,7 +73,8 @@
    path); one ``free_generation`` searcher unit at the e2e point and the
    tiny searcher's; ``locate_rows`` / ``doc_index_of`` (kernel 18) on every
    occurrence row of one unit's keys (at most ``max_hits`` each) of a
-   ``keep_sa`` index, against their plain versions and the host index.
+   ``keep_sa`` index, against their plain versions and the host index;
+   the search timed beside ``torch.searchsorted`` eager and graph-replayed.
    Kernels 18-19 and the new modes of 4 and 8 against their plain versions,
    kernel 19 also at k = 64 beside kernel 3.
 10. Drives constrained sampling (``sample``: kernel 20 every step, the V-wide
@@ -412,6 +415,34 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    """Device time of one call of ``fn``: ``launches`` calls captured in one
+    CUDA graph, replayed ``replays`` times, timed with CUDA events (no host
+    launch cost in the loop)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
 def log_kernel(row) -> None:
     """One kernel line, with its bound (the least time the card could take:
     the bytes it must move at the HBM rate, or its flops at the f32 rate,
@@ -440,7 +471,8 @@ def log_kernel(row) -> None:
                                                "cross_plain_ms", "cross_tol_ratio",
                                                "cross_f32_ms", "cross_f32_plain_ms",
                                                "cross_f32_tol_ratio", "f32_tol_ratio",
-                                               "extend_ms", "ranges_ms", "spec_plain_ms")
+                                               "extend_ms", "ranges_ms", "spec_plain_ms",
+                                               "graph_ms", "library_graph_ms")
                   if k in row))
 
 
@@ -525,12 +557,13 @@ def kernel_phases(np, torch, host, index, V, B, K):
             err3 = max(err3, float((gi != wi).sum()), 1.0)
     if err3:
         fail(f"row_topk differs from its plain version ({err3} index mismatches)")
+    sites = row_topk_sites(torch, k3, lp, lpq, B, K, V, g)
     table.append(dict(
         name="row_topk", max_abs_err=err3,
         ms=time_ms(lambda: k3.row_topk(lp, 64)),
         plain_ms=time_ms(lambda: k3.row_topk_plain(lp, 64)),
         shape=f"[{B * K},{V}] k=64", bytes=lp.numel() * 4 + B * K * 64 * 12,
-        library_ms=time_ms(lambda: torch.topk(lp, 64)),
+        library_ms=time_ms(lambda: torch.topk(lp, 64)), sites=sites,
     ))
 
     # kernel 4: log-softmax with the EOS ban over f32 logits
@@ -551,6 +584,53 @@ def kernel_phases(np, torch, host, index, V, B, K):
     ))
     torch.cuda.synchronize()
     return table
+
+
+def row_topk_sites(torch, k3, lp, lpq, B, K, V, g):
+    """Kernel 3 at every call site's shape (``decoding/constrained.py``):
+    the proven loop's rounds on [B*K, V] log-probs at k = 64 and 256
+    (sampling: 512, 2048), step 0's [B, V] scores at 2K, the dense mode's
+    [B, K*V] rows at 2K and free generation's [B, K*256] rows at 2K; each
+    bit-equal to the plain version (also on the tied rows ``lpq``), timed
+    beside ``torch.topk`` at the same k and its bound (one read of the rows,
+    the k values and indices written), eager (host launch cost included:
+    it dominates the small calls) and graph-replayed (device time)."""
+    from seal_tpu_torch.decoding.constrained import NEG_INF
+
+    bs = torch.round(torch.randn(B, K, generator=g, device=lp.device) * 2) / 2 - 3
+    step0 = lp[:B] + bs[:, :1]
+    dense = torch.full((B, K * V), NEG_INF, device=lp.device)
+    allowed = torch.rand(B, K * V, generator=g, device=lp.device) < 0.02
+    scores = (lp[: B * K].reshape(B, K, V) + bs[..., None]).reshape(B, K * V)
+    dense = torch.where(allowed, scores, dense)
+    free = (torch.topk(lp[: B * K], 256).values.reshape(B, K, 256) + bs[..., None]).reshape(B, -1)
+    rows = [("round 0", lp, 64), ("later rounds", lp, 256), ("sampling round 0", lp, 512),
+            ("sampling later rounds", lp, 2048), ("step 0", step0, 2 * K),
+            ("dense", dense, 2 * K), ("free", free, 2 * K)]
+    out, cells, bad = [], [], 0
+    for label, x, k in rows:
+        for xx in ((x, lpq) if x is lp else (x,)):
+            gv, gi = k3.row_topk(xx, k)
+            wv, wi = k3.row_topk_plain(xx, k)
+            if not (torch.equal(gi, wi) and torch.equal(gv.view(torch.int32), wv.view(torch.int32))):
+                bad += 1
+        r, n = x.shape
+        row = dict(site=label, shape=f"[{r},{n}]", k=k, plan=k3.plan(r, n, k).splits,
+                   ms=time_ms(lambda: k3.row_topk(x, k)),
+                   library_ms=time_ms(lambda: torch.topk(x, k)),
+                   graph_ms=graph_ms(lambda: k3.row_topk(x, k)),
+                   library_graph_ms=graph_ms(lambda: torch.topk(x, k)),
+                   bound_ms=(x.numel() * 4 + r * k * 12) / HBM_BYTES_PER_S * 1e3)
+        out.append(row)
+        cells.append(f"{label} [{r},{n}] k={k} ({row['plan']} CTAs a row) {row['ms']:.4f} ms "
+                     f"(graph {row['graph_ms']:.4f}), torch.topk {row['library_ms']:.4f} (graph "
+                     f"{row['library_graph_ms']:.4f}), bound {row['bound_ms']:.4f}")
+    if bad:
+        fail(f"row_topk differs from its plain version at {bad} call-site shapes")
+    k64 = out[0]["ms"]
+    log(f"row_topk sites ({CARD}): " + "; ".join(cells) + f"; bit-equal to the plain version: "
+        f"{not bad}; k=2048 / k=64 time {out[3]['ms'] / k64:.2f}x")
+    return out
 
 
 def mismatches(torch, got, want) -> int:
@@ -1648,16 +1728,32 @@ def locate_phase(np, torch, searcher, unit, zero_counts, read_counts):
         f"{len(pick)} sampled rows equal the host's locate / get_doc_index")
     beg = six.beginnings
     shape = f"{n} rows of {len(keys)} keys"
+    # the search beside torch.searchsorted (same int32 output, one call),
+    # eager back to back (host launch cost included) and graph-replayed
+    # (device time alone), in turns
+    kern = lambda: k18.doc_index_of(beg, pos)  # noqa: E731
+    lib = lambda: torch.searchsorted(beg, pos, right=True, out_int32=True)  # noqa: E731
+    eager = {"kernel": [], "library": []}
+    graphed = {"kernel": [], "library": []}
+    for name in ("kernel", "library", "library", "kernel"):
+        fn = kern if name == "kernel" else lib
+        eager[name].append(time_ms(fn, iters=200))
+        graphed[name].append(graph_ms(fn))
+    log(f"doc_index_of search ({CARD}), {n} positions over {beg.numel()} beginnings, in turns "
+        f"(kernel, searchsorted, searchsorted, kernel): eager {eager['kernel'][0]:.4f} "
+        f"{eager['library'][0]:.4f} {eager['library'][1]:.4f} {eager['kernel'][1]:.4f} ms; "
+        f"graph-replayed {graphed['kernel'][0]:.4f} {graphed['library'][0]:.4f} "
+        f"{graphed['library'][1]:.4f} {graphed['kernel'][1]:.4f} ms")
     return [
         dict(name="locate_rows", max_abs_err=err, library_ms=None, shape=shape,
              ms=time_ms(lambda: k18.locate_rows(six.sa, rows)),
              plain_ms=time_ms(lambda: k18.locate_rows_plain(six.sa, rows)),
              bytes=n * 12),  # a row in, its sa word, a position out
         dict(name="doc_index_of", max_abs_err=err, shape=f"{n} positions over {beg.numel()} "
-             "beginnings", ms=time_ms(lambda: k18.doc_index_of(beg, pos)),
+             "beginnings", ms=min(eager["kernel"]),
              plain_ms=time_ms(lambda: k18.doc_index_of_plain(beg, pos)),
-             library_ms=time_ms(lambda: torch.searchsorted(beg, pos, right=True)),
-             bytes=n * 8 + beg.numel() * 4),
+             library_ms=min(eager["library"]), graph_ms=min(graphed["kernel"]),
+             library_graph_ms=min(graphed["library"]), bytes=n * 8 + beg.numel() * 4),
     ]
 
 
@@ -3227,9 +3323,11 @@ def main() -> int:
         p = bench_generate.profile_batch(
             lambda extra=extra: generate.fm_index_generate(cfg, params, index, ids, mask, **kw,
                                                            **extra))
+        k3_ms = sum(r["ms"] for r in p["top"] if "row_topk" in r["name"])
         log(f"{name} profiled batch (psi): {p['kernels']} kernels, device busy "
             f"{p['device_busy_ms']:.2f} ms of {p['wall_ms']:.2f} ms wall "
-            f"({100 * p['busy_share']:.1f}%)")
+            f"({100 * p['busy_share']:.1f}%); kernel 3 {k3_ms:.2f} ms = "
+            f"{100 * k3_ms / p['device_busy_ms']:.1f}% of the busy time")
         for row in p["top"][:8]:
             log(f"  {row['ms']:8.3f} ms {row['calls']:6d} calls  {row['name']}")
     sd_table = sample_kernel_phases(np, torch, cfg, V, B, K, generate.resolve_window(0, K))
@@ -3499,7 +3597,8 @@ def main() -> int:
                                    "wide_ms", "sample_ms", "spec_ms", "bf16_ms", "cross_ms",
                                    "f32_tol_ratio", "cross_tol_ratio", "cross_f32_ms",
                                    "cross_f32_tol_ratio", "extend_ms", "ranges_ms",
-                                   "histogram_route_ms")
+                                   "histogram_route_ms", "sites", "graph_ms",
+                                   "library_graph_ms")
                if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}

@@ -30,7 +30,7 @@ SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu", "bucket_counts.cu"
            "wt_window.cu", "wt_bucket_counts.cu", "dense_scores.cu", "locate.cu",
            "row_select.cu", "sample_select.cu", "diverse_select.cu")
 # included by the wt_*.cu sources, by fm_search.cu and wt_search.cu, and by
-# beam_select.cu and diverse_select.cu
+# beam_select.cu, diverse_select.cu and row_topk.cu
 HEADERS = ("wt_common.cuh", "dense_counts.cuh", "select_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -74,8 +74,9 @@ SIGNATURES = {
     # bwt, n_max, n_shards, lp, lp_stride, lo, hi, n, w, vocab, fill, tok,
     # valid, lp_out, stream
     "seal_window_gather_sharded": [_P, _L, _I, _P, _L, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
-    # x, n_rows, width, k, vals, idx, stream
-    "seal_row_topk": [_P, _L, _I, _I, _P, _P, _P],
+    # x, n_rows, width, k, threads, splits, slice, staged, cap, n2, region,
+    # smem (kernels/row_topk.py:plan), vals, idx, stream
+    "seal_row_topk": [_P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # bwt, bucket_occ, lo, hi, out, n, n_rows, bucket_rows, bucket_size,
     # n_buckets, stream
     "seal_bucket_counts": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
@@ -153,6 +154,7 @@ SIGNATURES = {
 SIZE_QUERIES = {"seal_beam_merge_smem": [_I, _I], "seal_beam_select_smem": [_I, _I, _I, _I],
                 "seal_beam_select_large_smem": [_I, _I, _I, _I, _I],
                 "seal_decode_attention_smem": [_I, _I, _I], "seal_row_select_max_k": [],
+                "seal_row_topk_max_k": [], "seal_row_topk_bins_bytes": [],
                 "seal_diverse_chunks": [_I], "seal_diverse_smem": [_I, _I, _I]}
 
 # shared memory one block may opt into on Hopper (the wrappers refuse shapes
@@ -221,6 +223,8 @@ def build() -> str:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
             so = ctypes.CDLL(build())
@@ -243,5 +247,8 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    """The current CUDA stream of ``t``'s device, as an int for ctypes."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as an int for ctypes: the
+    raw handle ``torch.cuda.current_stream(t.device).cuda_stream`` names (a
+    side stream's, or the capturing stream's under ``torch.cuda.graph``),
+    read without building a ``Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -1,110 +1,607 @@
 // Kernel 3: exact row top-k with lax.top_k's order (value descending,
-// index ascending on ties).
+// index ascending on ties), by a split-row radix select.
 //
 // Replaces seal_tpu/decoding/constrained.py: _exact_topk and every
 // lax.top_k of the decode path (_top_idx, the proposal loop, step 0).
 // torch.topk does not specify its tie order, and the decoder's token and
 // parent equality depends on it.  The order is f32's total order (+0.0
-// above -0.0), as lax.top_k's is.
+// above -0.0), as lax.top_k's is: each element maps to a 32-bit key whose
+// unsigned order is that order, so the selected values are the row's bit
+// for bit and the kernel equals the plain version
+// (kernels/row_topk.py:row_topk_plain) exactly.
 //
-// Design: one block per row.  The row is staged in shared memory (a
-// 50265-wide f32 row is 201 KB, under the 227 KB a block may opt into;
-// wider rows keep their tail in device memory and stay exact).  Each
-// element maps to a 64-bit key, (monotone float bits << 32) | ~index, so
-// the largest key is the best (value, index) pair and keys are unique.
-// Each thread keeps the best key of its strided slice; pass p takes the
-// block maximum of those, and only the thread that owned the winner
-// rescans its slice for its best key below the winner.  The row is never
-// modified and k passes cost k block reductions plus k slice rescans.
+// Bound on the card: one read of the rows from device memory (0.0288 ms at
+// [480, 50265] f32 at 3.35 TB/s).  The work does not grow with k, apart
+// from the sort of the k survivors.
 //
-// Bound on the card: the k block-wide reductions (two barriers each); the
-// row is read from device memory once.  A radix select is later work.
+// Design.  A row is split into `splits` contiguous slices, one CTA each,
+// and the CTAs of a row form a thread-block cluster (up to 16).  The
+// wrapper's plan() keeps a row in one CTA where it fits in shared memory
+// and the rows fill the card, and splits it where it does not fit or where
+// 32 rows would leave the SMs idle.  Each CTA stages its slice's keys in
+// shared memory with 16-byte loads (a scalar head and tail: a 50265-wide
+// row is only 4-byte aligned), so the row is read from device memory once;
+// a slice past the shared memory keeps its tail in device memory (below).
+// Three radix passes find the k-th largest key T, 11, 11 and 10 bits, most
+// significant first: each CTA histograms the digit of the keys that match
+// the digits found so far in shared memory (one atomic a lane, or one a
+// warp whose keys share a digit: an all -inf, NEG_INF or plateau row), a
+// warp with no such key skips the histogram, and the CTAs of a cluster add
+// their nonzero bins into the leader CTA's bins of that pass through
+// distributed shared memory.  After one cluster barrier every CTA scans the
+// leader's bins (a block-wide scan, 2048 bins) for the bin where the count
+// from the top reaches the rank: one barrier a pass, each pass with its
+// own bins so that none is cleared while another CTA reads it.
+// After the passes each CTA knows T, the number `rank` of keys equal to T
+// that the top k takes, and from the other CTAs' last histograms the count
+// of keys equal to T in the slices before its own: slices are index ranges
+// in rank order, so that prefix gives each CTA its share of the equal keys,
+// lowest index first.  Each CTA appends its keys above T, and its share of
+// those equal to T (a block-wide ballot scan in index order, only in a CTA
+// whose share is partial), as (key << 32 | ~index) words into the leader's
+// buffer.  The leader places each word by the number of words above it
+// (k <= 512), or bitonic-sorts them (strides inside a thread in registers,
+// inside a warp by shuffles, wider ones in shared memory), and writes them
+// out.
+//
+// A slice longer than the shared memory (rows wider than 16 slices hold,
+// e.g. a beam-32 dense row) reads its tail twice: pass 1 histograms it,
+// pass 2 histograms it again and compacts its keys at or above the first
+// threshold digit into a shared candidate list (at most `cap` words; the
+// CTA knows the count from its pass-1 histogram), from which pass 3 and
+// the output read.  Where the list would overflow (a row whose threshold
+// bucket holds most of the slice: all -inf, all NEG_INF, a plateau), those
+// steps re-read the tail instead: bounded and exact.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "select_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int MAX_STAGED = 56 * 1024;  // floats staged in shared memory
+constexpr int MAX_WARPS = 32;  // of a 1024-thread CTA (512 or 1024 threads)
+constexpr int NB = 2048;        // bins of an 11-bit digit
+constexpr int UNROLL = 4;       // 16-byte loads in flight a thread while staging
+constexpr int RANK_MAX = 512;   // k up to which the output is placed by rank, not sorted
+constexpr unsigned FULL = 0xffffffffu;
+// the bins: the cluster's totals of the three passes (2048, 2048, 1024)
+// and this CTA's histogram
+constexpr int TOT1 = NB, TOT2 = 2 * NB, HIST = 2 * NB + NB / 2;
+constexpr int BINS_BYTES = 4 * (HIST + NB);  // 28 KB
 
-__device__ __forceinline__ unsigned long long pack(float v, int i) {
+struct Threshold {
+  unsigned prefix, rank;
+};
+
+__device__ __forceinline__ unsigned order_key(float v) {
   const unsigned u = __float_as_uint(v);
-  const unsigned mono = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)mono << 32) | (unsigned long long)(~(unsigned)i);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
+__device__ __forceinline__ u64 word(unsigned key, long long i) {
+  return ((u64)key << 32) | (u64)(~(unsigned)i);
+}
+
+// The cluster barrier, split so that a CTA can work between its arrival
+// and its wait; a cluster of one CTA takes the block barrier.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void sync_cluster(int C) {
+  if (C == 1) {
+    __syncthreads();
+  } else {
+    cluster_arrive();
+    cluster_wait();
+  }
+}
+
+// Count `digit` (< 0: no key) in the shared histogram.  Every lane of the
+// warp calls it.  A warp whose keys share one digit (a -inf or NEG_INF
+// row, a plateau) adds them in one atomic; otherwise each lane adds its
+// own (log-prob rows spread a warp over several bins, and a match of equal
+// digits costs more than the few collisions).
+__device__ __forceinline__ void hist_add(unsigned* hist, int digit, int lane) {
+  const int d0 = __shfl_sync(FULL, digit, 0);
+  if (__all_sync(FULL, digit == d0)) {
+    if (lane == 0 && d0 >= 0) atomicAdd(&hist[d0], 32u);
+  } else if (digit >= 0) {
+    atomicAdd(&hist[digit], 1u);
+  }
+}
+
+// Append the taking lanes' words to the leader's buffer (warp-aggregated
+// remote atomics).  Every lane of the warp calls it.
+__device__ __forceinline__ void append(u64* buf0, unsigned* fill0, bool take, unsigned key,
+                                       long long i, int lane) {
+  const unsigned ball = __ballot_sync(FULL, take);
+  if (!ball) return;
+  unsigned base = 0;
+  if (lane == 0) base = atomicAdd(fill0, (unsigned)__popc(ball));
+  base = __shfl_sync(FULL, base, 0);
+  if (take) buf0[base + __popc(ball & ((1u << lane) - 1u))] = word(key, i);
+}
+
+// Every thread of a CTA: the bin of the cluster's totals `tot` (nb bins, in
+// the leader's shared memory) where the count from the top reaches `rank`,
+// into `out`.  Thread t reads the nb / THREADS bins below
+// nb - t * nb / THREADS, and a block-wide scan of their sums finds the
+// thread whose bins hold the rank.
+template <int THREADS>
+__device__ void find_bin(const unsigned* tot, int nb, int shift, unsigned prefix, unsigned rank,
+                         unsigned* warp_sum, Threshold* out) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = nb / THREADS;  // 1, 2 or 4
+  const int top = nb - 1 - per * tid;
+  unsigned c[4] = {0, 0, 0, 0};  // this thread's bins, the highest first
+  if (per == 4) {
+    const uint4 v = *(const uint4*)(tot + top - 3);
+    c[0] = v.w, c[1] = v.z, c[2] = v.y, c[3] = v.x;
+  } else if (per == 2) {
+    const uint2 v = *(const uint2*)(tot + top - 1);
+    c[0] = v.y, c[1] = v.x;
+  } else {
+    c[0] = tot[top];
+  }
+  const unsigned sum = c[0] + c[1] + c[2] + c[3];
+  unsigned incl = sum;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o > v ? o : v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned t = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += t;
   }
-  return v;
-}
-
-template <int THREADS>
-__global__ void __launch_bounds__(THREADS)
-row_topk_kernel(const float* __restrict__ x, int width, int k, int staged,
-                float* __restrict__ vals, long long* __restrict__ idx) {
-  extern __shared__ float sx[];
-  __shared__ unsigned long long warp_best[THREADS / 32];
-  __shared__ unsigned long long winner;
-  const float* xr = x + (long long)blockIdx.x * width;
-  for (int i = threadIdx.x; i < staged; i += THREADS) sx[i] = xr[i];
+  if (lane == 31) warp_sum[warp] = incl;
   __syncthreads();
+  unsigned acc = incl - sum;
+  for (int w = 0; w < warp; ++w) acc += warp_sum[w];
+  if (acc < rank && rank <= acc + sum) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (acc + c[j] >= rank) {
+        out->prefix = prefix | ((unsigned)(top - j) << shift);
+        out->rank = rank - acc;
+        break;
+      }
+      acc += c[j];
+    }
+  }
+  __syncthreads();
+}
 
-  // best key of this thread's slice strictly below `below`
-  auto slice_best = [&](unsigned long long below) {
-    unsigned long long best = 0;
-    for (int i = threadIdx.x; i < width; i += THREADS) {
-      const float v = i < staged ? sx[i] : __ldg(xr + i);
-      const unsigned long long key = pack(v, i);
-      if (key < below && key > best) best = key;
+// Descending bitonic sort of n2 (a power of two, >= 32 E) unique words in
+// shared memory; padding words are 0 and sort last.  The first n2 / E
+// threads (whole warps) hold E consecutive words each in registers: strides
+// below E compare within a thread, strides below 32 E across the lanes of
+// a warp, and only wider strides go through shared memory.
+template <int E>
+__device__ void sort_words(u64* w, int n2) {
+  const int t = threadIdx.x;
+  const bool on = t < n2 / E;
+  u64 r[E];
+  __syncthreads();  // the caller's writes
+  if (on) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) r[e] = w[t * E + e];
+  }
+  for (int size = 2; size <= n2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 32 * E) {
+        __syncthreads();
+        if (on) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) w[t * E + e] = r[e];
+        }
+        __syncthreads();
+      }
+      if (!on) continue;
+      if (stride < E) {
+        // s runs over the compile-time strides, so r stays in registers
+#pragma unroll
+        for (int s = E / 2; s > 0; s >>= 1) {
+          if (s != stride) continue;
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            if ((e & s) == 0) {
+              const bool desc = ((t * E + e) & size) == 0;
+              const u64 a = r[e], b = r[e + s];
+              if (desc ? a < b : a > b) {
+                r[e] = b;
+                r[e + s] = a;
+              }
+            }
+          }
+        }
+      } else {
+        const int lm = stride / E;  // the partner's lane (or thread) offset
+        const bool lower = (t & lm) == 0;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int i = t * E + e;
+          const u64 p = stride < 32 * E ? __shfl_xor_sync(FULL, r[e], lm) : w[i ^ stride];
+          const bool keep_max = lower == ((i & size) == 0);
+          r[e] = keep_max ? (p > r[e] ? p : r[e]) : (p < r[e] ? p : r[e]);
+        }
+      }
     }
-    return best;
-  };
+  }
+  __syncthreads();
+  if (on) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) w[t * E + e] = r[e];
+  }
+  __syncthreads();
+}
 
-  unsigned long long best = slice_best(~0ull);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int p = 0; p < k; ++p) {
-    unsigned long long v = warp_max(best);
-    if (lane == 0) warp_best[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-      v = lane < THREADS / 32 ? warp_best[lane] : 0ull;
-      v = warp_max(v);
-      if (lane == 0) winner = v;
+// E words a thread: up to 4 a thread, then 8; a wider buffer (k past
+// 8 * THREADS / 2) sorts in shared memory.  (k <= RANK_MAX places each
+// survivor by its rank instead.)
+template <int THREADS>
+__device__ void sort_survivors(u64* w, int n2) {
+  if (n2 <= 4 * THREADS) return sort_words<4>(w, n2);
+  if (n2 <= 8 * THREADS) return sort_words<8>(w, n2);
+  sort_desc<false>(w, nullptr, n2);
+}
+
+// x [rows, width]; CTA c of a row's cluster owns [c * slice, +slice) and
+// stages its first `staged` keys.  Dynamic shared memory: the bins
+// (BINS_BYTES; the leader's output buffer of n2 words reuses the first two
+// passes' totals, or follows the bins where n2 > 2048), then the staged
+// keys (rounded up to 4) from byte `region`, then `cap` candidates.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, 1024 / THREADS)
+row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int staged, int cap,
+                int n2, int region, float* __restrict__ vals, long long* __restrict__ idx) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Threshold s_res;
+  __shared__ unsigned s_fill, s_ncand, s_red, s_take;
+  __shared__ unsigned warp_tot[MAX_WARPS];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  const bool leader = c == 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long row = blockIdx.x / C;
+
+  unsigned* bins = (unsigned*)smem;
+  unsigned* hist = bins + HIST;
+  u64* buf = (u64*)(8 * n2 <= 4 * TOT2 ? smem : smem + BINS_BYTES);
+  unsigned* skey = (unsigned*)(smem + region);
+  u64* scand = (u64*)(skey + ((staged + 3) & ~3));
+  unsigned* bins0 = cluster.map_shared_rank(bins, 0);
+  u64* buf0 = cluster.map_shared_rank(buf, 0);
+  unsigned* fill0 = cluster.map_shared_rank(&s_fill, 0);
+
+  const long long s0 = (long long)c * slice;
+  const int L = (int)max(0LL, min((long long)width, s0 + slice) - s0);
+  const int S = min(L, staged);  // keys staged in shared memory
+  const float* xr = x + row * width + s0;
+
+  {
+    uint4* z = (uint4*)(leader ? bins : hist);
+    const int n4 = (leader ? HIST + NB : NB) / 4;
+    for (int b = tid; b < n4; b += THREADS) z[b] = make_uint4(0, 0, 0, 0);
+  }
+  if (tid == 0) {
+    s_fill = 0;
+    s_ncand = 0;
+  }
+  __syncthreads();
+  // arrive now, wait after the first histogram: the leader's totals are
+  // zero, and every CTA has started, before the first remote access
+  if (C > 1) cluster_arrive();
+
+  bool cand_ok = false;  // the tail's candidates are in scand
+  unsigned prefix = 0, mask = 0, rank = (unsigned)k;
+  for (int pass = 0; pass < 3; ++pass) {
+    const int shift = pass == 0 ? 21 : pass == 1 ? 10 : 0;
+    const int nb = pass == 2 ? NB / 2 : NB;
+    const unsigned dmask = (unsigned)nb - 1u;
+    if (pass > 0) {
+      for (int b = tid; b < nb; b += THREADS) hist[b] = 0;
+      __syncthreads();
+    }
+    if (pass == 0) {
+      // stage the slice: scalar head to 16-byte alignment and scalar
+      // remainder in one round, then UNROLL float4 loads a thread a round
+      int h = (int)(((16 - ((unsigned long long)xr & 15)) & 15) >> 2);
+      h = min(h, S);
+      const int nvec = (S - h) >> 2;
+      const int rem = S - h - 4 * nvec;
+      {
+        const int e = tid < h ? tid : (tid < h + rem ? h + 4 * nvec + (tid - h) : -1);
+        int digit = -1;
+        if (e >= 0) {
+          const unsigned key = order_key(__ldg(xr + e));
+          skey[e] = key;
+          digit = (int)(key >> 21);
+        }
+        hist_add(hist, digit, lane);
+      }
+      const float4* xv = (const float4*)(xr + h);
+      for (int base = 0; base < nvec; base += THREADS * UNROLL) {
+        float4 v[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int q = base + u * THREADS + tid;
+          v[u] = q < nvec ? __ldg(xv + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int q = base + u * THREADS + tid;
+          const bool ok = q < nvec;
+          const float f[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            int digit = -1;
+            if (ok) {
+              const unsigned key = order_key(f[t]);
+              skey[h + 4 * q + t] = key;
+              digit = (int)(key >> 21);
+            }
+            hist_add(hist, digit, lane);
+          }
+        }
+      }
+    } else {
+      // the staged keys, four a thread
+      const uint4* sk4 = (const uint4*)skey;
+      const int nq = (S + 3) >> 2;
+      for (int base = 0; base < nq; base += THREADS) {
+        const int q = base + tid;
+        uint4 kk = make_uint4(0, 0, 0, 0);
+        if (q < nq) kk = sk4[q];
+        const unsigned ks[4] = {kk.x, kk.y, kk.z, kk.w};
+        bool ok[4], any = false;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          ok[t] = q < nq && 4 * q + t < S && (ks[t] & mask) == prefix;
+          any |= ok[t];
+        }
+        if (!__any_sync(FULL, any)) continue;  // most warps: no key in the bucket
+#pragma unroll
+        for (int t = 0; t < 4; ++t) hist_add(hist, ok[t] ? (int)((ks[t] >> shift) & dmask) : -1, lane);
+      }
+    }
+    // the tail past the staged keys: from device memory, or the candidates
+    if (pass == 2 && cand_ok) {
+      const int n = (int)s_ncand;
+      for (int base = 0; base < n; base += THREADS) {
+        const int j = base + tid;
+        const unsigned key = j < n ? (unsigned)(scand[j] >> 32) : 0u;
+        const bool ok = j < n && (key & mask) == prefix;
+        hist_add(hist, ok ? (int)((key >> shift) & dmask) : -1, lane);
+      }
+    } else {
+      for (int base = S; base < L; base += THREADS) {
+        const int i = base + tid;
+        const unsigned key = i < L ? order_key(__ldg(xr + i)) : 0u;
+        const bool ok = i < L && (key & mask) == prefix;
+        hist_add(hist, ok ? (int)((key >> shift) & dmask) : -1, lane);
+        if (pass == 1 && cand_ok) {
+          // keys at or above the first threshold digit: the candidates
+          const bool keep = i < L && (key & 0xffe00000u) >= (prefix & 0xffe00000u);
+          const unsigned ball = __ballot_sync(FULL, keep);
+          if (ball) {
+            unsigned at = 0;
+            if (lane == 0) at = atomicAdd(&s_ncand, (unsigned)__popc(ball));
+            at = __shfl_sync(FULL, at, 0);
+            if (keep) scand[at + __popc(ball & ((1u << lane) - 1u))] = word(key, s0 + i);
+          }
+        }
+      }
     }
     __syncthreads();
-    const unsigned long long w = winner;
-    if (best == w) {
-      // this thread owned the pick: write it, then refill from its slice
-      const int i = (int)(~(unsigned)(w & 0xffffffffull));
-      vals[(long long)blockIdx.x * k + p] = i < staged ? sx[i] : __ldg(xr + i);
-      idx[(long long)blockIdx.x * k + p] = i;
-      best = slice_best(w);
+    // the cluster's totals in the leader: this pass's own bins (a cluster
+    // of one reads its histogram)
+    const int tot_at = pass == 0 ? 0 : pass == 1 ? TOT1 : TOT2;
+    const unsigned* tot = hist;
+    if (C > 1) {
+      if (pass == 0) cluster_wait();
+      for (int b = tid; b < nb; b += THREADS) {
+        const unsigned v = hist[b];
+        if (v) atomicAdd(bins0 + tot_at + b, v);
+      }
+      sync_cluster(C);
+      tot = bins0 + tot_at;
     }
+    find_bin<THREADS>(tot, nb, shift, prefix, rank, warp_tot, &s_res);
+    prefix = s_res.prefix;
+    rank = s_res.rank;
+    mask |= dmask << shift;
+    if (pass == 0 && S < L) {
+      // the candidates fit if this slice's keys at or above the first
+      // threshold digit do
+      if (tid == 0) s_red = 0;
+      __syncthreads();
+      unsigned n = 0;
+      for (int b = (int)(prefix >> 21) + tid; b < NB; b += THREADS) n += hist[b];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) n += __shfl_xor_sync(FULL, n, off);
+      if (lane == 0 && n) atomicAdd(&s_red, n);
+      __syncthreads();
+      cand_ok = s_red <= (unsigned)cap;
+    }
+    __syncthreads();  // s_res and the histogram are read before they change
+  }
+  // prefix is T; the top k holds every key above it and the first `rank`
+  // of the keys equal to it, in index order over the slices: this CTA's
+  // share follows the counts of the CTAs before it (their last histograms)
+  const unsigned T = prefix;
+  const unsigned my_eq = hist[T & 1023u];
+  if (tid == 0) {
+    long long before = 0;
+    for (int r = 0; r < c; ++r) before += cluster.map_shared_rank(hist, r)[T & 1023u];
+    const long long t = (long long)rank - before;
+    s_take = (unsigned)(t < 0 ? 0 : (t > (long long)my_eq ? (long long)my_eq : t));
+  }
+  __syncthreads();
+  const unsigned take_eq = s_take;
+
+  if (take_eq == 0 || take_eq == my_eq) {
+    const bool all_eq = take_eq != 0;
+    const uint4* sk4 = (const uint4*)skey;
+    const int nq = (S + 3) >> 2;
+    for (int base = 0; base < nq; base += THREADS) {
+      const int q = base + tid;
+      uint4 kk = make_uint4(0, 0, 0, 0);
+      if (q < nq) kk = sk4[q];
+      const unsigned ks[4] = {kk.x, kk.y, kk.z, kk.w};
+      bool take[4], any = false;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        take[t] = q < nq && 4 * q + t < S && (ks[t] > T || (all_eq && ks[t] == T));
+        any |= take[t];
+      }
+      if (!__any_sync(FULL, any)) continue;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) append(buf0, fill0, take[t], ks[t], s0 + 4 * q + t, lane);
+    }
+    if (cand_ok) {
+      const int n = (int)s_ncand;
+      for (int base = 0; base < n; base += THREADS) {
+        const int j = base + tid;
+        const u64 w = j < n ? scand[j] : 0ull;
+        const unsigned key = (unsigned)(w >> 32);
+        const bool take = j < n && (key > T || (all_eq && key == T));
+        append(buf0, fill0, take, key, key_slot(w), lane);
+      }
+    } else {
+      for (int base = S; base < L; base += THREADS) {
+        const int i = base + tid;
+        const unsigned key = i < L ? order_key(__ldg(xr + i)) : 0u;
+        append(buf0, fill0, i < L && (key > T || (all_eq && key == T)), key, s0 + i, lane);
+      }
+    }
+  } else {
+    // a partial share of the equal keys: the first take_eq in index order
+    unsigned seen = 0;
+    for (int base = 0; base < L; base += THREADS) {
+      const int i = base + tid;
+      unsigned key = 0;
+      if (i < L) key = i < S ? skey[i] : order_key(__ldg(xr + i));
+      const bool is_eq = i < L && key == T;
+      const unsigned ball = __ballot_sync(FULL, is_eq);
+      if (lane == 0) warp_tot[warp] = __popc(ball);
+      __syncthreads();
+      unsigned before = seen + __popc(ball & ((1u << lane) - 1u)), chunk = 0;
+      for (int w = 0; w < THREADS / 32; ++w) {
+        if (w < warp) before += warp_tot[w];
+        chunk += warp_tot[w];
+      }
+      __syncthreads();
+      seen += chunk;
+      append(buf0, fill0, i < L && (key > T || (is_eq && before < take_eq)), key, s0 + i, lane);
+    }
+  }
+  // every survivor is in the leader's buffer, and no CTA reads another's
+  // histogram any more
+  sync_cluster(C);
+  if (!leader) return;
+  if (k <= RANK_MAX) {
+    // each survivor's place is the number of survivors above it (words are
+    // unique): k read passes over the buffer, cheaper than a sort at small k
+    if (tid < k) {
+      const u64 wi = buf[tid];
+      int above = 0;
+#pragma unroll 4
+      for (int j = 0; j < k; ++j) above += buf[j] > wi;
+      vals[row * k + above] = key_value(wi);
+      idx[row * k + above] = (long long)key_slot(wi);
+    }
+    return;
+  }
+  for (int j = k + tid; j < n2; j += THREADS) buf[j] = 0ull;
+  sort_survivors<THREADS>(buf, n2);
+  for (int j = tid; j < k; j += THREADS) {
+    const u64 w = buf[j];
+    vals[row * k + j] = key_value(w);
+    idx[row * k + j] = (long long)key_slot(w);
   }
 }
 
 template <int THREADS>
-int launch(const float* x, long long n_rows, int width, int k, float* vals, long long* idx,
+int launch(const float* x, long long n_rows, int width, int k, int splits, int slice, int staged,
+           int cap, int n2, int region, int smem, float* vals, long long* idx,
            cudaStream_t stream) {
-  const int staged = width < MAX_STAGED ? width : MAX_STAGED;
-  const size_t smem = (size_t)staged * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(row_topk_kernel<THREADS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kernel = row_topk_kernel<THREADS>;
+  // the kernel's attributes, set once a device (the host path is part of a
+  // small call's time): the shared memory opted into so far, all of the
+  // SM's 228 KB as shared memory so that several CTAs fit, and clusters of
+  // 16
+  constexpr int MAX_DEVICES = 64;
+  static int smem_set[MAX_DEVICES], wide_set[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  row_topk_kernel<THREADS><<<(unsigned)n_rows, THREADS, smem, stream>>>(x, width, k, staged, vals,
-                                                                         idx);
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = smem;
+  }
+  if (splits > 8 && !wide_set[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    wide_set[dev] = 1;
+  }
+  if (splits == 1) {
+    // a cluster of one CTA: a plain launch (cudaLaunchKernelEx with a
+    // cluster attribute costs the host more)
+    kernel<<<(unsigned)n_rows, THREADS, smem, stream>>>(x, width, k, slice, staged, cap, n2,
+                                                        region, vals, idx);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n_rows * splits));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, width, k, slice, staged, cap, n2, region, vals, idx);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int seal_row_topk(const float* x, long long n_rows, int width, int k, float* vals,
-                             long long* idx, void* stream) {
-  if (n_rows <= 0 || k <= 0) return (int)cudaGetLastError();
-  if (width <= 4096) return launch<128>(x, n_rows, width, k, vals, idx, (cudaStream_t)stream);
-  return launch<1024>(x, n_rows, width, k, vals, idx, (cudaStream_t)stream);
+extern "C" {
+
+// Largest k: the leader's sort buffer of 16384 words (128 KB).
+long long seal_row_topk_max_k() { return 16384; }
+
+// Bytes of bins before the staged keys (kernels/row_topk.py:plan's region):
+// the leader's output buffer reuses them where n2 <= 2048.
+long long seal_row_topk_bins_bytes() { return BINS_BYTES; }
+
+// One launch: n_rows clusters of `splits` CTAs of `threads` (512 or 1024)
+// threads (kernels/row_topk.py:plan gives the layout).
+int seal_row_topk(const float* x, long long n_rows, int width, int k, int threads, int splits,
+                  int slice, int staged, int cap, int n2, int region, int smem, float* vals,
+                  long long* idx, void* stream) {
+  if (n_rows <= 0) return (int)cudaGetLastError();
+  if (splits < 1 || splits > 16 || k > seal_row_topk_max_k() || (threads != 512 && threads != 1024))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (threads == 1024)
+    return launch<1024>(x, n_rows, width, k, splits, slice, staged, cap, n2, region, smem, vals,
+                        idx, s);
+  return launch<512>(x, n_rows, width, k, splits, slice, staged, cap, n2, region, smem, vals, idx,
+                     s);
 }
+
+}  // extern "C"

@@ -5,12 +5,16 @@ Replaces ``seal_tpu/ops/fm_ops.py:locate_rows`` (:322) and
 ``doc_index_of`` (:330).  One launch per call; integer outputs, so the
 kernel equals the plain version exactly.  The plain search is
 ``torch.searchsorted(..., right=True) - 1``, also the search mode's
-library yardstick.
+library yardstick.  The search is two-level (``csrc/locate.cu``): a
+sample of every 8th beginning (a wider stride past 32k documents) in shared
+memory, then one block of at most 32 beginnings.
 """
 
 from __future__ import annotations
 
 import torch
+
+_FN = _STREAM = None  # the C entry point and build.stream_ptr, looked up once
 
 
 def locate_rows_plain(sa, rows):
@@ -23,15 +27,25 @@ def doc_index_of_plain(beginnings, positions):
 
 
 def _launch(table, x, search: int, name: str):
-    from seal_tpu_torch.kernels import build
-
-    if table.dtype != torch.int32 or x.dtype != torch.int32 or not table.is_cuda:
+    """One launch; the host path is kept short (kernel 18 runs near the
+    launch floor): the C function is looked up once, and a contiguous
+    tensor is not copied."""
+    global _FN, _STREAM
+    if x.dtype is not torch.int32 or table.dtype is not torch.int32 or not table.is_cuda:
         raise ValueError(f"{name}: CUDA int32 tensors required, got {table.dtype} / {x.dtype}")
-    table, xc = table.contiguous(), x.contiguous()
-    out = torch.empty_like(xc)
-    rc = build.lib().seal_locate(table.data_ptr(), table.shape[0], xc.data_ptr(), xc.numel(),
-                                 search, out.data_ptr(), build.stream_ptr(xc))
-    build.check(rc, name)
+    if _FN is None:
+        from seal_tpu_torch.kernels import build
+
+        _FN, _STREAM = build.lib().seal_locate, build.stream_ptr
+    if not table.is_contiguous():
+        table = table.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    out = torch.empty_like(x)
+    rc = _FN(table.data_ptr(), table.shape[0], x.data_ptr(), x.numel(), search, out.data_ptr(),
+             _STREAM(x))
+    if rc:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
     return out
 
 

@@ -7,13 +7,97 @@ loop :736, step-0 selection).  ``torch.topk`` leaves its tie order
 unspecified, so it cannot stand in.  The order is lax.top_k's: f32's total
 order (so +0.0 ranks above -0.0), ties to the lower index.  The plain
 version is a stable descending sort of the order's integer key; the kernel
-equals it exactly.  Bound by k block-wide reductions per row; see the
-source.
+equals it exactly.  The kernel is a split-row radix select whose work
+does not grow with k (see the source); :func:`plan` lays a call out.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
+
+MAX_SPLITS = 16  # CTAs a row: a thread-block cluster, 16 non-portable
+MAX_K = 16384  # the leader CTA's sort buffer of 128 KB (seal_row_topk_max_k)
+FILL_CTAS = 128  # about one CTA per SM of an H100 (132 SMs)
+MIN_SLICE = 4096  # no split for the card's sake below this many keys a CTA
+WIDE_SLICE = 16384  # a slice of this many keys takes 1024 threads, a shorter one 512
+CAND_CAP = 8192  # candidates a CTA holds on the streamed route (64 KB)
+SMEM_BUDGET = 227 * 1024 - 1024  # Hopper's 227 KB a block, less the static part
+_FN = _STREAM = None  # the C entry point and build.stream_ptr, looked up once
+BINS_BYTES = 28 * 1024  # three passes' cluster totals and a histogram (seal_row_topk_bins_bytes)
+
+
+class Plan(NamedTuple):
+    """A call's launch: ``splits`` CTAs of ``threads`` threads a row (one
+    cluster) over slices of ``slice`` keys, ``staged`` of them in shared
+    memory (the rest streamed from device memory, with ``cap`` candidates),
+    a sort buffer of ``n2`` words after (or in) a ``region`` of bins, and
+    ``smem`` dynamic bytes a CTA."""
+
+    route: str  # "staged": a slice in shared memory; "streamed": its tail not
+    threads: int
+    splits: int
+    slice: int
+    staged: int
+    cap: int
+    n2: int
+    region: int
+    smem: int
+    ctas: int
+
+    @property
+    def launch(self) -> tuple:
+        """The C entry point's layout arguments, in its order."""
+        return (self.threads, self.splits, self.slice, self.staged, self.cap, self.n2,
+                self.region, self.smem)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(rows: int, width: int, k: int, splits: int | None = None,
+         staged: int | None = None, cap: int = CAND_CAP) -> Plan:
+    """The launch of kernel 3 for ``rows`` rows of ``width`` and top ``k``.
+
+    By default a row is one CTA, and the split doubles (up to 16 CTAs a
+    row) while the slice does not fit in shared memory, or while the card
+    has fewer than ``FILL_CTAS`` CTAs and the slices stay at least
+    ``MIN_SLICE`` keys.  A narrower row stays one CTA: its time is the
+    CTA's fixed cost, and each cluster barrier adds to it
+    (``python -m seal_tpu_torch.bench_row_topk`` times every call site at
+    every split).  ``splits``, ``staged`` and ``cap`` force a route
+    (tests and measurements).  Raises where k is past the sort buffer or a
+    forced layout past the card's shared memory.  Cached: the decode loop
+    asks for the same few shapes every step."""
+    if not 0 < k <= width:
+        raise ValueError(f"row_topk: k={k} for rows of width {width}")
+    if k > MAX_K:
+        raise ValueError(f"row_topk: k={k} exceeds {MAX_K}, the kernel's shared-memory sort buffer")
+    n2 = 1 << (k - 1).bit_length()
+    # the bins; the sort buffer reuses two passes' totals up to 2048 words
+    region = BINS_BYTES + (8 * n2 if n2 > 2048 else 0)
+    room = (SMEM_BUDGET - region) // 4  # keys a CTA can stage
+    if splits is None:
+        splits = 1
+        while splits < MAX_SPLITS and (
+                -(-width // splits) > room
+                or (rows * splits < FILL_CTAS and -(-width // (2 * splits)) >= MIN_SLICE)):
+            splits *= 2
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"row_topk: {splits} CTAs a row; a cluster holds 1 to {MAX_SPLITS}")
+    sl = -(-width // splits)
+    if staged is None:
+        staged = sl if sl <= room else (SMEM_BUDGET - region - 8 * cap) // 16 * 4
+    staged = min(staged, sl)
+    if staged == sl:
+        cap = 0
+    smem = region + 4 * (-(-staged // 4) * 4) + 8 * cap
+    if staged < 0 or smem > SMEM_BUDGET:
+        raise ValueError(f"row_topk: {smem} B of shared memory a CTA exceeds {SMEM_BUDGET} "
+                         f"(k={k}, width {width}, {splits} CTAs a row)")
+    route = "staged" if staged == sl else "streamed"
+    threads = 1024 if sl >= WIDE_SLICE else 512
+    return Plan(route, threads, splits, sl, staged, cap, n2, region, smem, rows * splits)
 
 
 def order_key(x):
@@ -27,32 +111,40 @@ def row_topk_plain(x, k: int):
     return torch.gather(x, -1, idx), idx
 
 
-def row_topk(x, k: int):
+def row_topk(x, k: int, layout: Plan | None = None):
     """Top ``k`` of each row of f32 ``x`` [..., n]: (values, int64 indices),
     ordered like ``lax.top_k``.  ``x`` must be NaN-free.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel, laid
+    out by :func:`plan`, or by ``layout``: a plan with a forced split or
+    route (tests and measurements).
     """
     n = x.shape[-1]
     if not 0 < k <= n:
         raise ValueError(f"row_topk: k={k} for rows of width {n}")
     if not x.is_cuda:
         return row_topk_plain(x, k)
-    from seal_tpu_torch.kernels import build
-
-    if x.dtype != torch.float32:
+    global _FN, _STREAM
+    if x.dtype is not torch.float32:
         raise ValueError(f"row_topk: f32 input required, got {x.dtype}")
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, n).contiguous()
+    if _FN is None:
+        from seal_tpu_torch.kernels import build
+
+        _FN, _STREAM = build.lib().seal_row_topk, build.stream_ptr
+    x2 = x if x.dim() == 2 else x.reshape(-1, n)
+    if not x2.is_contiguous():
+        x2 = x2.contiguous()
     rows = x2.shape[0]
+    p = plan(rows, n, k) if layout is None else layout
     vals = torch.empty((rows, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((rows, k), dtype=torch.int64, device=x.device)
-    rc = build.lib().seal_row_topk(
-        x2.data_ptr(), rows, n, k, vals.data_ptr(), idx.data_ptr(), build.stream_ptr(x)
-    )
-    build.check(rc, "row_topk")
+    rc = _FN(x2.data_ptr(), rows, n, k, *p.launch, vals.data_ptr(), idx.data_ptr(), _STREAM(x))
+    if rc:
+        raise RuntimeError(f"row_topk: CUDA error {rc}")
     row_topk.launches += 1
-    return vals.reshape(*lead, k), idx.reshape(*lead, k)
+    if x.dim() == 2:
+        return vals, idx
+    return vals.reshape(*x.shape[:-1], k), idx.reshape(*x.shape[:-1], k)
 
 
 row_topk.launches = 0

@@ -96,19 +96,87 @@ def test_window_gather_matches_plain(cuda):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("n,k", [(50265, 30), (50265, 64), (50265, 256), (960, 30), (158, 30),
-                                 (70000, 16)])
-def test_row_topk_matches_plain(cuda, n, k):
-    rng = np.random.default_rng(n)
-    x = np.round(rng.normal(0, 2, size=(6, n)), 1).astype(np.float32)  # ties, +-0.0
-    x[1] = -np.inf
-    x[2, : n // 3] = 7.5
-    x[3, n - 5 :] = 50.0
-    x = torch.as_tensor(x).cuda()
+def _topk_rows(rng, rows, n):
+    x = np.round(rng.normal(0, 2, size=(rows, n)), 1).astype(np.float32)  # ties, +-0.0
+    x[1 % rows] = -np.inf
+    x[2 % rows, : n // 3] = 7.5
+    x[3 % rows, n - 5 :] = 50.0
+    x[4 % rows] = np.float32(tc.NEG_INF)
+    x[4 % rows, ::7] = -1.0
+    return x
+
+
+@pytest.mark.parametrize("rows,n,k", [(6, 50265, 30), (6, 50265, 64), (6, 50265, 256),
+                                      (6, 960, 30), (6, 158, 30), (6, 70000, 16),
+                                      (6, 50265, 512), (6, 50265, 2048), (32, 753975, 30),
+                                      (480, 50265, 64), (40, 200000, 64), (6, 3840, 30),
+                                      (6, 300, 300), (2, 32 * 50265, 64)])
+def test_row_topk_matches_plain(cuda, rows, n, k):
+    """Kernel 3 at the call sites' shapes (a beam-32 dense row takes the
+    streamed route) on rows with ties, +-0.0, -inf, NEG_INF and a plateau;
+    bit for bit, one launch a call."""
+    x = torch.as_tensor(_topk_rows(np.random.default_rng(n + k), rows, n)).cuda()
+    n0 = row_topk.row_topk.launches
     gv, gi = row_topk.row_topk(x, k)
+    assert row_topk.row_topk.launches == n0 + 1
     wv, wi = row_topk.row_topk_plain(x, k)
     assert torch.equal(gi, wi)
     assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))  # bit-exact, signs too
+
+
+@pytest.mark.parametrize("splits,staged,cap", [(16, None, 0), (5, None, 0), (4, 300, 4096),
+                                               (4, 300, 16), (3, 0, 64)])
+def test_row_topk_forced_layouts(cuda, splits, staged, cap):
+    """Every route on small rows: 16 and 5 CTAs a row (the equal-key cut
+    across slices), the streamed tail with room for its candidates, with
+    too little (re-read), and with nothing staged."""
+    x = torch.as_tensor(_topk_rows(np.random.default_rng(splits), 8, 5000)).cuda()
+    for k in (1, 30, 700):
+        lay = row_topk.plan(8, 5000, k, splits=splits, staged=staged, cap=cap)
+        gv, gi = row_topk.row_topk(x, k, layout=lay)
+        wv, wi = row_topk.row_topk_plain(x, k)
+        assert torch.equal(gi, wi), (lay, k)
+        assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+
+
+def test_row_topk_limits_raise(cuda):
+    from seal_tpu_torch.kernels import build
+
+    assert build.lib().seal_row_topk_max_k() == row_topk.MAX_K
+    assert build.lib().seal_row_topk_bins_bytes() == row_topk.BINS_BYTES
+    x = torch.zeros(2, 20000, device=cuda)
+    n0 = row_topk.row_topk.launches
+    with pytest.raises(ValueError, match="16384"):
+        row_topk.row_topk(x, row_topk.MAX_K + 1)
+    with pytest.raises(ValueError, match="f32"):
+        row_topk.row_topk(x.double(), 3)
+    assert row_topk.row_topk.launches == n0
+
+
+def test_stream_ptr_is_current_stream(cuda):
+    """``build.stream_ptr`` names the current stream: the default one, a
+    side stream's, and the capturing stream's under ``torch.cuda.graph``,
+    where a kernel launched through it is captured and replays."""
+    from seal_tpu_torch.kernels import build
+
+    x = torch.zeros(4, device=cuda)
+    assert build.stream_ptr(x) == torch.cuda.current_stream(cuda).cuda_stream
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        assert build.stream_ptr(x) == side.cuda_stream == torch.cuda.current_stream().cuda_stream
+    beg = torch.arange(0, 4000, 7, dtype=torch.int32, device=cuda)
+    pos = torch.arange(-3, 4005, dtype=torch.int32, device=cuda)
+    out = locate.doc_index_of(beg, pos)
+    torch.cuda.synchronize()
+    graph, seen = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        seen.append((build.stream_ptr(x), torch.cuda.current_stream().cuda_stream))
+        out = locate.doc_index_of(beg, pos)
+    assert seen[0][0] == seen[0][1]
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, locate.doc_index_of_plain(beg, pos))
 
 
 def test_log_softmax_matches_plain(cuda):
@@ -772,9 +840,13 @@ def test_dense_and_tie_modes_on_card_match_cpu(cuda, layout):
 # threshold, and the decode modes on the card
 
 
-def test_locate_matches_plain(cuda):
+@pytest.mark.parametrize("n_beg", [None, 1, 33, 100000])
+def test_locate_matches_plain(cuda, n_beg):
     """Kernel 18 in both modes: rows in and out of range, positions at every
-    document's start and end and past the corpus; exactly equal."""
+    document's start and end and past the corpus; exactly equal.  Besides
+    the index's beginnings, 1, 33 and 100,000 (a sample stride of 32 that
+    does not divide them, and a wider one) with positions at, before and
+    after each beginning."""
     host = _zipf_host()
     t = TorchFMIndex.from_host(host, vocab=40, device=cuda, keep_sa=True)
     rng = np.random.default_rng(8)
@@ -784,11 +856,18 @@ def test_locate_matches_plain(cuda):
     n0 = (locate.locate_rows.launches, locate.doc_index_of.launches)
     got = locate.locate_rows(t.sa, rows)
     assert torch.equal(got, locate.locate_rows_plain(t.sa, rows))
-    begin = np.asarray(host.beginnings, np.int64)
-    pos = np.concatenate([rng.integers(-2, len(host) + 2, size=5000), begin, begin - 1])
+    if n_beg is None:
+        begin = np.asarray(host.beginnings, np.int64)
+        end = len(host)
+    else:
+        begin = np.cumsum(rng.integers(0, 40, size=n_beg)) + 5  # empty documents too
+        end = int(begin[-1]) + 30
+    pos = np.concatenate([rng.integers(-2, end + 2, size=5000), begin, begin - 1, begin + 1,
+                          [-(2**31), 2**31 - 1, 0]])
     pos = torch.as_tensor(pos.astype(np.int32)).cuda()
-    got = locate.doc_index_of(t.beginnings, pos)
-    assert torch.equal(got, locate.doc_index_of_plain(t.beginnings, pos))
+    beg = torch.as_tensor(begin.astype(np.int32)).cuda()
+    got = locate.doc_index_of(beg, pos)
+    assert torch.equal(got, locate.doc_index_of_plain(beg, pos))
     assert (locate.locate_rows.launches, locate.doc_index_of.launches) == (n0[0] + 1, n0[1] + 1)
 
 

@@ -270,6 +270,8 @@ def test_window_gather_plain_matches_jax_slots(pair, w, fill):
 
 def _tied_rows(rng, rows, n):
     x = np.round(rng.normal(0, 2, size=(rows, n)), 1).astype(np.float32)
+    if rows < 5:  # one row: random ties and signed zeros only
+        return x
     x[1] = -np.inf
     x[2, : n // 3] = 7.5  # plateau
     x[3, n - 5 :] = 50.0  # best values at the end
@@ -278,7 +280,14 @@ def _tied_rows(rng, rows, n):
     return x
 
 
-@pytest.mark.parametrize("rows,n,k", [(6, 50265, 64), (24, 960, 30), (8, 158, 30), (5, 300, 256)])
+# the call sites' (width, k) at few rows: the proven loop's rounds (64,
+# 256; sampling 512, 2048), free generation's [B, K * 256] rows, one dense
+# [B, K * V] row, and k equal to the width
+ROW_TOPK_CASES = [(6, 50265, 64), (24, 960, 30), (8, 158, 30), (5, 300, 256), (5, 50265, 512),
+                  (5, 50265, 2048), (6, 3840, 30), (1, 753975, 30), (5, 300, 300)]
+
+
+@pytest.mark.parametrize("rows,n,k", ROW_TOPK_CASES)
 def test_row_topk_plain_matches_lax_top_k(rows, n, k):
     x = _tied_rows(np.random.default_rng(n), rows, n)
     jv, ji = lax.top_k(jnp.asarray(x), k)
@@ -289,6 +298,111 @@ def test_row_topk_plain_matches_lax_top_k(rows, n, k):
     # leading dims fold like the JAX call sites' [B, K, n] operands
     tv3, ti3 = row_topk.row_topk(torch.as_tensor(x).reshape(1, rows, n), k)
     _eq(ji, ti3[0])
+
+
+def _order_keys(x):
+    u = x.view(np.uint32)
+    return np.where(u >> 31 == 1, ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _find_bin(tot, shift, prefix, rank, threads):
+    """The block-wide scan of ``csrc/row_topk.cu:find_bin``: thread t holds
+    the nb / threads bins below nb - t * nb / threads, counted from the top;
+    the thread whose bins reach the rank walks them."""
+    nb = tot.size
+    per = nb // threads
+    sums = tot[::-1].reshape(threads, per).sum(1)  # thread t: bins nb-1-per*t down
+    incl = np.cumsum(sums)
+    t = int(np.searchsorted(incl, rank))  # the first thread with incl >= rank
+    acc = int(incl[t]) - int(sums[t])
+    top = nb - 1 - per * t
+    for j in range(per):
+        c = int(tot[top - j])
+        if acc + c >= rank:
+            return prefix | ((top - j) << shift), rank - acc
+        acc += c
+    raise AssertionError("rank past the row")
+
+
+def _split_select_mirror(x, k, p):
+    """Kernel 3's algorithm in numpy: per CTA slice, the three digit passes
+    over the matching keys with the bins summed over the cluster, the
+    equal-key cut by a prefix of the CTAs' counts, and the leader's sort of
+    the (key << 32 | ~index) words."""
+    vals, idx = [], []
+    for row in x:
+        keys = _order_keys(row)
+        sl = [keys[c * p.slice:(c + 1) * p.slice] for c in range(p.splits)]
+        prefix, mask, rank = 0, 0, k
+        for shift, nb in ((21, 2048), (10, 2048), (0, 1024)):
+            hists = [np.bincount((s[(s & mask) == prefix] >> shift) & (nb - 1), minlength=nb)
+                     for s in sl]
+            prefix, rank = _find_bin(sum(hists), shift, prefix, rank, p.threads)
+            mask |= (nb - 1) << shift
+        eqs = [int(h[prefix & 1023]) for h in hists]
+        words, before = [], 0
+        for c, s in enumerate(sl):
+            take = min(max(rank - before, 0), eqs[c])
+            before += eqs[c]
+            eq = s == prefix
+            sel = (s > prefix) | (eq & (np.cumsum(eq) <= take))
+            i = np.nonzero(sel)[0] + c * p.slice
+            words.append((s[sel].astype(np.uint64) << np.uint64(32))
+                         | (~i.astype(np.uint64) & np.uint64(0xFFFFFFFF)))
+        w = np.sort(np.concatenate(words))[::-1]
+        assert w.size == k and len(np.unique(w)) == k
+        key = (w >> np.uint64(32)).astype(np.uint32)
+        u = np.where(key >> 31 == 1, key & np.uint32(0x7FFFFFFF), ~key).astype(np.uint32)
+        vals.append(u.view(np.float32))
+        idx.append((~w & np.uint64(0xFFFFFFFF)).astype(np.int64))
+    return np.stack(vals), np.stack(idx)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 5, 16])
+@pytest.mark.parametrize("rows,n,k", ROW_TOPK_CASES)
+def test_row_topk_split_mirror_matches_plain(rows, n, k, splits):
+    """The kernel's split-row radix select, rehearsed in numpy at its plan
+    and at forced splits, equals the plain version bit for bit."""
+    x = _tied_rows(np.random.default_rng(n), rows, n)
+    p = row_topk.plan(rows, n, k, splits=splits)
+    mv, mi = _split_select_mirror(x, k, p)
+    wv, wi = row_topk.row_topk_plain(torch.as_tensor(x), k)
+    np.testing.assert_array_equal(mi, wi.numpy())
+    np.testing.assert_array_equal(mv.view(np.int32), wv.numpy().view(np.int32))
+
+
+# (rows, width, k) of every call site at BART-large width, batch 32, beam 15
+CALL_SITES = [(480, 50265, 64), (480, 50265, 256), (480, 50265, 512), (480, 50265, 2048),
+              (32, 50265, 30), (32, 753975, 30), (32, 3840, 30), (480, 158, 30)]
+
+
+@pytest.mark.parametrize("rows,n,k", CALL_SITES)
+def test_row_topk_plan_fits_the_card(rows, n, k):
+    """Each call site's launch fits 227 KB a CTA, stages its slice (each key
+    read once), splits 32-row calls of wide rows into about one CTA an SM
+    (a row narrower than two ``MIN_SLICE`` slices stays one CTA), and
+    keeps the slices in the row."""
+    p = row_topk.plan(rows, n, k)
+    assert p.smem <= 227 * 1024 - 1024 and p.route == "staged"
+    assert p.n2 >= k and p.region >= row_topk.BINS_BYTES and 8 * p.n2 <= max(p.region, 16384)
+    assert 1 <= p.splits <= 16 and p.slice * p.splits >= n > p.slice * (p.splits - 1)
+    assert p.ctas >= row_topk.FILL_CTAS or rows >= row_topk.FILL_CTAS or n < 2 * row_topk.MIN_SLICE
+    assert p.threads in (512, 1024)
+
+
+def test_row_topk_plan_limits():
+    wide = row_topk.plan(32, 32 * 50265, 64)  # a beam-32 dense row
+    assert wide.route == "streamed" and wide.splits == 16 and wide.cap > 0
+    assert wide.smem <= 227 * 1024 - 1024
+    assert row_topk.plan(8, 50265, row_topk.MAX_K).smem <= 227 * 1024 - 1024
+    with pytest.raises(ValueError, match="16384"):
+        row_topk.plan(8, 50265, row_topk.MAX_K + 1)
+    with pytest.raises(ValueError, match="width"):
+        row_topk.plan(8, 10, 11)
+    with pytest.raises(ValueError, match="cluster"):
+        row_topk.plan(8, 5000, 30, splits=17)
+    with pytest.raises(ValueError, match="shared memory"):
+        row_topk.plan(8, 5000, 30, splits=1, staged=4000, cap=30000)
 
 
 @pytest.mark.parametrize("cur_len", [1, 3])

@@ -86,6 +86,67 @@ def test_locate_rows_and_doc_index_match_jax(seed):
     assert int(tfm.locate_rows(t, N + 5)) == int(jfm.locate_rows(jdev, jnp.int32(N + 5))) == -1
 
 
+SAMPLE_MAX = 4096  # beginnings a block of the search kernel stages (csrc/locate.cu)
+
+
+def _search_stride(n_beg):
+    """``seal_locate``'s sample stride: 8, doubled until the sample fits."""
+    stride = 8
+    while -(-n_beg // stride) > SAMPLE_MAX:
+        stride *= 2
+    return stride
+
+
+def _two_level_mirror(beg, pos, stride):
+    """Kernel 18's search (``csrc/locate.cu:search_kernel``) in Python: the
+    samples at or below x by binary search, the 32-entry block of the
+    segment by binary search, then a count inside that block."""
+    n = beg.size
+    samp = beg[::stride]
+    out = []
+    for x in pos:
+        lo, hi = 0, samp.size
+        while lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (mid + 1, hi) if samp[mid] <= x else (lo, mid)
+        if lo == 0:
+            out.append(-1)
+            continue
+        seg = (lo - 1) * stride
+        length = min(stride, n - seg)
+        b_lo, b_hi = 0, -(-length // 32)
+        while b_hi - b_lo > 1:
+            mid = (b_lo + b_hi) // 2
+            b_lo, b_hi = (mid, b_hi) if beg[seg + 32 * mid] <= x else (b_lo, mid)
+        base = seg + 32 * b_lo
+        m = min(32, length - 32 * b_lo)
+        out.append(base + int((beg[base:base + m] <= x).sum()) - 1)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("n_docs,stride", [(1, None), (31, None), (32, None), (33, None),
+                                           (1000, None), (200001, None), (1000, 64), (70, 32),
+                                           (70, 16), (5000, 8)])
+def test_doc_index_two_level_mirror(n_docs, stride):
+    """The search kernel's two levels against ``np.searchsorted`` and the
+    plain version: positions before the first beginning (-1), at, before
+    and after each beginning, past the last; sample strides that do not
+    divide the count, and a wider one (more than 4096 samples)."""
+    rng = np.random.default_rng(n_docs)
+    beg = (np.cumsum(rng.integers(0, 9, size=n_docs)) + 3).astype(np.int32)  # empty docs too
+    stride = _search_stride(n_docs) if stride is None else stride
+    assert stride % 8 == 0 and -(-n_docs // stride) <= SAMPLE_MAX
+    if n_docs > 4096 * 8:
+        assert stride > 8
+    pick = beg if n_docs <= 2000 else rng.choice(beg, 2000)
+    pos = np.concatenate([pick, pick - 1, pick + 1, [-5, 0, 2, int(beg[-1]) + 100],
+                          rng.integers(-3, int(beg[-1]) + 5, size=300)]).astype(np.int32)
+    want = np.searchsorted(beg, pos, side="right") - 1
+    np.testing.assert_array_equal(_two_level_mirror(beg, pos, stride), want)
+    got = locate.doc_index_of(torch.as_tensor(beg), torch.as_tensor(pos))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_locate_needs_keep_sa_and_default_bytes_unchanged():
     host, _ = _random_corpus(2)
     plain = TorchFMIndex.from_host(host, device="cpu")
