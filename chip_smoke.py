@@ -60,10 +60,10 @@
    the fast searcher's); kernels 15-17 and the ties mode against their
    plain versions at the path's shapes, on both routes of 15 and 16.
 9. Drives the decode modes at the generation point: free generation
-   (``disable_fm_index``: kernel 19's top-256, kernel 3, kernel 8's
+   (``disable_fm_index``: kernel 3's top-256 and top-2K, kernel 8's
    token-table epilogue; no index kernel; hypotheses identical at
    ``top_m`` 256 and 2K), ``speculative`` over the three layouts (kernel
-   19, one membership query and the window a step, kernel 8's
+   3's top-256, one membership query and the window a step, kernel 8's
    ``keep_invalid`` mode; every key grounded, hypotheses bit-identical
    across layouts; how many queries equal the fast path's is logged),
    ``forced_bos_token_id=0`` (column 1 pinned, keys grounded, ``force_full``
@@ -75,8 +75,7 @@
    occurrence row of one unit's keys (at most ``max_hits`` each) of a
    ``keep_sa`` index, against their plain versions and the host index;
    the search timed beside ``torch.searchsorted`` eager and graph-replayed.
-   Kernels 18-19 and the new modes of 4 and 8 against their plain versions,
-   kernel 19 also at k = 64 beside kernel 3.
+   Kernels 18-19 and the new modes of 4 and 8 against their plain versions.
 10. Drives constrained sampling (``sample``: kernel 20 every step, the V-wide
    step 0 under the corpus mask; steps >= 1 through the proven loop and
    kernel 8's candidate mode; kernel 8 selects nothing) at the generation
@@ -176,7 +175,6 @@ REPLACES = {
     "beam_select_ties": "seal_tpu/decoding/constrained.py:934",
     "locate_rows": "seal_tpu/ops/fm_ops.py:322",
     "doc_index_of": "seal_tpu/ops/fm_ops.py:330",
-    "row_select": "seal_tpu/decoding/constrained.py:332",
     "row_kth": "seal_tpu/decoding/constrained.py:289",
     "beam_select_free": "seal_tpu/decoding/constrained.py:329",
     "beam_select_spec": "seal_tpu/decoding/constrained.py:343",
@@ -191,6 +189,9 @@ REPLACES = {
     "bucket_counts_sharded": "seal_tpu/parallel/sharded_decode.py:138",
     "fm_dense_counts_sharded": "seal_tpu/parallel/sharded_decode.py:147",
     "beam_select_large": "seal_tpu/decoding/constrained.py:1046",
+    "beam_merge_large": "seal_tpu/decoding/constrained.py:612",
+    "row_topk_global": "seal_tpu/decoding/constrained.py:736",
+    "cross_attention_step_f32": "seal_tpu/models/t5.py:212",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -214,7 +215,6 @@ SOURCES = {
     "beam_select_ties": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "locate_rows": ("cuda", "seal_tpu_torch/kernels/csrc/locate.cu"),
     "doc_index_of": ("cuda", "seal_tpu_torch/kernels/csrc/locate.cu"),
-    "row_select": ("cuda", "seal_tpu_torch/kernels/csrc/row_select.cu"),
     "row_kth": ("cuda", "seal_tpu_torch/kernels/csrc/row_select.cu"),
     "beam_select_free": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "beam_select_spec": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
@@ -229,6 +229,9 @@ SOURCES = {
     "bucket_counts_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/bucket_counts.cu"),
     "fm_dense_counts_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
     "beam_select_large": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
+    "beam_merge_large": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
+    "row_topk_global": ("cuda", "seal_tpu_torch/kernels/csrc/row_topk.cu"),
+    "cross_attention_step_f32": ("cuda", "seal_tpu_torch/kernels/csrc/decode_attention.cu"),
 }
 # the kernels each driven path must launch (bucket_counts and the loop
 # rounds' merges run only in the proven loop, which the force_full re-runs
@@ -268,19 +271,17 @@ for _layout in WAVELET_LAYOUTS:
 PATH_KERNELS["generate_ties"] = PATH_KERNELS["generate"] + ("beam_select_ties",)
 PATH_KERNELS["batch_search_dense"] = ("fm_dense_counts", "fm_search", "fm_sequences",
                                       "rescore_logprob") + DENSE_STEP
-# the decode modes: free generation runs no index kernel (kernel 19's
-# top-256, kernel 3 and kernel 8's token-table epilogue); speculative takes
-# kernel 19, one membership query and the window a step, and kernel 8's
-# keep_invalid mode; forced BOS is the main path plus one decode step with
+# the decode modes: free generation runs no index kernel (kernel 3's
+# top-256 and top-2K, kernel 8's token-table epilogue); speculative takes
+# kernel 3's top-256, one membership query and the window a step, and
+# kernel 8's keep_invalid mode; forced BOS is the main path plus one decode step with
 # no selection; the warper adds kernel 19's k-th value and kernel 4's
 # threshold; locate is kernel 18 in both modes
 ATTN_STEP = ("cross_attention_step", "self_attention_step", "reorder_cache")
-FREE_STEP = ("row_select", "row_topk", "log_softmax_min_len", "beam_select",
-             "beam_select_free") + ATTN_STEP
+FREE_STEP = ("row_topk", "log_softmax_min_len", "beam_select", "beam_select_free") + ATTN_STEP
 PATH_KERNELS["generate_free"] = FREE_STEP
 PATH_KERNELS["batch_search_free"] = FREE_STEP + ("rescore_logprob",)
-SPEC_STEP = ("row_select", "row_topk", "log_softmax_min_len", "beam_select",
-             "beam_select_spec") + ATTN_STEP
+SPEC_STEP = ("row_topk", "log_softmax_min_len", "beam_select", "beam_select_spec") + ATTN_STEP
 PATH_KERNELS["generate_spec"] = ("fm_search", "window_gather") + SPEC_STEP
 for _layout in WAVELET_LAYOUTS:
     PATH_KERNELS[f"generate_spec_{_layout}"] = ("wt_search", "wt_window_gather") + SPEC_STEP
@@ -290,7 +291,7 @@ PATH_KERNELS["locate"] = ("locate_rows", "doc_index_of")
 # sampling and diverse groups: kernel 20 or 21 selects every step (step 0 on
 # the V-wide rows); steps >= 1 take the proven loop's buffer (kernels 3, 1
 # or 12, kernel 8's merge) and window through kernel 8's candidate mode, or
-# the dense route (15 or 16, 17), or free generation's top-top_m (19)
+# the dense route (15 or 16, 17), or free generation's top-top_m (3)
 LOOP_STEP = ("row_topk", "log_softmax_min_len", "beam_merge", "beam_candidates") + ATTN_STEP
 for _mode, _select in (("sample", "sample_select"), ("diverse", "diverse_select")):
     PATH_KERNELS[f"generate_{_mode}"] = ("fm_search", "window_gather", _select) + LOOP_STEP
@@ -300,7 +301,12 @@ for _mode, _select in (("sample", "sample_select"), ("diverse", "diverse_select"
     PATH_KERNELS[f"generate_{_mode}_dense"] = ("fm_dense_counts", "fm_search", "dense_scores",
                                                "log_softmax_min_len", _select) + ATTN_STEP
 PATH_KERNELS["generate_sample_seed1"] = PATH_KERNELS["generate_sample"]
-PATH_KERNELS["generate_sample_free"] = ("row_select", "log_softmax_min_len",
+# the sizes the card refused before its large routes (ROADMAP C.2): a
+# sampling buffer of top_m 512 and a 20000-wide loop chunk, through kernel
+# 8's large-n merge and kernel 3's global sort
+PATH_KERNELS["generate_sample_large"] = PATH_KERNELS["generate_sample"] + (
+    "beam_merge_large", "row_topk_global")
+PATH_KERNELS["generate_sample_free"] = ("row_topk", "log_softmax_min_len",
                                         "sample_select") + ATTN_STEP
 PATH_KERNELS["generate_diverse_ties"] = PATH_KERNELS["generate_diverse"]
 PATH_KERNELS["batch_search_diverse"] = ("fm_search", "window_gather", "fm_sequences",
@@ -310,8 +316,10 @@ PATH_KERNELS["batch_search_diverse"] = ("fm_search", "window_gather", "fm_sequen
 T5_STEP = ("beam_merge", "beam_select", "cross_attention_step", "self_attention_step_t5",
            "reorder_cache")
 PATH_KERNELS["generate_t5"] = ("fm_search", "window_gather", "row_topk",
-                               "log_softmax_min_len") + T5_STEP
-PATH_KERNELS["generate_t5_bf16"] = PATH_KERNELS["generate_t5"]
+                               "log_softmax_min_len", "cross_attention_step_f32") + T5_STEP
+# (kernel 9 in f32 runs on its ffma route; the bf16 batch takes the mma route)
+PATH_KERNELS["generate_t5_bf16"] = tuple(k for k in PATH_KERNELS["generate_t5"]
+                                         if k != "cross_attention_step_f32")
 PATH_KERNELS["generate_t5_force_full"] = ("bucket_counts", "beam_merge")
 PATH_KERNELS["generate_t5_dense"] = (
     "fm_dense_counts", "fm_search", "dense_scores", "row_topk", "log_softmax_min_len",
@@ -386,6 +394,7 @@ SAMPLE_MARGIN = 4e-5
 # the card's peaks for the bound column (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12  # dense tensor-core rate
 
 FAILURES: list[str] = []
 CARD = "unknown"  # nvidia-smi's name and power limit, beside every kernel line
@@ -445,10 +454,11 @@ def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
 
 def log_kernel(row) -> None:
     """One kernel line, with its bound (the least time the card could take:
-    the bytes it must move at the HBM rate, or its flops at the f32 rate,
+    the bytes it must move at the HBM rate, or its flops at the f32 rate --
+    or at ``flops_rate``, the tensor cores' for a route on them --
     whichever is larger)."""
     byte_ms = row["bytes"] / HBM_BYTES_PER_S * 1e3
-    flop_ms = row.get("flops", 0) / F32_FLOPS * 1e3
+    flop_ms = row.get("flops", 0) / row.get("flops_rate", F32_FLOPS) * 1e3
     row["bound_ms"] = max(byte_ms, flop_ms)
     row["bound_by"] = "bytes" if byte_ms >= flop_ms else "operations"
     lib = f", library {row['library_ms']:.4f} ms" if row["library_ms"] is not None else ""
@@ -472,7 +482,12 @@ def log_kernel(row) -> None:
                                                "cross_f32_ms", "cross_f32_plain_ms",
                                                "cross_f32_tol_ratio", "f32_tol_ratio",
                                                "extend_ms", "ranges_ms", "spec_plain_ms",
-                                               "graph_ms", "library_graph_ms")
+                                               "graph_ms", "library_graph_ms", "route",
+                                               "step0_graph_ms", "long_library_ms",
+                                               "long_graph_ms", "long_library_graph_ms",
+                                               "long_bound_ms", "long_tol_ratio",
+                                               "bf16_graph_ms", "loop_chunk_ms",
+                                               "loop_chunk_plain_ms")
                   if k in row))
 
 
@@ -604,7 +619,8 @@ def row_topk_sites(torch, k3, lp, lpq, B, K, V, g):
     scores = (lp[: B * K].reshape(B, K, V) + bs[..., None]).reshape(B, K * V)
     dense = torch.where(allowed, scores, dense)
     free = (torch.topk(lp[: B * K], 256).values.reshape(B, K, 256) + bs[..., None]).reshape(B, -1)
-    rows = [("round 0", lp, 64), ("later rounds", lp, 256), ("sampling round 0", lp, 512),
+    rows = [("round 0", lp, 64), ("later rounds; the modes' top_m", lp, 256),
+            ("sampling round 0", lp, 512),
             ("sampling later rounds", lp, 2048), ("step 0", step0, 2 * K),
             ("dense", dense, 2 * K), ("free", free, 2 * K)]
     out, cells, bad = [], [], 0
@@ -822,32 +838,57 @@ def decode_kernel_phases(np, torch, cfg, V, B, K, window, enc_len, key_len, devi
     q4 = q.reshape(B, g_, H, Dh).permute(0, 2, 1, 3).contiguous()
     k4, v4 = kx.permute(0, 2, 1, 3).contiguous(), vx.permute(0, 2, 1, 3).contiguous()
     mask4 = bias[:, None, None, :].to(bf)
+    kl4, vl4 = kl.permute(0, 2, 1, 3).contiguous(), vl.permute(0, 2, 1, 3).contiguous()
+    maskl4 = bias_l[:, None, None, :].to(bf)
     qs = q[:, :, None, :].contiguous()  # [rows, H, 1, Dh]
     ks = kc[:, : step + 1].permute(0, 2, 1, 3).contiguous()
     vs = vc[:, : step + 1].permute(0, 2, 1, 3).contiguous()
     cross_bytes = 2 * (q.numel() * 2) + 2 * kx.numel() * 2 + bias.numel() * 4
+    long_bytes = 2 * (q.numel() * 2) + 2 * kl.numel() * 2 + bias_l.numel() * 4
     self_bytes = 2 * (q.numel() * 2) + 2 * rows * (step + 1) * H * Dh * 2
-    cross_flops = 4 * rows * H * enc_len * Dh  # QK and PV
+    # QK and PV, counted at the bf16 tensor-core peak where the route runs on
+    # it (kernel 9's mma route), else at the f32 rate (the bound's rule)
+    cross_flops = 4 * rows * H * enc_len * Dh
+    long_flops = 4 * rows * H * m_long * Dh
     self_flops = 4 * rows * H * (step + 1) * Dh
+    route9 = k910.route(K, enc_len, Dh, True)
+    long_bound = max(long_bytes / HBM_BYTES_PER_S, long_flops / BF16_FLOPS) * 1e3
     table.append(dict(
         name="cross_attention_step", max_abs_err=a9, tol_ratio=r9, f32_max_abs_err=f9,
-        bytes=cross_bytes, flops=cross_flops,
+        bytes=cross_bytes, flops=cross_flops, flops_rate=BF16_FLOPS, route=route9,
         ms=time_ms(lambda: k910.cross_attention_step(q, kx, vx, bias)),
         plain_ms=time_ms(lambda: k910.decode_attention_plain(q, kx, vx, bias)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask4)),
+        graph_ms=graph_ms(lambda: k910.cross_attention_step(q, kx, vx, bias)),
+        library_graph_ms=graph_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask4)),
+        step0_ms=time_ms(lambda: k910.cross_attention_step(q[:B], kx, vx, bias)),
+        step0_graph_ms=graph_ms(lambda: k910.cross_attention_step(q[:B], kx, vx, bias)),
         long_ms=time_ms(lambda: k910.cross_attention_step(q, kl, vl, bias_l)),
         long_plain_ms=time_ms(lambda: k910.decode_attention_plain(q, kl, vl, bias_l)),
-        shape=f"q [{rows},{H},{Dh}] bf16, K/V [{B},{enc_len},{H},{Dh}] (long: {m_long} "
-              "positions); max err absolute, tol_ratio its share of the bf16 tolerance",
+        long_library_ms=time_ms(
+            lambda: F.scaled_dot_product_attention(q4, kl4, vl4, attn_mask=maskl4)),
+        long_graph_ms=graph_ms(lambda: k910.cross_attention_step(q, kl, vl, bias_l)),
+        long_library_graph_ms=graph_ms(
+            lambda: F.scaled_dot_product_attention(q4, kl4, vl4, attn_mask=maskl4)),
+        long_bound_ms=long_bound, long_tol_ratio=e9[2][0],
+        shape=f"q [{rows},{H},{Dh}] bf16, K/V [{B},{enc_len},{H},{Dh}] ({route9} route; "
+              f"step0: g = 1, the warp route; long: {m_long} positions, "
+              f"{k910.route(K, m_long, Dh, True)} route, a cluster of "
+              f"{-(-m_long // 64)} CTAs); max err absolute, tol_ratio its share of the bf16 "
+              "tolerance; graph_ms: 20 calls in one CUDA graph, replayed",
     ))
     table.append(dict(
         name="self_attention_step", max_abs_err=a10, tol_ratio=r10, f32_max_abs_err=f10,
-        bytes=self_bytes, flops=self_flops,
+        bytes=self_bytes, flops=self_flops, route=k910.route(1, step + 1, Dh, True),
         ms=time_ms(lambda: k910.self_attention_step(q, kc, vc, step)),
         plain_ms=time_ms(lambda: k910.self_attention_plain(q, kc, vc, step)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
-        shape=f"q [{rows},{H},{Dh}] bf16, cache [{rows},{key_len},{H},{Dh}] at step {step}; "
-              "max err absolute, tol_ratio its share of the bf16 tolerance",
+        graph_ms=graph_ms(lambda: k910.self_attention_step(q, kc, vc, step)),
+        library_graph_ms=graph_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+        shape=f"q [{rows},{H},{Dh}] bf16, cache [{rows},{key_len},{H},{Dh}] at step {step} "
+              "(the warp route); max err absolute, tol_ratio its share of the bf16 tolerance; "
+              "graph_ms: 20 calls in one CUDA graph, replayed",
     ))
 
     # kernel 11: 12 layers x {k, v} [rows, 10, H, Dh] bf16 at step 8, and
@@ -1382,10 +1423,11 @@ def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
 
 
 def mode_kernel_phases(np, torch, cfg, V, B, K, window):
-    """Kernel 19 (top-256 and k-th value at 50 on [B*K, V] log-probs; top-64
-    beside kernel 3), kernel 8's free and speculative modes and kernel 4's
-    threshold against their plain versions at the decode modes' shapes,
-    each timed beside its default mode and its library yardstick."""
+    """Kernel 19 (the k-th value at 50 on [B*K, V] log-probs), kernel 8's
+    free and speculative modes and kernel 4's threshold against their plain
+    versions at the decode modes' shapes, each timed beside its default
+    mode and its library yardstick.  (The modes' top-256 is kernel 3's:
+    the ``row_topk sites:`` line holds it at k = 256.)"""
     from seal_tpu_torch.kernels import beam_select as k8
     from seal_tpu_torch.kernels import row_select as k19
     from seal_tpu_torch.kernels import row_topk as k3
@@ -1402,38 +1444,24 @@ def mode_kernel_phases(np, torch, cfg, V, B, K, window):
     lpq[0, ::2] = 0.0
     lpq[0, 1::2] = -0.0
 
-    # kernel 19: every k of the modes, and 1024, on plain and tied rows
+    # kernel 19: the warper's k and others, on plain and tied rows
     err19 = 0
-    for x, k in ((lp, m), (lpq, m), (lpq, 64), (lpq[:B], m), (lpq, 1024), (lpq, 1)):
-        gv, gi = k19.row_select(x, k)
-        wv, wi = k19.row_select_plain(x, k)
-        err19 += int((gi != wi).sum()) + mismatches(torch, (gv,), (wv,))
-    for x, k in ((lp, 50), (lpq, 50), (lpq, 1), (lpq, 1024)):
+    for x, k in ((lp, 50), (lpq, 50), (lpq, 1), (lpq, 1024), (lpq[:B], 256)):
         err19 += mismatches(torch, (k19.row_kth(x, k),), (k19.row_kth_plain(x, k),))
     if err19:
-        fail(f"row_select differs from its plain version ({err19} elements)")
-    table.append(dict(
-        name="row_select", max_abs_err=err19,
-        ms=time_ms(lambda: k19.row_select(lp, m)),
-        plain_ms=time_ms(lambda: k19.row_select_plain(lp, m), iters=5),
-        library_ms=time_ms(lambda: torch.topk(lp, m)),
-        k64_ms=time_ms(lambda: k19.row_select(lp, 64)),
-        row_topk_k64_ms=time_ms(lambda: k3.row_topk(lp, 64)),
-        library_k64_ms=time_ms(lambda: torch.topk(lp, 64)),
-        shape=f"[{rows},{V}] k={m} (k64_ms: k=64 beside kernel 3, row_topk_k64_ms)",
-        bytes=lp.numel() * 4 + rows * m * 12,
-    ))
+        fail(f"row_kth differs from its plain version ({err19} elements)")
     table.append(dict(
         name="row_kth", max_abs_err=err19,
         ms=time_ms(lambda: k19.row_kth(lp, 50)),
         plain_ms=time_ms(lambda: k19.row_kth_plain(lp, 50), iters=5),
         library_ms=time_ms(lambda: torch.topk(lp, 50)),
+        graph_ms=graph_ms(lambda: k19.row_kth(lp, 50)),
         shape=f"[{rows},{V}] k=50, one f32 a row", bytes=lp.numel() * 4 + rows * 4,
     ))
 
     # kernel 8, free generation: kernel 3's top-2K of [B, K*256] scores,
-    # then the epilogue through kernel 19's token table
-    top_lp, tok = k19.row_select(lpq, m)
+    # then the epilogue through kernel 3's top-256 token table
+    top_lp, tok = k3.row_topk(lpq, m)
     tok = tok.to(i32)
     bs = torch.round(torch.randn(B, K, generator=g, device=dev) * 2) / 2 - 3
     bs[0, 1] = k8.NEG_INF
@@ -1987,14 +2015,44 @@ def t5_kernel_phase(np, torch, cfg, B, K, enc_len, key_len):
         cross_plain_ms=time_ms(lambda: k910.decode_attention_plain(*cross[bf], bias)),
         cross_f32_ms=time_ms(lambda: k910.cross_attention_step(*cross[f32], bias)),
         cross_f32_plain_ms=time_ms(lambda: k910.decode_attention_plain(*cross[f32], bias)),
+        graph_ms=graph_ms(lambda: k910.self_attention_step_rel(q, kc, vc, step, table, buckets)),
+        library_graph_ms=graph_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                         attn_mask=mask4,
+                                                                         scale=1.0)),
+        bf16_graph_ms=graph_ms(lambda: k910.self_attention_step_rel(qb, kb, vb, step, tables[bf],
+                                                                    buckets)),
         shape=f"q [{rows},{H},{Dh}] f32 un-scaled, cache [{rows},{key_len},{H},{Dh}] at step "
               f"{step}, table [{table.shape[0]},{H}]; checked at steps 0-{key_len - 1} in f32 "
               f"and bf16 (tol_ratio / f32_tol_ratio: each dtype's share of its tolerance); "
               f"cross: kernel 9, q [{rows},{H},{Dh}] un-scaled, K/V [{B},{enc_len},{H},{Dh}], "
               f"padded; cross_* bf16, cross_f32_* f32 (the path's dtype)",
     )
+    # kernel 9 in f32, the T5 path's dtype (its ffma route), as a row of its
+    # own: SDPA in f32 with the padding bias as its mask and scale 1
+    qx, kx, vx = cross[f32]
+    qx4 = qx.reshape(B, K, H, Dh).permute(0, 2, 1, 3).contiguous()
+    kx4, vx4 = kx.permute(0, 2, 1, 3).contiguous(), vx.permute(0, 2, 1, 3).contiguous()
+    maskx4 = bias[:, None, None, :]
+    cross_row = dict(
+        name="cross_attention_step_f32", max_abs_err=float(
+            (k910.cross_attention_step(qx, kx, vx, bias)
+             - k910.decode_attention_plain(qx, kx, vx, bias)).abs().max()),
+        tol_ratio=r9[f32], route=k910.route(K, enc_len, Dh, False),
+        ms=time_ms(lambda: k910.cross_attention_step(qx, kx, vx, bias)),
+        plain_ms=time_ms(lambda: k910.decode_attention_plain(qx, kx, vx, bias)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qx4, kx4, vx4, attn_mask=maskx4,
+                                                                  scale=1.0)),
+        graph_ms=graph_ms(lambda: k910.cross_attention_step(qx, kx, vx, bias)),
+        library_graph_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+            qx4, kx4, vx4, attn_mask=maskx4, scale=1.0)),
+        bytes=2 * qx.numel() * 4 + 2 * kx.numel() * 4 + bias.numel() * 4,
+        flops=4 * rows * H * enc_len * Dh,
+        shape=f"q [{rows},{H},{Dh}] f32 un-scaled, K/V [{B},{enc_len},{H},{Dh}] padded "
+              f"({k910.route(K, enc_len, Dh, False)} route); tol_ratio: its share of the f32 "
+              "tolerance",
+    )
     torch.cuda.synchronize()
-    return [row]
+    return [row, cross_row]
 
 
 def small_t5_parity(np, torch):
@@ -2382,6 +2440,97 @@ def large_select_phase(np, torch, cfg, V, B, K, S):
     )]
 
 
+def large_route_phase(np, torch, V, B, K):
+    """The large routes of kernels 8 and 3 (ROADMAP C.2) against their
+    plain versions at the sizes that reach them: kernel 8's merge of a
+    sampling loop round at top_m 512 ([B, K] rows of 512 + 4096 + 4096
+    candidates) and of a 20000-wide loop chunk at beam 15 (30 + 20000 +
+    20000), in both orders; kernel 3 at k = 16385 and 20000 on [B*K, V]
+    and k = V on [B, V], bit for bit, beside ``torch.topk``."""
+    from seal_tpu_torch.kernels import beam_select as k8
+    from seal_tpu_torch.kernels import row_topk as k3
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows = B * K
+    lp = torch.round(torch.log_softmax(torch.randn(rows, V, generator=g, device=dev) * 2, -1)
+                     * 8) / 8
+    lp[:, 5] = 0.0
+    lp[::2, 6] = -0.0
+
+    def merge_args(n_buf, n_top):
+        top_lp, top_idx = k3.row_topk_plain(lp, n_top)
+        ok = (torch.rand(B, K, n_top + 1, generator=g, device=dev) < 0.5)[..., :n_top]
+        slab = torch.randint(0, min(3 * n_top, V), (B, K, n_top), generator=g, device=dev,
+                             dtype=torch.int32)
+        slab_lp = torch.gather(lp, 1, slab.reshape(rows, -1).long()).reshape(B, K, n_top)
+        bt = torch.argsort(torch.rand(rows, V, generator=g, device=dev), -1)[:, :n_buf]
+        blp = torch.gather(lp, 1, bt).reshape(B, K, n_buf)
+        buf = (bt.to(torch.int32).reshape(B, K, n_buf), blp,
+               torch.rand(B, K, n_buf, generator=g, device=dev) < 0.7)
+        return (buf, top_idx.to(torch.int32).reshape(B, K, n_top), top_lp.reshape(B, K, n_top),
+                ok, slab, slab_lp, torch.rand(B, K, n_top, generator=g, device=dev) < 0.8, V,
+                n_buf)
+
+    table = []
+    err8, timed = 0, {}
+    for label, n_buf, n_top in (("sample", 512, 4096), ("loop_chunk", 2 * K, 20000)):
+        args = merge_args(n_buf, n_top)
+        for ties in (False, True):
+            n0 = k8.MERGE_LARGE.launches
+            got = k8.beam_merge(*args, ties=ties)
+            if k8.MERGE_LARGE.launches != n0 + 1:
+                fail(f"beam_merge_large: the large-n route did not run ({label})")
+            err8 += mismatches(torch, got, k8.beam_merge_plain(*args, ties=ties))
+        timed[label] = (args, n_buf + 2 * n_top)
+    if err8:
+        fail(f"beam_merge_large differs from its plain version ({err8} elements)")
+    args, n = timed["sample"]
+    largs, ln = timed["loop_chunk"]
+    table.append(dict(
+        name="beam_merge_large", max_abs_err=err8, library_ms=None,
+        ms=time_ms(lambda: k8.beam_merge(*args)),
+        plain_ms=time_ms(lambda: k8.beam_merge_plain(*args), iters=3),
+        ties_ms=time_ms(lambda: k8.beam_merge(*args, ties=True)),
+        graph_ms=graph_ms(lambda: k8.beam_merge(*args)),
+        loop_chunk_ms=time_ms(lambda: k8.beam_merge(*largs)),
+        loop_chunk_plain_ms=time_ms(lambda: k8.beam_merge_plain(*largs), iters=3),
+        shape=f"[{B},{K}] rows of {n} candidates (sampling at top_m 512; "
+              f"{k8.merge_widths(n, 512, k8.merge_chunk(512))} a pass); loop_chunk: {ln} "
+              f"(exact_loop_chunk 20000, beam {K})",
+        bytes=rows * n * 9 + rows * 512 * 9,
+    ))
+    err3, sites = 0, []
+    for x, k in ((lp, k3.MAX_K + 1), (lp, 20000), (lp[:B], V)):
+        n0 = k3.GLOBAL_SORT.launches
+        gv, gi = k3.row_topk(x, k)
+        if k3.GLOBAL_SORT.launches != n0 + 1:
+            fail(f"row_topk_global: k = {k} did not take the global sort")
+        wv, wi = k3.row_topk_plain(x, k)
+        err3 += int((gi != wi).sum()) + mismatches(torch, (gv,), (wv,))
+        r = x.shape[0]
+        sites.append(dict(shape=f"[{r},{V}]", k=k, ms=time_ms(lambda: k3.row_topk(x, k)),
+                          library_ms=time_ms(lambda: torch.topk(x, k)),
+                          bound_ms=(x.numel() * 4 + r * k * 12) / HBM_BYTES_PER_S * 1e3))
+    if err3:
+        fail(f"row_topk_global differs from its plain version ({err3} elements)")
+    log(f"row_topk global sort ({CARD}): " + "; ".join(
+        f"{c['shape']} k={c['k']} {c['ms']:.4f} ms, torch.topk {c['library_ms']:.4f}, bound "
+        f"{c['bound_ms']:.4f}" for c in sites) + f"; bit-equal: {not err3}")
+    table.append(dict(
+        name="row_topk_global", max_abs_err=err3,
+        ms=time_ms(lambda: k3.row_topk(lp, 20000)),
+        plain_ms=time_ms(lambda: k3.row_topk_plain(lp, 20000), iters=3),
+        library_ms=time_ms(lambda: torch.topk(lp, 20000)),
+        graph_ms=graph_ms(lambda: k3.row_topk(lp, 20000)),
+        sites=sites, shape=f"[{rows},{V}] k=20000 (the 20000-wide loop chunk); sites: k = "
+                           f"{k3.MAX_K + 1}, 20000 and {V}",
+        bytes=lp.numel() * 4 + rows * 20000 * 12,
+    ))
+    torch.cuda.synchronize()
+    return table
+
+
 def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
     """The corpus-sharded index (the module docstring's item 12): generation
     over 4 shards on the card beside the monolithic Psi index, the gates,
@@ -2729,7 +2878,6 @@ def main() -> int:
         "beam_select_ties": beam_select.TIES,
         "locate_rows": locate.locate_rows,
         "doc_index_of": locate.doc_index_of,
-        "row_select": row_select.row_select,
         "row_kth": row_select.row_kth,
         "beam_select_free": beam_select.FREE,
         "beam_select_spec": beam_select.SPEC,
@@ -2744,6 +2892,10 @@ def main() -> int:
         "bucket_counts_sharded": bucket_counts.bucket_counts_sharded,
         "fm_dense_counts_sharded": fm_search.fm_dense_counts_sharded,
         "beam_select_large": beam_select.LARGE,
+        "beam_merge_large": beam_select.MERGE_LARGE,
+        "row_topk_global": row_topk.GLOBAL_SORT,
+        # kernel 9 in f32 (T5 as the JAX searcher builds it): its ffma route
+        "cross_attention_step_f32": decode_attention.ROUTES["ffma"],
     }
     # the calls of the sharded index's ops (each must be one launch)
     op_calls: collections.Counter = collections.Counter()
@@ -3133,10 +3285,12 @@ def main() -> int:
         return [sorted((tuple(t), s) for s, t in q) for q in hyps]
 
     mode_qps = {}
-    # free generation: kernel 19's top-256 each step >= 1, no index kernel
+    # free generation: kernel 3's top-256 and top-2K each step >= 1 (step
+    # 0: the V-wide rows' top-2K), no index kernel
     f_hyps, c, nb, mode_qps["free"] = run_mode("generate_free", disable_fm_index=True)
     n = c["decode_steps"]
-    expect("generate_free", c, {"row_select": n - nb, "beam_select_free": n - nb, "fm_search": 0,
+    expect("generate_free", c, {"row_topk": 2 * n - nb, "beam_select_free": n - nb,
+                                "fm_search": 0,
                                 "window_gather": 0, "beam_merge": 0, "bucket_counts": 0,
                                 "fm_sequences": 0})
     f_canon = canon_of(f_hyps)
@@ -3152,11 +3306,12 @@ def main() -> int:
     log(f"generate_free: {sum(map(len, f_hyps))} hypotheses, identical at top_m 256 and "
         f"{2 * K}: {narrow == f_canon}; {n_off} keys leave the corpus (free generation)")
 
-    # speculative over the three layouts: kernel 19, one membership query and
-    # the window a step >= 1; every key grounded, bit-identical across layouts
+    # speculative over the three layouts: kernel 3's top-256, one membership
+    # query and the window a step >= 1 (step 0: the V-wide top-2K); every key
+    # grounded, bit-identical across layouts
     s_hyps, c, nb, mode_qps["speculative"] = run_mode("generate_spec", speculative=True)
     n = c["decode_steps"]
-    expect("generate_spec", c, {"row_select": n - nb, "beam_select_spec": n - nb,
+    expect("generate_spec", c, {"row_topk": n, "beam_select_spec": n - nb,
                                 "window_gather": n - nb, "fm_search": 2 * n - nb,
                                 "beam_merge": 0})
     s_canon = canon_of(s_hyps)
@@ -3166,7 +3321,7 @@ def main() -> int:
         path = f"generate_spec_{layout}"
         l_hyps, c, nb, _ = run_mode(path, ix=wix, batches=1, warm=False, speculative=True)
         n = c["decode_steps"]
-        expect(path, c, {"row_select": n - nb, "wt_window_gather": n - nb,
+        expect(path, c, {"row_topk": n, "wt_window_gather": n - nb,
                          "wt_search": 2 * n - nb, "beam_merge": 0})
         if canon_of(l_hyps) != s_canon:
             spec_same = False
@@ -3266,10 +3421,24 @@ def main() -> int:
     f_hyps, c, nb, mode_qps["sample_free"] = run_mode(
         "generate_sample_free", batches=1, warm=False, sample=True, seed=0, disable_fm_index=True)
     n = c["decode_steps"]
-    expect("generate_sample_free", c, {"sample_select": n, "row_select": n - nb, "fm_search": 0,
+    expect("generate_sample_free", c, {"sample_select": n, "row_topk": n - nb, "fm_search": 0,
                                        "window_gather": 0, "beam_candidates": 0, "beam_merge": 0})
     if not any(f_hyps) or not all(np.isfinite(sc) for q in f_hyps for sc, _ in q):
         fail("generate_sample_free: no or non-finite hypotheses")
+    # the sizes the card refused before (ROADMAP C.2): one sampled batch at
+    # top_m 512 with a 20000-wide loop chunk, through kernel 8's large-n
+    # merge and kernel 3's global sort
+    lg_hyps, c, nb, mode_qps["sample_large"] = run_mode(
+        "generate_sample_large", batches=1, warm=False, sample=True, seed=0, top_m=512,
+        exact_loop_chunk=20000)
+    n_kl = hyp_keys(lg_hyps, "generate_sample_large")
+    log(f"large routes: sampling at top_m 512 with exact_loop_chunk 20000, {n_kl} keys grounded; "
+        f"kernel 8's large-n merge {c['beam_merge_large']} calls, kernel 3's global sort "
+        f"{c['row_topk_global']} calls")
+    large_table = large_route_phase(np, torch, V, B, K)
+    for row in large_table:
+        log_kernel(row)
+    table += large_table
     log(f"sampling: {n_ks} keys grounded; one seed identical in every batch: {same_seed}; seeds "
         f"0 and 1 differ: {seeds_differ}; {spread} of {B} queries' chains end in more than one "
         f"key; compact and hybrid draws identical to psi's: {sample_layouts}; free generation "
@@ -3590,7 +3759,7 @@ def main() -> int:
             "replaces": REPLACES[row["name"]], "launches": total[row["name"]],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
+            "library_ms": row["library_ms"], "card": CARD,
             **{k: row[k] for k in ("tol_ratio", "psi_ms", "hybrid_ms", "rank_route_ms",
                                    "default_ms", "merge_ms", "topk_dense_ms", "k64_ms",
                                    "row_topk_k64_ms", "library_k64_ms", "narrow_ms", "ties_ms",
@@ -3598,7 +3767,10 @@ def main() -> int:
                                    "f32_tol_ratio", "cross_tol_ratio", "cross_f32_ms",
                                    "cross_f32_tol_ratio", "extend_ms", "ranges_ms",
                                    "histogram_route_ms", "sites", "graph_ms",
-                                   "library_graph_ms")
+                                   "library_graph_ms", "route", "step0_ms", "step0_graph_ms",
+                                   "long_ms", "long_plain_ms", "long_library_ms",
+                                   "long_graph_ms", "long_library_graph_ms", "long_bound_ms",
+                                   "long_tol_ratio", "bf16_graph_ms", "loop_chunk_ms")
                if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}

@@ -35,17 +35,16 @@ What changed in translation:
 * Not ported, because they work around the TPU: ``check_dense_budget`` /
   ``DENSE_GUARD_BACKENDS`` (a TPU worker fault) and the one-hot-matmul
   block gather of ``_exact_topk`` (the TPU's slow scalar gathers).  Every
-  top-k is one exact row top-k: ``kernels.row_topk`` (kernel 3), or
-  ``kernels.row_select`` (kernel 19) for the decode modes' top-``top_m``
-  and the warper's k-th value.
+  top-k is one exact row top-k, ``kernels.row_topk`` (kernel 3), and the
+  warper's k-th value is ``kernels.row_select.row_kth`` (kernel 19).
 * ``force_decoding_from`` starts every beam's range at the forced
   sequence's (kernel 5).  Step 0 still picks its token under the dense
   corpus mask and then extends the forced range, as the JAX decoder does.
 * ``disable_fm_index`` (free generation) takes each beam's exact
-  top-``top_m`` (kernel 19), ranks the flat [B, K*top_m] scores (kernel 3)
+  top-``top_m`` (kernel 3), ranks the flat [B, K*top_m] scores (kernel 3)
   and selects through a token table (kernel 8's ``beam_select_top``); no
   index op runs.  ``speculative`` takes one exact top-``top_m`` round
-  (kernel 19: its recall is 1, above ``approx_max_k``'s 0.95 target) with
+  (kernel 3: its recall is 1, above ``approx_max_k``'s 0.95 target) with
   one membership query, and kernel 8 keeps the slots that fail it as masked
   candidates.  The top-k warper is kernel 19's k-th value and a threshold
   input of kernel 4.  ``adjust_logits_fn`` is a Python hook on the raw f32
@@ -57,7 +56,7 @@ What changed in translation:
   ``max(2K, top_m)`` wide under sampling), written out as candidates by
   kernel 8's candidate mode; ``speculative`` through the same mode with
   ``keep_invalid``; ``exact_mask`` through kernel 17; free generation
-  through kernel 19's top-``top_m``.  Kernel 20 draws each chain's token by
+  through kernel 3's top-``top_m``.  Kernel 20 draws each chain's token by
   Gumbel-max with counter-based Philox noise keyed by (``seed``, step), in
   place of JAX's threefry key chain: the same distribution and seed
   contract, not the same draws.  Kernel 21 runs the groups' selection with
@@ -87,7 +86,7 @@ from seal_tpu_torch.kernels.beam_select import (
 )
 from seal_tpu_torch.kernels.dense_scores import dense_scores
 from seal_tpu_torch.kernels.diverse_select import diverse_select
-from seal_tpu_torch.kernels.row_select import row_kth, row_select
+from seal_tpu_torch.kernels.row_select import row_kth
 from seal_tpu_torch.kernels.row_topk import row_topk
 from seal_tpu_torch.kernels.sample_select import sample_select
 from seal_tpu_torch.kernels.triton_logsoftmax import log_softmax_ban
@@ -426,7 +425,7 @@ def _dense_scores(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam
 
 def _free_select(cfg: DecodeConfig, lp, beam_scores, K: int):
     """Free generation's step (``disable_fm_index``): each beam's exact
-    top-``top_m`` (kernel 19), the flat top-2K of their scores plus the beam
+    top-``top_m`` (kernel 3), the flat top-2K of their scores plus the beam
     score (kernel 3) and ``_select``'s epilogue through the token table
     (kernel 8).  Every candidate is allowed, finished beams included.
 
@@ -442,9 +441,9 @@ def _free_select(cfg: DecodeConfig, lp, beam_scores, K: int):
     m = cfg.top_m
     bs = beam_scores.reshape(B * K, 1)
     if cfg.exact_ties:
-        cons, tok = row_select(lp + bs, m)
+        cons, tok = row_topk(lp + bs, m)
     else:
-        top_lp, tok = row_select(lp, m)
+        top_lp, tok = row_topk(lp, m)
         cons = top_lp + bs
     top_cons, top_idx = row_topk(cons.reshape(B, K * m), 2 * K)
     return beam_select_top(top_cons, top_idx, lp, beam_scores, K, K, cfg.eos_token_id,
@@ -453,12 +452,12 @@ def _free_select(cfg: DecodeConfig, lp, beam_scores, K: int):
 
 def _speculative_round(ops, cfg: DecodeConfig, lp, lo, hi, eos_tok):
     """The speculative mode's one proposal round: each beam's exact
-    top-``top_m`` (kernel 19), checked with one membership query (kernel 1
+    top-``top_m`` (kernel 3), checked with one membership query (kernel 1
     or 12, the EOS column included).  Returns the buffer (tok, lp, valid)
     [B, K, top_m] and the EOS membership."""
     B, K = eos_tok.shape[:2]
     m = cfg.top_m
-    top_lp, top_idx = row_select(lp, m)
+    top_lp, top_idx = row_topk(lp, m)
     top_tok = top_idx.to(torch.int32).reshape(B, K, m)
     ok = ops.contains(torch.cat([top_tok, eos_tok], -1), lo, hi)
     return (top_tok, top_lp.reshape(B, K, m), ok[..., :m].contiguous()), ok[..., m:]
@@ -494,12 +493,12 @@ def _general_candidates(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished
     proposal loop's buffer and the speculative round go through kernel 8's
     candidate mode (N = n_buf + w + 2, slots [buffer, window, EOS, PAD]);
     ``exact_mask`` through kernels 15/16 and 17 at zero beam scores (N = V);
-    free generation through kernel 19's exact top-``top_m`` (N = ``top_m``).
+    free generation through kernel 3's exact top-``top_m`` (N = ``top_m``).
     """
     B = lp.shape[0] // K
     V = lp.shape[-1]
     if cfg.disable_fm_index:
-        top_lp, tok = row_select(lp, cfg.top_m)
+        top_lp, tok = row_topk(lp, cfg.top_m)
         top_lp = top_lp.reshape(B, K, -1)
         return tok.to(torch.int32).reshape(B, K, -1), top_lp, top_lp
     if cfg.exact_mask:

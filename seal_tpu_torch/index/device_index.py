@@ -160,13 +160,24 @@ class TorchFMIndex:
         cls,
         index: FMIndex,
         vocab: int | None = None,
-        device=DEFAULT_DEVICE,
-        dir_shift: int | None = None,
+        compact: bool = True,
         keep_sa: bool = False,
+        keep_text: bool = False,
+        dir_shift: int | None = None,
+        device=DEFAULT_DEVICE,
     ) -> "TorchFMIndex":
         """Ship a host-built index to ``device`` (the card unless the caller
         asks for the CPU); refuses >= 2^31 rows.  ``keep_sa`` adds the
-        suffix array (+4 B/token) for ``fm_ops.locate_rows``."""
+        suffix array (+4 B/token) for ``fm_ops.locate_rows``.
+
+        The keywords are JAX's (``DeviceFMIndex.from_host``), in its order,
+        with ``device`` after them.  ``compact`` is accepted and changes
+        nothing: ``bwt`` stays int32 (JAX stores uint16 where the alphabet
+        fits; the kernels here read 32-bit symbols).  ``keep_text`` is
+        accepted and ships nothing: JAX keeps the text for device document
+        extraction, which the port does on the host, and the port's
+        ``bwt_at`` reads ``bwt``, never the text.  Either way every op
+        gives JAX's results."""
         device = checked_device(device)
         n_rows = index.size()
         if n_rows >= 2**31:

@@ -49,6 +49,13 @@ beam's top 2K by the same key, then the query's finish over the n_par * 2K
 survivors -- two launches, the same result bit for bit (dedup and branches
 are per beam, and the key order is total).  ``beam_select_large_plain``
 is that route's specification.  Its launches also count on ``LARGE``.
+``beam_merge`` likewise merges a row in one CTA while it fits, and
+otherwise in passes over chunks, each keeping its chunk's n_buf best
+first instances (``sample=True`` with ``top_m >= 482``, an
+``exact_loop_chunk`` past 4,081 at beam 15): exact because valid copies of
+a token carry one log-prob (``csrc/beam_select.cu`` gives the argument;
+``beam_merge_large_plain`` is the specification).  Those calls also count
+on ``MERGE_LARGE``.
 """
 
 from __future__ import annotations
@@ -67,6 +74,9 @@ TIES = Launches()  # kernel 8 launches in the ties mode (merge and select)
 FREE = Launches()  # beam_select_top launches with a candidate token table
 SPEC = Launches()  # beam_select launches that keep invalid buffer slots
 LARGE = Launches()  # beam_select calls through the two-launch large-n route
+MERGE_LARGE = Launches()  # beam_merge calls through the chunked large-n route
+MERGE_CHUNK = 4096  # candidates a CTA of the large-n merge (MERGE_CHUNK_WIDE past n_buf 2048)
+MERGE_CHUNK_WIDE = 8192
 
 
 def top_by_score_then_id(score, tie_id, k: int):
@@ -99,11 +109,14 @@ def beam_tok_tie(flat_tok, ncand: int, vocab: int):
 
 
 def dedup_mask(tokens):
-    """Keep-mask of the FIRST instance of each token id within a row."""
-    n = tokens.shape[-1]
-    j_lt_i = torch.ones((n, n), dtype=torch.bool, device=tokens.device).tril(-1)
-    dup = ((tokens[..., :, None] == tokens[..., None, :]) & j_lt_i).any(-1)
-    return ~dup
+    """Keep-mask of the FIRST instance of each token id within a row: a
+    stable sort puts each id's lowest slot first in its run (n log n, where
+    comparing every pair would hold an [n, n] mask: 1.6 GB a row at the
+    40,030 candidates of ``exact_loop_chunk=20000``)."""
+    vals, order = torch.sort(tokens, dim=-1, stable=True)
+    first = torch.ones_like(vals, dtype=torch.bool)
+    first[..., 1:] = vals[..., 1:] != vals[..., :-1]
+    return torch.empty_like(first).scatter_(-1, order, first)
 
 
 def apply_branches(tokens, fm_valid, prev_count, finished, *, eos: int, pad: int,
@@ -153,6 +166,59 @@ def beam_merge_plain(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, v
     return _g(all_tok, keep), _g(all_lp, keep), _g(all_valid & fresh, keep)
 
 
+def merge_chunk(n_buf: int) -> int:
+    """Candidates a CTA of the large-n merge takes: at least 2 n_buf, so
+    each pass at least halves a row."""
+    return MERGE_CHUNK if 2 * n_buf <= MERGE_CHUNK else MERGE_CHUNK_WIDE
+
+
+def merge_widths(n: int, n_buf: int, chunk: int) -> list[int]:
+    """The row width of each pass of the large-n merge, from ``n`` down to
+    the last pass's (at most ``chunk``)."""
+    widths = [n]
+    while widths[-1] > chunk:
+        w = widths[-1]
+        full = -(-w // chunk) - 1
+        widths.append(full * n_buf + min(n_buf, w - full * chunk))
+    return widths
+
+
+def beam_merge_large_plain(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: int,
+                           n_buf: int, ties: bool = False, chunk: int | None = None):
+    """The large-n route's specification (``csrc/beam_select.cu``,
+    ``merge_kernel`` over several chunks): passes over chunks of ``chunk`` candidates,
+    each keeping its chunk's ``n_buf`` best first instances in slot order,
+    until one chunk holds a row; equal to :func:`beam_merge_plain` when
+    valid copies of a token carry one log-prob (the merge's inputs do)."""
+    chunk = merge_chunk(n_buf) if chunk is None else chunk
+    lead = top_tok.shape[:-1]
+    dev = top_tok.device
+    if buf is None:
+        buf = (torch.zeros((*lead, n_buf), dtype=torch.int32, device=dev),
+               torch.full((*lead, n_buf), NEG_INF, dtype=torch.float32, device=dev),
+               torch.zeros((*lead, n_buf), dtype=torch.bool, device=dev))
+    tok = torch.cat([buf[0], top_tok, slab_tok], -1)
+    lp = torch.cat([buf[1], top_lp, slab_lp], -1)
+    ok = torch.cat([buf[2], top_ok & (top_lp > NEG_INF / 2), slab_ok & (slab_lp > NEG_INF / 2)],
+                   -1)
+    slot = torch.arange(tok.shape[-1], dtype=torch.int32, device=dev).expand(tok.shape)
+    while True:
+        width = tok.shape[-1]
+        parts = []
+        for c0 in range(0, width, chunk):
+            t, l, o, sl = (x[..., c0:c0 + chunk] for x in (tok, lp, ok, slot))
+            uniq = torch.where(o, t, vocab + sl)
+            fresh = o & dedup_mask(uniq)
+            rank = torch.where(fresh, l, NEG_INF)
+            keep = min(n_buf, t.shape[-1])
+            idx = top_by_score_then_id(rank, uniq, keep) if ties else row_topk_plain(rank, keep)[1]
+            if width <= chunk:  # the last pass
+                return _g(t, idx), _g(l, idx), _g(fresh, idx)
+            idx = idx.sort(-1).values  # slot order
+            parts.append((_g(t, idx), _g(l, idx), _g(o, idx), _g(sl, idx)))
+        tok, lp, ok, slot = (torch.cat(p, -1) for p in zip(*parts))
+
+
 def beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: int,
                n_buf: int, ties: bool = False):
     """One proposal round's merge, per beam row.
@@ -166,7 +232,11 @@ def beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: 
     equal log-probs keep slot order, or with ``ties`` the order of their
     dedup ids (the token if valid, else ``vocab`` + slot).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel: one
+    CTA a row while the row's candidates fit its shared memory (n <= 8,192,
+    4,096 under ``ties``, by ``seal_beam_merge_smem``), else the large-n
+    route (passes of :func:`merge_chunk` candidates a CTA,
+    ``beam_merge_large_plain``; n_buf up to 4,096, 2,048 under ``ties``).
     ``top_tok``/``top_lp`` and ``top_ok`` may be row-strided views.
     """
     if not top_tok.is_cuda:
@@ -178,8 +248,11 @@ def beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: 
     n_top, n_slab = top_tok.shape[-1], slab_tok.shape[-1]
     rows = top_tok[..., 0].numel()
     n = n_buf + n_top + n_slab
+    chunk = n  # one CTA a row where the row fits, else passes of merge_chunk
     if build.lib().seal_beam_merge_smem(n, int(ties)) > build.SMEM_LIMIT:
-        raise ValueError(f"beam_merge: {n} candidates per row exceed the shared memory")
+        chunk = merge_chunk(n_buf)
+        if build.lib().seal_beam_merge_smem(chunk, int(ties)) > build.SMEM_LIMIT:
+            raise ValueError(f"beam_merge: a buffer of {n_buf} exceeds the large-n route's chunks")
     top_stride = _row_stride(top_tok, "top_tok")
     if _row_stride(top_lp, "top_lp") != top_stride:
         raise ValueError("beam_merge: top_tok and top_lp need one row stride")
@@ -197,13 +270,27 @@ def beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: 
     out_lp = torch.empty((*lead, n_buf), dtype=torch.float32, device=dev)
     out_valid = torch.empty((*lead, n_buf), dtype=torch.bool, device=dev)
     ptr = (lambda i: buf[i].data_ptr()) if buf is not None else (lambda i: None)
-    rc = build.lib().seal_beam_merge(
-        ptr(0), ptr(1), ptr(2), top_tok.data_ptr(), top_lp.data_ptr(), top_ok.data_ptr(),
-        top_stride, ok_stride, slab_tok.data_ptr(), slab_lp.data_ptr(), slab_ok.data_ptr(),
-        rows, n_buf, n_top, n_slab, vocab, int(ties), NEG_INF, out_tok.data_ptr(),
-        out_lp.data_ptr(), out_valid.data_ptr(), build.stream_ptr(top_tok),
-    )
-    build.check(rc, "beam_merge")
+    src = (ptr(0), ptr(1), ptr(2), top_tok.data_ptr(), top_lp.data_ptr(), top_ok.data_ptr(),
+           top_stride, ok_stride, slab_tok.data_ptr(), slab_lp.data_ptr(), slab_ok.data_ptr())
+    stream = build.stream_ptr(top_tok)
+    # a pass per width: survivors (tok, lp, ok, slot) [rows, width] between passes
+    widths = merge_widths(n, n_buf, chunk)
+    prev = (None, None, None, None)
+    for width, nxt in zip(widths, widths[1:] + [None]):
+        if nxt is None:
+            outs = (out_tok, out_lp, out_valid, None)
+        else:
+            outs = (torch.empty((rows, nxt), dtype=torch.int32, device=dev),
+                    torch.empty((rows, nxt), dtype=torch.float32, device=dev),
+                    torch.empty((rows, nxt), dtype=torch.bool, device=dev),
+                    torch.empty((rows, nxt), dtype=torch.int32, device=dev))
+        rc = build.lib().seal_beam_merge(
+            *src, n_top, n_slab, *(t.data_ptr() if t is not None else None for t in prev),
+            rows, width, chunk, n_buf, vocab, int(ties), NEG_INF,
+            *(t.data_ptr() if t is not None else None for t in outs), stream)
+        build.check(rc, "beam_merge")
+        prev = outs
+    MERGE_LARGE.launches += len(widths) > 1
     beam_merge.launches += 1
     TIES.launches += int(ties)
     return out_tok, out_lp, out_valid

@@ -75,8 +75,9 @@ SIGNATURES = {
     # valid, lp_out, stream
     "seal_window_gather_sharded": [_P, _L, _I, _P, _L, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
     # x, n_rows, width, k, threads, splits, slice, staged, cap, n2, region,
-    # smem (kernels/row_topk.py:plan), vals, idx, stream
-    "seal_row_topk": [_P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # smem (kernels/row_topk.py:plan), scratch (None: the shared sort), vals,
+    # idx, stream
+    "seal_row_topk": [_P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # bwt, bucket_occ, lo, hi, out, n, n_rows, bucket_rows, bucket_size,
     # n_buckets, stream
     "seal_bucket_counts": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
@@ -86,10 +87,12 @@ SIGNATURES = {
     # logits, targets, out, n, T, V, n_prefix, stream
     "seal_rescore_logprob": [_P, _P, _P, _L, _I, _I, _I, _P],
     # buf_tok, buf_lp, buf_valid, top_tok, top_lp, top_ok, top_stride,
-    # top_ok_stride, slab_tok, slab_lp, slab_ok, rows, n_buf, n_top, n_slab,
-    # vocab, ties, neg_inf, out_tok, out_lp, out_valid, stream
-    "seal_beam_merge": [_P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F,
-                        _P, _P, _P, _P],
+    # top_ok_stride, slab_tok, slab_lp, slab_ok, n_top, n_slab, in_tok, in_lp,
+    # in_ok, in_slot (None: the first pass), rows, width, chunk, n_buf, vocab,
+    # ties, neg_inf, out_tok, out_lp, out_ok, out_slot (None: the last pass),
+    # stream
+    "seal_beam_merge": [_P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                        _L, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
     # buf_tok, buf_lp, buf_valid, win_tok, win_valid, win_lp, eos_ok,
     # eos_ok_stride, lp, lp_stride, prev_count, finished, beam_scores, need,
     # th_lp, n_queries, n_par, n_buf, w, k, eos, pad, stop_at_count,
@@ -104,9 +107,10 @@ SIGNATURES = {
     "seal_beam_select_top": [_P, _P, _P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _F] + [_P] * 10,
     # q, k, v, bias, rel_table, rel_bf16, rel_bucket, out, n_queries, group,
     # heads, m, head_dim, q_stride, kv_row_stride, bias_stride, dtype (0 f32,
-    # 1 bf16), stream
+    # 1 bf16), route (kernels/decode_attention.py:ROUTE_CODES), heads a CTA,
+    # stream
     "seal_decode_attention": [_P, _P, _P, _P, _P, _I, _P, _P, _L, _I, _I, _I, _I, _L, _L, _L,
-                              _I, _P],
+                              _I, _I, _I, _P],
     # table (host array of 2*n_tensors pointers), n_tensors, index, rows,
     # src_rows, copy_bytes, row_bytes, stream
     "seal_reorder_cache": [_P, _I, _P, _L, _L, _L, _L, _P],
@@ -131,8 +135,8 @@ SIGNATURES = {
     # table (sa or beginnings), n_table, in, n, search (0 gather, 1 search),
     # out, stream
     "seal_locate": [_P, _I, _P, _L, _I, _P, _P],
-    # x, n_rows, width, k, kth_only, vals, idx, kth, stream
-    "seal_row_select": [_P, _L, _I, _I, _I, _P, _P, _P, _P],
+    # x, n_rows, width, k, kth, stream
+    "seal_row_kth": [_P, _L, _I, _I, _P, _P],
     # buf_tok, buf_lp, buf_valid, win_tok, win_valid, win_lp, eos_ok,
     # eos_ok_stride, lp, lp_stride, prev_count, finished, rows, n_buf, w, eos,
     # pad, stop_at_count, always_allow_eos, keep_invalid, neg_inf, tok, cons,
@@ -153,7 +157,7 @@ SIGNATURES = {
 # C functions that return a size rather than an error code
 SIZE_QUERIES = {"seal_beam_merge_smem": [_I, _I], "seal_beam_select_smem": [_I, _I, _I, _I],
                 "seal_beam_select_large_smem": [_I, _I, _I, _I, _I],
-                "seal_decode_attention_smem": [_I, _I, _I], "seal_row_select_max_k": [],
+                "seal_decode_attention_smem": [_I, _I, _I],
                 "seal_row_topk_max_k": [], "seal_row_topk_bins_bytes": [],
                 "seal_diverse_chunks": [_I], "seal_diverse_smem": [_I, _I, _I]}
 

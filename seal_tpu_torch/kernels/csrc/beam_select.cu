@@ -24,9 +24,9 @@
 // order by slot, as the plain version's stable sort does.
 //
 // Bound on the card: latency.  A CTA handles a few hundred to a few thousand
-// candidates; the O(n^2 / 2) first-instance dedup within a beam and the
-// log2(n)^2 / 2 barrier-separated sort stages are its cost, and the inputs
-// are read once.
+// candidates; the log2(n)^2 / 2 barrier-separated stages of its sorts are
+// its cost (the merge's first-instance dedup is a sort too, first_instances;
+// the selection's is per beam), and the inputs are read once.
 //
 // Two modes for the decode modes of _candidates_general (:305): select with
 // keep_invalid (speculative, :343-367) takes a buffer slot that failed
@@ -44,35 +44,100 @@ namespace {
 
 // ---------------------------------------------------------------- merge
 
-// One CTA per beam row.  Candidates in order: buffer [n_buf] (absent on
-// round 0: token 0, NEG_INF, invalid), LM top [n_top], slab [n_slab].  An
-// invalid slot never shadows a valid copy (its dedup id is unique); a valid
-// LM or slab slot needs lp > NEG_INF/2.  Keeps n_buf by (lp if valid and
-// first instance, else NEG_INF), ties to the lower slot, or with TIES to
-// the lower dedup id (token if valid, else vocab + slot).
+// First instances by a sort, not by comparing every pair (O(n log^2 n),
+// where the pairs cost O(n^2): 8M comparisons a CTA at 4,096 candidates).
+// A valid candidate's key is (uid + 1) << 32 | its index, an invalid one's
+// (whose uid is its own) 0xffffffff << 32 | index, padding 0: sorted
+// descending, each uid's run lies together with its smallest index last,
+// and that index is the first instance.  vf[i] gets (valid and first
+// instance); keys[n, n2) are 0 again on return.
+__device__ __forceinline__ u64 dedup_key(int uid, int i) {
+  return ((u64)(uid >= 0 ? (unsigned)uid + 1u : 0xffffffffu) << 32) | (unsigned)i;
+}
+
+__device__ void first_instances(u64* keys, int n2, unsigned char* vf) {
+  sort_desc<false>(keys, nullptr, n2);
+  for (int p = threadIdx.x; p < n2; p += blockDim.x) {
+    const u64 k = keys[p];
+    if (k == 0ull) continue;
+    const unsigned uf = (unsigned)(k >> 32);
+    const unsigned nxt = p + 1 < n2 ? (unsigned)(keys[p + 1] >> 32) : 0u;
+    vf[(unsigned)k] = uf != 0xffffffffu && uf != nxt ? 1 : 0;
+  }
+  __syncthreads();
+}
+
+// The merge.  Candidates of a beam row in slot order: buffer [n_buf]
+// (absent on round 0: token 0, NEG_INF, invalid), LM top [n_top], slab
+// [n_slab].  An invalid slot never shadows a valid copy (its dedup id is
+// unique); a valid LM or slab slot needs lp > NEG_INF/2.  Keeps n_buf by
+// (lp if valid and first instance, else NEG_INF), ties to the lower slot,
+// or with TIES to the lower dedup id (token if valid, else vocab + slot).
+//
+// One pass: CTA (r, c) takes `chunk` consecutive candidates of row r,
+// dedups them (first instance within the chunk), keeps its n_buf best in
+// the merge's order and, where the row has more chunks, writes them out in
+// slot order with their global slot; passes repeat over the survivors
+// until one chunk holds a row, whose pass writes the merge's outputs.  A
+// row that fits one CTA's shared memory (n <= 8,192; 4,096 under TIES) is
+// one pass of one chunk.  The large-n case (sample=True with top_m >= 482,
+// exact_loop_chunk >= 4082 at beam 15, num_beams >= 241) takes chunks of
+// 4,096 (8,192 past n_buf 2,048), at least 2 n_buf, so a pass at least
+// halves a row.
+//
+// Exact because valid copies of one token in a row carry one log-prob:
+// the buffer, the LM top and the slab all take a token's log-prob from the
+// beam's lp row (constrained.py's merge_round; a valid slot needs lp >
+// NEG_INF/2, and the loop's consumed tokens, NEG_INF in `work`, are never
+// valid).  So a token's first instance ranks ahead of its copies, in (lp
+// desc, slot asc) and, under TIES, in (lp desc, dedup id asc) order, and
+// every chunk-fresh token above a candidate maps to a distinct globally
+// fresh token above it: a candidate among the row's n_buf best (or among
+// the unfilled slots that follow them, in their order) is among its
+// chunk's n_buf best, and a survivor that is fresh in a later pass only
+// because its first instance was dropped ranks below n_buf fresh ones.
+// Each pass's input is in slot order, so a chunk's local order is its slot
+// order.  kernels/beam_select.py:beam_merge_large_plain is the
+// specification.
 template <bool TIES>
-__global__ void merge_kernel(const int* buf_tok, const float* buf_lp, const unsigned char* buf_valid,
-                             const int* top_tok, const float* top_lp, const unsigned char* top_ok,
-                             long long top_stride, long long top_ok_stride, const int* slab_tok,
-                             const float* slab_lp, const unsigned char* slab_ok, int n_buf,
-                             int n_top, int n_slab, int n2, int vocab, float neg_inf, int* out_tok,
-                             float* out_lp, unsigned char* out_valid) {
+__global__ void merge_kernel(
+    const int* buf_tok, const float* buf_lp, const unsigned char* buf_valid, const int* top_tok,
+    const float* top_lp, const unsigned char* top_ok, long long top_stride,
+    long long top_ok_stride, const int* slab_tok, const float* slab_lp,
+    const unsigned char* slab_ok, int n_top, int n_slab, const int* in_tok, const float* in_lp,
+    const unsigned char* in_ok, const int* in_slot, int width, int chunk, int n_chunks, int n2,
+    int n_buf, int vocab, float neg_inf, int* out_tok, float* out_lp, unsigned char* out_ok,
+    int* out_slot) {
   extern __shared__ unsigned long long smem[];
-  const int n = n_buf + n_top + n_slab;
-  u64* keys = smem;
-  int* s_slot = (int*)(keys + n2);  // TIES only
-  int* s_tok = s_slot + (TIES ? n2 : 0);
-  int* s_uid = s_tok + n;
-  float* s_lp = (float*)(s_uid + n);
-  unsigned char* s_vf = (unsigned char*)(s_lp + n);
-  const long long r = blockIdx.x;
+  u64* keys = smem;                             // [n2]
+  int* s_idx = (int*)(keys + n2);               // [n2] TIES only: local index beside its key
+  int* s_tok = s_idx + (TIES ? n2 : 0);         // [chunk]
+  int* s_uid = s_tok + chunk;                   // [chunk]; then the kept local indices
+  int* s_slot = s_uid + chunk;                  // [chunk]
+  float* s_lp = (float*)(s_slot + chunk);       // [chunk]
+  unsigned char* s_ok = (unsigned char*)(s_lp + chunk);  // [chunk]
+  unsigned char* s_vf = s_ok + chunk;           // [chunk]
+  const long long r = blockIdx.x / n_chunks;
+  const int c = (int)(blockIdx.x % n_chunks);
+  const int j0 = c * chunk;
+  const int n = min(chunk, width - j0);
+  const int keep = min(n_buf, n);
+  const bool last = n_chunks == 1;
   const float live = neg_inf / 2.0f;
 
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    int tok;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int j = j0 + i;
+    int tok, slot;
     float lp;
     bool ok;
-    if (j < n_buf) {
+    if (in_tok != nullptr) {  // a later pass: the survivors, in slot order
+      const long long at = r * width + j;
+      tok = in_tok[at];
+      lp = in_lp[at];
+      ok = in_ok[at] != 0;
+      slot = in_slot[at];
+    } else if (j < n_buf) {  // the first pass: the round's own candidates
+      slot = j;
       if (buf_tok != nullptr) {
         tok = buf_tok[r * n_buf + j];
         lp = buf_lp[r * n_buf + j];
@@ -83,47 +148,62 @@ __global__ void merge_kernel(const int* buf_tok, const float* buf_lp, const unsi
         ok = false;
       }
     } else if (j < n_buf + n_top) {
-      const int i = j - n_buf;
-      tok = top_tok[r * top_stride + i];
-      lp = top_lp[r * top_stride + i];
-      ok = top_ok[r * top_ok_stride + i] != 0 && lp > live;
+      slot = j;
+      const int t = j - n_buf;
+      tok = top_tok[r * top_stride + t];
+      lp = top_lp[r * top_stride + t];
+      ok = top_ok[r * top_ok_stride + t] != 0 && lp > live;
     } else {
-      const int i = j - n_buf - n_top;
-      tok = slab_tok[r * n_slab + i];
-      lp = slab_lp[r * n_slab + i];
-      ok = slab_ok[r * n_slab + i] != 0 && lp > live;
+      slot = j;
+      const int t = j - n_buf - n_top;
+      tok = slab_tok[r * n_slab + t];
+      lp = slab_lp[r * n_slab + t];
+      ok = slab_ok[r * n_slab + t] != 0 && lp > live;
     }
-    s_tok[j] = tok;
-    s_lp[j] = lp;
-    s_uid[j] = ok ? tok : -1 - j;  // valid tokens are >= 0
-    if (TIES) s_slot[j] = j;
+    s_tok[i] = tok;
+    s_lp[i] = lp;
+    s_ok[i] = ok ? 1 : 0;
+    s_slot[i] = slot;
+    s_uid[i] = ok ? tok : -1 - i;  // valid tokens are >= 0
+    keys[i] = dedup_key(s_uid[i], i);
+    if (TIES) s_idx[i] = i;
   }
-  for (int j = n + threadIdx.x; j < n2; j += blockDim.x) {
-    keys[j] = 0ull;
-    if (TIES) s_slot[j] = 0x7fffffff;
+  for (int i = n + threadIdx.x; i < n2; i += blockDim.x) {
+    keys[i] = 0ull;
+    if (TIES) s_idx[i] = 0x7fffffff;
   }
+  first_instances(keys, n2, s_vf);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int u = s_uid[i];
+    // ties among equal scores: the local index (the slot order), or under
+    // TIES the dedup id, then the local index
+    keys[i] = pack(s_vf[i] ? s_lp[i] : neg_inf, TIES ? (u >= 0 ? u : vocab + s_slot[i]) : i);
+  }
+  sort_desc<TIES>(keys, s_idx, n2);
+  if (last) {
+    for (int t = threadIdx.x; t < n_buf; t += blockDim.x) {
+      const int i = TIES ? s_idx[t] : key_slot(keys[t]);
+      out_tok[r * n_buf + t] = s_tok[i];
+      out_lp[r * n_buf + t] = s_lp[i];
+      out_ok[r * n_buf + t] = s_vf[i];
+    }
+    return;
+  }
+  // the kept candidates in slot order: each one's place is the number of
+  // kept ones before it
+  int* kept = s_uid;  // the dedup ids are no longer read
+  for (int t = threadIdx.x; t < keep; t += blockDim.x) kept[t] = TIES ? s_idx[t] : key_slot(keys[t]);
   __syncthreads();
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const int u = s_uid[j];
-    bool fresh = true;
-    if (u >= 0) {
-      for (int i = 0; i < j; ++i) {
-        if (s_uid[i] == u) {
-          fresh = false;
-          break;
-        }
-      }
-    }
-    const bool vf = u >= 0 && fresh;
-    s_vf[j] = vf ? 1 : 0;
-    keys[j] = pack(vf ? s_lp[j] : neg_inf, TIES ? (u >= 0 ? u : vocab + j) : j);
-  }
-  sort_desc<TIES>(keys, s_slot, n2);
-  for (int t = threadIdx.x; t < n_buf; t += blockDim.x) {
-    const int j = TIES ? s_slot[t] : key_slot(keys[t]);
-    out_tok[r * n_buf + t] = s_tok[j];
-    out_lp[r * n_buf + t] = s_lp[j];
-    out_valid[r * n_buf + t] = s_vf[j];
+  const int out_width = (n_chunks - 1) * n_buf + min(n_buf, width - (n_chunks - 1) * chunk);
+  for (int t = threadIdx.x; t < keep; t += blockDim.x) {
+    const int i = kept[t];
+    int at = 0;
+    for (int u = 0; u < keep; ++u) at += kept[u] < i;
+    const long long o = r * out_width + (long long)c * n_buf + at;
+    out_tok[o] = s_tok[i];
+    out_lp[o] = s_lp[i];
+    out_ok[o] = s_ok[i];
+    out_slot[o] = s_slot[i];
   }
 }
 
@@ -482,9 +562,10 @@ __global__ void select_top_kernel(const float* top_cons, const long long* top_id
 extern "C" {
 
 // Shared memory each mode needs (bytes); the wrapper refuses shapes past
-// the card's 227 KB.  The ties mode adds each key's slot.
-long long seal_beam_merge_smem(int n, int ties) {
-  return (ties ? 12LL : 8LL) * pow2_at_least(n) + 13LL * n;
+// the card's 227 KB.  The ties mode adds each key's slot.  The merge: a
+// chunk of `chunk` candidates a CTA.
+long long seal_beam_merge_smem(int chunk, int ties) {
+  return (ties ? 12LL : 8LL) * pow2_at_least(chunk) + 18LL * chunk;
 }
 
 long long seal_beam_select_smem(int n, int two_k, int k_out, int ties) {
@@ -500,23 +581,33 @@ long long seal_beam_select_large_smem(int n_par, int ncand, int two_k, int k_out
   return beams > finish ? beams : finish;
 }
 
-int seal_beam_merge(const int* buf_tok, const float* buf_lp, const unsigned char* buf_valid,
-                    const int* top_tok, const float* top_lp, const unsigned char* top_ok,
-                    long long top_stride, long long top_ok_stride, const int* slab_tok,
-                    const float* slab_lp, const unsigned char* slab_ok, long long rows, int n_buf,
-                    int n_top, int n_slab, int vocab, int ties, float neg_inf, int* out_tok,
-                    float* out_lp, unsigned char* out_valid, void* stream) {
+// One pass of the merge over [rows, width] candidates: the first pass
+// reads the round's buffer, LM top and slab (in_tok null; width = n_buf +
+// n_top + n_slab), a later one the previous pass's survivors.  The last
+// pass (one chunk a row) writes out_tok / out_lp / out_ok; the others
+// write survivors with their slots.
+int seal_beam_merge(const int* buf_tok, const float* buf_lp,
+                          const unsigned char* buf_valid, const int* top_tok,
+                          const float* top_lp, const unsigned char* top_ok, long long top_stride,
+                          long long top_ok_stride, const int* slab_tok, const float* slab_lp,
+                          const unsigned char* slab_ok, int n_top, int n_slab, const int* in_tok,
+                          const float* in_lp, const unsigned char* in_ok, const int* in_slot,
+                          long long rows, int width, int chunk, int n_buf, int vocab, int ties,
+                          float neg_inf, int* out_tok, float* out_lp, unsigned char* out_ok,
+                          int* out_slot, void* stream) {
   if (rows <= 0) return (int)cudaGetLastError();
-  const int n = n_buf + n_top + n_slab;
-  const int n2 = pow2_at_least(n);
-  const size_t smem = (size_t)seal_beam_merge_smem(n, ties);
+  if (chunk < n_buf || width < n_buf) return (int)cudaErrorInvalidValue;
+  const int n_chunks = (width + chunk - 1) / chunk;
+  const int n2 = pow2_at_least(chunk);
+  const size_t smem = (size_t)seal_beam_merge_smem(chunk, ties);
   const auto kernel = ties ? merge_kernel<true> : merge_kernel<false>;
   const int rc = set_smem(kernel, smem);
   if (rc) return rc;
   const int threads = n2 >= 1024 ? 512 : 256;
-  kernel<<<(unsigned)rows, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)(rows * n_chunks), threads, smem, (cudaStream_t)stream>>>(
       buf_tok, buf_lp, buf_valid, top_tok, top_lp, top_ok, top_stride, top_ok_stride, slab_tok,
-      slab_lp, slab_ok, n_buf, n_top, n_slab, n2, vocab, neg_inf, out_tok, out_lp, out_valid);
+      slab_lp, slab_ok, n_top, n_slab, in_tok, in_lp, in_ok, in_slot, width, chunk, n_chunks, n2,
+      n_buf, vocab, neg_inf, out_tok, out_lp, out_ok, out_slot);
   return (int)cudaGetLastError();
 }
 

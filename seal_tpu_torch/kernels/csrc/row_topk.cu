@@ -44,6 +44,18 @@
 // inside a warp by shuffles, wider ones in shared memory), and writes them
 // out.
 //
+// Past k = 16384 (seal_row_topk_max_k) the leader's buffer no longer fits in
+// shared memory: the CTAs append their words to a global scratch row of
+// n2 = pow2(k) words instead, and a bitonic sort in global memory orders
+// it (sort_tiles sorts 8192-word tiles in shared memory; then, for each
+// larger size, merge_global runs the strides of a tile and wider, one
+// launch each, and merge_tile the narrower ones inside a tile, and the
+// last of these writes the output).  The words are unique, so the order
+// is total and the output equals the plain version bit for bit.  This
+// route moves each survivor through device memory 2 + 2 * (global passes)
+// times: it serves the rare knobs that ask for such k (an
+// exact_loop_chunk past 16384), not the decode path's k.
+//
 // A slice longer than the shared memory (rows wider than 16 slices hold,
 // e.g. a beam-32 dense row) reads its tail twice: pass 1 histograms it,
 // pass 2 histograms it again and compacts its keys at or above the first
@@ -256,7 +268,8 @@ __device__ void sort_survivors(u64* w, int n2) {
 template <int THREADS>
 __global__ void __launch_bounds__(THREADS, 1024 / THREADS)
 row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int staged, int cap,
-                int n2, int region, float* __restrict__ vals, long long* __restrict__ idx) {
+                int n2, int region, u64* __restrict__ gbuf, float* __restrict__ vals,
+                long long* __restrict__ idx) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Threshold s_res;
   __shared__ unsigned s_fill, s_ncand, s_red, s_take;
@@ -270,11 +283,14 @@ row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int st
 
   unsigned* bins = (unsigned*)smem;
   unsigned* hist = bins + HIST;
-  u64* buf = (u64*)(8 * n2 <= 4 * TOT2 ? smem : smem + BINS_BYTES);
+  // the survivors' buffer: the leader's shared memory, or (gbuf) the row's
+  // global scratch, which every CTA of the row writes directly
+  u64* buf = gbuf != nullptr ? gbuf + row * n2
+                             : (u64*)(8 * n2 <= 4 * TOT2 ? smem : smem + BINS_BYTES);
   unsigned* skey = (unsigned*)(smem + region);
   u64* scand = (u64*)(skey + ((staged + 3) & ~3));
   unsigned* bins0 = cluster.map_shared_rank(bins, 0);
-  u64* buf0 = cluster.map_shared_rank(buf, 0);
+  u64* buf0 = gbuf != nullptr ? buf : cluster.map_shared_rank(buf, 0);
   unsigned* fill0 = cluster.map_shared_rank(&s_fill, 0);
 
   const long long s0 = (long long)c * slice;
@@ -503,6 +519,10 @@ row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int st
   // histogram any more
   sync_cluster(C);
   if (!leader) return;
+  if (gbuf != nullptr) {  // padding for the global sort (the survivors fill [0, k))
+    for (int j = k + tid; j < n2; j += THREADS) buf[j] = 0ull;
+    return;
+  }
   if (k <= RANK_MAX) {
     // each survivor's place is the number of survivors above it (words are
     // unique): k read passes over the buffer, cheaper than a sort at small k
@@ -525,9 +545,94 @@ row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int st
   }
 }
 
+// ---- the global sort of the large-k route --------------------------------
+constexpr int GTILE = 8192;     // words of a tile sorted in shared memory (64 KB)
+constexpr int GTHREADS = 1024;  // threads of a tile's block
+
+__device__ __forceinline__ void cmp_swap(u64* w, int lo, int hi, bool desc) {
+  const u64 a = w[lo], b = w[hi];
+  if (desc ? a < b : a > b) {
+    w[lo] = b;
+    w[hi] = a;
+  }
+}
+
+// The strides < GTILE of bitonic sizes lo_size .. hi_size inside one tile
+// of a row's n2 words (block b: tile b % (n2 / GTILE) of row b / (n2 /
+// GTILE)), descending where the row index's `size` bit is 0.  With `last`
+// the tile's words go out as values and indices (j < k) instead of back.
+__global__ void __launch_bounds__(GTHREADS)
+sort_tile_kernel(u64* __restrict__ gbuf, int n2, int lo_size, int hi_size, int k, int last,
+                 float* __restrict__ vals, long long* __restrict__ idx) {
+  extern __shared__ u64 tile[];
+  const int tiles = n2 / GTILE;
+  const long long row = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x % tiles) * GTILE;  // the tile's first index in the row
+  u64* w = gbuf + row * n2 + t0;
+  for (int j = threadIdx.x; j < GTILE; j += GTHREADS) tile[j] = w[j];
+  for (int size = lo_size; size <= hi_size; size <<= 1) {
+    for (int stride = min(size, GTILE) >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      for (int t = threadIdx.x; t < GTILE / 2; t += GTHREADS) {
+        const int lo = 2 * t - (t & (stride - 1));
+        cmp_swap(tile, lo, lo + stride, ((t0 + lo) & size) == 0);
+      }
+    }
+  }
+  __syncthreads();
+  if (!last) {
+    for (int j = threadIdx.x; j < GTILE; j += GTHREADS) w[j] = tile[j];
+    return;
+  }
+  for (int j = threadIdx.x; j < GTILE && t0 + j < k; j += GTHREADS) {
+    vals[row * k + t0 + j] = key_value(tile[j]);
+    idx[row * k + t0 + j] = (long long)key_slot(tile[j]);
+  }
+}
+
+// One stride >= GTILE of bitonic size `size`: a thread a pair.
+__global__ void merge_global_kernel(u64* __restrict__ gbuf, int n2, int size, int stride,
+                                    long long pairs) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= pairs) return;
+  const long long row = p / (n2 / 2);
+  const int t = (int)(p % (n2 / 2));
+  const int lo = 2 * t - (t & (stride - 1));
+  cmp_swap(gbuf + row * n2, lo, lo + stride, (lo & size) == 0);
+}
+
+// The bitonic network over [rows, n2] words (n2 a power of two > GTILE)
+// after the select kernel filled them; writes the first k of each row.
+int global_sort(u64* gbuf, long long n_rows, int n2, int k, float* vals, long long* idx,
+                cudaStream_t stream) {
+  constexpr int SMEM = GTILE * 8;
+  constexpr int MAX_DEVICES = 64;
+  static int smem_set[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(sort_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = 1;
+  }
+  const unsigned blocks = (unsigned)(n_rows * (n2 / GTILE));
+  sort_tile_kernel<<<blocks, GTHREADS, SMEM, stream>>>(gbuf, n2, 2, GTILE, k, 0, vals, idx);
+  const long long pairs = n_rows * (n2 / 2);
+  for (int size = 2 * GTILE; size <= n2; size <<= 1) {
+    for (int stride = size >> 1; stride >= GTILE; stride >>= 1)
+      merge_global_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(gbuf, n2, size,
+                                                                               stride, pairs);
+    sort_tile_kernel<<<blocks, GTHREADS, SMEM, stream>>>(gbuf, n2, size, size, k, size == n2,
+                                                         vals, idx);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int THREADS>
 int launch(const float* x, long long n_rows, int width, int k, int splits, int slice, int staged,
-           int cap, int n2, int region, int smem, float* vals, long long* idx,
+           int cap, int n2, int region, int smem, u64* gbuf, float* vals, long long* idx,
            cudaStream_t stream) {
   const auto kernel = row_topk_kernel<THREADS>;
   // the kernel's attributes, set once a device (the host path is part of a
@@ -557,51 +662,59 @@ int launch(const float* x, long long n_rows, int width, int k, int splits, int s
     // a cluster of one CTA: a plain launch (cudaLaunchKernelEx with a
     // cluster attribute costs the host more)
     kernel<<<(unsigned)n_rows, THREADS, smem, stream>>>(x, width, k, slice, staged, cap, n2,
-                                                        region, vals, idx);
-    return (int)cudaGetLastError();
+                                                        region, gbuf, vals, idx);
+    err = cudaGetLastError();
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(n_rows * splits));
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)splits;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, x, width, k, slice, staged, cap, n2, region, gbuf,
+                             vals, idx);
+    if (err == cudaSuccess) err = cudaGetLastError();
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(n_rows * splits));
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, x, width, k, slice, staged, cap, n2, region, vals, idx);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess || gbuf == nullptr) return (int)err;
+  return global_sort(gbuf, n_rows, n2, k, vals, idx, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest k: the leader's sort buffer of 16384 words (128 KB).
+// Largest k sorted in shared memory: the leader's sort buffer of 16384
+// words (128 KB).  Past it the large-k route sorts in global memory.
 long long seal_row_topk_max_k() { return 16384; }
 
 // Bytes of bins before the staged keys (kernels/row_topk.py:plan's region):
 // the leader's output buffer reuses them where n2 <= 2048.
 long long seal_row_topk_bins_bytes() { return BINS_BYTES; }
 
-// One launch: n_rows clusters of `splits` CTAs of `threads` (512 or 1024)
-// threads (kernels/row_topk.py:plan gives the layout).
+// One call: n_rows clusters of `splits` CTAs of `threads` (512 or 1024)
+// threads (kernels/row_topk.py:plan gives the layout), one launch; with
+// `scratch` ([n_rows, n2] words, k > 16384) the select kernel fills it and
+// the global sort's launches follow.
 int seal_row_topk(const float* x, long long n_rows, int width, int k, int threads, int splits,
-                  int slice, int staged, int cap, int n2, int region, int smem, float* vals,
-                  long long* idx, void* stream) {
+                  int slice, int staged, int cap, int n2, int region, int smem, u64* scratch,
+                  float* vals, long long* idx, void* stream) {
   if (n_rows <= 0) return (int)cudaGetLastError();
-  if (splits < 1 || splits > 16 || k > seal_row_topk_max_k() || (threads != 512 && threads != 1024))
+  if (splits < 1 || splits > 16 || (threads != 512 && threads != 1024) ||
+      (scratch == nullptr) != (k <= seal_row_topk_max_k()) ||
+      (scratch != nullptr && (n2 < k || n2 % GTILE != 0)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (threads == 1024)
-    return launch<1024>(x, n_rows, width, k, splits, slice, staged, cap, n2, region, smem, vals,
-                        idx, s);
-  return launch<512>(x, n_rows, width, k, splits, slice, staged, cap, n2, region, smem, vals, idx,
-                     s);
+    return launch<1024>(x, n_rows, width, k, splits, slice, staged, cap, n2, region, smem,
+                        scratch, vals, idx, s);
+  return launch<512>(x, n_rows, width, k, splits, slice, staged, cap, n2, region, smem, scratch,
+                     vals, idx, s);
 }
 
 }  // extern "C"

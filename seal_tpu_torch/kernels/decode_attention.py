@@ -17,20 +17,33 @@
 
 The inputs are the plain code's: q after the query projection and scaling
 [rows, H, Dh], K/V [Bq, M, H, Dh] (a cache may have more rows and columns
-than are used), the additive f32 bias [Bq, M] (0 or -1e9); M may be as
-long as the encoder's positions, since the kernel stages them in tiles and
-its shared memory does not grow with M.  Scores and
+than are used), the additive f32 bias [Bq, M] (0 or -1e9).  Scores and
 softmax in f32, the probabilities rounded to the compute dtype before PV,
 PV accumulated in f32 (the plain einsums' numerics).  The sum orders
 differ, so a bf16 output may differ from the plain version's by one ulp plus
 one bf16 step of any probability (``bf16_error_ratio``).
+
+A call takes one of four routes (:func:`route`, ``csrc/decode_attention.cu``
+states each one's limits): ``warp`` for one beam a query (kernel 10, and
+kernel 9 at step 0), ``mma`` for grouped bf16 (tensor cores, M split over a
+thread-block cluster), ``ffma`` for grouped f32 up to 64 positions, and the
+``tiled`` general route for the rest.  Each wrapper counts one launch a
+call; the route's counter (``ROUTES``) counts it too.
 """
 
 from __future__ import annotations
 
 import torch
 
+from seal_tpu_torch.kernels import Launches
+
 NEG_BIAS = -1e9  # BART's attention-mask bias (``models/bart.py``)
+FAST_HEAD_DIM = 64  # the head_dim of the warp, mma and ffma routes
+MMA_MAX_GROUP = 32  # beams a query on the mma and ffma routes (two m16 tiles)
+MMA_MAX_M = 1024  # positions on the mma route: a cluster of 16 CTAs of 64
+FFMA_MAX_M = 64  # positions on the ffma route: two a lane
+ROUTE_CODES = {"tiled": 0, "warp": 1, "mma": 2, "ffma": 3}
+ROUTES = {name: Launches() for name in ROUTE_CODES}  # launches by route
 
 
 def decode_attention_plain(q, k, v, bias, m: int | None = None, head_bias=None):
@@ -176,15 +189,6 @@ def self_attention_step_rel(q, k_cache, v_cache, step: int, table, buckets):
         return self_attention_rel_plain(q, k_cache, v_cache, step, table, buckets)
     if not 0 <= step < k_cache.shape[1]:
         raise ValueError(f"self_attention_step_rel: step {step} outside the cache")
-    heads = q.shape[1]
-    if (table.dtype not in (torch.float32, torch.bfloat16) or table.dim() != 2
-            or table.shape[1] != heads or not table.is_contiguous() or table.device != q.device):
-        raise ValueError(f"self_attention_step_rel: table must be f32 or bf16 [buckets, "
-                         f"{heads}] contiguous on {q.device}")
-    if (buckets.dtype != torch.int32 or buckets.dim() != 1 or buckets.numel() <= step
-            or not buckets.is_contiguous() or buckets.device != q.device):
-        raise ValueError(f"self_attention_step_rel: buckets must be int32 [> {step}] "
-                         f"contiguous on {q.device}")
     out = _launch(q, k_cache, v_cache, None, step + 1, rel=(table, buckets))
     self_attention_step_rel.launches += 1
     return out
@@ -193,7 +197,34 @@ def self_attention_step_rel(q, k_cache, v_cache, step: int, table, buckets):
 self_attention_step_rel.launches = 0
 
 
-def _launch(q, k, v, bias, m: int, rel=None):
+def route(group: int, m: int, head_dim: int, bf16: bool) -> str:
+    """The route of a call with ``group`` beams a query over ``m`` positions
+    (the caller's operands 16-byte aligned; else ``tiled``)."""
+    if head_dim != FAST_HEAD_DIM:
+        return "tiled"
+    if group == 1:
+        return "warp"
+    if group > MMA_MAX_GROUP:
+        return "tiled"
+    if bf16:
+        return "mma" if m <= MMA_MAX_M else "tiled"
+    return "ffma" if m <= FFMA_MAX_M else "tiled"
+
+
+def heads_a_cta(heads: int) -> int:
+    """Heads (warps) a CTA of the warp, mma and ffma routes: 4, 2 or 1,
+    dividing ``heads``, so that a CTA's reads of a position are contiguous."""
+    return next(h for h in (4, 2, 1) if heads % h == 0)
+
+
+_FN = _STREAM = None  # the C entry point and build.stream_ptr, looked up once
+_PLANS: dict = {}  # (shapes, strides, dtypes, devices, m, bias, rel) -> (route code, hpc)
+
+
+def _plan(q, k, v, bias, m: int, rel):
+    """Check a call's shapes once a layout; returns the route code and the
+    heads a CTA (the tiled route where the fast routes' 16-byte loads would
+    not line up with the row strides)."""
     from seal_tpu_torch.kernels import build
 
     rows, heads, head_dim = q.shape
@@ -209,23 +240,66 @@ def _launch(q, k, v, bias, m: int, rel=None):
             raise ValueError("decode attention: K/V rows must be [M, H, Dh] contiguous")
     if k.stride(0) != v.stride(0):
         raise ValueError("decode attention: K and V need one row stride")
-    g = rows // bq
-    if build.lib().seal_decode_attention_smem(g, m, head_dim) > build.SMEM_LIMIT:
-        raise ValueError(f"decode attention: {g} beams x head_dim {head_dim} exceed the shared "
-                         "memory")
     if bias is not None:
         if bias.dtype != torch.float32 or bias.shape != (bq, k.shape[1]) or bias.stride(1) != 1:
             raise ValueError(f"decode attention: bias must be f32 [{bq}, {k.shape[1]}]")
+    if rel is not None:
+        table, buckets = rel
+        if (table.dtype not in (torch.float32, torch.bfloat16) or table.dim() != 2
+                or table.shape[1] != heads or not table.is_contiguous()
+                or table.device != q.device):
+            raise ValueError(f"self_attention_step_rel: table must be f32 or bf16 [buckets, "
+                             f"{heads}] contiguous on {q.device}")
+        if (buckets.dtype != torch.int32 or buckets.dim() != 1 or buckets.numel() < m
+                or not buckets.is_contiguous() or buckets.device != q.device):
+            raise ValueError(f"self_attention_step_rel: buckets must be int32 [> {m - 1}] "
+                             f"contiguous on {q.device}")
+    g = rows // bq
+    bf16 = q.dtype == torch.bfloat16
+    name = route(g, m, head_dim, bf16)
+    vec = 8 if bf16 else 4  # elements of 16 bytes
+    if q.stride(0) % vec or k.stride(0) % vec:
+        name = "tiled"
+    if name == "tiled" and build.lib().seal_decode_attention_smem(g, m, head_dim) > build.SMEM_LIMIT:
+        raise ValueError(f"decode attention: {g} beams x head_dim {head_dim} exceed the shared "
+                         "memory")
+    return ROUTE_CODES[name], heads_a_cta(heads)
+
+
+def _launch(q, k, v, bias, m: int, rel=None):
+    global _FN, _STREAM
+    if _FN is None:
+        from seal_tpu_torch.kernels import build
+
+        _FN, _STREAM = build.lib().seal_decode_attention, build.stream_ptr
+    key = (q.shape, q.stride(), k.shape, k.stride(), v.stride(), q.dtype, k.dtype, v.dtype, m,
+           q.device, k.device, v.device,
+           None if bias is None else (bias.dtype, bias.shape, bias.stride(), bias.device),
+           None if rel is None else tuple((t.dtype, t.shape, t.stride(), t.device) for t in rel))
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = _plan(q, k, v, bias, m, rel)
+    code, hpc = plan
+    rows, heads, head_dim = q.shape
+    bq = k.shape[0]
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if code and (qp | kp | vp) & 15:
+        code = ROUTE_CODES["tiled"]  # a view off the 16-byte grid
     out = torch.empty((rows, heads, head_dim), dtype=q.dtype, device=q.device)
     table, buckets = rel if rel is not None else (None, None)
-    rc = build.lib().seal_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr() if bias is not None else None,
+    rc = _FN(
+        qp, kp, vp, bias.data_ptr() if bias is not None else None,
         table.data_ptr() if table is not None else None,
         int(table is not None and table.dtype == torch.bfloat16),
         buckets.data_ptr() if buckets is not None else None,
-        out.data_ptr(), bq, g, heads, m, head_dim, q.stride(0), k.stride(0),
-        bias.stride(0) if bias is not None else 0, int(q.dtype == torch.bfloat16),
-        build.stream_ptr(q),
+        out.data_ptr(), bq, rows // bq, heads, m, head_dim, q.stride(0), k.stride(0),
+        bias.stride(0) if bias is not None else 0, int(q.dtype == torch.bfloat16), code, hpc,
+        _STREAM(q),
     )
-    build.check(rc, "decode_attention")
+    if rc:
+        raise RuntimeError(f"decode_attention: CUDA error {rc}")
+    ROUTES[_NAMES[code]].launches += 1
     return out
+
+
+_NAMES = {code: name for name, code in ROUTE_CODES.items()}

@@ -9,6 +9,10 @@ order (so +0.0 ranks above -0.0), ties to the lower index.  The plain
 version is a stable descending sort of the order's integer key; the kernel
 equals it exactly.  The kernel is a split-row radix select whose work
 does not grow with k (see the source); :func:`plan` lays a call out.
+Since the decode modes' top-``top_m`` (free generation, the speculative
+round) came here from kernel 19, it serves those too.  Past k = 16384
+(``MAX_K``: an ``exact_loop_chunk`` that wide) the survivors are sorted
+in device memory by a bitonic network (``sort="global"``), exact as well.
 """
 
 from __future__ import annotations
@@ -18,14 +22,18 @@ from typing import NamedTuple
 
 import torch
 
+from seal_tpu_torch.kernels import Launches
+
 MAX_SPLITS = 16  # CTAs a row: a thread-block cluster, 16 non-portable
 MAX_K = 16384  # the leader CTA's sort buffer of 128 KB (seal_row_topk_max_k)
+GTILE = 8192  # words a block of the large-k route's global sort orders in shared memory
 FILL_CTAS = 128  # about one CTA per SM of an H100 (132 SMs)
 MIN_SLICE = 4096  # no split for the card's sake below this many keys a CTA
 WIDE_SLICE = 16384  # a slice of this many keys takes 1024 threads, a shorter one 512
 CAND_CAP = 8192  # candidates a CTA holds on the streamed route (64 KB)
 SMEM_BUDGET = 227 * 1024 - 1024  # Hopper's 227 KB a block, less the static part
 _FN = _STREAM = None  # the C entry point and build.stream_ptr, looked up once
+GLOBAL_SORT = Launches()  # calls past MAX_K: the survivors sorted in device memory
 BINS_BYTES = 28 * 1024  # three passes' cluster totals and a histogram (seal_row_topk_bins_bytes)
 
 
@@ -34,7 +42,9 @@ class Plan(NamedTuple):
     cluster) over slices of ``slice`` keys, ``staged`` of them in shared
     memory (the rest streamed from device memory, with ``cap`` candidates),
     a sort buffer of ``n2`` words after (or in) a ``region`` of bins, and
-    ``smem`` dynamic bytes a CTA."""
+    ``smem`` dynamic bytes a CTA.  ``sort`` is "shared" (the leader sorts
+    the survivors in its shared memory) or, past ``MAX_K``, "global" (they
+    go to a [rows, n2] scratch in device memory, sorted there)."""
 
     route: str  # "staged": a slice in shared memory; "streamed": its tail not
     threads: int
@@ -46,6 +56,7 @@ class Plan(NamedTuple):
     region: int
     smem: int
     ctas: int
+    sort: str
 
     @property
     def launch(self) -> tuple:
@@ -66,16 +77,16 @@ def plan(rows: int, width: int, k: int, splits: int | None = None,
     CTA's fixed cost, and each cluster barrier adds to it
     (``python -m seal_tpu_torch.bench_row_topk`` times every call site at
     every split).  ``splits``, ``staged`` and ``cap`` force a route
-    (tests and measurements).  Raises where k is past the sort buffer or a
-    forced layout past the card's shared memory.  Cached: the decode loop
-    asks for the same few shapes every step."""
+    (tests and measurements).  Past ``MAX_K`` the survivors are sorted in
+    device memory (``sort="global"``).  Raises where a forced layout is
+    past the card's shared memory.  Cached: the decode loop asks for the
+    same few shapes every step."""
     if not 0 < k <= width:
         raise ValueError(f"row_topk: k={k} for rows of width {width}")
-    if k > MAX_K:
-        raise ValueError(f"row_topk: k={k} exceeds {MAX_K}, the kernel's shared-memory sort buffer")
     n2 = 1 << (k - 1).bit_length()
+    sort = "global" if k > MAX_K else "shared"
     # the bins; the sort buffer reuses two passes' totals up to 2048 words
-    region = BINS_BYTES + (8 * n2 if n2 > 2048 else 0)
+    region = BINS_BYTES + (8 * n2 if 2048 < n2 and sort == "shared" else 0)
     room = (SMEM_BUDGET - region) // 4  # keys a CTA can stage
     if splits is None:
         splits = 1
@@ -97,7 +108,7 @@ def plan(rows: int, width: int, k: int, splits: int | None = None,
                          f"(k={k}, width {width}, {splits} CTAs a row)")
     route = "staged" if staged == sl else "streamed"
     threads = 1024 if sl >= WIDE_SLICE else 512
-    return Plan(route, threads, splits, sl, staged, cap, n2, region, smem, rows * splits)
+    return Plan(route, threads, splits, sl, staged, cap, n2, region, smem, rows * splits, sort)
 
 
 def order_key(x):
@@ -138,10 +149,16 @@ def row_topk(x, k: int, layout: Plan | None = None):
     p = plan(rows, n, k) if layout is None else layout
     vals = torch.empty((rows, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((rows, k), dtype=torch.int64, device=x.device)
-    rc = _FN(x2.data_ptr(), rows, n, k, *p.launch, vals.data_ptr(), idx.data_ptr(), _STREAM(x))
+    # the large-k route's survivors (freed after the launches, in stream order)
+    scratch = (torch.empty((rows, p.n2), dtype=torch.int64, device=x.device)
+               if p.sort == "global" else None)
+    rc = _FN(x2.data_ptr(), rows, n, k, *p.launch,
+             scratch.data_ptr() if scratch is not None else None, vals.data_ptr(),
+             idx.data_ptr(), _STREAM(x))
     if rc:
         raise RuntimeError(f"row_topk: CUDA error {rc}")
     row_topk.launches += 1
+    GLOBAL_SORT.launches += scratch is not None
     if x.dim() == 2:
         return vals, idx
     return vals.reshape(*x.shape[:-1], k), idx.reshape(*x.shape[:-1], k)

@@ -529,7 +529,10 @@ class SEALSearcher:
 
     # ------------------------------------------------------------- retrieval
 
-    def retrieve_from_keys(self, keys):
+    def retrieve_from_keys(self, keys, use_device: bool = True):
+        """Rank documents by ``keys`` (or a (keys, unigram scores) pair).
+        ``use_device=False`` finds each key's range on the host index
+        (``range_fn=None``), as JAX's does; the ranking is the same."""
         unigram_scores = None
         if isinstance(keys, tuple) and len(keys) == 2:
             keys, unigram_scores = keys
@@ -537,7 +540,7 @@ class SEALSearcher:
             results, ngrams = rk.aggregate_evidence(
                 ngrams_and_scores=keys,
                 unigram_scores=unigram_scores,
-                range_fn=self._device_ranges,
+                range_fn=self._device_ranges if use_device else None,
                 # matched-ngram lists are read only under include_keys
                 # (batch_search) or DEBUG printing
                 collect_found=self.include_keys or DEBUG,

@@ -140,17 +140,41 @@ def test_row_topk_forced_layouts(cuda, splits, staged, cap):
 
 
 def test_row_topk_limits_raise(cuda):
+    """The C side's limits equal the wrapper's; past the shared sort buffer
+    the call takes the global sort (no refusal); a wrong dtype raises
+    before any launch."""
     from seal_tpu_torch.kernels import build
 
     assert build.lib().seal_row_topk_max_k() == row_topk.MAX_K
     assert build.lib().seal_row_topk_bins_bytes() == row_topk.BINS_BYTES
-    x = torch.zeros(2, 20000, device=cuda)
+    x = torch.as_tensor(_topk_rows(np.random.default_rng(7), 2, 20000)).cuda()
     n0 = row_topk.row_topk.launches
-    with pytest.raises(ValueError, match="16384"):
-        row_topk.row_topk(x, row_topk.MAX_K + 1)
     with pytest.raises(ValueError, match="f32"):
         row_topk.row_topk(x.double(), 3)
+    with pytest.raises(ValueError, match="width"):
+        row_topk.row_topk(x, 20001)
     assert row_topk.row_topk.launches == n0
+    gv, gi = row_topk.row_topk(x, row_topk.MAX_K + 1)
+    wv, wi = row_topk.row_topk_plain(x, row_topk.MAX_K + 1)
+    assert torch.equal(gi, wi) and torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+    assert row_topk.row_topk.launches == n0 + 1
+
+
+@pytest.mark.parametrize("rows,n,k", [(6, 50265, 16385), (480, 50265, 20000), (6, 50265, 50265),
+                                      (3, 70000, 40000), (4, 32 * 50265, 20000)])
+def test_row_topk_large_k_matches_plain(cuda, rows, n, k):
+    """Kernel 3's large-k route (the survivors sorted in device memory):
+    just past the shared buffer, the proposal loop's 20000-wide chunk over
+    480 rows, a whole row, a staged tail and a streamed dense row; bit for
+    bit, one count a call."""
+    x = torch.as_tensor(_topk_rows(np.random.default_rng(k), rows, n)).cuda()
+    assert row_topk.plan(rows, n, k).sort == "global"
+    n0, g0 = row_topk.row_topk.launches, row_topk.GLOBAL_SORT.launches
+    gv, gi = row_topk.row_topk(x, k)
+    assert (row_topk.row_topk.launches, row_topk.GLOBAL_SORT.launches) == (n0 + 1, g0 + 1)
+    wv, wi = row_topk.row_topk_plain(x, k)
+    assert torch.equal(gi, wi)
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
 
 
 def test_stream_ptr_is_current_stream(cuda):
@@ -323,6 +347,88 @@ def test_beam_merge_matches_plain(cuda, B, K, n_top, with_buf):
     _same(got, beam_select.beam_merge_plain(*args))
 
 
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("B,K,n_buf,n_top", [(32, 15, 512, 4096), (4, 15, 30, 20000),
+                                             (2, 32, 2048, 8192), (2, 4, 8, 4100)])
+def test_beam_merge_large_route_matches_plain(cuda, B, K, n_buf, n_top, ties):
+    """Kernel 8's large-n merge at the sizes the one-CTA merge refused:
+    sampling's loop round at top_m 512 (8,704 candidates a row), an
+    exact_loop_chunk of 20,000 at beam 15 (40,030), a 2,048-wide buffer
+    (the widest under ties) and a row just past one CTA; in both orders,
+    with repeated tokens (one log-prob each, as the merge's inputs carry),
+    ties and signed zeros; exactly equal to the one-CTA plain version."""
+    g = torch.Generator(device=cuda).manual_seed(n_top + ties)
+    V = 50265
+    lp = _lp(g, B * K, V, cuda)
+    top_lp, top_idx = row_topk.row_topk_plain(lp, n_top)
+    top_tok = top_idx.to(torch.int32).reshape(B, K, n_top)
+    ok = (torch.rand(B, K, n_top + 1, generator=g, device=cuda) < 0.5)[..., :n_top]
+    slab_tok = torch.randint(0, min(3 * n_top, V), (B, K, n_top), generator=g, device=cuda,
+                             dtype=torch.int32)
+    slab_lp = torch.gather(lp, 1, slab_tok.reshape(B * K, -1).long()).reshape(B, K, n_top)
+    slab_ok = torch.rand(B, K, n_top, generator=g, device=cuda) < 0.8
+    bt = torch.stack([torch.randperm(V, generator=g, device=cuda)[:n_buf] for _ in range(B * K)])
+    btok = bt.to(torch.int32).reshape(B, K, n_buf)  # distinct valid tokens, as a buffer holds
+    bvalid = (torch.rand(B, K, n_buf, generator=g, device=cuda) < 0.7) & (
+        torch.gather(lp, 1, bt).reshape(B, K, n_buf) > tc.NEG_INF / 2)
+    buf = (btok, torch.gather(lp, 1, bt).reshape(B, K, n_buf), bvalid)
+    args = (buf, top_tok, top_lp.reshape(B, K, n_top), ok, slab_tok, slab_lp, slab_ok, V, n_buf)
+    from seal_tpu_torch.kernels import build
+
+    assert build.lib().seal_beam_merge_smem(n_buf + 2 * n_top, int(ties)) > build.SMEM_LIMIT
+    n0, l0 = beam_select.beam_merge.launches, beam_select.MERGE_LARGE.launches
+    got = beam_select.beam_merge(*args, ties=ties)
+    assert (beam_select.beam_merge.launches, beam_select.MERGE_LARGE.launches) == (n0 + 1, l0 + 1)
+    _same(got, beam_select.beam_merge_plain(*args, ties=ties))
+    none = beam_select.beam_merge(None, *args[1:], ties=ties)  # round 0's empty buffer
+    _same(none, beam_select.beam_merge_plain(None, *args[1:], ties=ties))
+
+
+LARGE_ROUTES = {
+    # sampling's buffer max(2K, top_m) = 512: a loop round merges 8,704 a row
+    "sample_top_m_512": dict(sample=True, seed=3, top_m=512),
+    # and a 20,000-wide loop chunk: kernel 3 at k = 20,000, merges of 40,512
+    "sample_loop_chunk_20000": dict(sample=True, seed=3, top_m=512, exact_loop_chunk=20000),
+    # the proven loop at beam 15 with a 20,000-wide chunk
+    "force_full_loop_chunk_20000": dict(force_full=True, exact_loop_chunk=20000),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(LARGE_ROUTES))
+def test_large_routes_generate_on_card_match_cpu(cuda, mode):
+    """The sizes the card refused before (ROADMAP C.2) run through kernel
+    routes at beam 15 on BART's vocab: a tiny BART with a corpus-unigram
+    bias over a Zipf corpus, the card's hypotheses equal to the CPU plain
+    path's (token lists, scores within 1e-4); the large-n merge and kernel
+    3's global sort launched where the mode reaches them."""
+    from seal_tpu_torch.bench_generate import _unigram_bias
+
+    V = 50265
+    cfg = bart_tiny(vocab_size=V)
+    params = bart.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    toks = (rng.zipf(1.3, size=100000) % (V - 4) + 4).astype(np.int64)
+    params["final_logits_bias"] = params["final_logits_bias"] + torch.as_tensor(
+        _unigram_bias(toks, V), dtype=torch.float32)
+    host = FMIndex()
+    host.initialize([d.tolist() + [2] for d in np.array_split(toks, 300)])
+    queries = [[0] + rng.integers(4, 400, size=6).tolist() + [2] for _ in range(2)]
+    kw = dict(num_beams=15, max_length=5, min_length=1, **LARGE_ROUTES[mode])
+    cpu = tg.fm_index_generate(cfg, params, TorchFMIndex.from_host(host, vocab=V, device="cpu"),
+                               queries, **kw)
+    m0, s0 = beam_select.MERGE_LARGE.launches, row_topk.GLOBAL_SORT.launches
+    gpu = tg.fm_index_generate(cfg, _to(params, cuda),
+                               TorchFMIndex.from_host(host, vocab=V, device=cuda), queries, **kw)
+    if mode.startswith("sample"):
+        assert beam_select.MERGE_LARGE.launches > m0
+    if mode == "sample_loop_chunk_20000":
+        assert row_topk.GLOBAL_SORT.launches > s0
+    for a, b in zip(cpu, gpu):
+        ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
+        assert [t for t, _ in ka] == [t for t, _ in kb]
+        np.testing.assert_allclose([s for _, s in kb], [s for _, s in ka], atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("B,K,w,case", [(32, 15, 32, "need"), (32, 15, 32, "no_buffer"),
                                          (8, 32, 128, "need"), (8, 15, 32, "branches")])
 def test_beam_select_matches_plain(cuda, B, K, w, case):
@@ -452,6 +558,133 @@ def test_self_attention_rel_matches_plain(cuda, rows, L, step, dtype):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     with pytest.raises(ValueError):  # the table must be f32 or bf16
         decode_attention.self_attention_step_rel(q, kc, vc, step, table.half(), buckets)
+
+
+def _attn_ratio(got, want, q, k, v, bias=None, m=None, head_bias=None):
+    """The share of its dtype's tolerance an attention output uses."""
+    ratio_of = (decode_attention.bf16_error_ratio if q.dtype == torch.bfloat16
+                else decode_attention.f32_error_ratio)
+    return ratio_of(got, want, q, k, v, bias, m, head_bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [1, 14, 63, 64, 65, 200, 1024])
+@pytest.mark.parametrize("g", [1, 15, 16, 17, 32])
+def test_cross_attention_routes_match_plain(cuda, g, M, dtype):
+    """Kernel 9 on every route at the routes' edges: one beam (the warp
+    route: one chunk, two passes past 32 bf16 or 16 f32 positions), one and
+    two m16 tiles of beams on the mma route (a cluster of 1 at M <= 64, 2
+    at 65, 4 with a partial slice at 200, 16 at 1024), the ffma route up to
+    64 f32 positions and the tiled route past it; a padded query and a
+    query masked past half its positions; each dtype within its tolerance,
+    one launch a call on the route ``route`` names."""
+    gen = torch.Generator(device=cuda).manual_seed(g * 10000 + M)
+    Bq, H, Dh = 3, 16, 64
+    q = (torch.randn(Bq * g, H, Dh, generator=gen, device=cuda) * 0.125).to(dtype)
+    k = torch.randn(Bq, M, H, Dh, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(Bq, M, H, Dh, generator=gen, device=cuda).to(dtype)
+    bias = torch.zeros(Bq, M, device=cuda)
+    bias[1, M - min(3, M - 1):] = decode_attention.NEG_BIAS
+    bias[2, (M + 1) // 2:] = decode_attention.NEG_BIAS
+    name = decode_attention.route(g, M, Dh, dtype == torch.bfloat16)
+    assert name == ("warp" if g == 1 else "mma" if dtype == torch.bfloat16
+                    else "ffma" if M <= 64 else "tiled")
+    n0, r0 = decode_attention.cross_attention_step.launches, decode_attention.ROUTES[name].launches
+    got = decode_attention.cross_attention_step(q, k, v, bias)
+    assert decode_attention.cross_attention_step.launches == n0 + 1
+    assert decode_attention.ROUTES[name].launches == r0 + 1
+    want = decode_attention.decode_attention_plain(q, k, v, bias)
+    assert _attn_ratio(got, want, q, k, v, bias) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("L,step", [(10, 0), (10, 8), (10, 9), (40, 15), (40, 31), (40, 39)])
+@pytest.mark.parametrize("rel", [False, True])
+def test_self_attention_warp_route_matches_plain(cuda, L, step, dtype, rel):
+    """Kernel 10 (and its relative-bias mode) on the warp route at steps 0,
+    8 and max_len - 1 of the generation point's 10 slots and of a 40-slot
+    cache (one chunk of 32 bf16 or 16 f32 slots, and two passes past it),
+    T5's un-scaled q in the relative-bias mode; each dtype within its
+    tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(step + L + 100 * rel)
+    rows, H, Dh = 48, 12 if rel else 16, 64
+    scale = 1.0 if rel else 0.125
+    q = (torch.randn(rows, H, Dh, generator=gen, device=cuda) * scale).to(dtype)
+    kc = torch.zeros(rows, L, H, Dh, device=cuda, dtype=dtype)
+    vc = torch.zeros(rows, L, H, Dh, device=cuda, dtype=dtype)
+    kc[:, : step + 1] = torch.randn(rows, step + 1, H, Dh, generator=gen, device=cuda).to(dtype)
+    vc[:, : step + 1] = torch.randn(rows, step + 1, H, Dh, generator=gen, device=cuda).to(dtype)
+    r0 = decode_attention.ROUTES["warp"].launches
+    if rel:
+        table = (torch.randn(32, H, generator=gen, device=cuda) * 2).to(dtype)
+        buckets = t5.bucket_of_distance(t5.T5Config(), L, cuda)
+        got = decode_attention.self_attention_step_rel(q, kc, vc, step, table, buckets)
+        want = decode_attention.self_attention_rel_plain(q, kc, vc, step, table, buckets)
+        head_bias = decode_attention.relative_bias_row(table, buckets, step, L)
+        assert _attn_ratio(got, want, q, kc, vc, m=L, head_bias=head_bias) <= 1.0
+    else:
+        got = decode_attention.self_attention_step(q, kc, vc, step)
+        want = decode_attention.self_attention_plain(q, kc, vc, step)
+        assert _attn_ratio(got, want, q, kc, vc, None, step + 1) <= 1.0
+    assert decode_attention.ROUTES["warp"].launches == r0 + 1
+
+
+@pytest.mark.parametrize("case", ["g33", "m1025", "f32_m65", "dh32", "unaligned", "heads6"])
+def test_decode_attention_route_limits(cuda, case):
+    """Past each fast route's limit a call takes the tiled route (33 beams,
+    1,025 bf16 positions, 65 f32 positions with 2 beams, head_dim 32,
+    operands off the 16-byte grid), and 6 heads take two heads a CTA;
+    equal to the plain version within the dtype's tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    Bq, g, M, H, Dh, dt = 2, 15, 14, 16, 64, torch.bfloat16
+    if case == "g33":
+        g = 33
+    elif case == "m1025":
+        M = 1025
+    elif case == "f32_m65":
+        g, M, dt = 2, 65, torch.float32
+    elif case == "dh32":
+        Dh = 32
+    elif case == "heads6":
+        H = 6
+    q = (torch.randn(Bq * g, H, Dh, generator=gen, device=cuda) * 0.125).to(dt)
+    k = torch.randn(Bq, M, H, Dh, generator=gen, device=cuda).to(dt)
+    v = torch.randn(Bq, M, H, Dh, generator=gen, device=cuda).to(dt)
+    if case == "unaligned":  # one element past the grid, strides as a cache's
+        flat = torch.randn(2, Bq * M * H * Dh + 1, generator=gen, device=cuda).to(dt)
+        k, v = (torch.as_strided(f, (Bq, M, H, Dh), (M * H * Dh, H * Dh, Dh, 1), 1) for f in flat)
+    bias = torch.zeros(Bq, M, device=cuda)
+    bias[1, -3:] = decode_attention.NEG_BIAS
+    name = "mma" if case == "heads6" else "tiled"
+    assert decode_attention.heads_a_cta(H) == (2 if case == "heads6" else 4)
+    r0 = decode_attention.ROUTES[name].launches
+    got = decode_attention.cross_attention_step(q, k, v, bias)
+    assert decode_attention.ROUTES[name].launches == r0 + 1
+    want = decode_attention.decode_attention_plain(q, k, v, bias)
+    assert _attn_ratio(got, want, q, k, v, bias) <= 1.0
+
+
+def test_decode_attention_under_graph_capture(cuda):
+    """The routes launch on the capturing stream: kernels 9 (mma, with a
+    cluster of 16) and 10 captured in a CUDA graph replay to the eager
+    results."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    bf = torch.bfloat16
+    q = (torch.randn(8 * 15, 16, 64, generator=gen, device=cuda) * 0.125).to(bf)
+    k = torch.randn(8, 1024, 16, 64, generator=gen, device=cuda).to(bf)
+    v = torch.randn(8, 1024, 16, 64, generator=gen, device=cuda).to(bf)
+    kc = torch.randn(8 * 15, 10, 16, 64, generator=gen, device=cuda).to(bf)
+    eager = (decode_attention.cross_attention_step(q, k, v, None),
+             decode_attention.self_attention_step(q, kc, kc, 8))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = (decode_attention.cross_attention_step(q, k, v, None),
+                decode_attention.self_attention_step(q, kc, kc, 8))
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(outs, eager):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -888,30 +1121,31 @@ def _select_rows(rng, rows, n):
 @pytest.mark.parametrize("n", [50265, 70000])
 @pytest.mark.parametrize("k", [1, 64, 256, 1024])
 def test_row_select_matches_plain(cuda, n, k):
-    """Kernel 19 at vocab width and past the staged part of a row (the
-    tail re-read from device memory), in both modes; values bit for bit,
-    indices equal."""
+    """Kernel 19's k-th value at vocab width and past the staged part of a
+    row (the tail re-read from device memory), bit for bit; the decode
+    modes' top-``top_m`` it no longer serves is kernel 3's, equal too."""
     x = torch.as_tensor(_select_rows(np.random.default_rng(k), 8, n)).cuda()
-    n0 = (row_select.row_select.launches, row_select.row_kth.launches)
-    gv, gi = row_select.row_select(x, k)
-    wv, wi = row_select.row_select_plain(x, k)
-    assert torch.equal(gi, wi)
-    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+    n0 = row_select.row_kth.launches
     kth = row_select.row_kth(x, k)
     assert torch.equal(kth.view(torch.int32), row_select.row_kth_plain(x, k).view(torch.int32))
-    assert (row_select.row_select.launches, row_select.row_kth.launches) == (n0[0] + 1, n0[1] + 1)
+    assert row_select.row_kth.launches == n0 + 1
+    gv, gi = row_topk.row_topk(x, k)
+    wv, wi = row_topk.row_topk_plain(x, k)
+    assert torch.equal(gi, wi) and torch.equal(gv.view(torch.int32), wv.view(torch.int32))
 
 
 def test_row_select_at_the_decode_shapes(cuda):
-    """[480, 50265] log-prob rows (the speculative and free steps, k = 256;
-    the warper, k = 50) and [32, 50265] (step 0)."""
+    """[480, 50265] log-prob rows (the speculative and free steps' top-256,
+    now kernel 3's; the warper's 50th value, kernel 19's) and [32, 50265]
+    (step 0)."""
     g = torch.Generator(device=cuda).manual_seed(19)
     lp = _lp(g, 480, 50265, cuda)
     for x, k in ((lp, 256), (lp[:32], 256), (lp, 50)):
-        gv, gi = row_select.row_select(x, k)
-        wv, wi = row_select.row_select_plain(x, k)
+        gv, gi = row_topk.row_topk(x, k)
+        wv, wi = row_topk.row_topk_plain(x, k)
         assert torch.equal(gi, wi) and torch.equal(gv.view(torch.int32), wv.view(torch.int32))
-        assert torch.equal(row_select.row_kth(x, k), wv[:, -1])
+        assert torch.equal(row_select.row_kth(x, k).view(torch.int32),
+                           wv[:, -1].view(torch.int32))
 
 
 def test_log_softmax_threshold_matches_plain(cuda):
@@ -959,10 +1193,10 @@ def test_beam_select_keep_invalid_matches_plain(cuda, ties):
 @pytest.mark.parametrize("B,K,m", [(32, 15, 256), (32, 15, 30), (4, 4, 7)])
 def test_beam_select_top_token_table_matches_plain(cuda, B, K, m):
     """Kernel 8's free-generation epilogue: kernel 3's top-2K of [B, K*m]
-    scores through a token table (kernel 19's top-m)."""
+    scores through a token table (kernel 3's top-m)."""
     g = torch.Generator(device=cuda).manual_seed(m)
     lp = _lp(g, B * K, 50265 if m == 256 else 1000, cuda)
-    top_lp, tok = row_select.row_select(lp, m)
+    top_lp, tok = row_topk.row_topk(lp, m)
     bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
     bs[0, 1] = tc.NEG_INF
     top_cons, top_idx = row_topk.row_topk((top_lp.reshape(B, K, m) + bs[..., None]).reshape(B, -1),

@@ -427,3 +427,70 @@ def test_select_ties_matches_jax(seed, case):
                                       "sel_parent", "sel_uncons", "sel_finite", "top_cons")):
         _assert_equal(g.numpy(), w, name)
     _assert_equal(unsound.numpy(), want_unsound, "unsound")
+
+
+def _merge_rows(rng, rows, n_buf, n_top, n_slab, V, with_buf, sparse=False):
+    """A merge round's inputs with kernel 8's contract: each row's tokens
+    take that row's log-prob (one per token, ties and NEG_INF among them),
+    copies of a token across the buffer, the LM top and the slab, invalid
+    slots (flag off, or NEG_INF log-prob) beside valid copies."""
+    lp = _lp(rng, rows, V, step=0.5)
+    lp[:, 3] = NEG_INF
+
+    def draw(width, p_ok):
+        tok = rng.integers(0, V, size=(rows, width)).astype(np.int32)
+        tok[:, : width // 4] = rng.integers(0, 8, size=(rows, width // 4))  # many copies
+        ok = rng.random((rows, width)) < (p_ok / 20 if sparse else p_ok)
+        return tok, np.take_along_axis(lp, tok, -1), ok
+
+    buf = None
+    if with_buf:
+        btok, blp, bok = draw(n_buf, 0.6)
+        # a buffer holds distinct valid tokens, each with lp > NEG_INF/2
+        bok &= (blp > NEG_INF / 2)
+        for r in range(rows):
+            seen = set()
+            for j in range(n_buf):
+                if bok[r, j] and btok[r, j] in seen:
+                    bok[r, j] = False
+                seen.add(int(btok[r, j])) if bok[r, j] else None
+        buf = tuple(torch.as_tensor(x) for x in (btok, blp, bok))
+    top = draw(n_top, 0.5)
+    slab = draw(n_slab, 0.8)
+    return buf, [torch.as_tensor(x) for x in top], [torch.as_tensor(x) for x in slab]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("seed,n_buf,n_top,n_slab,chunk,with_buf", [
+    (0, 4, 40, 40, 8, True), (1, 4, 40, 40, 8, False), (2, 6, 100, 60, 16, True),
+    (3, 30, 400, 400, 64, True), (4, 16, 64, 64, 32, False), (5, 3, 9, 0, 6, True),
+    (6, 8, 60, 60, 16, False)])
+def test_merge_large_route_plain_matches_merge_plain(seed, n_buf, n_top, n_slab, chunk,
+                                                     with_buf, ties):
+    """Kernel 8's large-n merge (passes over chunks, each keeping its
+    n_buf best first instances in slot order) equals the one-CTA merge bit
+    for bit in both orders, over one to several passes, with duplicates,
+    invalid slots, unfilled outputs and exact ties."""
+    rng = np.random.default_rng(seed)
+    sparse = seed == 6  # most slots invalid: rows with unfilled outputs
+    buf, top, slab = _merge_rows(rng, 5, n_buf, n_top, n_slab, 50, with_buf, sparse)
+    args = (buf, *top, *slab, 50, n_buf)
+    n = n_buf + n_top + n_slab
+    assert len(k8.merge_widths(n, n_buf, chunk)) >= 2
+    want = k8.beam_merge_plain(*args, ties=ties)
+    got = k8.beam_merge_large_plain(*args, ties=ties, chunk=chunk)
+    for g, w in zip(got, want):
+        _assert_equal(g.numpy(), w.numpy())
+    assert bool(want[2].all()) != sparse  # unfilled outputs in the sparse case only
+
+
+@pytest.mark.parametrize("g,m,dh,bf16,want", [
+    (1, 10, 64, True, "warp"), (1, 1024, 64, False, "warp"), (15, 14, 64, True, "mma"),
+    (32, 1024, 64, True, "mma"), (32, 1025, 64, True, "tiled"), (33, 14, 64, True, "tiled"),
+    (15, 64, 64, False, "ffma"), (2, 65, 64, False, "tiled"), (15, 14, 32, True, "tiled"),
+    (1, 10, 128, False, "tiled")])
+def test_decode_attention_route_rules(g, m, dh, bf16, want):
+    """Kernels 9 and 10's route by shape, at each fast route's limits
+    (``csrc/decode_attention.cu`` states them), and the heads a CTA."""
+    assert k910.route(g, m, dh, bf16) == want
+    assert [k910.heads_a_cta(h) for h in (16, 12, 6, 3)] == [4, 4, 2, 1]

@@ -122,6 +122,34 @@ def test_int32_row_guard_raises_cleanly():
         tdi.TorchFMIndex.from_host(Huge(), vocab=50265, device="cpu")
 
 
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("keep_text", [False, True])
+def test_from_host_keywords_match_jax(compact, keep_text):
+    """JAX's ``compact`` and ``keep_text`` keywords, in every combination:
+    the port accepts both (``compact`` changes no array, ``keep_text``
+    ships no text) and its ops equal JAX's index built with the same
+    keywords."""
+    host = _zipf_host()
+    j = jdi.DeviceFMIndex.from_host(host, 40, compact, False, keep_text)
+    t = tdi.TorchFMIndex.from_host(host, 40, compact, False, keep_text, device="cpu")
+    assert t.bwt.dtype == torch.int32 and t.sa is None
+    assert (j.text is not None) == keep_text
+    _eq(np.asarray(j.bwt).astype(np.int32), t.bwt)
+    rng = np.random.default_rng(11)
+    los, his = _ranges(host, rng)
+    toks = rng.integers(-2, 45, size=(los.size, 4)).astype(np.int32)
+    for a, b in zip(jops.backward_step(j, toks, los[:, None], his[:, None]),
+                    tops.backward_step(t, toks, los[:, None], his[:, None])):
+        _eq(a, b)
+    _eq(jops.contains_tokens(j, toks, los, his), tops.contains_tokens(t, toks, los, his))
+    rows = rng.integers(0, host.size(), size=64).astype(np.int32)
+    _eq(jops.bwt_at(j, rows), tops.bwt_at(t, rows))
+    for a, b in zip(jops.window_continuations(j, los, his, 8),
+                    tops.window_continuations(t, los, his, 8)):
+        _eq(a, b)
+    _eq(jops.bucket_counts(j, los, his), tops.bucket_counts(t, los, his))
+
+
 def test_backward_step_matches_jax(pair):
     _, host, j, t = pair
     rng = np.random.default_rng(1)
@@ -395,14 +423,72 @@ def test_row_topk_plan_limits():
     assert wide.route == "streamed" and wide.splits == 16 and wide.cap > 0
     assert wide.smem <= 227 * 1024 - 1024
     assert row_topk.plan(8, 50265, row_topk.MAX_K).smem <= 227 * 1024 - 1024
-    with pytest.raises(ValueError, match="16384"):
-        row_topk.plan(8, 50265, row_topk.MAX_K + 1)
+    assert row_topk.plan(8, 50265, row_topk.MAX_K).sort == "shared"
+    # past the shared sort buffer: the survivors sorted in device memory
+    for k in (row_topk.MAX_K + 1, 20000, 50265):
+        big = row_topk.plan(480, 50265, k)
+        assert big.sort == "global" and big.region == row_topk.BINS_BYTES
+        assert big.n2 >= k and big.n2 % row_topk.GTILE == 0 and big.route == "staged"
+        assert big.smem <= 227 * 1024 - 1024
     with pytest.raises(ValueError, match="width"):
         row_topk.plan(8, 10, 11)
     with pytest.raises(ValueError, match="cluster"):
         row_topk.plan(8, 5000, 30, splits=17)
     with pytest.raises(ValueError, match="shared memory"):
         row_topk.plan(8, 5000, 30, splits=1, staged=4000, cap=30000)
+
+
+def _global_sort_mirror(w, k, gtile):
+    """``csrc/row_topk.cu:global_sort`` in numpy: ``sort_tile`` (sizes 2 ..
+    gtile inside each tile), then for each larger size ``merge_global``
+    (strides >= gtile) and ``sort_tile`` (the narrower strides), the
+    direction of a pair from its row index's ``size`` bit."""
+    rows, n2 = w.shape
+    w = w.copy()
+
+    def stage(size, stride, lo):
+        hi = lo + stride
+        desc = (lo & size) == 0
+        a, b = w[:, lo], w[:, hi]
+        swap = np.where(desc, a < b, a > b)
+        w[:, lo], w[:, hi] = np.where(swap, b, a), np.where(swap, a, b)
+
+    def tiles(lo_size, hi_size):
+        size = lo_size
+        while size <= hi_size:
+            stride = min(size, gtile) // 2
+            while stride > 0:
+                t = np.arange(gtile // 2)
+                local = 2 * t - (t & (stride - 1))
+                for t0 in range(0, n2, gtile):
+                    stage(size, stride, t0 + local)
+                stride //= 2
+            size *= 2
+
+    tiles(2, gtile)
+    size = 2 * gtile
+    while size <= n2:
+        stride = size // 2
+        while stride >= gtile:
+            t = np.arange(n2 // 2)
+            stage(size, stride, 2 * t - (t & (stride - 1)))
+            stride //= 2
+        tiles(size, size)
+        size *= 2
+    return w[:, :k]
+
+
+@pytest.mark.parametrize("k,n2,gtile", [(17, 32, 8), (40, 64, 16), (100, 128, 16),
+                                        (129, 256, 32)])
+def test_row_topk_global_sort_mirror(k, n2, gtile):
+    """The large-k route's launch schedule sorts the survivors' unique
+    words descending, padding (0) last, at several tile sizes."""
+    rng = np.random.default_rng(k)
+    w = np.zeros((3, n2), np.uint64)
+    for r in range(3):
+        w[r, :k] = rng.choice(2**40, size=k, replace=False).astype(np.uint64) + np.uint64(1)
+    got = _global_sort_mirror(w, k, gtile)
+    np.testing.assert_array_equal(got, np.sort(w, axis=1)[:, ::-1][:, :k])
 
 
 @pytest.mark.parametrize("cur_len", [1, 3])

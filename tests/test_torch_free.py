@@ -31,7 +31,7 @@ from seal_tpu.retrieval.searcher import SEALSearcher as JSearcher
 from seal_tpu_torch.decoding import constrained as tc
 from seal_tpu_torch.decoding import generate as tg
 from seal_tpu_torch.index.device_index import TorchFMIndex
-from seal_tpu_torch.kernels import beam_select, locate, row_select
+from seal_tpu_torch.kernels import beam_select, locate, row_select, row_topk
 from seal_tpu_torch.models import bart as tbart
 from seal_tpu_torch.models import convert as tconvert
 from seal_tpu_torch.models.config import bart_tiny as ttiny
@@ -161,7 +161,7 @@ def test_locate_needs_keep_sa_and_default_bytes_unchanged():
     assert (locate.locate_rows.launches, locate.doc_index_of.launches) == n0  # CPU: no launch
 
 
-# ---------------------------------------------------------------- kernel 19
+# ------------------------------------- the modes' top-top_m (kernel 3) and kernel 19
 
 
 def _select_rows(rng, rows, n):
@@ -180,10 +180,13 @@ def _select_rows(rng, rows, n):
 
 @pytest.mark.parametrize("k", [1, 256, 700])
 def test_row_select_plain_matches_lax_top_k(k):
+    """The decode modes' top-``top_m`` (kernel 3's plain version, which
+    kernel 19's top-k mode used to serve) and kernel 19's k-th value
+    against ``lax.top_k`` on rows with signed zeros, -inf, plateaus."""
     x = _select_rows(np.random.default_rng(k), 7, 700)
     jv, ji = lax.top_k(jnp.asarray(x), k)
-    n0 = (row_select.row_select.launches, row_select.row_kth.launches)
-    tv, ti = row_select.row_select(torch.as_tensor(x), k)
+    n0 = (row_topk.row_topk.launches, row_select.row_kth.launches)
+    tv, ti = row_topk.row_topk(torch.as_tensor(x), k)  # kernel 3: the modes' top-top_m
     assert ti.dtype == torch.int64
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(tv.numpy().view(np.int32), np.asarray(jv).view(np.int32))
@@ -191,15 +194,17 @@ def test_row_select_plain_matches_lax_top_k(k):
     assert kth.shape == (1, 7)
     np.testing.assert_array_equal(kth[0].numpy().view(np.int32),
                                   np.asarray(jv[:, -1]).view(np.int32))
-    assert (row_select.row_select.launches, row_select.row_kth.launches) == n0
+    assert (row_topk.row_topk.launches, row_select.row_kth.launches) == n0
     with pytest.raises(ValueError):
-        row_select.row_select(torch.as_tensor(x), 701)
+        row_topk.row_topk(torch.as_tensor(x), 701)
+    with pytest.raises(ValueError):
+        row_select.row_kth(torch.as_tensor(x), 701)
 
 
 def test_row_select_matches_lax_top_k_past_the_block_route():
     """Past ``2 * top_m * 32`` columns JAX's free generation takes the
     one-hot route of ``_exact_topk(..., assume_finite=True)``.  On finite
-    log-prob rows it equals ``lax.top_k``, and so does kernel 19's plain
+    log-prob rows it equals ``lax.top_k``, and so does kernel 3's plain
     version.  With the SEAL bias's -inf columns JAX's route is not exact (0
     x -inf in its block gather; ROADMAP C), and the port keeps ``lax.top_k``'s
     result there."""
@@ -209,7 +214,7 @@ def test_row_select_matches_lax_top_k_past_the_block_route():
     for fill in (-30.0, -np.inf):
         x[:, [0, 1, 3]] = fill
         want_v, want_i = lax.top_k(jnp.asarray(x), 256)
-        tv, ti = row_select.row_select(torch.as_tensor(x), 256)
+        tv, ti = row_topk.row_topk(torch.as_tensor(x), 256)
         np.testing.assert_array_equal(ti.numpy(), np.asarray(want_i))
         np.testing.assert_array_equal(tv.numpy(), np.asarray(want_v))
         _, got_i = jc._exact_topk(jnp.asarray(x), 256, blk=32, assume_finite=True)

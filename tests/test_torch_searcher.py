@@ -122,6 +122,25 @@ def test_generated_keys_match_jax(searchers):
         assert all(ts.fm_index.get_count(list(k)) > 0 for k, _ in tk)
 
 
+@pytest.mark.parametrize("use_device", [True, False])
+def test_retrieve_from_keys_use_device_matches_jax(searchers, use_device):
+    """JAX's ``use_device`` keyword: with it on (device ranges) and off
+    (host ranges) both packages rank the same keys alike, and the port's
+    two settings agree."""
+    js, ts = searchers
+    for q in QUERIES[:2]:
+        jk, tk = js.generate_keys(q), ts.generate_keys(q)
+        jres, _ = js.retrieve_from_keys(jk, use_device=use_device)
+        tres, tngrams = ts.retrieve_from_keys(tk, use_device=use_device)
+        assert tres
+        other, ongrams = ts.retrieve_from_keys(tk, use_device=not use_device)
+        assert ongrams == tngrams
+        for want in (jres, other):  # {document: [score, ...]}
+            assert list(tres) == list(want)
+            np.testing.assert_allclose([tres[d][0] for d in tres], [want[d][0] for d in tres],
+                                       rtol=1e-4)
+
+
 def test_title_decode_hypotheses_are_grounded(searchers):
     """The title decode's raw hypotheses: from the second generated token
     on, each lies in the corpus after the forced prefix; a step-0
