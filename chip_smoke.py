@@ -131,11 +131,25 @@
    large-n route against their plain versions at the path's shapes,
    exactly.
 
+13. Kernel 8's selection routes against their plain versions, bit for
+   bit, in both orders (``select_route_phase``): the warp route at the
+   bench's [32, 15, 64] (timed beside the one-block route on the same
+   inputs) and beam 32's [32, 32, 98], the table route at a speculative
+   round of top_m 20000 and the candidate mode's table, the merge in
+   device memory at buffers of 3000 (ties) and 10000; kernel 1's groups
+   and step mode against their plain versions (the step mode beside the
+   composition it replaced); one batch each at the sizes the card refused
+   before F1 and F2 (sampling at top_m 3000 under ``exact_ties`` and
+   10000, speculative at 20000), every key grounded, each through its
+   route.
+
 Each path's launch counts come from that path's own run (every count set
 to 0 just before it, read just after); on every decoding path kernels 9
 and 10 (BART's mode, or the relative-bias mode on the T5 paths) must launch
 once per decoder layer and decode step, kernels 8 (select) and 11 once per
-decode step.  Prints one JSON object with the
+decode step, and kernel 1's step mode once per selecting step where the
+decode runs over the Psi index with the constraint on; the main path
+selects on kernel 8's warp route.  Prints one JSON object with the
 kernel table on the line before the last, and ``{"ok": true, "device":
 {...}}`` as the last line.  Imports no jax.
 """
@@ -192,6 +206,10 @@ REPLACES = {
     "beam_merge_large": "seal_tpu/decoding/constrained.py:612",
     "row_topk_global": "seal_tpu/decoding/constrained.py:736",
     "cross_attention_step_f32": "seal_tpu/models/t5.py:212",
+    "fm_search_advance": "seal_tpu/decoding/constrained.py:1416",
+    "beam_select_warp": "seal_tpu/decoding/constrained.py:1046",
+    "beam_select_table": "seal_tpu/decoding/constrained.py:343",
+    "beam_merge_table": "seal_tpu/decoding/constrained.py:612",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -232,6 +250,10 @@ SOURCES = {
     "beam_merge_large": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "row_topk_global": ("cuda", "seal_tpu_torch/kernels/csrc/row_topk.cu"),
     "cross_attention_step_f32": ("cuda", "seal_tpu_torch/kernels/csrc/decode_attention.cu"),
+    "fm_search_advance": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
+    "beam_select_warp": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
+    "beam_select_table": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
+    "beam_merge_table": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
 }
 # the kernels each driven path must launch (bucket_counts and the loop
 # rounds' merges run only in the proven loop, which the force_full re-runs
@@ -239,10 +261,13 @@ SOURCES = {
 DECODE_STEP = ("beam_merge", "beam_select", "cross_attention_step", "self_attention_step",
                "reorder_cache")
 PATH_KERNELS = {
-    "generate": ("fm_search", "window_gather", "row_topk", "log_softmax_min_len") + DECODE_STEP,
+    # the bench point selects on kernel 8's warp route, and kernel 1's step
+    # mode advances the ranges once a step
+    "generate": ("fm_search", "window_gather", "row_topk", "log_softmax_min_len",
+                 "fm_search_advance", "beam_select_warp") + DECODE_STEP,
     "generate_force_full": ("bucket_counts", "beam_merge"),
     "batch_search": ("fm_search", "window_gather", "row_topk", "log_softmax_min_len",
-                     "fm_sequences", "rescore_logprob") + DECODE_STEP,
+                     "fm_sequences", "rescore_logprob", "fm_search_advance") + DECODE_STEP,
     "unigram": ("log_softmax_min_len",),
     "grounding_unit": ("fm_sequences",),
 }
@@ -306,6 +331,14 @@ PATH_KERNELS["generate_sample_seed1"] = PATH_KERNELS["generate_sample"]
 # 8's large-n merge and kernel 3's global sort
 PATH_KERNELS["generate_sample_large"] = PATH_KERNELS["generate_sample"] + (
     "beam_merge_large", "row_topk_global")
+# the sizes the card refused before F1 and F2 (ROADMAP C): sampling's buffer
+# at top_m 3000 under exact_ties and at 10000, through kernel 8's merge in
+# device memory (and its candidate mode's table); a speculative round of
+# top_m 20000, through the selection's table route
+PATH_KERNELS["generate_sample_ties_3000"] = PATH_KERNELS["generate_sample"] + (
+    "beam_merge_table",)
+PATH_KERNELS["generate_sample_10000"] = PATH_KERNELS["generate_sample"] + ("beam_merge_table",)
+PATH_KERNELS["generate_spec_20000"] = PATH_KERNELS["generate_spec"] + ("beam_select_table",)
 PATH_KERNELS["generate_sample_free"] = ("row_topk", "log_softmax_min_len",
                                         "sample_select") + ATTN_STEP
 PATH_KERNELS["generate_diverse_ties"] = PATH_KERNELS["generate_diverse"]
@@ -357,6 +390,16 @@ for _path in ("generate_once", "generate_mono"):
     PATH_KERNELS[_path] = PATH_KERNELS["generate"]
 PATH_KERNELS["generate_mono_force_full"] = PATH_KERNELS["generate_force_full"]
 PATH_KERNELS["generate_mono_dense"] = PATH_KERNELS["generate_dense"]
+
+
+def psi_constrained(path: str) -> bool:
+    """A decode path over the monolithic Psi index with the constraint on:
+    kernel 1's step mode advances the ranges once a selecting step (the
+    wavelet layouts and the sharded index compose their own backward step;
+    free generation keeps no ranges)."""
+    return not any(x in path for x in ("sharded", "compact", "hybrid", "free"))
+
+
 # the calls of each ShardedIndexOps method that a shard mode serves
 SHARD_OPS = ("extend", "contains", "validate", "window_gather", "range_for", "bucket_counts",
              "dense_counts")
@@ -487,7 +530,10 @@ def log_kernel(row) -> None:
                                                "long_graph_ms", "long_library_graph_ms",
                                                "long_bound_ms", "long_tol_ratio",
                                                "bf16_graph_ms", "loop_chunk_ms",
-                                               "loop_chunk_plain_ms")
+                                               "loop_chunk_plain_ms", "group_graph_ms",
+                                               "composed_ms", "composed_graph_ms", "block_ms",
+                                               "block_graph_ms", "beam32_ms", "cand_ms",
+                                               "n_buf_3000_ms")
                   if k in row))
 
 
@@ -527,17 +573,66 @@ def kernel_phases(np, torch, host, index, V, B, K):
     got_c = k1.fm_search(index, "contains", cand, lo, hi)
     want_c = k1.contains_plain(index, cand, lo, hi)
     err1 = max(err1, int((got_c != want_c).sum()))
+    # the cooperative search at every group size, each timed
+    group_ms = {}
+    for G in k1.GROUPS:
+        err1 = max(err1, int((k1.fm_search(index, "contains", cand, lo, hi, group=G)
+                              != want_c).sum()))
+        err1 = max(err1, max(int((a - b).abs().max()) for a, b in zip(
+            k1.fm_search(index, "backward_step", ext, lo, hi, group=G), want)))
+        group_ms[G] = graph_ms(lambda G=G: k1.fm_search(index, "contains", cand, lo, hi,
+                                                        group=G))
     if err1:
         fail(f"fm_search differs from its plain version (max err {err1})")
     table.append(dict(
         name="fm_search", max_abs_err=err1,
         ms=time_ms(lambda: k1.fm_search(index, "contains", cand, lo, hi)),
+        graph_ms=graph_ms(lambda: k1.fm_search(index, "contains", cand, lo, hi)),
         plain_ms=time_ms(lambda: k1.contains_plain(index, cand, lo, hi)),
-        shape=f"contains [{B},{K},65]; backward_step [{B},{K}]",
+        group_graph_ms=group_ms,
+        shape=f"contains [{B},{K},65] (group {k1.GROUP}; group_graph_ms: each group size, "
+              "graph-replayed); "
+              f"backward_step [{B},{K}]",
         members=int(want_c.sum()), library_ms=None,
         # tokens, membership, ranges, and one dependent psi read per search
         # step (search_iters bounds the chain) plus the symbol's directory row
         bytes=cand.numel() * (4 + 1 + 16 + 4 * index.search_iters) + 8 * B * K,
+    ))
+
+    # kernel 1's step mode: the range update after a selection, at step 0
+    # (no stop rule) and later (finished parents, EOS and PAD selections),
+    # against its plain version and the composition it replaces
+    from seal_tpu_torch.ops import _generic
+
+    sel_tok = ext.clone()
+    sel_tok[0, :2] = torch.tensor([2, 1], device=dev)
+    sel_par = torch.randint(0, K, (B, K), generator=g, device=dev, dtype=torch.int32)
+    fin = torch.rand(B, K, generator=g, device=dev) < 0.2
+    errA = 0
+    for sp, f in ((torch.zeros_like(sel_par), None), (sel_par, fin)):
+        got = k1.fm_advance(index, sel_tok, sp, lo, hi, f, eos=2, pad=1)
+        want_a = k1.advance_plain(index, sel_tok, sp, lo, hi, f, eos=2, pad=1)
+        errA += sum(int((a != b).sum()) for a, b in zip(got, want_a))
+    if errA:
+        fail(f"fm_search_advance differs from its plain version ({errA} elements)")
+    adv = lambda: k1.fm_advance(index, sel_tok, sel_par, lo, hi, fin, eos=2, pad=1)  # noqa: E731
+
+    def composed():  # the update as the decode step wrote it before the step mode
+        return _generic.advance_ranges(
+            lambda t, a, b: k1.fm_search(index, "backward_step", t, a, b), lambda a, b: b - a,
+            sel_tok, sel_par, lo, hi, fin, eos=2, pad=1)
+
+    table.append(dict(
+        name="fm_search_advance", max_abs_err=errA, library_ms=None,
+        ms=time_ms(adv), graph_ms=graph_ms(adv),
+        plain_ms=time_ms(lambda: k1.advance_plain(index, sel_tok, sel_par, lo, hi, fin, eos=2,
+                                                   pad=1)),
+        composed_ms=time_ms(composed), composed_graph_ms=graph_ms(composed),
+        shape=f"[{B},{K}] selections over [{B},{K}] parents (composed_ms: range_size, the "
+              "gathers, kernel 1's backward step and the stop rule as separate launches)",
+        # the parents' ranges and flags, the selections, three outputs, and
+        # both bounds' psi chains and directory rows
+        bytes=B * K * (8 + 1 + 8 + 12) + 2 * B * K * (4 * index.search_iters + 16),
     ))
 
     # kernel 2: window [B*K rows, w=32, fill pad] and a slab (w=64, fill 0)
@@ -767,7 +862,9 @@ def decode_kernel_phases(np, torch, cfg, V, B, K, window, enc_len, key_len, devi
                  + B * (2 * K * 13 + K * 13 + 1))
     table.append(dict(
         name="beam_select", max_abs_err=err8s, library_ms=None, bytes=sel_bytes,
+        route=k8.select_plan(K, n_buf, window, K, False).route,
         ms=time_ms(lambda: k8.beam_select(*sargs, **skw)),
+        graph_ms=graph_ms(lambda: k8.beam_select(*sargs, **skw)),
         plain_ms=time_ms(lambda: k8.beam_select_plain(*sargs, stop_at_count=0,
                                                       always_allow_eos=False, **skw)),
         step0_ms=time_ms(lambda: k8.beam_select_top(*targs)),
@@ -2373,6 +2470,154 @@ def sharded_kernel_phases(np, torch, si, hosts, V, B, K):
     return table
 
 
+def select_route_phase(np, torch, cfg, V, B, K, window):
+    """Kernel 8's routes against the plain versions at the path's shapes
+    (ROADMAP C's F1 and F2 included), bit for bit, in both orders: the warp
+    route at the bench's [B, K, 2K + w + 2] and at beam 32 [B, 32, 98],
+    each beside the one-block route on the same inputs (the design before
+    the warp route); the table route at a speculative round of top_m 20000
+    ([B, K, 20130]) and the candidate mode's table at top_m 10000; the
+    merge in device memory at sampling's buffers of 3000 (under ties) and
+    10000."""
+    from seal_tpu_torch.kernels import beam_select as k8
+    from seal_tpu_torch.kernels import row_topk as k3
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    i32 = torch.int32
+    rows = B * K
+    lp_cache = {}
+
+    def lp_of(r):
+        if r not in lp_cache:
+            lp = torch.log_softmax(torch.randn(r, V, generator=g, device=dev) * 2, -1)
+            lp = torch.round(lp * 4) / 4  # ties
+            lp[:, 5] = 0.0
+            lp[::2, 6] = -0.0
+            lp_cache[r] = lp
+        return lp_cache[r]
+
+    def sel_args(Kb, n_buf, w, tok_hi):
+        lp = lp_of(B * Kb)
+        take = lambda t: torch.gather(lp, 1, t.reshape(B * Kb, -1).long()).reshape(t.shape)  # noqa: E731
+        btok = torch.randint(0, tok_hi, (B, Kb, n_buf), generator=g, device=dev, dtype=i32)
+        win_valid = torch.rand(B, Kb, w, generator=g, device=dev) < 0.6
+        win_tok = torch.where(win_valid, torch.randint(0, tok_hi, (B, Kb, w), generator=g,
+                                                       device=dev, dtype=i32), cfg.pad_token_id)
+        bs = torch.round(torch.randn(B, Kb, generator=g, device=dev) * 2) / 2 - 3
+        bs[0, 1] = k8.NEG_INF
+        return ((btok, take(btok), torch.rand(B, Kb, n_buf, generator=g, device=dev) < 0.7),
+                n_buf, win_tok, win_valid, take(win_tok),
+                (torch.rand(B, Kb, 2, generator=g, device=dev) < 0.5)[..., 1:], lp,
+                torch.randint(0, 50, (B, Kb), generator=g, device=dev, dtype=i32),
+                torch.rand(B, Kb, generator=g, device=dev) < 0.1, bs,
+                torch.rand(B, Kb, generator=g, device=dev) < 0.5,
+                torch.round(torch.randn(B, Kb, generator=g, device=dev)) - 4)
+
+    skw = dict(eos=cfg.eos_token_id, pad=cfg.pad_token_id)
+    pkw = dict(skw, stop_at_count=0, always_allow_eos=False)
+
+    def check(route, args, Kb, keep_invalid=False):
+        err = 0
+        for ties in (False, True):
+            n0 = k8.ROUTES[route].launches
+            got = k8.beam_select(*args, K=Kb, ties=ties, keep_invalid=keep_invalid, **skw)
+            if k8.ROUTES[route].launches != n0 + 1:
+                fail(f"beam_select: the {route} route did not run at {args[2].shape[:2]}")
+            want = k8.beam_select_plain(*args, K=Kb, ties=ties, keep_invalid=keep_invalid, **pkw)
+            err += mismatches(torch, got[0] + (got[1],), want[0] + (want[1],))
+        return err
+
+    table = []
+    a15 = sel_args(K, 2 * K, window, 400)
+    a32 = sel_args(32, 64, 32, 400)
+    errw = check("warp", a15, K) + check("warp", a32, 32) + check("warp", a15, K, True)
+    if errw:
+        fail(f"beam_select_warp differs from its plain version ({errw} elements)")
+    warp = lambda: k8.beam_select(*a15, K=K, **skw)  # noqa: E731
+    block = lambda: k8.beam_select(*a15, K=K, route="block", **skw)  # noqa: E731
+    ncand = 2 * K + window + 2
+    table.append(dict(
+        name="beam_select_warp", max_abs_err=errw, library_ms=None, route="warp",
+        ms=time_ms(warp), graph_ms=graph_ms(warp),
+        plain_ms=time_ms(lambda: k8.beam_select_plain(*a15, K=K, **pkw)),
+        block_ms=time_ms(block), block_graph_ms=graph_ms(block),
+        beam32_ms=time_ms(lambda: k8.beam_select(*a32, K=32, **skw)),
+        shape=f"[{B},{K},{ncand}] with the soundness test (block_ms: the one-block route on "
+              f"the same inputs); beam32_ms at [{B},32,98]; both orders and keep_invalid "
+              "checked",
+        bytes=(B * K * (2 * K * 9 + window * 9 + 1 + 4 + 1 + 4 + 1 + 4) + rows * 8
+               + B * (2 * K * 13 + K * 13 + 1)),
+    ))
+
+    # F2: the table route at a speculative round of top_m 20000
+    n_spec, w_spec = 20000, 128
+    aspec = sel_args(K, n_spec, w_spec, n_spec // 2)[:10] + (None, None)
+    errt = check("table", aspec, K, keep_invalid=True)
+    ccand = sel_args(K, 10000, 32, 5000)[:9]
+    ckw = dict(skw, stop_at_count=0, always_allow_eos=False, keep_invalid=False)
+    c0 = k8.CAND_TABLE.launches
+    errt += mismatches(torch, k8.beam_candidates(*ccand, **ckw), k8.candidates_plain(*ccand, **ckw))
+    if k8.CAND_TABLE.launches != c0 + 1:
+        fail("beam_candidates: the table did not run at 10034 candidates a beam")
+    if errt:
+        fail(f"beam_select_table differs from its plain version ({errt} elements)")
+    spec = lambda: k8.beam_select(*aspec, K=K, keep_invalid=True, **skw)  # noqa: E731
+    nsc = n_spec + w_spec + 2
+    table.append(dict(
+        name="beam_select_table", max_abs_err=errt, library_ms=None, route="table",
+        ms=time_ms(spec), graph_ms=graph_ms(spec),
+        plain_ms=time_ms(lambda: k8.beam_select_plain(*aspec, K=K, keep_invalid=True, **pkw),
+                         iters=3),
+        cand_ms=time_ms(lambda: k8.beam_candidates(*ccand, **ckw)),
+        shape=f"[{B},{K},{nsc}] keep_invalid (a speculative round of top_m {n_spec}); "
+              f"cand_ms: the candidate mode's table at [{B},{K},10034]",
+        # the candidates (9 B a slot), their lp columns, the outputs
+        bytes=B * K * nsc * 9 + rows * 8 + B * (2 * K * 13 + K * 13),
+    ))
+
+    # F1: the merge in device memory at sampling's buffers of 10000 and, under
+    # ties, 3000 (round 0: n_buf + 2 * 2 n_buf candidates a row)
+    def merge_args(n_buf, n_top):
+        lp = lp_of(rows)
+        top_lp, top_idx = k3.row_topk_plain(lp, n_top)
+        ok = (torch.rand(B, K, n_top + 1, generator=g, device=dev) < 0.5)[..., :n_top]
+        slab = torch.randint(0, min(3 * n_top, V), (B, K, n_top), generator=g, device=dev,
+                             dtype=i32)
+        slab_lp = torch.gather(lp, 1, slab.reshape(rows, -1).long()).reshape(B, K, n_top)
+        bt = torch.argsort(torch.rand(rows, V, generator=g, device=dev), -1)[:, :n_buf]
+        blp = torch.gather(lp, 1, bt).reshape(B, K, n_buf)
+        buf = (bt.to(i32).reshape(B, K, n_buf), blp,
+               (torch.rand(B, K, n_buf, generator=g, device=dev) < 0.7) & (blp > k8.NEG_INF / 2))
+        return (buf, top_idx.to(i32).reshape(B, K, n_top), top_lp.reshape(B, K, n_top), ok,
+                slab, slab_lp, torch.rand(B, K, n_top, generator=g, device=dev) < 0.8, V, n_buf)
+
+    errm = 0
+    m10 = merge_args(10000, 20000)
+    m3 = merge_args(3000, 6000)
+    for args, ties in ((m10, False), (m10, True), (m3, True)):
+        n0 = k8.MERGE_TABLE.launches
+        got = k8.beam_merge(*args, ties=ties)
+        if k8.MERGE_TABLE.launches != n0 + 1:
+            fail(f"beam_merge: the device-memory route did not run at n_buf {args[-1]}")
+        errm += mismatches(torch, got, k8.beam_merge_plain(*args, ties=ties))
+    if errm:
+        fail(f"beam_merge_table differs from its plain version ({errm} elements)")
+    n10 = 10000 + 2 * 20000
+    table.append(dict(
+        name="beam_merge_table", max_abs_err=errm, library_ms=None, route="table",
+        ms=time_ms(lambda: k8.beam_merge(*m10)), graph_ms=graph_ms(lambda: k8.beam_merge(*m10)),
+        plain_ms=time_ms(lambda: k8.beam_merge_plain(*m10), iters=3),
+        ties_ms=time_ms(lambda: k8.beam_merge(*m10, ties=True)),
+        n_buf_3000_ms=time_ms(lambda: k8.beam_merge(*m3, ties=True)),
+        shape=f"[{B},{K}] rows of {n10} candidates, n_buf 10000 (sampling at top_m 10000, "
+              "round 0); n_buf_3000_ms: 3000 under ties",
+        bytes=rows * n10 * 9 + rows * 10000 * 9,
+    ))
+    torch.cuda.synchronize()
+    return table
+
+
 def large_select_phase(np, torch, cfg, V, B, K, S):
     """Kernel 8's large-n route at beam K over S shards' union window
     (n = K * (2K + S * 128 + 2) candidates a query), against
@@ -2896,6 +3141,10 @@ def main() -> int:
         "row_topk_global": row_topk.GLOBAL_SORT,
         # kernel 9 in f32 (T5 as the JAX searcher builds it): its ffma route
         "cross_attention_step_f32": decode_attention.ROUTES["ffma"],
+        "fm_search_advance": fm_search.ADVANCE,
+        "beam_select_warp": beam_select.ROUTES["warp"],
+        "beam_select_table": beam_select.ROUTES["table"],
+        "beam_merge_table": beam_select.MERGE_TABLE,
     }
     # the calls of the sharded index's ops (each must be one launch)
     op_calls: collections.Counter = collections.Counter()
@@ -2952,7 +3201,8 @@ def main() -> int:
             if "t5" not in path:
                 self_attn, other = other, self_attn
             want = {"cross_attention_step": layers * n, self_attn: layers * n, other: 0,
-                    "reorder_cache": n - no_select, select: n - no_select}
+                    "reorder_cache": n - no_select, select: n - no_select,
+                    "fm_search_advance": n - no_select if psi_constrained(path) else 0}
             if select != "beam_select":  # kernel 20 or 21 selects, kernel 8 nothing
                 want["beam_select"] = 0
             for name, count in want.items():
@@ -3037,6 +3287,7 @@ def main() -> int:
     table = kernel_phases(np, torch, host, index, V, B, K)
     table += decode_kernel_phases(np, torch, cfg, V, B, K, generate.resolve_window(0, K),
                                   ids.shape[1], kw["max_length"])
+    table += select_route_phase(np, torch, cfg, V, B, K, generate.resolve_window(0, K))
     for row in table:
         log_kernel(row)
     one = torch.empty(1, device="cuda")
@@ -3439,6 +3690,19 @@ def main() -> int:
     for row in large_table:
         log_kernel(row)
     table += large_table
+    # the sizes the card refused before F1 and F2: one batch each, through
+    # kernel 8's merge in device memory or its selection's table route
+    fault = {}
+    for path, extra, route in (
+            ("generate_sample_ties_3000", dict(sample=True, seed=0, exact_ties=True, top_m=3000),
+             "beam_merge_table"),
+            ("generate_sample_10000", dict(sample=True, seed=0, top_m=10000), "beam_merge_table"),
+            ("generate_spec_20000", dict(speculative=True, top_m=20000), "beam_select_table")):
+        f_hyps, c, nb, fqps = run_mode(path, batches=1, warm=False, **extra)
+        fault[path] = (hyp_keys(f_hyps, path), c[route], fqps)
+    log("fault sizes (F1, F2): " + "; ".join(
+        f"{p} {k} keys grounded, {n} calls of its route, {q:.1f} queries/s"
+        for p, (k, n, q) in fault.items()))
     log(f"sampling: {n_ks} keys grounded; one seed identical in every batch: {same_seed}; seeds "
         f"0 and 1 differ: {seeds_differ}; {spread} of {B} queries' chains end in more than one "
         f"key; compact and hybrid draws identical to psi's: {sample_layouts}; free generation "
@@ -3760,6 +4024,9 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "card": CARD,
+            # kernels 9-10 and 8 name their own route (warp, mma, ...) beside
+            # the contract's "cuda" or "triton"
+            **({"kernel_route": row["route"]} if "route" in row else {}),
             **{k: row[k] for k in ("tol_ratio", "psi_ms", "hybrid_ms", "rank_route_ms",
                                    "default_ms", "merge_ms", "topk_dense_ms", "k64_ms",
                                    "row_topk_k64_ms", "library_k64_ms", "narrow_ms", "ties_ms",
@@ -3767,10 +4034,12 @@ def main() -> int:
                                    "f32_tol_ratio", "cross_tol_ratio", "cross_f32_ms",
                                    "cross_f32_tol_ratio", "extend_ms", "ranges_ms",
                                    "histogram_route_ms", "sites", "graph_ms",
-                                   "library_graph_ms", "route", "step0_ms", "step0_graph_ms",
+                                   "library_graph_ms", "step0_ms", "step0_graph_ms",
                                    "long_ms", "long_plain_ms", "long_library_ms",
                                    "long_graph_ms", "long_library_graph_ms", "long_bound_ms",
-                                   "long_tol_ratio", "bf16_graph_ms", "loop_chunk_ms")
+                                   "long_tol_ratio", "bf16_graph_ms", "loop_chunk_ms",
+                                   "group_graph_ms", "composed_ms", "composed_graph_ms", "block_ms",
+                                   "block_graph_ms", "beam32_ms", "cand_ms", "n_buf_3000_ms")
                if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}

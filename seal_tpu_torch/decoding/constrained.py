@@ -124,11 +124,14 @@ class SingleIndexOps:
     def window_gather(self, lo, hi, w, lp, fill):
         return self._ops.window_gather(self.index, lo, hi, w, lp, fill)
 
-    def extend(self, tokens, lo, hi):
-        return self._ops.extend_ranges(self.index, tokens, lo, hi)
-
-    def range_size(self, lo, hi):
-        return hi - lo
+    def advance(self, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int):
+        """The range update after a selection (:1416-1430; step 0, with
+        ``finished`` None, :1344-1349): (lo, hi, prev_count) [B, K].  One
+        launch of kernel 1's step mode on the Psi layout; the wavelet
+        layouts compose kernel 12's backward step
+        (``ops/_generic.py:advance_ranges``)."""
+        return self._ops.advance_ranges(self.index, sel_tok, sel_par, lo, hi, finished, eos=eos,
+                                        pad=pad)
 
     def window_exhaustive(self, lo, hi, w):
         """True where the w-row window enumerates the whole interval."""
@@ -637,9 +640,9 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
     self_cache = model.reorder_cache(self_cache, (brow * K0 + sel_par).reshape(-1), step=pos0,
                                     out=caches[1])
     prev_count = lo = hi = None  # free generation keeps no constraint state
-    if constrained:
-        prev_count = _gather(ops.range_size(lo0, hi0), sel_par)
-        lo, hi = ops.extend(sel_tok, _gather(lo0, sel_par), _gather(hi0, sel_par))
+    if constrained:  # no stop rule at step 0
+        lo, hi, prev_count = ops.advance(sel_tok, sel_par, lo0, hi0, eos=cfg.eos_token_id,
+                                         pad=cfg.pad_token_id)
     hist = [(c_tok, c_par, c_sco, c_fin, sel_tok, sel_par)]
     unsound = []
 
@@ -677,18 +680,10 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
                                         out=caches[t % 2])
 
         if constrained:
-            new_prev_count = _gather(ops.range_size(lo, hi), sel_par)
             # EOS/PAD selections end the constraint sequence (range (0, 0)),
             # and a finished parent stays finished
-            elo, ehi = ops.extend(sel_tok, _gather(lo, sel_par), _gather(hi, sel_par))
-            stop = (
-                (sel_tok == cfg.eos_token_id)
-                | (sel_tok == cfg.pad_token_id)
-                | _gather(finished, sel_par)
-            )
-            lo = torch.where(stop, 0, elo)
-            hi = torch.where(stop, 0, ehi)
-            prev_count = new_prev_count
+            lo, hi, prev_count = ops.advance(sel_tok, sel_par, lo, hi, finished,
+                                             eos=cfg.eos_token_id, pad=cfg.pad_token_id)
         tainted = _gather(tainted, sel_par) | ~sel_fin
         beam_scores = new_scores
         hist.append((c_tok, c_par, c_sco, c_fin, sel_tok, sel_par))

@@ -42,23 +42,40 @@ Three more modes, for the decode modes of ``_candidates_general`` (:305):
   constrained log-prob, log-prob) for kernels 20 and 21 to select from; no
   selection.  Its plain version is ``beam_select``'s first half.
 
-``beam_select`` sorts a query's n = n_par * (n_buf + w + 2) candidates in
-one CTA while that fits the shared memory, and otherwise takes its
-large-n route (beam 32 over a 4-shard union window: n = 18,496): each
-beam's top 2K by the same key, then the query's finish over the n_par * 2K
-survivors -- two launches, the same result bit for bit (dedup and branches
-are per beam, and the key order is total).  ``beam_select_large_plain``
-is that route's specification.  Its launches also count on ``LARGE``.
+``beam_select`` runs one of four routes (:func:`select_plan`, counted in
+``ROUTES``): ``"warp"`` -- a warp a beam, its slots in registers sorted by
+shuffles, each beam's top 2K a sorted list, a survivor placed by its rank
+across the lists (``beam_select_warp_plain`` is that algorithm in torch)
+-- where a beam has at most 128 candidates, 2K <= 64 and n_par <= 32 (the
+bench's beam 15 and beam 32 at a 32-row window); ``"block"`` -- the
+query's n = n_par * (n_buf + w + 2) candidates sorted in one CTA -- while
+that fits the shared memory; ``"large"`` (beam 32 over a 4-shard union
+window: n = 18,496) -- each beam's top 2K by the same key, then the
+query's finish over the n_par * 2K survivors -- two launches, the same
+result bit for bit (dedup and branches are per beam, and the key order is
+total; ``beam_select_large_plain`` is its specification, and its launches
+also count on ``LARGE``); and ``"table"`` -- a beam past a CTA (a
+speculative round of ``top_m`` up to V) finds first instances through a
+[rows, V] table in device memory and keeps its top 2K of chunks of
+``SELECT_CHUNK`` candidates (``beam_select_large_plain(..., chunk=)``).
 ``beam_merge`` likewise merges a row in one CTA while it fits, and
 otherwise in passes over chunks, each keeping its chunk's n_buf best
 first instances (``sample=True`` with ``top_m >= 482``, an
 ``exact_loop_chunk`` past 4,081 at beam 15): exact because valid copies of
 a token carry one log-prob (``csrc/beam_select.cu`` gives the argument;
 ``beam_merge_large_plain`` is the specification).  Those calls also count
-on ``MERGE_LARGE``.
+on ``MERGE_LARGE``.  A buffer past 4,096 (2,048 under ``ties``), where a
+chunk could no longer halve a row, takes the device-memory route: the
+table, one 64-bit key a slot sorted in device memory
+(``beam_merge_table_plain``), counted on ``MERGE_TABLE``.
+``beam_candidates`` takes the table past ``SERIAL_MAX`` candidates a beam
+(``CAND_TABLE``).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -74,9 +91,19 @@ TIES = Launches()  # kernel 8 launches in the ties mode (merge and select)
 FREE = Launches()  # beam_select_top launches with a candidate token table
 SPEC = Launches()  # beam_select launches that keep invalid buffer slots
 LARGE = Launches()  # beam_select calls through the two-launch large-n route
+# beam_select calls by route (select_plan)
+ROUTES = {"warp": Launches(), "block": Launches(), "large": LARGE, "table": Launches()}
+_ROUTE_CODES = {"block": 0, "large": 1, "warp": 2, "table": 3}  # csrc/beam_select.cu's
 MERGE_LARGE = Launches()  # beam_merge calls through the chunked large-n route
+MERGE_TABLE = Launches()  # beam_merge calls through the device-memory route
+CAND_TABLE = Launches()  # beam_candidates calls that dedup through the table
 MERGE_CHUNK = 4096  # candidates a CTA of the large-n merge (MERGE_CHUNK_WIDE past n_buf 2048)
 MERGE_CHUNK_WIDE = 8192
+MERGE_SORT_MIN = 8192  # the device-memory sort's smallest row (global_sort.cuh's GTILE)
+SELECT_CHUNK = 8192  # candidates a CTA of the table route's per-beam stage
+SERIAL_MAX = 2048  # candidates a beam dedups by a serial scan in shared memory
+WARP_MAX = (128, 64, 32)  # the warp route's most candidates a beam, 2K and beams
+_FN = {}  # kernel 8's C entry points, looked up once
 
 
 def top_by_score_then_id(score, tie_id, k: int):
@@ -143,23 +170,29 @@ def _g(x, idx):
 # ------------------------------------------------------------------ merge
 
 
-def beam_merge_plain(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: int,
-                     n_buf: int, ties: bool = False):
+def _merge_candidates(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, n_buf):
+    """A merge's candidates in slot order, [..., n] (tok, lp, valid)."""
     lead = top_tok.shape[:-1]
     dev = top_tok.device
     if buf is None:
         buf = (torch.zeros((*lead, n_buf), dtype=torch.int32, device=dev),
                torch.full((*lead, n_buf), NEG_INF, dtype=torch.float32, device=dev),
                torch.zeros((*lead, n_buf), dtype=torch.bool, device=dev))
-    buf_tok, buf_lp, buf_valid = buf
-    all_tok = torch.cat([buf_tok, top_tok, slab_tok], -1)
-    all_lp = torch.cat([buf_lp, top_lp, slab_lp], -1)
-    all_valid = torch.cat(
-        [buf_valid, top_ok & (top_lp > NEG_INF / 2), slab_ok & (slab_lp > NEG_INF / 2)], -1
-    )
+    tok = torch.cat([buf[0], top_tok, slab_tok], -1)
+    lp = torch.cat([buf[1], top_lp, slab_lp], -1)
+    ok = torch.cat([buf[2], top_ok & (top_lp > NEG_INF / 2), slab_ok & (slab_lp > NEG_INF / 2)],
+                   -1)
+    return tok, lp, ok
+
+
+def beam_merge_plain(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: int,
+                     n_buf: int, ties: bool = False):
+    all_tok, all_lp, all_valid = _merge_candidates(buf, top_tok, top_lp, top_ok, slab_tok,
+                                                   slab_lp, slab_ok, n_buf)
     n = all_tok.shape[-1]
     # an invalid slot gets an id of its own, so it cannot shadow a valid copy
-    uniq = torch.where(all_valid, all_tok, vocab + torch.arange(n, dtype=torch.int32, device=dev))
+    uniq = torch.where(all_valid, all_tok,
+                       vocab + torch.arange(n, dtype=torch.int32, device=all_tok.device))
     fresh = dedup_mask(uniq)
     rank = torch.where(all_valid & fresh, all_lp, NEG_INF)
     keep = top_by_score_then_id(rank, uniq, n_buf) if ties else row_topk_plain(rank, n_buf)[1]
@@ -170,6 +203,22 @@ def merge_chunk(n_buf: int) -> int:
     """Candidates a CTA of the large-n merge takes: at least 2 n_buf, so
     each pass at least halves a row."""
     return MERGE_CHUNK if 2 * n_buf <= MERGE_CHUNK else MERGE_CHUNK_WIDE
+
+
+@functools.lru_cache(maxsize=256)
+def merge_route(n: int, n_buf: int, ties: bool) -> tuple[str, int]:
+    """The merge's route for rows of ``n`` candidates: ("block", n) where a
+    row fits one CTA, ("chunked", chunk) where chunks of at least 2 n_buf
+    do, else ("table", n2): the device-memory route over rows of n2 keys."""
+    from seal_tpu_torch.kernels import build
+
+    smem = build.lib().seal_beam_merge_smem
+    if smem(n, int(ties)) <= build.SMEM_LIMIT:
+        return "block", n
+    chunk = merge_chunk(n_buf)
+    if 2 * n_buf <= chunk and smem(chunk, int(ties)) <= build.SMEM_LIMIT:
+        return "chunked", chunk
+    return "table", max(1 << (n - 1).bit_length(), MERGE_SORT_MIN)
 
 
 def merge_widths(n: int, n_buf: int, chunk: int) -> list[int]:
@@ -191,17 +240,9 @@ def beam_merge_large_plain(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab
     until one chunk holds a row; equal to :func:`beam_merge_plain` when
     valid copies of a token carry one log-prob (the merge's inputs do)."""
     chunk = merge_chunk(n_buf) if chunk is None else chunk
-    lead = top_tok.shape[:-1]
-    dev = top_tok.device
-    if buf is None:
-        buf = (torch.zeros((*lead, n_buf), dtype=torch.int32, device=dev),
-               torch.full((*lead, n_buf), NEG_INF, dtype=torch.float32, device=dev),
-               torch.zeros((*lead, n_buf), dtype=torch.bool, device=dev))
-    tok = torch.cat([buf[0], top_tok, slab_tok], -1)
-    lp = torch.cat([buf[1], top_lp, slab_lp], -1)
-    ok = torch.cat([buf[2], top_ok & (top_lp > NEG_INF / 2), slab_ok & (slab_lp > NEG_INF / 2)],
-                   -1)
-    slot = torch.arange(tok.shape[-1], dtype=torch.int32, device=dev).expand(tok.shape)
+    tok, lp, ok = _merge_candidates(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok,
+                                    n_buf)
+    slot = torch.arange(tok.shape[-1], dtype=torch.int32, device=tok.device).expand(tok.shape)
     while True:
         width = tok.shape[-1]
         parts = []
@@ -219,6 +260,48 @@ def beam_merge_large_plain(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab
         tok, lp, ok, slot = (torch.cat(p, -1) for p in zip(*parts))
 
 
+def table_first(tok, vocab: int, keep=None):
+    """The table routes' dedup (``csrc/beam_select.cu``): a [rows, vocab]
+    table of each token's lowest slot in its row, over the slots ``keep``
+    marks (all by default); True where a slot holds its token's entry, and
+    where its token lies outside [0, vocab) (never recorded)."""
+    t = tok.long()
+    inside = (t >= 0) & (t < vocab)
+    if keep is not None:
+        inside = inside & keep
+    col = torch.where(inside, t, vocab)  # a spare column for the rest
+    slot = torch.arange(t.shape[-1], device=t.device).expand(t.shape)
+    table = torch.full((*t.shape[:-1], vocab + 1), 0xFFFFFFFF, dtype=torch.int64, device=t.device)
+    table.scatter_reduce_(-1, col, slot, "amin")
+    return ~inside | (torch.gather(table, -1, col) == slot)
+
+
+def beam_merge_table_plain(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: int,
+                           n_buf: int, ties: bool = False):
+    """The device-memory route's algorithm (``merge_table_kernel``,
+    ``merge_keys_kernel``, ``global_sort``): first instances from the table
+    of each valid token's lowest slot, one unique 64-bit key a slot, the
+    row sorted by key and its first ``n_buf`` read back.  Equal to
+    :func:`beam_merge_plain` where valid tokens lie in [0, vocab) and carry
+    lp > NEG_INF/2 (the decode's merges)."""
+    tok, lp, ok = _merge_candidates(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok,
+                                    n_buf)
+    n = tok.shape[-1]
+    slot = torch.arange(n, dtype=torch.int64, device=tok.device).expand(tok.shape)
+    fresh = ok & table_first(tok, vocab, keep=ok)
+    rank = order_key(torch.where(fresh, lp, NEG_INF)).long() & 0xFFFFFFFF
+    mono = rank ^ 0x80000000  # the unsigned order key of the f32 total order
+    if ties:
+        uid = torch.where(ok, tok.long(), vocab + slot)
+        key = torch.where(fresh, (mono << 32) | (0xFFFFFFFF - tok.long()),
+                          ((0x7FFFFF - uid) << 32) | (0xFFFFFFFF - slot))
+    else:
+        key = (mono << 32) | (0xFFFFFFFF - slot)
+    # descending unsigned order as signed int64: flip the top bit
+    order = torch.sort(key ^ (-(1 << 63)), dim=-1, descending=True)[1][..., :n_buf]
+    return _g(tok, order), _g(lp, order), _g(fresh, order)
+
+
 def beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: int,
                n_buf: int, ties: bool = False):
     """One proposal round's merge, per beam row.
@@ -232,12 +315,14 @@ def beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: 
     equal log-probs keep slot order, or with ``ties`` the order of their
     dedup ids (the token if valid, else ``vocab`` + slot).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel: one
-    CTA a row while the row's candidates fit its shared memory (n <= 8,192,
-    4,096 under ``ties``, by ``seal_beam_merge_smem``), else the large-n
-    route (passes of :func:`merge_chunk` candidates a CTA,
-    ``beam_merge_large_plain``; n_buf up to 4,096, 2,048 under ``ties``).
-    ``top_tok``/``top_lp`` and ``top_ok`` may be row-strided views.
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    :func:`merge_route`'s route: one CTA a row while the row's candidates
+    fit its shared memory (n <= 8,192, 4,096 under ``ties``, by
+    ``seal_beam_merge_smem``), passes of :func:`merge_chunk` candidates a
+    CTA (``beam_merge_large_plain``) for buffers up to 4,096 (2,048 under
+    ``ties``), else the device-memory route (``beam_merge_table_plain``;
+    valid tokens in [0, vocab)).  ``top_tok``/``top_lp`` and ``top_ok`` may
+    be row-strided views.
     """
     if not top_tok.is_cuda:
         return beam_merge_plain(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab,
@@ -248,11 +333,7 @@ def beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: 
     n_top, n_slab = top_tok.shape[-1], slab_tok.shape[-1]
     rows = top_tok[..., 0].numel()
     n = n_buf + n_top + n_slab
-    chunk = n  # one CTA a row where the row fits, else passes of merge_chunk
-    if build.lib().seal_beam_merge_smem(n, int(ties)) > build.SMEM_LIMIT:
-        chunk = merge_chunk(n_buf)
-        if build.lib().seal_beam_merge_smem(chunk, int(ties)) > build.SMEM_LIMIT:
-            raise ValueError(f"beam_merge: a buffer of {n_buf} exceeds the large-n route's chunks")
+    route, chunk = merge_route(n, n_buf, bool(ties))
     top_stride = _row_stride(top_tok, "top_tok")
     if _row_stride(top_lp, "top_lp") != top_stride:
         raise ValueError("beam_merge: top_tok and top_lp need one row stride")
@@ -273,24 +354,37 @@ def beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, vocab: 
     src = (ptr(0), ptr(1), ptr(2), top_tok.data_ptr(), top_lp.data_ptr(), top_ok.data_ptr(),
            top_stride, ok_stride, slab_tok.data_ptr(), slab_lp.data_ptr(), slab_ok.data_ptr())
     stream = build.stream_ptr(top_tok)
-    # a pass per width: survivors (tok, lp, ok, slot) [rows, width] between passes
-    widths = merge_widths(n, n_buf, chunk)
-    prev = (None, None, None, None)
-    for width, nxt in zip(widths, widths[1:] + [None]):
-        if nxt is None:
-            outs = (out_tok, out_lp, out_valid, None)
-        else:
-            outs = (torch.empty((rows, nxt), dtype=torch.int32, device=dev),
-                    torch.empty((rows, nxt), dtype=torch.float32, device=dev),
-                    torch.empty((rows, nxt), dtype=torch.bool, device=dev),
-                    torch.empty((rows, nxt), dtype=torch.int32, device=dev))
-        rc = build.lib().seal_beam_merge(
-            *src, n_top, n_slab, *(t.data_ptr() if t is not None else None for t in prev),
-            rows, width, chunk, n_buf, vocab, int(ties), NEG_INF,
-            *(t.data_ptr() if t is not None else None for t in outs), stream)
+    if route == "table":
+        if vocab + n > 0x7FFFFF:
+            raise ValueError(f"beam_merge: {n} candidates over a vocab of {vocab} exceed the "
+                             "device-memory route's 23-bit dedup ids")
+        table = torch.empty((rows, vocab), dtype=torch.int32, device=dev)
+        keys = torch.empty((rows, chunk), dtype=torch.int64, device=dev)
+        rc = build.lib().seal_beam_merge_table(
+            *src, n_top, n_slab, rows, n_buf, vocab, int(ties), NEG_INF, table.data_ptr(),
+            keys.data_ptr(), chunk, out_tok.data_ptr(), out_lp.data_ptr(), out_valid.data_ptr(),
+            stream)
         build.check(rc, "beam_merge")
-        prev = outs
-    MERGE_LARGE.launches += len(widths) > 1
+        MERGE_TABLE.launches += 1
+    else:
+        # a pass per width: survivors (tok, lp, ok, slot) [rows, width] between passes
+        widths = merge_widths(n, n_buf, chunk)
+        prev = (None, None, None, None)
+        for width, nxt in zip(widths, widths[1:] + [None]):
+            if nxt is None:
+                outs = (out_tok, out_lp, out_valid, None)
+            else:
+                outs = (torch.empty((rows, nxt), dtype=torch.int32, device=dev),
+                        torch.empty((rows, nxt), dtype=torch.float32, device=dev),
+                        torch.empty((rows, nxt), dtype=torch.bool, device=dev),
+                        torch.empty((rows, nxt), dtype=torch.int32, device=dev))
+            rc = build.lib().seal_beam_merge(
+                *src, n_top, n_slab, *(t.data_ptr() if t is not None else None for t in prev),
+                rows, width, chunk, n_buf, vocab, int(ties), NEG_INF,
+                *(t.data_ptr() if t is not None else None for t in outs), stream)
+            build.check(rc, "beam_merge")
+            prev = outs
+        MERGE_LARGE.launches += len(widths) > 1
     beam_merge.launches += 1
     TIES.launches += int(ties)
     return out_tok, out_lp, out_valid
@@ -334,9 +428,11 @@ def _epilogue(top_cons, top_idx, flat_uncons, flat_tok, ncand, K, eos):
 
 def candidates_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
                      finished, *, eos: int, pad: int, stop_at_count: int = 0,
-                     always_allow_eos: bool = False, keep_invalid: bool = False):
+                     always_allow_eos: bool = False, keep_invalid: bool = False, first=None):
     """The candidates of ``beam_select`` before selection: (tokens,
-    constrained log-probs, log-probs) [B, n_par, n_buf + w + 2]."""
+    constrained log-probs, log-probs) [B, n_par, n_buf + w + 2].  ``first``
+    maps the tokens to their first-instance mask (default
+    :func:`dedup_mask`; the table routes' :func:`table_first`)."""
     B, n_par = prev_count.shape
     dev = lp.device
     eos_lp = lp[:, eos].reshape(B, n_par, 1)
@@ -361,7 +457,7 @@ def candidates_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, pr
     allowed = apply_branches(tokens, fm_valid, prev_count, finished, eos=eos, pad=pad,
                              stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
     # proposal slots can repeat a window token; keep one per token id
-    cons = torch.where(allowed & dedup_mask(tokens), cand_lp, NEG_INF)
+    cons = torch.where(allowed & (first or dedup_mask)(tokens), cand_lp, NEG_INF)
     return tokens, cons, cand_lp
 
 
@@ -381,34 +477,62 @@ def beam_select_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, p
     return out, unsound
 
 
+def _select_key(score, tie):
+    """int64 keys whose descending order is (score desc, tie id asc), with
+    the flat slot beside them breaking equal keys (``pack`` in
+    ``csrc/select_common.cuh``, as signed int64)."""
+    return (order_key(score).long() << 32) | (0xFFFFFFFF - tie.long())
+
+
+def _ties_of(tokens, ncand, vocab, ties):
+    B = tokens.shape[0]
+    flat = tokens.reshape(B, -1)
+    if ties:
+        return beam_tok_tie(flat, ncand, vocab).reshape(tokens.shape)
+    return torch.arange(flat.shape[-1], dtype=torch.int32,
+                        device=tokens.device).expand(flat.shape).reshape(tokens.shape)
+
+
 def beam_select_large_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp,
                             prev_count, finished, beam_scores, need, th_lp, *, K: int, eos: int,
                             pad: int, stop_at_count: int, always_allow_eos: bool,
-                            ties: bool = False, keep_invalid: bool = False):
+                            ties: bool = False, keep_invalid: bool = False,
+                            chunk: int | None = None):
     """The large-n route's two stages, as the kernel takes them: each beam's
     best 2K candidates by (score, slot) -- or (score, tie id, slot) --, then
-    the query's best 2K of those survivors in the same order.  Equals
-    ``beam_select_plain``."""
+    the query's best 2K of those survivors in the same order.  With
+    ``chunk``, the table route: first instances from the table
+    (:func:`table_first`), and each beam's best 2K taken from its chunks'
+    best 2K.  Equals ``beam_select_plain``."""
+    first = None if chunk is None else (lambda t: table_first(t, lp.shape[-1]))
     tokens, cons, cand_lp = candidates_plain(
         buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished, eos=eos, pad=pad,
-        stop_at_count=stop_at_count, always_allow_eos=always_allow_eos, keep_invalid=keep_invalid)
+        stop_at_count=stop_at_count, always_allow_eos=always_allow_eos, keep_invalid=keep_invalid,
+        first=first)
     B, n_par, ncand = tokens.shape
     bs = beam_scores[..., None]
     score = cons + bs
-    keep = min(2 * K, ncand)
-    tie = beam_tok_tie(tokens.reshape(B, -1), ncand, lp.shape[-1]) if ties else None
-    if ties:
-        idx = top_by_score_then_id(score, tie.reshape(B, n_par, ncand), keep)
-    else:
-        idx = row_topk_plain(score, keep)[1]
-    base = torch.arange(n_par, device=lp.device)[:, None] * ncand
-    surv = torch.sort((idx + base).reshape(B, n_par * keep), -1)[0]  # flat slots, ascending
+    two_k = 2 * K
+    key = _select_key(score, _ties_of(tokens, ncand, lp.shape[-1], ties))
+    slot = torch.arange(n_par * ncand, device=lp.device).reshape(n_par, ncand).expand(key.shape)
+
+    def best(k_, s_, m):  # the m best (key, slot) pairs of each row, in order
+        order = torch.sort(k_, dim=-1, descending=True, stable=True)[1][..., :m]
+        return _g(k_, order), _g(s_, order)
+
+    # the slots hold each key's slot in slot order, so a stable sort breaks
+    # equal keys by slot
+    step = ncand if chunk is None else chunk
+    parts = [best(key[..., c:c + step], slot[..., c:c + step], two_k)
+             for c in range(0, ncand, step)]
+    bk, bsl = (torch.cat(p, -1) for p in zip(*parts))
+    if len(parts) > 1:  # the reduction of each beam's chunks
+        ordr = torch.sort(bsl, -1)[1]
+        bk, bsl = best(_g(bk, ordr), _g(bsl, ordr), two_k)
+    bk, bsl = bk.reshape(B, -1), bsl.reshape(B, -1)
+    ordr = torch.sort(bsl, -1)[1]  # the survivors in slot order
+    _, top_idx = best(_g(bk, ordr), _g(bsl, ordr), two_k)
     flat = score.reshape(B, -1)
-    if ties:
-        pick = top_by_score_then_id(_g(flat, surv), _g(tie, surv), 2 * K)
-    else:
-        pick = row_topk_plain(_g(flat, surv), 2 * K)[1]
-    top_idx = _g(surv, pick)
     out = _epilogue(_g(flat, top_idx), top_idx, (cand_lp + bs).reshape(B, -1),
                     tokens.reshape(B, -1), ncand, K, eos)
     if need is None:
@@ -416,9 +540,104 @@ def beam_select_large_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok,
     return out, (need & (beam_scores + th_lp >= out[8][:, -1:])).any(-1)
 
 
+def beam_select_warp_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp,
+                           prev_count, finished, beam_scores, need, th_lp, *, K: int, eos: int,
+                           pad: int, stop_at_count: int, always_allow_eos: bool,
+                           ties: bool = False, keep_invalid: bool = False):
+    """The warp route's algorithm in torch: each beam's first
+    min(2K, ncand) candidates by (key, slot) as a sorted list; a survivor's
+    rank in the query is its place in its own list plus, in every other
+    list, the number of entries before it; the survivors ranked below 2K
+    are the query's top 2K in rank order.  Equals ``beam_select_plain``."""
+    tokens, cons, cand_lp = candidates_plain(
+        buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished, eos=eos, pad=pad,
+        stop_at_count=stop_at_count, always_allow_eos=always_allow_eos, keep_invalid=keep_invalid)
+    B, n_par, ncand = tokens.shape
+    bs = beam_scores[..., None]
+    score = cons + bs
+    two_k, L = 2 * K, min(2 * K, ncand)
+    key = _select_key(score, _ties_of(tokens, ncand, lp.shape[-1], ties))
+    order = torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :L]
+    lk = _g(key, order)  # [B, n_par, L] each beam's list
+    ls = order + torch.arange(n_par, device=lp.device)[:, None] * ncand  # flat slots
+    # entries of list k2 before survivor (k, p): [B, n_par, L, n_par, L]
+    a_k, a_s = lk[:, :, :, None, None], ls[:, :, :, None, None]
+    b_k, b_s = lk[:, None, None], ls[:, None, None]
+    before = (b_k > a_k) | ((b_k == a_k) & (b_s < a_s))
+    rank = before.sum((-1, -2))  # its own list's entries before it are its place p
+    top_idx = torch.zeros((B, two_k), dtype=torch.int64, device=lp.device)
+    keep = rank < two_k
+    top_idx[torch.nonzero(keep)[:, 0], rank[keep]] = ls[keep]
+    flat = score.reshape(B, -1)
+    out = _epilogue(_g(flat, top_idx), top_idx, (cand_lp + bs).reshape(B, -1),
+                    tokens.reshape(B, -1), ncand, K, eos)
+    if need is None:
+        return out, None
+    return out, (need & (beam_scores + th_lp >= out[8][:, -1:])).any(-1)
+
+
+class SelectPlan(NamedTuple):
+    """A selection's launch: its ``route`` (``ROUTES``' key) and C code, the
+    per-beam stage's ``chunk`` and chunks a beam (table route), and the
+    scratch keys a query needs (0: none)."""
+
+    route: str
+    code: int
+    chunk: int
+    n_chunks: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=256)
+def select_plan(n_par: int, n_buf: int, w: int, K: int, ties: bool,
+                route: str | None = None) -> SelectPlan:
+    """The route of ``beam_select`` for beams of ``n_buf + w + 2``
+    candidates: the warp route where a beam has at most 128 of them, 2K <=
+    64 and n_par <= 32; else one CTA a query while its candidates fit (and
+    a beam's at most ``SERIAL_MAX``, its serial dedup); else the large-n
+    route (per beam, then per query) while a beam fits a CTA; else the
+    table route.  ``route`` forces one (tests and measurements).  Raises
+    where no route fits the shared memory.  Cached: the decode loop asks
+    for the same few shapes every step (the route does not depend on the
+    batch, ``keep_invalid`` or the soundness flags)."""
+    from seal_tpu_torch.kernels import build
+
+    so, limit = build.lib(), build.SMEM_LIMIT
+    ncand = n_buf + w + 2
+    n, two_k, t = n_par * ncand, 2 * K, int(ties)
+    n_chunks = -(-ncand // SELECT_CHUNK)
+    fits = {
+        "warp": (ncand <= WARP_MAX[0] and two_k <= WARP_MAX[1] and n_par <= WARP_MAX[2]
+                 and so.seal_beam_select_warp_smem(n_par, ncand, two_k, K, t) <= limit),
+        "block": ncand <= SERIAL_MAX and so.seal_beam_select_smem(n, two_k, K, t) <= limit,
+        "large": (ncand <= SERIAL_MAX
+                  and so.seal_beam_select_large_smem(n_par, ncand, two_k, K, t) <= limit),
+        "table": so.seal_beam_select_table_smem(n_par, SELECT_CHUNK, n_chunks, two_k, K,
+                                                t) <= limit,
+    }
+    if route is None:
+        route = next((r for r in ("warp", "block", "large", "table") if fits[r]), None)
+        if route is None:
+            raise ValueError(f"beam_select: {n_par} x {two_k} survivors per query exceed the "
+                             "shared memory")
+    elif not fits[route]:
+        raise ValueError(f"beam_select: the {route} route cannot take {n_par} beams of {ncand} "
+                         f"candidates at 2K = {two_k}")
+    chunk, scratch = 0, 0
+    if route == "large":
+        chunk, n_chunks, scratch = ncand, 1, n_par * two_k
+    elif route == "table":
+        chunk = SELECT_CHUNK
+        scratch = n_par * two_k * (n_chunks + (n_chunks > 1))
+    else:
+        n_chunks = 0
+    return SelectPlan(route, _ROUTE_CODES[route], chunk, n_chunks, scratch)
+
+
 def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished,
                 beam_scores, need=None, th_lp=None, *, K: int, eos: int, pad: int, stop_at_count: int = 0,
-                always_allow_eos: bool = False, ties: bool = False, keep_invalid: bool = False):
+                always_allow_eos: bool = False, ties: bool = False, keep_invalid: bool = False,
+                route: str | None = None):
     """Candidate build, branches, dedup, top-2K and the continuation rule of
     one decode step, per query.
 
@@ -435,28 +654,24 @@ def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_co
     speculative mode's candidates).
 
     Returns (nine outputs of ``_select``, unsound or None).  CPU tensors run
-    the plain version; CUDA tensors launch the kernel.
+    the plain version; CUDA tensors launch the kernel on
+    :func:`select_plan`'s route (``route`` forces one; the table route
+    needs every token in [0, V)).
     """
-    kw = dict(K=K, eos=eos, pad=pad, stop_at_count=stop_at_count,
-              always_allow_eos=always_allow_eos, ties=ties, keep_invalid=keep_invalid)
     if not lp.is_cuda:
         return beam_select_plain(buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
-                                 finished, beam_scores, need, th_lp, **kw)
-    from seal_tpu_torch.kernels import build
-
+                                 finished, beam_scores, need, th_lp, K=K, eos=eos, pad=pad,
+                                 stop_at_count=stop_at_count, always_allow_eos=always_allow_eos,
+                                 ties=ties, keep_invalid=keep_invalid)
     B, n_par = prev_count.shape
     w = win_tok.shape[-1]
-    ncand = n_buf + w + 2
-    n = n_par * ncand
-    if n < 2 * K:
-        raise ValueError(f"beam_select: {n} candidates for a top-{2 * K}")
-    so = build.lib()
-    large = so.seal_beam_select_smem(n, 2 * K, K, int(ties)) > build.SMEM_LIMIT
-    if large and so.seal_beam_select_large_smem(n_par, ncand, 2 * K, K,
-                                                int(ties)) > build.SMEM_LIMIT:
-        raise ValueError(f"beam_select: {ncand} candidates per beam or {n_par} x {2 * K} "
-                         "survivors per query exceed the shared memory")
-    bits = tie_bits(lp.shape[-1], n_par) if ties else 0
+    if n_par * (n_buf + w + 2) < 2 * K:
+        raise ValueError(f"beam_select: {n_par * (n_buf + w + 2)} candidates for a top-{2 * K}")
+    plan = select_plan(n_par, n_buf, w, K, bool(ties), route)
+    if not _FN:
+        _lookup()
+    V = lp.shape[-1]
+    bits = tie_bits(V, n_par) if ties else 0
     if (need is None) != (th_lp is None):
         raise ValueError("beam_select: need and th_lp go together")
     keep, args = _candidate_args(buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
@@ -467,26 +682,29 @@ def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_co
         need, th_lp = need.contiguous(), th_lp.contiguous()
         _check(need, torch.bool, th_lp, torch.float32)
     dev = lp.device
-    outs = _select_outputs(B, K, dev)
-    unsound = torch.empty((B,), dtype=torch.bool, device=dev) if need is not None else None
-    scratch_keys = scratch_slots = None
-    if large:  # each beam's top 2K keys (and their slots in the ties mode)
-        scratch_keys = torch.empty((B * n_par, 2 * K), dtype=torch.int64, device=dev)
+    carved = _select_outputs(B, K, dev, need is not None)
+    outs, unsound = carved[:9], carved[9]
+    scratch_keys = scratch_slots = table = None
+    if plan.scratch:  # each beam's top 2K keys (and their slots in the ties mode)
+        scratch_keys = torch.empty(B * plan.scratch, dtype=torch.int64, device=dev)
         if ties:
-            scratch_slots = torch.empty((B * n_par, 2 * K), dtype=torch.int32, device=dev)
+            scratch_slots = torch.empty(B * plan.scratch, dtype=torch.int32, device=dev)
+    if plan.route == "table":
+        table = torch.empty((B * n_par, V), dtype=torch.int32, device=dev)
     opt = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    rc = so.seal_beam_select(
+    rc = _FN["select"](
         *args, beam_scores.data_ptr(), opt(need), opt(th_lp), B, n_par, n_buf, w, K, eos, pad,
-        stop_at_count, int(always_allow_eos), bits, int(keep_invalid), NEG_INF,
-        *(t.data_ptr() for t in outs), opt(unsound), opt(scratch_keys), opt(scratch_slots),
-        build.stream_ptr(lp),
+        stop_at_count, int(always_allow_eos), bits, int(keep_invalid), NEG_INF, plan.code, V,
+        plan.chunk, *(t.data_ptr() for t in outs), opt(unsound), opt(scratch_keys),
+        opt(scratch_slots), opt(table), _FN["stream"](lp),
     )
     del keep
-    build.check(rc, "beam_select")
+    if rc:
+        raise RuntimeError(f"beam_select: CUDA error {rc}")
     beam_select.launches += 1
+    ROUTES[plan.route].launches += 1
     TIES.launches += int(ties)
     SPEC.launches += int(keep_invalid)
-    LARGE.launches += int(large)
     return outs, unsound
 
 
@@ -516,22 +734,25 @@ def beam_candidates(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, pre
     B, n_par = prev_count.shape
     w = win_tok.shape[-1]
     ncand = n_buf + w + 2
-    if 4 * ncand > build.SMEM_LIMIT:
-        raise ValueError(f"beam_candidates: {ncand} candidates per beam exceed the shared memory")
     keep, args = _candidate_args(buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
                                  finished, "beam_candidates")
     dev = lp.device
+    V = lp.shape[-1]
+    # past SERIAL_MAX a beam's first instances come from the table (F2)
+    table = (torch.empty((B * n_par, V), dtype=torch.int32, device=dev)
+             if ncand > SERIAL_MAX else None)
     tokens = torch.empty((B, n_par, ncand), dtype=torch.int32, device=dev)
     cons = torch.empty((B, n_par, ncand), dtype=torch.float32, device=dev)
     cand_lp = torch.empty((B, n_par, ncand), dtype=torch.float32, device=dev)
     rc = build.lib().seal_beam_candidates(
         *args, B * n_par, n_buf, w, eos, pad, stop_at_count, int(always_allow_eos),
-        int(keep_invalid), NEG_INF, tokens.data_ptr(), cons.data_ptr(), cand_lp.data_ptr(),
-        build.stream_ptr(lp),
+        int(keep_invalid), NEG_INF, table.data_ptr() if table is not None else None, V,
+        tokens.data_ptr(), cons.data_ptr(), cand_lp.data_ptr(), build.stream_ptr(lp),
     )
     del keep
     build.check(rc, "beam_candidates")
     beam_candidates.launches += 1
+    CAND_TABLE.launches += table is not None
     return tokens, cons, cand_lp
 
 
@@ -586,7 +807,7 @@ def beam_select_top(top_cons, top_idx, lp, beam_scores, n_par: int, K: int, eos:
         if tokens.dim() != 2 or tokens.shape[0] != B * n_par:
             raise ValueError("beam_select_top: tokens must be int32 [B*n_par, ncand]")
         ncand = tokens.shape[1]
-    outs = _select_outputs(B, K, lp.device)
+    outs = _select_outputs(B, K, lp.device)[:9]
     rc = build.lib().seal_beam_select_top(
         top_cons.data_ptr(), top_idx.data_ptr(), lp.data_ptr(), lp.stride(0),
         beam_scores.data_ptr(), beam_scores.stride(0),
@@ -627,14 +848,27 @@ def _candidate_args(buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_cou
                   prev_count.data_ptr(), finished.data_ptr())
 
 
-def _select_outputs(B, K, dev):
-    i32, f32, b8 = torch.int32, torch.float32, torch.bool
-    return tuple(
-        torch.empty(shape, dtype=dt, device=dev)
-        for shape, dt in (((B, 2 * K), i32), ((B, 2 * K), i32), ((B, 2 * K), f32),
-                          ((B, 2 * K), b8), ((B, K), i32), ((B, K), i32), ((B, K), f32),
-                          ((B, K), b8), ((B, 2 * K), f32))
-    )
+def _select_outputs(B, K, dev, unsound: bool = False):
+    """The nine outputs of ``_select`` and ``unsound`` [B] (or None): ten
+    tensors from five allocations, three of them unbound or split in one
+    call each (a view costs the host about a third of an allocation, and
+    carving all ten from one buffer cost more than allocating them)."""
+    i32 = torch.empty((2, B, 2 * K), dtype=torch.int32, device=dev).unbind(0)
+    f32 = torch.empty((2, B, 2 * K), dtype=torch.float32, device=dev).unbind(0)
+    sel = torch.empty((2, B, K), dtype=torch.int32, device=dev).unbind(0)
+    flags = torch.empty(B * (3 * K + 1), dtype=torch.bool, device=dev).split_with_sizes(
+        (B * 2 * K, B * K, B))
+    return (i32[0], i32[1], f32[0], flags[0].view(B, 2 * K), sel[0], sel[1],
+            torch.empty((B, K), dtype=torch.float32, device=dev), flags[1].view(B, K), f32[1],
+            flags[2] if unsound else None)
+
+
+def _lookup():
+    """kernel 8's C entry point and the stream reader, looked up once."""
+    from seal_tpu_torch.kernels import build
+
+    _FN["select"] = build.lib().seal_beam_select
+    _FN["stream"] = build.stream_ptr
 
 
 def _row_stride(t, name):
@@ -645,8 +879,10 @@ def _row_stride(t, name):
     if t.dim() == 1:
         return t.shape[-1]
     s = t.stride(-2)
-    for d in range(t.dim() - 2):
-        if t.shape[d] > 1 and t.stride(d) != s * int(np.prod(t.shape[d + 1:-1])):
+    span = s
+    for d in range(t.dim() - 3, -1, -1):  # each leading axis steps over the ones after it
+        span *= t.shape[d + 1]
+        if t.shape[d] > 1 and t.stride(d) != span:
             raise ValueError(f"{name}: rows must be evenly spaced")
     return s
 

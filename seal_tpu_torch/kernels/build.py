@@ -29,9 +29,10 @@ SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu", "bucket_counts.cu"
            "beam_select.cu", "decode_attention.cu", "reorder_cache.cu", "wt_search.cu",
            "wt_window.cu", "wt_bucket_counts.cu", "dense_scores.cu", "locate.cu",
            "row_select.cu", "sample_select.cu", "diverse_select.cu")
-# included by the wt_*.cu sources, by fm_search.cu and wt_search.cu, and by
-# beam_select.cu, diverse_select.cu and row_topk.cu
-HEADERS = ("wt_common.cuh", "dense_counts.cuh", "select_common.cuh")
+# included by the wt_*.cu sources, by fm_search.cu and wt_search.cu, by
+# beam_select.cu, diverse_select.cu and row_topk.cu, and by beam_select.cu
+# and row_topk.cu
+HEADERS = ("wt_common.cuh", "dense_counts.cuh", "select_common.cuh", "global_sort.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -46,11 +47,16 @@ _WT = [_P, _P, _P, _P, _L, _I, _I, _I]  # a wavelet index (kernels/wt_search.py:
 # truncates one to a 32-bit int
 SIGNATURES = {
     # psi, sym_dir, head_pair, n_rows, sigma, dir_shift,
-    # token, lo, hi, out_lo, out_hi, n, stream
-    "seal_fm_backward_step": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P],
+    # token, lo, hi, out_lo, out_hi, n, group (lanes an item), stream
+    "seal_fm_backward_step": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P],
     # psi, sym_dir, head_pair, n_rows, sigma, dir_shift,
-    # tokens, lo, hi, out, n_ranges, m, stream
-    "seal_fm_contains": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _P],
+    # tokens, lo, hi, out, n_ranges, m, group, stream
+    "seal_fm_contains": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
+    # psi, sym_dir, head_pair, n_rows, sigma, dir_shift, lo, hi, P (parents a
+    # query), sel_par, sel_tok, finished (None: step 0), eos, pad, out_lo,
+    # out_hi, out_count, n (selections), n_sel (a query's), group, stream
+    "seal_fm_advance": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _L,
+                        _I, _I, _P],
     # psi, sym_dir, head_pair, n_rows, sigma, dir_shift,
     # tokens, lengths, out_lo, out_hi, n, L, stream
     "seal_fm_sequences": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _P],
@@ -93,14 +99,20 @@ SIGNATURES = {
     # stream
     "seal_beam_merge": [_P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                         _L, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
+    # buf_tok, buf_lp, buf_valid, top_tok, top_lp, top_ok, top_stride,
+    # top_ok_stride, slab_tok, slab_lp, slab_ok, n_top, n_slab, rows, n_buf,
+    # vocab, ties, neg_inf, table, keys, n2, out_tok, out_lp, out_ok, stream
+    "seal_beam_merge_table": [_P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _I, _I, _L, _I, _I, _I,
+                              _F, _P, _P, _I, _P, _P, _P, _P],
     # buf_tok, buf_lp, buf_valid, win_tok, win_valid, win_lp, eos_ok,
     # eos_ok_stride, lp, lp_stride, prev_count, finished, beam_scores, need,
     # th_lp, n_queries, n_par, n_buf, w, k, eos, pad, stop_at_count,
     # always_allow_eos, tie_bits (0: no ties mode), keep_invalid, neg_inf,
-    # 9 outputs, unsound, scratch keys and slots (None: the one-CTA route),
-    # stream
+    # route (kernels/beam_select.py:_ROUTE_CODES), vocab (the table's width),
+    # chunk (the table route's candidates a CTA), 9 outputs, unsound, scratch
+    # keys and slots, table (None where the route needs none), stream
     "seal_beam_select": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _L, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _F] + [_P] * 13,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I] + [_P] * 14,
     # top_cons, top_idx, lp, lp_stride, beam_scores, bs_stride, table (None:
     # token = slot % V), n_queries, n_par, ncand, k, eos, neg_inf, 9 outputs,
     # stream
@@ -139,10 +151,11 @@ SIGNATURES = {
     "seal_row_kth": [_P, _L, _I, _I, _P, _P],
     # buf_tok, buf_lp, buf_valid, win_tok, win_valid, win_lp, eos_ok,
     # eos_ok_stride, lp, lp_stride, prev_count, finished, rows, n_buf, w, eos,
-    # pad, stop_at_count, always_allow_eos, keep_invalid, neg_inf, tok, cons,
-    # cand_lp, stream
+    # pad, stop_at_count, always_allow_eos, keep_invalid, neg_inf, table
+    # (None: the serial dedup in shared memory), vocab, tok, cons, cand_lp,
+    # stream
     "seal_beam_candidates": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I,
-                             _I, _I, _I, _F, _P, _P, _P, _P],
+                             _I, _I, _I, _F, _P, _I, _P, _P, _P, _P],
     # cons, cand_lp, tokens (None: token = column), mask (None), beam_scores,
     # rows, K, N, seed, step, eos, pad, neg_inf, 8 outputs, stream
     "seal_sample_select": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I, _F] + [_P] * 9,
@@ -157,6 +170,8 @@ SIGNATURES = {
 # C functions that return a size rather than an error code
 SIZE_QUERIES = {"seal_beam_merge_smem": [_I, _I], "seal_beam_select_smem": [_I, _I, _I, _I],
                 "seal_beam_select_large_smem": [_I, _I, _I, _I, _I],
+                "seal_beam_select_warp_smem": [_I, _I, _I, _I, _I],
+                "seal_beam_select_table_smem": [_I, _I, _I, _I, _I, _I],
                 "seal_decode_attention_smem": [_I, _I, _I],
                 "seal_row_topk_max_k": [], "seal_row_topk_bins_bytes": [],
                 "seal_diverse_chunks": [_I], "seal_diverse_smem": [_I, _I, _I]}

@@ -38,6 +38,34 @@
 // :359-367) writes select's candidates, branches and dedup applied, and
 // selects nothing.
 
+// Routes past shared memory (F1, F2 in ROADMAP C): where a row's candidates
+// do not fit a CTA, the first-instance dedup runs through a [rows, vocab]
+// table in device memory, each token's lowest slot (memset to 0xff, one
+// atomicMin a slot; a slot is its token's first instance where the table
+// holds it).  The merge then sorts each row's keys in device memory
+// (global_sort.cuh) and takes the first n_buf; the selection sorts each
+// beam's candidates in chunks of shared memory, keeps each chunk's top 2K,
+// the beam's top 2K of those, and finishes as the large-n route does.  Both
+// need every token of a row in [0, vocab) (the decode's tokens are lp
+// columns) and, for the merge, a valid slot's lp above NEG_INF/2 (as
+// merge_round makes them).
+//
+// The selection's warp route (ncand <= 128, 2K <= 64, n_par <= 32: the
+// bench's beam 15 and beam 32 at a 32-row window): one CTA a query, a warp a
+// beam.  The warp holds its beam's slots in registers (4 a lane at most),
+// finds first instances with __match_any_sync within a register row and a
+// broadcast scan of the earlier rows, keys them as select_kernel does and
+// sorts them with a bitonic network of shuffles: no shared memory and no
+// barrier.  Each warp's first 2K keys go to shared memory as a sorted
+// list; a survivor's rank in the query is its place in its own list plus,
+// for each other list, the number of keys before it there (a binary
+// search).  The 2K survivors ranked below 2K write their place directly:
+// one barrier, no sort of the query's keys.  The soundness test is a
+// block-wide OR.
+
+#include <climits>
+
+#include "global_sort.cuh"
 #include "select_common.cuh"
 
 namespace {
@@ -67,6 +95,50 @@ __device__ void first_instances(u64* keys, int n2, unsigned char* vf) {
   __syncthreads();
 }
 
+// The merge's first-pass inputs: a beam row's buffer [n_buf] (null on
+// round 0: token 0, NEG_INF, invalid), LM top [n_top] (row-strided) and
+// slab [n_slab].
+struct MergeIn {
+  const int* buf_tok;
+  const float* buf_lp;
+  const unsigned char* buf_valid;
+  const int* top_tok;
+  const float* top_lp;
+  const unsigned char* top_ok;
+  long long top_stride, top_ok_stride;
+  const int* slab_tok;
+  const float* slab_lp;
+  const unsigned char* slab_ok;
+  int n_buf, n_top, n_slab;
+};
+
+// Slot j of row r: its token, log-prob and validity (an LM or slab slot
+// needs its flag and lp > NEG_INF/2).
+__device__ __forceinline__ void load_merge_slot(const MergeIn& in, long long r, int j,
+                                                float neg_inf, int* tok, float* lp, bool* ok) {
+  if (j < in.n_buf) {
+    if (in.buf_tok != nullptr) {
+      *tok = in.buf_tok[r * in.n_buf + j];
+      *lp = in.buf_lp[r * in.n_buf + j];
+      *ok = in.buf_valid[r * in.n_buf + j] != 0;
+    } else {
+      *tok = 0;
+      *lp = neg_inf;
+      *ok = false;
+    }
+  } else if (j < in.n_buf + in.n_top) {
+    const int t = j - in.n_buf;
+    *tok = in.top_tok[r * in.top_stride + t];
+    *lp = in.top_lp[r * in.top_stride + t];
+    *ok = in.top_ok[r * in.top_ok_stride + t] != 0 && *lp > neg_inf / 2.0f;
+  } else {
+    const int t = j - in.n_buf - in.n_top;
+    *tok = in.slab_tok[r * in.n_slab + t];
+    *lp = in.slab_lp[r * in.n_slab + t];
+    *ok = in.slab_ok[r * in.n_slab + t] != 0 && *lp > neg_inf / 2.0f;
+  }
+}
+
 // The merge.  Candidates of a beam row in slot order: buffer [n_buf]
 // (absent on round 0: token 0, NEG_INF, invalid), LM top [n_top], slab
 // [n_slab].  An invalid slot never shadows a valid copy (its dedup id is
@@ -83,7 +155,9 @@ __device__ void first_instances(u64* keys, int n2, unsigned char* vf) {
 // one pass of one chunk.  The large-n case (sample=True with top_m >= 482,
 // exact_loop_chunk >= 4082 at beam 15, num_beams >= 241) takes chunks of
 // 4,096 (8,192 past n_buf 2,048), at least 2 n_buf, so a pass at least
-// halves a row.
+// halves a row.  A wider buffer (past 4,096, or past 2,048 under TIES,
+// whose 8,192-wide chunk would need 245,760 B) takes the device-memory
+// route below (merge_table_kernel, merge_keys_kernel, global_sort).
 //
 // Exact because valid copies of one token in a row carry one log-prob:
 // the buffer, the LM top and the slab all take a token's log-prob from the
@@ -100,14 +174,10 @@ __device__ void first_instances(u64* keys, int n2, unsigned char* vf) {
 // order.  kernels/beam_select.py:beam_merge_large_plain is the
 // specification.
 template <bool TIES>
-__global__ void merge_kernel(
-    const int* buf_tok, const float* buf_lp, const unsigned char* buf_valid, const int* top_tok,
-    const float* top_lp, const unsigned char* top_ok, long long top_stride,
-    long long top_ok_stride, const int* slab_tok, const float* slab_lp,
-    const unsigned char* slab_ok, int n_top, int n_slab, const int* in_tok, const float* in_lp,
-    const unsigned char* in_ok, const int* in_slot, int width, int chunk, int n_chunks, int n2,
-    int n_buf, int vocab, float neg_inf, int* out_tok, float* out_lp, unsigned char* out_ok,
-    int* out_slot) {
+__global__ void merge_kernel(MergeIn src, const int* in_tok, const float* in_lp,
+                             const unsigned char* in_ok, const int* in_slot, int width, int chunk,
+                             int n_chunks, int n2, int n_buf, int vocab, float neg_inf,
+                             int* out_tok, float* out_lp, unsigned char* out_ok, int* out_slot) {
   extern __shared__ unsigned long long smem[];
   u64* keys = smem;                             // [n2]
   int* s_idx = (int*)(keys + n2);               // [n2] TIES only: local index beside its key
@@ -123,11 +193,10 @@ __global__ void merge_kernel(
   const int n = min(chunk, width - j0);
   const int keep = min(n_buf, n);
   const bool last = n_chunks == 1;
-  const float live = neg_inf / 2.0f;
 
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int j = j0 + i;
-    int tok, slot;
+    int tok, slot = j;
     float lp;
     bool ok;
     if (in_tok != nullptr) {  // a later pass: the survivors, in slot order
@@ -136,29 +205,8 @@ __global__ void merge_kernel(
       lp = in_lp[at];
       ok = in_ok[at] != 0;
       slot = in_slot[at];
-    } else if (j < n_buf) {  // the first pass: the round's own candidates
-      slot = j;
-      if (buf_tok != nullptr) {
-        tok = buf_tok[r * n_buf + j];
-        lp = buf_lp[r * n_buf + j];
-        ok = buf_valid[r * n_buf + j] != 0;
-      } else {
-        tok = 0;
-        lp = neg_inf;
-        ok = false;
-      }
-    } else if (j < n_buf + n_top) {
-      slot = j;
-      const int t = j - n_buf;
-      tok = top_tok[r * top_stride + t];
-      lp = top_lp[r * top_stride + t];
-      ok = top_ok[r * top_ok_stride + t] != 0 && lp > live;
-    } else {
-      slot = j;
-      const int t = j - n_buf - n_top;
-      tok = slab_tok[r * n_slab + t];
-      lp = slab_lp[r * n_slab + t];
-      ok = slab_ok[r * n_slab + t] != 0 && lp > live;
+    } else {  // the first pass: the round's own candidates
+      load_merge_slot(src, r, j, neg_inf, &tok, &lp, &ok);
     }
     s_tok[i] = tok;
     s_lp[i] = lp;
@@ -206,6 +254,87 @@ __global__ void merge_kernel(
     out_slot[o] = s_slot[i];
   }
 }
+
+// The merge past shared memory, in three launches after the table's memset
+// (kernels/beam_select.py:merge_table_plain is the specification):
+// merge_table_kernel records each valid token's lowest slot; merge_keys_kernel
+// writes one unique 64-bit key a slot whose descending order is the merge's
+// order, padded with 0 to n2; global_sort sorts each row and MergeOut reads
+// the first n_buf back.  The key: pack(rank, slot) with rank = lp for a valid
+// first instance, else NEG_INF; under TIES a first instance's is pack(lp,
+// token) (its dedup id; the row's first instances have distinct tokens), and
+// every other slot's, all at rank NEG_INF, (0x7fffff - dedup id) << 32 |
+// ~slot: below every first instance (whose lp > NEG_INF/2 puts its key's
+// high word at 0x01000000 or more), in (dedup id, slot) order, as the plain
+// version's stable sort leaves them.
+__global__ void merge_table_kernel(MergeIn in, long long rows, int n, int vocab, float neg_inf,
+                                   unsigned* table) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= rows * n) return;
+  const long long r = t / n;
+  const int j = (int)(t - r * n);
+  int tok;
+  float lp;
+  bool ok;
+  load_merge_slot(in, r, j, neg_inf, &tok, &lp, &ok);
+  if (ok && tok >= 0 && tok < vocab) atomicMin(table + r * vocab + tok, (unsigned)j);
+}
+
+__device__ __forceinline__ bool merge_fresh(const unsigned* table, long long r, int vocab, int tok,
+                                            int j, bool ok) {
+  return ok && (tok < 0 || tok >= vocab || table[r * vocab + tok] == (unsigned)j);
+}
+
+template <bool TIES>
+__global__ void merge_keys_kernel(MergeIn in, long long rows, int n, int n2, int vocab,
+                                  float neg_inf, const unsigned* table, u64* keys) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= rows * n2) return;
+  const long long r = t / n2;
+  const int j = (int)(t - r * n2);
+  if (j >= n) {
+    keys[t] = 0ull;
+    return;
+  }
+  int tok;
+  float lp;
+  bool ok;
+  load_merge_slot(in, r, j, neg_inf, &tok, &lp, &ok);
+  const bool fresh = merge_fresh(table, r, vocab, tok, j, ok);
+  if (!TIES) {
+    keys[t] = pack(fresh ? lp : neg_inf, j);
+  } else if (fresh) {
+    keys[t] = pack(lp, tok);
+  } else {
+    const unsigned uid = ok ? (unsigned)tok : (unsigned)(vocab + j);
+    keys[t] = ((u64)(0x7fffffu - uid) << 32) | (u64)(~(unsigned)j);
+  }
+}
+
+// global_sort's last pass: the t-th key of row r names its slot (its token,
+// for a TIES first instance: the table gives the slot), whose token,
+// log-prob and freshness are the merge's t-th output.
+struct MergeOut {
+  MergeIn in;
+  const unsigned* table;
+  int vocab, n_buf, ties;
+  float neg_inf;
+  int* out_tok;
+  float* out_lp;
+  unsigned char* out_ok;
+  __device__ void operator()(long long r, int t, u64 w) const {
+    const unsigned low = ~(unsigned)(w & 0xffffffffull);
+    const bool by_token = ties && (unsigned)(w >> 32) >= 0x800000u;
+    const int j = by_token ? (int)table[r * vocab + low] : (int)low;
+    int tok;
+    float lp;
+    bool ok;
+    load_merge_slot(in, r, j, neg_inf, &tok, &lp, &ok);
+    out_tok[r * n_buf + t] = tok;
+    out_lp[r * n_buf + t] = lp;
+    out_ok[r * n_buf + t] = merge_fresh(table, r, vocab, tok, j, ok) ? 1 : 0;
+  }
+};
 
 // ---------------------------------------------------------------- select
 
@@ -330,6 +459,205 @@ __device__ __forceinline__ bool first_instance(const int* s_tok, int first, int 
   return true;
 }
 
+// The table routes' dedup: each token's lowest slot in its beam row (the
+// table is memset to 0xff first).  A token outside [0, vocab) is never
+// recorded and counts as a first instance (the decode's tokens are lp
+// columns, so none is).
+__global__ void select_table_kernel(SelectIn in, long long rows, int n_buf, int w, int eos,
+                                    int pad, int vocab, unsigned* table) {
+  const int ncand = n_buf + w + 2;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= rows * ncand) return;
+  const long long row = t / ncand;
+  const int j = (int)(t - row * ncand);
+  int tok;
+  float lp;
+  load_slot(in, row, j, n_buf, w, eos, pad, &tok, &lp);
+  if (tok >= 0 && tok < vocab) atomicMin(table + row * vocab + tok, (unsigned)j);
+}
+
+__device__ __forceinline__ bool table_first(const unsigned* table, long long row, int vocab,
+                                            int tok, int j) {
+  return tok < 0 || tok >= vocab || table[row * vocab + tok] == (unsigned)j;
+}
+
+// ---- the warp route --------------------------------------------------------
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// (key, slot) pairs in the selection's order: key descending, then slot
+// ascending (only under TIES can two keys be equal).
+template <bool TIES>
+__device__ __forceinline__ bool ranks_before(u64 ka, int sa, u64 kb, int sb) {
+  return ka > kb || (TIES && ka == kb && sa < sb);
+}
+
+// Descending bitonic sort of a warp's 32 R elements, element e = r * 32 +
+// lane in register r of its lane: strides of 32 and more swap registers
+// inside a lane, shorter ones trade with lane ^ stride by shuffles.  Under
+// TIES the slot travels with its key.
+template <bool TIES, int R>
+__device__ __forceinline__ void warp_sort_desc(u64 (&key)[R], int (&slot)[R], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32 * R; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 32) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int r2 = r ^ (stride >> 5);
+          if (r2 > r) {
+            const bool desc = (((r << 5) | lane) & size) == 0;
+            if (ranks_before<TIES>(key[r2], slot[r2], key[r], slot[r]) == desc) {
+              const u64 kt = key[r];
+              key[r] = key[r2];
+              key[r2] = kt;
+              if (TIES) {
+                const int st = slot[r];
+                slot[r] = slot[r2];
+                slot[r2] = st;
+              }
+            }
+          }
+        }
+      } else {
+        const bool upper = (lane & stride) != 0;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const u64 ok = __shfl_xor_sync(FULL, key[r], stride);
+          const int os = TIES ? __shfl_xor_sync(FULL, slot[r], stride) : 0;
+          const bool desc = (((r << 5) | lane) & size) == 0;
+          // the pair's lower element keeps the first of the two when
+          // descending, the other the second
+          if (ranks_before<TIES>(ok, os, key[r], slot[r]) == (upper != desc)) {
+            key[r] = ok;
+            if (TIES) slot[r] = os;
+          }
+        }
+      }
+    }
+  }
+}
+
+// One CTA a query, warp k its beam k; R = 1, 2 or 4 slots a lane (ncand <=
+// 32 R, 2K <= 64).  The keys equal select_kernel's, so the result does.
+template <bool TIES, int R>
+__global__ void __launch_bounds__(1024)
+select_warp_kernel(SelectIn in, SelectOut o, unsigned char* unsound, int n_par, int n_buf, int w,
+                   int two_k, int k_out, int eos, int pad, int stop_at_count,
+                   int always_allow_eos, int tie_bits, float neg_inf) {
+  extern __shared__ unsigned long long smem[];
+  const int ncand = n_buf + w + 2;
+  const int nc4 = (ncand + 3) & ~3;  // a beam's stride in s_tok / s_lp (16-byte rows)
+  const int L = min(two_k, ncand);  // each beam's list
+  int* s_tok = (int*)smem;                        // [n_par][nc4]
+  float* s_lp = (float*)(s_tok + n_par * nc4);     // [n_par][nc4]
+  u64* s_key = (u64*)(s_lp + n_par * nc4);         // [n_par][L]
+  int* s_lslot = (int*)(s_key + n_par * L);        // [n_par][L], TIES only
+  float* e_cons = (float*)(s_lslot + (TIES ? n_par * L : 0));
+  float* e_lp = e_cons + two_k;
+  int* e_slot = (int*)(e_lp + two_k);
+  int* e_tok = e_slot + two_k;
+  int* s_cont = e_tok + two_k;
+  const long long b = blockIdx.x;
+  const int k = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = b * n_par + k;
+  const float bs = in.beam_scores[row];
+  int* w_tok = s_tok + k * nc4;
+  float* w_lp = s_lp + k * nc4;
+
+  int tok[R];
+  float lpv[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = r * 32 + lane;
+    tok[r] = INT_MIN;  // padding: later than every slot, so it shadows none
+    lpv[r] = 0.0f;
+    if (j < ncand) {
+      load_slot(in, row, j, n_buf, w, eos, pad, &tok[r], &lpv[r]);
+      w_tok[j] = tok[r];
+      w_lp[j] = lpv[r];
+    }
+  }
+  __syncwarp();
+  const unsigned below = (1u << lane) - 1u;
+  u64 key[R];
+  int slot[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = r * 32 + lane;
+    // the first instance: no lower lane of this register row, and no slot
+    // of an earlier row, holds the token
+    bool first = (__match_any_sync(FULL, tok[r]) & below) == 0;
+    for (int i = 0; i < 32 * r && first; i += 4) {
+      const int4 q = *reinterpret_cast<const int4*>(w_tok + i);
+      first = q.x != tok[r] && q.y != tok[r] && q.z != tok[r] && q.w != tok[r];
+    }
+    key[r] = 0ull;  // padding sorts last
+    slot[r] = INT_MAX;
+    if (j < ncand) {
+      const bool allowed = first && slot_allowed(in, row, j, tok[r], n_buf, w, eos, pad,
+                                                 stop_at_count, always_allow_eos);
+      const int f = k * ncand + j;
+      const int tie = TIES ? (k << tie_bits) + min(max(tok[r], 0), (1 << tie_bits) - 1) : f;
+      key[r] = pack(__fadd_rn(allowed ? lpv[r] : neg_inf, bs), tie);
+      slot[r] = f;
+    }
+  }
+  warp_sort_desc<TIES, R>(key, slot, lane);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int p = r * 32 + lane;
+    if (p < L) {
+      s_key[k * L + p] = key[r];
+      if (TIES) s_lslot[k * L + p] = slot[r];
+    }
+  }
+  __syncthreads();
+  // a survivor's rank in the query: its place in its own list plus the keys
+  // before it in every other list
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int p = r * 32 + lane;
+    if (p < L) {
+      const u64 kk = key[r];
+      const int sl = TIES ? slot[r] : key_slot(kk);
+      int rank = p;
+      for (int k2 = 0; k2 < n_par && rank < two_k; ++k2) {
+        if (k2 == k) continue;
+        const u64* lk = s_key + k2 * L;
+        const int* ls = s_lslot + k2 * L;
+        int lo = 0, hi = L;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (ranks_before<TIES>(lk[mid], TIES ? ls[mid] : 0, kk, sl)) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
+          }
+        }
+        rank += lo;
+      }
+      if (rank < two_k) {
+        const int j = sl - k * ncand;
+        e_cons[rank] = key_value(kk);
+        e_slot[rank] = sl;
+        e_tok[rank] = w_tok[j];
+        e_lp[rank] = w_lp[j];
+      }
+    }
+  }
+  __syncthreads();
+  select_epilogue(b, two_k, k_out, ncand, eos, neg_inf, e_cons, e_slot, e_tok, e_lp,
+                  in.beam_scores + b * n_par, o, s_cont);
+  if (unsound != nullptr) {
+    const bool bad = lane == 0 && in.need[row] != 0 &&
+                     __fadd_rn(bs, in.th_lp[row]) >= e_cons[two_k - 1];
+    const int any = __syncthreads_or(bad);
+    if (threadIdx.x == 0) unsound[b] = any ? 1 : 0;
+  }
+}
+
 // One CTA per query: the n_par * ncand candidates (ncand = n_buf + w + 2:
 // buffer, window, EOS, PAD) of its beams.  With TIES, equal scores order by
 // (parent beam, token): tie id (k << tie_bits) + token, the token clipped
@@ -416,43 +744,76 @@ __global__ void select_kernel(SelectIn in, SelectOut o, unsigned char* unsound, 
 // A query's two_k best candidates hold at most two_k of any one beam, and
 // the key order is total (slot breaks every tie), so the survivors contain
 // them and the result equals the one-CTA sort bit for bit.
+//
+// The table route (F2: a speculative round of top_m up to V, where a beam's
+// ncand candidates outgrow a CTA) runs step 1 over chunks of `chunk`
+// candidates, CTA (row, c) keeping chunk c's top two_k with first
+// instances from the table; select_reduce_kernel keeps each beam's top
+// two_k of its chunks' (the same argument, a level down); then step 2.
 template <bool TIES>
 __global__ void select_beams_kernel(SelectIn in, int n_par, int n_buf, int w, int two_k, int n2,
                                     int eos, int pad, int stop_at_count, int always_allow_eos,
-                                    int tie_bits, float neg_inf, u64* out_keys, int* out_slots) {
+                                    int tie_bits, float neg_inf, int chunk, int n_chunks,
+                                    const unsigned* table, int vocab, u64* out_keys,
+                                    int* out_slots) {
   extern __shared__ unsigned long long smem[];
   const int ncand = n_buf + w + 2;
   u64* keys = smem;
   int* s_slot = (int*)(keys + n2);  // TIES only
   int* s_tok = s_slot + (TIES ? n2 : 0);
-  float* s_lp = (float*)(s_tok + ncand);
-  const long long row = blockIdx.x;
+  float* s_lp = (float*)(s_tok + chunk);
+  const long long row = blockIdx.x / n_chunks;
+  const int c = (int)(blockIdx.x % n_chunks);
+  const int j0 = c * chunk;
+  const int n = min(chunk, ncand - j0);
   const int k = (int)(row % n_par);
   const float bs = in.beam_scores[row];
 
-  for (int j = threadIdx.x; j < ncand; j += blockDim.x) {
-    load_slot(in, row, j, n_buf, w, eos, pad, &s_tok[j], &s_lp[j]);
-    if (TIES) s_slot[j] = k * ncand + j;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    load_slot(in, row, j0 + i, n_buf, w, eos, pad, &s_tok[i], &s_lp[i]);
+    if (TIES) s_slot[i] = k * ncand + j0 + i;
   }
-  for (int j = ncand + threadIdx.x; j < n2; j += blockDim.x) {
-    keys[j] = 0ull;
-    if (TIES) s_slot[j] = 0x7fffffff;
+  for (int i = n + threadIdx.x; i < n2; i += blockDim.x) {
+    keys[i] = 0ull;
+    if (TIES) s_slot[i] = 0x7fffffff;
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < ncand; j += blockDim.x) {
-    const int tok = s_tok[j];
-    const bool allowed = first_instance(s_tok, 0, j) &&
-                         slot_allowed(in, row, j, tok, n_buf, w, eos, pad, stop_at_count,
-                                      always_allow_eos);
-    const float cons = allowed ? s_lp[j] : neg_inf;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int j = j0 + i, tok = s_tok[i];
+    const bool first = table != nullptr ? table_first(table, row, vocab, tok, j)
+                                        : first_instance(s_tok, 0, i);
+    const bool allowed = first && slot_allowed(in, row, j, tok, n_buf, w, eos, pad,
+                                               stop_at_count, always_allow_eos);
+    const float cons = allowed ? s_lp[i] : neg_inf;
     const int tie = TIES ? (k << tie_bits) + min(max(tok, 0), (1 << tie_bits) - 1)
                          : k * ncand + j;
-    keys[j] = pack(__fadd_rn(cons, bs), tie);
+    keys[i] = pack(__fadd_rn(cons, bs), tie);
+  }
+  sort_desc<TIES>(keys, s_slot, n2);
+  const long long at = (long long)blockIdx.x * two_k;
+  for (int t = threadIdx.x; t < two_k; t += blockDim.x) {
+    out_keys[at + t] = t < n2 ? keys[t] : 0ull;
+    if (TIES) out_slots[at + t] = t < n2 ? s_slot[t] : 0x7fffffff;
+  }
+}
+
+// The table route's per-beam reduction: a beam's n_chunks * two_k chunk
+// survivors sorted, its first two_k kept.
+template <bool TIES>
+__global__ void select_reduce_kernel(const u64* in_keys, const int* in_slots, int m, int two_k,
+                                     int n2, u64* out_keys, int* out_slots) {
+  extern __shared__ unsigned long long smem[];
+  u64* keys = smem;
+  int* s_slot = (int*)(keys + n2);  // TIES only
+  const long long row = blockIdx.x;
+  for (int i = threadIdx.x; i < n2; i += blockDim.x) {
+    keys[i] = i < m ? in_keys[row * m + i] : 0ull;
+    if (TIES) s_slot[i] = i < m ? in_slots[row * m + i] : 0x7fffffff;
   }
   sort_desc<TIES>(keys, s_slot, n2);
   for (int t = threadIdx.x; t < two_k; t += blockDim.x) {
-    out_keys[row * two_k + t] = t < n2 ? keys[t] : 0ull;
-    if (TIES) out_slots[row * two_k + t] = t < n2 ? s_slot[t] : 0x7fffffff;
+    out_keys[row * two_k + t] = keys[t];
+    if (TIES) out_slots[row * two_k + t] = s_slot[t];
   }
 }
 
@@ -506,24 +867,31 @@ __global__ void select_finish_kernel(SelectIn in, SelectOut o, unsigned char* un
 // in slot order -- token, constrained log-prob (NEG_INF where the branches or
 // the first-instance dedup drop the slot) and log-prob -- and selects
 // nothing.  Sampling and diverse groups select from them (kernels 20, 21).
+// A row past CAND_SMEM_MAX candidates takes its first instances from the
+// table (F2), where the serial scan of earlier slots would be quadratic.
 __global__ void candidates_kernel(SelectIn in, int n_buf, int w, int eos, int pad,
                                   int stop_at_count, int always_allow_eos, float neg_inf,
-                                  int* out_tok, float* out_cons, float* out_lp) {
+                                  const unsigned* table, int vocab, int* out_tok, float* out_cons,
+                                  float* out_lp) {
   extern __shared__ unsigned long long smem[];
-  int* s_tok = (int*)smem;
+  int* s_tok = (int*)smem;  // without a table
   const int ncand = n_buf + w + 2;
   const long long row = blockIdx.x;
   for (int j = threadIdx.x; j < ncand; j += blockDim.x) {
+    int tok;
     float lp;
-    load_slot(in, row, j, n_buf, w, eos, pad, &s_tok[j], &lp);
-    out_tok[row * ncand + j] = s_tok[j];
+    load_slot(in, row, j, n_buf, w, eos, pad, &tok, &lp);
+    if (table == nullptr) s_tok[j] = tok;
+    out_tok[row * ncand + j] = tok;
     out_lp[row * ncand + j] = lp;
   }
   __syncthreads();
   for (int j = threadIdx.x; j < ncand; j += blockDim.x) {
-    const bool ok = first_instance(s_tok, 0, j) &&
-                    slot_allowed(in, row, j, s_tok[j], n_buf, w, eos, pad, stop_at_count,
-                                 always_allow_eos);
+    const int tok = out_tok[row * ncand + j];
+    const bool first = table != nullptr ? table_first(table, row, vocab, tok, j)
+                                        : first_instance(s_tok, 0, j);
+    const bool ok = first && slot_allowed(in, row, j, tok, n_buf, w, eos, pad, stop_at_count,
+                                          always_allow_eos);
     out_cons[row * ncand + j] = ok ? out_lp[row * ncand + j] : neg_inf;
   }
 }
@@ -559,6 +927,33 @@ __global__ void select_top_kernel(const float* top_cons, const long long* top_id
 
 }  // namespace
 
+namespace {
+
+enum SelectRoute { ROUTE_BLOCK = 0, ROUTE_LARGE = 1, ROUTE_WARP = 2, ROUTE_TABLE = 3 };
+
+long long warp_smem(int n_par, int ncand, int two_k, int k_out, int ties) {
+  const long long L = two_k < ncand ? two_k : ncand;
+  const long long nc4 = (ncand + 3) & ~3;
+  return 8LL * n_par * nc4 + (ties ? 12LL : 8LL) * n_par * L + 16LL * two_k + 4LL * k_out;
+}
+
+long long beams_smem(int chunk, int ties) {
+  return (ties ? 12LL : 8LL) * pow2_at_least(chunk) + 8LL * chunk;
+}
+
+long long finish_smem(int m, int two_k, int k_out, int ties) {
+  return (ties ? 12LL : 8LL) * pow2_at_least(m) + 16LL * two_k + 4LL * k_out;
+}
+
+// Memset a [rows, vocab] table to 0xff (no token seen).
+int clear_table(unsigned* table, long long rows, int vocab, cudaStream_t stream) {
+  return (int)cudaMemsetAsync(table, 0xff, (size_t)rows * vocab * sizeof(unsigned), stream);
+}
+
+unsigned blocks_of(long long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
+
+}  // namespace
+
 extern "C" {
 
 // Shared memory each mode needs (bytes); the wrapper refuses shapes past
@@ -575,10 +970,25 @@ long long seal_beam_select_smem(int n, int two_k, int k_out, int ties) {
 // The large-n route: the larger of its two launches' needs (a beam row's
 // ncand candidates; a query's n_par * two_k survivors).
 long long seal_beam_select_large_smem(int n_par, int ncand, int two_k, int k_out, int ties) {
-  const long long per_key = ties ? 12LL : 8LL;
-  const long long beams = per_key * pow2_at_least(ncand) + 8LL * ncand;
-  const long long finish = per_key * pow2_at_least(n_par * two_k) + 16LL * two_k + 4LL * k_out;
+  const long long beams = beams_smem(ncand, ties);
+  const long long finish = finish_smem(n_par * two_k, two_k, k_out, ties);
   return beams > finish ? beams : finish;
+}
+
+// The warp route's block (its tokens and log-probs, the beams' lists, the
+// epilogue's 2K picks).
+long long seal_beam_select_warp_smem(int n_par, int ncand, int two_k, int k_out, int ties) {
+  return warp_smem(n_par, ncand, two_k, k_out, ties);
+}
+
+// The table route: the largest of its chunk, reduce and finish launches.
+long long seal_beam_select_table_smem(int n_par, int chunk, int n_chunks, int two_k, int k_out,
+                                      int ties) {
+  long long most = beams_smem(chunk, ties);
+  const long long reduce = (ties ? 12LL : 8LL) * pow2_at_least(n_chunks * two_k);
+  const long long finish = finish_smem(n_par * two_k, two_k, k_out, ties);
+  if (reduce > most) most = reduce;
+  return finish > most ? finish : most;
 }
 
 // One pass of the merge over [rows, width] candidates: the first pass
@@ -597,6 +1007,8 @@ int seal_beam_merge(const int* buf_tok, const float* buf_lp,
                           int* out_slot, void* stream) {
   if (rows <= 0) return (int)cudaGetLastError();
   if (chunk < n_buf || width < n_buf) return (int)cudaErrorInvalidValue;
+  const MergeIn src{buf_tok, buf_lp, buf_valid, top_tok, top_lp, top_ok, top_stride,
+                    top_ok_stride, slab_tok, slab_lp, slab_ok, n_buf, n_top, n_slab};
   const int n_chunks = (width + chunk - 1) / chunk;
   const int n2 = pow2_at_least(chunk);
   const size_t smem = (size_t)seal_beam_merge_smem(chunk, ties);
@@ -605,12 +1017,49 @@ int seal_beam_merge(const int* buf_tok, const float* buf_lp,
   if (rc) return rc;
   const int threads = n2 >= 1024 ? 512 : 256;
   kernel<<<(unsigned)(rows * n_chunks), threads, smem, (cudaStream_t)stream>>>(
-      buf_tok, buf_lp, buf_valid, top_tok, top_lp, top_ok, top_stride, top_ok_stride, slab_tok,
-      slab_lp, slab_ok, n_top, n_slab, in_tok, in_lp, in_ok, in_slot, width, chunk, n_chunks, n2,
-      n_buf, vocab, neg_inf, out_tok, out_lp, out_ok, out_slot);
+      src, in_tok, in_lp, in_ok, in_slot, width, chunk, n_chunks, n2, n_buf, vocab, neg_inf,
+      out_tok, out_lp, out_ok, out_slot);
   return (int)cudaGetLastError();
 }
 
+// The merge past shared memory (buffers past 4,096, or 2,048 under ties):
+// `table` [rows, vocab] and `keys` [rows, n2] (n2 = pow2(n) >= 8192) are
+// the caller's scratch.
+int seal_beam_merge_table(const int* buf_tok, const float* buf_lp, const unsigned char* buf_valid,
+                          const int* top_tok, const float* top_lp, const unsigned char* top_ok,
+                          long long top_stride, long long top_ok_stride, const int* slab_tok,
+                          const float* slab_lp, const unsigned char* slab_ok, int n_top,
+                          int n_slab, long long rows, int n_buf, int vocab, int ties,
+                          float neg_inf, unsigned* table, u64* keys, int n2, int* out_tok,
+                          float* out_lp, unsigned char* out_ok, void* stream) {
+  if (rows <= 0) return (int)cudaGetLastError();
+  const int n = n_buf + n_top + n_slab;
+  if (n2 < n || n2 < GTILE || (long long)vocab + n > 0x7fffff) return (int)cudaErrorInvalidValue;
+  const MergeIn src{buf_tok, buf_lp, buf_valid, top_tok, top_lp, top_ok, top_stride,
+                    top_ok_stride, slab_tok, slab_lp, slab_ok, n_buf, n_top, n_slab};
+  const cudaStream_t st = (cudaStream_t)stream;
+  int rc = clear_table(table, rows, vocab, st);
+  if (rc) return rc;
+  merge_table_kernel<<<blocks_of(rows * n, 256), 256, 0, st>>>(src, rows, n, vocab, neg_inf,
+                                                               table);
+  const auto keys_kernel = ties ? merge_keys_kernel<true> : merge_keys_kernel<false>;
+  keys_kernel<<<blocks_of(rows * n2, 256), 256, 0, st>>>(src, rows, n, n2, vocab, neg_inf, table,
+                                                         keys);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return global_sort(keys, rows, n2, n_buf,
+                     MergeOut{src, table, vocab, n_buf, ties, neg_inf, out_tok, out_lp, out_ok},
+                     st);
+}
+
+// The selection on one of four routes (kernels/beam_select.py:select_plan):
+// ROUTE_WARP (select_warp_kernel), ROUTE_BLOCK (select_kernel), ROUTE_LARGE
+// (select_beams_kernel + select_finish_kernel; scratch holds [n_queries *
+// n_par, two_k] keys, and slots under the ties mode) and ROUTE_TABLE (the
+// table [n_queries * n_par, vocab] memset and filled, select_beams_kernel
+// over chunks of `chunk` candidates into scratch [rows * n_chunks, two_k],
+// select_reduce_kernel into the [rows, two_k] after it where n_chunks > 1,
+// select_finish_kernel).
 int seal_beam_select(const int* buf_tok, const float* buf_lp, const unsigned char* buf_valid,
                      const int* win_tok, const unsigned char* win_valid, const float* win_lp,
                      const unsigned char* eos_ok, long long eos_ok_stride, const float* lp,
@@ -618,76 +1067,130 @@ int seal_beam_select(const int* buf_tok, const float* buf_lp, const unsigned cha
                      const float* beam_scores, const unsigned char* need, const float* th_lp,
                      long long n_queries, int n_par, int n_buf, int w, int k_out, int eos,
                      int pad, int stop_at_count, int always_allow_eos, int tie_bits,
-                     int keep_invalid, float neg_inf,
+                     int keep_invalid, float neg_inf, int route, int vocab, int chunk,
                      int* top_tok, int* top_parent, float* top_uncons, unsigned char* finite,
                      int* sel_tok, int* sel_parent, float* sel_uncons, unsigned char* sel_finite,
                      float* top_cons, unsigned char* unsound, u64* scratch_keys,
-                     int* scratch_slots, void* stream) {
+                     int* scratch_slots, unsigned* table, void* stream) {
   if (n_queries <= 0) return (int)cudaGetLastError();
   const SelectIn in{buf_tok, buf_lp,     buf_valid,  win_tok,  win_valid, win_lp,
                     eos_ok,  eos_ok_stride, lp,      lp_stride, prev_count, finished,
                     beam_scores, need,  th_lp,  keep_invalid};
   const SelectOut o{top_tok, top_parent, top_uncons, finite, sel_tok,
                     sel_parent, sel_uncons, sel_finite, top_cons};
+  const cudaStream_t st = (cudaStream_t)stream;
   const int two_k = 2 * k_out;
-  if (scratch_keys != nullptr) {
-    // the large-n route: scratch holds [n_queries * n_par, two_k] keys (and
-    // slots under the ties mode)
-    const int ncand = n_buf + w + 2;
-    const int ties = tie_bits > 0;
-    const int n2b = pow2_at_least(ncand);
-    const size_t smem_b = (size_t)((ties ? 12LL : 8LL) * n2b + 8LL * ncand);
-    const auto beams = ties ? select_beams_kernel<true> : select_beams_kernel<false>;
-    int rc = set_smem(beams, smem_b);
+  const int ncand = n_buf + w + 2;
+  const int ties = tie_bits > 0;
+  const long long rows = n_queries * n_par;
+  int rc = 0;
+  if (route == ROUTE_WARP) {
+    if (n_par > 32 || ncand > 128 || two_k > 64) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)warp_smem(n_par, ncand, two_k, k_out, ties);
+    const int regs = ncand <= 32 ? 1 : (ncand <= 64 ? 2 : 4);
+    const auto kernel =
+        ties ? (regs == 1 ? select_warp_kernel<true, 1>
+                          : (regs == 2 ? select_warp_kernel<true, 2> : select_warp_kernel<true, 4>))
+             : (regs == 1 ? select_warp_kernel<false, 1>
+                          : (regs == 2 ? select_warp_kernel<false, 2>
+                                       : select_warp_kernel<false, 4>));
+    rc = set_smem(kernel, smem);
     if (rc) return rc;
-    beams<<<(unsigned)(n_queries * n_par), n2b >= 1024 ? 512 : 256, smem_b,
-            (cudaStream_t)stream>>>(in, n_par, n_buf, w, two_k, n2b, eos, pad, stop_at_count,
-                                    always_allow_eos, tie_bits, neg_inf, scratch_keys,
-                                    scratch_slots);
-    rc = (int)cudaGetLastError();
-    if (rc) return rc;
-    const int n2f = pow2_at_least(n_par * two_k);
-    const size_t smem_f =
-        (size_t)((ties ? 12LL : 8LL) * n2f + 16LL * two_k + 4LL * k_out);
-    const auto finish = ties ? select_finish_kernel<true> : select_finish_kernel<false>;
-    rc = set_smem(finish, smem_f);
-    if (rc) return rc;
-    finish<<<(unsigned)n_queries, n2f >= 2048 ? 1024 : 256, smem_f, (cudaStream_t)stream>>>(
-        in, o, unsound, n_par, n_buf, w, two_k, k_out, n2f, eos, pad, neg_inf, scratch_keys,
-        scratch_slots);
+    kernel<<<(unsigned)n_queries, 32 * n_par, smem, st>>>(
+        in, o, unsound, n_par, n_buf, w, two_k, k_out, eos, pad, stop_at_count,
+        always_allow_eos, tie_bits, neg_inf);
     return (int)cudaGetLastError();
   }
-  const int n = n_par * (n_buf + w + 2);
-  const int n2 = pow2_at_least(n);
-  const size_t smem = (size_t)seal_beam_select_smem(n, two_k, k_out, tie_bits > 0);
-  const auto kernel = tie_bits > 0 ? select_kernel<true> : select_kernel<false>;
-  const int rc = set_smem(kernel, smem);
+  if (route == ROUTE_BLOCK) {
+    const int n = n_par * ncand;
+    const int n2 = pow2_at_least(n);
+    const size_t smem = (size_t)seal_beam_select_smem(n, two_k, k_out, ties);
+    const auto kernel = ties ? select_kernel<true> : select_kernel<false>;
+    rc = set_smem(kernel, smem);
+    if (rc) return rc;
+    kernel<<<(unsigned)n_queries, n2 >= 2048 ? 1024 : 256, smem, st>>>(
+        in, o, unsound, n_par, n_buf, w, two_k, k_out, n2, eos, pad, stop_at_count,
+        always_allow_eos, tie_bits, neg_inf);
+    return (int)cudaGetLastError();
+  }
+  if (route != ROUTE_LARGE && route != ROUTE_TABLE) return (int)cudaErrorInvalidValue;
+  // the per-beam stage: one chunk a beam on the large route
+  if (route == ROUTE_LARGE) chunk = ncand;
+  const int n_chunks = (ncand + chunk - 1) / chunk;
+  if (route == ROUTE_TABLE) {
+    rc = clear_table(table, rows, vocab, st);
+    if (rc) return rc;
+    select_table_kernel<<<blocks_of(rows * ncand, 256), 256, 0, st>>>(in, rows, n_buf, w, eos,
+                                                                      pad, vocab, table);
+  }
+  const int n2b = pow2_at_least(chunk);
+  const size_t smem_b = (size_t)beams_smem(chunk, ties);
+  const auto beams = ties ? select_beams_kernel<true> : select_beams_kernel<false>;
+  rc = set_smem(beams, smem_b);
   if (rc) return rc;
-  const int threads = n2 >= 2048 ? 1024 : 256;
-  kernel<<<(unsigned)n_queries, threads, smem, (cudaStream_t)stream>>>(
-      in, o, unsound, n_par, n_buf, w, two_k, k_out, n2, eos, pad, stop_at_count,
-      always_allow_eos, tie_bits, neg_inf);
+  beams<<<(unsigned)(rows * n_chunks), n2b >= 1024 ? 512 : 256, smem_b, st>>>(
+      in, n_par, n_buf, w, two_k, n2b, eos, pad, stop_at_count, always_allow_eos, tie_bits,
+      neg_inf, chunk, n_chunks, route == ROUTE_TABLE ? table : nullptr, vocab, scratch_keys,
+      scratch_slots);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const u64* keys = scratch_keys;
+  const int* slots = scratch_slots;
+  if (n_chunks > 1) {
+    const long long off = rows * n_chunks * two_k;
+    const int m = n_chunks * two_k;
+    const int n2r = pow2_at_least(m);
+    const size_t smem_r = (size_t)((ties ? 12LL : 8LL) * n2r);
+    const auto reduce = ties ? select_reduce_kernel<true> : select_reduce_kernel<false>;
+    rc = set_smem(reduce, smem_r);
+    if (rc) return rc;
+    reduce<<<(unsigned)rows, n2r >= 1024 ? 512 : 256, smem_r, st>>>(
+        scratch_keys, scratch_slots, m, two_k, n2r, scratch_keys + off,
+        ties ? scratch_slots + off : nullptr);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+    keys = scratch_keys + off;
+    slots = ties ? scratch_slots + off : nullptr;
+  }
+  const int n2f = pow2_at_least(n_par * two_k);
+  const size_t smem_f = (size_t)finish_smem(n_par * two_k, two_k, k_out, ties);
+  const auto finish = ties ? select_finish_kernel<true> : select_finish_kernel<false>;
+  rc = set_smem(finish, smem_f);
+  if (rc) return rc;
+  finish<<<(unsigned)n_queries, n2f >= 2048 ? 1024 : 256, smem_f, st>>>(
+      in, o, unsound, n_par, n_buf, w, two_k, k_out, n2f, eos, pad, neg_inf, keys, slots);
   return (int)cudaGetLastError();
 }
 
+// The candidate mode; with `table` ([rows, vocab] scratch) the first
+// instances come from it (a row past the shared memory's serial scan).
 int seal_beam_candidates(const int* buf_tok, const float* buf_lp, const unsigned char* buf_valid,
                          const int* win_tok, const unsigned char* win_valid, const float* win_lp,
                          const unsigned char* eos_ok, long long eos_ok_stride, const float* lp,
                          long long lp_stride, const int* prev_count,
                          const unsigned char* finished, long long rows, int n_buf, int w, int eos,
                          int pad, int stop_at_count, int always_allow_eos, int keep_invalid,
-                         float neg_inf, int* out_tok, float* out_cons, float* out_lp,
-                         void* stream) {
+                         float neg_inf, unsigned* table, int vocab, int* out_tok, float* out_cons,
+                         float* out_lp, void* stream) {
   if (rows <= 0) return (int)cudaGetLastError();
   const SelectIn in{buf_tok, buf_lp,     buf_valid,  win_tok,  win_valid, win_lp,
                     eos_ok,  eos_ok_stride, lp,      lp_stride, prev_count, finished,
                     nullptr, nullptr,   nullptr, keep_invalid};
-  const size_t smem = 4 * (size_t)(n_buf + w + 2);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int ncand = n_buf + w + 2;
+  size_t smem = 4 * (size_t)ncand;
+  if (table != nullptr) {
+    smem = 0;
+    int rc = clear_table(table, rows, vocab, st);
+    if (rc) return rc;
+    select_table_kernel<<<blocks_of(rows * ncand, 256), 256, 0, st>>>(in, rows, n_buf, w, eos,
+                                                                      pad, vocab, table);
+  }
   const int rc = set_smem(candidates_kernel, smem);
   if (rc) return rc;
-  candidates_kernel<<<(unsigned)rows, 128, smem, (cudaStream_t)stream>>>(
-      in, n_buf, w, eos, pad, stop_at_count, always_allow_eos, neg_inf, out_tok, out_cons,
-      out_lp);
+  candidates_kernel<<<(unsigned)rows, 128, smem, st>>>(
+      in, n_buf, w, eos, pad, stop_at_count, always_allow_eos, neg_inf, table, vocab, out_tok,
+      out_cons, out_lp);
   return (int)cudaGetLastError();
 }
 

@@ -5,20 +5,28 @@
 //
 // Replaces seal_tpu/ops/fm_ops.py: _symbol_bounds + _searchsorted_impl +
 // backward_step (mode "backward_step") and contains_tokens (mode
-// "contains").  Occ(c, pos) is the number of psi entries < pos inside
-// symbol c's strictly increasing psi block [C[c], C[c+1]); the search is a
-// binary search over that block, first narrowed by the packed symbol row
+// "contains"); and, in seal_tpu/decoding/constrained.py, the range update
+// after a selection (:1416-1430; step 0 :1344-1349) as one launch (mode
+// "advance").  Occ(c, pos) is the number of psi entries < pos inside
+// symbol c's strictly increasing psi block [C[c], C[c+1]); the search runs
+// over that block, first narrowed by the packed symbol row
 // sym_dir[c] = (C[c], C[c+1], head_id, 0) and, for frequent ("head")
 // symbols, by head_pair, which pins the search to one position block.
 //
-// Bound on the card: latency.  Every iteration is a dependent 4-byte load
-// from psi (4.8 MB at the 1.2M-token operating point, so it lives in the
-// 50 MB L2 after the first queries), and a query is ~8-20 of them in a
-// chain.  The design keeps many independent chains in flight: one thread
-// per (query, bound) and no shared memory, so occupancy is the limit; the
-// two bounds of a backward step run in neighbouring threads and meet with
-// one warp shuffle.  The TPU's 128-row vector finish (psi_blk) is not
-// carried over: a GPU thread reads psi directly.
+// Bound on the card: latency.  Every probe is a dependent 4-byte load from
+// psi (4.8 MB at the 1.2M-token operating point, so it lives in the 50 MB
+// L2 after the first queries).  A binary search is ~8-20 of them in a
+// chain.  The cooperative search (group_search) shortens the chain: a group
+// of H lanes loads H pivots of the interval at once, one ballot picks the
+// sub-interval between two of them, and the last <= H candidates are one
+// contiguous load, so the chain is ~log_{H+1}(n) loads instead of log2(n).
+// A (range, token) of "contains" takes a group of G = 2, 4, 8, 16 or 32
+// lanes; a backward step or an advance takes G lanes, half for each bound,
+// which meet with one shuffle (G = 2: one lane a bound, a binary search).  The group reads the symbol's directory row once
+// (one broadcast load).  Kernel 5 and the shard modes keep one thread per
+// (query, bound) and the binary search (search below).  The TPU's 128-row
+// vector finish (psi_blk) is not carried over: a GPU lane reads psi
+// directly.
 
 #include <cuda_runtime.h>
 
@@ -63,54 +71,144 @@ __device__ __forceinline__ int search(const int* __restrict__ psi, int lo, int h
   return lo;
 }
 
+// The smallest i in [lo, hi] with psi[i] >= pos (psi[lo:hi) increasing),
+// found by the H lanes of a group: lane g (of the lanes in `gmask`, from
+// lane `gbase` of the warp) loads pivot lo + (g + 1) * step, step = n / (H
+// + 1) for an interval of n > H rows; the first pivot at or past pos bounds
+// the answer from above, the one before it from below, so the interval
+// shrinks to at most step + H rows a level (32-bit arithmetic: the pivots
+// stay below hi < 2^31).  Every lane of the group gets the answer.
+template <int H>
+__device__ __forceinline__ int group_search(const int* __restrict__ psi, int lo, int hi, int pos,
+                                            int g, unsigned gmask, int gbase) {
+  constexpr unsigned LANES = H == 32 ? 0xffffffffu : (1u << H) - 1u;
+  if (lo >= hi) return lo;
+  while (hi - lo > H) {
+    const int step = (int)((unsigned)(hi - lo) / (H + 1));  // >= 1
+    const bool ge = __ldg(psi + lo + (g + 1) * step) >= pos;
+    const unsigned ball = (__ballot_sync(gmask, ge) >> gbase) & LANES;
+    if (ball == 0u) {
+      lo += H * step + 1;  // past the last pivot
+    } else {
+      const int f = __ffs(ball) - 1;  // the first pivot at or past pos
+      hi = lo + (f + 1) * step;
+      lo += f * step + (f > 0 ? 1 : 0);
+    }
+  }
+  // at most H candidates left: one load each
+  const bool ge = g < hi - lo && __ldg(psi + lo + g) >= pos;
+  const unsigned ball = (__ballot_sync(gmask, ge) >> gbase) & LANES;
+  return ball ? lo + __ffs(ball) - 1 : hi;
+}
+
+// Lanes of a warp split into groups of G: this lane's place in its group,
+// the group's first lane and its mask.
+template <int G>
+struct Group {
+  int g, base;
+  unsigned mask;
+  __device__ Group() {
+    const int lane = threadIdx.x & 31;
+    g = lane % G;
+    base = lane - g;
+    mask = (G == 32 ? 0xffffffffu : (1u << G) - 1u) << base;
+  }
+};
+
+// One backward step of range (lo, hi) by shifted symbol c over a group of G
+// lanes: lanes [0, G/2) search the lo bound, [G/2, G) the hi bound; every
+// lane gets (new_lo, new_hi), (0, 0) for an out-of-range symbol.
+template <int G>
+__device__ __forceinline__ int2 group_step(const int* __restrict__ psi,
+                                           const int* __restrict__ sym_dir,
+                                           const int* __restrict__ head_pair, int n_rows,
+                                           int sigma, int dir_shift, int c, int lo, int hi,
+                                           const Group<G>& gr) {
+  constexpr int H = G / 2;
+  if (c < 1 || c >= sigma) return make_int2(0, 0);  // uniform over the group
+  const bool upper = gr.g >= H;
+  const int pos = upper ? hi : lo;
+  const Bounds b = symbol_bounds(sym_dir, head_pair, n_rows, dir_shift, c, pos);
+  const int half = gr.base + (upper ? H : 0);
+  const unsigned hmask = (H == 32 ? 0xffffffffu : (1u << H) - 1u) << half;
+  const int row = group_search<H>(psi, b.dlo, b.dhi, pos, gr.g - (upper ? H : 0), hmask, half);
+  const int new_lo = __shfl_sync(gr.mask, row, gr.base);
+  const int new_hi = __shfl_sync(gr.mask, row, gr.base + H);
+  return make_int2(new_lo, max(new_lo, new_hi));  // new_hi = max(new_lo, new_hi)
+}
+
+template <int G>
 __global__ void __launch_bounds__(THREADS)
 backward_step_kernel(const int* __restrict__ psi, const int* __restrict__ sym_dir,
                      const int* __restrict__ head_pair, int n_rows, int sigma, int dir_shift,
                      const int* __restrict__ token, const int* __restrict__ lo,
                      const int* __restrict__ hi, int* __restrict__ out_lo,
                      int* __restrict__ out_hi, long long n) {
-  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long q = t >> 1;
-  const int bound = (int)(t & 1);
-  const bool active = q < n;
-  int row = 0;
-  if (active) {
-    const int c = token[q] + SHIFT;
-    if (c >= 1 && c < sigma) {
-      const int pos = bound ? hi[q] : lo[q];
-      const Bounds b = symbol_bounds(sym_dir, head_pair, n_rows, dir_shift, c, pos);
-      row = search(psi, b.dlo, b.dhi, pos);
-    }
-  }
-  // the pair (q, 0), (q, 1) sits in neighbouring lanes of one warp
-  const int other = __shfl_xor_sync(0xffffffffu, row, 1);
-  if (active) {
-    if (bound == 0) {
-      out_lo[q] = row;
-    } else {
-      out_hi[q] = max(other, row);  // new_hi = max(new_lo, new_hi)
-    }
+  const long long q = ((long long)blockIdx.x * THREADS + threadIdx.x) / G;
+  if (q >= n) return;  // uniform over the group
+  const Group<G> gr;
+  const int2 r = group_step<G>(psi, sym_dir, head_pair, n_rows, sigma, dir_shift,
+                               token[q] + SHIFT, lo[q], hi[q], gr);
+  if (gr.g == 0) {
+    out_lo[q] = r.x;
+    out_hi[q] = r.y;
   }
 }
 
+// Membership: a group of G lanes per (range, token).  The first row of
+// the symbol's block at or after lo, if the block has one, is the token's
+// first occurrence in the range when its psi is below hi.
+template <int G>
 __global__ void __launch_bounds__(THREADS)
 contains_kernel(const int* __restrict__ psi, const int* __restrict__ sym_dir,
                 const int* __restrict__ head_pair, int n_rows, int sigma, int dir_shift,
                 const int* __restrict__ tokens, const int* __restrict__ lo,
                 const int* __restrict__ hi, unsigned char* __restrict__ out, long long n, int m) {
-  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (t >= n * m) return;
+  const long long t = ((long long)blockIdx.x * THREADS + threadIdx.x) / G;
+  if (t >= n * m) return;  // uniform over the group
+  const Group<G> gr;
   const long long r = t / m;
   const int c = tokens[t] + SHIFT;
   bool ok = false;
   if (c >= 1 && c < sigma) {
     const int l = lo[r];
     const Bounds b = symbol_bounds(sym_dir, head_pair, n_rows, dir_shift, c, l);
-    const int row = search(psi, b.dlo, b.dhi, l);
+    const int row = group_search<G>(psi, b.dlo, b.dhi, l, gr.g, gr.mask, gr.base);
     // row < bhi: psi[row] is the symbol's first occurrence at or after lo
     ok = row < b.bhi && __ldg(psi + row) < hi[r];
   }
-  out[t] = ok ? 1 : 0;
+  if (gr.g == 0) out[t] = ok ? 1 : 0;
+}
+
+// The step mode: the range update after a selection, one group of G lanes
+// per (query, beam) of [n / n_sel, n_sel] selections over parents [.., P]:
+// the parent p = sel_par's range (lo, hi) and its size (prev_count), then
+// the backward step by sel_tok; with `finished` (steps >= 1), (0, 0) where
+// the token is EOS or PAD or the parent had finished.
+template <int G>
+__global__ void __launch_bounds__(THREADS)
+advance_kernel(const int* __restrict__ psi, const int* __restrict__ sym_dir,
+               const int* __restrict__ head_pair, int n_rows, int sigma, int dir_shift,
+               const int* __restrict__ lo, const int* __restrict__ hi, int P,
+               const int* __restrict__ sel_par, const int* __restrict__ sel_tok,
+               const unsigned char* __restrict__ finished, int eos, int pad,
+               int* __restrict__ out_lo, int* __restrict__ out_hi, int* __restrict__ out_count,
+               long long n, int n_sel) {
+  const long long q = ((long long)blockIdx.x * THREADS + threadIdx.x) / G;
+  if (q >= n) return;  // uniform over the group
+  const Group<G> gr;
+  const long long parent = q / n_sel * P + sel_par[q];
+  const int plo = lo[parent], phi = hi[parent], tok = sel_tok[q];
+  const bool stop = finished != nullptr && (tok == eos || tok == pad || finished[parent] != 0);
+  int2 r = make_int2(0, 0);
+  if (!stop)
+    r = group_step<G>(psi, sym_dir, head_pair, n_rows, sigma, dir_shift, tok + SHIFT, plo, phi,
+                      gr);
+  if (gr.g == 0) {
+    out_lo[q] = r.x;
+    out_hi[q] = r.y;
+    out_count[q] = phi - plo;
+  }
 }
 
 // Kernel 5: row ranges of padded token sequences (replaces
@@ -425,28 +523,70 @@ extern "C" int seal_fm_sequences(const int* psi, const int* sym_dir, const int* 
   return (int)cudaGetLastError();
 }
 
+// The group kernels' launch: `group` lanes (2, 4, 8, 16 or 32) an item.
+template <template <int> class Launch, typename... Args>
+int launch_group(int group, long long items, cudaStream_t stream, Args... args) {
+  if (items <= 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((items * group + THREADS - 1) / THREADS);
+  switch (group) {
+    case 2: Launch<2>::run(blocks, stream, args...); break;
+    case 4: Launch<4>::run(blocks, stream, args...); break;
+    case 8: Launch<8>::run(blocks, stream, args...); break;
+    case 16: Launch<16>::run(blocks, stream, args...); break;
+    case 32: Launch<32>::run(blocks, stream, args...); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int G>
+struct StepLaunch {
+  template <typename... Args>
+  static void run(unsigned blocks, cudaStream_t stream, Args... args) {
+    backward_step_kernel<G><<<blocks, THREADS, 0, stream>>>(args...);
+  }
+};
+template <int G>
+struct ContainsLaunch {
+  template <typename... Args>
+  static void run(unsigned blocks, cudaStream_t stream, Args... args) {
+    contains_kernel<G><<<blocks, THREADS, 0, stream>>>(args...);
+  }
+};
+template <int G>
+struct AdvanceLaunch {
+  template <typename... Args>
+  static void run(unsigned blocks, cudaStream_t stream, Args... args) {
+    advance_kernel<G><<<blocks, THREADS, 0, stream>>>(args...);
+  }
+};
+
 extern "C" int seal_fm_backward_step(const int* psi, const int* sym_dir, const int* head_pair,
                                      int n_rows, int sigma, int dir_shift, const int* token,
                                      const int* lo, const int* hi, int* out_lo, int* out_hi,
-                                     long long n, void* stream) {
-  if (n > 0) {
-    const long long threads = 2 * n;
-    const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-    backward_step_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        psi, sym_dir, head_pair, n_rows, sigma, dir_shift, token, lo, hi, out_lo, out_hi, n);
-  }
-  return (int)cudaGetLastError();
+                                     long long n, int group, void* stream) {
+  return launch_group<StepLaunch>(group, n, (cudaStream_t)stream, psi, sym_dir, head_pair, n_rows,
+                                  sigma, dir_shift, token, lo, hi, out_lo, out_hi, n);
 }
 
 extern "C" int seal_fm_contains(const int* psi, const int* sym_dir, const int* head_pair,
                                 int n_rows, int sigma, int dir_shift, const int* tokens,
                                 const int* lo, const int* hi, unsigned char* out, long long n,
-                                int m, void* stream) {
-  if (n > 0 && m > 0) {
-    const long long threads = n * m;
-    const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-    contains_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        psi, sym_dir, head_pair, n_rows, sigma, dir_shift, tokens, lo, hi, out, n, m);
-  }
-  return (int)cudaGetLastError();
+                                int m, int group, void* stream) {
+  if (m <= 0) return (int)cudaGetLastError();
+  return launch_group<ContainsLaunch>(group, n * m, (cudaStream_t)stream, psi, sym_dir, head_pair,
+                                      n_rows, sigma, dir_shift, tokens, lo, hi, out, n, m);
+}
+
+// lo, hi [n / n_sel, P]; sel_par, sel_tok, out_* [n / n_sel, n_sel];
+// finished [n / n_sel, P] or null (step 0: no stop rule)
+extern "C" int seal_fm_advance(const int* psi, const int* sym_dir, const int* head_pair,
+                               int n_rows, int sigma, int dir_shift, const int* lo, const int* hi,
+                               int P, const int* sel_par, const int* sel_tok,
+                               const unsigned char* finished, int eos, int pad, int* out_lo,
+                               int* out_hi, int* out_count, long long n, int n_sel, int group,
+                               void* stream) {
+  return launch_group<AdvanceLaunch>(group, n, (cudaStream_t)stream, psi, sym_dir, head_pair,
+                                     n_rows, sigma, dir_shift, lo, hi, P, sel_par, sel_tok,
+                                     finished, eos, pad, out_lo, out_hi, out_count, n, n_sel);
 }

@@ -68,6 +68,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "global_sort.cuh"
 #include "select_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -545,90 +546,17 @@ row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int st
   }
 }
 
-// ---- the global sort of the large-k route --------------------------------
-constexpr int GTILE = 8192;     // words of a tile sorted in shared memory (64 KB)
-constexpr int GTHREADS = 1024;  // threads of a tile's block
-
-__device__ __forceinline__ void cmp_swap(u64* w, int lo, int hi, bool desc) {
-  const u64 a = w[lo], b = w[hi];
-  if (desc ? a < b : a > b) {
-    w[lo] = b;
-    w[hi] = a;
+// ---- the global sort of the large-k route (global_sort.cuh) -------------
+// its last pass writes each row's first k words as values and indices
+struct TopkOut {
+  float* vals;
+  long long* idx;
+  int k;
+  __device__ void operator()(long long row, int j, u64 w) const {
+    vals[row * k + j] = key_value(w);
+    idx[row * k + j] = (long long)key_slot(w);
   }
-}
-
-// The strides < GTILE of bitonic sizes lo_size .. hi_size inside one tile
-// of a row's n2 words (block b: tile b % (n2 / GTILE) of row b / (n2 /
-// GTILE)), descending where the row index's `size` bit is 0.  With `last`
-// the tile's words go out as values and indices (j < k) instead of back.
-__global__ void __launch_bounds__(GTHREADS)
-sort_tile_kernel(u64* __restrict__ gbuf, int n2, int lo_size, int hi_size, int k, int last,
-                 float* __restrict__ vals, long long* __restrict__ idx) {
-  extern __shared__ u64 tile[];
-  const int tiles = n2 / GTILE;
-  const long long row = blockIdx.x / tiles;
-  const int t0 = (blockIdx.x % tiles) * GTILE;  // the tile's first index in the row
-  u64* w = gbuf + row * n2 + t0;
-  for (int j = threadIdx.x; j < GTILE; j += GTHREADS) tile[j] = w[j];
-  for (int size = lo_size; size <= hi_size; size <<= 1) {
-    for (int stride = min(size, GTILE) >> 1; stride > 0; stride >>= 1) {
-      __syncthreads();
-      for (int t = threadIdx.x; t < GTILE / 2; t += GTHREADS) {
-        const int lo = 2 * t - (t & (stride - 1));
-        cmp_swap(tile, lo, lo + stride, ((t0 + lo) & size) == 0);
-      }
-    }
-  }
-  __syncthreads();
-  if (!last) {
-    for (int j = threadIdx.x; j < GTILE; j += GTHREADS) w[j] = tile[j];
-    return;
-  }
-  for (int j = threadIdx.x; j < GTILE && t0 + j < k; j += GTHREADS) {
-    vals[row * k + t0 + j] = key_value(tile[j]);
-    idx[row * k + t0 + j] = (long long)key_slot(tile[j]);
-  }
-}
-
-// One stride >= GTILE of bitonic size `size`: a thread a pair.
-__global__ void merge_global_kernel(u64* __restrict__ gbuf, int n2, int size, int stride,
-                                    long long pairs) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= pairs) return;
-  const long long row = p / (n2 / 2);
-  const int t = (int)(p % (n2 / 2));
-  const int lo = 2 * t - (t & (stride - 1));
-  cmp_swap(gbuf + row * n2, lo, lo + stride, (lo & size) == 0);
-}
-
-// The bitonic network over [rows, n2] words (n2 a power of two > GTILE)
-// after the select kernel filled them; writes the first k of each row.
-int global_sort(u64* gbuf, long long n_rows, int n2, int k, float* vals, long long* idx,
-                cudaStream_t stream) {
-  constexpr int SMEM = GTILE * 8;
-  constexpr int MAX_DEVICES = 64;
-  static int smem_set[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(sort_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = 1;
-  }
-  const unsigned blocks = (unsigned)(n_rows * (n2 / GTILE));
-  sort_tile_kernel<<<blocks, GTHREADS, SMEM, stream>>>(gbuf, n2, 2, GTILE, k, 0, vals, idx);
-  const long long pairs = n_rows * (n2 / 2);
-  for (int size = 2 * GTILE; size <= n2; size <<= 1) {
-    for (int stride = size >> 1; stride >= GTILE; stride >>= 1)
-      merge_global_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(gbuf, n2, size,
-                                                                               stride, pairs);
-    sort_tile_kernel<<<blocks, GTHREADS, SMEM, stream>>>(gbuf, n2, size, size, k, size == n2,
-                                                         vals, idx);
-  }
-  return (int)cudaGetLastError();
-}
+};
 
 template <int THREADS>
 int launch(const float* x, long long n_rows, int width, int k, int splits, int slice, int staged,
@@ -682,7 +610,7 @@ int launch(const float* x, long long n_rows, int width, int k, int splits, int s
     if (err == cudaSuccess) err = cudaGetLastError();
   }
   if (err != cudaSuccess || gbuf == nullptr) return (int)err;
-  return global_sort(gbuf, n_rows, n2, k, vals, idx, stream);
+  return global_sort(gbuf, n_rows, n2, k, TopkOut{vals, idx, k}, stream);
 }
 
 }  // namespace

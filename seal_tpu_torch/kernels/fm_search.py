@@ -13,8 +13,15 @@ chunked ``validate_tokens`` sweep of ``seal_tpu/ops/_generic.py:
 dense_counts`` (:75).  The plain PyTorch versions below are the
 specification: the CPU path and the reference the card's kernels are held
 to (integer results, so exactly equal).  Kernels 1 and 5 are latency
-bound: a chain of dependent psi loads per query, one thread per (query,
-bound); see the source for the design.  Kernel 15 is bound by its
+bound: a chain of dependent psi loads per query.  Kernel 1's Psi modes
+search cooperatively, a group of ``GROUP`` lanes an item loading as many
+pivots a level (see the source); kernel 5 and the shard modes run one
+thread per (query, bound).  Kernel 1's step mode, :func:`fm_advance`,
+is the decode step's range update after a selection in one launch
+(``seal_tpu/decoding/constrained.py:1416-1430``, step 0 :1344-1349); its
+plain version, :func:`advance_plain`, is the composition the other
+layouts run (``ops/_generic.py:advance_ranges``).  Its launches count on
+``fm_search`` and on ``ADVANCE``.  Kernel 15 is bound by its
 [ranges, vocab] output; a range of at most ``HIST_MAX_ROWS`` rows counts
 its BWT rows (``csrc/dense_counts.cuh``).
 
@@ -38,9 +45,14 @@ from __future__ import annotations
 import torch
 
 from seal_tpu_torch.index.fm_index import SHIFT
+from seal_tpu_torch.kernels import Launches
 from seal_tpu_torch.ops import _generic
 
 MODES = ("backward_step", "contains")
+GROUPS = (2, 4, 8, 16, 32)  # lanes an item of the cooperative search can take
+GROUP = 8  # the default (python -m seal_tpu_torch.bench_select times each)
+ADVANCE = Launches()  # fm_search launches in the step mode (fm_advance)
+_FN = {}  # kernel 1's C entry points, looked up once
 # kernel 15 counts a range of at most this many rows by a histogram of its
 # BWT rows, a wider one by kernel 1's rank at both bounds of every token
 HIST_MAX_ROWS = 1 << 18
@@ -164,7 +176,7 @@ def _index_args(index):
     )
 
 
-def fm_search(index, mode: str, tokens, lo, hi):
+def fm_search(index, mode: str, tokens, lo, hi, group: int | None = None):
     """Rank search in one of two modes.
 
     * ``"backward_step"``: tokens, lo, hi broadcast to one shape; returns
@@ -172,7 +184,9 @@ def fm_search(index, mode: str, tokens, lo, hi):
     * ``"contains"``: tokens [..., M], lo/hi [...]; returns bool [..., M],
       whether each token continues its range.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel, a
+    group of ``group`` lanes (default ``GROUP``; one of ``GROUPS``) an
+    item.
     """
     if mode not in MODES:
         raise ValueError(f"unknown fm_search mode {mode!r}")
@@ -185,27 +199,38 @@ def fm_search(index, mode: str, tokens, lo, hi):
         if mode == "backward_step":
             return backward_step_plain(index, tokens, lo, hi)
         return contains_plain(index, tokens, lo, hi)
-    return _launch(index, mode, tokens, lo, hi)
+    return _launch(index, mode, tokens, lo, hi, _group(group))
 
 
 fm_search.launches = 0
 
 
-def _launch(index, mode, tokens, lo, hi):
-    from seal_tpu_torch.kernels import build
+def _group(group):
+    group = GROUP if group is None else group
+    if group not in GROUPS:
+        raise ValueError(f"fm_search: a group of {group} lanes (take one of {GROUPS})")
+    if not _FN:
+        from seal_tpu_torch.kernels import build
 
-    so = build.lib()
+        so = build.lib()
+        _FN.update(step=so.seal_fm_backward_step, contains=so.seal_fm_contains,
+                   advance=so.seal_fm_advance, stream=build.stream_ptr)
+    return group
+
+
+def _launch(index, mode, tokens, lo, hi, group):
     common = _index_args(index)
-    stream = build.stream_ptr(tokens)
+    stream = _FN["stream"](tokens)
     if mode == "backward_step":
         tokens, lo, hi = (t.contiguous() for t in (tokens, lo, hi))
         out_lo = torch.empty_like(tokens)
         out_hi = torch.empty_like(tokens)
-        rc = so.seal_fm_backward_step(
+        rc = _FN["step"](
             *common, tokens.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            out_lo.data_ptr(), out_hi.data_ptr(), tokens.numel(), stream,
+            out_lo.data_ptr(), out_hi.data_ptr(), tokens.numel(), group, stream,
         )
-        build.check(rc, "fm_search(backward_step)")
+        if rc:
+            raise RuntimeError(f"fm_search(backward_step): CUDA error {rc}")
         fm_search.launches += 1
         return out_lo, out_hi
     m = tokens.shape[-1]
@@ -213,13 +238,62 @@ def _launch(index, mode, tokens, lo, hi):
         raise ValueError(f"contains: tokens {tuple(tokens.shape)} vs ranges {tuple(lo.shape)}")
     tokens, lo, hi = (t.contiguous() for t in (tokens, lo, hi))
     out = torch.empty(tokens.shape, dtype=torch.bool, device=tokens.device)
-    rc = so.seal_fm_contains(
+    rc = _FN["contains"](
         *common, tokens.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        out.data_ptr(), lo.numel(), m, stream,
+        out.data_ptr(), lo.numel(), m, group, stream,
     )
-    build.check(rc, "fm_search(contains)")
+    if rc:
+        raise RuntimeError(f"fm_search(contains): CUDA error {rc}")
     fm_search.launches += 1
     return out
+
+
+def advance_plain(index, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int):
+    """The step mode's plain version: ``ops/_generic.py:advance_ranges``
+    over the plain backward step."""
+    return _generic.advance_ranges(
+        lambda t, a, b: backward_step_plain(index, t, a, b), lambda a, b: b - a,
+        sel_tok, sel_par, lo, hi, finished, eos=eos, pad=pad)
+
+
+def fm_advance(index, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int,
+               group: int | None = None):
+    """Kernel 1's step mode: the range update after a selection.
+
+    ``sel_tok``, ``sel_par`` [B, K]: each selection's token and parent
+    beam; ``lo``, ``hi`` [B, P]: the parents' ranges; ``finished`` [B, P]
+    (bool) or None at step 0.  Returns int32 (lo, hi, prev_count) [B, K]:
+    the parent's range extended by the token -- (0, 0) where ``finished``
+    is given and the token is EOS or PAD or the parent had finished -- and
+    the parent's range size.  CPU tensors run :func:`advance_plain`; CUDA
+    tensors launch the kernel once.
+    """
+    if not sel_tok.is_cuda:
+        return advance_plain(index, sel_tok, sel_par, lo, hi, finished, eos=eos, pad=pad)
+    group = _group(group)
+    B, K = sel_tok.shape
+    if lo.shape != hi.shape or lo.dim() != 2 or lo.shape[0] != B or sel_par.shape != (B, K):
+        raise ValueError(f"fm_advance: selections {tuple(sel_tok.shape)}, parents "
+                         f"{tuple(sel_par.shape)}, ranges {tuple(lo.shape)}")
+    if finished is not None and (finished.shape != lo.shape or finished.dtype != torch.bool):
+        raise ValueError("fm_advance: finished must be bool, shaped as the ranges")
+    sel_tok, sel_par, lo, hi = (
+        (t if t.dtype == torch.int32 else t.to(torch.int32)).contiguous()
+        for t in (sel_tok, sel_par, lo, hi))
+    if finished is not None:
+        finished = finished.contiguous()
+    out = torch.empty((3, B, K), dtype=torch.int32, device=sel_tok.device)
+    p = out.data_ptr()
+    rc = _FN["advance"](
+        *_index_args(index), lo.data_ptr(), hi.data_ptr(), lo.shape[1], sel_par.data_ptr(),
+        sel_tok.data_ptr(), finished.data_ptr() if finished is not None else None, eos, pad,
+        p, p + 4 * B * K, p + 8 * B * K, B * K, K, group, _FN["stream"](sel_tok),
+    )
+    if rc:
+        raise RuntimeError(f"fm_advance: CUDA error {rc}")
+    fm_search.launches += 1
+    ADVANCE.launches += 1
+    return out.unbind(0)
 
 
 def dense_counts_plain(index, lo, hi, chunk: int = 4096):

@@ -46,3 +46,25 @@ def dense_counts(validate_fn, index, lo, hi, chunk: int):
         toks = torch.arange(start, start + chunk, dtype=torch.int32, device=index.device)
         out.append(validate_fn(index, toks.expand(*lo.shape, chunk), lo, hi))
     return torch.cat(out, -1)[..., :vocab]
+
+
+def advance_ranges(extend, range_size, sel_tok, sel_par, lo, hi, finished=None, *, eos: int,
+                   pad: int):
+    """The decode step's range update after a selection
+    (``seal_tpu/decoding/constrained.py:1416-1430``): each selection's
+    parent range (``lo``, ``hi`` [..., B, P], gathered by ``sel_par`` [B,
+    K], the index shared over leading axes) extended by ``sel_tok``, and the
+    parent's ``range_size``; with ``finished`` [B, P] (steps >= 1) the
+    range becomes (0, 0) where the token is EOS or PAD or the parent had
+    finished.  At step 0 (``finished`` None: :1344-1349) there is no stop
+    rule.  Returns (lo, hi, prev_count)."""
+    def gather(x):
+        idx = sel_par.long()
+        return torch.gather(x, -1, idx.expand(*x.shape[: x.dim() - idx.dim()], *idx.shape))
+
+    prev_count = gather(range_size(lo, hi))
+    elo, ehi = extend(sel_tok, gather(lo), gather(hi))
+    if finished is None:
+        return elo, ehi, prev_count
+    stop = (sel_tok == eos) | (sel_tok == pad) | gather(finished)
+    return torch.where(stop, 0, elo), torch.where(stop, 0, ehi), prev_count

@@ -2,7 +2,8 @@
 ``seal_tpu/ops/fm_ops.py``).
 
 All ops take *unshifted* token ids and shift internally (SHIFT == 1).
-``backward_step``/``extend_ranges`` and ``contains_tokens`` go through the
+``backward_step``/``extend_ranges``, ``contains_tokens`` and
+``advance_ranges`` (the decode step's range update) go through the
 rank-search kernel, ``range_for_sequences``/``count_sequences`` through
 its sequence mode and ``dense_counts`` through its dense kernel
 (``kernels/fm_search.py``), ``window_gather`` through the window kernel,
@@ -18,6 +19,7 @@ import torch
 from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.kernels.bucket_counts import bucket_counts  # noqa: F401
 from seal_tpu_torch.kernels.fm_search import (
+    fm_advance,
     fm_dense_counts,
     fm_search,
     fm_sequences,
@@ -54,6 +56,12 @@ def backward_step(index, token, lo, hi):
 def extend_ranges(index, tokens, lo, hi):
     """Ranges after appending one token per batch element (shapes match)."""
     return backward_step(index, tokens, lo, hi)
+
+
+def advance_ranges(index, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int):
+    """The range update after a selection, in one launch of kernel 1's step
+    mode: (lo, hi, prev_count) [B, K] (``ops/_generic.py:advance_ranges``)."""
+    return fm_advance(index, sel_tok, sel_par, lo, hi, finished, eos=eos, pad=pad)
 
 
 def contains_tokens(index, tokens, lo, hi):

@@ -58,6 +58,15 @@ def extend_ranges(index, tokens, lo, hi):
     return backward_step(index, tokens, lo, hi)
 
 
+def advance_ranges(index, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int):
+    """The range update after a selection: (lo, hi, prev_count) [B, K], the
+    composition of ``ops/_generic.py:advance_ranges`` over kernel 12's
+    backward step."""
+    return _generic.advance_ranges(lambda t, a, b: backward_step(index, t, a, b),
+                                   lambda a, b: b - a, sel_tok, sel_par, lo, hi, finished,
+                                   eos=eos, pad=pad)
+
+
 def contains_tokens(index, tokens, lo, hi):
     """Membership: does each token of [..., M] continue range [lo, hi)?
     Equal to ``validate_tokens(...) > 0``: the plain two-bound rank."""

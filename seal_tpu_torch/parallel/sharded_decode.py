@@ -28,6 +28,7 @@ from seal_tpu_torch.kernels.fm_search import (
     fm_sequences_sharded,
 )
 from seal_tpu_torch.kernels.window_gather import window_gather_sharded
+from seal_tpu_torch.ops._generic import advance_ranges
 from seal_tpu_torch.parallel.sharded_index import ShardedTorchIndex, require_no_mesh
 
 
@@ -63,6 +64,13 @@ class ShardedIndexOps:
 
     def range_size(self, lo, hi):
         return (hi - lo).sum(0, dtype=torch.int32)
+
+    def advance(self, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int):
+        """The range update after a selection over [S, B, K] ranges: the
+        plain composition over ``extend`` (kernel 1's shard mode) and the
+        summed ``range_size``."""
+        return advance_ranges(self.extend, self.range_size, sel_tok, sel_par, lo, hi, finished,
+                              eos=eos, pad=pad)
 
     def window_exhaustive(self, lo, hi, w):
         """True where every shard's interval fits its w window slots (then

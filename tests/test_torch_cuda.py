@@ -1590,3 +1590,254 @@ def test_sharded_generate_on_card_matches_cpu(cuda, S, mode):
         assert [t for t, _ in ka] == [t for t, _ in kb]
         np.testing.assert_allclose([sc for _, sc in kb], [sc for _, sc in ka], atol=1e-4)
 
+
+
+# ---- kernel 8's selection routes and the routes past shared memory (F1, F2)
+
+
+def _select_inputs(cuda, seed, B, K, n_buf, w, V, tok_hi, keep_invalid):
+    """``beam_select``'s inputs on the card: buffer and window tokens from
+    [0, tok_hi) (duplicates within and across them), ties, signed zeros, a
+    dead beam, a query whose beams share one score, finished beams."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lp = _lp(g, B * K, V, cuda)
+
+    def take(tok):
+        return torch.gather(lp, 1, tok.reshape(B * K, -1).long()).reshape(tok.shape)
+
+    btok = torch.randint(0, tok_hi, (B, K, n_buf), generator=g, device=cuda, dtype=torch.int32)
+    win_valid = torch.rand(B, K, w, generator=g, device=cuda) < 0.6
+    win_tok = torch.where(win_valid, torch.randint(0, tok_hi, (B, K, w), generator=g, device=cuda,
+                                                   dtype=torch.int32), 1)
+    bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
+    bs[0, 1 % K] = tc.NEG_INF
+    bs[-1, :] = bs[-1, 0]
+    args = ((btok, take(btok), torch.rand(B, K, n_buf, generator=g, device=cuda) < 0.7), n_buf,
+            win_tok, win_valid, take(win_tok),
+            (torch.rand(B, K, 3, generator=g, device=cuda) < 0.5)[..., 2:], lp,
+            torch.randint(0, 6, (B, K), generator=g, device=cuda, dtype=torch.int32),
+            torch.rand(B, K, generator=g, device=cuda) < 0.2, bs,
+            torch.rand(B, K, generator=g, device=cuda) < 0.5,
+            torch.round(torch.randn(B, K, generator=g, device=cuda)) - 4)
+    return args, dict(eos=2, pad=1, stop_at_count=0, always_allow_eos=False,
+                      keep_invalid=keep_invalid)
+
+
+SELECT_ROUTES = {  # route: B, beams, n_buf, w, V -- each route at the path's shapes and limits
+    "warp_bench": ("warp", 32, 15, 30, 32, 3000),  # 64 candidates a beam
+    "warp_beam32": ("warp", 32, 32, 64, 32, 3000),  # 98
+    "warp_limit": ("warp", 4, 32, 64, 62, 3000),  # 128 candidates, 2K = 64, 32 beams
+    "warp_one_reg": ("warp", 8, 4, 8, 16, 3000),  # 26, one slot a lane
+    "warp_narrow": ("warp", 8, 8, 4, 4, 3000),  # 10 candidates for a top-16
+    "block_spec": ("block", 8, 15, 256, 128, 3000),  # the speculative default (386)
+    "large_beam32": ("large", 4, 32, 64, 512, 3000),  # beam 32 over 4 shards (578)
+    "large_limit": ("large", 2, 15, 30, 2016, 3000),  # SERIAL_MAX candidates a beam
+    "table_one_chunk": ("table", 2, 15, 3000, 32, 50265),
+    "table_spec_20000": ("table", 2, 15, 20000, 128, 50265),  # F2: three chunks
+    "table_vocab": ("table", 1, 15, 50265, 128, 50265),  # top_m = V: seven chunks
+}
+
+
+@pytest.mark.parametrize("keep_invalid", [False, True])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("name", sorted(SELECT_ROUTES))
+def test_beam_select_routes_match_plain(cuda, name, ties, keep_invalid):
+    """Every route of kernel 8's selection, forced, at the path's shapes and
+    at its limits: the nine outputs and ``unsound`` equal
+    ``beam_select_plain`` bit for bit, in both orders and with
+    ``keep_invalid``; the launch counts on its ``ROUTES`` entry."""
+    route, B, K, n_buf, w, V = SELECT_ROUTES[name]
+    args, kw = _select_inputs(cuda, len(name) + 2 * ties + keep_invalid, B, K, n_buf, w, V,
+                              min(V, max(400, n_buf // 2)), keep_invalid)
+    n0 = beam_select.ROUTES[route].launches
+    got, bad = beam_select.beam_select(*args, K=K, ties=ties, route=route, **kw)
+    assert beam_select.ROUTES[route].launches == n0 + 1
+    want, wbad = beam_select.beam_select_plain(*args, K=K, ties=ties, **kw)
+    _same(got + (bad,), want + (wbad,))
+    no_flags = args[:-2] + (None, None)
+    got, bad = beam_select.beam_select(*no_flags, K=K, ties=ties, route=route, **kw)
+    assert bad is None
+    _same(got, beam_select.beam_select_plain(*no_flags, K=K, ties=ties, **kw)[0])
+
+
+def test_beam_select_route_choice_and_limits(cuda):
+    """The routes ``select_plan`` picks on the path (the warp route at the
+    bench's beam 15 and at beam 32 with a 32-row window; one block for the
+    speculative default; the large-n route over 4 shards; the table route
+    for a speculative top_m of 20,000) and the shapes a forced route
+    refuses."""
+    plan = beam_select.select_plan
+    assert plan(15, 30, 32, 15, False).route == "warp"
+    assert plan(32, 64, 32, 32, True).route == "warp"
+    assert plan(15, 256, 128, 15, False).route == "block"
+    assert plan(32, 64, 512, 32, False).route == "large"
+    assert plan(15, 20000, 128, 15, True).route == "table"
+    for shape in ((32, 64, 63, 32), (33, 60, 32, 33), (15, 30, 32, 33)):
+        with pytest.raises(ValueError):
+            plan(*shape, False, "warp")  # 129 candidates, 33 beams, 2K = 66
+    with pytest.raises(ValueError):
+        plan(15, 3000, 32, 15, False, "large")  # past SERIAL_MAX a beam
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("n_buf,n_top", [(3000, 6000), (10000, 20000), (4097, 4100),
+                                         (2049, 4100), (10000, 50265)])
+def test_beam_merge_table_route_matches_plain(cuda, n_buf, n_top, ties):
+    """F1: kernel 8's merge past the chunked route's reach (a buffer past
+    4,096, or 2,048 under ties: sampling at top_m 3,000 and 10,000, a
+    round-0 and a V-wide loop round) through the device-memory route,
+    equal to the plain version bit for bit, with round 0's empty buffer
+    too; the chunked route keeps the buffers it can halve (3,000 and 2,049
+    without ties)."""
+    g = torch.Generator(device=cuda).manual_seed(n_buf + n_top + ties)
+    B, K, V = 2, 15, 50265
+    lp = _lp(g, B * K, V, cuda)
+    top_lp, top_idx = row_topk.row_topk_plain(lp, n_top)
+    ok = (torch.rand(B, K, n_top + 1, generator=g, device=cuda) < 0.5)[..., :n_top]
+    slab_tok = torch.randint(0, min(3 * n_top, V), (B, K, n_top), generator=g, device=cuda,
+                             dtype=torch.int32)
+    slab_lp = torch.gather(lp, 1, slab_tok.reshape(B * K, -1).long()).reshape(B, K, n_top)
+    slab_ok = torch.rand(B, K, n_top, generator=g, device=cuda) < 0.8
+    bt = torch.stack([torch.randperm(V, generator=g, device=cuda)[:n_buf] for _ in range(B * K)])
+    blp = torch.gather(lp, 1, bt).reshape(B, K, n_buf)
+    buf = (bt.to(torch.int32).reshape(B, K, n_buf), blp,
+           (torch.rand(B, K, n_buf, generator=g, device=cuda) < 0.7) & (blp > tc.NEG_INF / 2))
+    args = (buf, top_idx.to(torch.int32).reshape(B, K, n_top), top_lp.reshape(B, K, n_top), ok,
+            slab_tok, slab_lp, slab_ok, V, n_buf)
+    route = beam_select.merge_route(n_buf + 2 * n_top, n_buf, ties)[0]
+    assert route == ("chunked" if n_buf <= (2048 if ties else 4096) else "table")
+    counter = beam_select.MERGE_TABLE if route == "table" else beam_select.MERGE_LARGE
+    n0 = counter.launches
+    _same(beam_select.beam_merge(*args, ties=ties), beam_select.beam_merge_plain(*args, ties=ties))
+    assert counter.launches == n0 + 1
+    none = (None,) + args[1:]
+    _same(beam_select.beam_merge(*none, ties=ties),
+          beam_select.beam_merge_plain(*none, ties=ties))
+
+
+@pytest.mark.parametrize("keep_invalid", [False, True])
+@pytest.mark.parametrize("n_buf,w", [(2046, 4), (10000, 32), (20000, 128)])
+def test_beam_candidates_table_route_matches_plain(cuda, n_buf, w, keep_invalid):
+    """F2 in the candidate mode: a beam past SERIAL_MAX candidates takes its
+    first instances from the table (sampling's buffer at top_m 10,000; a
+    speculative round of 20,000), equal to the plain version bit for bit;
+    2,048 candidates (SERIAL_MAX) stay on the serial dedup."""
+    args, kw = _select_inputs(cuda, n_buf + keep_invalid, 2, 15, n_buf, w, 50265, n_buf // 2,
+                              keep_invalid)
+    kw["stop_at_count"] = 1
+    n0 = beam_select.CAND_TABLE.launches
+    got = beam_select.beam_candidates(*args[:9], **kw)
+    assert beam_select.CAND_TABLE.launches == n0 + (n_buf + w + 2 > beam_select.SERIAL_MAX)
+    _same(got, beam_select.candidates_plain(*args[:9], **kw))
+
+
+FAULT_SIZES = {  # the sizes the card refused before F1 and F2
+    "sample_ties_top_m_3000": dict(sample=True, seed=3, exact_ties=True, top_m=3000),
+    "sample_top_m_10000": dict(sample=True, seed=3, top_m=10000),
+    "speculative_top_m_20000": dict(speculative=True, top_m=20000),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(FAULT_SIZES))
+def test_fault_sizes_generate_on_card_match_cpu(cuda, mode):
+    """F1 and F2 at beam 15 on BART's vocab: a tiny BART with a
+    corpus-unigram bias over a Zipf corpus generates on the card, through
+    the merge's device-memory route or the selection's table route, with
+    hypotheses equal to the port's CPU path (token lists, scores within
+    1e-4)."""
+    from seal_tpu_torch.bench_generate import _unigram_bias
+
+    V = 50265
+    cfg = bart_tiny(vocab_size=V)
+    params = bart.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    toks = (rng.zipf(1.3, size=100000) % (V - 4) + 4).astype(np.int64)
+    params["final_logits_bias"] = params["final_logits_bias"] + torch.as_tensor(
+        _unigram_bias(toks, V), dtype=torch.float32)
+    host = FMIndex()
+    host.initialize([d.tolist() + [2] for d in np.array_split(toks, 300)])
+    queries = [[0] + rng.integers(4, 400, size=6).tolist() + [2] for _ in range(2)]
+    kw = dict(num_beams=15, max_length=5, min_length=1, **FAULT_SIZES[mode])
+    cpu = tg.fm_index_generate(cfg, params, TorchFMIndex.from_host(host, vocab=V, device="cpu"),
+                               queries, **kw)
+    m0, t0 = beam_select.MERGE_TABLE.launches, beam_select.ROUTES["table"].launches
+    gpu = tg.fm_index_generate(cfg, _to(params, cuda),
+                               TorchFMIndex.from_host(host, vocab=V, device=cuda), queries, **kw)
+    if mode.startswith("sample"):
+        assert beam_select.MERGE_TABLE.launches > m0
+    else:
+        assert beam_select.ROUTES["table"].launches > t0
+    for a, b in zip(cpu, gpu):
+        ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
+        assert [t for t, _ in ka] == [t for t, _ in kb]
+        np.testing.assert_allclose([s for _, s in kb], [s for _, s in ka], atol=1e-4, rtol=0)
+    assert any(cpu)
+
+
+# ---- kernel 1's cooperative search and step mode
+
+
+_LONG = {}
+
+
+def _long_block_host():
+    """A corpus whose symbol 7 fills more than 2^20 rows: a search over its
+    whole block (dir_shift 31 pins no head block) is longer than any of the
+    bench's.  Built once a session."""
+    if "host" in _LONG:
+        return _LONG["host"]
+    rng = np.random.default_rng(9)
+    toks = np.where(rng.random(1_200_000) < 0.9, 7, rng.integers(4, 30, size=1_200_000))
+    host = FMIndex()
+    host.initialize([d.tolist() + [2] for d in np.array_split(toks, 40)])
+    _LONG["host"] = host
+    return host
+
+
+@pytest.mark.parametrize("group", fm_search.GROUPS)
+@pytest.mark.parametrize("corpus,dir_shift", [("zipf", 6), ("zipf", 31), ("long", 31),
+                                              ("long", 12)])
+def test_fm_search_groups_and_advance_match_plain(cuda, corpus, dir_shift, group):
+    """Kernel 1's cooperative search at each group size, at dir_shift values
+    that pin a head symbol's block (6, 12) and that do not (31), and over a
+    symbol block past 2^20 rows: ``contains`` at the path's [32, 15, 65],
+    ``backward_step`` at [32, 15] and the step mode at step 0 and later
+    (finished parents, EOS and PAD, out-of-range tokens) equal their plain
+    versions exactly."""
+    host = _zipf_host() if corpus == "zipf" else _long_block_host()
+    V = 40
+    t = TorchFMIndex.from_host(host, vocab=V, dir_shift=dir_shift, device=cuda)
+    if corpus == "long":
+        blo, bhi = (int(x) for x in t.sym_dir[7 + 1, :2])
+        assert bhi - blo > 1 << 20
+    rng = np.random.default_rng(group + dir_shift)
+    B, K = 32, 15
+    lo, hi = _ranges(host, rng, n=B * K)
+    lo, hi = lo.reshape(B, K), hi.reshape(B, K)
+    toks = torch.as_tensor(rng.integers(-2, V + 3, size=(B, K, 65)).astype(np.int32)).cuda()
+    toks[..., :20] = 7
+    n0 = fm_search.fm_search.launches
+    got = fm_search.fm_search(t, "contains", toks, lo, hi, group=group)
+    assert fm_search.fm_search.launches == n0 + 1
+    assert torch.equal(got, fm_search.contains_plain(t, toks, lo, hi))
+    step = toks[..., 0].contiguous()
+    got = fm_search.fm_search(t, "backward_step", step, lo, hi, group=group)
+    _same(got, fm_search.backward_step_plain(t, step, lo, hi))
+    sel_tok = toks[..., 1].contiguous()
+    sel_tok[0, :2] = torch.tensor([2, 1])  # EOS, PAD
+    finished = torch.as_tensor(rng.random((B, K)) < 0.25).cuda()
+    for sel_par, fin in ((torch.zeros((B, K), dtype=torch.int32, device=cuda), None),
+                         (torch.as_tensor(rng.integers(0, K, size=(B, K)).astype(np.int32)).cuda(),
+                          finished)):
+        a0 = fm_search.ADVANCE.launches
+        got = fm_search.fm_advance(t, sel_tok, sel_par, lo, hi, fin, eos=2, pad=1, group=group)
+        assert fm_search.ADVANCE.launches == a0 + 1
+        _same(got, fm_search.advance_plain(t, sel_tok, sel_par, lo, hi, fin, eos=2, pad=1))
+
+
+def test_fm_search_group_limits(cuda):
+    t = TorchFMIndex.from_host(_zipf_host(), vocab=40, device=cuda)
+    lo, hi = t.full_range((4,))
+    with pytest.raises(ValueError):
+        fm_search.fm_search(t, "contains", torch.zeros((4, 3), dtype=torch.int32, device=cuda),
+                            lo, hi, group=3)
