@@ -142,16 +142,28 @@
    before F1 and F2 (sampling at top_m 3000 under ``exact_ties`` and
    10000, speculative at 20000), every key grounded, each through its
    route.
+14. Kernel 2's window + slab mode (a step's window and proposal round 0's
+   slab in one launch, where a beam needs the round), its slab mode (a straggler round's, the bounds
+   computed in the kernel) and the same modes over the shards, and kernel
+   12's step mode (the range update after a selection on the compact and
+   hybrid layouts), each against its plain version at the path's shapes,
+   exactly, and timed eager and graph-replayed beside the separate calls
+   the decode step made before them.
 
 Each path's launch counts come from that path's own run (every count set
 to 0 just before it, read just after); on every decoding path kernels 9
 and 10 (BART's mode, or the relative-bias mode on the T5 paths) must launch
 once per decoder layer and decode step, kernels 8 (select) and 11 once per
-decode step, and kernel 1's step mode once per selecting step where the
-decode runs over the Psi index with the constraint on; the main path
-selects on kernel 8's warp route.  Prints one JSON object with the
-kernel table on the line before the last, and ``{"ok": true, "device":
-{...}}`` as the last line.  Imports no jax.
+decode step, kernel 1's step mode once per selecting step where the
+decode runs over the Psi index with the constraint on, kernel 12's once
+per selecting step on the compact and hybrid layouts, and kernel 2 (or its
+shard mode) once per selecting step after step 0 where the step takes a
+window and proposals on the Psi index (or the shards): its window + slab
+mode where a beam needs a proposal round, its window mode where none does,
+besides the straggler rounds' slab mode; the main path selects on kernel
+8's warp route.
+Prints one JSON object with the kernel table on the line before the last,
+and ``{"ok": true, "device": {...}}`` as the last line.  Imports no jax.
 """
 
 from __future__ import annotations
@@ -210,6 +222,11 @@ REPLACES = {
     "beam_select_warp": "seal_tpu/decoding/constrained.py:1046",
     "beam_select_table": "seal_tpu/decoding/constrained.py:343",
     "beam_merge_table": "seal_tpu/decoding/constrained.py:612",
+    "window_slab": "seal_tpu/decoding/constrained.py:622",
+    "slab_gather": "seal_tpu/decoding/constrained.py:622",
+    "window_slab_sharded": "seal_tpu/parallel/sharded_decode.py:100",
+    "slab_gather_sharded": "seal_tpu/parallel/sharded_decode.py:100",
+    "wt_search_advance": "seal_tpu/decoding/constrained.py:1416",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -254,6 +271,11 @@ SOURCES = {
     "beam_select_warp": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "beam_select_table": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "beam_merge_table": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
+    "window_slab": ("cuda", "seal_tpu_torch/kernels/csrc/window_gather.cu"),
+    "slab_gather": ("cuda", "seal_tpu_torch/kernels/csrc/window_gather.cu"),
+    "window_slab_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/window_gather.cu"),
+    "slab_gather_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/window_gather.cu"),
+    "wt_search_advance": ("cuda", "seal_tpu_torch/kernels/csrc/wt_search.cu"),
 }
 # the kernels each driven path must launch (bucket_counts and the loop
 # rounds' merges run only in the proven loop, which the force_full re-runs
@@ -261,13 +283,15 @@ SOURCES = {
 DECODE_STEP = ("beam_merge", "beam_select", "cross_attention_step", "self_attention_step",
                "reorder_cache")
 PATH_KERNELS = {
-    # the bench point selects on kernel 8's warp route, and kernel 1's step
-    # mode advances the ranges once a step
+    # the bench point selects on kernel 8's warp route, kernel 1's step mode
+    # advances the ranges once a step, kernel 2's window + slab mode gathers
+    # a step's window and round 0's slab (its slab mode a straggler round's)
     "generate": ("fm_search", "window_gather", "row_topk", "log_softmax_min_len",
-                 "fm_search_advance", "beam_select_warp") + DECODE_STEP,
-    "generate_force_full": ("bucket_counts", "beam_merge"),
+                 "fm_search_advance", "beam_select_warp", "window_slab") + DECODE_STEP,
+    "generate_force_full": ("bucket_counts", "beam_merge", "slab_gather"),
     "batch_search": ("fm_search", "window_gather", "row_topk", "log_softmax_min_len",
-                     "fm_sequences", "rescore_logprob", "fm_search_advance") + DECODE_STEP,
+                     "fm_sequences", "rescore_logprob", "fm_search_advance",
+                     "window_slab") + DECODE_STEP,
     "unigram": ("log_softmax_min_len",),
     "grounding_unit": ("fm_sequences",),
 }
@@ -277,13 +301,14 @@ PATH_KERNELS = {
 WAVELET_LAYOUTS = ("compact", "hybrid")
 PSI_INDEX_KERNELS = ("fm_search", "window_gather", "fm_sequences", "bucket_counts",
                      "fm_dense_counts")
-for _layout in WAVELET_LAYOUTS:
+for _layout in WAVELET_LAYOUTS:  # kernel 12's step mode advances the ranges
     PATH_KERNELS[f"generate_{_layout}"] = (
-        "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len") + DECODE_STEP
+        "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len",
+        "wt_search_advance") + DECODE_STEP
     PATH_KERNELS[f"generate_{_layout}_force_full"] = ("wt_bucket_counts", "beam_merge")
     PATH_KERNELS[f"batch_search_{_layout}"] = (
         "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len",
-        "rescore_logprob") + DECODE_STEP
+        "rescore_logprob", "wt_search_advance") + DECODE_STEP
 # the dense parity mode (exact_mask): each step's count vector (kernel 15,
 # or 16 on the wavelet layouts), the candidate pass (17), the flat top-2K
 # (3) and kernel 8's epilogue; no proposal merge.  The tie order
@@ -353,7 +378,7 @@ PATH_KERNELS["generate_t5"] = ("fm_search", "window_gather", "row_topk",
 # (kernel 9 in f32 runs on its ffma route; the bf16 batch takes the mma route)
 PATH_KERNELS["generate_t5_bf16"] = tuple(k for k in PATH_KERNELS["generate_t5"]
                                          if k != "cross_attention_step_f32")
-PATH_KERNELS["generate_t5_force_full"] = ("bucket_counts", "beam_merge")
+PATH_KERNELS["generate_t5_force_full"] = ("bucket_counts", "beam_merge", "slab_gather")
 PATH_KERNELS["generate_t5_dense"] = (
     "fm_dense_counts", "fm_search", "dense_scores", "row_topk", "log_softmax_min_len",
     "beam_select", "cross_attention_step", "self_attention_step_t5", "reorder_cache")
@@ -369,7 +394,7 @@ PATH_KERNELS["batch_search_t5"] = ("fm_search", "window_gather", "row_topk",
 # its bucket counts are held only where one shard repeats the monolithic
 # run; the generate_mono* paths are those monolithic runs
 SHARDED_STEP = ("fm_search_sharded", "window_gather_sharded", "row_topk",
-                "log_softmax_min_len") + DECODE_STEP
+                "log_softmax_min_len", "window_slab_sharded") + DECODE_STEP
 SHARDED_DENSE = ("fm_dense_counts_sharded", "fm_search_sharded") + DENSE_STEP
 for _path in ("generate_sharded", "generate_sharded_once", "generate_sharded_s1"):
     PATH_KERNELS[_path] = SHARDED_STEP
@@ -378,7 +403,8 @@ for _path in ("generate_sharded_dense", "generate_sharded_s1_dense",
     PATH_KERNELS[_path] = SHARDED_DENSE
 PATH_KERNELS["generate_sharded_force_full"] = ("beam_merge",)
 PATH_KERNELS["generate_sharded_beam32_force_full"] = ("beam_merge",)
-PATH_KERNELS["generate_sharded_s1_force_full"] = ("bucket_counts_sharded", "beam_merge")
+PATH_KERNELS["generate_sharded_s1_force_full"] = ("bucket_counts_sharded", "beam_merge",
+                                                   "slab_gather_sharded")
 PATH_KERNELS["generate_sharded_beam32"] = SHARDED_STEP + ("beam_select_large",)
 # (a searcher's key lengths leave every shard's interval inside the window
 # after step 1, so no proposal round, and no merge, need run)
@@ -395,14 +421,35 @@ PATH_KERNELS["generate_mono_dense"] = PATH_KERNELS["generate_dense"]
 def psi_constrained(path: str) -> bool:
     """A decode path over the monolithic Psi index with the constraint on:
     kernel 1's step mode advances the ranges once a selecting step (the
-    wavelet layouts and the sharded index compose their own backward step;
-    free generation keeps no ranges)."""
+    wavelet layouts take kernel 12's, the sharded index composes its own
+    backward step; free generation keeps no ranges)."""
     return not any(x in path for x in ("sharded", "compact", "hybrid", "free"))
 
 
+def wavelet_constrained(path: str) -> bool:
+    """A decode path over a wavelet layout: kernel 12's step mode advances
+    the ranges once a selecting step."""
+    return any(x in path for x in WAVELET_LAYOUTS) and "free" not in path
+
+
+def fused_window(path: str):
+    """Kernel 2's counters on a decode path whose selecting steps after
+    step 0 take one launch of it: the window + slab mode where a beam needs
+    a proposal round, the window mode alone where every beam is exempt;
+    (every launch, the window + slab mode, the straggler rounds' slab mode)
+    of the Psi index or of the shards.  None where the step takes no round
+    0 slab (speculative, ``exact_mask``, free generation) or composes kernel
+    13 (the wavelet layouts)."""
+    if any(x in path for x in ("compact", "hybrid", "spec", "dense", "free")):
+        return None
+    if "sharded" in path:
+        return "window_gather_sharded", "window_slab_sharded", "slab_gather_sharded"
+    return "window_gather", "window_slab", "slab_gather"
+
+
 # the calls of each ShardedIndexOps method that a shard mode serves
-SHARD_OPS = ("extend", "contains", "validate", "window_gather", "range_for", "bucket_counts",
-             "dense_counts")
+SHARD_OPS = ("extend", "contains", "validate", "window_gather", "window_slab", "slab",
+             "range_for", "bucket_counts", "dense_counts")
 # the selection kernel of each path whose selection is not kernel 8's
 SELECTS = {path: ("sample_select" if "sample" in path else "diverse_select")
            for path in PATH_KERNELS if "sample" in path or "diverse" in path}
@@ -648,10 +695,13 @@ def kernel_phases(np, torch, host, index, V, B, K):
     table.append(dict(
         name="window_gather", max_abs_err=err2,
         ms=time_ms(lambda: k2.window_gather(index, lo, hi, 32, lp, 1)),
+        graph_ms=graph_ms(lambda: k2.window_gather(index, lo, hi, 32, lp, 1)),
         plain_ms=time_ms(lambda: k2.window_gather_plain(index, lo, hi, 32, lp, 1)),
         shape=f"[{B * K}, w=32] over lp [{B * K},{V}]", library_ms=None,
-        bytes=B * K * (8 + 32 * (4 + 4) + 32 * 9),
+        bytes=window_bytes(torch, lo, hi, 32, 0, 0,
+                           k2.window_gather_plain(index, lo, hi, 32, lp, 1)[:1]),
     ))
+    table += window_slab_rows(torch, k2, index, lo, hi, lp, "", B, K, V)
 
     # kernel 3: every top-k of the path; values rounded so ties abound
     lpq = torch.round(lp * 8) / 8
@@ -694,6 +744,89 @@ def kernel_phases(np, torch, host, index, V, B, K):
     ))
     torch.cuda.synchronize()
     return table
+
+
+def window_bytes(torch, lo, hi, w: int, width: int, rows_prev: int, toks) -> int:
+    """Bytes kernel 2 must move for ranges lo/hi (a leading shard axis
+    included): each range's bounds; each distinct BWT row its window and
+    slab read (a row both read counts once); each distinct lp element, a
+    (range, token) pair among the output tokens ``toks`` (the window's and
+    the slab's, [..., slots]: a fill token is one address a range, a token
+    two slots hold is read once); and 9 output bytes a slot."""
+    l, h = lo.reshape(-1).long(), hi.reshape(-1).long()
+    q = torch.arange(l.numel(), device=l.device)[:, None]
+    span = int(h.max()) + 1
+    keys = []
+    if w:
+        stride = ((h - l).clamp(min=0) // w).clamp(min=1)[:, None]
+        r = l[:, None] + torch.arange(w, device=l.device) * stride
+        keys.append((q * span + r)[r < h[:, None]])
+    if width:
+        s_lo = torch.minimum(l + rows_prev, h)[:, None]
+        r = s_lo + torch.arange(width, device=l.device)
+        keys.append((q * span + r)[r < torch.minimum(s_lo + width, h[:, None])])
+    rows = int(torch.unique(torch.cat(keys)).numel())
+    vocab = max(int(t.max()) for t in toks) + 1
+    n_lp = int(torch.unique(torch.cat([
+        (torch.arange(t[..., 0].numel(), device=t.device)[:, None] * vocab
+         + t.reshape(t[..., 0].numel(), -1).long()).reshape(-1) for t in toks])).numel())
+    return l.numel() * (8 + (w + width) * 9) + 4 * rows + 4 * n_lp
+
+
+def window_slab_rows(torch, k2, ix, lo, hi, lp, shard: str, B, K, V):
+    """Kernel 2's window + slab mode (w 32, round 0's width 64; and beam
+    32's window of 128) and slab mode (a straggler round: rows 64 to 320)
+    against their plain versions, exactly, each timed eager and
+    graph-replayed beside the separate calls it replaced (the window, the
+    bounds' eager ops, the slab).  ``shard``: "" for one index, "_sharded"
+    for the shard mode over ``ix``, a ``ShardedTorchIndex``."""
+    fused = getattr(k2, f"window_slab{shard}")
+    slab = getattr(k2, f"slab_gather{shard}")
+    window = getattr(k2, f"window_gather{shard}")
+    err = 0
+    for w, width in ((32, 64), (128, 64), (4, 8)):
+        got = fused(ix, lo, hi, w, width, lp, 1)
+        want = getattr(k2, f"window_slab{shard}_plain")(ix, lo, hi, w, width, lp, 1)
+        err += sum(int((a != b).sum()) for a, b in zip(got, want)) + (len(got) != 6)
+    for rows_prev, width in ((64, 256), (0, 64), (320, 1024)):
+        got = slab(ix, lo, hi, rows_prev, width, lp)
+        want = getattr(k2, f"slab_gather{shard}_plain")(ix, lo, hi, rows_prev, width, lp)
+        err += sum(int((a != b).sum()) for a, b in zip(got, want))
+    if err:
+        fail(f"window_slab{shard} / slab_gather{shard} differ from their plain versions "
+             f"({err} elements)")
+
+    def two_calls():  # the step's two gathers as constrained.py made them before
+        window(ix, lo, hi, 32, lp, 1)
+        s_lo = torch.minimum(lo + 0, hi)
+        return window(ix, s_lo, torch.minimum(s_lo + 64, hi), 64, lp, 0)
+
+    def straggler_calls():
+        s_lo = torch.minimum(lo + 64, hi)
+        return window(ix, s_lo, torch.minimum(s_lo + 256, hi), 256, lp, 0)
+
+    step = lambda: fused(ix, lo, hi, 32, 64, lp, 1)  # noqa: E731
+    round_ = lambda: slab(ix, lo, hi, 64, 256, lp)  # noqa: E731
+    where = f"[{B},{K}] ranges{' x ' + str(ix.n_shards) + ' shards' if shard else ''}"
+    return [dict(
+        name=f"window_slab{shard}", max_abs_err=err, library_ms=None,
+        ms=time_ms(step), graph_ms=graph_ms(step),
+        plain_ms=time_ms(lambda: getattr(k2, f"window_slab{shard}_plain")(
+            ix, lo, hi, 32, 64, lp, 1)),
+        composed_ms=time_ms(two_calls), composed_graph_ms=graph_ms(two_calls),
+        shape=f"{where}: window w=32 and round 0's slab width=64 over lp [{B * K},{V}] in one "
+              "launch (composed_ms: the window, the bounds, the slab as separate launches)",
+        bytes=window_bytes(torch, lo, hi, 32, 64, 0, step()[0::3]),
+    ), dict(
+        name=f"slab_gather{shard}", max_abs_err=err, library_ms=None,
+        ms=time_ms(round_), graph_ms=graph_ms(round_),
+        plain_ms=time_ms(lambda: getattr(k2, f"slab_gather{shard}_plain")(
+            ix, lo, hi, 64, 256, lp)),
+        composed_ms=time_ms(straggler_calls), composed_graph_ms=graph_ms(straggler_calls),
+        shape=f"{where}: a straggler round's slab, rows 64 to 320 (composed_ms: the bounds' "
+              "eager ops, then the window mode)",
+        bytes=window_bytes(torch, lo, hi, 0, 256, 64, round_()[:1]),
+    )]
 
 
 def row_topk_sites(torch, k3, lp, lpq, B, K, V, g):
@@ -1303,6 +1436,7 @@ def wavelet_kernel_phases(np, torch, host, psi, layouts, V, B, K):
     table.append(dict(
         name="wt_search", max_abs_err=err12, library_ms=None,
         ms=time_ms(lambda: k12.wt_search(compact, "contains", cand, lo, hi)),
+        graph_ms=graph_ms(lambda: k12.wt_search(compact, "contains", cand, lo, hi)),
         plain_ms=time_ms(lambda: k12.contains_plain(compact, cand, lo, hi)),
         psi_ms=time_ms(lambda: k1.fm_search(psi, "contains", cand, lo, hi)),
         sequences_ms=time_ms(lambda: k12.wt_sequences(compact, seqs, lens)),
@@ -1311,6 +1445,57 @@ def wavelet_kernel_phases(np, torch, host, psi, layouts, V, B, K):
               f"sequences [{n_seq},{L}]; a chain of {digits} dependent levels",
         # tokens, membership out, the range pair, and the index bytes read
         bytes=n_q * (4 + 1) + B * K * 8 + index12, index_bytes=index12,
+    ))
+
+    # kernel 12's step mode: the range update after a selection, at step 0
+    # (no stop rule) and later (finished parents, EOS and PAD selections),
+    # on both layouts, against its plain version and beside the composition
+    # over its backward step that it replaced
+    from seal_tpu_torch.ops import _generic
+
+    sel_tok = ext.clone()
+    sel_tok[0, :2] = torch.tensor([2, 1], device=dev)
+    sel_par = torch.randint(0, K, (B, K), generator=g, device=dev, dtype=torch.int32)
+    fin = torch.rand(B, K, generator=g, device=dev) < 0.2
+    errA = 0
+    for ix in (compact, hybrid):
+        for sp, f in ((torch.zeros_like(sel_par), None), (sel_par, fin)):
+            got = k12.wt_advance(ix, sel_tok, sp, lo, hi, f, eos=2, pad=1)
+            want_a = k12.advance_plain(ix, sel_tok, sp, lo, hi, f, eos=2, pad=1)
+            errA += sum(int((a != b).sum()) for a, b in zip(got, want_a)) + (len(got) != 3)
+    if errA:
+        fail(f"wt_search_advance differs from its plain version ({errA} elements)")
+
+    def adv(ix=compact):
+        return k12.wt_advance(ix, sel_tok, sel_par, lo, hi, fin, eos=2, pad=1)
+
+    def composed():  # the update as the decode step made it before the step mode
+        return _generic.advance_ranges(
+            lambda t, a, b: k12.wt_search(compact, "backward_step", t, a, b), lambda a, b: b - a,
+            sel_tok, sel_par, lo, hi, fin, eos=2, pad=1)
+
+    # the descents this run's selections need: a valid token, no stop
+    sc = sel_tok + 1
+    search = ((sc >= 1) & (sc < compact.sigma) & (sel_tok != 2) & (sel_tok != 1)
+              & ~torch.gather(fin, 1, sel_par.long()))
+    traces = ([], [])
+    for pos, trace in zip((lo, hi), traces):
+        k12.rank_plain(compact, sc[search], torch.gather(pos, 1, sel_par.long())[search],
+                       trace=trace)
+    index_a = touched_bytes(torch, *traces)
+    table.append(dict(
+        name="wt_search_advance", max_abs_err=errA, library_ms=None,
+        ms=time_ms(adv), graph_ms=graph_ms(adv),
+        hybrid_ms=time_ms(lambda: adv(hybrid)),
+        plain_ms=time_ms(lambda: k12.advance_plain(compact, sel_tok, sel_par, lo, hi, fin, eos=2,
+                                                    pad=1)),
+        composed_ms=time_ms(composed), composed_graph_ms=graph_ms(composed),
+        shape=f"[{B},{K}] selections over [{B},{K}] parents, compact (hybrid_ms: the hybrid "
+              "layout; composed_ms: range_size, the gathers, kernel 12's backward step and the "
+              "stop rule as separate launches)",
+        # the parents' ranges and flags, the selections, three outputs, and
+        # the index bytes both bounds' descents read
+        bytes=B * K * (8 + 1 + 8 + 12) + index_a, index_bytes=index_a,
     ))
 
     # kernel 13: the window [B*K rows, w=32, fill pad] and a slab (w=64,
@@ -2396,10 +2581,13 @@ def sharded_kernel_phases(np, torch, si, hosts, V, B, K):
     table.append(dict(
         name="window_gather_sharded", max_abs_err=err2, library_ms=None,
         ms=time_ms(lambda: k2.window_gather_sharded(si, lo, hi, 32, lp, 1)),
+        graph_ms=graph_ms(lambda: k2.window_gather_sharded(si, lo, hi, 32, lp, 1)),
         plain_ms=time_ms(lambda: k2.window_gather_sharded_plain(si, lo, hi, 32, lp, 1)),
         shape=f"[{S},{R}] ranges, {S}x32 union slots over lp [{R},{V}]",
-        bytes=S * R * (8 + 32 * (4 + 4) + 32 * 9),
+        bytes=window_bytes(torch, lo, hi, 32, 0, 0,
+                           k2.window_gather_sharded_plain(si, lo, hi, 32, lp, 1)[:1]),
     ))
+    table += window_slab_rows(torch, k2, si, lo, hi, lp, "_sharded", B, K, V)
 
     # kernel 5: 4096 corpus n-grams of lengths 1-16 (an eighth random ids),
     # per-shard ranges and summed counts
@@ -2850,7 +3038,10 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
         """Each shard mode launched once per op call of its run."""
         want = {"fm_search_sharded": op_calls["extend"] + op_calls["contains"]
                 + op_calls["validate"],
-                "window_gather_sharded": op_calls["window_gather"],
+                "window_gather_sharded": op_calls["window_gather"] + op_calls["window_slab"]
+                + op_calls["slab"],
+                "window_slab_sharded": op_calls["window_slab"],
+                "slab_gather_sharded": op_calls["slab"],
                 "fm_sequences_sharded": op_calls["range_for"],
                 "bucket_counts_sharded": op_calls["bucket_counts"],
                 "fm_dense_counts_sharded": op_calls["dense_counts"]}
@@ -2899,6 +3090,7 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
     one_counts = read_counts("generate_sharded_once")
     once_per_call("generate_sharded_once", one_counts)
     pairs = {"fm_search": "fm_search_sharded", "window_gather": "window_gather_sharded",
+             "window_slab": "window_slab_sharded", "slab_gather": "slab_gather_sharded",
              "bucket_counts": "bucket_counts_sharded", "fm_dense_counts": "fm_dense_counts_sharded",
              "fm_sequences": "fm_sequences_sharded"}
     log("one batch, launches: monolithic kernel / its shard mode at 4 shards: " + ", ".join(
@@ -3145,6 +3337,11 @@ def main() -> int:
         "beam_select_warp": beam_select.ROUTES["warp"],
         "beam_select_table": beam_select.ROUTES["table"],
         "beam_merge_table": beam_select.MERGE_TABLE,
+        "window_slab": window_gather.WINDOW_SLAB,
+        "slab_gather": window_gather.SLAB,
+        "window_slab_sharded": window_gather.WINDOW_SLAB_SHARDED,
+        "slab_gather_sharded": window_gather.SLAB_SHARDED,
+        "wt_search_advance": wt_search.ADVANCE,
     }
     # the calls of the sharded index's ops (each must be one launch)
     op_calls: collections.Counter = collections.Counter()
@@ -3161,7 +3358,7 @@ def main() -> int:
     by_path: dict = {}  # path -> {kernel: launches in that path's run}
     # decode steps each path runs (the beam search calls the family's
     # decode_step through its module, so a counting wrapper sees every step)
-    steps = {"n": 0}
+    steps = {"n": 0, "decodes": 0}
 
     def counting(decode_step):
         def counted_decode_step(*a, **k):
@@ -3172,10 +3369,18 @@ def main() -> int:
     bart.decode_step = counting(bart.decode_step)
     t5.decode_step = counting(t5.decode_step)
 
+    def counting_decodes(search):  # each decode (a host redo included)
+        def counted_search(*a, **k):
+            steps["decodes"] += 1
+            return search(*a, **k)
+        return counted_search
+
+    generate.constrained_beam_search = counting_decodes(generate.constrained_beam_search)
+
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
-        steps["n"] = 0
+        steps["n"] = steps["decodes"] = 0
 
     def read_counts(path, no_select=0, layers=None):
         """The launches of ``path``'s run; ``no_select``: its decode steps
@@ -3202,7 +3407,14 @@ def main() -> int:
                 self_attn, other = other, self_attn
             want = {"cross_attention_step": layers * n, self_attn: layers * n, other: 0,
                     "reorder_cache": n - no_select, select: n - no_select,
-                    "fm_search_advance": n - no_select if psi_constrained(path) else 0}
+                    "fm_search_advance": n - no_select if psi_constrained(path) else 0,
+                    "wt_search_advance": n - no_select if wavelet_constrained(path) else 0}
+            fused = fused_window(path)
+            for name in ("window_slab", "window_slab_sharded"):
+                if not fused or name != fused[1]:
+                    want[name] = 0
+            if fused:  # once a step after step 0, besides the straggler rounds' slabs
+                want[fused[0]] = n - no_select - steps["decodes"] + by_path[path][fused[2]]
             if select != "beam_select":  # kernel 20 or 21 selects, kernel 8 nothing
                 want["beam_select"] = 0
             for name, count in want.items():
@@ -3210,6 +3422,7 @@ def main() -> int:
                     fail(f"{path}: {name} launched {by_path[path][name]} times for {n} decode "
                          f"steps (want {count})")
             by_path[path]["decode_steps"] = n
+            by_path[path]["decodes"] = steps["decodes"]
         if "dense" in path and by_path[path]["beam_merge"]:
             fail(f"{path}: the dense mode launched the proposal merge "
                  f"{by_path[path]['beam_merge']} times")

@@ -1,12 +1,13 @@
-"""Kernel 8's selection and kernel 1's rank search on the card, in this
-checkout and, with ``--parent DIR``, beside another.
+"""Kernel 8's selection and the rank-search and window kernels (1, 2, 12,
+13, 14, 16) on the card, in this checkout and, with ``--parent DIR``,
+beside another.
 
-    python -m seal_tpu_torch.bench_select [--parent DIR]
+    python -m seal_tpu_torch.bench_select [--parent DIR] [--turns parent,this,...]
 
 In each checkout, in a process of its own (parent, this, this, parent with
-``--parent``; else this checkout once), at the generation point
-(``bench_generate.operating_point``: BART-large bf16 over the 1.2M-token
-corpus, batch 32, beam 15):
+``--parent``; else this checkout once; ``--turns`` names another order),
+at the generation point (``bench_generate.operating_point``: BART-large
+bf16 over the 1.2M-token corpus, batch 32, beam 15):
 
 1. Kernel 8's selection (``beam_select``) at [32, 15, 64] with the
    soundness flags, in the ties mode, with ``keep_invalid`` at [32, 15,
@@ -15,15 +16,33 @@ corpus, batch 32, beam 15):
    the same over a symbol block of 1.08M rows at dir_shift 31 (a search
    the head directory does not shorten),
    ``backward_step`` at [32, 15], and the decode step's range update after
-   a selection (kernel 1's step mode here; the parent's composition of
-   ``range_size``, gathers, ``extend`` and the stop rule).  Eager (20 calls
-   back to back, the host's cost included) and graph-replayed (20 calls in
-   one CUDA graph, the device time), ms a call, with CUDA events; beside
-   them the floor: one eager one-element ``zero_()`` and the same kernel
-   graph-replayed.
-2. One profiled batch of the generation point after a warm-up batch: the
-   batch's device ms, wall ms and kernel launches, and the device ms and
-   calls of kernels 1 and 8 (their kernels' names).
+   a selection (kernel 1's step mode, or the composition of
+   ``range_size``, gathers, ``extend`` and the stop rule where a checkout
+   has none).  Kernel 2 at [32, 15]: a step's window (w 32) and round 0's
+   slab (width 64) -- one call of its window + slab mode where the
+   checkout has it, else two calls with ``merge_round``'s bounds, which
+   every checkout also times as "two calls" -- the window alone, and a
+   straggler round's slab (rows 64 to 320).  On the compact and hybrid
+   layouts of the same corpus: kernel 12's ``contains`` [32, 15, 65] and
+   ``backward_step``, the range update through the adapter (kernel 12's
+   step mode, or the composition over its backward step) beside that
+   composition, kernel 13's window, kernel 14's bucket counts and kernel
+   16's count vectors at [32, 15].  Eager (20 calls back to back, the
+   host's cost included) and graph-replayed (20 calls in one CUDA graph,
+   the device time), ms a call, with CUDA events; beside them the floor:
+   one eager one-element ``zero_()`` and the same kernel graph-replayed.
+2. The Psi and the compact layout's batches at the generation point,
+   taken before 1, ahead of any CUDA graph capture in the process, and
+   again after 1's captures (``*_after_graphs``): five batches' wall ms
+   after a warm-up batch, and one profiled batch's device ms, wall ms and
+   kernel launches, with the device ms and calls of each index kernel (1,
+   2, 12-14) and of kernel 8 (their kernels' names).
+3. Where the checkout has the fused step (``constrained._step_window``),
+   before 1 as well: 15 pairs of batches on each of the two layouts,
+   alternated in the process with the step as the parent launched it (two
+   kernel 2 or 13 calls and ``merge_round``'s bounds; the wavelet range
+   update composed over kernel 12's backward step): each side's median
+   and quartile walls and the pairs the fused step won (``alternated``).
 
 Prints the card's name and power limit first, then one JSON line a turn.
 Needs one CUDA device.
@@ -39,7 +58,7 @@ import sys
 # run in a checkout's root: the timings and the profiled batch as one JSON
 # line; only entry points both sides have, or what each side's decode calls
 _TURN = """
-import json, sys
+import json, sys, time
 import numpy as np
 import torch
 sys.path.insert(0, ".")
@@ -76,6 +95,103 @@ def graphed(fn, launches=20, replays=10):
     return a.elapsed_time(b) / (launches * replays)
 
 host, index, cfg, params, ids, mask, kw = bench_generate.operating_point("cuda")
+layouts = {name: bench_generate.build_index(host, name, "cuda") for name in ("compact", "hybrid")}
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+# the index kernels' names (kernels 1 and 12 share theirs: a batch runs one
+# layout) and kernel 8's
+INDEX = ("contains_kernel", "backward_step_kernel", "advance_kernel", "window_", "wt_window",
+         "bucket")
+KERNEL8 = ("select_", "merge_", "candidates_kernel")
+
+def profiled(ix, runs=5):  # runs batches' walls after a warm-up, then one profiled
+    def run():
+        generate.fm_index_generate(cfg, params, ix, ids, mask, **kw)
+        torch.cuda.synchronize()
+    run()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prof = bench_generate.profile_batch(run)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        run(); torch.cuda.synchronize()
+    by = {}
+    for e in p.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.replace("(anonymous namespace)::", "")
+        if any(k in name for k in INDEX) or (
+                any(k in name for k in KERNEL8) and "sample" not in name
+                and "diverse" not in name):
+            key = name.split("(")[0][:80]
+            ms, n = by.get(key, (0.0, 0))
+            by[key] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    def total(names):
+        rows = [v for k, v in by.items() if any(x in k for x in names)]
+        return sum(ms for ms, _ in rows), sum(n for _, n in rows)
+    return {"walls_ms": walls, "median_wall_ms": sorted(walls)[runs // 2],
+            "batch_device_ms": prof["device_busy_ms"], "batch_wall_ms": prof["wall_ms"],
+            "batch_launches": prof["kernels"], "index_device_ms": total(INDEX)[0],
+            "index_calls": total(INDEX)[1], "k8_device_ms": total(KERNEL8)[0],
+            "k8_calls": total(KERNEL8)[1],
+            "by_kernel": {k: {"ms": ms, "calls": n} for k, (ms, n) in by.items()}}
+
+# the batches first, before any CUDA graph is captured in this process
+batches = {"psi_batch": profiled(index), "compact_batch": profiled(layouts["compact"])}
+
+# where the checkout has the fused step, batches alternated in this process
+# with the step as the parent launched it (the window, merge_round's bounds
+# and the slab as separate calls; the wavelet range update composed over
+# kernel 12's backward step): PAIRS pairs a layout, after a warm-up pair
+PAIRS = 15
+if hasattr(tc, "_step_window"):
+    import statistics
+    from seal_tpu_torch.ops import _generic, wt_ops
+
+    new_step, new_adv = tc._step_window, wt_ops.advance_ranges
+
+    def old_step(ops, cfg, lp, lo, hi, prev_count, finished):
+        win = ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id)
+        count_eff = torch.where(finished, 0, prev_count)
+        stop_trig = (count_eff <= cfg.stop_at_count) & (cfg.stop_at_count > 0)
+        exempt = finished | stop_trig | ops.window_exhaustive(lo, hi, cfg.window)
+        if not bool((~exempt).any()):
+            return win, exempt, None
+        chunk = tc._round0_width(cfg, lp.shape[-1])
+        s_lo = torch.minimum(lo + 0, hi)
+        return win, exempt, ops.window_gather(s_lo, torch.minimum(s_lo + chunk, hi), chunk,
+                                              lp, 0)
+
+    def old_adv(wix, sel_tok, sel_par, lo, hi, finished=None, *, eos, pad):
+        return _generic.advance_ranges(lambda t, a, b: wt_ops.backward_step(wix, t, a, b),
+                                       lambda a, b: b - a, sel_tok, sel_par, lo, hi, finished,
+                                       eos=eos, pad=pad)
+
+    def wall(ix):
+        t0 = time.perf_counter()
+        generate.fm_index_generate(cfg, params, ix, ids, mask, **kw)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    alternated = {}
+    for name, ix in (("psi", index), ("compact", layouts["compact"])):
+        res = {"fused": [], "parent_calls": []}
+        for i in range(2 * PAIRS + 2):
+            side = "fused" if i % 2 == 0 else "parent_calls"
+            tc._step_window = new_step if side == "fused" else old_step
+            wt_ops.advance_ranges = new_adv if side == "fused" else old_adv
+            ms = wall(ix)
+            if i >= 2:
+                res[side].append(ms)
+        tc._step_window, wt_ops.advance_ranges = new_step, new_adv
+        alternated[name] = {
+            **{f"{k}_median_ms": statistics.median(v) for k, v in res.items()},
+            **{f"{k}_quartiles_ms": statistics.quantiles(v, n=4) for k, v in res.items()},
+            "fused_wins": sum(a < b for a, b in zip(res["fused"], res["parent_calls"])),
+            "pairs": PAIRS}
+    batches["alternated"] = alternated
 B, K, V = bench_generate.BATCH, bench_generate.BEAM, bench_generate.VOCAB
 dev = torch.device("cuda")
 g = torch.Generator(device=dev).manual_seed(3)
@@ -161,40 +277,57 @@ else:  # the parent's composition (decoding/constrained.py's loop)
         stop = (ext == eos) | (ext == pad) | tc._gather(finished, sel_par)
         return torch.where(stop, 0, elo), torch.where(stop, 0, ehi), prev
 calls["range update [32,15]"] = update
+# kernel 2: a step's window and round 0's slab, the window alone, and a
+# straggler round's slab (rows_prev 64, width 256: the loop's 4 x 64)
+lp = torch.log_softmax(torch.randn(B * K, V, generator=g, device=dev), -1)
+w, width = 32, 64
+
+def two_calls():  # the window, then the slab with merge_round's bounds
+    ops.window_gather(lo, hi, w, lp, pad)
+    s_lo = torch.minimum(lo + 0, hi)
+    return ops.window_gather(s_lo, torch.minimum(s_lo + width, hi), width, lp, 0)
+
+def straggler_calls():
+    s_lo = torch.minimum(lo + 64, hi)
+    return ops.window_gather(s_lo, torch.minimum(s_lo + 256, hi), 256, lp, 0)
+
+fused = hasattr(ops, "window_slab")
+calls["k2 window + slab [32,15] w 32 width 64"] = (
+    (lambda: ops.window_slab(lo, hi, w, width, lp, pad)) if fused else two_calls)
+calls["k2 two calls [32,15] w 32 width 64"] = two_calls
+calls["k2 window [32,15] w 32"] = lambda: ops.window_gather(lo, hi, w, lp, pad)
+calls["k2 straggler slab [32,15] width 256"] = (
+    (lambda: ops.slab(lo, hi, 64, 256, lp)) if fused else straggler_calls)
+# the wavelet layouts of the same corpus (the same row ranges): kernels 12,
+# 13, 14 and 16, and the range update through the adapter beside the
+# composition over kernel 12's backward step
+from seal_tpu_torch.kernels import wt_bucket_counts as k14, wt_search as k12, wt_window as k13
+from seal_tpu_torch.ops import _generic, wt_ops
+for name, wix in layouts.items():
+    wops = tc.SingleIndexOps(wix)
+    calls[f"k12 contains [32,15,65] {name}"] = (
+        lambda wix=wix: k12.wt_search(wix, "contains", cand, lo, hi))
+    calls[f"k12 backward_step [32,15] {name}"] = (
+        lambda wix=wix: k12.wt_search(wix, "backward_step", ext, lo, hi))
+    calls[f"range update [32,15] {name}"] = (
+        lambda wops=wops: wops.advance(ext, sel_par, lo, hi, finished, eos=eos, pad=pad))
+    calls[f"range update composed [32,15] {name}"] = (
+        lambda wix=wix: _generic.advance_ranges(
+            lambda t, a, b: wt_ops.backward_step(wix, t, a, b), lambda a, b: b - a, ext,
+            sel_par, lo, hi, finished, eos=eos, pad=pad))
+    calls[f"k13 window [32,15] w 32 {name}"] = (
+        lambda wix=wix: k13.wt_window_gather(wix, lo, hi, w, lp, pad))
+    calls[f"k14 bucket counts [32,15] {name}"] = (
+        lambda wix=wix: k14.wt_bucket_counts(wix, lo, hi))
+    calls[f"k16 dense counts [32,15] {name}"] = lambda wix=wix: k12.wt_dense_counts(wix, lo, hi)
 one = torch.empty(1, device=dev)
 calls["floor: one-element zero_()"] = lambda: one.zero_()
 out = {name: {"ms": eager(fn), "graph_ms": graphed(fn)} for name, fn in calls.items()}
+# the same batches again after the captures above
+batches["psi_batch_after_graphs"] = profiled(index)
+batches["compact_batch_after_graphs"] = profiled(layouts["compact"])
 
-run = lambda: generate.fm_index_generate(cfg, params, index, ids, mask, **kw)
-run(); torch.cuda.synchronize()
-prof = bench_generate.profile_batch(run)
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
-KERNEL1 = ("contains_kernel", "backward_step_kernel", "advance_kernel")
-KERNEL8 = ("select_", "merge_", "candidates_kernel")
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-    run(); torch.cuda.synchronize()
-by = {}
-for e in p.events():
-    if e.device_type != DeviceType.CUDA:
-        continue
-    name = e.name.replace("(anonymous namespace)::", "")
-    kern = "k1" if any(k in name for k in KERNEL1) else (
-        "k8" if any(k in name for k in KERNEL8) and "sample" not in name
-        and "diverse" not in name else None)
-    if kern:
-        key = name.split("(")[0][:80]
-        ms, n = by.get(key, (0.0, 0))
-        by[key] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-def total(prefix):
-    names = KERNEL1 if prefix == "k1" else KERNEL8
-    rows = [v for k, v in by.items() if any(x in k for x in names)]
-    return sum(ms for ms, _ in rows), sum(n for _, n in rows)
-print(json.dumps({"kernels": out, "batch_device_ms": prof["device_busy_ms"],
-                  "batch_wall_ms": prof["wall_ms"], "batch_launches": prof["kernels"],
-                  "k1_device_ms": total("k1")[0], "k1_calls": total("k1")[1],
-                  "k8_device_ms": total("k8")[0], "k8_calls": total("k8")[1],
-                  "by_kernel": {k: {"ms": ms, "calls": n} for k, (ms, n) in by.items()}}))
+print(json.dumps({"kernels": out, **batches}))
 """
 
 
@@ -208,11 +341,15 @@ def main() -> int:
                          capture_output=True, text=True)
     print(smi.stdout.strip() or "unknown card", flush=True)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    turns = [("this", here)]
+    roots = {"this": here}
+    order = ["this"]
     if "--parent" in sys.argv:
-        parent = os.path.abspath(sys.argv[sys.argv.index("--parent") + 1])
-        turns = [("parent", parent), ("this", here), ("this", here), ("parent", parent)]
-    for name, root in turns:
+        roots["parent"] = os.path.abspath(sys.argv[sys.argv.index("--parent") + 1])
+        order = ["parent", "this", "this", "parent"]
+    if "--turns" in sys.argv:
+        order = sys.argv[sys.argv.index("--turns") + 1].split(",")
+    for name in order:
+        root = roots[name]
         proc = subprocess.run([sys.executable, "-c", _TURN], cwd=root, capture_output=True,
                               text=True)
         if proc.returncode != 0:

@@ -124,12 +124,22 @@ class SingleIndexOps:
     def window_gather(self, lo, hi, w, lp, fill):
         return self._ops.window_gather(self.index, lo, hi, w, lp, fill)
 
+    def window_slab(self, lo, hi, w, width, lp, fill):
+        """The step's window (fill ``fill``) and proposal round 0's slab of
+        ``width`` rows (fill 0): one launch of kernel 2 on the Psi layout,
+        two of kernel 13 on the wavelet layouts."""
+        return self._ops.window_slab(self.index, lo, hi, w, width, lp, fill)
+
+    def slab(self, lo, hi, rows_prev, width, lp):
+        """A straggler round's slab, rows [lo + rows_prev, + width) cut at
+        hi (fill 0): kernel 2's slab mode, or the bounds and kernel 13."""
+        return self._ops.slab_gather(self.index, lo, hi, rows_prev, width, lp)
+
     def advance(self, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int):
         """The range update after a selection (:1416-1430; step 0, with
         ``finished`` None, :1344-1349): (lo, hi, prev_count) [B, K].  One
-        launch of kernel 1's step mode on the Psi layout; the wavelet
-        layouts compose kernel 12's backward step
-        (``ops/_generic.py:advance_ranges``)."""
+        launch of kernel 1's step mode on the Psi layout, of kernel 12's on
+        the wavelet layouts."""
         return self._ops.advance_ranges(self.index, sel_tok, sel_par, lo, hi, finished, eos=eos,
                                         pad=pad)
 
@@ -266,14 +276,38 @@ def _gather(x, idx):
     return torch.gather(x, -1, idx.expand(*x.shape[: x.dim() - idx.dim()], *idx.shape))
 
 
+def _round0_width(cfg: DecodeConfig, V: int) -> int:
+    """Proposal round 0's width: the LM tokens it validates and the rows of
+    the interval it enumerates (``constrained.py:578``)."""
+    return min(V, max(cfg.exact_chunk, 2 * cfg.n_buf))
+
+
+def _step_window(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished):
+    """A step's window slots and, where a beam needs a proposal round,
+    round 0's slab, from one call of kernel 2 (or, on the wavelet layouts,
+    kernel 13): ((tok, valid, lp) [B, K, w], exempt [B, K], the slab's
+    (tok, valid, lp) [B, K, chunk] or None).  A beam is exempt when it has
+    finished, ``stop_at_count`` stops it, or the window enumerates its whole
+    interval (LM proposals could only duplicate the window); the slab is
+    read only where some beam is not (one host sync)."""
+    count_eff = torch.where(finished, 0, prev_count)
+    stop_trig = (count_eff <= cfg.stop_at_count) & (cfg.stop_at_count > 0)
+    exempt = finished | stop_trig | ops.window_exhaustive(lo, hi, cfg.window)
+    if not bool((~exempt).any()):
+        return ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id), exempt, None
+    out = ops.window_slab(lo, hi, cfg.window, _round0_width(cfg, lp.shape[-1]), lp,
+                          cfg.pad_token_id)
+    return out[:3], exempt, out[3:]
+
+
 def _exact_proposals(
-    ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, eos_tok,
-    round0_only: bool = False,
+    ops, cfg: DecodeConfig, lp, lo, hi, eos_tok, exempt, slab0, round0_only: bool = False,
 ):
     """Per beam, the ``cfg.n_buf`` best *allowed* tokens by LM log-prob.
 
     Round 0 validates the exact top-``chunk`` LM tokens and enumerates a
-    ``chunk``-row slab of the interval; later rounds (the full loop only)
+    ``chunk``-row slab of the interval (``slab0``, from ``_step_window``;
+    None when every beam is ``exempt``); later rounds (the full loop only)
     sweep wider chunks past the consumed (lp, token) threshold under
     bucket-support pruning until every beam is complete, covered, dead or
     exempt.  Each round's merge is kernel 8 (``beam_merge``).  Returns the
@@ -284,24 +318,17 @@ def _exact_proposals(
     candidates in the selection (``beam_select``).  ``lp`` is FLAT [B*K, V].
     See the JAX function for the proofs.
     """
-    B, K = prev_count.shape  # lo/hi may carry a leading shard axis
+    B, K = exempt.shape  # lo/hi may carry a leading shard axis
     V = lp.shape[-1]
     dev = lo.device
     n_buf = cfg.n_buf
-    chunk = min(V, max(cfg.exact_chunk, 2 * n_buf))
+    chunk = _round0_width(cfg, V)
     chunk_l = min(V, max(cfg.exact_loop_chunk or 4 * chunk, chunk))
-
-    count_eff = torch.where(finished, 0, prev_count)
-    stop_trig = (count_eff <= cfg.stop_at_count) & (cfg.stop_at_count > 0)
-    exempt = finished | stop_trig | ops.window_exhaustive(lo, hi, cfg.window)
     v_idx = torch.arange(V, dtype=torch.int32, device=dev)
 
-    def merge_round(buf, top_tok, top_lp, top_ok, rows_prev, width):
-        # the interval's own BWT rows [lo + rows_prev, +width): allowed by
-        # construction
-        s_lo = torch.minimum(lo + rows_prev, hi)
-        s_hi = torch.minimum(s_lo + width, hi)
-        slab_tok, slab_ok, slab_lp = ops.window_gather(s_lo, s_hi, width, lp, 0)
+    def merge_round(buf, top_tok, top_lp, top_ok, slab):
+        # with the interval's own BWT rows, allowed by construction
+        slab_tok, slab_ok, slab_lp = slab
         return beam_merge(buf, top_tok, top_lp, top_ok, slab_tok, slab_lp, slab_ok, V, n_buf,
                           ties=cfg.exact_ties)
 
@@ -310,7 +337,7 @@ def _exact_proposals(
         top_tok0 = top_tok0.reshape(B, K, chunk).to(torch.int32)
         top_lp0 = top_lp0.reshape(B, K, chunk)
         ok0 = ops.contains(torch.cat([top_tok0, eos_tok], -1), lo, hi)
-        buf = merge_round(None, top_tok0, top_lp0, ok0[..., :chunk], 0, chunk)
+        buf = merge_round(None, top_tok0, top_lp0, ok0[..., :chunk], slab0)
         th_lp = top_lp0[..., -1]
         th_ix = top_tok0[..., -1]
         dead = top_lp0[..., 0] <= NEG_INF / 2  # proposal space exhausted
@@ -324,7 +351,7 @@ def _exact_proposals(
 
     # every beam exempt: the window slots enumerate each live interval
     # exactly, so LM proposals could only duplicate them
-    any_live = bool((~exempt).any())
+    any_live = slab0 is not None
     if round0_only:
         if any_live:
             buf, th_lp, _, dead, covered, eos_ok = round0()
@@ -354,7 +381,8 @@ def _exact_proposals(
         top_tok = top_tok.reshape(B, K, chunk_l).to(torch.int32)
         top_lp = top_lp.reshape(B, K, chunk_l)
         rows_prev = chunk + (it - 1) * chunk_l  # slab rows already enumerated
-        buf = merge_round(buf, top_tok, top_lp, ops.contains(top_tok, lo, hi), rows_prev, chunk_l)
+        buf = merge_round(buf, top_tok, top_lp, ops.contains(top_tok, lo, hi),
+                          ops.slab(lo, hi, rows_prev, chunk_l, lp))
         th_lp = top_lp[..., -1]
         th_ix = top_tok[..., -1]
         dead = top_lp[..., 0] <= NEG_INF / 2
@@ -372,10 +400,12 @@ def _fast_exact_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished,
     the round-0 set was sufficient.  Returns ``(result8, unsound)`` with
     ``unsound`` a bool scalar tensor; ``force_full`` runs the proven loop.
     The candidate build, branches, dedup, selection and the test are
-    kernel 8 (``beam_select``); the window slots are kernel 2.
+    kernel 8 (``beam_select``); the window slots and round 0's slab are one
+    call of kernel 2 (``_step_window``).
     """
     B = prev_count.shape[0]
-    win_tok, win_valid, win_lp = ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id)
+    (win_tok, win_valid, win_lp), exempt, slab0 = _step_window(ops, cfg, lp, lo, hi, prev_count,
+                                                               finished)
     eos_tok = torch.full((B, K, 1), cfg.eos_token_id, dtype=torch.int32, device=lo.device)
     n_buf = 2 * cfg.num_beams
 
@@ -388,10 +418,10 @@ def _fast_exact_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished,
         )
 
     if force_full:
-        out, _ = select(*_exact_proposals(ops, cfg, lp, lo, hi, prev_count, finished, eos_tok))
+        out, _ = select(*_exact_proposals(ops, cfg, lp, lo, hi, eos_tok, exempt, slab0))
         return out[:8], torch.zeros((), dtype=torch.bool, device=lo.device)
     out, unsound = select(*_exact_proposals(
-        ops, cfg, lp, lo, hi, prev_count, finished, eos_tok, round0_only=True
+        ops, cfg, lp, lo, hi, eos_tok, exempt, slab0, round0_only=True
     ))
     return out[:8], unsound.any()
 
@@ -508,14 +538,16 @@ def _general_candidates(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished
         zero = torch.zeros((B, K), dtype=torch.float32, device=lp.device)
         cons = _dense_scores(ops, cfg, lp, lo, hi, prev_count, finished, zero)
         return None, cons.reshape(B, K, V), lp.reshape(B, K, V)
-    win_tok, win_valid, win_lp = ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id)
     eos_tok = torch.full((B, K, 1), cfg.eos_token_id, dtype=torch.int32, device=lo.device)
     if cfg.speculative:
+        win_tok, win_valid, win_lp = ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id)
         n_buf = cfg.top_m
         buf, eos_ok = _speculative_round(ops, cfg, lp, lo, hi, eos_tok)
     else:
+        (win_tok, win_valid, win_lp), exempt, slab0 = _step_window(ops, cfg, lp, lo, hi,
+                                                                   prev_count, finished)
         n_buf = cfg.n_buf
-        buf, eos_ok = _exact_proposals(ops, cfg, lp, lo, hi, prev_count, finished, eos_tok)
+        buf, eos_ok = _exact_proposals(ops, cfg, lp, lo, hi, eos_tok, exempt, slab0)
     return beam_candidates(buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count,
                            finished, eos=cfg.eos_token_id, pad=cfg.pad_token_id,
                            stop_at_count=cfg.stop_at_count, always_allow_eos=cfg.always_allow_eos,

@@ -75,11 +75,11 @@ SIGNATURES = {
     "seal_fm_sequences_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I, _P],
     # bwt, lo, hi, out, n, vocab, hist_max, stream
     "seal_fm_dense_counts_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
-    # bwt, lp, lp_stride, lo, hi, n, w, vocab, fill, tok, valid, lp_out, stream
-    "seal_window_gather": [_P, _P, _L, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
-    # bwt, n_max, n_shards, lp, lp_stride, lo, hi, n, w, vocab, fill, tok,
-    # valid, lp_out, stream
-    "seal_window_gather_sharded": [_P, _L, _I, _P, _L, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
+    # bwt, n_max (a shard's row stride; 0 for one index), n_shards, lp,
+    # lp_stride, lo, hi, n (ranges a shard), w (0: no window), width (0: no
+    # slab), rows_prev, vocab, fill_win, the window's tok, valid, lp, the
+    # slab's tok, valid, lp (None where skipped), stream
+    "seal_window_slab": [_P, _L, _I, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I] + [_P] * 7,
     # x, n_rows, width, k, threads, splits, slice, staged, cap, n2, region,
     # smem (kernels/row_topk.py:plan), scratch (None: the shared sort), vals,
     # idx, stream
@@ -131,6 +131,10 @@ SIGNATURES = {
     "seal_wt_backward_step": _WT + [_P, _P, _P, _P, _P, _L, _P],
     # the wavelet index, tokens, lo, hi, out, n_ranges, m, stream
     "seal_wt_contains": _WT + [_P, _P, _P, _P, _L, _I, _P],
+    # the wavelet index, lo, hi, P (parents a query), sel_par, sel_tok,
+    # finished (None: step 0), eos, pad, out_lo, out_hi, out_count, n
+    # (selections), n_sel (a query's), stream
+    "seal_wt_advance": _WT + [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _L, _I, _P],
     # the wavelet index, tokens, lengths, out_lo, out_hi, n, L, stream
     "seal_wt_sequences": _WT + [_P, _P, _P, _P, _L, _I, _P],
     # the wavelet index, bwt (None: descent), bwt_bytes, lp, lp_stride, lo,

@@ -21,6 +21,8 @@
 // range), so the result equals the plain token sweep exactly.  Bound on the
 // card: the [ranges, vocab] int32 output (96 MB a decode step at the
 // generation point) and, on the rank route, chains of dependent index reads.
+// The histogram route wants resident blocks: a layout names the blocks of
+// 512 an SM must hold (``MIN_BLOCKS``), which caps the registers a thread.
 
 #pragma once
 
@@ -33,7 +35,7 @@ constexpr int THREADS = 512;
 constexpr int SLICE = 8192;  // tokens a block counts: a 32 KB shared histogram
 
 template <typename Layout>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, Layout::MIN_BLOCKS)
 dense_counts_kernel(Layout ix, const int* __restrict__ lo, const int* __restrict__ hi,
                     int* __restrict__ out, int vocab, int hist_max) {
   __shared__ int hist[SLICE];

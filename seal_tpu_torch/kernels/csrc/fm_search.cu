@@ -263,6 +263,7 @@ sequences_kernel(const int* __restrict__ psi, const int* __restrict__ sym_dir,
 // The histogram route reads the Psi index's int32 BWT; the rank route is
 // kernel 1's search at both bounds.
 struct PsiDense {
+  static constexpr int MIN_BLOCKS = 1;  // no cap
   const int* psi;
   const int* sym_dir;
   const int* head_pair;

@@ -75,18 +75,54 @@ __device__ __forceinline__ int rank_in_block(const uint32_t* blk, int x, int d) 
   return cnt;
 }
 
-// Occ(c, pos) for a shifted symbol c in [0, sigma): `digits` dependent levels
+// Occ(c, pos) for a shifted symbol c in [0, sigma) over the index's L =
+// digits levels.  A level's node and digit follow from the symbol alone, so
+// every level's node start and start rank are loaded first, all
+// independent; then the L block reads chain through the position: one
+// round of table loads and L block rounds, where a level at a time took L x
+// (table -> block).  L is a template argument so the loads unroll: each
+// kernel that ranks is instantiated for every digit count and picked on the
+// host (with_digits below).
+template <int L>
 __device__ __forceinline__ int rank(const Index& ix, int c, int pos) {
-  const int L = ix.digits;
-  int p = pos;
+  int start[L], below[L];
+#pragma unroll
   for (int l = 0; l < L; ++l) {
     const int node = heap_base(l) + (c >> (DIGIT_BITS * (L - l)));
     const int d = (c >> (DIGIT_BITS * (L - 1 - l))) & 15;
-    int x = __ldg(ix.node_start + node) + p;
+    start[l] = __ldg(ix.node_start + node);
+    below[l] = __ldg(ix.node_cnt + (long long)node * RADIX + d);
+  }
+  int p = pos;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    int x = start[l] + p;
     const uint32_t* blk = block_of(ix, l, x);
-    p = rank_in_block(blk, x, d) - __ldg(ix.node_cnt + node * RADIX + d);
+    p = rank_in_block(blk, x, (c >> (DIGIT_BITS * (L - 1 - l))) & 15) - below[l];
   }
   return p;
+}
+
+template <int L>
+struct Digits {
+  static constexpr int value = L;
+};
+
+// launch(Digits<L>{}) at the index's digit count, one instance a count.
+// The ranking kernels are built for 1 to 5 digits (kernels/wt_search.py:
+// MAX_DIGITS): index/wavelet.py sizes the digits to the vocab, 4 for BART's
+// 50,265 tokens and T5's 32,128, 5 up to 2^20 - 1 tokens; more give
+// cudaErrorInvalidValue.
+template <typename F>
+int with_digits(int digits, F&& launch) {
+  switch (digits) {
+    case 1: return launch(Digits<1>{});
+    case 2: return launch(Digits<2>{});
+    case 3: return launch(Digits<3>{});
+    case 4: return launch(Digits<4>{});
+    case 5: return launch(Digits<5>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // the shifted BWT symbol at row (in [0, n_rows)): read each level's digit

@@ -7,8 +7,13 @@ Replaces ``seal_tpu/ops/wt_ops.py``: ``rank`` (:96) with ``_load_block``
 ``"backward_step"`` -- and ``contains_tokens`` (:184) -- mode
 ``"contains"``; and, through ``wt_sequences``, the scan of backward steps
 behind ``range_for_sequences`` (:167) and ``count_sequences`` -- mode
-``"sequences"``.  The three modes share one launch counter,
-``wt_search.launches``.  Kernel 16, ``wt_dense_counts``, counts every
+``"sequences"``.  Its step mode, :func:`wt_advance`, is the decode step's
+range update after a selection in one launch
+(``seal_tpu/decoding/constrained.py:1416-1430``, step 0 :1344-1349); its
+plain version, :func:`advance_plain`, is ``ops/_generic.py:
+advance_ranges`` over the plain backward step.  The four modes share one
+launch counter, ``wt_search.launches``; the step mode's also count on
+``ADVANCE``.  Kernel 16, ``wt_dense_counts``, counts every
 token of the vocab over each range in one launch and replaces
 ``seal_tpu/ops/wt_ops.py:dense_counts`` (:237), the chunked
 ``validate_tokens`` sweep of ``seal_tpu/ops/_generic.py:dense_counts``
@@ -20,9 +25,10 @@ The plain PyTorch versions below are the specification: the CPU path and
 the reference the kernel is held to on the card (integer results, so
 exactly equal).  The 32-bit words are widened to int64 and masked, because
 ``d * 0x11111111`` overflows int32 and torch has no popcount: the
-population count is the SWAR one.  The kernel is latency bound: ``digits``
-dependent levels, each a node-table read and then one 192-byte block; one
-thread per (query, bound), see the source.
+population count is the SWAR one.  The kernel is latency bound: the node
+words of all ``digits`` levels (they depend on the symbol alone), then
+``digits`` dependent 192-byte blocks; one thread per (query, bound), see
+the source.
 """
 
 from __future__ import annotations
@@ -31,9 +37,16 @@ import torch
 
 from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.index.wavelet import CODE_WORDS, DIGIT_BITS, RADIX, heap_base
+from seal_tpu_torch.kernels import Launches
 from seal_tpu_torch.ops import _generic
 
 MODES = ("backward_step", "contains")
+ADVANCE = Launches()  # wt_search launches in the step mode (wt_advance)
+# the digit counts the ranking kernels are built for, one instance each
+# (``csrc/wt_common.cuh``): 4 for BART's and T5's vocabs, 5 up to 2^20 - 1
+# tokens
+MAX_DIGITS = 5
+_FN = {}  # kernel 12's C entry points, looked up once
 # kernel 16's histogram route up to these many rows: one read a row of the
 # hybrid layout's raw BWT, a descent of ``digits`` levels a row without it.
 # The wavelet rank route costs 2 x ``digits`` dependent levels for every
@@ -147,6 +160,14 @@ def backward_step_plain(index, token, lo, hi):
     return new_lo, torch.maximum(new_lo, new_hi)
 
 
+def advance_plain(index, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int):
+    """The step mode's plain version: ``ops/_generic.py:advance_ranges``
+    over the plain backward step."""
+    return _generic.advance_ranges(
+        lambda t, a, b: backward_step_plain(index, t, a, b), lambda a, b: b - a,
+        sel_tok, sel_par, lo, hi, finished, eos=eos, pad=pad)
+
+
 def contains_plain(index, tokens, lo, hi):
     shape = tokens.shape
     new_lo, new_hi = backward_step_plain(
@@ -189,6 +210,28 @@ def check_index(index, name: str) -> None:
             raise ValueError(f"{name}: index.{field} must be a contiguous int32 CUDA tensor")
     if index.blocks.data_ptr() % 16:
         raise ValueError(f"{name}: index.blocks must be 16-byte aligned (16-byte code loads)")
+    if not 1 <= index.digits <= MAX_DIGITS:
+        raise ValueError(f"{name}: {index.digits} digits (the kernels descend 1 to {MAX_DIGITS})")
+
+
+def _i32(x, device):
+    """``x`` as an int32 tensor on ``device``, converted only where it is not."""
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.int32 or x.device != device:
+        x = torch.as_tensor(x, dtype=torch.int32, device=device)
+    return x
+
+
+def _c(x):
+    return x if x.is_contiguous() else x.contiguous()
+
+
+def _lookup():
+    if not _FN:
+        from seal_tpu_torch.kernels import build
+
+        so = build.lib()
+        _FN.update(step=so.seal_wt_backward_step, contains=so.seal_wt_contains,
+                   advance=so.seal_wt_advance, stream=build.stream_ptr)
 
 
 def wt_sequences(index, tokens, lengths):
@@ -232,42 +275,75 @@ def wt_search(index, mode: str, tokens, lo, hi):
     """
     if mode not in MODES:
         raise ValueError(f"unknown wt_search mode {mode!r}")
-    tokens = torch.as_tensor(tokens, dtype=torch.int32, device=index.device)
-    lo = torch.as_tensor(lo, dtype=torch.int32, device=index.device)
-    hi = torch.as_tensor(hi, dtype=torch.int32, device=index.device)
+    dev = index.device
+    tokens, lo, hi = _i32(tokens, dev), _i32(lo, dev), _i32(hi, dev)
     if mode == "backward_step":
-        tokens, lo, hi = torch.broadcast_tensors(tokens, lo, hi)
+        if not tokens.shape == lo.shape == hi.shape:
+            tokens, lo, hi = torch.broadcast_tensors(tokens, lo, hi)
     elif tokens.shape[:-1] != lo.shape or lo.shape != hi.shape:
         raise ValueError(f"contains: tokens {tuple(tokens.shape)} vs ranges {tuple(lo.shape)}")
     if not tokens.is_cuda:
         if mode == "backward_step":
             return backward_step_plain(index, tokens, lo, hi)
         return contains_plain(index, tokens, lo, hi)
-    from seal_tpu_torch.kernels import build
-
     check_index(index, f"wt_search({mode})")
-    tokens, lo, hi = (t.contiguous() for t in (tokens, lo, hi))
-    stream = build.stream_ptr(tokens)
+    _lookup()
+    tokens, lo, hi = _c(tokens), _c(lo), _c(hi)
+    stream = _FN["stream"](tokens)
     if mode == "backward_step":
-        out_lo = torch.empty_like(tokens)
-        out_hi = torch.empty_like(tokens)
-        rc = build.lib().seal_wt_backward_step(
-            *index_args(index), tokens.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            out_lo.data_ptr(), out_hi.data_ptr(), tokens.numel(), stream,
-        )
-        out = (out_lo, out_hi)
+        out = torch.empty((2, *tokens.shape), dtype=torch.int32, device=tokens.device)
+        p = out.data_ptr()
+        rc = _FN["step"](*index_args(index), tokens.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                         p, p + 4 * tokens.numel(), tokens.numel(), stream)
+        out = out.unbind(0)
     else:
         out = torch.empty(tokens.shape, dtype=torch.bool, device=tokens.device)
-        rc = build.lib().seal_wt_contains(
-            *index_args(index), tokens.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            out.data_ptr(), lo.numel(), tokens.shape[-1], stream,
-        )
-    build.check(rc, f"wt_search({mode})")
+        rc = _FN["contains"](*index_args(index), tokens.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                             out.data_ptr(), lo.numel(), tokens.shape[-1], stream)
+    if rc:
+        raise RuntimeError(f"wt_search({mode}): CUDA error {rc}")
     wt_search.launches += 1
     return out
 
 
 wt_search.launches = 0
+
+
+def wt_advance(index, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int):
+    """Kernel 12's step mode: the range update after a selection.
+
+    ``sel_tok``, ``sel_par`` [B, K]: each selection's token and parent
+    beam; ``lo``, ``hi`` [B, P]: the parents' ranges; ``finished`` [B, P]
+    (bool) or None at step 0.  Returns int32 (lo, hi, prev_count) [B, K]:
+    the parent's range extended by the token -- (0, 0) where ``finished``
+    is given and the token is EOS or PAD or the parent had finished -- and
+    the parent's range size.  CPU tensors run :func:`advance_plain`; CUDA
+    tensors launch the kernel once.
+    """
+    if not sel_tok.is_cuda:
+        return advance_plain(index, sel_tok, sel_par, lo, hi, finished, eos=eos, pad=pad)
+    B, K = sel_tok.shape
+    if lo.shape != hi.shape or lo.dim() != 2 or lo.shape[0] != B or sel_par.shape != (B, K):
+        raise ValueError(f"wt_advance: selections {tuple(sel_tok.shape)}, parents "
+                         f"{tuple(sel_par.shape)}, ranges {tuple(lo.shape)}")
+    if finished is not None and (finished.shape != lo.shape or finished.dtype != torch.bool):
+        raise ValueError("wt_advance: finished must be bool, shaped as the ranges")
+    check_index(index, "wt_advance")
+    _lookup()
+    sel_tok, sel_par, lo, hi = (
+        _c(t if t.dtype == torch.int32 else t.to(torch.int32)) for t in (sel_tok, sel_par, lo, hi))
+    out = torch.empty((3, B, K), dtype=torch.int32, device=sel_tok.device)
+    p = out.data_ptr()
+    rc = _FN["advance"](
+        *index_args(index), lo.data_ptr(), hi.data_ptr(), lo.shape[1], sel_par.data_ptr(),
+        sel_tok.data_ptr(), _c(finished).data_ptr() if finished is not None else None, eos, pad,
+        p, p + 4 * B * K, p + 8 * B * K, B * K, K, _FN["stream"](sel_tok),
+    )
+    if rc:
+        raise RuntimeError(f"wt_advance: CUDA error {rc}")
+    wt_search.launches += 1
+    ADVANCE.launches += 1
+    return out.unbind(0)
 
 
 def dense_counts_plain(index, lo, hi, chunk: int = 4096):

@@ -6,7 +6,8 @@ All ops take *unshifted* token ids and shift internally (SHIFT == 1).
 ``advance_ranges`` (the decode step's range update) go through the
 rank-search kernel, ``range_for_sequences``/``count_sequences`` through
 its sequence mode and ``dense_counts`` through its dense kernel
-(``kernels/fm_search.py``), ``window_gather`` through the window kernel,
+(``kernels/fm_search.py``), ``window_gather``, ``window_slab`` and
+``slab_gather`` through the window kernel's modes (kernel 2),
 ``bucket_counts`` through the bucket kernel and ``locate_rows`` /
 ``doc_index_of`` through kernel 18 (``kernels/locate.py``); the other ops
 are plain torch on every device.
@@ -27,7 +28,11 @@ from seal_tpu_torch.kernels.fm_search import (
     symbol_bounds,
 )
 from seal_tpu_torch.kernels import locate
-from seal_tpu_torch.kernels.window_gather import window_gather  # noqa: F401
+from seal_tpu_torch.kernels.window_gather import (  # noqa: F401
+    slab_gather,
+    window_gather,
+    window_slab,
+)
 from seal_tpu_torch.ops import _generic
 
 

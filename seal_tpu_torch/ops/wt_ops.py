@@ -4,12 +4,15 @@ hybrid layouts (counterpart of ``seal_tpu/ops/wt_ops.py``).
 The same op surface as ``fm_ops`` (the Psi layout), so the constrained
 decoder runs unchanged on either index.  All ops take *unshifted* token ids
 and shift internally (SHIFT == 1).  ``backward_step``/``extend_ranges``,
-``contains_tokens`` and ``range_for_sequences``/``count_sequences`` go
+``contains_tokens``, ``range_for_sequences``/``count_sequences`` and
+``advance_ranges`` (the decode step's range update, its step mode) go
 through the rank-search kernel (kernel 12, ``kernels/wt_search.py``),
 ``dense_counts`` through its dense kernel (16), ``window_gather`` through
-the window kernel (13) and ``bucket_counts`` through the bisection kernel
-(14); ``rank``, ``access``, ``bwt_at`` and ``window_continuations`` are
-plain torch on every device.
+the window kernel (13), which ``window_slab`` and ``slab_gather`` call with
+kernel 2's contract (the step's window and round 0's slab, a round's
+slab), and ``bucket_counts`` through the bisection kernel (14); ``rank``,
+``access``, ``bwt_at`` and ``window_continuations`` are plain torch on
+every device.
 """
 
 from __future__ import annotations
@@ -21,15 +24,17 @@ from seal_tpu_torch.kernels.wt_bucket_counts import (  # noqa: F401
     bucket_size_of,
 )
 from seal_tpu_torch.kernels.wt_bucket_counts import wt_bucket_counts as bucket_counts  # noqa: F401
+from seal_tpu_torch.kernels.window_gather import slab_bounds
 from seal_tpu_torch.kernels.wt_search import (
     access_plain,
     rank_plain,
+    wt_advance,
     wt_dense_counts,
     wt_search,
     wt_sequences,
 )
 from seal_tpu_torch.kernels.wt_window import bwt_at  # noqa: F401
-from seal_tpu_torch.kernels.wt_window import wt_window_gather as window_gather  # noqa: F401
+from seal_tpu_torch.kernels.wt_window import wt_window_gather as window_gather
 from seal_tpu_torch.ops import _generic
 
 
@@ -59,12 +64,22 @@ def extend_ranges(index, tokens, lo, hi):
 
 
 def advance_ranges(index, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int):
-    """The range update after a selection: (lo, hi, prev_count) [B, K], the
-    composition of ``ops/_generic.py:advance_ranges`` over kernel 12's
-    backward step."""
-    return _generic.advance_ranges(lambda t, a, b: backward_step(index, t, a, b),
-                                   lambda a, b: b - a, sel_tok, sel_par, lo, hi, finished,
-                                   eos=eos, pad=pad)
+    """The range update after a selection, in one launch of kernel 12's
+    step mode: (lo, hi, prev_count) [B, K] (``ops/_generic.py:
+    advance_ranges``)."""
+    return wt_advance(index, sel_tok, sel_par, lo, hi, finished, eos=eos, pad=pad)
+
+
+def slab_gather(index, lo, hi, rows_prev: int, width: int, lp):
+    """A proposal round's slab (``kernels.window_gather.slab_gather``'s
+    contract): the bounds in torch, then kernel 13."""
+    return window_gather(index, *slab_bounds(lo, hi, rows_prev, width), width, lp, 0)
+
+
+def window_slab(index, lo, hi, w: int, width: int, lp, fill: int):
+    """A step's window and round 0's slab (``kernels.window_gather.
+    window_slab``'s contract): two kernel 13 calls."""
+    return (*window_gather(index, lo, hi, w, lp, fill), *slab_gather(index, lo, hi, 0, width, lp))
 
 
 def contains_tokens(index, tokens, lo, hi):

@@ -27,7 +27,11 @@ from seal_tpu_torch.kernels.fm_search import (
     fm_search_sharded,
     fm_sequences_sharded,
 )
-from seal_tpu_torch.kernels.window_gather import window_gather_sharded
+from seal_tpu_torch.kernels.window_gather import (
+    slab_gather_sharded,
+    window_gather_sharded,
+    window_slab_sharded,
+)
 from seal_tpu_torch.ops._generic import advance_ranges
 from seal_tpu_torch.parallel.sharded_index import ShardedTorchIndex, require_no_mesh
 
@@ -58,6 +62,14 @@ class ShardedIndexOps:
 
     def window_gather(self, lo, hi, w, lp, fill):
         return window_gather_sharded(self.index, lo, hi, w, lp, fill)
+
+    def window_slab(self, lo, hi, w, width, lp, fill):
+        """The union window and the union of round 0's slabs (fill 0), in
+        one launch of kernel 2's shard mode."""
+        return window_slab_sharded(self.index, lo, hi, w, width, lp, fill)
+
+    def slab(self, lo, hi, rows_prev, width, lp):
+        return slab_gather_sharded(self.index, lo, hi, rows_prev, width, lp)
 
     def extend(self, tokens, lo, hi):
         return fm_search_sharded(self.index, "backward_step", tokens, lo, hi)

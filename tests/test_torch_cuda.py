@@ -772,10 +772,11 @@ def test_reorder_cache_matches_plain(cuda, rows_src, rows, cols):
         assert torch.equal(d.view(torch.int16), s[idx].view(torch.int16))
 
 
-# wavelet corpora at 1, 2, 4 and 5 four-bit digits: (vocab, largest symbol
-# + 1, n_docs), as in tests/test_torch_wavelet.py
-WT_CASES = {"d1": (14, 14, 12), "d2": (96, 90, 30), "d4": (50265, 50200, 30),
-            "d5": (65600, 65590, 8)}
+# wavelet corpora at 1 to 5 four-bit digits (each digit count the ranking
+# kernels are built for): (vocab, largest symbol + 1, n_docs), as in
+# tests/test_torch_wavelet.py, and 3 digits
+WT_CASES = {"d1": (14, 14, 12), "d2": (96, 90, 30), "d3": (3000, 2990, 20),
+            "d4": (50265, 50200, 30), "d5": (65600, 65590, 8)}
 
 
 def _wt_host(name):
@@ -827,7 +828,7 @@ def _wt_sequences(host, rng, n, L, vocab, cuda):
 @pytest.mark.parametrize("keep_bwt", [False, True])
 @pytest.mark.parametrize("name", sorted(WT_CASES))
 def test_wt_kernels_match_plain(cuda, name, keep_bwt):
-    """Kernels 12-14 (compact and hybrid) at 1, 2, 4 and 5 digits: full,
+    """Kernels 12-14 (compact and hybrid) at 1 to 5 digits: full,
     empty and end-of-index ranges, out-of-range tokens, every sequence
     length 0..L; exactly equal."""
     host = _wt_host(name)
@@ -842,6 +843,28 @@ def test_wt_kernels_match_plain(cuda, name, keep_bwt):
     seqs, lens = _wt_sequences(host, rng, 64, 5, vocab, cuda)
     lp = torch.log_softmax(torch.randn(lo.numel(), vocab, device=cuda), -1)
     _check_wt_kernels(t, host, vocab, lo, hi, toks, seqs, lens, lp)
+
+
+def test_wt_kernels_refuse_digits_past_limit(cuda):
+    """The ranking kernels are built for 1 to ``MAX_DIGITS`` digits: an
+    index of more (a vocab of 2^20 tokens or more) is refused by every
+    wrapper with a ValueError, not launched."""
+    host = _wt_host("d2")
+    t = WaveletIndex.from_host(host, vocab=1 << 20, keep_bwt=True, device=cuda)
+    assert t.digits == wt_search.MAX_DIGITS + 1
+    lo, hi = t.full_range((4,))
+    tok = torch.full((4,), 5, dtype=torch.int32, device=cuda)
+    n0 = wt_search.wt_search.launches
+    calls = (lambda: wt_search.wt_search(t, "contains", tok[:, None], lo, hi),
+             lambda: wt_search.wt_search(t, "backward_step", tok, lo, hi),
+             lambda: wt_search.wt_sequences(t, tok[:, None], torch.ones_like(tok)),
+             lambda: wt_search.wt_advance(t, tok[None], torch.zeros_like(tok)[None], lo[None],
+                                          hi[None], eos=2, pad=1),
+             lambda: wt_search.wt_dense_counts(t, lo, hi))
+    for call in calls:
+        with pytest.raises(ValueError, match="digits"):
+            call()
+    assert wt_search.wt_search.launches == n0
 
 
 @pytest.mark.parametrize("keep_bwt", [False, True])
@@ -929,7 +952,7 @@ ROUTES = {"rank": 0, "default": None, "histogram": 2**31 - 1}
 @pytest.mark.parametrize("layout", ["psi", "compact", "hybrid"])
 @pytest.mark.parametrize("name", sorted(WT_CASES))
 def test_dense_counts_match_plain(cuda, name, layout, route):
-    """Kernels 15 (Psi) and 16 (compact, hybrid) at 1, 2, 4 and 5 digits on
+    """Kernels 15 (Psi) and 16 (compact, hybrid) at 1 to 5 digits on
     both routes: full, empty and end-of-index ranges; exactly equal to the
     plain sweep, one launch each."""
     host = _wt_host(name)
@@ -1841,3 +1864,141 @@ def test_fm_search_group_limits(cuda):
     with pytest.raises(ValueError):
         fm_search.fm_search(t, "contains", torch.zeros((4, 3), dtype=torch.int32, device=cuda),
                             lo, hi, group=3)
+
+
+# ---- kernel 2's window + slab and slab modes, kernel 12's step mode
+
+
+def _sized_ranges(host, rng, shape, sizes, cuda):
+    """Ranges [shape] inside the index: random sub-intervals, and one of
+    each row count in ``sizes`` (empty, w, between w and 2w, width, wide)."""
+    N = host.size()
+    n = int(np.prod(shape))
+    lo = rng.integers(0, N, size=n)
+    hi = np.minimum(lo + rng.integers(0, N // 8, size=n), N)
+    for i, size in enumerate(sizes[:n]):
+        size = min(size, N)
+        lo[i] = rng.integers(0, N - size + 1)
+        hi[i] = lo[i] + size
+    lo[-1], hi[-1] = N, N
+    return (torch.as_tensor(lo.astype(np.int32), device=cuda).reshape(shape),
+            torch.as_tensor(hi.astype(np.int32), device=cuda).reshape(shape))
+
+
+@pytest.mark.parametrize("shape,w,width", [((32, 15), 32, 64), ((32, 15), 128, 64),
+                                           ((32, 15), 32, 1024), ((6, 8), 4, 8), ((6, 8), 8, 4),
+                                           ((6, 8), 8, 8), ((3, 2), 33, 100)])
+def test_window_slab_modes_match_plain(cuda, shape, w, width):
+    """Kernel 2's window + slab mode (one launch: the window, fill PAD, and
+    round 0's slab, fill 0), its slab mode at rows_prev 0, one slab width
+    on and past the range, and its window mode, each bit-equal to its plain
+    version, at the bench shape ([32, 15], w 32, width 64), at beam 32's
+    window (128) and at sampling's wide slab; ranges of 0, w, w + 1, 2w -
+    1, width and more rows."""
+    host = _zipf_host()
+    t = TorchFMIndex.from_host(host, vocab=30, device=cuda)  # symbols 30, 31 are OOV
+    rng = np.random.default_rng(w + width)
+    sizes = [0, 1, w - 1, w, w + 1, 2 * w - 1, 2 * w, width, width + 1, 3 * width]
+    lo, hi = _sized_ranges(host, rng, shape, sizes, cuda)
+    lp = torch.log_softmax(torch.randn(lo.numel(), 30, device=cuda), -1)
+    n0, f0, s0 = (window_gather.window_gather.launches, window_gather.WINDOW_SLAB.launches,
+                  window_gather.SLAB.launches)
+    got = window_gather.window_slab(t, lo, hi, w, width, lp, 1)
+    assert (window_gather.window_gather.launches, window_gather.WINDOW_SLAB.launches) == (
+        n0 + 1, f0 + 1)
+    want = window_gather.window_slab_plain(t, lo, hi, w, width, lp, 1)
+    assert len(got) == len(want) == 6 and got[3].shape == (*shape, width)
+    _same(got, want)
+    for rows_prev in (0, width, 2 * width + 3):
+        got = window_gather.slab_gather(t, lo, hi, rows_prev, width, lp)
+        _same(got, window_gather.slab_gather_plain(t, lo, hi, rows_prev, width, lp))
+    assert window_gather.SLAB.launches == s0 + 3
+    _same(window_gather.window_gather(t, lo, hi, w, lp, 1),
+          window_gather.window_gather_plain(t, lo, hi, w, lp, 1))
+    assert window_gather.window_gather.launches == n0 + 5
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_window_slab_shard_modes_match_plain(cuda, S):
+    """The shard mode's window + slab and slab modes at 4 shards (and one):
+    one launch a call, the union layout (shard s's slots [s * w, (s + 1) *
+    w)) bit-equal to every shard's plain version concatenated."""
+    si, _, lo, hi = _sharded(S, cuda)
+    V = si.vocab
+    B, K = lo.shape[1:]
+    lp = torch.log_softmax(torch.randn(B * K, V, device=cuda), -1)
+    for w, width in ((4, 8), (8, 4), (32, 64)):
+        n0 = window_gather.window_gather_sharded.launches
+        f0 = window_gather.WINDOW_SLAB_SHARDED.launches
+        got = window_gather.window_slab_sharded(si, lo, hi, w, width, lp, 1)
+        assert (window_gather.window_gather_sharded.launches,
+                window_gather.WINDOW_SLAB_SHARDED.launches) == (n0 + 1, f0 + 1)
+        assert got[0].shape == (B, K, S * w) and got[3].shape == (B, K, S * width)
+        _same(got, window_gather.window_slab_sharded_plain(si, lo, hi, w, width, lp, 1))
+        s0 = window_gather.SLAB_SHARDED.launches
+        got = window_gather.slab_gather_sharded(si, lo, hi, width, width, lp)
+        assert window_gather.SLAB_SHARDED.launches == s0 + 1
+        _same(got, window_gather.slab_gather_sharded_plain(si, lo, hi, width, width, lp))
+
+
+@pytest.mark.parametrize("K", [15, 32])
+@pytest.mark.parametrize("keep_bwt", [False, True])
+def test_wt_advance_matches_plain(cuda, keep_bwt, K):
+    """Kernel 12's step mode on the compact and hybrid layouts at BART's
+    vocab (4 digits), beam 15 and 32: step 0 (one parent, no stop rule)
+    and later (finished parents, EOS, PAD and out-of-range tokens), bit-equal
+    to ``advance_plain``, one launch a call; and at 1, 2 and 5 digits."""
+    V, B = 50265, 32
+    rng = np.random.default_rng(K + keep_bwt)
+    zipf = rng.zipf(1.3, size=600 * 120)
+    host = FMIndex()
+    host.initialize([d.tolist() + [2] for d in (zipf % (V - 10) + 4).reshape(600, 120)])
+    cases = [(host, V)] + [(_wt_host(name), WT_CASES[name][0]) for name in ("d1", "d2", "d5")]
+    for h, vocab in cases:
+        t = WaveletIndex.from_host(h, vocab=vocab, keep_bwt=keep_bwt, device=cuda)
+        lo, hi = _ranges(h, rng, n=B * K)
+        lo, hi = lo.reshape(B, K), hi.reshape(B, K)
+        text = h.text[:-1] - 1
+        sel_tok = torch.as_tensor(rng.choice(text, size=(B, K)).astype(np.int32), device=cuda)
+        sel_tok[0, :4] = torch.tensor([2, 1, -1, vocab + 2])
+        finished = torch.as_tensor(rng.random((B, K)) < 0.25, device=cuda)
+        for sel_par, fin in ((torch.zeros((B, K), dtype=torch.int32, device=cuda), None),
+                             (torch.as_tensor(rng.integers(0, K, size=(B, K)).astype(np.int32),
+                                              device=cuda), finished)):
+            n0, a0 = wt_search.wt_search.launches, wt_search.ADVANCE.launches
+            got = wt_search.wt_advance(t, sel_tok, sel_par, lo, hi, fin, eos=2, pad=1)
+            assert (wt_search.wt_search.launches, wt_search.ADVANCE.launches) == (n0 + 1, a0 + 1)
+            want = wt_search.advance_plain(t, sel_tok, sel_par, lo, hi, fin, eos=2, pad=1)
+            assert len(got) == 3
+            _same(got, want)
+            assert (want[1] > want[0]).any()
+
+
+def test_generate_launches_fused_modes_once_a_step(cuda):
+    """A fast decode launches kernel 2 once a step >= 1 on the Psi layout
+    (its window + slab mode where a beam needs a proposal round, else the
+    window alone; the straggler rounds' slabs besides), and kernel 12's
+    step mode once a step on the compact one."""
+    cfg = bart_tiny(vocab_size=96)
+    params = _to(bart.init_params(cfg, seed=0, device="cpu"), cuda)
+    rng = np.random.default_rng(3)
+    docs = [rng.integers(4, 14, size=rng.integers(5, 30)).tolist() + [2] for _ in range(30)]
+    host = FMIndex()
+    host.initialize(docs)
+    queries = [[0] + rng.integers(4, 90, size=5).tolist() + [2] for _ in range(3)]
+    kw = dict(num_beams=4, max_length=6, min_length=1, window=4, exact_chunk=4,
+              forced_bos_token_id=None)
+    steps = kw["max_length"] - 1
+    n0, f0 = window_gather.window_gather.launches, window_gather.WINDOW_SLAB.launches
+    s0 = window_gather.SLAB.launches
+    tg.fm_index_generate(cfg, params, TorchFMIndex.from_host(host, vocab=96, device=cuda),
+                         queries, **kw)
+    redo = tg.LAST_DECODE_STATS["fallback_steps"] > 0
+    assert 0 < window_gather.WINDOW_SLAB.launches - f0 <= (steps - 1) * (1 + redo)
+    assert window_gather.window_gather.launches - n0 == (
+        (steps - 1) * (1 + redo) + window_gather.SLAB.launches - s0)
+    a0 = wt_search.ADVANCE.launches
+    tg.fm_index_generate(cfg, params, WaveletIndex.from_host(host, vocab=96, device=cuda),
+                         queries, **kw)
+    redo = tg.LAST_DECODE_STATS["fallback_steps"] > 0
+    assert wt_search.ADVANCE.launches - a0 == steps * (1 + redo)

@@ -118,9 +118,12 @@ def _proposals(seed, window, chunk, stop_at_count, round0_only, V=96, B=2, K=4, 
                                jnp.asarray(prev_count), jnp.asarray(finished),
                                jnp.asarray(lp[:, PAD].reshape(B, K, 1)), jnp.asarray(eos_tok),
                                round0_only=round0_only)
-    got = tc._exact_proposals(tops, tcfg, torch.as_tensor(lp), torch.as_tensor(lo),
-                              torch.as_tensor(hi), torch.as_tensor(prev_count),
-                              torch.as_tensor(finished), torch.as_tensor(eos_tok),
+    # the port gathers the step's window and round 0's slab in one call
+    # (``_step_window``) and hands the slab and the exempt beams on
+    tlp, tlo, thi = torch.as_tensor(lp), torch.as_tensor(lo), torch.as_tensor(hi)
+    _, exempt, slab0 = tc._step_window(tops, tcfg, tlp, tlo, thi, torch.as_tensor(prev_count),
+                                       torch.as_tensor(finished))
+    got = tc._exact_proposals(tops, tcfg, tlp, tlo, thi, torch.as_tensor(eos_tok), exempt, slab0,
                               round0_only=round0_only)
     return want, got, lp, (B, K, 2 * K)
 
