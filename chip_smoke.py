@@ -92,7 +92,8 @@
    against their plain versions at the path's shapes: Philox words exactly,
    Gumbel values within 8 ulps, draws equal away from near-ties, and 2^16
    draws of one row against its softmax (chi-square); 21 and 8c bit for
-   bit.
+   bit, 21 on its wide, list and chunked routes with its kernels a call
+   counted by the profiler and the wide route's proof counter at 0.
 
 11. Drives T5-base (``T5Config()``, random weights from a seed, f32 as the
    JAX searcher builds it for a ``t5`` backbone; ``bench_generate.
@@ -207,6 +208,7 @@ REPLACES = {
     "log_softmax_topk": "seal_tpu/decoding/constrained.py:294",
     "sample_select": "seal_tpu/decoding/constrained.py:1092",
     "diverse_select": "seal_tpu/decoding/constrained.py:1125",
+    "diverse_select_wide": "seal_tpu/decoding/constrained.py:1125",
     "beam_candidates": "seal_tpu/decoding/constrained.py:359",
     "self_attention_step_t5": "seal_tpu/models/t5.py:349",
     "fm_search_sharded": "seal_tpu/parallel/sharded_decode.py:95",
@@ -256,6 +258,7 @@ SOURCES = {
     "log_softmax_topk": ("triton", "seal_tpu_torch/kernels/triton_logsoftmax.py"),
     "sample_select": ("cuda", "seal_tpu_torch/kernels/csrc/sample_select.cu"),
     "diverse_select": ("cuda", "seal_tpu_torch/kernels/csrc/diverse_select.cu"),
+    "diverse_select_wide": ("cuda", "seal_tpu_torch/kernels/csrc/diverse_select.cu"),
     "beam_candidates": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "self_attention_step_t5": ("cuda", "seal_tpu_torch/kernels/csrc/decode_attention.cu"),
     "fm_search_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -343,13 +346,16 @@ PATH_KERNELS["locate"] = ("locate_rows", "doc_index_of")
 # or 12, kernel 8's merge) and window through kernel 8's candidate mode, or
 # the dense route (15 or 16, 17), or free generation's top-top_m (3)
 LOOP_STEP = ("row_topk", "log_softmax_min_len", "beam_merge", "beam_candidates") + ATTN_STEP
-for _mode, _select in (("sample", "sample_select"), ("diverse", "diverse_select")):
-    PATH_KERNELS[f"generate_{_mode}"] = ("fm_search", "window_gather", _select) + LOOP_STEP
+# (kernel 21 on its list route every step >= 1 and on its wide route, 2
+# launches, on the V-wide rows)
+for _mode, _select in (("sample", ("sample_select",)),
+                       ("diverse", ("diverse_select", "diverse_select_wide"))):
+    PATH_KERNELS[f"generate_{_mode}"] = ("fm_search", "window_gather") + _select + LOOP_STEP
     for _layout in WAVELET_LAYOUTS:
         PATH_KERNELS[f"generate_{_mode}_{_layout}"] = (
-            "wt_search", "wt_window_gather", _select) + LOOP_STEP
+            "wt_search", "wt_window_gather") + _select + LOOP_STEP
     PATH_KERNELS[f"generate_{_mode}_dense"] = ("fm_dense_counts", "fm_search", "dense_scores",
-                                               "log_softmax_min_len", _select) + ATTN_STEP
+                                               "log_softmax_min_len") + _select + ATTN_STEP
 PATH_KERNELS["generate_sample_seed1"] = PATH_KERNELS["generate_sample"]
 # the sizes the card refused before its large routes (ROADMAP C.2): a
 # sampling buffer of top_m 512 and a 20000-wide loop chunk, through kernel
@@ -368,7 +374,8 @@ PATH_KERNELS["generate_sample_free"] = ("row_topk", "log_softmax_min_len",
                                         "sample_select") + ATTN_STEP
 PATH_KERNELS["generate_diverse_ties"] = PATH_KERNELS["generate_diverse"]
 PATH_KERNELS["batch_search_diverse"] = ("fm_search", "window_gather", "fm_sequences",
-                                        "rescore_logprob", "diverse_select") + LOOP_STEP
+                                        "rescore_logprob", "diverse_select",
+                                        "diverse_select_wide") + LOOP_STEP
 # T5: the same decode loop with kernel 10's relative-bias mode in place of
 # BART's self-attention mode
 T5_STEP = ("beam_merge", "beam_select", "cross_attention_step", "self_attention_step_t5",
@@ -542,6 +549,54 @@ def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (launches * replays)
 
 
+def graph_result(torch, fn):
+    """``fn()``'s result from a replay of a CUDA graph that captured it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def kernels_per_call(torch, fn) -> int:
+    """CUDA kernels one call of ``fn`` launches: the kernel nodes of a CUDA
+    graph that captured the call, counted through libcuda (cuGraphGetNodes,
+    cuGraphNodeGetType; copies and memsets are other node types).  A
+    profiler trace of one short call can lose its kernels' records."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return sum(k == 0 for k in kinds)  # CU_GRAPH_NODE_TYPE_KERNEL
+
+
 def log_kernel(row) -> None:
     """One kernel line, with its bound (the least time the card could take:
     the bytes it must move at the HBM rate, or its flops at the f32 rate --
@@ -560,7 +615,7 @@ def log_kernel(row) -> None:
                                                "step0_plain_ms", "long_ms", "long_plain_ms",
                                                "psi_ms", "sequences_ms", "sequences_psi_ms",
                                                "hybrid_ms", "hybrid_plain_ms", "rank_route_ms",
-                                               "histogram_route_ms", "hybrid_rank_route_ms",
+                                               "histogram_route_ms",
                                                "topk_dense_ms", "topk_dense_plain_ms",
                                                "default_ms", "merge_ms", "merge_plain_ms",
                                                "merge_default_ms", "k64_ms", "row_topk_k64_ms",
@@ -573,6 +628,9 @@ def log_kernel(row) -> None:
                                                "cross_f32_tol_ratio", "f32_tol_ratio",
                                                "extend_ms", "ranges_ms", "spec_plain_ms",
                                                "graph_ms", "library_graph_ms", "route",
+                                               "chunked_ms", "chunked_graph_ms", "nopen_ms",
+                                               "kernels_per_call", "proof_failures", "walk_ms",
+                                               "hybrid_walk_ms", "hybrid_graph_ms",
                                                "step0_graph_ms", "long_library_ms",
                                                "long_graph_ms", "long_library_graph_ms",
                                                "long_bound_ms", "long_tol_ratio",
@@ -1632,37 +1690,52 @@ def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
         shape=f"[{B},{K}] ranges x {V} tokens (rank route: every range by kernel 1's search)",
         bytes=out_bytes + rows_bytes(torch, N, lo, hi, k15.HIST_MAX_ROWS, 4),
     ))
+    # kernel 16 on both layouts at every route: the default, every
+    # non-empty range walked (hist_max 0), histogrammed, and the default
+    # replayed from a CUDA graph
     err16 = 0
+    k16_routes = {"default": {}, "walk": dict(hist_max=0), "histogram": dict(hist_max=2**31 - 1)}
     for ix in (compact, hybrid):
-        for hist_max in (None, 0, 2**31 - 1):
-            err16 += int((k16.wt_dense_counts(ix, lo, hi, hist_max=hist_max) != want).sum())
-    if err16:
-        fail(f"wt_dense_counts differs from its plain version ({err16} counts)")
+        for rkw in k16_routes.values():
+            err16 += int((k16.wt_dense_counts(ix, lo, hi, **rkw) != want).sum())
+        err16 += int((graph_result(torch, lambda ix=ix: k16.wt_dense_counts(ix, lo, hi))
+                      != want).sum())
     hmax = k16.HIST_MAX_ROWS
     # the route threshold: ranges of at most this many rows take the
-    # histogram, wider ones the rank route (the defaults are marked *)
+    # histogram, wider ones the rank route (kernel 15) or the walk (kernel
+    # 16, held to the plain sweep at every threshold); the defaults are
+    # marked *
     sweep = []
     for name, fn, ix, default in (("psi", k15.fm_dense_counts, psi, k15.HIST_MAX_ROWS),
                                   ("compact", k16.wt_dense_counts, compact, hmax["compact"]),
                                   ("hybrid", k16.wt_dense_counts, hybrid, hmax["hybrid"])):
         cells = []
-        for h in (0, 1 << 10, 1 << 12, 1 << 14, 1 << 16, 1 << 18, 1 << 20, 2**31 - 1):
+        for h in (0, 1 << 6, 1 << 8, 1 << 10, 1 << 12, 1 << 14, 1 << 16, 1 << 18, 1 << 20,
+                  2**31 - 1):
             ms = time_ms(lambda: fn(ix, lo, hi, hist_max=h), iters=5)
             cells.append(f"{h}{'*' if h == default else ''} {ms:.4f}")
+            if fn is k16.wt_dense_counts:
+                err16 += int((fn(ix, lo, hi, hist_max=h) != want).sum())
         sweep.append(f"{name}: " + ", ".join(cells))
     log("dense counts by histogram threshold (rows: ms): " + "; ".join(sweep))
+    if err16:
+        fail(f"wt_dense_counts differs from its plain version ({err16} counts)")
     table.append(dict(
         name="wt_dense_counts", max_abs_err=err16, library_ms=None,
         ms=time_ms(lambda: k16.wt_dense_counts(compact, lo, hi)),
+        graph_ms=graph_ms(lambda: k16.wt_dense_counts(compact, lo, hi)),
         plain_ms=time_ms(lambda: k16.dense_counts_plain(compact, lo, hi, 2048), iters=1),
         hybrid_ms=time_ms(lambda: k16.wt_dense_counts(hybrid, lo, hi)),
-        rank_route_ms=time_ms(lambda: k16.wt_dense_counts(compact, lo, hi, hist_max=0), iters=5),
-        hybrid_rank_route_ms=time_ms(lambda: k16.wt_dense_counts(hybrid, lo, hi, hist_max=0),
-                                     iters=5),
+        hybrid_graph_ms=graph_ms(lambda: k16.wt_dense_counts(hybrid, lo, hi)),
+        walk_ms=time_ms(lambda: k16.wt_dense_counts(compact, lo, hi, hist_max=0)),
+        hybrid_walk_ms=time_ms(lambda: k16.wt_dense_counts(hybrid, lo, hi, hist_max=0)),
+        histogram_route_ms=time_ms(lambda: k16.wt_dense_counts(compact, lo, hi,
+                                                               hist_max=2**31 - 1), iters=5),
         psi_ms=time_ms(lambda: k15.fm_dense_counts(psi, lo, hi)),
-        shape=f"[{B},{K}] ranges x {V} tokens, compact (descent a row; histogram route <= "
-              f"{hmax['compact']} rows) and hybrid (hybrid_ms: one 2-byte read a row, <= "
-              f"{hmax['hybrid']} rows); checked on both routes against the plain sweep",
+        shape=f"[{B},{K}] ranges x {V} tokens, compact (ranges past {hmax['compact']} rows "
+              f"walked) and hybrid (hybrid_ms: one 2-byte read a row up to {hmax['hybrid']} "
+              "rows, the walk past them); walk_ms: every non-empty range walked; checked on "
+              "every route against the plain sweep",
         # the compact layout's rows: one 4-bit code of each of `digits` levels
         bytes=out_bytes + rows_bytes(torch, N, lo, hi, hmax["compact"], compact.digits / 2),
     ))
@@ -1851,8 +1924,9 @@ def sample_kernel_phases(np, torch, cfg, V, B, K, window, device="cuda"):
     and on the sampling route's candidates (its Philox words against the
     plain version's exactly, Gumbel values within SAMPLE_ULPS, draws equal on
     chains clear of a near-tie, 2^16 draws of one row against its softmax);
-    kernel 21 at three groups, penalty 0.5, on the diverse route's
-    candidates in both orders and on V-wide rows; all against their plain
+    kernel 21 at three groups, penalties 0 and 0.5, on the diverse route's
+    candidates (its list route) and on V-wide rows (its wide route), in both
+    orders, each beside its chunked route; all against their plain
     versions, timed."""
     from scipy import stats
 
@@ -1967,31 +2041,103 @@ def sample_kernel_phases(np, torch, cfg, V, B, K, window, device="cuda"):
         bytes=rows * V * 4 + V + rows * 4 + B * (2 * K * 13 + K * 13), flops=4 * rows * V,
     ))
 
-    # kernel 21: three groups, penalty 0.5, on the diverse route's candidates
-    # (both orders) and on step 0's V-wide rows under the corpus mask
+    # kernel 21: three groups at penalties 0 and 0.5, in both orders, on the
+    # diverse route's candidates (the list route) and on step 0's V-wide rows
+    # under the corpus mask (the wide route), each beside the chunked route
+    # forced on the same inputs, all against the plain version; each route's
+    # kernels a call counted by the profiler; the wide route's proof counter
+    # must read 0
     tok8, cons8, _ = k8.beam_candidates(*inputs["diverse"][0], **inputs["diverse"][1])
-    kw21 = dict(groups=3, penalty=0.5, eos=eos, vocab=V)
-    err21 = 0
-    for ties in (False, True):
-        err21 += mismatches(torch, k21.diverse_select(cons8, tok8, bs, ties=ties, **kw21),
-                            k21.diverse_select_plain(cons8, tok8, bs, ties=ties, **kw21))
     wide = lp.reshape(B, K, V)
-    err21 += mismatches(torch, k21.diverse_select(wide, None, bs, mask=corpus, **kw21),
-                        k21.diverse_select_plain(wide, None, bs, mask=corpus, **kw21))
-    if err21:
-        fail(f"diverse_select differs from its plain version ({err21} elements)")
+    err21 = err21w = 0
+    for pen in (0.0, 0.5):
+        for ties in (False, True):
+            kw = dict(groups=3, penalty=pen, eos=eos, vocab=V, ties=ties)
+            want = k21.diverse_select_plain(cons8, tok8, bs, **kw)
+            for force in (None, "chunked"):
+                err21 += mismatches(torch, k21.diverse_select(cons8, tok8, bs, force=force, **kw),
+                                    want)
+            want = k21.diverse_select_plain(wide, None, bs, mask=corpus, **kw)
+            for force in (None, "chunked"):
+                err21w += mismatches(torch, k21.diverse_select(wide, None, bs, mask=corpus,
+                                                               force=force, **kw), want)
+    kw21 = dict(groups=3, penalty=0.5, eos=eos, vocab=V)
+    per_call = {
+        "wide": kernels_per_call(torch, lambda: k21.diverse_select(wide, None, bs, mask=corpus,
+                                                                   **kw21)),
+        "list": kernels_per_call(torch, lambda: k21.diverse_select(cons8, tok8, bs, **kw21)),
+        "chunked": kernels_per_call(torch, lambda: k21.diverse_select(
+            wide, None, bs, mask=corpus, force="chunked", **kw21))}
+    proof = k21.proof_failures(dev)
+    routes = {r: k21.route(B, K, n, groups=3, penalty=0.5, vocab=V, wide=w)[0]
+              for r, n, w in (("wide", V, True), ("list", n8["diverse"], False))}
+    log(f"diverse_select routes: {routes}; kernels a call {per_call} (want wide 2, list 1, "
+        f"chunked 6); survivors a group on the wide route {k21.wide_survivors(K, 3, 0.5)}; "
+        f"proof counter {proof}")
+    if err21 or err21w:
+        fail(f"diverse_select differs from its plain version ({err21} list, {err21w} wide "
+             "elements)")
+    if per_call != {"wide": 2, "list": 1, "chunked": 6} or proof or routes != {
+            "wide": "wide", "list": "list"}:
+        fail(f"diverse_select: kernels a call {per_call}, proof counter {proof}, routes {routes}")
+    # the list route against the chunked one by a group's slots (3 groups of
+    # 5 beams: 320, 1,280, 4,100 and 16,380 slots; each forced, the default
+    # named: the list route up to LIST_MAX), each call held to the plain
+    # version; graph-replayed ms a call
+    gl = torch.Generator(device=dev).manual_seed(21)
+    cells21, err21s = [], 0
+    for n in (64, 256, 820, 3276):
+        cl = torch.where(torch.rand(B, K, n, generator=gl, device=dev) < 0.7,
+                         torch.round(torch.randn(B, K, n, generator=gl, device=dev) * 4) / 4 - 3,
+                         k8.NEG_INF)
+        tl = torch.randint(0, V, (B, K, n), generator=gl, device=dev, dtype=torch.int32)
+        want = k21.diverse_select_plain(cl, tl, bs, **kw21)
+        ms = {}
+        for force in ("list", "chunked"):
+            err21s += mismatches(torch, k21.diverse_select(cl, tl, bs, force=force, **kw21), want)
+            ms[force] = graph_ms(lambda f=force: k21.diverse_select(cl, tl, bs, force=f, **kw21))
+        name = k21.route(B, K, n, groups=3, penalty=0.5, vocab=V, wide=False)[0]
+        cells21.append(f"{K // 3 * n} ({name}): list {ms['list']:.4f}, chunked "
+                       f"{ms['chunked']:.4f}")
+    log(f"diverse_select by slots a group, [B, K] = [{B}, {K}] in 3 groups (graph ms): "
+        + "; ".join(cells21))
+    if err21s:
+        fail(f"diverse_select differs from its plain version on wider lists ({err21s} elements)")
     table.append(dict(
         name="diverse_select", max_abs_err=err21, library_ms=None,
         ms=time_ms(lambda: k21.diverse_select(cons8, tok8, bs, **kw21)),
+        graph_ms=graph_ms(lambda: k21.diverse_select(cons8, tok8, bs, **kw21)),
         plain_ms=time_ms(lambda: k21.diverse_select_plain(cons8, tok8, bs, **kw21)),
         ties_ms=time_ms(lambda: k21.diverse_select(cons8, tok8, bs, ties=True, **kw21)),
-        wide_ms=time_ms(lambda: k21.diverse_select(wide, None, bs, mask=corpus, **kw21)),
-        wide_plain_ms=time_ms(lambda: k21.diverse_select_plain(wide, None, bs, mask=corpus,
-                                                               **kw21), iters=3),
-        shape=f"[{B},{K},{n8['diverse']}] in 3 groups (ties_ms: exact_ties; wide_ms: [{B},{K},"
-              f"{V}] under a corpus mask)",
+        chunked_ms=time_ms(lambda: k21.diverse_select(cons8, tok8, bs, force="chunked", **kw21)),
+        chunked_graph_ms=graph_ms(lambda: k21.diverse_select(cons8, tok8, bs, force="chunked",
+                                                             **kw21)),
+        kernels_per_call=per_call["list"],
+        shape=f"[{B},{K},{n8['diverse']}] in 3 groups, the list route (ties_ms: exact_ties; "
+              "chunked_ms: the chunked route forced)",
         # candidates (score, token) and beam scores in, the eight outputs
         bytes=rows * n8["diverse"] * 8 + rows * 4 + B * (2 * K * 13 + K * 13),
+    ))
+    table.append(dict(
+        name="diverse_select_wide", max_abs_err=err21w, library_ms=None,
+        ms=time_ms(lambda: k21.diverse_select(wide, None, bs, mask=corpus, **kw21)),
+        graph_ms=graph_ms(lambda: k21.diverse_select(wide, None, bs, mask=corpus, **kw21)),
+        plain_ms=time_ms(lambda: k21.diverse_select_plain(wide, None, bs, mask=corpus, **kw21),
+                         iters=3),
+        nopen_ms=time_ms(lambda: k21.diverse_select(wide, None, bs, mask=corpus,
+                                                    **{**kw21, "penalty": 0.0})),
+        ties_ms=time_ms(lambda: k21.diverse_select(wide, None, bs, mask=corpus, ties=True,
+                                                   **kw21)),
+        chunked_ms=time_ms(lambda: k21.diverse_select(wide, None, bs, mask=corpus,
+                                                      force="chunked", **kw21)),
+        chunked_graph_ms=graph_ms(lambda: k21.diverse_select(wide, None, bs, mask=corpus,
+                                                             force="chunked", **kw21), launches=5),
+        kernels_per_call=per_call["wide"], proof_failures=k21.proof_failures(dev),
+        shape=f"[{B},{K},{V}] in 3 groups under a corpus mask, penalty 0.5, the wide route "
+              f"(top {k21.wide_survivors(K, 3, 0.5)} a group; nopen_ms: penalty 0; chunked_ms: "
+              "the chunked route forced)",
+        # the rows once, the mask, the beam scores, the eight outputs
+        bytes=rows * V * 4 + V + rows * 4 + B * (2 * K * 13 + K * 13),
     ))
     torch.cuda.synchronize()
     return table
@@ -2079,11 +2225,14 @@ def _ban_even_tokens(logits, cur_len):
 def small_mode_parity(np, torch):
     """The decode modes on a tiny model and corpus, on the card against the
     port's CPU path: free generation, speculative, forced BOS, the top-k
-    warper, a ban-even-tokens hook, sampling (one seed) and diverse groups;
-    under ``topk=1`` free generation collapses every query to one path."""
+    warper, a ban-even-tokens hook, sampling (one seed) and diverse groups,
+    and on the compact and hybrid layouts ``exact_mask`` and diverse groups
+    with and without it; under ``topk=1`` free generation collapses every
+    query to one path."""
     from seal_tpu_torch.decoding.generate import fm_index_generate, pad_batch
     from seal_tpu_torch.index.device_index import TorchFMIndex
     from seal_tpu_torch.index.fm_index import FMIndex
+    from seal_tpu_torch.index.wavelet import WaveletIndex
     from seal_tpu_torch.models import bart
     from seal_tpu_torch.models.config import bart_tiny
 
@@ -2111,7 +2260,9 @@ def small_mode_parity(np, torch):
              "diverse_dense": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5, exact_mask=True),
              "diverse_ties": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5, exact_ties=True)}
     n = 0
-    for name, extra in modes.items():
+
+    def parity(name, idx, extra):
+        nonlocal n
         out = {dev: fm_index_generate(cfg, p, idx[dev], ids, mask, **{**base, **extra})
                for dev, p in (("cpu", params_cpu), ("cuda", params_gpu))}
         for a, b in zip(out["cpu"], out["cuda"]):
@@ -2121,6 +2272,17 @@ def small_mode_parity(np, torch):
             elif ka and max(abs(x[1] - y[1]) for x, y in zip(ka, kb)) > 1e-4:
                 fail(f"small mode parity ({name}): scores differ by > 1e-4")
             n += len(kb)
+        return out
+
+    # the wavelet layouts under the dense parity mode and diverse groups:
+    # kernel 16's walk and kernel 21's wide and list routes
+    for layout in ("compact", "hybrid"):
+        wix = {dev: WaveletIndex.from_host(host, vocab=96, keep_bwt=layout == "hybrid",
+                                           device=dev) for dev in ("cpu", "cuda")}
+        for name in ("exact_mask", "diverse", "diverse_dense"):
+            parity(f"{name}_{layout}", wix, modes.get(name, dict(exact_mask=True)))
+    for name, extra in modes.items():
+        out = parity(name, idx, extra)
         if name == "free_topk1":
             # one live beam: every hypothesis is a prefix of the longest
             for h in out["cuda"]:
@@ -3321,6 +3483,7 @@ def main() -> int:
         "log_softmax_topk": triton_logsoftmax.THRESHOLD,
         "sample_select": sample_select.sample_select,
         "diverse_select": diverse_select.diverse_select,
+        "diverse_select_wide": diverse_select.ROUTES["wide"],
         "beam_candidates": beam_select.beam_candidates,
         "self_attention_step_t5": decode_attention.self_attention_step_rel,
         "fm_search_sharded": fm_search.fm_search_sharded,
@@ -3839,7 +4002,8 @@ def main() -> int:
     t0 = time.perf_counter()
     n_small_modes = small_mode_parity(np, torch)
     log(f"small-input mode parity (card vs CPU plain path: free, speculative, forced BOS, topk, "
-        f"hook, topk=1 free, sample, diverse): {n_small_modes} keys compared; phase wall "
+        f"hook, topk=1 free, sample, diverse; on the compact and hybrid layouts exact_mask, "
+        f"diverse and diverse exact_mask): {n_small_modes} keys compared; phase wall "
         f"{time.perf_counter() - t0:.1f} s")
     # ---- constrained sampling and diverse groups at the generation point ----
     # modes, not the operating point: counted and timed as the decode modes
@@ -3929,7 +4093,8 @@ def main() -> int:
     dkw = dict(diverse_bs_groups=3, diverse_bs_penalty=0.5)
     dv_hyps, c, nb, mode_qps["diverse"] = run_mode("generate_diverse", **dkw)
     n = c["decode_steps"]
-    expect("generate_diverse", c, {"diverse_select": n, "beam_candidates": n - nb})
+    expect("generate_diverse", c, {"diverse_select": n, "beam_candidates": n - nb,
+                                   "diverse_select_wide": nb})
     dv_canon = canon_of(dv_hyps)
     n_kd = hyp_keys(dv_hyps, "generate_diverse")
     dv_same = {}
@@ -3944,7 +4109,7 @@ def main() -> int:
     n = c["decode_steps"]
     expect("generate_diverse_dense", c, {"diverse_select": n, "fm_dense_counts": n - nb,
                                          "dense_scores": n - nb, "beam_candidates": 0,
-                                         "beam_merge": 0})
+                                         "beam_merge": 0, "diverse_select_wide": n})
     n_kd += hyp_keys(dd_hyps, "generate_diverse_dense")
     dv_same["exact_mask"] = canon_of(dd_hyps) == dv_canon
     if not dv_same["exact_mask"]:
@@ -4252,7 +4417,10 @@ def main() -> int:
                                    "long_graph_ms", "long_library_graph_ms", "long_bound_ms",
                                    "long_tol_ratio", "bf16_graph_ms", "loop_chunk_ms",
                                    "group_graph_ms", "composed_ms", "composed_graph_ms", "block_ms",
-                                   "block_graph_ms", "beam32_ms", "cand_ms", "n_buf_3000_ms")
+                                   "block_graph_ms", "beam32_ms", "cand_ms", "n_buf_3000_ms",
+                                   "chunked_ms", "chunked_graph_ms", "nopen_ms",
+                                   "kernels_per_call", "proof_failures", "walk_ms",
+                                   "hybrid_walk_ms", "hybrid_graph_ms")
                if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}

@@ -178,8 +178,10 @@ def main() -> int:
               + "; ".join(cells), flush=True)
 
     # 2. the phases
-    lib = _build("row_topk_trace", _instrumented(open(os.path.join(build.CSRC, "row_topk.cu")).read()),
-                 build)
+    # the select kernel lives in radix_topk.cuh: inlined, then instrumented
+    src = open(os.path.join(build.CSRC, "row_topk.cu")).read().replace(
+        '#include "radix_topk.cuh"\n', open(os.path.join(build.CSRC, "radix_topk.cuh")).read())
+    lib = _build("row_topk_trace", _instrumented(src), build)
     lib.seal_row_topk.argtypes = build.SIGNATURES["seal_row_topk"]
     lib.seal_row_topk_trace.argtypes = [ctypes.c_void_p]
     for label, rows, n, k in SITES:
@@ -188,7 +190,7 @@ def main() -> int:
         vals = torch.empty(rows, k, device="cuda")
         idx = torch.empty(rows, k, dtype=torch.int64, device="cuda")
         for _ in range(2):
-            rc = lib.seal_row_topk(x.data_ptr(), rows, n, k, *p.launch, vals.data_ptr(),
+            rc = lib.seal_row_topk(x.data_ptr(), rows, n, k, *p.launch, None, vals.data_ptr(),
                                    idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"instrumented row_topk: CUDA error {rc}")

@@ -31,12 +31,22 @@ bf16 over the 1.2M-token corpus, batch 32, beam 15):
    host's cost included) and graph-replayed (20 calls in one CUDA graph,
    the device time), ms a call, with CUDA events; beside them the floor:
    one eager one-element ``zero_()`` and the same kernel graph-replayed.
+   Kernel 16's walk and histogram thresholds on both layouts where the
+   checkout has the walk (the parent's rank route where it has not); kernel 3 at its call sites' shapes; kernel 21 in 3
+   groups at penalty 0.5 on a [32, 15, 64] candidate list (both orders)
+   and on V-wide [32, 15, 50265] rows under a corpus mask (both orders,
+   and at penalty 0), and, where the checkout has its routes, its chunked
+   route forced on both.
 2. The Psi and the compact layout's batches at the generation point,
    taken before 1, ahead of any CUDA graph capture in the process, and
    again after 1's captures (``*_after_graphs``): five batches' wall ms
    after a warm-up batch, and one profiled batch's device ms, wall ms and
    kernel launches, with the device ms and calls of each index kernel (1,
-   2, 12-14) and of kernel 8 (their kernels' names).
+   2, 12-14) and of kernel 8 (their kernels' names); then one profiled
+   batch each of ``generate_dense_compact`` (``exact_mask`` on the compact
+   layout), ``generate_diverse`` and ``generate_diverse_dense`` (3 groups
+   at penalty 0.5 on the Psi index): device ms, launches and the top
+   kernels' device ms and calls.
 3. Where the checkout has the fused step (``constrained._step_window``),
    before 1 as well: 15 pairs of batches on each of the two layouts,
    alternated in the process with the step as the parent launched it (two
@@ -140,6 +150,29 @@ def profiled(ix, runs=5):  # runs batches' walls after a warm-up, then one profi
 
 # the batches first, before any CUDA graph is captured in this process
 batches = {"psi_batch": profiled(index), "compact_batch": profiled(layouts["compact"])}
+
+# one profiled batch of each path that launches kernels 16 and 21, after a
+# warm-up: the dense parity mode on the compact layout, diverse groups (3 of
+# 5 at penalty 0.5) on the Psi index with and without it; the top kernels'
+# device ms and calls
+DIVERSE = dict(diverse_bs_groups=3, diverse_bs_penalty=0.5)
+for path, ix, extra in (("generate_dense_compact", layouts["compact"], dict(exact_mask=True)),
+                        ("generate_diverse", index, DIVERSE),
+                        ("generate_diverse_dense", index, dict(DIVERSE, exact_mask=True))):
+    def run(ix=ix, extra=extra):
+        generate.fm_index_generate(cfg, params, ix, ids, mask, **kw, **extra)
+        torch.cuda.synchronize()
+    run()
+    p = bench_generate.profile_batch(run)
+    by = {}
+    for r in p["top"]:  # names cut to 80 characters, their rows summed
+        key = r["name"].replace("(anonymous namespace)::", "")[:80]
+        ms, n = by.get(key, (0.0, 0))
+        by[key] = (ms + r["ms"], n + r["calls"])
+    batches[path] = {"batch_device_ms": p["device_busy_ms"], "batch_wall_ms": p["wall_ms"],
+                     "batch_launches": p["kernels"],
+                     "by_kernel": {k: {"ms": ms, "calls": n} for k, (ms, n) in
+                                   sorted(by.items(), key=lambda kv: -kv[1][0])[:20]}}
 
 # where the checkout has the fused step, batches alternated in this process
 # with the step as the parent launched it (the window, merge_round's bounds
@@ -320,6 +353,55 @@ for name, wix in layouts.items():
     calls[f"k14 bucket counts [32,15] {name}"] = (
         lambda wix=wix: k14.wt_bucket_counts(wix, lo, hi))
     calls[f"k16 dense counts [32,15] {name}"] = lambda wix=wix: k12.wt_dense_counts(wix, lo, hi)
+# kernel 16's routes where the checkout has the walk: every non-empty range
+# walked, and the histogram's thresholds; the parent's rank route
+for name, wix in layouts.items():
+    if hasattr(k12, "WALK_CAP"):
+        calls[f"k16 walk [32,15] {name}"] = (
+            lambda wix=wix: k12.wt_dense_counts(wix, lo, hi, hist_max=0))
+        for h in (1 << 6, 1 << 8, 1 << 10, 1 << 12, 1 << 14):  # the histogram's threshold
+            calls[f"k16 hist_max {h} [32,15] {name}"] = (
+                lambda wix=wix, h=h: k12.wt_dense_counts(wix, lo, hi, hist_max=h))
+    else:
+        calls[f"k16 rank route [32,15] {name}"] = (
+            lambda wix=wix: k12.wt_dense_counts(wix, lo, hi, hist_max=0))
+# kernel 3 at its call sites' shapes (its select is shared with kernel 21's
+# wide route where the checkout has it): [480, 50265] at k = 64 and 256,
+# step 0's [32, 50265] at k = 30, the dense [32, 753975] at k = 30
+from seal_tpu_torch.kernels import row_topk as k3
+dense_rows = torch.where(rbool(0.02, (B, K * V)), lp[:B].repeat(1, K), -3.4e38)
+for label, x3, k in (("[480,50265] k=64", lp, 64), ("[480,50265] k=256", lp, 256),
+                     ("[32,50265] k=30", lp[:B].contiguous(), 30),
+                     ("[32,753975] k=30", dense_rows, 30)):
+    calls[f"k3 {label}"] = lambda x3=x3, k=k: k3.row_topk(x3, k)
+# kernel 21: 3 groups at penalty 0.5 on a [32, 15, 64] candidate list (the
+# list route) and on step 0's V-wide rows under a corpus mask (the wide
+# route), in both orders and at penalty 0; where the checkout has the
+# routes, the chunked route (every call's route before them) forced
+from seal_tpu_torch.kernels import diverse_select as k21
+cons64 = torch.where(rbool(0.7, (B, K, 64)),
+                     torch.round(torch.randn(B, K, 64, generator=g, device=dev) * 4) / 4 - 3,
+                     tc.NEG_INF)
+tok64 = rint(0, 40, (B, K, 64))
+tok64[..., -2] = eos
+bs21 = torch.round(torch.randn(B, K, generator=g, device=dev) * 2) / 2 - 3
+wide21 = lp.reshape(B, K, V)
+corpus = rbool(0.8, (V,))
+kw21 = dict(groups=3, penalty=0.5, eos=eos, vocab=V)
+calls["k21 list [32,15,64]"] = lambda: k21.diverse_select(cons64, tok64, bs21, **kw21)
+calls["k21 list ties [32,15,64]"] = (
+    lambda: k21.diverse_select(cons64, tok64, bs21, ties=True, **kw21))
+calls["k21 wide [32,15,50265]"] = (
+    lambda: k21.diverse_select(wide21, None, bs21, mask=corpus, **kw21))
+calls["k21 wide ties [32,15,50265]"] = (
+    lambda: k21.diverse_select(wide21, None, bs21, mask=corpus, ties=True, **kw21))
+calls["k21 wide penalty 0 [32,15,50265]"] = (
+    lambda: k21.diverse_select(wide21, None, bs21, mask=corpus, **{**kw21, "penalty": 0.0}))
+if hasattr(k21, "ROUTES"):
+    calls["k21 chunked list [32,15,64]"] = (
+        lambda: k21.diverse_select(cons64, tok64, bs21, force="chunked", **kw21))
+    calls["k21 chunked wide [32,15,50265]"] = (
+        lambda: k21.diverse_select(wide21, None, bs21, mask=corpus, force="chunked", **kw21))
 one = torch.empty(1, device=dev)
 calls["floor: one-element zero_()"] = lambda: one.zero_()
 out = {name: {"ms": eager(fn), "graph_ms": graphed(fn)} for name, fn in calls.items()}
@@ -327,6 +409,8 @@ out = {name: {"ms": eager(fn), "graph_ms": graphed(fn)} for name, fn in calls.it
 batches["psi_batch_after_graphs"] = profiled(index)
 batches["compact_batch_after_graphs"] = profiled(layouts["compact"])
 
+if hasattr(k21, "proof_failures"):
+    batches["k21_proof_failures"] = k21.proof_failures(dev)
 print(json.dumps({"kernels": out, **batches}))
 """
 

@@ -9,14 +9,23 @@ source is newer than it (the scheme of ``seal_tpu/cpp/native.py``).
 Every C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into
 an exception.
+
+    python -m seal_tpu_torch.kernels.build --ptxas SOURCE [MATCH [THREADS]]
+
+prints ``nvcc -Xptxas -v``'s resources of each kernel instance of a source
+(:func:`ptxas_report`), one JSON line each.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import os
+import re
 import shutil
 import subprocess
+import sys
+import tempfile
 import threading
 import time
 
@@ -30,9 +39,10 @@ SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu", "bucket_counts.cu"
            "wt_window.cu", "wt_bucket_counts.cu", "dense_scores.cu", "locate.cu",
            "row_select.cu", "sample_select.cu", "diverse_select.cu")
 # included by the wt_*.cu sources, by fm_search.cu and wt_search.cu, by
-# beam_select.cu, diverse_select.cu and row_topk.cu, and by beam_select.cu
-# and row_topk.cu
-HEADERS = ("wt_common.cuh", "dense_counts.cuh", "select_common.cuh", "global_sort.cuh")
+# beam_select.cu, diverse_select.cu and row_topk.cu, by beam_select.cu and
+# row_topk.cu, and by row_topk.cu and diverse_select.cu
+HEADERS = ("wt_common.cuh", "dense_counts.cuh", "select_common.cuh", "global_sort.cuh",
+           "radix_topk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -170,6 +180,17 @@ SIGNATURES = {
     # neg_inf, part_key, part_slot, 8 outputs, stream
     "seal_diverse_select": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P]
                            + [_P] * 9,
+    # cons, tokens, beam_scores, n_queries, K, N, G, eos, tie_bits, penalize,
+    # penalty, neg_inf, 8 outputs, stream
+    "seal_diverse_list": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _F] + [_P] * 9,
+    # cons, mask (None), beam_scores, n_queries, K, N, G, eos, tie_bits,
+    # penalize, penalty, neg_inf, M, launch 1's layout (kernels/row_topk.py:
+    # Plan.launch), top_val, top_idx, 8 outputs, stream
+    "seal_diverse_wide": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _F, _I]
+                         + [_I] * 8 + [_P] * 11,
+    # out (int [1] on the host): the wide route's proof counter on the
+    # current device
+    "seal_diverse_proof_failures": [_P],
 }
 # C functions that return a size rather than an error code
 SIZE_QUERIES = {"seal_beam_merge_smem": [_I, _I], "seal_beam_select_smem": [_I, _I, _I, _I],
@@ -178,11 +199,18 @@ SIZE_QUERIES = {"seal_beam_merge_smem": [_I, _I], "seal_beam_select_smem": [_I, 
                 "seal_beam_select_table_smem": [_I, _I, _I, _I, _I, _I],
                 "seal_decode_attention_smem": [_I, _I, _I],
                 "seal_row_topk_max_k": [], "seal_row_topk_bins_bytes": [],
-                "seal_diverse_chunks": [_I], "seal_diverse_smem": [_I, _I, _I]}
+                "seal_diverse_chunks": [_I], "seal_diverse_smem": [_I, _I, _I],
+                "seal_diverse_list_smem": [_I, _I, _I]}
 
 # shared memory one block may opt into on Hopper (the wrappers refuse shapes
 # that need more)
 SMEM_LIMIT = 227 * 1024
+
+# an SM's registers and threads (sm_90), and the registers a warp is
+# allocated in: they bound the blocks an SM holds (ptxas_report)
+SM_REGISTERS = 65536
+SM_THREADS = 2048
+WARP_REGISTER_UNIT = 256
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -275,3 +303,50 @@ def stream_ptr(t) -> int:
     side stream's, or the capturing stream's under ``torch.cuda.graph``),
     read without building a ``Stream`` object."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def ptxas_report(source: str, match: str = "", threads: int = 0) -> list[dict]:
+    """``nvcc -Xptxas -v``'s resources of each kernel instance of ``source``
+    (a file of ``csrc``) whose mangled name holds ``match``: its template's
+    integer arguments, registers a thread, stack frame and spill stores and
+    loads (bytes a thread) and, given ``threads`` a block, the blocks of
+    that size an SM's registers and threads allow."""
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                               os.path.join(tmp, "k.o"), os.path.join(CSRC, source)],
+                              capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    entries, frames, entry, fn = {}, {}, None, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry = m.group(1)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            fn = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            frames[fn] = [int(x) for x in m.groups()]
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry is not None:
+            entries[entry] = int(m.group(1))
+    rows = []
+    for name, regs in entries.items():
+        if match not in name:
+            continue
+        stack, stores, loads = frames.get(name, [0, 0, 0])
+        t = re.search(r"I((?:Li-?\d+E)+)E", name)
+        row = dict(kernel=name, template=[int(x) for x in re.findall(r"Li(-?\d+)E", t.group(1))]
+                   if t else [], registers=regs, stack_bytes=stack, spill_store_bytes=stores,
+                   spill_load_bytes=loads)
+        if threads:
+            per_warp = -(-regs * 32 // WARP_REGISTER_UNIT) * WARP_REGISTER_UNIT
+            row["blocks_an_sm"] = min(SM_THREADS // threads,
+                                      SM_REGISTERS // (threads // 32 * per_warp))
+        rows.append(row)
+    return rows
+
+
+if __name__ == "__main__":
+    if len(sys.argv) < 3 or sys.argv[1] != "--ptxas":
+        sys.exit("usage: python -m seal_tpu_torch.kernels.build --ptxas SOURCE [MATCH [THREADS]]")
+    for r in ptxas_report(sys.argv[2], *sys.argv[3:4], *[int(x) for x in sys.argv[4:5]]):
+        print(json.dumps(r))

@@ -34,6 +34,32 @@ constexpr int SHIFT = 1;  // real token ids are stored +1; 0 is the sentinel
 constexpr int THREADS = 512;
 constexpr int SLICE = 8192;  // tokens a block counts: a 32 KB shared histogram
 
+// The histogram route for tokens [t0, t1) of rows [r0, r1) (clamped to the
+// index): a shared histogram of SLICE ints, written to row_out[t0, t1).
+// Both routes run in blocks of THREADS.
+template <typename Layout>
+__device__ void hist_slice(const Layout& ix, int r0, int r1, int t0, int t1, int* row_out,
+                           int* hist) {
+  for (int i = threadIdx.x; i < t1 - t0; i += THREADS) hist[i] = 0;
+  __syncthreads();
+  for (int row = r0 + threadIdx.x; row < r1; row += THREADS) {
+    const int tok = ix.symbol(row) - SHIFT;
+    if (tok >= t0 && tok < t1) atomicAdd(hist + (tok - t0), 1);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < t1 - t0; i += THREADS) row_out[t0 + i] = hist[i];
+}
+
+// The rank route for tokens [t0, t1) of the range [l, h): both bounds'
+// ranks a token.
+template <typename Layout>
+__device__ void rank_slice(const Layout& ix, int l, int h, int t0, int t1, int* row_out) {
+  for (int t = t0 + threadIdx.x; t < t1; t += THREADS) {
+    const int c = t + SHIFT;
+    row_out[t] = ix.valid(c) ? max(ix.rank(c, h) - ix.rank(c, l), 0) : 0;
+  }
+}
+
 template <typename Layout>
 __global__ void __launch_bounds__(THREADS, Layout::MIN_BLOCKS)
 dense_counts_kernel(Layout ix, const int* __restrict__ lo, const int* __restrict__ hi,
@@ -46,19 +72,9 @@ dense_counts_kernel(Layout ix, const int* __restrict__ lo, const int* __restrict
   int* row_out = out + r * vocab;
   const int r0 = min(max(l, 0), ix.n_rows), r1 = min(max(h, 0), ix.n_rows);
   if (r1 - r0 <= hist_max) {
-    for (int i = threadIdx.x; i < t1 - t0; i += THREADS) hist[i] = 0;
-    __syncthreads();
-    for (int row = r0 + threadIdx.x; row < r1; row += THREADS) {
-      const int tok = ix.symbol(row) - SHIFT;
-      if (tok >= t0 && tok < t1) atomicAdd(hist + (tok - t0), 1);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < t1 - t0; i += THREADS) row_out[t0 + i] = hist[i];
+    hist_slice(ix, r0, r1, t0, t1, row_out, hist);
   } else {
-    for (int t = t0 + threadIdx.x; t < t1; t += THREADS) {
-      const int c = t + SHIFT;
-      row_out[t] = ix.valid(c) ? max(ix.rank(c, h) - ix.rank(c, l), 0) : 0;
-    }
+    rank_slice(ix, l, h, t0, t1, row_out);
   }
 }
 

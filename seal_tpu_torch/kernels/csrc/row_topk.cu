@@ -65,486 +65,12 @@
 // bucket holds most of the slice: all -inf, all NEG_INF, a plateau), those
 // steps re-read the tail instead: bounded and exact.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "global_sort.cuh"
-#include "select_common.cuh"
-
-namespace cg = cooperative_groups;
+#include "radix_topk.cuh"
 
 namespace {
-
-constexpr int MAX_WARPS = 32;  // of a 1024-thread CTA (512 or 1024 threads)
-constexpr int NB = 2048;        // bins of an 11-bit digit
-constexpr int UNROLL = 4;       // 16-byte loads in flight a thread while staging
-constexpr int RANK_MAX = 512;   // k up to which the output is placed by rank, not sorted
-constexpr unsigned FULL = 0xffffffffu;
-// the bins: the cluster's totals of the three passes (2048, 2048, 1024)
-// and this CTA's histogram
-constexpr int TOT1 = NB, TOT2 = 2 * NB, HIST = 2 * NB + NB / 2;
-constexpr int BINS_BYTES = 4 * (HIST + NB);  // 28 KB
-
-struct Threshold {
-  unsigned prefix, rank;
-};
-
-__device__ __forceinline__ unsigned order_key(float v) {
-  const unsigned u = __float_as_uint(v);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ u64 word(unsigned key, long long i) {
-  return ((u64)key << 32) | (u64)(~(unsigned)i);
-}
-
-// The cluster barrier, split so that a CTA can work between its arrival
-// and its wait; a cluster of one CTA takes the block barrier.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void sync_cluster(int C) {
-  if (C == 1) {
-    __syncthreads();
-  } else {
-    cluster_arrive();
-    cluster_wait();
-  }
-}
-
-// Count `digit` (< 0: no key) in the shared histogram.  Every lane of the
-// warp calls it.  A warp whose keys share one digit (a -inf or NEG_INF
-// row, a plateau) adds them in one atomic; otherwise each lane adds its
-// own (log-prob rows spread a warp over several bins, and a match of equal
-// digits costs more than the few collisions).
-__device__ __forceinline__ void hist_add(unsigned* hist, int digit, int lane) {
-  const int d0 = __shfl_sync(FULL, digit, 0);
-  if (__all_sync(FULL, digit == d0)) {
-    if (lane == 0 && d0 >= 0) atomicAdd(&hist[d0], 32u);
-  } else if (digit >= 0) {
-    atomicAdd(&hist[digit], 1u);
-  }
-}
-
-// Append the taking lanes' words to the leader's buffer (warp-aggregated
-// remote atomics).  Every lane of the warp calls it.
-__device__ __forceinline__ void append(u64* buf0, unsigned* fill0, bool take, unsigned key,
-                                       long long i, int lane) {
-  const unsigned ball = __ballot_sync(FULL, take);
-  if (!ball) return;
-  unsigned base = 0;
-  if (lane == 0) base = atomicAdd(fill0, (unsigned)__popc(ball));
-  base = __shfl_sync(FULL, base, 0);
-  if (take) buf0[base + __popc(ball & ((1u << lane) - 1u))] = word(key, i);
-}
-
-// Every thread of a CTA: the bin of the cluster's totals `tot` (nb bins, in
-// the leader's shared memory) where the count from the top reaches `rank`,
-// into `out`.  Thread t reads the nb / THREADS bins below
-// nb - t * nb / THREADS, and a block-wide scan of their sums finds the
-// thread whose bins hold the rank.
-template <int THREADS>
-__device__ void find_bin(const unsigned* tot, int nb, int shift, unsigned prefix, unsigned rank,
-                         unsigned* warp_sum, Threshold* out) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = nb / THREADS;  // 1, 2 or 4
-  const int top = nb - 1 - per * tid;
-  unsigned c[4] = {0, 0, 0, 0};  // this thread's bins, the highest first
-  if (per == 4) {
-    const uint4 v = *(const uint4*)(tot + top - 3);
-    c[0] = v.w, c[1] = v.z, c[2] = v.y, c[3] = v.x;
-  } else if (per == 2) {
-    const uint2 v = *(const uint2*)(tot + top - 1);
-    c[0] = v.y, c[1] = v.x;
-  } else {
-    c[0] = tot[top];
-  }
-  const unsigned sum = c[0] + c[1] + c[2] + c[3];
-  unsigned incl = sum;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const unsigned t = __shfl_up_sync(FULL, incl, off);
-    if (lane >= off) incl += t;
-  }
-  if (lane == 31) warp_sum[warp] = incl;
-  __syncthreads();
-  unsigned acc = incl - sum;
-  for (int w = 0; w < warp; ++w) acc += warp_sum[w];
-  if (acc < rank && rank <= acc + sum) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (acc + c[j] >= rank) {
-        out->prefix = prefix | ((unsigned)(top - j) << shift);
-        out->rank = rank - acc;
-        break;
-      }
-      acc += c[j];
-    }
-  }
-  __syncthreads();
-}
-
-// Descending bitonic sort of n2 (a power of two, >= 32 E) unique words in
-// shared memory; padding words are 0 and sort last.  The first n2 / E
-// threads (whole warps) hold E consecutive words each in registers: strides
-// below E compare within a thread, strides below 32 E across the lanes of
-// a warp, and only wider strides go through shared memory.
-template <int E>
-__device__ void sort_words(u64* w, int n2) {
-  const int t = threadIdx.x;
-  const bool on = t < n2 / E;
-  u64 r[E];
-  __syncthreads();  // the caller's writes
-  if (on) {
-#pragma unroll
-    for (int e = 0; e < E; ++e) r[e] = w[t * E + e];
-  }
-  for (int size = 2; size <= n2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (stride >= 32 * E) {
-        __syncthreads();
-        if (on) {
-#pragma unroll
-          for (int e = 0; e < E; ++e) w[t * E + e] = r[e];
-        }
-        __syncthreads();
-      }
-      if (!on) continue;
-      if (stride < E) {
-        // s runs over the compile-time strides, so r stays in registers
-#pragma unroll
-        for (int s = E / 2; s > 0; s >>= 1) {
-          if (s != stride) continue;
-#pragma unroll
-          for (int e = 0; e < E; ++e) {
-            if ((e & s) == 0) {
-              const bool desc = ((t * E + e) & size) == 0;
-              const u64 a = r[e], b = r[e + s];
-              if (desc ? a < b : a > b) {
-                r[e] = b;
-                r[e + s] = a;
-              }
-            }
-          }
-        }
-      } else {
-        const int lm = stride / E;  // the partner's lane (or thread) offset
-        const bool lower = (t & lm) == 0;
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const int i = t * E + e;
-          const u64 p = stride < 32 * E ? __shfl_xor_sync(FULL, r[e], lm) : w[i ^ stride];
-          const bool keep_max = lower == ((i & size) == 0);
-          r[e] = keep_max ? (p > r[e] ? p : r[e]) : (p < r[e] ? p : r[e]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  if (on) {
-#pragma unroll
-    for (int e = 0; e < E; ++e) w[t * E + e] = r[e];
-  }
-  __syncthreads();
-}
-
-// E words a thread: up to 4 a thread, then 8; a wider buffer (k past
-// 8 * THREADS / 2) sorts in shared memory.  (k <= RANK_MAX places each
-// survivor by its rank instead.)
-template <int THREADS>
-__device__ void sort_survivors(u64* w, int n2) {
-  if (n2 <= 4 * THREADS) return sort_words<4>(w, n2);
-  if (n2 <= 8 * THREADS) return sort_words<8>(w, n2);
-  sort_desc<false>(w, nullptr, n2);
-}
-
-// x [rows, width]; CTA c of a row's cluster owns [c * slice, +slice) and
-// stages its first `staged` keys.  Dynamic shared memory: the bins
-// (BINS_BYTES; the leader's output buffer of n2 words reuses the first two
-// passes' totals, or follows the bins where n2 > 2048), then the staged
-// keys (rounded up to 4) from byte `region`, then `cap` candidates.
-template <int THREADS>
-__global__ void __launch_bounds__(THREADS, 1024 / THREADS)
-row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int staged, int cap,
-                int n2, int region, u64* __restrict__ gbuf, float* __restrict__ vals,
-                long long* __restrict__ idx) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Threshold s_res;
-  __shared__ unsigned s_fill, s_ncand, s_red, s_take;
-  __shared__ unsigned warp_tot[MAX_WARPS];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks();
-  const int c = (int)cluster.block_rank();
-  const bool leader = c == 0;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long row = blockIdx.x / C;
-
-  unsigned* bins = (unsigned*)smem;
-  unsigned* hist = bins + HIST;
-  // the survivors' buffer: the leader's shared memory, or (gbuf) the row's
-  // global scratch, which every CTA of the row writes directly
-  u64* buf = gbuf != nullptr ? gbuf + row * n2
-                             : (u64*)(8 * n2 <= 4 * TOT2 ? smem : smem + BINS_BYTES);
-  unsigned* skey = (unsigned*)(smem + region);
-  u64* scand = (u64*)(skey + ((staged + 3) & ~3));
-  unsigned* bins0 = cluster.map_shared_rank(bins, 0);
-  u64* buf0 = gbuf != nullptr ? buf : cluster.map_shared_rank(buf, 0);
-  unsigned* fill0 = cluster.map_shared_rank(&s_fill, 0);
-
-  const long long s0 = (long long)c * slice;
-  const int L = (int)max(0LL, min((long long)width, s0 + slice) - s0);
-  const int S = min(L, staged);  // keys staged in shared memory
-  const float* xr = x + row * width + s0;
-
-  {
-    uint4* z = (uint4*)(leader ? bins : hist);
-    const int n4 = (leader ? HIST + NB : NB) / 4;
-    for (int b = tid; b < n4; b += THREADS) z[b] = make_uint4(0, 0, 0, 0);
-  }
-  if (tid == 0) {
-    s_fill = 0;
-    s_ncand = 0;
-  }
-  __syncthreads();
-  // arrive now, wait after the first histogram: the leader's totals are
-  // zero, and every CTA has started, before the first remote access
-  if (C > 1) cluster_arrive();
-
-  bool cand_ok = false;  // the tail's candidates are in scand
-  unsigned prefix = 0, mask = 0, rank = (unsigned)k;
-  for (int pass = 0; pass < 3; ++pass) {
-    const int shift = pass == 0 ? 21 : pass == 1 ? 10 : 0;
-    const int nb = pass == 2 ? NB / 2 : NB;
-    const unsigned dmask = (unsigned)nb - 1u;
-    if (pass > 0) {
-      for (int b = tid; b < nb; b += THREADS) hist[b] = 0;
-      __syncthreads();
-    }
-    if (pass == 0) {
-      // stage the slice: scalar head to 16-byte alignment and scalar
-      // remainder in one round, then UNROLL float4 loads a thread a round
-      int h = (int)(((16 - ((unsigned long long)xr & 15)) & 15) >> 2);
-      h = min(h, S);
-      const int nvec = (S - h) >> 2;
-      const int rem = S - h - 4 * nvec;
-      {
-        const int e = tid < h ? tid : (tid < h + rem ? h + 4 * nvec + (tid - h) : -1);
-        int digit = -1;
-        if (e >= 0) {
-          const unsigned key = order_key(__ldg(xr + e));
-          skey[e] = key;
-          digit = (int)(key >> 21);
-        }
-        hist_add(hist, digit, lane);
-      }
-      const float4* xv = (const float4*)(xr + h);
-      for (int base = 0; base < nvec; base += THREADS * UNROLL) {
-        float4 v[UNROLL];
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int q = base + u * THREADS + tid;
-          v[u] = q < nvec ? __ldg(xv + q) : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int q = base + u * THREADS + tid;
-          const bool ok = q < nvec;
-          const float f[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            int digit = -1;
-            if (ok) {
-              const unsigned key = order_key(f[t]);
-              skey[h + 4 * q + t] = key;
-              digit = (int)(key >> 21);
-            }
-            hist_add(hist, digit, lane);
-          }
-        }
-      }
-    } else {
-      // the staged keys, four a thread
-      const uint4* sk4 = (const uint4*)skey;
-      const int nq = (S + 3) >> 2;
-      for (int base = 0; base < nq; base += THREADS) {
-        const int q = base + tid;
-        uint4 kk = make_uint4(0, 0, 0, 0);
-        if (q < nq) kk = sk4[q];
-        const unsigned ks[4] = {kk.x, kk.y, kk.z, kk.w};
-        bool ok[4], any = false;
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          ok[t] = q < nq && 4 * q + t < S && (ks[t] & mask) == prefix;
-          any |= ok[t];
-        }
-        if (!__any_sync(FULL, any)) continue;  // most warps: no key in the bucket
-#pragma unroll
-        for (int t = 0; t < 4; ++t) hist_add(hist, ok[t] ? (int)((ks[t] >> shift) & dmask) : -1, lane);
-      }
-    }
-    // the tail past the staged keys: from device memory, or the candidates
-    if (pass == 2 && cand_ok) {
-      const int n = (int)s_ncand;
-      for (int base = 0; base < n; base += THREADS) {
-        const int j = base + tid;
-        const unsigned key = j < n ? (unsigned)(scand[j] >> 32) : 0u;
-        const bool ok = j < n && (key & mask) == prefix;
-        hist_add(hist, ok ? (int)((key >> shift) & dmask) : -1, lane);
-      }
-    } else {
-      for (int base = S; base < L; base += THREADS) {
-        const int i = base + tid;
-        const unsigned key = i < L ? order_key(__ldg(xr + i)) : 0u;
-        const bool ok = i < L && (key & mask) == prefix;
-        hist_add(hist, ok ? (int)((key >> shift) & dmask) : -1, lane);
-        if (pass == 1 && cand_ok) {
-          // keys at or above the first threshold digit: the candidates
-          const bool keep = i < L && (key & 0xffe00000u) >= (prefix & 0xffe00000u);
-          const unsigned ball = __ballot_sync(FULL, keep);
-          if (ball) {
-            unsigned at = 0;
-            if (lane == 0) at = atomicAdd(&s_ncand, (unsigned)__popc(ball));
-            at = __shfl_sync(FULL, at, 0);
-            if (keep) scand[at + __popc(ball & ((1u << lane) - 1u))] = word(key, s0 + i);
-          }
-        }
-      }
-    }
-    __syncthreads();
-    // the cluster's totals in the leader: this pass's own bins (a cluster
-    // of one reads its histogram)
-    const int tot_at = pass == 0 ? 0 : pass == 1 ? TOT1 : TOT2;
-    const unsigned* tot = hist;
-    if (C > 1) {
-      if (pass == 0) cluster_wait();
-      for (int b = tid; b < nb; b += THREADS) {
-        const unsigned v = hist[b];
-        if (v) atomicAdd(bins0 + tot_at + b, v);
-      }
-      sync_cluster(C);
-      tot = bins0 + tot_at;
-    }
-    find_bin<THREADS>(tot, nb, shift, prefix, rank, warp_tot, &s_res);
-    prefix = s_res.prefix;
-    rank = s_res.rank;
-    mask |= dmask << shift;
-    if (pass == 0 && S < L) {
-      // the candidates fit if this slice's keys at or above the first
-      // threshold digit do
-      if (tid == 0) s_red = 0;
-      __syncthreads();
-      unsigned n = 0;
-      for (int b = (int)(prefix >> 21) + tid; b < NB; b += THREADS) n += hist[b];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) n += __shfl_xor_sync(FULL, n, off);
-      if (lane == 0 && n) atomicAdd(&s_red, n);
-      __syncthreads();
-      cand_ok = s_red <= (unsigned)cap;
-    }
-    __syncthreads();  // s_res and the histogram are read before they change
-  }
-  // prefix is T; the top k holds every key above it and the first `rank`
-  // of the keys equal to it, in index order over the slices: this CTA's
-  // share follows the counts of the CTAs before it (their last histograms)
-  const unsigned T = prefix;
-  const unsigned my_eq = hist[T & 1023u];
-  if (tid == 0) {
-    long long before = 0;
-    for (int r = 0; r < c; ++r) before += cluster.map_shared_rank(hist, r)[T & 1023u];
-    const long long t = (long long)rank - before;
-    s_take = (unsigned)(t < 0 ? 0 : (t > (long long)my_eq ? (long long)my_eq : t));
-  }
-  __syncthreads();
-  const unsigned take_eq = s_take;
-
-  if (take_eq == 0 || take_eq == my_eq) {
-    const bool all_eq = take_eq != 0;
-    const uint4* sk4 = (const uint4*)skey;
-    const int nq = (S + 3) >> 2;
-    for (int base = 0; base < nq; base += THREADS) {
-      const int q = base + tid;
-      uint4 kk = make_uint4(0, 0, 0, 0);
-      if (q < nq) kk = sk4[q];
-      const unsigned ks[4] = {kk.x, kk.y, kk.z, kk.w};
-      bool take[4], any = false;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        take[t] = q < nq && 4 * q + t < S && (ks[t] > T || (all_eq && ks[t] == T));
-        any |= take[t];
-      }
-      if (!__any_sync(FULL, any)) continue;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) append(buf0, fill0, take[t], ks[t], s0 + 4 * q + t, lane);
-    }
-    if (cand_ok) {
-      const int n = (int)s_ncand;
-      for (int base = 0; base < n; base += THREADS) {
-        const int j = base + tid;
-        const u64 w = j < n ? scand[j] : 0ull;
-        const unsigned key = (unsigned)(w >> 32);
-        const bool take = j < n && (key > T || (all_eq && key == T));
-        append(buf0, fill0, take, key, key_slot(w), lane);
-      }
-    } else {
-      for (int base = S; base < L; base += THREADS) {
-        const int i = base + tid;
-        const unsigned key = i < L ? order_key(__ldg(xr + i)) : 0u;
-        append(buf0, fill0, i < L && (key > T || (all_eq && key == T)), key, s0 + i, lane);
-      }
-    }
-  } else {
-    // a partial share of the equal keys: the first take_eq in index order
-    unsigned seen = 0;
-    for (int base = 0; base < L; base += THREADS) {
-      const int i = base + tid;
-      unsigned key = 0;
-      if (i < L) key = i < S ? skey[i] : order_key(__ldg(xr + i));
-      const bool is_eq = i < L && key == T;
-      const unsigned ball = __ballot_sync(FULL, is_eq);
-      if (lane == 0) warp_tot[warp] = __popc(ball);
-      __syncthreads();
-      unsigned before = seen + __popc(ball & ((1u << lane) - 1u)), chunk = 0;
-      for (int w = 0; w < THREADS / 32; ++w) {
-        if (w < warp) before += warp_tot[w];
-        chunk += warp_tot[w];
-      }
-      __syncthreads();
-      seen += chunk;
-      append(buf0, fill0, i < L && (key > T || (is_eq && before < take_eq)), key, s0 + i, lane);
-    }
-  }
-  // every survivor is in the leader's buffer, and no CTA reads another's
-  // histogram any more
-  sync_cluster(C);
-  if (!leader) return;
-  if (gbuf != nullptr) {  // padding for the global sort (the survivors fill [0, k))
-    for (int j = k + tid; j < n2; j += THREADS) buf[j] = 0ull;
-    return;
-  }
-  if (k <= RANK_MAX) {
-    // each survivor's place is the number of survivors above it (words are
-    // unique): k read passes over the buffer, cheaper than a sort at small k
-    if (tid < k) {
-      const u64 wi = buf[tid];
-      int above = 0;
-#pragma unroll 4
-      for (int j = 0; j < k; ++j) above += buf[j] > wi;
-      vals[row * k + above] = key_value(wi);
-      idx[row * k + above] = (long long)key_slot(wi);
-    }
-    return;
-  }
-  for (int j = k + tid; j < n2; j += THREADS) buf[j] = 0ull;
-  sort_survivors<THREADS>(buf, n2);
-  for (int j = tid; j < k; j += THREADS) {
-    const u64 w = buf[j];
-    vals[row * k + j] = key_value(w);
-    idx[row * k + j] = (long long)key_slot(w);
-  }
-}
 
 // ---- the global sort of the large-k route (global_sort.cuh) -------------
 // its last pass writes each row's first k words as values and indices
@@ -558,58 +84,12 @@ struct TopkOut {
   }
 };
 
-template <int THREADS>
-int launch(const float* x, long long n_rows, int width, int k, int splits, int slice, int staged,
-           int cap, int n2, int region, int smem, u64* gbuf, float* vals, long long* idx,
-           cudaStream_t stream) {
-  const auto kernel = row_topk_kernel<THREADS>;
-  // the kernel's attributes, set once a device (the host path is part of a
-  // small call's time): the shared memory opted into so far, all of the
-  // SM's 228 KB as shared memory so that several CTAs fit, and clusters of
-  // 16
-  constexpr int MAX_DEVICES = 64;
-  static int smem_set[MAX_DEVICES], wide_set[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = smem;
-  }
-  if (splits > 8 && !wide_set[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-    wide_set[dev] = 1;
-  }
-  if (splits == 1) {
-    // a cluster of one CTA: a plain launch (cudaLaunchKernelEx with a
-    // cluster attribute costs the host more)
-    kernel<<<(unsigned)n_rows, THREADS, smem, stream>>>(x, width, k, slice, staged, cap, n2,
-                                                        region, gbuf, vals, idx);
-    err = cudaGetLastError();
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(n_rows * splits));
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = (size_t)smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = (unsigned)splits;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, kernel, x, width, k, slice, staged, cap, n2, region, gbuf,
-                             vals, idx);
-    if (err == cudaSuccess) err = cudaGetLastError();
-  }
-  if (err != cudaSuccess || gbuf == nullptr) return (int)err;
+int launch(const float* x, long long n_rows, int width, int k, int threads, int splits, int slice,
+           int staged, int cap, int n2, int region, int smem, u64* gbuf, float* vals,
+           long long* idx, cudaStream_t stream) {
+  const int err = radix_topk(x, n_rows, width, k, threads, splits, slice, staged, cap, n2, region,
+                             smem, gbuf, vals, idx, RawValue{}, stream);
+  if (err || gbuf == nullptr) return err;
   return global_sort(gbuf, n_rows, n2, k, TopkOut{vals, idx, k}, stream);
 }
 
@@ -637,12 +117,8 @@ int seal_row_topk(const float* x, long long n_rows, int width, int k, int thread
       (scratch == nullptr) != (k <= seal_row_topk_max_k()) ||
       (scratch != nullptr && (n2 < k || n2 % GTILE != 0)))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (threads == 1024)
-    return launch<1024>(x, n_rows, width, k, splits, slice, staged, cap, n2, region, smem,
-                        scratch, vals, idx, s);
-  return launch<512>(x, n_rows, width, k, splits, slice, staged, cap, n2, region, smem, scratch,
-                     vals, idx, s);
+  return launch(x, n_rows, width, k, threads, splits, slice, staged, cap, n2, region, smem, scratch,
+                vals, idx, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -153,27 +153,234 @@ sequences_kernel(Index ix, const int* __restrict__ tokens, const int* __restrict
 
 // Kernel 16: replaces seal_tpu/ops/wt_ops.py:dense_counts (:237) through
 // seal_tpu/ops/_generic.py:dense_counts (:75) and wt_ops.validate_tokens
-// (:180).  The histogram route reads each row's symbol (one read of the
-// hybrid layout's raw BWT, or the compact layout's descent); the rank route
-// descends both bounds.  The validity gate is the true alphabet `sigma`,
-// not the wider `sigma_bound` the digits are sized for.
+// (:180): the count of every token over each range [lo, hi).  One launch,
+// one block per (range, slice of dense_counts.cuh's SLICE tokens), on one
+// of two routes:
+//
+// * histogram, a range of at most hist_max rows: the block reads the
+//   range's rows (one read of the hybrid layout's raw BWT, or the compact
+//   layout's descent) into a shared histogram of its slice
+//   (dense_counts.cuh).
+// * walk, a wider one: the range's distinct symbols, listed top-down with
+//   their counts (sdsl's interval_symbols, behind the reference SEAL's
+//   FMIndex::distinct_count), by the row's first block alone where the
+//   whole walk fits the frontier's room (most decode ranges hold few
+//   symbols), else by each block over the symbols of its slice.  The block
+//   zeroes its tokens with 16-byte stores, then walks the 16-ary tree level
+//   by level from the root, each level's frontier of (prefix, lo, hi) nodes
+//   in shared memory, two nodes a warp, lane d of a node's 16 on digit d.
+//   The digit's count in the node is the codes between the node's two
+//   bounds where both fall in one 256-row block (most deep nodes: a word
+//   or two), else the difference of the two bounds' ranks, each counted
+//   from its block's nearer end (the directory word of the block or of the
+//   next); a child with a nonzero count whose symbols meet the slice joins
+//   the next level with its local range (the lower rank less node_cnt, as
+//   rank<L> descends).  The last level writes each count at token c - 1,
+//   for c in the slice and below sigma (the true alphabet, not
+//   sigma_bound; tokens start at 0, past the sentinel c = 0, and end at the
+//   vocab).  A slice of 8,192 symbols meets at most 556 nodes at up to 5
+//   digits (slice_nodes: within the room, asserted for every instance),
+//   where a rank of every token would take 2 x 8,192 L-level ranks.
+//
+// Both routes give Occ(c, hi) - Occ(c, lo) for each token (0 for an empty
+// or inverted range; positions clamped to [0, n_rows] as block_of clamps
+// them), so each equals the plain sweep exactly, whatever order the walk
+// writes in: every symbol is written once, by the block of its slice.
+// Bound on the card: the [ranges, vocab] int32 output.
 template <int BWT_BYTES, int L>
 struct WtDense {
-  // the hybrid layout (a raw BWT) histograms all but the widest ranges and
-  // wants 3 blocks an SM (at most 40 registers a thread): uncapped, its
-  // unrolled descents take 62 registers at 4 digits, 2 blocks fit, and its
-  // histogram route runs a quarter slower on an H100; the compact layout's
-  // descent-bound routes run faster uncapped (python -m
-  // seal_tpu_torch.bench_select, "k16 dense counts")
-  static constexpr int MIN_BLOCKS = BWT_BYTES ? 3 : 1;
+  // 3 blocks of 512 an SM (at most 40 registers a thread): the hybrid
+  // layout's histogram route ran a quarter slower at 2, and the walk, bound
+  // by its dependent block reads, runs fastest at 3 of the 1 to 4 tried on
+  // an H100 (python -m seal_tpu_torch.bench_select, "k16 walk")
+  static constexpr int MIN_BLOCKS = 3;
   Index ix;
   const void* bwt;
   int n_rows;
 
-  __device__ bool valid(int c) const { return c >= 1 && c < ix.sigma; }
-  __device__ int rank(int c, int pos) const { return seal_wt::rank<L>(ix, c, pos); }
   __device__ int symbol(int row) const { return seal_wt::symbol_at<BWT_BYTES>(ix, bwt, row); }
 };
+
+constexpr int WALK_CAP = 1024;  // frontier nodes a block holds: 12 KB of shared memory
+constexpr int DENSE_SMEM = 4 * seal_dense::SLICE;  // the histogram, or the frontier
+static_assert(12 * WALK_CAP <= DENSE_SMEM, "the frontier shares the histogram's room");
+
+// The most nodes the walk of one slice can visit at L digits, whatever the
+// range: a level-l prefix drops 4(L - l) bits, and SLICE consecutive
+// symbols hold at most (SLICE >> bits) + 2 distinct such prefixes.
+__host__ __device__ constexpr int slice_nodes(int L) {
+  int total = 0;
+  for (int l = 0; l < L; ++l) total += (seal_dense::SLICE >> (seal_wt::DIGIT_BITS * (L - l))) + 2;
+  return total;
+}
+
+// Nodes the walk of a range of `rows` rows can visit in the slice of
+// symbols [c_lo, c_hi): a level-l node is a distinct l-digit prefix of a
+// symbol in the range, and the walk keeps only prefixes that meet the slice.
+template <int L>
+__device__ int walk_nodes(int rows, int c_lo, int c_hi) {
+  int total = 0;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const int below = seal_wt::DIGIT_BITS * (L - l);  // bits a level-l prefix drops
+    total += min(((c_hi - 1) >> below) - (c_lo >> below) + 1, rows);
+  }
+  return total;
+}
+
+// Zero n ints at row (4-byte aligned): a scalar head to 16 bytes, then
+// 16-byte stores.
+__device__ __forceinline__ void zero_ints(int* row, int n) {
+  const int head = min(n, (int)(((16 - ((unsigned long long)row & 15)) & 15) >> 2));
+  for (int i = threadIdx.x; i < head; i += blockDim.x) row[i] = 0;
+  int4* v = reinterpret_cast<int4*>(row + head);
+  const int nv = (n - head) >> 2;
+  for (int i = threadIdx.x; i < nv; i += blockDim.x) v[i] = make_int4(0, 0, 0, 0);
+  for (int i = head + 4 * nv + threadIdx.x; i < n; i += blockDim.x) row[i] = 0;
+}
+
+// Occurrences of digit d at offsets [wa, wb) of the block at blk,
+// 0 <= wa <= wb <= 256: the matched nibbles of the code words between,
+// read 16 bytes at a time.
+__device__ __forceinline__ int count_between(const uint32_t* blk, int wa, int wb, int d) {
+  if (wb <= wa) return 0;
+  const uint32_t pat = (uint32_t)d * 0x11111111u;
+  const uint4* codes = reinterpret_cast<const uint4*>(blk + seal_wt::RADIX);
+  int cnt = 0;
+  for (int q = wa >> 5; q <= (wb - 1) >> 5; ++q) {  // 32 offsets a 16-byte load
+    const uint4 v = __ldg(codes + q);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int at = 32 * q + 8 * k;  // the word's first offset
+      const int lo = min(max(wa - at, 0), 8), hi = min(max(wb - at, 0), 8);
+      const uint32_t below_hi = hi == 8 ? 0xffffffffu : (1u << (4 * hi)) - 1u;
+      const uint32_t keep = below_hi & ~((1u << (4 * lo)) - 1u);
+      cnt += __popc(seal_wt::match_nibbles(w[k], pat) & keep);
+    }
+  }
+  return cnt;
+}
+
+// Occ of digit d before level position x (clamped as block_of clamps it),
+// counted from the nearer end of its block: the block's directory word
+// plus the codes before x, or the next block's directory word less the
+// codes from x on (every block but the last holds 256 positions).
+__device__ __forceinline__ int rank_near(const Index& ix, int level, int x, int d) {
+  const uint32_t* blk = seal_wt::block_of(ix, level, x);
+  const int w = x & 255;
+  if (w > 128 && (x >> 8) + 1 < ix.n_blocks)
+    return (int)__ldg(blk + seal_wt::WORDS_PER_BLOCK + d) - count_between(blk, w, 256, d);
+  return (int)__ldg(blk + d) + count_between(blk, 0, w, d);
+}
+
+// The walk of rows [r0, r1) (clamped, non-empty) over the symbols
+// [c_lo, c_hi) into row_out (indexed by token; the caller zeroed those
+// tokens before a barrier).  s_pre / s_lo / s_hi hold the frontier, every
+// level appended after the last (at most WALK_CAP nodes: walk_nodes, and
+// slice_nodes for a slice).  Two nodes a warp, lane d of a node's 16 on
+// digit d: the digit's count in the node is the codes between the two
+// bounds where both fall in one block (most nodes of the deep levels: a
+// word or two), else the difference of the two ranks, each from its
+// block's nearer end; a child's local range also needs the lower rank, the
+// last level only the count.
+template <int L>
+__device__ void walk_slice(const Index& ix, int r0, int r1, int c_lo, int c_hi, int* row_out,
+                           int* s_pre, int* s_lo, int* s_hi) {
+  __shared__ int s_fill;
+  const unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31, d = lane & 15;
+  const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  if (threadIdx.x == 0) {
+    s_pre[0] = 0;
+    s_lo[0] = r0;
+    s_hi[0] = r1;
+    s_fill = 1;
+  }
+  __syncthreads();
+  int beg = 0, end = 1;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const int base = seal_wt::heap_base(l);
+    const int below = seal_wt::DIGIT_BITS * (L - 1 - l);  // bits a child's prefix drops
+    for (int i0 = beg + 2 * warp; i0 < end; i0 += 2 * n_warps) {  // two nodes a warp
+      const int i = i0 + (lane >> 4);
+      int c = 0, clo = 0, cnt = 0;
+      if (i < end) {
+        const int pre = s_pre[i];
+        const int node = base + pre;
+        const int start = __ldg(ix.node_start + node);
+        const int xl = min(max(start + s_lo[i], 0), ix.n_rows);
+        const int xh = min(max(start + s_hi[i], 0), ix.n_rows);
+        const bool one_block = (xl >> 8) == (xh >> 8);
+        const int rl = (l < L - 1 || !one_block) ? rank_near(ix, l, xl, d) : 0;
+        if (one_block) {
+          const uint32_t* blk = ix.blocks + ((long long)l * ix.n_blocks + (xl >> 8)) *
+                                                seal_wt::WORDS_PER_BLOCK;
+          cnt = count_between(blk, xl & 255, xh & 255, d);
+        } else {
+          cnt = rank_near(ix, l, xh, d) - rl;
+        }
+        if (l < L - 1) clo = rl - __ldg(ix.node_cnt + (long long)node * seal_wt::RADIX + d);
+        c = (pre << seal_wt::DIGIT_BITS) | d;  // the child's prefix (last level: symbol)
+      }
+      const bool take = i < end && cnt > 0 && (c << below) < c_hi && ((c + 1) << below) > c_lo;
+      if (l == L - 1) {
+        if (take) row_out[c - seal_wt::SHIFT] = cnt;
+      } else {
+        const unsigned ball = __ballot_sync(FULL, take);
+        if (ball) {
+          int at = 0;
+          if (lane == 0) at = atomicAdd(&s_fill, __popc(ball));
+          at = __shfl_sync(FULL, at, 0) + __popc(ball & ((1u << lane) - 1u));
+          // the node bound keeps a valid index's walk inside the room; the
+          // check keeps a corrupt index's inside shared memory
+          if (take && at < WALK_CAP) {
+            s_pre[at] = c;
+            s_lo[at] = clo;
+            s_hi[at] = clo + cnt;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    beg = end;
+    end = min(s_fill, WALK_CAP);
+    __syncthreads();  // every thread has read s_fill before the next level adds to it
+  }
+}
+
+template <int BWT_BYTES, int L>
+__global__ void __launch_bounds__(seal_dense::THREADS, WtDense<BWT_BYTES, L>::MIN_BLOCKS)
+wt_dense_kernel(WtDense<BWT_BYTES, L> ix, const int* __restrict__ lo, const int* __restrict__ hi,
+                int* __restrict__ out, int vocab, int hist_max) {
+  static_assert(slice_nodes(L) <= WALK_CAP, "a slice's walk fits the frontier's room");
+  extern __shared__ int s_dense[];  // the histogram, or the frontier (3 x WALK_CAP ints)
+  const long long r = blockIdx.x;
+  const int t0 = blockIdx.y * seal_dense::SLICE;
+  const int t1 = min(t0 + seal_dense::SLICE, vocab);
+  const int l = lo[r], h = hi[r];
+  int* row_out = out + r * vocab;
+  const int r0 = min(max(l, 0), ix.n_rows), r1 = min(max(h, 0), ix.n_rows);
+  if (r1 - r0 <= hist_max) {
+    seal_dense::hist_slice(ix, r0, r1, t0, t1, row_out, s_dense);
+    return;
+  }
+  // a range whose whole walk fits the room is walked by the row's first
+  // block alone (most decode ranges hold few symbols: one walk, not one a
+  // slice); a wider one a slice a block.  Tokens [a, b) are symbols t + 1
+  const int c_all = min(vocab + seal_wt::SHIFT, ix.ix.sigma);
+  const bool whole =
+      c_all > seal_wt::SHIFT && walk_nodes<L>(r1 - r0, seal_wt::SHIFT, c_all) <= WALK_CAP;
+  if (whole && blockIdx.y != 0) return;
+  const int a = whole ? 0 : t0, b = whole ? vocab : t1;
+  const int c_lo = a + seal_wt::SHIFT, c_hi = min(b + seal_wt::SHIFT, ix.ix.sigma);
+  zero_ints(row_out + a, b - a);
+  if (c_hi <= c_lo) return;
+  __syncthreads();
+  walk_slice<L>(ix.ix, r0, r1, c_lo, c_hi, row_out, s_dense, s_dense + WALK_CAP,
+                s_dense + 2 * WALK_CAP);
+}
 
 unsigned blocks_for(long long threads) {
   return (unsigned)((threads + THREADS - 1) / THREADS);
@@ -255,17 +462,18 @@ extern "C" int seal_wt_dense_counts(const uint32_t* blocks, const int* node_star
                                     long long n, int vocab, int hist_max, void* stream) {
   const Index ix{blocks, node_start, node_cnt, C, n_blocks, n_rows, digits, sigma};
   cudaStream_t s = (cudaStream_t)stream;
+  if (bwt != nullptr && bwt_bytes != 2 && bwt_bytes != 4) return (int)cudaErrorInvalidValue;
   return seal_wt::with_digits(digits, [&](auto D) {
     constexpr int L = decltype(D)::value;
-    if (bwt == nullptr)
-      return seal_dense::launch_dense_counts(WtDense<0, L>{ix, bwt, n_rows}, lo, hi, out, n,
-                                             vocab, hist_max, s);
-    if (bwt_bytes == 2)
-      return seal_dense::launch_dense_counts(WtDense<2, L>{ix, bwt, n_rows}, lo, hi, out, n,
-                                             vocab, hist_max, s);
-    if (bwt_bytes == 4)
-      return seal_dense::launch_dense_counts(WtDense<4, L>{ix, bwt, n_rows}, lo, hi, out, n,
-                                             vocab, hist_max, s);
-    return (int)cudaErrorInvalidValue;
+    if (n <= 0 || vocab <= 0) return (int)cudaGetLastError();
+    const dim3 grid((unsigned)n, (unsigned)((vocab + seal_dense::SLICE - 1) / seal_dense::SLICE));
+    const auto launch = [&](auto layout) {
+      wt_dense_kernel<<<grid, seal_dense::THREADS, DENSE_SMEM, s>>>(layout, lo, hi, out, vocab,
+                                                                     hist_max);
+      return (int)cudaGetLastError();
+    };
+    if (bwt == nullptr) return launch(WtDense<0, L>{ix, bwt, n_rows});
+    if (bwt_bytes == 2) return launch(WtDense<2, L>{ix, bwt, n_rows});
+    return launch(WtDense<4, L>{ix, bwt, n_rows});
   });
 }

@@ -19,7 +19,11 @@ token of the vocab over each range in one launch and replaces
 ``validate_tokens`` sweep of ``seal_tpu/ops/_generic.py:dense_counts``
 (:75); a range of at most ``hist_max`` rows counts its rows' symbols (the
 hybrid layout's raw BWT, or the compact layout's descent), a wider one
-descends both bounds of every token (``csrc/dense_counts.cuh``).
+lists its distinct symbols with their counts by walking the 16-ary tree
+top-down, by one block where the whole walk fits the frontier's room
+(``WALK_CAP`` nodes), else a block a slice of the vocab (sdsl's
+``interval_symbols``; :func:`wt_dense_counts_walk_plain` mirrors it in
+numpy).
 
 The plain PyTorch versions below are the specification: the CPU path and
 the reference the kernel is held to on the card (integer results, so
@@ -33,6 +37,7 @@ the source.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from seal_tpu_torch.index.fm_index import SHIFT
@@ -47,13 +52,15 @@ ADVANCE = Launches()  # wt_search launches in the step mode (wt_advance)
 # tokens
 MAX_DIGITS = 5
 _FN = {}  # kernel 12's C entry points, looked up once
-# kernel 16's histogram route up to these many rows: one read a row of the
-# hybrid layout's raw BWT, a descent of ``digits`` levels a row without it.
-# The wavelet rank route costs 2 x ``digits`` dependent levels for every
-# token of the vocab, so the hybrid layout histograms all but the widest
-# ranges (a sweep at the generation point on an H100: ``chip_smoke.py``'s
-# "dense counts by histogram threshold" line)
-HIST_MAX_ROWS = {"hybrid": 1 << 20, "compact": 1 << 14}
+# kernel 16's histogram route up to these many rows (one read a row of the
+# hybrid layout's raw BWT, a descent of ``digits`` levels a row without
+# it), the walk past them: two block reads a visited node of the tree, at
+# most ~550 nodes a block's slice of the vocab.  Chosen by a sweep at the
+# generation point on an H100 (``chip_smoke.py``'s "dense counts by
+# histogram threshold" line)
+HIST_MAX_ROWS = {"hybrid": 1 << 18, "compact": 0}
+WALK_CAP = 1024  # frontier nodes the walk holds a block (csrc/wt_search.cu's WALK_CAP)
+SLICE = 8192  # tokens a block of kernel 16 counts (csrc/dense_counts.cuh)
 _WORD = 0xFFFFFFFF
 _ONES = 0x11111111  # bit 0 of each nibble
 
@@ -355,6 +362,71 @@ def dense_counts_plain(index, lo, hi, chunk: int = 4096):
     )
 
 
+def walk_nodes(digits: int, rows: int, c_lo: int, c_hi: int) -> int:
+    """Nodes the walk of a range of ``rows`` rows can visit over the
+    symbols [c_lo, c_hi): a level-l node is a distinct l-digit prefix of a
+    symbol in the range, and the walk keeps the prefixes that meet them."""
+    return sum(min(((c_hi - 1) >> (DIGIT_BITS * (digits - lvl)))
+                   - (c_lo >> (DIGIT_BITS * (digits - lvl))) + 1, rows)
+               for lvl in range(digits))
+
+
+def _ranks_in_blocks(level_blocks, x, n_rows):
+    """Each digit's rank before level positions ``x`` [n]: [n, 16], from
+    the directory and the digits of the blocks, read out nibble by nibble."""
+    x = np.clip(x, 0, n_rows)
+    w = level_blocks[x >> 8]  # [n, 48]
+    digits = (w[:, RADIX:, None] >> (DIGIT_BITS * np.arange(8, dtype=np.uint32))) & 15
+    before = np.arange(256) < (x & 255)[:, None]  # [n, 256]
+    onehot = digits.reshape(len(x), 256, 1) == np.arange(RADIX)
+    return w[:, :RADIX].astype(np.int64) + (onehot & before[..., None]).sum(1)
+
+
+def wt_dense_counts_walk_plain(index, lo, hi):
+    """Kernel 16's walk in numpy over the index's arrays: int32 [...,
+    vocab].  For each range (each ``SLICE`` of tokens of a range whose
+    whole walk could outgrow ``WALK_CAP`` nodes), its distinct symbols
+    there level by level from the root: a node (prefix, lo, hi) ranks every
+    digit at both bounds, and each digit with a nonzero count whose symbols
+    meet the slice becomes a child; the last level's counts go to token
+    c - 1 (c in the slice, below ``sigma``).  A slice's walk always fits
+    the room (the kernel asserts its node bound)."""
+    blocks = index.blocks.cpu().numpy().view(np.uint32)
+    node_start = index.node_start.cpu().numpy().astype(np.int64)
+    node_cnt = index.node_cnt.cpu().numpy().astype(np.int64)
+    L, sigma, vocab, n_rows = index.digits, index.sigma, index.vocab, index.n_rows
+    lo_t = torch.as_tensor(lo, dtype=torch.int32)
+    hi_t = torch.as_tensor(hi, dtype=torch.int32)
+    lo_np, hi_np = lo_t.reshape(-1).numpy(), hi_t.reshape(-1).numpy()
+    out = np.zeros((lo_np.size, vocab), np.int32)
+    c_all = min(vocab + SHIFT, sigma)
+    for r, (a, b) in enumerate(zip(lo_np.tolist(), hi_np.tolist())):
+        r0, r1 = min(max(a, 0), n_rows), min(max(b, 0), n_rows)
+        if r1 <= r0:
+            continue
+        # one walk over the whole row where it fits the room, else a slice a walk
+        whole = c_all > SHIFT and walk_nodes(L, r1 - r0, SHIFT, c_all) <= WALK_CAP
+        for t0 in range(0, vocab, vocab if whole else SLICE):
+            t1 = vocab if whole else min(t0 + SLICE, vocab)
+            c_lo, c_hi = t0 + SHIFT, min(t1 + SHIFT, sigma)
+            if c_hi <= c_lo:
+                continue
+            pre, flo, fhi = np.zeros(1, np.int64), np.array([r0]), np.array([r1])
+            for lvl in range(L):
+                node = heap_base(lvl) + pre
+                start = node_start[node]
+                rl = _ranks_in_blocks(blocks[lvl], start + flo, n_rows) - node_cnt[node]
+                rh = _ranks_in_blocks(blocks[lvl], start + fhi, n_rows) - node_cnt[node]
+                c = (pre[:, None] << DIGIT_BITS) | np.arange(RADIX)
+                below = DIGIT_BITS * (L - 1 - lvl)
+                keep = (rh > rl) & ((c << below) < c_hi) & (((c + 1) << below) > c_lo)
+                if lvl == L - 1:
+                    out[r, c[keep] - SHIFT] = (rh - rl)[keep]
+                else:
+                    pre, flo, fhi = c[keep], rl[keep], rh[keep]
+    return torch.as_tensor(out).reshape(*lo_t.shape, vocab)
+
+
 def wt_dense_counts(index, lo, hi, chunk: int = 4096, hist_max=None):
     """Continuation count of every token ``0..index.vocab-1`` over ranges
     [lo, hi): int32 [..., vocab].
@@ -362,7 +434,9 @@ def wt_dense_counts(index, lo, hi, chunk: int = 4096, hist_max=None):
     CPU tensors run the plain version, ``chunk`` tokens at a time; CUDA
     tensors launch kernel 16 once for the whole vocab (``chunk`` has no
     effect there), which histograms ranges of at most ``hist_max`` rows
-    (default: the layout's ``HIST_MAX_ROWS``).
+    (default: the layout's ``HIST_MAX_ROWS``) and walks the wider ones, by
+    one block where the whole walk fits ``WALK_CAP`` nodes, else a block a
+    ``SLICE`` of tokens.
     """
     lo = torch.as_tensor(lo, dtype=torch.int32, device=index.device)
     hi = torch.as_tensor(hi, dtype=torch.int32, device=index.device)

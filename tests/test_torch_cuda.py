@@ -943,8 +943,8 @@ def test_wavelet_searcher_on_card_matches_cpu(cuda, layout):
         np.testing.assert_allclose([d.score for d in b], [d.score for d in a], rtol=1e-4)
 
 
-# kernel 15 and 16 routes: every non-empty range by rank, the default
-# threshold, every range by its rows' histogram
+# kernel 15 and 16 routes: every non-empty range by rank (kernel 16: by
+# the walk), the default threshold, every range by its rows' histogram
 ROUTES = {"rank": 0, "default": None, "histogram": 2**31 - 1}
 
 
@@ -966,12 +966,77 @@ def test_dense_counts_match_plain(cuda, name, layout, route):
         t = WaveletIndex.from_host(host, vocab=vocab, keep_bwt=layout == "hybrid", device=cuda)
         fn, plain = wt_search.wt_dense_counts, wt_search.dense_counts_plain
     hist_max = ROUTES[route]
+    kw = {} if hist_max is None else dict(hist_max=hist_max)
     n0 = fn.launches
-    got = fn(t, lo, hi) if hist_max is None else fn(t, lo, hi, hist_max=hist_max)
+    got = fn(t, lo, hi, **kw)
     assert fn.launches == n0 + 1
     want = plain(t, lo, hi, 4096)
     assert torch.equal(got, want)
     assert bool((got.sum(-1) <= (hi - lo).clamp(min=0)).all())
+
+
+def _graph_call(fn):
+    """``fn()``'s result from a replay of a CUDA graph that captured it
+    (after an eager warm-up on a side stream)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("layout", ["compact", "hybrid"])
+@pytest.mark.parametrize("name", sorted(WT_CASES))
+def test_wt_dense_walk_matches_plain(cuda, name, layout, graph):
+    """Kernel 16's walk (every non-empty range walked) and the layout's
+    default at 1 to 5 digits, eagerly and replayed from a CUDA graph:
+    full, empty, inverted, one-row and end-of-index ranges, the alphabet
+    past the vocab (d1); exactly the plain sweep and the walk's numpy
+    mirror."""
+    host = _wt_host(name)
+    vocab = WT_CASES[name][0] if name != "d1" else 12
+    rng = np.random.default_rng(vocab + 1)
+    lo, hi = _ranges(host, rng, n=24 if vocab < 1000 else 10)
+    N = host.size()
+    lo[3:6], hi[3:6] = torch.tensor([7, 0, N - 1]), torch.tensor([3, 1, N])  # inverted, one row
+    t = WaveletIndex.from_host(host, vocab=vocab, keep_bwt=layout == "hybrid", device=cuda)
+    want = wt_search.dense_counts_plain(t, lo, hi, 4096)
+    assert torch.equal(wt_search.wt_dense_counts_walk_plain(t, lo.cpu(), hi.cpu()), want.cpu())
+    for kw in (dict(hist_max=0), {}):
+        call = lambda kw=kw: wt_search.wt_dense_counts(t, lo, hi, **kw)  # noqa: E731
+        got = _graph_call(call) if graph else call()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["d4", "d5"])
+def test_wt_dense_walk_room_limit(cuda, name):
+    """A range whose whole walk fits the frontier's room is walked by one
+    block, a wider one a slice of the vocab a block: on a corpus of ~3,000
+    rows, ranges on both sides of the room's limit, exactly the plain
+    sweep."""
+    vocab, hi_sym, _ = WT_CASES[name]
+    rng = np.random.default_rng(vocab + 2)
+    host = FMIndex()
+    host.initialize([rng.integers(0, hi_sym, size=rng.integers(20, 80)).tolist()
+                     for _ in range(60)])
+    N = host.size()
+    t = WaveletIndex.from_host(host, vocab=vocab, device=cuda)
+    c_all = min(vocab + 1, t.sigma)
+    nodes = lambda rows: wt_search.walk_nodes(t.digits, rows, 1, c_all)  # noqa: E731
+    rows = max(r for r in range(1, N + 1) if nodes(r) <= wt_search.WALK_CAP)
+    assert rows < N  # the full range walks a slice a block
+    lo = torch.tensor([0, 0, 1, N - rows, 3], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([N, rows, rows + 2, N, N - 2], dtype=torch.int32, device=cuda)
+    want = wt_search.dense_counts_plain(t, lo, hi, 4096)
+    assert torch.equal(wt_search.wt_dense_counts(t, lo, hi, hist_max=0), want)
+    assert torch.equal(wt_search.wt_dense_counts_walk_plain(t, lo.cpu(), hi.cpu()), want.cpu())
 
 
 @pytest.mark.parametrize("case", ["plain", "branches"])
@@ -1403,10 +1468,121 @@ def test_diverse_select_matches_plain(cuda, case, ties):
     g = torch.Generator(device=cuda).manual_seed(21 + ties)
     cons, tokens, bs, mask = _diverse_inputs(g, case, cuda)
     kw = dict(groups=3, penalty=0.5, eos=2, ties=ties, vocab=50265, mask=mask)
-    n0 = diverse_select.diverse_select.launches
+    route = "wide" if case == "wide" else "list"
+    n0, r0 = diverse_select.diverse_select.launches, diverse_select.ROUTES[route].launches
     got = diverse_select.diverse_select(cons, tokens, bs, **kw)
     assert diverse_select.diverse_select.launches == n0 + 1
+    assert diverse_select.ROUTES[route].launches == r0 + 1
     _same(got, diverse_select.diverse_select_plain(cons, tokens, bs, **kw))
+    assert diverse_select.proof_failures(cuda) == 0
+
+
+# kernel 21's V-wide route at the bench point, one group, one beam a group,
+# and M (the survivors a group) at its limit of 512 and past it
+DIVERSE_WIDE = {"bench": (32, 15, 50265, 3), "one_group": (4, 15, 3000, 1),
+                "gs1": (4, 15, 3000, 15), "m512": (2, 256, 300, 128), "m516": (2, 258, 300, 129)}
+
+
+def _wide_inputs(g, B, K, V, cuda):
+    """V-wide rows crowded for the lemma: every beam's best columns are
+    the same few (each earlier pick's token among a group's best slots),
+    NEG_INF plateaus, -inf columns, EOS among the top."""
+    cons = torch.where(torch.rand(B, K, V, generator=g, device=cuda) < 0.7,
+                       _lp(g, B * K, V, cuda).reshape(B, K, V), tc.NEG_INF)
+    best = torch.randperm(V, generator=g, device=cuda)[:8]
+    cons[:, :, best] = torch.round(torch.randn(B, 1, 8, generator=g, device=cuda)) / 4
+    cons[:, :, 2] = 0.25  # EOS
+    bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
+    bs[:, 1::5] = tc.NEG_INF
+    return cons, bs, torch.rand(V, generator=g, device=cuda) < 0.8
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("penalty", [0.0, 0.5])
+@pytest.mark.parametrize("case", sorted(DIVERSE_WIDE))
+def test_diverse_select_wide_route_matches_plain(cuda, case, penalty, ties, masked):
+    """Kernel 21 on V-wide rows: the wide route (2 launches) up to M = 512,
+    the chunked one past it, bit for bit against the plain version and the
+    top-M mirror; the proof counter stays 0."""
+    B, K, V, G = DIVERSE_WIDE[case]
+    g = torch.Generator(device=cuda).manual_seed(len(case) + int(ties) + 2 * int(masked))
+    cons, bs, mask = _wide_inputs(g, B, K, V, cuda)
+    mask = mask if masked else None
+    kw = dict(groups=G, penalty=penalty, eos=2, ties=ties, vocab=V, mask=mask)
+    M = diverse_select.wide_survivors(K, G, penalty)
+    route, _ = diverse_select.route(B, K, V, groups=G, penalty=penalty, ties=ties, vocab=V,
+                                    wide=True)
+    assert route == ("wide" if M <= diverse_select.WIDE_MAX else "chunked")
+    r0 = diverse_select.ROUTES[route].launches
+    got = diverse_select.diverse_select(cons, None, bs, **kw)
+    assert diverse_select.ROUTES[route].launches == r0 + 1
+    want = diverse_select.diverse_select_plain(cons, None, bs, **kw)
+    _same(got, want)
+    mirror, short = diverse_select.diverse_select_topm_plain(cons, bs, **kw)
+    _same(mirror, want)
+    assert short == 0 and diverse_select.proof_failures(cuda) == 0
+
+
+@pytest.mark.parametrize("N,route", [(diverse_select.LIST_MAX // 2, "list"),
+                                     (diverse_select.LIST_MAX // 2 + 1, "chunked")])
+def test_diverse_select_list_route_limit(cuda, N, route):
+    """A token table takes the list route up to ``LIST_MAX`` slots a group
+    (two beams a group here) and the chunked route past it, where the list
+    route forced (for measurements) still serves; all exact, in both
+    orders."""
+    g = torch.Generator(device=cuda).manual_seed(N)
+    B, K, G = 3, 4, 2
+    cons = torch.where(torch.rand(B, K, N, generator=g, device=cuda) < 0.7,
+                       _lp(g, B * K, N, cuda).reshape(B, K, N), tc.NEG_INF)
+    tokens = torch.randint(0, 40, (B, K, N), generator=g, device=cuda, dtype=torch.int32)
+    bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
+    for ties in (False, True):
+        kw = dict(groups=G, penalty=0.5, eos=2, ties=ties, vocab=50265)
+        assert diverse_select.route(B, K, N, groups=G, penalty=0.5, ties=ties, vocab=50265,
+                                    wide=False)[0] == route
+        r0 = diverse_select.ROUTES[route].launches
+        got = diverse_select.diverse_select(cons, tokens, bs, **kw)
+        assert diverse_select.ROUTES[route].launches == r0 + 1
+        want = diverse_select.diverse_select_plain(cons, tokens, bs, **kw)
+        _same(got, want)
+        if route == "chunked":
+            _same(diverse_select.diverse_select(cons, tokens, bs, force="list", **kw), want)
+
+
+def _route_inputs(g, route, cuda):
+    """(cons, tokens, bs, kw) of a call on ``route``."""
+    if route == "list":
+        cons, tokens, bs, _ = _diverse_inputs(g, "candidates", cuda)
+        return cons, tokens, bs, dict(groups=3, penalty=0.5, eos=2, vocab=50265)
+    B, K, V, G = DIVERSE_WIDE["bench" if route == "wide" else "m516"]
+    cons, bs, mask = _wide_inputs(g, B, K, V, cuda)
+    return cons, None, bs, dict(groups=G, penalty=0.5, eos=2, vocab=V, mask=mask)
+
+
+@pytest.mark.parametrize("route", ["wide", "list", "chunked"])
+def test_diverse_select_routes_launches_and_graph(cuda, route):
+    """Each route's CUDA kernels a call (2, 1 and 2G, counted by the
+    profiler), and its outputs replayed from a CUDA graph equal the plain
+    version's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    cons, tokens, bs, kw = _route_inputs(g, route, cuda)
+    call = lambda: diverse_select.diverse_select(cons, tokens, bs, **kw)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    r0 = diverse_select.ROUTES[route].launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    assert diverse_select.ROUTES[route].launches == r0 + 1
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert len(kernels) == {"wide": 2, "list": 1, "chunked": 2 * kw["groups"]}[route], kernels
+    _same(_graph_call(call), diverse_select.diverse_select_plain(cons, tokens, bs, **kw))
+    assert diverse_select.proof_failures(cuda) == 0
 
 
 @pytest.mark.parametrize("n_buf,w,keep_invalid,with_buf", [(30, 32, False, True),
@@ -1446,6 +1622,8 @@ SAMPLE_MODES = {
     "diverse": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5),
     "diverse_dense": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5, exact_mask=True),
     "diverse_ties": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5, exact_ties=True),
+    "diverse_dense_ties": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5, exact_mask=True,
+                               exact_ties=True),
     "diverse_free": dict(diverse_bs_groups=2, diverse_bs_penalty=0.5, disable_fm_index=True),
 }
 

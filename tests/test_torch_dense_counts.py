@@ -5,7 +5,10 @@ against ``seal_tpu``'s, on the CPU (the kernels' plain versions).
 at 1, 2, 4 and 5 digits equals the JAX op exactly, with empty, full,
 end-of-index and sentinel ranges, a ``chunk`` that does not divide the
 vocab and a corpus alphabet wider than the model vocab; it also equals a
-histogram of each range's BWT rows, the kernels' other route.  Kernel 17's
+histogram of each range's BWT rows, the kernels' other route.  Kernel
+16's walk, mirrored in numpy, equals the JAX op on both wavelet layouts
+at every digit count, by one walk a range or, where the range's walk
+outgrows the frontier's room, one walk a slice.  Kernel 17's
 plain version equals JAX's branches, mask and beam-score add bit for bit.
 Kernel 8's plain ties order equals ``_top_by_score_then_id`` on rows with
 signed zeros, ``NEG_INF`` and repeated scores, and the ``_beam_tok_tie``
@@ -87,6 +90,48 @@ def test_wt_dense_counts_match_jax(name, keep_bwt):
     assert wt_search.wt_dense_counts.launches == n0
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(want, _histogram(host, lo, hi, vocab))
+
+
+@pytest.mark.parametrize("keep_bwt", [False, True])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_wt_dense_walk_mirror_matches_jax(name, keep_bwt):
+    """Kernel 16's walk (sdsl's interval_symbols over the 16-ary tree),
+    mirrored in numpy over the compact and hybrid arrays at 1, 2, 4 and 5
+    digits, equals ``wt_ops.dense_counts`` and the plain sweep: empty,
+    inverted, full and one-row ranges, the sentinel's row, a model vocab
+    two tokens short of the alphabet; and, on a corpus of ~1,800 rows at
+    4 and 5 digits, ranges whose whole walk outgrows ``WALK_CAP`` nodes, so
+    that each slice of the vocab is walked alone."""
+    host = _host(name)
+    vocab = CASES[name][1] - 2  # the alphabet's last two symbols lie past the vocab
+    rng = np.random.default_rng(vocab + 1)
+    lo, hi = _ranges(host, rng, n=16 if vocab < 1000 else 8)
+    N = host.size()
+    sentinel = int(np.flatnonzero(np.asarray(host.bwt) == 0)[0])
+    lo[:4], hi[:4] = (7, sentinel, N - 1, 0), (3, sentinel + 1, N, N)  # inverted, one row, full
+    j = WaveletFMIndex.from_host(host, vocab=vocab, keep_bwt=keep_bwt)
+    t = WaveletIndex.from_host(host, vocab=vocab, keep_bwt=keep_bwt, device="cpu")
+    want = np.asarray(jwt.dense_counts(j, lo, hi, 4096))
+    tlo, thi = torch.as_tensor(lo), torch.as_tensor(hi)
+    np.testing.assert_array_equal(wt_search.wt_dense_counts_walk_plain(t, tlo, thi).numpy(), want)
+    few = slice(None) if vocab < 1000 else slice(0, 4)  # the wide vocabs' sweep: the four above
+    np.testing.assert_array_equal(
+        wt_search.dense_counts_plain(t, tlo[few], thi[few], 4096).numpy(), want[few])
+    assert t.sigma - 1 > vocab  # symbols past the model vocab occur
+    if vocab < 1000:
+        return
+    rng = np.random.default_rng(vocab + 2)  # a corpus whose wide ranges take a walk a slice
+    big = FMIndex()
+    big.initialize([rng.integers(0, CASES[name][1], size=rng.integers(20, 40)).tolist()
+                    for _ in range(60)])
+    tb = WaveletIndex.from_host(big, vocab=vocab, keep_bwt=keep_bwt, device="cpu")
+    M = big.size()
+    blo, bhi = np.array([0, 5, M // 3]), np.array([M, M - 7, M])
+    c_all = min(vocab + 1, tb.sigma)
+    assert all(wt_search.walk_nodes(tb.digits, b - a, 1, c_all) > wt_search.WALK_CAP
+               for a, b in zip(blo, bhi))
+    np.testing.assert_array_equal(wt_search.wt_dense_counts_walk_plain(
+        tb, torch.as_tensor(blo), torch.as_tensor(bhi)).numpy(), _histogram(big, blo, bhi, vocab))
 
 
 @pytest.mark.parametrize("stop_at_count,always_allow_eos", [(0, False), (2, True), (1, False)])

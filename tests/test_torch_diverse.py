@@ -4,7 +4,9 @@ plain versions).
 
 Kernel 21's plain version equals ``_select_diverse`` bit for bit (2 and 3
 groups, penalties 0, 0.5 and 1e6, both tie orders, EOS-heavy rows, V-wide
-rows under a corpus mask); kernel 8's candidate mode equals
+rows under a corpus mask), and so does the mirror of its wide route's
+top-M schedule on rows crowded for its lemma (one group, one beam a group,
+M at its limit of 512); kernel 8's candidate mode equals
 ``_candidates_general``'s slots with ``_apply_branches`` and
 ``_dedup_mask``.  Generation equals JAX's (hypotheses equal, scores within
 1e-4) over the three layouts and the four candidate routes, with and
@@ -108,6 +110,92 @@ def test_diverse_select_wide_rows_match_jax(ties):
     got = diverse_select.diverse_select(t(cons), None, t(bs), groups=3, penalty=0.5, eos=2,
                                         ties=ties, vocab=V, mask=t(mask))
     _bits(got, want)
+
+
+def _crowded_rows(rng, B, K, V, n_best=6):
+    """V-wide rows crowded for the wide route's lemma: every beam's best
+    columns are the same few (each earlier pick's token lies among the
+    next group's best slots), NEG_INF plateaus, a -inf column, EOS (2)
+    among the top and a corpus mask."""
+    cons = np.round(rng.normal(-3, 1, size=(B, K, V)) * 2) / 2
+    cons[rng.random((B, K, V)) < 0.3] = jc.NEG_INF
+    cons[:, :, 0] = -np.inf
+    best = rng.permutation(np.arange(3, V))[:n_best]
+    cons[:, :, best] = np.round(rng.normal(0, 1, size=(B, 1, n_best)) * 2) / 4
+    cons[:, :, 2] = 0.25
+    bs = np.round(rng.normal(-1, 1, size=(B, K)) * 2) / 2
+    bs[:, 1::3] = jc.NEG_INF
+    mask = rng.random(V) < 0.8
+    mask[best] = mask[2] = True
+    return cons.astype(np.float32), bs.astype(np.float32), mask
+
+
+# (B, K, V, groups) of the top-M mirror's cases: three groups, gs = 1 (G =
+# K), one group
+TOPM_CASES = {"g3": (3, 6, 40, 3), "gs1": (2, 5, 30, 5), "g1": (3, 4, 30, 1)}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("penalty", [0.0, 0.5, 1e6])
+@pytest.mark.parametrize("case", sorted(TOPM_CASES))
+def test_diverse_topm_mirror_matches_jax(case, penalty, ties, masked):
+    """Kernel 21's wide route as scheduled on the card (each group's
+    unpenalized top M, then the penalty, the sort and the finish) equals
+    ``_select_diverse`` and the plain version bit for bit on crowded
+    V-wide rows; no group is short of unpenalized survivors."""
+    B, K, V, G = TOPM_CASES[case]
+    rng = np.random.default_rng(len(case) * 7 + int(ties) + 2 * int(masked))
+    cons, bs, mask = _crowded_rows(rng, B, K, V)
+    mask = mask if masked else np.ones(V, bool)
+    cfg = jc.DecodeConfig(num_beams=K, num_groups=G, diversity_penalty=penalty, exact_ties=ties)
+    toks = np.broadcast_to(np.arange(V, dtype=np.int32), (B, K, V))
+    want = jc._select_diverse(cfg, jnp.where(mask, cons, jc.NEG_INF) + bs[..., None],
+                              jnp.asarray(toks), K, V)
+    t = torch.as_tensor
+    kw = dict(groups=G, penalty=penalty, eos=2, ties=ties, vocab=V,
+              mask=t(mask) if masked else None)
+    got, short = diverse_select.diverse_select_topm_plain(t(cons), t(bs), **kw)
+    assert short == 0
+    _bits(got, want)
+    _bits(got, diverse_select.diverse_select_plain(t(cons), None, t(bs), **kw))
+
+
+@pytest.mark.parametrize("groups,M", [(128, 512), (129, 516)])
+def test_diverse_topm_mirror_at_its_limit(groups, M):
+    """Two beams a group: M = 4 + 4 (G - 1) reaches the wide route's 512 at
+    128 groups (past it, 129 groups take the chunked route on the card);
+    the mirror still equals the plain version, with every group's picks
+    among the best columns."""
+    rng = np.random.default_rng(groups)
+    B, K, V = 2, 2 * groups, 300
+    cons, bs, mask = _crowded_rows(rng, B, K, V)
+    t = torch.as_tensor
+    kw = dict(groups=groups, penalty=0.5, eos=2, mask=t(mask))
+    assert diverse_select.wide_survivors(K, groups, 0.5) == M
+    assert diverse_select.wide_survivors(K, groups, 0.0) == 4
+    got, short = diverse_select.diverse_select_topm_plain(t(cons), t(bs), **kw)
+    assert short == 0
+    _bits(got, diverse_select.diverse_select_plain(t(cons), None, t(bs), **kw))
+
+
+def test_diverse_topm_mirror_short_survivors_flagged():
+    """The proof counter's rule: with M cut to 2gs (a route without the
+    lemma's margin) the mirror loses picks on crowded rows and counts the
+    groups short of unpenalized survivors."""
+    rng = np.random.default_rng(11)
+    cons, bs, mask = _crowded_rows(rng, 3, 6, 40)
+    t = torch.as_tensor
+    kw = dict(groups=3, penalty=0.5, eos=2, mask=t(mask))
+    want = diverse_select.diverse_select_plain(t(cons), None, t(bs), **kw)
+    full = diverse_select.wide_survivors
+    try:
+        diverse_select.wide_survivors = lambda K, G, p: 2 * (K // G)
+        got, short = diverse_select.diverse_select_topm_plain(t(cons), t(bs), **kw)
+    finally:
+        diverse_select.wide_survivors = full
+    assert short > 0
+    assert any(not torch.equal(a, b) for a, b in zip(got, want))
 
 
 # ------------------------------------------------- kernel 8's candidate mode
