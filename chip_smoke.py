@@ -199,6 +199,7 @@ REPLACES = {
     "fm_dense_counts": "seal_tpu/ops/fm_ops.py:339",
     "wt_dense_counts": "seal_tpu/ops/wt_ops.py:237",
     "dense_scores": "seal_tpu/decoding/constrained.py:321",
+    "dense_select": "seal_tpu/decoding/constrained.py:321",
     "beam_select_ties": "seal_tpu/decoding/constrained.py:934",
     "locate_rows": "seal_tpu/ops/fm_ops.py:322",
     "doc_index_of": "seal_tpu/ops/fm_ops.py:330",
@@ -249,6 +250,7 @@ SOURCES = {
     "fm_dense_counts": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
     "wt_dense_counts": ("cuda", "seal_tpu_torch/kernels/csrc/wt_search.cu"),
     "dense_scores": ("cuda", "seal_tpu_torch/kernels/csrc/dense_scores.cu"),
+    "dense_select": ("cuda", "seal_tpu_torch/kernels/csrc/dense_scores.cu"),
     "beam_select_ties": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "locate_rows": ("cuda", "seal_tpu_torch/kernels/csrc/locate.cu"),
     "doc_index_of": ("cuda", "seal_tpu_torch/kernels/csrc/locate.cu"),
@@ -313,10 +315,11 @@ for _layout in WAVELET_LAYOUTS:  # kernel 12's step mode advances the ranges
         "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len",
         "rescore_logprob", "wt_search_advance") + DECODE_STEP
 # the dense parity mode (exact_mask): each step's count vector (kernel 15,
-# or 16 on the wavelet layouts), the candidate pass (17), the flat top-2K
-# (3) and kernel 8's epilogue; no proposal merge.  The tie order
-# (exact_ties): the fast path with kernel 8 in its ties mode.
-DENSE_STEP = ("dense_scores", "row_topk", "log_softmax_min_len", "beam_select",
+# or 16 on the wavelet layouts), then the candidate pass (17) inside the
+# flat top-2K's select (3) in one launch (dense_select; kernel 3 alone at
+# step 0) and kernel 8's epilogue; no proposal merge, no streaming pass.
+# The tie order (exact_ties): the fast path with kernel 8 in its ties mode.
+DENSE_STEP = ("dense_select", "row_topk", "log_softmax_min_len", "beam_select",
               "cross_attention_step", "self_attention_step", "reorder_cache")
 PATH_KERNELS["generate_dense"] = ("fm_dense_counts", "fm_search") + DENSE_STEP
 for _layout in WAVELET_LAYOUTS:
@@ -387,7 +390,7 @@ PATH_KERNELS["generate_t5_bf16"] = tuple(k for k in PATH_KERNELS["generate_t5"]
                                          if k != "cross_attention_step_f32")
 PATH_KERNELS["generate_t5_force_full"] = ("bucket_counts", "beam_merge", "slab_gather")
 PATH_KERNELS["generate_t5_dense"] = (
-    "fm_dense_counts", "fm_search", "dense_scores", "row_topk", "log_softmax_min_len",
+    "fm_dense_counts", "fm_search", "dense_select", "row_topk", "log_softmax_min_len",
     "beam_select", "cross_attention_step", "self_attention_step_t5", "reorder_cache")
 PATH_KERNELS["generate_t5_hybrid"] = ("wt_search", "wt_window_gather", "row_topk",
                                       "log_softmax_min_len") + T5_STEP
@@ -1674,7 +1677,10 @@ def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
         f"{int((widths <= k15.HIST_MAX_ROWS).sum())}")
     table = []
     t0 = time.perf_counter()
-    want = k15.dense_counts_plain(psi, lo, hi, 2048)
+    # (contiguous, as kernels 15 and 16 write it: the plain sweep's cut of
+    # its last chunk leaves a strided view, which kernel 17's wrappers would
+    # copy inside their timings)
+    want = k15.dense_counts_plain(psi, lo, hi, 2048).contiguous()
     err15 = 0
     for hist_max in (k15.HIST_MAX_ROWS, 0, 2**31 - 1):
         err15 += int((k15.fm_dense_counts(psi, lo, hi, hist_max=hist_max) != want).sum())
@@ -1739,7 +1745,10 @@ def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
         # the compact layout's rows: one 4-bit code of each of `digits` levels
         bytes=out_bytes + rows_bytes(torch, N, lo, hi, hmax["compact"], compact.digits / 2),
     ))
-    # kernel 17 over the step's counts, with the branches' states
+    # kernel 17 over the step's counts, with the branches' states: its
+    # streaming pass (the scores written, as sampling and diverse groups
+    # read them) and the dense step's select (the scores ranked inside
+    # kernel 3's select, never written)
     lp = torch.log_softmax(torch.randn(R, V, generator=g, device=dev) * 2, -1)
     lp = torch.round(lp * 4) / 4
     prev_count = (hi - lo).to(torch.int32)
@@ -1748,28 +1757,69 @@ def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
     bs[0, 1] = k8.NEG_INF
     dargs = (want, lp, prev_count, finished, bs)
     dkw = dict(eos=2, pad=1, stop_at_count=0, always_allow_eos=False)
+    bkw = dict(dkw, stop_at_count=2, always_allow_eos=True)
     got = k17.dense_scores(*dargs, **dkw)
     plain17 = k17.dense_scores_plain(*dargs, **dkw)
     err17 = mismatches(torch, (got,), (plain17,))
-    bkw = dict(dkw, stop_at_count=2, always_allow_eos=True)
+    err17 += mismatches(torch, (graph_result(torch, lambda: k17.dense_scores(*dargs, **dkw)),),
+                        (plain17,))
     err17 += mismatches(torch, (k17.dense_scores(*dargs, **bkw),),
                         (k17.dense_scores_plain(*dargs, **bkw),))
+    # a strided and an unaligned lp (read a token at a time), odd V
+    wide = torch.log_softmax(torch.randn(R, V + 3, generator=g, device=dev), -1)
+    wide = torch.round(wide * 4) / 4
+    for lp2 in (wide[:, :V], wide.reshape(-1)[1:1 + R * V].reshape(R, V)):
+        a2 = (want, lp2, prev_count, finished, bs)
+        err17 += mismatches(torch, (k17.dense_scores(*a2, **bkw),),
+                            (k17.dense_scores_plain(*a2, **bkw),))
     if err17:
         fail(f"dense_scores differs from its plain version ({err17} elements)")
     gv, gi = k3.row_topk(got, 2 * K)
     wv, wi = k3.row_topk_plain(got, 2 * K)
     if not (torch.equal(gi, wi) and torch.equal(gv, wv)):
         fail("row_topk differs from its plain version on the dense rows")
+    # the dense step's select: equal to kernel 3's plain top 2K of the plain
+    # scores, eager and replayed from a graph, in both branch settings
+    err_sel = 0
+    for kw17 in (dkw, bkw):
+        want_sel = k17.dense_select_plain(*dargs, 2 * K, **kw17)
+        err_sel += mismatches(torch, k17.dense_select(*dargs, 2 * K, **kw17), want_sel)
+        err_sel += mismatches(torch, graph_result(
+            torch, lambda kw17=kw17: k17.dense_select(*dargs, 2 * K, **kw17)), want_sel)
+    if err_sel:
+        fail(f"dense_select differs from its plain version ({err_sel} elements)")
+    tokens = torch.arange(V, dtype=torch.int32, device=dev).expand(B, K, V)
+    n_allowed = int(k8.apply_branches(tokens, want > 0, prev_count, finished, **dkw).sum())
+
+    def composed():  # the step as the parent launched it: kernel 17, then kernel 3
+        return k3.row_topk(k17.dense_scores(*dargs, **dkw), 2 * K)
+
     table.append(dict(
         name="dense_scores", max_abs_err=err17, library_ms=None,
         ms=time_ms(lambda: k17.dense_scores(*dargs, **dkw)),
+        graph_ms=graph_ms(lambda: k17.dense_scores(*dargs, **dkw)),
         plain_ms=time_ms(lambda: k17.dense_scores_plain(*dargs, **dkw)),
         topk_dense_ms=time_ms(lambda: k3.row_topk(got, 2 * K), iters=5),
         topk_dense_plain_ms=time_ms(lambda: k3.row_topk_plain(got, 2 * K), iters=2),
-        shape=f"counts [{B},{K},{V}] -> [{B},{K * V}] f32 (topk_dense_ms: kernel 3's top-{2 * K} "
-              "of those rows)",
-        # counts and log-probs read, scores written, the row state once
-        bytes=R * V * 12 + R * 9,
+        shape=f"counts [{B},{K},{V}] -> [{B},{K * V}] f32, the streaming pass "
+              f"({n_allowed} tokens allowed; topk_dense_ms: kernel 3's top-{2 * K} of those "
+              "rows)",
+        # counts read and scores written, the allowed tokens' log-probs, the
+        # row state once
+        bytes=R * V * 8 + n_allowed * 4 + R * 9,
+    ))
+    table.append(dict(
+        name="dense_select", max_abs_err=err_sel, library_ms=None,
+        ms=time_ms(lambda: k17.dense_select(*dargs, 2 * K, **dkw)),
+        graph_ms=graph_ms(lambda: k17.dense_select(*dargs, 2 * K, **dkw)),
+        plain_ms=time_ms(lambda: k17.dense_select_plain(*dargs, 2 * K, **dkw), iters=2),
+        composed_ms=time_ms(composed, iters=5), composed_graph_ms=graph_ms(composed),
+        shape=f"counts [{B},{K},{V}] and lp [{R},{V}] -> the top {2 * K} of [{B},{K * V}] "
+              "scores, one launch of kernel 3's select (composed_ms: kernel 17's pass, then "
+              "kernel 3)",
+        # the counts read once, the allowed tokens' log-probs, the row
+        # state, the top 2K written
+        bytes=R * V * 4 + n_allowed * 4 + R * 9 + B * 2 * K * 12,
     ))
     log(f"dense kernel phases: {time.perf_counter() - t0:.1f} s")
     del got, plain17, want, lp
@@ -1799,19 +1849,41 @@ def mode_kernel_phases(np, torch, cfg, V, B, K, window):
     lpq[0, ::2] = 0.0
     lpq[0, 1::2] = -0.0
 
-    # kernel 19: the warper's k and others, on plain and tied rows
+    # kernel 19 (kernel 3's select in its k-th-value mode): the warper's k
+    # and others, on plain and tied rows, and on rows that corner the k-th
+    # place (ties across it, signed zeros at it, -inf and NEG_INF plateaus
+    # reaching it, k = 1 and k = V); eager and replayed from a graph
+    adv = lpq[:8].clone()
+    adv[1] = -1.0
+    adv[1, :47] = 3.0
+    adv[1, 47::2] = 0.0
+    adv[1, 48::2] = -0.0
+    adv[2] = float("-inf")
+    adv[2, :20] = 1.0
+    adv[3] = k8.NEG_INF
+    adv[3, ::3000] = -2.0
+    adv[4] = 7.5
+    adv[5, : V // 2] = float("-inf")
     err19 = 0
-    for x, k in ((lp, 50), (lpq, 50), (lpq, 1), (lpq, 1024), (lpq[:B], 256)):
-        err19 += mismatches(torch, (k19.row_kth(x, k),), (k19.row_kth_plain(x, k),))
+    for x, k in ((lp, 50), (lpq, 50), (lpq, 1), (lpq, 1024), (lpq[:B], 256), (adv, 1),
+                 (adv, 50), (adv, 2000), (adv, V)):
+        want19 = k19.row_kth_plain(x, k)
+        err19 += mismatches(torch, (k19.row_kth(x, k),), (want19,))
+        err19 += mismatches(torch, (graph_result(torch, lambda x=x, k=k: k19.row_kth(x, k)),),
+                            (want19,))
     if err19:
         fail(f"row_kth differs from its plain version ({err19} elements)")
+    p19 = k19.plan(rows, V, 50)
     table.append(dict(
         name="row_kth", max_abs_err=err19,
         ms=time_ms(lambda: k19.row_kth(lp, 50)),
         plain_ms=time_ms(lambda: k19.row_kth_plain(lp, 50), iters=5),
         library_ms=time_ms(lambda: torch.topk(lp, 50)),
         graph_ms=graph_ms(lambda: k19.row_kth(lp, 50)),
-        shape=f"[{rows},{V}] k=50, one f32 a row", bytes=lp.numel() * 4 + rows * 4,
+        library_graph_ms=graph_ms(lambda: torch.topk(lp, 50)),
+        shape=f"[{rows},{V}] k=50, one f32 a row; {p19.splits} CTAs of {p19.threads} threads "
+              "a row (kernel 3's select, k-th-value mode)",
+        bytes=lp.numel() * 4 + rows * 4,
     ))
 
     # kernel 8, free generation: kernel 3's top-2K of [B, K*256] scores,
@@ -3474,6 +3546,7 @@ def main() -> int:
         "fm_dense_counts": fm_search.fm_dense_counts,
         "wt_dense_counts": wt_search.wt_dense_counts,
         "dense_scores": dense_scores.dense_scores,
+        "dense_select": dense_scores.dense_select,
         "beam_select_ties": beam_select.TIES,
         "locate_rows": locate.locate_rows,
         "doc_index_of": locate.doc_index_of,
@@ -3580,6 +3653,14 @@ def main() -> int:
                 want[fused[0]] = n - no_select - steps["decodes"] + by_path[path][fused[2]]
             if select != "beam_select":  # kernel 20 or 21 selects, kernel 8 nothing
                 want["beam_select"] = 0
+            if "dense" in path:
+                # the dense step: kernel 17 inside kernel 3's select once a
+                # step after step 0, its streaming pass never; under sampling
+                # and diverse groups the streaming pass, the select never
+                selects = select == "beam_select"
+                want["dense_select"] = n - no_select - steps["decodes"] if selects else 0
+                if selects:
+                    want["dense_scores"] = 0
             for name, count in want.items():
                 if by_path[path][name] != count:
                     fail(f"{path}: {name} launched {by_path[path][name]} times for {n} decode "
@@ -3838,16 +3919,20 @@ def main() -> int:
     t0 = time.perf_counter()
     d_prof = bench_generate.profile_batch(
         lambda: generate.fm_index_generate(cfg, params, index, ids, mask, exact_mask=True, **kw))
-    topk_ms = sum(r["ms"] for r in d_prof["top"] if "row_topk" in r["name"])
+    # the dense step's select is kernel 3's select instance on DenseScoreLoad
+    sel_ms = sum(r["ms"] for r in d_prof["top"] if "DenseScoreLoad" in r["name"])
+    topk_ms = sum(r["ms"] for r in d_prof["top"]
+                  if "row_topk" in r["name"] and "DenseScoreLoad" not in r["name"])
     log(f"dense profiled batch (psi): {d_prof['kernels']} kernels, device busy "
         f"{d_prof['device_busy_ms']:.2f} ms of {d_prof['wall_ms']:.2f} ms wall "
-        f"({100 * d_prof['busy_share']:.1f}%); kernel 3 {topk_ms:.2f} ms = "
-        f"{100 * topk_ms / d_prof['device_busy_ms']:.1f}% of the busy time; phase wall "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"({100 * d_prof['busy_share']:.1f}%); the dense select (kernel 17 in kernel 3's "
+        f"select) {sel_ms:.2f} ms, kernel 3 alone {topk_ms:.2f} ms = "
+        f"{100 * (sel_ms + topk_ms) / d_prof['device_busy_ms']:.1f}% of the busy time; phase "
+        f"wall {time.perf_counter() - t0:.1f} s")
     for row in d_prof["top"][:10]:
         log(f"  {row['ms']:8.3f} ms {row['calls']:6d} calls  {row['name']}")
     dense_runs["psi"].update(busy=d_prof["busy_share"],
-                             topk_share=topk_ms / d_prof["device_busy_ms"])
+                             topk_share=(sel_ms + topk_ms) / d_prof["device_busy_ms"])
 
     # exact_ties on the fast path (kernel 8's ties mode): the same
     # hypotheses as without it and as the dense run
@@ -4382,7 +4467,8 @@ def main() -> int:
         + "; dense (exact_mask) generation queries/s: " + ", ".join(
             f"{k} {v['qps']:.1f}" for k, v in dense_runs.items())
         + f", psi busy {100 * dense_runs['psi']['busy']:.1f}% under the profiler, kernel 3 "
-        f"{100 * dense_runs['psi']['topk_share']:.1f}% of it; decode modes queries/s: "
+        f"(the dense select included) {100 * dense_runs['psi']['topk_share']:.1f}% of it; "
+        "decode modes queries/s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in mode_qps.items())
         + f"; T5-base f32 generation {t5_run['qps']:.1f} queries/s (bf16 batch "
         f"{t5_run['bf16_qps']:.1f}), busy {100 * t5_run['busy']:.1f}% under the profiler, "

@@ -1,4 +1,5 @@
-"""Kernel 3's layouts and phases, and kernel 18's sample stride, on the card.
+"""Kernel 3's layouts and phases, kernel 19's layouts and kernel 18's sample
+stride, on the card.
 
     python -m seal_tpu_torch.bench_row_topk
 
@@ -6,6 +7,9 @@
    (the rows of ``chip_smoke.py:row_topk_sites``, on log-softmax rows of a
    seeded normal) at every split that fits (1, 2, 4, 8 and 16 CTAs a row):
    eager and graph-replayed ms; ``*`` marks ``row_topk.plan``'s choice.
+   Kernel 19 (kernel 3's select in its k-th-value mode) at the ``topk``
+   warper's [480, 50265] and batch 8's [120, 50265], k = 50, at every
+   split; ``*`` marks ``row_select.plan``'s choice.
 2. Where a CTA's cycles go: an instrumented copy of kernel 3's source
    (``clock64`` at each phase boundary, thread 0 of each CTA, into a
    device array), built into ``kernels/_build/trace/`` and run at the
@@ -34,6 +38,7 @@ import sys
 PHASES = ("init", "p0 histogram", "p0 totals+barrier", "p0 scan", "p1 histogram",
           "p1 totals+barrier", "p1 scan", "p2 histogram", "p2 totals+barrier", "p2 scan",
           "share", "gather", "final barrier", "place/sort")
+KTH_SITES = (("warper", 480, 50265, 50), ("warper batch 8", 120, 50265, 50))
 SITES = (("round 0", 480, 50265, 64), ("later rounds", 480, 50265, 256),
          ("sampling round 0", 480, 50265, 512), ("sampling later rounds", 480, 50265, 2048),
          ("step 0", 32, 50265, 30), ("dense", 32, 753975, 30), ("free", 32, 3840, 30))
@@ -119,8 +124,10 @@ def _instrumented(src: str) -> str:
                       _mark(12) + "  sync_cluster(C);\n  if (!leader) return;" + _mark(13))
     src = src.replace("    return;\n  }\n  for (int j = k + tid; j < n2; j += THREADS)",
                       _mark(14) + "    return;\n  }\n  for (int j = k + tid; j < n2; j += THREADS)")
+    # (the kernel's end, the first of the two bodies that end so: the global
+    # sort's output functor follows it)
     src = src.replace("    idx[row * k + j] = (long long)key_slot(w);\n  }\n}",
-                      "    idx[row * k + j] = (long long)key_slot(w);\n  }\n" + _mark(14) + "}")
+                      "    idx[row * k + j] = (long long)key_slot(w);\n  }\n" + _mark(14) + "}", 1)
     return src + ('\nextern "C" int seal_row_topk_trace(long long* h) {\n'
                   "  return (int)cudaMemcpyFromSymbol(h, g_tr, sizeof(long long) * 8192 * 16);\n}\n")
 
@@ -143,7 +150,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
-    from seal_tpu_torch.kernels import build, locate, row_topk as k3
+    from seal_tpu_torch.kernels import build, locate, row_select as k19, row_topk as k3
 
     if not torch.cuda.is_available():
         print("bench_row_topk: no CUDA device")
@@ -176,6 +183,21 @@ def main() -> int:
                          f"(graph {cs.graph_ms(f):.4f})")
         print(f"row_topk layouts ({card}) {label} [{rows},{n}] k={k}, CTAs a row: ms (graph ms): "
               + "; ".join(cells), flush=True)
+
+    for label, rows, n, k in KTH_SITES:
+        x = lp[:rows].contiguous()
+        want = k19.row_kth_plain(x, k).view(torch.int32)
+        chosen = k19.plan(rows, n, k).splits
+        cells = []
+        for splits in (1, 2, 4, 8, 16):
+            lay = k19.plan(rows, n, k, splits=splits)
+            f = lambda lay=lay: k19.row_kth(x, k, layout=lay)  # noqa: E731
+            ok = torch.equal(f().view(torch.int32), want)
+            cells.append(f"{splits}{'*' if splits == chosen else ''} x {lay.threads}: "
+                         f"{cs.time_ms(f):.4f} (graph {cs.graph_ms(f):.4f})"
+                         + ("" if ok else " WRONG"))
+        print(f"row_kth layouts ({card}) {label} [{rows},{n}] k={k}, CTAs a row x threads: ms "
+              "(graph ms): " + "; ".join(cells), flush=True)
 
     # 2. the phases
     # the select kernel lives in radix_topk.cuh: inlined, then instrumented

@@ -1,6 +1,6 @@
-"""Kernel 8's selection and the rank-search and window kernels (1, 2, 12,
-13, 14, 16) on the card, in this checkout and, with ``--parent DIR``,
-beside another.
+"""Kernel 8's selection, the rank-search and window kernels (1, 2, 12,
+13, 14, 16) and the selects (3, 17, 19, 21) on the card, in this checkout
+and, with ``--parent DIR``, beside another.
 
     python -m seal_tpu_torch.bench_select [--parent DIR] [--turns parent,this,...]
 
@@ -36,7 +36,11 @@ bf16 over the 1.2M-token corpus, batch 32, beam 15):
    groups at penalty 0.5 on a [32, 15, 64] candidate list (both orders)
    and on V-wide [32, 15, 50265] rows under a corpus mask (both orders,
    and at penalty 0), and, where the checkout has its routes, its chunked
-   route forced on both.
+   route forced on both.  Kernel 19's k-th value at [480, 50265] and
+   [120, 50265], k = 50.  Kernel 17 at [32, 15, 50265] over a step's count
+   vectors: the dense step (one ``dense_select`` launch where the checkout
+   has it, else the scores then kernel 3's top 2K), that two-launch
+   composition on both sides, and the streaming pass (``dense_scores``).
 2. The Psi and the compact layout's batches at the generation point,
    taken before 1, ahead of any CUDA graph capture in the process, and
    again after 1's captures (``*_after_graphs``): five batches' wall ms
@@ -45,8 +49,9 @@ bf16 over the 1.2M-token corpus, batch 32, beam 15):
    2, 12-14) and of kernel 8 (their kernels' names); then one profiled
    batch each of ``generate_dense_compact`` (``exact_mask`` on the compact
    layout), ``generate_diverse`` and ``generate_diverse_dense`` (3 groups
-   at penalty 0.5 on the Psi index): device ms, launches and the top
-   kernels' device ms and calls.
+   at penalty 0.5 on the Psi index), ``generate_topk`` (the ``topk=50``
+   warper) and ``generate_dense`` (``exact_mask`` on the Psi index):
+   device ms, launches and the top kernels' device ms and calls.
 3. Where the checkout has the fused step (``constrained._step_window``),
    before 1 as well: 15 pairs of batches on each of the two layouts,
    alternated in the process with the step as the parent launched it (two
@@ -158,7 +163,9 @@ batches = {"psi_batch": profiled(index), "compact_batch": profiled(layouts["comp
 DIVERSE = dict(diverse_bs_groups=3, diverse_bs_penalty=0.5)
 for path, ix, extra in (("generate_dense_compact", layouts["compact"], dict(exact_mask=True)),
                         ("generate_diverse", index, DIVERSE),
-                        ("generate_diverse_dense", index, dict(DIVERSE, exact_mask=True))):
+                        ("generate_diverse_dense", index, dict(DIVERSE, exact_mask=True)),
+                        ("generate_topk", index, dict(topk=50)),
+                        ("generate_dense", index, dict(exact_mask=True))):
     def run(ix=ix, extra=extra):
         generate.fm_index_generate(cfg, params, ix, ids, mask, **kw, **extra)
         torch.cuda.synchronize()
@@ -402,6 +409,27 @@ if hasattr(k21, "ROUTES"):
         lambda: k21.diverse_select(cons64, tok64, bs21, force="chunked", **kw21))
     calls["k21 chunked wide [32,15,50265]"] = (
         lambda: k21.diverse_select(wide21, None, bs21, mask=corpus, force="chunked", **kw21))
+# kernel 19: the warper's k-th value, at batch 32 and batch 8
+from seal_tpu_torch.kernels import row_select as k19
+lp120 = lp[:120].contiguous()
+calls["k19 row_kth [480,50265] k=50"] = lambda: k19.row_kth(lp, 50)
+calls["k19 row_kth [120,50265] k=50"] = lambda: k19.row_kth(lp120, 50)
+# kernel 17 over a step's count vectors of the ranges above: the dense
+# step (kernel 17 inside kernel 3's select where the checkout has it),
+# the parent's two launches (kernel 17's scores, kernel 3's top 2K) and
+# the streaming pass
+from seal_tpu_torch.kernels import dense_scores as k17
+dcounts = ops.dense_counts(lo, hi, 2048)
+prev17 = (hi - lo).to(i32)
+bs17 = torch.round(torch.randn(B, K, generator=g, device=dev) * 2) / 2 - 3
+args17 = (dcounts, lp, prev17, finished, bs17)
+kw17 = dict(eos=eos, pad=pad)
+composed17 = lambda: k3.row_topk(k17.dense_scores(*args17, **kw17), 2 * K)
+calls["k17 dense step [32,15,50265]"] = (
+    (lambda: k17.dense_select(*args17, 2 * K, **kw17)) if hasattr(k17, "dense_select")
+    else composed17)
+calls["k17 scores + k3 top-2K [32,15,50265]"] = composed17
+calls["k17 streaming pass [32,15,50265]"] = lambda: k17.dense_scores(*args17, **kw17)
 one = torch.empty(1, device=dev)
 calls["floor: one-element zero_()"] = lambda: one.zero_()
 out = {name: {"ms": eager(fn), "graph_ms": graphed(fn)} for name, fn in calls.items()}

@@ -13,11 +13,13 @@ proven sound is flagged, and the caller re-runs the whole decode with
 
 ``exact_mask`` is the dense parity mode the fast path is held to: each
 step's allowed set is the whole count vector of every beam's interval
-(``dense_counts``, kernels 15/16), the candidate pass is kernel 17, and
-kernel 3 ranks the flat [B, K*V] scores for the step's top 2K, as at step
-0.  ``exact_ties`` orders equal scores by (beam, token) in the fast path's
-merge and selection (kernel 8's ties mode); the dense mode needs no tie
-mode, since its flat index already rises with (beam, token).
+(``dense_counts``, kernels 15/16), and one launch of kernel 3's select
+computes kernel 17's candidate scores as it ranks the flat [B, K*V] rows
+for the step's top 2K (``dense_select``: the scores are never written),
+as step 0 ranks its rows.  ``exact_ties`` orders equal scores by (beam,
+token) in the fast path's merge and selection (kernel 8's ties mode); the
+dense mode needs no tie mode, since its flat index already rises with
+(beam, token).
 
 What changed in translation:
 
@@ -36,7 +38,8 @@ What changed in translation:
   ``DENSE_GUARD_BACKENDS`` (a TPU worker fault) and the one-hot-matmul
   block gather of ``_exact_topk`` (the TPU's slow scalar gathers).  Every
   top-k is one exact row top-k, ``kernels.row_topk`` (kernel 3), and the
-  warper's k-th value is ``kernels.row_select.row_kth`` (kernel 19).
+  warper's k-th value is ``kernels.row_select.row_kth`` (kernel 19, the
+  k-th-value mode of kernel 3's select).
 * ``force_decoding_from`` starts every beam's range at the forced
   sequence's (kernel 5).  Step 0 still picks its token under the dense
   corpus mask and then extends the forced range, as the JAX decoder does.
@@ -55,7 +58,8 @@ What changed in translation:
   ``_candidates_general``'s routes: the proven proposal loop (its buffer
   ``max(2K, top_m)`` wide under sampling), written out as candidates by
   kernel 8's candidate mode; ``speculative`` through the same mode with
-  ``keep_invalid``; ``exact_mask`` through kernel 17; free generation
+  ``keep_invalid``; ``exact_mask`` through kernel 17's streaming pass
+  (the scores written, since kernels 20 and 21 read them); free generation
   through kernel 3's top-``top_m``.  Kernel 20 draws each chain's token by
   Gumbel-max with counter-based Philox noise keyed by (``seed``, step), in
   place of JAX's threefry key chain: the same distribution and seed
@@ -84,7 +88,7 @@ from seal_tpu_torch.kernels.beam_select import (
     beam_select,
     beam_select_top,
 )
-from seal_tpu_torch.kernels.dense_scores import dense_scores
+from seal_tpu_torch.kernels.dense_scores import dense_scores, dense_select
 from seal_tpu_torch.kernels.diverse_select import diverse_select
 from seal_tpu_torch.kernels.row_select import row_kth
 from seal_tpu_torch.kernels.row_topk import row_topk
@@ -261,9 +265,10 @@ def _adjust_logits(logits, cur_len: int, cfg: DecodeConfig):
 
 
 def _log_softmax(logits, cur_len: int, cfg: DecodeConfig):
-    """The hook, the top-k warper (kernel 19's k-th value, the mask inside
-    kernel 4) and the f32 log-softmax with the min-length EOS ban (kernel
-    4), as the JAX step applies them."""
+    """The hook, the top-k warper (its k-th value from kernel 19, the
+    k-th-value mode of kernel 3's radix select; the mask inside kernel 4)
+    and the f32 log-softmax with the min-length EOS ban (kernel 4), as the
+    JAX step applies them."""
     logits = _adjust_logits(logits, cur_len, cfg)
     kth = row_kth(logits, cfg.topk) if cfg.topk > 0 else None
     return log_softmax_ban(logits, _apply_min_length(cur_len, cfg), NEG_INF, kth)
@@ -429,31 +434,36 @@ def _fast_exact_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished,
 def _dense_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam_scores,
                   K: int):
     """The dense parity mode's step: every beam's whole count vector
-    (kernel 15 or 16), the branches, mask and beam score over [B, K, V]
-    (kernel 17), the flat top-2K (kernel 3) and ``_select``'s epilogue
-    (kernel 8's ``beam_select_top``), as step 0 selects.
+    (kernel 15 or 16); then one launch of kernel 3's select that computes
+    the branches, mask and beam score of every (beam, token) candidate as
+    it stages the [B, K * V] rows (kernel 17's ``dense_select``) and keeps
+    each query's top 2K; and ``_select``'s epilogue (kernel 8's
+    ``beam_select_top``), as step 0 selects.  The scores are never written.
 
     The candidate at flat index k * V + v is (beam k, token v), so kernel
     3's order, value descending and index ascending, is also the
     ``exact_ties`` order (the (beam, token) tie id rises with the index):
     the dense mode needs no tie mode.
     """
-    cons = _dense_scores(ops, cfg, lp, lo, hi, prev_count, finished, beam_scores)
-    top_cons, top_idx = row_topk(cons, 2 * K)
+    counts = _dense_counts(ops, cfg, lp, lo, hi)
+    top_cons, top_idx = dense_select(counts, lp, prev_count, finished, beam_scores, 2 * K,
+                                     **_branches(cfg))
     return beam_select_top(top_cons, top_idx, lp, beam_scores, K, K, cfg.eos_token_id)[:8]
 
 
-def _dense_scores(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam_scores):
-    """Every beam's whole count vector (kernel 15 or 16) and the dense
-    candidate pass (kernel 17): the flat [B, K * V] allowed log-probs plus
-    the beam scores."""
+def _dense_counts(ops, cfg: DecodeConfig, lp, lo, hi):
+    """Every beam's whole count vector (kernel 15 or 16), [B, K, V]."""
     counts = ops.dense_counts(lo, hi, cfg.dense_chunk)  # [B, K, index vocab]
     if counts.shape[-1] != lp.shape[-1]:
         raise ValueError(f"exact_mask: the index's vocab {counts.shape[-1]} differs from the "
                          f"model's {lp.shape[-1]}")
-    return dense_scores(counts, lp, prev_count, finished, beam_scores, eos=cfg.eos_token_id,
-                        pad=cfg.pad_token_id, stop_at_count=cfg.stop_at_count,
-                        always_allow_eos=cfg.always_allow_eos)
+    return counts
+
+
+def _branches(cfg: DecodeConfig) -> dict:
+    """Kernel 17's branch options (``_apply_branches``)."""
+    return dict(eos=cfg.eos_token_id, pad=cfg.pad_token_id, stop_at_count=cfg.stop_at_count,
+                always_allow_eos=cfg.always_allow_eos)
 
 
 def _free_select(cfg: DecodeConfig, lp, beam_scores, K: int):
@@ -525,7 +535,8 @@ def _general_candidates(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished
     log-probs (``NEG_INF`` elsewhere) without the beam scores.  The proven
     proposal loop's buffer and the speculative round go through kernel 8's
     candidate mode (N = n_buf + w + 2, slots [buffer, window, EOS, PAD]);
-    ``exact_mask`` through kernels 15/16 and 17 at zero beam scores (N = V);
+    ``exact_mask`` through kernels 15/16 and 17's streaming pass at zero
+    beam scores (N = V);
     free generation through kernel 3's exact top-``top_m`` (N = ``top_m``).
     """
     B = lp.shape[0] // K
@@ -536,7 +547,8 @@ def _general_candidates(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished
         return tok.to(torch.int32).reshape(B, K, -1), top_lp, top_lp
     if cfg.exact_mask:
         zero = torch.zeros((B, K), dtype=torch.float32, device=lp.device)
-        cons = _dense_scores(ops, cfg, lp, lo, hi, prev_count, finished, zero)
+        cons = dense_scores(_dense_counts(ops, cfg, lp, lo, hi), lp, prev_count, finished, zero,
+                            **_branches(cfg))
         return None, cons.reshape(B, K, V), lp.reshape(B, K, V)
     eos_tok = torch.full((B, K, 1), cfg.eos_token_id, dtype=torch.int32, device=lo.device)
     if cfg.speculative:

@@ -40,7 +40,8 @@ SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu", "bucket_counts.cu"
            "row_select.cu", "sample_select.cu", "diverse_select.cu")
 # included by the wt_*.cu sources, by fm_search.cu and wt_search.cu, by
 # beam_select.cu, diverse_select.cu and row_topk.cu, by beam_select.cu and
-# row_topk.cu, and by row_topk.cu and diverse_select.cu
+# row_topk.cu, and by row_topk.cu, row_select.cu, dense_scores.cu and
+# diverse_select.cu
 HEADERS = ("wt_common.cuh", "dense_counts.cuh", "select_common.cuh", "global_sort.cuh",
            "radix_topk.cuh")
 NVCC_FLAGS = (
@@ -158,11 +159,17 @@ SIGNATURES = {
     # counts, lp, lp_stride, prev_count, finished, beam_scores, rows, V, eos,
     # pad, stop_at_count, always_allow_eos, neg_inf, out, stream
     "seal_dense_scores": [_P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _P, _P],
+    # counts, lp, prev_count, finished, beam_scores, n_queries, K, V, eos, pad,
+    # stop_at_count, always_allow_eos, neg_inf, k, the select's layout
+    # (kernels/row_topk.py:Plan.launch), vals, idx, stream
+    "seal_dense_select": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I] + [_I] * 8
+                         + [_P, _P, _P],
     # table (sa or beginnings), n_table, in, n, search (0 gather, 1 search),
     # out, stream
     "seal_locate": [_P, _I, _P, _L, _I, _P, _P],
-    # x, n_rows, width, k, kth, stream
-    "seal_row_kth": [_P, _L, _I, _I, _P, _P],
+    # x, n_rows, width, k, the layout (kernels/row_topk.py:Plan.launch of
+    # plan(..., kth=True)), kth, stream
+    "seal_row_kth": [_P, _L, _I, _I] + [_I] * 8 + [_P, _P],
     # buf_tok, buf_lp, buf_valid, win_tok, win_valid, win_lp, eos_ok,
     # eos_ok_stride, lp, lp_stride, prev_count, finished, rows, n_buf, w, eos,
     # pad, stop_at_count, always_allow_eos, keep_invalid, neg_inf, table

@@ -10,60 +10,273 @@
 //             finished beam:     v == pad
 //             otherwise:         counts[r, v] > 0
 //             (or v == eos when always_allow_eos)
-//   out[b, k * V + v] = (allowed ? lp[r, v] : neg_inf) + beam_scores[r]
+//   score[b, k * V + v] = (allowed ? lp[r, v] : neg_inf) + beam_scores[r]
 //
 // with one round-to-nearest f32 add (__fadd_rn), the bits of the plain
-// version and of kernel 8's cons + bs.  The [B, K * V] rows are what kernel
-// 3 ranks for the step's top 2K.
+// version and of kernel 8's cons + bs.  Two forms:
 //
-// Bound on the card: bytes.  Each element reads a count and a log-prob and
-// writes a score (12 bytes; 290 MB a step at batch 32, beam 15 and BART's
-// 50265 tokens); the per-row branch state is read once per block.  One
-// block per (row, column chunk), neighbouring threads on neighbouring
-// columns.
+// (a) The dense step (seal_dense_select): the scores exist only to be
+// ranked for the step's top 2K, so they are computed inside kernel 3's
+// select (radix_topk.cuh) as its value loader, DenseScoreLoad, and never
+// written.  The select's rows are the B queries, of width K * V; its stored
+// values are lp seen as [B, K * V]; element f of query b is beam k = f / V
+// and token v = f mod V.  Each staged float4 of log-probs comes with the
+// int4 of counts at the same flat index.  A CTA works out its slice's beam
+// states once (a slice spans at most two beams where it is shorter than V),
+// so the four scores take no division and no further state read.  One launch replaces
+// kernel 17's pass and kernel 3's select.  Kernel 3's order (value
+// descending, index ascending) is the exact_ties order here, since the
+// flat index rises with (beam, token).  Bound: bytes, the counts read once
+// and the allowed tokens' log-probs (4 to 8 bytes an element; 0.0288-0.0576
+// ms at [32, 15, 50265] at 3.35 TB/s).  The kernel reads every log-prob:
+// reading a float4 only where one of its tokens is allowed made each round
+// wait on its counts first, and ran 6-7% slower at 2% allowed.  Its cost is
+// the select's, with twice the bytes staged a key.
+//
+// (b) The streaming pass (seal_dense_scores), where the [B, K * V] scores
+// must exist (sampling, kernel 20, and diverse groups, kernel 21, read
+// them): flat over the B * K * V elements, each thread VECS 16-byte vectors
+// of counts and scores at one flat index, the beam a division by the
+// constant V.  A vector may straddle two beams, and an odd V (BART's
+// 50265) leaves rows only 4-byte aligned: the flat index does not care.  A
+// vector's log-probs are read only where one of its tokens is allowed, all
+// the counts first; an lp whose row stride is not V is read a token at a
+// time.  Bound: bytes, the counts read and the scores written (8 bytes an
+// element) plus the allowed tokens' log-probs.
 
 #include <cuda_runtime.h>
 
+#include "radix_topk.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int COLS_PER_BLOCK = 4096;
+constexpr int STREAM_THREADS = 256;
+constexpr int VECS = 4;  // 16-byte vectors a thread
 
-__global__ void __launch_bounds__(THREADS)
-dense_scores_kernel(const int* __restrict__ counts, const float* __restrict__ lp,
-                    long long lp_stride, const int* __restrict__ prev_count,
-                    const unsigned char* __restrict__ finished,
-                    const float* __restrict__ beam_scores, int V, int eos, int pad,
-                    int stop_at_count, int always_allow_eos, float neg_inf,
+// A beam's branch state: the token it allows alone (stop-forced: EOS;
+// finished: PAD), or the counts decide; and its score.
+struct BeamState {
+  float bs;
+  int only;
+  bool by_counts;
+};
+
+struct Branches {
+  const int* prev_count;  // [rows]
+  const unsigned char* finished;
+  const float* beam_scores;
+  int eos, pad, stop_at_count, always_allow_eos;
+  float neg_inf;
+
+  __device__ __forceinline__ BeamState state(long long r) const {
+    const bool fin = __ldg(finished + r) != 0;
+    const int count_eff = fin ? 0 : __ldg(prev_count + r);
+    const bool stop = stop_at_count > 0 && count_eff <= stop_at_count;
+    return {__ldg(beam_scores + r), stop ? eos : pad, !stop && !fin};
+  }
+  __device__ __forceinline__ bool allowed(int c, int tok, BeamState s) const {
+    const bool a = s.by_counts ? c > 0 : tok == s.only;
+    return a || (always_allow_eos && tok == eos);
+  }
+  __device__ __forceinline__ float score(float v, bool ok, BeamState s) const {
+    return __fadd_rn(ok ? v : neg_inf, s.bs);
+  }
+};
+
+// A CTA's slice [f0, f0 + n) of a query's row, where it spans at most two
+// beams (a slice is shorter than V at the dense step): the first beam's
+// state, the next one's, and the flat index where the next one starts.
+struct SliceBeams {
+  BeamState s0, s1;
+  int f1;
+  bool two;  // the slice lies in two beams at most
+};
+
+// (a) the select's loader: row b of the select is query b, [K * V] wide
+struct DenseScoreLoad {
+  using Aux = int4;  // the counts beside a staged float4 of log-probs
+  const int* counts;  // [B, K * V]
+  Branches br;
+  FastDiv by_v;
+  int V, K;
+
+  __device__ __forceinline__ SliceBeams slice(long long row, int f0, int n) const {
+    const int beam = n > 0 ? (int)by_v((unsigned)f0) : 0;
+    const int f1 = (beam + 1) * V;
+    const BeamState s0 = br.state(row * K + beam);
+    const BeamState s1 = beam + 1 < K ? br.state(row * K + beam + 1) : s0;
+    return {s0, s1, f1, f0 + n <= f1 + V};
+  }
+
+  __device__ __forceinline__ float operator()(float v, long long row, int f) const {
+    const int beam = (int)by_v((unsigned)f);
+    const int tok = f - beam * V;
+    const BeamState s = br.state(row * K + beam);
+    const int c = s.by_counts ? __ldg(counts + row * K * V + f) : 0;
+    return br.score(v, br.allowed(c, tok, s), s);
+  }
+  __device__ __forceinline__ int4 fetch(long long row, int f) const {
+    return __ldg((const int4*)(counts + row * K * V + f));
+  }
+
+  // elements f..f+3 (inside the row): beam f / V, or the next one past V;
+  // in a slice of two beams, the slice's states
+  __device__ __forceinline__ float4 apply4(float4 v, int4 c, long long row, int f,
+                                           const SliceBeams& sl) const {
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    const int n[4] = {c.x, c.y, c.z, c.w};
+    float o[4];
+    if (sl.two) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const bool next = f + t >= sl.f1;
+        const BeamState s = next ? sl.s1 : sl.s0;
+        const int tok = f + t - (next ? sl.f1 : sl.f1 - V);
+        o[t] = br.score(x[t], br.allowed(n[t], tok, s), s);
+      }
+      return make_float4(o[0], o[1], o[2], o[3]);
+    }
+    const int beam = (int)by_v((unsigned)f);
+    const int tok = f - beam * V;
+    const BeamState s0 = br.state(row * K + beam);
+    const BeamState s1 = tok + 3 < V ? s0 : br.state(row * K + beam + 1);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const bool next = tok + t >= V;
+      const BeamState s = next ? s1 : s0;
+      o[t] = br.score(x[t], br.allowed(n[t], next ? tok + t - V : tok + t, s), s);
+    }
+    return make_float4(o[0], o[1], o[2], o[3]);
+  }
+};
+
+// (b) the streaming pass over n = rows * V elements.  FLAT: lp is [rows, V]
+// contiguous and 16-byte aligned, read a vector at a time.
+template <bool FLAT>
+__global__ void __launch_bounds__(STREAM_THREADS)
+dense_stream_kernel(const int* __restrict__ counts, const float* __restrict__ lp,
+                    long long lp_stride, Branches br, long long n, FastDiv by_v, int V,
                     float* __restrict__ out) {
-  const long long r = blockIdx.x;
-  const bool fin = finished[r] != 0;
-  const int count_eff = fin ? 0 : prev_count[r];
-  const bool stop_trig = stop_at_count > 0 && count_eff <= stop_at_count;
-  const float bs = beam_scores[r];
-  const int* cr = counts + r * V;
-  const float* lr = lp + r * lp_stride;
-  float* orow = out + r * V;
-  const int v1 = min(V, (int)(blockIdx.y + 1) * COLS_PER_BLOCK);
-  for (int v = blockIdx.y * COLS_PER_BLOCK + threadIdx.x; v < v1; v += THREADS) {
-    bool allowed = stop_trig ? v == eos : (fin ? v == pad : __ldg(cr + v) > 0);
-    if (always_allow_eos) allowed = allowed || v == eos;
-    orow[v] = __fadd_rn(allowed ? __ldg(lr + v) : neg_inf, bs);
+  const long long nv = n >> 2;
+  const long long q0 = (long long)blockIdx.x * STREAM_THREADS * VECS + threadIdx.x;
+  int4 c[VECS];
+#pragma unroll
+  for (int u = 0; u < VECS; ++u) {
+    const long long q = q0 + (long long)u * STREAM_THREADS;
+    c[u] = q < nv ? __ldg((const int4*)counts + q) : make_int4(0, 0, 0, 0);
+  }
+  // each vector's beams and allowed tokens, then the log-probs it needs
+  BeamState s0[VECS], s1[VECS];
+  int tok[VECS];
+  unsigned ok[VECS];  // bit t: token t allowed
+  float4 x[VECS];
+#pragma unroll
+  for (int u = 0; u < VECS; ++u) {
+    const long long q = q0 + (long long)u * STREAM_THREADS;
+    ok[u] = 0;
+    x[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q >= nv) continue;
+    const unsigned e = (unsigned)(4 * q);
+    const unsigned r = by_v(e);
+    tok[u] = (int)(e - r * (unsigned)V);
+    s0[u] = br.state(r);
+    s1[u] = tok[u] + 3 < V ? s0[u] : br.state(r + 1);
+    const int n4[4] = {c[u].x, c[u].y, c[u].z, c[u].w};
+    float xs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const bool next = tok[u] + t >= V;
+      const int tt = next ? tok[u] + t - V : tok[u] + t;
+      const BeamState st = next ? s1[u] : s0[u];
+      if (br.allowed(n4[t], tt, st)) {
+        ok[u] |= 1u << t;
+        if (!FLAT) xs[t] = __ldg(lp + (long long)(r + next) * lp_stride + tt);
+      }
+    }
+    if (FLAT) {
+      if (ok[u]) x[u] = __ldg((const float4*)lp + q);
+    } else {
+      x[u] = make_float4(xs[0], xs[1], xs[2], xs[3]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < VECS; ++u) {
+    const long long q = q0 + (long long)u * STREAM_THREADS;
+    if (q >= nv) continue;
+    const float xs[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+    float o[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const BeamState st = tok[u] + t >= V ? s1[u] : s0[u];
+      o[t] = br.score(xs[t], (ok[u] >> t) & 1u, st);
+    }
+    ((float4*)out)[q] = make_float4(o[0], o[1], o[2], o[3]);
+  }
+  // the n mod 4 elements past the last vector
+  if (blockIdx.x == 0 && (int)threadIdx.x < (int)(n & 3)) {
+    const long long e = 4 * nv + threadIdx.x;
+    const unsigned r = by_v((unsigned)e);
+    const int tt = (int)((unsigned)e - r * (unsigned)V);
+    const BeamState s = br.state(r);
+    const bool a = br.allowed(__ldg(counts + e), tt, s);
+    out[e] = br.score(a ? __ldg(lp + (long long)r * lp_stride + tt) : 0.f, a, s);
   }
 }
 
 }  // namespace
 
-extern "C" int seal_dense_scores(const int* counts, const float* lp, long long lp_stride,
-                                 const int* prev_count, const unsigned char* finished,
-                                 const float* beam_scores, long long rows, int V, int eos, int pad,
-                                 int stop_at_count, int always_allow_eos, float neg_inf,
-                                 float* out, void* stream) {
-  if (rows > 0 && V > 0) {
-    const dim3 grid((unsigned)rows, (unsigned)((V + COLS_PER_BLOCK - 1) / COLS_PER_BLOCK));
-    dense_scores_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        counts, lp, lp_stride, prev_count, finished, beam_scores, V, eos, pad, stop_at_count,
-        always_allow_eos, neg_inf, out);
-  }
+extern "C" {
+
+// (b) counts [rows, V] int32 and out [rows, V] f32, both contiguous and
+// 16-byte aligned; lp [rows, V] with row stride lp_stride (read by vectors
+// where lp_stride == V and lp is 16-byte aligned); rows * V < 2^31.
+int seal_dense_scores(const int* counts, const float* lp, long long lp_stride,
+                      const int* prev_count, const unsigned char* finished,
+                      const float* beam_scores, long long rows, int V, int eos, int pad,
+                      int stop_at_count, int always_allow_eos, float neg_inf, float* out,
+                      void* stream) {
+  if (rows <= 0 || V <= 0) return (int)cudaGetLastError();
+  const long long n = rows * V;
+  if (n >= (1ll << 31) || ((unsigned long long)counts & 15) || ((unsigned long long)out & 15))
+    return (int)cudaErrorInvalidValue;
+  const Branches br{prev_count, finished, beam_scores, eos, pad, stop_at_count, always_allow_eos,
+                    neg_inf};
+  const long long per = (long long)STREAM_THREADS * VECS;
+  const long long vec_blocks = ((n >> 2) + per - 1) / per;
+  const unsigned blocks = (unsigned)(vec_blocks > 0 ? vec_blocks : 1);  // the tail's block
+  const cudaStream_t s = (cudaStream_t)stream;
+  const FastDiv by_v((unsigned)V);
+  if (lp_stride == V && ((unsigned long long)lp & 15) == 0)
+    dense_stream_kernel<true><<<blocks, STREAM_THREADS, 0, s>>>(counts, lp, lp_stride, br, n,
+                                                                by_v, V, out);
+  else
+    dense_stream_kernel<false><<<blocks, STREAM_THREADS, 0, s>>>(counts, lp, lp_stride, br, n,
+                                                                 by_v, V, out);
   return (int)cudaGetLastError();
 }
+
+// (a) one launch of kernel 3's select over the B queries' [K * V] scores:
+// counts [B, K, V] int32 and lp [B * K, V] f32, both contiguous and 16-byte
+// aligned; the top k as values and int64 indices (vals, idx [B, k]), laid
+// out by kernels/row_topk.py:plan(B, K * V, k).
+int seal_dense_select(const int* counts, const float* lp, const int* prev_count,
+                      const unsigned char* finished, const float* beam_scores,
+                      long long n_queries, int K, int V, int eos, int pad, int stop_at_count,
+                      int always_allow_eos, float neg_inf, int k, int threads, int splits,
+                      int slice, int staged, int cap, int n2, int region, int smem, float* vals,
+                      long long* idx, void* stream) {
+  if (n_queries <= 0) return (int)cudaGetLastError();
+  const long long width = (long long)K * V;
+  if (splits < 1 || splits > 16 || (threads != 512 && threads != 1024) || k < 1 ||
+      k > width || width >= (1ll << 31) || n2 < k || n2 > 16384 ||
+      ((unsigned long long)counts & 15) || ((unsigned long long)lp & 15))
+    return (int)cudaErrorInvalidValue;
+  const DenseScoreLoad load{counts,
+                            {prev_count, finished, beam_scores, eos, pad, stop_at_count,
+                             always_allow_eos, neg_inf},
+                            FastDiv((unsigned)V), V, K};
+  return radix_topk(lp, n_queries, (int)width, k, threads, splits, slice, staged, cap, n2, region,
+                    smem, nullptr, vals, idx, load, (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -270,24 +270,6 @@ size_t list_smem(int n, int gs, int K) { return select_smem(pow2_at_least(n), gs
 
 // ---- the wide route -------------------------------------------------------
 
-// n / d for any 32-bit n by a multiply and shifts (Granlund and Montgomery,
-// "Division by invariant integers using multiplication", 1994, fig. 4.1)
-struct FastDiv {
-  unsigned m;
-  int s1, s2;
-  explicit FastDiv(unsigned d) {
-    int l = 0;
-    while ((1ull << l) < d) ++l;
-    m = (unsigned)((((1ull << l) - d) << 32) / d + 1);
-    s1 = l < 1 ? l : 1;
-    s2 = l > 1 ? l - 1 : 0;
-  }
-  __device__ __forceinline__ unsigned operator()(unsigned n) const {
-    const unsigned t = __umulhi(m, n);
-    return (t + ((n - t) >> s1)) >> s2;
-  }
-};
-
 // Launch 1's loader: element f of row (query, group) = b * G + g is
 // beam f / N of the group, column j = f mod N; its value is the
 // constrained score (NEG_INF where the mask bars the column) plus the

@@ -6,18 +6,31 @@
 // and the select sees only what it returns.  Kernel 3 ranks the stored
 // values (RawValue); kernel 21 ranks a candidate's constrained score plus
 // its beam's score, under the corpus mask, computed as the slice is staged,
-// so its rows are read from device memory once, as kernel 3's are.  The
-// loader inlines: RawValue leaves kernel 3's instructions as they were.
+// so its rows are read from device memory once, as kernel 3's are; kernel
+// 17's dense step (dense_scores.cu) ranks each (beam, token) candidate's
+// allowed log-prob plus its beam's score.  A loader with data of its own
+// beside the rows (an `Aux` type) also reads a 16-byte vector of it with
+// each staged float4 and maps the four values at once (the hooks below).
+// The loader inlines: RawValue leaves kernel 3's instructions as they were.
+//
+// The kernel is also a template on its output.  The top-k mode (KTH false)
+// writes each row's top k; the k-th-value mode (KTH true, kernel 19) stops
+// after the three digit passes, when the row's k-th key T is known, and the
+// cluster's first CTA writes T's f32 value: no survivor buffer, placement
+// or index.
 //
 // radix_topk() launches one call: n_rows clusters of `splits` CTAs of
 // `threads` threads (kernels/row_topk.py:plan gives the layout), writing
 // each row's top k as values and int64 indices in the order, or, with
 // `gbuf`, leaving the survivors unsorted in the [n_rows, n2] scratch for
-// the caller's global sort (kernel 3's large-k route).
+// the caller's global sort (kernel 3's large-k route), or (KTH) each row's
+// k-th value into vals[row].
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "select_common.cuh"
 
@@ -28,6 +41,9 @@ namespace {
 constexpr int MAX_WARPS = 32;  // of a 1024-thread CTA (512 or 1024 threads)
 constexpr int NB = 2048;        // bins of an 11-bit digit
 constexpr int UNROLL = 4;       // 16-byte loads in flight a thread while staging
+// the same bytes in flight with a loader's own 16-byte vector beside each
+// float4 (4 rounds spilled and ran 14% slower on the dense step)
+constexpr int AUX_UNROLL = 2;
 constexpr int RANK_MAX = 512;   // k up to which the output is placed by rank, not sorted
 constexpr unsigned FULL = 0xffffffffu;
 // the bins: the cluster's totals of the three passes (2048, 2048, 1024)
@@ -46,6 +62,43 @@ __device__ __forceinline__ unsigned order_key(float v) {
 
 __device__ __forceinline__ u64 word(unsigned key, long long i) {
   return ((u64)key << 32) | (u64)(~(unsigned)i);
+}
+
+// A loader's vector hooks (see the header): `slice(row, f0, n)` is what a
+// CTA works out once for its slice [f0, f0 + n) of row `row` (kept in
+// registers), `fetch(row, f)` reads the loader's own vector beside the
+// staged float4 of elements f..f+3, and `apply4(v, a, row, f, sl)` maps the
+// four values.  A loader without an `Aux` type maps each value alone.
+struct NoAux {};
+template <class L, class = void>
+struct AuxOf {
+  using type = NoAux;
+};
+template <class L>
+struct AuxOf<L, std::void_t<typename L::Aux>> {
+  using type = typename L::Aux;
+};
+template <class L>
+struct HasAux : std::bool_constant<!std::is_same_v<typename AuxOf<L>::type, NoAux>> {};
+
+template <class Load>
+__device__ __forceinline__ auto slice_aux(const Load& load, long long row, int f0, int n) {
+  if constexpr (HasAux<Load>::value) {
+    return load.slice(row, f0, n);
+  } else {
+    return NoAux{};
+  }
+}
+
+template <class Load, class A, class S>
+__device__ __forceinline__ float4 apply_aux(const Load& load, float4 v, const A& a, long long row,
+                                            int f, const S& sl) {
+  if constexpr (HasAux<Load>::value) {
+    return load.apply4(v, a, row, f, sl);
+  } else {
+    return make_float4(load(v.x, row, f), load(v.y, row, f + 1), load(v.z, row, f + 2),
+                       load(v.w, row, f + 3));
+  }
 }
 
 // The cluster barrier, split so that a CTA can work between its arrival
@@ -216,7 +269,7 @@ __device__ void sort_survivors(u64* w, int n2) {
 // (BINS_BYTES; the leader's output buffer of n2 words reuses the first two
 // passes' totals, or follows the bins where n2 > 2048), then the staged
 // keys (rounded up to 4) from byte `region`, then `cap` candidates.
-template <int THREADS, class Load>
+template <int THREADS, bool KTH, class Load>
 __global__ void __launch_bounds__(THREADS, 1024 / THREADS)
 row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int staged, int cap,
                 int n2, int region, u64* __restrict__ gbuf, float* __restrict__ vals,
@@ -292,24 +345,35 @@ row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int st
         }
         hist_add(hist, digit, lane);
       }
+      // a loader with its own vectors keeps as many bytes in flight in
+      // half the rounds
+      constexpr int U = HasAux<Load>::value ? AUX_UNROLL : UNROLL;
+      const auto sl = slice_aux(load, row, (int)s0, L);
       const float4* xv = (const float4*)(xr + h);
-      for (int base = 0; base < nvec; base += THREADS * UNROLL) {
-        float4 v[UNROLL];
+      for (int base = 0; base < nvec; base += THREADS * U) {
+        float4 v[U];
+        typename AuxOf<Load>::type a[U];
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
+        for (int u = 0; u < U; ++u) {
           const int q = base + u * THREADS + tid;
-          v[u] = q < nvec ? __ldg(xv + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+          v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+          a[u] = {};
+          if (q < nvec) {
+            v[u] = __ldg(xv + q);
+            if constexpr (HasAux<Load>::value) a[u] = load.fetch(row, (int)s0 + h + 4 * q);
+          }
         }
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
+        for (int u = 0; u < U; ++u) {
           const int q = base + u * THREADS + tid;
           const bool ok = q < nvec;
-          const float f[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+          const float4 w = ok ? apply_aux(load, v[u], a[u], row, (int)s0 + h + 4 * q, sl) : v[u];
+          const float f[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
           for (int t = 0; t < 4; ++t) {
             int digit = -1;
             if (ok) {
-              const unsigned key = key_at(f[t], h + 4 * q + t);
+              const unsigned key = order_key(f[t]);
               skey[h + 4 * q + t] = key;
               digit = (int)(key >> 21);
             }
@@ -397,6 +461,14 @@ row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int st
       cand_ok = s_red <= (unsigned)cap;
     }
     __syncthreads();  // s_res and the histogram are read before they change
+  }
+  if constexpr (KTH) {
+    // prefix is the row's k-th key T.  Every CTA has read the leader's
+    // last totals once the cluster has met; then the leader writes T's
+    // value (key_value inverts order_key: the row's own bits).
+    sync_cluster(C);
+    if (leader && tid == 0) vals[row] = key_value((u64)prefix << 32);
+    return;
   }
   // prefix is T; the top k holds every key above it and the first `rank`
   // of the keys equal to it, in index order over the slices: this CTA's
@@ -498,16 +570,35 @@ row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int st
   }
 }
 
-// the stored value as it is (kernel 3)
+// n / d for any 32-bit n by a multiply and shifts (Granlund and Montgomery,
+// "Division by invariant integers using multiplication", 1994, fig. 4.1):
+// the loaders' beam of a flat index
+struct FastDiv {
+  unsigned m;
+  int s1, s2;
+  explicit FastDiv(unsigned d) {
+    int l = 0;
+    while ((1ull << l) < d) ++l;
+    m = (unsigned)((((1ull << l) - d) << 32) / d + 1);
+    s1 = l < 1 ? l : 1;
+    s2 = l > 1 ? l - 1 : 0;
+  }
+  __device__ __forceinline__ unsigned operator()(unsigned n) const {
+    const unsigned t = __umulhi(m, n);
+    return (t + ((n - t) >> s1)) >> s2;
+  }
+};
+
+// the stored value as it is (kernels 3 and 19)
 struct RawValue {
   __device__ __forceinline__ float operator()(float v, long long, int) const { return v; }
 };
 
-template <int THREADS, class Load>
+template <int THREADS, bool KTH, class Load>
 int launch_select(const float* x, long long n_rows, int width, int k, int splits, int slice,
                   int staged, int cap, int n2, int region, int smem, u64* gbuf, float* vals,
                   long long* idx, Load load, cudaStream_t stream) {
-  const auto kernel = row_topk_kernel<THREADS, Load>;
+  const auto kernel = row_topk_kernel<THREADS, KTH, Load>;
   // the kernel's attributes, set once a device (the host path is part of a
   // small call's time): the shared memory opted into so far, all of the
   // SM's 228 KB as shared memory so that several CTAs fit, and clusters of
@@ -557,15 +648,16 @@ int launch_select(const float* x, long long n_rows, int width, int k, int splits
   return (int)err;
 }
 
-template <class Load>
+// KTH: the k-th-value mode (vals [n_rows]; gbuf and idx unused)
+template <bool KTH = false, class Load>
 int radix_topk(const float* x, long long n_rows, int width, int k, int threads, int splits,
                int slice, int staged, int cap, int n2, int region, int smem, u64* gbuf,
                float* vals, long long* idx, Load load, cudaStream_t stream) {
   if (threads == 1024)
-    return launch_select<1024>(x, n_rows, width, k, splits, slice, staged, cap, n2, region, smem,
-                               gbuf, vals, idx, load, stream);
-  return launch_select<512>(x, n_rows, width, k, splits, slice, staged, cap, n2, region, smem,
-                            gbuf, vals, idx, load, stream);
+    return launch_select<1024, KTH>(x, n_rows, width, k, splits, slice, staged, cap, n2, region,
+                                    smem, gbuf, vals, idx, load, stream);
+  return launch_select<512, KTH>(x, n_rows, width, k, splits, slice, staged, cap, n2, region,
+                                 smem, gbuf, vals, idx, load, stream);
 }
 
 }  // namespace

@@ -4,22 +4,40 @@ mode (``csrc/dense_scores.cu``).
 Replaces, in ``seal_tpu/decoding/constrained.py``: the dense branch of
 ``_candidates_general`` (:321-327) with ``_apply_branches`` (:897-912),
 ``cons = where(allowed, cand_lp, NEG_INF)`` (:1394) and the parent's beam
-score added before ``_select`` (:1287-1294).  The output is the flat
-[B, K * V] row of constrained scores that kernel 3 ranks.  A selection and
-one f32 add per element, so the kernel equals the plain version bit for
-bit.  Bound by bytes: a count and a log-prob read and a score written per
-element.
+score added before ``_select`` (:1287-1294).  A selection and one f32 add
+per element, so the kernel equals the plain version bit for bit.  Two
+entry points:
+
+* :func:`dense_select`, the dense step: the scores ranked for each query's
+  top ``k`` inside kernel 3's select (one launch, the scores never
+  written), in kernel 3's order;
+* :func:`dense_scores`, a streaming pass that writes the flat [B, K * V]
+  scores, where sampling (kernel 20) and diverse groups (kernel 21) read
+  them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from seal_tpu_torch.kernels import row_topk
 from seal_tpu_torch.kernels.beam_select import NEG_INF, apply_branches
+
+_FNS = None  # (seal_dense_scores, seal_dense_select, build.stream_ptr), looked up once
+
+
+def _lib():
+    global _FNS
+    if _FNS is None:
+        from seal_tpu_torch.kernels import build
+
+        so = build.lib()
+        _FNS = so.seal_dense_scores, so.seal_dense_select, build.stream_ptr
+    return _FNS
 
 
 def dense_scores_plain(counts, lp, prev_count, finished, beam_scores, *, eos: int, pad: int,
-                       stop_at_count: int, always_allow_eos: bool):
+                       stop_at_count: int = 0, always_allow_eos: bool = False):
     B, K, V = counts.shape
     tokens = torch.arange(V, dtype=torch.int32, device=counts.device).expand(B, K, V)
     allowed = apply_branches(tokens, counts > 0, prev_count, finished, eos=eos, pad=pad,
@@ -28,44 +46,105 @@ def dense_scores_plain(counts, lp, prev_count, finished, beam_scores, *, eos: in
     return cons.reshape(B, K * V)
 
 
+def dense_select_plain(counts, lp, prev_count, finished, beam_scores, k: int, *, eos: int,
+                       pad: int, stop_at_count: int = 0, always_allow_eos: bool = False):
+    scores = dense_scores_plain(counts, lp, prev_count, finished, beam_scores, eos=eos, pad=pad,
+                                stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
+    return row_topk.row_topk_plain(scores, k)
+
+
+def _check(counts, lp, prev_count, finished, beam_scores, name: str):
+    """The shapes, and on the card the types; returns (B, K, V) and the
+    branch state as the kernels read it."""
+    B, K, V = counts.shape
+    if lp.shape != (B * K, V):
+        raise ValueError(f"{name}: lp {tuple(lp.shape)} vs counts {tuple(counts.shape)}")
+    if not lp.is_cuda:
+        return (B, K, V), None
+    if lp.dtype != torch.float32 or lp.stride(1) != 1:
+        raise ValueError(f"{name}: lp must be f32 with unit column stride")
+    if counts.dtype != torch.int32 or beam_scores.dtype != torch.float32:
+        raise ValueError(f"{name}: counts must be int32 and beam_scores f32")
+    if B * K * V >= 2**31:
+        raise ValueError(f"{name}: {B * K * V} elements; the kernels index below 2^31")
+    counts = counts.contiguous()
+    if counts.data_ptr() % 16:
+        raise ValueError(f"{name}: counts must be 16-byte aligned")
+    state = (prev_count.to(torch.int32).contiguous(), finished.to(torch.bool).contiguous(),
+             beam_scores.contiguous())
+    return (B, K, V), (counts,) + state
+
+
 def dense_scores(counts, lp, prev_count, finished, beam_scores, *, eos: int, pad: int,
                  stop_at_count: int = 0, always_allow_eos: bool = False):
     """Constrained scores of every (beam, token) candidate of a step.
 
     ``counts`` int32 [B, K, V]: each beam's continuation counts
-    (``dense_counts``); ``lp`` f32 [B*K, V]: log-probs; ``prev_count``,
-    ``finished``, ``beam_scores`` [B, K].  A token is allowed by the
-    reference branches (stop-forced beams: EOS only; finished beams: PAD
-    only; else count > 0; ``always_allow_eos`` adds EOS).  Returns f32
+    (``dense_counts``); ``lp`` f32 [B*K, V]: log-probs (any row stride);
+    ``prev_count``, ``finished``, ``beam_scores`` [B, K].  A token is allowed
+    by the reference branches (stop-forced beams: EOS only; finished beams:
+    PAD only; else count > 0; ``always_allow_eos`` adds EOS).  Returns f32
     [B, K * V]: ``lp`` where allowed, else ``NEG_INF``, plus the beam score.
 
-    CPU tensors run the plain version; CUDA tensors launch kernel 17.
+    CPU tensors run the plain version; CUDA tensors launch kernel 17's
+    streaming pass.
     """
-    B, K, V = counts.shape
-    if lp.shape != (B * K, V):
-        raise ValueError(f"dense_scores: lp {tuple(lp.shape)} vs counts {tuple(counts.shape)}")
     kw = dict(eos=eos, pad=pad, stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
-    if not lp.is_cuda:
+    (B, K, V), args = _check(counts, lp, prev_count, finished, beam_scores, "dense_scores")
+    if args is None:
         return dense_scores_plain(counts, lp, prev_count, finished, beam_scores, **kw)
-    from seal_tpu_torch.kernels import build
-
-    if lp.dtype != torch.float32 or lp.stride(1) != 1:
-        raise ValueError("dense_scores: lp must be f32 with unit column stride")
-    if counts.dtype != torch.int32 or beam_scores.dtype != torch.float32:
-        raise ValueError("dense_scores: counts must be int32 and beam_scores f32")
-    counts = counts.contiguous()
-    prev_count = prev_count.to(torch.int32).contiguous()
-    finished = finished.to(torch.bool).contiguous()
-    beam_scores = beam_scores.contiguous()
+    fn, _, stream = _lib()
+    counts, prev_count, finished, beam_scores = args
     out = torch.empty((B, K * V), dtype=torch.float32, device=lp.device)
-    rc = build.lib().seal_dense_scores(
-        counts.data_ptr(), lp.data_ptr(), lp.stride(0), prev_count.data_ptr(),
-        finished.data_ptr(), beam_scores.data_ptr(), B * K, V, eos, pad, stop_at_count,
-        int(always_allow_eos), NEG_INF, out.data_ptr(), build.stream_ptr(lp),
-    )
-    build.check(rc, "dense_scores")
+    rc = fn(counts.data_ptr(), lp.data_ptr(), lp.stride(0), prev_count.data_ptr(),
+            finished.data_ptr(), beam_scores.data_ptr(), B * K, V, eos, pad, stop_at_count,
+            int(always_allow_eos), NEG_INF, out.data_ptr(), stream(lp))
+    if rc:
+        raise RuntimeError(f"dense_scores: CUDA error {rc}")
     dense_scores.launches += 1
     return out
 
 
+def dense_select(counts, lp, prev_count, finished, beam_scores, k: int, *, eos: int, pad: int,
+                 stop_at_count: int = 0, always_allow_eos: bool = False,
+                 layout: row_topk.Plan | None = None):
+    """The dense step's top ``k`` of each query's [K * V] constrained scores
+    (:func:`dense_scores`' values), as (values f32, int64 flat indices)
+    [B, k] in kernel 3's order (value descending, index ascending):
+    ``row_topk(dense_scores(...), k)``, bit for bit.
+
+    CPU tensors run the plain version; CUDA tensors launch one call of
+    kernel 3's select with the scores computed as it stages the rows (the
+    scores are never written), laid out by ``row_topk.plan(B, K * V, k)``
+    or by ``layout``.  ``lp`` must be contiguous ([B*K, V] seen as
+    [B, K * V]) and 16-byte aligned, as the counts are; ``k`` at most
+    ``row_topk.MAX_K``.
+    """
+    kw = dict(eos=eos, pad=pad, stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
+    (B, K, V), args = _check(counts, lp, prev_count, finished, beam_scores, "dense_select")
+    if not 0 < k <= K * V:
+        raise ValueError(f"dense_select: k={k} for rows of width {K * V}")
+    if args is None:
+        return dense_select_plain(counts, lp, prev_count, finished, beam_scores, k, **kw)
+    if not lp.is_contiguous() or lp.data_ptr() % 16:
+        raise ValueError("dense_select: lp must be contiguous and 16-byte aligned (its rows "
+                         "are the select's [B, K * V] rows)")
+    p = row_topk.plan(B, K * V, k) if layout is None else layout
+    if p.sort != "shared":
+        raise ValueError(f"dense_select: k={k} past the select's shared sort "
+                         f"({row_topk.MAX_K})")
+    _, fn, stream = _lib()
+    counts, prev_count, finished, beam_scores = args
+    vals = torch.empty((B, k), dtype=torch.float32, device=lp.device)
+    idx = torch.empty((B, k), dtype=torch.int64, device=lp.device)
+    rc = fn(counts.data_ptr(), lp.data_ptr(), prev_count.data_ptr(), finished.data_ptr(),
+            beam_scores.data_ptr(), B, K, V, eos, pad, stop_at_count, int(always_allow_eos),
+            NEG_INF, k, *p.launch, vals.data_ptr(), idx.data_ptr(), stream(lp))
+    if rc:
+        raise RuntimeError(f"dense_select: CUDA error {rc}")
+    dense_select.launches += 1
+    return vals, idx
+
+
 dense_scores.launches = 0
+dense_select.launches = 0

@@ -44,7 +44,8 @@ class Plan(NamedTuple):
     a sort buffer of ``n2`` words after (or in) a ``region`` of bins, and
     ``smem`` dynamic bytes a CTA.  ``sort`` is "shared" (the leader sorts
     the survivors in its shared memory) or, past ``MAX_K``, "global" (they
-    go to a [rows, n2] scratch in device memory, sorted there)."""
+    go to a [rows, n2] scratch in device memory, sorted there), or
+    "none" (the k-th-value mode of kernel 19: no survivor is kept)."""
 
     route: str  # "staged": a slice in shared memory; "streamed": its tail not
     threads: int
@@ -67,7 +68,7 @@ class Plan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def plan(rows: int, width: int, k: int, splits: int | None = None,
-         staged: int | None = None, cap: int = CAND_CAP) -> Plan:
+         staged: int | None = None, cap: int = CAND_CAP, kth: bool = False) -> Plan:
     """The launch of kernel 3 for ``rows`` rows of ``width`` and top ``k``.
 
     By default a row is one CTA, and the split doubles (up to 16 CTAs a
@@ -78,13 +79,19 @@ def plan(rows: int, width: int, k: int, splits: int | None = None,
     (``python -m seal_tpu_torch.bench_row_topk`` times every call site at
     every split).  ``splits``, ``staged`` and ``cap`` force a route
     (tests and measurements).  Past ``MAX_K`` the survivors are sorted in
-    device memory (``sort="global"``).  Raises where a forced layout is
-    past the card's shared memory.  Cached: the decode loop asks for the
-    same few shapes every step."""
+    device memory (``sort="global"``).  ``kth``: the k-th-value mode
+    (kernel 19), which keeps no survivor, so no sort buffer (``n2`` 0) at
+    any k, and splits a row only where it does not fit one CTA: each CTA
+    of a cluster pays three passes of 2,048 remote bin adds and reads and
+    a cluster barrier a pass, and at the warper's [480, 50265] and
+    [120, 50265], k = 50, one CTA a row was the fastest of 1-16 even where
+    more would fill the card (``bench_row_topk``'s ``row_kth layouts``).
+    Raises where a forced layout is past the card's shared memory.
+    Cached: the decode loop asks for the same few shapes every step."""
     if not 0 < k <= width:
         raise ValueError(f"row_topk: k={k} for rows of width {width}")
-    n2 = 1 << (k - 1).bit_length()
-    sort = "global" if k > MAX_K else "shared"
+    n2 = 0 if kth else 1 << (k - 1).bit_length()
+    sort = "none" if kth else "global" if k > MAX_K else "shared"
     # the bins; the sort buffer reuses two passes' totals up to 2048 words
     region = BINS_BYTES + (8 * n2 if 2048 < n2 and sort == "shared" else 0)
     room = (SMEM_BUDGET - region) // 4  # keys a CTA can stage
@@ -92,7 +99,8 @@ def plan(rows: int, width: int, k: int, splits: int | None = None,
         splits = 1
         while splits < MAX_SPLITS and (
                 -(-width // splits) > room
-                or (rows * splits < FILL_CTAS and -(-width // (2 * splits)) >= MIN_SLICE)):
+                or (not kth and rows * splits < FILL_CTAS
+                    and -(-width // (2 * splits)) >= MIN_SLICE)):
             splits *= 2
     if not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"row_topk: {splits} CTAs a row; a cluster holds 1 to {MAX_SPLITS}")

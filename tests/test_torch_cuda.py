@@ -1059,6 +1059,102 @@ def test_dense_scores_match_plain(cuda, case):
     _same((got,), (dense_scores.dense_scores_plain(counts, lp, prev_count, finished, bs, **kw),))
 
 
+def _dense_inputs(g, B, K, V, cuda, lp=None):
+    """A dense step's counts, log-probs and branch state, with dead beams,
+    signed zeros and a query whose beams are all at NEG_INF."""
+    lp = _lp(g, B * K, V, cuda) if lp is None else lp
+    counts = torch.randint(0, 3, (B, K, V), generator=g, device=cuda, dtype=torch.int32)
+    counts[0, min(2, K - 1)] = 0  # a dead interval
+    prev_count = torch.randint(0, 6, (B, K), generator=g, device=cuda, dtype=torch.int32)
+    finished = torch.rand(B, K, generator=g, device=cuda) < 0.2
+    bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
+    bs[0, min(1, K - 1)] = tc.NEG_INF
+    bs[-1] = tc.NEG_INF  # an all-NEG_INF query
+    counts[-1] = 0
+    return counts, lp, prev_count, finished, bs
+
+
+DENSE_BRANCHES = {"plain": dict(stop_at_count=0, always_allow_eos=False),
+                  "branches": dict(stop_at_count=2, always_allow_eos=True),
+                  "stop": dict(stop_at_count=1, always_allow_eos=False)}
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("case", sorted(DENSE_BRANCHES))
+@pytest.mark.parametrize("B,K,V", [(32, 15, 50265), (4, 3, 97), (3, 5, 50264), (2, 32, 50265)])
+def test_dense_select_matches_plain(cuda, B, K, V, case, graph):
+    """Kernel 17 inside kernel 3's select (the dense step): the top 2K of the
+    scores it never writes equal ``row_topk_plain(dense_scores_plain(...))``
+    bit for bit, values and int64 indices, at the generation point, at odd
+    and even V, at beam 32 (a slice streamed past the shared memory), with
+    every branch and an all-NEG_INF query; eager and replayed from a CUDA
+    graph; one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(B * K + V)
+    args = _dense_inputs(g, B, K, V, cuda)
+    kw = dict(eos=2, pad=1, **DENSE_BRANCHES[case])
+    n0 = dense_scores.dense_select.launches
+    call = lambda: dense_scores.dense_select(*args, 2 * K, **kw)  # noqa: E731
+    got = _graph_call(call) if graph else call()
+    assert dense_scores.dense_select.launches == n0 + (2 if graph else 1)
+    _same(got, dense_scores.dense_select_plain(*args, 2 * K, **kw))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
+def test_dense_select_forced_layouts(cuda, splits):
+    """Every split of a [4, 3 * 50265] select, and a route that streams
+    each slice's tail (staged cut to 4,000 keys), exactly the plain top-k."""
+    g = torch.Generator(device=cuda).manual_seed(splits)
+    B, K, V = 4, 3, 50265
+    args = _dense_inputs(g, B, K, V, cuda)
+    kw = dict(eos=2, pad=1, stop_at_count=2, always_allow_eos=True)
+    want = dense_scores.dense_select_plain(*args, 2 * K, **kw)
+    for staged in (None, 4000):
+        lay = row_topk.plan(B, K * V, 2 * K, splits=splits, staged=staged)
+        _same(dense_scores.dense_select(*args, 2 * K, layout=lay, **kw), want)
+
+
+def test_dense_select_refuses_what_it_does_not_index(cuda):
+    """A strided or unaligned ``lp`` is not the select's [B, K * V] rows: the
+    wrapper raises (no second route)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, K, V = 2, 3, 101
+    wide = _lp(g, B * K, V + 7, cuda)
+    counts, _, prev_count, finished, bs = _dense_inputs(g, B, K, V, cuda)
+    kw = dict(eos=2, pad=1)
+    for lp in (wide[:, :V], wide.reshape(-1)[1:1 + B * K * V].reshape(B * K, V)):
+        with pytest.raises(ValueError, match="lp"):
+            dense_scores.dense_select(counts, lp, prev_count, finished, bs, 2 * K, **kw)
+    with pytest.raises(ValueError, match="shared sort"):
+        big = torch.zeros((1, 2, 10000), dtype=torch.int32, device=cuda)
+        dense_scores.dense_select(big, _lp(g, 2, 10000, cuda), prev_count[:1, :2],
+                                  finished[:1, :2], bs[:1, :2], row_topk.MAX_K + 1, **kw)
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("lp_case", ["flat", "strided", "unaligned"])
+@pytest.mark.parametrize("B,K,V", [(32, 15, 50265), (3, 1, 97), (1, 3, 50265), (2, 2, 7)])
+def test_dense_scores_stream_matches_plain(cuda, B, K, V, lp_case, graph):
+    """Kernel 17's streaming pass bit for bit: at the generation point, at
+    odd V with vectors straddling beams and a flat size that is not a
+    multiple of 4, with a strided ``lp`` (row stride past V) and an ``lp``
+    that is not 16-byte aligned, every branch, eager and graph-replayed."""
+    g = torch.Generator(device=cuda).manual_seed(B + K + V)
+    if lp_case == "flat":
+        lp = _lp(g, B * K, V, cuda)
+    elif lp_case == "strided":
+        lp = _lp(g, B * K, V + 5, cuda)[:, :V]
+    else:
+        lp = _lp(g, 1, B * K * V + 1, cuda).reshape(-1)[1:].reshape(B * K, V)
+    args = _dense_inputs(g, B, K, V, cuda, lp=lp)
+    for case in sorted(DENSE_BRANCHES):
+        kw = dict(eos=2, pad=1, **DENSE_BRANCHES[case])
+        n0 = dense_scores.dense_scores.launches
+        call = lambda: dense_scores.dense_scores(*args, **kw)  # noqa: E731
+        got = _graph_call(call) if graph else call()
+        assert dense_scores.dense_scores.launches == n0 + (2 if graph else 1)
+        _same((got,), (dense_scores.dense_scores_plain(*args, **kw),))
+
+
 @pytest.mark.parametrize("B,K,n_top,with_buf", [(32, 15, 64, False), (32, 15, 256, True)])
 def test_beam_merge_ties_match_plain(cuda, B, K, n_top, with_buf):
     """Kernel 8's ties mode, merge: equal log-probs kept by dedup id."""
@@ -1123,8 +1219,9 @@ def test_beam_select_ties_match_plain(cuda, B, K, w, case):
 def test_dense_and_tie_modes_on_card_match_cpu(cuda, layout):
     """``exact_mask`` and ``exact_ties`` generation on the card: the CPU
     plain path's hypotheses (token lists equal, scores within 1e-4), the
-    dense run bit for bit equal to the fast runs; kernels 15 or 16, 17 and
-    8's ties mode launched."""
+    dense run bit for bit equal to the fast runs; kernels 15 or 16, 17
+    inside kernel 3's select (its streaming pass not at all) and 8's ties
+    mode launched."""
     cfg = bart_tiny(vocab_size=96)
     params = bart.init_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(3)
@@ -1141,7 +1238,8 @@ def test_dense_and_tie_modes_on_card_match_cpu(cuda, layout):
 
     gpu_params = _to(params, cuda)
     counts = fm_search.fm_dense_counts if layout == "psi" else wt_search.wt_dense_counts
-    n15, n17 = counts.launches, dense_scores.dense_scores.launches
+    n15, n17 = counts.launches, dense_scores.dense_select.launches
+    n17s = dense_scores.dense_scores.launches
     canon = []
     for modes in (dict(exact_mask=True), dict(exact_ties=True), {}):
         cpu = tg.fm_index_generate(cfg, params, index("cpu"), queries, **kw, **modes)
@@ -1153,7 +1251,8 @@ def test_dense_and_tie_modes_on_card_match_cpu(cuda, layout):
             assert [t for t, _ in ka] == [t for t, _ in kb]
             np.testing.assert_allclose([s for _, s in kb], [s for _, s in ka], atol=1e-4, rtol=0)
         canon.append([sorted((tuple(t), s) for s, t in h) for h in gpu])
-    assert counts.launches > n15 and dense_scores.dense_scores.launches > n17
+    assert counts.launches > n15 and dense_scores.dense_select.launches > n17
+    assert dense_scores.dense_scores.launches == n17s
     assert canon[0] == canon[1] == canon[2]
 
 
@@ -1234,6 +1333,38 @@ def test_row_select_at_the_decode_shapes(cuda):
         assert torch.equal(gi, wi) and torch.equal(gv.view(torch.int32), wv.view(torch.int32))
         assert torch.equal(row_select.row_kth(x, k).view(torch.int32),
                            wv[:, -1].view(torch.int32))
+
+
+@pytest.mark.parametrize("graph", [False, True])
+def test_row_kth_at_the_warper_shape(cuda, graph):
+    """Kernel 19 at the ``topk`` warper's [480, 50265], k = 50 (and the
+    batch-8 [120, 50265]), eager and replayed from a CUDA graph: bit for
+    bit the plain version, one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(50)
+    lp = _lp(g, 480, 50265, cuda)
+    for x in (lp, lp[:120]):
+        n0 = row_select.row_kth.launches
+        call = lambda x=x: row_select.row_kth(x, 50)  # noqa: E731
+        got = _graph_call(call) if graph else call()
+        assert row_select.row_kth.launches == n0 + (2 if graph else 1)
+        assert torch.equal(got.view(torch.int32), row_select.row_kth_plain(x, 50).view(torch.int32))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("k", [1, 50, 2000, 50265])
+def test_row_kth_forced_layouts(cuda, k, splits):
+    """Kernel 19 at every split of a vocab-wide row and on the route that
+    streams a slice's tail, on rows with ties at the k-th place, signed
+    zeros, -inf and NEG_INF plateaus, k = 1 and k = n: bit for bit."""
+    x = torch.as_tensor(_select_rows(np.random.default_rng(k + splits), 8, 50265)).cuda()
+    want = row_select.row_kth_plain(x, k).view(torch.int32)
+    p = row_select.plan(8, 50265, k, splits=splits)
+    assert torch.equal(row_select.row_kth(x, k, layout=p).view(torch.int32), want)
+    streamed = row_topk.plan(8, 50265, k, splits=splits, staged=p.slice // 3, kth=True)
+    assert streamed.route == "streamed"
+    assert torch.equal(row_select.row_kth(x, k, layout=streamed).view(torch.int32), want)
+    with pytest.raises(ValueError, match="k-th-value plan"):
+        row_select.row_kth(x, k, layout=row_topk.plan(8, 50265, k))
 
 
 def test_log_softmax_threshold_matches_plain(cuda):
