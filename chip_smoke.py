@@ -67,18 +67,22 @@
    ``keep_invalid`` mode; every key grounded, hypotheses bit-identical
    across layouts; how many queries equal the fast path's is logged),
    ``forced_bos_token_id=0`` (column 1 pinned, keys grounded, ``force_full``
-   identical) and the top-k warper (``topk=50``: kernel 19's k-th value and
-   kernel 4's threshold every step); a tiny model's modes on the card
+   identical) and the top-k warper (``topk=50``: its masked log-softmax in
+   one launch of kernel 3's select, ``topk_log_softmax``, every step, and
+   neither kernel 19 nor kernel 4); a tiny model's modes on the card
    against its CPU path (``topk=1`` free generation collapses to one
    path); one ``free_generation`` searcher unit at the e2e point and the
    tiny searcher's; ``locate_rows`` / ``doc_index_of`` (kernel 18) on every
    occurrence row of one unit's keys (at most ``max_hits`` each) of a
    ``keep_sa`` index, against their plain versions and the host index;
    the search timed beside ``torch.searchsorted`` eager and graph-replayed.
-   Kernels 18-19 and the new modes of 4 and 8 against their plain versions.
+   Kernels 18-19, the warper and the modes of 8 against their plain
+   versions.
 10. Drives constrained sampling (``sample``: kernel 20 every step, the V-wide
    step 0 under the corpus mask; steps >= 1 through the proven loop and
-   kernel 8's candidate mode; kernel 8 selects nothing) at the generation
+   kernel 8's candidate mode, kernel 20 on the candidate lists; ``exact_mask``
+   steps >= 1 through kernel 20's count-reading mode, with no streaming
+   pass; kernel 8 selects nothing) at the generation
    point: seeds 0 and 1 on the Psi layout (three batches each: one seed
    gives identical hypotheses every batch, the two seeds differ, a query's
    chains end in more than one key), the compact and hybrid layouts
@@ -88,8 +92,13 @@
    (hypotheses bit-identical across layouts and between the proposal route
    and ``exact_mask``); every key grounded; one searcher unit with
    ``diverse_bs_groups=3``; the tiny model's sampling and diverse groups on
-   the card against its CPU path.  Kernels 20, 21 and 8's candidate mode
-   against their plain versions at the path's shapes: Philox words exactly,
+   the card against its CPU path; a profiled batch each of sampling,
+   sampled ``exact_mask``, ``topk=50`` and diverse groups (device ms,
+   launches, kernel 20's and the warper's device ms).  Kernels 20 (V-wide,
+   at batch 32 and on batch 8's cluster route; list; count-reading, beside
+   the streaming pass and the V-wide draw it replaced), 21 and 8's
+   candidate mode against their plain versions at the path's shapes,
+   eager and graph-replayed: Philox words exactly,
    Gumbel values within 8 ulps, draws equal away from near-ties, and 2^16
    draws of one row against its softmax (chi-square); 21 and 8c bit for
    bit, 21 on its wide, list and chunked routes with its kernels a call
@@ -206,8 +215,10 @@ REPLACES = {
     "row_kth": "seal_tpu/decoding/constrained.py:289",
     "beam_select_free": "seal_tpu/decoding/constrained.py:329",
     "beam_select_spec": "seal_tpu/decoding/constrained.py:343",
-    "log_softmax_topk": "seal_tpu/decoding/constrained.py:294",
+    "topk_log_softmax": "seal_tpu/decoding/constrained.py:294",
     "sample_select": "seal_tpu/decoding/constrained.py:1092",
+    "sample_select_list": "seal_tpu/decoding/constrained.py:1092",
+    "sample_select_counts": "seal_tpu/decoding/constrained.py:1092",
     "diverse_select": "seal_tpu/decoding/constrained.py:1125",
     "diverse_select_wide": "seal_tpu/decoding/constrained.py:1125",
     "beam_candidates": "seal_tpu/decoding/constrained.py:359",
@@ -257,8 +268,10 @@ SOURCES = {
     "row_kth": ("cuda", "seal_tpu_torch/kernels/csrc/row_select.cu"),
     "beam_select_free": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "beam_select_spec": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
-    "log_softmax_topk": ("triton", "seal_tpu_torch/kernels/triton_logsoftmax.py"),
+    "topk_log_softmax": ("cuda", "seal_tpu_torch/kernels/csrc/row_select.cu"),
     "sample_select": ("cuda", "seal_tpu_torch/kernels/csrc/sample_select.cu"),
+    "sample_select_list": ("cuda", "seal_tpu_torch/kernels/csrc/sample_select.cu"),
+    "sample_select_counts": ("cuda", "seal_tpu_torch/kernels/csrc/sample_select.cu"),
     "diverse_select": ("cuda", "seal_tpu_torch/kernels/csrc/diverse_select.cu"),
     "diverse_select_wide": ("cuda", "seal_tpu_torch/kernels/csrc/diverse_select.cu"),
     "beam_candidates": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
@@ -331,8 +344,9 @@ PATH_KERNELS["batch_search_dense"] = ("fm_dense_counts", "fm_search", "fm_sequen
 # top-256 and top-2K, kernel 8's token-table epilogue); speculative takes
 # kernel 3's top-256, one membership query and the window a step, and
 # kernel 8's keep_invalid mode; forced BOS is the main path plus one decode step with
-# no selection; the warper adds kernel 19's k-th value and kernel 4's
-# threshold; locate is kernel 18 in both modes
+# no selection; the warper's masked log-softmax is one launch of kernel 3's
+# select in its warper mode (topk_log_softmax) in place of kernel 4 (and of
+# kernel 19's k-th value); locate is kernel 18 in both modes
 ATTN_STEP = ("cross_attention_step", "self_attention_step", "reorder_cache")
 FREE_STEP = ("row_topk", "log_softmax_min_len", "beam_select", "beam_select_free") + ATTN_STEP
 PATH_KERNELS["generate_free"] = FREE_STEP
@@ -342,23 +356,27 @@ PATH_KERNELS["generate_spec"] = ("fm_search", "window_gather") + SPEC_STEP
 for _layout in WAVELET_LAYOUTS:
     PATH_KERNELS[f"generate_spec_{_layout}"] = ("wt_search", "wt_window_gather") + SPEC_STEP
 PATH_KERNELS["generate_bos"] = PATH_KERNELS["generate"]
-PATH_KERNELS["generate_topk"] = PATH_KERNELS["generate"] + ("row_kth", "log_softmax_topk")
+PATH_KERNELS["generate_topk"] = tuple(k for k in PATH_KERNELS["generate"]
+                                      if k != "log_softmax_min_len") + ("topk_log_softmax",)
 PATH_KERNELS["locate"] = ("locate_rows", "doc_index_of")
 # sampling and diverse groups: kernel 20 or 21 selects every step (step 0 on
 # the V-wide rows); steps >= 1 take the proven loop's buffer (kernels 3, 1
-# or 12, kernel 8's merge) and window through kernel 8's candidate mode, or
-# the dense route (15 or 16, 17), or free generation's top-top_m (3)
+# or 12, kernel 8's merge) and window through kernel 8's candidate mode
+# (kernel 20 on candidate lists), or the dense route (15
+# or 16, then 17's streaming pass under diverse groups, kernel 20's
+# count-reading mode under sampling), or free generation's top-top_m (3)
 LOOP_STEP = ("row_topk", "log_softmax_min_len", "beam_merge", "beam_candidates") + ATTN_STEP
 # (kernel 21 on its list route every step >= 1 and on its wide route, 2
 # launches, on the V-wide rows)
-for _mode, _select in (("sample", ("sample_select",)),
-                       ("diverse", ("diverse_select", "diverse_select_wide"))):
+for _mode, _select, _dense in (
+        ("sample", ("sample_select", "sample_select_list"), "sample_select_counts"),
+        ("diverse", ("diverse_select", "diverse_select_wide"), "dense_scores")):
     PATH_KERNELS[f"generate_{_mode}"] = ("fm_search", "window_gather") + _select + LOOP_STEP
     for _layout in WAVELET_LAYOUTS:
         PATH_KERNELS[f"generate_{_mode}_{_layout}"] = (
             "wt_search", "wt_window_gather") + _select + LOOP_STEP
-    PATH_KERNELS[f"generate_{_mode}_dense"] = ("fm_dense_counts", "fm_search", "dense_scores",
-                                               "log_softmax_min_len") + _select + ATTN_STEP
+    PATH_KERNELS[f"generate_{_mode}_dense"] = ("fm_dense_counts", "fm_search", _dense,
+                                               "log_softmax_min_len", _select[0]) + ATTN_STEP
 PATH_KERNELS["generate_sample_seed1"] = PATH_KERNELS["generate_sample"]
 # the sizes the card refused before its large routes (ROADMAP C.2): a
 # sampling buffer of top_m 512 and a 20000-wide loop chunk, through kernel
@@ -457,6 +475,11 @@ def fused_window(path: str):
     return "window_gather", "window_slab", "slab_gather"
 
 
+# kernels kept as entry points that no driven path launches, held against
+# their plain versions by their phases: kernel 19's k-th value (the warper
+# computes it inside topk_log_softmax since that launch replaced kernel 19
+# and kernel 4's threshold mode)
+ENTRY_POINTS_ONLY = ("row_kth",)
 # the calls of each ShardedIndexOps method that a shard mode serves
 SHARD_OPS = ("extend", "contains", "validate", "window_gather", "window_slab", "slab",
              "range_for", "bucket_counts", "dense_counts")
@@ -641,7 +664,7 @@ def log_kernel(row) -> None:
                                                "loop_chunk_plain_ms", "group_graph_ms",
                                                "composed_ms", "composed_graph_ms", "block_ms",
                                                "block_graph_ms", "beam32_ms", "cand_ms",
-                                               "n_buf_3000_ms")
+                                               "n_buf_3000_ms", "cluster_ms", "cluster_graph_ms")
                   if k in row))
 
 
@@ -1829,9 +1852,9 @@ def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
 
 def mode_kernel_phases(np, torch, cfg, V, B, K, window):
     """Kernel 19 (the k-th value at 50 on [B*K, V] log-probs), kernel 8's
-    free and speculative modes and kernel 4's threshold against their plain
-    versions at the decode modes' shapes, each timed beside its default
-    mode and its library yardstick.  (The modes' top-256 is kernel 3's:
+    free and speculative modes and the warper (kernel 3's select in its
+    warper mode) against their plain versions at the decode modes' shapes,
+    each timed beside its default mode and its library yardstick.  (The modes' top-256 is kernel 3's:
     the ``row_topk sites:`` line holds it at k = 256.)"""
     from seal_tpu_torch.kernels import beam_select as k8
     from seal_tpu_torch.kernels import row_select as k19
@@ -1946,23 +1969,42 @@ def mode_kernel_phases(np, torch, cfg, V, B, K, window):
         + B * (2 * K * 13 + K * 13 + 4 * K),
     ))
 
-    # kernel 4 with the warper's threshold (kernel 19's 50th value)
+    # the warper: kernel 3's select in its warper mode (the k-th value, the
+    # mask, the log-softmax and the ban in one launch) against its plain
+    # version (kernel 19's and kernel 4's plain versions), at the step's
+    # shape and, for the held limits, on the corner rows above at k = 1, 50
+    # and V and at a width split over a cluster (250,000 columns, 8 CTAs)
     logits = torch.randn(rows, V, generator=g, device=dev) * 3
     logits[:, pad] = float("-inf")
-    kth = k19.row_kth(logits, 50)
-    got = k4.log_softmax_ban(logits, eos, k8.NEG_INF, kth)
-    want = k4.log_softmax_ban_plain(logits, eos, k8.NEG_INF, kth)
-    live = want > k8.NEG_INF / 2
-    err4 = float((got[live] - want[live]).abs().max())
-    if err4 > LOGSOFTMAX_ATOL or not torch.equal(got > k8.NEG_INF / 2, live):
-        fail(f"log_softmax_topk differs from its plain version (max err {err4})")
+    wide = torch.randn(8, 250000, generator=g, device=dev) * 3
+    err4 = 0.0
+    for x, k, ban in ((logits, 50, eos), (logits, 50, -1), (adv, 1, eos), (adv, 50, eos),
+                      (adv, V, -1), (wide, 50, eos)):
+        want = k19.topk_log_softmax_plain(x, k, ban, k8.NEG_INF)
+        live = want > k8.NEG_INF / 2
+        for got in (k19.topk_log_softmax(x, k, ban, k8.NEG_INF),
+                    graph_result(torch, lambda x=x, k=k, ban=ban: k19.topk_log_softmax(
+                        x, k, ban, k8.NEG_INF))):
+            if not torch.equal(got > k8.NEG_INF / 2, live):
+                fail(f"topk_log_softmax: the masked set differs at [{x.shape[0]},{x.shape[1]}] "
+                     f"k={k}")
+            err4 = max(err4, float((got[live] - want[live]).abs().max()))
+    if err4 > LOGSOFTMAX_ATOL:
+        fail(f"topk_log_softmax differs from its plain version (max err {err4})")
+    pw = k19.plan(rows, V, 50)
     table.append(dict(
-        name="log_softmax_topk", max_abs_err=err4, atol=LOGSOFTMAX_ATOL, library_ms=None,
-        ms=time_ms(lambda: k4.log_softmax_ban(logits, eos, k8.NEG_INF, kth)),
-        plain_ms=time_ms(lambda: k4.log_softmax_ban_plain(logits, eos, k8.NEG_INF, kth)),
+        name="topk_log_softmax", max_abs_err=err4, atol=LOGSOFTMAX_ATOL, library_ms=None,
+        ms=time_ms(lambda: k19.topk_log_softmax(logits, 50, eos, k8.NEG_INF)),
+        graph_ms=graph_ms(lambda: k19.topk_log_softmax(logits, 50, eos, k8.NEG_INF)),
+        plain_ms=time_ms(lambda: k19.topk_log_softmax_plain(logits, 50, eos, k8.NEG_INF),
+                         iters=5),
         default_ms=time_ms(lambda: k4.log_softmax_ban(logits, eos, k8.NEG_INF)),
-        shape=f"[{rows},{V}] with a per-row threshold (default_ms: without one)",
-        bytes=2 * logits.numel() * 4 + rows * 4, flops=5 * logits.numel(),
+        wide_ms=time_ms(lambda: k19.topk_log_softmax(wide, 50, eos, k8.NEG_INF)),
+        shape=f"[{rows},{V}] k=50 with the min-length ban, {pw.splits} CTA(s) of "
+              f"{pw.threads} threads a row (default_ms: kernel 4 without a warper; wide_ms: "
+              "[8,250000], 8 CTAs a row)",
+        # the logits read once, the log-probs written once
+        bytes=2 * logits.numel() * 4, flops=3 * logits.numel(),
     ))
     torch.cuda.synchronize()
     return table
@@ -2003,6 +2045,7 @@ def sample_kernel_phases(np, torch, cfg, V, B, K, window, device="cuda"):
     from scipy import stats
 
     from seal_tpu_torch.kernels import beam_select as k8
+    from seal_tpu_torch.kernels import dense_scores as k17
     from seal_tpu_torch.kernels import diverse_select as k21
     from seal_tpu_torch.kernels import row_topk as k3
     from seal_tpu_torch.kernels import sample_select as k20
@@ -2098,19 +2141,84 @@ def sample_kernel_phases(np, torch, cfg, V, B, K, window, device="cuda"):
         f"values within {ulps:.2f} ulps of max(|g|, 1); clear draws {int(clear0.sum())}/{rows} (step 0) and "
         f"{int(clear1.sum())}/{rows} (candidates), all equal: {err20 == 0}; 2^16 draws of one "
         f"row: chi-square p {p_chi:.4f}")
+    # batch 8's V-wide rows: a cluster of CTAs a row
+    r8 = rows // 4
+    args8 = (lp[:r8], lp[:r8], None, torch.zeros(B // 4, K, device=dev), 5, 0)
+    got = k20.sample_select(*args8, eos=eos, pad=pad, mask=corpus)
+    want = k20.sample_select_plain(*args8, eos=eos, pad=pad, mask=corpus)
+    err20 += sample_mismatches(torch, got, want, clear0[:r8])
+    err20 += sample_mismatches(torch, graph_result(torch, lambda: k20.sample_select(
+        *args0, eos=eos, pad=pad, mask=corpus)), k20.sample_select_plain(
+        *args0, eos=eos, pad=pad, mask=corpus), clear0)
+    err_list = sample_mismatches(torch, graph_result(torch, lambda: k20.sample_select(
+        *args1, eos=eos, pad=pad)), k20.sample_select_plain(*args1, eos=eos, pad=pad), clear1)
+    # the count-reading mode (a sampled exact_mask step): a step's sparse
+    # count vectors, every branch, against its plain version and beside the
+    # parent's composition (kernel 17's streaming pass, then the V-wide draw)
+    counts = torch.where(torch.rand(B, K, V, generator=g, device=dev) < 0.07,
+                         torch.randint(1, 5, (B, K, V), generator=g, device=dev,
+                                       dtype=torch.int32), 0)
+    prev_count = torch.randint(0, 6, (B, K), generator=g, device=dev, dtype=i32)
+    finished = rbool(0.1, (B, K))
+    zero = torch.zeros(B, K, device=dev)
+    ckw = dict(eos=eos, pad=pad, stop_at_count=1, always_allow_eos=True)
+    cargs = (counts, lp, prev_count, finished, bs, 5, 4)
+    cons_c = k17.dense_scores_plain(counts, lp, prev_count, finished, zero, **ckw)
+    clear_c = draw_margin(torch, cons_c.reshape(rows, V),
+                          k20.gumbel_noise(5, 4, rows, V, dev)) > SAMPLE_MARGIN
+    want_c = k20.sample_select_counts_plain(*cargs, **ckw)
+    err_counts = sample_mismatches(torch, k20.sample_select_counts(*cargs, **ckw), want_c, clear_c)
+    err_counts += sample_mismatches(torch, graph_result(
+        torch, lambda: k20.sample_select_counts(*cargs, **ckw)), want_c, clear_c)
+    if err20 or err_list or err_counts:
+        fail(f"sample_select: {err20} V-wide, {err_list} list and {err_counts} count-reading "
+             "outputs differ from the plain version on clear draws")
+
+    def composed_counts():  # the parent's step: the scores written, then drawn
+        cons = k17.dense_scores(counts, lp, prev_count, finished, zero, **ckw)
+        return k20.sample_select(cons.reshape(B, K, V), lp, None, bs, 5, 4, eos=eos, pad=pad)
+
     table.append(dict(
         name="sample_select", max_abs_err=err20, library_ms=None,
         ms=time_ms(lambda: k20.sample_select(*args0, eos=eos, pad=pad, mask=corpus)),
+        graph_ms=graph_ms(lambda: k20.sample_select(*args0, eos=eos, pad=pad, mask=corpus)),
         plain_ms=time_ms(lambda: k20.sample_select_plain(*args0, eos=eos, pad=pad, mask=corpus),
                          iters=3),
-        narrow_ms=time_ms(lambda: k20.sample_select(*args1, eos=eos, pad=pad)),
-        narrow_plain_ms=time_ms(lambda: k20.sample_select_plain(*args1, eos=eos, pad=pad)),
+        cluster_ms=time_ms(lambda: k20.sample_select(*args8, eos=eos, pad=pad, mask=corpus)),
+        cluster_graph_ms=graph_ms(lambda: k20.sample_select(*args8, eos=eos, pad=pad,
+                                                            mask=corpus)),
         ulps=ulps, chi_square_p=p_chi,
-        shape=f"[{rows},{V}] under a corpus mask (narrow_ms: [{B},{K},{n8['sample']}] "
-              "candidates)",
+        shape=f"[{rows},{V}] under a corpus mask, {k20.plan(rows, V).splits} CTA a row "
+              f"(cluster_ms: [{r8},{V}], {k20.plan(r8, V).splits} CTAs a row)",
         # the log-probs once (cons and cand_lp are one tensor), the mask, the
         # chain scores, the eight outputs; two logf, an add and a compare a slot
         bytes=rows * V * 4 + V + rows * 4 + B * (2 * K * 13 + K * 13), flops=4 * rows * V,
+    ))
+    table.append(dict(
+        name="sample_select_list", max_abs_err=err_list, library_ms=None,
+        ms=time_ms(lambda: k20.sample_select(*args1, eos=eos, pad=pad)),
+        graph_ms=graph_ms(lambda: k20.sample_select(*args1, eos=eos, pad=pad)),
+        plain_ms=time_ms(lambda: k20.sample_select_plain(*args1, eos=eos, pad=pad)),
+        shape=f"[{B},{K},{n8['sample']}] candidates with their tokens, "
+              f"{k20.plan(rows, n8['sample']).route} route",
+        # cons, cand_lp and tokens once, the chain scores, the eight outputs
+        bytes=rows * n8["sample"] * 12 + rows * 4 + B * (2 * K * 13 + K * 13),
+        flops=4 * rows * n8["sample"],
+    ))
+    n_allowed = int((cons_c > k8.NEG_INF / 2).sum())
+    table.append(dict(
+        name="sample_select_counts", max_abs_err=err_counts, library_ms=None,
+        ms=time_ms(lambda: k20.sample_select_counts(*cargs, **ckw)),
+        graph_ms=graph_ms(lambda: k20.sample_select_counts(*cargs, **ckw)),
+        plain_ms=time_ms(lambda: k20.sample_select_counts_plain(*cargs, **ckw), iters=3),
+        composed_ms=time_ms(composed_counts), composed_graph_ms=graph_ms(composed_counts),
+        shape=f"[{B},{K},{V}] count vectors, {100 * n_allowed / counts.numel():.1f}% allowed "
+              "(composed: kernel 17's streaming pass, then the V-wide draw)",
+        # the counts once, the allowed tokens' log-probs, the row state and
+        # chain scores, the eight outputs; two logf, an add and a compare an
+        # allowed slot
+        bytes=rows * V * 4 + n_allowed * 4 + rows * 9 + B * (2 * K * 13 + K * 13),
+        flops=4 * n_allowed,
     ))
 
     # kernel 21: three groups at penalties 0 and 0.5, in both orders, on the
@@ -3553,8 +3661,11 @@ def main() -> int:
         "row_kth": row_select.row_kth,
         "beam_select_free": beam_select.FREE,
         "beam_select_spec": beam_select.SPEC,
-        "log_softmax_topk": triton_logsoftmax.THRESHOLD,
+        "topk_log_softmax": row_select.topk_log_softmax,
         "sample_select": sample_select.sample_select,
+        # kernel 20 on candidate lists, and its count-reading mode
+        "sample_select_list": sample_select.LIST,
+        "sample_select_counts": sample_select.sample_select_counts,
         "diverse_select": diverse_select.diverse_select,
         "diverse_select_wide": diverse_select.ROUTES["wide"],
         "beam_candidates": beam_select.beam_candidates,
@@ -4073,11 +4184,12 @@ def main() -> int:
         f"BOS {bos}, {n_b} keys grounded after the pinned column, force_full identical "
         f"{canon_of(b_full) == canon_of(b_hyps)}; {c['decode_steps']} decode steps")
 
-    # the top-k warper: kernel 19's k-th value and kernel 4's threshold at
-    # every step, step 0 included
+    # the top-k warper: its masked log-softmax in one launch of kernel 3's
+    # select (warper mode) at every step, step 0 included; neither kernel 19
+    # nor kernel 4
     t_hyps, c, nb, mode_qps["topk"] = run_mode("generate_topk", topk=50)
     n = c["decode_steps"]
-    expect("generate_topk", c, {"row_kth": n, "log_softmax_topk": n})
+    expect("generate_topk", c, {"topk_log_softmax": n, "row_kth": 0, "log_softmax_min_len": 0})
     log(f"topk=50: {hyp_keys(t_hyps, 'generate_topk')} keys grounded")
     mode_table = mode_kernel_phases(np, torch, cfg, V, B, K,
                                     generate.resolve_window(0, K, speculative=True))
@@ -4102,7 +4214,8 @@ def main() -> int:
     s_outs = {0: [], 1: []}
     _, c, nb, mode_qps["sample"] = run_mode("generate_sample", outs=s_outs[0], sample=True, seed=0)
     n = c["decode_steps"]
-    expect("generate_sample", c, {"sample_select": n, "beam_candidates": n - nb})
+    expect("generate_sample", c, {"sample_select": n, "beam_candidates": n - nb,
+                                  "sample_select_list": n - nb, "sample_select_counts": 0})
     _, c, nb, mode_qps["sample_seed1"] = run_mode("generate_sample_seed1", warm=False,
                                                   outs=s_outs[1], sample=True, seed=1)
     s_canon = {seed: [canon_of(o) for o in outs] for seed, outs in s_outs.items()}
@@ -4127,9 +4240,10 @@ def main() -> int:
     d_hyps, c, nb, mode_qps["sample_dense"] = run_mode(
         "generate_sample_dense", batches=1, warm=False, sample=True, seed=0, exact_mask=True)
     n = c["decode_steps"]
+    # kernel 20 reads the count vectors itself: no streaming pass, no write
     expect("generate_sample_dense", c, {"sample_select": n, "fm_dense_counts": n - nb,
-                                        "dense_scores": n - nb, "beam_candidates": 0,
-                                        "beam_merge": 0})
+                                        "sample_select_counts": n - nb, "dense_scores": 0,
+                                        "beam_candidates": 0, "beam_merge": 0})
     n_ks += hyp_keys(d_hyps, "generate_sample_dense")
     f_hyps, c, nb, mode_qps["sample_free"] = run_mode(
         "generate_sample_free", batches=1, warm=False, sample=True, seed=0, disable_fm_index=True)
@@ -4215,15 +4329,21 @@ def main() -> int:
     dv_same["exact_ties"] = canon_of(dt_hyps) == dv_canon
     log(f"diverse groups: {n_kd} keys grounded; bit-identical to the psi proposal route's: "
         f"{dv_same}; phase wall {time.perf_counter() - t_sd:.1f} s")
-    for name, extra in (("sample", dict(sample=True, seed=0)), ("diverse", dkw)):
+    for name, extra in (("sample", dict(sample=True, seed=0)),
+                        ("sample_dense", dict(sample=True, seed=0, exact_mask=True)),
+                        ("topk", dict(topk=50)), ("diverse", dkw)):
         p = bench_generate.profile_batch(
             lambda extra=extra: generate.fm_index_generate(cfg, params, index, ids, mask, **kw,
                                                            **extra))
-        k3_ms = sum(r["ms"] for r in p["top"] if "row_topk" in r["name"])
+        # kernel 3's select (its warper mode apart), kernel 20 and the warper
+        warp_ms = sum(r["ms"] for r in p["top"] if "WarperLoad" in r["name"])
+        k3_ms = sum(r["ms"] for r in p["top"] if "row_topk" in r["name"]) - warp_ms
+        k20_ms = sum(r["ms"] for r in p["top"] if "sample_" in r["name"])
         log(f"{name} profiled batch (psi): {p['kernels']} kernels, device busy "
             f"{p['device_busy_ms']:.2f} ms of {p['wall_ms']:.2f} ms wall "
             f"({100 * p['busy_share']:.1f}%); kernel 3 {k3_ms:.2f} ms = "
-            f"{100 * k3_ms / p['device_busy_ms']:.1f}% of the busy time")
+            f"{100 * k3_ms / p['device_busy_ms']:.1f}% of the busy time; kernel 20 "
+            f"{k20_ms:.3f} ms; the warper (topk_log_softmax) {warp_ms:.3f} ms")
         for row in p["top"][:8]:
             log(f"  {row['ms']:8.3f} ms {row['calls']:6d} calls  {row['name']}")
     sd_table = sample_kernel_phases(np, torch, cfg, V, B, K, generate.resolve_window(0, K))
@@ -4448,7 +4568,7 @@ def main() -> int:
     log(f"sharded phase wall {time.perf_counter() - t0:.1f} s")
     total = {name: sum(p[name] for p in by_path.values()) for name in counters}
     for name, n in total.items():
-        if n <= 0:
+        if n <= 0 and name not in ENTRY_POINTS_ONLY:
             fail(f"kernel {name} was launched on no path")
 
     # the run's readings again, next to the result lines at the end of stdout
@@ -4506,7 +4626,8 @@ def main() -> int:
                                    "block_graph_ms", "beam32_ms", "cand_ms", "n_buf_3000_ms",
                                    "chunked_ms", "chunked_graph_ms", "nopen_ms",
                                    "kernels_per_call", "proof_failures", "walk_ms",
-                                   "hybrid_walk_ms", "hybrid_graph_ms")
+                                   "hybrid_walk_ms", "hybrid_graph_ms", "cluster_ms",
+                                   "cluster_graph_ms")
                if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}

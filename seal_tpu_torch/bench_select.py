@@ -1,5 +1,6 @@
 """Kernel 8's selection, the rank-search and window kernels (1, 2, 12,
-13, 14, 16) and the selects (3, 17, 19, 21) on the card, in this checkout
+13, 14, 16), the selects (3, 17, 19, 21), the top-k warper and kernel 20
+on the card, in this checkout
 and, with ``--parent DIR``, beside another.
 
     python -m seal_tpu_torch.bench_select [--parent DIR] [--turns parent,this,...]
@@ -41,6 +42,13 @@ bf16 over the 1.2M-token corpus, batch 32, beam 15):
    vectors: the dense step (one ``dense_select`` launch where the checkout
    has it, else the scores then kernel 3's top 2K), that two-launch
    composition on both sides, and the streaming pass (``dense_scores``).
+   The top-k warper at [480, 50265] and [120, 50265], k = 50 (one
+   ``topk_log_softmax`` launch where the checkout has it, else kernel 19
+   then kernel 4's threshold mode, which is also timed alone).  Kernel 20
+   on V-wide rows under a corpus mask at batch 32 and 8, on candidate
+   lists of 64 and 290 slots, and on a sampled ``exact_mask`` step's count
+   vectors (the count-reading mode where the checkout has it, else kernel
+   17's streaming pass then the V-wide draw, which both sides also time).
 2. The Psi and the compact layout's batches at the generation point,
    taken before 1, ahead of any CUDA graph capture in the process, and
    again after 1's captures (``*_after_graphs``): five batches' wall ms
@@ -50,8 +58,10 @@ bf16 over the 1.2M-token corpus, batch 32, beam 15):
    batch each of ``generate_dense_compact`` (``exact_mask`` on the compact
    layout), ``generate_diverse`` and ``generate_diverse_dense`` (3 groups
    at penalty 0.5 on the Psi index), ``generate_topk`` (the ``topk=50``
-   warper) and ``generate_dense`` (``exact_mask`` on the Psi index):
-   device ms, launches and the top kernels' device ms and calls.
+   warper), ``generate_dense`` (``exact_mask`` on the Psi index),
+   ``generate_sample`` (sampling through the proven loop) and
+   ``generate_sample_dense`` (sampling under ``exact_mask``): device ms,
+   launches and the top kernels' device ms and calls.
 3. Where the checkout has the fused step (``constrained._step_window``),
    before 1 as well: 15 pairs of batches on each of the two layouts,
    alternated in the process with the step as the parent launched it (two
@@ -165,7 +175,10 @@ for path, ix, extra in (("generate_dense_compact", layouts["compact"], dict(exac
                         ("generate_diverse", index, DIVERSE),
                         ("generate_diverse_dense", index, dict(DIVERSE, exact_mask=True)),
                         ("generate_topk", index, dict(topk=50)),
-                        ("generate_dense", index, dict(exact_mask=True))):
+                        ("generate_dense", index, dict(exact_mask=True)),
+                        ("generate_sample", index, dict(sample=True, seed=0)),
+                        ("generate_sample_dense", index, dict(sample=True, seed=0,
+                                                              exact_mask=True))):
     def run(ix=ix, extra=extra):
         generate.fm_index_generate(cfg, params, ix, ids, mask, **kw, **extra)
         torch.cuda.synchronize()
@@ -430,6 +443,49 @@ calls["k17 dense step [32,15,50265]"] = (
     else composed17)
 calls["k17 scores + k3 top-2K [32,15,50265]"] = composed17
 calls["k17 streaming pass [32,15,50265]"] = lambda: k17.dense_scores(*args17, **kw17)
+# the top-k warper at k = 50: one launch where the checkout has the fused
+# warper, else kernel 19's k-th value then kernel 4's threshold mode (and
+# that mode alone)
+from seal_tpu_torch.kernels import triton_logsoftmax as k4
+for label, xw in (("[480,50265]", lp), ("[120,50265]", lp120)):
+    calls[f"warper {label} k=50"] = (
+        (lambda xw=xw: k19.topk_log_softmax(xw, 50, eos, tc.NEG_INF))
+        if hasattr(k19, "topk_log_softmax")
+        else (lambda xw=xw: k4.log_softmax_ban(xw, eos, tc.NEG_INF, k19.row_kth(xw, 50))))
+if hasattr(k4, "THRESHOLD"):
+    kth480 = k19.row_kth(lp, 50)
+    calls["k4 threshold [480,50265]"] = lambda: k4.log_softmax_ban(lp, eos, tc.NEG_INF, kth480)
+# kernel 20: step 0's V-wide rows under the corpus mask (batch 32 and 8),
+# the proven loop's candidate lists (n_buf + w + 2 slots: 2K and 256
+# buffers), and a sampled exact_mask step over the count vectors above (the
+# count-reading mode where the checkout has it, else the streaming pass at
+# zero beam scores and the V-wide draw)
+from seal_tpu_torch.kernels import sample_select as k20
+zero20 = torch.zeros(B, K, device=dev)
+lp20 = lp.reshape(B, K, V)
+calls["k20 V-wide [32,15,50265]"] = (
+    lambda: k20.sample_select(lp20, lp20, None, zero20, 5, 0, eos=eos, pad=pad, mask=corpus))
+calls["k20 V-wide [8,15,50265]"] = (
+    lambda: k20.sample_select(lp20[:8], lp20[:8], None, zero20[:8], 5, 0, eos=eos, pad=pad,
+                              mask=corpus))
+for n20 in (2 * K + 32 + 2, 256 + 32 + 2):
+    tok20 = rint(3, V, (B, K, n20))
+    tok20[..., -2] = eos
+    lpl = torch.gather(lp, 1, tok20.reshape(B * K, n20).long()).reshape(B, K, n20)
+    consl = torch.where(rbool(0.7, (B, K, n20)), lpl, tc.NEG_INF)
+    calls[f"k20 list [32,15,{n20}]"] = (
+        lambda consl=consl, lpl=lpl, tok20=tok20: k20.sample_select(
+            consl, lpl, tok20, bs17, 5, 3, eos=eos, pad=pad))
+if hasattr(k20, "sample_select_counts"):
+    calls["k20 count-reading [32,15,50265]"] = (
+        lambda: k20.sample_select_counts(dcounts, lp, prev17, finished, bs17, 5, 4, **kw17))
+else:
+    calls["k20 count-reading [32,15,50265]"] = (
+        lambda: k20.sample_select(k17.dense_scores(dcounts, lp, prev17, finished, zero20, **kw17)
+                                  .reshape(B, K, V), lp, None, bs17, 5, 4, eos=eos, pad=pad))
+calls["k17 streaming pass + k20 V-wide [32,15,50265]"] = (
+    lambda: k20.sample_select(k17.dense_scores(dcounts, lp, prev17, finished, zero20, **kw17)
+                              .reshape(B, K, V), lp, None, bs17, 5, 4, eos=eos, pad=pad))
 one = torch.empty(1, device=dev)
 calls["floor: one-element zero_()"] = lambda: one.zero_()
 out = {name: {"ms": eager(fn), "graph_ms": graphed(fn)} for name, fn in calls.items()}

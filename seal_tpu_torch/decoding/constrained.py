@@ -38,8 +38,8 @@ What changed in translation:
   ``DENSE_GUARD_BACKENDS`` (a TPU worker fault) and the one-hot-matmul
   block gather of ``_exact_topk`` (the TPU's slow scalar gathers).  Every
   top-k is one exact row top-k, ``kernels.row_topk`` (kernel 3), and the
-  warper's k-th value is ``kernels.row_select.row_kth`` (kernel 19, the
-  k-th-value mode of kernel 3's select).
+  warper is ``kernels.row_select.topk_log_softmax`` (kernel 3's select in
+  its warper mode: the k-th value, the mask and the log-softmax).
 * ``force_decoding_from`` starts every beam's range at the forced
   sequence's (kernel 5).  Step 0 still picks its token under the dense
   corpus mask and then extends the forced range, as the JAX decoder does.
@@ -49,17 +49,20 @@ What changed in translation:
   index op runs.  ``speculative`` takes one exact top-``top_m`` round
   (kernel 3: its recall is 1, above ``approx_max_k``'s 0.95 target) with
   one membership query, and kernel 8 keeps the slots that fail it as masked
-  candidates.  The top-k warper is kernel 19's k-th value and a threshold
-  input of kernel 4.  ``adjust_logits_fn`` is a Python hook on the raw f32
-  logits [rows, V], given ``cur_len`` as a Python ``int`` (a traced int32
-  in JAX).  ``forced_bos_token_id`` adds one decode step that pins column 1.
+  candidates.  The top-k warper and its log-softmax are one launch of
+  kernel 3's select in its warper mode.  ``adjust_logits_fn`` is a Python
+  hook on the raw f32 logits [rows, V], given ``cur_len`` as a Python
+  ``int`` (a traced int32 in JAX).  ``forced_bos_token_id`` adds one
+  decode step that pins column 1.
 * ``sample`` (K independent sampler chains) and diverse groups
   (``num_groups``, ``diversity_penalty``) take JAX's beam-tiled step 0 and
   ``_candidates_general``'s routes: the proven proposal loop (its buffer
   ``max(2K, top_m)`` wide under sampling), written out as candidates by
   kernel 8's candidate mode; ``speculative`` through the same mode with
-  ``keep_invalid``; ``exact_mask`` through kernel 17's streaming pass
-  (the scores written, since kernels 20 and 21 read them); free generation
+  ``keep_invalid``; ``exact_mask`` under sampling through kernel 20's
+  count-reading mode (kernel 17's branches applied as it reads the counts,
+  no scores written), under diverse groups through kernel 17's streaming
+  pass (the scores written, since kernel 21 reads them); free generation
   through kernel 3's top-``top_m``.  Kernel 20 draws each chain's token by
   Gumbel-max with counter-based Philox noise keyed by (``seed``, step), in
   place of JAX's threefry key chain: the same distribution and seed
@@ -90,9 +93,9 @@ from seal_tpu_torch.kernels.beam_select import (
 )
 from seal_tpu_torch.kernels.dense_scores import dense_scores, dense_select
 from seal_tpu_torch.kernels.diverse_select import diverse_select
-from seal_tpu_torch.kernels.row_select import row_kth
+from seal_tpu_torch.kernels.row_select import topk_log_softmax
 from seal_tpu_torch.kernels.row_topk import row_topk
-from seal_tpu_torch.kernels.sample_select import sample_select
+from seal_tpu_torch.kernels.sample_select import sample_select, sample_select_counts
 from seal_tpu_torch.kernels.triton_logsoftmax import log_softmax_ban
 from seal_tpu_torch.index.wavelet import WaveletIndex
 from seal_tpu_torch.models import api as model_api
@@ -265,13 +268,15 @@ def _adjust_logits(logits, cur_len: int, cfg: DecodeConfig):
 
 
 def _log_softmax(logits, cur_len: int, cfg: DecodeConfig):
-    """The hook, the top-k warper (its k-th value from kernel 19, the
-    k-th-value mode of kernel 3's radix select; the mask inside kernel 4)
-    and the f32 log-softmax with the min-length EOS ban (kernel 4), as the
-    JAX step applies them."""
+    """The hook, then the f32 log-softmax with the min-length EOS ban, as
+    the JAX step applies them: kernel 4, or with the top-k warper one
+    launch of kernel 3's select in its warper mode (``topk_log_softmax``:
+    the k-th value, the mask, the log-softmax and the ban)."""
     logits = _adjust_logits(logits, cur_len, cfg)
-    kth = row_kth(logits, cfg.topk) if cfg.topk > 0 else None
-    return log_softmax_ban(logits, _apply_min_length(cur_len, cfg), NEG_INF, kth)
+    ban = _apply_min_length(cur_len, cfg)
+    if cfg.topk > 0:
+        return topk_log_softmax(logits, cfg.topk, ban, NEG_INF)
+    return log_softmax_ban(logits, ban, NEG_INF)
 
 
 def _gather(x, idx):
@@ -443,7 +448,10 @@ def _dense_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam
     The candidate at flat index k * V + v is (beam k, token v), so kernel
     3's order, value descending and index ascending, is also the
     ``exact_ties`` order (the (beam, token) tie id rises with the index):
-    the dense mode needs no tie mode.
+    the dense mode needs no tie mode.  Past the select's shared sort (2K
+    above ``row_topk.MAX_K``: beam 8,193 and up) ``dense_select`` takes
+    the streaming pass and kernel 3's global sort instead, by size
+    (``dense_scores.route``), in the same order.
     """
     counts = _dense_counts(ops, cfg, lp, lo, hi)
     top_cons, top_idx = dense_select(counts, lp, prev_count, finished, beam_scores, 2 * K,
@@ -535,8 +543,9 @@ def _general_candidates(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished
     log-probs (``NEG_INF`` elsewhere) without the beam scores.  The proven
     proposal loop's buffer and the speculative round go through kernel 8's
     candidate mode (N = n_buf + w + 2, slots [buffer, window, EOS, PAD]);
-    ``exact_mask`` through kernels 15/16 and 17's streaming pass at zero
-    beam scores (N = V);
+    ``exact_mask`` under diverse groups through kernels 15/16 and 17's
+    streaming pass at zero beam scores (N = V; a sampled ``exact_mask``
+    step takes ``_sample_dense_select`` instead, which writes no scores);
     free generation through kernel 3's exact top-``top_m`` (N = ``top_m``).
     """
     B = lp.shape[0] // K
@@ -564,6 +573,17 @@ def _general_candidates(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished
                            finished, eos=cfg.eos_token_id, pad=cfg.pad_token_id,
                            stop_at_count=cfg.stop_at_count, always_allow_eos=cfg.always_allow_eos,
                            keep_invalid=cfg.speculative)
+
+
+def _sample_dense_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam_scores,
+                         seed: int, step: int):
+    """A sampled ``exact_mask`` step: every beam's whole count vector
+    (kernel 15 or 16), then kernel 20's count-reading mode, which applies
+    kernel 17's branches as it reads the counts (cons = lp where allowed,
+    at zero beam scores) and draws each chain's token: no [B, K * V]
+    scores are written, and kernel 17's streaming pass is not launched."""
+    return sample_select_counts(_dense_counts(ops, cfg, lp, lo, hi), lp, prev_count, finished,
+                                beam_scores, seed, step, **_branches(cfg))
 
 
 def _mode_select(cfg: DecodeConfig, cons, cand_lp, tokens, beam_scores, seed: int, step: int,
@@ -700,7 +720,10 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
         )
         lp = _log_softmax(logits, cur_col + 1, cfg)
         finished = ((last == cfg.eos_token_id) | (last == cfg.pad_token_id)).reshape(B, K)
-        if modes:
+        if modes and cfg.sample and cfg.exact_mask and constrained:
+            out = _sample_dense_select(ops, cfg, lp, lo, hi, prev_count, finished, beam_scores,
+                                       seed, t + 1)
+        elif modes:
             tok_c, cons, cand_lp = _general_candidates(ops, cfg, lp, lo, hi, prev_count, finished,
                                                        K)
             out = _mode_select(cfg, cons, cand_lp, tok_c, beam_scores, seed, t + 1, V)

@@ -85,6 +85,7 @@ from seal_tpu_torch.kernels.row_topk import order_key, row_topk_plain
 
 NEG_INF = float(np.finfo(np.float32).min) / 2  # the decoder's masking constant
 TOK_BITS = 17  # minimum token-id field width in selection tie ids
+SELECT_TOP_SMEM = 48 * 1024  # beam_select_top's picks in shared memory up to here
 
 
 TIES = Launches()  # kernel 8 launches in the ties mode (merge and select)
@@ -808,11 +809,16 @@ def beam_select_top(top_cons, top_idx, lp, beam_scores, n_par: int, K: int, eos:
             raise ValueError("beam_select_top: tokens must be int32 [B*n_par, ncand]")
         ncand = tokens.shape[1]
     outs = _select_outputs(B, K, lp.device)[:9]
+    # past 48 KB of picks a query (1,365 beams) they live in device memory
+    pick_bytes = 16 * 2 * K + 4 * K
+    scratch = (torch.empty((B, -(-pick_bytes // 8)), dtype=torch.int64, device=lp.device)
+               if pick_bytes > SELECT_TOP_SMEM else None)
     rc = build.lib().seal_beam_select_top(
         top_cons.data_ptr(), top_idx.data_ptr(), lp.data_ptr(), lp.stride(0),
         beam_scores.data_ptr(), beam_scores.stride(0),
         tokens.data_ptr() if tokens is not None else None, B, n_par, ncand, K, eos, NEG_INF,
-        *(t.data_ptr() for t in outs), build.stream_ptr(lp),
+        *(t.data_ptr() for t in outs), scratch.data_ptr() if scratch is not None else None,
+        build.stream_ptr(lp),
     )
     build.check(rc, "beam_select_top")
     beam_select.launches += 1

@@ -40,10 +40,11 @@ SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu", "bucket_counts.cu"
            "row_select.cu", "sample_select.cu", "diverse_select.cu")
 # included by the wt_*.cu sources, by fm_search.cu and wt_search.cu, by
 # beam_select.cu, diverse_select.cu and row_topk.cu, by beam_select.cu and
-# row_topk.cu, and by row_topk.cu, row_select.cu, dense_scores.cu and
-# diverse_select.cu
+# row_topk.cu, by row_topk.cu, row_select.cu, dense_scores.cu,
+# diverse_select.cu and sample_select.cu, and by dense_scores.cu and
+# sample_select.cu
 HEADERS = ("wt_common.cuh", "dense_counts.cuh", "select_common.cuh", "global_sort.cuh",
-           "radix_topk.cuh")
+           "radix_topk.cuh", "dense_branches.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -126,8 +127,8 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I] + [_P] * 14,
     # top_cons, top_idx, lp, lp_stride, beam_scores, bs_stride, table (None:
     # token = slot % V), n_queries, n_par, ncand, k, eos, neg_inf, 9 outputs,
-    # stream
-    "seal_beam_select_top": [_P, _P, _P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _F] + [_P] * 10,
+    # scratch (None: the picks in shared memory), stream
+    "seal_beam_select_top": [_P, _P, _P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _F] + [_P] * 11,
     # q, k, v, bias, rel_table, rel_bf16, rel_bucket, out, n_queries, group,
     # heads, m, head_dim, q_stride, kv_row_stride, bias_stride, dtype (0 f32,
     # 1 bf16), route (kernels/decode_attention.py:ROUTE_CODES), heads a CTA,
@@ -170,6 +171,9 @@ SIGNATURES = {
     # x, n_rows, width, k, the layout (kernels/row_topk.py:Plan.launch of
     # plan(..., kth=True)), kth, stream
     "seal_row_kth": [_P, _L, _I, _I] + [_I] * 8 + [_P, _P],
+    # x, n_rows, width, k, the layout (as seal_row_kth's), ban column (-1:
+    # none), fill, out, stream
+    "seal_topk_log_softmax": [_P, _L, _I, _I] + [_I] * 8 + [_I, _F, _P, _P],
     # buf_tok, buf_lp, buf_valid, win_tok, win_valid, win_lp, eos_ok,
     # eos_ok_stride, lp, lp_stride, prev_count, finished, rows, n_buf, w, eos,
     # pad, stop_at_count, always_allow_eos, keep_invalid, neg_inf, table
@@ -178,8 +182,14 @@ SIGNATURES = {
     "seal_beam_candidates": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I,
                              _I, _I, _I, _F, _P, _I, _P, _P, _P, _P],
     # cons, cand_lp, tokens (None: token = column), mask (None), beam_scores,
-    # rows, K, N, seed, step, eos, pad, neg_inf, 8 outputs, stream
-    "seal_sample_select": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I, _F] + [_P] * 9,
+    # rows, K, N, seed, step, eos, pad, neg_inf, splits (0: the warp route;
+    # kernels/sample_select.py:Plan.code), 8 outputs, stream
+    "seal_sample_select": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I, _F, _I] + [_P] * 9,
+    # counts, lp, lp_stride, prev_count, finished, beam_scores, rows, K, V,
+    # eos, pad, stop_at_count, always_allow_eos, seed, step, neg_inf, splits,
+    # 8 outputs, stream
+    "seal_sample_counts": [_P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _L, _L, _F, _I]
+                          + [_P] * 9,
     # rows, n, seed, step, words, g, stream
     "seal_gumbel_noise": [_L, _I, _L, _L, _P, _P, _P],
     # cons, tokens (None: token = column), mask (None), beam_scores, n_queries,
@@ -204,7 +214,6 @@ SIZE_QUERIES = {"seal_beam_merge_smem": [_I, _I], "seal_beam_select_smem": [_I, 
                 "seal_beam_select_large_smem": [_I, _I, _I, _I, _I],
                 "seal_beam_select_warp_smem": [_I, _I, _I, _I, _I],
                 "seal_beam_select_table_smem": [_I, _I, _I, _I, _I, _I],
-                "seal_decode_attention_smem": [_I, _I, _I],
                 "seal_row_topk_max_k": [], "seal_row_topk_bins_bytes": [],
                 "seal_diverse_chunks": [_I], "seal_diverse_smem": [_I, _I, _I],
                 "seal_diverse_list_smem": [_I, _I, _I]}

@@ -903,9 +903,13 @@ __global__ void candidates_kernel(SelectIn in, int n_buf, int w, int eos, int pa
 __global__ void select_top_kernel(const float* top_cons, const long long* top_idx, const float* lp,
                                   long long lp_stride, const float* beam_scores,
                                   long long bs_stride, const int* table, SelectOut o, int n_par,
-                                  int ncand, int two_k, int k_out, int eos, float neg_inf) {
+                                  int ncand, int two_k, int k_out, int eos, float neg_inf,
+                                  unsigned long long* scratch) {
   extern __shared__ unsigned long long smem[];
-  float* e_cons = (float*)smem;
+  // the picks in shared memory, or (past 48 KB: thousands of beams) in the
+  // query's device-memory scratch, which the block's barriers order alike
+  const size_t words = (16 * (size_t)two_k + 4 * (size_t)k_out + 7) / 8;
+  float* e_cons = (float*)(scratch != nullptr ? scratch + blockIdx.x * words : smem);
   float* e_lp = e_cons + two_k;
   int* e_slot = (int*)(e_lp + two_k);
   int* e_tok = e_slot + two_k;
@@ -930,6 +934,8 @@ __global__ void select_top_kernel(const float* top_cons, const long long* top_id
 namespace {
 
 enum SelectRoute { ROUTE_BLOCK = 0, ROUTE_LARGE = 1, ROUTE_WARP = 2, ROUTE_TABLE = 3 };
+// the select_top kernel's shared memory without opting in (48 KB: 1,365 beams)
+constexpr size_t SELECT_TOP_SMEM = 48 * 1024;
 
 long long warp_smem(int n_par, int ncand, int two_k, int k_out, int ties) {
   const long long L = two_k < ncand ? two_k : ncand;
@@ -1194,21 +1200,28 @@ int seal_beam_candidates(const int* buf_tok, const float* buf_lp, const unsigned
   return (int)cudaGetLastError();
 }
 
+// The selection after kernel 3's top 2K (step 0, the dense step, free
+// generation): the picks in 16 * 2K + 4 * K bytes of shared memory, or
+// past SELECT_TOP_SMEM in `scratch` (that many bytes a query, 8-byte words;
+// the wrapper allocates it).
 int seal_beam_select_top(const float* top_cons_in, const long long* top_idx, const float* lp,
                          long long lp_stride, const float* beam_scores, long long bs_stride,
                          const int* table, long long n_queries, int n_par, int ncand, int k_out,
                          int eos,
                          float neg_inf, int* top_tok, int* top_parent, float* top_uncons,
                          unsigned char* finite, int* sel_tok, int* sel_parent, float* sel_uncons,
-                         unsigned char* sel_finite, float* top_cons, void* stream) {
+                         unsigned char* sel_finite, float* top_cons,
+                         unsigned long long* scratch, void* stream) {
   if (n_queries <= 0) return (int)cudaGetLastError();
   const SelectOut o{top_tok, top_parent, top_uncons, finite, sel_tok,
                     sel_parent, sel_uncons, sel_finite, top_cons};
   const int two_k = 2 * k_out;
   const size_t smem = 16 * (size_t)two_k + 4 * (size_t)k_out;
-  select_top_kernel<<<(unsigned)n_queries, 64, smem, (cudaStream_t)stream>>>(
-      top_cons_in, top_idx, lp, lp_stride, beam_scores, bs_stride, table, o, n_par, ncand, two_k,
-      k_out, eos, neg_inf);
+  if (smem > SELECT_TOP_SMEM && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  select_top_kernel<<<(unsigned)n_queries, 64, scratch != nullptr ? 0 : smem,
+                      (cudaStream_t)stream>>>(top_cons_in, top_idx, lp, lp_stride, beam_scores,
+                                              bs_stride, table, o, n_par, ncand, two_k, k_out, eos,
+                                              neg_inf, scratch);
   return (int)cudaGetLastError();
 }
 

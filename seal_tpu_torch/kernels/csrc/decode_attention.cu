@@ -77,8 +77,11 @@
 //            M past 1024 or an f32 one past 64, unaligned operands): a CTA
 //            per (query, head) stages K and V in 64-position tiles and
 //            serves all g beams from each tile, in two passes past one
-//            tile.  Its shared memory is seal_decode_attention_smem; the
-//            wrapper refuses more than a block may opt into.  40 registers.
+//            tile.  Its shared memory is smem_floats' count; past
+//            what a block may opt into (about 256 beams at Dh = 64, the
+//            group's q rows and accumulators growing with g), the beams are
+//            split over CTAs (grid.z), each staging the same tiles for its
+//            share.  40 registers.
 //
 // Kernel 10's relative-position-bias mode (T5): the caller passes an
 // un-scaled q, the bucket table [num_buckets, H] (f32, or bf16 as the
@@ -106,6 +109,7 @@ namespace {
 
 
 constexpr int TILE = 64;  // positions staged at a time
+constexpr size_t SMEM_MAX = 227 * 1024;  // what a block may opt into
 constexpr int THREADS = 128;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -150,8 +154,9 @@ __device__ __forceinline__ void stage(float* s, const T* __restrict__ x, long lo
   }
 }
 
-// grid (n_queries, heads); q rows b*group .. b*group + group - 1 at stride
-// q_stride; K/V row b at kv_row_stride, positions at heads * head_dim;
+// grid (n_queries, heads, chunks); q rows b*group .. b*group + group - 1
+// at stride q_stride, chunk z serving beams z*gc .. z*gc + gc - 1 of them;
+// K/V row b at kv_row_stride, positions at heads * head_dim;
 // bias [n_queries, m] at bias_stride or null; rel_table [buckets, heads]
 // (bf16 if rel_bf16, else f32) and rel_bucket [>= m] (the bucket of each
 // distance m - 1 - j) or null.
@@ -160,9 +165,13 @@ __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const float* __restrict__ bias,
                         const void* __restrict__ rel_table, int rel_bf16,
-                        const int* __restrict__ rel_bucket, T* __restrict__ out, int group, int heads, int m, int head_dim, int tile,
-                        long long q_stride, long long kv_row_stride, long long bias_stride) {
+                        const int* __restrict__ rel_bucket, T* __restrict__ out, int group_all,
+                        int gc, int heads, int m, int head_dim, int tile, long long q_stride,
+                        long long kv_row_stride, long long bias_stride) {
   extern __shared__ float smem[];
+  // this CTA's beams: g0 .. g0 + group - 1 of the query's group_all
+  const int g0 = blockIdx.z * gc;
+  const int group = min(gc, group_all - g0);
   const int ld = head_dim + 1;
   float* s_k = smem;                       // [tile][ld]
   float* s_v = s_k + tile * ld;            // [tile][ld]
@@ -181,7 +190,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = threadIdx.x; i < group * head_dim; i += blockDim.x) {
     const int g = i / head_dim, d = i - g * head_dim;
-    s_q[i] = to_f(q[(b * group + g) * q_stride + (long long)h * head_dim + d]);
+    s_q[i] = to_f(q[(b * group_all + g0 + g) * q_stride + (long long)h * head_dim + d]);
     s_acc[i] = 0.0f;
   }
   for (int g = threadIdx.x; g < group; g += blockDim.x) {
@@ -251,7 +260,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   for (int i = threadIdx.x; i < group * head_dim; i += blockDim.x) {
     const int g = i / head_dim, d = i - g * head_dim;
-    from_f(s_acc[i], out + (b * group + g) * pos_stride + (long long)h * head_dim + d);
+    from_f(s_acc[i], out + (b * group_all + g0 + g) * pos_stride + (long long)h * head_dim + d);
   }
 }
 
@@ -899,13 +908,18 @@ int launch_tiled(const void* q, const void* k, const void* v, const float* bias,
                  long long q_stride, long long kv_row_stride, long long bias_stride,
                  cudaStream_t stream) {
   const int tile = m < TILE ? m : TILE;
-  const size_t smem = sizeof(float) * smem_floats(group, tile, head_dim);
+  // the beams a CTA: all of them where they fit, else the most that do
+  int gc = group;
+  while (gc > 1 && sizeof(float) * smem_floats(gc, tile, head_dim) > SMEM_MAX)
+    gc = (gc + 1) / 2;
+  const size_t smem = sizeof(float) * smem_floats(gc, tile, head_dim);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   const int rc = set_smem(decode_attention_kernel<T>, sizeof(T) == 2 ? 0 : 1, smem);
   if (rc) return rc;
-  const dim3 grid((unsigned)n_queries, (unsigned)heads);
+  const dim3 grid((unsigned)n_queries, (unsigned)heads, (unsigned)((group + gc - 1) / gc));
   decode_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, bias, rel_table, rel_bf16, rel_bucket, (T*)out,
-      group, heads, m, head_dim, tile, q_stride, kv_row_stride, bias_stride);
+      group, gc, heads, m, head_dim, tile, q_stride, kv_row_stride, bias_stride);
   return (int)cudaGetLastError();
 }
 
@@ -962,12 +976,6 @@ int launch_mma(const void* q, const void* k, const void* v, const float* bias, v
 }  // namespace
 
 extern "C" {
-
-// bytes of shared memory the tiled route needs (the wrapper refuses more
-// than a block may opt into); independent of m once m >= TILE
-long long seal_decode_attention_smem(int group, int m, int head_dim) {
-  return (long long)(sizeof(float) * smem_floats(group, m < TILE ? m : TILE, head_dim));
-}
 
 // route: 0 tiled, 1 warp, 2 mma, 3 ffma (kernels/decode_attention.py:route);
 // hpc: heads a CTA of the warp, mma and ffma routes (1, 2 or 4, dividing

@@ -41,47 +41,20 @@
 // 50265) leaves rows only 4-byte aligned: the flat index does not care.  A
 // vector's log-probs are read only where one of its tokens is allowed, all
 // the counts first; an lp whose row stride is not V is read a token at a
-// time.  Bound: bytes, the counts read and the scores written (8 bytes an
-// element) plus the allowed tokens' log-probs.
+// time.  Flat indices are 64-bit (a beam's row by a 64-bit division by the
+// constant V), so B * K * V may pass 2^31.  Bound: bytes, the counts read
+// and the scores written (8 bytes an element) plus the allowed tokens'
+// log-probs.
 
 #include <cuda_runtime.h>
 
+#include "dense_branches.cuh"
 #include "radix_topk.cuh"
 
 namespace {
 
 constexpr int STREAM_THREADS = 256;
 constexpr int VECS = 4;  // 16-byte vectors a thread
-
-// A beam's branch state: the token it allows alone (stop-forced: EOS;
-// finished: PAD), or the counts decide; and its score.
-struct BeamState {
-  float bs;
-  int only;
-  bool by_counts;
-};
-
-struct Branches {
-  const int* prev_count;  // [rows]
-  const unsigned char* finished;
-  const float* beam_scores;
-  int eos, pad, stop_at_count, always_allow_eos;
-  float neg_inf;
-
-  __device__ __forceinline__ BeamState state(long long r) const {
-    const bool fin = __ldg(finished + r) != 0;
-    const int count_eff = fin ? 0 : __ldg(prev_count + r);
-    const bool stop = stop_at_count > 0 && count_eff <= stop_at_count;
-    return {__ldg(beam_scores + r), stop ? eos : pad, !stop && !fin};
-  }
-  __device__ __forceinline__ bool allowed(int c, int tok, BeamState s) const {
-    const bool a = s.by_counts ? c > 0 : tok == s.only;
-    return a || (always_allow_eos && tok == eos);
-  }
-  __device__ __forceinline__ float score(float v, bool ok, BeamState s) const {
-    return __fadd_rn(ok ? v : neg_inf, s.bs);
-  }
-};
 
 // A CTA's slice [f0, f0 + n) of a query's row, where it spans at most two
 // beams (a slice is shorter than V at the dense step): the first beam's
@@ -155,7 +128,7 @@ struct DenseScoreLoad {
 template <bool FLAT>
 __global__ void __launch_bounds__(STREAM_THREADS)
 dense_stream_kernel(const int* __restrict__ counts, const float* __restrict__ lp,
-                    long long lp_stride, Branches br, long long n, FastDiv by_v, int V,
+                    long long lp_stride, Branches br, long long n, FastDiv64 by_v, int V,
                     float* __restrict__ out) {
   const long long nv = n >> 2;
   const long long q0 = (long long)blockIdx.x * STREAM_THREADS * VECS + threadIdx.x;
@@ -176,9 +149,9 @@ dense_stream_kernel(const int* __restrict__ counts, const float* __restrict__ lp
     ok[u] = 0;
     x[u] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q >= nv) continue;
-    const unsigned e = (unsigned)(4 * q);
-    const unsigned r = by_v(e);
-    tok[u] = (int)(e - r * (unsigned)V);
+    const long long e = 4 * q;
+    const long long r = (long long)by_v((unsigned long long)e);
+    tok[u] = (int)(e - r * V);
     s0[u] = br.state(r);
     s1[u] = tok[u] + 3 < V ? s0[u] : br.state(r + 1);
     const int n4[4] = {c[u].x, c[u].y, c[u].z, c[u].w};
@@ -190,7 +163,7 @@ dense_stream_kernel(const int* __restrict__ counts, const float* __restrict__ lp
       const BeamState st = next ? s1[u] : s0[u];
       if (br.allowed(n4[t], tt, st)) {
         ok[u] |= 1u << t;
-        if (!FLAT) xs[t] = __ldg(lp + (long long)(r + next) * lp_stride + tt);
+        if (!FLAT) xs[t] = __ldg(lp + (r + next) * lp_stride + tt);
       }
     }
     if (FLAT) {
@@ -215,11 +188,11 @@ dense_stream_kernel(const int* __restrict__ counts, const float* __restrict__ lp
   // the n mod 4 elements past the last vector
   if (blockIdx.x == 0 && (int)threadIdx.x < (int)(n & 3)) {
     const long long e = 4 * nv + threadIdx.x;
-    const unsigned r = by_v((unsigned)e);
-    const int tt = (int)((unsigned)e - r * (unsigned)V);
+    const long long r = (long long)by_v((unsigned long long)e);
+    const int tt = (int)(e - r * V);
     const BeamState s = br.state(r);
     const bool a = br.allowed(__ldg(counts + e), tt, s);
-    out[e] = br.score(a ? __ldg(lp + (long long)r * lp_stride + tt) : 0.f, a, s);
+    out[e] = br.score(a ? __ldg(lp + r * lp_stride + tt) : 0.f, a, s);
   }
 }
 
@@ -229,7 +202,7 @@ extern "C" {
 
 // (b) counts [rows, V] int32 and out [rows, V] f32, both contiguous and
 // 16-byte aligned; lp [rows, V] with row stride lp_stride (read by vectors
-// where lp_stride == V and lp is 16-byte aligned); rows * V < 2^31.
+// where lp_stride == V and lp is 16-byte aligned); rows * V any size.
 int seal_dense_scores(const int* counts, const float* lp, long long lp_stride,
                       const int* prev_count, const unsigned char* finished,
                       const float* beam_scores, long long rows, int V, int eos, int pad,
@@ -237,7 +210,7 @@ int seal_dense_scores(const int* counts, const float* lp, long long lp_stride,
                       void* stream) {
   if (rows <= 0 || V <= 0) return (int)cudaGetLastError();
   const long long n = rows * V;
-  if (n >= (1ll << 31) || ((unsigned long long)counts & 15) || ((unsigned long long)out & 15))
+  if (((unsigned long long)counts & 15) || ((unsigned long long)out & 15))
     return (int)cudaErrorInvalidValue;
   const Branches br{prev_count, finished, beam_scores, eos, pad, stop_at_count, always_allow_eos,
                     neg_inf};
@@ -245,7 +218,7 @@ int seal_dense_scores(const int* counts, const float* lp, long long lp_stride,
   const long long vec_blocks = ((n >> 2) + per - 1) / per;
   const unsigned blocks = (unsigned)(vec_blocks > 0 ? vec_blocks : 1);  // the tail's block
   const cudaStream_t s = (cudaStream_t)stream;
-  const FastDiv by_v((unsigned)V);
+  const FastDiv64 by_v((unsigned long long)V);
   if (lp_stride == V && ((unsigned long long)lp & 15) == 0)
     dense_stream_kernel<true><<<blocks, STREAM_THREADS, 0, s>>>(counts, lp, lp_stride, br, n,
                                                                 by_v, V, out);
@@ -258,7 +231,9 @@ int seal_dense_scores(const int* counts, const float* lp, long long lp_stride,
 // (a) one launch of kernel 3's select over the B queries' [K * V] scores:
 // counts [B, K, V] int32 and lp [B * K, V] f32, both contiguous and 16-byte
 // aligned; the top k as values and int64 indices (vals, idx [B, k]), laid
-// out by kernels/row_topk.py:plan(B, K * V, k).
+// out by kernels/row_topk.py:plan(B, K * V, k) (k within the shared sort);
+// a row K * V below 2^31 (the select's int width; a query's offset
+// b * K * V is 64-bit).
 int seal_dense_select(const int* counts, const float* lp, const int* prev_count,
                       const unsigned char* finished, const float* beam_scores,
                       long long n_queries, int K, int V, int eos, int pad, int stop_at_count,

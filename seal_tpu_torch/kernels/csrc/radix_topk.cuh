@@ -13,18 +13,27 @@
 // each staged float4 and maps the four values at once (the hooks below).
 // The loader inlines: RawValue leaves kernel 3's instructions as they were.
 //
-// The kernel is also a template on its output.  The top-k mode (KTH false)
-// writes each row's top k; the k-th-value mode (KTH true, kernel 19) stops
-// after the three digit passes, when the row's k-th key T is known, and the
-// cluster's first CTA writes T's f32 value: no survivor buffer, placement
-// or index.
+// The kernel is also a template on its output (MODE).  The top-k mode
+// (OUT_TOPK) writes each row's top k; the k-th-value mode (OUT_KTH, kernel
+// 19) stops after the three digit passes, when the row's k-th key T is
+// known, and the cluster's first CTA writes T's f32 value: no survivor
+// buffer, placement or index.  The warper mode (OUT_WARP, the top-k
+// warper's masked log-softmax) goes on from T over the row it has staged:
+// the row's max is its largest key (each CTA keeps its slice's while it
+// stages it), only the values at or above T add to the sum of exps (a
+// masked column holds `fill`, whose exp counts once a column), and each
+// CTA writes its slice of the masked log-softmax with the min-length ban
+// (WarperLoad).  Over a cluster the max and the sum are reduced through
+// the first CTA's shared memory in CTA order, so the result does not
+// depend on timing.  A slice not all staged re-reads its tail.
 //
 // radix_topk() launches one call: n_rows clusters of `splits` CTAs of
 // `threads` threads (kernels/row_topk.py:plan gives the layout), writing
 // each row's top k as values and int64 indices in the order, or, with
 // `gbuf`, leaving the survivors unsorted in the [n_rows, n2] scratch for
-// the caller's global sort (kernel 3's large-k route), or (KTH) each row's
-// k-th value into vals[row].
+// the caller's global sort (kernel 3's large-k route), or (OUT_KTH) each
+// row's k-th value into vals[row], or (OUT_WARP) each row's masked
+// log-softmax into vals [n_rows, width].
 #pragma once
 
 #include <cooperative_groups.h>
@@ -50,6 +59,10 @@ constexpr unsigned FULL = 0xffffffffu;
 // and this CTA's histogram
 constexpr int TOT1 = NB, TOT2 = 2 * NB, HIST = 2 * NB + NB / 2;
 constexpr int BINS_BYTES = 4 * (HIST + NB);  // 28 KB
+
+// the select's outputs (the MODE template argument)
+constexpr int OUT_TOPK = 0, OUT_KTH = 1, OUT_WARP = 2;
+constexpr int MAX_CLUSTER = 16;  // CTAs a row
 
 struct Threshold {
   unsigned prefix, rank;
@@ -269,7 +282,7 @@ __device__ void sort_survivors(u64* w, int n2) {
 // (BINS_BYTES; the leader's output buffer of n2 words reuses the first two
 // passes' totals, or follows the bins where n2 > 2048), then the staged
 // keys (rounded up to 4) from byte `region`, then `cap` candidates.
-template <int THREADS, bool KTH, class Load>
+template <int THREADS, int MODE, class Load>
 __global__ void __launch_bounds__(THREADS, 1024 / THREADS)
 row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int staged, int cap,
                 int n2, int region, u64* __restrict__ gbuf, float* __restrict__ vals,
@@ -320,6 +333,7 @@ row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int st
 
   bool cand_ok = false;  // the tail's candidates are in scand
   unsigned prefix = 0, mask = 0, rank = (unsigned)k;
+  unsigned top = 0;  // OUT_WARP: the largest key this thread staged or streamed
   for (int pass = 0; pass < 3; ++pass) {
     const int shift = pass == 0 ? 21 : pass == 1 ? 10 : 0;
     const int nb = pass == 2 ? NB / 2 : NB;
@@ -342,6 +356,7 @@ row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int st
           const unsigned key = key_at(__ldg(xr + e), e);
           skey[e] = key;
           digit = (int)(key >> 21);
+          if constexpr (MODE == OUT_WARP) top = max(top, key);
         }
         hist_add(hist, digit, lane);
       }
@@ -376,6 +391,7 @@ row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int st
               const unsigned key = order_key(f[t]);
               skey[h + 4 * q + t] = key;
               digit = (int)(key >> 21);
+              if constexpr (MODE == OUT_WARP) top = max(top, key);
             }
             hist_add(hist, digit, lane);
           }
@@ -416,6 +432,9 @@ row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int st
         const unsigned key = i < L ? key_at(__ldg(xr + i), i) : 0u;
         const bool ok = i < L && (key & mask) == prefix;
         hist_add(hist, ok ? (int)((key >> shift) & dmask) : -1, lane);
+        if constexpr (MODE == OUT_WARP) {
+          if (pass == 0) top = max(top, key);  // 0 past L: below every key
+        }
         if (pass == 1 && cand_ok) {
           // keys at or above the first threshold digit: the candidates
           const bool keep = i < L && (key & 0xffe00000u) >= (prefix & 0xffe00000u);
@@ -462,12 +481,173 @@ row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int st
     }
     __syncthreads();  // s_res and the histogram are read before they change
   }
-  if constexpr (KTH) {
+  if constexpr (MODE == OUT_KTH) {
     // prefix is the row's k-th key T.  Every CTA has read the leader's
     // last totals once the cluster has met; then the leader writes T's
     // value (key_value inverts order_key: the row's own bits).
     sync_cluster(C);
     if (leader && tid == 0) vals[row] = key_value((u64)prefix << 32);
+    return;
+  }
+  if constexpr (MODE == OUT_WARP) {
+    // prefix is the row's k-th key T: a value x survives the warper where
+    // !(x < T) in f32, so key >= T, and -0.0 also where T is +0.0
+    __shared__ unsigned w_top[MAX_CLUSTER], w_cnt[MAX_CLUSTER];
+    __shared__ float w_sum[MAX_CLUSTER], w_stat[2];
+    const unsigned keep = prefix == 0x80000000u ? 0x7fffffffu : prefix;
+    const auto key_of = [&](int i) { return i < S ? skey[i] : key_at(__ldg(xr + i), i); };
+    // the row's max: each CTA's largest key, then the cluster's in the leader
+    top = __reduce_max_sync(FULL, top);
+    if (lane == 0) warp_tot[warp] = top;
+    __syncthreads();
+    if (tid == 0) {
+      unsigned m = 0;
+      for (int w = 0; w < THREADS / 32; ++w) m = max(m, warp_tot[w]);
+      (C == 1 ? w_top : cluster.map_shared_rank(w_top, 0))[c] = m;
+    }
+    sync_cluster(C);
+    if (tid == 0) {
+      const unsigned* tops = C == 1 ? w_top : cluster.map_shared_rank(w_top, 0);
+      unsigned m = 0;
+      for (int r = 0; r < C; ++r) m = max(m, tops[r]);
+      w_stat[0] = key_value((u64)m << 32);
+    }
+    __syncthreads();
+    const float mx = w_stat[0];
+    // the survivors' sum of exps and count: each CTA's in a fixed order,
+    // the staged keys four at a time (a warp whose keys all fall below T
+    // moves on), then a streamed tail
+    float s = 0.f;
+    unsigned n = 0;
+    const uint4* sk4 = (const uint4*)skey;
+    const int nq = (S + 3) >> 2;
+    for (int base = 0; base < nq; base += THREADS) {
+      const int q = base + tid;
+      uint4 kk = make_uint4(0, 0, 0, 0);
+      if (q < nq) kk = sk4[q];
+      const unsigned ks[4] = {kk.x, kk.y, kk.z, kk.w};
+      bool sv[4], any = false;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        sv[t] = q < nq && 4 * q + t < S && ks[t] >= keep;
+        any |= sv[t];
+      }
+      if (!__any_sync(FULL, any)) continue;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (sv[t]) {
+          s += expf(key_value((u64)ks[t] << 32) - mx);
+          ++n;
+        }
+      }
+    }
+    for (int i = S + tid; i < L; i += THREADS) {
+      const unsigned key = key_at(__ldg(xr + i), i);
+      if (key >= keep) {
+        s += expf(key_value((u64)key << 32) - mx);
+        ++n;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(FULL, s, off);
+      n += __shfl_xor_sync(FULL, n, off);
+    }
+    // the block's sum in warp order (the warps' sums in this CTA's
+    // histogram, which no CTA reads any more), then the cluster's in CTA
+    // order
+    if (lane == 0) {
+      warp_tot[warp] = n;
+      hist[warp] = __float_as_uint(s);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float bs = 0.f;
+      unsigned bn = 0;
+      for (int w = 0; w < THREADS / 32; ++w) {
+        bs += __uint_as_float(hist[w]);
+        bn += warp_tot[w];
+      }
+      (C == 1 ? w_sum : cluster.map_shared_rank(w_sum, 0))[c] = bs;
+      (C == 1 ? w_cnt : cluster.map_shared_rank(w_cnt, 0))[c] = bn;
+    }
+    sync_cluster(C);
+    if (tid == 0) {
+      const float* sums = C == 1 ? w_sum : cluster.map_shared_rank(w_sum, 0);
+      const unsigned* cnts = C == 1 ? w_cnt : cluster.map_shared_rank(w_cnt, 0);
+      float tot = 0.f;
+      long long kept = 0;
+      for (int r = 0; r < C; ++r) {
+        tot += sums[r];
+        kept += cnts[r];
+      }
+      // each masked column adds exp(fill - max) (0 unless the row's max is
+      // within ~100 of fill)
+      tot += (float)(width - kept) * expf(load.fill - mx);
+      w_stat[1] = logf(tot);
+    }
+    __syncthreads();
+    // the leader's partials have been read: a CTA may leave once the
+    // cluster has met again, after its writes
+    if (C > 1) cluster_arrive();
+    const float log_s = w_stat[1];
+    const float masked = (load.fill - mx) - log_s;
+    float* orow = vals + row * width + s0;
+    const auto out_of = [&](unsigned key, int i) {
+      const float y = key >= keep ? (key_value((u64)key << 32) - mx) - log_s : masked;
+      return (int)s0 + i == load.ban ? load.fill : y;
+    };
+    // the head to 16-byte alignment (the staging's: the logits and the
+    // output share their rows' alignment) and the tail, one at a time
+    const int h = min((int)(((16 - ((unsigned long long)orow & 15)) & 15) >> 2), S);
+    const int nvec = (S - h) >> 2;
+    if (tid < h) orow[tid] = out_of(skey[tid], tid);
+    for (int i = h + 4 * nvec + tid; i < L; i += THREADS) orow[i] = out_of(key_of(i), i);
+    // the rest a float4 at a time: staged words h + 4v .. h + 4v + 3, from
+    // the aligned vectors v and v + 1 (read as words past the staged region)
+    const int words = (staged + 3) & ~3;
+    float4* o4 = (float4*)(orow + h);
+    const int ban_at = load.ban - (int)s0 - h;  // the banned column's place past the head
+    for (int base = 0; base < nvec; base += THREADS) {
+      const int v = base + tid;
+      const bool ok = v < nvec;
+      uint4 kk = make_uint4(0, 0, 0, 0);
+      if (ok) {
+        const uint4 a = sk4[v];
+        uint4 b = make_uint4(0, 0, 0, 0);
+        if (h > 0) {
+          if (4 * v + 8 <= words) {
+            b = sk4[v + 1];
+          } else {
+            b.x = skey[4 * v + 4];
+            if (h > 1) b.y = skey[4 * v + 5];
+            if (h > 2) b.z = skey[4 * v + 6];
+          }
+        }
+        kk = h == 0 ? a
+           : h == 1 ? make_uint4(a.y, a.z, a.w, b.x)
+           : h == 2 ? make_uint4(a.z, a.w, b.x, b.y)
+                    : make_uint4(a.w, b.x, b.y, b.z);
+      }
+      const unsigned ks[4] = {kk.x, kk.y, kk.z, kk.w};
+      float y[4] = {masked, masked, masked, masked};
+      bool any = false;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) any |= ok && ks[t] >= keep;
+      if (__any_sync(FULL, any)) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (ok && ks[t] >= keep) y[t] = (key_value((u64)ks[t] << 32) - mx) - log_s;
+      }
+      if (ok) {
+        const int b = ban_at - 4 * v;
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (b == t) y[t] = load.fill;
+        o4[v] = make_float4(y[0], y[1], y[2], y[3]);
+      }
+    }
+    if (C > 1) cluster_wait();
     return;
   }
   // prefix is T; the top k holds every key above it and the first `rank`
@@ -589,16 +769,42 @@ struct FastDiv {
   }
 };
 
+// n / d for any 64-bit n, the same way with 64-bit words: the flat index's
+// row where rows * width may pass 2^31 (kernel 17's streaming pass)
+struct FastDiv64 {
+  unsigned long long m;
+  int s1, s2;
+  explicit FastDiv64(unsigned long long d) {
+    int l = 0;
+    while ((1ull << l) < d) ++l;
+    m = (unsigned long long)((((unsigned __int128)((1ull << l) - d)) << 64) / d + 1);
+    s1 = l < 1 ? l : 1;
+    s2 = l > 1 ? l - 1 : 0;
+  }
+  __device__ __forceinline__ unsigned long long operator()(unsigned long long n) const {
+    const unsigned long long t = __umul64hi(m, n);
+    return (t + ((n - t) >> s1)) >> s2;
+  }
+};
+
 // the stored value as it is (kernels 3 and 19)
 struct RawValue {
   __device__ __forceinline__ float operator()(float v, long long, int) const { return v; }
 };
 
-template <int THREADS, bool KTH, class Load>
+// the warper mode's loader: the stored value as it is, with the column
+// banned after the normalization (-1: none) and the masking value
+struct WarperLoad {
+  int ban;
+  float fill;
+  __device__ __forceinline__ float operator()(float v, long long, int) const { return v; }
+};
+
+template <int THREADS, int MODE, class Load>
 int launch_select(const float* x, long long n_rows, int width, int k, int splits, int slice,
                   int staged, int cap, int n2, int region, int smem, u64* gbuf, float* vals,
                   long long* idx, Load load, cudaStream_t stream) {
-  const auto kernel = row_topk_kernel<THREADS, KTH, Load>;
+  const auto kernel = row_topk_kernel<THREADS, MODE, Load>;
   // the kernel's attributes, set once a device (the host path is part of a
   // small call's time): the shared memory opted into so far, all of the
   // SM's 228 KB as shared memory so that several CTAs fit, and clusters of
@@ -648,15 +854,17 @@ int launch_select(const float* x, long long n_rows, int width, int k, int splits
   return (int)err;
 }
 
-// KTH: the k-th-value mode (vals [n_rows]; gbuf and idx unused)
-template <bool KTH = false, class Load>
+// MODE: OUT_TOPK (vals, idx [n_rows, k], or gbuf), OUT_KTH (vals
+// [n_rows]; gbuf and idx unused) or OUT_WARP (vals [n_rows, width], a
+// WarperLoad; gbuf and idx unused)
+template <int MODE = OUT_TOPK, class Load>
 int radix_topk(const float* x, long long n_rows, int width, int k, int threads, int splits,
                int slice, int staged, int cap, int n2, int region, int smem, u64* gbuf,
                float* vals, long long* idx, Load load, cudaStream_t stream) {
   if (threads == 1024)
-    return launch_select<1024, KTH>(x, n_rows, width, k, splits, slice, staged, cap, n2, region,
+    return launch_select<1024, MODE>(x, n_rows, width, k, splits, slice, staged, cap, n2, region,
                                     smem, gbuf, vals, idx, load, stream);
-  return launch_select<512, KTH>(x, n_rows, width, k, splits, slice, staged, cap, n2, region,
+  return launch_select<512, MODE>(x, n_rows, width, k, splits, slice, staged, cap, n2, region,
                                  smem, gbuf, vals, idx, load, stream);
 }
 

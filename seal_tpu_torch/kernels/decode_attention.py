@@ -225,8 +225,6 @@ def _plan(q, k, v, bias, m: int, rel):
     """Check a call's shapes once a layout; returns the route code and the
     heads a CTA (the tiled route where the fast routes' 16-byte loads would
     not line up with the row strides)."""
-    from seal_tpu_torch.kernels import build
-
     rows, heads, head_dim = q.shape
     bq = k.shape[0]
     if rows % bq or k.shape[2:] != (heads, head_dim) or k.shape != v.shape:
@@ -260,9 +258,6 @@ def _plan(q, k, v, bias, m: int, rel):
     vec = 8 if bf16 else 4  # elements of 16 bytes
     if q.stride(0) % vec or k.stride(0) % vec:
         name = "tiled"
-    if name == "tiled" and build.lib().seal_decode_attention_smem(g, m, head_dim) > build.SMEM_LIMIT:
-        raise ValueError(f"decode attention: {g} beams x head_dim {head_dim} exceed the shared "
-                         "memory")
     return ROUTE_CODES[name], heads_a_cta(heads)
 
 

@@ -10,18 +10,25 @@ entry points:
 
 * :func:`dense_select`, the dense step: the scores ranked for each query's
   top ``k`` inside kernel 3's select (one launch, the scores never
-  written), in kernel 3's order;
+  written), in kernel 3's order; past the select's shared sort
+  (``row_topk.MAX_K``) the streaming pass and kernel 3's global sort
+  (:func:`route` states the choice);
 * :func:`dense_scores`, a streaming pass that writes the flat [B, K * V]
-  scores, where sampling (kernel 20) and diverse groups (kernel 21) read
-  them.
+  scores, where diverse groups (kernel 21) read them.
+
+Flat indices are 64-bit: B * K * V may pass 2^31.  A query's row K * V
+stays below 2^31, the width of one select row (kernel 3's ``int``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from seal_tpu_torch.kernels import row_topk
+from seal_tpu_torch.kernels import Launches, row_topk
 from seal_tpu_torch.kernels.beam_select import NEG_INF, apply_branches
+
+ROW_LIMIT = 2**31  # a query's K * V: one select row of kernel 3's int width
+STREAM_SORT = Launches()  # dense steps past the shared sort: streaming pass, then kernel 3
 
 _FNS = None  # (seal_dense_scores, seal_dense_select, build.stream_ptr), looked up once
 
@@ -53,6 +60,23 @@ def dense_select_plain(counts, lp, prev_count, finished, beam_scores, k: int, *,
     return row_topk.row_topk_plain(scores, k)
 
 
+def route(B: int, K: int, V: int, k: int) -> str:
+    """The dense step's route on the card for a query's top ``k`` of its
+    [K * V] scores, by size: "select" (kernel 17 inside kernel 3's select,
+    one launch, the scores never written) where ``k`` fits the select's
+    shared sort (``row_topk.MAX_K``); past it "stream_sort": the streaming
+    pass writes the [B, K * V] scores and kernel 3 takes their top ``k``
+    (its global sort).  Both orders are kernel 3's, so the routes agree bit
+    for bit.  Raises where a row K * V reaches 2^31 (``ROW_LIMIT``): either
+    route ranks a query's row as one select row of ``int`` width."""
+    if K * V >= ROW_LIMIT:
+        raise ValueError(f"dense_select: a query's row of K * V = {K * V} scores; the select "
+                         f"ranks rows below 2^31 (kernel 3's int width)")
+    if not 0 < k <= K * V:
+        raise ValueError(f"dense_select: k={k} for rows of width {K * V}")
+    return "select" if k <= row_topk.MAX_K else "stream_sort"
+
+
 def _check(counts, lp, prev_count, finished, beam_scores, name: str):
     """The shapes, and on the card the types; returns (B, K, V) and the
     branch state as the kernels read it."""
@@ -65,8 +89,6 @@ def _check(counts, lp, prev_count, finished, beam_scores, name: str):
         raise ValueError(f"{name}: lp must be f32 with unit column stride")
     if counts.dtype != torch.int32 or beam_scores.dtype != torch.float32:
         raise ValueError(f"{name}: counts must be int32 and beam_scores f32")
-    if B * K * V >= 2**31:
-        raise ValueError(f"{name}: {B * K * V} elements; the kernels index below 2^31")
     counts = counts.contiguous()
     if counts.data_ptr() % 16:
         raise ValueError(f"{name}: counts must be 16-byte aligned")
@@ -113,12 +135,14 @@ def dense_select(counts, lp, prev_count, finished, beam_scores, k: int, *, eos: 
     [B, k] in kernel 3's order (value descending, index ascending):
     ``row_topk(dense_scores(...), k)``, bit for bit.
 
-    CPU tensors run the plain version; CUDA tensors launch one call of
-    kernel 3's select with the scores computed as it stages the rows (the
-    scores are never written), laid out by ``row_topk.plan(B, K * V, k)``
-    or by ``layout``.  ``lp`` must be contiguous ([B*K, V] seen as
-    [B, K * V]) and 16-byte aligned, as the counts are; ``k`` at most
-    ``row_topk.MAX_K``.
+    CPU tensors run the plain version.  CUDA tensors take the route that
+    :func:`route` gives by size: up to ``row_topk.MAX_K``, one call of
+    kernel 3's select with the scores computed as it stages the rows (never
+    written), laid out by ``row_topk.plan(B, K * V, k)`` or by ``layout``,
+    where ``lp`` must be contiguous ([B*K, V] seen as [B, K * V]) and
+    16-byte aligned, as the counts are; past it, the streaming pass, then
+    kernel 3 (its global sort), counted on ``STREAM_SORT``.  A row K * V of
+    2^31 or more raises.
     """
     kw = dict(eos=eos, pad=pad, stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
     (B, K, V), args = _check(counts, lp, prev_count, finished, beam_scores, "dense_select")
@@ -126,13 +150,20 @@ def dense_select(counts, lp, prev_count, finished, beam_scores, k: int, *, eos: 
         raise ValueError(f"dense_select: k={k} for rows of width {K * V}")
     if args is None:
         return dense_select_plain(counts, lp, prev_count, finished, beam_scores, k, **kw)
+    if route(B, K, V, k) == "stream_sort":
+        if layout is not None:
+            raise ValueError(f"dense_select: k={k} takes the streaming pass and kernel 3's "
+                             f"global sort, which no select layout lays out")
+        STREAM_SORT.launches += 1
+        return row_topk.row_topk(dense_scores(counts, lp, prev_count, finished, beam_scores, **kw),
+                                 k)
     if not lp.is_contiguous() or lp.data_ptr() % 16:
         raise ValueError("dense_select: lp must be contiguous and 16-byte aligned (its rows "
                          "are the select's [B, K * V] rows)")
     p = row_topk.plan(B, K * V, k) if layout is None else layout
     if p.sort != "shared":
-        raise ValueError(f"dense_select: k={k} past the select's shared sort "
-                         f"({row_topk.MAX_K})")
+        raise ValueError(f"dense_select: a layout of the shared sort is required, got "
+                         f"{p.sort!r}")
     _, fn, stream = _lib()
     counts, prev_count, finished, beam_scores = args
     vals = torch.empty((B, k), dtype=torch.float32, device=lp.device)

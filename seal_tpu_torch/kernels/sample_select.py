@@ -17,15 +17,33 @@ the kernel's ``logf`` by an ulp.  It also takes a ``noise`` tensor in place
 of its own, and looks up :func:`gumbel_noise` at each call, so that a test
 can replay another generator's draws.  JAX's threefry draws are not
 reproduced: the two generators agree in distribution, not in bits.
+
+Two entry points: :func:`sample_select` over given constrained log-probs
+(a candidate list with its token table, or V-wide rows under an optional
+corpus mask), and :func:`sample_select_counts`, the ``exact_mask`` steps'
+mode, which reads each beam's count vector and applies kernel 17's
+branches as it reads (so no [B, K * V] scores are written).  :func:`plan`
+gives a call's route: a list of up to ``WARP_MAX`` columns a warp, a
+wider row a CTA of 256 threads or a cluster of up to 8.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from seal_tpu_torch.kernels import Launches
 from seal_tpu_torch.kernels.beam_select import NEG_INF, _check, _select_outputs
 
 MASK32 = 0xFFFFFFFF
+WARP_MAX = 128  # columns a row up to which one warp draws it (a quad a lane)
+BLOCK = 256  # threads of a CTA of the block route (four CTAs an SM)
+SLOTS = 4 * 132  # CTAs of the block route an H100 holds at once
+MIN_SLICE = 8192  # columns a CTA at least where a row is split over a cluster
+MAX_SPLITS = 8
+ROUTES = {"warp": Launches(), "block": Launches()}  # sample_select's launches by route
+LIST = Launches()  # sample_select's launches on candidate lists (a token table)
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # Random123's Philox4x32 multipliers
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # and its key increments (Weyl sequence)
 
@@ -84,6 +102,39 @@ def noise_on_card(seed: int, step: int, rows: int, n: int, device):
                                        build.stream_ptr(words))
     build.check(rc, "gumbel_noise")
     return words.to(torch.int64) & MASK32, g
+
+
+class Plan(NamedTuple):
+    """A call's layout: ``route`` "warp" (one warp a row, two rows a CTA)
+    or "block" (``splits`` CTAs of ``BLOCK`` threads a row, a cluster where
+    more than one)."""
+
+    route: str
+    splits: int
+
+    @property
+    def code(self) -> int:
+        """The C entry points' ``splits`` argument (0: the warp route)."""
+        return 0 if self.route == "warp" else self.splits
+
+
+def plan(rows: int, n: int) -> Plan:
+    """The layout of a draw over ``rows`` chains of ``n`` columns: a row of
+    up to ``WARP_MAX`` columns is one warp, a quad a lane (a wider CTA
+    would leave most of its threads idle); a wider row one CTA of ``BLOCK``
+    threads, split over a cluster (up to 8) while the card would hold twice
+    the CTAs (``SLOTS``) and a slice keeps ``MIN_SLICE`` columns (480 V-wide
+    rows: one CTA a row; 120: four).  A warp a row lost past one quad a
+    lane: at the sampling buffer's 290 slots it took 0.0059 ms against the
+    256-thread CTA's 0.0045 on an H100 (``bench_sample``), its lanes'
+    quads drawn in series."""
+    if n <= WARP_MAX:
+        return Plan("warp", 1)
+    splits = 1
+    while (splits < MAX_SPLITS and rows * splits * 2 <= SLOTS
+           and n // (2 * splits) >= MIN_SLICE):
+        splits *= 2
+    return Plan("block", splits)
 
 
 def sample_select_plain(cons, cand_lp, tokens, beam_scores, seed: int, step: int, *, eos: int,
@@ -155,16 +206,87 @@ def sample_select(cons, cand_lp, tokens, beam_scores, seed: int, step: int, *, e
     if mask is not None:
         mask = mask.contiguous()
         _check(mask, torch.bool)
+        if mask.data_ptr() % 4:  # a quad's four bytes in one load
+            mask = mask.clone()
     dev = cons.device
     outs = _select_outputs(B, K, dev)[:8]
     opt = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    p = plan(B * K, N)
     rc = build.lib().seal_sample_select(
         cons.data_ptr(), cand_lp.data_ptr(), opt(tokens), opt(mask), beam_scores.data_ptr(), B * K,
-        K, N, seed, step, eos, pad, NEG_INF, *(t.data_ptr() for t in outs), build.stream_ptr(cons),
+        K, N, seed, step, eos, pad, NEG_INF, p.code, *(t.data_ptr() for t in outs),
+        build.stream_ptr(cons),
     )
     build.check(rc, "sample_select")
     sample_select.launches += 1
+    ROUTES[p.route].launches += 1
+    LIST.launches += tokens is not None
     return outs
 
 
 sample_select.launches = 0
+
+
+def sample_select_counts_plain(counts, lp, prev_count, finished, beam_scores, seed: int,
+                               step: int, *, eos: int, pad: int, stop_at_count: int = 0,
+                               always_allow_eos: bool = False, noise=None):
+    from seal_tpu_torch.kernels.dense_scores import dense_scores_plain
+
+    B, K, V = counts.shape
+    zero = torch.zeros((B, K), dtype=torch.float32, device=lp.device)
+    # kernel 17's candidates at zero beam scores
+    cons = dense_scores_plain(counts, lp, prev_count, finished, zero, eos=eos, pad=pad,
+                              stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
+    return sample_select_plain(cons.reshape(B, K, V), lp, None, beam_scores, seed, step, eos=eos,
+                               pad=pad, noise=noise)
+
+
+def sample_select_counts(counts, lp, prev_count, finished, beam_scores, seed: int, step: int, *,
+                         eos: int, pad: int, stop_at_count: int = 0,
+                         always_allow_eos: bool = False):
+    """One sampling step of the ``exact_mask`` mode: :func:`sample_select`
+    over ``dense_scores(counts, lp, ..., zero beam scores)`` (kernel 17's
+    candidates, N = V), the scores never written.
+
+    ``counts`` int32 [B, K, V] (``dense_counts``); ``lp`` f32 [B*K, V] (any
+    row stride); ``prev_count``, ``finished``, ``beam_scores`` [B, K].  A
+    token is allowed by kernel 17's branches (stop-forced beams: EOS only;
+    finished beams: PAD only; else count > 0; ``always_allow_eos`` adds
+    EOS).  Returns :func:`sample_select`'s eight outputs.
+
+    CPU tensors run the plain version; CUDA tensors launch kernel 20's
+    count-reading mode.  Flat indices are 64-bit: B * K * V may pass 2^31.
+    """
+    kw = dict(eos=eos, pad=pad, stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
+    B, K, V = counts.shape
+    if lp.shape != (B * K, V) or beam_scores.shape != (B, K):
+        raise ValueError(f"sample_select_counts: lp {tuple(lp.shape)}, beam_scores "
+                         f"{tuple(beam_scores.shape)} vs counts {tuple(counts.shape)}")
+    if not lp.is_cuda:
+        return sample_select_counts_plain(counts, lp, prev_count, finished, beam_scores, seed,
+                                          step, **kw)
+    from seal_tpu_torch.kernels import build
+
+    if lp.stride(1) != 1:
+        raise ValueError("sample_select_counts: lp must have a unit column stride")
+    counts = counts.contiguous()
+    prev_count = prev_count.to(torch.int32).contiguous()
+    finished = finished.to(torch.bool).contiguous()
+    beam_scores = beam_scores.contiguous()
+    _check(counts, torch.int32, lp, torch.float32, beam_scores, torch.float32)
+    outs = _select_outputs(B, K, lp.device)[:8]
+    p = plan(B * K, V)
+    rc = build.lib().seal_sample_counts(
+        counts.data_ptr(), lp.data_ptr(), lp.stride(0), prev_count.data_ptr(),
+        finished.data_ptr(), beam_scores.data_ptr(), B * K, K, V, eos, pad, stop_at_count,
+        int(always_allow_eos), seed, step, NEG_INF, p.code, *(t.data_ptr() for t in outs),
+        build.stream_ptr(lp),
+    )
+    build.check(rc, "sample_select_counts")
+    # kernel 20's launches, and this mode's share of them
+    sample_select.launches += 1
+    sample_select_counts.launches += 1
+    return outs
+
+
+sample_select_counts.launches = 0

@@ -1115,7 +1115,10 @@ def test_dense_select_forced_layouts(cuda, splits):
 
 def test_dense_select_refuses_what_it_does_not_index(cuda):
     """A strided or unaligned ``lp`` is not the select's [B, K * V] rows: the
-    wrapper raises (no second route)."""
+    wrapper raises (no second route for the select's k); a query's row of
+    2^31 scores or more raises with its reason.  (Past the shared sort, k
+    takes the streaming pass and kernel 3's global sort:
+    ``test_dense_select_past_max_k_matches_plain``.)"""
     g = torch.Generator(device=cuda).manual_seed(3)
     B, K, V = 2, 3, 101
     wide = _lp(g, B * K, V + 7, cuda)
@@ -1124,10 +1127,8 @@ def test_dense_select_refuses_what_it_does_not_index(cuda):
     for lp in (wide[:, :V], wide.reshape(-1)[1:1 + B * K * V].reshape(B * K, V)):
         with pytest.raises(ValueError, match="lp"):
             dense_scores.dense_select(counts, lp, prev_count, finished, bs, 2 * K, **kw)
-    with pytest.raises(ValueError, match="shared sort"):
-        big = torch.zeros((1, 2, 10000), dtype=torch.int32, device=cuda)
-        dense_scores.dense_select(big, _lp(g, 2, 10000, cuda), prev_count[:1, :2],
-                                  finished[:1, :2], bs[:1, :2], row_topk.MAX_K + 1, **kw)
+    with pytest.raises(ValueError, match="2\\^31"):
+        dense_scores.route(1, 42724, 50265, 30)
 
 
 @pytest.mark.parametrize("graph", [False, True])
@@ -1368,17 +1369,72 @@ def test_row_kth_forced_layouts(cuda, k, splits):
 
 
 def test_log_softmax_threshold_matches_plain(cuda):
+    """The warper's threshold (kernel 19's k-th value) then kernel 4's plain
+    masked log-softmax, against the one launch that replaced kernel 4's
+    threshold mode (``topk_log_softmax``): the masked set exact, the rest
+    within 1e-4, ban off and on."""
     logits = torch.randn(40, 50265, device=cuda) * 3
     logits[:, 1] = float("-inf")
     kth = row_select.row_kth(logits, 50)
-    n0 = triton_logsoftmax.THRESHOLD.launches
+    n0 = row_select.topk_log_softmax.launches
     for ban in (-1, 2):
-        got = triton_logsoftmax.log_softmax_ban(logits, ban, tc.NEG_INF, kth)
+        got = row_select.topk_log_softmax(logits, 50, ban, tc.NEG_INF)
         want = triton_logsoftmax.log_softmax_ban_plain(logits, ban, tc.NEG_INF, kth)
-        masked = want <= tc.NEG_INF / 2
-        assert torch.equal(got <= tc.NEG_INF / 2, masked)
-        torch.testing.assert_close(got[~masked], want[~masked], atol=1e-4, rtol=0)
-    assert triton_logsoftmax.THRESHOLD.launches == n0 + 2
+        _close_masked(got, want)
+    assert row_select.topk_log_softmax.launches == n0 + 2
+
+
+def _close_masked(got, want, atol=1e-4):
+    """The warper's output against its plain version: the masked set
+    (values at or below NEG_INF / 2) exact, the other values within
+    ``atol``."""
+    masked = want <= tc.NEG_INF / 2
+    assert torch.equal(got <= tc.NEG_INF / 2, masked)
+    torch.testing.assert_close(got[~masked], want[~masked], atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("rows,n,k", [(480, 50265, 50), (120, 50265, 50), (8, 250000, 50),
+                                      (8, 50265, 1), (8, 50265, 2000), (8, 50265, 50265),
+                                      (8, 97, 7)])
+def test_topk_log_softmax_matches_plain(cuda, rows, n, k, graph):
+    """The top-k warper's masked log-softmax in one launch of kernel 3's
+    select (its warper mode) against ``topk_log_softmax_plain``: at the
+    ``topk`` step's [480, 50265] and [120, 50265], k = 50; at a width split
+    over a cluster (250,000 columns: 8 CTAs a row); at k = 1, k = 2000
+    and k = n; on rows with ties at the k-th place, signed zeros, -inf and
+    NEG_INF plateaus; ban off and on; eager and replayed from a CUDA graph.
+    The masked set exact, the rest within 1e-4; one launch a call."""
+    rng = np.random.default_rng(rows + n + k)
+    x = torch.as_tensor(_select_rows(rng, rows, n)).cuda() if rows <= 8 else (
+        torch.as_tensor(rng.normal(0, 3, size=(rows, n)).astype(np.float32)).cuda())
+    x[:, 1] = float("-inf")  # a SEAL-bias column
+    for ban in (-1, 2):
+        n0 = row_select.topk_log_softmax.launches
+        call = lambda: row_select.topk_log_softmax(x, k, ban, tc.NEG_INF)  # noqa: E731
+        got = _graph_call(call) if graph else call()
+        assert row_select.topk_log_softmax.launches == n0 + (2 if graph else 1)
+        want = row_select.topk_log_softmax_plain(x, k, ban, tc.NEG_INF)
+        _close_masked(got, want)
+        if ban >= 0:
+            assert (got[:, ban] == tc.NEG_INF).all()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("k", [1, 50, 50265])
+def test_topk_log_softmax_forced_layouts(cuda, k, splits):
+    """The warper mode at every split of a vocab-wide row and on the route
+    that streams a slice's tail (read again for the output): the masked set
+    exact, the rest within 1e-4; a plan of another mode raises."""
+    x = torch.as_tensor(_select_rows(np.random.default_rng(k + splits), 8, 50265)).cuda()
+    want = row_select.topk_log_softmax_plain(x, k, 2, tc.NEG_INF)
+    p = row_select.plan(8, 50265, k, splits=splits)
+    _close_masked(row_select.topk_log_softmax(x, k, 2, tc.NEG_INF, layout=p), want)
+    streamed = row_topk.plan(8, 50265, k, splits=splits, staged=p.slice // 3, kth=True)
+    assert streamed.route == "streamed"
+    _close_masked(row_select.topk_log_softmax(x, k, 2, tc.NEG_INF, layout=streamed), want)
+    with pytest.raises(ValueError, match="k-th-value plan"):
+        row_select.topk_log_softmax(x, k, 2, tc.NEG_INF, layout=row_topk.plan(8, 50265, k))
 
 
 @pytest.mark.parametrize("ties", [False, True])
@@ -1554,6 +1610,231 @@ def test_sample_select_matches_plain(cuda, case):
     hist = clear.reshape(B, K).repeat(1, 2).reshape(-1)
     for a, b in zip(got[:4], want[:4]):
         _same([a.reshape(-1)[hist]], [b.reshape(-1)[hist]])
+
+
+SAMPLE_ROUTES = {
+    # step 0's V-wide rows under the corpus mask: a CTA a row
+    "wide": (480, 50265, False, "block"),
+    # batch 8's: a cluster of 4 CTAs a row
+    "wide_cluster": (120, 50265, False, "block"),
+    # candidate lists (n_buf + w + 2 slots): a 2K buffer's a warp a row,
+    # the sampling buffer's (top_m 256) a CTA a row
+    "list": (480, 64, True, "warp"),
+    "list_290": (480, 290, True, "block"),
+    # a list past the warp route (sampling at top_m 10,000): a CTA a row
+    "list_block": (480, 10034, True, "block"),
+    # V-wide rows too narrow for a CTA: a warp a row
+    "narrow": (64, 97, False, "warp"),
+}
+
+
+def _draw_inputs(g, rows, n, listed, cuda):
+    """A draw's inputs: V-wide rows under a corpus mask, or candidate lists
+    with a token table (EOS twice in some rows, in none of others, an
+    all-dead chain), at chain scores with NEG_INF beams."""
+    K = 15 if rows % 15 == 0 else 4
+    B = rows // K
+    lp = _lp(g, rows, n, cuda)
+    bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
+    if not listed:
+        mask = torch.rand(n, generator=g, device=cuda) < 0.8
+        mask[7:11] = False  # a masked quad
+        return lp.reshape(B, K, n), lp.reshape(B, K, n), None, bs, mask
+    cons = torch.where(torch.rand(rows, n, generator=g, device=cuda) < 0.6, lp, tc.NEG_INF)
+    cons[3] = tc.NEG_INF  # an all-dead chain
+    tokens = torch.randint(3, 5000, (rows, n), generator=g, device=cuda, dtype=torch.int32)
+    tokens[::2, n - 2] = 2
+    tokens[::4, n // 3] = 2
+    return (cons.reshape(B, K, n), lp.reshape(B, K, n), tokens.reshape(B, K, n), bs, None)
+
+
+def _same_clear(got, want, cons, noise, mask, min_clear=0.99):
+    """Kernel 20's outputs against the plain version's on every chain whose
+    best two perturbed scores differ by more than 4e-5 (logf and torch's log
+    may round a Gumbel value an ulp apart)."""
+    B, K = got[4].shape
+    clear = _drawn_margin(cons.reshape(B, K, -1), noise.reshape(B, K, -1), mask) > 4e-5
+    assert float(clear.float().mean()) >= min_clear
+    for a, b in zip(got[4:], want[4:]):
+        _same([a.reshape(-1)[clear]], [b.reshape(-1)[clear]])
+    hist = clear.reshape(B, K).repeat(1, 2).reshape(-1)
+    for a, b in zip(got[:4], want[:4]):
+        _same([a.reshape(-1)[hist]], [b.reshape(-1)[hist]])
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("case", sorted(SAMPLE_ROUTES))
+def test_sample_select_routes_match_plain(cuda, case, graph):
+    """Kernel 20's routes against its plain version, eager and replayed from
+    a CUDA graph: V-wide rows a CTA or a cluster a row, candidate lists a
+    warp or a CTA a row, narrow V-wide rows a warp a row; the route's
+    counter (and the list counter on lists) moves once a call."""
+    rows, n, listed, route = SAMPLE_ROUTES[case]
+    assert sample_select.plan(rows, n).route == route
+    g = torch.Generator(device=cuda).manual_seed(rows + n)
+    cons, lp, tokens, bs, mask = _draw_inputs(g, rows, n, listed, cuda)
+    r0, l0 = sample_select.ROUTES[route].launches, sample_select.LIST.launches
+    call = lambda: sample_select.sample_select(cons, lp, tokens, bs, 3, 4, eos=2, pad=1,  # noqa: E731
+                                               mask=mask)
+    got = _graph_call(call) if graph else call()
+    assert sample_select.ROUTES[route].launches == r0 + (2 if graph else 1)
+    assert sample_select.LIST.launches == l0 + (2 if graph else 1) * listed
+    want = sample_select.sample_select_plain(cons, lp, tokens, bs, 3, 4, eos=2, pad=1, mask=mask)
+    noise = sample_select.gumbel_noise(3, 4, rows, n, cuda)
+    _same_clear(got, want, cons, noise, mask)
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("case", sorted(DENSE_BRANCHES))
+@pytest.mark.parametrize("B,K,V,lp_case", [(32, 15, 50265, "flat"), (8, 15, 50265, "strided"),
+                                           (4, 3, 97, "flat"), (2, 2, 7, "strided")])
+def test_sample_select_counts_matches_plain(cuda, B, K, V, lp_case, case, graph):
+    """Kernel 20's count-reading mode (the sampled ``exact_mask`` step)
+    against ``sample_select_counts_plain``: at the generation point and at
+    batch 8 (a cluster a row), on narrow rows (a warp a row), with a strided
+    ``lp``, every branch, dead beams and an all-NEG_INF query, eager and
+    replayed from a CUDA graph; no streaming pass is launched."""
+    g = torch.Generator(device=cuda).manual_seed(B * K + V)
+    lp = _lp(g, B * K, V + (5 if lp_case == "strided" else 0), cuda)[:, :V]
+    counts, lp, prev_count, finished, bs = _dense_inputs(g, B, K, V, cuda, lp=lp)
+    counts = torch.where(torch.rand(B, K, V, generator=g, device=cuda) < 0.1, counts, 0)
+    kw = dict(eos=2, pad=1, **DENSE_BRANCHES[case])
+    args = (counts, lp, prev_count, finished, bs, 7, 2)
+    n0, d0 = sample_select.sample_select_counts.launches, dense_scores.dense_scores.launches
+    call = lambda: sample_select.sample_select_counts(*args, **kw)  # noqa: E731
+    got = _graph_call(call) if graph else call()
+    assert sample_select.sample_select_counts.launches == n0 + (2 if graph else 1)
+    assert dense_scores.dense_scores.launches == d0
+    want = sample_select.sample_select_counts_plain(*args, **kw)
+    zero = torch.zeros_like(bs)
+    cons = dense_scores.dense_scores_plain(counts, lp, prev_count, finished, zero, **kw)
+    _same_clear(got, want, cons, sample_select.gumbel_noise(7, 2, B * K, V, cuda), None)
+
+
+def _past_2_31(cuda):
+    """F3's second size: B * K * V just past 2^31 elements (32 x 1,336 x
+    50,265: 8.6 GB of counts).  Only tokens 5 and 100 of beam K - 6 are
+    allowed in every query; in query 31 their flat index is past 2^31, so a
+    32-bit index would read another element."""
+    B, K, V = 32, 1336, 50265
+    assert B * K * V > 2**31 and 31 * K * V + (K - 6) * V > 2**31
+    counts = torch.zeros((B, K, V), dtype=torch.int32, device=cuda)
+    counts[:, K - 6, 5] = 1
+    counts[:, K - 6, 100] = 3
+    lp = torch.full((B * K, V), -7.0, device=cuda)
+    lp.view(B, K, V)[:, K - 6, 5] = -0.5
+    lp.view(B, K, V)[:, K - 6, 100] = -0.25
+    prev_count = torch.full((B, K), 9, dtype=torch.int32, device=cuda)
+    finished = torch.zeros((B, K), dtype=torch.bool, device=cuda)
+    bs = torch.zeros((B, K), device=cuda)
+    return (counts, lp, prev_count, finished, bs), (B, K, V)
+
+
+def test_dense_select_past_2_31_elements(cuda):
+    """The dense step at B * K * V past 2^31: each query's top 2K is its two
+    allowed candidates, then NEG_INF ties in index order, exactly."""
+    args, (B, K, V) = _past_2_31(cuda)
+    assert dense_scores.route(B, K, V, 2 * K) == "select"
+    vals, idx = dense_scores.dense_select(*args, 2 * K, eos=2, pad=1)
+    del args
+    head = [(K - 6) * V + 100, (K - 6) * V + 5]
+    want_idx = torch.tensor(head + list(range(2 * K - 2)), device=cuda).expand(B, -1)
+    want_val = torch.full((B, 2 * K), tc.NEG_INF, device=cuda)
+    want_val[:, 0], want_val[:, 1] = -0.25, -0.5
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(vals.view(torch.int32), want_val.view(torch.int32))
+
+
+def test_dense_scores_past_2_31_elements(cuda):
+    """Kernel 17's streaming pass at B * K * V past 2^31: the two allowed
+    scores of every query where they belong, NEG_INF everywhere else
+    (around flat index 2^31 too)."""
+    args, (B, K, V) = _past_2_31(cuda)
+    out = dense_scores.dense_scores(*args, eos=2, pad=1)
+    del args
+    col = (K - 6) * V
+    assert (out[:, col + 5] == -0.5).all() and (out[:, col + 100] == -0.25).all()
+    assert int((out > tc.NEG_INF / 2).sum()) == 2 * B
+    flat = out.view(-1)
+    assert (flat[2**31 - 8: 2**31 + 8] == tc.NEG_INF).all()
+
+
+def test_sample_select_counts_past_2_31_elements(cuda):
+    """Kernel 20's count-reading mode at B * K * V past 2^31: chain K - 6 of
+    every query draws token 5 or 100, the one that the plain generator's
+    Gumbel noise puts first; every other chain has no allowed token and
+    takes EOS at its log-prob."""
+    args, (B, K, V) = _past_2_31(cuda)
+    out = sample_select.sample_select_counts(*args, 11, 3, eos=2, pad=1)
+    del args
+    sel_tok, sel_sco = out[4], out[6]
+    rows = torch.arange(B, dtype=torch.int64) * K + (K - 6)
+    cols = torch.tensor([5, 100], dtype=torch.int64)
+    words = sample_select.philox4x32(
+        (cols // 4).expand(B, 2), rows[:, None].expand(B, 2), torch.zeros(B, 2, dtype=torch.int64),
+        torch.zeros(B, 2, dtype=torch.int64), 11, 3)
+    w = torch.stack(words, -1)  # [B, 2, 4]: word column % 4 of each
+    g = sample_select.gumbel_of_words(torch.stack([w[:, 0, 1], w[:, 1, 0]], -1))
+    v = torch.tensor([-0.5, -0.25]) + g
+    clear = (v[:, 0] - v[:, 1]).abs() > 4e-5
+    assert int(clear.sum()) >= B - 1
+    want = torch.where(v[:, 1] > v[:, 0], 100, 5).to(torch.int32)
+    got = sel_tok[:, K - 6].cpu()
+    assert torch.equal(got[clear], want[clear])
+    assert ((got == 5) | (got == 100)).all()
+    others = torch.ones(K, dtype=torch.bool)
+    others[K - 6] = False
+    assert (sel_tok[:, others] == 2).all() and (sel_sco[:, others] == -7.0).all()
+
+
+def test_exact_mask_past_max_k_generates_on_card_matches_cpu(cuda):
+    """F3's first size: ``exact_mask`` at ``num_beams`` 8,193, whose dense
+    step asks for k = 2K past kernel 3's shared sort, on a 64-token
+    vocabulary: the card's hypotheses equal the CPU plain path's (token
+    lists, scores within 1e-4); the dense step takes the streaming pass and
+    kernel 3's global sort (``dense_scores.STREAM_SORT``), never
+    ``dense_select``'s one launch; kernel 9 splits the 8,193 beams over
+    CTAs and kernel 8's epilogue keeps its picks in device memory."""
+    V = 64
+    cfg = bart_tiny(vocab_size=V)
+    params = bart.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    toks = (rng.zipf(1.3, size=4000) % (V - 4) + 4).astype(np.int64)
+    host = FMIndex()
+    host.initialize([d.tolist() + [2] for d in np.array_split(toks, 40)])
+    queries = [[0] + rng.integers(4, V, size=5).tolist() + [2]]
+    kw = dict(num_beams=8193, max_length=3, min_length=1, exact_mask=True)
+    assert dense_scores.route(1, 8193, V, 2 * 8193) == "stream_sort"
+    cpu = tg.fm_index_generate(cfg, params, TorchFMIndex.from_host(host, vocab=V, device="cpu"),
+                               queries, **kw)
+    s0, d0 = dense_scores.STREAM_SORT.launches, dense_scores.dense_select.launches
+    g0 = row_topk.GLOBAL_SORT.launches
+    gpu = tg.fm_index_generate(cfg, _to(params, cuda),
+                               TorchFMIndex.from_host(host, vocab=V, device=cuda), queries, **kw)
+    assert dense_scores.STREAM_SORT.launches > s0 and dense_scores.dense_select.launches == d0
+    assert row_topk.GLOBAL_SORT.launches > g0
+    assert sum(map(len, gpu)) > 0
+    for a, b in zip(cpu, gpu):
+        ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
+        assert [t for t, _ in ka] == [t for t, _ in kb]
+        np.testing.assert_allclose([s for _, s in kb], [s for _, s in ka], atol=1e-4, rtol=0)
+
+
+def test_dense_select_past_max_k_matches_plain(cuda):
+    """The dense step past kernel 3's shared sort (k = 2K = 16,386 of a
+    [2, 8,193 x 64] row): the streaming pass and kernel 3's global sort,
+    bit for bit the plain version, with every branch; a forced select
+    layout at that k raises."""
+    g = torch.Generator(device=cuda).manual_seed(8193)
+    B, K, V = 2, 8193, 64
+    args = _dense_inputs(g, B, K, V, cuda)
+    kw = dict(eos=2, pad=1, **DENSE_BRANCHES["branches"])
+    s0, d0 = dense_scores.STREAM_SORT.launches, dense_scores.dense_select.launches
+    got = dense_scores.dense_select(*args, 2 * K, **kw)
+    assert (dense_scores.STREAM_SORT.launches, dense_scores.dense_select.launches) == (s0 + 1, d0)
+    _same(got, dense_scores.dense_select_plain(*args, 2 * K, **kw))
+    with pytest.raises(ValueError, match="global sort"):
+        dense_scores.dense_select(*args, 2 * K, layout=row_topk.plan(B, K * V, 2 * K), **kw)
 
 
 def test_sampler_draws_the_softmax_on_card(cuda):

@@ -178,3 +178,28 @@ def test_dense_select_limits():
     v, i = dense_scores.dense_select(*args, 4 * 96, eos=2, pad=1)  # k = the whole row
     assert torch.equal(i, row_topk.row_topk_plain(dense_scores.dense_scores(*args, eos=2, pad=1),
                                                   4 * 96)[1])
+
+
+@pytest.mark.parametrize("B,K,V,k,want", [
+    (32, 15, 50265, 30, "select"),  # the bench point's dense step
+    (1, 8192, 64, 16384, "select"),  # k at the shared sort's limit
+    (1, 8193, 64, 16386, "stream_sort"),  # num_beams 8,193: past it
+    (32, 1336, 50265, 2672, "select"),  # B * K * V past 2^31, a row below it
+    (2, 9000, 50265, 18000, "stream_sort"),
+])
+def test_dense_route_by_size(B, K, V, k, want):
+    """F3: the dense step's route is a function of (B, K, V, k) alone: the
+    select up to ``row_topk.MAX_K``, the streaming pass and kernel 3's
+    global sort past it, whatever B * K * V."""
+    assert dense_scores.route(B, K, V, k) == want
+
+
+def test_dense_route_limits():
+    """A query's row K * V of 2^31 scores or more, and a k outside the row,
+    raise with their reasons."""
+    with pytest.raises(ValueError, match="2\\^31"):
+        dense_scores.route(1, 42724, 50265, 30)
+    assert dense_scores.route(1, 42723, 50265, 30) == "select"
+    for k in (0, 3 * 96 + 1):
+        with pytest.raises(ValueError, match="width"):
+            dense_scores.route(2, 3, 96, k)

@@ -207,22 +207,33 @@ def test_topk_warper_matches_jax(models, topk, path):
     _assert_same_hyps(jh, th)
 
 
+@pytest.mark.parametrize("ban", [True, False])
 @pytest.mark.parametrize("topk", [1, 7, 40])
-def test_threshold_log_softmax_matches_jax_warper(topk):
-    """Kernel 4 with kernel 19's k-th value (plain) against JAX's warper and
-    log-softmax, with ties at the k-th value and the SEAL bias's -inf."""
+def test_threshold_log_softmax_matches_jax_warper(topk, ban):
+    """The warper's masked log-softmax (``topk_log_softmax``'s plain version
+    through the step's ``_log_softmax``) against JAX's warper, log-softmax
+    and min-length ban, with ties at the k-th value, the SEAL bias's -inf,
+    a row whose k-th value is -inf (its -inf columns survive), a row of
+    signed zeros at the k-th place, and the ban on and off."""
     rng = np.random.default_rng(topk)
     logits = np.round(rng.normal(size=(9, 300)) * 3, 1).astype(np.float32)
     logits[:, 1] = -np.inf
     logits[2, :50] = 4.0
-    jcfg = jc.DecodeConfig(topk=topk, min_length=3)
+    logits[3, 5:] = -np.inf  # five finite values: past them the k-th is -inf
+    logits[4, ::2] = 0.0
+    logits[4, 1::2] = -0.0
+    min_length = 3 if ban else 0
+    jcfg = jc.DecodeConfig(topk=topk, min_length=min_length)
     want = np.asarray(jc._apply_min_length(
         jc._log_softmax(jc._apply_topk_warper(jnp.asarray(logits), jcfg)), 2, jcfg))
-    got = tc._log_softmax(torch.as_tensor(logits), 2, tc.DecodeConfig(topk=topk, min_length=3))
+    got = tc._log_softmax(torch.as_tensor(logits), 2,
+                          tc.DecodeConfig(topk=topk, min_length=min_length))
     masked = want <= jc.NEG_INF / 2
     np.testing.assert_array_equal(got.numpy() <= tc.NEG_INF / 2, masked)
     np.testing.assert_allclose(got.numpy()[~masked], want[~masked], atol=1e-5, rtol=0)
-    assert (got.numpy()[:, 2] == tc.NEG_INF).all()  # the min-length ban
+    assert (got.numpy()[:, 2] == tc.NEG_INF).all() == ban  # the min-length ban
+    if topk == 40:
+        assert np.isneginf(got.numpy()[3, 5:]).all()  # T = -inf: -inf stays -inf
 
 
 # ------------------------------------------------------------- forced BOS

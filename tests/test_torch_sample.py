@@ -144,6 +144,79 @@ def test_sample_select_plain_matches_jax(case):
     assert not bool(got[7].logical_not().any()) and int(got[4][0, 1]) == eos
 
 
+@pytest.mark.parametrize("stop_at_count,always_allow_eos", [(0, False), (2, True), (1, False)])
+def test_sample_select_counts_plain_matches_jax(stop_at_count, always_allow_eos):
+    """Kernel 20's count-reading mode's plain version (the sampled
+    ``exact_mask`` step), fed JAX's Gumbel draws, equals JAX's dense
+    candidates (``_candidates_general``'s ``exact_mask`` branch), its mask,
+    ``dispatch_select``'s EOS slot and ``_select_sample`` in all eight
+    outputs, bit for bit, with every branch taken."""
+    from seal_tpu.ops import fm_ops as jfm
+    from seal_tpu_torch.index.device_index import TorchFMIndex
+    from seal_tpu_torch.ops import fm_ops as tfm
+    from test_torch_kth_dense import _dense_case
+
+    class _JaxOps:
+        def __init__(self, dix):
+            self.dix = dix
+
+        def dense_counts(self, lo, hi, chunk):
+            return jfm.dense_counts(self.dix, lo, hi, chunk)
+
+    host, lo, hi, lp, prev_count, finished, bs = _dense_case(20 + 2 * stop_at_count
+                                                             + always_allow_eos)
+    B, K = lo.shape
+    V = lp.shape[1]
+    cfg = jc.DecodeConfig(num_beams=K, sample=True, exact_mask=True,
+                          stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
+    tokens, allowed, cand = jc._candidates_general(
+        _JaxOps(DeviceFMIndex.from_host(host, vocab=V)), cfg, jnp.asarray(lp), jnp.asarray(lo),
+        jnp.asarray(hi), jnp.asarray(prev_count), jnp.asarray(finished))
+    cons = jnp.where(allowed, cand, jc.NEG_INF)
+    key = jax.random.PRNGKey(17)
+    gumbel = np.array(jax.random.gumbel(key, (B, K, V), jnp.float32))
+    eos_slot = jnp.argmax(tokens == cfg.eos_token_id, axis=-1)
+    eos_lp = jnp.take_along_axis(cand, eos_slot[..., None], -1)[..., 0]
+    want = jc._select_sample(cfg, cons, cand + jnp.asarray(bs)[..., None], tokens,
+                             eos_lp + jnp.asarray(bs), key)
+    t = torch.as_tensor
+    counts = tfm.dense_counts(TorchFMIndex.from_host(host, vocab=V, device="cpu"), t(lo), t(hi),
+                              cfg.dense_chunk)
+    n0 = ks.sample_select_counts.launches
+    got = ks.sample_select_counts_plain(
+        counts, t(lp), t(prev_count), t(finished), t(bs), 0, 0, eos=cfg.eos_token_id,
+        pad=cfg.pad_token_id, stop_at_count=stop_at_count, always_allow_eos=always_allow_eos,
+        noise=t(gumbel).reshape(B * K, V))
+    for a, b in zip(got, want):
+        a, b = a.numpy(), np.asarray(b)
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b.astype(a.dtype))
+    # the wrapper runs the plain version on the CPU (no launch)
+    ks.sample_select_counts(counts, t(lp), t(prev_count), t(finished), t(bs), 0, 0,
+                            eos=cfg.eos_token_id, pad=cfg.pad_token_id)
+    assert ks.sample_select_counts.launches == n0
+    assert finished.any() and not bool(got[7].logical_not().any())
+
+
+@pytest.mark.parametrize("rows,n,route,splits", [
+    (480, 50265, "block", 1),  # step 0's V-wide rows: a CTA a row
+    (120, 50265, "block", 4),  # batch 8: a cluster of 4
+    (32, 50265, "block", 4),
+    (480, 98, "warp", 1),  # a 2K buffer's list rows: a warp a row
+    (480, 128, "warp", 1),
+    (480, 290, "block", 1),  # the sampling buffer's (top_m 256): a CTA a row
+    (480, 10034, "block", 1),  # sampling at top_m 10,000
+])
+def test_sample_plan_routes(rows, n, route, splits):
+    """Kernel 20's layout as a function of (rows, columns): a warp a row up
+    to ``WARP_MAX`` columns (a quad a lane), a CTA a row past it, split over
+    a cluster where rows are few."""
+    p = ks.plan(rows, n)
+    assert (p.route, p.splits) == (route, splits)
+    assert p.code == (0 if route == "warp" else splits)
+
+
 @pytest.mark.parametrize("form", ["table", "mask"])
 def test_sampler_draws_the_softmax(form):
     """2^16 draws of one 16-candidate row with 4 masked slots (one chain a
