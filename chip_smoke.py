@@ -207,6 +207,9 @@ REPLACES = {
     "wt_bucket_counts": "seal_tpu/ops/wt_ops.py:203",
     "fm_dense_counts": "seal_tpu/ops/fm_ops.py:339",
     "wt_dense_counts": "seal_tpu/ops/wt_ops.py:237",
+    # the mask modes: the counts as exact_mask reads them (fm_valid = counts > 0)
+    "fm_dense_mask": "seal_tpu/ops/fm_ops.py:339",
+    "wt_dense_mask": "seal_tpu/ops/wt_ops.py:237",
     "dense_scores": "seal_tpu/decoding/constrained.py:321",
     "dense_select": "seal_tpu/decoding/constrained.py:321",
     "beam_select_ties": "seal_tpu/decoding/constrained.py:934",
@@ -228,6 +231,7 @@ REPLACES = {
     "fm_sequences_sharded": "seal_tpu/parallel/sharded_index.py:455",
     "bucket_counts_sharded": "seal_tpu/parallel/sharded_decode.py:138",
     "fm_dense_counts_sharded": "seal_tpu/parallel/sharded_decode.py:147",
+    "fm_dense_mask_sharded": "seal_tpu/parallel/sharded_decode.py:147",
     "beam_select_large": "seal_tpu/decoding/constrained.py:1046",
     "beam_merge_large": "seal_tpu/decoding/constrained.py:612",
     "row_topk_global": "seal_tpu/decoding/constrained.py:736",
@@ -260,6 +264,8 @@ SOURCES = {
     "wt_bucket_counts": ("cuda", "seal_tpu_torch/kernels/csrc/wt_bucket_counts.cu"),
     "fm_dense_counts": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
     "wt_dense_counts": ("cuda", "seal_tpu_torch/kernels/csrc/wt_search.cu"),
+    "fm_dense_mask": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
+    "wt_dense_mask": ("cuda", "seal_tpu_torch/kernels/csrc/wt_search.cu"),
     "dense_scores": ("cuda", "seal_tpu_torch/kernels/csrc/dense_scores.cu"),
     "dense_select": ("cuda", "seal_tpu_torch/kernels/csrc/dense_scores.cu"),
     "beam_select_ties": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
@@ -281,6 +287,7 @@ SOURCES = {
     "fm_sequences_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
     "bucket_counts_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/bucket_counts.cu"),
     "fm_dense_counts_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
+    "fm_dense_mask_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
     "beam_select_large": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "beam_merge_large": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "row_topk_global": ("cuda", "seal_tpu_torch/kernels/csrc/row_topk.cu"),
@@ -318,7 +325,7 @@ PATH_KERNELS = {
 # hybrid window is kernel 13's direct mode, not kernel 2
 WAVELET_LAYOUTS = ("compact", "hybrid")
 PSI_INDEX_KERNELS = ("fm_search", "window_gather", "fm_sequences", "bucket_counts",
-                     "fm_dense_counts")
+                     "fm_dense_counts", "fm_dense_mask")
 for _layout in WAVELET_LAYOUTS:  # kernel 12's step mode advances the ranges
     PATH_KERNELS[f"generate_{_layout}"] = (
         "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len",
@@ -327,18 +334,19 @@ for _layout in WAVELET_LAYOUTS:  # kernel 12's step mode advances the ranges
     PATH_KERNELS[f"batch_search_{_layout}"] = (
         "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len",
         "rescore_logprob", "wt_search_advance") + DECODE_STEP
-# the dense parity mode (exact_mask): each step's count vector (kernel 15,
-# or 16 on the wavelet layouts), then the candidate pass (17) inside the
+# the dense parity mode (exact_mask): each step's count mask (kernel 15's
+# mask mode, or 16's on the wavelet layouts; never their counts modes), then
+# the candidate pass (17) inside the
 # flat top-2K's select (3) in one launch (dense_select; kernel 3 alone at
 # step 0) and kernel 8's epilogue; no proposal merge, no streaming pass.
 # The tie order (exact_ties): the fast path with kernel 8 in its ties mode.
 DENSE_STEP = ("dense_select", "row_topk", "log_softmax_min_len", "beam_select",
               "cross_attention_step", "self_attention_step", "reorder_cache")
-PATH_KERNELS["generate_dense"] = ("fm_dense_counts", "fm_search") + DENSE_STEP
+PATH_KERNELS["generate_dense"] = ("fm_dense_mask", "fm_search") + DENSE_STEP
 for _layout in WAVELET_LAYOUTS:
-    PATH_KERNELS[f"generate_dense_{_layout}"] = ("wt_dense_counts", "wt_search") + DENSE_STEP
+    PATH_KERNELS[f"generate_dense_{_layout}"] = ("wt_dense_mask", "wt_search") + DENSE_STEP
 PATH_KERNELS["generate_ties"] = PATH_KERNELS["generate"] + ("beam_select_ties",)
-PATH_KERNELS["batch_search_dense"] = ("fm_dense_counts", "fm_search", "fm_sequences",
+PATH_KERNELS["batch_search_dense"] = ("fm_dense_mask", "fm_search", "fm_sequences",
                                       "rescore_logprob") + DENSE_STEP
 # the decode modes: free generation runs no index kernel (kernel 3's
 # top-256 and top-2K, kernel 8's token-table epilogue); speculative takes
@@ -362,9 +370,9 @@ PATH_KERNELS["locate"] = ("locate_rows", "doc_index_of")
 # sampling and diverse groups: kernel 20 or 21 selects every step (step 0 on
 # the V-wide rows); steps >= 1 take the proven loop's buffer (kernels 3, 1
 # or 12, kernel 8's merge) and window through kernel 8's candidate mode
-# (kernel 20 on candidate lists), or the dense route (15
-# or 16, then 17's streaming pass under diverse groups, kernel 20's
-# count-reading mode under sampling), or free generation's top-top_m (3)
+# (kernel 20 on candidate lists), or the dense route (15's
+# or 16's mask mode, then 17's streaming pass under diverse groups, kernel
+# 20's count-reading mode under sampling), or free generation's top-top_m (3)
 LOOP_STEP = ("row_topk", "log_softmax_min_len", "beam_merge", "beam_candidates") + ATTN_STEP
 # (kernel 21 on its list route every step >= 1 and on its wide route, 2
 # launches, on the V-wide rows)
@@ -375,7 +383,7 @@ for _mode, _select, _dense in (
     for _layout in WAVELET_LAYOUTS:
         PATH_KERNELS[f"generate_{_mode}_{_layout}"] = (
             "wt_search", "wt_window_gather") + _select + LOOP_STEP
-    PATH_KERNELS[f"generate_{_mode}_dense"] = ("fm_dense_counts", "fm_search", _dense,
+    PATH_KERNELS[f"generate_{_mode}_dense"] = ("fm_dense_mask", "fm_search", _dense,
                                                "log_softmax_min_len", _select[0]) + ATTN_STEP
 PATH_KERNELS["generate_sample_seed1"] = PATH_KERNELS["generate_sample"]
 # the sizes the card refused before its large routes (ROADMAP C.2): a
@@ -408,7 +416,7 @@ PATH_KERNELS["generate_t5_bf16"] = tuple(k for k in PATH_KERNELS["generate_t5"]
                                          if k != "cross_attention_step_f32")
 PATH_KERNELS["generate_t5_force_full"] = ("bucket_counts", "beam_merge", "slab_gather")
 PATH_KERNELS["generate_t5_dense"] = (
-    "fm_dense_counts", "fm_search", "dense_select", "row_topk", "log_softmax_min_len",
+    "fm_dense_mask", "fm_search", "dense_select", "row_topk", "log_softmax_min_len",
     "beam_select", "cross_attention_step", "self_attention_step_t5", "reorder_cache")
 PATH_KERNELS["generate_t5_hybrid"] = ("wt_search", "wt_window_gather", "row_topk",
                                       "log_softmax_min_len") + T5_STEP
@@ -416,14 +424,14 @@ PATH_KERNELS["batch_search_t5"] = ("fm_search", "window_gather", "row_topk",
                                    "log_softmax_min_len", "fm_sequences",
                                    "rescore_logprob") + T5_STEP
 # the corpus-sharded index on the card: the same decode loop through the
-# shard modes of kernels 1, 2, 5, 6 and 15 (and none of the monolithic
+# shard modes of kernels 1, 2, 5, 6 and 15's mask mode (and none of the monolithic
 # index kernels); beam 32 over the shards' union window through kernel 8's
 # large-n route.  The proven loop may prove a sharded step in round 0, so
 # its bucket counts are held only where one shard repeats the monolithic
 # run; the generate_mono* paths are those monolithic runs
 SHARDED_STEP = ("fm_search_sharded", "window_gather_sharded", "row_topk",
                 "log_softmax_min_len", "window_slab_sharded") + DECODE_STEP
-SHARDED_DENSE = ("fm_dense_counts_sharded", "fm_search_sharded") + DENSE_STEP
+SHARDED_DENSE = ("fm_dense_mask_sharded", "fm_search_sharded") + DENSE_STEP
 for _path in ("generate_sharded", "generate_sharded_once", "generate_sharded_s1"):
     PATH_KERNELS[_path] = SHARDED_STEP
 for _path in ("generate_sharded_dense", "generate_sharded_s1_dense",
@@ -478,11 +486,26 @@ def fused_window(path: str):
 # kernels kept as entry points that no driven path launches, held against
 # their plain versions by their phases: kernel 19's k-th value (the warper
 # computes it inside topk_log_softmax since that launch replaced kernel 19
-# and kernel 4's threshold mode)
-ENTRY_POINTS_ONLY = ("row_kth",)
+# and kernel 4's threshold mode), and kernels 15 and 16's counts modes (the
+# exact counts of ops.dense_counts; every exact_mask path reads their mask
+# modes)
+COUNTS_MODES = ("fm_dense_counts", "wt_dense_counts", "fm_dense_counts_sharded")
+ENTRY_POINTS_ONLY = ("row_kth",) + COUNTS_MODES
+
+
+def dense_mask_of(path: str) -> str:
+    """The mask mode that an exact_mask path launches once a step after
+    step 0: kernel 15's over the shards, kernel 16's on a wavelet layout,
+    else kernel 15's."""
+    if "sharded" in path:
+        return "fm_dense_mask_sharded"
+    return "wt_dense_mask" if any(x in path for x in WAVELET_LAYOUTS) else "fm_dense_mask"
+
+
+
 # the calls of each ShardedIndexOps method that a shard mode serves
 SHARD_OPS = ("extend", "contains", "validate", "window_gather", "window_slab", "slab",
-             "range_for", "bucket_counts", "dense_counts")
+             "range_for", "bucket_counts", "dense_counts", "dense_mask")
 # the selection kernel of each path whose selection is not kernel 8's
 SELECTS = {path: ("sample_select" if "sample" in path else "diverse_select")
            for path in PATH_KERNELS if "sample" in path or "diverse" in path}
@@ -1669,11 +1692,14 @@ def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
     """Kernels 15-17 against their plain versions at the dense decode's
     shapes: the count vector of [B, K] ranges of one- and two-token
     prefixes (the ranges of steps 1 and 2, plus the full range and empty
-    ones) over the three layouts, on both routes, exactly; the candidate
-    pass over those counts, bit for bit; kernel 3 on the [B, K * V] rows it
-    writes.  Each bound is its output (R x V int32; kernel 17 also reads the
-    counts and log-probs) plus the index rows the histogram route reads."""
+    ones) over the three layouts, on both routes, exactly, in the counts
+    modes and in the mask modes that the exact_mask decode reads; the
+    candidate pass over the mask, bit for bit; kernel 3 on the [B, K * V]
+    rows it writes.  Each bound is its output (R x V int32 counts, or the R
+    x words(V) mask; kernel 17 reads the mask and the allowed log-probs)
+    plus the index rows the histogram route reads."""
     from seal_tpu_torch.kernels import beam_select as k8
+    from seal_tpu_torch.kernels import count_mask
     from seal_tpu_torch.kernels import dense_scores as k17
     from seal_tpu_torch.kernels import fm_search as k15
     from seal_tpu_torch.kernels import row_topk as k3
@@ -1768,17 +1794,68 @@ def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
         # the compact layout's rows: one 4-bit code of each of `digits` levels
         bytes=out_bytes + rows_bytes(torch, N, lo, hi, hmax["compact"], compact.digits / 2),
     ))
-    # kernel 17 over the step's counts, with the branches' states: its
-    # streaming pass (the scores written, as sampling and diverse groups
-    # read them) and the dense step's select (the scores ranked inside
-    # kernel 3's select, never written)
+    # the mask modes (what every exact_mask step reads: a bit a token) on
+    # every route, eager and replayed from a graph, against the plain
+    # version, itself the plain counts > 0 packed
+    mask = k15.dense_mask_plain(psi, lo, hi, 2048)
+    W = mask.shape[-1]
+    err_m = {"fm_dense_mask": int((mask != count_mask.pack(want > 0)).sum()), "wt_dense_mask": 0}
+    for name, fn, ix, routes in (
+            ("fm_dense_mask", k15.fm_dense_mask, psi,
+             (k15.MASK_HIST_MAX_ROWS, k15.HIST_MAX_ROWS, 0, k15.SPLIT_ROWS, 2**31 - 1)),
+            ("wt_dense_mask", k16.wt_dense_mask, compact, (None, 0, 2**31 - 1)),
+            ("wt_dense_mask", k16.wt_dense_mask, hybrid, (None, 0, 2**31 - 1))):
+        for h in routes:
+            mkw = {} if h is None else dict(hist_max=h)
+            err_m[name] += int((fn(ix, lo, hi, **mkw) != mask).sum())
+        err_m[name] += int((graph_result(torch, lambda fn=fn, ix=ix: fn(ix, lo, hi)) != mask).sum())
+    for name, err in err_m.items():
+        if err:
+            fail(f"{name} differs from its plain version ({err} words)")
+    log("dense mask by histogram threshold (rows: ms): psi: " + ", ".join(
+        f"{h}{'*' if h == k15.MASK_HIST_MAX_ROWS else ''} "
+        f"{time_ms(lambda h=h: k15.fm_dense_mask(psi, lo, hi, hist_max=h), iters=5):.4f}"
+        for h in (0, 1 << 16, 1 << 18, 1 << 19, 1 << 20, 1 << 21, 2**31 - 1)))
+    table.append(dict(
+        name="fm_dense_mask", max_abs_err=err_m["fm_dense_mask"], library_ms=None,
+        ms=time_ms(lambda: k15.fm_dense_mask(psi, lo, hi)),
+        graph_ms=graph_ms(lambda: k15.fm_dense_mask(psi, lo, hi)),
+        plain_ms=time_ms(lambda: k15.dense_mask_plain(psi, lo, hi, 2048), iters=2),
+        counts_ms=time_ms(lambda: k15.fm_dense_counts(psi, lo, hi)),
+        counts_graph_ms=graph_ms(lambda: k15.fm_dense_counts(psi, lo, hi)),
+        rank_route_ms=time_ms(lambda: k15.fm_dense_mask(psi, lo, hi, hist_max=0), iters=5),
+        histogram_route_ms=time_ms(lambda: k15.fm_dense_mask(psi, lo, hi, hist_max=2**31 - 1)),
+        shape=f"[{B},{K}] ranges x {V} tokens -> [{B},{K},{W}] mask words, clusters of "
+              f"{k15.CLUSTER} CTAs a group of ranges (counts_*: the counts mode on the same "
+              "ranges; rank route: every range by one search a token, four words a warp)",
+        # the ranges, the mask written, the histogram route's rows once
+        bytes=R * 8 + R * W * 4 + rows_bytes(torch, N, lo, hi, k15.MASK_HIST_MAX_ROWS, 4),
+    ))
+    table.append(dict(
+        name="wt_dense_mask", max_abs_err=err_m["wt_dense_mask"], library_ms=None,
+        ms=time_ms(lambda: k16.wt_dense_mask(compact, lo, hi)),
+        graph_ms=graph_ms(lambda: k16.wt_dense_mask(compact, lo, hi)),
+        plain_ms=time_ms(lambda: k16.dense_mask_plain(compact, lo, hi, 2048), iters=1),
+        hybrid_ms=time_ms(lambda: k16.wt_dense_mask(hybrid, lo, hi)),
+        hybrid_graph_ms=graph_ms(lambda: k16.wt_dense_mask(hybrid, lo, hi)),
+        counts_graph_ms=graph_ms(lambda: k16.wt_dense_counts(compact, lo, hi)),
+        hybrid_counts_graph_ms=graph_ms(lambda: k16.wt_dense_counts(hybrid, lo, hi)),
+        shape=f"[{B},{K}] ranges x {V} tokens -> [{B},{K},{W}] mask words, compact (the walk) "
+              f"and hybrid (hybrid_*: rows up to {hmax['hybrid']}); counts_*: the counts mode",
+        bytes=R * 8 + R * W * 4 + rows_bytes(torch, N, lo, hi, hmax["compact"],
+                                             compact.digits / 2),
+    ))
+    # kernel 17 over the step's count mask, with the branches' states: its
+    # streaming pass (the scores written, as diverse groups read them) and
+    # the dense step's select (the scores ranked inside kernel 3's select,
+    # never written)
     lp = torch.log_softmax(torch.randn(R, V, generator=g, device=dev) * 2, -1)
     lp = torch.round(lp * 4) / 4
     prev_count = (hi - lo).to(torch.int32)
     finished = torch.rand(B, K, generator=g, device=dev) < 0.1
     bs = torch.round(torch.randn(B, K, generator=g, device=dev) * 2) / 2 - 3
     bs[0, 1] = k8.NEG_INF
-    dargs = (want, lp, prev_count, finished, bs)
+    dargs = (mask, lp, prev_count, finished, bs)
     dkw = dict(eos=2, pad=1, stop_at_count=0, always_allow_eos=False)
     bkw = dict(dkw, stop_at_count=2, always_allow_eos=True)
     got = k17.dense_scores(*dargs, **dkw)
@@ -1792,7 +1869,7 @@ def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
     wide = torch.log_softmax(torch.randn(R, V + 3, generator=g, device=dev), -1)
     wide = torch.round(wide * 4) / 4
     for lp2 in (wide[:, :V], wide.reshape(-1)[1:1 + R * V].reshape(R, V)):
-        a2 = (want, lp2, prev_count, finished, bs)
+        a2 = (mask, lp2, prev_count, finished, bs)
         err17 += mismatches(torch, (k17.dense_scores(*a2, **bkw),),
                             (k17.dense_scores_plain(*a2, **bkw),))
     if err17:
@@ -1814,7 +1891,7 @@ def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
     tokens = torch.arange(V, dtype=torch.int32, device=dev).expand(B, K, V)
     n_allowed = int(k8.apply_branches(tokens, want > 0, prev_count, finished, **dkw).sum())
 
-    def composed():  # the step as the parent launched it: kernel 17, then kernel 3
+    def composed():  # the step in two launches: kernel 17's pass, then kernel 3
         return k3.row_topk(k17.dense_scores(*dargs, **dkw), 2 * K)
 
     table.append(dict(
@@ -1824,12 +1901,12 @@ def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
         plain_ms=time_ms(lambda: k17.dense_scores_plain(*dargs, **dkw)),
         topk_dense_ms=time_ms(lambda: k3.row_topk(got, 2 * K), iters=5),
         topk_dense_plain_ms=time_ms(lambda: k3.row_topk_plain(got, 2 * K), iters=2),
-        shape=f"counts [{B},{K},{V}] -> [{B},{K * V}] f32, the streaming pass "
+        shape=f"mask [{B},{K},{W}] -> [{B},{K * V}] f32, the streaming pass "
               f"({n_allowed} tokens allowed; topk_dense_ms: kernel 3's top-{2 * K} of those "
               "rows)",
-        # counts read and scores written, the allowed tokens' log-probs, the
-        # row state once
-        bytes=R * V * 8 + n_allowed * 4 + R * 9,
+        # the mask read and the scores written, the allowed tokens'
+        # log-probs, the row state once
+        bytes=R * W * 4 + R * V * 4 + n_allowed * 4 + R * 9,
     ))
     table.append(dict(
         name="dense_select", max_abs_err=err_sel, library_ms=None,
@@ -1837,15 +1914,15 @@ def dense_kernel_phases(np, torch, host, psi, layouts, V, B, K):
         graph_ms=graph_ms(lambda: k17.dense_select(*dargs, 2 * K, **dkw)),
         plain_ms=time_ms(lambda: k17.dense_select_plain(*dargs, 2 * K, **dkw), iters=2),
         composed_ms=time_ms(composed, iters=5), composed_graph_ms=graph_ms(composed),
-        shape=f"counts [{B},{K},{V}] and lp [{R},{V}] -> the top {2 * K} of [{B},{K * V}] "
+        shape=f"mask [{B},{K},{W}] and lp [{R},{V}] -> the top {2 * K} of [{B},{K * V}] "
               "scores, one launch of kernel 3's select (composed_ms: kernel 17's pass, then "
               "kernel 3)",
-        # the counts read once, the allowed tokens' log-probs, the row
-        # state, the top 2K written
-        bytes=R * V * 4 + n_allowed * 4 + R * 9 + B * 2 * K * 12,
+        # the mask read once, the allowed tokens' log-probs, the row state,
+        # the top 2K written
+        bytes=R * W * 4 + n_allowed * 4 + R * 9 + B * 2 * K * 12,
     ))
     log(f"dense kernel phases: {time.perf_counter() - t0:.1f} s")
-    del got, plain17, want, lp
+    del got, plain17, want, mask, lp
     torch.cuda.synchronize()
     return table
 
@@ -2045,6 +2122,7 @@ def sample_kernel_phases(np, torch, cfg, V, B, K, window, device="cuda"):
     from scipy import stats
 
     from seal_tpu_torch.kernels import beam_select as k8
+    from seal_tpu_torch.kernels import count_mask
     from seal_tpu_torch.kernels import dense_scores as k17
     from seal_tpu_torch.kernels import diverse_select as k21
     from seal_tpu_torch.kernels import row_topk as k3
@@ -2153,17 +2231,15 @@ def sample_kernel_phases(np, torch, cfg, V, B, K, window, device="cuda"):
     err_list = sample_mismatches(torch, graph_result(torch, lambda: k20.sample_select(
         *args1, eos=eos, pad=pad)), k20.sample_select_plain(*args1, eos=eos, pad=pad), clear1)
     # the count-reading mode (a sampled exact_mask step): a step's sparse
-    # count vectors, every branch, against its plain version and beside the
-    # parent's composition (kernel 17's streaming pass, then the V-wide draw)
-    counts = torch.where(torch.rand(B, K, V, generator=g, device=dev) < 0.07,
-                         torch.randint(1, 5, (B, K, V), generator=g, device=dev,
-                                       dtype=torch.int32), 0)
+    # count masks, every branch, against its plain version and beside the
+    # composition of kernel 17's streaming pass and the V-wide draw
+    cmask = count_mask.pack(torch.rand(B, K, V, generator=g, device=dev) < 0.07)
     prev_count = torch.randint(0, 6, (B, K), generator=g, device=dev, dtype=i32)
     finished = rbool(0.1, (B, K))
     zero = torch.zeros(B, K, device=dev)
     ckw = dict(eos=eos, pad=pad, stop_at_count=1, always_allow_eos=True)
-    cargs = (counts, lp, prev_count, finished, bs, 5, 4)
-    cons_c = k17.dense_scores_plain(counts, lp, prev_count, finished, zero, **ckw)
+    cargs = (cmask, lp, prev_count, finished, bs, 5, 4)
+    cons_c = k17.dense_scores_plain(cmask, lp, prev_count, finished, zero, **ckw)
     clear_c = draw_margin(torch, cons_c.reshape(rows, V),
                           k20.gumbel_noise(5, 4, rows, V, dev)) > SAMPLE_MARGIN
     want_c = k20.sample_select_counts_plain(*cargs, **ckw)
@@ -2174,8 +2250,8 @@ def sample_kernel_phases(np, torch, cfg, V, B, K, window, device="cuda"):
         fail(f"sample_select: {err20} V-wide, {err_list} list and {err_counts} count-reading "
              "outputs differ from the plain version on clear draws")
 
-    def composed_counts():  # the parent's step: the scores written, then drawn
-        cons = k17.dense_scores(counts, lp, prev_count, finished, zero, **ckw)
+    def composed_counts():  # the scores written, then drawn: two launches
+        cons = k17.dense_scores(cmask, lp, prev_count, finished, zero, **ckw)
         return k20.sample_select(cons.reshape(B, K, V), lp, None, bs, 5, 4, eos=eos, pad=pad)
 
     table.append(dict(
@@ -2212,12 +2288,12 @@ def sample_kernel_phases(np, torch, cfg, V, B, K, window, device="cuda"):
         graph_ms=graph_ms(lambda: k20.sample_select_counts(*cargs, **ckw)),
         plain_ms=time_ms(lambda: k20.sample_select_counts_plain(*cargs, **ckw), iters=3),
         composed_ms=time_ms(composed_counts), composed_graph_ms=graph_ms(composed_counts),
-        shape=f"[{B},{K},{V}] count vectors, {100 * n_allowed / counts.numel():.1f}% allowed "
+        shape=f"[{B},{K},{V}] count masks, {100 * n_allowed / (rows * V):.1f}% allowed "
               "(composed: kernel 17's streaming pass, then the V-wide draw)",
-        # the counts once, the allowed tokens' log-probs, the row state and
-        # chain scores, the eight outputs; two logf, an add and a compare an
-        # allowed slot
-        bytes=rows * V * 4 + n_allowed * 4 + rows * 9 + B * (2 * K * 13 + K * 13),
+        # the count mask once, the allowed tokens' log-probs, the row state
+        # and chain scores, the eight outputs; two logf, an add and a compare
+        # an allowed slot
+        bytes=cmask.numel() * 4 + n_allowed * 4 + rows * 9 + B * (2 * K * 13 + K * 13),
         flops=4 * n_allowed,
     ))
 
@@ -2847,12 +2923,13 @@ def t5_phase(np, torch, zero_counts, read_counts):
 
 
 def sharded_kernel_phases(np, torch, si, hosts, V, B, K):
-    """Kernels 1, 2, 5, 6 and 15 in their shard modes against their plain
+    """Kernels 1, 2, 5, 6 and 15 (counts and mask) in their shard modes against their plain
     versions at the sharded generation path's shapes (S shards stacked on
     the card, ranges [S, B, K]), exactly: integer results and gathered
     floats.  Each bound counts every shard's inputs read once and the merged
     output written once."""
     from seal_tpu_torch.kernels import bucket_counts as k6
+    from seal_tpu_torch.kernels import count_mask
     from seal_tpu_torch.kernels import fm_search as k1
     from seal_tpu_torch.kernels import window_gather as k2
 
@@ -2988,13 +3065,40 @@ def sharded_kernel_phases(np, torch, si, hosts, V, B, K):
     table.append(dict(
         name="fm_dense_counts_sharded", max_abs_err=err15, library_ms=None,
         ms=time_ms(lambda: k1.fm_dense_counts_sharded(si, lo, hi)),
+        graph_ms=graph_ms(lambda: k1.fm_dense_counts_sharded(si, lo, hi)),
         plain_ms=time_ms(lambda: k1.dense_counts_sharded_plain(si, lo, hi, 4096), iters=2),
         rank_route_ms=time_ms(lambda: k1.fm_dense_counts_sharded(si, lo, hi, hist_max=0),
                               iters=5),
         histogram_route_ms=time_ms(
             lambda: k1.fm_dense_counts_sharded(si, lo, hi, hist_max=2**31 - 1)),
-        shape=f"[{S},{B},{K}] ranges x {V} tokens, summed",
+        shape=f"[{S},{B},{K}] ranges x {V} tokens, summed (an entry point: the exact_mask "
+              "decode reads the mask mode)",
         bytes=S * R * 8 + R * V * 4 + hist_rows,
+    ))
+    # the mask mode over the shards (what a sharded exact_mask step reads):
+    # the summed counts > 0, every route, eager and replayed from a graph
+    want_m = k1.dense_mask_sharded_plain(si, lo, hi, 4096)
+    err_m = int((want_m != count_mask.pack(want15 > 0)).sum())
+    for hist_max in (k1.MASK_HIST_MAX_ROWS, k1.HIST_MAX_ROWS, 0, k1.SPLIT_ROWS, 2**31 - 1):
+        err_m += int((k1.fm_dense_mask_sharded(si, lo, hi, hist_max=hist_max) != want_m).sum())
+    err_m += int((graph_result(torch, lambda: k1.fm_dense_mask_sharded(si, lo, hi))
+                  != want_m).sum())
+    if err_m:
+        fail(f"fm_dense_mask_sharded differs from its plain version ({err_m} words)")
+    table.append(dict(
+        name="fm_dense_mask_sharded", max_abs_err=err_m, library_ms=None,
+        ms=time_ms(lambda: k1.fm_dense_mask_sharded(si, lo, hi)),
+        graph_ms=graph_ms(lambda: k1.fm_dense_mask_sharded(si, lo, hi)),
+        plain_ms=time_ms(lambda: k1.dense_mask_sharded_plain(si, lo, hi, 4096), iters=2),
+        counts_graph_ms=graph_ms(lambda: k1.fm_dense_counts_sharded(si, lo, hi)),
+        rank_route_ms=time_ms(lambda: k1.fm_dense_mask_sharded(si, lo, hi, hist_max=0),
+                              iters=5),
+        shape=f"[{S},{B},{K}] ranges x {V} tokens -> [{B},{K},{want_m.shape[-1]}] mask words, "
+              "ORed over the shards (counts_graph_ms: the counts mode on the same ranges)",
+        # the ranges, the mask written, the histogram route's rows once
+        bytes=S * R * 8 + want_m.numel() * 4 + sum(
+            rows_bytes(torch, si.n_max, lo[s], hi[s], k1.MASK_HIST_MAX_ROWS, 4)
+            for s in range(S)),
     ))
     torch.cuda.synchronize()
     return table
@@ -3386,7 +3490,8 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
                 "slab_gather_sharded": op_calls["slab"],
                 "fm_sequences_sharded": op_calls["range_for"],
                 "bucket_counts_sharded": op_calls["bucket_counts"],
-                "fm_dense_counts_sharded": op_calls["dense_counts"]}
+                "fm_dense_counts_sharded": op_calls["dense_counts"],
+                "fm_dense_mask_sharded": op_calls["dense_mask"]}
         for name, n in want.items():
             if counts[name] != n:
                 fail(f"{path}: {name} launched {counts[name]} times for {n} op calls")
@@ -3433,7 +3538,7 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
     once_per_call("generate_sharded_once", one_counts)
     pairs = {"fm_search": "fm_search_sharded", "window_gather": "window_gather_sharded",
              "window_slab": "window_slab_sharded", "slab_gather": "slab_gather_sharded",
-             "bucket_counts": "bucket_counts_sharded", "fm_dense_counts": "fm_dense_counts_sharded",
+             "bucket_counts": "bucket_counts_sharded", "fm_dense_mask": "fm_dense_mask_sharded",
              "fm_sequences": "fm_sequences_sharded"}
     log("one batch, launches: monolithic kernel / its shard mode at 4 shards: " + ", ".join(
         f"{a} {mono_counts[a]} / {one_counts[b]}" for a, b in pairs.items()))
@@ -3653,6 +3758,8 @@ def main() -> int:
         "wt_bucket_counts": wt_bucket_counts.wt_bucket_counts,
         "fm_dense_counts": fm_search.fm_dense_counts,
         "wt_dense_counts": wt_search.wt_dense_counts,
+        "fm_dense_mask": fm_search.fm_dense_mask,
+        "wt_dense_mask": wt_search.wt_dense_mask,
         "dense_scores": dense_scores.dense_scores,
         "dense_select": dense_scores.dense_select,
         "beam_select_ties": beam_select.TIES,
@@ -3675,6 +3782,7 @@ def main() -> int:
         "fm_sequences_sharded": fm_search.fm_sequences_sharded,
         "bucket_counts_sharded": bucket_counts.bucket_counts_sharded,
         "fm_dense_counts_sharded": fm_search.fm_dense_counts_sharded,
+        "fm_dense_mask_sharded": fm_search.fm_dense_mask_sharded,
         "beam_select_large": beam_select.LARGE,
         "beam_merge_large": beam_select.MERGE_LARGE,
         "row_topk_global": row_topk.GLOBAL_SORT,
@@ -3764,11 +3872,15 @@ def main() -> int:
                 want[fused[0]] = n - no_select - steps["decodes"] + by_path[path][fused[2]]
             if select != "beam_select":  # kernel 20 or 21 selects, kernel 8 nothing
                 want["beam_select"] = 0
+            # the counts modes on no path: exact_mask reads the mask modes
+            want.update(dict.fromkeys(COUNTS_MODES, 0))
             if "dense" in path:
-                # the dense step: kernel 17 inside kernel 3's select once a
-                # step after step 0, its streaming pass never; under sampling
-                # and diverse groups the streaming pass, the select never
+                # the dense step: kernel 15's or 16's mask mode and kernel 17
+                # inside kernel 3's select once a step after step 0, its
+                # streaming pass never; under sampling and diverse groups the
+                # streaming pass, the select never
                 selects = select == "beam_select"
+                want[dense_mask_of(path)] = n - no_select - steps["decodes"]
                 want["dense_select"] = n - no_select - steps["decodes"] if selects else 0
                 if selects:
                     want["dense_scores"] = 0
@@ -4240,8 +4352,9 @@ def main() -> int:
     d_hyps, c, nb, mode_qps["sample_dense"] = run_mode(
         "generate_sample_dense", batches=1, warm=False, sample=True, seed=0, exact_mask=True)
     n = c["decode_steps"]
-    # kernel 20 reads the count vectors itself: no streaming pass, no write
-    expect("generate_sample_dense", c, {"sample_select": n, "fm_dense_counts": n - nb,
+    # kernel 20 reads the count masks itself: no streaming pass, no write
+    expect("generate_sample_dense", c, {"sample_select": n, "fm_dense_mask": n - nb,
+                                        "fm_dense_counts": 0,
                                         "sample_select_counts": n - nb, "dense_scores": 0,
                                         "beam_candidates": 0, "beam_merge": 0})
     n_ks += hyp_keys(d_hyps, "generate_sample_dense")
@@ -4306,7 +4419,8 @@ def main() -> int:
     dd_hyps, c, nb, mode_qps["diverse_dense"] = run_mode(
         "generate_diverse_dense", batches=1, warm=False, exact_mask=True, **dkw)
     n = c["decode_steps"]
-    expect("generate_diverse_dense", c, {"diverse_select": n, "fm_dense_counts": n - nb,
+    expect("generate_diverse_dense", c, {"diverse_select": n, "fm_dense_mask": n - nb,
+                                         "fm_dense_counts": 0,
                                          "dense_scores": n - nb, "beam_candidates": 0,
                                          "beam_merge": 0, "diverse_select_wide": n})
     n_kd += hyp_keys(dd_hyps, "generate_diverse_dense")
@@ -4627,7 +4741,8 @@ def main() -> int:
                                    "chunked_ms", "chunked_graph_ms", "nopen_ms",
                                    "kernels_per_call", "proof_failures", "walk_ms",
                                    "hybrid_walk_ms", "hybrid_graph_ms", "cluster_ms",
-                                   "cluster_graph_ms")
+                                   "cluster_graph_ms", "counts_ms", "counts_graph_ms",
+                                   "hybrid_counts_graph_ms")
                if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}

@@ -38,17 +38,22 @@ bf16 over the 1.2M-token corpus, batch 32, beam 15):
    and on V-wide [32, 15, 50265] rows under a corpus mask (both orders,
    and at penalty 0), and, where the checkout has its routes, its chunked
    route forced on both.  Kernel 19's k-th value at [480, 50265] and
-   [120, 50265], k = 50.  Kernel 17 at [32, 15, 50265] over a step's count
-   vectors: the dense step (one ``dense_select`` launch where the checkout
-   has it, else the scores then kernel 3's top 2K), that two-launch
-   composition on both sides, and the streaming pass (``dense_scores``).
+   [120, 50265], k = 50.  The dense step's input at [32, 15]: the count
+   mask (kernels 15 and 16's mask modes) where the checkout has it, else
+   the counts (their counts modes, also timed on both sides).  Kernel 17
+   at [32, 15, 50265] over that input: the dense step (one
+   ``dense_select`` launch where the checkout has it, else the scores
+   then kernel 3's top 2K), that two-launch composition on both sides, and
+   the streaming pass (``dense_scores``); and the dense step, the
+   streaming pass and kernel 20's count-reading mode each after its
+   input's kernel (counts then consumer against mask then consumer).
    The top-k warper at [480, 50265] and [120, 50265], k = 50 (one
    ``topk_log_softmax`` launch where the checkout has it, else kernel 19
    then kernel 4's threshold mode, which is also timed alone).  Kernel 20
    on V-wide rows under a corpus mask at batch 32 and 8, on candidate
-   lists of 64 and 290 slots, and on a sampled ``exact_mask`` step's count
-   vectors (the count-reading mode where the checkout has it, else kernel
-   17's streaming pass then the V-wide draw, which both sides also time).
+   lists of 64 and 290 slots, and on a sampled ``exact_mask`` step's input
+   (the count-reading mode where the checkout has it, else kernel 17's
+   streaming pass then the V-wide draw, which both sides also time).
 2. The Psi and the compact layout's batches at the generation point,
    taken before 1, ahead of any CUDA graph capture in the process, and
    again after 1's captures (``*_after_graphs``): five batches' wall ms
@@ -427,12 +432,24 @@ from seal_tpu_torch.kernels import row_select as k19
 lp120 = lp[:120].contiguous()
 calls["k19 row_kth [480,50265] k=50"] = lambda: k19.row_kth(lp, 50)
 calls["k19 row_kth [120,50265] k=50"] = lambda: k19.row_kth(lp120, 50)
-# kernel 17 over a step's count vectors of the ranges above: the dense
-# step (kernel 17 inside kernel 3's select where the checkout has it),
-# the parent's two launches (kernel 17's scores, kernel 3's top 2K) and
-# the streaming pass
+# the dense step's input over the ranges above: the count mask (kernels 15
+# and 16's mask modes) where the checkout has it, else the counts; the
+# counts modes on both sides
 from seal_tpu_torch.kernels import dense_scores as k17
-dcounts = ops.dense_counts(lo, hi, 2048)
+has_mask = hasattr(k1, "fm_dense_mask")
+dcounts = ops.dense_mask(lo, hi, 2048) if has_mask else ops.dense_counts(lo, hi, 2048)
+dense_in = {"psi": ((lambda: k1.fm_dense_mask(index, lo, hi)) if has_mask
+                    else (lambda: k1.fm_dense_counts(index, lo, hi)))}
+for name, wix in layouts.items():
+    dense_in[name] = ((lambda wix=wix: k12.wt_dense_mask(wix, lo, hi)) if has_mask
+                      else (lambda wix=wix: k12.wt_dense_counts(wix, lo, hi)))
+for name, fn in dense_in.items():
+    calls[f"dense step input (mask, else counts) [32,15] {name}"] = fn
+calls["k15 counts [32,15] psi"] = lambda: k1.fm_dense_counts(index, lo, hi)
+# kernel 17 over that input: the dense step (kernel 17 inside kernel 3's
+# select where the checkout has it), the two launches (kernel 17's scores,
+# kernel 3's top 2K), the streaming pass, and each after its input's
+# kernel (15 on the Psi index, 16 on the compact layout)
 prev17 = (hi - lo).to(i32)
 bs17 = torch.round(torch.randn(B, K, generator=g, device=dev) * 2) / 2 - 3
 args17 = (dcounts, lp, prev17, finished, bs17)
@@ -443,6 +460,13 @@ calls["k17 dense step [32,15,50265]"] = (
     else composed17)
 calls["k17 scores + k3 top-2K [32,15,50265]"] = composed17
 calls["k17 streaming pass [32,15,50265]"] = lambda: k17.dense_scores(*args17, **kw17)
+for name in ("psi", "compact"):
+    calls[f"input + k17 dense step [32,15,50265] {name}"] = (
+        lambda f=dense_in[name]: k17.dense_select(f(), *args17[1:], 2 * K, **kw17)
+        if hasattr(k17, "dense_select") else k3.row_topk(
+            k17.dense_scores(f(), *args17[1:], **kw17), 2 * K))
+calls["input + k17 streaming pass [32,15,50265] psi"] = (
+    lambda: k17.dense_scores(dense_in["psi"](), *args17[1:], **kw17))
 # the top-k warper at k = 50: one launch where the checkout has the fused
 # warper, else kernel 19's k-th value then kernel 4's threshold mode (and
 # that mode alone)
@@ -479,6 +503,9 @@ for n20 in (2 * K + 32 + 2, 256 + 32 + 2):
 if hasattr(k20, "sample_select_counts"):
     calls["k20 count-reading [32,15,50265]"] = (
         lambda: k20.sample_select_counts(dcounts, lp, prev17, finished, bs17, 5, 4, **kw17))
+    calls["input + k20 count-reading [32,15,50265] psi"] = (
+        lambda: k20.sample_select_counts(dense_in["psi"](), lp, prev17, finished, bs17, 5, 4,
+                                         **kw17))
 else:
     calls["k20 count-reading [32,15,50265]"] = (
         lambda: k20.sample_select(k17.dense_scores(dcounts, lp, prev17, finished, zero20, **kw17)

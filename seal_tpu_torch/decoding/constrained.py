@@ -12,11 +12,12 @@ proven sound is flagged, and the caller re-runs the whole decode with
 ``force_full=True`` (every step through the proven proposal loop).
 
 ``exact_mask`` is the dense parity mode the fast path is held to: each
-step's allowed set is the whole count vector of every beam's interval
-(``dense_counts``, kernels 15/16), and one launch of kernel 3's select
-computes kernel 17's candidate scores as it ranks the flat [B, K*V] rows
-for the step's top 2K (``dense_select``: the scores are never written),
-as step 0 ranks its rows.  ``exact_ties`` orders equal scores by (beam,
+step's allowed set is the whole count vector of every beam's interval,
+read as its count mask (``dense_mask``: a bit a token, kernels 15/16's
+mask modes), and one launch of kernel 3's select computes kernel 17's
+candidate scores as it ranks the flat [B, K*V] rows for the step's top 2K
+(``dense_select``: the scores are never written), as step 0 ranks its
+rows.  ``exact_ties`` orders equal scores by (beam,
 token) in the fast path's merge and selection (kernel 8's ties mode); the
 dense mode needs no tie mode, since its flat index already rises with
 (beam, token).
@@ -166,8 +167,14 @@ class SingleIndexOps:
         buckets are 16^(digits-2) symbols, Psi buckets ceil(sigma/256))."""
         return self._ops.bucket_size_of(self.index)
 
-    def dense_counts(self, lo, hi, chunk):
-        return self._ops.dense_counts(self.index, lo, hi, chunk=chunk)
+    def dense_mask(self, lo, hi, chunk):
+        """The count mask of every range, a bit a token (kernel 15's or
+        16's mask mode): what the ``exact_mask`` step reads."""
+        return self._ops.dense_mask(self.index, lo, hi, chunk=chunk)
+
+    @property
+    def vocab(self) -> int:
+        return self.index.vocab
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,7 +196,7 @@ class DecodeConfig:
     force_decoding_from: Optional[Tuple[int, ...]] = None  # forced range prefix
     top_m: int = 256  # read by the speculative and sample modes only
     exact_mask: bool = False  # dense O(vocab) mask (parity mode)
-    dense_chunk: int = 2048  # tokens a plain dense_counts sweep takes at once
+    dense_chunk: int = 2048  # tokens a plain dense_mask sweep takes at once
     exact_ties: bool = False  # resolve equal-score ties (beam, token)-asc
     forced_bos_token_id: Optional[int] = None  # one extra step pins column 1
     disable_fm_index: bool = False  # free generation: no constraint at all
@@ -438,8 +445,8 @@ def _fast_exact_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished,
 
 def _dense_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam_scores,
                   K: int):
-    """The dense parity mode's step: every beam's whole count vector
-    (kernel 15 or 16); then one launch of kernel 3's select that computes
+    """The dense parity mode's step: every beam's count mask (kernel 15's
+    or 16's mask mode); then one launch of kernel 3's select that computes
     the branches, mask and beam score of every (beam, token) candidate as
     it stages the [B, K * V] rows (kernel 17's ``dense_select``) and keeps
     each query's top 2K; and ``_select``'s epilogue (kernel 8's
@@ -453,19 +460,20 @@ def _dense_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam
     the streaming pass and kernel 3's global sort instead, by size
     (``dense_scores.route``), in the same order.
     """
-    counts = _dense_counts(ops, cfg, lp, lo, hi)
-    top_cons, top_idx = dense_select(counts, lp, prev_count, finished, beam_scores, 2 * K,
+    mask = _dense_mask(ops, cfg, lp, lo, hi)
+    top_cons, top_idx = dense_select(mask, lp, prev_count, finished, beam_scores, 2 * K,
                                      **_branches(cfg))
     return beam_select_top(top_cons, top_idx, lp, beam_scores, K, K, cfg.eos_token_id)[:8]
 
 
-def _dense_counts(ops, cfg: DecodeConfig, lp, lo, hi):
-    """Every beam's whole count vector (kernel 15 or 16), [B, K, V]."""
-    counts = ops.dense_counts(lo, hi, cfg.dense_chunk)  # [B, K, index vocab]
-    if counts.shape[-1] != lp.shape[-1]:
-        raise ValueError(f"exact_mask: the index's vocab {counts.shape[-1]} differs from the "
+def _dense_mask(ops, cfg: DecodeConfig, lp, lo, hi):
+    """Every beam's count mask (kernel 15's or 16's mask mode): int32
+    [B, K, count_mask.words(V)], bit t set iff token t continues the beam's
+    interval (JAX's ``fm_valid = counts > 0``)."""
+    if ops.vocab != lp.shape[-1]:
+        raise ValueError(f"exact_mask: the index's vocab {ops.vocab} differs from the "
                          f"model's {lp.shape[-1]}")
-    return counts
+    return ops.dense_mask(lo, hi, cfg.dense_chunk)
 
 
 def _branches(cfg: DecodeConfig) -> dict:
@@ -543,8 +551,8 @@ def _general_candidates(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished
     log-probs (``NEG_INF`` elsewhere) without the beam scores.  The proven
     proposal loop's buffer and the speculative round go through kernel 8's
     candidate mode (N = n_buf + w + 2, slots [buffer, window, EOS, PAD]);
-    ``exact_mask`` under diverse groups through kernels 15/16 and 17's
-    streaming pass at zero beam scores (N = V; a sampled ``exact_mask``
+    ``exact_mask`` under diverse groups through kernels 15/16's mask modes
+    and 17's streaming pass at zero beam scores (N = V; a sampled ``exact_mask``
     step takes ``_sample_dense_select`` instead, which writes no scores);
     free generation through kernel 3's exact top-``top_m`` (N = ``top_m``).
     """
@@ -556,7 +564,7 @@ def _general_candidates(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished
         return tok.to(torch.int32).reshape(B, K, -1), top_lp, top_lp
     if cfg.exact_mask:
         zero = torch.zeros((B, K), dtype=torch.float32, device=lp.device)
-        cons = dense_scores(_dense_counts(ops, cfg, lp, lo, hi), lp, prev_count, finished, zero,
+        cons = dense_scores(_dense_mask(ops, cfg, lp, lo, hi), lp, prev_count, finished, zero,
                             **_branches(cfg))
         return None, cons.reshape(B, K, V), lp.reshape(B, K, V)
     eos_tok = torch.full((B, K, 1), cfg.eos_token_id, dtype=torch.int32, device=lo.device)
@@ -577,12 +585,12 @@ def _general_candidates(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished
 
 def _sample_dense_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam_scores,
                          seed: int, step: int):
-    """A sampled ``exact_mask`` step: every beam's whole count vector
-    (kernel 15 or 16), then kernel 20's count-reading mode, which applies
-    kernel 17's branches as it reads the counts (cons = lp where allowed,
-    at zero beam scores) and draws each chain's token: no [B, K * V]
-    scores are written, and kernel 17's streaming pass is not launched."""
-    return sample_select_counts(_dense_counts(ops, cfg, lp, lo, hi), lp, prev_count, finished,
+    """A sampled ``exact_mask`` step: every beam's count mask (kernel 15's
+    or 16's mask mode), then kernel 20's count-reading mode, which applies
+    kernel 17's branches as it reads the mask (cons = lp where allowed, at
+    zero beam scores) and draws each chain's token: no [B, K * V] scores
+    are written, and kernel 17's streaming pass is not launched."""
+    return sample_select_counts(_dense_mask(ops, cfg, lp, lo, hi), lp, prev_count, finished,
                                 beam_scores, seed, step, **_branches(cfg))
 
 

@@ -75,6 +75,8 @@ SIGNATURES = {
     # psi, sym_dir, head_pair, n_rows, sigma, dir_shift,
     # bwt, lo, hi, out, n, vocab, hist_max, stream
     "seal_fm_dense_counts": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
+    # the mask mode: the same arguments, out [n, 4 * ceil(vocab / 128)]
+    "seal_fm_dense_mask": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
     # the shard modes take a sharded index as psi, sym_dir, n_max (row
     # stride), sigma (sym_dir rows a shard), n_shards
     # (kernels/fm_search.py:_shard_args), then
@@ -87,6 +89,9 @@ SIGNATURES = {
     "seal_fm_sequences_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I, _P],
     # bwt, lo, hi, out, n, vocab, hist_max, stream
     "seal_fm_dense_counts_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
+    # bwt, lo, hi, out (the mask, ORed over the shards), n, vocab, hist_max,
+    # stream
+    "seal_fm_dense_mask_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
     # bwt, n_max (a shard's row stride; 0 for one index), n_shards, lp,
     # lp_stride, lo, hi, n (ranges a shard), w (0: no window), width (0: no
     # slab), rows_prev, vocab, fill_win, the window's tok, valid, lp, the
@@ -157,6 +162,8 @@ SIGNATURES = {
     # the wavelet index, bwt (None: descent), bwt_bytes, lo, hi, out, n,
     # vocab, hist_max, stream
     "seal_wt_dense_counts": _WT + [_P, _I, _P, _P, _P, _L, _I, _I, _P],
+    # the same arguments, out the mask [n, 4 * ceil(vocab / 128)]
+    "seal_wt_dense_mask": _WT + [_P, _I, _P, _P, _P, _L, _I, _I, _P],
     # counts, lp, lp_stride, prev_count, finished, beam_scores, rows, V, eos,
     # pad, stop_at_count, always_allow_eos, neg_inf, out, stream
     "seal_dense_scores": [_P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _P, _P],

@@ -23,6 +23,14 @@
 // generation point) and, on the rank route, chains of dependent index reads.
 // The histogram route wants resident blocks: a layout names the blocks of
 // 512 an SM must hold (``MIN_BLOCKS``), which caps the registers a thread.
+//
+// The mask modes (kernels/count_mask.py) write a bit a token in place of a
+// count: words W = 4 * ceil(vocab / 128) a range, bit t set iff the count
+// of token t is > 0, the padding bits 0.  The helpers below set a token's
+// bit in a shared bitset (reading the word first: hot tokens repeat, and a
+// set bit needs no atomic), and read a range's int32 rows 16 bytes at a
+// time into one (fm_search.cu's mask kernel); kernel 16's histogram route
+// keeps its slice a block and sets the bits of a slice's 256 words.
 
 #pragma once
 
@@ -76,6 +84,76 @@ dense_counts_kernel(Layout ix, const int* __restrict__ lo, const int* __restrict
   } else {
     rank_slice(ix, l, h, t0, t1, row_out);
   }
+}
+
+// set token tok's bit in the shared bitset `bits`
+__device__ __forceinline__ void set_bit(unsigned* bits, int tok) {
+  const unsigned bit = 1u << (tok & 31);
+  unsigned* w = bits + (tok >> 5);
+  if (!(*w & bit)) atomicOr(w, bit);
+}
+
+// the bit of a shifted BWT symbol, if its token is in [t0, t1) (the
+// sentinel and symbols past the vocab never are), at tok - t0
+__device__ __forceinline__ void set_symbol(unsigned* bits, int sym, int t0, int t1) {
+  const int tok = sym - SHIFT;
+  if (tok >= t0 && tok < t1) set_bit(bits, tok - t0);
+}
+
+// The mask words of tokens [t0, t1) from a t0 that is a multiple of 128:
+// whole 4-word groups (a row's last group holds its padding bits)
+__host__ __device__ __forceinline__ int mask_words(int t0, int t1) {
+  return (((t1 - t0 + 31) >> 5) + 3) & ~3;
+}
+
+// The histogram route's mask: the bits of tokens [t0, t1) (t0 a multiple
+// of SLICE) over rows [r0, r1), in a shared bitset of the slice's words,
+// written to row_out's words from t0 / 32 (16-byte aligned: a slice owns
+// whole 4-word groups), so no two slices write one word.
+template <typename Layout>
+__device__ void hist_mask_slice(const Layout& ix, int r0, int r1, int t0, int t1,
+                                unsigned* row_out, unsigned* bits) {
+  const int nw = mask_words(t0, t1);
+  for (int i = threadIdx.x; i < nw; i += THREADS) bits[i] = 0;
+  __syncthreads();
+  for (int row = r0 + threadIdx.x; row < r1; row += THREADS)
+    set_symbol(bits, ix.symbol(row), t0, t1);
+  __syncthreads();
+  uint4* dst = reinterpret_cast<uint4*>(row_out + (t0 >> 5));
+  const uint4* src = reinterpret_cast<const uint4*>(bits);
+  for (int i = threadIdx.x; i < nw / 4; i += THREADS) dst[i] = src[i];
+}
+
+// Rows [a, b) of an int32 BWT into the bitset of tokens [0, vocab): a
+// scalar head to 16-byte alignment, then U 16-byte loads a thread a round
+// (`nthreads` threads from `tid`), then the scalar tail.
+template <int U>
+__device__ __forceinline__ void add_rows(const int* __restrict__ sym, int a, int b, int vocab,
+                                         unsigned* bits, int tid, int nthreads) {
+  if (b <= a) return;
+  const int* p = sym + a;
+  const int n = b - a;
+  const int head = min(n, (int)(((16 - ((unsigned long long)p & 15)) & 15) >> 2));
+  if (tid < head) set_symbol(bits, __ldg(p + tid), 0, vocab);
+  const int4* v = reinterpret_cast<const int4*>(p + head);
+  const int nv = (n - head) >> 2;
+  for (int base = 0; base < nv; base += nthreads * U) {
+    int4 x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = base + u * nthreads + tid;
+      x[u] = q < nv ? __ldg(v + q) : make_int4(0, 0, 0, 0);  // symbol 0: no token
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      set_symbol(bits, x[u].x, 0, vocab);
+      set_symbol(bits, x[u].y, 0, vocab);
+      set_symbol(bits, x[u].z, 0, vocab);
+      set_symbol(bits, x[u].w, 0, vocab);
+    }
+  }
+  const int tail = head + 4 * nv;
+  if (tid < n - tail) set_symbol(bits, __ldg(p + tail + tid), 0, vocab);
 }
 
 template <typename Layout>

@@ -1,7 +1,8 @@
 // Kernel 1: FM-index rank search over the Psi layout; kernel 5, the same
 // search chained over padded sequences (sequences_kernel below); and kernel
 // 15, the dense count vector of every token over a range (PsiDense below,
-// with dense_counts.cuh).
+// with dense_counts.cuh), and its count mask (dense_mask_kernel, at the
+// end: the mode the exact_mask decode reads).
 //
 // Replaces seal_tpu/ops/fm_ops.py: _symbol_bounds + _searchsorted_impl +
 // backward_step (mode "backward_step") and contains_tokens (mode
@@ -28,9 +29,12 @@
 // vector finish (psi_blk) is not carried over: a GPU lane reads psi
 // directly.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "dense_counts.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -444,7 +448,278 @@ dense_counts_sharded_kernel(Shards sh, const int* __restrict__ bwt, const int* _
   for (int i = threadIdx.x; i < t1 - t0; i += T) row_out[t0 + i] = hist[i];
 }
 
+// ---------------------------------------------------------------- mask mode
+//
+// Kernel 15's mask mode: the count mask (kernels/count_mask.py) of each
+// range, a bit a token, ORed over the shards in the shard mode.  It
+// replaces the counts that the exact_mask decode read only as count > 0
+// (seal_tpu/decoding/constrained.py:321-327, fm_valid = counts > 0).
+//
+// The counts mode is bound by its [ranges, vocab] int32 output (96.5 MB a
+// dense step at [32, 15] x 50265) and reads a range's rows once for each
+// of its slices of 8,192 tokens.  A bit a token makes the whole vocab one
+// shared bitset (W = 4 * ceil(vocab / 128) words: 6.3 KB at 50,265) and
+// the output 3.0 MB, so a range's rows are read once.  What is left is the
+// spread of range widths: a decode step's ranges run from empty to a
+// frequent token's ~3 x 10^5 rows.  So the grid is groups of CLUSTER
+// consecutive ranges, one thread-block cluster of CLUSTER CTAs a group (a
+// group of ranges g, g + G, ... ran 1.4x slower: python -m
+// seal_tpu_torch.bench_dense_mask).  CTA c reads range c of its group
+// alone when every shard's range there has at most SPLIT_ROWS rows (most
+// decode ranges hold a few thousand) and writes its W words.  A wider
+// range is read by the whole cluster: each CTA takes its share of the rows
+// into its own bitset, and after a cluster barrier each CTA ORs its share
+// of the words over the cluster's bitsets through distributed shared
+// memory and writes them: no global atomics, no zeroing launch, no work
+// list.  Read so, a range's rows cost less than its ranks up to ~10^6 rows
+// (kernels/fm_search.py:MASK_HIST_MAX_ROWS, the mask modes' default
+// hist_max, from bench_dense_mask's sweep).  A shard's range past hist_max
+// rows takes the rank route, split over the cluster's CTAs by words: a
+// warp four words (128 consecutive tokens) a round, each lane a token of
+// each, one __ballot_sync a word.  A bit needs one search, not both
+// bounds' ranks: the first row of the token's psi block at or past lo is
+// inside the block and its psi is below hi (as kernel 1's contains mode
+// asks); the lane's four searches step in lockstep, so four chains of
+// dependent psi loads are in flight at once.  Both routes give Occ(c, hi)
+// > Occ(c, lo), so the mask equals the plain sweep's counts > 0 exactly.
+// Bound: bytes, the histogram route's rows read once and the mask written.
+
+constexpr int MASK_THREADS = 512;
+constexpr int CLUSTER = 8;        // CTAs a group of ranges (kernels/fm_search.py:CLUSTER)
+constexpr int SPLIT_ROWS = 65536;  // rows a CTA reads alone (kernels/fm_search.py:SPLIT_ROWS)
+constexpr int MASK_MAX_WORDS = 1 << 15;  // the bitset's words (128 KB of shared memory)
+constexpr int MASK_U = 2;          // 16-byte row loads in flight a thread
+// (SPLIT_ROWS and MASK_U: the fastest of 4,096-65,536 rows and of 1-8
+// loads, bench_dense_mask at the generation point's dense ranges)
+
+// Four binary searches in lockstep: for each t, the smallest i in
+// [lo[t], hi[t]] with psi[i] >= pos (psi increasing there); a round issues
+// the four probes before it compares any.
+__device__ __forceinline__ void search4(const int* __restrict__ psi, int (&lo)[4], int (&hi)[4],
+                                        int pos) {
+  bool live = true;
+  while (live) {
+    int mid[4], v[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      mid[t] = (int)(((unsigned)lo[t] + (unsigned)hi[t]) >> 1);
+      v[t] = lo[t] < hi[t] ? __ldg(psi + mid[t]) : 0;
+    }
+    live = false;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (lo[t] < hi[t]) {
+        if (v[t] < pos) {
+          lo[t] = mid[t] + 1;
+        } else {
+          hi[t] = mid[t];
+        }
+      }
+      live |= lo[t] < hi[t];
+    }
+  }
+}
+
+// Whether shifted symbols c[0..3] (0: none) continue [l, h) in a psi
+// layout: the first row of c's block at or past l is in the block and its
+// psi is below h.  dir is the layout's sym_dir, head_pair its head
+// directory (nullptr: none).
+__device__ __forceinline__ void psi_has4(const int* __restrict__ psi, const int* __restrict__ dir,
+                                         const int* __restrict__ head_pair, int n_rows,
+                                         int dir_shift, int sigma, const int (&c)[4], int l, int h,
+                                         bool (&ok)[4]) {
+  int lo[4], hi[4], end[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    lo[t] = hi[t] = end[t] = 0;
+    if (c[t] >= 1 && c[t] < sigma) {
+      const Bounds b = symbol_bounds(dir, head_pair, n_rows, dir_shift, c[t], l);
+      lo[t] = b.dlo;
+      hi[t] = b.dhi;
+      end[t] = b.bhi;
+    }
+  }
+  search4(psi, lo, hi, l);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) ok[t] = lo[t] < end[t] && __ldg(psi + lo[t]) < h;
+}
+
+// The Psi index and the stacked shards as the mask kernel reads them:
+// shard s's int32 BWT, the row bound its ranges are clamped to, and which
+// of four tokens' symbols continue [l, h) there
+struct PsiMask {
+  PsiDense ix;
+  __device__ int n_shards() const { return 1; }
+  __device__ int rows(int) const { return ix.n_rows; }
+  __device__ const int* bwt(int) const { return ix.bwt; }
+  __device__ void has4(int, const int (&c)[4], int l, int h, bool (&ok)[4]) const {
+    psi_has4(ix.psi, ix.sym_dir, ix.head_pair, ix.n_rows, ix.dir_shift, ix.sigma, c, l, h, ok);
+  }
+};
+
+struct ShardMask {
+  Shards sh;
+  const int* bwt_all;  // [S, n_max]
+  __device__ int n_shards() const { return sh.n_shards; }
+  __device__ int rows(int) const { return (int)sh.n_max; }
+  __device__ const int* bwt(int s) const { return bwt_all + s * sh.n_max; }
+  __device__ void has4(int s, const int (&c)[4], int l, int h, bool (&ok)[4]) const {
+    psi_has4(sh.psi_of(s), sh.dir_of(s), nullptr, 0, 0, sh.sigma, c, l, h, ok);
+  }
+};
+
+// four CTAs an SM (at most 32 registers a thread): even on the Psi index
+// and faster over 4 shards than without the bound (bench_dense_mask)
+template <class Ix>
+__global__ void __launch_bounds__(MASK_THREADS, 4)
+dense_mask_kernel(Ix ix, const int* __restrict__ lo, const int* __restrict__ hi,
+                  unsigned* __restrict__ out, long long n, int vocab, int W, int hist_max) {
+  extern __shared__ __align__(16) unsigned bits[];  // W words
+  __shared__ unsigned s_wide;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
+  const int S = ix.n_shards(), tid = threadIdx.x;
+  const long long g0 = (long long)(blockIdx.x / C) * C;  // the group's first range
+  // slot j's range: g0 + j; the slots below m hold one
+  const auto range_of = [&](int j) { return g0 + j; };
+  const int m = (int)min((long long)C, n - g0);
+  const int W4 = W >> 2;
+  uint4* b4 = reinterpret_cast<uint4*>(bits);
+  // the group's ranges that the whole cluster reads: a shard's range past
+  // SPLIT_ROWS rows, or past hist_max (ranked); every CTA finds the same
+  if (tid == 0) s_wide = 0;
+  __syncthreads();
+  for (int t = tid; t < m * S; t += MASK_THREADS) {
+    const int j = t / S, s = t - j * S;
+    const long long q = s * n + range_of(j);
+    const int r = ix.rows(s);
+    const int w = min(max(hi[q], 0), r) - min(max(lo[q], 0), r);
+    if (w > SPLIT_ROWS || w > hist_max) atomicOr(&s_wide, 1u << j);
+  }
+  __syncthreads();
+  const unsigned wide = s_wide;
+  if (c < m && !((wide >> c) & 1u)) {  // this CTA's own range
+    for (int q = tid; q < W4; q += MASK_THREADS) b4[q] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+    for (int s = 0; s < S; ++s) {
+      const long long q = s * n + range_of(c);
+      const int r = ix.rows(s);
+      seal_dense::add_rows<MASK_U>(ix.bwt(s), min(max(lo[q], 0), r), min(max(hi[q], 0), r),
+                                   vocab, bits, tid, MASK_THREADS);
+    }
+    __syncthreads();
+    uint4* dst = reinterpret_cast<uint4*>(out + range_of(c) * W);
+    for (int q = tid; q < W4; q += MASK_THREADS) dst[q] = b4[q];
+  }
+  // the cluster's ranges, one at a time; CTA c owns the 4-word groups
+  // [q0, q1) of each (its rank words, and the words it ORs and writes)
+  const int q0 = (int)((long long)W4 * c / C), q1 = (int)((long long)W4 * (c + 1) / C);
+  const int lane = tid & 31, warp = tid >> 5;
+  for (unsigned rest = wide; rest != 0; rest &= rest - 1) {
+    const int j = __ffs(rest) - 1;
+    __syncthreads();  // the bitset's last reader is done
+    for (int q = tid; q < W4; q += MASK_THREADS) b4[q] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+    for (int s = 0; s < S; ++s) {
+      const long long q = s * n + range_of(j);
+      const int l = lo[q], h = hi[q], r = ix.rows(s);
+      const int r0 = min(max(l, 0), r), r1 = min(max(h, 0), r);
+      if (r1 - r0 <= hist_max) {  // this CTA's share of the rows
+        const long long len = max(r1 - r0, 0);
+        seal_dense::add_rows<MASK_U>(ix.bwt(s), r0 + (int)(len * c / C),
+                                     r0 + (int)(len * (c + 1) / C), vocab, bits, tid,
+                                     MASK_THREADS);
+      } else {  // this CTA's words by rank: a warp four words a round
+        for (int q = q0 + warp; q < q1; q += MASK_THREADS / 32) {
+          int sym[4];
+          bool in[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int tok = 32 * (4 * q + k) + lane;
+            sym[k] = tok < vocab ? tok + SHIFT : 0;
+          }
+          ix.has4(s, sym, l, h, in);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const unsigned word = __ballot_sync(0xffffffffu, in[k]);
+            if (lane == 0 && word != 0) atomicOr(bits + 4 * q + k, word);
+          }
+        }
+      }
+    }
+    cluster.sync();  // every CTA's bitset is whole
+    uint4* dst = reinterpret_cast<uint4*>(out + range_of(j) * W);
+    for (int q = q0 + tid; q < q1; q += MASK_THREADS) {
+      uint4 acc = make_uint4(0, 0, 0, 0);
+      for (int k = 0; k < C; ++k) {
+        const uint4 v = reinterpret_cast<const uint4*>(cluster.map_shared_rank(bits, k))[q];
+        acc.x |= v.x;
+        acc.y |= v.y;
+        acc.z |= v.z;
+        acc.w |= v.w;
+      }
+      dst[q] = acc;
+    }
+    cluster.sync();  // no CTA clears or leaves its bitset while another reads it
+  }
+}
+
+// One launch: ceil(n / CLUSTER) clusters of CLUSTER CTAs, the bitset in
+// dynamic shared memory (opted into past 48 KB once a device)
+template <class Ix>
+int launch_dense_mask(const Ix& ix, const int* lo, const int* hi, unsigned* out, long long n,
+                      int vocab, int hist_max, cudaStream_t stream) {
+  if (n <= 0 || vocab <= 0) return (int)cudaGetLastError();
+  const int W = 4 * ((vocab + 127) / 128);
+  if (W > MASK_MAX_WORDS || ((unsigned long long)out & 15)) return (int)cudaErrorInvalidValue;
+  const auto kernel = dense_mask_kernel<Ix>;
+  const int smem = 4 * W;
+  constexpr int MAX_DEVICES = 64;
+  static int smem_set[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((n + CLUSTER - 1) / CLUSTER * CLUSTER));
+  cfg.blockDim = dim3(MASK_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, ix, lo, hi, out, n, vocab, W, hist_max);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return (int)err;
+}
+
 }  // namespace
+
+extern "C" int seal_fm_dense_mask(const int* psi, const int* sym_dir, const int* head_pair,
+                                  int n_rows, int sigma, int dir_shift, const int* bwt,
+                                  const int* lo, const int* hi, unsigned* out, long long n,
+                                  int vocab, int hist_max, void* stream) {
+  const PsiMask ix{{psi, sym_dir, head_pair, bwt, n_rows, sigma, dir_shift}};
+  return launch_dense_mask(ix, lo, hi, out, n, vocab, hist_max, (cudaStream_t)stream);
+}
+
+// lo, hi [n_shards, n]; out [n, W]: each range's mask ORed over the shards
+extern "C" int seal_fm_dense_mask_sharded(const int* psi, const int* sym_dir, long long n_max,
+                                          int sigma, int n_shards, const int* bwt,
+                                          const int* lo, const int* hi, unsigned* out,
+                                          long long n, int vocab, int hist_max, void* stream) {
+  const ShardMask ix{{psi, sym_dir, n_max, sigma, n_shards}, bwt};
+  return launch_dense_mask(ix, lo, hi, out, n, vocab, hist_max, (cudaStream_t)stream);
+}
 
 extern "C" int seal_fm_backward_step_sharded(const int* psi, const int* sym_dir, long long n_max,
                                              int sigma, int n_shards, const int* token,

@@ -50,8 +50,9 @@ namespace {
 constexpr int MAX_WARPS = 32;  // of a 1024-thread CTA (512 or 1024 threads)
 constexpr int NB = 2048;        // bins of an 11-bit digit
 constexpr int UNROLL = 4;       // 16-byte loads in flight a thread while staging
-// the same bytes in flight with a loader's own 16-byte vector beside each
-// float4 (4 rounds spilled and ran 14% slower on the dense step)
+// the rounds of a loader with data of its own beside each float4 (4 rounds
+// spilled and ran 14% slower on the dense step with its int4 of counts,
+// and 1.5% slower with its word of the count mask)
 constexpr int AUX_UNROLL = 2;
 constexpr int RANK_MAX = 512;   // k up to which the output is placed by rank, not sorted
 constexpr unsigned FULL = 0xffffffffu;
@@ -79,7 +80,7 @@ __device__ __forceinline__ u64 word(unsigned key, long long i) {
 
 // A loader's vector hooks (see the header): `slice(row, f0, n)` is what a
 // CTA works out once for its slice [f0, f0 + n) of row `row` (kept in
-// registers), `fetch(row, f)` reads the loader's own vector beside the
+// registers), `fetch(row, f, sl)` reads the loader's own vector beside the
 // staged float4 of elements f..f+3, and `apply4(v, a, row, f, sl)` maps the
 // four values.  A loader without an `Aux` type maps each value alone.
 struct NoAux {};
@@ -375,7 +376,7 @@ row_topk_kernel(const float* __restrict__ x, int width, int k, int slice, int st
           a[u] = {};
           if (q < nvec) {
             v[u] = __ldg(xv + q);
-            if constexpr (HasAux<Load>::value) a[u] = load.fetch(row, (int)s0 + h + 4 * q);
+            if constexpr (HasAux<Load>::value) a[u] = load.fetch(row, (int)s0 + h + 4 * q, sl);
           }
         }
 #pragma unroll

@@ -20,14 +20,16 @@
 // Columns come three ways (a `Cols` policy): a candidate list with its
 // token table (8c's candidates, free generation's top-top_m); V-wide rows
 // with token = column and an optional corpus mask read four bytes a quad
-// (step 0); and the exact_mask steps' count vectors, read as kernel 17's
-// branches (dense_branches.cuh) with cons = lp where a token is allowed,
-// else NEG_INF, at zero beam scores: kernel 17's streaming pass and its
+// (step 0); and the exact_mask steps' count masks (a bit a token, kernel
+// 15's or 16's mask mode), read as kernel 17's branches
+// (dense_branches.cuh) with cons = lp where a token is allowed, else
+// NEG_INF, at zero beam scores: kernel 17's streaming pass and its
 // [B, K * V] write are not launched.  Flat indices are 64-bit.
 //
 // Bound on the card: bytes.  At step 0, [480, 50265] f32 log-probs are read
 // once (96.5 MB; 0.0288 ms at 3.35 TB/s); a count-reading step reads the
-// counts once (the same bytes) and the allowed tokens' log-probs; on flat
+// count mask once (3.0 MB, a word a warp's quad of 4 tokens a lane) and
+// the allowed tokens' log-probs; on flat
 // rows, where every quad can still lead, its Philox calls (ten rounds of
 // two 32-bit products a quad) cost more than the bytes.  The parent
 // kernel (one 256-thread CTA a row, a Philox call and two logf a
@@ -168,7 +170,7 @@ __device__ __forceinline__ unsigned in_row(int j0, int n) {
 
 // Column policies.  `allow(R, q, d)` reads what decides which of quad q's
 // columns can hold a candidate (the token table, the corpus mask, the
-// counts) and returns them as bits; `values(R, q)` reads the quad's cons.
+// count mask) and returns them as bits; `values(R, q)` reads the quad's cons.
 // The draw issues every `allow` of a round's quads, then the values of
 // those with a candidate, then draws: each thread keeps U quads of 16-byte
 // loads in flight.
@@ -230,34 +232,34 @@ struct WideCols {
   __device__ __forceinline__ int token(const Row&, int j) const { return j; }
 };
 
-// (c) the exact_mask step's count vectors [rows, V] and log-probs (row
-// stride lp_stride): kernel 17's branches, cons = lp where allowed
+// (c) the exact_mask step's count masks [rows, W] (kernels/count_mask.py,
+// W = 4 * ceil(V / 128): a quad's 4 bits lie in one word) and log-probs
+// (row stride lp_stride): kernel 17's branches, cons = lp where allowed
 struct CountCols {
   static constexpr bool kLists = true;  // see draw_quads
   static constexpr bool kBound = true;
-  const int* counts;
+  const unsigned* mask;
   const float* lp;
   long long lp_stride;
   Branches br;
-  int N;
+  int N, W;
   struct Row {
-    const int* n;
+    const unsigned* m;
     const float* x;
     BeamState s;
   };
   __device__ __forceinline__ Row row(long long r) const {
-    return {counts + r * N, lp + r * lp_stride, br.state(r)};
+    return {mask + r * W, lp + r * lp_stride, br.state(r)};
   }
   __device__ __forceinline__ unsigned allow(const Row& R, int q, Draw&) const {
     const int j0 = 4 * q;
-    // a stop-forced or finished beam allows one token: no count is read
-    const int4 c = R.s.by_counts ? load_quad<int4>(R.n, j0, N) : int4{0, 0, 0, 0};
-    const int n[4] = {c.x, c.y, c.z, c.w};
+    // a stop-forced or finished beam allows one token: no mask word is read
+    const unsigned bits = R.s.by_counts ? (__ldg(R.m + (j0 >> 5)) >> (j0 & 31)) & 15u : 0u;
     const unsigned in = in_row(j0, N);
     unsigned a = 0;
 #pragma unroll
     for (int t = 0; t < 4; ++t)
-      a |= (unsigned)(((in >> t) & 1u) && br.allowed(n[t], j0 + t, R.s)) << t;
+      a |= (unsigned)(((in >> t) & 1u) && br.allowed((int)((bits >> t) & 1u), j0 + t, R.s)) << t;
     return a;
   }
   __device__ __forceinline__ float4 values(const Row& R, int q) const {
@@ -625,10 +627,11 @@ int seal_sample_select(const float* cons, const float* cand_lp, const int* token
   return launch(WideCols{cons, mask, N}, a, o, splits, (cudaStream_t)stream);
 }
 
-// The count-reading mode: counts [rows, V] int32 contiguous, lp [rows, V]
-// f32 with row stride lp_stride, prev_count / finished / beam_scores
-// [rows]; cons = lp where kernel 17's branches allow a token, else neg_inf
-int seal_sample_counts(const int* counts, const float* lp, long long lp_stride,
+// The count-reading mode: mask [rows, 4 * ceil(V / 128)] (the count mask)
+// contiguous, lp [rows, V] f32 with row stride lp_stride, prev_count /
+// finished / beam_scores [rows]; cons = lp where kernel 17's branches allow
+// a token, else neg_inf
+int seal_sample_counts(const unsigned* mask, const float* lp, long long lp_stride,
                        const int* prev_count, const unsigned char* finished,
                        const float* beam_scores, long long rows, int K, int V, int eos, int pad,
                        int stop_at_count, int always_allow_eos, long long seed, long long step,
@@ -640,7 +643,8 @@ int seal_sample_counts(const int* counts, const float* lp, long long lp_stride,
                  (unsigned)seed, (unsigned)step, neg_inf, false};
   const Branches br{prev_count, finished, beam_scores, eos, pad, stop_at_count, always_allow_eos,
                     neg_inf};
-  return launch(CountCols{counts, lp, lp_stride, br, V}, a, o, splits, (cudaStream_t)stream);
+  return launch(CountCols{mask, lp, lp_stride, br, V, 4 * ((V + 127) / 128)}, a, o, splits,
+                (cudaStream_t)stream);
 }
 
 int seal_gumbel_noise(long long rows, int n, long long seed, long long step, unsigned* words,

@@ -187,6 +187,14 @@ sequences_kernel(Index ix, const int* __restrict__ tokens, const int* __restrict
 // them), so each equals the plain sweep exactly, whatever order the walk
 // writes in: every symbol is written once, by the block of its slice.
 // Bound on the card: the [ranges, vocab] int32 output.
+//
+// The mask mode (seal_wt_dense_mask, the one the exact_mask decode reads)
+// runs the same routes and changes their stores: a bit a token
+// (kernels/count_mask.py).  A slice of 8,192 tokens owns 256 whole words,
+// so no two blocks write one word: the histogram sets the slice's bits in
+// a shared bitset and writes its words; the walk zeroes its words, then
+// its last level ORs each symbol's bit into them (a block's own words:
+// every symbol once).  The output is 3.0 MB a dense step in place of 96.5.
 template <int BWT_BYTES, int L>
 struct WtDense {
   // 3 blocks of 512 an SM (at most 40 registers a thread): the hybrid
@@ -194,6 +202,7 @@ struct WtDense {
   // by its dependent block reads, runs fastest at 3 of the 1 to 4 tried on
   // an H100 (python -m seal_tpu_torch.bench_select, "k16 walk")
   static constexpr int MIN_BLOCKS = 3;
+  static constexpr int BYTES = BWT_BYTES;
   Index ix;
   const void* bwt;
   int n_rows;
@@ -284,7 +293,7 @@ __device__ __forceinline__ int rank_near(const Index& ix, int level, int x, int 
 // word or two), else the difference of the two ranks, each from its
 // block's nearer end; a child's local range also needs the lower rank, the
 // last level only the count.
-template <int L>
+template <int L, bool MASK>
 __device__ void walk_slice(const Index& ix, int r0, int r1, int c_lo, int c_hi, int* row_out,
                            int* s_pre, int* s_lo, int* s_hi) {
   __shared__ int s_fill;
@@ -326,7 +335,14 @@ __device__ void walk_slice(const Index& ix, int r0, int r1, int c_lo, int c_hi, 
       }
       const bool take = i < end && cnt > 0 && (c << below) < c_hi && ((c + 1) << below) > c_lo;
       if (l == L - 1) {
-        if (take) row_out[c - seal_wt::SHIFT] = cnt;
+        const int tok = c - seal_wt::SHIFT;
+        if (take) {
+          if constexpr (MASK) {  // one symbol a lane, each once: the words' bits
+            atomicOr(reinterpret_cast<unsigned*>(row_out) + (tok >> 5), 1u << (tok & 31));
+          } else {
+            row_out[tok] = cnt;
+          }
+        }
       } else {
         const unsigned ball = __ballot_sync(FULL, take);
         if (ball) {
@@ -350,20 +366,27 @@ __device__ void walk_slice(const Index& ix, int r0, int r1, int c_lo, int c_hi, 
   }
 }
 
-template <int BWT_BYTES, int L>
+// MASK: the count mask (a bit a token, W = 4 * ceil(vocab / 128) words a
+// row) in place of the counts; the same routes, only the stores differ
+template <int BWT_BYTES, int L, bool MASK>
 __global__ void __launch_bounds__(seal_dense::THREADS, WtDense<BWT_BYTES, L>::MIN_BLOCKS)
 wt_dense_kernel(WtDense<BWT_BYTES, L> ix, const int* __restrict__ lo, const int* __restrict__ hi,
                 int* __restrict__ out, int vocab, int hist_max) {
   static_assert(slice_nodes(L) <= WALK_CAP, "a slice's walk fits the frontier's room");
-  extern __shared__ int s_dense[];  // the histogram, or the frontier (3 x WALK_CAP ints)
+  extern __shared__ int s_dense[];  // the histogram or bitset, or the frontier (3 x WALK_CAP ints)
   const long long r = blockIdx.x;
   const int t0 = blockIdx.y * seal_dense::SLICE;
   const int t1 = min(t0 + seal_dense::SLICE, vocab);
   const int l = lo[r], h = hi[r];
-  int* row_out = out + r * vocab;
+  int* row_out = out + r * (MASK ? seal_dense::mask_words(0, vocab) : vocab);
   const int r0 = min(max(l, 0), ix.n_rows), r1 = min(max(h, 0), ix.n_rows);
   if (r1 - r0 <= hist_max) {
-    seal_dense::hist_slice(ix, r0, r1, t0, t1, row_out, s_dense);
+    if constexpr (MASK) {
+      seal_dense::hist_mask_slice(ix, r0, r1, t0, t1, reinterpret_cast<unsigned*>(row_out),
+                                  reinterpret_cast<unsigned*>(s_dense));
+    } else {
+      seal_dense::hist_slice(ix, r0, r1, t0, t1, row_out, s_dense);
+    }
     return;
   }
   // a range whose whole walk fits the room is walked by the row's first
@@ -375,11 +398,15 @@ wt_dense_kernel(WtDense<BWT_BYTES, L> ix, const int* __restrict__ lo, const int*
   if (whole && blockIdx.y != 0) return;
   const int a = whole ? 0 : t0, b = whole ? vocab : t1;
   const int c_lo = a + seal_wt::SHIFT, c_hi = min(b + seal_wt::SHIFT, ix.ix.sigma);
-  zero_ints(row_out + a, b - a);
+  if constexpr (MASK) {
+    zero_ints(row_out + (a >> 5), seal_dense::mask_words(a, b));
+  } else {
+    zero_ints(row_out + a, b - a);
+  }
   if (c_hi <= c_lo) return;
   __syncthreads();
-  walk_slice<L>(ix.ix, r0, r1, c_lo, c_hi, row_out, s_dense, s_dense + WALK_CAP,
-                s_dense + 2 * WALK_CAP);
+  walk_slice<L, MASK>(ix.ix, r0, r1, c_lo, c_hi, row_out, s_dense, s_dense + WALK_CAP,
+                      s_dense + 2 * WALK_CAP);
 }
 
 unsigned blocks_for(long long threads) {
@@ -455,25 +482,49 @@ extern "C" int seal_wt_sequences(const uint32_t* blocks, const int* node_start,
   });
 }
 
+namespace {
+
+// kernel 16 for the index's digit count and bwt width, counts or mask
+template <bool MASK>
+int launch_wt_dense(const Index& ix, const void* bwt, int bwt_bytes, const int* lo,
+                    const int* hi, int* out, long long n, int vocab, int hist_max,
+                    cudaStream_t s) {
+  if (bwt != nullptr && bwt_bytes != 2 && bwt_bytes != 4) return (int)cudaErrorInvalidValue;
+  return seal_wt::with_digits(ix.digits, [&](auto D) {
+    constexpr int L = decltype(D)::value;
+    if (n <= 0 || vocab <= 0) return (int)cudaGetLastError();
+    const dim3 grid((unsigned)n, (unsigned)((vocab + seal_dense::SLICE - 1) / seal_dense::SLICE));
+    const auto launch = [&](auto layout) {
+      wt_dense_kernel<decltype(layout)::BYTES, L, MASK>
+          <<<grid, seal_dense::THREADS, DENSE_SMEM, s>>>(layout, lo, hi, out, vocab, hist_max);
+      return (int)cudaGetLastError();
+    };
+    if (bwt == nullptr) return launch(WtDense<0, L>{ix, bwt, ix.n_rows});
+    if (bwt_bytes == 2) return launch(WtDense<2, L>{ix, bwt, ix.n_rows});
+    return launch(WtDense<4, L>{ix, bwt, ix.n_rows});
+  });
+}
+
+}  // namespace
+
 extern "C" int seal_wt_dense_counts(const uint32_t* blocks, const int* node_start,
                                     const int* node_cnt, const int* C, long long n_blocks,
                                     int n_rows, int digits, int sigma, const void* bwt,
                                     int bwt_bytes, const int* lo, const int* hi, int* out,
                                     long long n, int vocab, int hist_max, void* stream) {
   const Index ix{blocks, node_start, node_cnt, C, n_blocks, n_rows, digits, sigma};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bwt != nullptr && bwt_bytes != 2 && bwt_bytes != 4) return (int)cudaErrorInvalidValue;
-  return seal_wt::with_digits(digits, [&](auto D) {
-    constexpr int L = decltype(D)::value;
-    if (n <= 0 || vocab <= 0) return (int)cudaGetLastError();
-    const dim3 grid((unsigned)n, (unsigned)((vocab + seal_dense::SLICE - 1) / seal_dense::SLICE));
-    const auto launch = [&](auto layout) {
-      wt_dense_kernel<<<grid, seal_dense::THREADS, DENSE_SMEM, s>>>(layout, lo, hi, out, vocab,
-                                                                     hist_max);
-      return (int)cudaGetLastError();
-    };
-    if (bwt == nullptr) return launch(WtDense<0, L>{ix, bwt, n_rows});
-    if (bwt_bytes == 2) return launch(WtDense<2, L>{ix, bwt, n_rows});
-    return launch(WtDense<4, L>{ix, bwt, n_rows});
-  });
+  return launch_wt_dense<false>(ix, bwt, bwt_bytes, lo, hi, out, n, vocab, hist_max,
+                                (cudaStream_t)stream);
+}
+
+// the count mask: out [n, 4 * ceil(vocab / 128)] words, 16-byte aligned
+extern "C" int seal_wt_dense_mask(const uint32_t* blocks, const int* node_start,
+                                  const int* node_cnt, const int* C, long long n_blocks,
+                                  int n_rows, int digits, int sigma, const void* bwt,
+                                  int bwt_bytes, const int* lo, const int* hi, unsigned* out,
+                                  long long n, int vocab, int hist_max, void* stream) {
+  if ((unsigned long long)out & 15) return (int)cudaErrorInvalidValue;
+  const Index ix{blocks, node_start, node_cnt, C, n_blocks, n_rows, digits, sigma};
+  return launch_wt_dense<true>(ix, bwt, bwt_bytes, lo, hi, reinterpret_cast<int*>(out), n,
+                               vocab, hist_max, (cudaStream_t)stream);
 }

@@ -38,6 +38,15 @@ summed counts, ``_range_scan`` :401 / ``sharded_count_sequences`` :455) and
 the JAX ``psum`` is a loop over the shard axis inside the kernel.  Their
 plain versions run the plain version above on each shard's block
 (``ShardedTorchIndex.block_view``) and sum, OR or stack the results.
+
+Kernel 15's mask mode, :func:`fm_dense_mask` and its shard mode
+:func:`fm_dense_mask_sharded`, writes the count mask
+(``kernels/count_mask.py``: a bit a token, ORed over the shards) that the
+``exact_mask`` decode reads; the counts mode stays for
+``ops.dense_counts``.  A range of at most ``SPLIT_ROWS`` rows is read by
+one CTA into a shared bitset of the whole vocab; a wider one by the
+cluster of ``CLUSTER`` CTAs its group of ranges runs on, whose bitsets
+are ORed through distributed shared memory (``csrc/fm_search.cu``).
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ from __future__ import annotations
 import torch
 
 from seal_tpu_torch.index.fm_index import SHIFT
-from seal_tpu_torch.kernels import Launches
+from seal_tpu_torch.kernels import Launches, count_mask
 from seal_tpu_torch.ops import _generic
 
 MODES = ("backward_step", "contains")
@@ -56,6 +65,17 @@ _FN = {}  # kernel 1's C entry points, looked up once
 # kernel 15 counts a range of at most this many rows by a histogram of its
 # BWT rows, a wider one by kernel 1's rank at both bounds of every token
 HIST_MAX_ROWS = 1 << 18
+# the mask mode: a range of at most SPLIT_ROWS rows is one CTA's, a wider
+# one is read by the CLUSTER CTAs of its group (csrc/fm_search.cu); its
+# shared bitset holds the whole vocab, at most MASK_MAX_WORDS words.  Its
+# rows, read once by a cluster, cost less than its ranks up to ~10^6 rows:
+# the mask modes' default hist_max (the counts mode's, 2^18, ran 1.39x
+# slower, every range ranked 3.6x; python -m seal_tpu_torch.bench_dense_mask
+# on an H100 at the generation point's dense ranges)
+SPLIT_ROWS = 65536
+CLUSTER = 8
+MASK_MAX_WORDS = 1 << 15
+MASK_HIST_MAX_ROWS = 1 << 20
 
 
 def symbol_bounds(index, c, pos):
@@ -337,6 +357,57 @@ def fm_dense_counts(index, lo, hi, chunk: int = 4096, hist_max: int = HIST_MAX_R
 fm_dense_counts.launches = 0
 
 
+def _mask_words(vocab: int, name: str) -> int:
+    W = count_mask.words(vocab)
+    if W > MASK_MAX_WORDS:
+        raise ValueError(f"{name}: a vocab of {vocab} tokens takes {W} words of shared "
+                         f"bitset, past the mask mode's {MASK_MAX_WORDS}")
+    return W
+
+
+def dense_mask_plain(index, lo, hi, chunk: int = 4096):
+    """``pack(dense_counts_plain(...) > 0)``, packed a chunk at a time."""
+    return _generic.dense_mask(
+        lambda ix, toks, a, b: _generic.validate_tokens(backward_step_plain, ix, toks, a, b),
+        index, lo, hi, chunk,
+    )
+
+
+def fm_dense_mask(index, lo, hi, chunk: int = 4096, hist_max: int = MASK_HIST_MAX_ROWS):
+    """Kernel 15's mask mode: the count mask of ranges [lo, hi), int32
+    [..., count_mask.words(index.vocab)], bit t set iff token t continues
+    the range.
+
+    CPU tensors run the plain version, ``chunk`` tokens at a time; CUDA
+    tensors launch the kernel once: a range of at most ``hist_max`` rows
+    sets the bits of its BWT rows' tokens, a wider one searches each
+    token's psi block once (a warp four words a round).
+    """
+    lo = torch.as_tensor(lo, dtype=torch.int32, device=index.device)
+    hi = torch.as_tensor(hi, dtype=torch.int32, device=index.device)
+    if lo.shape != hi.shape:
+        raise ValueError(f"fm_dense_mask: lo {tuple(lo.shape)} vs hi {tuple(hi.shape)}")
+    if not lo.is_cuda:
+        return dense_mask_plain(index, lo, hi, chunk)
+    from seal_tpu_torch.kernels import build
+
+    if index.bwt.dtype != torch.int32 or not index.bwt.is_contiguous():
+        raise ValueError("fm_dense_mask: index.bwt must be contiguous int32")
+    W = _mask_words(index.vocab, "fm_dense_mask")
+    lo, hi = lo.contiguous(), hi.contiguous()
+    out = torch.empty((*lo.shape, W), dtype=torch.int32, device=lo.device)
+    rc = build.lib().seal_fm_dense_mask(
+        *_index_args(index), index.bwt.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
+        lo.numel(), index.vocab, hist_max, build.stream_ptr(lo),
+    )
+    build.check(rc, "fm_dense_mask")
+    fm_dense_mask.launches += 1
+    return out
+
+
+fm_dense_mask.launches = 0
+
+
 # ------------------------------------------------------------ shard modes
 
 SHARD_MODES = ("backward_step", "contains", "validate")
@@ -508,3 +579,42 @@ def fm_dense_counts_sharded(si, lo, hi, chunk: int = 4096, hist_max: int = HIST_
 
 
 fm_dense_counts_sharded.launches = 0
+
+
+def dense_mask_sharded_plain(si, lo, hi, chunk: int = 4096):
+    out = dense_mask_plain(si.block_view(0), lo[0], hi[0], chunk)
+    for s in range(1, si.n_shards):
+        out = out | dense_mask_plain(si.block_view(s), lo[s], hi[s], chunk)
+    return out
+
+
+def fm_dense_mask_sharded(si, lo, hi, chunk: int = 4096,
+                          hist_max: int = MASK_HIST_MAX_ROWS):
+    """Kernel 15's mask mode over the shards: the count mask of each
+    shard's ranges lo/hi [S, ...], ORed over the shards (a summed count is
+    > 0 iff some shard's is): int32 [..., count_mask.words(si.vocab)].
+
+    CPU tensors run the plain version, ``chunk`` tokens at a time; CUDA
+    tensors launch the kernel once for every shard, each shard's range on
+    its own route (``hist_max``).
+    """
+    lo, hi = _ranges_of(si, lo, hi, "fm_dense_mask_sharded")
+    if not lo.is_cuda:
+        return dense_mask_sharded_plain(si, lo, hi, chunk)
+    from seal_tpu_torch.kernels import build
+
+    if si.bwt.dtype != torch.int32 or not si.bwt.is_contiguous():
+        raise ValueError("fm_dense_mask_sharded: the index's bwt must be contiguous int32")
+    W = _mask_words(si.vocab, "fm_dense_mask_sharded")
+    lo, hi = lo.contiguous(), hi.contiguous()
+    out = torch.empty((*lo.shape[1:], W), dtype=torch.int32, device=lo.device)
+    rc = build.lib().seal_fm_dense_mask_sharded(
+        *_shard_args(si), si.bwt.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
+        lo[0].numel(), si.vocab, hist_max, build.stream_ptr(lo),
+    )
+    build.check(rc, "fm_dense_mask_sharded")
+    fm_dense_mask_sharded.launches += 1
+    return out
+
+
+fm_dense_mask_sharded.launches = 0

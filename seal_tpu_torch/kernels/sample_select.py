@@ -21,8 +21,8 @@ reproduced: the two generators agree in distribution, not in bits.
 Two entry points: :func:`sample_select` over given constrained log-probs
 (a candidate list with its token table, or V-wide rows under an optional
 corpus mask), and :func:`sample_select_counts`, the ``exact_mask`` steps'
-mode, which reads each beam's count vector and applies kernel 17's
-branches as it reads (so no [B, K * V] scores are written).  :func:`plan`
+mode, which reads each beam's count mask (a bit a token) and applies
+kernel 17's branches as it reads (so no [B, K * V] scores are written).  :func:`plan`
 gives a call's route: a list of up to ``WARP_MAX`` columns a warp, a
 wider row a CTA of 256 threads or a cluster of up to 8.
 """
@@ -33,7 +33,7 @@ from typing import NamedTuple
 
 import torch
 
-from seal_tpu_torch.kernels import Launches
+from seal_tpu_torch.kernels import Launches, count_mask
 from seal_tpu_torch.kernels.beam_select import NEG_INF, _check, _select_outputs
 
 MASK32 = 0xFFFFFFFF
@@ -227,57 +227,60 @@ def sample_select(cons, cand_lp, tokens, beam_scores, seed: int, step: int, *, e
 sample_select.launches = 0
 
 
-def sample_select_counts_plain(counts, lp, prev_count, finished, beam_scores, seed: int,
+def sample_select_counts_plain(mask, lp, prev_count, finished, beam_scores, seed: int,
                                step: int, *, eos: int, pad: int, stop_at_count: int = 0,
                                always_allow_eos: bool = False, noise=None):
     from seal_tpu_torch.kernels.dense_scores import dense_scores_plain
 
-    B, K, V = counts.shape
+    B, K = mask.shape[:2]
+    V = lp.shape[-1]
     zero = torch.zeros((B, K), dtype=torch.float32, device=lp.device)
     # kernel 17's candidates at zero beam scores
-    cons = dense_scores_plain(counts, lp, prev_count, finished, zero, eos=eos, pad=pad,
+    cons = dense_scores_plain(mask, lp, prev_count, finished, zero, eos=eos, pad=pad,
                               stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
     return sample_select_plain(cons.reshape(B, K, V), lp, None, beam_scores, seed, step, eos=eos,
                                pad=pad, noise=noise)
 
 
-def sample_select_counts(counts, lp, prev_count, finished, beam_scores, seed: int, step: int, *,
+def sample_select_counts(mask, lp, prev_count, finished, beam_scores, seed: int, step: int, *,
                          eos: int, pad: int, stop_at_count: int = 0,
                          always_allow_eos: bool = False):
     """One sampling step of the ``exact_mask`` mode: :func:`sample_select`
-    over ``dense_scores(counts, lp, ..., zero beam scores)`` (kernel 17's
+    over ``dense_scores(mask, lp, ..., zero beam scores)`` (kernel 17's
     candidates, N = V), the scores never written.
 
-    ``counts`` int32 [B, K, V] (``dense_counts``); ``lp`` f32 [B*K, V] (any
-    row stride); ``prev_count``, ``finished``, ``beam_scores`` [B, K].  A
-    token is allowed by kernel 17's branches (stop-forced beams: EOS only;
-    finished beams: PAD only; else count > 0; ``always_allow_eos`` adds
-    EOS).  Returns :func:`sample_select`'s eight outputs.
+    ``mask`` int32 [B, K, count_mask.words(V)]: each beam's count mask
+    (``dense_mask``, a bit a token); ``lp`` f32 [B*K, V] (any row stride);
+    ``prev_count``, ``finished``, ``beam_scores`` [B, K].  A token is
+    allowed by kernel 17's branches (stop-forced beams: EOS only; finished
+    beams: PAD only; else its bit; ``always_allow_eos`` adds EOS).  Returns
+    :func:`sample_select`'s eight outputs.
 
     CPU tensors run the plain version; CUDA tensors launch kernel 20's
     count-reading mode.  Flat indices are 64-bit: B * K * V may pass 2^31.
     """
     kw = dict(eos=eos, pad=pad, stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
-    B, K, V = counts.shape
-    if lp.shape != (B * K, V) or beam_scores.shape != (B, K):
+    B, K, W = mask.shape
+    V = lp.shape[-1]
+    if lp.shape != (B * K, V) or beam_scores.shape != (B, K) or W != count_mask.words(V):
         raise ValueError(f"sample_select_counts: lp {tuple(lp.shape)}, beam_scores "
-                         f"{tuple(beam_scores.shape)} vs counts {tuple(counts.shape)}")
+                         f"{tuple(beam_scores.shape)} vs the count mask {tuple(mask.shape)}")
     if not lp.is_cuda:
-        return sample_select_counts_plain(counts, lp, prev_count, finished, beam_scores, seed,
+        return sample_select_counts_plain(mask, lp, prev_count, finished, beam_scores, seed,
                                           step, **kw)
     from seal_tpu_torch.kernels import build
 
     if lp.stride(1) != 1:
         raise ValueError("sample_select_counts: lp must have a unit column stride")
-    counts = counts.contiguous()
+    mask = mask.contiguous()
     prev_count = prev_count.to(torch.int32).contiguous()
     finished = finished.to(torch.bool).contiguous()
     beam_scores = beam_scores.contiguous()
-    _check(counts, torch.int32, lp, torch.float32, beam_scores, torch.float32)
+    _check(mask, torch.int32, lp, torch.float32, beam_scores, torch.float32)
     outs = _select_outputs(B, K, lp.device)[:8]
     p = plan(B * K, V)
     rc = build.lib().seal_sample_counts(
-        counts.data_ptr(), lp.data_ptr(), lp.stride(0), prev_count.data_ptr(),
+        mask.data_ptr(), lp.data_ptr(), lp.stride(0), prev_count.data_ptr(),
         finished.data_ptr(), beam_scores.data_ptr(), B * K, K, V, eos, pad, stop_at_count,
         int(always_allow_eos), seed, step, NEG_INF, p.code, *(t.data_ptr() for t in outs),
         build.stream_ptr(lp),

@@ -23,7 +23,9 @@ lists its distinct symbols with their counts by walking the 16-ary tree
 top-down, by one block where the whole walk fits the frontier's room
 (``WALK_CAP`` nodes), else a block a slice of the vocab (sdsl's
 ``interval_symbols``; :func:`wt_dense_counts_walk_plain` mirrors it in
-numpy).
+numpy).  Its mask mode, :func:`wt_dense_mask`, runs the same routes and
+writes the count mask (``kernels/count_mask.py``, a bit a token) that the
+``exact_mask`` decode reads.
 
 The plain PyTorch versions below are the specification: the CPU path and
 the reference the kernel is held to on the card (integer results, so
@@ -42,7 +44,7 @@ import torch
 
 from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.index.wavelet import CODE_WORDS, DIGIT_BITS, RADIX, heap_base
-from seal_tpu_torch.kernels import Launches
+from seal_tpu_torch.kernels import Launches, count_mask
 from seal_tpu_torch.ops import _generic
 
 MODES = ("backward_step", "contains")
@@ -438,31 +440,58 @@ def wt_dense_counts(index, lo, hi, chunk: int = 4096, hist_max=None):
     one block where the whole walk fits ``WALK_CAP`` nodes, else a block a
     ``SLICE`` of tokens.
     """
+    return _dense(index, lo, hi, chunk, hist_max, "wt_dense_counts")
+
+
+wt_dense_counts.launches = 0
+
+
+def dense_mask_plain(index, lo, hi, chunk: int = 4096):
+    """``pack(dense_counts_plain(...) > 0)``, packed a chunk at a time."""
+    return _generic.dense_mask(
+        lambda ix, toks, a, b: _generic.validate_tokens(backward_step_plain, ix, toks, a, b),
+        index, lo, hi, chunk,
+    )
+
+
+def wt_dense_mask(index, lo, hi, chunk: int = 4096, hist_max=None):
+    """Kernel 16's mask mode: the count mask of ranges [lo, hi), int32
+    [..., count_mask.words(index.vocab)], bit t set iff token t continues
+    the range; :func:`wt_dense_counts`' routes, a bit a token stored.
+
+    CPU tensors run the plain version, ``chunk`` tokens at a time; CUDA
+    tensors launch the kernel once.
+    """
+    return _dense(index, lo, hi, chunk, hist_max, "wt_dense_mask")
+
+
+wt_dense_mask.launches = 0
+
+
+def _dense(index, lo, hi, chunk, hist_max, name):
+    mask = name == "wt_dense_mask"
     lo = torch.as_tensor(lo, dtype=torch.int32, device=index.device)
     hi = torch.as_tensor(hi, dtype=torch.int32, device=index.device)
     if lo.shape != hi.shape:
-        raise ValueError(f"wt_dense_counts: lo {tuple(lo.shape)} vs hi {tuple(hi.shape)}")
+        raise ValueError(f"{name}: lo {tuple(lo.shape)} vs hi {tuple(hi.shape)}")
     if not lo.is_cuda:
-        return dense_counts_plain(index, lo, hi, chunk)
+        return (dense_mask_plain if mask else dense_counts_plain)(index, lo, hi, chunk)
     from seal_tpu_torch.kernels import build
 
-    check_index(index, "wt_dense_counts")
+    check_index(index, name)
     bwt, bwt_bytes = None, 0
     if index.bwt is not None:
         if index.bwt.dtype not in (torch.int16, torch.int32) or not index.bwt.is_contiguous():
-            raise ValueError("wt_dense_counts: index.bwt must be contiguous int16 or int32")
+            raise ValueError(f"{name}: index.bwt must be contiguous int16 or int32")
         bwt, bwt_bytes = index.bwt.data_ptr(), index.bwt.element_size()
     if hist_max is None:
         hist_max = HIST_MAX_ROWS["hybrid" if bwt is not None else "compact"]
     lo, hi = lo.contiguous(), hi.contiguous()
-    out = torch.empty((*lo.shape, index.vocab), dtype=torch.int32, device=lo.device)
-    rc = build.lib().seal_wt_dense_counts(
-        *index_args(index), bwt, bwt_bytes, lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
-        lo.numel(), index.vocab, hist_max, build.stream_ptr(lo),
-    )
-    build.check(rc, "wt_dense_counts")
-    wt_dense_counts.launches += 1
+    width = count_mask.words(index.vocab) if mask else index.vocab
+    out = torch.empty((*lo.shape, width), dtype=torch.int32, device=lo.device)
+    fn = build.lib().seal_wt_dense_mask if mask else build.lib().seal_wt_dense_counts
+    rc = fn(*index_args(index), bwt, bwt_bytes, lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
+            lo.numel(), index.vocab, hist_max, build.stream_ptr(lo))
+    build.check(rc, name)
+    (wt_dense_mask if mask else wt_dense_counts).launches += 1
     return out
-
-
-wt_dense_counts.launches = 0

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from seal_tpu_torch.kernels import count_mask
 from seal_tpu_torch.kernels.window_gather import window_rows
 
 
@@ -46,6 +47,24 @@ def dense_counts(validate_fn, index, lo, hi, chunk: int):
         toks = torch.arange(start, start + chunk, dtype=torch.int32, device=index.device)
         out.append(validate_fn(index, toks.expand(*lo.shape, chunk), lo, hi))
     return torch.cat(out, -1)[..., :vocab]
+
+
+def dense_mask(validate_fn, index, lo, hi, chunk: int):
+    """The count mask of every range (``kernels/count_mask.py``): int32
+    [..., words(vocab)], bit t set iff token t continues the range, i.e.
+    ``pack(dense_counts(...) > 0)``.  The same sweep, each chunk packed as
+    it is counted (``chunk`` rounded up to whole 128-token groups), so no
+    [..., vocab] counts are held."""
+    lo = torch.as_tensor(lo, dtype=torch.int32, device=index.device)
+    hi = torch.as_tensor(hi, dtype=torch.int32, device=index.device)
+    vocab = index.vocab
+    step = -(-chunk // 128) * 128
+    out = []
+    for start in range(0, vocab, step):
+        toks = torch.arange(start, start + step, dtype=torch.int32, device=index.device)
+        ok = validate_fn(index, toks.expand(*lo.shape, step), lo, hi) > 0
+        out.append(count_mask.pack(ok & (toks < vocab)))  # no bit past the vocab
+    return torch.cat(out, -1)[..., :count_mask.words(vocab)]
 
 
 def advance_ranges(extend, range_size, sel_tok, sel_par, lo, hi, finished=None, *, eos: int,

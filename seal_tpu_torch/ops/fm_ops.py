@@ -5,8 +5,8 @@ All ops take *unshifted* token ids and shift internally (SHIFT == 1).
 ``backward_step``/``extend_ranges``, ``contains_tokens`` and
 ``advance_ranges`` (the decode step's range update) go through the
 rank-search kernel, ``range_for_sequences``/``count_sequences`` through
-its sequence mode and ``dense_counts`` through its dense kernel
-(``kernels/fm_search.py``), ``window_gather``, ``window_slab`` and
+its sequence mode and ``dense_counts`` / ``dense_mask`` through its dense
+kernel's counts and mask modes (``kernels/fm_search.py``), ``window_gather``, ``window_slab`` and
 ``slab_gather`` through the window kernel's modes (kernel 2),
 ``bucket_counts`` through the bucket kernel and ``locate_rows`` /
 ``doc_index_of`` through kernel 18 (``kernels/locate.py``); the other ops
@@ -22,6 +22,7 @@ from seal_tpu_torch.kernels.bucket_counts import bucket_counts  # noqa: F401
 from seal_tpu_torch.kernels.fm_search import (
     fm_advance,
     fm_dense_counts,
+    fm_dense_mask,
     fm_search,
     fm_sequences,
     searchsorted_psi,
@@ -133,3 +134,10 @@ def dense_counts(index, lo, hi, chunk: int = 4096):
     """Exact continuation-count vector over the whole model vocab: int32
     [..., vocab] (kernel 15 on the card, the chunked sweep on the CPU)."""
     return fm_dense_counts(index, lo, hi, chunk)
+
+
+def dense_mask(index, lo, hi, chunk: int = 4096):
+    """The count mask of every range: int32 [..., count_mask.words(vocab)],
+    bit t set iff token t continues the range (kernel 15's mask mode on the
+    card, the chunked sweep packed on the CPU)."""
+    return fm_dense_mask(index, lo, hi, chunk)

@@ -30,6 +30,7 @@ from seal_tpu_torch.kernels.wt_search import (
     rank_plain,
     wt_advance,
     wt_dense_counts,
+    wt_dense_mask,
     wt_search,
     wt_sequences,
 )
@@ -115,3 +116,10 @@ def dense_counts(index, lo, hi, chunk: int = 4096):
     """Exact continuation-count vector over the whole model vocab: int32
     [..., vocab] (kernel 16 on the card, the chunked sweep on the CPU)."""
     return wt_dense_counts(index, lo, hi, chunk)
+
+
+def dense_mask(index, lo, hi, chunk: int = 4096):
+    """The count mask of every range: int32 [..., count_mask.words(vocab)],
+    bit t set iff token t continues the range (kernel 16's mask mode on the
+    card, the chunked sweep packed on the CPU)."""
+    return wt_dense_mask(index, lo, hi, chunk)

@@ -24,6 +24,7 @@ from seal_tpu_torch.decoding.generate import fm_index_generate
 from seal_tpu_torch.kernels.bucket_counts import bucket_counts_sharded
 from seal_tpu_torch.kernels.fm_search import (
     fm_dense_counts_sharded,
+    fm_dense_mask_sharded,
     fm_search_sharded,
     fm_sequences_sharded,
 )
@@ -102,6 +103,15 @@ class ShardedIndexOps:
 
     def dense_counts(self, lo, hi, chunk):
         return fm_dense_counts_sharded(self.index, lo, hi, chunk)
+
+    def dense_mask(self, lo, hi, chunk):
+        """The count mask of the summed counts: each shard's mask ORed, in
+        one launch of kernel 15's mask mode over the shards."""
+        return fm_dense_mask_sharded(self.index, lo, hi, chunk)
+
+    @property
+    def vocab(self) -> int:
+        return self.index.vocab
 
 
 def sharded_fm_index_generate(model_cfg, params, sharded_index: ShardedTorchIndex, mesh,

@@ -20,6 +20,7 @@ from seal_tpu_torch import bench_search
 from seal_tpu_torch.kernels import (
     beam_select,
     bucket_counts,
+    count_mask,
     decode_attention,
     dense_scores,
     diverse_select,
@@ -1039,6 +1040,112 @@ def test_wt_dense_walk_room_limit(cuda, name):
     assert torch.equal(wt_search.wt_dense_counts_walk_plain(t, lo.cpu(), hi.cpu()), want.cpu())
 
 
+def _mask_fns(layout):
+    """A layout's mask mode, its plain version and its counts' plain sweep."""
+    if layout == "psi":
+        return fm_search.fm_dense_mask, fm_search.dense_mask_plain, fm_search.dense_counts_plain
+    return wt_search.wt_dense_mask, wt_search.dense_mask_plain, wt_search.dense_counts_plain
+
+
+def _index(host, layout, vocab, cuda):
+    if layout == "psi":
+        return TorchFMIndex.from_host(host, vocab=vocab, device=cuda)
+    return WaveletIndex.from_host(host, vocab=vocab, keep_bwt=layout == "hybrid", device=cuda)
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("layout", ["psi", "compact", "hybrid"])
+@pytest.mark.parametrize("name", sorted(WT_CASES))
+def test_dense_mask_match_plain(cuda, name, layout, route, graph):
+    """Kernels 15 and 16's mask modes at 1 to 5 digits on every route, eager
+    and replayed from a CUDA graph: full, empty and end-of-index ranges;
+    exactly the plain version, which is the plain counts > 0 packed (its
+    padding bits 0); one launch each, no counts-mode launch."""
+    host = _wt_host(name)
+    vocab = WT_CASES[name][0]
+    lo, hi = _ranges(host, np.random.default_rng(vocab), n=48 if vocab < 1000 else 12)
+    t = _index(host, layout, vocab, cuda)
+    fn, plain, counts = _mask_fns(layout)
+    kw = {} if ROUTES[route] is None else dict(hist_max=ROUTES[route])
+    n0, c0 = fn.launches, fm_search.fm_dense_counts.launches + wt_search.wt_dense_counts.launches
+    call = lambda: fn(t, lo, hi, **kw)  # noqa: E731
+    got = _graph_call(call) if graph else call()
+    assert fn.launches == n0 + (2 if graph else 1)
+    assert fm_search.fm_dense_counts.launches + wt_search.wt_dense_counts.launches == c0
+    want = plain(t, lo, hi, 4096)
+    assert got.shape == (lo.numel(), count_mask.words(vocab)) and torch.equal(got, want)
+    assert torch.equal(want, count_mask.pack(counts(t, lo, hi, 4096) > 0))
+
+
+@pytest.mark.parametrize("layout", ["psi", "compact", "hybrid"])
+def test_dense_mask_at_hist_max(cuda, layout):
+    """The routes' threshold: ranges of exactly ``hist_max`` rows take the
+    rows, of ``hist_max`` + 1 the ranks (Psi) or the walk (wavelet), for
+    thresholds at three ranges' widths; exactly the plain version."""
+    host = _zipf_host()
+    t = _index(host, layout, 40, cuda)
+    lo, hi = _ranges(host, np.random.default_rng(11))
+    fn, plain, _ = _mask_fns(layout)
+    want = plain(t, lo, hi, 4096)
+    widths = sorted(set((hi - lo).clamp(min=1).tolist()))
+    for w in (widths[len(widths) // 4], widths[len(widths) // 2], widths[-2]):
+        for h in (w - 1, w, w + 1):
+            assert torch.equal(fn(t, lo, hi, hist_max=h), want), (w, h)
+
+
+def _wide_corpus(S, cuda):
+    """A 300,000-token Zipf corpus, monolithic (S = 0) or over S shards,
+    with 13 ranges a shard (a group of 8 and one of 5): the full range,
+    ranges past ``SPLIT_ROWS`` rows (the cluster's split), n-gram ranges,
+    empty, inverted and end-of-index ones."""
+    rng = np.random.default_rng(40 + S)
+    toks = (rng.zipf(1.2, size=300000) % 36 + 4).astype(np.int64)
+    docs = [d.tolist() + [2] for d in np.array_split(toks, 3000)]
+    if S == 0:
+        host = FMIndex()
+        host.initialize(docs)
+        hosts, ix = [host], TorchFMIndex.from_host(host, vocab=50265, device=cuda)
+    else:
+        ix, hosts, _ = sharded_index.ShardedTorchIndex.build(docs, S, 50265, device=cuda)
+    los, his = [], []
+    for h in hosts:
+        n = h.size()
+        a, b = h.get_range([int(h.text[7]) - 1]), h.get_range([int(h.text[30]) - 1])
+        los.append([0, 0, 17, n // 3, a[0], b[0], 5, 9, n - 2, n, 0, 100, 1])
+        his.append([n, 5000, n - 3, n, a[1], b[1], 5, 4, n, n, 1, 4100, n])
+    lo = torch.tensor(los, dtype=torch.int32, device=cuda)
+    hi = torch.tensor(his, dtype=torch.int32, device=cuda)
+    return ix, (lo[0], hi[0]) if S == 0 else (lo, hi)
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("S", [0, 1, 2, 4])
+def test_dense_mask_cluster_split(cuda, S, graph):
+    """Kernel 15's mask mode where a range is split over its group's
+    cluster (rows past ``SPLIT_ROWS``, or ranked past ``hist_max`` a word a
+    warp, the words split over the CTAs), on the Psi index (S = 0) and over
+    1, 2 and 4 shards (ORed), at BART's vocab; groups of 8 and 5 ranges;
+    thresholds at the split's edge, eager and graph-replayed; exactly the
+    plain version."""
+    ix, (lo, hi) = _wide_corpus(S, cuda)
+    if S == 0:
+        fn, want = fm_search.fm_dense_mask, fm_search.dense_mask_plain(ix, lo, hi, 8192)
+    else:
+        fn, want = fm_search.fm_dense_mask_sharded, \
+            fm_search.dense_mask_sharded_plain(ix, lo, hi, 8192)
+    widths = (hi - lo).reshape(-1, lo.shape[-1])
+    assert (widths > fm_search.SPLIT_ROWS).any(-1).all() and lo.shape[-1] % fm_search.CLUSTER != 0
+    for h in (fm_search.MASK_HIST_MAX_ROWS, fm_search.HIST_MAX_ROWS, 0, fm_search.SPLIT_ROWS,
+              fm_search.SPLIT_ROWS + 1, 4999):
+        n0 = fn.launches
+        call = lambda h=h: fn(ix, lo, hi, hist_max=h)  # noqa: E731
+        got = _graph_call(call) if graph else call()
+        assert fn.launches == n0 + (2 if graph else 1)
+        assert torch.equal(got, want), h
+    assert bool(count_mask.unpack(want, 50265)[0, 4:40].all())  # the full range: every token
+
+
 @pytest.mark.parametrize("case", ["plain", "branches"])
 def test_dense_scores_match_plain(cuda, case):
     """Kernel 17 at the generation point's shape [32, 15, 50265], bit for
@@ -1046,7 +1153,7 @@ def test_dense_scores_match_plain(cuda, case):
     g = torch.Generator(device=cuda).manual_seed(17)
     B, K, V = 32, 15, 50265
     lp = _lp(g, B * K, V, cuda)
-    counts = torch.randint(0, 3, (B, K, V), generator=g, device=cuda, dtype=torch.int32)
+    mask = count_mask.pack(torch.randint(0, 3, (B, K, V), generator=g, device=cuda) > 0)
     prev_count = torch.randint(0, 6, (B, K), generator=g, device=cuda, dtype=torch.int32)
     finished = torch.rand(B, K, generator=g, device=cuda) < 0.2
     bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
@@ -1054,24 +1161,26 @@ def test_dense_scores_match_plain(cuda, case):
     kw = dict(eos=2, pad=1, stop_at_count=2 if case == "branches" else 0,
               always_allow_eos=case == "branches")
     n0 = dense_scores.dense_scores.launches
-    got = dense_scores.dense_scores(counts, lp, prev_count, finished, bs, **kw)
+    got = dense_scores.dense_scores(mask, lp, prev_count, finished, bs, **kw)
     assert dense_scores.dense_scores.launches == n0 + 1
-    _same((got,), (dense_scores.dense_scores_plain(counts, lp, prev_count, finished, bs, **kw),))
+    _same((got,), (dense_scores.dense_scores_plain(mask, lp, prev_count, finished, bs, **kw),))
 
 
-def _dense_inputs(g, B, K, V, cuda, lp=None):
-    """A dense step's counts, log-probs and branch state, with dead beams,
+def _dense_inputs(g, B, K, V, cuda, lp=None, allowed=None):
+    """A dense step's count mask (``allowed``: the share of tokens with a
+    count, default 2/3), log-probs and branch state, with dead beams,
     signed zeros and a query whose beams are all at NEG_INF."""
     lp = _lp(g, B * K, V, cuda) if lp is None else lp
-    counts = torch.randint(0, 3, (B, K, V), generator=g, device=cuda, dtype=torch.int32)
-    counts[0, min(2, K - 1)] = 0  # a dead interval
+    share = 2 / 3 if allowed is None else allowed
+    ok = torch.rand(B, K, V, generator=g, device=cuda) < share
+    ok[0, min(2, K - 1)] = False  # a dead interval
     prev_count = torch.randint(0, 6, (B, K), generator=g, device=cuda, dtype=torch.int32)
     finished = torch.rand(B, K, generator=g, device=cuda) < 0.2
     bs = torch.round(torch.randn(B, K, generator=g, device=cuda) * 2) / 2 - 3
     bs[0, min(1, K - 1)] = tc.NEG_INF
     bs[-1] = tc.NEG_INF  # an all-NEG_INF query
-    counts[-1] = 0
-    return counts, lp, prev_count, finished, bs
+    ok[-1] = False
+    return count_mask.pack(ok), lp, prev_count, finished, bs
 
 
 DENSE_BRANCHES = {"plain": dict(stop_at_count=0, always_allow_eos=False),
@@ -1122,11 +1231,11 @@ def test_dense_select_refuses_what_it_does_not_index(cuda):
     g = torch.Generator(device=cuda).manual_seed(3)
     B, K, V = 2, 3, 101
     wide = _lp(g, B * K, V + 7, cuda)
-    counts, _, prev_count, finished, bs = _dense_inputs(g, B, K, V, cuda)
+    mask, _, prev_count, finished, bs = _dense_inputs(g, B, K, V, cuda)
     kw = dict(eos=2, pad=1)
     for lp in (wide[:, :V], wide.reshape(-1)[1:1 + B * K * V].reshape(B * K, V)):
         with pytest.raises(ValueError, match="lp"):
-            dense_scores.dense_select(counts, lp, prev_count, finished, bs, 2 * K, **kw)
+            dense_scores.dense_select(mask, lp, prev_count, finished, bs, 2 * K, **kw)
     with pytest.raises(ValueError, match="2\\^31"):
         dense_scores.route(1, 42724, 50265, 30)
 
@@ -1220,9 +1329,9 @@ def test_beam_select_ties_match_plain(cuda, B, K, w, case):
 def test_dense_and_tie_modes_on_card_match_cpu(cuda, layout):
     """``exact_mask`` and ``exact_ties`` generation on the card: the CPU
     plain path's hypotheses (token lists equal, scores within 1e-4), the
-    dense run bit for bit equal to the fast runs; kernels 15 or 16, 17
-    inside kernel 3's select (its streaming pass not at all) and 8's ties
-    mode launched."""
+    dense run bit for bit equal to the fast runs; kernels 15 or 16 in
+    their mask modes (their counts modes not at all), 17 inside kernel 3's
+    select (its streaming pass not at all) and 8's ties mode launched."""
     cfg = bart_tiny(vocab_size=96)
     params = bart.init_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(3)
@@ -1238,8 +1347,9 @@ def test_dense_and_tie_modes_on_card_match_cpu(cuda, layout):
         return WaveletIndex.from_host(host, vocab=96, keep_bwt=layout == "hybrid", device=device)
 
     gpu_params = _to(params, cuda)
+    masks = fm_search.fm_dense_mask if layout == "psi" else wt_search.wt_dense_mask
     counts = fm_search.fm_dense_counts if layout == "psi" else wt_search.wt_dense_counts
-    n15, n17 = counts.launches, dense_scores.dense_select.launches
+    n15, n17, c15 = masks.launches, dense_scores.dense_select.launches, counts.launches
     n17s = dense_scores.dense_scores.launches
     canon = []
     for modes in (dict(exact_mask=True), dict(exact_ties=True), {}):
@@ -1252,8 +1362,8 @@ def test_dense_and_tie_modes_on_card_match_cpu(cuda, layout):
             assert [t for t, _ in ka] == [t for t, _ in kb]
             np.testing.assert_allclose([s for _, s in kb], [s for _, s in ka], atol=1e-4, rtol=0)
         canon.append([sorted((tuple(t), s) for s, t in h) for h in gpu])
-    assert counts.launches > n15 and dense_scores.dense_select.launches > n17
-    assert dense_scores.dense_scores.launches == n17s
+    assert masks.launches > n15 and dense_scores.dense_select.launches > n17
+    assert dense_scores.dense_scores.launches == n17s and counts.launches == c15
     assert canon[0] == canon[1] == canon[2]
 
 
@@ -1696,10 +1806,9 @@ def test_sample_select_counts_matches_plain(cuda, B, K, V, lp_case, case, graph)
     replayed from a CUDA graph; no streaming pass is launched."""
     g = torch.Generator(device=cuda).manual_seed(B * K + V)
     lp = _lp(g, B * K, V + (5 if lp_case == "strided" else 0), cuda)[:, :V]
-    counts, lp, prev_count, finished, bs = _dense_inputs(g, B, K, V, cuda, lp=lp)
-    counts = torch.where(torch.rand(B, K, V, generator=g, device=cuda) < 0.1, counts, 0)
+    mask, lp, prev_count, finished, bs = _dense_inputs(g, B, K, V, cuda, lp=lp, allowed=0.067)
     kw = dict(eos=2, pad=1, **DENSE_BRANCHES[case])
-    args = (counts, lp, prev_count, finished, bs, 7, 2)
+    args = (mask, lp, prev_count, finished, bs, 7, 2)
     n0, d0 = sample_select.sample_select_counts.launches, dense_scores.dense_scores.launches
     call = lambda: sample_select.sample_select_counts(*args, **kw)  # noqa: E731
     got = _graph_call(call) if graph else call()
@@ -1707,27 +1816,28 @@ def test_sample_select_counts_matches_plain(cuda, B, K, V, lp_case, case, graph)
     assert dense_scores.dense_scores.launches == d0
     want = sample_select.sample_select_counts_plain(*args, **kw)
     zero = torch.zeros_like(bs)
-    cons = dense_scores.dense_scores_plain(counts, lp, prev_count, finished, zero, **kw)
+    cons = dense_scores.dense_scores_plain(mask, lp, prev_count, finished, zero, **kw)
     _same_clear(got, want, cons, sample_select.gumbel_noise(7, 2, B * K, V, cuda), None)
 
 
 def _past_2_31(cuda):
     """F3's second size: B * K * V just past 2^31 elements (32 x 1,336 x
-    50,265: 8.6 GB of counts).  Only tokens 5 and 100 of beam K - 6 are
-    allowed in every query; in query 31 their flat index is past 2^31, so a
-    32-bit index would read another element."""
+    50,265: a 51 MB count mask, where the counts took 8.6 GB).  Only tokens
+    5 and 100 of beam K - 6 are allowed in every query; in query 31 their
+    flat index is past 2^31, so a 32-bit index would read another
+    element."""
     B, K, V = 32, 1336, 50265
     assert B * K * V > 2**31 and 31 * K * V + (K - 6) * V > 2**31
-    counts = torch.zeros((B, K, V), dtype=torch.int32, device=cuda)
-    counts[:, K - 6, 5] = 1
-    counts[:, K - 6, 100] = 3
+    mask = torch.zeros((B, K, count_mask.words(V)), dtype=torch.int32, device=cuda)
+    mask[:, K - 6, 0] = 1 << 5  # token 5
+    mask[:, K - 6, 3] = 1 << 4  # token 100 = 32 * 3 + 4
     lp = torch.full((B * K, V), -7.0, device=cuda)
     lp.view(B, K, V)[:, K - 6, 5] = -0.5
     lp.view(B, K, V)[:, K - 6, 100] = -0.25
     prev_count = torch.full((B, K), 9, dtype=torch.int32, device=cuda)
     finished = torch.zeros((B, K), dtype=torch.bool, device=cuda)
     bs = torch.zeros((B, K), device=cuda)
-    return (counts, lp, prev_count, finished, bs), (B, K, V)
+    return (mask, lp, prev_count, finished, bs), (B, K, V)
 
 
 def test_dense_select_past_2_31_elements(cuda):
@@ -1808,11 +1918,13 @@ def test_exact_mask_past_max_k_generates_on_card_matches_cpu(cuda):
     cpu = tg.fm_index_generate(cfg, params, TorchFMIndex.from_host(host, vocab=V, device="cpu"),
                                queries, **kw)
     s0, d0 = dense_scores.STREAM_SORT.launches, dense_scores.dense_select.launches
-    g0 = row_topk.GLOBAL_SORT.launches
+    g0, m0 = row_topk.GLOBAL_SORT.launches, fm_search.fm_dense_mask.launches
+    c0 = fm_search.fm_dense_counts.launches
     gpu = tg.fm_index_generate(cfg, _to(params, cuda),
                                TorchFMIndex.from_host(host, vocab=V, device=cuda), queries, **kw)
     assert dense_scores.STREAM_SORT.launches > s0 and dense_scores.dense_select.launches == d0
     assert row_topk.GLOBAL_SORT.launches > g0
+    assert fm_search.fm_dense_mask.launches > m0 and fm_search.fm_dense_counts.launches == c0
     assert sum(map(len, gpu)) > 0
     for a, b in zip(cpu, gpu):
         ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)

@@ -26,7 +26,7 @@ from seal_tpu_torch.index.wavelet import WaveletIndex
 from seal_tpu_torch.kernels import beam_select
 from seal_tpu_torch.models import bart as tbart
 from seal_tpu_torch.models import convert as tconvert
-from test_torch_dense_counts import _oov_host
+from test_torch_dense_counts import _oov_host, forbid_counts
 from test_torch_generate import _assert_same_hyps, _models, _random_corpus, _title_corpus
 
 LAYOUTS = ("psi", "compact", "hybrid")
@@ -70,11 +70,13 @@ def _canon(hyps):
 
 
 @pytest.mark.parametrize("case", ["seed0", "seed1", "seed2", "seed3", "skewed", "oov"])
-def test_exact_mask_generate_matches_jax(models, case):
+def test_exact_mask_generate_matches_jax(models, monkeypatch, case):
     """``exact_mask`` over the Psi, compact and hybrid layouts equals JAX's
     dense decode (tokens equal, scores within 1e-4), and the port's fast
-    path under tiny proposal budgets bit for bit."""
+    path under tiny proposal budgets bit for bit; with every entry to the
+    [B, K, V] counts raising (the decode reads the count mask alone)."""
     jcfg, tcfg, params, tparams = models
+    forbid_counts(monkeypatch)
     host, queries, kw = _dense_case(case)
     kw.update(min_length=1, forced_bos_token_id=None)
     ids, mask = jg.pad_batch(queries, jcfg.pad_token_id)

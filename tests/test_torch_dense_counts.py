@@ -12,7 +12,10 @@ outgrows the frontier's room, one walk a slice.  Kernel 17's
 plain version equals JAX's branches, mask and beam-score add bit for bit.
 Kernel 8's plain ties order equals ``_top_by_score_then_id`` on rows with
 signed zeros, ``NEG_INF`` and repeated scores, and the ``_beam_tok_tie``
-int32 limit raises in both packages."""
+int32 limit raises in both packages.  The count mask (kernels 15 and 16's
+mask modes, what the ``exact_mask`` decode reads) unpacked equals JAX's
+``dense_counts > 0`` on the three layouts, at vocabs under 32 and odd ones
+like BART's, its padding bits 0; the decode reads no counts."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +30,7 @@ from seal_tpu.ops import fm_ops as jfm
 from seal_tpu.ops import wt_ops as jwt
 from seal_tpu_torch.index.device_index import TorchFMIndex
 from seal_tpu_torch.index.wavelet import WaveletIndex
-from seal_tpu_torch.kernels import beam_select, dense_scores, fm_search, wt_search
+from seal_tpu_torch.kernels import beam_select, count_mask, dense_scores, fm_search, wt_search
 from seal_tpu_torch.ops import fm_ops as tfm
 from seal_tpu_torch.ops import wt_ops as twt
 from test_torch_generate import _random_corpus
@@ -44,6 +47,35 @@ def _histogram(host, lo, hi, vocab):
         sym = sym[(sym >= 0) & (sym < vocab)]
         out[i] = np.bincount(sym, minlength=vocab)
     return out
+
+
+def _assert_mask(got, counts, vocab):
+    """A count mask: int32 [..., words(vocab)], unpacked ``counts > 0``,
+    packed as ``count_mask.pack`` packs, no bit set past the vocab."""
+    counts = np.asarray(counts)
+    assert got.dtype == torch.int32
+    assert got.shape == (*counts.shape[:-1], count_mask.words(vocab))
+    np.testing.assert_array_equal(count_mask.unpack(got, vocab).numpy(), counts > 0)
+    bits = (got.numpy().astype(np.int64)[..., None] >> np.arange(32)) & 1
+    assert not bits.reshape(*got.shape[:-1], -1)[..., vocab:].any()  # the padding bits
+
+
+def forbid_counts(monkeypatch):
+    """Make every entry to the exact count vectors raise: the ops, the
+    adapters' methods, the kernels' counts modes and their plain sweeps.
+    What then still runs reads the count mask alone."""
+    from seal_tpu_torch.parallel import sharded_decode as tsd
+
+    def refuse(*a, **k):
+        raise AssertionError("an exact_mask step read the [B, K, V] counts")
+
+    for mod, name in ((tfm, "dense_counts"), (twt, "dense_counts"),
+                      (tsd.ShardedIndexOps, "dense_counts"),
+                      (fm_search, "fm_dense_counts"), (fm_search, "dense_counts_plain"),
+                      (fm_search, "fm_dense_counts_sharded"),
+                      (fm_search, "dense_counts_sharded_plain"),
+                      (wt_search, "wt_dense_counts"), (wt_search, "dense_counts_plain")):
+        monkeypatch.setattr(mod, name, refuse)
 
 
 def _oov_host(seed=5):
@@ -70,6 +102,30 @@ def test_fm_dense_counts_match_jax(corpus, chunk):
     assert got.dtype == torch.int32 and got.shape == (lo.size, 96)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(want, _histogram(host, lo, hi, 96))
+    n0 = fm_search.fm_dense_mask.launches
+    _assert_mask(tfm.dense_mask(TorchFMIndex.from_host(host, vocab=96, device="cpu"),
+                                torch.as_tensor(lo), torch.as_tensor(hi), chunk), want, 96)
+    assert fm_search.fm_dense_mask.launches == n0
+
+
+@pytest.mark.parametrize("vocab", [1, 5, 31, 32, 33, 127, 128, 129, 50265])
+def test_count_mask_layout(vocab):
+    """``count_mask.pack``: bit j of word w is token 32 w + j (numpy's
+    little-endian ``packbits``), 4 * ceil(V / 128) words a row, the padding
+    0; ``unpack`` inverts it."""
+    rng = np.random.default_rng(vocab)
+    allowed = rng.random((3, 2, vocab)) < 0.3
+    allowed[0, 0] = True
+    got = count_mask.pack(torch.as_tensor(allowed))
+    W = count_mask.words(vocab)
+    assert W % 4 == 0 and 32 * W >= vocab > 32 * (W - 4)
+    padded = np.zeros((3, 2, 32 * W), bool)
+    padded[..., :vocab] = allowed
+    want = np.packbits(padded, axis=-1, bitorder="little").view("<i4")
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(count_mask.unpack(got, vocab).numpy(), allowed)
+    with pytest.raises(ValueError, match="words"):
+        count_mask.unpack(got[..., :-4] if W > 4 else got[..., :2], vocab)
 
 
 @pytest.mark.parametrize("keep_bwt", [False, True])
@@ -90,6 +146,13 @@ def test_wt_dense_counts_match_jax(name, keep_bwt):
     assert wt_search.wt_dense_counts.launches == n0
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(want, _histogram(host, lo, hi, vocab))
+    # the mask: the wide vocabs on one n-gram's range and the full, empty,
+    # end-of-index, (0, 0) and sentinel ranges (a sweep of the vocab a range)
+    few = slice(None) if vocab < 1000 else [0, 5, 6, 7, 8, 9]
+    n0 = wt_search.wt_dense_mask.launches
+    _assert_mask(twt.dense_mask(t, torch.as_tensor(lo[few]), torch.as_tensor(hi[few]), chunk),
+                 want[few], vocab)
+    assert wt_search.wt_dense_mask.launches == n0
 
 
 @pytest.mark.parametrize("keep_bwt", [False, True])
@@ -155,7 +218,8 @@ def test_dense_scores_plain_matches_jax(stop_at_count, always_allow_eos):
                                           jnp.asarray(lp).reshape(B, K, V),
                                           jnp.asarray(prev_count), jnp.asarray(finished))
     want = np.asarray(jnp.where(allowed, cand, jc.NEG_INF) + jnp.asarray(bs)[..., None])
-    got = dense_scores.dense_scores(torch.as_tensor(counts), torch.as_tensor(lp),
+    mask = count_mask.pack(torch.as_tensor(counts) > 0)
+    got = dense_scores.dense_scores(mask, torch.as_tensor(lp),
                                     torch.as_tensor(prev_count), torch.as_tensor(finished),
                                     torch.as_tensor(bs), eos=2, pad=1,
                                     stop_at_count=stop_at_count,

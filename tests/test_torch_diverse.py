@@ -34,6 +34,7 @@ from seal_tpu_torch.models import bart as tbart
 from seal_tpu_torch.retrieval.searcher import SEALSearcher as TSearcher
 from test_decode_modes import _grounded
 from test_torch_dense import LAYOUTS, _canon, _port_index
+from test_torch_dense_counts import forbid_counts
 from test_torch_generate import _assert_same_hyps, _models, _random_corpus
 from test_torch_modes import _assert_same_raw, world  # noqa: F401
 from test_torch_searcher import KNOBS, QUERIES, _assert_same_results, searchers  # noqa: F401
@@ -286,10 +287,13 @@ def _jax_hyps(route, ties):
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("route", sorted(ROUTES))
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_diverse_generation_matches_jax(models, layout, route, ties):
+def test_diverse_generation_matches_jax(models, monkeypatch, layout, route, ties):
     """Two groups at penalty 0.5 on every layout and route, in both tie
-    orders: JAX's hypotheses, scores within 1e-4."""
+    orders: JAX's hypotheses, scores within 1e-4 (``exact_mask`` with
+    every entry to the count vectors raising: it reads the count mask)."""
     _, tcfg, _, tparams = models
+    if route == "exact_mask":
+        forbid_counts(monkeypatch)
     host, queries = _random_corpus(6)
     th = tg.fm_index_generate(tcfg, tparams, _port_index(host, layout), queries, exact_ties=ties,
                               **COMMON, **ROUTES[route])

@@ -12,7 +12,9 @@ plateaus, at k = 1 and k = n.  The dense step's plain fused select
 2K) equals JAX's dense ``_candidates_general`` branch, the ``NEG_INF``
 mask, the beam scores added and ``lax.top_k`` bit for bit, values and int64
 indices, with every branch taken (``stop_at_count``, finished beams,
-``always_allow_eos``)."""
+``always_allow_eos``), reading the count mask (kernel 15's mask mode),
+whose plain version equals JAX's ``dense_counts > 0`` at vocabs of 29 and
+50,265."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,9 +27,11 @@ from seal_tpu.index import FMIndex
 from seal_tpu.index.device_index import DeviceFMIndex
 from seal_tpu.ops import fm_ops as jfm
 from seal_tpu_torch.index.device_index import TorchFMIndex
-from seal_tpu_torch.kernels import dense_scores, row_select, row_topk
+from seal_tpu_torch.kernels import count_mask, dense_scores, row_select, row_topk
 from seal_tpu_torch.ops import fm_ops as tfm
+from test_torch_dense_counts import _assert_mask, _oov_host
 from test_torch_fm_ops import _find_bin, _order_keys
+from test_torch_wavelet import _ranges
 
 
 def _kth_mirror(x, k, p):
@@ -103,6 +107,23 @@ def test_row_kth_plan(rows, n, k):
         assert row_select.plan(rows, n, k, splits=s).splits == s
 
 
+@pytest.mark.parametrize("vocab", [29, 50265])
+def test_fm_dense_mask_vocabs_match_jax(vocab):
+    """Psi layout: the count mask at a vocab under 32 words' worth of the
+    corpus (symbols past it occur) and at BART's odd 50,265, over full,
+    empty, end-of-index, (0, 0) and sentinel ranges, equals JAX's
+    ``dense_counts > 0``."""
+    host = _oov_host(vocab)
+    lo, hi = _ranges(host, np.random.default_rng(vocab), n=24 if vocab < 1000 else 10)
+    if vocab > 1000:  # a sweep of the vocab a range: one n-gram's and the five above
+        lo, hi = lo[[0, 5, 6, 7, 8, 9]], hi[[0, 5, 6, 7, 8, 9]]
+    want = np.asarray(jfm.dense_counts(DeviceFMIndex.from_host(host, vocab=vocab), lo, hi, 4096))
+    got = tfm.dense_mask(TorchFMIndex.from_host(host, vocab=vocab, device="cpu"),
+                         torch.as_tensor(lo), torch.as_tensor(hi), 2048)
+    _assert_mask(got, want, vocab)
+    assert want.any() and not want.all()
+
+
 def _dense_case(seed, B=3, K=4, V=96):
     rng = np.random.default_rng(seed)
     docs = [rng.integers(4, 90, size=rng.integers(5, 30)).tolist() + [2] for _ in range(30)]
@@ -147,11 +168,11 @@ def test_dense_select_plain_matches_jax(stop_at_count, always_allow_eos):
         jnp.asarray(hi), jnp.asarray(prev_count), jnp.asarray(finished))
     cons = jnp.where(allowed, cand, jc.NEG_INF) + jnp.asarray(bs)[..., None]
     jv, ji = lax.top_k(cons.reshape(B, K * V), 2 * K)
-    counts = tfm.dense_counts(TorchFMIndex.from_host(host, vocab=V, device="cpu"),
-                              torch.as_tensor(lo), torch.as_tensor(hi), cfg.dense_chunk)
+    mask = tfm.dense_mask(TorchFMIndex.from_host(host, vocab=V, device="cpu"),
+                          torch.as_tensor(lo), torch.as_tensor(hi), cfg.dense_chunk)
     n0 = dense_scores.dense_select.launches
     tv, ti = dense_scores.dense_select(
-        counts, torch.as_tensor(lp), torch.as_tensor(prev_count), torch.as_tensor(finished),
+        mask, torch.as_tensor(lp), torch.as_tensor(prev_count), torch.as_tensor(finished),
         torch.as_tensor(bs), 2 * K, eos=cfg.eos_token_id, pad=cfg.pad_token_id,
         stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
     assert dense_scores.dense_select.launches == n0  # the CPU runs the plain version
@@ -168,13 +189,15 @@ def test_dense_select_limits():
     """The wrapper refuses a k past the row and mismatched shapes on the CPU
     as on the card."""
     host, lo, hi, lp, prev_count, finished, bs = _dense_case(9)
-    counts = torch.zeros((3, 4, 96), dtype=torch.int32)
-    args = (counts, torch.as_tensor(lp), torch.as_tensor(prev_count), torch.as_tensor(finished),
+    mask = count_mask.pack(torch.zeros((3, 4, 96), dtype=torch.bool))
+    args = (mask, torch.as_tensor(lp), torch.as_tensor(prev_count), torch.as_tensor(finished),
             torch.as_tensor(bs))
     with pytest.raises(ValueError, match="width"):
         dense_scores.dense_select(*args, 4 * 96 + 1, eos=2, pad=1)
-    with pytest.raises(ValueError, match="lp"):
-        dense_scores.dense_select(counts, torch.as_tensor(lp[:, :95]), *args[2:], 8, eos=2, pad=1)
+    with pytest.raises(ValueError, match="lp"):  # 6 rows of log-probs for 12 beams
+        dense_scores.dense_select(mask, torch.as_tensor(lp[:6]), *args[2:], 8, eos=2, pad=1)
+    with pytest.raises(ValueError, match="count mask"):  # 2 words a beam for a vocab of 96
+        dense_scores.dense_select(mask[..., :2], *args[1:], 8, eos=2, pad=1)
     v, i = dense_scores.dense_select(*args, 4 * 96, eos=2, pad=1)  # k = the whole row
     assert torch.equal(i, row_topk.row_topk_plain(dense_scores.dense_scores(*args, eos=2, pad=1),
                                                   4 * 96)[1])

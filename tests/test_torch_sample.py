@@ -28,6 +28,7 @@ from seal_tpu_torch.kernels import sample_select as ks
 from seal_tpu_torch.models import bart as tbart
 from test_decode_modes import _grounded
 from test_torch_dense import LAYOUTS, _port_index
+from test_torch_dense_counts import forbid_counts
 from test_torch_generate import _assert_same_hyps, _models, _random_corpus
 from test_torch_modes import _assert_same_raw, world  # noqa: F401
 
@@ -180,11 +181,11 @@ def test_sample_select_counts_plain_matches_jax(stop_at_count, always_allow_eos)
     want = jc._select_sample(cfg, cons, cand + jnp.asarray(bs)[..., None], tokens,
                              eos_lp + jnp.asarray(bs), key)
     t = torch.as_tensor
-    counts = tfm.dense_counts(TorchFMIndex.from_host(host, vocab=V, device="cpu"), t(lo), t(hi),
-                              cfg.dense_chunk)
+    mask = tfm.dense_mask(TorchFMIndex.from_host(host, vocab=V, device="cpu"), t(lo), t(hi),
+                          cfg.dense_chunk)
     n0 = ks.sample_select_counts.launches
     got = ks.sample_select_counts_plain(
-        counts, t(lp), t(prev_count), t(finished), t(bs), 0, 0, eos=cfg.eos_token_id,
+        mask, t(lp), t(prev_count), t(finished), t(bs), 0, 0, eos=cfg.eos_token_id,
         pad=cfg.pad_token_id, stop_at_count=stop_at_count, always_allow_eos=always_allow_eos,
         noise=t(gumbel).reshape(B * K, V))
     for a, b in zip(got, want):
@@ -193,7 +194,7 @@ def test_sample_select_counts_plain_matches_jax(stop_at_count, always_allow_eos)
             a, b = a.view(np.int32), b.view(np.int32)
         np.testing.assert_array_equal(a, b.astype(a.dtype))
     # the wrapper runs the plain version on the CPU (no launch)
-    ks.sample_select_counts(counts, t(lp), t(prev_count), t(finished), t(bs), 0, 0,
+    ks.sample_select_counts(mask, t(lp), t(prev_count), t(finished), t(bs), 0, 0,
                             eos=cfg.eos_token_id, pad=cfg.pad_token_id)
     assert ks.sample_select_counts.launches == n0
     assert finished.any() and not bool(got[7].logical_not().any())
@@ -263,8 +264,11 @@ def test_sample_generation_with_jax_noise_matches_jax(models, monkeypatch, route
     """``fm_index_generate(sample=True)`` with JAX's draws equals JAX's token
     for token (scores within 1e-4): the proven proposal loop (a small
     ``top_m`` and chunk, so it sweeps several rounds) on the three layouts,
-    and the ``exact_mask``, speculative and free routes."""
+    and the ``exact_mask`` (no count vector read: every entry to them
+    raises), speculative and free routes."""
     jcfg, tcfg, params, tparams = models
+    if route == "exact_mask":
+        forbid_counts(monkeypatch)
     host, queries = _random_corpus(2)
     kw = dict(COMMON, sample=True, seed=4, **ROUTES[route])
     jh = jg.fm_index_generate(jcfg, params, DeviceFMIndex.from_host(host, vocab=96), queries, **kw)
