@@ -245,6 +245,8 @@ REPLACES = {
     "window_slab_sharded": "seal_tpu/parallel/sharded_decode.py:100",
     "slab_gather_sharded": "seal_tpu/parallel/sharded_decode.py:100",
     "wt_search_advance": "seal_tpu/decoding/constrained.py:1416",
+    "wt_window_slab": "seal_tpu/decoding/constrained.py:622",
+    "wt_slab_gather": "seal_tpu/decoding/constrained.py:622",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -301,6 +303,8 @@ SOURCES = {
     "window_slab_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/window_gather.cu"),
     "slab_gather_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/window_gather.cu"),
     "wt_search_advance": ("cuda", "seal_tpu_torch/kernels/csrc/wt_search.cu"),
+    "wt_window_slab": ("cuda", "seal_tpu_torch/kernels/csrc/wt_window.cu"),
+    "wt_slab_gather": ("cuda", "seal_tpu_torch/kernels/csrc/wt_window.cu"),
 }
 # the kernels each driven path must launch (bucket_counts and the loop
 # rounds' merges run only in the proven loop, which the force_full re-runs
@@ -322,18 +326,22 @@ PATH_KERNELS = {
 }
 # the compact and hybrid wavelet layouts: the same paths through kernels
 # 12-14, and none of the Psi index kernels they replace (1, 2, 5, 6); the
-# hybrid window is kernel 13's direct mode, not kernel 2
+# hybrid window is kernel 13's direct mode, not kernel 2.  Kernel 12's step
+# mode advances the ranges, kernel 13's window + slab mode gathers a step's
+# window and round 0's slab in one launch (its slab mode a straggler
+# round's), as kernel 2 does on the Psi index
 WAVELET_LAYOUTS = ("compact", "hybrid")
 PSI_INDEX_KERNELS = ("fm_search", "window_gather", "fm_sequences", "bucket_counts",
                      "fm_dense_counts", "fm_dense_mask")
-for _layout in WAVELET_LAYOUTS:  # kernel 12's step mode advances the ranges
+for _layout in WAVELET_LAYOUTS:
     PATH_KERNELS[f"generate_{_layout}"] = (
         "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len",
-        "wt_search_advance") + DECODE_STEP
-    PATH_KERNELS[f"generate_{_layout}_force_full"] = ("wt_bucket_counts", "beam_merge")
+        "wt_search_advance", "wt_window_slab") + DECODE_STEP
+    PATH_KERNELS[f"generate_{_layout}_force_full"] = ("wt_bucket_counts", "beam_merge",
+                                                      "wt_slab_gather")
     PATH_KERNELS[f"batch_search_{_layout}"] = (
         "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len",
-        "rescore_logprob", "wt_search_advance") + DECODE_STEP
+        "rescore_logprob", "wt_search_advance", "wt_window_slab") + DECODE_STEP
 # the dense parity mode (exact_mask): each step's count mask (kernel 15's
 # mask mode, or 16's on the wavelet layouts; never their counts modes), then
 # the candidate pass (17) inside the
@@ -469,17 +477,19 @@ def wavelet_constrained(path: str) -> bool:
 
 
 def fused_window(path: str):
-    """Kernel 2's counters on a decode path whose selecting steps after
-    step 0 take one launch of it: the window + slab mode where a beam needs
-    a proposal round, the window mode alone where every beam is exempt;
-    (every launch, the window + slab mode, the straggler rounds' slab mode)
-    of the Psi index or of the shards.  None where the step takes no round
-    0 slab (speculative, ``exact_mask``, free generation) or composes kernel
-    13 (the wavelet layouts)."""
-    if any(x in path for x in ("compact", "hybrid", "spec", "dense", "free")):
+    """The window kernel's counters on a decode path whose selecting steps
+    after step 0 take one launch of it: the window + slab mode where a beam
+    needs a proposal round, the window mode alone where every beam is
+    exempt; (every launch, the window + slab mode, the straggler rounds'
+    slab mode) of kernel 2 on the Psi index or the shards, of kernel 13 on
+    the wavelet layouts.  None where the step takes no round 0 slab (speculative, ``exact_mask``,
+    free generation)."""
+    if any(x in path for x in ("spec", "dense", "free")):
         return None
     if "sharded" in path:
         return "window_gather_sharded", "window_slab_sharded", "slab_gather_sharded"
+    if any(x in path for x in WAVELET_LAYOUTS):
+        return "wt_window_gather", "wt_window_slab", "wt_slab_gather"
     return "window_gather", "window_slab", "slab_gather"
 
 
@@ -687,7 +697,17 @@ def log_kernel(row) -> None:
                                                "loop_chunk_plain_ms", "group_graph_ms",
                                                "composed_ms", "composed_graph_ms", "block_ms",
                                                "block_graph_ms", "beam32_ms", "cand_ms",
-                                               "n_buf_3000_ms", "cluster_ms", "cluster_graph_ms")
+                                               "n_buf_3000_ms", "cluster_ms", "cluster_graph_ms",
+                                               "hybrid_composed_graph_ms", "hybrid_bound_ms",
+                                               "ranges_graph_ms", "count_filter_shape",
+                                               "count_filter_plan", "count_filter_ms",
+                                               "count_filter_graph_ms",
+                                               "count_filter_ranges_graph_ms",
+                                               "count_filter_group_graph_ms",
+                                               "mono_count_filter_ms",
+                                               "mono_count_filter_graph_ms",
+                                               "count_filter_bound_ms",
+                                               "ranges_group_graph_ms")
                   if k in row))
 
 
@@ -853,13 +873,10 @@ def kernel_phases(np, torch, host, index, V, B, K):
     return table
 
 
-def window_bytes(torch, lo, hi, w: int, width: int, rows_prev: int, toks) -> int:
-    """Bytes kernel 2 must move for ranges lo/hi (a leading shard axis
-    included): each range's bounds; each distinct BWT row its window and
-    slab read (a row both read counts once); each distinct lp element, a
-    (range, token) pair among the output tokens ``toks`` (the window's and
-    the slab's, [..., slots]: a fill token is one address a range, a token
-    two slots hold is read once); and 9 output bytes a slot."""
+def window_row_keys(torch, lo, hi, w: int, width: int, rows_prev: int):
+    """The rows a window (w slots) and a slab (width slots past rows_prev)
+    of ranges lo/hi read, as keys range * span + row (a row both read is
+    one key), and span."""
     l, h = lo.reshape(-1).long(), hi.reshape(-1).long()
     q = torch.arange(l.numel(), device=l.device)[:, None]
     span = int(h.max()) + 1
@@ -872,12 +889,101 @@ def window_bytes(torch, lo, hi, w: int, width: int, rows_prev: int, toks) -> int
         s_lo = torch.minimum(l + rows_prev, h)[:, None]
         r = s_lo + torch.arange(width, device=l.device)
         keys.append((q * span + r)[r < torch.minimum(s_lo + width, h[:, None])])
-    rows = int(torch.unique(torch.cat(keys)).numel())
+    return torch.unique(torch.cat(keys)), span
+
+
+def window_bytes(torch, lo, hi, w: int, width: int, rows_prev: int, toks,
+                 row_bytes: float = 4) -> int:
+    """Bytes kernel 2 (or 13) must move for ranges lo/hi (a leading shard
+    axis included): each range's bounds; each distinct BWT row its window
+    and slab read (a row both read counts once) at ``row_bytes`` (0: the
+    caller counts the index's bytes itself); each distinct lp element, a
+    (range, token) pair among the output tokens ``toks`` (the window's and
+    the slab's, [..., slots]: a fill token is one address a range, a token
+    two slots hold is read once); and 9 output bytes a slot."""
+    l = lo.reshape(-1)
+    rows = int(window_row_keys(torch, lo, hi, w, width, rows_prev)[0].numel()) * row_bytes / 4
     vocab = max(int(t.max()) for t in toks) + 1
     n_lp = int(torch.unique(torch.cat([
         (torch.arange(t[..., 0].numel(), device=t.device)[:, None] * vocab
          + t.reshape(t[..., 0].numel(), -1).long()).reshape(-1) for t in toks])).numel())
-    return l.numel() * (8 + (w + width) * 9) + 4 * rows + 4 * n_lp
+    return int(l.numel() * (8 + (w + width) * 9) + 4 * rows + 4 * n_lp)
+
+
+def wt_window_slab_rows(torch, k12, k13, layouts, lo, hi, lp, B, K, V):
+    """Kernel 13's window + slab mode (w 32, round 0's width 64; beam 32's
+    window of 128; a narrow step) and slab mode (a straggler round: rows 64
+    to 320) on the compact and hybrid layouts against their plain versions,
+    exactly; each timed eager and graph-replayed beside the parent's
+    launches (two window-mode calls and the bounds' eager ops, or the bounds
+    and one call).  The bound: the ranges, outputs and lp bytes of
+    ``window_bytes``, and the index bytes the rows' symbols need (the
+    compact layout's descents' distinct sectors; the hybrid's 2-byte rows)."""
+    from seal_tpu_torch.kernels.window_gather import slab_bounds
+
+    err = 0
+    for ix in layouts.values():
+        for w, width in ((32, 64), (128, 64), (4, 8)):
+            got = k13.wt_window_slab(ix, lo, hi, w, width, lp, 1)
+            want = k13.wt_window_slab_plain(ix, lo, hi, w, width, lp, 1)
+            err += sum(int((a != b).sum()) for a, b in zip(got, want)) + (len(got) != 6)
+        for rows_prev, width in ((64, 256), (0, 64), (320, 1024)):
+            got = k13.wt_slab_gather(ix, lo, hi, rows_prev, width, lp)
+            want = k13.wt_slab_gather_plain(ix, lo, hi, rows_prev, width, lp)
+            err += sum(int((a != b).sum()) for a, b in zip(got, want))
+        for got, want in ((graph_result(torch, lambda: k13.wt_window_slab(ix, lo, hi, 32, 64, lp,
+                                                                          1)),
+                           k13.wt_window_slab_plain(ix, lo, hi, 32, 64, lp, 1)),
+                          (graph_result(torch, lambda: k13.wt_slab_gather(ix, lo, hi, 64, 256,
+                                                                          lp)),
+                           k13.wt_slab_gather_plain(ix, lo, hi, 64, 256, lp))):
+            err += sum(int((a != b).sum()) for a, b in zip(got, want))
+    if err:
+        fail(f"wt_window_slab / wt_slab_gather differ from their plain versions ({err} elements)")
+    compact, hybrid = layouts["compact"], layouts["hybrid"]
+
+    def index_bytes(w, width, rows_prev):
+        keys, span = window_row_keys(torch, lo, hi, w, width, rows_prev)
+        rows = torch.unique(keys % span)
+        trace = []
+        k12.access_plain(compact, rows.int(), trace=trace)
+        return touched_bytes(torch, trace), 2 * int(rows.numel())
+
+    def two_calls(ix):  # the step's gathers as the parent launched them
+        k13.wt_window_gather(ix, lo, hi, 32, lp, 1)
+        return k13.wt_window_gather(ix, *slab_bounds(lo, hi, 0, 64), 64, lp, 0)
+
+    def straggler_calls(ix):
+        return k13.wt_window_gather(ix, *slab_bounds(lo, hi, 64, 256), 256, lp, 0)
+
+    rows = []
+    for name, fn, parent, w, width, rows_prev, what in (
+            ("wt_window_slab", lambda ix: k13.wt_window_slab(ix, lo, hi, 32, 64, lp, 1),
+             two_calls, 32, 64, 0, "window w=32 and round 0's slab width=64 in one launch"),
+            ("wt_slab_gather", lambda ix: k13.wt_slab_gather(ix, lo, hi, 64, 256, lp),
+             straggler_calls, 0, 256, 64, "a straggler round's slab, rows 64 to 320")):
+        plain = (k13.wt_window_slab_plain if width == 64 else k13.wt_slab_gather_plain)
+        plain_args = (32, 64, lp, 1) if width == 64 else (64, 256, lp)
+        compact_bytes, hybrid_bytes = index_bytes(w, width, rows_prev)
+        out = fn(compact)
+        toks = [out[0], out[3]] if w else [out[0]]
+        rows.append(dict(
+            name=name, max_abs_err=err, library_ms=None,
+            ms=time_ms(lambda: fn(compact)), graph_ms=graph_ms(lambda: fn(compact)),
+            plain_ms=time_ms(lambda: plain(compact, lo, hi, *plain_args)),
+            composed_ms=time_ms(lambda: parent(compact)),
+            composed_graph_ms=graph_ms(lambda: parent(compact)),
+            hybrid_ms=time_ms(lambda: fn(hybrid)), hybrid_graph_ms=graph_ms(lambda: fn(hybrid)),
+            hybrid_composed_graph_ms=graph_ms(lambda: parent(hybrid)),
+            hybrid_bound_ms=(window_bytes(torch, lo, hi, w, width, rows_prev, toks, 0)
+                             + hybrid_bytes) / HBM_BYTES_PER_S * 1e3,
+            shape=f"[{B},{K}] ranges over lp [{B * K},{V}], compact ({compact.digits} levels a "
+                  f"slot; hybrid_*: the hybrid layout): {what} (composed_*: the parent's "
+                  "launches, kernel 13's window mode and the bounds' eager ops)",
+            bytes=window_bytes(torch, lo, hi, w, width, rows_prev, toks, 0) + compact_bytes,
+            index_bytes=compact_bytes,
+        ))
+    return rows
 
 
 def window_slab_rows(torch, k2, ix, lo, hi, lp, shard: str, B, K, V):
@@ -1372,11 +1478,22 @@ def search_kernel_phases(np, torch, host, index, vocab):
     err5 = max(int((a - b).abs().max()) for a, b in zip(got, want))
     if err5:
         fail(f"fm_sequences differs from its plain version (max err {err5})")
+    for G in k5.GROUPS:  # every group width, forced
+        got = k5.fm_sequences(index, toks, lens, group=G)
+        err5 = max([err5] + [int((a - b).abs().max()) for a, b in zip(got, want)])
+    if err5:
+        fail("fm_sequences at a forced group width differs from its plain version")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     table.append(dict(
         name="fm_sequences", max_abs_err=err5,
         ms=time_ms(lambda: k5.fm_sequences(index, toks, lens)),
+        graph_ms=graph_ms(lambda: k5.fm_sequences(index, toks, lens)),
+        group_graph_ms={G: graph_ms(lambda G=G: k5.fm_sequences(index, toks, lens, group=G))
+                        for G in k5.GROUPS},
         plain_ms=time_ms(lambda: k5.sequences_plain(index, toks, lens)),
-        shape=f"[{n}, {L}], lengths 1-{L}, {int(((want[1] - want[0]) > 0).sum())} non-empty",
+        shape=f"[{n}, {L}], lengths 1-{L}, {int(((want[1] - want[0]) > 0).sum())} non-empty; "
+              f"group {k5.sequences_plan(n, sms)[0]} lanes a sequence (group_graph_ms: each "
+              "width forced)",
         library_ms=None,
         # tokens, lengths, ranges out, and per position two search chains of
         # at most search_iters dependent psi reads
@@ -1635,7 +1752,10 @@ def wavelet_kernel_phases(np, torch, host, psi, layouts, V, B, K):
               "and direct (hybrid_ms: one 2-byte read a slot)",
         # ranges, the descents' index bytes, the lp reads and the outputs
         bytes=B * K * 8 + index13 + slots * (4 + 9), index_bytes=index13,
+        graph_ms=graph_ms(lambda: k13.wt_window_gather(compact, lo, hi, 32, lp, 1)),
+        hybrid_graph_ms=graph_ms(lambda: k13.wt_window_gather(hybrid, lo, hi, 32, lp, 1)),
     ))
+    table += wt_window_slab_rows(torch, k12, k13, layouts, lo, hi, lp, B, K, V)
 
     # kernel 14: [B, K] ranges into 256 buckets, plus a range inside one
     # block and one across a block edge
@@ -2922,12 +3042,14 @@ def t5_phase(np, torch, zero_counts, read_counts):
                        search_qps=len(queries) / search_s, keys=n_keys)
 
 
-def sharded_kernel_phases(np, torch, si, hosts, V, B, K):
+def sharded_kernel_phases(np, torch, si, hosts, V, B, K, count_filter=None):
     """Kernels 1, 2, 5, 6 and 15 (counts and mask) in their shard modes against their plain
     versions at the sharded generation path's shapes (S shards stacked on
     the card, ranges [S, B, K]), exactly: integer results and gathered
     floats.  Each bound counts every shard's inputs read once and the merged
-    output written once."""
+    output written once.  ``count_filter``: (tokens, lengths, the searcher's
+    monolithic Psi index) of the sharded searcher's most common kernel 5
+    call, timed beside the [4096, 16] shape."""
     from seal_tpu_torch.kernels import bucket_counts as k6
     from seal_tpu_torch.kernels import count_mask
     from seal_tpu_torch.kernels import fm_search as k1
@@ -3022,15 +3144,62 @@ def sharded_kernel_phases(np, torch, si, hosts, V, B, K):
                                                     want5))
     wcount = k1.sequences_sharded_plain(si, toks, lens, count=True)
     err5 += int((k1.fm_sequences_sharded(si, toks, lens, count=True) != wcount).sum())
+    err5 += int((graph_result(torch, lambda: k1.fm_sequences_sharded(si, toks, lens, count=True))
+                 != wcount).sum())
+    for G in k1.GROUPS:  # every group width forced, both modes
+        err5 += int((k1.fm_sequences_sharded(si, toks, lens, count=True, group=G)
+                     != wcount).sum())
+        err5 += sum(int((a != b).sum()) for a, b in zip(
+            k1.fm_sequences_sharded(si, toks, lens, group=G), want5))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    extra = {}
+    if count_filter is not None:  # the searcher's count filter, as it called kernel 5
+        ctoks, clens, mono = count_filter
+        cwant = k1.sequences_sharded_plain(si, ctoks, clens, count=True)
+        err5 += int((k1.fm_sequences_sharded(si, ctoks, clens, count=True) != cwant).sum())
+        err5 += sum(int((a != b).sum()) for a, b in zip(
+            k1.fm_sequences_sharded(si, ctoks, clens), k1.sequences_sharded_plain(si, ctoks,
+                                                                                   clens)))
+        err5 += sum(int((a != b).sum()) for a, b in zip(
+            k1.fm_sequences(mono, ctoks, clens), k1.sequences_plain(mono, ctoks, clens)))
+        cn, cL = ctoks.shape
+        extra = dict(
+            count_filter_shape=f"[{cn},{cL}]",
+            count_filter_plan=k1.sequences_plan(cn, sms, S),
+            count_filter_ms=time_ms(lambda: k1.fm_sequences_sharded(si, ctoks, clens,
+                                                                    count=True)),
+            count_filter_graph_ms=graph_ms(lambda: k1.fm_sequences_sharded(si, ctoks, clens,
+                                                                           count=True)),
+            count_filter_ranges_graph_ms=graph_ms(lambda: k1.fm_sequences_sharded(si, ctoks,
+                                                                                  clens)),
+            count_filter_group_graph_ms={G: graph_ms(
+                lambda G=G: k1.fm_sequences_sharded(si, ctoks, clens, count=True, group=G))
+                for G in k1.GROUPS},
+            mono_count_filter_ms=time_ms(lambda: k1.fm_sequences(mono, ctoks, clens)),
+            mono_count_filter_graph_ms=graph_ms(lambda: k1.fm_sequences(mono, ctoks, clens)),
+            count_filter_bound_ms=(cn * (cL * 4 + 4 + 4) + S * int(clens.sum()) * 2 * 4
+                                   * si.search_iters) / HBM_BYTES_PER_S * 1e3,
+        )
     if err5:
         fail(f"fm_sequences_sharded differs from its plain version ({err5} elements)")
     table.append(dict(
         name="fm_sequences_sharded", max_abs_err=err5, library_ms=None,
         ms=time_ms(lambda: k1.fm_sequences_sharded(si, toks, lens, count=True)),
+        graph_ms=graph_ms(lambda: k1.fm_sequences_sharded(si, toks, lens, count=True)),
+        group_graph_ms={G: graph_ms(
+            lambda G=G: k1.fm_sequences_sharded(si, toks, lens, count=True, group=G))
+            for G in k1.GROUPS},
         plain_ms=time_ms(lambda: k1.sequences_sharded_plain(si, toks, lens, count=True)),
         ranges_ms=time_ms(lambda: k1.fm_sequences_sharded(si, toks, lens)),
-        shape=f"[{n},{L}] over {S} shards, counts summed; {int((wcount > 0).sum())} non-empty",
+        ranges_graph_ms=graph_ms(lambda: k1.fm_sequences_sharded(si, toks, lens)),
+        ranges_group_graph_ms={G: graph_ms(
+            lambda G=G: k1.fm_sequences_sharded(si, toks, lens, group=G)) for G in k1.GROUPS},
+        shape=f"[{n},{L}] over {S} shards, counts summed; {int((wcount > 0).sum())} non-empty; "
+              f"(group, team) {k1.sequences_plan(n, sms, S)} (group_graph_ms: each "
+              f"width forced; count_filter_*: the sharded searcher's most common call, mono_*: "
+              "the same on the searcher's monolithic Psi index)",
         bytes=n * (L * 4 + 4 + 4) + S * int(lens.sum()) * 2 * 4 * si.search_iters,
+        **extra,
     ))
 
     # kernel 6: every shard's bucket counts of its [B, K] ranges, summed
@@ -3631,12 +3800,45 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
     sharded.batch_search(unit, k=bench_search.TOP_K)  # warm-up unit
     torch.cuda.synchronize()
     sharded.phase_timer.enabled = True
+    # kernel 5's calls in the timed run: (mode, n, L) of each, and the first
+    # inputs of each shape (the count filter's, timed in the kernel phase)
+    from seal_tpu_torch.parallel import sharded_decode as sd_mod
+    from seal_tpu_torch.parallel import sharded_index as si_mod
+
+    k5_calls, k5_inputs, k5_fns = [], {}, {}
+    for mod in (si_mod, sd_mod):
+        k5_fns[mod] = mod.fm_sequences_sharded
+
+        def logged(si_, tokens, lengths, count=False, _fn=k5_fns[mod], **kw_):
+            key = (bool(count), *tuple(np.shape(tokens)))
+            k5_calls.append(key)
+            k5_inputs.setdefault(key, (torch.as_tensor(tokens, dtype=torch.int32,
+                                                       device=si_.device).clone(),
+                                       torch.as_tensor(lengths, dtype=torch.int32,
+                                                       device=si_.device).clone()))
+            return _fn(si_, tokens, lengths, count=count, **kw_)
+
+        mod.fm_sequences_sharded = logged
     zero_counts()
     t0 = time.perf_counter()
-    s_res = sharded.batch_search(queries, k=bench_search.TOP_K)
-    torch.cuda.synchronize()
+    try:
+        s_res = sharded.batch_search(queries, k=bench_search.TOP_K)
+        torch.cuda.synchronize()
+    finally:
+        for mod, fn in k5_fns.items():
+            mod.fm_sequences_sharded = fn
     s_search = time.perf_counter() - t0
     s_counts = read_counts("batch_search_sharded")
+    shapes = collections.Counter(k5_calls)
+    log(f"kernel 5 in the batch_search_sharded run: {len(k5_calls)} launches; (count mode, n, "
+        "L): launches " + ", ".join(f"{k}: {v}" for k, v in shapes.most_common())
+        + f"; {sum(k[1] for k in k5_calls)} sequences in all")
+    count_filter = None
+    if shapes:
+        common = shapes.most_common(1)[0][0]
+        count_filter = (*k5_inputs[common], searcher.device_index)
+        log(f"kernel 5's most common call in the batch_search_sharded run: {common} "
+            f"({shapes[common]} of {len(k5_calls)})")
     t0 = time.perf_counter()
     m_res = searcher.batch_search(queries, k=bench_search.TOP_K)
     torch.cuda.synchronize()
@@ -3672,7 +3874,8 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
         f"{max(diffs, default=0.0):.3e} (the ranker counts a sentinel a shard)")
     log(f"launches in the batch_search_sharded run: {s_counts}")
     del sharded
-    table = sharded_kernel_phases(np, torch, si, hosts, bench_generate.VOCAB, B, K)
+    table = sharded_kernel_phases(np, torch, si, hosts, bench_generate.VOCAB, B, K,
+                                  count_filter=count_filter)
     table += large_select_phase(np, torch, cfg, bench_generate.VOCAB, B, K32, S)
     return table, dict(qps=B / per_batch, turns=qps, beam32_qps=B / b32_s,
                        bytes_per_token=si.memory_bytes() / n_tokens,
@@ -3797,6 +4000,8 @@ def main() -> int:
         "window_slab_sharded": window_gather.WINDOW_SLAB_SHARDED,
         "slab_gather_sharded": window_gather.SLAB_SHARDED,
         "wt_search_advance": wt_search.ADVANCE,
+        "wt_window_slab": wt_window.WINDOW_SLAB,
+        "wt_slab_gather": wt_window.SLAB,
     }
     # the calls of the sharded index's ops (each must be one launch)
     op_calls: collections.Counter = collections.Counter()
@@ -3865,7 +4070,7 @@ def main() -> int:
                     "fm_search_advance": n - no_select if psi_constrained(path) else 0,
                     "wt_search_advance": n - no_select if wavelet_constrained(path) else 0}
             fused = fused_window(path)
-            for name in ("window_slab", "window_slab_sharded"):
+            for name in ("window_slab", "window_slab_sharded", "wt_window_slab"):
                 if not fused or name != fused[1]:
                     want[name] = 0
             if fused:  # once a step after step 0, besides the straggler rounds' slabs
@@ -4742,7 +4947,13 @@ def main() -> int:
                                    "kernels_per_call", "proof_failures", "walk_ms",
                                    "hybrid_walk_ms", "hybrid_graph_ms", "cluster_ms",
                                    "cluster_graph_ms", "counts_ms", "counts_graph_ms",
-                                   "hybrid_counts_graph_ms")
+                                   "hybrid_counts_graph_ms", "hybrid_composed_graph_ms",
+                                   "hybrid_bound_ms", "ranges_graph_ms", "count_filter_shape",
+                                   "count_filter_plan", "count_filter_ms",
+                                   "count_filter_graph_ms", "count_filter_ranges_graph_ms",
+                                   "count_filter_group_graph_ms", "mono_count_filter_ms",
+                                   "mono_count_filter_graph_ms", "count_filter_bound_ms",
+                                   "ranges_group_graph_ms")
                if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}

@@ -4,6 +4,7 @@ on the card, in this checkout
 and, with ``--parent DIR``, beside another.
 
     python -m seal_tpu_torch.bench_select [--parent DIR] [--turns parent,this,...]
+                                          [--only PREFIX,...]
 
 In each checkout, in a process of its own (parent, this, this, parent with
 ``--parent``; else this checkout once; ``--turns`` names another order),
@@ -28,7 +29,16 @@ bf16 over the 1.2M-token corpus, batch 32, beam 15):
    ``backward_step``, the range update through the adapter (kernel 12's
    step mode, or the composition over its backward step) beside that
    composition, kernel 13's window, kernel 14's bucket counts and kernel
-   16's count vectors at [32, 15].  Eager (20 calls back to back, the
+   16's count vectors at [32, 15]; kernel 13's window + slab (one call of
+   the adapter's ``window_slab``: one launch where the checkout has kernel
+   13's modes, else two window-mode calls and the bounds) beside those two
+   calls and the bounds on both sides, and a straggler round's slab
+   (``slab``).  Kernel 5 at [4096, 16] (corpus n-grams, an eighth random
+   ids) and at the sharded searcher's count filters' shapes
+   (``COUNT_FILTERS``, ``chip_smoke.py``'s kernel 5 log), monolithic on the
+   Psi index and over the 4-shard index (``bench_generate.sharded_index``)
+   in its count and ranges modes; in a checkout with kernel 5's groups,
+   each again at every group width forced.  Eager (20 calls back to back, the
    host's cost included) and graph-replayed (20 calls in one CUDA graph,
    the device time), ms a call, with CUDA events; beside them the floor:
    one eager one-element ``zero_()`` and the same kernel graph-replayed.
@@ -73,6 +83,10 @@ bf16 over the 1.2M-token corpus, batch 32, beam 15):
    kernel 2 or 13 calls and ``merge_round``'s bounds; the wavelet range
    update composed over kernel 12's backward step): each side's median
    and quartile walls and the pairs the fused step won (``alternated``).
+
+``--only PREFIX,...`` times only the calls whose names start with one of
+the prefixes and profiles only the Psi and compact batches (before and
+after the captures), with no alternated pairs.
 
 Prints the card's name and power limit first, then one JSON line a turn.
 Needs one CUDA device.
@@ -169,6 +183,7 @@ def profiled(ix, runs=5):  # runs batches' walls after a warm-up, then one profi
             "by_kernel": {k: {"ms": ms, "calls": n} for k, (ms, n) in by.items()}}
 
 # the batches first, before any CUDA graph is captured in this process
+ONLY = tuple(p for p in sys.argv[1].split(",") if p) if len(sys.argv) > 1 else ()
 batches = {"psi_batch": profiled(index), "compact_batch": profiled(layouts["compact"])}
 
 # one profiled batch of each path that launches kernels 16 and 21, after a
@@ -176,7 +191,8 @@ batches = {"psi_batch": profiled(index), "compact_batch": profiled(layouts["comp
 # 5 at penalty 0.5) on the Psi index with and without it; the top kernels'
 # device ms and calls
 DIVERSE = dict(diverse_bs_groups=3, diverse_bs_penalty=0.5)
-for path, ix, extra in (("generate_dense_compact", layouts["compact"], dict(exact_mask=True)),
+for path, ix, extra in () if ONLY else (
+                        ("generate_dense_compact", layouts["compact"], dict(exact_mask=True)),
                         ("generate_diverse", index, DIVERSE),
                         ("generate_diverse_dense", index, dict(DIVERSE, exact_mask=True)),
                         ("generate_topk", index, dict(topk=50)),
@@ -204,7 +220,7 @@ for path, ix, extra in (("generate_dense_compact", layouts["compact"], dict(exac
 # and the slab as separate calls; the wavelet range update composed over
 # kernel 12's backward step): PAIRS pairs a layout, after a warm-up pair
 PAIRS = 15
-if hasattr(tc, "_step_window"):
+if hasattr(tc, "_step_window") and not ONLY:
     import statistics
     from seal_tpu_torch.ops import _generic, wt_ops
 
@@ -375,6 +391,18 @@ for name, wix in layouts.items():
             sel_par, lo, hi, finished, eos=eos, pad=pad))
     calls[f"k13 window [32,15] w 32 {name}"] = (
         lambda wix=wix: k13.wt_window_gather(wix, lo, hi, w, lp, pad))
+    # a step's window and round 0's slab through the adapter (one launch of
+    # kernel 13 where the checkout has its modes), the parent's two calls
+    # and bounds, and a straggler round's slab
+    calls[f"k13 window + slab [32,15] w 32 width 64 {name}"] = (
+        lambda wops=wops: wops.window_slab(lo, hi, w, width, lp, pad))
+    calls[f"k13 two calls + bounds [32,15] w 32 width 64 {name}"] = (
+        lambda wix=wix: (k13.wt_window_gather(wix, lo, hi, w, lp, pad),
+                         k13.wt_window_gather(wix, torch.minimum(lo + 0, hi),
+                                              torch.minimum(torch.minimum(lo + 0, hi) + width,
+                                                            hi), width, lp, 0)))
+    calls[f"k13 straggler slab [32,15] width 256 {name}"] = (
+        lambda wops=wops: wops.slab(lo, hi, 64, 256, lp))
     calls[f"k14 bucket counts [32,15] {name}"] = (
         lambda wix=wix: k14.wt_bucket_counts(wix, lo, hi))
     calls[f"k16 dense counts [32,15] {name}"] = lambda wix=wix: k12.wt_dense_counts(wix, lo, hi)
@@ -513,8 +541,40 @@ else:
 calls["k17 streaming pass + k20 V-wide [32,15,50265]"] = (
     lambda: k20.sample_select(k17.dense_scores(dcounts, lp, prev17, finished, zero20, **kw17)
                               .reshape(B, K, V), lp, None, bs17, 5, 4, eos=eos, pad=pad))
+# kernel 5: 4096 corpus n-grams of up to 16 tokens (an eighth random ids)
+# and the sharded searcher's count filter's shape, on the Psi index and over
+# the 4-shard index (count and ranges modes)
+si5, hosts5 = bench_generate.sharded_index("cuda")
+text5 = host.text[:-1] - 1
+# (n, L) of the sharded searcher's count filters (chip_smoke.py's kernel 5
+# log of a 32-query batch_search on an H100: 31 of its 98 calls at [60, 3],
+# the most common; ~60 at [168-185, 9])
+COUNT_FILTERS = ((60, 3), (184, 9))
+for label, (n5, L5) in (("[4096,16]", (4096, 16)),
+                        *((f"count filter [{a},{b}]", (a, b)) for a, b in COUNT_FILTERS)):
+    starts = rng.integers(0, text5.size - L5, size=n5)
+    seq5 = np.stack([text5[s5 : s5 + L5][::-1] for s5 in starts]).astype(np.int32)
+    seq5[: n5 // 8] = rng.integers(-1, V + 2, size=(n5 // 8, L5))
+    seq5 = torch.as_tensor(seq5, device=dev)
+    len5 = torch.as_tensor(rng.integers(1, L5 + 1, size=n5).astype(np.int32), device=dev)
+    calls[f"k5 sequences {label} psi"] = (
+        lambda seq5=seq5, len5=len5: k1.fm_sequences(index, seq5, len5))
+    calls[f"k5 sharded count {label} x4"] = (
+        lambda seq5=seq5, len5=len5: k1.fm_sequences_sharded(si5, seq5, len5, count=True))
+    calls[f"k5 sharded ranges {label} x4"] = (
+        lambda seq5=seq5, len5=len5: k1.fm_sequences_sharded(si5, seq5, len5))
+    for G in getattr(k1, "GROUPS", ()) if hasattr(k1, "sequences_plan") else ():
+        calls[f"k5 sequences {label} psi group {G}"] = (
+            lambda seq5=seq5, len5=len5, G=G: k1.fm_sequences(index, seq5, len5, group=G))
+        calls[f"k5 sharded count {label} x4 group {G}"] = (
+            lambda seq5=seq5, len5=len5, G=G: k1.fm_sequences_sharded(si5, seq5, len5, True,
+                                                                      group=G))
+        calls[f"k5 sharded ranges {label} x4 group {G}"] = (
+            lambda seq5=seq5, len5=len5, G=G: k1.fm_sequences_sharded(si5, seq5, len5, group=G))
 one = torch.empty(1, device=dev)
 calls["floor: one-element zero_()"] = lambda: one.zero_()
+if ONLY:
+    calls = {k: v for k, v in calls.items() if k.startswith(ONLY) or k.startswith("floor")}
 out = {name: {"ms": eager(fn), "graph_ms": graphed(fn)} for name, fn in calls.items()}
 # the same batches again after the captures above
 batches["psi_batch_after_graphs"] = profiled(index)
@@ -543,9 +603,10 @@ def main() -> int:
         order = ["parent", "this", "this", "parent"]
     if "--turns" in sys.argv:
         order = sys.argv[sys.argv.index("--turns") + 1].split(",")
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else ""
     for name in order:
         root = roots[name]
-        proc = subprocess.run([sys.executable, "-c", _TURN], cwd=root, capture_output=True,
+        proc = subprocess.run([sys.executable, "-c", _TURN, only], cwd=root, capture_output=True,
                               text=True)
         if proc.returncode != 0:
             print(f"{name} ({root}) failed:\n{proc.stderr[-3000:]}", file=sys.stderr)

@@ -135,12 +135,12 @@ class SingleIndexOps:
     def window_slab(self, lo, hi, w, width, lp, fill):
         """The step's window (fill ``fill``) and proposal round 0's slab of
         ``width`` rows (fill 0): one launch of kernel 2 on the Psi layout,
-        two of kernel 13 on the wavelet layouts."""
+        of kernel 13 on the wavelet layouts."""
         return self._ops.window_slab(self.index, lo, hi, w, width, lp, fill)
 
     def slab(self, lo, hi, rows_prev, width, lp):
         """A straggler round's slab, rows [lo + rows_prev, + width) cut at
-        hi (fill 0): kernel 2's slab mode, or the bounds and kernel 13."""
+        hi (fill 0): kernel 2's or kernel 13's slab mode."""
         return self._ops.slab_gather(self.index, lo, hi, rows_prev, width, lp)
 
     def advance(self, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int):

@@ -70,8 +70,8 @@ SIGNATURES = {
     "seal_fm_advance": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _L,
                         _I, _I, _P],
     # psi, sym_dir, head_pair, n_rows, sigma, dir_shift,
-    # tokens, lengths, out_lo, out_hi, n, L, stream
-    "seal_fm_sequences": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _P],
+    # tokens, lengths, out_lo, out_hi, n, L, group (lanes a sequence), stream
+    "seal_fm_sequences": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
     # psi, sym_dir, head_pair, n_rows, sigma, dir_shift,
     # bwt, lo, hi, out, n, vocab, hist_max, stream
     "seal_fm_dense_counts": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
@@ -85,8 +85,10 @@ SIGNATURES = {
     # tokens, lo, hi, out, n_ranges, m, count (0 membership, 1 counts), stream
     "seal_fm_contains_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
     # n_rows, tokens, lengths, out_lo, out_hi, out_count (None: ranges), n,
-    # L, stream
-    "seal_fm_sequences_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I, _P],
+    # L, group (lanes a (shard, sequence)), team (groups a sequence in the
+    # count mode), stream
+    "seal_fm_sequences_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                                  _P],
     # bwt, lo, hi, out, n, vocab, hist_max, stream
     "seal_fm_dense_counts_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
     # bwt, lo, hi, out (the mask, ORed over the shards), n, vocab, hist_max,
@@ -155,8 +157,9 @@ SIGNATURES = {
     # the wavelet index, tokens, lengths, out_lo, out_hi, n, L, stream
     "seal_wt_sequences": _WT + [_P, _P, _P, _P, _L, _I, _P],
     # the wavelet index, bwt (None: descent), bwt_bytes, lp, lp_stride, lo,
-    # hi, n, w, vocab, fill, tok, valid, lp_out, stream
-    "seal_wt_window_gather": _WT + [_P, _I, _P, _L, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
+    # hi, n, w, width, rows_prev, vocab, fill_win, the window's tok, valid,
+    # lp and the slab's (None where its width is 0), stream
+    "seal_wt_window_slab": _WT + [_P, _I, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I] + [_P] * 7,
     # the wavelet index, lo, hi, out, n, depth, stream
     "seal_wt_bucket_counts": _WT + [_P, _P, _P, _L, _I, _P],
     # the wavelet index, bwt (None: descent), bwt_bytes, lo, hi, out, n,

@@ -24,10 +24,11 @@
 // A (range, token) of "contains" takes a group of G = 2, 4, 8, 16 or 32
 // lanes; a backward step or an advance takes G lanes, half for each bound,
 // which meet with one shuffle (G = 2: one lane a bound, a binary search).  The group reads the symbol's directory row once
-// (one broadcast load).  Kernel 5 and the shard modes keep one thread per
-// (query, bound) and the binary search (search below).  The TPU's 128-row
-// vector finish (psi_blk) is not carried over: a GPU lane reads psi
-// directly.
+// (one broadcast load).  Kernel 5 chains that step over a sequence, a group
+// a sequence (a (shard, sequence) in its shard mode); kernel 1's shard modes
+// keep one thread per (query, bound) and the binary search (search below).
+// The TPU's 128-row vector finish (psi_blk) is not carried over: a GPU lane
+// reads psi directly.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -215,49 +216,108 @@ advance_kernel(const int* __restrict__ psi, const int* __restrict__ sym_dir,
   }
 }
 
+// group_search for groups of a warp that run in step: every lane of the
+// warp calls it together, and the loop runs until the warp's last group is
+// done (a done or idle group's lanes run its steps without loads), so the
+// warp never splits and every ballot takes the whole warp.  Kernel 5's
+// groups, a sequence's positions and shards apart, run different numbers
+// of levels; left to split, a warp of 2-lane groups ran ~5x the lane pairs'
+// binary search (bench_select's forced group widths, NVIDIA H100).  The
+// result is group_search's: the same pivots and the same answer.
+template <int H>
+__device__ __forceinline__ int warp_group_search(const int* __restrict__ psi, int lo, int hi,
+                                                 int pos, int g, int gbase) {
+  constexpr unsigned LANES = H == 32 ? 0xffffffffu : (1u << H) - 1u;
+  const bool empty = lo >= hi;
+  bool live = hi - lo > H;
+  while (__any_sync(0xffffffffu, live)) {
+    const int step = live ? (int)((unsigned)(hi - lo) / (H + 1)) : 0;  // >= 1 where live
+    const bool ge = live && __ldg(psi + lo + (g + 1) * step) >= pos;
+    const unsigned ball = (__ballot_sync(0xffffffffu, ge) >> gbase) & LANES;
+    if (live) {
+      if (ball == 0u) {
+        lo += H * step + 1;  // past the last pivot
+      } else {
+        const int f = __ffs(ball) - 1;  // the first pivot at or past pos
+        hi = lo + (f + 1) * step;
+        lo += f * step + (f > 0 ? 1 : 0);
+      }
+    }
+    live = hi - lo > H;
+  }
+  // at most H candidates left: one load each
+  const bool ge = g < hi - lo && __ldg(psi + lo + g) >= pos;
+  const unsigned ball = (__ballot_sync(0xffffffffu, ge) >> gbase) & LANES;
+  return empty ? lo : (ball ? lo + __ffs(ball) - 1 : hi);
+}
+
+// group_step over warp_group_search, every lane of the warp calling it
+// together: a group with `on` false (idle, or past its sequence's length)
+// or an out-of-range symbol loads nothing and gets (0, 0)
+template <int G>
+__device__ __forceinline__ int2 warp_step(const int* __restrict__ psi,
+                                          const int* __restrict__ sym_dir,
+                                          const int* __restrict__ head_pair, int n_rows,
+                                          int sigma, int dir_shift, int c, int lo, int hi,
+                                          bool on, const Group<G>& gr) {
+  constexpr int H = G / 2;
+  const bool valid = on && c >= 1 && c < sigma;
+  const bool upper = gr.g >= H;
+  const int pos = upper ? hi : lo;
+  int dlo = 0, dhi = 0;
+  if (valid) {
+    const Bounds b = symbol_bounds(sym_dir, head_pair, n_rows, dir_shift, c, pos);
+    dlo = b.dlo;
+    dhi = b.dhi;
+  }
+  const int row = warp_group_search<H>(psi, dlo, dhi, pos, gr.g - (upper ? H : 0),
+                                       gr.base + (upper ? H : 0));
+  const int new_lo = __shfl_sync(0xffffffffu, row, gr.base);
+  const int new_hi = __shfl_sync(0xffffffffu, row, gr.base + H);
+  return valid ? make_int2(new_lo, max(new_lo, new_hi)) : make_int2(0, 0);
+}
+
 // Kernel 5: row ranges of padded token sequences (replaces
 // seal_tpu/ops/_generic.py:range_for_sequences, the lax.scan of backward
-// steps behind fm_ops.range_for_sequences and count_sequences).  The same
-// lane pair as backward_step_kernel, looping over the sequence in
-// registers: one launch for the whole chain instead of one per position.
-// The trip count is L for every lane, so each lane reaches the shuffle;
-// positions at or past a sequence's length leave its range as it is, and
-// an empty range stays at (x, x) unless an out-of-range token resets it
-// to (0, 0), as the scan does.
+// steps behind fm_ops.range_for_sequences and count_sequences).  A group of
+// G lanes a sequence runs the backward step of kernel 1's cooperative
+// search (G / 2 lanes a bound), warp_step above, over the sequence in
+// registers: one launch for the whole chain instead of one per position,
+// and a chain of ~log_{G/2+1} probes a position where the lane pair took
+// log2.  G comes from the host (kernels/fm_search.py:sequences_plan): wide
+// groups where the grid would leave the card's lanes idle (a searcher's
+// count filter holds 60-185 keys), narrow ones where it fills them.  A warp
+// steps through its longest sequence's positions; the scan's semantics
+// hold: positions at or past a sequence's length leave its range as it is,
+// an out-of-range token resets the range to (0, 0), and an empty range
+// (x, x) steps as any other.
+template <int G>
 __global__ void __launch_bounds__(THREADS)
 sequences_kernel(const int* __restrict__ psi, const int* __restrict__ sym_dir,
                  const int* __restrict__ head_pair, int n_rows, int sigma, int dir_shift,
                  const int* __restrict__ tokens, const int* __restrict__ lengths,
                  int* __restrict__ out_lo, int* __restrict__ out_hi, long long n, int L) {
   const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long q = t >> 1;
-  const int bound = (int)(t & 1);
-  const bool active = q < n;
-  const int len = active ? lengths[q] : 0;
+  if ((t & ~31LL) / G >= n) return;  // the whole warp past the last sequence
+  const long long q = t / G;
+  const bool in = q < n;  // a group past the last sequence idles along
+  const Group<G> gr;
+  const int len = in ? min(lengths[q], L) : 0;
+  const int steps = __reduce_max_sync(0xffffffffu, len);
   int lo = 0, hi = n_rows;
-  for (int j = 0; j < L; ++j) {
+  for (int j = 0; j < steps; ++j) {
     const bool keep = j < len;
-    int row = 0;  // an out-of-range token gives (0, 0)
+    const int c = keep ? tokens[q * L + j] + SHIFT : 0;
+    const int2 r = warp_step<G>(psi, sym_dir, head_pair, n_rows, sigma, dir_shift, c, lo, hi,
+                                keep, gr);
     if (keep) {
-      const int c = tokens[q * L + j] + SHIFT;
-      if (c >= 1 && c < sigma) {
-        const int pos = bound ? hi : lo;
-        const Bounds b = symbol_bounds(sym_dir, head_pair, n_rows, dir_shift, c, pos);
-        row = search(psi, b.dlo, b.dhi, pos);
-      }
-    }
-    const int other = __shfl_xor_sync(0xffffffffu, row, 1);
-    if (keep) {
-      lo = bound ? other : row;
-      hi = max(lo, bound ? row : other);
+      lo = r.x;
+      hi = r.y;
     }
   }
-  if (active) {
-    if (bound == 0) {
-      out_lo[q] = lo;
-    } else {
-      out_hi[q] = hi;
-    }
+  if (in && gr.g == 0) {
+    out_lo[q] = lo;
+    out_hi[q] = hi;
   }
 }
 
@@ -366,50 +426,55 @@ contains_sharded_kernel(Shards sh, const int* __restrict__ tokens, const int* __
   }
 }
 
-// Kernel 5: the lane pair of sequences_kernel per (shard, sequence), from
-// shard s's full range [0, n_rows[s]); in the count mode one lane pair per
-// sequence walks the shards and sums hi - lo.
+// Kernel 5's shard mode: sequences_kernel's group of G lanes a (shard,
+// sequence), from shard s's full range [0, n_rows[s]), the shards side by
+// side: a sequence takes a team of P groups (P a power of two, P * G <= 32
+// lanes: one warp or a part of one, all reading the sequence's tokens at
+// one address), member p shards p, p + P, ... (a loop only past the P
+// shards a team holds: 16 at G = 2).  The ranges mode writes each shard's
+// range; the count mode adds the team's hi - lo with shuffles.  So a
+// sequence's chain is ~L searches, not S x L.
+template <int G>
 __global__ void __launch_bounds__(THREADS)
 sequences_sharded_kernel(Shards sh, const int* __restrict__ n_rows,
                          const int* __restrict__ tokens, const int* __restrict__ lengths,
                          int* __restrict__ out_lo, int* __restrict__ out_hi,
-                         int* __restrict__ out_count, long long n, int L) {
+                         int* __restrict__ out_count, long long n, int L, int P) {
   const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long q = t >> 1;  // range mode: s * n + i; count mode: i
-  const int bound = (int)(t & 1);
-  const bool counting = out_count != nullptr;
-  const long long n_pairs = counting ? n : n * sh.n_shards;
-  const bool active = q < n_pairs;
-  const int s0 = counting ? 0 : (active ? (int)(q / n) : 0);
-  const long long i = counting ? q : q - (long long)s0 * n;
-  const int s1 = counting ? sh.n_shards : s0 + 1;
-  const int len = active ? lengths[i] : 0;
-  int total = 0, lo = 0, hi = 0;
-  for (int s = s0; s < s1; ++s) {
-    lo = 0;
-    hi = active ? n_rows[s] : 0;
-    for (int j = 0; j < L; ++j) {
-      const bool keep = j < len;
-      int row = 0;  // an out-of-range token gives (0, 0)
+  if ((t & ~31LL) / G >= n * P) return;  // the whole warp past the last team
+  const long long grp = t / G;
+  const bool in = grp < n * P;  // a group past the last team idles along
+  const Group<G> gr;
+  const long long i = in ? grp / P : 0;
+  const int p = in ? (int)(grp - i * P) : 0;
+  const int len = in ? min(lengths[i], L) : 0;
+  const int steps = __reduce_max_sync(0xffffffffu, len);
+  int total = 0;
+  for (int base = 0; base < sh.n_shards; base += P) {  // the same trips for the warp
+    const int s = base + p;
+    const bool on = in && s < sh.n_shards;
+    const int sv = on ? s : 0;
+    int lo = 0, hi = on ? n_rows[s] : 0;
+    for (int j = 0; j < steps; ++j) {
+      const bool keep = on && j < len;
+      const int c = keep ? tokens[i * L + j] + SHIFT : 0;
+      const int2 r = warp_step<G>(sh.psi_of(sv), sh.dir_of(sv), nullptr, 0, sh.sigma, 0, c, lo,
+                                  hi, keep, gr);
       if (keep) {
-        const int c = tokens[i * L + j] + SHIFT;
-        if (c >= 1 && c < sh.sigma) row = sh.rank(s, c, bound ? hi : lo);
-      }
-      const int other = __shfl_xor_sync(0xffffffffu, row, 1);
-      if (keep) {
-        lo = bound ? other : row;
-        hi = max(lo, bound ? row : other);
+        lo = r.x;
+        hi = r.y;
       }
     }
-    total += hi - lo;
+    if (on && out_count == nullptr && gr.g == 0) {
+      out_lo[s * n + i] = lo;
+      out_hi[s * n + i] = hi;
+    }
+    total += on ? hi - lo : 0;
   }
-  if (!active || bound != 0) return;
-  if (counting) {
-    out_count[i] = total;
-  } else {
-    out_lo[q] = lo;
-    out_hi[q] = hi;
-  }
+  if (out_count == nullptr) return;
+  const int T = G * P, lane = threadIdx.x & 31;  // the team's lanes, aligned in the warp
+  for (int off = G; off < T; off <<= 1) total += __shfl_xor_sync(0xffffffffu, total, off);
+  if (in && lane % T == 0) out_count[i] = total;
 }
 
 // Kernel 15: one block per (range, slice) adds every shard's count vector
@@ -749,20 +814,6 @@ extern "C" int seal_fm_contains_sharded(const int* psi, const int* sym_dir, long
   return (int)cudaGetLastError();
 }
 
-extern "C" int seal_fm_sequences_sharded(const int* psi, const int* sym_dir, long long n_max,
-                                         int sigma, int n_shards, const int* n_rows,
-                                         const int* tokens, const int* lengths, int* out_lo,
-                                         int* out_hi, int* out_count, long long n, int L,
-                                         void* stream) {
-  if (n > 0) {
-    const Shards sh{psi, sym_dir, n_max, sigma, n_shards};
-    const long long threads = 2 * n * (out_count != nullptr ? 1 : n_shards);
-    const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-    sequences_sharded_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        sh, n_rows, tokens, lengths, out_lo, out_hi, out_count, n, L);
-  }
-  return (int)cudaGetLastError();
-}
 
 extern "C" int seal_fm_dense_counts_sharded(const int* psi, const int* sym_dir, long long n_max,
                                             int sigma, int n_shards, const int* bwt,
@@ -784,19 +835,6 @@ extern "C" int seal_fm_dense_counts(const int* psi, const int* sym_dir, const in
   const PsiDense ix{psi, sym_dir, head_pair, bwt, n_rows, sigma, dir_shift};
   return seal_dense::launch_dense_counts(ix, lo, hi, out, n, vocab, hist_max,
                                          (cudaStream_t)stream);
-}
-
-extern "C" int seal_fm_sequences(const int* psi, const int* sym_dir, const int* head_pair,
-                                 int n_rows, int sigma, int dir_shift, const int* tokens,
-                                 const int* lengths, int* out_lo, int* out_hi, long long n, int L,
-                                 void* stream) {
-  if (n > 0) {
-    const long long threads = 2 * n;
-    const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-    sequences_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        psi, sym_dir, head_pair, n_rows, sigma, dir_shift, tokens, lengths, out_lo, out_hi, n, L);
-  }
-  return (int)cudaGetLastError();
 }
 
 // The group kernels' launch: `group` lanes (2, 4, 8, 16 or 32) an item.
@@ -836,6 +874,20 @@ struct AdvanceLaunch {
     advance_kernel<G><<<blocks, THREADS, 0, stream>>>(args...);
   }
 };
+template <int G>
+struct SequencesLaunch {
+  template <typename... Args>
+  static void run(unsigned blocks, cudaStream_t stream, Args... args) {
+    sequences_kernel<G><<<blocks, THREADS, 0, stream>>>(args...);
+  }
+};
+template <int G>
+struct SequencesShardedLaunch {
+  template <typename... Args>
+  static void run(unsigned blocks, cudaStream_t stream, Args... args) {
+    sequences_sharded_kernel<G><<<blocks, THREADS, 0, stream>>>(args...);
+  }
+};
 
 extern "C" int seal_fm_backward_step(const int* psi, const int* sym_dir, const int* head_pair,
                                      int n_rows, int sigma, int dir_shift, const int* token,
@@ -865,4 +917,30 @@ extern "C" int seal_fm_advance(const int* psi, const int* sym_dir, const int* he
   return launch_group<AdvanceLaunch>(group, n, (cudaStream_t)stream, psi, sym_dir, head_pair,
                                      n_rows, sigma, dir_shift, lo, hi, P, sel_par, sel_tok,
                                      finished, eos, pad, out_lo, out_hi, out_count, n, n_sel);
+}
+
+// kernel 5: `group` lanes a sequence
+extern "C" int seal_fm_sequences(const int* psi, const int* sym_dir, const int* head_pair,
+                                 int n_rows, int sigma, int dir_shift, const int* tokens,
+                                 const int* lengths, int* out_lo, int* out_hi, long long n, int L,
+                                 int group, void* stream) {
+  return launch_group<SequencesLaunch>(group, n, (cudaStream_t)stream, psi, sym_dir, head_pair,
+                                       n_rows, sigma, dir_shift, tokens, lengths, out_lo, out_hi,
+                                       n, L);
+}
+
+// kernel 5's shard mode: `group` lanes a (shard, sequence), a team of
+// `team` groups a sequence (a power of two, team * group <= 32); out_count
+// null: the ranges mode
+extern "C" int seal_fm_sequences_sharded(const int* psi, const int* sym_dir, long long n_max,
+                                         int sigma, int n_shards, const int* n_rows,
+                                         const int* tokens, const int* lengths, int* out_lo,
+                                         int* out_hi, int* out_count, long long n, int L,
+                                         int group, int team, void* stream) {
+  if (n_shards <= 0 || team <= 0 || (team & (team - 1)) != 0 || team * group > 32)
+    return (int)cudaErrorInvalidValue;
+  const Shards sh{psi, sym_dir, n_max, sigma, n_shards};
+  return launch_group<SequencesShardedLaunch>(group, n * team, (cudaStream_t)stream, sh, n_rows,
+                                              tokens, lengths, out_lo, out_hi, out_count, n, L,
+                                              team);
 }

@@ -15,8 +15,13 @@ specification: the CPU path and the reference the card's kernels are held
 to (integer results, so exactly equal).  Kernels 1 and 5 are latency
 bound: a chain of dependent psi loads per query.  Kernel 1's Psi modes
 search cooperatively, a group of ``GROUP`` lanes an item loading as many
-pivots a level (see the source); kernel 5 and the shard modes run one
-thread per (query, bound).  Kernel 1's step mode, :func:`fm_advance`,
+pivots a level (see the source); kernel 5 runs the same search a position
+at a time, a group a sequence (a (shard, sequence) in its shard mode, a
+sequence's shards side by side), every group of a warp in step (no split
+warp), the group's width chosen by :func:`sequences_plan` from the grid
+against the card's SMs; kernel 1's shard modes run one thread per (query,
+bound).
+Kernel 1's step mode, :func:`fm_advance`,
 is the decode step's range update after a selection in one launch
 (``seal_tpu/decoding/constrained.py:1416-1430``, step 0 :1344-1349); its
 plain version, :func:`advance_plain`, is the composition the other
@@ -32,7 +37,8 @@ ShardedIndexOps`` (:48-148) and ``sharded_index.py`` (:401-483):
 ``fm_search_sharded`` (kernel 1: per-shard backward steps; membership ORed
 or counts summed over the shards, ``contains`` :95 / ``validate`` :91),
 ``fm_sequences_sharded`` (kernel 5: per-shard sequence ranges, or their
-summed counts, ``_range_scan`` :401 / ``sharded_count_sequences`` :455) and
+summed counts, ``_range_scan`` :401 / ``sharded_count_sequences`` :455;
+the shards side by side, a sequence's shards in one warp) and
 ``fm_dense_counts_sharded`` (kernel 15: the count vectors summed,
 ``dense_counts`` :147).  One launch per call whatever the shard count:
 the JAX ``psum`` is a loop over the shard axis inside the kernel.  Their
@@ -76,6 +82,16 @@ SPLIT_ROWS = 65536
 CLUSTER = 8
 MASK_MAX_WORDS = 1 << 15
 MASK_HIST_MAX_ROWS = 1 << 20
+# kernel 5: a group of G lanes a sequence (a (shard, sequence)), G the
+# widest of GROUPS whose grid stays within SEQ_LANES_PER_SM lanes an SM (a
+# wider group shortens the chain but issues more L2 requests, a loss where
+# every lane is busy, as kernel 1's contains showed at [32, 15, 65]); in the
+# shard mode a team of up to 32 // G groups a sequence, its shards side by
+# side.  The fastest width at each of [4096, 16] and the sharded searcher's
+# count filters ([60, 3], [184, 9]), monolithic and over 4 shards
+# (bench_select's forced widths on an H100)
+SEQ_LANES_PER_SM = 1024
+_SMS = {}  # the SM count of each card, read once
 
 
 def symbol_bounds(index, c, pos):
@@ -155,11 +171,43 @@ def sequences_plain(index, tokens, lengths):
     return lo, hi
 
 
-def fm_sequences(index, tokens, lengths):
+def sequences_plan(n: int, sms: int, shards: int = 1, group: int | None = None):
+    """Kernel 5's launch: (G, P), G lanes a (shard, sequence) and a team
+    of P groups a sequence (P = 1 on one index).
+
+    A sequence's shards go side by side first: P the smallest power of two
+    holding them, at most 16 (2-lane groups fill a warp; past that each
+    member loops over its shards).  G is then the widest of ``GROUPS``
+    (``group`` if given, P cut to 32 // G) with P * G <= 32 whose grid, n x
+    P groups, keeps within ``SEQ_LANES_PER_SM`` lanes for each of the
+    card's ``sms`` SMs; never below 2.
+    """
+    if group is not None and group not in GROUPS:
+        raise ValueError(f"kernel 5: a group of {group} lanes (take one of {GROUPS})")
+    P = min(1 << max(shards - 1, 0).bit_length(), 32 // (group or GROUPS[0]))
+    if group is not None:
+        return group, P
+    G = GROUPS[0]
+    for g in GROUPS[1:]:
+        if P * g <= 32 and n * P * g <= sms * SEQ_LANES_PER_SM:
+            G = g
+    return G, P
+
+
+def _sms(device) -> int:
+    key = torch.device(device).index or 0
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return _SMS[key]
+
+
+def fm_sequences(index, tokens, lengths, group: int | None = None):
     """Row ranges of padded token sequences: tokens int32 [..., L]
     (unshifted), lengths int32 [...]; returns int32 (lo, hi) [...].
 
-    CPU tensors run the plain version; CUDA tensors launch kernel 5.
+    CPU tensors run the plain version; CUDA tensors launch kernel 5, a
+    group of lanes a sequence (:func:`sequences_plan`; ``group`` forces
+    its width).
     """
     tokens = torch.as_tensor(tokens, dtype=torch.int32, device=index.device)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=index.device)
@@ -170,12 +218,13 @@ def fm_sequences(index, tokens, lengths):
         return sequences_plain(index, tokens, lengths)
     from seal_tpu_torch.kernels import build
 
+    G, _ = sequences_plan(lengths.numel(), _sms(tokens.device), group=group)
     tokens, lengths = tokens.contiguous(), lengths.contiguous()
     out_lo = torch.empty_like(lengths)
     out_hi = torch.empty_like(lengths)
     rc = build.lib().seal_fm_sequences(
         *_index_args(index), tokens.data_ptr(), lengths.data_ptr(), out_lo.data_ptr(),
-        out_hi.data_ptr(), lengths.numel(), tokens.shape[-1], build.stream_ptr(tokens),
+        out_hi.data_ptr(), lengths.numel(), tokens.shape[-1], G, build.stream_ptr(tokens),
     )
     build.check(rc, "fm_sequences")
     fm_sequences.launches += 1
@@ -506,13 +555,15 @@ def sequences_sharded_plain(si, tokens, lengths, count: bool = False):
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
-def fm_sequences_sharded(si, tokens, lengths, count: bool = False):
+def fm_sequences_sharded(si, tokens, lengths, count: bool = False, group: int | None = None):
     """Kernel 5's shard mode: each shard's row ranges of padded token
     sequences (tokens int32 [..., L], lengths [...]) from its own full range,
     as int32 (lo, hi) [S, ...]; with ``count``, their counts summed over the
     shards, int32 [...].
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel, a
+    group of lanes a (shard, sequence), a sequence's shards side by side
+    (:func:`sequences_plan`; ``group`` forces the group's width).
     """
     tokens = torch.as_tensor(tokens, dtype=torch.int32, device=si.device)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=si.device)
@@ -533,9 +584,10 @@ def fm_sequences_sharded(si, tokens, lengths, count: bool = False):
         out_hi = torch.empty_like(out_lo)
         out_count = None
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    G, P = sequences_plan(lengths.numel(), _sms(tokens.device), si.n_shards, group)
     rc = build.lib().seal_fm_sequences_sharded(
         *_shard_args(si), si.n_rows.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
-        ptr(out_lo), ptr(out_hi), ptr(out_count), lengths.numel(), tokens.shape[-1],
+        ptr(out_lo), ptr(out_hi), ptr(out_count), lengths.numel(), tokens.shape[-1], G, P,
         build.stream_ptr(tokens),
     )
     build.check(rc, "fm_sequences_sharded")

@@ -7,10 +7,11 @@ and shift internally (SHIFT == 1).  ``backward_step``/``extend_ranges``,
 ``contains_tokens``, ``range_for_sequences``/``count_sequences`` and
 ``advance_ranges`` (the decode step's range update, its step mode) go
 through the rank-search kernel (kernel 12, ``kernels/wt_search.py``),
-``dense_counts`` through its dense kernel (16), ``window_gather`` through
-the window kernel (13), which ``window_slab`` and ``slab_gather`` call with
-kernel 2's contract (the step's window and round 0's slab, a round's
-slab), and ``bucket_counts`` through the bisection kernel (14); ``rank``,
+``dense_counts`` through its dense kernel (16), ``window_gather``,
+``window_slab`` and ``slab_gather`` through the window kernel's three modes
+(13, kernel 2's contract: the window, the step's window and round 0's slab
+in one launch, a round's slab), and ``bucket_counts`` through the
+bisection kernel (14); ``rank``,
 ``access``, ``bwt_at`` and ``window_continuations`` are plain torch on
 every device.
 """
@@ -24,7 +25,6 @@ from seal_tpu_torch.kernels.wt_bucket_counts import (  # noqa: F401
     bucket_size_of,
 )
 from seal_tpu_torch.kernels.wt_bucket_counts import wt_bucket_counts as bucket_counts  # noqa: F401
-from seal_tpu_torch.kernels.window_gather import slab_bounds
 from seal_tpu_torch.kernels.wt_search import (
     access_plain,
     rank_plain,
@@ -35,7 +35,9 @@ from seal_tpu_torch.kernels.wt_search import (
     wt_sequences,
 )
 from seal_tpu_torch.kernels.wt_window import bwt_at  # noqa: F401
+from seal_tpu_torch.kernels.wt_window import wt_slab_gather as slab_gather  # noqa: F401
 from seal_tpu_torch.kernels.wt_window import wt_window_gather as window_gather
+from seal_tpu_torch.kernels.wt_window import wt_window_slab as window_slab  # noqa: F401
 from seal_tpu_torch.ops import _generic
 
 
@@ -69,18 +71,6 @@ def advance_ranges(index, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, 
     step mode: (lo, hi, prev_count) [B, K] (``ops/_generic.py:
     advance_ranges``)."""
     return wt_advance(index, sel_tok, sel_par, lo, hi, finished, eos=eos, pad=pad)
-
-
-def slab_gather(index, lo, hi, rows_prev: int, width: int, lp):
-    """A proposal round's slab (``kernels.window_gather.slab_gather``'s
-    contract): the bounds in torch, then kernel 13."""
-    return window_gather(index, *slab_bounds(lo, hi, rows_prev, width), width, lp, 0)
-
-
-def window_slab(index, lo, hi, w: int, width: int, lp, fill: int):
-    """A step's window and round 0's slab (``kernels.window_gather.
-    window_slab``'s contract): two kernel 13 calls."""
-    return (*window_gather(index, lo, hi, w, lp, fill), *slab_gather(index, lo, hi, 0, width, lp))
 
 
 def contains_tokens(index, tokens, lo, hi):

@@ -2704,3 +2704,146 @@ def test_generate_launches_fused_modes_once_a_step(cuda):
                          queries, **kw)
     redo = tg.LAST_DECODE_STATS["fallback_steps"] > 0
     assert wt_search.ADVANCE.launches - a0 == steps * (1 + redo)
+
+
+# ------------------------------- kernel 13's modes and kernel 5's groups
+
+
+def _wt_window_ranges(host, rng, n=48):
+    """Random ranges, then full, empty, inverted, (0, 0), end-of-index and
+    the sentinel's row."""
+    N = host.size()
+    lo, hi = _ranges(host, rng, n)
+    sentinel = int(np.flatnonzero(np.asarray(host.bwt) == 0)[0])
+    extra = [(0, N), (7, 3), (0, 0), (N, N), (sentinel, sentinel + 1), (max(N - 40, 0), N)]
+    for i, (a, b) in enumerate(extra):
+        lo[3 + i], hi[3 + i] = a, b
+    return lo, hi
+
+
+def _check_modes(t, lo, hi, lp, w, width, rows_prev, graph):
+    """Kernel 13's window, window + slab and slab modes at (w, width,
+    rows_prev), eagerly or replayed from a CUDA graph, bit-equal to their
+    plain versions; one launch each."""
+    run = _graph_call if graph else (lambda fn: fn())
+    calls = (
+        (lambda: wt_window.wt_window_gather(t, lo, hi, w, lp, 1),
+         wt_window.wt_window_gather_plain(t, lo, hi, w, lp, 1), None),
+        (lambda: wt_window.wt_window_slab(t, lo, hi, w, width, lp, 1),
+         wt_window.wt_window_slab_plain(t, lo, hi, w, width, lp, 1), wt_window.WINDOW_SLAB),
+        (lambda: wt_window.wt_slab_gather(t, lo, hi, rows_prev, width, lp),
+         wt_window.wt_slab_gather_plain(t, lo, hi, rows_prev, width, lp), wt_window.SLAB))
+    for fn, want, mode in calls:
+        n0, m0 = wt_window.wt_window_gather.launches, mode.launches if mode else 0
+        got = run(fn)
+        assert wt_window.wt_window_gather.launches - n0 == (2 if graph else 1)
+        if mode is not None:
+            assert mode.launches - m0 == (2 if graph else 1)
+        _same(got, want)
+        assert len(got) == len(want)
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("keep_bwt", [False, True])
+@pytest.mark.parametrize("name", sorted(WT_CASES))
+def test_wt_window_modes_match_plain(cuda, name, keep_bwt, graph):
+    """Kernel 13's three modes on the compact and hybrid layouts at 1 to 5
+    digits: windows wider and narrower than the slab, of stride 1 and more,
+    slabs past rows_prev > 0; empty, inverted, (0, 0), end-of-index and
+    sentinel ranges; bit-equal to their plain versions, eagerly and under
+    graph capture."""
+    host = _wt_host(name)
+    vocab = WT_CASES[name][0]
+    t = WaveletIndex.from_host(host, vocab=vocab, keep_bwt=keep_bwt, device=cuda)
+    lo, hi = _wt_window_ranges(host, np.random.default_rng(len(name) + keep_bwt))
+    lp = torch.log_softmax(torch.randn(lo.numel(), vocab, device=cuda), -1)
+    for w, width, rows_prev in ((4, 8, 5), (8, 8, 0), (32, 16, 3), (16, 64, 64), (1, 1, 1000),
+                                (100, 33, 2)):
+        _check_modes(t, lo, hi, lp, w, width, rows_prev, graph)
+    # both stride cases and a shared window occurred
+    size = (hi - lo).clamp(min=0)
+    assert bool((size >= 2 * 32).any()) and bool(((size > 0) & (size < 2 * 8)).any())
+
+
+@pytest.mark.parametrize("keep_bwt", [False, True])
+def test_wt_window_grid_y_limit(cuda, keep_bwt):
+    """Widths whose segments pass grid.y's 65,535: the window at 65,535 x 32
+    + 40 slots and a slab at 65,535 x 64 + 7 (the direct read's segments
+    are 64 slots, the descent's 32), two ranges of the whole index."""
+    host = _wt_host("d4")
+    vocab = WT_CASES["d4"][0]
+    t = WaveletIndex.from_host(host, vocab=vocab, keep_bwt=keep_bwt, device=cuda)
+    N = host.size()
+    lo = torch.tensor([0, N - 30], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([N, N], dtype=torch.int32, device=cuda)
+    lp = torch.log_softmax(torch.randn(2, vocab, device=cuda), -1)
+    w, width = 65535 * 32 + 40, 65535 * 64 + 7
+    _check_modes(t, lo, hi, lp, w, width, 3, graph=False)
+
+
+def _seq_cases(host_texts, rng, n, L, V, device):
+    """n sequences: corpus n-grams (reversed), random and out-of-range ids,
+    lengths 0 to L."""
+    text = np.concatenate(host_texts)
+    starts = rng.integers(0, text.size - L, size=n)
+    toks = np.stack([text[s : s + L][::-1] for s in starts]).astype(np.int32)
+    toks[: max(n // 8, 1)] = rng.integers(-2, V + 3, size=(max(n // 8, 1), L))
+    lens = rng.integers(0, L + 1, size=n).astype(np.int32)
+    return torch.as_tensor(toks, device=device), torch.as_tensor(lens, device=device)
+
+
+def _switch_points(budget, per_seq, P=1):
+    """The sequence counts where the host rule changes its group width: the
+    last n of each width and the first of the next, and n = 1."""
+    ns = {1}
+    for G in fm_search.GROUPS[1:]:
+        if G * P <= 32:
+            n = budget // (per_seq * G)
+            ns.update((n, n + 1))
+    return sorted(ns)
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("S", [0, 1, 2, 3, 4])
+def test_fm_sequences_groups_match_plain(cuda, S, graph):
+    """Kernel 5 at every group width its host rule picks, at each switch
+    point and at n = 1, monolithic (S = 0) and over 1 to 4 shards in the
+    ranges and count modes, and at each width forced; eagerly and under
+    graph capture, bit-equal to the plain versions."""
+    run = _graph_call if graph else (lambda fn: fn())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    budget = sms * fm_search.SEQ_LANES_PER_SM
+    L, V = 5, 40
+    rng = np.random.default_rng(S + 10 * graph)
+    if S == 0:
+        host = _zipf_host()
+        t = TorchFMIndex.from_host(host, vocab=V, device=cuda)
+        modes = [(False, 1, 1)]
+        texts = [host.text[:-1] - 1]
+    else:
+        t, hosts, _, _ = _sharded(S, cuda)
+        P = 1 << (S - 1).bit_length()
+        modes = [(False, P, P), (True, P, P)]
+        texts = [h.text[:-1] - 1 for h in hosts]
+    seen = set()
+    for count, per_seq, P in modes:
+        for n in _switch_points(budget, per_seq, P) + [("forced", G) for G in fm_search.GROUPS]:
+            group = None
+            if isinstance(n, tuple):
+                n, group = 48, n[1]
+            toks, lens = _seq_cases(texts, rng, n, L, V, cuda)
+            if S == 0:
+                fn = lambda: fm_search.fm_sequences(t, toks, lens, group=group)  # noqa: E731
+                want = fm_search.sequences_plain(t, toks, lens)
+                counter = fm_search.fm_sequences
+            else:
+                fn = lambda: fm_search.fm_sequences_sharded(  # noqa: E731
+                    t, toks, lens, count=count, group=group)
+                want = fm_search.sequences_sharded_plain(t, toks, lens, count=count)
+                counter = fm_search.fm_sequences_sharded
+            n0 = counter.launches
+            got = run(fn)
+            assert counter.launches - n0 == (2 if graph else 1)
+            _same(_as_tuple(got), _as_tuple(want))
+            seen.add((count, fm_search.sequences_plan(n, sms, max(S, 1), group)))
+    assert {G for _, (G, _) in seen} == set(fm_search.GROUPS)

@@ -128,6 +128,22 @@ def test_count_mask_layout(vocab):
         count_mask.unpack(got[..., :-4] if W > 4 else got[..., :2], vocab)
 
 
+# JAX's wt_ops.dense_counts of a case's ranges, computed once a case name
+# and shared by its keep_bwt False and True cases: the ranges are the same,
+# and both layouts' JAX results are held to the same rows' histogram
+_JAX_WT_COUNTS = {}
+
+
+def _jax_wt_counts(name, host, vocab, lo, hi, chunk, keep_bwt):
+    if name not in _JAX_WT_COUNTS:
+        j = WaveletFMIndex.from_host(host, vocab=vocab, keep_bwt=keep_bwt)
+        _JAX_WT_COUNTS[name] = (lo.copy(), hi.copy(),
+                                np.asarray(jwt.dense_counts(j, lo, hi, chunk)))
+    c_lo, c_hi, counts = _JAX_WT_COUNTS[name]
+    assert np.array_equal(c_lo, lo) and np.array_equal(c_hi, hi)
+    return counts
+
+
 @pytest.mark.parametrize("keep_bwt", [False, True])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_wt_dense_counts_match_jax(name, keep_bwt):
@@ -138,9 +154,8 @@ def test_wt_dense_counts_match_jax(name, keep_bwt):
     rng = np.random.default_rng(vocab)
     lo, hi = _ranges(host, rng, n=40 if vocab < 1000 else 10)
     chunk = 5 if vocab < 1000 else 7000  # never divides the vocab
-    j = WaveletFMIndex.from_host(host, vocab=vocab, keep_bwt=keep_bwt)
     t = WaveletIndex.from_host(host, vocab=vocab, keep_bwt=keep_bwt, device="cpu")
-    want = np.asarray(jwt.dense_counts(j, lo, hi, chunk))
+    want = _jax_wt_counts(name, host, vocab, lo, hi, chunk, keep_bwt)
     n0 = wt_search.wt_dense_counts.launches
     got = twt.dense_counts(t, torch.as_tensor(lo), torch.as_tensor(hi), chunk)
     assert wt_search.wt_dense_counts.launches == n0

@@ -1,9 +1,10 @@
-"""Kernel 2's window + slab and slab modes and kernel 12's step mode
-against the JAX package, on the CPU (the kernels' plain versions).
+"""Kernels 2 and 13's window + slab and slab modes and kernel 12's step
+mode against the JAX package, on the CPU (the kernels' plain versions).
 
 * ``window_slab`` (the step's window and proposal round 0's slab) and
   ``slab_gather`` (a straggler round's slab, its bounds from ``rows_prev``
-  and ``width``) on the Psi, compact and hybrid layouts equal JAX's
+  and ``width``) on the Psi, compact and hybrid layouts (kernel 2's plain
+  versions on the Psi layout, kernel 13's on the wavelet ones) equal JAX's
   ``window_continuations`` + ``take_along_axis`` of the log-probs and the
   ``merge_round`` slab (``seal_tpu/decoding/constrained.py:381-387`` and
   ``:622-635``): empty ranges, ranges of exactly w and width rows, ranges
@@ -40,6 +41,7 @@ from seal_tpu_torch.index.device_index import TorchFMIndex
 from seal_tpu_torch.index.wavelet import WaveletIndex
 from seal_tpu_torch.kernels import window_gather as k2
 from seal_tpu_torch.kernels import wt_search as k12
+from seal_tpu_torch.kernels import wt_window as k13
 from seal_tpu_torch.ops import fm_ops, wt_ops
 from seal_tpu_torch.parallel import sharded_decode as tsd
 from seal_tpu_torch.parallel import sharded_index as tsi
@@ -124,8 +126,8 @@ def _same(got, want):
 @pytest.mark.parametrize("layout", ["psi", "compact", "hybrid"])
 def test_window_slab_matches_jax(indexes, layout, w, width):
     """The step's window (fill PAD) and round 0's slab (fill 0) through the
-    adapter, and kernel 2's plain version on the Psi layout, equal JAX's two
-    gathers."""
+    adapter, and kernel 2's plain version on the Psi layout (kernel 13's on
+    the wavelet layouts), equal JAX's two gathers."""
     host, pairs = indexes
     jops, jix, tix = pairs[layout]
     rng = np.random.default_rng(w * 100 + width)
@@ -140,6 +142,8 @@ def test_window_slab_matches_jax(indexes, layout, w, width):
     _same(got, want)
     if layout == "psi":
         _same(k2.window_slab_plain(tix, tlo, thi, w, width, tlp, PAD), want)
+    else:
+        _same(k13.wt_window_slab_plain(tix, tlo, thi, w, width, tlp, PAD), want)
     # the ranges cover every case the kernel tells apart
     size = hi - lo
     assert (size == 0).any() and (size == w).any() and (size == width).any()
@@ -162,6 +166,8 @@ def test_slab_matches_jax(indexes, layout, rows_prev, width):
     _same(tc.SingleIndexOps(tix).slab(tlo, thi, rows_prev, width, tlp), want)
     if layout == "psi":
         _same(k2.slab_gather_plain(tix, tlo, thi, rows_prev, width, tlp), want)
+    else:
+        _same(k13.wt_slab_gather_plain(tix, tlo, thi, rows_prev, width, tlp), want)
     assert np.asarray(want[1]).any()
 
 
@@ -169,7 +175,7 @@ def test_wrappers_count_no_launch_on_cpu(indexes):
     """On the CPU every new mode runs its plain version: no counter moves."""
     host, pairs = indexes
     counters = (k2.window_gather, k2.WINDOW_SLAB, k2.SLAB, k2.window_gather_sharded,
-                k12.wt_search, k12.ADVANCE)
+                k12.wt_search, k12.ADVANCE, k13.wt_window_gather, k13.WINDOW_SLAB, k13.SLAB)
     before = [c.launches for c in counters]
     lo, hi = (torch.as_tensor(x) for x in _ranges(host, np.random.default_rng(0), 4, 8))
     lp = torch.zeros((lo.numel(), V))
@@ -181,6 +187,8 @@ def test_wrappers_count_no_launch_on_cpu(indexes):
     wt_ops.advance_ranges(pairs["compact"][2], sel + 5, sel, lo, hi, eos=EOS, pad=PAD)
     assert before == [c.launches for c in counters]
     assert fm_ops.window_slab is k2.window_slab and fm_ops.slab_gather is k2.slab_gather
+    assert wt_ops.window_slab is k13.wt_window_slab
+    assert wt_ops.slab_gather is k13.wt_slab_gather
 
 
 # ------------------------------------------------------------- shard mode
