@@ -31,7 +31,8 @@
    point over each: queries/s, the run's launches (kernels 12-13 and none
    of the Psi index kernels 1, 2, 5, 6), every key grounded, hypotheses
    identical to the Psi layout's (tokens, score bits), a ``force_full``
-   re-run identical and through kernel 14, one profiled batch; then times
+   re-run identical and through kernel 14's support mode, one profiled
+   batch; then times
    the three layouts in turns (the host clock drifts between phases) and
    profiles one batch of each again in the reverse order.  Holds
    kernels 12-14 against their plain versions at the path's shapes on both
@@ -159,6 +160,15 @@
    hybrid layouts), each against its plain version at the path's shapes,
    exactly, and timed eager and graph-replayed beside the separate calls
    the decode step made before them.
+15. Kernels 6 and 14's support modes (the straggler rounds' pruning input:
+   8 words a range, bit b set iff bucket b's count is positive; kernel 6
+   also over the shards) against their plain versions and their counts
+   modes' > 0, at the path's ranges and kernel 6's narrow/wide route
+   boundary, timed beside the counts modes; and a straggler round's select
+   in one launch (``pruned_topk``: kernel 3's select through the pruning
+   loader) bit for bit against kernel 3 over the parent's pruned rows at
+   [480, 50265], k = 256 and 20,000, on the Psi and compact bucket sizes,
+   timed beside the parent's round (``composed_*``).
 
 Each path's launch counts come from that path's own run (every count set
 to 0 just before it, read just after); on every decoding path kernels 9
@@ -170,7 +180,9 @@ per selecting step on the compact and hybrid layouts, and kernel 2 (or its
 shard mode) once per selecting step after step 0 where the step takes a
 window and proposals on the Psi index (or the shards): its window + slab
 mode where a beam needs a proposal round, its window mode where none does,
-besides the straggler rounds' slab mode; the main path selects on kernel
+besides the straggler rounds' slab mode; each straggler round launches
+the pruning select once (as many as the slab mode's round launches), and
+no path launches a bucket counts mode; the main path selects on kernel
 8's warp route.
 Prints one JSON object with the kernel table on the line before the last,
 and ``{"ok": true, "device": {...}}`` as the last line.  Imports no jax.
@@ -247,6 +259,14 @@ REPLACES = {
     "wt_search_advance": "seal_tpu/decoding/constrained.py:1416",
     "wt_window_slab": "seal_tpu/decoding/constrained.py:622",
     "wt_slab_gather": "seal_tpu/decoding/constrained.py:622",
+    # the support modes: the counts as the straggler rounds read them
+    # (bucket_counts(...) > 0, seal_tpu/decoding/constrained.py:604)
+    "bucket_support": "seal_tpu/ops/fm_ops.py:238",
+    "wt_bucket_support": "seal_tpu/ops/wt_ops.py:203",
+    "bucket_support_sharded": "seal_tpu/parallel/sharded_decode.py:138",
+    # a straggler round's pruning (:604-608), consumed mask and top-k
+    # (:734-736) in one launch of kernel 3's select
+    "pruned_topk": "seal_tpu/decoding/constrained.py:734",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -305,10 +325,15 @@ SOURCES = {
     "wt_search_advance": ("cuda", "seal_tpu_torch/kernels/csrc/wt_search.cu"),
     "wt_window_slab": ("cuda", "seal_tpu_torch/kernels/csrc/wt_window.cu"),
     "wt_slab_gather": ("cuda", "seal_tpu_torch/kernels/csrc/wt_window.cu"),
+    "bucket_support": ("cuda", "seal_tpu_torch/kernels/csrc/bucket_counts.cu"),
+    "wt_bucket_support": ("cuda", "seal_tpu_torch/kernels/csrc/wt_bucket_counts.cu"),
+    "bucket_support_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/bucket_counts.cu"),
+    "pruned_topk": ("cuda", "seal_tpu_torch/kernels/csrc/row_topk.cu"),
 }
-# the kernels each driven path must launch (bucket_counts and the loop
-# rounds' merges run only in the proven loop, which the force_full re-runs
-# reach; kernel 4 must also show from the unigram call on its own)
+# the kernels each driven path must launch (the straggler rounds' support
+# bits, pruning select and merges run only in the proven loop, which the
+# force_full re-runs reach; kernel 4 must also show from the unigram call on
+# its own)
 DECODE_STEP = ("beam_merge", "beam_select", "cross_attention_step", "self_attention_step",
                "reorder_cache")
 PATH_KERNELS = {
@@ -317,7 +342,7 @@ PATH_KERNELS = {
     # a step's window and round 0's slab (its slab mode a straggler round's)
     "generate": ("fm_search", "window_gather", "row_topk", "log_softmax_min_len",
                  "fm_search_advance", "beam_select_warp", "window_slab") + DECODE_STEP,
-    "generate_force_full": ("bucket_counts", "beam_merge", "slab_gather"),
+    "generate_force_full": ("bucket_support", "pruned_topk", "beam_merge", "slab_gather"),
     "batch_search": ("fm_search", "window_gather", "row_topk", "log_softmax_min_len",
                      "fm_sequences", "rescore_logprob", "fm_search_advance",
                      "window_slab") + DECODE_STEP,
@@ -332,13 +357,13 @@ PATH_KERNELS = {
 # round's), as kernel 2 does on the Psi index
 WAVELET_LAYOUTS = ("compact", "hybrid")
 PSI_INDEX_KERNELS = ("fm_search", "window_gather", "fm_sequences", "bucket_counts",
-                     "fm_dense_counts", "fm_dense_mask")
+                     "bucket_support", "fm_dense_counts", "fm_dense_mask")
 for _layout in WAVELET_LAYOUTS:
     PATH_KERNELS[f"generate_{_layout}"] = (
         "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len",
         "wt_search_advance", "wt_window_slab") + DECODE_STEP
-    PATH_KERNELS[f"generate_{_layout}_force_full"] = ("wt_bucket_counts", "beam_merge",
-                                                      "wt_slab_gather")
+    PATH_KERNELS[f"generate_{_layout}_force_full"] = ("wt_bucket_support", "pruned_topk",
+                                                      "beam_merge", "wt_slab_gather")
     PATH_KERNELS[f"batch_search_{_layout}"] = (
         "wt_search", "wt_window_gather", "row_topk", "log_softmax_min_len",
         "rescore_logprob", "wt_search_advance", "wt_window_slab") + DECODE_STEP
@@ -422,7 +447,7 @@ PATH_KERNELS["generate_t5"] = ("fm_search", "window_gather", "row_topk",
 # (kernel 9 in f32 runs on its ffma route; the bf16 batch takes the mma route)
 PATH_KERNELS["generate_t5_bf16"] = tuple(k for k in PATH_KERNELS["generate_t5"]
                                          if k != "cross_attention_step_f32")
-PATH_KERNELS["generate_t5_force_full"] = ("bucket_counts", "beam_merge", "slab_gather")
+PATH_KERNELS["generate_t5_force_full"] = PATH_KERNELS["generate_force_full"]
 PATH_KERNELS["generate_t5_dense"] = (
     "fm_dense_mask", "fm_search", "dense_select", "row_topk", "log_softmax_min_len",
     "beam_select", "cross_attention_step", "self_attention_step_t5", "reorder_cache")
@@ -447,7 +472,8 @@ for _path in ("generate_sharded_dense", "generate_sharded_s1_dense",
     PATH_KERNELS[_path] = SHARDED_DENSE
 PATH_KERNELS["generate_sharded_force_full"] = ("beam_merge",)
 PATH_KERNELS["generate_sharded_beam32_force_full"] = ("beam_merge",)
-PATH_KERNELS["generate_sharded_s1_force_full"] = ("bucket_counts_sharded", "beam_merge",
+PATH_KERNELS["generate_sharded_s1_force_full"] = ("bucket_support_sharded", "pruned_topk",
+                                                   "beam_merge",
                                                    "slab_gather_sharded")
 PATH_KERNELS["generate_sharded_beam32"] = SHARDED_STEP + ("beam_select_large",)
 # (a searcher's key lengths leave every shard's interval inside the window
@@ -500,7 +526,10 @@ def fused_window(path: str):
 # exact counts of ops.dense_counts; every exact_mask path reads their mask
 # modes)
 COUNTS_MODES = ("fm_dense_counts", "wt_dense_counts", "fm_dense_counts_sharded")
-ENTRY_POINTS_ONLY = ("row_kth",) + COUNTS_MODES
+# and kernels 6 and 14's counts modes (the exact counts of ops.bucket_counts;
+# the straggler rounds read their support modes)
+BUCKET_COUNTS_MODES = ("bucket_counts", "wt_bucket_counts", "bucket_counts_sharded")
+ENTRY_POINTS_ONLY = ("row_kth",) + COUNTS_MODES + BUCKET_COUNTS_MODES
 
 
 def dense_mask_of(path: str) -> str:
@@ -707,7 +736,9 @@ def log_kernel(row) -> None:
                                                "mono_count_filter_ms",
                                                "mono_count_filter_graph_ms",
                                                "count_filter_bound_ms",
-                                               "ranges_group_graph_ms")
+                                               "ranges_group_graph_ms", "counts_ms",
+                                               "counts_graph_ms", "row_topk_graph_ms",
+                                               "large_k_graph_ms", "round_graph_ms")
                   if k in row))
 
 
@@ -1789,8 +1820,153 @@ def wavelet_kernel_phases(np, torch, host, psi, layouts, V, B, K):
         # ranges in, counts out, and the index bytes read
         bytes=B * K * (8 + 4 * width) + index14, index_bytes=index14,
     ))
+    table += support_rows(torch, k6, k14, psi, layouts, blo, bhi, x0, child, B, K)
+    table.append(straggler_row(torch, k6, k14, psi, compact, lo, hi, lp, B, K, V))
     torch.cuda.synchronize()
     return table
+
+
+def support_rows(torch, k6, k14, psi, layouts, lo, hi, x0, child, B, K):
+    """Kernels 6 and 14's support modes (what the straggler rounds read) on
+    kernel 14's ranges, and on kernel 6's narrow/wide route boundary (hi -
+    lo equal to the rows the wide route reads, and a row either side), each
+    equal to its plain version and to its counts mode's > 0.  Bounds:
+    bytes, the ranges in, 32 B out a range and the rows read: kernel 6 a
+    range's own BWT rows on the narrow route, else each bound's rows to its
+    block's nearer end and two table rows; kernel 14 a sector of each
+    distinct block its descent reads (level 0 at the bounds, level 1 at the
+    non-empty children's bounds)."""
+    compact, hybrid = layouts["compact"], layouts["hybrid"]
+    N, br = psi.n_rows, psi.bucket_rows
+    slo, shi = lo.clone(), hi.clone()
+    slo[0, 5:8] = torch.tensor([br + br // 2 - 1, br + br // 2, br + br // 2 + 1])
+    shi[0, 5:8] = 2 * br + 100
+    got = k6.bucket_support(psi, slo, shi)
+    err6 = int((got != k6.bucket_support_plain(psi, slo, shi)).sum())
+    err6 += int((got != k6.pack_support(k6.bucket_counts(psi, slo, shi))).sum())
+    if err6:
+        fail(f"bucket_support differs from its plain version or the counts mode ({err6} words)")
+    narrow, wide, rows6 = support_routes(torch, slo, shi, N, N, br)
+    counts6 = lambda: k6.bucket_counts(psi, slo, shi)  # noqa: E731
+    rows = [dict(
+        name="bucket_support", max_abs_err=err6, library_ms=None,
+        ms=time_ms(lambda: k6.bucket_support(psi, slo, shi)),
+        graph_ms=graph_ms(lambda: k6.bucket_support(psi, slo, shi)),
+        plain_ms=time_ms(lambda: k6.bucket_support_plain(psi, slo, shi)),
+        counts_ms=time_ms(counts6), counts_graph_ms=graph_ms(counts6),
+        shape=f"[{B},{K}] ranges -> 8 words, {int(narrow.sum())} on the narrow route, "
+              f"{int(wide.sum())} on the wide (counts_*: the counts mode on the same ranges)",
+        bytes=B * K * (8 + 32) + 4 * rows6 + 2 * 4 * psi.n_buckets * int(wide.sum()),
+    )]
+    err14 = 0
+    for ix in (compact, hybrid):
+        got = k14.wt_bucket_support(ix, lo, hi)
+        err14 += int((got != k14.wt_bucket_support_plain(ix, lo, hi)).sum())
+        err14 += int((got != k6.pack_support(k14.wt_bucket_counts(ix, lo, hi))).sum())
+    if err14:
+        fail(f"wt_bucket_support differs from its plain version or the counts mode ({err14})")
+    n = B * K
+    live1 = (child[n:] > child[:n]).repeat(2, 1)  # the non-empty children, at both bounds
+    x1 = (compact.node_start[1 : 1 + k14.RADIX] + child)[live1]
+    blocks = torch.unique(x0[:, 0].long() >> 8).numel() + torch.unique(x1.long() >> 8).numel()
+    counts14 = lambda: k14.wt_bucket_counts(compact, lo, hi)  # noqa: E731
+    rows.append(dict(
+        name="wt_bucket_support", max_abs_err=err14, library_ms=None,
+        ms=time_ms(lambda: k14.wt_bucket_support(compact, lo, hi)),
+        graph_ms=graph_ms(lambda: k14.wt_bucket_support(compact, lo, hi)),
+        hybrid_graph_ms=graph_ms(lambda: k14.wt_bucket_support(hybrid, lo, hi)),
+        plain_ms=time_ms(lambda: k14.wt_bucket_support_plain(compact, lo, hi)),
+        counts_ms=time_ms(counts14), counts_graph_ms=graph_ms(counts14),
+        shape=f"[{B},{K}] ranges -> 8 words, {int(live1[n:].sum())} non-empty children "
+              "descended (counts_*: the counts mode on the same ranges)",
+        bytes=n * (8 + 32) + 32 * blocks,
+    ))
+    return rows
+
+
+def support_routes(torch, lo, hi, n_rows, whole, R):
+    """Kernel 6's support mode's routes and rows read: (narrow, wide, rows)
+    for ranges clamped to ``n_rows``; each bound reads its rows up to its
+    block's nearer end (the upper only where that block ends at or below
+    ``whole``: the index's rows, or a shard's own)."""
+    lo_c, hi_c = lo.clamp(0, n_rows).long(), hi.clamp(0, n_rows).long()
+
+    def bound_rows(p):
+        n = p % R
+        up = (2 * n > R) & ((p // R + 1) * R <= whole)
+        return torch.where(up, R - n, n)
+
+    c = bound_rows(lo_c) + bound_rows(hi_c)
+    live = hi_c > lo_c
+    narrow = live & (hi_c - lo_c <= c)
+    wide = live & ~narrow
+    rows = int(torch.where(narrow, hi_c - lo_c, 0).sum() + torch.where(wide, c, 0).sum())
+    return narrow, wide, rows
+
+
+def straggler_row(torch, k6, k14, psi, compact, lo, hi, lp, B, K, V):
+    """A straggler round's select in one launch (``pruned_topk``: kernel 3's
+    select through the pruning loader) at the decode's [B * K, V] from
+    round 0's (lp, token) threshold (its top 64), k = 256: bit for bit its
+    plain version and kernel 3 over the parent's pruned ``work`` rows, with
+    the Psi index's
+    support bits (bucket size ceil(sigma / 256): a multiply) and the compact
+    layout's (a shift), and at k = 20,000 (the global sort).  composed_*:
+    the parent's round (kernel 6's counts, the pruned copy, the consumed
+    mask, kernel 3); round_graph_ms: this round (the support bits, then the
+    select).  Bound: bytes, lp read once, the words and thresholds, the
+    top k written."""
+    from seal_tpu_torch.decoding.constrained import NEG_INF
+    from seal_tpu_torch.index.fm_index import SHIFT
+    from seal_tpu_torch.kernels import row_topk as k3
+
+    vals, idx = k3.row_topk(lp, 64)
+    th_lp, th_ix = vals[:, -1].contiguous(), idx[:, -1].int()
+    err = 0
+    for ix, ops in ((psi, k6.bucket_support), (compact, k14.wt_bucket_support)):
+        bs = psi.bucket_size if ix is psi else k14.bucket_size_of(compact)
+        bits = ops(ix, lo, hi).reshape(B * K, -1)
+        for k in (256, 20000):
+            args = (lp, bits, th_lp, th_ix, bs, k, NEG_INF)
+            got = k3.pruned_topk(*args)
+            for want in (k3.pruned_topk_plain(*args),
+                         k3.row_topk(k3.pruned_rows(*args[:5], NEG_INF), k)):
+                err += sum(int((a.view(torch.int32) if a.is_floating_point() else a)
+                               .ne(b.view(torch.int32) if b.is_floating_point() else b).sum())
+                           for a, b in zip(got, want))
+    if err:
+        fail(f"pruned_topk differs from its plain version or kernel 3 over the pruned rows "
+             f"({err} values or indices)")
+    bits = k6.bucket_support(psi, lo, hi).reshape(B * K, -1)
+    args = (lp, bits, th_lp, th_ix, psi.bucket_size, 256, NEG_INF)
+    v_idx = torch.arange(V, dtype=torch.int32, device=lp.device)
+    v_bucket = ((v_idx + SHIFT) // psi.bucket_size).long()
+    th, thi = th_lp[:, None], th_ix[:, None]
+
+    def parent_round():
+        bc = k6.bucket_counts(psi, lo, hi).reshape(B * K, -1)
+        base = torch.where(bc[:, v_bucket] > 0, lp, NEG_INF)
+        consumed = (base > th) | ((base == th) & (v_idx <= thi))
+        return k3.row_topk(torch.where(consumed, NEG_INF, base), 256)
+
+    def round_():
+        b = k6.bucket_support(psi, lo, hi).reshape(B * K, -1)
+        return k3.pruned_topk(lp, b, th_lp, th_ix, psi.bucket_size, 256, NEG_INF)
+
+    large = (lp, bits, th_lp, th_ix, psi.bucket_size, 20000, NEG_INF)
+    return dict(
+        name="pruned_topk", max_abs_err=err, library_ms=None,
+        ms=time_ms(lambda: k3.pruned_topk(*args)),
+        graph_ms=graph_ms(lambda: k3.pruned_topk(*args)),
+        plain_ms=time_ms(lambda: k3.pruned_topk_plain(*args)),
+        row_topk_graph_ms=graph_ms(lambda: k3.row_topk(lp, 256)),
+        large_k_graph_ms=graph_ms(lambda: k3.pruned_topk(*large)),
+        composed_ms=time_ms(parent_round), composed_graph_ms=graph_ms(parent_round),
+        round_graph_ms=graph_ms(round_),
+        shape=f"[{B * K},{V}] k=256 (large_k_graph_ms: k=20000; row_topk_graph_ms: kernel 3 on "
+              "the raw rows; composed_*: the parent's round; round_graph_ms: support + select)",
+        bytes=B * K * (V * 4 + 32 + 8 + 256 * 12),
+    )
 
 
 def rows_bytes(torch, index_rows, lo, hi, hist_max, row_bytes: float) -> int:
@@ -3220,6 +3396,26 @@ def sharded_kernel_phases(np, torch, si, hosts, V, B, K, count_filter=None):
         shape=f"[{S},{B},{K}] ranges x {nb} buckets, summed",
         bytes=S * R * (8 + 2 * 4 * nb) + R * 4 * nb + int(partial.sum()) * 4,
     ))
+    # its support mode (what the straggler rounds read): each shard's bits
+    # ORed; a range's rows by its route, as the monolithic mode's bound
+    got = k6.bucket_support_sharded(si, lo, hi)
+    errs = int((got != k6.bucket_support_sharded_plain(si, lo, hi)).sum())
+    errs += int((got != k6.pack_support(k6.bucket_counts_sharded(si, lo, hi))).sum())
+    if errs:
+        fail(f"bucket_support_sharded differs from its plain version or the counts ({errs})")
+    whole = si.n_rows.reshape((-1,) + (1,) * (lo.dim() - 1)).long()
+    narrow, wide, rows6 = support_routes(torch, lo, hi, si.n_max, whole, br)
+    counts = lambda: k6.bucket_counts_sharded(si, lo, hi)  # noqa: E731
+    table.append(dict(
+        name="bucket_support_sharded", max_abs_err=errs, library_ms=None,
+        ms=time_ms(lambda: k6.bucket_support_sharded(si, lo, hi)),
+        graph_ms=graph_ms(lambda: k6.bucket_support_sharded(si, lo, hi)),
+        plain_ms=time_ms(lambda: k6.bucket_support_sharded_plain(si, lo, hi)),
+        counts_ms=time_ms(counts), counts_graph_ms=graph_ms(counts),
+        shape=f"[{S},{B},{K}] ranges -> 8 words ORed, {int(narrow.sum())} shard ranges on the "
+              f"narrow route, {int(wide.sum())} on the wide (counts_*: the counts mode)",
+        bytes=S * R * 8 + R * 32 + 4 * rows6 + 2 * 4 * nb * int(wide.sum()),
+    ))
 
     # kernel 15: every shard's count vector of its [B, K] ranges, summed,
     # on both routes
@@ -4002,6 +4198,10 @@ def main() -> int:
         "wt_search_advance": wt_search.ADVANCE,
         "wt_window_slab": wt_window.WINDOW_SLAB,
         "wt_slab_gather": wt_window.SLAB,
+        "bucket_support": bucket_counts.bucket_support,
+        "wt_bucket_support": wt_bucket_counts.wt_bucket_support,
+        "bucket_support_sharded": bucket_counts.bucket_support_sharded,
+        "pruned_topk": row_topk.pruned_topk,
     }
     # the calls of the sharded index's ops (each must be one launch)
     op_calls: collections.Counter = collections.Counter()
@@ -4050,6 +4250,16 @@ def main() -> int:
         for name in PATH_KERNELS[path]:
             if by_path[path][name] <= 0:
                 fail(f"kernel {name} was not launched on the {path} path")
+        # the straggler rounds: one launch of the pruning select a round
+        # (each round also gathers one slab), and no bucket counts mode
+        fused = fused_window(path)
+        rounds = by_path[path][fused[2]] if fused else 0
+        if by_path[path]["pruned_topk"] != rounds:
+            fail(f"{path}: pruned_topk launched {by_path[path]['pruned_topk']} times for "
+                 f"{rounds} straggler rounds")
+        for name in BUCKET_COUNTS_MODES:
+            if by_path[path][name]:
+                fail(f"{path}: the counts mode {name} was launched {by_path[path][name]} times")
         if "sharded" in path or path.endswith(WAVELET_LAYOUTS + tuple(
                 f"{w}_force_full" for w in WAVELET_LAYOUTS)):
             for name in PSI_INDEX_KERNELS:
@@ -4069,7 +4279,6 @@ def main() -> int:
                     "reorder_cache": n - no_select, select: n - no_select,
                     "fm_search_advance": n - no_select if psi_constrained(path) else 0,
                     "wt_search_advance": n - no_select if wavelet_constrained(path) else 0}
-            fused = fused_window(path)
             for name in ("window_slab", "window_slab_sharded", "wt_window_slab"):
                 if not fused or name != fused[1]:
                     want[name] = 0
@@ -4953,7 +5162,8 @@ def main() -> int:
                                    "count_filter_graph_ms", "count_filter_ranges_graph_ms",
                                    "count_filter_group_graph_ms", "mono_count_filter_ms",
                                    "mono_count_filter_graph_ms", "count_filter_bound_ms",
-                                   "ranges_group_graph_ms")
+                                   "ranges_group_graph_ms", "row_topk_graph_ms",
+                                   "large_k_graph_ms", "round_graph_ms")
                if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}

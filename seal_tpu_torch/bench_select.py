@@ -186,6 +186,38 @@ def profiled(ix, runs=5):  # runs batches' walls after a warm-up, then one profi
 ONLY = tuple(p for p in sys.argv[1].split(",") if p) if len(sys.argv) > 1 else ()
 batches = {"psi_batch": profiled(index), "compact_batch": profiled(layouts["compact"])}
 
+# one profiled force_full batch a layout (every step through the proven
+# loop, whose straggler rounds read kernel 6's or 14's output), after a
+# warm-up: device ms, launches, and the device ms and calls of the bucket
+# kernels, kernel 3's select instances and the slab mode
+ROUND = ("bucket", "row_topk_kernel", "slab")
+for name, ix in () if ONLY and not any(p.startswith("straggler") for p in ONLY) else (
+        ("psi", index), *layouts.items()):
+    def run(ix=ix):
+        generate.fm_index_generate(cfg, params, ix, ids, mask, **kw, force_full=True)
+        torch.cuda.synchronize()
+    run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, by = [], {}
+    for e in p.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        key = e.name.replace("(anonymous namespace)::", "").split("(")[0][:80]
+        ms, n = by.get(key, (0.0, 0))
+        by[key] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy, last = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, last))
+        last = max(last, b)
+    batches[f"force_full_{name}_batch"] = {
+        "batch_device_ms": busy / 1e3, "batch_wall_ms": wall, "batch_launches": len(spans),
+        "round_kernels": {k: {"ms": ms, "calls": n} for k, (ms, n) in by.items()
+                          if any(x in k for x in ROUND)}}
+
 # one profiled batch of each path that launches kernels 16 and 21, after a
 # warm-up: the dense parity mode on the compact layout, diverse groups (3 of
 # 5 at penalty 0.5) on the Psi index with and without it; the top kernels'
@@ -571,6 +603,68 @@ for label, (n5, L5) in (("[4096,16]", (4096, 16)),
                                                                       group=G))
         calls[f"k5 sharded ranges {label} x4 group {G}"] = (
             lambda seq5=seq5, len5=len5, G=G: k1.fm_sequences_sharded(si5, seq5, len5, group=G))
+# kernels 6 and 14 at the decode's [32, 15] ranges: the counts modes, and
+# the support bits where the checkout has them; kernel 18's gather of the
+# ranges' first 64 rows each; the straggler round at chunk_l 256 over
+# [480, 50265] from round 0's (lp, token) threshold: the parent's
+# composition (bucket counts, the pruned copy, the consumed mask, kernel 3)
+# on both sides, and the checkout's own round (the support bits, then one
+# launch of kernel 3's select through the pruning loader) where it has it
+from seal_tpu_torch.index.fm_index import SHIFT
+from seal_tpu_torch.kernels import bucket_counts as k6, locate as k18
+calls["k6 bucket counts [32,15] psi"] = lambda: k6.bucket_counts(index, lo, hi)
+if hasattr(k6, "bucket_support"):
+    calls["k6 support [32,15] psi"] = lambda: k6.bucket_support(index, lo, hi)
+for name, wix in layouts.items():
+    if hasattr(k14, "wt_bucket_support"):
+        calls[f"k14 support [32,15] {name}"] = (
+            lambda wix=wix: k14.wt_bucket_support(wix, lo, hi))
+sa_ix = TorchFMIndex.from_host(host, vocab=V, device=dev, keep_sa=True)
+gather_rows = torch.cat([torch.arange(a, min(b, a + 64), dtype=i32, device=dev) for a, b in
+                         zip(lo.flatten().tolist(), hi.flatten().tolist())])
+calls[f"k18 gather {gather_rows.numel()} rows"] = lambda: k18.locate_rows(sa_ix.sa, gather_rows)
+th_vals, th_idx = k3.row_topk(lp, 64)
+th_lp, th_ix = th_vals[:, -1:].contiguous(), th_idx[:, -1:].int().contiguous()
+v_idx = torch.arange(V, dtype=i32, device=dev)
+for name, wix in (("psi", index), *layouts.items()):
+    rops = tc.SingleIndexOps(wix)
+    v_bucket = ((v_idx + SHIFT) // rops.bucket_size()).long()
+
+    def parent_round(rops=rops, v_bucket=v_bucket):
+        bc = rops.bucket_counts(lo, hi).reshape(B * K, -1)
+        base = torch.where(bc[:, v_bucket] > 0, lp, tc.NEG_INF)
+        consumed = (base > th_lp) | ((base == th_lp) & (v_idx <= th_ix))
+        return k3.row_topk(torch.where(consumed, tc.NEG_INF, base), 256)
+
+    calls[f"straggler parent round [480,50265] k=256 {name}"] = parent_round
+    if hasattr(rops, "bucket_support"):
+        def round_(rops=rops):
+            bits = rops.bucket_support(lo, hi).reshape(B * K, -1)
+            return k3.pruned_topk(lp, bits, th_lp[:, 0], th_ix[:, 0], rops.bucket_size(), 256,
+                                  tc.NEG_INF)
+
+        calls[f"straggler round [480,50265] k=256 {name}"] = round_
+# the round's select alone: the parent's consumed mask over a pruned copy
+# and kernel 3 (and kernel 3 alone over the parent's finished rows),
+# against the loader's select (the support computed once)
+if hasattr(tc.SingleIndexOps, "bucket_support"):
+    sops = tc.SingleIndexOps(index)
+    bits6 = sops.bucket_support(lo, hi).reshape(B * K, -1)
+    calls["straggler select [480,50265] k=256 psi"] = lambda: k3.pruned_topk(
+        lp, bits6, th_lp[:, 0], th_ix[:, 0], sops.bucket_size(), 256, tc.NEG_INF)
+    calls["straggler select [480,50265] k=20000 psi"] = lambda: k3.pruned_topk(
+        lp, bits6, th_lp[:, 0], th_ix[:, 0], sops.bucket_size(), 20000, tc.NEG_INF)
+base6 = torch.where(k6.bucket_counts(index, lo, hi).reshape(B * K, -1)[
+    :, ((v_idx + SHIFT) // index.bucket_size).long()] > 0, lp, tc.NEG_INF)
+
+def parent_select(k):
+    consumed = (base6 > th_lp) | ((base6 == th_lp) & (v_idx <= th_ix))
+    return k3.row_topk(torch.where(consumed, tc.NEG_INF, base6), k)
+
+work6 = torch.where((base6 > th_lp) | ((base6 == th_lp) & (v_idx <= th_ix)), tc.NEG_INF, base6)
+calls["straggler parent work k3 [480,50265] k=256 psi"] = lambda: k3.row_topk(work6, 256)
+calls["straggler parent select [480,50265] k=256 psi"] = lambda: parent_select(256)
+calls["straggler parent select [480,50265] k=20000 psi"] = lambda: parent_select(20000)
 one = torch.empty(1, device=dev)
 calls["floor: one-element zero_()"] = lambda: one.zero_()
 if ONLY:

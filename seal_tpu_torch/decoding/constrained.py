@@ -84,7 +84,6 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.kernels.beam_select import (
     NEG_INF,
     beam_candidates,
@@ -95,7 +94,7 @@ from seal_tpu_torch.kernels.beam_select import (
 from seal_tpu_torch.kernels.dense_scores import dense_scores, dense_select
 from seal_tpu_torch.kernels.diverse_select import diverse_select
 from seal_tpu_torch.kernels.row_select import topk_log_softmax
-from seal_tpu_torch.kernels.row_topk import row_topk
+from seal_tpu_torch.kernels.row_topk import pruned_topk, row_topk
 from seal_tpu_torch.kernels.sample_select import sample_select, sample_select_counts
 from seal_tpu_torch.kernels.triton_logsoftmax import log_softmax_ban
 from seal_tpu_torch.index.wavelet import WaveletIndex
@@ -161,6 +160,12 @@ class SingleIndexOps:
 
     def bucket_counts(self, lo, hi):
         return self._ops.bucket_counts(self.index, lo, hi)
+
+    def bucket_support(self, lo, hi):
+        """The straggler rounds' pruning input: 8 int32 words a range, bit b
+        set iff ``bucket_counts(lo, hi)[..., b] > 0`` (kernel 6's support
+        mode on the Psi layout, kernel 14's on the wavelet layouts)."""
+        return self._ops.bucket_support(self.index, lo, hi)
 
     def bucket_size(self):
         """Symbols per ``bucket_counts`` bucket: the layout's own (wavelet
@@ -327,13 +332,16 @@ def _exact_proposals(
     None when every beam is ``exempt``); later rounds (the full loop only)
     sweep wider chunks past the consumed (lp, token) threshold under
     bucket-support pruning until every beam is complete, covered, dead or
-    exempt.  Each round's merge is kernel 8 (``beam_merge``).  Returns the
-    raw buffer (tok, lp, valid) [B, K, n_buf] -- or None when every beam is
-    exempt and no round ran -- and the EOS membership; ``round0_only`` stops
-    after round 0 and also returns the beams still unproven (``need``) and
-    their threshold (``th_lp``).  Unfilled buffer slots become PAD
-    candidates in the selection (``beam_select``).  ``lp`` is FLAT [B*K, V].
-    See the JAX function for the proofs.
+    exempt: the support bits once (kernel 6's or 14's support mode), then a
+    round's top ``chunk_l`` in one launch of kernel 3's select, which prunes
+    as it stages ``lp`` (``pruned_topk``).  Each round's merge is kernel 8
+    (``beam_merge``).  Returns the raw buffer (tok, lp, valid) [B, K,
+    n_buf] -- or None when every beam is exempt and no round ran -- and the
+    EOS membership; ``round0_only`` stops after round 0 and also returns
+    the beams still unproven (``need``) and their threshold (``th_lp``).
+    Unfilled buffer slots become PAD candidates in the selection
+    (``beam_select``).  ``lp`` is FLAT [B*K, V].  See the JAX function for
+    the proofs.
     """
     B, K = exempt.shape  # lo/hi may carry a leading shard axis
     V = lp.shape[-1]
@@ -341,7 +349,6 @@ def _exact_proposals(
     n_buf = cfg.n_buf
     chunk = _round0_width(cfg, V)
     chunk_l = min(V, max(cfg.exact_loop_chunk or 4 * chunk, chunk))
-    v_idx = torch.arange(V, dtype=torch.int32, device=dev)
 
     def merge_round(buf, top_tok, top_lp, top_ok, slab):
         # with the interval's own BWT rows, allowed by construction
@@ -381,20 +388,17 @@ def _exact_proposals(
         return None, ops.contains(eos_tok, lo, hi)
 
     buf, th_lp, th_ix, dead, covered, eos_ok = round0()
-    v_bucket = ((v_idx + SHIFT) // ops.bucket_size()).long()
-    bcounts = None
+    bits = None
     it = 1
     while chunk + (it - 1) * chunk_l < V and bool(unproven(buf, th_lp, dead, covered).any()):
-        if bcounts is None:
+        if bits is None:
             # bucket-support pruning: a token whose symbol bucket has no
             # row in [lo, hi) cannot continue the range
-            bcounts = ops.bucket_counts(lo, hi).reshape(B * K, -1)
-            base = torch.where(bcounts[:, v_bucket] > 0, lp, NEG_INF)
-        th_lp_f = th_lp.reshape(B * K, 1)
-        th_ix_f = th_ix.reshape(B * K, 1)
-        consumed = (base > th_lp_f) | ((base == th_lp_f) & (v_idx <= th_ix_f))
-        work = torch.where(consumed, NEG_INF, base)
-        top_lp, top_tok = row_topk(work, chunk_l)
+            bits = ops.bucket_support(lo, hi).reshape(B * K, -1)
+        # the round's top chunk_l of the pruned log-probs past the consumed
+        # (lp, token) threshold, the pruning done as kernel 3 stages lp
+        top_lp, top_tok = pruned_topk(lp, bits, th_lp.reshape(-1), th_ix.reshape(-1),
+                                      ops.bucket_size(), chunk_l, NEG_INF)
         top_tok = top_tok.reshape(B, K, chunk_l).to(torch.int32)
         top_lp = top_lp.reshape(B, K, chunk_l)
         rows_prev = chunk + (it - 1) * chunk_l  # slab rows already enumerated

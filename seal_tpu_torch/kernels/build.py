@@ -103,12 +103,19 @@ SIGNATURES = {
     # smem (kernels/row_topk.py:plan), scratch (None: the shared sort), vals,
     # idx, stream
     "seal_row_topk": [_P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # lp, bits, th_lp, th_ix, n_rows, width, k, bucket_size, neg_inf, the
+    # layout (as seal_row_topk's), scratch, vals, idx, stream
+    "seal_pruned_topk": [_P, _P, _P, _P, _L, _I, _I, _I, _F] + [_I] * 8 + [_P, _P, _P, _P],
     # bwt, bucket_occ, lo, hi, out, n, n_rows, bucket_rows, bucket_size,
     # n_buckets, stream
     "seal_bucket_counts": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     # bwt, bucket_occ, n_max, occ_rows, n_shards, lo, hi, out, n,
     # bucket_rows, bucket_size, n_buckets, stream
     "seal_bucket_counts_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _L, _I, _I, _I, _P],
+    # the support modes: the same arguments, out [n, 8] words (the shard
+    # mode also each shard's own rows [S] after n_shards)
+    "seal_bucket_support": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    "seal_bucket_support_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     # logits, targets, out, n, T, V, n_prefix, stream
     "seal_rescore_logprob": [_P, _P, _P, _L, _I, _I, _I, _P],
     # buf_tok, buf_lp, buf_valid, top_tok, top_lp, top_ok, top_stride,
@@ -162,6 +169,7 @@ SIGNATURES = {
     "seal_wt_window_slab": _WT + [_P, _I, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I] + [_P] * 7,
     # the wavelet index, lo, hi, out, n, depth, stream
     "seal_wt_bucket_counts": _WT + [_P, _P, _P, _L, _I, _P],
+    "seal_wt_bucket_support": _WT + [_P, _P, _P, _L, _I, _P],
     # the wavelet index, bwt (None: descent), bwt_bytes, lo, hi, out, n,
     # vocab, hist_max, stream
     "seal_wt_dense_counts": _WT + [_P, _I, _P, _P, _P, _L, _I, _I, _P],

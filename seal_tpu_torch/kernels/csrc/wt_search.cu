@@ -248,40 +248,8 @@ __device__ __forceinline__ void zero_ints(int* row, int n) {
   for (int i = head + 4 * nv + threadIdx.x; i < n; i += blockDim.x) row[i] = 0;
 }
 
-// Occurrences of digit d at offsets [wa, wb) of the block at blk,
-// 0 <= wa <= wb <= 256: the matched nibbles of the code words between,
-// read 16 bytes at a time.
-__device__ __forceinline__ int count_between(const uint32_t* blk, int wa, int wb, int d) {
-  if (wb <= wa) return 0;
-  const uint32_t pat = (uint32_t)d * 0x11111111u;
-  const uint4* codes = reinterpret_cast<const uint4*>(blk + seal_wt::RADIX);
-  int cnt = 0;
-  for (int q = wa >> 5; q <= (wb - 1) >> 5; ++q) {  // 32 offsets a 16-byte load
-    const uint4 v = __ldg(codes + q);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int at = 32 * q + 8 * k;  // the word's first offset
-      const int lo = min(max(wa - at, 0), 8), hi = min(max(wb - at, 0), 8);
-      const uint32_t below_hi = hi == 8 ? 0xffffffffu : (1u << (4 * hi)) - 1u;
-      const uint32_t keep = below_hi & ~((1u << (4 * lo)) - 1u);
-      cnt += __popc(seal_wt::match_nibbles(w[k], pat) & keep);
-    }
-  }
-  return cnt;
-}
-
-// Occ of digit d before level position x (clamped as block_of clamps it),
-// counted from the nearer end of its block: the block's directory word
-// plus the codes before x, or the next block's directory word less the
-// codes from x on (every block but the last holds 256 positions).
-__device__ __forceinline__ int rank_near(const Index& ix, int level, int x, int d) {
-  const uint32_t* blk = seal_wt::block_of(ix, level, x);
-  const int w = x & 255;
-  if (w > 128 && (x >> 8) + 1 < ix.n_blocks)
-    return (int)__ldg(blk + seal_wt::WORDS_PER_BLOCK + d) - count_between(blk, w, 256, d);
-  return (int)__ldg(blk + d) + count_between(blk, 0, w, d);
-}
+using seal_wt::count_between;
+using seal_wt::rank_near;
 
 // The walk of rows [r0, r1) (clamped, non-empty) over the symbols
 // [c_lo, c_hi) into row_out (indexed by token; the caller zeroed those

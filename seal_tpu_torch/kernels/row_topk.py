@@ -13,6 +13,12 @@ Since the decode modes' top-``top_m`` (free generation, the speculative
 round) came here from kernel 19, it serves those too.  Past k = 16384
 (``MAX_K``: an ``exact_loop_chunk`` that wide) the survivors are sorted
 in device memory by a bitonic network (``sort="global"``), exact as well.
+
+:func:`pruned_topk` is the proven loop's straggler round in one launch:
+kernel 3's select over the round's pruned log-probs (a token whose bucket
+has no row in the beam's interval, or that the consumed-prefix threshold
+has examined, is ``neg_inf``), computed by a value loader as the select
+stages the log-probs (``PrunedLoad``), so the pruned copy is never written.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.kernels import Launches
 
 MAX_SPLITS = 16  # CTAs a row: a thread-block cluster, 16 non-portable
@@ -33,6 +40,7 @@ WIDE_SLICE = 16384  # a slice of this many keys takes 1024 threads, a shorter on
 CAND_CAP = 8192  # candidates a CTA holds on the streamed route (64 KB)
 SMEM_BUDGET = 227 * 1024 - 1024  # Hopper's 227 KB a block, less the static part
 _FN = _STREAM = None  # the C entry point and build.stream_ptr, looked up once
+_PRUNED = None  # seal_pruned_topk, looked up once
 GLOBAL_SORT = Launches()  # calls past MAX_K: the survivors sorted in device memory
 BINS_BYTES = 28 * 1024  # three passes' cluster totals and a histogram (seal_row_topk_bins_bytes)
 
@@ -173,3 +181,74 @@ def row_topk(x, k: int, layout: Plan | None = None):
 
 
 row_topk.launches = 0
+
+
+def pruned_rows(lp, bits, th_lp, th_ix, bucket_size: int, neg_inf: float):
+    """The round's ``work`` rows as JAX builds them (``seal_tpu/decoding/
+    constrained.py:604-608, 734-735``): ``lp`` where the token's bucket
+    ``(v + SHIFT) // bucket_size`` has its bit in ``bits`` and the token is
+    past the (``th_lp``, ``th_ix``) threshold, else ``neg_inf``."""
+    V = lp.shape[-1]
+    v_idx = torch.arange(V, dtype=torch.int32, device=lp.device)
+    bucket = (v_idx + SHIFT) // bucket_size
+    support = ((bits[:, (bucket >> 5).long()] >> (bucket & 31)) & 1).bool()
+    base = torch.where(support, lp, neg_inf)
+    th, ix = th_lp[:, None], th_ix[:, None]
+    consumed = (base > th) | ((base == th) & (v_idx <= ix))
+    return torch.where(consumed, neg_inf, base)
+
+
+def pruned_topk_plain(lp, bits, th_lp, th_ix, bucket_size: int, k: int, neg_inf: float):
+    return row_topk_plain(pruned_rows(lp, bits, th_lp, th_ix, bucket_size, neg_inf), k)
+
+
+def pruned_topk(lp, bits, th_lp, th_ix, bucket_size: int, k: int, neg_inf: float):
+    """A straggler round's top ``k`` in one launch: ``row_topk`` of
+    :func:`pruned_rows` (values and int64 indices, ``lax.top_k``'s order),
+    bit for bit.  ``lp`` f32 [rows, V] (NaN-free), ``bits`` int32 [rows, 8]
+    (the support modes of kernels 6 and 14), ``th_lp`` f32 and ``th_ix``
+    int32 [rows]; every token's bucket below 256.
+
+    CPU tensors run the plain version; CUDA tensors launch kernel 3's
+    select through ``PrunedLoad`` (``csrc/row_topk.cu``), laid out by
+    :func:`plan`, on every route ``row_topk`` takes at that width and k
+    (the global sort past ``MAX_K``).
+    """
+    if lp.dim() != 2 or bits.shape != (lp.shape[0], 8) or th_lp.shape != (lp.shape[0],) \
+            or th_ix.shape != (lp.shape[0],):
+        raise ValueError(f"pruned_topk: lp {tuple(lp.shape)}, bits {tuple(bits.shape)}, "
+                         f"thresholds {tuple(th_lp.shape)} / {tuple(th_ix.shape)}")
+    rows, n = lp.shape
+    if not 0 < k <= n:
+        raise ValueError(f"pruned_topk: k={k} for rows of width {n}")
+    if not 0 < bucket_size or (n - 1 + SHIFT) // bucket_size >= 256:
+        raise ValueError(f"pruned_topk: bucket size {bucket_size} for a vocab of {n}")
+    if not lp.is_cuda:
+        return pruned_topk_plain(lp, bits, th_lp, th_ix, bucket_size, k, neg_inf)
+    global _PRUNED, _STREAM
+    if lp.dtype is not torch.float32 or bits.dtype is not torch.int32:
+        raise ValueError(f"pruned_topk: f32 lp and int32 bits, got {lp.dtype}, {bits.dtype}")
+    if _PRUNED is None:
+        from seal_tpu_torch.kernels import build
+
+        _PRUNED, _STREAM = build.lib().seal_pruned_topk, build.stream_ptr
+    lp, bits = lp.contiguous(), bits.contiguous()
+    th_lp = th_lp.to(torch.float32).contiguous()
+    th_ix = th_ix.to(torch.int32).contiguous()
+    p = plan(rows, n, k)
+    vals = torch.empty((rows, k), dtype=torch.float32, device=lp.device)
+    idx = torch.empty((rows, k), dtype=torch.int64, device=lp.device)
+    scratch = (torch.empty((rows, p.n2), dtype=torch.int64, device=lp.device)
+               if p.sort == "global" else None)
+    rc = _PRUNED(lp.data_ptr(), bits.data_ptr(), th_lp.data_ptr(), th_ix.data_ptr(), rows, n,
+                 k, bucket_size, neg_inf, *p.launch,
+                 scratch.data_ptr() if scratch is not None else None, vals.data_ptr(),
+                 idx.data_ptr(), _STREAM(lp))
+    if rc:
+        raise RuntimeError(f"pruned_topk: CUDA error {rc}")
+    pruned_topk.launches += 1
+    GLOBAL_SORT.launches += scratch is not None
+    return vals, idx
+
+
+pruned_topk.launches = 0

@@ -10,6 +10,12 @@ symbols whose top ``4 * depth`` bits are ``b``: 256 buckets of
 not the Psi layout's buckets, so the decoder maps tokens to buckets with
 the layout's own ``bucket_size_of``.  Integer counts, so the kernel equals
 the plain version exactly.  One CTA per range; see the source.
+
+:func:`wt_bucket_support` is the support mode the decoder calls: the 8
+words of ``bucket_counts.pack_support`` (bit ``b`` set iff bucket ``b``'s
+count is positive), a CTA of four warps a range descending only into the
+non-empty children; the counts mode stays an entry point of
+``ops.bucket_counts`` that no decode path launches.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from seal_tpu_torch.index.wavelet import BUCKET_DEPTH, DIGIT_BITS, RADIX, heap_base
+from seal_tpu_torch.kernels.bucket_counts import SUPPORT_WORDS, pack_support
 from seal_tpu_torch.kernels.wt_search import check_index, index_args, load_block, rank_from_block
 
 
@@ -79,3 +86,36 @@ def wt_bucket_counts(index, lo, hi):
 
 
 wt_bucket_counts.launches = 0
+
+
+def wt_bucket_support_plain(index, lo, hi):
+    return pack_support(wt_bucket_counts_plain(index, lo, hi))
+
+
+def wt_bucket_support(index, lo, hi):
+    """The bucket-support bits of rows [lo, hi): int32 [..., SUPPORT_WORDS],
+    bit ``b`` set iff ``wt_bucket_counts(index, lo, hi)[..., b] > 0``.
+
+    CPU tensors run the plain version; CUDA tensors launch kernel 14's
+    support mode.
+    """
+    lo = torch.as_tensor(lo, dtype=torch.int32, device=index.device)
+    hi = torch.as_tensor(hi, dtype=torch.int32, device=index.device)
+    lo, hi = torch.broadcast_tensors(lo, hi)
+    if not lo.is_cuda:
+        return wt_bucket_support_plain(index, lo, hi)
+    from seal_tpu_torch.kernels import build
+
+    check_index(index, "wt_bucket_support")
+    lo, hi = lo.contiguous(), hi.contiguous()
+    out = torch.empty(tuple(lo.shape) + (SUPPORT_WORDS,), dtype=torch.int32, device=lo.device)
+    rc = build.lib().seal_wt_bucket_support(
+        *index_args(index), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), lo.numel(),
+        bucket_digits(index), build.stream_ptr(lo),
+    )
+    build.check(rc, "wt_bucket_support")
+    wt_bucket_support.launches += 1
+    return out
+
+
+wt_bucket_support.launches = 0

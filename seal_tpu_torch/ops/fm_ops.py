@@ -8,7 +8,8 @@ rank-search kernel, ``range_for_sequences``/``count_sequences`` through
 its sequence mode and ``dense_counts`` / ``dense_mask`` through its dense
 kernel's counts and mask modes (``kernels/fm_search.py``), ``window_gather``, ``window_slab`` and
 ``slab_gather`` through the window kernel's modes (kernel 2),
-``bucket_counts`` through the bucket kernel and ``locate_rows`` /
+``bucket_counts`` and ``bucket_support`` through the bucket kernel's counts
+and support modes (kernel 6) and ``locate_rows`` /
 ``doc_index_of`` through kernel 18 (``kernels/locate.py``); the other ops
 are plain torch on every device.
 """
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from seal_tpu_torch.index.fm_index import SHIFT
-from seal_tpu_torch.kernels.bucket_counts import bucket_counts  # noqa: F401
+from seal_tpu_torch.kernels.bucket_counts import bucket_counts, bucket_support  # noqa: F401
 from seal_tpu_torch.kernels.fm_search import (
     fm_advance,
     fm_dense_counts,

@@ -10,8 +10,9 @@ through the rank-search kernel (kernel 12, ``kernels/wt_search.py``),
 ``dense_counts`` through its dense kernel (16), ``window_gather``,
 ``window_slab`` and ``slab_gather`` through the window kernel's three modes
 (13, kernel 2's contract: the window, the step's window and round 0's slab
-in one launch, a round's slab), and ``bucket_counts`` through the
-bisection kernel (14); ``rank``,
+in one launch, a round's slab), and ``bucket_counts`` and
+``bucket_support`` through the bisection kernel's counts and support modes
+(14); ``rank``,
 ``access``, ``bwt_at`` and ``window_continuations`` are plain torch on
 every device.
 """
@@ -25,6 +26,7 @@ from seal_tpu_torch.kernels.wt_bucket_counts import (  # noqa: F401
     bucket_size_of,
 )
 from seal_tpu_torch.kernels.wt_bucket_counts import wt_bucket_counts as bucket_counts  # noqa: F401
+from seal_tpu_torch.kernels.wt_bucket_counts import wt_bucket_support as bucket_support  # noqa: F401
 from seal_tpu_torch.kernels.wt_search import (
     access_plain,
     rank_plain,

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from seal_tpu_torch.decoding.generate import fm_index_generate
-from seal_tpu_torch.kernels.bucket_counts import bucket_counts_sharded
+from seal_tpu_torch.kernels.bucket_counts import bucket_counts_sharded, bucket_support_sharded
 from seal_tpu_torch.kernels.fm_search import (
     fm_dense_counts_sharded,
     fm_dense_mask_sharded,
@@ -97,6 +97,11 @@ class ShardedIndexOps:
 
     def bucket_counts(self, lo, hi):
         return bucket_counts_sharded(self.index, lo, hi)
+
+    def bucket_support(self, lo, hi):
+        """The support bits of the summed counts: each shard's bits ORed,
+        in one launch of kernel 6's support mode over the shards."""
+        return bucket_support_sharded(self.index, lo, hi)
 
     def bucket_size(self):
         return self.index.bucket_size

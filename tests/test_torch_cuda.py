@@ -815,6 +815,11 @@ def _check_wt_kernels(t, host, vocab, lo, hi, toks, seqs, lens, lp):
     assert wt_bucket_counts.wt_bucket_counts.launches == n0 + 1
     assert torch.equal(got, wt_bucket_counts.wt_bucket_counts_plain(t, lo, hi))
     assert torch.equal(got.sum(-1), (hi - lo).clamp(min=0))
+    n0 = wt_bucket_counts.wt_bucket_support.launches
+    bits = wt_bucket_counts.wt_bucket_support(t, lo, hi)
+    assert wt_bucket_counts.wt_bucket_support.launches == n0 + 1
+    assert torch.equal(bits, wt_bucket_counts.wt_bucket_support_plain(t, lo, hi))
+    assert torch.equal(bits, bucket_counts.pack_support(got))
 
 
 def _wt_sequences(host, rng, n, L, vocab, cuda):
@@ -2232,6 +2237,10 @@ def test_shard_modes_match_plain(cuda, S):
     _same((bucket_counts.bucket_counts_sharded(si, lo, hi),),
           (bucket_counts.bucket_counts_sharded_plain(si, lo, hi),))
     assert bucket_counts.bucket_counts_sharded.launches == n0 + 1
+    n0 = bucket_counts.bucket_support_sharded.launches
+    _same((bucket_counts.bucket_support_sharded(si, lo, hi),),
+          (bucket_counts.bucket_support_sharded_plain(si, lo, hi),))
+    assert bucket_counts.bucket_support_sharded.launches == n0 + 1
     want = fm_search.dense_counts_sharded_plain(si, lo, hi, 16)
     for hist_max in (fm_search.HIST_MAX_ROWS, 0, 7):
         _same((fm_search.fm_dense_counts_sharded(si, lo, hi, hist_max=hist_max),), (want,))
@@ -2847,3 +2856,161 @@ def test_fm_sequences_groups_match_plain(cuda, S, graph):
             _same(_as_tuple(got), _as_tuple(want))
             seen.add((count, fm_search.sequences_plan(n, sms, max(S, 1), group)))
     assert {G for _, (G, _) in seen} == set(fm_search.GROUPS)
+
+
+# ------------------------------------ the straggler rounds: support, select
+
+
+def _support_docs():
+    """The Zipf corpus (6 bucket blocks) with ids past the 256 buckets of a
+    vocab of 40 (bucket size 1): 300, 301 and 700 go to the dropped column."""
+    rng = np.random.default_rng(5)
+    toks = (rng.zipf(1.2, size=6000) % 28 + 4).astype(np.int64)
+    docs = [d.tolist() for d in np.array_split(toks, 120)]
+    docs[3] += [300, 301, 700]
+    docs[50] += [300]
+    return docs
+
+
+def _support_host():
+    host = FMIndex()
+    host.initialize(_support_docs())
+    return host
+
+
+def _support_ranges(host, R, rng, n):
+    """Random ranges, then: wider than one bucket block, across one block
+    edge, the narrow/wide route boundary (hi - lo equal to the two partial
+    blocks' rows, one row either side), inside one block, clamped, empty."""
+    N = host.size()
+    lo = rng.integers(0, N, size=n)
+    hi = np.minimum(lo + rng.integers(0, N // 3, size=n), N)
+    special = [(0, N), (R, 2 * R), (R - 1, R + 1), (R + R // 2, 2 * R + 100),
+               (R + R // 2 - 1, 2 * R + 100), (R + R // 2 + 1, 2 * R + 100), (3, 3 * R + 5),
+               (2 * R + 7, 2 * R + 60), (-7, N + 9), (N, N), (5, 5)]
+    for i, (a, b) in enumerate(special):
+        lo[i], hi[i] = a, b
+    return lo.astype(np.int32), hi.astype(np.int32)
+
+
+@pytest.mark.parametrize("shape", [(48,), (32, 15)])
+def test_bucket_support_matches_plain(cuda, shape):
+    """Kernel 6's support mode: one launch, bits equal to the plain version
+    and to the counts mode's > 0, at random ranges and at the ranges of
+    ``_support_ranges`` (both routes and their boundary), OOV symbols
+    dropped; the decoder's [32, 15] shape."""
+    host = _support_host()
+    t = TorchFMIndex.from_host(host, vocab=40, device=cuda)
+    n = int(np.prod(shape))
+    lo, hi = _support_ranges(host, t.bucket_rows, np.random.default_rng(n), n)
+    lo = torch.as_tensor(lo, device=cuda).reshape(shape)
+    hi = torch.as_tensor(hi, device=cuda).reshape(shape)
+    n0 = bucket_counts.bucket_support.launches
+    got = bucket_counts.bucket_support(t, lo, hi)
+    assert bucket_counts.bucket_support.launches == n0 + 1
+    assert got.shape == shape + (8,)
+    assert torch.equal(got, bucket_counts.bucket_support_plain(t, lo, hi))
+    assert torch.equal(got, bucket_counts.pack_support(bucket_counts.bucket_counts(t, lo, hi)))
+    assert (got != 0).any() and (got == 0).all(-1).any()
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_bucket_support_sharded_routes_match_plain(cuda, S):
+    """Kernel 6's shard support mode at ranges wider than a bucket block
+    and at the route boundary in every shard: each shard's bits ORed."""
+    from seal_tpu_torch.parallel.sharded_index import ShardedTorchIndex
+
+    host = _support_host()
+    si = ShardedTorchIndex.build(_support_docs(), S, 40, device=cuda)[0]
+    rng = np.random.default_rng(S)
+    pairs = [_support_ranges(host, si.bucket_rows, rng, 32) for _ in range(S)]
+    lo = torch.as_tensor(np.stack([np.clip(a, -7, si.n_max) for a, _ in pairs]), device=cuda)
+    hi = torch.as_tensor(np.stack([np.clip(b, -7, si.n_max) for _, b in pairs]), device=cuda)
+    n0 = bucket_counts.bucket_support_sharded.launches
+    got = bucket_counts.bucket_support_sharded(si, lo, hi)
+    assert bucket_counts.bucket_support_sharded.launches == n0 + 1
+    assert torch.equal(got, bucket_counts.bucket_support_sharded_plain(si, lo, hi))
+
+
+def _round_case(g, cuda, rows, V, bucket_size):
+    """A straggler round's inputs at [rows, V]: log-probs with -inf, signed
+    zeros and ties; random support words with empty buckets; thresholds
+    from the row's own top 64 (round 0's), and NEG_INF, -inf and -0.0."""
+    lp = _lp(g, rows, V, cuda)
+    n_buckets = (V - 1 + 1) // bucket_size + 1
+    counts = (torch.rand(rows, n_buckets, generator=g, device=cuda) < 0.4).int()
+    counts[0] = 1
+    bits = bucket_counts.pack_support(counts)
+    vals, idx = row_topk.row_topk(lp, 64)
+    th_lp, th_ix = vals[:, -1].clone(), idx[:, -1].int()
+    th_lp[1], th_lp[2], th_lp[3] = tc.NEG_INF, float("-inf"), -0.0
+    th_ix[3] = 6
+    return lp, bits, th_lp, th_ix
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("k", [256, 20000])
+@pytest.mark.parametrize("bucket_size", [197, 256])
+def test_pruned_topk_matches_row_topk(cuda, bucket_size, k, graph):
+    """The straggler round in one launch: kernel 3's select through the
+    pruning loader equals kernel 3 over the eager pruned rows (the parent's
+    ``work``) and the plain version, values and indices bit for bit, at
+    the path's [480, 50265] with the Psi layout's bucket size (197, a
+    multiply) and the wavelet's (256, a shift), at k = 256 and at 20,000
+    (the global sort), eager and replayed from a CUDA graph."""
+    g = torch.Generator(device=cuda).manual_seed(k + bucket_size)
+    lp, bits, th_lp, th_ix = _round_case(g, cuda, 480, 50265, bucket_size)
+    args = (lp, bits, th_lp, th_ix, bucket_size, k, tc.NEG_INF)
+    work = row_topk.pruned_rows(*args[:5], tc.NEG_INF)
+    want = row_topk.row_topk(work, k)
+    n0 = row_topk.pruned_topk.launches
+    if graph:
+        row_topk.pruned_topk(*args)
+        torch.cuda.synchronize()
+        cg = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cg):
+            got = row_topk.pruned_topk(*args)
+        cg.replay()
+        torch.cuda.synchronize()
+    else:
+        got = row_topk.pruned_topk(*args)
+    assert row_topk.pruned_topk.launches == n0 + 1 + graph
+    _same(got, want)
+    _same(got, row_topk.pruned_topk_plain(*args))
+    assert (work[1] <= tc.NEG_INF).all() and (work[0] > tc.NEG_INF).any()
+
+
+@pytest.mark.parametrize("layout", ["psi", "compact", "hybrid"])
+def test_force_full_generate_on_card_matches_cpu(cuda, layout):
+    """A force_full batch (every step through the proven loop, with
+    straggler rounds) on each layout gives the CPU path's hypotheses; the
+    rounds launch the support mode and the pruning select, and no counts
+    mode."""
+    cfg = bart_tiny(vocab_size=96)
+    params = bart.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    docs = [rng.integers(4, 18, size=rng.integers(5, 30)).tolist() + [2] for _ in range(30)]
+    host = FMIndex()
+    host.initialize(docs)
+    queries = [[0] + rng.integers(4, 18, size=5).tolist() + [2] for _ in range(3)]
+    kw = dict(num_beams=4, max_length=6, min_length=1, window=4, exact_chunk=2,
+              exact_loop_chunk=2, force_full=True)
+
+    def index(dev):
+        if layout == "psi":
+            return TorchFMIndex.from_host(host, vocab=96, device=dev)
+        return WaveletIndex.from_host(host, vocab=96, keep_bwt=layout == "hybrid", device=dev)
+
+    support = (bucket_counts.bucket_support if layout == "psi"
+               else wt_bucket_counts.wt_bucket_support)
+    counts = (bucket_counts.bucket_counts if layout == "psi"
+              else wt_bucket_counts.wt_bucket_counts)
+    cpu = tg.fm_index_generate(cfg, params, index("cpu"), queries, **kw)
+    n0, c0, p0 = support.launches, counts.launches, row_topk.pruned_topk.launches
+    gpu = tg.fm_index_generate(cfg, _to(params, cuda), index(cuda), queries, **kw)
+    assert support.launches > n0 and row_topk.pruned_topk.launches > p0
+    assert counts.launches == c0
+    for a, b in zip(cpu, gpu):
+        ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
+        assert [t for t, _ in ka] == [t for t, _ in kb]
+        np.testing.assert_allclose([s for _, s in kb], [s for _, s in ka], atol=1e-4, rtol=0)

@@ -20,7 +20,8 @@ from seal_tpu.index import device_index as jdi
 from seal_tpu.ops import fm_ops as jops
 from seal_tpu_torch.decoding import constrained as tc
 from seal_tpu_torch.index import device_index as tdi
-from seal_tpu_torch.kernels import fm_search, row_topk, triton_logsoftmax, window_gather
+from seal_tpu_torch.kernels import bucket_counts as k6
+from seal_tpu_torch.kernels import count_mask, fm_search, row_topk, triton_logsoftmax, window_gather
 from seal_tpu_torch.ops import fm_ops as tops
 
 
@@ -257,6 +258,72 @@ def test_bucket_counts_block_edges_match_jax(pair):
     # the [B, K] ranges of the decode loop
     _eq(jops.bucket_counts(j, los[:12].reshape(3, 4), his[:12].reshape(3, 4)),
         tops.bucket_counts(t, los[:12].reshape(3, 4), his[:12].reshape(3, 4)))
+    # the support bits the straggler rounds read: JAX's counts > 0
+    _assert_support(jops.bucket_counts(j, los, his), tops.bucket_support(t, los, his))
+    _assert_support(jops.bucket_counts(j, los[:12].reshape(3, 4), his[:12].reshape(3, 4)),
+                    tops.bucket_support(t, los[:12].reshape(3, 4), his[:12].reshape(3, 4)))
+
+
+def _assert_support(counts, bits):
+    """``bits`` (int32 [..., 8]) is the 256-bit support of JAX's counts
+    [..., n]: bit b set iff count b > 0, the bits past n 0."""
+    counts = np.asarray(counts)
+    assert bits.dtype == torch.int32 and bits.shape == counts.shape[:-1] + (8,)
+    got = count_mask.unpack(bits, 256).numpy()
+    n = counts.shape[-1]
+    np.testing.assert_array_equal(got[..., :n], counts > 0)
+    assert not got[..., n:].any()
+
+
+def _oov_host():
+    """A corpus with symbols past the 256 buckets of a vocab of 40 (bucket
+    size 1): the ids 300, 301 and 700 go to the dropped column."""
+    rng = np.random.default_rng(7)
+    docs = [rng.integers(0, 30, size=rng.integers(2, 50)).tolist() for _ in range(120)]
+    docs[3] += [300, 301, 700]
+    docs[9] += [300]
+    host = FMIndex()
+    host.initialize(docs)
+    return host
+
+
+@pytest.mark.parametrize("where", ["full", "narrow", "block_edges", "oov_rows", "random"])
+def test_bucket_support_matches_jax(where):
+    """Kernel 6's support mode's plain version == JAX's ``bucket_counts >
+    0`` on an index of three bucket blocks with out-of-vocab symbols: the
+    full and empty ranges, narrow ones (the kernel's narrow route), ranges
+    on the blocks' edges (its wide route), over the dropped symbols' rows
+    and at random; the CPU wrapper launches nothing."""
+    host = _oov_host()
+    j = jdi.DeviceFMIndex.from_host(host, vocab=40)
+    t = tdi.TorchFMIndex.from_host(host, vocab=40, device="cpu")
+    N = host.size()
+    assert 2 * t.bucket_rows < N < 3 * t.bucket_rows
+    oov = np.flatnonzero(np.asarray(host.bwt) > 256)
+    assert oov.size == 4
+    rng = np.random.default_rng(len(where))
+    if where == "full":
+        los, his = np.array([0, 0, N, 3]), np.array([N, 0, N, N - 3])
+    elif where == "narrow":
+        a = rng.integers(0, N - 40, size=16)
+        los, his = a, a + rng.integers(0, 40, size=16)
+    elif where == "block_edges":
+        R = t.bucket_rows
+        edges = np.array([0, 1, R - 1, R, R + 1, 2 * R - 1, 2 * R, 2 * R + 1, N - 1, N])
+        los, his = np.meshgrid(edges, edges)
+        keep = los <= his
+        los, his = los[keep], his[keep]
+    elif where == "oov_rows":
+        los, his = np.concatenate([oov, oov - 2]), np.concatenate([oov + 1, oov + 5])
+    else:
+        a = rng.integers(0, N, size=24)
+        los, his = a, rng.integers(a, N + 1)
+    los, his = los.astype(np.int32), np.minimum(his, N).astype(np.int32)
+    before = k6.bucket_support.launches
+    _assert_support(jops.bucket_counts(j, los, his), tops.bucket_support(t, los, his))
+    assert k6.bucket_support.launches == before
+    _assert_support(jops.bucket_counts(j, los, his), k6.bucket_support_plain(
+        t, torch.as_tensor(los), torch.as_tensor(his)))
 
 
 @pytest.mark.parametrize("w", [4, 16])

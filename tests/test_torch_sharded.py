@@ -25,6 +25,7 @@ from seal_tpu_torch.kernels import beam_select as kb
 from seal_tpu_torch.parallel import sharded_decode as tsd
 from seal_tpu_torch.parallel import sharded_index as tsi
 from test_torch_dense_counts import _assert_mask
+from test_torch_fm_ops import _assert_support
 
 V = 64
 
@@ -166,6 +167,7 @@ def test_sharded_ops_equal_jax(world):
     np.testing.assert_array_equal(ops.window_exhaustive(lo, hi, w).numpy(), want[7])
     np.testing.assert_array_equal(ops.interval_covered(lo, hi, rows_done).numpy(), want[8])
     np.testing.assert_array_equal(ops.bucket_counts(lo, hi).numpy(), want[9])
+    _assert_support(want[9], ops.bucket_support(lo, hi))  # each shard's bits ORed
     np.testing.assert_array_equal(ops.dense_counts(lo, hi, 16).numpy(), want[10])
     _assert_mask(ops.dense_mask(lo, hi, 16), want[10], V)  # the summed counts > 0
     assert ops.range_size(lo, hi).dtype == torch.int32

@@ -224,15 +224,39 @@ def test_bucket_counts_match_jax(layouts):
         tops.bucket_counts(t, los[:12].reshape(shape), his[:12].reshape(shape)))
 
 
+@pytest.mark.parametrize("keep_bwt", [False, True], ids=["compact", "hybrid"])
+def test_bucket_support_match_jax(layouts, keep_bwt):
+    """Kernel 14's support mode's plain version (and the adapter's
+    ``bucket_support``) == JAX's ``wt_ops.bucket_counts > 0`` on the compact
+    and hybrid layouts at 1, 2, 4 and 5 digits (16 buckets at 1), at corpus
+    n-gram, random, full, empty and one-row ranges."""
+    from test_torch_fm_ops import _assert_support
+
+    _, host, vocab, pairs = layouts
+    j, t = pairs[keep_bwt]
+    los, his = _ranges(host, np.random.default_rng(6))
+    want = jops.bucket_counts(j, los, his)
+    before = wt_bucket_counts.wt_bucket_support.launches
+    _assert_support(want, tops.bucket_support(t, los, his))
+    _assert_support(want, tc.SingleIndexOps(t).bucket_support(torch.as_tensor(los),
+                                                               torch.as_tensor(his)))
+    assert wt_bucket_counts.wt_bucket_support.launches == before
+    shape = (4, 5)
+    _assert_support(jops.bucket_counts(j, los[:20].reshape(shape), his[:20].reshape(shape)),
+                    tops.bucket_support(t, los[:20].reshape(shape), his[:20].reshape(shape)))
+
+
 def test_wrappers_count_no_launch_on_cpu(layouts):
     _, host, _, pairs = layouts
     _, t = pairs[True]
-    fns = (wt_search.wt_search, wt_window.wt_window_gather, wt_bucket_counts.wt_bucket_counts)
+    fns = (wt_search.wt_search, wt_window.wt_window_gather, wt_bucket_counts.wt_bucket_counts,
+           wt_bucket_counts.wt_bucket_support)
     counts = [fn.launches for fn in fns]
     tops.backward_step(t, [3], [0], [host.size()])
     tops.contains_tokens(t, [[3, 4]], [0], [host.size()])
     tops.range_for_sequences(t, [[3, 4]], [2])
     tops.bucket_counts(t, [0], [host.size()])
+    tops.bucket_support(t, [0], [host.size()])
     assert counts == [fn.launches for fn in fns]
 
 

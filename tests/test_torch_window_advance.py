@@ -330,16 +330,34 @@ def test_wavelet_advance_matches_jax(wavelets, keep_bwt, step0):
 def test_straggler_rounds_match_jax(layout, monkeypatch):
     """Generation through the proven loop (``force_full``, a 2-token round
     0) runs straggler rounds, each slab from ``rows_prev > 0``, and gives
-    JAX's hypotheses; the fast path gives them too."""
+    JAX's hypotheses; the fast path gives them too.  The rounds read the
+    support bits (``bucket_support``: kernel 6's or 14's support mode) once
+    a step and select through the pruning loader (``pruned_topk``) once a
+    round; the counts modes are never called."""
     models = _models()
     jcfg, tcfg, params, tparams = models
     host, queries = _random_corpus(3, hi=14)  # wide intervals over few symbols
     module = fm_ops if layout == "psi" else wt_ops
-    seen = []
+    seen, calls = [], {"bucket_support": 0, "pruned_topk": 0}
     slab = module.slab_gather
     monkeypatch.setattr(module, "slab_gather",
                         lambda ix, lo, hi, rows_prev, *a: seen.append(rows_prev)
                         or slab(ix, lo, hi, rows_prev, *a))
+
+    def counted(owner, name):
+        fn = getattr(owner, name)
+
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        monkeypatch.setattr(owner, name, call)
+
+    counted(module, "bucket_support")
+    counted(tc, "pruned_topk")
+
+    def no_counts(*a, **k):
+        raise AssertionError("the straggler rounds read the support bits, not the counts")
+    monkeypatch.setattr(module, "bucket_counts", no_counts)
     kw = dict(num_beams=4, max_length=6, min_length=1, forced_bos_token_id=None, window=4,
               exact_chunk=2, exact_loop_chunk=2)
     ids, mask = jg.pad_batch(queries, jcfg.pad_token_id)
@@ -351,5 +369,7 @@ def test_straggler_rounds_match_jax(layout, monkeypatch):
     jh = jg.fm_index_generate(jcfg, params, jix, ids, mask, **kw)
     full = tg.fm_index_generate(tcfg, tparams, tix, ids, mask, force_full=True, **kw)
     assert any(r > 0 for r in seen)
+    rounds = sum(r > 0 for r in seen)  # a straggler round's slab each
+    assert calls["pruned_topk"] == rounds and 0 < calls["bucket_support"] <= rounds
     _assert_same_hyps(jh, full)
     _assert_same_hyps(jh, tg.fm_index_generate(tcfg, tparams, tix, ids, mask, **kw))
