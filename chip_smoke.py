@@ -134,18 +134,21 @@
    index and one shard identical with the monolithic kernels' launches
    (an exact score tie, shown by both agreeing under ``exact_ties``, is the
    only admissible difference); beam 32 over the shards (``BASELINE.md``'s
-   config-5 shape) through kernel 8's large-n route, identical to
+   config-5 shape) through kernel 8's wide route, identical to
    ``force_full`` and ``exact_mask``; ``SEALSearcher.build_sharded`` at the
    e2e point (``bench_search.sharded_searcher``) beside the monolithic
    searcher: queries/s, raw keys grounded in the union, body keys identical,
    the top-10 overlap and score difference.  The shard modes and kernel 8's
-   large-n route against their plain versions at the path's shapes,
-   exactly.
+   large-n route (forced: an entry point no path launches) against their
+   plain versions at the path's shapes, exactly.
 
 13. Kernel 8's selection routes against their plain versions, bit for
    bit, in both orders (``select_route_phase``): the warp route at the
    bench's [32, 15, 64] (timed beside the one-block route on the same
-   inputs) and beam 32's [32, 32, 98], the table route at a speculative
+   inputs) and beam 32's [32, 32, 98], the wide route at the speculative
+   default [32, 15, 386] and beam 32 over 4 shards [32, 32, 578] (timed
+   beside the block and large-n routes on the same inputs; no path
+   launches those two), the table route at a speculative
    round of top_m 20000 and the candidate mode's table, the merge in
    device memory at buffers of 3000 (ties) and 10000; kernel 1's groups
    and step mode against their plain versions (the step mode beside the
@@ -252,6 +255,8 @@ REPLACES = {
     "beam_select_warp": "seal_tpu/decoding/constrained.py:1046",
     "beam_select_table": "seal_tpu/decoding/constrained.py:343",
     "beam_merge_table": "seal_tpu/decoding/constrained.py:612",
+    "beam_select_wide": "seal_tpu/decoding/constrained.py:1046",
+    "beam_select_block": "seal_tpu/decoding/constrained.py:1046",
     "window_slab": "seal_tpu/decoding/constrained.py:622",
     "slab_gather": "seal_tpu/decoding/constrained.py:622",
     "window_slab_sharded": "seal_tpu/parallel/sharded_decode.py:100",
@@ -318,6 +323,8 @@ SOURCES = {
     "beam_select_warp": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "beam_select_table": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "beam_merge_table": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
+    "beam_select_wide": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
+    "beam_select_block": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "window_slab": ("cuda", "seal_tpu_torch/kernels/csrc/window_gather.cu"),
     "slab_gather": ("cuda", "seal_tpu_torch/kernels/csrc/window_gather.cu"),
     "window_slab_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/window_gather.cu"),
@@ -384,7 +391,7 @@ PATH_KERNELS["batch_search_dense"] = ("fm_dense_mask", "fm_search", "fm_sequence
 # the decode modes: free generation runs no index kernel (kernel 3's
 # top-256 and top-2K, kernel 8's token-table epilogue); speculative takes
 # kernel 3's top-256, one membership query and the window a step, and
-# kernel 8's keep_invalid mode; forced BOS is the main path plus one decode step with
+# kernel 8's keep_invalid mode on its wide route; forced BOS is the main path plus one decode step with
 # no selection; the warper's masked log-softmax is one launch of kernel 3's
 # select in its warper mode (topk_log_softmax) in place of kernel 4 (and of
 # kernel 19's k-th value); locate is kernel 18 in both modes
@@ -392,7 +399,8 @@ ATTN_STEP = ("cross_attention_step", "self_attention_step", "reorder_cache")
 FREE_STEP = ("row_topk", "log_softmax_min_len", "beam_select", "beam_select_free") + ATTN_STEP
 PATH_KERNELS["generate_free"] = FREE_STEP
 PATH_KERNELS["batch_search_free"] = FREE_STEP + ("rescore_logprob",)
-SPEC_STEP = ("row_topk", "log_softmax_min_len", "beam_select", "beam_select_spec") + ATTN_STEP
+SPEC_STEP = ("row_topk", "log_softmax_min_len", "beam_select", "beam_select_spec",
+             "beam_select_wide") + ATTN_STEP
 PATH_KERNELS["generate_spec"] = ("fm_search", "window_gather") + SPEC_STEP
 for _layout in WAVELET_LAYOUTS:
     PATH_KERNELS[f"generate_spec_{_layout}"] = ("wt_search", "wt_window_gather") + SPEC_STEP
@@ -431,7 +439,8 @@ PATH_KERNELS["generate_sample_large"] = PATH_KERNELS["generate_sample"] + (
 PATH_KERNELS["generate_sample_ties_3000"] = PATH_KERNELS["generate_sample"] + (
     "beam_merge_table",)
 PATH_KERNELS["generate_sample_10000"] = PATH_KERNELS["generate_sample"] + ("beam_merge_table",)
-PATH_KERNELS["generate_spec_20000"] = PATH_KERNELS["generate_spec"] + ("beam_select_table",)
+PATH_KERNELS["generate_spec_20000"] = tuple(k for k in PATH_KERNELS["generate_spec"]
+                                            if k != "beam_select_wide") + ("beam_select_table",)
 PATH_KERNELS["generate_sample_free"] = ("row_topk", "log_softmax_min_len",
                                         "sample_select") + ATTN_STEP
 PATH_KERNELS["generate_diverse_ties"] = PATH_KERNELS["generate_diverse"]
@@ -459,7 +468,7 @@ PATH_KERNELS["batch_search_t5"] = ("fm_search", "window_gather", "row_topk",
 # the corpus-sharded index on the card: the same decode loop through the
 # shard modes of kernels 1, 2, 5, 6 and 15's mask mode (and none of the monolithic
 # index kernels); beam 32 over the shards' union window through kernel 8's
-# large-n route.  The proven loop may prove a sharded step in round 0, so
+# wide route.  The proven loop may prove a sharded step in round 0, so
 # its bucket counts are held only where one shard repeats the monolithic
 # run; the generate_mono* paths are those monolithic runs
 SHARDED_STEP = ("fm_search_sharded", "window_gather_sharded", "row_topk",
@@ -475,7 +484,7 @@ PATH_KERNELS["generate_sharded_beam32_force_full"] = ("beam_merge",)
 PATH_KERNELS["generate_sharded_s1_force_full"] = ("bucket_support_sharded", "pruned_topk",
                                                    "beam_merge",
                                                    "slab_gather_sharded")
-PATH_KERNELS["generate_sharded_beam32"] = SHARDED_STEP + ("beam_select_large",)
+PATH_KERNELS["generate_sharded_beam32"] = SHARDED_STEP + ("beam_select_wide",)
 # (a searcher's key lengths leave every shard's interval inside the window
 # after step 1, so no proposal round, and no merge, need run)
 PATH_KERNELS["batch_search_sharded"] = ("fm_search_sharded", "window_gather_sharded", "row_topk",
@@ -529,7 +538,10 @@ COUNTS_MODES = ("fm_dense_counts", "wt_dense_counts", "fm_dense_counts_sharded")
 # and kernels 6 and 14's counts modes (the exact counts of ops.bucket_counts;
 # the straggler rounds read their support modes)
 BUCKET_COUNTS_MODES = ("bucket_counts", "wt_bucket_counts", "bucket_counts_sharded")
-ENTRY_POINTS_ONLY = ("row_kth",) + COUNTS_MODES + BUCKET_COUNTS_MODES
+# and kernel 8's block and large-n selection routes (the wide route takes
+# every shape of theirs on the paths; no path launches them)
+PARENT_SELECT_ROUTES = ("beam_select_block", "beam_select_large")
+ENTRY_POINTS_ONLY = ("row_kth",) + COUNTS_MODES + BUCKET_COUNTS_MODES + PARENT_SELECT_ROUTES
 
 
 def dense_mask_of(path: str) -> str:
@@ -738,7 +750,11 @@ def log_kernel(row) -> None:
                                                "count_filter_bound_ms",
                                                "ranges_group_graph_ms", "counts_ms",
                                                "counts_graph_ms", "row_topk_graph_ms",
-                                               "large_k_graph_ms", "round_graph_ms")
+                                               "large_k_graph_ms", "round_graph_ms",
+                                               "ties_graph_ms", "beam32_graph_ms",
+                                               "beam32_ties_graph_ms", "large_graph_ms",
+                                               "beam32_bound_ms", "sample_graph_ms",
+                                               "spec_graph_ms")
                   if k in row))
 
 
@@ -2457,19 +2473,26 @@ def sample_kernel_phases(np, torch, cfg, V, B, K, window, device="cuda"):
     widths = {"diverse": (2 * K, window, False), "sample": (n_samp, window, False),
               "spec": (256, 128, True)}
     inputs = {r: candidate_inputs(*v) for r, v in widths.items()}
+    # a warp a beam row, its first instances from a hash table; no table
+    # in device memory at these widths
+    t0 = k8.CAND_TABLE.launches
     err8c = sum(mismatches(torch, k8.beam_candidates(*a, **kw), k8.candidates_plain(*a, **kw))
                 for a, kw in inputs.values())
-    if err8c:
-        fail(f"beam_candidates differs from its plain version ({err8c} elements)")
+    if err8c or k8.CAND_TABLE.launches != t0:
+        fail(f"beam_candidates differs from its plain version ({err8c} elements) or took the "
+             "table")
     ms8 = {r: time_ms(lambda a=a, kw=kw: k8.beam_candidates(*a, **kw))
            for r, (a, kw) in inputs.items()}
+    g8 = {r: graph_ms(lambda a=a, kw=kw: k8.beam_candidates(*a, **kw))
+          for r, (a, kw) in inputs.items()}
     n8 = {r: n_buf + w + 2 for r, (n_buf, w, _) in widths.items()}
     table.append(dict(
         name="beam_candidates", max_abs_err=err8c, library_ms=None, ms=ms8["diverse"],
         plain_ms=time_ms(lambda: k8.candidates_plain(*inputs["diverse"][0],
                                                      **inputs["diverse"][1])),
         sample_ms=ms8["sample"], spec_ms=ms8["spec"],
-        shape=f"[{B},{K},{n8['diverse']}] (sample_ms: [{B},{K},{n8['sample']}]; spec_ms: "
+        graph_ms=g8["diverse"], sample_graph_ms=g8["sample"], spec_graph_ms=g8["spec"],
+        shape=f"[{B},{K},{n8['diverse']}] (sample_*: [{B},{K},{n8['sample']}]; spec_*: "
               f"[{B},{K},{n8['spec']}] with keep_invalid)",
         # buffer (tok, lp, valid), window (tok, valid, lp), EOS membership,
         # the EOS and PAD log-probs, count and finished flag in; three outputs
@@ -3516,11 +3539,15 @@ def select_route_phase(np, torch, cfg, V, B, K, window):
     skw = dict(eos=cfg.eos_token_id, pad=cfg.pad_token_id)
     pkw = dict(skw, stop_at_count=0, always_allow_eos=False)
 
-    def check(route, args, Kb, keep_invalid=False):
+    def check(route, args, Kb, keep_invalid=False, forced=False):
+        """``route`` held against the plain version in both orders: the
+        route select_plan picks at the shape (or, ``forced``, the one
+        asked for), its launch counted on ``ROUTES``."""
         err = 0
         for ties in (False, True):
             n0 = k8.ROUTES[route].launches
-            got = k8.beam_select(*args, K=Kb, ties=ties, keep_invalid=keep_invalid, **skw)
+            got = k8.beam_select(*args, K=Kb, ties=ties, keep_invalid=keep_invalid,
+                                 **(dict(route=route) if forced else {}), **skw)
             if k8.ROUTES[route].launches != n0 + 1:
                 fail(f"beam_select: the {route} route did not run at {args[2].shape[:2]}")
             want = k8.beam_select_plain(*args, K=Kb, ties=ties, keep_invalid=keep_invalid, **pkw)
@@ -3547,6 +3574,55 @@ def select_route_phase(np, torch, cfg, V, B, K, window):
               "checked",
         bytes=(B * K * (2 * K * 9 + window * 9 + 1 + 4 + 1 + 4 + 1 + 4) + rows * 8
                + B * (2 * K * 13 + K * 13 + 1)),
+    ))
+
+    # the wide route: the speculative default (a 256-slot buffer that keeps
+    # its failed slots, a 128-row window) and beam 32 over the 4-shard union
+    # window (2K + 4 x 128 + 2), the route select_plan picks at both, in
+    # both orders, with and without the soundness flags; beside the routes it replaced on the same inputs
+    # (the one-block route at the first, the large-n route's two launches at
+    # the second), held against the plain version too
+    asp = sel_args(K, 256, 128, 400)
+    u32 = sel_args(32, 64, 4 * 128, 400)
+    no_flags = lambda a: a[:10] + (None, None)  # noqa: E731
+    errx = (check("wide", asp, K, True) + check("wide", no_flags(asp), K, True)
+            + check("wide", u32, 32) + check("wide", no_flags(u32), 32))
+    if errx:
+        fail(f"beam_select_wide differs from its plain version ({errx} elements)")
+    errb = check("block", asp, K, True, forced=True) + check("large", u32, 32, forced=True)
+    if errb:
+        fail(f"beam_select_block / large differ from their plain version ({errb} elements)")
+    def sel(a, Kb, **kw_):  # the speculative inputs keep their failed slots
+        return lambda: k8.beam_select(*a, K=Kb, keep_invalid=a is asp, **kw_, **skw)
+
+    n386, n578 = 256 + 128 + 2, 64 + 4 * 128 + 2
+    sel_bytes = lambda Kb, n: (B * Kb * (n * 9 + 1 + 4 + 1 + 4 + 1 + 4)  # noqa: E731
+                               + B * Kb * 8 + B * (2 * Kb * 13 + Kb * 13 + 1))
+    table.append(dict(
+        name="beam_select_wide", max_abs_err=errx, library_ms=None, route="wide",
+        ms=time_ms(sel(asp, K)), graph_ms=graph_ms(sel(asp, K)),
+        plain_ms=time_ms(lambda: k8.beam_select_plain(*asp, K=K, keep_invalid=True, **pkw)),
+        ties_graph_ms=graph_ms(sel(asp, K, ties=True)),
+        block_ms=time_ms(sel(asp, K, route="block")),
+        block_graph_ms=graph_ms(sel(asp, K, route="block")),
+        beam32_ms=time_ms(sel(u32, 32)), beam32_graph_ms=graph_ms(sel(u32, 32)),
+        beam32_ties_graph_ms=graph_ms(sel(u32, 32, ties=True)),
+        large_graph_ms=graph_ms(sel(u32, 32, route="large")),
+        beam32_bound_ms=sel_bytes(32, n578) / HBM_BYTES_PER_S * 1e3,
+        shape=f"[{B},{K},{n386}] keep_invalid with the soundness test (block_ms: the "
+              f"one-block route on the same inputs); beam32_*: [{B},32,{n578}] "
+              "(large_graph_ms: the large-n route's two launches on the same inputs); both "
+              "orders, with and without the flags checked",
+        bytes=sel_bytes(K, n386),
+    ))
+    table.append(dict(
+        name="beam_select_block", max_abs_err=errb, library_ms=None, route="block",
+        ms=time_ms(sel(asp, K, route="block")), graph_ms=graph_ms(sel(asp, K, route="block")),
+        plain_ms=time_ms(lambda: k8.beam_select_plain(*asp, K=K, keep_invalid=True, **pkw)),
+        shape=f"[{B},{K},{n386}] keep_invalid, forced (the speculative default's route before "
+              "the wide route); the large-n route forced at "
+              f"[{B},32,{n578}] checked too (its row: beam_select_large)",
+        bytes=sel_bytes(K, n386),
     ))
 
     # F2: the table route at a speculative round of top_m 20000
@@ -3618,10 +3694,10 @@ def select_route_phase(np, torch, cfg, V, B, K, window):
 
 
 def large_select_phase(np, torch, cfg, V, B, K, S):
-    """Kernel 8's large-n route at beam K over S shards' union window
-    (n = K * (2K + S * 128 + 2) candidates a query), against
-    ``beam_select_plain`` and the route's own two-stage specification, bit
-    for bit, in both orders."""
+    """Kernel 8's large-n route, forced (the wide route takes the shape on
+    the path), at beam K over S shards' union window (n = K * (2K + S * 128
+    + 2) candidates a query), against ``beam_select_plain`` and the route's
+    own two-stage specification, bit for bit, in both orders."""
     from seal_tpu_torch.kernels import beam_select as k8
     from seal_tpu_torch.kernels import build
 
@@ -3658,6 +3734,7 @@ def large_select_phase(np, torch, cfg, V, B, K, S):
             torch.round(torch.randn(B, K, generator=g, device=dev)) - 4)
     kw = dict(K=K, eos=cfg.eos_token_id, pad=cfg.pad_token_id)
     plain_kw = dict(kw, stop_at_count=0, always_allow_eos=False)
+    kw["route"] = "large"
     err = 0
     for ties in (False, True):
         n0 = k8.LARGE.launches
@@ -3778,7 +3855,7 @@ def large_route_phase(np, torch, V, B, K):
 def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
     """The corpus-sharded index (the module docstring's item 12): generation
     over 4 shards on the card beside the monolithic Psi index, the gates,
-    the config-5 shape (beam 32) through kernel 8's large-n route, the
+    the config-5 shape (beam 32) through kernel 8's wide route, the
     sharded searcher beside the monolithic one, and the shard modes
     against their plain versions.  ``m`` carries the main path's objects.
     Returns (kernel rows, readings)."""
@@ -3959,10 +4036,10 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
     h32 = run(**kw32)
     b32_s = time.perf_counter() - t0
     c32 = read_counts("generate_sharded_beam32")
-    n_large = beam_select.LARGE.launches
+    n_wide = c32["beam_select_wide"]
     n_dec = c32["decode_steps"] // (kw["max_length"] - 1)  # decodes, a redo included
-    if n_large != c32["decode_steps"] - n_dec:
-        fail(f"generate_sharded_beam32: the large-n route ran {n_large} times for "
+    if n_wide != c32["decode_steps"] - n_dec:  # one launch a selection (the parent's two)
+        fail(f"generate_sharded_beam32: the wide route ran {n_wide} times for "
              f"{c32['decode_steps'] - n_dec} selections")
     n32 = hyp_keys(h32, "generate_sharded_beam32")
     zero_counts()
@@ -3980,7 +4057,7 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
     hyp_keys(f32_, "generate_sharded_beam32_force_full")
     hyp_keys(d32, "generate_sharded_beam32_dense")
     log(f"beam 32 over {S} shards: one batch in {b32_s:.3f} s = {B / b32_s:.1f} queries/s; "
-        f"kernel 8's large-n route {n_large} times; {n32} keys grounded; force_full identical "
+        f"kernel 8's wide route {n_wide} times; {n32} keys grounded; force_full identical "
         f"{same32}; exact_mask identical {same32d}; launches {c32}")
     log(f"sharded generation phase wall {time.perf_counter() - t_phase:.1f} s")
 
@@ -4191,6 +4268,8 @@ def main() -> int:
         "beam_select_warp": beam_select.ROUTES["warp"],
         "beam_select_table": beam_select.ROUTES["table"],
         "beam_merge_table": beam_select.MERGE_TABLE,
+        "beam_select_wide": beam_select.ROUTES["wide"],
+        "beam_select_block": beam_select.ROUTES["block"],
         "window_slab": window_gather.WINDOW_SLAB,
         "slab_gather": window_gather.SLAB,
         "window_slab_sharded": window_gather.WINDOW_SLAB_SHARDED,
@@ -4260,6 +4339,9 @@ def main() -> int:
         for name in BUCKET_COUNTS_MODES:
             if by_path[path][name]:
                 fail(f"{path}: the counts mode {name} was launched {by_path[path][name]} times")
+        for name in PARENT_SELECT_ROUTES:
+            if by_path[path][name]:
+                fail(f"{path}: kernel 8's {name} was launched {by_path[path][name]} times")
         if "sharded" in path or path.endswith(WAVELET_LAYOUTS + tuple(
                 f"{w}_force_full" for w in WAVELET_LAYOUTS)):
             for name in PSI_INDEX_KERNELS:
@@ -4661,8 +4743,8 @@ def main() -> int:
     s_hyps, c, nb, mode_qps["speculative"] = run_mode("generate_spec", speculative=True)
     n = c["decode_steps"]
     expect("generate_spec", c, {"row_topk": n, "beam_select_spec": n - nb,
-                                "window_gather": n - nb, "fm_search": 2 * n - nb,
-                                "beam_merge": 0})
+                                "beam_select_wide": n - nb, "window_gather": n - nb,
+                                "fm_search": 2 * n - nb, "beam_merge": 0})
     s_canon = canon_of(s_hyps)
     n_s = hyp_keys(s_hyps, "generate_spec")
     spec_same = True
@@ -4670,7 +4752,7 @@ def main() -> int:
         path = f"generate_spec_{layout}"
         l_hyps, c, nb, _ = run_mode(path, ix=wix, batches=1, warm=False, speculative=True)
         n = c["decode_steps"]
-        expect(path, c, {"row_topk": n, "wt_window_gather": n - nb,
+        expect(path, c, {"row_topk": n, "wt_window_gather": n - nb, "beam_select_wide": n - nb,
                          "wt_search": 2 * n - nb, "beam_merge": 0})
         if canon_of(l_hyps) != s_canon:
             spec_same = False
@@ -5163,7 +5245,9 @@ def main() -> int:
                                    "count_filter_group_graph_ms", "mono_count_filter_ms",
                                    "mono_count_filter_graph_ms", "count_filter_bound_ms",
                                    "ranges_group_graph_ms", "row_topk_graph_ms",
-                                   "large_k_graph_ms", "round_graph_ms")
+                                   "large_k_graph_ms", "round_graph_ms", "ties_graph_ms",
+                                   "beam32_graph_ms", "beam32_ties_graph_ms", "large_graph_ms",
+                                   "beam32_bound_ms", "sample_graph_ms", "spec_graph_ms")
                if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}

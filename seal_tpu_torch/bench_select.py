@@ -13,7 +13,13 @@ bf16 over the 1.2M-token corpus, batch 32, beam 15):
 
 1. Kernel 8's selection (``beam_select``) at [32, 15, 64] with the
    soundness flags, in the ties mode, with ``keep_invalid`` at [32, 15,
-   386] (the speculative round) and at beam 32 [32, 32, 98]; kernel 1's
+   386] (the speculative round) and at beam 32 [32, 32, 98]; at [32, 15,
+   386] and beam 32 over the 4-shard window [32, 32, 578], in both orders,
+   the route ``select_plan`` picks beside the block and large-n routes
+   forced; the candidate mode at [32, 15, 64], [32, 15, 290] and [32, 15,
+   386]; step 0's epilogue, plain and with free
+   generation's token table; kernel 18's gather beside one
+   ``torch.index_select``; kernel 1's
    ``contains`` at [32, 15, 65] (in this checkout at each group size), and
    the same over a symbol block of 1.08M rows at dir_shift 31 (a search
    the head directory does not shorten),
@@ -64,7 +70,13 @@ bf16 over the 1.2M-token corpus, batch 32, beam 15):
    lists of 64 and 290 slots, and on a sampled ``exact_mask`` step's input
    (the count-reading mode where the checkout has it, else kernel 17's
    streaming pass then the V-wide draw, which both sides also time).
-2. The Psi and the compact layout's batches at the generation point,
+2. With no ``--only`` or with ``--only "k8 paths"``: kernel 8's
+   launches by route and mode (``ROUTES``, ``SPEC``, ``LARGE``,
+   ``beam_candidates``), one batch's device ms and kernel 8's device ms by
+   kernel (``k8_paths``) on the speculative batch over the three layouts,
+   beam 15 and beam 32 over the 4-shard index, a sampled and a diverse
+   batch.
+   The Psi and the compact layout's batches at the generation point,
    taken before 1, ahead of any CUDA graph capture in the process, and
    again after 1's captures (``*_after_graphs``): five batches' wall ms
    after a warm-up batch, and one profiled batch's device ms, wall ms and
@@ -146,7 +158,7 @@ from torch.profiler import ProfilerActivity, profile
 # layout) and kernel 8's
 INDEX = ("contains_kernel", "backward_step_kernel", "advance_kernel", "window_", "wt_window",
          "bucket")
-KERNEL8 = ("select_", "merge_", "candidates_kernel")
+KERNEL8 = ("select_", "merge_", "candidates_")
 
 def profiled(ix, runs=5):  # runs batches' walls after a warm-up, then one profiled
     def run():
@@ -328,6 +340,7 @@ skw = dict(eos=cfg.eos_token_id, pad=cfg.pad_token_id)
 a15 = select_args(K, 2 * K, 32)
 spec = select_args(K, 256, 128)
 a32 = select_args(32, 64, 32)
+u32 = select_args(32, 64, 512)  # beam 32 over the 4-shard union window
 calls = {
     "k8 select [32,15,64]": lambda: k8.beam_select(*a15, K=K, **skw),
     "k8 select ties [32,15,64]": lambda: k8.beam_select(*a15, K=K, ties=True, **skw),
@@ -335,6 +348,35 @@ calls = {
         *spec[:10], K=K, keep_invalid=True, **skw),
     "k8 select beam 32 [32,32,98]": lambda: k8.beam_select(*a32, K=32, **skw),
 }
+# kernel 8's routes at the speculative default and beam 32 over 4 shards:
+# the route select_plan picks, in both orders, beside the block and large-n
+# routes forced (each checkout's own); the candidate mode at the diverse,
+# sampling and speculative widths; step 0's epilogue, plain and through
+# free generation's token table
+for ties in (False, True):
+    t = " ties" if ties else ""
+    calls[f"k8 select{t} keep_invalid [32,15,386]"] = (
+        lambda ties=ties: k8.beam_select(*spec[:10], K=K, ties=ties, keep_invalid=True, **skw))
+    calls[f"k8 select block{t} keep_invalid [32,15,386]"] = (
+        lambda ties=ties: k8.beam_select(*spec[:10], K=K, ties=ties, keep_invalid=True,
+                                         route="block", **skw))
+    calls[f"k8 select{t} [32,32,578]"] = (
+        lambda ties=ties: k8.beam_select(*u32, K=32, ties=ties, **skw))
+    calls[f"k8 select large{t} [32,32,578]"] = (
+        lambda ties=ties: k8.beam_select(*u32, K=32, ties=ties, route="large", **skw))
+for label, args, kinv in (("[32,15,64]", select_args(K, 2 * K, 32), False),
+                          ("[32,15,290]", select_args(K, 256, 32), False),
+                          ("[32,15,386] keep_invalid", spec, True)):
+    calls[f"k8 candidates {label}"] = (
+        lambda args=args, kinv=kinv: k8.beam_candidates(*args[:9], keep_invalid=kinv, **skw))
+top_lp0, top_tok0 = torch.topk(spec[6], 256)
+bs0 = spec[9]
+top_c0, top_i0 = torch.topk((top_lp0.reshape(B, K, 256) + bs0[..., None]).reshape(B, -1), 2 * K)
+calls["k8 select_top tokens [32,15*256]"] = lambda: k8.beam_select_top(
+    top_c0, top_i0, spec[6], bs0, K, K, cfg.eos_token_id, tokens=top_tok0.int())
+v0c, v0i = torch.topk(spec[6][::K].contiguous(), 2 * K)
+calls["k8 select_top step 0 [32,50265]"] = lambda: k8.beam_select_top(
+    v0c, v0i, spec[6][::K].contiguous(), bs0, 1, K, cfg.eos_token_id)
 # kernel 1: ranges like a decode's (one- and two-token prefixes, the full
 # range, empty ones)
 full_lo, full_hi = index.full_range((B, K))
@@ -623,6 +665,9 @@ sa_ix = TorchFMIndex.from_host(host, vocab=V, device=dev, keep_sa=True)
 gather_rows = torch.cat([torch.arange(a, min(b, a + 64), dtype=i32, device=dev) for a, b in
                          zip(lo.flatten().tolist(), hi.flatten().tolist())])
 calls[f"k18 gather {gather_rows.numel()} rows"] = lambda: k18.locate_rows(sa_ix.sa, gather_rows)
+# its library yardstick: one index_select of the same (in-range) rows
+calls[f"k18 library index_select {gather_rows.numel()} rows"] = (
+    lambda: torch.index_select(sa_ix.sa, 0, gather_rows))
 th_vals, th_idx = k3.row_topk(lp, 64)
 th_lp, th_ix = th_vals[:, -1:].contiguous(), th_idx[:, -1:].int().contiguous()
 v_idx = torch.arange(V, dtype=i32, device=dev)
@@ -665,6 +710,59 @@ work6 = torch.where((base6 > th_lp) | ((base6 == th_lp) & (v_idx <= th_ix)), tc.
 calls["straggler parent work k3 [480,50265] k=256 psi"] = lambda: k3.row_topk(work6, 256)
 calls["straggler parent select [480,50265] k=256 psi"] = lambda: parent_select(256)
 calls["straggler parent select [480,50265] k=20000 psi"] = lambda: parent_select(20000)
+# kernel 8's launches a batch, by route and mode, and its device ms, on
+# the paths that reach the routes above: speculative on the three layouts,
+# beam 15 and beam 32 over the 4-shard index, a sampled and a diverse batch
+if not ONLY or any(p.startswith("k8 paths") for p in ONLY):
+    from seal_tpu_torch.parallel.sharded_decode import sharded_fm_index_generate
+    si4, _ = bench_generate.sharded_index("cuda")
+    counters = {**{f"route {r}": c for r, c in getattr(k8, "ROUTES", {}).items()},
+                "beam_select": k8.beam_select, "spec": k8.SPEC, "large": k8.LARGE,
+                "beam_candidates": k8.beam_candidates, "beam_merge": k8.beam_merge}
+    runs = {
+        "spec psi": lambda: generate.fm_index_generate(cfg, params, index, ids, mask, **kw,
+                                                       speculative=True),
+        "spec compact": lambda: generate.fm_index_generate(cfg, params, layouts["compact"], ids,
+                                                           mask, **kw, speculative=True),
+        "spec hybrid": lambda: generate.fm_index_generate(cfg, params, layouts["hybrid"], ids,
+                                                          mask, **kw, speculative=True),
+        "sharded beam 15": lambda: sharded_fm_index_generate(cfg, params, si4, None, ids, mask,
+                                                             **kw),
+        "sharded beam 32": lambda: sharded_fm_index_generate(
+            cfg, params, si4, None, ids, mask, **{**kw, "num_beams": 32, "window": 0}),
+        "sample": lambda: generate.fm_index_generate(cfg, params, index, ids, mask, **kw,
+                                                     sample=True, seed=0),
+        "diverse": lambda: generate.fm_index_generate(cfg, params, index, ids, mask, **kw,
+                                                      **DIVERSE),
+    }
+    k8_paths = {}
+    for name, fn in runs.items():
+        fn(); torch.cuda.synchronize()  # warm-up
+        for c in counters.values():
+            c.launches = 0
+        fn(); torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            fn(); torch.cuda.synchronize()
+        spans, k8ms = [], {}
+        for e in p.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            spans.append((e.time_range.start, e.time_range.end))
+            key = e.name.replace("(anonymous namespace)::", "").split("(")[0][:60]
+            if any(x in key for x in KERNEL8) and not any(
+                    x in key for x in ("sample", "diverse", "dense", "row_")):
+                ms, n = k8ms.get(key, (0.0, 0))
+                k8ms[key] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        busy, last = 0.0, float("-inf")
+        for a, b in sorted(spans):
+            busy += max(0.0, b - max(a, last))
+            last = max(last, b)
+        k8_paths[name] = {"launches": got, "batch_device_ms": busy / 1e3,
+                          "batch_launches": len(spans),
+                          "k8_device_ms": sum(ms for ms, _ in k8ms.values()),
+                          "k8_by_kernel": k8ms}
+    batches["k8_paths"] = k8_paths
 one = torch.empty(1, device=dev)
 calls["floor: one-element zero_()"] = lambda: one.zero_()
 if ONLY:

@@ -42,15 +42,21 @@ Three more modes, for the decode modes of ``_candidates_general`` (:305):
   constrained log-prob, log-prob) for kernels 20 and 21 to select from; no
   selection.  Its plain version is ``beam_select``'s first half.
 
-``beam_select`` runs one of four routes (:func:`select_plan`, counted in
+``beam_select`` runs one of five routes (:func:`select_plan`, counted in
 ``ROUTES``): ``"warp"`` -- a warp a beam, its slots in registers sorted by
 shuffles, each beam's top 2K a sorted list, a survivor placed by its rank
 across the lists (``beam_select_warp_plain`` is that algorithm in torch)
 -- where a beam has at most 128 candidates, 2K <= 64 and n_par <= 32 (the
-bench's beam 15 and beam 32 at a 32-row window); ``"block"`` -- the
+bench's beam 15 and beam 32 at a 32-row window); ``"wide"`` -- a warp a
+beam in its own region of shared memory, first instances from a hash
+table of its tokens, its first 2K as a running first 64 in registers
+(each chunk of 64 keys sorted and merged in), then the beams' lists
+merged (``beam_select_wide_plain``) -- past 128 candidates a beam up to
+``SERIAL_MAX`` (the speculative default's [15, 386], beam 32 over 4
+shards' [32, 578]); ``"block"`` -- the
 query's n = n_par * (n_buf + w + 2) candidates sorted in one CTA -- while
-that fits the shared memory; ``"large"`` (beam 32 over a 4-shard union
-window: n = 18,496) -- each beam's top 2K by the same key, then the
+that fits the shared memory; ``"large"`` (past the wide route's 2K or
+beams, while a beam fits a CTA) -- each beam's top 2K by the same key, then the
 query's finish over the n_par * 2K survivors -- two launches, the same
 result bit for bit (dedup and branches are per beam, and the key order is
 total; ``beam_select_large_plain`` is its specification, and its launches
@@ -68,7 +74,8 @@ on ``MERGE_LARGE``.  A buffer past 4,096 (2,048 under ``ties``), where a
 chunk could no longer halve a row, takes the device-memory route: the
 table, one 64-bit key a slot sorted in device memory
 (``beam_merge_table_plain``), counted on ``MERGE_TABLE``.
-``beam_candidates`` takes the table past ``SERIAL_MAX`` candidates a beam
+``beam_candidates`` finds first instances as the wide route does, a warp
+a beam row, and takes the table past ``SERIAL_MAX`` candidates a beam
 (``CAND_TABLE``).
 """
 
@@ -93,8 +100,9 @@ FREE = Launches()  # beam_select_top launches with a candidate token table
 SPEC = Launches()  # beam_select launches that keep invalid buffer slots
 LARGE = Launches()  # beam_select calls through the two-launch large-n route
 # beam_select calls by route (select_plan)
-ROUTES = {"warp": Launches(), "block": Launches(), "large": LARGE, "table": Launches()}
-_ROUTE_CODES = {"block": 0, "large": 1, "warp": 2, "table": 3}  # csrc/beam_select.cu's
+ROUTES = {"warp": Launches(), "wide": Launches(), "block": Launches(), "large": LARGE,
+          "table": Launches()}
+_ROUTE_CODES = {"block": 0, "large": 1, "warp": 2, "table": 3, "wide": 4}  # csrc/beam_select.cu's
 MERGE_LARGE = Launches()  # beam_merge calls through the chunked large-n route
 MERGE_TABLE = Launches()  # beam_merge calls through the device-memory route
 CAND_TABLE = Launches()  # beam_candidates calls that dedup through the table
@@ -102,8 +110,9 @@ MERGE_CHUNK = 4096  # candidates a CTA of the large-n merge (MERGE_CHUNK_WIDE pa
 MERGE_CHUNK_WIDE = 8192
 MERGE_SORT_MIN = 8192  # the device-memory sort's smallest row (global_sort.cuh's GTILE)
 SELECT_CHUNK = 8192  # candidates a CTA of the table route's per-beam stage
-SERIAL_MAX = 2048  # candidates a beam dedups by a serial scan in shared memory
+SERIAL_MAX = 2048  # candidates a beam dedups in shared memory (block and large-n: a serial scan)
 WARP_MAX = (128, 64, 32)  # the warp route's most candidates a beam, 2K and beams
+WIDE_WARPS = 8  # beams a query up to which the wide route takes one CTA (wide_splits)
 _FN = {}  # kernel 8's C entry points, looked up once
 
 
@@ -577,9 +586,117 @@ def beam_select_warp_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, 
     return out, (need & (beam_scores + th_lp >= out[8][:, -1:])).any(-1)
 
 
+def _better(ak, asl, bk, bsl):
+    """(key desc, slot asc): a ranks before b."""
+    return (ak > bk) | ((ak == bk) & (asl < bsl))
+
+
+def merge_top(key, slot, ck, cs):
+    """The wide route's merge (``warp_merge_top``) over rows of 64 sorted
+    (key desc, slot asc) pairs: the better of ``key[e]`` and the chunk's
+    (63 - e)-th pair, a bitonic sequence of the union's first 64, sorted by
+    half-cleaners at strides 32 to 1."""
+    rk, rs = ck.flip(-1), cs.flip(-1)
+    take = _better(rk, rs, key, slot)
+    key, slot = torch.where(take, rk, key), torch.where(take, rs, slot)
+    e = torch.arange(64, device=key.device)
+    for stride in (32, 16, 8, 4, 2, 1):
+        lo = e[(e & stride) == 0]
+        hi = lo + stride
+        swap = _better(key[..., hi], slot[..., hi], key[..., lo], slot[..., lo])
+        kl, kh = key[..., lo], key[..., hi]
+        sl_, sh = slot[..., lo], slot[..., hi]
+        key = key.clone()
+        slot = slot.clone()
+        key[..., lo], key[..., hi] = torch.where(swap, kh, kl), torch.where(swap, kl, kh)
+        slot[..., lo], slot[..., hi] = torch.where(swap, sh, sl_), torch.where(swap, sl_, sh)
+    return key, slot
+
+
+def beam_select_wide_plain(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp,
+                           prev_count, finished, beam_scores, need, th_lp, *, K: int, eos: int,
+                           pad: int, stop_at_count: int, always_allow_eos: bool,
+                           ties: bool = False, keep_invalid: bool = False, first=None):
+    """The wide route's stages: first instances (``first``, default
+    :func:`dedup_mask`; the kernel's hash table is
+    ``tests/test_torch_select_routes.py``'s mirror), each beam's keys, its
+    running first 64 -- the first chunk of 64 keys sorted, each next sorted
+    and merged in (:func:`merge_top`) unless no key of it ranks before the
+    list's L-th --, then the beams' 64s merged in
+    pairs, a level of a tree at a time, list 0's first 2K the query's picks
+    in order.  Equals ``beam_select_plain``."""
+    tokens, cons, cand_lp = candidates_plain(
+        buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished, eos=eos, pad=pad,
+        stop_at_count=stop_at_count, always_allow_eos=always_allow_eos, keep_invalid=keep_invalid,
+        first=first)
+    ncand = tokens.shape[-1]
+    key = _select_key(cons + beam_scores[..., None], _ties_of(tokens, ncand, lp.shape[-1], ties))
+    slots = torch.arange(ncand, device=lp.device).expand(key.shape)
+    low = torch.iinfo(torch.int64).min  # the kernel's padding, key 0 unsigned
+    top = None
+    for c0 in range(0, ncand, 64):
+        ck = torch.nn.functional.pad(key[..., c0:c0 + 64], (0, max(0, c0 + 64 - ncand)),
+                                     value=low)
+        cs = torch.nn.functional.pad(slots[..., c0:c0 + 64], (0, max(0, c0 + 64 - ncand)),
+                                     value=2**31 - 1)
+        order = torch.sort(ck, dim=-1, descending=True, stable=True)[1]  # slots ascend
+        ck, cs = _g(ck, order), _g(cs, order)
+        if top is None:
+            top = (ck, cs)
+            continue
+        # a chunk with no key before the list's L-th is skipped
+        L = min(2 * K, ncand)
+        lk, ls = top[0][..., L - 1:L], top[1][..., L - 1:L]
+        use = _better(ck, cs, lk, ls).any(-1, keepdim=True)
+        merged = merge_top(*top, ck, cs)
+        top = (torch.where(use, merged[0], top[0]), torch.where(use, merged[1], top[1]))
+    B, n_par = tokens.shape[:2]
+    flat = top[1] + torch.arange(n_par, device=lp.device)[:, None] * ncand  # flat slots
+    lists = [(top[0][:, k], flat[:, k]) for k in range(n_par)]
+    stride = 1
+    while stride < n_par:
+        for j in range(0, n_par - stride, 2 * stride):
+            lists[j] = merge_top(*lists[j], *lists[j + stride])
+        stride *= 2
+    top_idx = lists[0][1][:, :2 * K]
+    bs = beam_scores[..., None]
+    out = _epilogue(_g((cons + bs).reshape(B, -1), top_idx), top_idx,
+                    (cand_lp + bs).reshape(B, -1), tokens.reshape(B, -1), ncand, K, eos)
+    if need is None:
+        return out, None
+    return out, (need & (beam_scores + th_lp >= out[8][:, -1:])).any(-1)
+
+
+def wide_splits(n_par: int) -> int:
+    """The wide route's CTAs a query (a cluster): one up to ``WIDE_WARPS``
+    beams, else two, so a query's beams spread over two SMs.  (Four a query
+    took 0.0601 ms against two's 0.0370 at [32, 32, 578] on an H100,
+    ``bench_select_variants``: 32 clusters of four do not all fit one
+    wave.)"""
+    return 1 if n_par <= WIDE_WARPS else 2
+
+
+def wide_table(n_par: int, ncand: int, two_k: int, k_out: int, splits: int):
+    """The wide route's hash table entries a beam at ``splits`` CTAs a
+    query: 2 ncand (a load of 1/2) where the CTA's shared memory holds them
+    (``seal_beam_select_wide_smem``), else as many as fit down to 5/4
+    ncand; None where not even that fits or the route cannot launch the
+    shape (too many beams a CTA)."""
+    from seal_tpu_torch.kernels import build
+
+    smem, limit = build.lib().seal_beam_select_wide_smem, build.SMEM_LIMIT
+    if smem(n_par, ncand, two_k, k_out, -(-5 * ncand // 4), splits) > limit:
+        return None
+    table = 2 * ncand
+    while smem(n_par, ncand, two_k, k_out, table, splits) > limit:
+        table -= 2
+    return table
+
+
 class SelectPlan(NamedTuple):
     """A selection's launch: its ``route`` (``ROUTES``' key) and C code, the
-    per-beam stage's ``chunk`` and chunks a beam (table route), and the
+    per-beam stage's ``chunk`` and chunks a beam (table route; the wide
+    route's hash table entries a beam and its CTAs a query), and the
     scratch keys a query needs (0: none)."""
 
     route: str
@@ -594,22 +711,34 @@ def select_plan(n_par: int, n_buf: int, w: int, K: int, ties: bool,
                 route: str | None = None) -> SelectPlan:
     """The route of ``beam_select`` for beams of ``n_buf + w + 2``
     candidates: the warp route where a beam has at most 128 of them, 2K <=
-    64 and n_par <= 32; else one CTA a query while its candidates fit (and
-    a beam's at most ``SERIAL_MAX``, its serial dedup); else the large-n
+    64 and n_par <= 32; else the wide route (a warp a beam in shared memory,
+    :func:`wide_table`) where a beam has at most ``SERIAL_MAX``, 2K <= 64
+    and n_par <= 32; else one CTA a query while its candidates fit (and a
+    beam's at most ``SERIAL_MAX``, its serial dedup); else the large-n
     route (per beam, then per query) while a beam fits a CTA; else the
-    table route.  ``route`` forces one (tests and measurements).  Raises
-    where no route fits the shared memory.  Cached: the decode loop asks
-    for the same few shapes every step (the route does not depend on the
-    batch, ``keep_invalid`` or the soundness flags)."""
+    table route.  The wide route takes :func:`wide_splits` CTAs a query, or
+    more where its regions need it; ``seal_beam_select_wide_smem`` holds its
+    limits.  ``route`` forces one (tests and measurements).  Raises where
+    no route fits the shared memory.  Cached: the decode loop asks for the
+    same few shapes every step (the route does not depend on the batch,
+    ``keep_invalid`` or the soundness flags)."""
     from seal_tpu_torch.kernels import build
 
     so, limit = build.lib(), build.SMEM_LIMIT
     ncand = n_buf + w + 2
     n, two_k, t = n_par * ncand, 2 * K, int(ties)
     n_chunks = -(-ncand // SELECT_CHUNK)
+    # the wide route's CTAs a query: from wide_splits up while its regions
+    # do not fit (fewer beams a CTA)
+    splits, table = 0, None
+    for splits in range(wide_splits(n_par), min(8, n_par) + 1):
+        table = wide_table(n_par, ncand, two_k, K, splits)
+        if table is not None:
+            break
     fits = {
         "warp": (ncand <= WARP_MAX[0] and two_k <= WARP_MAX[1] and n_par <= WARP_MAX[2]
                  and so.seal_beam_select_warp_smem(n_par, ncand, two_k, K, t) <= limit),
+        "wide": table is not None,  # the C size query holds the route's limits
         "block": ncand <= SERIAL_MAX and so.seal_beam_select_smem(n, two_k, K, t) <= limit,
         "large": (ncand <= SERIAL_MAX
                   and so.seal_beam_select_large_smem(n_par, ncand, two_k, K, t) <= limit),
@@ -617,7 +746,7 @@ def select_plan(n_par: int, n_buf: int, w: int, K: int, ties: bool,
                                                 t) <= limit,
     }
     if route is None:
-        route = next((r for r in ("warp", "block", "large", "table") if fits[r]), None)
+        route = next((r for r in ("warp", "wide", "block", "large", "table") if fits[r]), None)
         if route is None:
             raise ValueError(f"beam_select: {n_par} x {two_k} survivors per query exceed the "
                              "shared memory")
@@ -630,6 +759,8 @@ def select_plan(n_par: int, n_buf: int, w: int, K: int, ties: bool,
     elif route == "table":
         chunk = SELECT_CHUNK
         scratch = n_par * two_k * (n_chunks + (n_chunks > 1))
+    elif route == "wide":  # chunk: the hash table's entries; n_chunks: CTAs a query
+        chunk, n_chunks = table, splits
     else:
         n_chunks = 0
     return SelectPlan(route, _ROUTE_CODES[route], chunk, n_chunks, scratch)
@@ -696,8 +827,8 @@ def beam_select(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, prev_co
     rc = _FN["select"](
         *args, beam_scores.data_ptr(), opt(need), opt(th_lp), B, n_par, n_buf, w, K, eos, pad,
         stop_at_count, int(always_allow_eos), bits, int(keep_invalid), NEG_INF, plan.code, V,
-        plan.chunk, *(t.data_ptr() for t in outs), opt(unsound), opt(scratch_keys),
-        opt(scratch_slots), opt(table), _FN["stream"](lp),
+        plan.chunk, plan.n_chunks, *(t.data_ptr() for t in outs), opt(unsound),
+        opt(scratch_keys), opt(scratch_slots), opt(table), _FN["stream"](lp),
     )
     del keep
     if rc:
@@ -723,7 +854,10 @@ def beam_candidates(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, pre
     --, log-probs f32), each [B, n_par, n_buf + w + 2] in slot order
     [buffer, window, EOS, PAD].
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel: a
+    warp a beam row, its first instances from a hash table in shared
+    memory, or past ``SERIAL_MAX`` candidates from a [rows, V] table in
+    device memory.
     """
     kw = dict(eos=eos, pad=pad, stop_at_count=stop_at_count, always_allow_eos=always_allow_eos,
               keep_invalid=keep_invalid)
@@ -748,7 +882,8 @@ def beam_candidates(buf, n_buf: int, win_tok, win_valid, win_lp, eos_ok, lp, pre
     rc = build.lib().seal_beam_candidates(
         *args, B * n_par, n_buf, w, eos, pad, stop_at_count, int(always_allow_eos),
         int(keep_invalid), NEG_INF, table.data_ptr() if table is not None else None, V,
-        tokens.data_ptr(), cons.data_ptr(), cand_lp.data_ptr(), build.stream_ptr(lp),
+        tokens.data_ptr(), cons.data_ptr(), cand_lp.data_ptr(),
+        build.stream_ptr(lp),
     )
     del keep
     build.check(rc, "beam_candidates")

@@ -135,10 +135,12 @@ SIGNATURES = {
     # th_lp, n_queries, n_par, n_buf, w, k, eos, pad, stop_at_count,
     # always_allow_eos, tie_bits (0: no ties mode), keep_invalid, neg_inf,
     # route (kernels/beam_select.py:_ROUTE_CODES), vocab (the table's width),
-    # chunk (the table route's candidates a CTA), 9 outputs, unsound, scratch
+    # chunk (the table route's candidates a CTA; the wide route's hash table
+    # entries a beam), splits (the wide route's CTAs a query, a cluster; else
+    # ignored), 9 outputs, unsound, scratch
     # keys and slots, table (None where the route needs none), stream
     "seal_beam_select": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _L, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I] + [_P] * 14,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I] + [_P] * 14,
     # top_cons, top_idx, lp, lp_stride, beam_scores, bs_stride, table (None:
     # token = slot % V), n_queries, n_par, ncand, k, eos, neg_inf, 9 outputs,
     # scratch (None: the picks in shared memory), stream
@@ -195,7 +197,7 @@ SIGNATURES = {
     # buf_tok, buf_lp, buf_valid, win_tok, win_valid, win_lp, eos_ok,
     # eos_ok_stride, lp, lp_stride, prev_count, finished, rows, n_buf, w, eos,
     # pad, stop_at_count, always_allow_eos, keep_invalid, neg_inf, table
-    # (None: the serial dedup in shared memory), vocab, tok, cons, cand_lp,
+    # (None: the dedup in a warp's shared memory), vocab, tok, cons, cand_lp,
     # stream
     "seal_beam_candidates": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I,
                              _I, _I, _I, _F, _P, _I, _P, _P, _P, _P],
@@ -232,6 +234,7 @@ SIZE_QUERIES = {"seal_beam_merge_smem": [_I, _I], "seal_beam_select_smem": [_I, 
                 "seal_beam_select_large_smem": [_I, _I, _I, _I, _I],
                 "seal_beam_select_warp_smem": [_I, _I, _I, _I, _I],
                 "seal_beam_select_table_smem": [_I, _I, _I, _I, _I, _I],
+                "seal_beam_select_wide_smem": [_I, _I, _I, _I, _I, _I],
                 "seal_row_topk_max_k": [], "seal_row_topk_bins_bytes": [],
                 "seal_diverse_chunks": [_I], "seal_diverse_smem": [_I, _I, _I],
                 "seal_diverse_list_smem": [_I, _I, _I]}

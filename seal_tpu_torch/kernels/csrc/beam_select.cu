@@ -25,8 +25,10 @@
 //
 // Bound on the card: latency.  A CTA handles a few hundred to a few thousand
 // candidates; the log2(n)^2 / 2 barrier-separated stages of its sorts are
-// its cost (the merge's first-instance dedup is a sort too, first_instances;
-// the selection's is per beam), and the inputs are read once.
+// the block routes' cost (the merge's first-instance dedup is a sort too,
+// first_instances; the block and large-n selections' is a serial scan per
+// beam), and the inputs are read once.  The warp and wide routes and the
+// candidate mode take neither sorts of the query nor serial scans.
 //
 // Two modes for the decode modes of _candidates_general (:305): select with
 // keep_invalid (speculative, :343-367) takes a buffer slot that failed
@@ -62,11 +64,26 @@
 // search).  The 2K survivors ranked below 2K write their place directly:
 // one barrier, no sort of the query's keys.  The soundness test is a
 // block-wide OR.
+//
+// The wide route (ncand <= SERIAL_MAX, 2K <= 64, n_par <= 32, while the
+// regions fit: the speculative default's [15, 386] and beam 32 over 4
+// shards' [32, 578], where the one-block route sorted 8,192 keys in 91
+// barrier-separated stages and the large-n route sorted each beam, then the
+// query, in two launches): a cluster of CTAs a query, a warp a beam in its
+// own region of shared memory, no barrier before the query's stage.  No
+// serial dedup: the first instances come from a hash table of the beam's
+// tokens; no sort of the beam in shared memory: a running first 64 in
+// registers, each chunk of 64 keys sorted by the warp route's shuffle
+// network and merged in; then the beams' lists merged in a tree.  The
+// candidate mode finds its first instances the same way, a warp a row.
 
 #include <climits>
+#include <cooperative_groups.h>
 
 #include "global_sort.cuh"
 #include "select_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -354,7 +371,8 @@ struct SelectOut {
 // b in order (constrained score, flat slot, token, unconstrained log-prob
 // before the beam score) -> the nine outputs, with the first K non-EOS picks
 // continuing (then EOS picks in order when fewer than K are non-EOS: a
-// stable sort of is_eos).  Called by every thread of the CTA.
+// stable sort of is_eos, placed by the first warp's ballots).  Called by
+// every thread of a CTA of at least 32.
 __device__ void select_epilogue(long long b, int two_k, int k_out, int ncand, int eos,
                                 float neg_inf, const float* e_cons, const int* e_slot,
                                 const int* e_tok, const float* e_lp, const float* bs_row,
@@ -369,12 +387,19 @@ __device__ void select_epilogue(long long b, int two_k, int k_out, int ncand, in
     o.finite[at] = e_cons[t] > fin_cut ? 1 : 0;
     o.top_cons[at] = e_cons[t];
   }
-  if (threadIdx.x == 0) {
-    int n = 0;
-    for (int t = 0; t < two_k && n < k_out; ++t)
-      if (e_tok[t] != eos) s_cont[n++] = t;
-    for (int t = 0; t < two_k && n < k_out; ++t)
-      if (e_tok[t] == eos) s_cont[n++] = t;
+  if (threadIdx.x < 32) {
+    const unsigned below = (1u << threadIdx.x) - 1u;
+    int n = 0;  // the picks placed so far: the non-EOS ones, then the EOS ones
+    for (int want_eos = 0; want_eos < 2; ++want_eos) {
+      for (int t0 = 0; t0 < two_k; t0 += 32) {
+        const int t = t0 + (int)threadIdx.x;
+        const bool mine = t < two_k && (e_tok[t] == eos) == (want_eos != 0);
+        const unsigned ms = __ballot_sync(0xffffffffu, mine);
+        const int at = n + __popc(ms & below);
+        if (mine && at < k_out) s_cont[at] = t;
+        n += __popc(ms);
+      }
+    }
   }
   __syncthreads();
   for (int c = threadIdx.x; c < k_out; c += blockDim.x) {
@@ -433,23 +458,76 @@ __device__ __forceinline__ void load_slot(const SelectIn& in, long long row, int
 // The reference branches (_apply_branches): a stop-forced beam allows only
 // EOS, a finished beam only PAD, any other the slot's FM membership;
 // always_allow_eos adds EOS.
+struct RowBranch {
+  bool fin, stop;  // finished; stop-forced
+};
+
+__device__ __forceinline__ RowBranch row_branch(const SelectIn& in, long long row,
+                                                int stop_at_count) {
+  const bool fin = in.finished[row] != 0;
+  const int count_eff = fin ? 0 : in.prev_count[row];
+  return RowBranch{fin, stop_at_count > 0 && count_eff <= stop_at_count};
+}
+
+// Slot j's FM membership: its buffer or window flag, EOS's, none for PAD.
+__device__ __forceinline__ bool slot_fm_valid(const SelectIn& in, long long row, int j, int n_buf,
+                                              int w) {
+  if (j < n_buf) return in.buf_tok != nullptr && in.buf_valid[row * n_buf + j] != 0;
+  if (j < n_buf + w) return in.win_valid[row * w + (j - n_buf)] != 0;
+  if (j == n_buf + w) return in.eos_ok[row * in.eos_ok_stride] != 0;
+  return false;
+}
+
+__device__ __forceinline__ bool branch_allowed(RowBranch rb, bool fm_valid, int tok, int eos,
+                                               int pad, int always_allow_eos) {
+  const bool allowed = rb.stop ? tok == eos : (rb.fin ? tok == pad : fm_valid);
+  return allowed || (always_allow_eos && tok == eos);
+}
+
 __device__ __forceinline__ bool slot_allowed(const SelectIn& in, long long row, int j, int tok,
                                              int n_buf, int w, int eos, int pad,
                                              int stop_at_count, int always_allow_eos) {
-  bool fm_valid;
-  if (j < n_buf)
-    fm_valid = in.buf_tok != nullptr && in.buf_valid[row * n_buf + j] != 0;
-  else if (j < n_buf + w)
-    fm_valid = in.win_valid[row * w + (j - n_buf)] != 0;
-  else if (j == n_buf + w)
-    fm_valid = in.eos_ok[row * in.eos_ok_stride] != 0;
-  else
-    fm_valid = false;
-  const bool fin = in.finished[row] != 0;
-  const int count_eff = fin ? 0 : in.prev_count[row];
-  const bool stop_trig = stop_at_count > 0 && count_eff <= stop_at_count;
-  const bool allowed = stop_trig ? tok == eos : (fin ? tok == pad : fm_valid);
-  return allowed || (always_allow_eos && tok == eos);
+  return branch_allowed(row_branch(in, row, stop_at_count), slot_fm_valid(in, row, j, n_buf, w),
+                        tok, eos, pad, always_allow_eos);
+}
+
+// A warp's pass over its beam row's slots, SLOT_ROWS register rows at a time
+// so that their loads are in flight together: fn(r, j, tok, lp, allowed) for
+// slot j = 32 r + lane (every lane calls it for every row r < ceil(ncand /
+// 32); j >= ncand marks a padding lane, tok 0).  `allowed` is the branch
+// rule without the first-instance test.
+constexpr int SLOT_ROWS = 8;
+
+template <typename Fn>
+__device__ __forceinline__ void warp_slots(const SelectIn& in, long long row, int n_buf, int w,
+                                           int eos, int pad, int stop_at_count,
+                                           int always_allow_eos, int lane, Fn fn) {
+  const int ncand = n_buf + w + 2;
+  const int rows = (ncand + 31) >> 5;
+  const RowBranch rb = row_branch(in, row, stop_at_count);
+  for (int r0 = 0; r0 < rows; r0 += SLOT_ROWS) {
+    int tok[SLOT_ROWS];
+    float lp[SLOT_ROWS];
+    bool fm[SLOT_ROWS];
+#pragma unroll
+    for (int u = 0; u < SLOT_ROWS; ++u) {
+      const int j = ((r0 + u) << 5) + lane;
+      tok[u] = 0;
+      lp[u] = 0.0f;
+      fm[u] = false;
+      if (j < ncand) {
+        load_slot(in, row, j, n_buf, w, eos, pad, &tok[u], &lp[u]);
+        fm[u] = slot_fm_valid(in, row, j, n_buf, w);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < SLOT_ROWS; ++u) {
+      const int j = ((r0 + u) << 5) + lane;
+      if (r0 + u < rows)
+        fn(r0 + u, j, tok[u], lp[u],
+           j < ncand && branch_allowed(rb, fm[u], tok[u], eos, pad, always_allow_eos));
+    }
+  }
 }
 
 // True where s_tok[f] is the first instance of its token in s_tok[first..f].
@@ -539,8 +617,67 @@ __device__ __forceinline__ void warp_sort_desc(u64 (&key)[R], int (&slot)[R], in
   }
 }
 
+// After a barrier that follows the picks: the epilogue and the soundness
+// test (thread k tests beam k; a block-wide OR).
+__device__ __forceinline__ void finish_query(long long b, const SelectIn& in, const SelectOut& o,
+                                             unsigned char* unsound, int n_par, int ncand,
+                                             int two_k, int k_out, int eos, float neg_inf,
+                                             const float* e_cons, const int* e_slot,
+                                             const int* e_tok, const float* e_lp, int* s_cont) {
+  select_epilogue(b, two_k, k_out, ncand, eos, neg_inf, e_cons, e_slot, e_tok, e_lp,
+                  in.beam_scores + b * n_par, o, s_cont);
+  if (unsound != nullptr) {
+    const long long row = b * n_par + threadIdx.x;
+    const bool bad = (int)threadIdx.x < n_par && in.need[row] != 0 &&
+                     __fadd_rn(in.beam_scores[row], in.th_lp[row]) >= e_cons[two_k - 1];
+    const int any = __syncthreads_or(bad);
+    if (threadIdx.x == 0) unsound[b] = any ? 1 : 0;
+  }
+}
+
 // One CTA a query, warp k its beam k; R = 1, 2 or 4 slots a lane (ncand <=
 // 32 R, 2K <= 64).  The keys equal select_kernel's, so the result does.
+// The first 64 of two sorted lists of a warp, element e = 32 r + lane in
+// register r of its lane: `key` / `slot` (descending) and the chunk `ck` /
+// `cs` (descending).  The better of key[e] and the chunk's (63 - e)-th
+// element, over every e, is the union's first 64 as a bitonic sequence;
+// half-cleaners at strides 32 (registers) to 1 (shuffles) sort it.
+template <bool TIES>
+__device__ __forceinline__ void warp_merge_top(u64 (&key)[2], int (&slot)[2], const u64 (&ck)[2],
+                                               const int (&cs)[2], int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const u64 rk = __shfl_sync(FULL, ck[1 - r], 31 - lane);
+    const int rs = TIES ? __shfl_sync(FULL, cs[1 - r], 31 - lane) : 0;
+    if (ranks_before<TIES>(rk, rs, key[r], slot[r])) {
+      key[r] = rk;
+      if (TIES) slot[r] = rs;
+    }
+  }
+  if (ranks_before<TIES>(key[1], slot[1], key[0], slot[0])) {
+    const u64 kt = key[0];
+    key[0] = key[1];
+    key[1] = kt;
+    const int st = slot[0];
+    slot[0] = slot[1];
+    slot[1] = st;
+  }
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    const bool upper = (lane & stride) != 0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const u64 ok = __shfl_xor_sync(FULL, key[r], stride);
+      const int os = TIES ? __shfl_xor_sync(FULL, slot[r], stride) : 0;
+      // the lower place keeps the better of the pair, the upper the other
+      if (ranks_before<TIES>(ok, os, key[r], slot[r]) != upper) {
+        key[r] = ok;
+        if (TIES) slot[r] = os;
+      }
+    }
+  }
+}
+
 template <bool TIES, int R>
 __global__ void __launch_bounds__(1024)
 select_warp_kernel(SelectIn in, SelectOut o, unsigned char* unsound, int n_par, int n_buf, int w,
@@ -648,14 +785,278 @@ select_warp_kernel(SelectIn in, SelectOut o, unsigned char* unsound, int n_par, 
     }
   }
   __syncthreads();
-  select_epilogue(b, two_k, k_out, ncand, eos, neg_inf, e_cons, e_slot, e_tok, e_lp,
-                  in.beam_scores + b * n_par, o, s_cont);
-  if (unsound != nullptr) {
-    const bool bad = lane == 0 && in.need[row] != 0 &&
-                     __fadd_rn(bs, in.th_lp[row]) >= e_cons[two_k - 1];
-    const int any = __syncthreads_or(bad);
-    if (threadIdx.x == 0) unsound[b] = any ? 1 : 0;
+  finish_query(b, in, o, unsound, n_par, ncand, two_k, k_out, eos, neg_inf, e_cons, e_slot, e_tok,
+               e_lp, s_cont);
+}
+
+// ---- the wide route and the candidate mode's dedup ----------------------
+
+// A warp's first instances of its beam row's ncand tokens -- each token's
+// lowest slot, as _dedup_mask keeps it -- with no scan of earlier slots: one
+// bit a slot, bits[j >> 5] bit (j & 31), then __syncwarp; every slot counts
+// in the dedup, but only the slots `want` marks (the branches allow them)
+// need their bit, the others may read 0.
+//
+// area[0, ncand) hold the row's tokens and area[ncand, ncand + table) an
+// open-addressing table of slots (Fibonacci hash, linear probing).  Each
+// slot claims an empty entry by atomicCAS or, finding its token's entry at
+// a higher slot, lowers it by atomicMin (at a lower slot it leaves it: a
+// token's many copies, PAD's in the window, do not queue on one entry).  An
+// entry only ever holds slots of one token, so it ends at that token's
+// lowest slot whatever order the lanes run in, and a slot is first where
+// its token's entry holds it.  About two probes a slot at the table's load
+// of 1/2.  (Electing a register row's lowest lane of a token with
+// __match_any_sync to insert alone cost twice the time; a warp-wide bitonic
+// sort of (token, slot) pairs cost 1.6-2.3 times as long past 64 slots:
+// bench_select_variants.py.)
+constexpr unsigned EMPTY_SLOT = 0xffffffffu;
+
+__device__ __forceinline__ unsigned hash_at(int tok, int table) {
+  return __umulhi((unsigned)tok * 0x9e3779b1u, (unsigned)table);
+}
+
+__device__ void warp_first_instances(unsigned* area, int table, int ncand, unsigned* bits,
+                                     const unsigned* want, int lane) {
+  const int rows = (ncand + 31) >> 5;
+  const int* tok = (const int*)area;
+  volatile unsigned* tab = area + ncand;
+  for (int i = lane; i < table; i += 32) tab[i] = EMPTY_SLOT;
+  __syncwarp();
+  for (int j = lane; j < ncand; j += 32) {
+    const int t = tok[j];
+    unsigned p = hash_at(t, table);
+    while (true) {
+      unsigned s = tab[p];
+      if (s == EMPTY_SLOT) {
+        s = atomicCAS((unsigned*)tab + p, EMPTY_SLOT, (unsigned)j);
+        if (s == EMPTY_SLOT) break;
+      }
+      if (tok[s] == t) {
+        if (s > (unsigned)j) atomicMin((unsigned*)tab + p, (unsigned)j);
+        break;
+      }
+      if (++p == (unsigned)table) p = 0;
+    }
   }
+  __syncwarp();
+  for (int r = 0; r < rows; ++r) {
+    const int j = (r << 5) + lane;
+    bool first = false;
+    if (j < ncand && ((want[r] >> lane) & 1u)) {  // a slot the branches drop needs no answer
+      const int t = tok[j];
+      unsigned p = hash_at(t, table), s;
+      // every token holds an entry on its probe path, ahead of any empty one
+      while (tok[s = tab[p]] != t)
+        if (++p == (unsigned)table) p = 0;
+      first = s == (unsigned)j;
+    }
+    const unsigned word = __ballot_sync(FULL, first);
+    if (lane == 0) bits[r] = word;
+  }
+  __syncwarp();
+}
+
+// A warp's region of the wide route, in 32-bit words: the keys [2 ncand];
+// the dedup's area, the tokens [ncand] and the hash table [table]; and
+// WIDE_AUX words at the end for the first-instance and branch bits [64 +
+// 64].
+constexpr int WIDE_AUX = 128;
+constexpr int WIDE_CTA_WARPS = 16;  // the most beams a CTA of the wide route holds
+
+__host__ __device__ inline int wide_region_words(int ncand, int table) {
+  const int r = 3 * ncand + table + WIDE_AUX;
+  return r + (r & 1);
+}
+
+// The wide route's block: the epilogue's picks, every beam's 64 (keys and slots), then a region a warp.
+__host__ __device__ inline long long wide_head_bytes(int two_k, int k_out) {
+  return (16LL * two_k + 4LL * k_out + 15) & ~15LL;
+}
+
+__host__ __device__ inline long long wide_lists_bytes(int n_par) {
+  return (12LL * n_par * 64 + 15) & ~15LL;  // 64 keys and slots a beam
+}
+
+// the cluster barrier in two halves (a CTA may touch another's shared
+// memory once every CTA of the cluster has arrived)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The wide route (kernels/beam_select.py:select_plan; the speculative [15,
+// 386] and beam 32 over 4 shards [32, 578]): a cluster of C CTAs a query,
+// warp w of CTA c its beam k = c * (blockDim / 32) + w, no barrier before
+// the query's stage.  The warp
+//   1. reads its beam's slots once (warp_slots), eight register rows of
+//      loads in flight: each slot's key as if it were allowed and a first
+//      instance, keyed exactly as select_kernel keys it (flat slot f = k *
+//      ncand + j; under TIES the (parent, token) tie id, equal keys in slot
+//      order), its branch bit, and its token for the dedup;
+//   2. finds its first instances (warp_first_instances) and gives every
+//      other slot NEG_INF, keeping its tie;
+//   3. keeps a running first 64 of its keys in registers, two a lane: each
+//      chunk of 64 keys sorted by the warp route's shuffle network
+//      (warp_sort_desc) and merged in (warp_merge_top), the same steps
+//      whatever the keys, so the beam's list -- the first L = min(2K,
+//      ncand) of a full sort in (key desc, slot asc) order -- takes every
+//      warp the same time.  (A radix select, 8 bits a pass through a
+//      histogram of shared-memory atomics or a bit a pass by ballots, took
+//      2-10x longer at [15, 386] and [32, 578], its passes varying from beam
+//      to beam, and the cluster waits for its slowest warp.);
+//   4. writes its 64 into the first CTA of the cluster (distributed shared
+//      memory).
+// After one cluster barrier the first CTA merges the lists in pairs, a
+// level of a tree at a time (warp_merge_top again: 5 levels at 32 beams),
+// and list 0's first 2K are the query's picks in order, for the epilogue
+// and the soundness test.  (The warp route's rank stage -- each survivor's
+// binary search in every other list -- took half the kernel at [32, 578].)
+// Every step reads and writes the warp's own region or registers, and
+// every merge keeps the first 64 of (key desc, slot asc), so the result
+// equals select_kernel's bit for bit.  C > 1 spreads a query's beams over
+// C SMs (one CTA of 32 warps a query kept 32 SMs of 132 busy at beam 32).
+template <bool TIES>
+__global__ void __launch_bounds__(32 * WIDE_CTA_WARPS)
+select_wide_kernel(SelectIn in, SelectOut o, unsigned char* unsound, int n_par, int n_buf, int w,
+                   int two_k, int k_out, int eos, int pad, int stop_at_count,
+                   int always_allow_eos, int tie_bits, float neg_inf, int table, int region) {
+  extern __shared__ unsigned long long smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  if (C > 1) cluster_arrive_relaxed();  // waited on before the first remote write
+  const int ncand = n_buf + w + 2;
+  float* e_cons = (float*)smem;
+  float* e_lp = e_cons + two_k;
+  int* e_slot = (int*)(e_lp + two_k);
+  int* e_tok = e_slot + two_k;
+  int* s_cont = e_tok + two_k;
+  u64* s_key = (u64*)((char*)smem + wide_head_bytes(two_k, k_out));  // [n_par][64]
+  int* s_lslot = (int*)(s_key + n_par * 64);                          // [n_par][64]
+  unsigned* regions = (unsigned*)((char*)s_key + wide_lists_bytes(n_par));
+  const long long b = blockIdx.x / C;
+  const int lane = threadIdx.x & 31;
+  const int k = c * (int)(blockDim.x >> 5) + (int)(threadIdx.x >> 5);
+  const long long row = b * n_par + k;
+  unsigned* reg = regions + (size_t)(threadIdx.x >> 5) * region;
+  unsigned* aux = reg + region - WIDE_AUX;
+  u64* keys = (u64*)reg;
+  unsigned* area = reg + 2 * ncand;
+  unsigned* abits = aux + 64;  // the branch rule's bits; aux[0, 64): the first instances'
+  u64 key[2] = {0ull, 0ull};
+  int slot[2] = {INT_MAX, INT_MAX};
+
+  if (k < n_par) {  // the last CTA's spare warps hold no beam
+    const float bs = in.beam_scores[row];
+    // 1. each slot's key as if it were allowed and a first instance, its
+    // branch bit, and the dedup's tokens: the slots read once
+    warp_slots(in, row, n_buf, w, eos, pad, stop_at_count, always_allow_eos, lane,
+               [&](int r, int j, int tok, float lp, bool ok) {
+                 if (j < ncand) {
+                   const int f = k * ncand + j;
+                   const int tie =
+                       TIES ? (k << tie_bits) + min(max(tok, 0), (1 << tie_bits) - 1) : f;
+                   keys[j] = pack(__fadd_rn(lp, bs), tie);
+                   ((int*)area)[j] = tok;
+                 }
+                 const unsigned word = __ballot_sync(FULL, ok);
+                 if (lane == 0) abits[r] = word;
+               });
+    __syncwarp();
+    warp_first_instances(area, table, ncand, aux, abits, lane);
+    // 2. a slot that is not allowed or not first keeps its tie, at NEG_INF
+    const u64 dead = pack(__fadd_rn(neg_inf, bs), 0) & 0xffffffff00000000ull;
+    for (int j = lane; j < ncand; j += 32) {
+      if (((aux[j >> 5] & abits[j >> 5]) >> (j & 31) & 1u) == 0)
+        keys[j] = dead | (keys[j] & 0xffffffffull);
+    }
+    __syncwarp();
+    // 3. the beam's list: the first 64 keys sorted, then each next 64
+    // sorted and merged in, the first 64 of the two kept; a chunk with no
+    // key before the list's L-th is skipped (the list's first L stand)
+    const int L = min(two_k, ncand);
+    for (int c0 = 0; c0 < ncand; c0 += 64) {
+      u64 ck[2];
+      int cs[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = c0 + r * 32 + lane;
+        ck[r] = j < ncand ? keys[j] : 0ull;  // padding sorts last
+        cs[r] = j < ncand ? k * ncand + j : INT_MAX;
+      }
+      if (c0 > 0) {
+        const int r_l = (L - 1) >> 5;
+        const u64 lk = __shfl_sync(FULL, r_l ? key[1] : key[0], (L - 1) & 31);
+        const int ls = __shfl_sync(FULL, r_l ? slot[1] : slot[0], (L - 1) & 31);
+        if (!__any_sync(FULL, ranks_before<TIES>(ck[0], cs[0], lk, ls) ||
+                                  ranks_before<TIES>(ck[1], cs[1], lk, ls)))
+          continue;
+      }
+      warp_sort_desc<TIES, 2>(ck, cs, lane);
+      if (c0 == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          key[r] = ck[r];
+          slot[r] = cs[r];
+        }
+      } else {
+        warp_merge_top<TIES>(key, slot, ck, cs, lane);
+      }
+    }
+  }
+  // 4. the lists into the first CTA of the cluster
+  if (C > 1) cluster_wait();
+  if (k < n_par) {
+    u64* dk = C > 1 ? cluster.map_shared_rank(s_key, 0) : s_key;
+    int* ds = C > 1 ? cluster.map_shared_rank(s_lslot, 0) : s_lslot;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dk[k * 64 + r * 32 + lane] = key[r];
+      ds[k * 64 + r * 32 + lane] = slot[r];
+    }
+  }
+  if (C > 1) {
+    cluster.sync();
+    if (c != 0) return;
+  } else {
+    __syncthreads();
+  }
+  // 5. the query's first 2K: the lists merged in pairs (warp_merge_top), a
+  // level of the tree at a time, list j taking list j + stride
+  const int warps = (int)(blockDim.x >> 5), wid = (int)(threadIdx.x >> 5);
+  for (int stride = 1; stride < n_par; stride <<= 1) {
+    for (int j = 2 * stride * wid; j + stride < n_par; j += 2 * stride * warps) {
+      u64 bk[2];
+      int bsl[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        key[r] = s_key[j * 64 + r * 32 + lane];
+        slot[r] = s_lslot[j * 64 + r * 32 + lane];
+        bk[r] = s_key[(j + stride) * 64 + r * 32 + lane];
+        bsl[r] = s_lslot[(j + stride) * 64 + r * 32 + lane];
+      }
+      warp_merge_top<TIES>(key, slot, bk, bsl, lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        s_key[j * 64 + r * 32 + lane] = key[r];
+        s_lslot[j * 64 + r * 32 + lane] = slot[r];
+      }
+    }
+    __syncthreads();
+  }
+  for (int t = threadIdx.x; t < two_k; t += blockDim.x) {
+    const u64 kk = s_key[t];
+    const int sl = TIES ? s_lslot[t] : key_slot(kk);
+    const int kq = sl / ncand;
+    e_cons[t] = key_value(kk);
+    e_slot[t] = sl;
+    load_slot(in, b * n_par + kq, sl - kq * ncand, n_buf, w, eos, pad, e_tok + t, e_lp + t);
+  }
+  __syncthreads();
+  finish_query(b, in, o, unsound, n_par, ncand, two_k, k_out, eos, neg_inf, e_cons, e_slot, e_tok,
+               e_lp, s_cont);
 }
 
 // One CTA per query: the n_par * ncand candidates (ncand = n_buf + w + 2:
@@ -863,36 +1264,78 @@ __global__ void select_finish_kernel(SelectIn in, SelectOut o, unsigned char* un
 }
 
 // The candidate mode (_candidates_general :359-367 with _apply_branches and
-// _dedup_mask, :1394-1399): one CTA per beam row writes its ncand candidates
-// in slot order -- token, constrained log-prob (NEG_INF where the branches or
-// the first-instance dedup drop the slot) and log-prob -- and selects
-// nothing.  Sampling and diverse groups select from them (kernels 20, 21).
-// A row past CAND_SMEM_MAX candidates takes its first instances from the
-// table (F2), where the serial scan of earlier slots would be quadratic.
-__global__ void candidates_kernel(SelectIn in, int n_buf, int w, int eos, int pad,
+// _dedup_mask, :1394-1399): each beam row's ncand candidates in slot order
+// -- token, constrained log-prob (NEG_INF where the branches or the
+// first-instance dedup drop the slot) and log-prob --, selecting nothing.
+// Sampling and diverse groups select from them (kernels 20, 21).  A warp a
+// row, CAND_WARPS rows a CTA, the slots read once (warp_slots): its region
+// holds the log-probs [ncand], the dedup's area (the tokens and a table of
+// 2 ncand entries) and the first-instance and branch bits
+// (cand_region_words).  A row past SERIAL_MAX candidates takes its
+// first instances from the [rows, vocab] table (F2,
+// candidates_table_kernel).
+constexpr int CAND_WARPS = 4;
+
+// The dedup's area and the bits in a warp's region, and the region's words.
+__host__ __device__ inline int cand_area_at(int ncand) { return ncand + (ncand & 1); }
+
+__host__ __device__ inline int cand_bits_at(int ncand, int table) {
+  return cand_area_at(ncand) + ncand + table;
+}
+
+__host__ __device__ inline int cand_region_words(int ncand, int table) {
+  const int r = cand_bits_at(ncand, table) + 2 * ((ncand + 31) / 32);
+  return r + (r & 1);
+}
+
+__global__ void candidates_kernel(SelectIn in, long long rows, int n_buf, int w, int eos, int pad,
                                   int stop_at_count, int always_allow_eos, float neg_inf,
-                                  const unsigned* table, int vocab, int* out_tok, float* out_cons,
+                                  int table, int region, int* out_tok, float* out_cons,
                                   float* out_lp) {
   extern __shared__ unsigned long long smem[];
-  int* s_tok = (int*)smem;  // without a table
+  const int ncand = n_buf + w + 2;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * CAND_WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;  // a whole warp: the CTA has no barrier
+  unsigned* reg = (unsigned*)smem + (size_t)(threadIdx.x >> 5) * region;
+  float* s_lp = (float*)reg;
+  unsigned* area = reg + cand_area_at(ncand);
+  unsigned* bits = reg + cand_bits_at(ncand, table);
+  unsigned* abits = bits + ((ncand + 31) >> 5);
+  const long long at = row * ncand;
+  warp_slots(in, row, n_buf, w, eos, pad, stop_at_count, always_allow_eos, lane,
+             [&](int r, int j, int tok, float lp, bool ok) {
+               if (j < ncand) {
+                 ((int*)area)[j] = tok;
+                 s_lp[j] = lp;
+                 out_tok[at + j] = tok;
+                 out_lp[at + j] = lp;
+               }
+               const unsigned word = __ballot_sync(FULL, ok);
+               if (lane == 0) abits[r] = word;
+             });
+  __syncwarp();
+  warp_first_instances(area, table, ncand, bits, abits, lane);
+  for (int j = lane; j < ncand; j += 32)
+    out_cons[at + j] = ((bits[j >> 5] & abits[j >> 5]) >> (j & 31) & 1u) ? s_lp[j] : neg_inf;
+}
+
+__global__ void candidates_table_kernel(SelectIn in, int n_buf, int w, int eos, int pad,
+                                        int stop_at_count, int always_allow_eos, float neg_inf,
+                                        const unsigned* table, int vocab, int* out_tok,
+                                        float* out_cons, float* out_lp) {
   const int ncand = n_buf + w + 2;
   const long long row = blockIdx.x;
   for (int j = threadIdx.x; j < ncand; j += blockDim.x) {
     int tok;
     float lp;
     load_slot(in, row, j, n_buf, w, eos, pad, &tok, &lp);
-    if (table == nullptr) s_tok[j] = tok;
+    const bool ok = table_first(table, row, vocab, tok, j) &&
+                    slot_allowed(in, row, j, tok, n_buf, w, eos, pad, stop_at_count,
+                                 always_allow_eos);
     out_tok[row * ncand + j] = tok;
     out_lp[row * ncand + j] = lp;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < ncand; j += blockDim.x) {
-    const int tok = out_tok[row * ncand + j];
-    const bool first = table != nullptr ? table_first(table, row, vocab, tok, j)
-                                        : first_instance(s_tok, 0, j);
-    const bool ok = first && slot_allowed(in, row, j, tok, n_buf, w, eos, pad, stop_at_count,
-                                          always_allow_eos);
-    out_cons[row * ncand + j] = ok ? out_lp[row * ncand + j] : neg_inf;
+    out_cons[row * ncand + j] = ok ? lp : neg_inf;
   }
 }
 
@@ -933,7 +1376,7 @@ __global__ void select_top_kernel(const float* top_cons, const long long* top_id
 
 namespace {
 
-enum SelectRoute { ROUTE_BLOCK = 0, ROUTE_LARGE = 1, ROUTE_WARP = 2, ROUTE_TABLE = 3 };
+enum SelectRoute { ROUTE_BLOCK = 0, ROUTE_LARGE = 1, ROUTE_WARP = 2, ROUTE_TABLE = 3, ROUTE_WIDE = 4 };
 // the select_top kernel's shared memory without opting in (48 KB: 1,365 beams)
 constexpr size_t SELECT_TOP_SMEM = 48 * 1024;
 
@@ -941,6 +1384,22 @@ long long warp_smem(int n_par, int ncand, int two_k, int k_out, int ties) {
   const long long L = two_k < ncand ? two_k : ncand;
   const long long nc4 = (ncand + 3) & ~3;
   return 8LL * n_par * nc4 + (ties ? 12LL : 8LL) * n_par * L + 16LL * two_k + 4LL * k_out;
+}
+
+// The shapes the wide route launches: at most 32 beams, 2K <= 64, the
+// first-instance bits' 2,048 slots, a hash table of at least ncand entries,
+// 1-8 CTAs a query of at most WIDE_CTA_WARPS beams each.
+bool wide_ok(int n_par, int ncand, int two_k, int table, int splits) {
+  return n_par <= 32 && two_k <= 64 && ncand <= 32 * WIDE_AUX / 2 && table >= ncand &&
+         splits >= 1 && splits <= 8 && splits <= n_par &&
+         (n_par + splits - 1) / splits <= WIDE_CTA_WARPS;
+}
+
+// The wide route's block at `splits` CTAs a query.
+long long wide_smem(int n_par, int ncand, int two_k, int k_out, int table, int splits) {
+  const int per = (n_par + splits - 1) / splits;
+  return wide_head_bytes(two_k, k_out) + wide_lists_bytes(n_par) +
+         4LL * per * wide_region_words(ncand, table);
 }
 
 long long beams_smem(int chunk, int ties) {
@@ -985,6 +1444,14 @@ long long seal_beam_select_large_smem(int n_par, int ncand, int two_k, int k_out
 // epilogue's 2K picks).
 long long seal_beam_select_warp_smem(int n_par, int ncand, int two_k, int k_out, int ties) {
   return warp_smem(n_par, ncand, two_k, k_out, ties);
+}
+
+// The wide route at a hash table of `table` entries a beam and `splits`
+// CTAs a query; LLONG_MAX where it cannot launch that shape at all.
+long long seal_beam_select_wide_smem(int n_par, int ncand, int two_k, int k_out, int table,
+                                     int splits) {
+  if (!wide_ok(n_par, ncand, two_k, table, splits)) return LLONG_MAX;
+  return wide_smem(n_par, ncand, two_k, k_out, table, splits);
 }
 
 // The table route: the largest of its chunk, reduce and finish launches.
@@ -1058,8 +1525,11 @@ int seal_beam_merge_table(const int* buf_tok, const float* buf_lp, const unsigne
                      st);
 }
 
-// The selection on one of four routes (kernels/beam_select.py:select_plan):
-// ROUTE_WARP (select_warp_kernel), ROUTE_BLOCK (select_kernel), ROUTE_LARGE
+// The selection on one of five routes (kernels/beam_select.py:select_plan):
+// ROUTE_WARP (select_warp_kernel), ROUTE_WIDE (select_wide_kernel; `chunk`
+// is its hash table's entries a beam, `splits` its CTAs a query, a
+// cluster), ROUTE_BLOCK
+// (select_kernel), ROUTE_LARGE
 // (select_beams_kernel + select_finish_kernel; scratch holds [n_queries *
 // n_par, two_k] keys, and slots under the ties mode) and ROUTE_TABLE (the
 // table [n_queries * n_par, vocab] memset and filled, select_beams_kernel
@@ -1074,7 +1544,7 @@ int seal_beam_select(const int* buf_tok, const float* buf_lp, const unsigned cha
                      long long n_queries, int n_par, int n_buf, int w, int k_out, int eos,
                      int pad, int stop_at_count, int always_allow_eos, int tie_bits,
                      int keep_invalid, float neg_inf, int route, int vocab, int chunk,
-                     int* top_tok, int* top_parent, float* top_uncons, unsigned char* finite,
+                     int splits, int* top_tok, int* top_parent, float* top_uncons, unsigned char* finite,
                      int* sel_tok, int* sel_parent, float* sel_uncons, unsigned char* sel_finite,
                      float* top_cons, unsigned char* unsound, u64* scratch_keys,
                      int* scratch_slots, unsigned* table, void* stream) {
@@ -1106,6 +1576,33 @@ int seal_beam_select(const int* buf_tok, const float* buf_lp, const unsigned cha
         in, o, unsound, n_par, n_buf, w, two_k, k_out, eos, pad, stop_at_count,
         always_allow_eos, tie_bits, neg_inf);
     return (int)cudaGetLastError();
+  }
+  if (route == ROUTE_WIDE) {
+    const int table = chunk;
+    if (!wide_ok(n_par, ncand, two_k, table, splits)) return (int)cudaErrorInvalidValue;
+    const int per = (n_par + splits - 1) / splits;
+    const int region = wide_region_words(ncand, table);
+    const size_t smem = (size_t)wide_smem(n_par, ncand, two_k, k_out, table, splits);
+    const auto kernel = ties ? select_wide_kernel<true> : select_wide_kernel<false>;
+    rc = set_smem(kernel, smem);
+    if (rc) return rc;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(n_queries * splits));
+    cfg.blockDim = dim3(32 * per);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)splits;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, in, o, unsound, n_par, n_buf, w, two_k,
+                                         k_out, eos, pad, stop_at_count, always_allow_eos,
+                                         tie_bits, neg_inf, table, region);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    return (int)err;
   }
   if (route == ROUTE_BLOCK) {
     const int n = n_par * ncand;
@@ -1168,35 +1665,41 @@ int seal_beam_select(const int* buf_tok, const float* buf_lp, const unsigned cha
   return (int)cudaGetLastError();
 }
 
-// The candidate mode; with `table` ([rows, vocab] scratch) the first
-// instances come from it (a row past the shared memory's serial scan).
+// The candidate mode: with `table` ([rows, vocab] scratch) the first
+// instances come from it (a row past SERIAL_MAX candidates), else from a
+// hash table in a warp's own region.
 int seal_beam_candidates(const int* buf_tok, const float* buf_lp, const unsigned char* buf_valid,
                          const int* win_tok, const unsigned char* win_valid, const float* win_lp,
                          const unsigned char* eos_ok, long long eos_ok_stride, const float* lp,
                          long long lp_stride, const int* prev_count,
                          const unsigned char* finished, long long rows, int n_buf, int w, int eos,
                          int pad, int stop_at_count, int always_allow_eos, int keep_invalid,
-                         float neg_inf, unsigned* table, int vocab, int* out_tok, float* out_cons,
-                         float* out_lp, void* stream) {
+                         float neg_inf, unsigned* table, int vocab, int* out_tok,
+                         float* out_cons, float* out_lp, void* stream) {
   if (rows <= 0) return (int)cudaGetLastError();
   const SelectIn in{buf_tok, buf_lp,     buf_valid,  win_tok,  win_valid, win_lp,
                     eos_ok,  eos_ok_stride, lp,      lp_stride, prev_count, finished,
                     nullptr, nullptr,   nullptr, keep_invalid};
   const cudaStream_t st = (cudaStream_t)stream;
   const int ncand = n_buf + w + 2;
-  size_t smem = 4 * (size_t)ncand;
   if (table != nullptr) {
-    smem = 0;
     int rc = clear_table(table, rows, vocab, st);
     if (rc) return rc;
     select_table_kernel<<<blocks_of(rows * ncand, 256), 256, 0, st>>>(in, rows, n_buf, w, eos,
                                                                       pad, vocab, table);
+    candidates_table_kernel<<<(unsigned)rows, 128, 0, st>>>(
+        in, n_buf, w, eos, pad, stop_at_count, always_allow_eos, neg_inf, table, vocab, out_tok,
+        out_cons, out_lp);
+    return (int)cudaGetLastError();
   }
+  const int slots = 2 * ncand;
+  const int region = cand_region_words(ncand, slots);
+  const size_t smem = 4 * (size_t)CAND_WARPS * region;
   const int rc = set_smem(candidates_kernel, smem);
   if (rc) return rc;
-  candidates_kernel<<<(unsigned)rows, 128, smem, st>>>(
-      in, n_buf, w, eos, pad, stop_at_count, always_allow_eos, neg_inf, table, vocab, out_tok,
-      out_cons, out_lp);
+  candidates_kernel<<<(unsigned)((rows + CAND_WARPS - 1) / CAND_WARPS), 32 * CAND_WARPS, smem, st>>>(
+      in, rows, n_buf, w, eos, pad, stop_at_count, always_allow_eos, neg_inf, slots, region,
+      out_tok, out_cons, out_lp);
   return (int)cudaGetLastError();
 }
 

@@ -2117,11 +2117,14 @@ def test_diverse_select_routes_launches_and_graph(cuda, route):
 @pytest.mark.parametrize("n_buf,w,keep_invalid,with_buf", [(30, 32, False, True),
                                                            (30, 32, False, False),
                                                            (256, 32, False, True),
-                                                           (256, 128, True, True)])
+                                                           (256, 128, True, True),
+                                                           (1900, 146, False, True)])
 def test_beam_candidates_matches_plain(cuda, n_buf, w, keep_invalid, with_buf):
-    """Kernel 8's candidate mode at the routes' widths: the diverse
-    proposal route (64 slots a beam, with a buffer or none), sampling's
-    (290) and the speculative route (386); every output bit for bit."""
+    """Kernel 8's candidate mode, a warp a beam row, at the routes' widths:
+    the diverse proposal route (64 slots a beam, with a buffer or none),
+    sampling's (290), the speculative route (386) and SERIAL_MAX (2,048),
+    first instances from the hash table; every output bit for bit, no
+    table launched."""
     g = torch.Generator(device=cuda).manual_seed(n_buf + w)
     B, K, V = 32, 15, 3000
     lp = _lp(g, B * K, V, cuda)
@@ -2137,9 +2140,10 @@ def test_beam_candidates_matches_plain(cuda, n_buf, w, keep_invalid, with_buf):
     finished = torch.rand(B, K, generator=g, device=cuda) < 0.2
     args = (buf, n_buf, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished)
     kw = dict(eos=2, pad=1, stop_at_count=1, always_allow_eos=False, keep_invalid=keep_invalid)
-    n0 = beam_select.beam_candidates.launches
+    n0, t0 = beam_select.beam_candidates.launches, beam_select.CAND_TABLE.launches
     got = beam_select.beam_candidates(*args, **kw)
     assert beam_select.beam_candidates.launches == n0 + 1
+    assert beam_select.CAND_TABLE.launches == t0
     _same(got, beam_select.candidates_plain(*args, **kw))
 
 
@@ -2295,7 +2299,7 @@ def test_beam_select_large_route_matches_plain(cuda, ties, keep_invalid):
     kw = dict(K=K, eos=2, pad=1, stop_at_count=0, always_allow_eos=False, ties=ties,
               keep_invalid=keep_invalid)
     n0 = beam_select.LARGE.launches
-    got, bad = beam_select.beam_select(*args, **kw)
+    got, bad = beam_select.beam_select(*args, route="large", **kw)
     assert beam_select.LARGE.launches == n0 + 1
     want, wbad = beam_select.beam_select_plain(*args, **kw)
     _same(got + (bad,), want + (wbad,))
@@ -2363,6 +2367,10 @@ SELECT_ROUTES = {  # route: B, beams, n_buf, w, V -- each route at the path's sh
     "warp_limit": ("warp", 4, 32, 64, 62, 3000),  # 128 candidates, 2K = 64, 32 beams
     "warp_one_reg": ("warp", 8, 4, 8, 16, 3000),  # 26, one slot a lane
     "warp_narrow": ("warp", 8, 8, 4, 4, 3000),  # 10 candidates for a top-16
+    "wide_spec": ("wide", 8, 15, 256, 128, 3000),  # the speculative default (386)
+    "wide_beam32": ("wide", 4, 32, 64, 512, 3000),  # beam 32 over 4 shards (578)
+    "wide_limit": ("wide", 2, 15, 256, 1342, 3000),  # 1,600 candidates a beam
+    "wide_narrow": ("wide", 8, 8, 4, 4, 3000),  # 10 candidates for a top-16
     "block_spec": ("block", 8, 15, 256, 128, 3000),  # the speculative default (386)
     "large_beam32": ("large", 4, 32, 64, 512, 3000),  # beam 32 over 4 shards (578)
     "large_limit": ("large", 2, 15, 30, 2016, 3000),  # SERIAL_MAX candidates a beam
@@ -2394,23 +2402,82 @@ def test_beam_select_routes_match_plain(cuda, name, ties, keep_invalid):
     _same(got, beam_select.beam_select_plain(*no_flags, K=K, ties=ties, **kw)[0])
 
 
+@pytest.mark.parametrize("keep_invalid", [False, True])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("B,K,n_buf,w", [(32, 15, 256, 128), (8, 32, 64, 512),
+                                         (32, 15, 30, 512)])
+def test_beam_select_wide_route_matches_plain(cuda, B, K, n_buf, w, ties, keep_invalid):
+    """Kernel 8's wide route at the path's shapes as ``select_plan`` picks
+    it -- the speculative default [32, 15, 386], beam 32 over 4 shards
+    [8, 32, 578], beam 15 over 4 shards [32, 15, 544] --, a cluster of
+    ``wide_splits`` CTAs a query (at beam 15 the last CTA has a spare
+    warp), in both orders, with and without the soundness flags: equal to
+    ``beam_select_plain`` bit for bit, one launch on ``ROUTES["wide"]``,
+    none on the block or large-n route; and replayed from a CUDA graph."""
+    args, kw = _select_inputs(cuda, B + K + w + ties, B, K, n_buf, w, 3000, 400, keep_invalid)
+    counts = lambda: {r: c.launches for r, c in beam_select.ROUTES.items()}  # noqa: E731
+    n0 = counts()
+    got, bad = beam_select.beam_select(*args, K=K, ties=ties, **kw)
+    n1 = counts()
+    assert {r: n1[r] - n0[r] for r in n0} == {r: int(r == "wide") for r in n0}
+    want, wbad = beam_select.beam_select_plain(*args, K=K, ties=ties, **kw)
+    _same(got + (bad,), want + (wbad,))
+    no_flags = args[:-2] + (None, None)
+    _same(_graph_call(lambda: beam_select.beam_select(*no_flags, K=K, ties=ties, **kw)[0]),
+          beam_select.beam_select_plain(*no_flags, K=K, ties=ties, **kw)[0])
+
+
 def test_beam_select_route_choice_and_limits(cuda):
     """The routes ``select_plan`` picks on the path (the warp route at the
-    bench's beam 15 and at beam 32 with a 32-row window; one block for the
-    speculative default; the large-n route over 4 shards; the table route
-    for a speculative top_m of 20,000) and the shapes a forced route
-    refuses."""
+    bench's beam 15 and at beam 32 with a 32-row window; the wide route for
+    the speculative default and over 4 shards at beam 15 and 32; the table
+    route for a speculative top_m of 20,000; past the wide route's 2K and
+    beams the block and large-n routes) and the shapes a forced route
+    refuses; the wide route's hash table as ``wide_table`` sizes it from
+    the C size query: 2 ncand entries at the CPU mirror tests' shapes,
+    within the shared memory, and none where a CTA would hold more than
+    16 beams."""
     plan = beam_select.select_plan
     assert plan(15, 30, 32, 15, False).route == "warp"
     assert plan(32, 64, 32, 32, True).route == "warp"
-    assert plan(15, 256, 128, 15, False).route == "block"
-    assert plan(32, 64, 512, 32, False).route == "large"
+    for ties in (False, True):
+        assert plan(15, 256, 128, 15, ties).route == "wide"
+        assert plan(32, 64, 512, 32, ties).route == "wide"
+        assert plan(15, 30, 512, 15, ties).route == "wide"
+    assert plan(15, 256, 128, 15, False, "block").route == "block"
+    assert plan(32, 64, 512, 32, False, "large").route == "large"
+    assert plan(40, 80, 32, 40, False).route == "block"  # 40 beams, 2K = 80
+    assert plan(64, 128, 512, 64, False).route == "large"  # beam 64 over 4 shards
     assert plan(15, 20000, 128, 15, True).route == "table"
+    from seal_tpu_torch.kernels import build
+
+    so = build.lib()
+    for n_par, ncand, K in ((15, 386, 15), (32, 578, 32), (15, 1600, 15)):
+        for splits in (1, 2, 4):
+            table = beam_select.wide_table(n_par, ncand, 2 * K, K, splits)
+            least = -(-5 * ncand // 4)
+            if table is None:  # too many beams a CTA, or not even the least table fits
+                assert so.seal_beam_select_wide_smem(n_par, ncand, 2 * K, K, least,
+                                                     splits) > build.SMEM_LIMIT
+                continue
+            assert least <= table <= 2 * ncand
+            assert so.seal_beam_select_wide_smem(n_par, ncand, 2 * K, K, table,
+                                                 splits) <= build.SMEM_LIMIT
+    assert beam_select.wide_splits(32) == 2 and beam_select.wide_splits(15) == 2
+    assert beam_select.wide_splits(8) == 1
+    # a load of 1/2 at tests/test_torch_select_routes.py's WIDE_SHAPES
+    for n_par, ncand in ((15, 290), (15, 386), (32, 578), (8, 10)):
+        splits = beam_select.wide_splits(n_par)
+        assert beam_select.wide_table(n_par, ncand, 2 * n_par, n_par, splits) == 2 * ncand
+    assert beam_select.wide_table(32, 578, 64, 32, 1) is None  # 32 beams in one CTA
     for shape in ((32, 64, 63, 32), (33, 60, 32, 33), (15, 30, 32, 33)):
         with pytest.raises(ValueError):
             plan(*shape, False, "warp")  # 129 candidates, 33 beams, 2K = 66
     with pytest.raises(ValueError):
         plan(15, 3000, 32, 15, False, "large")  # past SERIAL_MAX a beam
+    for shape in ((15, 2100, 32, 15), (33, 256, 128, 33), (15, 256, 128, 33)):
+        with pytest.raises(ValueError):
+            plan(*shape, False, "wide")  # 2,134 candidates, 33 beams, 2K = 66
 
 
 @pytest.mark.parametrize("ties", [False, True])

@@ -12,6 +12,14 @@ numpy on the CPU (the kernels themselves run only on the card,
   10,000-wide one without, and the selection's (``beam_select_large_plain``
   with ``chunk``) at 20,034 candidates a beam, over a 60,000-token vocab
   with duplicate tokens, equal to the one-block plain versions;
+* the wide route's stages (first instances by the hash table, mirrored
+  in numpy; each beam's running first 64 over chunks of 64,
+  ``merge_top``; the lists' merge: ``beam_select_wide_plain``) and the
+  candidate mode's dedup equal to ``beam_select_plain`` /
+  ``candidates_plain`` bit for bit at 290, 386 and 578 candidates a beam,
+  and ``beam_select_plain`` equal to JAX's
+  ``_apply_branches`` + ``_dedup_mask`` + ``_select`` at the speculative
+  [15, 386] and the 4-shard beam-32 [32, 578] shapes;
 * kernel 1's cooperative search (G pivots a level, one ballot, a final
   contiguous load) mirrored in numpy against ``np.searchsorted``;
 * the step mode's plain version (``advance_plain`` and the adapters'
@@ -162,6 +170,157 @@ def test_merge_table_route_mirror_equals_plain(n_buf, ties):
     _same(k8.beam_merge_table_plain(*args, ties=ties), k8.beam_merge_plain(*args, ties=ties))
     none = (None,) + args[1:]
     _same(k8.beam_merge_table_plain(*none, ties=ties), k8.beam_merge_plain(*none, ties=ties))
+
+
+def _hash_first(tok, table, order):
+    """``csrc/beam_select.cu:warp_first_instances`` with a hash table for
+    one row: the slots inserted in ``order`` (the lanes race on the card),
+    each claiming an empty entry or lowering its token's entry where it
+    holds a higher slot, then each slot looking its token up.  Returns the
+    first-instance mask and the probes a slot took on average."""
+    tab = np.full(table, -1, np.int64)
+    probes = 0
+
+    def home(t):  # __umulhi((unsigned)t * 0x9e3779b1, table)
+        return (((int(t) & 0xFFFFFFFF) * 0x9E3779B1) & 0xFFFFFFFF) * table >> 32
+
+    for j in order:
+        p = home(tok[j])
+        while True:
+            probes += 1
+            s = tab[p]
+            if s < 0 or tok[s] == tok[j]:
+                tab[p] = j if s < 0 else min(s, j)
+                break
+            p = (p + 1) % table
+    first = np.zeros(len(tok), bool)
+    for j in range(len(tok)):
+        p = home(tok[j])
+        while tok[tab[p]] != tok[j]:
+            p = (p + 1) % table
+        first[j] = tab[p] == j
+    return first, probes / len(tok)
+
+
+def _first_by(table, seed=0):
+    """A ``first`` function for ``candidates_plain``: the kernel's hash table
+    of ``table`` entries a row, the slots inserted in a random order."""
+    def first(tokens):
+        t = tokens.reshape(-1, tokens.shape[-1]).numpy()
+        rng = np.random.default_rng(seed)
+        rows = [_hash_first(r, table, rng.permutation(len(r))) for r in t]
+        assert max(p for _, p in rows) < 4  # a few probes a slot at a load <= 0.8
+        return torch.as_tensor(np.stack([f for f, _ in rows])).reshape(tokens.shape)
+    return first
+
+
+WIDE_SHAPES = {  # B, K, n_buf, w: candidates a beam
+    "sample_290": (2, 15, 256, 32),  # sampling's buffer (the candidate mode's width)
+    "spec_386": (2, 15, 256, 128),  # the speculative default
+    "beam32_578": (2, 32, 64, 512),  # beam 32 over a 4-shard union window
+    "narrow": (3, 8, 4, 4),  # 10 candidates for a top-16: no radix pass
+}
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("case", ["need", "no_buffer", "branches", "keep_invalid", "no_flags"])
+@pytest.mark.parametrize("shape", sorted(WIDE_SHAPES))
+def test_select_wide_route_mirror_equals_plain(shape, case, ties):
+    """The wide route's stages, with the first instances of the hash table
+    at the size the card gives these shapes (2 ncand entries, a load of
+    1/2: ``test_beam_select_route_choice_and_limits`` holds it there), equal
+    ``beam_select_plain`` bit for bit: tokens from [0, 60) (many
+    duplicates), ties, signed zeros, a dead beam."""
+    B, K, n_buf, w = WIDE_SHAPES[shape]
+    args, kw = _select_args(3 * len(shape) + len(case) + ties, B, K, n_buf, w, 500, 60, case)
+    ncand = n_buf + w + 2
+    want = k8.beam_select_plain(*args, ties=ties, **kw)
+    got = k8.beam_select_wide_plain(*args, ties=ties, first=_first_by(2 * ncand), **kw)
+    _same(got[0] + (got[1],), want[0] + (want[1],))
+
+
+@pytest.mark.parametrize("n", [64, 65, 290, 578])
+def test_merge_top_keeps_the_first_64(n):
+    """The wide route's running list (``merge_top``: the better of each
+    place and the chunk's mirrored place, then half-cleaners) over chunks
+    of 64, on rows that corner it: keys from a small alphabet (equal keys
+    across the 64th place: the ties mode's), one key everywhere, distinct
+    keys, and keys in ascending order; the result is the first 64 of a
+    stable descending sort, in its order."""
+    g = torch.Generator().manual_seed(n)
+    rows = torch.stack([torch.randint(0, 5, (n,), generator=g) << 40,
+                        torch.full((n,), 7),
+                        torch.randperm(n, generator=g) * 3 - 500,
+                        torch.arange(n) - 2**62])
+    slot = torch.arange(n).expand(rows.shape)
+    low = torch.iinfo(torch.int64).min
+    top = None
+    for c0 in range(0, n, 64):
+        pad = max(0, c0 + 64 - n)
+        ck = torch.nn.functional.pad(rows[:, c0:c0 + 64], (0, pad), value=low)
+        cs = torch.nn.functional.pad(slot[:, c0:c0 + 64], (0, pad), value=2**31 - 1)
+        order = torch.sort(ck, dim=-1, descending=True, stable=True)[1]
+        ck, cs = ck.gather(-1, order), cs.gather(-1, order)
+        top = (ck, cs) if top is None else k8.merge_top(*top, ck, cs)
+    want = torch.sort(rows, dim=-1, descending=True, stable=True)[1][:, :64]
+    m = min(64, n)
+    assert torch.equal(top[1][:, :m], want[:, :m])
+    assert torch.equal(top[0][:, :m], rows.gather(-1, want[:, :m]))
+
+
+@pytest.mark.parametrize("n_buf,w,case", [(30, 32, "need"), (256, 32, "keep_invalid"),
+                                          (256, 32, "branches"), (256, 128, "keep_invalid")])
+def test_candidates_dedup_mirror_equals_plain(n_buf, w, case):
+    """The candidate mode's first instances, a warp a row through the hash
+    table of 2 ncand entries, equal ``candidates_plain`` at 64, 290 and 386
+    candidates a beam."""
+    args, kw = _select_args(n_buf + w + 4, 2, 15, n_buf, w, 500, 60, case)
+    ckw = {k: kw[k] for k in ("eos", "pad", "stop_at_count", "always_allow_eos",
+                              "keep_invalid")}
+    ncand = n_buf + w + 2
+    want = k8.candidates_plain(*args[:9], **ckw)
+    assert not bool(k8.dedup_mask(want[0]).all())  # duplicates present
+    _same(k8.candidates_plain(*args[:9], **ckw, first=_first_by(2 * ncand, seed=1)), want)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape,keep_invalid", [("spec_386", True), ("beam32_578", False)])
+def test_select_plain_matches_jax(shape, keep_invalid, ties):
+    """``beam_select_plain`` (and the wide route's mirror) against JAX's
+    candidates (the speculative mode's buffer as proposed, or the fast
+    path's PAD-finished one: ``_candidates_general`` :343-367,
+    ``build_and_select`` :850-871), ``_apply_branches``, ``_dedup_mask``
+    (:1014), ``_select`` (:1046) and the soundness test, bit for bit."""
+    B, K, n_buf, w = WIDE_SHAPES[shape]
+    args, kw = _select_args(5 + ties, B, K, n_buf, w, 500, 60,
+                            "keep_invalid" if keep_invalid else "branches")
+    kw["stop_at_count"], kw["always_allow_eos"] = 2, True
+    buf, _, win_tok, win_valid, win_lp, eos_ok, lp, prev_count, finished, bs, need, th_lp = \
+        (x.numpy() if isinstance(x, torch.Tensor) else x for x in args)
+    buf = tuple(t.numpy() for t in args[0])
+    V = lp.shape[-1]
+    lp3 = lp.reshape(B, K, V)
+    btok, blp, bvalid = buf
+    if not keep_invalid:  # unfilled slots become PAD candidates at PAD's log-prob
+        btok = np.where(bvalid, btok, PAD)
+        blp = np.where(bvalid, blp, lp3[..., PAD, None])
+    one = lambda x: x[..., None]  # noqa: E731
+    tokens = jnp.asarray(np.concatenate([btok, win_tok, np.full((B, K, 1), EOS),
+                                         np.full((B, K, 1), PAD)], -1).astype(np.int32))
+    fm_valid = jnp.asarray(np.concatenate([bvalid, win_valid, eos_ok,
+                                           np.zeros((B, K, 1), bool)], -1))
+    cand_lp = jnp.asarray(np.concatenate([blp, win_lp, one(lp3[..., EOS]), one(lp3[..., PAD])],
+                                         -1))
+    cfg = jc.DecodeConfig(num_beams=K, stop_at_count=2, always_allow_eos=True, exact_ties=ties)
+    _, allowed, _ = jc._apply_branches(cfg, tokens, fm_valid, cand_lp, jnp.asarray(prev_count),
+                                       jnp.asarray(finished))
+    cons = jnp.where(allowed & jc._dedup_mask(tokens), cand_lp, jc.NEG_INF)
+    jbs = jnp.asarray(bs)[..., None]
+    want = [np.asarray(x) for x in jc._select(cfg, cons + jbs, cand_lp + jbs, tokens, K, V)]
+    want.append(np.asarray((need & (bs + th_lp >= want[8][:, -1:])).any(-1)))
+    for fn in (k8.beam_select_plain, k8.beam_select_wide_plain):
+        out, unsound = fn(*args, ties=ties, **kw)
+        _same(out + (unsound,), [torch.as_tensor(np.array(x)) for x in want])
 
 
 def _group_search(psi, lo, hi, pos, H):
