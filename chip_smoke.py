@@ -252,6 +252,10 @@ REPLACES = {
     "row_topk_global": "seal_tpu/decoding/constrained.py:736",
     "cross_attention_step_f32": "seal_tpu/models/t5.py:212",
     "fm_search_advance": "seal_tpu/decoding/constrained.py:1416",
+    # kernel 1's shard modes: the step mode (the sharded range update in one
+    # launch) and the backward step (ShardedIndexOps.extend), an entry point
+    "fm_search_advance_sharded": "seal_tpu/decoding/constrained.py:1416",
+    "fm_search_step_sharded": "seal_tpu/parallel/sharded_decode.py:120",
     "beam_select_warp": "seal_tpu/decoding/constrained.py:1046",
     "beam_select_table": "seal_tpu/decoding/constrained.py:343",
     "beam_merge_table": "seal_tpu/decoding/constrained.py:612",
@@ -320,6 +324,8 @@ SOURCES = {
     "row_topk_global": ("cuda", "seal_tpu_torch/kernels/csrc/row_topk.cu"),
     "cross_attention_step_f32": ("cuda", "seal_tpu_torch/kernels/csrc/decode_attention.cu"),
     "fm_search_advance": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
+    "fm_search_advance_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
+    "fm_search_step_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
     "beam_select_warp": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "beam_select_table": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
     "beam_merge_table": ("cuda", "seal_tpu_torch/kernels/csrc/beam_select.cu"),
@@ -467,13 +473,16 @@ PATH_KERNELS["batch_search_t5"] = ("fm_search", "window_gather", "row_topk",
                                    "rescore_logprob") + T5_STEP
 # the corpus-sharded index on the card: the same decode loop through the
 # shard modes of kernels 1, 2, 5, 6 and 15's mask mode (and none of the monolithic
-# index kernels); beam 32 over the shards' union window through kernel 8's
+# index kernels); kernel 1's shard step mode advances the ranges once a
+# selecting step; beam 32 over the shards' union window through kernel 8's
 # wide route.  The proven loop may prove a sharded step in round 0, so
 # its bucket counts are held only where one shard repeats the monolithic
 # run; the generate_mono* paths are those monolithic runs
 SHARDED_STEP = ("fm_search_sharded", "window_gather_sharded", "row_topk",
-                "log_softmax_min_len", "window_slab_sharded") + DECODE_STEP
-SHARDED_DENSE = ("fm_dense_mask_sharded", "fm_search_sharded") + DENSE_STEP
+                "log_softmax_min_len", "window_slab_sharded",
+                "fm_search_advance_sharded") + DECODE_STEP
+SHARDED_DENSE = ("fm_dense_mask_sharded", "fm_search_sharded",
+                 "fm_search_advance_sharded") + DENSE_STEP
 for _path in ("generate_sharded", "generate_sharded_once", "generate_sharded_s1"):
     PATH_KERNELS[_path] = SHARDED_STEP
 for _path in ("generate_sharded_dense", "generate_sharded_s1_dense",
@@ -490,7 +499,8 @@ PATH_KERNELS["generate_sharded_beam32"] = SHARDED_STEP + ("beam_select_wide",)
 PATH_KERNELS["batch_search_sharded"] = ("fm_search_sharded", "window_gather_sharded", "row_topk",
                                         "log_softmax_min_len", "fm_sequences_sharded",
                                         "rescore_logprob", "beam_select", "cross_attention_step",
-                                        "self_attention_step", "reorder_cache")
+                                        "self_attention_step", "reorder_cache",
+                                        "fm_search_advance_sharded")
 for _path in ("generate_once", "generate_mono"):
     PATH_KERNELS[_path] = PATH_KERNELS["generate"]
 PATH_KERNELS["generate_mono_force_full"] = PATH_KERNELS["generate_force_full"]
@@ -500,9 +510,16 @@ PATH_KERNELS["generate_mono_dense"] = PATH_KERNELS["generate_dense"]
 def psi_constrained(path: str) -> bool:
     """A decode path over the monolithic Psi index with the constraint on:
     kernel 1's step mode advances the ranges once a selecting step (the
-    wavelet layouts take kernel 12's, the sharded index composes its own
-    backward step; free generation keeps no ranges)."""
+    wavelet layouts take kernel 12's, the sharded index kernel 1's shard
+    step mode; free generation keeps no ranges)."""
     return not any(x in path for x in ("sharded", "compact", "hybrid", "free"))
+
+
+def sharded_constrained(path: str) -> bool:
+    """A decode path over the sharded index: kernel 1's shard step mode
+    advances the ranges once a selecting step, and its backward step
+    (``ShardedIndexOps.extend``) never launches."""
+    return "sharded" in path and "free" not in path
 
 
 def wavelet_constrained(path: str) -> bool:
@@ -541,7 +558,10 @@ BUCKET_COUNTS_MODES = ("bucket_counts", "wt_bucket_counts", "bucket_counts_shard
 # and kernel 8's block and large-n selection routes (the wide route takes
 # every shape of theirs on the paths; no path launches them)
 PARENT_SELECT_ROUTES = ("beam_select_block", "beam_select_large")
-ENTRY_POINTS_ONLY = ("row_kth",) + COUNTS_MODES + BUCKET_COUNTS_MODES + PARENT_SELECT_ROUTES
+# and kernel 1's backward step over the shards (ShardedIndexOps.extend: the
+# decode's range update is the shard step mode)
+ENTRY_POINTS_ONLY = ("row_kth", "fm_search_step_sharded") + COUNTS_MODES + \
+    BUCKET_COUNTS_MODES + PARENT_SELECT_ROUTES
 
 
 def dense_mask_of(path: str) -> str:
@@ -556,7 +576,7 @@ def dense_mask_of(path: str) -> str:
 
 # the calls of each ShardedIndexOps method that a shard mode serves
 SHARD_OPS = ("extend", "contains", "validate", "window_gather", "window_slab", "slab",
-             "range_for", "bucket_counts", "dense_counts", "dense_mask")
+             "range_for", "bucket_counts", "dense_counts", "dense_mask", "advance")
 # the selection kernel of each path whose selection is not kernel 8's
 SELECTS = {path: ("sample_select" if "sample" in path else "diverse_select")
            for path in PATH_KERNELS if "sample" in path or "diverse" in path}
@@ -754,7 +774,11 @@ def log_kernel(row) -> None:
                                                "ties_graph_ms", "beam32_graph_ms",
                                                "beam32_ties_graph_ms", "large_graph_ms",
                                                "beam32_bound_ms", "sample_graph_ms",
-                                               "spec_graph_ms")
+                                               "spec_graph_ms", "counts_group_graph_ms",
+                                               "limit_graph_ms", "searcher_contains_shape",
+                                               "searcher_contains_graph_ms",
+                                               "searcher_advance_shape",
+                                               "searcher_advance_graph_ms")
                   if k in row))
 
 
@@ -3241,14 +3265,167 @@ def t5_phase(np, torch, zero_counts, read_counts):
                        search_qps=len(queries) / search_s, keys=n_keys)
 
 
-def sharded_kernel_phases(np, torch, si, hosts, V, B, K, count_filter=None):
+# kernel 1's shard modes' limit size: [B, K, M] (range, token) items of
+# membership and counts, [2B, K] selections of the step mode
+SHARD_LIMIT = (2048, 64, 129)
+
+
+def shard_search_rows(np, torch, k1, si, hosts, lo, hi, g, rng, V, B, K, searcher_calls=None):
+    """Kernel 1's shard modes against their plain versions at the sharded
+    path's shapes (ranges [S, B, K]; membership and counts of [B, K, 65]
+    candidates, half of them a corpus token), at the plan's width and each
+    forced, eagerly and replayed from a CUDA graph, and at a limit size
+    ([2048, 64, 129] items, 262,144 selections); timed, with the step
+    mode beside the composition it replaced (``range_size``, the gathers,
+    the backward step and the stop rule as separate launches).
+    ``searcher_calls``: (the sharded searcher's index, its most common
+    ``contains`` call's inputs, its most common step mode call's inputs),
+    timed on that index."""
+    from seal_tpu_torch.ops import _generic
+
+    S, R = si.n_shards, B * K
+    sms = torch.cuda.get_device_properties(si.device).multi_processor_count
+    dev = si.device
+    chain = 16 + 4 * si.search_iters  # a search: the directory row, a chain of psi reads
+    ext = torch.randint(-1, V + 2, (B, K), generator=g, device=dev, dtype=torch.int32)
+    cand = torch.randint(0, V, (B, K, 65), generator=g, device=dev, dtype=torch.int32)
+    cand[..., :32] = torch.as_tensor(rng.choice(hosts[0].text[:-1] - 1, size=(B, K, 1)),
+                                     device=dev).int()
+    cand[..., -1] = 2
+    sel_tok = ext.clone()
+    sel_tok[0, :2] = torch.tensor([2, 1], device=dev)
+    sel_par = torch.randint(0, K, (B, K), generator=g, device=dev, dtype=torch.int32)
+    fin = torch.rand(B, K, generator=g, device=dev) < 0.2
+    kw = dict(eos=2, pad=1)
+
+    def diff(got, want):
+        got, want = (got if isinstance(got, tuple) else (got,)), (
+            want if isinstance(want, tuple) else (want,))
+        return sum(int((a != b).sum()) for a, b in zip(got, want))
+
+    # every width, eagerly; the plan's, replayed from a graph
+    err = 0
+    want_c = {m: k1.fm_search_sharded_plain(si, m, cand, lo, hi) for m in ("contains", "validate")}
+    want_s = k1.fm_search_sharded_plain(si, "backward_step", ext, lo, hi)
+    steps = ((torch.zeros_like(sel_par), lo[..., :1].contiguous(), hi[..., :1].contiguous(),
+              None), (sel_par, lo, hi, fin))
+    want_a = [k1.advance_sharded_plain(si, sel_tok, p, a, b, f, **kw) for p, a, b, f in steps]
+    err += diff(k1.fm_search_sharded(si, "contains", cand, lo, hi, group=1), want_c["contains"])
+    for group in (None,) + k1.GROUPS:
+        for m, w in want_c.items():
+            err += diff(k1.fm_search_sharded(si, m, cand, lo, hi, group=group), w)
+        err += diff(k1.fm_search_sharded(si, "backward_step", ext, lo, hi, group=group), want_s)
+        for (p, a, b, f), w in zip(steps, want_a):
+            err += diff(k1.fm_advance_sharded(si, sel_tok, p, a, b, f, group=group, **kw), w)
+    for m, w in want_c.items():
+        err += diff(graph_result(torch, lambda m=m: k1.fm_search_sharded(si, m, cand, lo, hi)), w)
+    err += diff(graph_result(torch, lambda: k1.fm_search_sharded(si, "backward_step", ext, lo,
+                                                                  hi)), want_s)
+    for (p, a, b, f), w in zip(steps, want_a):
+        err += diff(graph_result(torch, lambda p=p, a=a, b=b, f=f: k1.fm_advance_sharded(
+            si, sel_tok, p, a, b, f, **kw)), w)
+    # the limit sizes: 16.9M (range, token) items, 262,144 selections
+    Bl, Kl, Ml = SHARD_LIMIT
+    rows = si.n_rows[:, None, None].long()
+    llo = (torch.rand((S, Bl, Kl), generator=g, device=dev) * rows).int()
+    lhi = torch.minimum(llo + torch.randint(0, 600, (S, Bl, Kl), generator=g, device=dev,
+                                            dtype=torch.int32), rows.int())
+    lcand = torch.randint(-1, V + 2, (Bl, Kl, Ml), generator=g, device=dev, dtype=torch.int32)
+    for m in ("contains", "validate"):
+        err += diff(k1.fm_search_sharded(si, m, lcand, llo, lhi),
+                    k1.fm_search_sharded_plain(si, m, lcand, llo, lhi))
+    llo2 = torch.zeros((S, 2 * Bl, Kl), dtype=torch.int32, device=dev)
+    lhi2 = si.n_rows[:, None, None].expand(S, 2 * Bl, Kl).contiguous()
+    ltok = torch.randint(-1, V + 2, (2 * Bl, Kl), generator=g, device=dev, dtype=torch.int32)
+    lpar = torch.randint(0, Kl, (2 * Bl, Kl), generator=g, device=dev, dtype=torch.int32)
+    lfin = torch.rand((2 * Bl, Kl), generator=g, device=dev) < 0.2
+    err += diff(k1.fm_advance_sharded(si, ltok, lpar, llo2, lhi2, lfin, **kw),
+                k1.advance_sharded_plain(si, ltok, lpar, llo2, lhi2, lfin, **kw))
+    extra = {}
+    if searcher_calls is not None:  # the sharded searcher's own calls, on its index
+        ssi, (scand, slo, shi), adv_args = searcher_calls
+        err += diff(k1.fm_search_sharded(ssi, "contains", scand, slo, shi),
+                    k1.fm_search_sharded_plain(ssi, "contains", scand, slo, shi))
+        err += diff(k1.fm_advance_sharded(ssi, *adv_args, **kw),
+                    k1.advance_sharded_plain(ssi, *adv_args, **kw))
+        extra = dict(
+            searcher_contains_shape=list(scand.shape),
+            searcher_contains_graph_ms=graph_ms(
+                lambda: k1.fm_search_sharded(ssi, "contains", scand, slo, shi)),
+            searcher_advance_shape=list(adv_args[0].shape),
+            searcher_advance_graph_ms=graph_ms(lambda: k1.fm_advance_sharded(ssi, *adv_args,
+                                                                             **kw)))
+    if err:
+        fail(f"kernel 1's shard modes differ from their plain versions ({err} elements)")
+    contains = lambda: k1.fm_search_sharded(si, "contains", cand, lo, hi)  # noqa: E731
+    validate = lambda: k1.fm_search_sharded(si, "validate", cand, lo, hi)  # noqa: E731
+    step = lambda: k1.fm_search_sharded(si, "backward_step", ext, lo, hi)  # noqa: E731
+    adv = lambda: k1.fm_advance_sharded(si, sel_tok, sel_par, lo, hi, fin, **kw)  # noqa: E731
+
+    def composed():  # the update as the sharded decode launched it before the step mode
+        return _generic.advance_ranges(
+            lambda t, a, b: k1.fm_search_sharded(si, "backward_step", t, a, b),
+            lambda a, b: (b - a).sum(0, dtype=torch.int32), sel_tok, sel_par, lo, hi, fin, **kw)
+
+    def widths(fn, groups=k1.GROUPS):
+        return {G: graph_ms(lambda G=G: fn(G)) for G in groups}
+
+    rows_ = [dict(
+        name="fm_search_sharded", max_abs_err=err, library_ms=None,
+        ms=time_ms(contains), graph_ms=graph_ms(contains),
+        plain_ms=time_ms(lambda: k1.fm_search_sharded_plain(si, "contains", cand, lo, hi)),
+        counts_ms=time_ms(validate), counts_graph_ms=graph_ms(validate),
+        group_graph_ms=widths(lambda G: k1.fm_search_sharded(si, "contains", cand, lo, hi,
+                                                             group=G), k1.CONTAINS_GROUPS),
+        counts_group_graph_ms=widths(lambda G: k1.fm_search_sharded(si, "validate", cand, lo,
+                                                                    hi, group=G)),
+        limit_graph_ms=graph_ms(lambda: k1.fm_search_sharded(si, "contains", lcand, llo, lhi)),
+        shape=f"contains [{B},{K},65] over {S} shards, (group, team) "
+              f"{k1.shard_plan(cand.numel(), sms, S, contains=True)}, counts "
+              f"{k1.shard_plan(cand.numel(), sms, S)} (counts_*: validate, the counts summed; "
+              f"group_graph_ms: each width forced; limit: {list(SHARD_LIMIT)})",
+        members=int(want_c["contains"].sum()),
+        # tokens and membership once; per shard the ranges and a search
+        bytes=cand.numel() * (4 + 1 + S * chain) + 8 * S * R, **extra,
+    ), dict(
+        name="fm_search_step_sharded", max_abs_err=err, library_ms=None,
+        ms=time_ms(step), graph_ms=graph_ms(step),
+        plain_ms=time_ms(lambda: k1.fm_search_sharded_plain(si, "backward_step", ext, lo, hi)),
+        group_graph_ms=widths(lambda G: k1.fm_search_sharded(si, "backward_step", ext, lo, hi,
+                                                             group=G)),
+        shape=f"backward_step [{S},{B},{K}], (group, team) {k1.shard_plan(R, sms, S)} (an "
+              "entry point: the decode's range update is the step mode)",
+        # tokens, ranges in and out, both bounds' searches a shard
+        bytes=4 * R + 16 * S * R + 2 * S * R * chain,
+    ), dict(
+        name="fm_search_advance_sharded", max_abs_err=err, library_ms=None,
+        ms=time_ms(adv), graph_ms=graph_ms(adv),
+        plain_ms=time_ms(lambda: k1.advance_sharded_plain(si, sel_tok, sel_par, lo, hi, fin,
+                                                          **kw)),
+        composed_ms=time_ms(composed), composed_graph_ms=graph_ms(composed),
+        group_graph_ms=widths(lambda G: k1.fm_advance_sharded(si, sel_tok, sel_par, lo, hi, fin,
+                                                              group=G, **kw)),
+        limit_graph_ms=graph_ms(lambda: k1.fm_advance_sharded(si, ltok, lpar, llo2, lhi2, lfin,
+                                                              **kw)),
+        shape=f"[{B},{K}] selections over [{S},{B},{K}] parents, (group, team) "
+              f"{k1.shard_plan(R, sms, S)} (composed_*: range_size, the gathers, the backward "
+              f"step and the stop rule as separate launches; limit: {2 * Bl * Kl} selections)",
+        # the selections and flags, the parents' ranges, the outputs, and
+        # both bounds' searches a shard
+        bytes=R * (8 + 1 + 4) + 16 * S * R + 2 * S * R * chain,
+    )]
+    return rows_
+
+
+def sharded_kernel_phases(np, torch, si, hosts, V, B, K, count_filter=None, searcher_calls=None):
     """Kernels 1, 2, 5, 6 and 15 (counts and mask) in their shard modes against their plain
     versions at the sharded generation path's shapes (S shards stacked on
     the card, ranges [S, B, K]), exactly: integer results and gathered
     floats.  Each bound counts every shard's inputs read once and the merged
     output written once.  ``count_filter``: (tokens, lengths, the searcher's
     monolithic Psi index) of the sharded searcher's most common kernel 5
-    call, timed beside the [4096, 16] shape."""
+    call, timed beside the [4096, 16] shape.  ``searcher_calls``: the
+    sharded searcher's kernel 1 calls (``shard_search_rows``)."""
     from seal_tpu_torch.kernels import bucket_counts as k6
     from seal_tpu_torch.kernels import count_mask
     from seal_tpu_torch.kernels import fm_search as k1
@@ -3280,33 +3457,8 @@ def sharded_kernel_phases(np, torch, si, hosts, V, B, K, count_filter=None):
     lo, hi = torch.stack(los), torch.stack(his)
     R = B * K
 
-    # kernel 1: per-shard backward steps [S, B, K]; membership [B, K, 65]
-    # ORed and counts summed over the shards
-    ext = torch.randint(-1, V + 2, (B, K), generator=g, device=dev, dtype=torch.int32)
-    err1 = sum(int((a != b).sum()) for a, b in zip(
-        k1.fm_search_sharded(si, "backward_step", ext, lo, hi),
-        k1.fm_search_sharded_plain(si, "backward_step", ext, lo, hi)))
-    cand = torch.randint(0, V, (B, K, 65), generator=g, device=dev, dtype=torch.int32)
-    cand[..., :32] = torch.as_tensor(rng.choice(hosts[0].text[:-1] - 1, size=(B, K, 1)),
-                                     device=dev).int()
-    cand[..., -1] = 2
-    want_c = k1.fm_search_sharded_plain(si, "contains", cand, lo, hi)
-    err1 += int((k1.fm_search_sharded(si, "contains", cand, lo, hi) != want_c).sum())
-    err1 += int((k1.fm_search_sharded(si, "validate", cand, lo, hi)
-                 != k1.fm_search_sharded_plain(si, "validate", cand, lo, hi)).sum())
-    if err1:
-        fail(f"fm_search_sharded differs from its plain version ({err1} elements)")
-    table.append(dict(
-        name="fm_search_sharded", max_abs_err=err1, library_ms=None,
-        ms=time_ms(lambda: k1.fm_search_sharded(si, "contains", cand, lo, hi)),
-        plain_ms=time_ms(lambda: k1.fm_search_sharded_plain(si, "contains", cand, lo, hi)),
-        extend_ms=time_ms(lambda: k1.fm_search_sharded(si, "backward_step", ext, lo, hi)),
-        shape=f"contains [{B},{K},65] over {S} shards; backward_step [{S},{B},{K}]",
-        members=int(want_c.sum()),
-        # tokens and membership once; per shard the ranges, the symbol's
-        # directory row and a chain of at most search_iters psi reads
-        bytes=cand.numel() * (4 + 1 + S * (16 + 4 * si.search_iters)) + 8 * S * R,
-    ))
+    table += shard_search_rows(np, torch, k1, si, hosts, lo, hi, g, rng, V, B, K,
+                               searcher_calls)
 
     # kernel 2: the union window [B*K rows, S*32 slots, fill pad] and a
     # slab (S*64, fill 0)
@@ -3925,7 +4077,9 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
     def once_per_call(path, counts):
         """Each shard mode launched once per op call of its run."""
         want = {"fm_search_sharded": op_calls["extend"] + op_calls["contains"]
-                + op_calls["validate"],
+                + op_calls["validate"] + op_calls["advance"],
+                "fm_search_step_sharded": op_calls["extend"],
+                "fm_search_advance_sharded": op_calls["advance"],
                 "window_gather_sharded": op_calls["window_gather"] + op_calls["window_slab"]
                 + op_calls["slab"],
                 "window_slab_sharded": op_calls["window_slab"],
@@ -3978,7 +4132,8 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
     one = run()
     one_counts = read_counts("generate_sharded_once")
     once_per_call("generate_sharded_once", one_counts)
-    pairs = {"fm_search": "fm_search_sharded", "window_gather": "window_gather_sharded",
+    pairs = {"fm_search": "fm_search_sharded", "fm_search_advance": "fm_search_advance_sharded",
+             "window_gather": "window_gather_sharded",
              "window_slab": "window_slab_sharded", "slab_gather": "slab_gather_sharded",
              "bucket_counts": "bucket_counts_sharded", "fm_dense_mask": "fm_dense_mask_sharded",
              "fm_sequences": "fm_sequences_sharded"}
@@ -4092,6 +4247,26 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
             return _fn(si_, tokens, lengths, count=count, **kw_)
 
         mod.fm_sequences_sharded = logged
+    # kernel 1's shard modes in the same run: (mode, shape) of each call,
+    # and the first inputs of each (the most common timed in the kernel
+    # phase, on the searcher's index)
+    k1_calls, k1_inputs = collections.Counter(), {}
+    k1_fns = {name: getattr(sd_mod, name) for name in ("fm_search_sharded", "fm_advance_sharded")}
+
+    def logged_search(si_, mode, tokens, lo, hi, **kw_):
+        key = (mode, *tuple(tokens.shape))
+        k1_calls[key] += 1
+        k1_inputs.setdefault(key, tuple(x.clone() for x in (tokens, lo, hi)))
+        return k1_fns["fm_search_sharded"](si_, mode, tokens, lo, hi, **kw_)
+
+    def logged_advance(si_, sel_tok, sel_par, lo, hi, finished=None, **kw_):
+        key = ("advance" if finished is not None else "advance step 0", *tuple(sel_tok.shape))
+        k1_calls[key] += 1
+        k1_inputs.setdefault(key, tuple(x.clone() if x is not None else None
+                                        for x in (sel_tok, sel_par, lo, hi, finished)))
+        return k1_fns["fm_advance_sharded"](si_, sel_tok, sel_par, lo, hi, finished, **kw_)
+
+    sd_mod.fm_search_sharded, sd_mod.fm_advance_sharded = logged_search, logged_advance
     zero_counts()
     t0 = time.perf_counter()
     try:
@@ -4100,12 +4275,23 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
     finally:
         for mod, fn in k5_fns.items():
             mod.fm_sequences_sharded = fn
+        for name, fn in k1_fns.items():
+            setattr(sd_mod, name, fn)
     s_search = time.perf_counter() - t0
     s_counts = read_counts("batch_search_sharded")
     shapes = collections.Counter(k5_calls)
     log(f"kernel 5 in the batch_search_sharded run: {len(k5_calls)} launches; (count mode, n, "
         "L): launches " + ", ".join(f"{k}: {v}" for k, v in shapes.most_common())
         + f"; {sum(k[1] for k in k5_calls)} sequences in all")
+    log(f"kernel 1's shard modes in the batch_search_sharded run: {sum(k1_calls.values())} "
+        "launches; (mode, shape): launches " + ", ".join(
+            f"{k}: {v}" for k, v in k1_calls.most_common()))
+    searcher_calls = None
+    k1_contains = [k for k, _ in k1_calls.most_common() if k[0] == "contains"]
+    k1_advance = [k for k, _ in k1_calls.most_common() if k[0] == "advance"]
+    if k1_contains and k1_advance:
+        searcher_calls = (sharded.sharded_index, k1_inputs[k1_contains[0]],
+                          k1_inputs[k1_advance[0]])
     count_filter = None
     if shapes:
         common = shapes.most_common(1)[0][0]
@@ -4148,7 +4334,7 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
     log(f"launches in the batch_search_sharded run: {s_counts}")
     del sharded
     table = sharded_kernel_phases(np, torch, si, hosts, bench_generate.VOCAB, B, K,
-                                  count_filter=count_filter)
+                                  count_filter=count_filter, searcher_calls=searcher_calls)
     table += large_select_phase(np, torch, cfg, bench_generate.VOCAB, B, K32, S)
     return table, dict(qps=B / per_batch, turns=qps, beam32_qps=B / b32_s,
                        bytes_per_token=si.memory_bytes() / n_tokens,
@@ -4265,6 +4451,8 @@ def main() -> int:
         # kernel 9 in f32 (T5 as the JAX searcher builds it): its ffma route
         "cross_attention_step_f32": decode_attention.ROUTES["ffma"],
         "fm_search_advance": fm_search.ADVANCE,
+        "fm_search_advance_sharded": fm_search.ADVANCE_SHARDED,
+        "fm_search_step_sharded": fm_search.STEP_SHARDED,
         "beam_select_warp": beam_select.ROUTES["warp"],
         "beam_select_table": beam_select.ROUTES["table"],
         "beam_merge_table": beam_select.MERGE_TABLE,
@@ -4360,7 +4548,9 @@ def main() -> int:
             want = {"cross_attention_step": layers * n, self_attn: layers * n, other: 0,
                     "reorder_cache": n - no_select, select: n - no_select,
                     "fm_search_advance": n - no_select if psi_constrained(path) else 0,
-                    "wt_search_advance": n - no_select if wavelet_constrained(path) else 0}
+                    "wt_search_advance": n - no_select if wavelet_constrained(path) else 0,
+                    "fm_search_advance_sharded": n - no_select if sharded_constrained(path)
+                    else 0, "fm_search_step_sharded": 0}
             for name in ("window_slab", "window_slab_sharded", "wt_window_slab"):
                 if not fused or name != fused[1]:
                     want[name] = 0
@@ -5247,7 +5437,10 @@ def main() -> int:
                                    "ranges_group_graph_ms", "row_topk_graph_ms",
                                    "large_k_graph_ms", "round_graph_ms", "ties_graph_ms",
                                    "beam32_graph_ms", "beam32_ties_graph_ms", "large_graph_ms",
-                                   "beam32_bound_ms", "sample_graph_ms", "spec_graph_ms")
+                                   "beam32_bound_ms", "sample_graph_ms", "spec_graph_ms",
+                                   "counts_group_graph_ms", "limit_graph_ms",
+                                   "searcher_contains_shape", "searcher_contains_graph_ms",
+                                   "searcher_advance_shape", "searcher_advance_graph_ms")
                if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}

@@ -44,7 +44,15 @@ bf16 over the 1.2M-token corpus, batch 32, beam 15):
    (``COUNT_FILTERS``, ``chip_smoke.py``'s kernel 5 log), monolithic on the
    Psi index and over the 4-shard index (``bench_generate.sharded_index``)
    in its count and ranges modes; in a checkout with kernel 5's groups,
-   each again at every group width forced.  Eager (20 calls back to back, the
+   each again at every group width forced.  Kernel 1's shard modes over
+   the same 4-shard index (``k1 sharded ...``: each shard's ranges of one-
+   and two-token corpus prefixes): ``contains`` and ``validate`` at [32,
+   15, 65], [32, 32, 129] (beam 32) and the sharded searcher's unit [16,
+   15, 65], the backward step, and the range update through
+   ``ShardedIndexOps.advance`` (the shard step mode where the checkout has
+   it, else the composition) beside the composition over the backward step
+   on both sides, at step 0 and later; in a checkout with the shard plan,
+   each width forced.  Eager (20 calls back to back, the
    host's cost included) and graph-replayed (20 calls in one CUDA graph,
    the device time), ms a call, with CUDA events; beside them the floor:
    one eager one-element ``zero_()`` and the same kernel graph-replayed.
@@ -75,7 +83,12 @@ bf16 over the 1.2M-token corpus, batch 32, beam 15):
    ``beam_candidates``), one batch's device ms and kernel 8's device ms by
    kernel (``k8_paths``) on the speculative batch over the three layouts,
    beam 15 and beam 32 over the 4-shard index, a sampled and a diverse
-   batch.
+   batch.  With no ``--only`` or with one that ``k1 sharded paths``
+   starts with: kernel 1's shard-mode launches (``fm_search_sharded`` and,
+   where the checkout has them, ``ADVANCE_SHARDED`` and ``STEP_SHARDED``),
+   one profiled batch's device ms and launches and kernel 1's shard
+   kernels' device ms (``k1_sharded_paths``) on beam 15 and beam 32 over
+   the 4-shard index.
    The Psi and the compact layout's batches at the generation point,
    taken before 1, ahead of any CUDA graph capture in the process, and
    again after 1's captures (``*_after_graphs``): five batches' wall ms
@@ -645,6 +658,72 @@ for label, (n5, L5) in (("[4096,16]", (4096, 16)),
                                                                       group=G))
         calls[f"k5 sharded ranges {label} x4 group {G}"] = (
             lambda seq5=seq5, len5=len5, G=G: k1.fm_sequences_sharded(si5, seq5, len5, group=G))
+# kernel 1's shard modes over the same 4-shard index: each shard's ranges of
+# one- and two-token corpus prefixes (its own rows), half of each row's
+# candidates the first token (the rest random ids); beam 15 [32, 15] with 65
+# candidates (round 0's 64 and EOS), beam 32 [32, 32] with 129, and the
+# sharded searcher's unit (16 queries, beam 15).  contains, validate (the
+# counts mode), backward_step, and the range update: the checkout's
+# ShardedIndexOps.advance (one launch of the shard step mode where the
+# checkout has it, else the composition) beside that composition over the
+# backward step on both sides, at step 0 (one parent a query) and later;
+# where the checkout has the shard plan, each group width forced
+from seal_tpu_torch.parallel import sharded_decode as tsd
+sops1 = tsd.ShardedIndexOps(si5)
+rng1 = np.random.default_rng(21)
+g1 = torch.Generator(device=dev).manual_seed(21)
+forced = getattr(k1, "GROUPS", ()) if hasattr(k1, "shard_plan") else ()
+for label, Bq, Kb, M in (("[32,15]", B, K, 65), ("[32,32]", B, 32, 129),
+                         ("searcher [16,15]", 16, K, 65)):
+    ctk = torch.as_tensor(rng1.choice(text5, size=(2, Bq, Kb)).astype(np.int32), device=dev)
+    los1, his1 = [], []
+    for s in range(si5.n_shards):
+        v = si5.block_view(s)
+        l1, h1 = k1.backward_step_plain(v, ctk[0], torch.zeros((Bq, Kb), dtype=i32, device=dev),
+                                        torch.full((Bq, Kb), int(si5.n_rows[s]), dtype=i32,
+                                                   device=dev))
+        l2, h2 = k1.backward_step_plain(v, ctk[1], l1, h1)
+        even = torch.arange(Kb, device=dev) % 2 == 0
+        los1.append(torch.where(even, l1, l2))
+        his1.append(torch.where(even, h1, h2))
+    slo, shi = torch.stack(los1).contiguous(), torch.stack(his1).contiguous()
+    scand = torch.randint(0, V, (Bq, Kb, M), generator=g1, device=dev, dtype=i32)
+    scand[..., : M // 2] = ctk[0, :, :, None]
+    sext = ctk[1].contiguous()
+    spar = torch.randint(0, Kb, (Bq, Kb), generator=g1, device=dev, dtype=i32)
+    sfin = torch.rand((Bq, Kb), generator=g1, device=dev) < 0.1
+    spar0 = torch.zeros_like(spar)
+    slo0, shi0 = slo[..., :1].contiguous(), shi[..., :1].contiguous()
+    shape = f"{label[:-1]},{M}] x4"
+    calls[f"k1 sharded contains {shape}"] = (
+        lambda c=scand, a=slo, b=shi: k1.fm_search_sharded(si5, "contains", c, a, b))
+    calls[f"k1 sharded validate {shape}"] = (
+        lambda c=scand, a=slo, b=shi: k1.fm_search_sharded(si5, "validate", c, a, b))
+    calls[f"k1 sharded backward_step {label} x4"] = (
+        lambda e=sext, a=slo, b=shi: k1.fm_search_sharded(si5, "backward_step", e, a, b))
+    calls[f"k1 sharded advance {label} x4"] = (
+        lambda e=sext, p=spar, a=slo, b=shi, f=sfin: sops1.advance(e, p, a, b, f, eos=eos,
+                                                                    pad=pad))
+    calls[f"k1 sharded advance composed {label} x4"] = (
+        lambda e=sext, p=spar, a=slo, b=shi, f=sfin: _generic.advance_ranges(
+            lambda t, x, y: k1.fm_search_sharded(si5, "backward_step", t, x, y),
+            lambda x, y: (y - x).sum(0, dtype=i32), e, p, a, b, f, eos=eos, pad=pad))
+    calls[f"k1 sharded advance step 0 {label} x4"] = (
+        lambda e=sext, p=spar0, a=slo0, b=shi0: sops1.advance(e, p, a, b, eos=eos, pad=pad))
+    for G in getattr(k1, "CONTAINS_GROUPS", forced) if forced else ():
+        calls[f"k1 sharded contains {shape} group {G}"] = (
+            lambda c=scand, a=slo, b=shi, G=G: k1.fm_search_sharded(si5, "contains", c, a, b,
+                                                                    group=G))
+    for G in forced:
+        calls[f"k1 sharded validate {shape} group {G}"] = (
+            lambda c=scand, a=slo, b=shi, G=G: k1.fm_search_sharded(si5, "validate", c, a, b,
+                                                                    group=G))
+        calls[f"k1 sharded backward_step {label} x4 group {G}"] = (
+            lambda e=sext, a=slo, b=shi, G=G: k1.fm_search_sharded(si5, "backward_step", e, a,
+                                                                   b, group=G))
+        calls[f"k1 sharded advance {label} x4 group {G}"] = (
+            lambda e=sext, p=spar, a=slo, b=shi, f=sfin, G=G: k1.fm_advance_sharded(
+                si5, e, p, a, b, f, eos=eos, pad=pad, group=G))
 # kernels 6 and 14 at the decode's [32, 15] ranges: the counts modes, and
 # the support bits where the checkout has them; kernel 18's gather of the
 # ranges' first 64 rows each; the straggler round at chunk_l 256 over
@@ -763,6 +842,47 @@ if not ONLY or any(p.startswith("k8 paths") for p in ONLY):
                           "k8_device_ms": sum(ms for ms, _ in k8ms.values()),
                           "k8_by_kernel": k8ms}
     batches["k8_paths"] = k8_paths
+# kernel 1's shard modes on the sharded paths: beam 15 and beam 32 over the
+# 4-shard index, after a warm-up batch: the launches of each shard-mode
+# wrapper and counter, one profiled batch's device ms and launches, and the
+# device ms and calls of kernel 1's shard kernels by name
+if not ONLY or any("k1 sharded paths".startswith(p) for p in ONLY):
+    from seal_tpu_torch.parallel.sharded_decode import sharded_fm_index_generate
+    SHARD1 = ("backward_step_sharded", "contains_sharded", "step_sharded", "advance_sharded")
+    counters1 = {"fm_search_sharded": k1.fm_search_sharded,
+                 **{n: getattr(k1, n) for n in ("ADVANCE_SHARDED", "STEP_SHARDED")
+                    if hasattr(k1, n)}}
+    k1_paths = {}
+    for name, extra in (("sharded beam 15", {}),
+                        ("sharded beam 32", {"num_beams": 32, "window": 0})):
+        def fn(extra=extra):
+            sharded_fm_index_generate(cfg, params, si5, None, ids, mask, **{**kw, **extra})
+            torch.cuda.synchronize()
+        fn()  # warm-up
+        for c in counters1.values():
+            c.launches = 0
+        fn()
+        got = {k: c.launches for k, c in counters1.items()}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            fn()
+        spans, k1ms = [], {}
+        for e in p.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            spans.append((e.time_range.start, e.time_range.end))
+            key = e.name.replace("(anonymous namespace)::", "").split("(")[0][:60]
+            if any(x in key for x in SHARD1):
+                ms, n = k1ms.get(key, (0.0, 0))
+                k1ms[key] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        busy, last = 0.0, float("-inf")
+        for a, b in sorted(spans):
+            busy += max(0.0, b - max(a, last))
+            last = max(last, b)
+        k1_paths[name] = {"launches": got, "batch_device_ms": busy / 1e3,
+                          "batch_launches": len(spans),
+                          "k1_device_ms": sum(ms for ms, _ in k1ms.values()),
+                          "k1_by_kernel": k1ms}
+    batches["k1_sharded_paths"] = k1_paths
 one = torch.empty(1, device=dev)
 calls["floor: one-element zero_()"] = lambda: one.zero_()
 if ONLY:

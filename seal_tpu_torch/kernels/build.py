@@ -80,10 +80,17 @@ SIGNATURES = {
     # the shard modes take a sharded index as psi, sym_dir, n_max (row
     # stride), sigma (sym_dir rows a shard), n_shards
     # (kernels/fm_search.py:_shard_args), then
-    # token, lo, hi, out_lo, out_hi, n (ranges a shard), stream
-    "seal_fm_backward_step_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _L, _P],
-    # tokens, lo, hi, out, n_ranges, m, count (0 membership, 1 counts), stream
-    "seal_fm_contains_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
+    # token, lo, hi, out_lo, out_hi, n (ranges a shard), group (lanes a
+    # (shard, range)), team (groups a range), stream
+    "seal_fm_backward_step_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _L, _I, _I, _P],
+    # tokens, lo, hi, out, n_ranges, m, count (0 membership, 1 counts),
+    # group, team, stream
+    "seal_fm_contains_sharded": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # the step mode: lo, hi, P (parents a query), sel_par, sel_tok, finished
+    # (None: step 0), eos, pad, out_lo, out_hi, out_count, n (selections),
+    # n_sel (a query's), group, team, stream
+    "seal_fm_advance_sharded": [_P, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P,
+                                _L, _I, _I, _I, _P],
     # n_rows, tokens, lengths, out_lo, out_hi, out_count (None: ranges), n,
     # L, group (lanes a (shard, sequence)), team (groups a sequence in the
     # count mode), stream

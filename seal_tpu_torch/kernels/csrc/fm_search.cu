@@ -23,10 +23,12 @@
 // contiguous load, so the chain is ~log_{H+1}(n) loads instead of log2(n).
 // A (range, token) of "contains" takes a group of G = 2, 4, 8, 16 or 32
 // lanes; a backward step or an advance takes G lanes, half for each bound,
-// which meet with one shuffle (G = 2: one lane a bound, a binary search).  The group reads the symbol's directory row once
-// (one broadcast load).  Kernel 5 chains that step over a sequence, a group
-// a sequence (a (shard, sequence) in its shard mode); kernel 1's shard modes
-// keep one thread per (query, bound) and the binary search (search below).
+// which meet with one shuffle (G = 2: one lane a bound, a binary search).
+// The group reads the symbol's directory row once (one broadcast load).
+// Kernel 5 chains that step over a sequence, a group a sequence (a (shard,
+// sequence) in its shard mode); kernel 1's shard modes (contains, counts,
+// the backward step and the step mode over the shards) take a team of
+// groups an item, a group a shard, the shards side by side.
 // The TPU's 128-row vector finish (psi_blk) is not carried over: a GPU lane
 // reads psi directly.
 
@@ -370,60 +372,170 @@ struct Shards {
   }
 };
 
-// Kernel 1, backward step: one thread per (shard, range, bound); shard s's
-// range q reads the token of range q (the same for every shard).
-__global__ void __launch_bounds__(THREADS)
-backward_step_sharded_kernel(Shards sh, const int* __restrict__ token,
-                             const int* __restrict__ lo, const int* __restrict__ hi,
-                             int* __restrict__ out_lo, int* __restrict__ out_hi, long long n) {
-  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long q = t >> 1;  // shard-major: q = s * n + i
-  const int bound = (int)(t & 1);
-  const bool active = q < n * sh.n_shards;
-  int row = 0;
-  if (active) {
-    const int s = (int)(q / n);
-    const int c = token[q - s * n] + SHIFT;
-    if (c >= 1 && c < sh.sigma) row = sh.rank(s, c, bound ? hi[q] : lo[q]);
+// Kernel 1's shard modes: a team of P groups of G lanes an item (P a power
+// of two, P * G <= 32: one warp or an aligned part of one), member p
+// searching shards p, p + P, ... (a loop only past the P shards a team
+// holds), each group by kernel 1's cooperative search with the warp's
+// groups in step (warp_group_search: a shard's symbol block is its whole psi
+// block, no head directory narrows it, so the search is long and the
+// levels of the warp's groups differ little), or, at one lane a search (G
+// = 1 for membership, G = 2 for a step's two bounds), a plain binary
+// search: where the grid binds the loads, the levels' ballots only cost
+// (bench_select's forced widths on an H100).  The team merges with one
+// ballot (membership ORed) or a shuffle butterfly (counts, range sizes
+// summed), so an item's chain is one shard's search, not S of them.  Every
+// lane of a warp reaches every *_sync: a whole warp past the last team
+// returns, a group past it (or of a shard past S) idles along.  G and P come
+// from the host (kernels/fm_search.py:shard_plan).
+
+// This lane's team: the item it serves, its member index, and whether the
+// item exists
+template <int G>
+struct Team {
+  long long item;
+  int p;
+  bool in;
+  __device__ Team(long long items, int P) {
+    const long long grp = ((long long)blockIdx.x * THREADS + threadIdx.x) / G;
+    in = grp < items * P;
+    item = in ? grp / P : 0;
+    p = in ? (int)(grp - item * P) : 0;
   }
-  const int other = __shfl_xor_sync(0xffffffffu, row, 1);
-  if (active) {
-    if (bound == 0) {
-      out_lo[q] = row;
-    } else {
-      out_hi[q] = max(other, row);
+};
+
+// a whole warp past the last team (uniform over the warp)
+template <int G>
+__device__ __forceinline__ bool warp_idle(long long items, int P) {
+  return (((long long)blockIdx.x * THREADS + threadIdx.x) & ~31LL) / G >= items * P;
+}
+
+// A shard's backward step for the shard modes: warp_step, but at G = 2
+// one lane a bound runs a plain binary search (no ballot a level) and the
+// pair's rows meet by one shuffle, which every lane of the warp reaches.
+template <int G>
+__device__ __forceinline__ int2 shard_step(const Shards& sh, int s, int c, int lo, int hi,
+                                           bool on, const Group<G>& gr) {
+  if constexpr (G == 2) {
+    const bool valid = on && c >= 1 && c < sh.sigma;
+    const int pos = gr.g ? hi : lo;
+    int row = 0;
+    if (valid) {
+      const Bounds b = symbol_bounds(sh.dir_of(s), nullptr, 0, 0, c, pos);
+      row = search(sh.psi_of(s), b.dlo, b.dhi, pos);
     }
+    const int other = __shfl_xor_sync(0xffffffffu, row, 1);
+    const int new_lo = gr.g ? other : row, new_hi = gr.g ? row : other;
+    return valid ? make_int2(new_lo, max(new_lo, new_hi)) : make_int2(0, 0);
+  } else {
+    return warp_step<G>(sh.psi_of(s), sh.dir_of(s), nullptr, 0, sh.sigma, 0, c, lo, hi, on, gr);
   }
 }
 
-// Kernel 1, membership (ORed over the shards) or counts (summed): one
-// thread per (range, token) walks the shards; their chains are independent.
+// Membership (ORed over the shards) or counts (summed): a team a (range,
+// token).  Membership: the group's G lanes search the symbol's block at lo
+// (the first row at or after lo is the token's first occurrence in the
+// range when its psi is below hi; G = 1, a lane's binary search, where the
+// grid is large enough to bind the loads, not their chain); counts: G / 2
+// lanes a bound, as the backward step (shard_step).
+template <int G, bool COUNT>
 __global__ void __launch_bounds__(THREADS)
 contains_sharded_kernel(Shards sh, const int* __restrict__ tokens, const int* __restrict__ lo,
                         const int* __restrict__ hi, void* __restrict__ out, long long n, int m,
-                        int count) {
-  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (t >= n * m) return;
-  const long long r = t / m;
-  const int c = tokens[t] + SHIFT;
+                        int P) {
+  const long long items = n * m;
+  if (warp_idle<G>(items, P)) return;
+  const Team<G> tm(items, P);
+  const Group<G> gr;
+  const long long r = tm.item / m;
+  const int c = tm.in ? tokens[tm.item] + SHIFT : 0;  // one address a team
+  const bool valid = tm.in && c >= 1 && c < sh.sigma;
   int acc = 0;
-  if (c >= 1 && c < sh.sigma) {
-    for (int s = 0; s < sh.n_shards; ++s) {
-      const int l = lo[s * n + r], h = hi[s * n + r];
-      if (count) {
-        acc += max(sh.rank(s, c, h) - sh.rank(s, c, l), 0);
-      } else {
-        const Bounds b = symbol_bounds(sh.dir_of(s), nullptr, 0, 0, c, l);
-        const int row = search(sh.psi_of(s), b.dlo, b.dhi, l);
-        acc |= row < b.bhi && __ldg(sh.psi_of(s) + row) < h;
+  for (int base = 0; base < sh.n_shards; base += P) {  // the same trips for the warp
+    const int s = base + tm.p;
+    const bool on = valid && s < sh.n_shards;
+    const int sv = on ? s : 0;
+    const long long q = (long long)sv * n + r;
+    if constexpr (COUNT) {
+      const int2 rr = shard_step<G>(sh, sv, c, on ? lo[q] : 0, on ? hi[q] : 0, on, gr);
+      acc += rr.y - rr.x;  // (0, 0) where off; rr.y >= rr.x
+    } else {
+      const int pos = on ? lo[q] : 0;
+      int dlo = 0, dhi = 0, bhi = 0;
+      if (on) {
+        const Bounds b = symbol_bounds(sh.dir_of(sv), nullptr, 0, 0, c, pos);
+        dlo = b.dlo;
+        dhi = b.dhi;
+        bhi = b.bhi;
       }
+      // one lane a shard (G = 1): a binary search, no lane waits on another
+      int row;
+      if constexpr (G == 1) {
+        row = search(sh.psi_of(sv), dlo, dhi, pos);
+      } else {
+        row = warp_group_search<G>(sh.psi_of(sv), dlo, dhi, pos, gr.g, gr.base);
+      }
+      // row < bhi: psi[row] is the symbol's first occurrence at or after lo
+      acc |= on && row < bhi && __ldg(sh.psi_of(sv) + row) < hi[q];
     }
   }
-  if (count) {
-    static_cast<int*>(out)[t] = acc;
+  const int T = G * P, lane = threadIdx.x & 31;  // the team's lanes, aligned in the warp
+  if constexpr (COUNT) {
+    for (int off = G; off < T; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   } else {
-    static_cast<unsigned char*>(out)[t] = acc ? 1 : 0;
+    const unsigned team = T == 32 ? 0xffffffffu : ((1u << T) - 1u) << (lane - lane % T);
+    acc = (__ballot_sync(0xffffffffu, acc != 0) & team) != 0u;
   }
+  if (!tm.in || lane % T != 0) return;
+  if constexpr (COUNT) {
+    static_cast<int*>(out)[tm.item] = acc;
+  } else {
+    static_cast<unsigned char*>(out)[tm.item] = acc ? 1 : 0;
+  }
+}
+
+// The backward step and the step mode over the shards: a team a range q of
+// [n / n_sel, n_sel]; G / 2 lanes a bound, which meet by a shuffle
+// (warp_step).  Backward step (sel_par null): shard s's range q, extended by
+// token[q] (the same for every shard).  Step mode: the parent p = sel_par[q]
+// of q's query among its P_par parents, shard s's parent range extended by
+// sel_tok[q]; with `finished` (steps >= 1), (0, 0) where the token is EOS or
+// PAD or the parent had finished; out_count[q] the parent's range size
+// summed over the shards (the team's butterfly).
+template <int G>
+__global__ void __launch_bounds__(THREADS)
+step_sharded_kernel(Shards sh, const int* __restrict__ token, const int* __restrict__ lo,
+                    const int* __restrict__ hi, int P_par, const int* __restrict__ sel_par,
+                    const unsigned char* __restrict__ finished, int eos, int pad,
+                    int* __restrict__ out_lo, int* __restrict__ out_hi,
+                    int* __restrict__ out_count, long long n, int n_sel, int P) {
+  if (warp_idle<G>(n, P)) return;
+  const Team<G> tm(n, P);
+  const Group<G> gr;
+  const long long q = tm.item;
+  // the range each shard's step reads: its parent's in the step mode
+  const long long parent = !tm.in ? 0 : sel_par == nullptr ? q : q / n_sel * P_par + sel_par[q];
+  const long long n_par = sel_par == nullptr ? n : n / n_sel * P_par;  // ranges a shard
+  const int tok = tm.in ? token[q] : 0;
+  const bool stop =
+      finished != nullptr && tm.in && (tok == eos || tok == pad || finished[parent] != 0);
+  int total = 0;
+  for (int base = 0; base < sh.n_shards; base += P) {  // the same trips for the warp
+    const int s = base + tm.p;
+    const bool on = tm.in && s < sh.n_shards;
+    const int sv = on ? s : 0;
+    const long long src = (long long)sv * n_par + parent;
+    const int plo = on ? lo[src] : 0, phi = on ? hi[src] : 0;
+    const int2 r = shard_step<G>(sh, sv, tok + SHIFT, plo, phi, on && !stop, gr);
+    if (on && gr.g == 0) {
+      out_lo[(long long)s * n + q] = r.x;
+      out_hi[(long long)s * n + q] = r.y;
+    }
+    total += phi - plo;  // 0 where off
+  }
+  if (out_count == nullptr) return;  // uniform over the launch
+  const int T = G * P, lane = threadIdx.x & 31;
+  for (int off = G; off < T; off <<= 1) total += __shfl_xor_sync(0xffffffffu, total, off);
+  if (tm.in && lane % T == 0) out_count[q] = total;
 }
 
 // Kernel 5's shard mode: sequences_kernel's group of G lanes a (shard,
@@ -786,35 +898,6 @@ extern "C" int seal_fm_dense_mask_sharded(const int* psi, const int* sym_dir, lo
   return launch_dense_mask(ix, lo, hi, out, n, vocab, hist_max, (cudaStream_t)stream);
 }
 
-extern "C" int seal_fm_backward_step_sharded(const int* psi, const int* sym_dir, long long n_max,
-                                             int sigma, int n_shards, const int* token,
-                                             const int* lo, const int* hi, int* out_lo,
-                                             int* out_hi, long long n, void* stream) {
-  if (n > 0 && n_shards > 0) {
-    const Shards sh{psi, sym_dir, n_max, sigma, n_shards};
-    const long long threads = 2 * n * n_shards;
-    const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-    backward_step_sharded_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        sh, token, lo, hi, out_lo, out_hi, n);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int seal_fm_contains_sharded(const int* psi, const int* sym_dir, long long n_max,
-                                        int sigma, int n_shards, const int* tokens, const int* lo,
-                                        const int* hi, void* out, long long n, int m, int count,
-                                        void* stream) {
-  if (n > 0 && m > 0) {
-    const Shards sh{psi, sym_dir, n_max, sigma, n_shards};
-    const long long threads = n * m;
-    const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-    contains_sharded_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(sh, tokens, lo, hi, out,
-                                                                          n, m, count);
-  }
-  return (int)cudaGetLastError();
-}
-
-
 extern "C" int seal_fm_dense_counts_sharded(const int* psi, const int* sym_dir, long long n_max,
                                             int sigma, int n_shards, const int* bwt,
                                             const int* lo, const int* hi, int* out, long long n,
@@ -888,6 +971,33 @@ struct SequencesShardedLaunch {
     sequences_sharded_kernel<G><<<blocks, THREADS, 0, stream>>>(args...);
   }
 };
+template <int G>
+struct ContainsShardedLaunch {
+  template <typename... Args>
+  static void run(unsigned blocks, cudaStream_t stream, Args... args) {
+    contains_sharded_kernel<G, false><<<blocks, THREADS, 0, stream>>>(args...);
+  }
+};
+template <int G>
+struct ValidateShardedLaunch {
+  template <typename... Args>
+  static void run(unsigned blocks, cudaStream_t stream, Args... args) {
+    contains_sharded_kernel<G, true><<<blocks, THREADS, 0, stream>>>(args...);
+  }
+};
+template <int G>
+struct StepShardedLaunch {
+  template <typename... Args>
+  static void run(unsigned blocks, cudaStream_t stream, Args... args) {
+    step_sharded_kernel<G><<<blocks, THREADS, 0, stream>>>(args...);
+  }
+};
+
+// a team of `team` groups of `group` lanes an item: a power of two, team *
+// group <= 32 (the team's lanes aligned in one warp)
+static bool bad_team(int n_shards, int group, int team) {
+  return n_shards <= 0 || team <= 0 || (team & (team - 1)) != 0 || team * group > 32;
+}
 
 extern "C" int seal_fm_backward_step(const int* psi, const int* sym_dir, const int* head_pair,
                                      int n_rows, int sigma, int dir_shift, const int* token,
@@ -937,10 +1047,63 @@ extern "C" int seal_fm_sequences_sharded(const int* psi, const int* sym_dir, lon
                                          const int* tokens, const int* lengths, int* out_lo,
                                          int* out_hi, int* out_count, long long n, int L,
                                          int group, int team, void* stream) {
-  if (n_shards <= 0 || team <= 0 || (team & (team - 1)) != 0 || team * group > 32)
-    return (int)cudaErrorInvalidValue;
+  if (bad_team(n_shards, group, team)) return (int)cudaErrorInvalidValue;
   const Shards sh{psi, sym_dir, n_max, sigma, n_shards};
   return launch_group<SequencesShardedLaunch>(group, n * team, (cudaStream_t)stream, sh, n_rows,
                                               tokens, lengths, out_lo, out_hi, out_count, n, L,
                                               team);
+}
+
+// kernel 1's shard modes: `group` lanes a (shard, item), a team of `team`
+// groups an item.  lo, hi [n_shards, n]; tokens [n, m]; out [n, m]: int32
+// counts summed (count 1) or membership bytes ORed (count 0)
+extern "C" int seal_fm_contains_sharded(const int* psi, const int* sym_dir, long long n_max,
+                                        int sigma, int n_shards, const int* tokens, const int* lo,
+                                        const int* hi, void* out, long long n, int m, int count,
+                                        int group, int team, void* stream) {
+  if (bad_team(n_shards, group, team)) return (int)cudaErrorInvalidValue;
+  if (m <= 0) return (int)cudaGetLastError();
+  const Shards sh{psi, sym_dir, n_max, sigma, n_shards};
+  if (count)
+    return launch_group<ValidateShardedLaunch>(group, n * m * team, (cudaStream_t)stream, sh,
+                                               tokens, lo, hi, out, n, m, team);
+  if (group == 1) {  // membership only: a lane a (shard, item)
+    const long long lanes = n * m * team;
+    if (lanes > 0)
+      contains_sharded_kernel<1, false>
+          <<<(unsigned)((lanes + THREADS - 1) / THREADS), THREADS, 0, (cudaStream_t)stream>>>(
+              sh, tokens, lo, hi, out, n, m, team);
+    return (int)cudaGetLastError();
+  }
+  return launch_group<ContainsShardedLaunch>(group, n * m * team, (cudaStream_t)stream, sh, tokens,
+                                             lo, hi, out, n, m, team);
+}
+
+// token [n]; lo, hi, out_lo, out_hi [n_shards, n]
+extern "C" int seal_fm_backward_step_sharded(const int* psi, const int* sym_dir, long long n_max,
+                                             int sigma, int n_shards, const int* token,
+                                             const int* lo, const int* hi, int* out_lo,
+                                             int* out_hi, long long n, int group, int team,
+                                             void* stream) {
+  if (bad_team(n_shards, group, team)) return (int)cudaErrorInvalidValue;
+  const Shards sh{psi, sym_dir, n_max, sigma, n_shards};
+  return launch_group<StepShardedLaunch>(
+      group, n * team, (cudaStream_t)stream, sh, token, lo, hi, 0, (const int*)nullptr,
+      (const unsigned char*)nullptr, 0, 0, out_lo, out_hi, (int*)nullptr, n, 1, team);
+}
+
+// the step mode over the shards: lo, hi [n_shards, n / n_sel, P]; sel_par,
+// sel_tok, out_count [n / n_sel, n_sel]; out_lo, out_hi [n_shards, n / n_sel,
+// n_sel]; finished [n / n_sel, P] or null (step 0: no stop rule)
+extern "C" int seal_fm_advance_sharded(const int* psi, const int* sym_dir, long long n_max,
+                                       int sigma, int n_shards, const int* lo, const int* hi,
+                                       int P, const int* sel_par, const int* sel_tok,
+                                       const unsigned char* finished, int eos, int pad,
+                                       int* out_lo, int* out_hi, int* out_count, long long n,
+                                       int n_sel, int group, int team, void* stream) {
+  if (bad_team(n_shards, group, team) || n_sel <= 0) return (int)cudaErrorInvalidValue;
+  const Shards sh{psi, sym_dir, n_max, sigma, n_shards};
+  return launch_group<StepShardedLaunch>(group, n * team, (cudaStream_t)stream, sh, sel_tok, lo,
+                                         hi, P, sel_par, finished, eos, pad, out_lo, out_hi,
+                                         out_count, n, n_sel, team);
 }

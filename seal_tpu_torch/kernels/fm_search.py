@@ -19,8 +19,9 @@ pivots a level (see the source); kernel 5 runs the same search a position
 at a time, a group a sequence (a (shard, sequence) in its shard mode, a
 sequence's shards side by side), every group of a warp in step (no split
 warp), the group's width chosen by :func:`sequences_plan` from the grid
-against the card's SMs; kernel 1's shard modes run one thread per (query,
-bound).
+against the card's SMs; kernel 1's shard modes take a team of groups an
+item, a group a shard (:func:`shard_plan`; membership may take one lane a
+shard).
 Kernel 1's step mode, :func:`fm_advance`,
 is the decode step's range update after a selection in one launch
 (``seal_tpu/decoding/constrained.py:1416-1430``, step 0 :1344-1349); its
@@ -36,6 +37,10 @@ ranges [S, ...]) for ``seal_tpu/parallel/sharded_decode.py:
 ShardedIndexOps`` (:48-148) and ``sharded_index.py`` (:401-483):
 ``fm_search_sharded`` (kernel 1: per-shard backward steps; membership ORed
 or counts summed over the shards, ``contains`` :95 / ``validate`` :91),
+``fm_advance_sharded`` (kernel 1's step mode over the shards: the range
+update, ``constrained.py:1416-1430`` over ``extend`` :120 and the summed
+``range_size`` :123, counted on ``ADVANCE_SHARDED``; the backward step on
+``STEP_SHARDED``),
 ``fm_sequences_sharded`` (kernel 5: per-shard sequence ranges, or their
 summed counts, ``_range_scan`` :401 / ``sharded_count_sequences`` :455;
 the shards side by side, a sequence's shards in one warp) and
@@ -91,6 +96,21 @@ MASK_HIST_MAX_ROWS = 1 << 20
 # count filters ([60, 3], [184, 9]), monolithic and over 4 shards
 # (bench_select's forced widths on an H100)
 SEQ_LANES_PER_SM = 1024
+# kernel 1's shard modes: a team of P groups of G lanes an item, member p
+# searching shards p, p + P, ... with the cooperative search (the warp's
+# groups in step), G the widest of GROUPS whose grid keeps within
+# SHARD_LANES_PER_SM lanes an SM (:func:`shard_plan`)
+SHARD_LANES_PER_SM = 1024
+# the membership mode's widths: one lane a (shard, item) too, a binary search
+# with no ballot, and its budget of CONTAINS_LANES_PER_SM lanes an SM: one
+# lane a shard was the fastest width at [16, 15, 65], [32, 15, 65] and [32,
+# 32, 129] over 4 shards (2,000-16,770 searches an SM: the loads bind, not
+# their chain), the counts mode's two lanes at each (bench_select's forced
+# widths on an H100)
+CONTAINS_GROUPS = (1,) + GROUPS
+CONTAINS_LANES_PER_SM = 512
+ADVANCE_SHARDED = Launches()  # fm_search_sharded launches in the step mode
+STEP_SHARDED = Launches()  # fm_search_sharded launches in the backward step
 _SMS = {}  # the SM count of each card, read once
 
 
@@ -171,27 +191,45 @@ def sequences_plain(index, tokens, lengths):
     return lo, hi
 
 
-def sequences_plan(n: int, sms: int, shards: int = 1, group: int | None = None):
-    """Kernel 5's launch: (G, P), G lanes a (shard, sequence) and a team
-    of P groups a sequence (P = 1 on one index).
-
-    A sequence's shards go side by side first: P the smallest power of two
-    holding them, at most 16 (2-lane groups fill a warp; past that each
-    member loops over its shards).  G is then the widest of ``GROUPS``
-    (``group`` if given, P cut to 32 // G) with P * G <= 32 whose grid, n x
-    P groups, keeps within ``SEQ_LANES_PER_SM`` lanes for each of the
-    card's ``sms`` SMs; never below 2.
-    """
-    if group is not None and group not in GROUPS:
-        raise ValueError(f"kernel 5: a group of {group} lanes (take one of {GROUPS})")
-    P = min(1 << max(shards - 1, 0).bit_length(), 32 // (group or GROUPS[0]))
+def _team_plan(n: int, sms: int, shards: int, group, lanes: int, name: str,
+               widths=GROUPS):
+    """(G, P): a team of P groups of G lanes an item, P the smallest power
+    of two holding the shards, at most 32 // ``widths[0]`` (16 at 2-lane
+    groups: they fill a warp; past that each member loops over its shards);
+    G the widest of ``widths`` (``group`` if given, P cut to 32 // G) with
+    P * G <= 32 whose grid, n x P groups, keeps within ``lanes`` lanes for
+    each of the card's ``sms`` SMs; never below ``widths[0]``."""
+    if group is not None and group not in widths:
+        raise ValueError(f"{name}: a group of {group} lanes (take one of {widths})")
+    P = min(1 << max(shards - 1, 0).bit_length(), 32 // (group or widths[0]))
     if group is not None:
         return group, P
-    G = GROUPS[0]
-    for g in GROUPS[1:]:
-        if P * g <= 32 and n * P * g <= sms * SEQ_LANES_PER_SM:
+    G = widths[0]
+    for g in widths[1:]:
+        if P * g <= 32 and n * P * g <= sms * lanes:
             G = g
     return G, P
+
+
+def sequences_plan(n: int, sms: int, shards: int = 1, group: int | None = None):
+    """Kernel 5's launch: (G, P), G lanes a (shard, sequence) and a team
+    of P groups a sequence (P = 1 on one index), by :func:`_team_plan`'s
+    rule over ``SEQ_LANES_PER_SM``."""
+    return _team_plan(n, sms, shards, group, SEQ_LANES_PER_SM, "kernel 5")
+
+
+def shard_plan(n: int, sms: int, shards: int, group: int | None = None,
+               contains: bool = False):
+    """Kernel 1's shard modes' launch: (G, P), G lanes a (shard, item) and a
+    team of P groups an item (a (range, token) of ``contains`` and
+    ``validate``, a range of the backward step, a selection of the step
+    mode), by :func:`_team_plan`'s rule over ``SHARD_LANES_PER_SM``; the
+    membership mode (``contains``) over ``CONTAINS_LANES_PER_SM``, and it
+    may take one lane a shard (``CONTAINS_GROUPS``)."""
+    if contains:
+        return _team_plan(n, sms, shards, group, CONTAINS_LANES_PER_SM,
+                          "kernel 1's shard modes", CONTAINS_GROUPS)
+    return _team_plan(n, sms, shards, group, SHARD_LANES_PER_SM, "kernel 1's shard modes")
 
 
 def _sms(device) -> int:
@@ -493,7 +531,7 @@ def fm_search_sharded_plain(si, mode: str, tokens, lo, hi):
                for s, v in enumerate(views))
 
 
-def fm_search_sharded(si, mode: str, tokens, lo, hi):
+def fm_search_sharded(si, mode: str, tokens, lo, hi, group: int | None = None):
     """Kernel 1's shard mode: the rank search of every shard, in one launch.
 
     lo/hi: int32 [S, ...], each shard's own ranges.
@@ -505,7 +543,12 @@ def fm_search_sharded(si, mode: str, tokens, lo, hi):
     * ``"validate"``: tokens [..., M]; returns int32 [..., M], each token's
       continuation count summed over the shards.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel, a
+    team of groups an item, its shards side by side (:func:`shard_plan`;
+    ``group`` forces the group's width).  Limits: any shard count, tokens
+    and ranges (out-of-range tokens give (0, 0) and no membership), and as
+    many items as the grid's 2^31 - 1 blocks of 256 lanes hold (64-bit
+    offsets).
     """
     if mode not in SHARD_MODES:
         raise ValueError(f"unknown fm_search_sharded mode {mode!r}")
@@ -525,20 +568,23 @@ def fm_search_sharded(si, mode: str, tokens, lo, hi):
     n = lo[0].numel()
     stream = build.stream_ptr(tokens)
     if mode == "backward_step":
+        G, P = shard_plan(n, _sms(tokens.device), si.n_shards, group)
         out_lo, out_hi = torch.empty_like(lo), torch.empty_like(hi)
         rc = so.seal_fm_backward_step_sharded(
             *_shard_args(si), tokens.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            out_lo.data_ptr(), out_hi.data_ptr(), n, stream,
+            out_lo.data_ptr(), out_hi.data_ptr(), n, G, P, stream,
         )
         build.check(rc, "fm_search_sharded(backward_step)")
         fm_search_sharded.launches += 1
+        STEP_SHARDED.launches += 1
         return out_lo, out_hi
     count = mode == "validate"
+    G, P = shard_plan(tokens.numel(), _sms(tokens.device), si.n_shards, group, not count)
     out = torch.empty(tokens.shape, dtype=torch.int32 if count else torch.bool,
                       device=tokens.device)
     rc = so.seal_fm_contains_sharded(
         *_shard_args(si), tokens.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), n,
-        tokens.shape[-1], int(count), stream,
+        tokens.shape[-1], int(count), G, P, stream,
     )
     build.check(rc, f"fm_search_sharded({mode})")
     fm_search_sharded.launches += 1
@@ -546,6 +592,64 @@ def fm_search_sharded(si, mode: str, tokens, lo, hi):
 
 
 fm_search_sharded.launches = 0
+
+
+def advance_sharded_plain(si, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int):
+    """The shard step mode's plain version: ``ops/_generic.py:
+    advance_ranges`` over the plain shard backward step, the range size
+    summed over the shards."""
+    return _generic.advance_ranges(
+        lambda t, a, b: fm_search_sharded_plain(si, "backward_step", t, a, b),
+        lambda a, b: (b - a).sum(0, dtype=torch.int32), sel_tok, sel_par, lo, hi, finished,
+        eos=eos, pad=pad)
+
+
+def fm_advance_sharded(si, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int,
+                       group: int | None = None):
+    """Kernel 1's shard step mode: the range update after a selection over
+    every shard, in one launch.
+
+    ``sel_tok``, ``sel_par`` [B, K]: each selection's token and parent
+    beam; ``lo``, ``hi`` [S, B, P]: each shard's parent ranges;
+    ``finished`` [B, P] (bool) or None at step 0.  Returns int32 (lo, hi)
+    [S, B, K], each shard's parent range extended by the token -- (0, 0)
+    where ``finished`` is given and the token is EOS or PAD or the parent
+    had finished -- and prev_count [B, K], the parent's range size summed
+    over the shards.  CPU tensors run :func:`advance_sharded_plain`; CUDA
+    tensors launch the kernel once, a team of groups a selection
+    (:func:`shard_plan`; ``group`` forces the group's width).  Limits:
+    any shard count, tokens and ranges, and as many selections as the
+    grid's 2^31 - 1 blocks of 256 lanes hold (64-bit offsets).
+    """
+    if not sel_tok.is_cuda:
+        return advance_sharded_plain(si, sel_tok, sel_par, lo, hi, finished, eos=eos, pad=pad)
+    from seal_tpu_torch.kernels import build
+
+    B, K = sel_tok.shape
+    S = si.n_shards
+    if (lo.shape != hi.shape or lo.dim() != 3 or lo.shape[:2] != (S, B)
+            or sel_par.shape != (B, K)):
+        raise ValueError(f"fm_advance_sharded: selections {tuple(sel_tok.shape)}, parents "
+                         f"{tuple(sel_par.shape)}, ranges {tuple(lo.shape)} over {S} shards")
+    if finished is not None and (finished.shape != lo.shape[1:] or finished.dtype != torch.bool):
+        raise ValueError("fm_advance_sharded: finished must be bool, shaped as a shard's ranges")
+    sel_tok, sel_par, lo, hi = (
+        (t if t.dtype == torch.int32 else t.to(torch.int32)).contiguous()
+        for t in (sel_tok, sel_par, lo, hi))
+    if finished is not None:
+        finished = finished.contiguous()
+    G, P = shard_plan(B * K, _sms(sel_tok.device), S, group)
+    out = torch.empty((2 * S + 1, B, K), dtype=torch.int32, device=sel_tok.device)
+    p = out.data_ptr()
+    rc = build.lib().seal_fm_advance_sharded(
+        *_shard_args(si), lo.data_ptr(), hi.data_ptr(), lo.shape[2], sel_par.data_ptr(),
+        sel_tok.data_ptr(), finished.data_ptr() if finished is not None else None, eos, pad,
+        p, p + 4 * S * B * K, p + 8 * S * B * K, B * K, K, G, P, build.stream_ptr(sel_tok),
+    )
+    build.check(rc, "fm_advance_sharded")
+    fm_search_sharded.launches += 1
+    ADVANCE_SHARDED.launches += 1
+    return out[:S], out[S : 2 * S], out[2 * S]
 
 
 def sequences_sharded_plain(si, tokens, lengths, count: bool = False):

@@ -73,12 +73,11 @@ def load_block(index, level: int, pos):
     return index.blocks[level][(pos >> 8).long()].long() & _WORD
 
 
-def popcount32(x):
-    """Set bits of each 32-bit value held in an int64 tensor (SWAR)."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & _WORD) >> 24
+def nibble_bits(x):
+    """Set bits of each 32-bit value whose bits lie at nibbles' bit 0 (as
+    ``match_nibbles`` gives them): the multiply adds the eight nibbles, each
+    0 or 1, into the top one without a carry."""
+    return ((x * _ONES) >> 28) & 15
 
 
 def match_nibbles(w, d):
@@ -101,13 +100,11 @@ def rank_from_block(w, pos, d):
     word_idx = within >> 3
     bit_lim = (within & 7) << 2
     lane = torch.arange(CODE_WORDS, device=w.device)
-    partial = match & ((1 << bit_lim[..., None]) - 1)
-    counts = torch.where(
-        lane < word_idx[..., None],
-        popcount32(match),
-        torch.where(lane == word_idx[..., None], popcount32(partial), 0),
-    )
-    return (base + counts.sum(-1)).to(torch.int32)
+    # the words before pos's word whole, pos's word below pos, none after:
+    # masked first, so one count covers every lane
+    keep = torch.where(lane < word_idx[..., None], _WORD,
+                       torch.where(lane == word_idx[..., None], (1 << bit_lim[..., None]) - 1, 0))
+    return (base + nibble_bits(match & keep).sum(-1)).to(torch.int32)
 
 
 def digit_at(w, pos):

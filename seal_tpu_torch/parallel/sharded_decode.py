@@ -23,6 +23,7 @@ import torch
 from seal_tpu_torch.decoding.generate import fm_index_generate
 from seal_tpu_torch.kernels.bucket_counts import bucket_counts_sharded, bucket_support_sharded
 from seal_tpu_torch.kernels.fm_search import (
+    fm_advance_sharded,
     fm_dense_counts_sharded,
     fm_dense_mask_sharded,
     fm_search_sharded,
@@ -33,7 +34,6 @@ from seal_tpu_torch.kernels.window_gather import (
     window_gather_sharded,
     window_slab_sharded,
 )
-from seal_tpu_torch.ops._generic import advance_ranges
 from seal_tpu_torch.parallel.sharded_index import ShardedTorchIndex, require_no_mesh
 
 
@@ -79,11 +79,12 @@ class ShardedIndexOps:
         return (hi - lo).sum(0, dtype=torch.int32)
 
     def advance(self, sel_tok, sel_par, lo, hi, finished=None, *, eos: int, pad: int):
-        """The range update after a selection over [S, B, K] ranges: the
-        plain composition over ``extend`` (kernel 1's shard mode) and the
-        summed ``range_size``."""
-        return advance_ranges(self.extend, self.range_size, sel_tok, sel_par, lo, hi, finished,
-                              eos=eos, pad=pad)
+        """The range update after a selection over [S, B, K] ranges: JAX's
+        ``extend`` and summed ``range_size`` with the stop rule
+        (``constrained.py:1416-1430``; step 0, ``finished`` None,
+        :1340-1349), in one launch of kernel 1's shard step mode."""
+        return fm_advance_sharded(self.index, sel_tok, sel_par, lo, hi, finished, eos=eos,
+                                  pad=pad)
 
     def window_exhaustive(self, lo, hi, w):
         """True where every shard's interval fits its w window slots (then

@@ -2214,22 +2214,33 @@ def _sharded(S, device):
     return si, hosts, torch.stack(los), torch.stack(his)
 
 
-@pytest.mark.parametrize("S", [1, 4, 8])
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8])
 def test_shard_modes_match_plain(cuda, S):
     """Kernels 1, 2, 5, 6 and 15 in their shard modes: one launch a call
     whatever S, each equal to its plain version (every shard's plain
-    result, then the OR, sum or concatenation), padded rows included."""
+    result, then the OR, sum or concatenation), padded rows included.
+    Kernel 1's modes at the plan's (G, P) and at every group width forced
+    (P cut to 32 // G: a member loops over its shards), on ranges that are
+    empty or reach the padding row, symbols a shard lacks and tokens
+    outside [0, sigma)."""
     si, hosts, lo, hi = _sharded(S, cuda)
     g = torch.Generator(device=cuda).manual_seed(S)
     V = si.vocab
     B, K = lo.shape[1:]
     ext = torch.randint(-1, V + 2, (B, K), generator=g, device=cuda, dtype=torch.int32)
     cand = torch.randint(-1, V + 2, (B, K, 9), generator=g, device=cuda, dtype=torch.int32)
-    n0 = fm_search.fm_search_sharded.launches
-    for mode, toks in (("backward_step", ext), ("contains", cand), ("validate", cand)):
-        _same(_as_tuple(fm_search.fm_search_sharded(si, mode, toks, lo, hi)),
-              _as_tuple(fm_search.fm_search_sharded_plain(si, mode, toks, lo, hi)))
-    assert fm_search.fm_search_sharded.launches == n0 + 3
+    cand[..., 0] = 38  # a symbol of one shard only
+    n0, s0 = fm_search.fm_search_sharded.launches, fm_search.STEP_SHARDED.launches
+    for group in (None,) + fm_search.CONTAINS_GROUPS:
+        for mode, toks in (("backward_step", ext), ("contains", cand), ("validate", cand)):
+            if group == 1 and mode != "contains":  # membership alone takes a lane a shard
+                continue
+            _same(_as_tuple(fm_search.fm_search_sharded(si, mode, toks, lo, hi, group=group)),
+                  _as_tuple(fm_search.fm_search_sharded_plain(si, mode, toks, lo, hi)))
+    assert fm_search.fm_search_sharded.launches == n0 + 3 * (1 + len(fm_search.GROUPS)) + 1
+    assert fm_search.STEP_SHARDED.launches == s0 + 1 + len(fm_search.GROUPS)
+    with pytest.raises(ValueError):
+        fm_search.fm_search_sharded(si, "validate", cand, lo, hi, group=1)
     lp = torch.log_softmax(torch.randn(B * K, V, generator=g, device=cuda), -1)
     for w, fill in ((4, 1), (16, 0)):
         n0 = window_gather.window_gather_sharded.launches
@@ -2267,6 +2278,89 @@ def test_shard_modes_match_plain(cuda, S):
 
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
+
+
+def _sharded_selections(si, lo, hi, seed, cuda):
+    """A step's selections over [S, B, K] ranges: random parents, tokens of
+    the corpus, EOS, PAD and out-of-range ids, a quarter of the parents
+    finished."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    B, K = lo.shape[1:]
+    sel_tok = torch.randint(-1, si.vocab + 2, (B, K), generator=g, device=cuda,
+                            dtype=torch.int32)
+    sel_tok[0, :2] = torch.tensor([2, 1], dtype=torch.int32)  # EOS, PAD
+    sel_par = torch.randint(0, K, (B, K), generator=g, device=cuda, dtype=torch.int32)
+    finished = torch.rand((B, K), generator=g, device=cuda) < 0.25
+    return sel_tok, sel_par, finished
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8])
+def test_fm_advance_sharded_matches_plain(cuda, S, graph):
+    """Kernel 1's shard step mode (the sharded range update in one launch)
+    at step 0 (one parent a query, no stop rule) and later, at the plan's
+    width and each forced, eagerly and replayed from a CUDA graph: equal to
+    its plain version, to ``advance_ranges`` over the kernel's own backward
+    step and summed range size, and to ``ShardedIndexOps.advance``."""
+    from seal_tpu_torch.ops import _generic
+
+    run = _graph_call if graph else (lambda fn: fn())
+    si, _, lo, hi = _sharded(S, cuda)
+    sel_tok, sel_par, finished = _sharded_selections(si, lo, hi, S, cuda)
+    steps = ((torch.zeros_like(sel_par), lo[..., :1].contiguous(), hi[..., :1].contiguous(),
+              None), (sel_par, lo, hi, finished))
+    kw = dict(eos=2, pad=1)
+    for par, plo, phi, fin in steps:
+        want = fm_search.advance_sharded_plain(si, sel_tok, par, plo, phi, fin, **kw)
+        composed = _generic.advance_ranges(
+            lambda t, a, b: fm_search.fm_search_sharded(si, "backward_step", t, a, b),
+            lambda a, b: (b - a).sum(0, dtype=torch.int32), sel_tok, par, plo, phi, fin, **kw)
+        _same(composed, want)
+        assert want[0].shape == (S, *sel_tok.shape) and want[2].shape == sel_tok.shape
+        for group in (None,) + fm_search.GROUPS:
+            a0 = fm_search.ADVANCE_SHARDED.launches
+            got = run(lambda: fm_search.fm_advance_sharded(si, sel_tok, par, plo, phi, fin,
+                                                           group=group, **kw))
+            assert fm_search.ADVANCE_SHARDED.launches == a0 + (2 if graph else 1)
+            _same(got, want)
+        s0 = fm_search.STEP_SHARDED.launches
+        _same(sharded_decode.ShardedIndexOps(si).advance(sel_tok, par, plo, phi, fin, **kw), want)
+        assert fm_search.STEP_SHARDED.launches == s0  # no backward-step launch
+    assert (want[0] == 0).any() and (want[1] > want[0]).any()
+
+
+def test_shard_modes_limits(cuda):
+    """Kernel 1's shard modes at sizes past the bench point's: 16.9M
+    (range, token) items over 4 shards, and 262,144 selections over 8
+    shards (16.8M lanes at 8 a team of 8), equal to their plain versions;
+    malformed inputs raise."""
+    si, hosts, _, _ = _sharded(4, cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, K, M = 2048, 64, 129
+    rows = torch.as_tensor([h.size() for h in hosts], device=cuda)[:, None, None]
+    lo = (torch.rand((4, B, K), generator=g, device=cuda) * rows).int()
+    hi = torch.minimum(lo + torch.randint(0, 600, (4, B, K), generator=g, device=cuda,
+                                          dtype=torch.int32), rows.int())
+    cand = torch.randint(-1, si.vocab + 2, (B, K, M), generator=g, device=cuda,
+                         dtype=torch.int32)
+    for mode in ("contains", "validate"):
+        _same(_as_tuple(fm_search.fm_search_sharded(si, mode, cand, lo, hi)),
+              _as_tuple(fm_search.fm_search_sharded_plain(si, mode, cand, lo, hi)))
+    si8, _, _, _ = _sharded(8, cuda)
+    B, K = 4096, 64
+    lo8 = torch.zeros((8, B, K), dtype=torch.int32, device=cuda)
+    hi8 = si8.n_rows[:, None, None].expand(8, B, K).contiguous()
+    sel_tok, sel_par, finished = _sharded_selections(si8, lo8, hi8, 1, cuda)
+    _same(fm_search.fm_advance_sharded(si8, sel_tok, sel_par, lo8, hi8, finished, eos=2, pad=1),
+          fm_search.advance_sharded_plain(si8, sel_tok, sel_par, lo8, hi8, finished, eos=2,
+                                          pad=1))
+    with pytest.raises(ValueError):
+        fm_search.fm_advance_sharded(si8, sel_tok, sel_par, lo8[:4], hi8[:4], eos=2, pad=1)
+    with pytest.raises(ValueError):
+        fm_search.fm_advance_sharded(si8, sel_tok, sel_par, lo8, hi8, finished.int(), eos=2,
+                                     pad=1)
+    with pytest.raises(ValueError):
+        fm_search.fm_search_sharded(si8, "backward_step", sel_tok, lo8, hi8, group=3)
 
 
 @pytest.mark.parametrize("ties,keep_invalid", [(False, False), (True, False), (False, True)])

@@ -5,9 +5,15 @@ same host list (1, 3 and 8 shards, shards with different alphabets), each
 ``ShardedIndexOps`` method equals JAX's inside a ``shard_map`` over the
 8-device CPU mesh (per-shard ranges and merged results exactly), and
 ``sharded_count_sequences`` / ``sharded_allowed_mask`` equal JAX's and the
-host counts.  Also kernel 8's large-n route: its two-stage plain
-specification equals ``beam_select_plain`` bit for bit past the one-block
-limit."""
+host counts.  ``ShardedIndexOps.advance`` (kernel 1's shard step mode)
+equals JAX's range update, composed from its ``extend`` and ``range_size``
+as ``constrained.py`` composes them, at 1, 2 and 4 shards, at step 0 and
+later; a numpy mirror of kernel 1's shard-mode lanes (a team of P groups
+of G lanes an item, member p on shards p, p + P, ..., each group's
+cooperative search, the team's OR or butterfly sum) equals the plain shard
+search at every width the plan can pick.  Also kernel 8's large-n route:
+its two-stage plain specification equals ``beam_select_plain`` bit for bit
+past the one-block limit."""
 
 import inspect
 
@@ -22,10 +28,12 @@ from seal_tpu.parallel import mesh as mesh_lib
 from seal_tpu.parallel import sharded_decode as jsd
 from seal_tpu.parallel import sharded_index as jsi
 from seal_tpu_torch.kernels import beam_select as kb
+from seal_tpu_torch.kernels import fm_search as k1
 from seal_tpu_torch.parallel import sharded_decode as tsd
 from seal_tpu_torch.parallel import sharded_index as tsi
 from test_torch_dense_counts import _assert_mask
 from test_torch_fm_ops import _assert_support
+from test_torch_kernel_mirrors import _group_search
 
 V = 64
 
@@ -216,6 +224,229 @@ def test_sharded_count_and_allowed_equal_jax(world):
     np.testing.assert_array_equal(
         allowed.numpy(), np.asarray(jsi.sharded_allowed_mask(jp, mesh, toks, lens, cands)))
     assert allowed.dtype == torch.int32 and (allowed > 0).any()
+
+
+# ------------------------------------------- kernel 1's shard step mode
+
+EOS, PAD = 2, 1
+
+
+def _jax_advance(j, mesh, lo, hi, sel_tok, sel_par, finished, step0):
+    """JAX's range update inside the harness's ``shard_map``: ``extend`` of
+    the parents' ranges and the summed ``range_size`` gathered at the
+    parents (``constrained.py:1340-1349`` at step 0), and the stop rule
+    after (:1416-1430)."""
+    from jax import shard_map
+
+    def per_shard(bwt, psi, C, beg, n_rows, bocc, lo, hi, tok, par, fin):
+        dev = jsi._shard_device_index(j, bwt[0], psi[0], C[0], beg[0], None, bocc[0])
+        ops = jsd.ShardedIndexOps(dev, n_rows[0])
+        rows = jnp.arange(tok.shape[0])[:, None]
+        prev = ops.range_size(lo[0], hi[0])[rows, par]
+        elo, ehi = ops.extend(tok, lo[0][rows, par], hi[0][rows, par])
+        if not step0:
+            stop = (tok == EOS) | (tok == PAD)
+            elo, ehi = jnp.where(stop, 0, elo), jnp.where(stop, 0, ehi)
+            elo, ehi = jnp.where(fin[rows, par], 0, elo), jnp.where(fin[rows, par], 0, ehi)
+        return elo[None], ehi[None], prev
+
+    fn = shard_map(per_shard, mesh=mesh, in_specs=(P("data"),) * 8 + (P(),) * 3,
+                   out_specs=(P("data"), P("data"), P()))
+    return jax.device_get(jax.jit(fn)(j.bwt, j.psi, j.C, j.beginnings, j.n_rows, j.bucket_occ,
+                                      *(jnp.asarray(np.asarray(x)) for x in (
+                                          lo, hi, sel_tok, sel_par, finished))))
+
+
+def _selections(rng, B, K):
+    """A step's selections: tokens of [4, 40), EOS, PAD, -1 and past the
+    vocab; random parents, a quarter finished."""
+    sel_tok = rng.integers(4, 40, size=(B, K)).astype(np.int32)
+    sel_tok[0, :5] = (EOS, PAD, -1, V, V + 1)
+    sel_par = rng.integers(0, K, size=(B, K)).astype(np.int32)
+    finished = rng.random((B, K)) < 0.25
+    return sel_tok, sel_par, finished
+
+
+@pytest.fixture(scope="module")
+def world1():
+    """The world's corpus as one shard (S = 1)."""
+    docs = _docs(2)
+    j, hosts, _ = jsi.ShardedFMIndex.build(docs, n_shards=1, vocab=V)
+    return 1, docs, j, hosts, tsi.ShardedTorchIndex.from_hosts(hosts, V, device="cpu")
+
+
+def _check_advance(w, step0):
+    S, _, j, hosts, t = w
+    mesh = _mesh(S)
+    rng = np.random.default_rng(30 + S + step0)
+    B, K = 3, 6
+    lo, hi = _ranges(t, hosts, rng, B, K)
+    sel_tok, sel_par, finished = _selections(rng, B, K)
+    if step0:
+        lo, hi = lo[..., :1].contiguous(), hi[..., :1].contiguous()
+        sel_par[:] = 0
+    want = _jax_advance(j.place(mesh), mesh, lo, hi, sel_tok, sel_par, finished, step0)
+    n0, a0 = k1.fm_search_sharded.launches, k1.ADVANCE_SHARDED.launches
+    tt = [torch.as_tensor(x) for x in (sel_tok, sel_par, finished)]
+    got = tsd.ShardedIndexOps(t).advance(tt[0], tt[1], lo, hi, None if step0 else tt[2],
+                                         eos=EOS, pad=PAD)
+    assert (k1.fm_search_sharded.launches, k1.ADVANCE_SHARDED.launches) == (n0, a0)
+    assert [x.dtype for x in got] == [torch.int32] * 3 and got[0].shape == (S, B, K)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert (np.asarray(want[1]) > np.asarray(want[0])).any() and (np.asarray(want[1]) == 0).any()
+
+
+@pytest.mark.parametrize("step0", [True, False])
+def test_sharded_advance_equals_jax(world, step0):
+    """The port's range update (kernel 1's shard step mode; on the CPU its
+    plain version) equals JAX's composition exactly over 2 and 4 shards:
+    each shard's extended ranges and the summed parent range size, at step
+    0 (one parent a query, no stop rule) and later (EOS, PAD, finished
+    parents), over empty ranges, ranges into the padding and tokens -1 and
+    past the vocab; no launch is counted on the CPU."""
+    _check_advance(world, step0)
+
+
+@pytest.mark.parametrize("step0", [True, False])
+def test_sharded_advance_one_shard_equals_jax(world1, step0):
+    """The same over one shard."""
+    _check_advance(world1, step0)
+
+
+def _member_search(psi, sym_dir, s, c, pos, H):
+    """One group's cooperative search of shard s's block of symbol c (no
+    head directory: the whole block) at pos, H pivots a level."""
+    return _group_search(psi[s], int(sym_dir[s, c, 0]), int(sym_dir[s, c, 1]), pos, H)
+
+
+def _butterfly(lanes, op):
+    """The team's merge: __shfl_xor_sync over its P groups (a ballot for
+    the OR: the same result)."""
+    off = 1
+    while off < len(lanes):
+        lanes = [op(lanes[p], lanes[p ^ off]) for p in range(len(lanes))]
+        off <<= 1
+    return lanes[0]
+
+
+def _shard_mirror(t, mode, toks, lo, hi, G, P, sel=None):
+    """``contains_sharded_kernel`` / ``step_sharded_kernel`` as their lanes
+    run them: an item's team of P groups, member p on shards p, p + P, ...;
+    membership by one search of G lanes at lo, counts and steps by G / 2
+    lanes a bound.  ``sel``: (sel_par, finished or None) for the step
+    mode."""
+    psi, sym_dir, S = t.psi.numpy(), t.sym_dir.numpy(), t.n_shards
+    lo, hi = lo.numpy(), hi.numpy()
+
+    def step(s, c, a, b):
+        if not 1 <= c < t.sigma:
+            return 0, 0
+        r = [_member_search(psi, sym_dir, s, c, pos, G // 2) for pos in (a, b)]
+        return r[0], max(r)
+
+    if mode in ("contains", "validate"):
+        out = np.zeros(toks.shape, np.int64)
+        for i in np.ndindex(*toks.shape):
+            r, c = i[:-1], int(toks[i]) + 1
+            lanes = []
+            for p in range(P):
+                acc = 0
+                for s in range(p, S, P):
+                    a, b = int(lo[(s, *r)]), int(hi[(s, *r)])
+                    if not 1 <= c < t.sigma:
+                        continue
+                    if mode == "validate":
+                        x, y = step(s, c, a, b)
+                        acc += y - x
+                    else:
+                        row = _member_search(psi, sym_dir, s, c, a, G)
+                        acc |= row < sym_dir[s, c, 1] and psi[s, row] < b
+                lanes.append(acc)
+            out[i] = _butterfly(lanes, (lambda x, y: x + y) if mode == "validate"
+                                else (lambda x, y: x | y))
+        return out
+    # the backward step (sel None) or the step mode: shard s's (parent)
+    # range extended by the token, the parents' sizes summed by the team
+    B, K = toks.shape
+    out_lo, out_hi = np.zeros((S, B, K), np.int64), np.zeros((S, B, K), np.int64)
+    count = np.zeros((B, K), np.int64)
+    for b, k in np.ndindex(B, K):
+        tok = int(toks[b, k])
+        par = (b, k) if sel is None else (b, int(sel[0][b, k]))
+        stop = sel is not None and sel[1] is not None and (
+            tok in (EOS, PAD) or bool(sel[1][par]))
+        lanes = []
+        for p in range(P):
+            total = 0
+            for s in range(p, S, P):
+                a, h = int(lo[(s, *par)]), int(hi[(s, *par)])
+                out_lo[s, b, k], out_hi[s, b, k] = (0, 0) if stop else step(s, tok + 1, a, h)
+                total += h - a
+            lanes.append(total)
+        count[b, k] = _butterfly(lanes, lambda x, y: x + y)
+    return out_lo, out_hi, count
+
+
+def test_shard_modes_mirror_matches_plain(world):
+    """The mirror of kernel 1's shard-mode lanes at every group width and
+    team the plan can pick (and a team narrower than the shards: a member
+    loops over its shards) equals the plain shard search in its four modes:
+    backward step, membership, counts and the step mode."""
+    S, _, _, hosts, t = world
+    rng = np.random.default_rng(40 + S)
+    B, K, M = 2, 5, 7
+    lo, hi = _ranges(t, hosts, rng, B, K)
+    cands = torch.as_tensor(rng.integers(-1, V + 2, size=(B, K, M)).astype(np.int32))
+    cands[..., 0] = torch.as_tensor(hosts[0].text[1 : 1 + K] - 1)
+    sel_tok, sel_par, finished = _selections(rng, B, K)
+    tok = torch.as_tensor(sel_tok)
+    want = {m: k1.fm_search_sharded_plain(t, m, cands, lo, hi) for m in ("contains", "validate")}
+    want_step = k1.fm_search_sharded_plain(t, "backward_step", tok, lo, hi)
+    want_adv = k1.advance_sharded_plain(t, tok, torch.as_tensor(sel_par), lo, hi,
+                                        torch.as_tensor(finished), eos=EOS, pad=PAD)
+    plans = {k1.shard_plan(1, 132, S, group=G) for G in k1.GROUPS} | {(16, 1)}
+    assert {G for G, _ in plans} == set(k1.GROUPS)
+    for G, P in sorted({k1.shard_plan(1, 132, S, group=G, contains=True)
+                        for G in k1.CONTAINS_GROUPS}):  # one lane a shard too
+        np.testing.assert_array_equal(_shard_mirror(t, "contains", cands.numpy(), lo, hi, G, P),
+                                      want["contains"].numpy().astype(np.int64))
+    for G, P in sorted(plans):
+        for m, w in want.items():
+            np.testing.assert_array_equal(_shard_mirror(t, m, cands.numpy(), lo, hi, G, P),
+                                          w.numpy().astype(np.int64))
+        got = _shard_mirror(t, "backward_step", sel_tok, lo, hi, G, P)
+        for a, b in zip(got, want_step):
+            np.testing.assert_array_equal(a, b.numpy())
+        got = _shard_mirror(t, "advance", sel_tok, lo, hi, G, P, (sel_par, finished))
+        for a, b in zip(got, want_adv):
+            np.testing.assert_array_equal(a, b.numpy())
+    assert want["contains"].any() and (want["validate"] > 1).any()
+
+
+def test_shard_plan_rule():
+    """Kernel 1's shard plan: kernel 5's rule (P the power of two holding
+    the shards, at most 16; G the widest whose grid keeps within the lanes
+    budget, never below 2) over SHARD_LANES_PER_SM; a forced G cuts P.  The
+    membership mode: one lane a shard too (P up to 32) under
+    CONTAINS_LANES_PER_SM."""
+    budget = 132 * k1.SHARD_LANES_PER_SM
+    for S in (1, 2, 3, 4, 8, 17):
+        want_P = min(1 << (S - 1).bit_length(), 16)
+        for n in (1, 480, 1024, 31_200, 10 ** 6):
+            fits = [g for g in k1.GROUPS if g * want_P <= 32 and n * want_P * g <= budget]
+            assert k1.shard_plan(n, 132, S) == (max(fits, default=2), want_P), (n, S)
+            for g in k1.GROUPS:
+                assert k1.shard_plan(n, 132, S, group=g) == (g, min(want_P, 32 // g))
+        for n in (1, 480, 8_000, 31_200):  # membership: its widths and budget
+            P = min(1 << (S - 1).bit_length(), 32)
+            fits = [g for g in k1.CONTAINS_GROUPS
+                    if g * P <= 32 and n * P * g <= 132 * k1.CONTAINS_LANES_PER_SM]
+            assert k1.shard_plan(n, 132, S, contains=True) == (max(fits, default=1), P)
+    with pytest.raises(ValueError, match="group of 3"):
+        k1.shard_plan(5, 132, 4, group=3)
+    with pytest.raises(ValueError, match="group of 1"):
+        k1.shard_plan(5, 132, 4, group=1)
 
 
 # ------------------------------------------------- kernel 8, large-n route
