@@ -172,6 +172,23 @@
    loader) bit for bit against kernel 3 over the parent's pruned rows at
    [480, 50265], k = 256 and 20,000, on the Psi and compact bucket sizes,
    timed beside the parent's round (``composed_*``).
+16. Drives the training path: BART-large (``bart_large()`` with bf16
+   compute, f32 master parameters from a seed) through
+   ``training.trainer.make_train_step`` for 5 steps on one seeded batch at
+   the train CLI's defaults (32 pairs, sources padded to 128, targets
+   bucketed to 80, some pad; warm-up 1, lr 1e-4): every loss finite, the
+   5th below the 1st, kernel 22's forward and backward and kernel 23's
+   norm and update modes once a step each; the step's wall, its peak
+   memory and one profiled step (device ms, kernels, busy share).  Holds
+   kernel 22 at the step's own [2560, 50265] logits (loss, ntok, each
+   row's lse against an f64 log-sum-exp, the gradient) and kernel 23 over the step's own gradients, parameters and moments
+   (the norm, then p, mu and nu after one update) against their plain
+   versions, eager and graph-replayed, beside ``F.cross_entropy`` with
+   ``label_smoothing`` and ``clip_grad_norm_`` + fused ``AdamW`` (another
+   function: its clip's eps and decay differ); 3 steps of bart_tiny in f32
+   on the card against the CPU path (``training.parity``, which the card's
+   tests call too); the train CLI on a tiny word-vocab
+   dataset (6 steps, a checkpoint at step 6).
 
 Each path's launch counts come from that path's own run (every count set
 to 0 just before it, read just after); on every decoding path kernels 9
@@ -276,6 +293,12 @@ REPLACES = {
     # a straggler round's pruning (:604-608), consumed mask and top-k
     # (:734-736) in one launch of kernel 3's select
     "pruned_topk": "seal_tpu/decoding/constrained.py:734",
+    # kernel 22: the loss and its gradient under value_and_grad; kernel 23:
+    # optax's clip_by_global_norm, then adamw
+    "label_smoothed_nll": "seal_tpu/training/trainer.py:38",
+    "label_smoothed_nll_backward": "seal_tpu/training/trainer.py:85",
+    "clip_global_norm": "seal_tpu/training/trainer.py:61",
+    "adamw_update": "seal_tpu/training/trainer.py:62",
 }
 SOURCES = {
     "fm_search": ("cuda", "seal_tpu_torch/kernels/csrc/fm_search.cu"),
@@ -342,6 +365,10 @@ SOURCES = {
     "wt_bucket_support": ("cuda", "seal_tpu_torch/kernels/csrc/wt_bucket_counts.cu"),
     "bucket_support_sharded": ("cuda", "seal_tpu_torch/kernels/csrc/bucket_counts.cu"),
     "pruned_topk": ("cuda", "seal_tpu_torch/kernels/csrc/row_topk.cu"),
+    "label_smoothed_nll": ("cuda", "seal_tpu_torch/kernels/csrc/train_loss.cu"),
+    "label_smoothed_nll_backward": ("cuda", "seal_tpu_torch/kernels/csrc/train_loss.cu"),
+    "clip_global_norm": ("cuda", "seal_tpu_torch/kernels/csrc/adamw.cu"),
+    "adamw_update": ("cuda", "seal_tpu_torch/kernels/csrc/adamw.cu"),
 }
 # the kernels each driven path must launch (the straggler rounds' support
 # bits, pruning select and merges run only in the proven loop, which the
@@ -505,6 +532,11 @@ for _path in ("generate_once", "generate_mono"):
     PATH_KERNELS[_path] = PATH_KERNELS["generate"]
 PATH_KERNELS["generate_mono_force_full"] = PATH_KERNELS["generate_force_full"]
 PATH_KERNELS["generate_mono_dense"] = PATH_KERNELS["generate_dense"]
+# the train step: kernel 22's forward and backward and kernel 23's two
+# modes, each once a step
+TRAIN_STEP = ("label_smoothed_nll", "label_smoothed_nll_backward", "clip_global_norm",
+              "adamw_update")
+PATH_KERNELS["train"] = TRAIN_STEP
 
 
 def psi_constrained(path: str) -> bool:
@@ -778,7 +810,8 @@ def log_kernel(row) -> None:
                                                "limit_graph_ms", "searcher_contains_shape",
                                                "searcher_contains_graph_ms",
                                                "searcher_advance_shape",
-                                               "searcher_advance_graph_ms")
+                                               "searcher_advance_graph_ms", "fwd_bwd_ms",
+                                               "library_abs_err", "lse_abs_err")
                   if k in row))
 
 
@@ -4341,6 +4374,293 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
                        search_qps=len(queries) / s_search, mono_search_qps=len(queries) / m_search)
 
 
+# the training phase: kernels 22 and 23 and the train step at BART-large's
+# full width (section 16 of the docstring)
+TRAIN_STEPS = 5
+# kernel 22 against its plain version at the path shape: the loss within
+# 2e-6 relative (V-wide f32 log-sum-exps summed in another order), ntok
+# exactly; each row's lse within 2e-6 of an f64 log-sum-exp (about two ulps
+# of an lse near 11); the gradient within 1e-6 of each row's largest entry
+# (the target's, about 0.9 of the row's scale; 1.05e-7 measured on an H100
+# at 700 W), so a backward that dropped the -eps/V term (2.2e-6 of it at
+# V = 50,265) fails
+NLL_RTOL, NLL_LSE_ATOL, NLL_GRAD_TOL = 2e-6, 2e-6, 1e-6
+# kernel 23: the norm within 1e-5 relative (406M squares summed in another
+# order); p, mu and nu after one update from the same norm within 1e-6
+# relative of the plain version (the same f32 operations)
+ADAMW_NORM_RTOL, ADAMW_RTOL = 1e-5, 1e-6
+
+
+def train_kernel_rows(np, torch, cfg, tcfg, params, state, batch):
+    """Kernels 22 and 23 against their plain versions at the path's shapes:
+    the step's own logits and targets, its own gradients, parameters and
+    moments; each timed eagerly and graph-replayed beside its plain
+    version, its bound and one PyTorch call of the same function."""
+    import torch.nn.functional as F
+
+    from seal_tpu_torch.kernels import adamw, train_loss
+    from seal_tpu_torch.models import bart
+    from seal_tpu_torch.training import trainer
+
+    pad, eps = cfg.pad_token_id, tcfg.label_smoothing
+    b = trainer.batch_to(batch, "cuda")
+    leaves = trainer.tree_leaves(params)
+    with torch.no_grad():
+        enc = bart.encode(cfg, params, b["src_ids"], b["src_mask"])
+        x = bart.decode_full(cfg, params, enc, b["src_mask"], b["tgt_in"])
+        x = x.reshape(-1, cfg.vocab_size).contiguous()
+    del enc
+    t = b["tgt_out"].reshape(-1).to(torch.int32)
+    N, V = x.shape
+    live = int((t != pad).sum())
+    gout = torch.ones((), device="cuda")
+    rows = []
+    # ---- kernel 22, forward ------------------------------------------------
+    loss, ntok, lse = train_loss.nll_forward(x, t, pad, eps)
+    want, want_ntok = train_loss.label_smoothed_nll_plain(x, t, pad, eps)
+    graph_loss = graph_result(torch, lambda: train_loss.nll_forward(x, t, pad, eps)[0])
+    again = train_loss.nll_forward(x, t, pad, eps)[0]
+    err = abs(loss.item() - want.item())
+    if ntok.item() != want_ntok.item() or err > NLL_RTOL * abs(want.item()) \
+            or graph_loss.item() != loss.item() or again.item() != loss.item():
+        fail(f"label_smoothed_nll: loss {loss.item()} (graph {graph_loss.item()}, again "
+             f"{again.item()}) vs plain {want.item()}, ntok {ntok.item()} vs "
+             f"{want_ntok.item()}")
+
+    def library_loss():
+        return F.cross_entropy(x, t.long(), ignore_index=pad, label_smoothing=eps,
+                               reduction="sum") / want_ntok
+
+    lse_err = (lse - torch.logsumexp(x.double(), -1)).abs()[t != pad].max().item()
+    if lse_err > NLL_LSE_ATOL:
+        fail(f"label_smoothed_nll: lse off an f64 log-sum-exp by {lse_err:.3e} (tolerance "
+             f"{NLL_LSE_ATOL})")
+    lib_err = abs(library_loss().item() - want.item())
+    rows.append(dict(
+        name="label_smoothed_nll", shape=f"[{N}, {V}] f32, {live} rows not pad",
+        ms=time_ms(lambda: train_loss.nll_forward(x, t, pad, eps)),
+        graph_ms=graph_ms(lambda: train_loss.nll_forward(x, t, pad, eps)),
+        plain_ms=time_ms(lambda: train_loss.label_smoothed_nll_plain(x, t, pad, eps), iters=5),
+        library_ms=time_ms(library_loss, iters=5), max_abs_err=err,
+        library_abs_err=lib_err, lse_abs_err=lse_err, bytes=live * V * 4 + N * 4 * 3,
+        flops=4 * live * V))
+    # ---- kernel 22, backward -----------------------------------------------
+    grad = train_loss.nll_backward(x, t, lse, ntok, gout, pad, eps)
+    want_grad = train_loss.nll_backward_plain(x, t, torch.logsumexp(x, -1), want_ntok, gout,
+                                              pad, eps)
+    graph_grad = graph_result(torch, lambda: train_loss.nll_backward(x, t, lse, ntok, gout,
+                                                                      pad, eps))
+    scale = want_grad.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    rel = ((grad - want_grad).abs() / scale).max().item()
+    if rel > NLL_GRAD_TOL or not torch.equal(graph_grad, grad):
+        fail(f"label_smoothed_nll_backward: {rel:.3e} of a row's largest entry (tolerance "
+             f"{NLL_GRAD_TOL}), graph-replayed equal {torch.equal(graph_grad, grad)}")
+    del want_grad, graph_grad, grad
+    xg = x.clone().requires_grad_(True)
+
+    def library_fwd_bwd():
+        ce = F.cross_entropy(xg, t.long(), ignore_index=pad, label_smoothing=eps,
+                             reduction="sum") / want_ntok
+        return torch.autograd.grad(ce, xg)
+
+    def kernel_fwd_bwd():
+        lo, nt, ls = train_loss.nll_forward(x, t, pad, eps)
+        return train_loss.nll_backward(x, t, ls, nt, gout, pad, eps)
+
+    rows.append(dict(
+        name="label_smoothed_nll_backward", shape=f"[{N}, {V}] f32, {live} rows not pad",
+        ms=time_ms(lambda: train_loss.nll_backward(x, t, lse, ntok, gout, pad, eps)),
+        graph_ms=graph_ms(lambda: train_loss.nll_backward(x, t, lse, ntok, gout, pad, eps),
+                          launches=5, replays=4),
+        plain_ms=time_ms(lambda: train_loss.nll_backward_plain(x, t, lse, ntok, gout, pad, eps),
+                         iters=5),
+        # the library's forward and backward together, beside the kernel's
+        library_ms=time_ms(library_fwd_bwd, iters=5), fwd_bwd_ms=time_ms(kernel_fwd_bwd),
+        max_abs_err=rel, bytes=live * V * 4 + N * V * 4 + N * 8, flops=5 * live * V))
+    del xg, x, lse
+    torch.cuda.empty_cache()
+    # ---- kernel 23: the step's own gradients -------------------------------
+    try:
+        with torch.enable_grad():
+            for p in leaves:
+                p.requires_grad_(True)
+            grads = torch.autograd.grad(trainer.loss_fn(cfg, params, b, eps), leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    n_par = sum(g.numel() for g in grads)
+    norm = adamw.global_norm(list(grads))
+    want_norm = adamw.global_norm_plain(list(grads))
+    graph_norm = graph_result(torch, lambda: adamw.global_norm(list(grads)))
+    norm_err = abs(norm.item() - want_norm.item())
+    if norm_err > ADAMW_NORM_RTOL * want_norm.item() or graph_norm.item() != norm.item():
+        fail(f"clip_global_norm: {norm.item()} (graph {graph_norm.item()}) vs plain "
+             f"{want_norm.item()}")
+    gl = list(grads)
+    rows.append(dict(
+        name="clip_global_norm", shape=f"{len(gl)} tensors, {n_par} f32",
+        ms=time_ms(lambda: adamw.global_norm(gl)),
+        graph_ms=graph_ms(lambda: adamw.global_norm(gl)),
+        plain_ms=time_ms(lambda: adamw.global_norm_plain(gl), iters=5),
+        library_ms=time_ms(lambda: torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(gl))), iters=5),
+        max_abs_err=norm_err, bytes=n_par * 4, flops=2 * n_par))
+    opt = trainer.make_optimizer(tcfg)
+    h = opt.hyper(state)
+    ms_, vs_ = trainer.tree_leaves(state.mu), trainer.tree_leaves(state.nu)
+    want = [[a.clone() for a in lst] for lst in (leaves, ms_, vs_)]
+    adamw.adamw_update_plain(want[0], gl, want[1], want[2], norm, h)
+    got = [[a.clone() for a in lst] for lst in (leaves, ms_, vs_)]
+    adamw.adamw_update(got[0], gl, got[1], got[2], norm, h)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for lst, ref in zip(got, want):
+        for a, r in zip(lst, ref):
+            d = ((a - r).abs() / r.abs().clamp(min=1e-30)).max().item()
+            worst = max(worst, d)
+    if worst > ADAMW_RTOL:
+        fail(f"adamw_update: p, mu or nu off the plain version by {worst:.3e} relative")
+    del want
+
+    def update():
+        adamw.adamw_update(got[0], gl, got[1], got[2], norm, h)
+
+    def plain_update():
+        adamw.adamw_update_plain(got[0], gl, got[1], got[2], norm, h)
+
+    # the library's clip and fused AdamW on copies of the same tensors (its
+    # clip divides by norm + 1e-6 and its decay is p * (1 - lr wd) before
+    # the step: another function)
+    lib_params = [torch.nn.Parameter(a.clone()) for a in got[0]]
+    for p_, g_ in zip(lib_params, gl):
+        p_.grad = g_
+    lib_opt = torch.optim.AdamW(lib_params, lr=-h.neg_lr or 1e-4, betas=(tcfg.adam_b1,
+                                tcfg.adam_b2), eps=1e-8, weight_decay=tcfg.weight_decay,
+                                fused=True)
+
+    def library_update():
+        torch.nn.utils.clip_grad_norm_(lib_params, tcfg.max_grad_norm, foreach=True)
+        lib_opt.step()
+
+    rows.append(dict(
+        name="adamw_update", shape=f"{len(gl)} tensors, {n_par} f32",
+        ms=time_ms(update, iters=5), graph_ms=graph_ms(update, launches=5, replays=3),
+        plain_ms=time_ms(plain_update, iters=3), library_ms=time_ms(library_update, iters=5),
+        max_abs_err=worst, bytes=n_par * 28, flops=18 * n_par))
+    del lib_params, lib_opt, got, grads, gl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_cli_run(np):
+    """The train CLI on the card: a tiny word-vocab dataset in a temp dir,
+    6 steps and the checkpoint at step 6 (restored into the port)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from seal_tpu_torch.cli import train as train_cli
+    from seal_tpu_torch.models.tokenizer import WordVocabTokenizer
+    from seal_tpu_torch.training import checkpoint
+
+    texts = ["alpha beta gamma", "delta epsilon zeta", "eta theta iota"]
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        tok = WordVocabTokenizer.train([" " + t for t in texts])
+        tok_path = os.path.join(tmp, "word_vocab.json")
+        tok.save(tok_path)
+        with open(os.path.join(tmp, "train.source"), "w") as f:
+            f.write("".join(f" {t} || body\n" for t in texts * 4))
+        with open(os.path.join(tmp, "train.target"), "w") as f:
+            f.write("".join(f" {t}\n" for t in texts * 4))
+        save = os.path.join(tmp, "save")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = train_cli.main([os.path.join(tmp, "train"), save, "--tokenizer", tok_path,
+                                 "--backbone", "tiny", "--batch_size", "4", "--max_update", "6",
+                                 "--save_interval", "5", "--log_interval", "2", "--lr", "1e-3"])
+        step = checkpoint.latest_step(save)
+        files = sorted(os.listdir(save))
+        logs = [json.loads(line) for line in out.getvalue().splitlines()
+                if line.startswith('{"step"')]
+    if rc != 0 or step != 6 or "step_6.npz" not in files or len(logs) != 3 \
+            or not all(np.isfinite(r["loss"]) for r in logs):
+        fail(f"train CLI on the card: rc {rc}, latest step {step}, files {files}, logs {logs}")
+    return logs, files
+
+
+def training_phase(np, torch, zero_counts, read_counts):
+    """BART-large (bf16 compute, f32 master params from a seed) trained for
+    5 steps on one seeded batch at the train CLI's defaults through
+    ``make_train_step``; kernels 22 and 23 against their plain versions at
+    its shapes; the card against the CPU on bart_tiny; the train CLI."""
+    import dataclasses
+    import threading
+
+    from seal_tpu_torch import bench_generate
+    from seal_tpu_torch.bench_train import TRAIN_BATCH, TRAIN_SRC, TRAIN_TGT, train_batch
+    from seal_tpu_torch.models.config import bart_large
+    from seal_tpu_torch.training import parity, trainer
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()  # what the earlier phases still hold
+    cfg = dataclasses.replace(bart_large(), dtype="bfloat16")
+    tcfg = trainer.TrainConfig(learning_rate=1e-4, warmup_steps=1)
+    t0 = time.perf_counter()
+    params, state = trainer.init_train_state(cfg, tcfg, seed=0)
+    batch = train_batch(cfg)  # one seeded batch at the train CLI's defaults
+    step, _ = trainer.make_train_step(cfg, tcfg)
+    n_par = sum(p.numel() for p in trainer.tree_leaves(params))
+    log(f"training set-up {time.perf_counter() - t0:.1f} s: BART-large bf16, {n_par} f32 params "
+        f"in {len(trainer.tree_leaves(params))} tensors, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SRC} / {TRAIN_TGT}, {int((batch['tgt_out'] != cfg.pad_token_id).sum())} "
+        f"target tokens not pad")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = read_counts("train")
+    peak = torch.cuda.max_memory_allocated()
+    for name in TRAIN_STEP:
+        if launches[name] != TRAIN_STEPS:
+            fail(f"train: {name} launched {launches[name]} times in {TRAIN_STEPS} steps")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train: losses {losses} (all finite, the last below the first)")
+    log(f"train ({CARD}): {TRAIN_STEPS} steps, losses {losses}, step wall s "
+        f"{[round(w, 4) for w in walls]} (median {statistics.median(walls[1:]):.4f} after the "
+        f"first), peak memory {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the "
+        f"{base / 1e9:.2f} GB the earlier phases hold); threads {threading.active_count()} "
+        f"Python, {len(os.listdir('/proc/self/task'))} in the process; launches {launches}")
+    prof = bench_generate.profile_batch(lambda: step(params, state, batch))
+    log(f"train profiled step ({CARD}): {prof['kernels']} kernels, device busy "
+        f"{prof['device_busy_ms']:.2f} ms of {prof['wall_ms']:.2f} ms wall "
+        f"({100 * prof['busy_share']:.1f}%)")
+    for row in prof["top"][:12]:
+        log(f"  {row['ms']:8.3f} ms {row['calls']:6d} calls  {row['name']}")
+    rows = train_kernel_rows(np, torch, cfg, tcfg, params, state, batch)
+    del params, state
+    torch.cuda.empty_cache()
+    par = parity.card_against_cpu("cuda")
+    if not par["ok"] or par["launches"] != (3, 3):
+        fail(f"train steps on the card vs the CPU: losses {par['losses']} vs "
+             f"{par['cpu_losses']}, params off by {par['param_err']:.3e}, kernels 22 and 23 "
+             f"launched {par['launches']} times in 3 steps")
+    log(f"train parity (bart_tiny f32, 3 steps, card vs CPU): losses within "
+        f"{par['loss_err']:.3e} relative (tolerance {parity.LOSS_RTOL}), params within "
+        f"{par['param_err']:.3e} (tolerance {parity.PARAM_ATOL})")
+    logs, files = train_cli_run(np)
+    log(f"train CLI on the card (tiny, bf16): log lines {logs}, checkpoint files {files}")
+    return rows, dict(batch=TRAIN_BATCH, losses=losses, step_s=statistics.median(walls[1:]),
+                      peak_gb=(peak - base) / 1e9,
+                      device_ms=prof["device_busy_ms"], busy=prof["busy_share"],
+                      kernels=prof["kernels"], wall_ms=prof["wall_ms"])
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -4378,6 +4698,7 @@ def main() -> int:
     from seal_tpu_torch import bench_generate, bench_search
     from seal_tpu_torch.decoding import generate
     from seal_tpu_torch.kernels import (
+        adamw,
         beam_select,
         bucket_counts,
         build,
@@ -4391,6 +4712,7 @@ def main() -> int:
         row_select,
         row_topk,
         sample_select,
+        train_loss,
         triton_logsoftmax,
         window_gather,
         wt_bucket_counts,
@@ -4469,6 +4791,10 @@ def main() -> int:
         "wt_bucket_support": wt_bucket_counts.wt_bucket_support,
         "bucket_support_sharded": bucket_counts.bucket_support_sharded,
         "pruned_topk": row_topk.pruned_topk,
+        "label_smoothed_nll": train_loss.nll_forward,
+        "label_smoothed_nll_backward": train_loss.nll_backward,
+        "clip_global_norm": adamw.global_norm,
+        "adamw_update": adamw.adamw_update,
     }
     # the calls of the sharded index's ops (each must be one launch)
     op_calls: collections.Counter = collections.Counter()
@@ -5366,6 +5692,13 @@ def main() -> int:
         log_kernel(row)
     table += sh_table
     log(f"sharded phase wall {time.perf_counter() - t0:.1f} s")
+    # ---- the training path: BART-large train steps, kernels 22 and 23 -------
+    t0 = time.perf_counter()
+    tr_table, tr_run = training_phase(np, torch, zero_counts, read_counts)
+    for row in tr_table:
+        log_kernel(row)
+    table += tr_table
+    log(f"training phase wall {time.perf_counter() - t0:.1f} s")
     total = {name: sum(p[name] for p in by_path.values()) for name in counters}
     for name, n in total.items():
         if n <= 0 and name not in ENTRY_POINTS_ONLY:
@@ -5397,7 +5730,12 @@ def main() -> int:
         f"{sh_run['turns']['psi']:.1f}, sharded {sh_run['turns']['sharded']:.1f}), "
         f"{sh_run['bytes_per_token']:.2f} index B/token, beam 32 {sh_run['beam32_qps']:.1f} "
         f"queries/s, batch_search {sh_run['search_qps']:.2f} (monolithic "
-        f"{sh_run['mono_search_qps']:.2f})")
+        f"{sh_run['mono_search_qps']:.2f})"
+        f"; training BART-large bf16 batch {tr_run['batch']}: {tr_run['step_s']:.4f} s a step, "
+        f"losses {[round(x, 4) for x in tr_run['losses']]}, peak {tr_run['peak_gb']:.2f} GB "
+        f"above the earlier phases', "
+        f"profiled step {tr_run['device_ms']:.2f} device ms of {tr_run['wall_ms']:.2f} ms "
+        f"({100 * tr_run['busy']:.1f}% busy, {tr_run['kernels']} kernels)")
     log(f"launches by path: {json.dumps(by_path)}")
     kernels = []
     for row in table:
@@ -5440,7 +5778,8 @@ def main() -> int:
                                    "beam32_bound_ms", "sample_graph_ms", "spec_graph_ms",
                                    "counts_group_graph_ms", "limit_graph_ms",
                                    "searcher_contains_shape", "searcher_contains_graph_ms",
-                                   "searcher_advance_shape", "searcher_advance_graph_ms")
+                                   "searcher_advance_shape", "searcher_advance_graph_ms",
+                                   "fwd_bwd_ms", "library_abs_err", "lse_abs_err")
                if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}

@@ -37,7 +37,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("fm_search.cu", "window_gather.cu", "row_topk.cu", "bucket_counts.cu", "rescore.cu",
            "beam_select.cu", "decode_attention.cu", "reorder_cache.cu", "wt_search.cu",
            "wt_window.cu", "wt_bucket_counts.cu", "dense_scores.cu", "locate.cu",
-           "row_select.cu", "sample_select.cu", "diverse_select.cu")
+           "row_select.cu", "sample_select.cu", "diverse_select.cu", "train_loss.cu", "adamw.cu")
 # included by the wt_*.cu sources, by fm_search.cu and wt_search.cu, by
 # beam_select.cu, diverse_select.cu and row_topk.cu, by beam_select.cu and
 # row_topk.cu, by row_topk.cu, row_select.cu, dense_scores.cu,
@@ -235,6 +235,18 @@ SIGNATURES = {
     # out (int [1] on the host): the wide route's proof counter on the
     # current device
     "seal_diverse_proof_failures": [_P],
+    # logits, targets, n, V, pad, eps, lse, row_loss (scratch), loss, ntok,
+    # stream
+    "seal_nll_forward": [_P, _P, _L, _I, _I, _F, _P, _P, _P, _P, _P],
+    # logits, targets, lse, ntok, gout, n, V, pad, eps, grad, stream
+    "seal_nll_backward": [_P, _P, _P, _P, _P, _L, _I, _I, _F, _P, _P],
+    # g (host array of n_tensors pointers), sizes, n_tensors, partial
+    # (scratch), norm, stream
+    "seal_adamw_norm": [_P, _P, _I, _P, _P, _P],
+    # p, g, mu, nu (host arrays of n_tensors pointers), sizes, n_tensors,
+    # norm, max_norm, c1, b1, c2, b2, bc1, bc2, eps, wd, neg_lr
+    # (kernels/adamw.py:Hyper), stream
+    "seal_adamw_update": [_P, _P, _P, _P, _P, _I, _P] + [_F] * 10 + [_P],
 }
 # C functions that return a size rather than an error code
 SIZE_QUERIES = {"seal_beam_merge_smem": [_I, _I], "seal_beam_select_smem": [_I, _I, _I, _I],
@@ -244,7 +256,8 @@ SIZE_QUERIES = {"seal_beam_merge_smem": [_I, _I], "seal_beam_select_smem": [_I, 
                 "seal_beam_select_wide_smem": [_I, _I, _I, _I, _I, _I],
                 "seal_row_topk_max_k": [], "seal_row_topk_bins_bytes": [],
                 "seal_diverse_chunks": [_I], "seal_diverse_smem": [_I, _I, _I],
-                "seal_diverse_list_smem": [_I, _I, _I]}
+                "seal_diverse_list_smem": [_I, _I, _I], "seal_adamw_max_tensors": [],
+                "seal_adamw_blocks": [_P, _I]}
 
 # shared memory one block may opt into on Hopper (the wrappers refuse shapes
 # that need more)

@@ -7,7 +7,9 @@ The parameter tree has the JAX package's layout -- dense ``kernel`` is
 leaf-by-leaf copy.  Semantics follow the JAX module: learned positions with
 a +2 offset, post-LayerNorm blocks with LayerNorm in f32 (eps 1e-5),
 exact (erf) GELU, attention scores and softmax in f32, and grouped decode
-cross-attention over per-query K/V.  Inference only.
+cross-attention over per-query K/V.  ``encode`` and ``decode_full`` are
+differentiable (the trainer's loss, ``training/trainer.py``) and honour
+``cfg.remat`` as the JAX package's do.
 
 The decode step's attentions and the beam reorder of its cache are kernels
 (``kernels/decode_attention.py``: 9 cross, 10 self; ``kernels/
@@ -24,6 +26,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from seal_tpu_torch.kernels import decode_attention
 from seal_tpu_torch.models.common import reorder_cache, tied_head  # noqa: F401 (re-exported)
@@ -179,13 +182,31 @@ def encode(cfg: BartConfig, params: Params, input_ids, attention_mask):
     x = _embed(cfg, params["shared"], enc["embed_positions"], input_ids,
                enc["layernorm_embedding"], positions)
     bias = _padding_bias(attention_mask)
-    n_heads = cfg.encoder_attention_heads
+    layer_fwd = _remat(cfg, _encoder_layer)
     for p in enc["layers"]:
-        kv = _project_kv(p["self_attn"], x, n_heads)
-        h = _attention(p["self_attn"], x, kv, bias, n_heads, cfg.compute_dtype)
-        x = _ln(p["self_attn_ln"], x + h)
-        x = _ln(p["final_ln"], x + _ffn(p, x))
+        x = layer_fwd(cfg, p, x, bias)
     return x
+
+
+def _encoder_layer(cfg: BartConfig, p, x, bias):
+    n_heads = cfg.encoder_attention_heads
+    kv = _project_kv(p["self_attn"], x, n_heads)
+    h = _attention(p["self_attn"], x, kv, bias, n_heads, cfg.compute_dtype)
+    x = _ln(p["self_attn_ln"], x + h)
+    return _ln(p["final_ln"], x + _ffn(p, x))
+
+
+def _remat(cfg: BartConfig, layer_fwd):
+    """``layer_fwd``, recomputed in the backward instead of keeping its
+    activations when ``cfg.remat`` is set (``jax.checkpoint`` in the JAX
+    package); the results are the same."""
+    if not cfg.remat:
+        return layer_fwd
+
+    def checkpointed(*args):
+        return checkpoint(layer_fwd, *args, use_reentrant=False, preserve_rng_state=False)
+
+    return checkpointed
 
 
 # -------------------------------------------------------------- decoder
@@ -252,7 +273,6 @@ def decode_full(cfg: BartConfig, params: Params, enc_out, enc_mask, decoder_inpu
     padding bias when ``decoder_mask`` is given) and full cross-attention
     over the encoder output."""
     dec = params["decoder"]
-    n_heads = cfg.decoder_attention_heads
     l = decoder_input_ids.shape[1]
     dev = decoder_input_ids.device
     positions = torch.arange(l, device=dev)[None, :]
@@ -264,14 +284,21 @@ def decode_full(cfg: BartConfig, params: Params, enc_out, enc_mask, decoder_inpu
     if decoder_mask is not None:
         causal = causal + _padding_bias(decoder_mask)
     enc_bias = _padding_bias(enc_mask)
-    for p, ckv in zip(dec["layers"], precompute_cross_kv(cfg, params, enc_out)):
-        kv = _project_kv(p["self_attn"], x, n_heads)
-        h = _attention(p["self_attn"], x, kv, causal, n_heads, cfg.compute_dtype)
-        x = _ln(p["self_attn_ln"], x + h)
-        h = _attention(p["cross_attn"], x, ckv, enc_bias, n_heads, cfg.compute_dtype)
-        x = _ln(p["cross_attn_ln"], x + h)
-        x = _ln(p["final_ln"], x + _ffn(p, x))
+    layer_fwd = _remat(cfg, _decoder_layer)
+    for p in dec["layers"]:
+        x = layer_fwd(cfg, p, x, enc_out, causal, enc_bias)
     return lm_logits(cfg, params, x)
+
+
+def _decoder_layer(cfg: BartConfig, p, x, enc_out, causal, enc_bias):
+    n_heads = cfg.decoder_attention_heads
+    kv = _project_kv(p["self_attn"], x, n_heads)
+    h = _attention(p["self_attn"], x, kv, causal, n_heads, cfg.compute_dtype)
+    x = _ln(p["self_attn_ln"], x + h)
+    ckv = _project_kv(p["cross_attn"], enc_out, n_heads)
+    h = _attention(p["cross_attn"], x, ckv, enc_bias, n_heads, cfg.compute_dtype)
+    x = _ln(p["cross_attn_ln"], x + h)
+    return _ln(p["final_ln"], x + _ffn(p, x))
 
 
 def lm_logits(cfg: BartConfig, params: Params, hidden):

@@ -32,8 +32,8 @@ class BartConfig:
     # the checkpoints depend on
     position_offset: int = 2
     dtype: str = "float32"  # compute dtype: "float32" | "bfloat16"
-    # a training knob of the JAX package, unused here: kept so a JAX
-    # config loads as BartConfig(**dataclasses.asdict(jax_cfg))
+    # training: recompute each encoder and decoder layer in the backward
+    # instead of keeping its activations (models/bart.py:_remat)
     remat: bool = False
 
     @property

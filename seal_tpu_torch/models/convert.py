@@ -44,6 +44,20 @@ def params_from_jax(np_tree, cfg, device=DEFAULT_DEVICE) -> Dict[str, Any]:
     return _tree_map(leaf, np_tree)
 
 
+def opt_state_from_jax(np_state, device=DEFAULT_DEVICE):
+    """optax's chain state of ``seal_tpu.training.trainer.make_optimizer``
+    (as numpy, ``jax.device_get``): ``(EmptyState(), (ScaleByAdamState(count,
+    mu, nu), EmptyState(), ScaleByScheduleState(count)))``, as the port's
+    ``OptState`` on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    from seal_tpu_torch.training.trainer import OptState
+
+    adam, _decay, schedule = np_state[1]
+    return OptState(count=int(adam.count), mu=params_from_jax(adam.mu, None, device),
+                    nu=params_from_jax(adam.nu, None, device),
+                    schedule_count=int(schedule.count))
+
+
 def from_hf_t5_state_dict(sd: Dict[str, Any], cfg, device=DEFAULT_DEVICE) -> Dict[str, Any]:
     """A HF ``T5ForConditionalGeneration.state_dict()`` as the port's T5
     tree, f32 on ``device`` (the card unless the caller asks for the CPU)."""

@@ -3,28 +3,42 @@
 suffix array (native and numpy routes), every method of the native helper
 library, ``SEALDocument``, ``PhaseTimer`` and ``ServingMetrics``, and the
 sharded index's host helpers (``round_robin_assignments``, ``shard_path``,
-``save_shard_manifest``, ``load_sharded_hosts``, ``UnionHostIndex``).  All
+``save_shard_manifest``, ``load_sharded_hosts``, ``UnionHostIndex``), and
+the training data's text repair (``utils/textfix.py``), generation
+(``training/data_gen.py``) and the three dataset CLIs' output files.  All
 outputs must be identical."""
 
 import copy
+import json
+import random
 
 import numpy as np
 import pytest
 
+from seal_tpu.cli import make_supervised_dpr_dataset as jdpr_cli
+from seal_tpu.cli import make_supervised_kilt_dataset as jkilt_cli
+from seal_tpu.cli import make_unsupervised_dataset as junsup_cli
 from seal_tpu.cpp import native as jnative
 from seal_tpu.index import suffix_array as jsa
 from seal_tpu.index.fm_index import FMIndex as JFMIndex
 from seal_tpu.parallel import sharded_index as jsi
 from seal_tpu.retrieval.document import SEALDocument as JDoc
 from seal_tpu.scoring import keys as jk
+from seal_tpu.training import data_gen as jdg
 from seal_tpu.utils import profiling as jprof
+from seal_tpu.utils import textfix as jtf
+from seal_tpu_torch.cli import make_supervised_dpr_dataset as tdpr_cli
+from seal_tpu_torch.cli import make_supervised_kilt_dataset as tkilt_cli
+from seal_tpu_torch.cli import make_unsupervised_dataset as tunsup_cli
 from seal_tpu_torch.cpp import native as tnative
 from seal_tpu_torch.index import suffix_array as tsa
 from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.index.fm_index import FMIndex as TFMIndex
 from seal_tpu_torch.parallel import sharded_index as tsi
 from seal_tpu_torch.retrieval.document import SEALDocument as TDoc
+from seal_tpu_torch.training import data_gen as tdg
 from seal_tpu_torch.utils import profiling as tprof
+from seal_tpu_torch.utils import textfix as ttf
 
 ARRAYS = ("text", "sa", "psi", "C", "bwt")
 LISTS = ("beginnings", "occurring", "occurring_distinct", "occurring_counts", "labels")
@@ -326,3 +340,114 @@ def test_union_host_index_equal():
     for g in range(len(docs)):
         assert t.get_doc(g) == j.get_doc(g) == docs[g]
         assert t.get_doc_length(g) == j.get_doc_length(g)
+
+
+TEXTS = ["cafÃ©", "donâ€™t stop", "caf&eacute; &amp; tea", "plain text", "naïve café",
+         "Ã¼ber &lt;b&gt;", "\u2022 bullet BULLET::::- item", "Section::::History. Soup",
+         "  spaced   out\ttext  ", ""]
+
+
+def test_textfix_copy_equal():
+    for t in TEXTS:
+        assert ttf.fix_text(t) == jtf.fix_text(t), t
+
+
+def _dpr_json(path):
+    data = [{"question": "who eats soup", "positive_ctxs": [
+        {"text": "Soup is eaten with spoons by people who like soup", "title": "Soup",
+         "score": "1000", "passage_id": "p1"},
+        {"text": "A fork is a poor tool for eating soup with", "title": "Fork",
+         "score": "600", "passage_id": "p2"}]},
+        {"question": "what is a fork", "positive_ctxs": [
+            {"text": "A fork is a utensil with prongs used for eating", "title": "Fork",
+             "score": "1200", "passage_id": "p2"}]}]
+    path.write_text(json.dumps(data))
+    return str(path)
+
+
+def _kilt_files(tmp_path, tag):
+    kb = tmp_path / f"kb_{tag}.tsv"
+    kb.write_text("12-3\tSoup\tSoup is eaten with spoons by hungry people\n"
+                  "40-1\tFork\tSection::::Use. A fork has prongs for eating\n")
+    inp = tmp_path / "kilt.jsonl"
+    inp.write_text("".join(json.dumps(r) + "\n" for r in [
+        {"id": "q1", "input": "who eats\nsoup", "output": [
+            {"provenance": [{"wikipedia_id": "12", "start_paragraph_id": 3}]}]},
+        {"id": "q2", "input": "what has prongs", "output": [
+            {"provenance": [{"wikipedia_id": "40", "start_paragraph_id": 1}]}]}]))
+    return str(inp), str(kb)
+
+
+def test_data_gen_copy_equal(tmp_path):
+    """Each function of the copy gives the JAX package's output on the
+    inputs of ``tests/test_training.py``, with a fresh ``Random(0)`` each."""
+    for a, b in [("soup", "soup"), ("soup", "xxxx"), ("eating soup", "eating soap")]:
+        assert tdg.fuzz_ratio(a, b) == jdg.fuzz_ratio(a, b)
+    toks = ["the", "soup", "is", "hot"]
+    assert list(tdg.span_iterator(toks)) == list(jdg.span_iterator(toks))
+    doc = "You can eat soup with a spoon but eating soup with a fork is hard"
+    for mod in (tdg, jdg):
+        assert mod.clean(doc) == jdg.clean(doc)
+    assert list(tdg.extract_spans(doc, "eating soup with a fork", n_samples=3, min_length=3,
+                                  max_length=3, rng=random.Random(0))) == \
+        list(jdg.extract_spans(doc, "eating soup with a fork", n_samples=3, min_length=3,
+                               max_length=3, rng=random.Random(0)))
+    dpr = _dpr_json(tmp_path / "dpr.json")
+    for kw in (dict(target="title", min_score=0, mark_target=True, mark_silver=True,
+                    min_score_gold=500), dict(target="span", min_score=0, min_length=2,
+                                              max_length=2),
+               dict(target="code", min_score=0, id2code={"p1": "c42", "p2": "c7"},
+                    mark_target=True)):
+        assert list(tdg.supervised_dpr_pairs(dpr, rng=random.Random(0), **kw)) == \
+            list(jdg.supervised_dpr_pairs(dpr, rng=random.Random(0), **kw))
+    inp, kb_path = _kilt_files(tmp_path, "fn")
+    kb = tdg.load_kilt_kb(kb_path, use_cache=False)
+    assert kb == jdg.load_kilt_kb(kb_path, use_cache=False)
+    for target in ("title", "span"):
+        assert list(tdg.supervised_kilt_pairs(inp, kb, target=target, mark_target=True,
+                                              min_length=2, max_length=2,
+                                              rng=random.Random(0))) == \
+            list(jdg.supervised_kilt_pairs(inp, kb, target=target, mark_target=True,
+                                           min_length=2, max_length=2, rng=random.Random(0)))
+    rows = [("1", "alpha beta gamma delta epsilon zeta eta theta", "Greek")]
+    kw = dict(num_samples=2, num_title_samples=1, full_doc_n=1, min_length_input=2,
+              max_length_input=2, min_length_output=2, max_length_output=2)
+    assert list(tdg.unsupervised_pairs(rows, rng=random.Random(0), **kw)) == \
+        list(jdg.unsupervised_pairs(rows, rng=random.Random(0), **kw))
+    for mod, out in ((tdg, "t"), (jdg, "j")):
+        mod.write_pairs([("a b", "c d")], str(tmp_path / out))
+    for ext in (".source", ".target"):
+        assert (tmp_path / f"t{ext}").read_text() == (tmp_path / f"j{ext}").read_text()
+
+
+@pytest.mark.parametrize("cli", ["dpr", "kilt", "unsupervised"])
+def test_dataset_cli_outputs_equal(tmp_path, cli):
+    """The port's dataset CLIs write the same files as the JAX package's
+    for one seed."""
+    outs = {}
+    for tag, mods in (("t", (tdpr_cli, tkilt_cli, tunsup_cli)),
+                      ("j", (jdpr_cli, jkilt_cli, junsup_cli))):
+        dpr_cli, kilt_cli, unsup_cli = mods
+        out = str(tmp_path / f"out_{tag}")
+        if cli == "dpr":
+            args = [_dpr_json(tmp_path / "dpr.json"), out, "--min_score", "0",
+                    "--min_length", "3", "--max_length", "3", "--n_samples", "2",
+                    "--mark_target", "--mark_silver", "--seed", "5"]
+            assert dpr_cli.main(args) == 0
+            files = [out + ".source", out + ".target"]
+        elif cli == "kilt":
+            inp, kb = _kilt_files(tmp_path, tag)  # each run its own KB cache
+            assert kilt_cli.main([inp, out, "--kb", kb, "--target", "title", "--mark_target",
+                                  "--seed", "5"]) == 0
+            files = [out + ".source", out + ".target"]
+        else:
+            tsv = tmp_path / "corpus.tsv"
+            tsv.write_text("id\ttext\ttitle\n" + "".join(
+                f"{i}\t{' '.join(f'w{j}' for j in range(i, i + 30))}\tTitle {i}\n"
+                for i in range(4)))
+            assert unsup_cli.main([str(tsv), out + ".source", out + ".target",
+                                   "--min_length_input", "3", "--max_length_input", "4",
+                                   "--num_samples", "3", "--seed", "5"]) == 0
+            files = [out + ".source", out + ".target"]
+        outs[tag] = [open(f).read() for f in files]
+    assert outs["t"] == outs["j"] and outs["t"][0]

@@ -18,8 +18,10 @@ from seal_tpu_torch.index.device_index import TorchFMIndex
 from seal_tpu_torch.index.wavelet import WaveletIndex
 from seal_tpu_torch import bench_search
 from seal_tpu_torch.kernels import (
+    adamw,
     beam_select,
     bucket_counts,
+    build,
     count_mask,
     decode_attention,
     dense_scores,
@@ -31,6 +33,7 @@ from seal_tpu_torch.kernels import (
     row_select,
     row_topk,
     sample_select,
+    train_loss,
     triton_logsoftmax,
     window_gather,
     wt_bucket_counts,
@@ -3175,3 +3178,196 @@ def test_force_full_generate_on_card_matches_cpu(cuda, layout):
         ka, kb = sorted((tuple(t), s) for s, t in a), sorted((tuple(t), s) for s, t in b)
         assert [t for t, _ in ka] == [t for t, _ in kb]
         np.testing.assert_allclose([s for _, s in kb], [s for _, s in ka], atol=1e-4, rtol=0)
+
+
+# kernel 22 against its plain version: the loss within 2e-6 relative (f32
+# log-sum-exps of rows of up to 50,265 terms summed in another order; the
+# row losses in f64), ntok exactly, the gradient within 1e-5 of the row's
+# largest entry (exp(x - lse) inherits the lse's rounding: a few ulps of an
+# lse near 16 are ~4e-6 of a probability near 1)
+NLL_RTOL, NLL_GRAD_ATOL = 2e-6, 1e-5
+
+
+def _nll_case(cuda, n, v, pad_rows, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, v, generator=g, device=cuda) * 4
+    t = torch.randint(0, v, (n,), generator=g, device=cuda, dtype=torch.int32)
+    t[pad_rows] = 1
+    return x, t
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("n,v,pads", [
+    (1, 97, ()), (5, 50265, (2,)), (7, 64, (0, 6)), (33, 1001, (3,)),
+    (6, 50263, (1,)), (4, 50265, (0, 1, 2, 3)), (2, 3, ())])
+def test_label_smoothed_nll_matches_plain(cuda, n, v, pads, graph):
+    """Kernel 22's forward and backward at V odd and even (at odd V most
+    rows start off 16 bytes), N = 1, an all-pad batch and a 3-wide row,
+    eager and replayed from a CUDA graph."""
+    x, t = _nll_case(cuda, n, v, list(pads), n * v)
+    gout = torch.tensor(1.7, device=cuda)
+    f0, b0 = train_loss.nll_forward.launches, train_loss.nll_backward.launches
+
+    def run():
+        loss, ntok, lse = train_loss.nll_forward(x, t, 1, 0.1)
+        return loss, ntok, lse, train_loss.nll_backward(x, t, lse, ntok, gout, 1, 0.1)
+
+    loss, ntok, lse, grad = _graph_call(run) if graph else run()
+    torch.cuda.synchronize()
+    assert train_loss.nll_forward.launches - f0 == train_loss.nll_backward.launches - b0 \
+        == (2 if graph else 1)
+    want, want_ntok = train_loss.label_smoothed_nll_plain(x, t, 1, 0.1)
+    assert ntok.item() == want_ntok.item() == max(int((t != 1).sum()), 1)
+    np.testing.assert_allclose(loss.item(), want.item(), rtol=NLL_RTOL, atol=1e-7)
+    want_lse = torch.logsumexp(x, -1)
+    want_grad = train_loss.nll_backward_plain(x, t, want_lse, want_ntok, gout, 1, 0.1)
+    scale = want_grad.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    assert ((grad - want_grad).abs() / scale).max().item() <= NLL_GRAD_ATOL
+    if len(pads) == n:
+        assert loss.item() == 0.0 and not grad.any()
+    again = train_loss.nll_forward(x, t, 1, 0.1)[0]
+    assert again.item() == loss.item()  # no float atomics: the same bits
+
+
+def test_label_smoothed_nll_limits(cuda):
+    """Logits whose base is not 16-byte aligned are refused (the gradient's
+    rows share the logits' layout only from an aligned base); so are other
+    dtypes and mismatched targets."""
+    buf = torch.randn(3 * 97 + 3, device=cuda)
+    t = torch.zeros(3, dtype=torch.int32, device=cuda)
+    for off in (1, 2, 3):
+        x = buf[off : off + 3 * 97].view(3, 97)
+        with pytest.raises(ValueError, match="aligned"):
+            train_loss.nll_forward(x, t, 1, 0.1)
+        with pytest.raises(ValueError, match="aligned"):
+            train_loss.nll_backward(x, t, t.float(), t.float()[0], t.float()[0], 1, 0.1)
+    with pytest.raises(ValueError, match="f32"):
+        train_loss.nll_forward(buf[:3 * 97].view(3, 97).half(), t, 1, 0.1)
+    with pytest.raises(ValueError, match="want"):
+        train_loss.nll_forward(buf[:3 * 97].view(3, 97), t[:2], 1, 0.1)
+
+
+def test_label_smoothed_nll_autograd_on_card(cuda):
+    """The autograd function's gradient on the card equals autograd of the
+    plain version (through the same closed form)."""
+    x, t = _nll_case(cuda, 9, 50265, [4], 11)
+    xa = x.clone().requires_grad_(True)
+    loss, _ = train_loss.LabelSmoothedNLL.apply(xa, t, 1, 0.1)
+    (g,) = torch.autograd.grad(loss * 3.0, xa)
+    xb = x.clone().requires_grad_(True)
+    (gb,) = torch.autograd.grad(train_loss.label_smoothed_nll_plain(xb, t, 1, 0.1)[0] * 3.0, xb)
+    assert ((g - gb).abs().max() / gb.abs().max()).item() <= 1e-5
+
+
+def _param_set(cuda, g, sizes, scale):
+    return [torch.randn(sz, generator=g, device=cuda) * scale for sz in sizes]
+
+
+# many small tensors (LayerNorm rows, biases, 4-wide tails) and one of the
+# shared embedding's 51.5M elements
+ADAMW_SIZES = [(1024,), (3, 5), (7,), (1, 1), (50265, 1024), (4096, 1024), (1024,), (13,)] + \
+    [(1024,)] * 40
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("grad_scale,count", [(1e-5, 3), (1e-2, 3), (1e-5, 0)])
+def test_adamw_matches_plain(cuda, grad_scale, count, graph):
+    """Kernel 23's norm and update: the norm within 1e-5 relative (sums of
+    squares in another order), then one update from the same norm: p, mu
+    and nu within 1e-6 relative of the plain version (the same f32
+    operations); the norm below max_norm (1e-5 a gradient) and above it;
+    count 0 under a warm-up (lr 0: p moves only by nothing)."""
+    from seal_tpu_torch.training import trainer
+
+    gen = torch.Generator(device=cuda).manual_seed(count + int(grad_scale * 1e5))
+    p = _param_set(cuda, gen, ADAMW_SIZES, 0.02)
+    grads = _param_set(cuda, gen, ADAMW_SIZES, grad_scale)
+    mu = _param_set(cuda, gen, ADAMW_SIZES, 1e-3)
+    nu = [x.abs() for x in _param_set(cuda, gen, ADAMW_SIZES, 1e-6)]
+    opt = trainer.make_optimizer(trainer.TrainConfig(learning_rate=1e-3, warmup_steps=2))
+    h = opt.hyper(trainer.OptState(count=count, mu=None, nu=None, schedule_count=count))
+    assert (h.neg_lr == 0.0) == (count == 0)
+    want_norm = adamw.global_norm_plain(grads)
+    n0, u0 = adamw.global_norm.launches, adamw.adamw_update.launches
+    norm = _graph_call(lambda: adamw.global_norm(grads)) if graph else adamw.global_norm(grads)
+    np.testing.assert_allclose(norm.item(), want_norm.item(), rtol=1e-5)
+    assert (norm.item() < h.max_norm) == (grad_scale < 1e-3)
+    want = [[x.clone() for x in lst] for lst in (p, mu, nu)]
+    adamw.adamw_update_plain(*want[:1], grads, *want[1:], norm, h)
+    if graph:  # capture on copies, then replay once onto the originals
+        got = [[x.clone() for x in lst] for lst in (p, mu, nu)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            adamw.adamw_update(*[[x.clone() for x in lst] for lst in got[:1]], grads,
+                               *[[x.clone() for x in lst] for lst in got[1:]], norm, h)
+        torch.cuda.current_stream().wait_stream(side)
+        cg = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cg):
+            adamw.adamw_update(got[0], grads, got[1], got[2], norm, h)
+        for lst, orig in zip(got, (p, mu, nu)):
+            for a, b in zip(lst, orig):
+                a.copy_(b)
+        cg.replay()
+    else:
+        got = [p, mu, nu]
+        adamw.adamw_update(p, grads, mu, nu, norm, h)
+    torch.cuda.synchronize()
+    assert adamw.global_norm.launches - n0 == adamw.adamw_update.launches - u0 == 1 + graph
+    for lst, ref in zip(got, want):
+        for a, b in zip(lst, ref):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-12)
+    if count == 0:
+        for a, b in zip(got[0], want[0]):
+            assert torch.equal(a, b)
+
+
+def test_adamw_limits(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    big = torch.randn(41, generator=gen, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        adamw.global_norm([big[1:]])
+    many = [torch.zeros(4, device=cuda) for _ in range(build.lib().seal_adamw_max_tensors() + 1)]
+    with pytest.raises(ValueError, match="tensors"):
+        adamw.global_norm(many)
+    # empty tensors are skipped
+    x = torch.ones(8, device=cuda)
+    assert adamw.global_norm([torch.zeros(0, device=cuda), x]).item() == pytest.approx(8 ** 0.5)
+
+
+
+def test_tied_head_gradient_on_card(cuda):
+    """The bf16 head's gradient (``models/common.py:_HeadMM``) against the
+    f32 products of the same bf16 operands and the bf16-rounded upstream
+    gradient: the hidden state's gradient within one bf16 rounding of its
+    f32 sum (2^-8 relative) plus f32 summation order, the table's in f32
+    after the bf16 rounding of the cast's gradient."""
+    from seal_tpu_torch.models.common import tied_head
+
+    cfg = bart_tiny(vocab_size=1003)
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    shared = torch.randn(1003, 32, generator=gen, device=cuda).requires_grad_(True)
+    hidden = torch.randn(6, 32, generator=gen, device=cuda).to(torch.bfloat16).requires_grad_(True)
+    gout = torch.randn(6, 1003, generator=gen, device=cuda)
+    out = tied_head(cfg, shared, hidden)
+    assert out.dtype == torch.float32
+    gs, gh = torch.autograd.grad((out * gout).sum(), [shared, hidden])
+    w = shared.detach().to(torch.bfloat16).float()
+    gb = gout.to(torch.bfloat16).float()
+    torch.testing.assert_close(gs, (gb.T @ hidden.detach().float()), rtol=2 ** -8, atol=1e-4)
+    torch.testing.assert_close(gh.float(), gb @ w, rtol=2 ** -8, atol=1e-4)
+    assert gs.dtype == torch.float32 and gh.dtype == torch.bfloat16
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """3 train steps of bart_tiny in f32: the card (kernels 22 and 23) and
+    the CPU path (their plain versions) from the same params and batches,
+    within ``parity``'s tolerances (losses 1e-5 relative, params 1e-5)."""
+    from seal_tpu_torch.training import parity
+
+    res = parity.card_against_cpu(cuda)
+    assert res["cpu_launches"] == (0, 0) and res["launches"] == (3, 3)
+    assert res["ok"], res

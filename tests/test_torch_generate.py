@@ -359,7 +359,14 @@ for name in list(sys.modules):
         del sys.modules[name]
 import seal_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(seal_tpu_torch.__path__, "seal_tpu_torch.")]
-assert {"seal_tpu_torch.kernels.locate", "seal_tpu_torch.kernels.row_select"} <= set(mods)
+assert {"seal_tpu_torch.kernels.locate", "seal_tpu_torch.kernels.row_select",
+        "seal_tpu_torch.kernels.train_loss", "seal_tpu_torch.kernels.adamw",
+        "seal_tpu_torch.training.trainer", "seal_tpu_torch.training.checkpoint",
+        "seal_tpu_torch.training.data_gen", "seal_tpu_torch.training.parity",
+        "seal_tpu_torch.utils.textfix",
+        "seal_tpu_torch.cli.train", "seal_tpu_torch.cli.make_supervised_dpr_dataset",
+        "seal_tpu_torch.cli.make_supervised_kilt_dataset",
+        "seal_tpu_torch.cli.make_unsupervised_dataset"} <= set(mods)
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
