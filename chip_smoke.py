@@ -189,6 +189,38 @@
    on the card against the CPU path (``training.parity``, which the card's
    tests call too); the train CLI on a tiny word-vocab
    dataset (6 steps, a checkpoint at step 6).
+17. Drives the system's own entry points at the e2e searcher point:
+   ``bench_search``'s 10k documents written as a KILT TSV with a code
+   segment each (``Title{i}`` / ``c{i} || body``), indexed by ``python -m
+   seal_tpu_torch.cli.build_fm_index --include_title --train_word_vocab``
+   monolithic and with ``--shards 4 --jobs 4`` (two processes at once,
+   timed; the vocab, documents and token count checked against the rows
+   as tokenized here); a BART-large f32
+   checkpoint from a seed in the fairseq layout (``{"model": sd}``, the
+   embedding one row short; its size and write time logged); ``python -m
+   seal_tpu_torch.cli.search`` over 32 DPR topics (``--hits 10``, TREC,
+   the default knobs, ``--device`` left at ``auto``) in a process of its
+   own, and ``SEALSearcher.from_args`` on the same files here: the
+   parameters are the checkpoint's, the CLI's documents and order are
+   this process's with scores within 1e-6 relative of its printed
+   decimals, the queries/s, phases and each kernel's launches (kernels
+   1-5 and 7-11) of this run, one unit's raw keys grounded; the 4-shard
+   manifest through ``SEALSearcher.load`` (one unit: the monolithic run's
+   documents in its order, scores within 1e-6 relative, the shard modes'
+   launches);
+   ``python -m seal_tpu_torch.cli.serve`` fed the 32 queries as JSONL with
+   two malformed lines (32 results, the same documents, 2 lines skipped,
+   its metrics' queries/s); a 16-query unit with ``decode_code`` (and with
+   ``partial_code``): code keys start with ``code_bos_token_id`` and are
+   grounded, the raw code hypotheses lie in the corpus after the forced
+   prefix; the CLIs at tiny size on the card against ``--device cpu`` (the
+   same documents in the same order) with the train CLI from
+   ``--init_checkpoint``; a unit with ``jobs=2`` (spawned workers, their
+   pool started before the serve CLI) equal to ``jobs=1`` (documents,
+   scores, text, and every kernel's launches), on the monolithic searcher
+   and on the manifest's, the aggregate phase of each and the pools' start
+   split (the parent's files, each worker's spawn and imports, its
+   initializer).
 
 Each path's launch counts come from that path's own run (every count set
 to 0 just before it, read just after); on every decoding path kernels 9
@@ -537,6 +569,17 @@ PATH_KERNELS["generate_mono_dense"] = PATH_KERNELS["generate_dense"]
 TRAIN_STEP = ("label_smoothed_nll", "label_smoothed_nll_backward", "clip_global_norm",
               "adamw_update")
 PATH_KERNELS["train"] = TRAIN_STEP
+# the entry points (section 17): the search CLI's searcher loaded from files,
+# its 4-shard manifest, and units with code decoding and jobs
+PATH_KERNELS["batch_search_load"] = PATH_KERNELS["batch_search"]
+for _path in ("batch_search_load_sharded", "batch_search_load_sharded_jobs1",
+              "batch_search_load_sharded_jobs2"):
+    PATH_KERNELS[_path] = PATH_KERNELS["batch_search_sharded"]
+for _path in ("batch_search_code", "batch_search_partial_code", "batch_search_jobs1",
+              "batch_search_jobs2"):
+    PATH_KERNELS[_path] = ("fm_search", "window_gather", "row_topk", "log_softmax_min_len",
+                           "fm_sequences", "rescore_logprob", "fm_search_advance", "beam_select",
+                           "cross_attention_step", "self_attention_step", "reorder_cache")
 
 
 def psi_constrained(path: str) -> bool:
@@ -4661,6 +4704,583 @@ def training_phase(np, torch, zero_counts, read_counts):
                       kernels=prof["kernels"], wall_ms=prof["wall_ms"])
 
 
+# ---- section 17: the system's own entry points ------------------------------
+
+CLI_TIMEOUT = 400  # seconds one CLI process may take (the index build the longest)
+CODE_BOOST = 30.0  # the code decode's logit bias on a code's first token (" c")
+
+
+def port_state_dict(torch, params, layout: str, dtype=None):
+    """A BART tree (the port's, or JAX's as numpy: the layouts are the same)
+    as a torch state dict on the CPU, in ``dtype`` if given, with the keys a
+    real checkpoint holds: the fairseq layout (``"fairseq"``: the tied
+    embedding under its three names, one row short as SEAL's checkpoints
+    are, and the ``version`` entries the loaders skip) or the HF one
+    (``"hf"``, or ``"hf_nobias"`` without ``final_logits_bias``).  The
+    inverse of the loaders' key map, which neither package writes; a tensor
+    under several names is one tensor, so ``torch.save`` writes it once."""
+    hf = layout.startswith("hf")
+    pre = "model." if hf else ""
+    sd = {}
+
+    def tensor(a, transpose=False):
+        t = a.detach().cpu() if isinstance(a, torch.Tensor) else torch.tensor(a)
+        t = t.T.contiguous() if transpose else t
+        return t.to(dtype) if dtype is not None else t
+
+    def put(key, a, transpose=False):
+        sd[key] = tensor(a, transpose)
+
+    def dense(p, prefix):
+        put(prefix + ".weight", p["kernel"], True)
+        put(prefix + ".bias", p["bias"])
+
+    def ln(p, prefix):
+        put(prefix + ".weight", p["scale"])
+        put(prefix + ".bias", p["bias"])
+
+    def attn(p, prefix):
+        for n, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            dense(p[n], f"{prefix}.{name}")
+
+    for side, cross in (("encoder", False), ("decoder", True)):
+        p, b0 = params[side], pre + side
+        put(b0 + ".embed_positions.weight", p["embed_positions"])
+        ln(p["layernorm_embedding"], b0 + ".layernorm_embedding")
+        for i, lp in enumerate(p["layers"]):
+            b = f"{b0}.layers.{i}"
+            attn(lp["self_attn"], b + ".self_attn")
+            ln(lp["self_attn_ln"], b + ".self_attn_layer_norm")
+            dense(lp["fc1"], b + ".fc1")
+            dense(lp["fc2"], b + ".fc2")
+            ln(lp["final_ln"], b + ".final_layer_norm")
+            if cross:
+                attn(lp["cross_attn"], b + ".encoder_attn")
+                ln(lp["cross_attn_ln"], b + ".encoder_attn_layer_norm")
+    shared = tensor(params["shared"])
+    if hf:
+        for key in ("model.shared.weight", "model.encoder.embed_tokens.weight",
+                    "model.decoder.embed_tokens.weight", "lm_head.weight"):
+            sd[key] = shared
+        if layout == "hf":
+            sd["final_logits_bias"] = tensor(params["final_logits_bias"])[None]
+    else:
+        shared = shared[:-1]
+        for key in ("encoder.embed_tokens.weight", "decoder.embed_tokens.weight",
+                    "decoder.output_projection.weight"):
+            sd[key] = shared
+        sd["encoder.version"] = torch.tensor([3.0])
+        sd["decoder.version"] = torch.tensor([3.0])
+    return sd
+
+
+def cli_process(module: str, args, stdin=None):
+    """``python -m seal_tpu_torch.cli.<module> args`` started in a process of
+    its own from the checkout's root (stdout and stderr piped)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", f"seal_tpu_torch.cli.{module}", *args], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE), stdin=subprocess.PIPE if stdin else None,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cli_wait(proc, what: str, t0: float, stdin=None):
+    """(stdout, stderr, seconds since ``t0``) of a CLI process; kills it past
+    ``CLI_TIMEOUT`` and fails the phase on a non-zero exit."""
+    try:
+        out, err = proc.communicate(input=stdin, timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{what}: exit code {proc.returncode}; stderr tail {err[-2000:]!r}")
+    return out, err, seconds
+
+
+def serving_metrics(err: str) -> dict:
+    """The ``serving metrics: {...}`` snapshot a CLI logs on exit."""
+    import ast
+
+    lines = [x for x in err.splitlines() if "serving metrics: " in x]
+    if not lines:
+        fail("a CLI logged no serving metrics")
+        return {}
+    return ast.literal_eval(lines[-1].split("serving metrics: ", 1)[1])
+
+
+def trec_run(path: str) -> dict:
+    """{topic: [(docid, score), ...] in rank order} of a TREC run file."""
+    run: dict = {}
+    for line in open(path):
+        topic, _, docid, rank, score, _ = line.split()
+        run.setdefault(topic, []).append((docid, float(score), int(rank)))
+    for hits in run.values():
+        if [r for _, _, r in hits] != list(range(1, len(hits) + 1)):
+            fail("a TREC run's ranks are not 1, 2, ...")
+    return {t: [(d, sc) for d, sc, _ in hits] for t, hits in run.items()}
+
+
+def code_grounding(searcher, queries):
+    """One unit's raw code hypotheses, decoded as ``process_batch`` decodes
+    them (the forced ``code_bos_token_id``, eos ``code_eos_token_id``): each
+    lies in the corpus after the forced prefix from its second generated
+    token on (its first is chosen under the dense corpus mask, as a title's
+    is); returns (hypotheses checked, complete code keys among them)."""
+    s = searcher
+    cfg, host = s.model_cfg, s.fm_index
+    toks = s._tokenize_batch(s._marked([" " + q.strip() for q in queries], "code"))
+    raw = s._generate(s.code_params, toks, min_length=1, max_length=15,
+                      eos_token_id=s.code_eos_token_id, force_decoding_from=[s.code_bos_token_id],
+                      num_beams=s.beam, forced_bos_token_id=None, top_m=s.top_m, window=s.window)
+    n = complete = 0
+    for hyps in raw:
+        for _, t in hyps:
+            key = [x for x in t[1:] if x not in (cfg.pad_token_id, cfg.bos_token_id)]
+            n += 1
+            want = [s.code_bos_token_id] + key if len(key) >= 2 else key
+            if host.get_count(want) <= 0:
+                fail(f"raw code key not in the corpus: {want}")
+            complete += len(key) >= 2 and key[-1] == s.code_eos_token_id
+    return n, complete
+
+
+def same_docs(np, a, b, rtol: float, what: str, atol: float = 0.0) -> float:
+    """Fails unless two rankings (lists of (docid, score) per query) hold
+    the same documents in the same order with scores within ``rtol``
+    relative (plus ``atol``); returns the largest relative difference."""
+    worst = 0.0
+    if len(a) != len(b):
+        fail(f"{what}: {len(a)} against {len(b)} queries")
+    for x, y in zip(a, b):
+        if [d for d, _ in x] != [d for d, _ in y]:
+            fail(f"{what}: documents differ: {[d for d, _ in x]} against {[d for d, _ in y]}")
+            continue
+        if x:
+            sx, sy = np.array([v for _, v in x]), np.array([v for _, v in y])
+            if np.any(np.abs(sx - sy) > rtol * np.abs(sy) + atol):
+                fail(f"{what}: scores differ beyond {rtol} relative: {sx} against {sy}")
+            worst = max(worst, float(np.max(np.abs(sx - sy) / np.abs(sy))))
+    return worst
+
+
+def start_pool(searcher, jobs=2):
+    """Starts ``searcher``'s ``jobs`` worker pool and one ``_worker_info``
+    task a worker (the pool spawns them on demand); returns what
+    ``pool_split`` reads."""
+    from seal_tpu_torch.retrieval.searcher import _worker_info
+
+    searcher.jobs = jobs
+    t0, wall0 = time.perf_counter(), time.time()
+    pool = searcher._worker_pool()
+    files_s = time.perf_counter() - t0
+    files = [os.path.join(searcher._pool_files.name, f)
+             for f in os.listdir(searcher._pool_files.name) if f.endswith(".npy")]
+    pickled = os.path.getsize(os.path.join(searcher._pool_files.name, "ranker.pkl"))
+    info = dict(wall0=wall0, files_s=files_s, file_bytes=sum(map(os.path.getsize, files)),
+                n_files=len(files), pickle_bytes=pickled,
+                tasks=[pool.submit(_worker_info) for _ in range(jobs)])
+    searcher.jobs = 1
+    return info
+
+
+def pool_split(info) -> dict:
+    """A pool's start, split: the parent's writing of the ranker's files
+    (the pickle and the mapped arrays), each worker's spawn and imports (to
+    its initializer's start) and its reading and mapping of the ranker
+    (the initializer)."""
+    got = {pid: (start - info["wall0"], end - start)
+           for pid, start, end in (f.result() for f in info["tasks"])}
+    return dict(files_s=round(info["files_s"], 3), file_mb=round(info["file_bytes"] / 1e6, 1),
+                n_files=info["n_files"], pickle_mb=round(info["pickle_bytes"] / 1e6, 2),
+                spawn_import_s=[round(a, 2) for a, _ in got.values()],
+                init_s=[round(b, 3) for _, b in got.values()])
+
+
+def ranking(results):
+    return [[(d.docid, d.score) for d in r] for r in results]
+
+
+def tiny_cli_flow(np, torch, tmp):
+    """The CLIs at tiny size: a KILT corpus through ``build_fm_index``, a
+    bart_tiny checkpoint from a seed (the words boosted in its logit bias)
+    as a HF directory, ``search`` on the card (``--device`` left at
+    ``auto``) against ``--device cpu`` (documents and order equal, scores
+    within SEARCH_RTOL), and the train CLI on the card from the same
+    weights as a fairseq ``.pt`` (``--init_checkpoint``) for 2 steps."""
+    import contextlib
+    import io
+
+    from seal_tpu_torch import bench_search
+    from seal_tpu_torch.cli import build_fm_index, search
+    from seal_tpu_torch.cli import train as train_cli
+    from seal_tpu_torch.models import bart
+    from seal_tpu_torch.models.config import bart_tiny
+    from seal_tpu_torch.models.tokenizer import WordVocabTokenizer
+    from seal_tpu_torch.training import checkpoint
+
+    rng = np.random.default_rng(0)
+    words = [f"word{i}" for i in range(80)]
+    rows = bench_search.TINY_CORPUS + [
+        (f"f{i}", f"Filler{i}", " ".join(rng.choice(words, size=30))) for i in range(20)]
+    d = os.path.join(tmp, "tiny")
+    os.makedirs(os.path.join(d, "hf"))
+    with open(os.path.join(d, "corpus.tsv"), "w") as f:
+        f.write("".join(f"{i}\t{t}\t{b}\n" for i, t, b in rows))
+    idx = os.path.join(d, "idx")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = build_fm_index.main([os.path.join(d, "corpus.tsv"), idx, "--include_title",
+                                  "--train_word_vocab"])
+    if rc != 0:
+        fail(f"tiny build_fm_index: exit code {rc}")
+    tok = WordVocabTokenizer.load(idx + ".word_vocab.json")
+    cfg = bart_tiny(vocab_size=tok.vocab_size)
+    params = bart.init_params(cfg, seed=0, device="cpu")
+    bias = torch.zeros(cfg.vocab_size)
+    for _, title, body in bench_search.TINY_CORPUS:
+        for t in tok.encode_plain(" " + body) + tok.encode_plain(f" {title} @@"):
+            bias[t] = 6.0 + float(rng.random())
+    params["final_logits_bias"] = bias
+    torch.save(port_state_dict(torch, params, "hf"), os.path.join(d, "hf", "pytorch_model.bin"))
+    torch.save({"model": port_state_dict(torch, params, "fairseq")},
+               os.path.join(d, "tiny.pt"))
+    with open(os.path.join(d, "topics.json"), "w") as f:
+        json.dump([{"question": q, "answers": []} for q in bench_search.TINY_QUERIES], f)
+    runs = {}
+    for device in ("auto", "cpu"):
+        path = os.path.join(d, f"run_{device}.trec")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = search.main(["--topics", os.path.join(d, "topics.json"), "--topics_format",
+                              "dpr", "--output", path, "--hits", "5", "--fm_index", idx,
+                              "--checkpoint", os.path.join(d, "hf"), "--tokenizer",
+                              idx + ".word_vocab.json", "--backbone", "tiny-word", "--beam", "4",
+                              "--length", "4", "--batch_size", "2", "--device", device])
+        if rc != 0:
+            fail(f"tiny search CLI (--device {device}): exit code {rc}")
+        runs[device] = trec_run(path)
+    topics = sorted(runs["cpu"], key=int)
+    if sorted(runs["auto"], key=int) != topics or not topics:
+        fail(f"tiny search CLI: topics {sorted(runs['auto'])} against {topics}")
+    worst = same_docs(np, [runs["auto"].get(t, []) for t in topics],
+                      [runs["cpu"][t] for t in topics], SEARCH_RTOL,
+                      "tiny search CLI, card against --device cpu", atol=5e-7)
+    n_docs = sum(len(v) for v in runs["cpu"].values())
+    if n_docs == 0:
+        fail("tiny search CLI: no documents")
+    with open(os.path.join(d, "train.source"), "w") as f:
+        f.write("".join(f" {q} || body\n" for q in bench_search.TINY_QUERIES * 2))
+    with open(os.path.join(d, "train.target"), "w") as f:
+        f.write("".join(f" {b}\n" for _, _, b in bench_search.TINY_CORPUS * 2))
+    save = os.path.join(d, "save")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = train_cli.main([os.path.join(d, "train"), save, "--tokenizer",
+                             idx + ".word_vocab.json", "--backbone", "tiny", "--batch_size", "4",
+                             "--max_update", "2", "--log_interval", "1", "--lr", "1e-3",
+                             "--init_checkpoint", os.path.join(d, "tiny.pt")])
+    if rc != 0 or checkpoint.latest_step(save) != 2:
+        fail(f"train CLI --init_checkpoint: exit code {rc}, latest step "
+             f"{checkpoint.latest_step(save)}")
+    return dict(topics=len(topics), docs=n_docs, worst_rel=worst)
+
+
+def entry_points_phase(np, torch, zero_counts, read_counts):
+    """Section 17: the system started as a user starts it.  The e2e
+    searcher corpus as a KILT TSV with a code segment a document, indexed by
+    ``build_fm_index`` (monolithic and ``--shards 4``, in two processes at
+    once); a BART-large f32 checkpoint from a seed in the fairseq layout;
+    the search CLI (TREC) and the serve CLI (JSONL, with malformed lines)
+    over 32 queries in processes of their own, each against
+    ``SEALSearcher.from_args`` on the same files in this process (kernel
+    launches counted here); the 4-shard manifest; the tiny CLI flow on
+    the card against the CPU; code decoding; ``jobs=2`` against
+    ``jobs=1``."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seal_tpu_torch import bench_search
+    from seal_tpu_torch.index.fm_index import FMIndex
+    from seal_tpu_torch.models import bart
+    from seal_tpu_torch.models.config import bart_large
+    from seal_tpu_torch.models.tokenizer import WordVocabTokenizer
+    from seal_tpu_torch.parallel.sharded_index import load_sharded_hosts
+    from seal_tpu_torch.retrieval.searcher import SEALSearcher
+
+    t_phase = time.perf_counter()
+    run, marks = {}, []
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        # 1. the corpus (bench_search's 10k documents, each with a code) and
+        # the checkpoint, written while the two index builds run
+        rng = np.random.default_rng(0)
+        texts = bench_search.build_texts(rng)
+        queries = bench_search.build_queries(rng, texts)
+        rows = [(f"{i}", *t.split(" @@ ", 1)) for i, t in enumerate(texts)]
+        tsv = os.path.join(tmp, "corpus.tsv")
+        with open(tsv, "w") as f:
+            f.write("".join(f"{i}\t{title}\tc{i} || {body}\n" for i, title, body in rows))
+        idx, sh = os.path.join(tmp, "idx"), os.path.join(tmp, "sh")
+        t_build = time.perf_counter()
+        builds = {name: cli_process("build_fm_index", [tsv, out, "--format", "kilt",
+                                                       "--include_title", "--train_word_vocab",
+                                                       *extra])
+                  for name, out, extra in (("mono", idx, []),
+                                           ("shards", sh, ["--shards", "4", "--jobs", "4"]))}
+        try:
+            t0 = time.perf_counter()
+            cfg = bart_large()
+            params = bart.init_params(cfg, seed=0)
+            ckpt = os.path.join(tmp, "bart_large.pt")
+            torch.save({"model": port_state_dict(torch, params, "fairseq")},
+                       ckpt)
+            ckpt_s = time.perf_counter() - t0
+            # the rows' documents as --include_title writes them, tokenized by
+            # a vocab trained here (the builds must have trained the same)
+            docs = [f"{t} @@ c{i} || {b}" for i, t, b in rows]
+            tok = WordVocabTokenizer.train([" " + d for d in docs], max_vocab=50_000)
+            want = [tok.encode_plain(" " + d) + [tok.eos_token_id] for d in docs]
+            log(f"entry points: corpus {len(rows)} documents; fairseq checkpoint "
+                f"{os.path.getsize(ckpt) / 1e9:.3f} GB (BART-large f32, {cfg.vocab_size - 1} "
+                f"embedding rows) written in {ckpt_s:.1f} s")
+            with ThreadPoolExecutor(len(builds)) as pool:  # each process's own wall
+                waits = {name: pool.submit(cli_wait, proc, f"build_fm_index ({name})", t_build)
+                         for name, proc in builds.items()}
+                built = {}
+                for name, fut in waits.items():
+                    out, _, secs = fut.result()
+                    built[name] = (out.strip().splitlines()[-1] if out.strip() else "", secs)
+        finally:
+            for proc in builds.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for path in (idx, sh):
+            if WordVocabTokenizer.load(path + ".word_vocab.json").encoder != tok.encoder:
+                fail(f"build_fm_index: {path}'s vocab is not the rows' vocab")
+        host = FMIndex.load(idx)
+        want_tokens = sum(map(len, want))
+        hosts, _, _ = load_sharded_hosts(sh)
+        sh_tokens = sum(len(h) for h in hosts)
+        if host.n_docs != len(rows) or len(host) != want_tokens or sh_tokens != want_tokens \
+                or sum(h.n_docs for h in hosts) != len(rows) or len(hosts) != 4:
+            fail(f"build_fm_index: {host.n_docs} docs, {len(host)} tokens, shards "
+                 f"{[h.n_docs for h in hosts]} docs and {sh_tokens} tokens (want {len(rows)} "
+                 f"docs, {want_tokens} tokens)")
+        for i in (0, len(rows) // 2, len(rows) - 1):
+            if host.get_doc(i) != want[i]:
+                fail(f"build_fm_index: document {i} is not its row's tokens")
+        log(f"build_fm_index ({CARD}): monolithic {built['mono'][1]:.1f} s ({built['mono'][0]!r}), "
+            f"--shards 4 --jobs 4 {built['shards'][1]:.1f} s ({built['shards'][0]!r}), in two "
+            f"processes at once; {host.n_docs} docs, {len(host)} tokens as the rows tokenize, vocab "
+            f"{tok.vocab_size}")
+        run.update(build_s=built["mono"][1], shards_build_s=built["shards"][1], ckpt_s=ckpt_s,
+                   tokens=len(host))
+
+        marks.append(("corpus, checkpoint, builds", time.perf_counter() - t_phase))
+
+        # 2. the search CLI over 32 DPR topics, then from_args in this process
+        topics = os.path.join(tmp, "topics.json")
+        with open(topics, "w") as f:
+            json.dump([{"question": q, "answers": []} for q in queries], f)
+        common = ["--fm_index", idx, "--checkpoint", ckpt, "--tokenizer",
+                  idx + ".word_vocab.json", "--backbone", "word-vocab-large", "--batch_size",
+                  str(bench_search.BATCH_SIZE)]
+        trec = os.path.join(tmp, "run.trec")
+        t0 = time.perf_counter()
+        out, err, cli_s = cli_wait(cli_process("search", [
+            "--topics", topics, "--topics_format", "dpr", "--output", trec, "--output_format",
+            "trec", "--hits", str(bench_search.TOP_K), *common]), "search CLI", t0)
+        cli_metrics = serving_metrics(err)
+        cli_run = trec_run(trec)
+        if sorted(cli_run, key=int) != [str(i) for i in range(len(queries))] or any(
+                not 0 < len(h) <= bench_search.TOP_K for h in cli_run.values()):
+            fail(f"search CLI: {len(cli_run)} topics with {[len(h) for h in cli_run.values()]} "
+                 f"hits (want {len(queries)}, 1-{bench_search.TOP_K} each)")
+        log(f"search CLI ({CARD}): rc 0, {len(cli_run)} topics, "
+            f"{sum(len(h) for h in cli_run.values())} hits in {cli_s:.1f} s of process wall "
+            f"(start, index, checkpoint, kernels' load, search); its serving metrics {cli_metrics}")
+        parser = __import__("argparse").ArgumentParser()
+        SEALSearcher.add_args(parser)
+        t0 = time.perf_counter()
+        searcher = SEALSearcher.from_args(parser.parse_args(common))
+        load_s = time.perf_counter() - t0
+        layer = searcher.params["decoder"]["layers"][-1]["fc1"]["kernel"]
+        if not torch.equal(layer, params["decoder"]["layers"][-1]["fc1"]["kernel"]) or \
+                not torch.equal(searcher.params["shared"][:-1], params["shared"][:-1]) or \
+                bool(searcher.params["shared"][-1].any()) or searcher.device_index.psi.device.type \
+                != "cuda" or searcher.model_cfg.dtype != "float32":
+            fail("SEALSearcher.from_args: the loaded parameters or the index are not the "
+                 "checkpoint's on the card in f32")
+        del params
+        unit = queries[: searcher.batch_size]
+        searcher.batch_search(unit, k=bench_search.TOP_K)  # warm-up unit
+        searcher.phase_timer.enabled = True
+        zero_counts()
+        t0 = time.perf_counter()
+        results = searcher.batch_search(queries, k=bench_search.TOP_K)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        launches = read_counts("batch_search_load")
+        phases = dict(searcher.phase_timer.totals)
+        searcher.phase_timer.enabled = False
+        in_proc = ranking(results)
+        worst = same_docs(np, [cli_run.get(str(i), []) for i in range(len(queries))],
+                          [[(d, round(sc, 6)) for d, sc in r] for r in in_proc], 1e-6,
+                          "search CLI against SEALSearcher.from_args in this process", atol=5e-7)
+        n_body, n_title = searcher_grounding(searcher, unit)
+        log(f"SEALSearcher.from_args ({CARD}): load {load_s:.1f} s; {len(queries)} queries in "
+            f"{search_s:.3f} s = {len(queries) / search_s:.2f} queries/s (BART-large f32); phases "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items()))
+            + f"; the CLI's documents in its order, scores within {worst:.2e} relative of its "
+            f"6 printed decimals; {n_body} raw body and {n_title} raw title keys of one unit "
+            f"grounded")
+        log(f"launches in the batch_search_load run: {launches}")
+        run.update(cli_s=cli_s, cli_qps=cli_metrics.get("queries_per_s"), load_s=load_s,
+                   qps=len(queries) / search_s)
+
+        marks.append(("search CLI, from_args", time.perf_counter() - t_phase))
+
+        # 3. the 4-shard manifest, from the same checkpoint: one unit
+        t0 = time.perf_counter()
+        sharded = SEALSearcher.load(sh, ckpt, tokenizer_path=sh + ".word_vocab.json",
+                                    backbone="word-vocab-large",
+                                    batch_size=bench_search.BATCH_SIZE)
+        sh_load_s = time.perf_counter() - t0
+        if sharded.sharded_index is None or sharded.sharded_index.n_shards != 4:
+            fail("SEALSearcher.load on a --shards 4 manifest did not build 4 shards")
+        zero_counts()
+        t0 = time.perf_counter()
+        sh_results = ranking(sharded.batch_search(unit, k=bench_search.TOP_K))
+        torch.cuda.synchronize()
+        sh_s = time.perf_counter() - t0
+        sh_launches = read_counts("batch_search_load_sharded")
+        mono = in_proc[: len(unit)]
+        overlap = [len({d for d, _ in a} & {d for d, _ in b}) for a, b in zip(sh_results, mono)]
+        # the union index ranks in the monolith's canonical order: the same
+        # documents in the same order, the same scores
+        sh_worst = same_docs(np, sh_results, mono, 1e-6,
+                             "the 4-shard manifest against the monolithic searcher")
+        log(f"4-shard manifest ({CARD}): load {sh_load_s:.1f} s; one unit of {len(unit)} in "
+            f"{sh_s:.3f} s = {len(unit) / sh_s:.2f} queries/s (no warm-up); "
+            f"top-{bench_search.TOP_K} overlap with the monolithic run {sum(overlap)} of "
+            f"{sum(len(r) for r in mono)} (per query {overlap}), the same documents in the same "
+            f"order, scores within {sh_worst:.2e} relative; shard modes launched "
+            + str({k: v for k, v in sh_launches.items() if "sharded" in k and v}))
+
+        marks.append(("manifest", time.perf_counter() - t_phase))
+
+        # 4. the jobs pools (the monolithic searcher's and the manifest's)
+        # start while the serve CLI's process loads: spawned workers import
+        # torch and map the host index's files
+        pools = {name: start_pool(s) for name, s in (("monolithic", searcher),
+                                                      ("4-shard", sharded))}
+
+        # the serve CLI: the same 32 queries as JSONL, two malformed lines
+        lines = [json.dumps({"id": i, "query": q}) for i, q in enumerate(queries)]
+        lines[5:5] = [json.dumps({"id": "bad", "query": 7}), "[1, 2]"]
+        t0 = time.perf_counter()
+        out, err, serve_s = cli_wait(cli_process("serve", ["--hits", str(bench_search.TOP_K),
+                                                           *common], stdin=True),
+                                     "serve CLI", t0, stdin="\n".join(lines) + "\n")
+        serve_metrics = serving_metrics(err)
+        served = [json.loads(x) for x in out.splitlines() if x.strip()]
+        skipped = err.count("skipping malformed query line")
+        if [r["id"] for r in served] != list(range(len(queries))) or skipped != 2:
+            fail(f"serve CLI: ids {[r['id'] for r in served]}, {skipped} lines skipped")
+        else:
+            same_docs(np, [[(h["docid"], h["score"]) for h in r["hits"]] for r in served],
+                      in_proc, 1e-6, "serve CLI against SEALSearcher.from_args")
+        log(f"serve CLI ({CARD}): {len(served)} result lines, {skipped} malformed lines "
+            f"skipped, the same documents and scores as in this process; {serve_s:.1f} s of "
+            f"process wall; its serving metrics {serve_metrics}")
+        run.update(serve_s=serve_s, serve_qps=serve_metrics.get("queries_per_s"))
+
+        marks.append(("serve CLI", time.perf_counter() - t_phase))
+
+        # 5. the CLIs at tiny size, the card against the CPU
+        tiny = tiny_cli_flow(np, torch, tmp)
+        log(f"tiny CLI flow ({CARD}): search on the card and with --device cpu, {tiny['topics']} "
+            f"topics and {tiny['docs']} hits, the same documents in the same order (scores "
+            f"within {tiny['worst_rel']:.2e} relative); train CLI --init_checkpoint 2 steps")
+        marks.append(("tiny CLI flow", time.perf_counter() - t_phase))
+
+        # 6. code decoding (its decode's logit bias favours a code's first
+        # token " c": random weights would not pick it under the corpus mask)
+        marker = tok.encode_plain(" c")[0]
+        bias = searcher.params["final_logits_bias"].clone()
+        bias[marker] = CODE_BOOST
+        searcher.code_params = dict(searcher.params, final_logits_bias=bias)
+        searcher.decode_body = False
+        for path, partial in (("batch_search_code", False), ("batch_search_partial_code", True)):
+            searcher.decode_code, searcher.partial_code = True, partial
+            keys = [kk for kk, _ in searcher.batch_generate_keys(unit[:4])]
+            code_keys = [k for kk in keys for k, _ in kk if k[0] == searcher.code_bos_token_id]
+            if not code_keys or any(host.get_count(list(k)) <= 0 for k in code_keys):
+                fail(f"{path}: {len(code_keys)} code keys, each must be grounded")
+            zero_counts()
+            t0 = time.perf_counter()
+            res = searcher.batch_search(unit, k=bench_search.TOP_K)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            c_launches = read_counts(path)
+            if not any(res):
+                fail(f"{path}: no documents")
+            log(f"{path} ({CARD}): one unit of {len(unit)} in {secs:.3f} s; "
+                f"{len(code_keys)} code keys of 4 queries, each starting with "
+                f"{searcher.code_bos_token_id} and grounded; launches {c_launches}")
+        # the raw hypotheses (partial_code filters the same decode)
+        n_raw, complete = code_grounding(searcher, unit)
+        if not complete:
+            fail("code decode: no complete raw code key")
+        log(f"code decode ({CARD}): {n_raw} raw code hypotheses of one unit grounded after the "
+            f"forced prefix, {complete} complete (ending in {searcher.code_eos_token_id})")
+        searcher.decode_code = searcher.partial_code = False
+        searcher.decode_body = True
+
+        marks.append(("code", time.perf_counter() - t_phase))
+
+        # 7. jobs=2 (the spawned workers) against jobs=1, on the monolithic
+        # searcher and on the manifest's (whose ranges come from kernel 5's
+        # shard count mode in the parent at both settings)
+        agg = {}
+        for name, s, path in (("monolithic", searcher, "batch_search_jobs"),
+                              ("4-shard", sharded, "batch_search_load_sharded_jobs")):
+            outs, counts = {}, {}
+            for jobs in (1, 2):
+                s.jobs = jobs
+                s.phase_timer = type(s.phase_timer)(enabled=True)
+                zero_counts()
+                t0 = time.perf_counter()
+                res = s.batch_search(unit, k=bench_search.TOP_K)
+                secs = time.perf_counter() - t0
+                counts[jobs] = read_counts(f"{path}{jobs}")
+                agg[(name, jobs)] = (secs, s.phase_timer.totals.get("aggregate"))
+                outs[jobs] = [[(d.docid, d.score, d.text()) for d in r] for r in res]
+            s.jobs = 1
+            s.close()
+            s.phase_timer = type(s.phase_timer)(enabled=False)
+            if outs[2] != outs[1] or not any(outs[1]):
+                fail(f"jobs=2 ranks differently from jobs=1 on the {name} searcher (documents, "
+                     f"scores or text)")
+            if counts[2] != counts[1]:
+                fail(f"jobs=2 launched other kernels than jobs=1 on the {name} searcher: "
+                     f"{counts[2]} against {counts[1]}")
+            seqs = "fm_sequences_sharded" if s.sharded_index is not None else "fm_sequences"
+            log(f"jobs, {name} ({CARD}): one unit of {len(unit)}, jobs=2 (2 spawned workers) "
+                f"equal to jobs=1 (documents, scores, text) with the same launches ({seqs} "
+                f"{counts[2][seqs]}); "
+                f"(unit wall s, aggregate phase s): jobs=1 {agg[(name, 1)]}, jobs=2 "
+                f"{agg[(name, 2)]}; pool start: {pool_split(pools[name])}")
+        run.update(jobs={f"{k[0]} {k[1]}": v for k, v in agg.items()},
+                   pools={k: pool_split(v) for k, v in pools.items()})
+        del searcher, sharded
+        torch.cuda.empty_cache()
+    run["wall"] = time.perf_counter() - t_phase
+    marks.append(("jobs", run["wall"]))
+    run["steps"] = {name: round(t, 1) for name, t in marks}
+    log(f"section 17's steps ({CARD}), seconds since its start at each one's end: {run['steps']}")
+    return run
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -5699,6 +6319,9 @@ def main() -> int:
         log_kernel(row)
     table += tr_table
     log(f"training phase wall {time.perf_counter() - t0:.1f} s")
+    # ---- the entry points: the CLIs and SEALSearcher.load on the card ------
+    ep_run = entry_points_phase(np, torch, zero_counts, read_counts)
+    log(f"entry points phase wall {ep_run['wall']:.1f} s")
     total = {name: sum(p[name] for p in by_path.values()) for name in counters}
     for name, n in total.items():
         if n <= 0 and name not in ENTRY_POINTS_ONLY:
@@ -5735,7 +6358,13 @@ def main() -> int:
         f"losses {[round(x, 4) for x in tr_run['losses']]}, peak {tr_run['peak_gb']:.2f} GB "
         f"above the earlier phases', "
         f"profiled step {tr_run['device_ms']:.2f} device ms of {tr_run['wall_ms']:.2f} ms "
-        f"({100 * tr_run['busy']:.1f}% busy, {tr_run['kernels']} kernels)")
+        f"({100 * tr_run['busy']:.1f}% busy, {tr_run['kernels']} kernels)"
+        f"; entry points: build_fm_index {ep_run['build_s']:.1f} s (4 shards "
+        f"{ep_run['shards_build_s']:.1f} s), checkpoint written {ep_run['ckpt_s']:.1f} s, search "
+        f"CLI {ep_run['cli_s']:.1f} s ({ep_run['cli_qps']} queries/s), from_args load "
+        f"{ep_run['load_s']:.1f} s then {ep_run['qps']:.2f} queries/s, serve CLI "
+        f"{ep_run['serve_s']:.1f} s ({ep_run['serve_qps']} queries/s); phase "
+        f"{ep_run['wall']:.1f} s")
     log(f"launches by path: {json.dumps(by_path)}")
     kernels = []
     for row in table:

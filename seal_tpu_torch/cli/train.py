@@ -7,9 +7,11 @@ batching with static padded shapes, the label-smoothed-CE training loop
 JAX package's layout (``training/checkpoint.py``).  Defaults mirror the
 reference's fairseq run (lr 3e-5, warm-up 500, label smoothing 0.1, clip
 0.1, save every 15k keep 3).  ``--device`` (default ``cuda``) picks the
-device; ``cpu`` runs the kernels' plain versions.  Two flags need modules
-that are not ported yet and raise: ``--init_checkpoint`` (the foreign
-checkpoint loaders) and ``--tensor_parallel`` above 1 (the mesh).
+device; ``cpu`` runs the kernels' plain versions.  ``--init_checkpoint``
+starts from a fairseq ``.pt`` or a HF checkpoint (``models/convert.py``),
+the optimizer state zero as ``optimizer.init`` starts it.
+``--tensor_parallel`` above 1 needs the mesh, which is not ported yet,
+and raises.
 
     python -m seal_tpu_torch.cli.train DATA SAVE_DIR --tokenizer word_vocab.json
 """
@@ -73,7 +75,7 @@ def main(argv=None):
     parser.add_argument("--tokenizer", required=True)
     parser.add_argument("--backbone", default="facebook/bart-large")
     parser.add_argument("--init_checkpoint", default=None,
-                        help="fairseq .pt / HF dir to start from (not ported yet)")
+                        help="fairseq .pt / HF dir to start from")
     parser.add_argument("--lr", type=float, default=3e-5)
     parser.add_argument("--warmup", type=int, default=500)
     parser.add_argument("--max_update", type=int, default=800_000)
@@ -97,16 +99,13 @@ def main(argv=None):
 
     import torch
 
+    from seal_tpu_torch.models import convert
     from seal_tpu_torch.models.config import bart_large, bart_tiny
     from seal_tpu_torch.models.tokenizer import load_tokenizer
     from seal_tpu_torch.training import checkpoint as ckpt
     from seal_tpu_torch.training import trainer
     from seal_tpu_torch.utils.device import checked_device
 
-    if args.init_checkpoint:
-        raise NotImplementedError(
-            "--init_checkpoint: the fairseq and HF checkpoint loaders are not ported to "
-            "seal_tpu_torch yet (ROADMAP.md A.9)")
     if args.tensor_parallel > 1:
         raise NotImplementedError(
             "--tensor_parallel > 1: the mesh across cards is not ported to seal_tpu_torch yet "
@@ -126,7 +125,14 @@ def main(argv=None):
     tcfg = trainer.TrainConfig(
         learning_rate=args.lr, warmup_steps=args.warmup, total_steps=args.max_update
     )
-    params, opt_state = trainer.init_train_state(cfg, tcfg, seed=args.seed, device=device)
+    if args.init_checkpoint:
+        if args.init_checkpoint.endswith(".pt"):
+            params = convert.load_fairseq_checkpoint(args.init_checkpoint, cfg, device)
+        else:
+            params = convert.load_hf_checkpoint(args.init_checkpoint, cfg, device)
+        opt_state = trainer.make_optimizer(tcfg).init(params)
+    else:
+        params, opt_state = trainer.init_train_state(cfg, tcfg, seed=args.seed, device=device)
 
     step = 0
     if args.resume and ckpt.latest_step(args.save_dir) is not None:

@@ -12,11 +12,13 @@ mT5) is served against its input embedding table, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import os
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
+from seal_tpu_torch.models.config import BartConfig
 from seal_tpu_torch.utils.device import DEFAULT_DEVICE, checked_device
 
 NEG_INF = float("-inf")
@@ -56,6 +58,110 @@ def opt_state_from_jax(np_state, device=DEFAULT_DEVICE):
     return OptState(count=int(adam.count), mu=params_from_jax(adam.mu, None, device),
                     nu=params_from_jax(adam.nu, None, device),
                     schedule_count=int(schedule.count))
+
+
+def _loader(sd: Mapping[str, Any], device):
+    """Reads the entries of ``sd`` onto ``device`` in their own dtype; a
+    dense weight ([out, in] in torch) comes back as the [in, out] kernel."""
+
+    def t(key: str, transpose: bool = False) -> torch.Tensor:
+        src = torch.as_tensor(sd[key]).detach()
+        a = src.to(device)
+        if transpose:
+            a = a.T.contiguous()
+        # never alias the caller's dict
+        same = a.untyped_storage().data_ptr() == src.untyped_storage().data_ptr()
+        return a.clone() if same else a
+
+    def dense(prefix):
+        return {"kernel": t(prefix + ".weight", True), "bias": t(prefix + ".bias")}
+
+    def ln(prefix):
+        return {"scale": t(prefix + ".weight"), "bias": t(prefix + ".bias")}
+
+    def attn(prefix):
+        return {n: dense(f"{prefix}.{p}") for n, p in
+                (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj"))}
+
+    def layer(prefix, cross):
+        p = {"self_attn": attn(prefix + ".self_attn"),
+             "self_attn_ln": ln(prefix + ".self_attn_layer_norm"),
+             "fc1": dense(prefix + ".fc1"), "fc2": dense(prefix + ".fc2"),
+             "final_ln": ln(prefix + ".final_layer_norm")}
+        if cross:
+            p["cross_attn"] = attn(prefix + ".encoder_attn")
+            p["cross_attn_ln"] = ln(prefix + ".encoder_attn_layer_norm")
+        return p
+
+    def stack(prefix, n_layers, cross):
+        return {"embed_positions": t(prefix + ".embed_positions.weight"),
+                "layernorm_embedding": ln(prefix + ".layernorm_embedding"),
+                "layers": [layer(f"{prefix}.layers.{i}", cross) for i in range(n_layers)]}
+
+    return t, stack
+
+
+def from_hf_torch_state_dict(sd: Mapping[str, Any], cfg: BartConfig,
+                             device=DEFAULT_DEVICE) -> Dict[str, Any]:
+    """A HF ``BartForConditionalGeneration.state_dict()`` as the port's tree
+    on ``device`` (the card unless the caller asks for the CPU);
+    ``final_logits_bias`` is zeros (f32) where the dict has none."""
+    device = checked_device(device)
+    t, stack = _loader(sd, device)
+    shared = t("model.shared.weight")
+    if "final_logits_bias" in sd:
+        bias = t("final_logits_bias").reshape(-1)
+    else:
+        bias = torch.zeros(shared.shape[0], dtype=torch.float32, device=device)
+    return {"shared": shared, "final_logits_bias": bias,
+            "encoder": stack("model.encoder", cfg.encoder_layers, False),
+            "decoder": stack("model.decoder", cfg.decoder_layers, True)}
+
+
+def from_fairseq_state_dict(sd: Mapping[str, Any], cfg: BartConfig,
+                            device=DEFAULT_DEVICE) -> Dict[str, Any]:
+    """A fairseq BART checkpoint's ``state["model"]`` dict as the port's tree
+    on ``device``: the shared embedding is ``decoder.embed_tokens.weight``
+    padded with zero rows up to ``cfg.vocab_size`` (SEAL checkpoints are one
+    row short of the tokenizer's vocab); version keys and
+    ``decoder.output_projection`` are ignored."""
+    device = checked_device(device)
+    t, stack = _loader(sd, device)
+    emb = t("decoder.embed_tokens.weight")
+    if emb.shape[0] < cfg.vocab_size:
+        pad = emb.new_zeros(cfg.vocab_size - emb.shape[0], emb.shape[1])
+        emb = torch.cat([emb, pad])
+    return {"shared": emb,
+            "final_logits_bias": torch.zeros(emb.shape[0], dtype=torch.float32, device=device),
+            "encoder": stack("encoder", cfg.encoder_layers, False),
+            "decoder": stack("decoder", cfg.decoder_layers, True)}
+
+
+def torch_load(path: str):
+    # fairseq checkpoints pickle their argparse namespace beside the weights,
+    # so the full unpickler is needed (the JAX loaders use it too)
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def load_fairseq_checkpoint(path: str, cfg: BartConfig, device=DEFAULT_DEVICE) -> Dict[str, Any]:
+    """Load a fairseq ``checkpoint_best.pt`` (``{"model": state_dict, ...}``)."""
+    return from_fairseq_state_dict(torch_load(path)["model"], cfg, device)
+
+
+def load_hf_checkpoint(path_or_model, cfg: BartConfig, device=DEFAULT_DEVICE) -> Dict[str, Any]:
+    """Load from a HF model object, a ``pytorch_model.bin`` path, or a
+    directory holding one."""
+    if hasattr(path_or_model, "state_dict"):
+        return from_hf_torch_state_dict(path_or_model.state_dict(), cfg, device)
+    path = path_or_model
+    if os.path.isdir(path):
+        path = os.path.join(path, "pytorch_model.bin")
+    return from_hf_torch_state_dict(torch_load(path), cfg, device)
+
+
+# the reference's ``load_state_dict_from_lightning_checkpoint``
+# (``seal/utils.py:31-39``) loads a plain HF-layout torch state dict
+load_lightning_checkpoint = load_hf_checkpoint
 
 
 def from_hf_t5_state_dict(sd: Dict[str, Any], cfg, device=DEFAULT_DEVICE) -> Dict[str, Any]:

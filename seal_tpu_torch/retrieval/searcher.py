@@ -31,14 +31,32 @@ What changed in translation:
   ``ShardedTorchIndex`` with every shard on one card, ranked over a
   ``UnionHostIndex``), as the JAX searcher's sharded serving mode; a
   ``mesh`` (shards on several cards) raises ``NotImplementedError``.
-* Not ported yet (``NotImplementedError`` naming the knob): ``jobs`` >= 2
-  (forked workers after CUDA init) and ``decode_code``, at the first
-  search.  ``load`` (and so ``_load_sharded_manifest``), ``from_args`` and
-  the CLIs wait for a checkpoint loader without jax.
+* ``load`` / ``from_args`` put the index and the parameters on the device
+  they are given (``--device``: ``auto``, ``cuda`` and ``cuda:N`` mean the
+  card and raise where there is none; ``cpu`` the CPU).  A ``checkpoint``
+  of ``None`` or ``"random"`` gives the port's own seeded weights
+  (``init_params(cfg, 0)``), not the JAX package's ``PRNGKey(0)`` ones.
+* ``jobs`` >= 2 ranks (and, above 2, detokenizes) in ``spawn``ed worker
+  processes, not forked ones: forking after CUDA is initialized is unsafe.
+  The parent finds every key's range of a unit as the serial path does
+  (``_device_ranges``: on the card over shards and the wavelet layouts)
+  and sends the table with the keys; the workers hold only what is on the
+  host (the host index, the tokenizer, the ranker's knobs) and never touch
+  CUDA.  The host ranker reaches them as files (its pickle, and its large
+  arrays mapped copy-on-write, so the workers share one copy in the page
+  cache).  The
+  pool lives as long as the searcher, from its first use to ``close()``.
+  As with any ``spawn`` pool, a script that sets ``jobs`` >= 2 keeps its
+  own work under ``if __name__ == "__main__":`` (each worker imports it).
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import logging
+import os
+import pickle
 import time
 from itertools import islice
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -50,29 +68,89 @@ from seal_tpu_torch.decoding.generate import fm_index_generate
 from seal_tpu_torch.index.device_index import TorchFMIndex
 from seal_tpu_torch.index.fm_index import FMIndex
 from seal_tpu_torch.index.wavelet import WaveletIndex
+from seal_tpu_torch.models import api as model_api
 from seal_tpu_torch.models import convert
-from seal_tpu_torch.models.config import BartConfig
-from seal_tpu_torch.models.t5 import T5Config
+from seal_tpu_torch.models.config import BartConfig, bart_large, bart_tiny
+from seal_tpu_torch.models.t5 import T5Config, t5_tiny
+from seal_tpu_torch.models.tokenizer import load_tokenizer
 from seal_tpu_torch.parallel.sharded_decode import sharded_fm_index_generate
 from seal_tpu_torch.parallel.sharded_index import (
     ShardedTorchIndex,
     UnionHostIndex,
+    load_sharded_hosts,
     require_no_mesh,
     sharded_count_sequences,
 )
 from seal_tpu_torch.retrieval.document import SEALDocument
 from seal_tpu_torch.scoring import keys as rk
+from seal_tpu_torch.utils.device import DEFAULT_DEVICE, checked_device, resolve_device
 from seal_tpu_torch.utils.profiling import PhaseTimer, ServingMetrics
+
+logger = logging.getLogger(__name__)
 
 # parity: reference module-level debug switch printing scored ngrams
 DEBUG = False
 
-# knobs of the JAX searcher whose modes are not ported, and when they ask
-# for one (``index_shards`` > 1 is ported: it needs a sharded index)
-UNPORTED = {
-    "jobs": lambda v: v >= 2,
-    "decode_code": bool,
-}
+# what a jobs >= 2 worker process ranks with: the host-only copy of the
+# searcher that its pool's initializer sends (one per worker process), and
+# the wall-clock times its initializer started and ended
+_WORKER: Dict[str, object] = {}
+
+# arrays at least this large reach the workers as mapped files
+_MAPPED_MIN_BYTES = 1 << 20
+
+
+def _mapped_array(path: str) -> np.ndarray:
+    # copy-on-write: the pages stay shared unless a worker writes to them
+    return np.asarray(np.load(path, mmap_mode="c"))
+
+
+class _HostPickler(pickle.Pickler):
+    """Pickles the host ranker with each large numpy array written once to
+    ``directory`` and mapped by every worker (``_mapped_array``): the
+    pickle carries only the small objects."""
+
+    def __init__(self, file, directory: str):
+        super().__init__(file, protocol=pickle.HIGHEST_PROTOCOL)
+        self.directory, self.n_files = directory, 0
+
+    def reducer_override(self, obj):
+        if type(obj) is not np.ndarray or obj.dtype.hasobject or obj.nbytes < _MAPPED_MIN_BYTES:
+            return NotImplemented
+        path = os.path.join(self.directory, f"{self.n_files}.npy")
+        self.n_files += 1
+        np.save(path, obj)
+        return _mapped_array, (path,)
+
+
+def _worker_init(path: str) -> None:
+    t0 = time.time()
+    with open(path, "rb") as f:
+        _WORKER["ranker"] = pickle.load(f)
+    _WORKER["init"] = (t0, time.time())
+
+
+def _worker_info() -> Tuple[int, float, float]:
+    """(pid, wall-clock start and end of its initializer): what a worker's
+    start took apart from the spawn and its imports."""
+    return (os.getpid(), *_WORKER["init"])
+
+
+def _retrieve_from_keys_mp_aux(args):
+    knobs, keys, ranges = args
+    ranker = _WORKER["ranker"]
+    ranker.set_params(knobs)  # the parent's knobs at the time of the call
+    # the parent's ranges: a worker never counts a key itself
+    return ranker.retrieve_from_keys(keys, ranges=ranges)
+
+
+def _detokenize_mp_aux(args):
+    # reference detokenization strips surrounding whitespace
+    # (retrieval.py:778,823); the lazy SEALDocument.text() path does not
+    title_tokens, body_tokens = args
+    tok = _WORKER["ranker"].tokenizer
+    title = tok.decode(title_tokens, skip_special_tokens=True).strip() if title_tokens else ""
+    return title, tok.decode(body_tokens, skip_special_tokens=True).strip()
 
 
 class SEALSearcher:
@@ -195,6 +273,9 @@ class SEALSearcher:
         # off by default.  Phases overlap under pipelining: shares, not a
         # wall-clock sum
         self.phase_timer = PhaseTimer(enabled=False)
+        self._pool = None  # the jobs >= 2 worker pool, started at its first use
+        self._pool_size = 0
+        self._pool_files = None  # the directory of the pool's mapped arrays
 
         backbone = self.backbone
         if "bart" in backbone:
@@ -238,15 +319,193 @@ class SEALSearcher:
     def set_params(self, params: Dict):
         for key, val in self.DEFAULTS.items():
             setattr(self, key, params.get(key, val))
-        self._check_ported()
 
-    def _check_ported(self):
-        asked = [k for k, on in UNPORTED.items() if on(getattr(self, k))]
-        if asked:
-            raise NotImplementedError(
-                f"not ported to seal_tpu_torch yet: {', '.join(asked)} "
-                "(use seal_tpu for these modes)"
+    @classmethod
+    def add_args(cls, parser):
+        """CLI flags from ``DEFAULTS`` (reference retrieval.py:521-535):
+        ``--dont_X`` for a True default, ``--X`` for a False one."""
+        parser.add_argument("--fm_index", required=True, type=str)
+        parser.add_argument("--checkpoint", required=False, type=str)
+        parser.add_argument("--checkpoint_scorer", required=False, type=str, default=None)
+        parser.add_argument("--checkpoint_title", required=False, type=str, default=None)
+        parser.add_argument("--checkpoint_code", required=False, type=str, default=None)
+        parser.add_argument("--tokenizer", required=False, type=str, default=None)
+        parser.add_argument("--device", default="auto", type=str,
+                            help="auto, cuda or cuda:N (the card; raises without one) or cpu")
+        for name, value in cls.DEFAULTS.items():
+            if value is True:
+                parser.add_argument(f"--dont_{name}", action="store_false", dest=name)
+            elif value is False:
+                parser.add_argument(f"--{name}", action="store_true")
+            else:
+                parser.add_argument(f"--{name}", required=False, type=type(value), default=value)
+
+    @classmethod
+    def from_args(cls, args):
+        params = {name: getattr(args, name) for name in cls.DEFAULTS}
+        return cls.load(
+            args.fm_index,
+            args.checkpoint,
+            scorer_checkpoint=args.checkpoint_scorer,
+            title_checkpoint=args.checkpoint_title,
+            code_checkpoint=args.checkpoint_code,
+            tokenizer_path=args.tokenizer,
+            device=resolve_device(args.device),
+            **params,
+        )
+
+    # ---------------------------------------------------------------- loading
+
+    @staticmethod
+    def load_fm_index(path: str) -> FMIndex:
+        logger.warning("initializing FM-index from %s", path)
+        index = FMIndex.load(path)
+        logger.warning("FM-index initialized (%d docs, %d tokens)", index.n_docs, len(index))
+        return index
+
+    @classmethod
+    def load(
+        cls,
+        fm_index_path: str,
+        checkpoint: Optional[str] = None,
+        scorer_checkpoint: Optional[str] = None,
+        title_checkpoint: Optional[str] = None,
+        code_checkpoint: Optional[str] = None,
+        tokenizer_path: Optional[str] = None,
+        model_cfg: Optional[Union[BartConfig, T5Config]] = None,
+        device=DEFAULT_DEVICE,
+        **params,
+    ) -> "SEALSearcher":
+        """Load index + model(s) + tokenizer onto ``device`` (the card
+        unless the caller asks for the CPU; raises where no CUDA device
+        exists).
+
+        ``checkpoint`` may be a fairseq ``.pt`` (the default,
+        ``fairseq_checkpoint``), a HF ``.pt`` / ``pytorch_model.bin`` / model
+        directory, or ``None`` / ``"random"`` for the port's own seeded
+        weights (``init_params(cfg, 0)``: not the JAX package's
+        ``PRNGKey(0)`` weights).
+
+        When ``fm_index_path`` has a shard manifest (``build_fm_index
+        --shards N``), the per-shard indexes load directly, every shard on
+        ``device``; the monolithic host index is never built.  With
+        ``index_shards=N`` a monolithic index is re-split into N shards.
+        """
+        device = checked_device(device)
+        if os.path.exists(fm_index_path + ".manifest.json"):
+            return cls._load_sharded_manifest(
+                fm_index_path,
+                checkpoint,
+                scorer_checkpoint=scorer_checkpoint,
+                title_checkpoint=title_checkpoint,
+                code_checkpoint=code_checkpoint,
+                tokenizer_path=tokenizer_path,
+                model_cfg=model_cfg,
+                device=device,
+                **params,
             )
+        fm_index = cls.load_fm_index(fm_index_path)
+        tokenizer, model_cfg, main, extra = cls._load_models(
+            checkpoint, scorer_checkpoint, title_checkpoint, code_checkpoint,
+            tokenizer_path, model_cfg, params, device,
+        )
+        n_shards = int(params.pop("index_shards", 0) or 0)
+        if n_shards > 1:
+            # re-split the loaded corpus into shards: a one-time cost at
+            # load, the same decode as the monolithic index (numpy views,
+            # not per-document Python lists)
+            flat, off = fm_index.get_docs_flat(list(range(fm_index.n_docs)))
+            docs = [flat[off[i] : off[i + 1]] for i in range(fm_index.n_docs)]
+            labels = fm_index.labels or [str(i) for i in range(fm_index.n_docs)]
+            return cls.build_sharded(
+                docs, labels, tokenizer, model_cfg, main,
+                n_shards=n_shards, device=device, **extra, **params,
+            )
+        return cls(fm_index, tokenizer, model_cfg, main, device=device, **extra, **params)
+
+    @classmethod
+    def _load_models(
+        cls, checkpoint, scorer_checkpoint, title_checkpoint, code_checkpoint,
+        tokenizer_path, model_cfg, params, device=DEFAULT_DEVICE,
+    ):
+        """The tokenizer, the model config (from ``backbone`` and the
+        tokenizer's vocab unless given) and each checkpoint's parameters
+        on ``device``, with the SEAL logit bias."""
+        device = checked_device(device)
+        backbone = params.get("backbone", cls.DEFAULTS["backbone"])
+        tokenizer = load_tokenizer(tokenizer_path or backbone)
+        if model_cfg is None:
+            if "t5" in backbone:
+                model_cfg = (
+                    t5_tiny(vocab_size=tokenizer.vocab_size)
+                    if "tiny" in backbone
+                    else T5Config(vocab_size=max(32128, tokenizer.vocab_size))
+                )
+            elif "tiny" in backbone:
+                model_cfg = bart_tiny(vocab_size=tokenizer.vocab_size)
+            else:
+                model_cfg = bart_large()
+        if model_cfg.vocab_size < tokenizer.vocab_size:
+            model_cfg = dataclasses.replace(model_cfg, vocab_size=tokenizer.vocab_size)
+        model_mod = model_api.module_for(model_cfg)
+
+        def load_params(path):
+            if path in (None, "random"):
+                p = model_mod.init_params(model_cfg, 0, device)
+            elif getattr(model_cfg, "family", "bart") == "t5":
+                sd = convert.torch_load(path)
+                p = convert.from_hf_t5_state_dict(sd.get("model", sd), model_cfg, device)
+            elif path.endswith(".pt") and params.get("fairseq_checkpoint", True):
+                p = convert.load_fairseq_checkpoint(path, model_cfg, device)
+            else:
+                p = convert.load_hf_checkpoint(path, model_cfg, device)
+            return convert.apply_seal_logits_bias(p, model_cfg)
+
+        main = load_params(checkpoint)
+        extra = dict(
+            scorer_params=load_params(scorer_checkpoint) if scorer_checkpoint else None,
+            title_params=load_params(title_checkpoint) if title_checkpoint else None,
+            code_params=load_params(code_checkpoint) if code_checkpoint else None,
+        )
+        return tokenizer, model_cfg, main, extra
+
+    @classmethod
+    def _load_sharded_manifest(
+        cls,
+        fm_index_path: str,
+        checkpoint=None,
+        scorer_checkpoint=None,
+        title_checkpoint=None,
+        code_checkpoint=None,
+        tokenizer_path=None,
+        model_cfg=None,
+        mesh=None,
+        device=DEFAULT_DEVICE,
+        **params,
+    ) -> "SEALSearcher":
+        """Sharded serving straight from the per-shard index files, every
+        shard on ``device``."""
+        require_no_mesh(mesh)
+        device = checked_device(device)
+        hosts, assignments, labels = load_sharded_hosts(fm_index_path)
+        n_shards = len(hosts)
+        want = int(params.pop("index_shards", 0) or 0)
+        if want and want != n_shards:
+            raise ValueError(
+                f"index at {fm_index_path} was built with {n_shards} shards; "
+                f"index_shards={want} cannot re-split a shard-wise build"
+            )
+        logger.warning(
+            "sharded FM-index from %s: %d shards, %d docs",
+            fm_index_path, n_shards, sum(h.n_docs for h in hosts),
+        )
+        tokenizer, model_cfg, main, extra = cls._load_models(
+            checkpoint, scorer_checkpoint, title_checkpoint, code_checkpoint,
+            tokenizer_path, model_cfg, params, device,
+        )
+        si = ShardedTorchIndex.from_hosts(hosts, vocab=model_cfg.vocab_size, device=device)
+        union = UnionHostIndex(hosts, assignments, labels=labels)
+        return cls(union, tokenizer, model_cfg, main, sharded_index=si, **extra, **params)
 
     @classmethod
     def build_sharded(
@@ -464,6 +723,44 @@ class SEALSearcher:
             for fk, nfk in zip(found_keys, new_keys):
                 fk += nfk
 
+        if self.decode_code:
+            batch_str = self._marked(inputs, "code")
+            toks = self._tokenize_batch(batch_str)
+            raw = self._generate(
+                self.code_params,
+                toks,
+                min_length=1,
+                max_length=15,
+                eos_token_id=self.code_eos_token_id,
+                force_decoding_from=[self.code_bos_token_id],
+                **gen_common,
+            )
+            new_keys = []
+            for fk in raw:
+                s = self.strip_token_ids
+                if self.force_decoding_second_token >= 0:
+                    fk = [(sc, k[:1] + k[2:]) for sc, k in fk if len(k) >= 2]
+                fk = [(sc, k[1:-1] if k[-1] in s else k[1:]) for sc, k in fk if k]
+                if not self.partial_code:
+                    fk = [(sc, k) for sc, k in fk if k and k[-1] == self.code_eos_token_id]
+                fk = [
+                    (sc, [self.code_bos_token_id] + k if k[0] != self.code_bos_token_id else k)
+                    for sc, k in fk if k
+                ]
+                fk = self._count_filter(fk)
+                new_keys.append(fk)
+            if self.rescore and self.use_markers:
+                new_keys = self._rescore_keys(
+                    self.model_cfg,
+                    self.code_params,
+                    self._tokenize_batch(batch_str),
+                    new_keys,
+                    strip_from_bos=rescore_strip["strip_from_bos"],
+                    strip_from_eos=[self.model_cfg.eos_token_id],
+                )
+            for fk, nfk in zip(found_keys, new_keys):
+                fk += nfk
+
         if self.rescore and not self.use_markers:
             found_keys = self._rescore_keys(
                 self.model_cfg,
@@ -491,7 +788,6 @@ class SEALSearcher:
         return found_keys
 
     def batch_generate_keys(self, queries: Sequence[str]):
-        self._check_ported()
         for off in range(0, len(queries), self.batch_size):
             yield from self.process_batch(
                 queries[off : off + self.batch_size],
@@ -529,18 +825,23 @@ class SEALSearcher:
 
     # ------------------------------------------------------------- retrieval
 
-    def retrieve_from_keys(self, keys, use_device: bool = True):
+    def retrieve_from_keys(self, keys, use_device: bool = True, ranges=None):
         """Rank documents by ``keys`` (or a (keys, unigram scores) pair).
         ``use_device=False`` finds each key's range on the host index
-        (``range_fn=None``), as JAX's does; the ranking is the same."""
+        (``range_fn=None``), as JAX's does; ``ranges`` (``_unit_ranges``'s
+        table of every key) replaces the search.  The ranking is the same."""
         unigram_scores = None
         if isinstance(keys, tuple) and len(keys) == 2:
             keys, unigram_scores = keys
+        if ranges is not None:
+            range_fn = lambda seqs: [ranges[tuple(s)] for s in seqs]  # noqa: E731
+        else:
+            range_fn = self._device_ranges if use_device else None
         with self.phase_timer.phase("aggregate"):
             results, ngrams = rk.aggregate_evidence(
                 ngrams_and_scores=keys,
                 unigram_scores=unigram_scores,
-                range_fn=self._device_ranges if use_device else None,
+                range_fn=range_fn,
                 # matched-ngram lists are read only under include_keys
                 # (batch_search) or DEBUG printing
                 collect_found=self.include_keys or DEBUG,
@@ -566,11 +867,116 @@ class SEALSearcher:
         return results, ngrams
 
     def batch_retrieve_from_keys(self, keys):
-        self._check_ported()
-        for i, kk in enumerate(keys):
-            if self.print_n_doc:
-                print(i)
-            yield self.retrieve_from_keys(kk)
+        if self.jobs >= 2:
+            yield from self._mp_batch_retrieve_from_keys(keys)
+        else:
+            for i, kk in enumerate(keys):
+                if self.print_n_doc:
+                    print(i)
+                yield self.retrieve_from_keys(kk)
+
+    # ------------------------------------------------ jobs >= 2: the workers
+
+    def _knobs(self) -> Dict:
+        return {key: getattr(self, key) for key in self.DEFAULTS}
+
+    def _host_ranker(self) -> "SEALSearcher":
+        """What a worker ranks with: a searcher holding only this one's host
+        index, tokenizer and knobs (no parameters, no device index)."""
+        ranker = object.__new__(type(self))
+        ranker.fm_index, ranker.tokenizer = self.fm_index, self.tokenizer
+        ranker.phase_timer = PhaseTimer(enabled=False)
+        ranker.set_params(self._knobs())
+        return ranker
+
+    def _worker_pool(self):
+        """The pool of ``jobs`` spawned workers, started at its first use and
+        kept until ``close()``: a spawned worker takes seconds to import
+        torch.  The host ranker goes to a directory of files that lives as
+        long as the pool (its pickle and its large arrays), and the workers
+        get its path: a start never waits for a worker to read its
+        arguments."""
+        if self._pool is None or self._pool_size != self.jobs:
+            import multiprocessing
+            import tempfile
+            from concurrent.futures import ProcessPoolExecutor
+
+            self.close()
+            self._pool_files = tempfile.TemporaryDirectory(prefix="seal_ranker_")
+            path = os.path.join(self._pool_files.name, "ranker.pkl")
+            with open(path, "wb") as f:
+                _HostPickler(f, self._pool_files.name).dump(self._host_ranker())
+            self._pool = ProcessPoolExecutor(
+                self.jobs, mp_context=multiprocessing.get_context("spawn"),
+                initializer=_worker_init, initargs=(path,))
+            self._pool_size = self.jobs
+        return self._pool
+
+    def close(self) -> None:
+        """Stop the ``jobs`` >= 2 worker pool and remove its files (a no-op
+        without one)."""
+        if self._pool is not None:
+            pool, self._pool = self._pool, None
+            pool.shutdown(wait=True, cancel_futures=True)
+        if self._pool_files is not None:
+            files, self._pool_files = self._pool_files, None
+            files.cleanup()
+
+    def _unit_ranges(self, keys) -> Dict[tuple, Tuple[int, int]]:
+        """{key: range} of every key of one unit, found as the serial path
+        finds them (``_device_ranges`` in one call)."""
+        if isinstance(keys, tuple) and len(keys) == 2:
+            keys = keys[0]
+        uniq = list({tuple(n) for n, _ in keys})
+        return dict(zip(uniq, self._device_ranges([list(n) for n in uniq])))
+
+    def _mp_batch_retrieve_from_keys(self, keys):
+        """Process-parallel evidence aggregation (reference
+        ``retrieval.py:762-775``), in the order of ``keys``, holding at most
+        two units a worker in flight so key generation goes on meanwhile.
+        Each unit's ranges are found here (``_unit_ranges``) and sent with
+        it.  A worker that dies raises ``BrokenProcessPool`` here (and the
+        pool is closed: the next call starts a new one)."""
+        from concurrent.futures.process import BrokenProcessPool
+
+        pool = self._worker_pool()
+        knobs = self._knobs()
+        pending: collections.deque = collections.deque()
+        try:
+            for kk in keys:
+                with self.phase_timer.phase("aggregate"):
+                    ranges = self._unit_ranges(kk)
+                pending.append(pool.submit(_retrieve_from_keys_mp_aux, (knobs, kk, ranges)))
+                if len(pending) >= 2 * self.jobs:
+                    with self.phase_timer.phase("aggregate"):
+                        out = pending.popleft().result()
+                    yield out
+            while pending:
+                with self.phase_timer.phase("aggregate"):
+                    out = pending.popleft().result()
+                yield out
+        except BrokenProcessPool:
+            self.close()
+            raise
+        finally:
+            for f in pending:
+                f.cancel()
+
+    def _mp_detokenize(self, docs):
+        """Process-parallel detokenization (reference ``retrieval.py:693-712``,
+        the jobs > 2 path): token splitting stays here (it reads the index),
+        BPE decoding fans out to the workers."""
+        from concurrent.futures.process import BrokenProcessPool
+
+        splits = [d.split_tokens(d.raw_tokens()) for d in docs]
+        try:
+            texts = list(self._worker_pool().map(
+                _detokenize_mp_aux, splits, chunksize=max(1, len(docs) // (4 * self.jobs))))
+        except BrokenProcessPool:
+            self.close()
+            raise
+        for d, (title, body) in zip(docs, texts):
+            d._title, d._body = title, body
 
     # ----------------------------------------------------------------- search
 
@@ -628,16 +1034,20 @@ class SEALSearcher:
             retrieved.append(docs)
         if detokenize:
             with timer.phase("detokenize"):
-                # reference detokenize_retrieved strips surrounding
-                # whitespace (retrieval.py:777-778), unlike lazy .text()
-                for d in [d for docs in retrieved for d in docs]:
-                    tt, bt = d.split_tokens(d.raw_tokens())
-                    d._title = (
-                        self.tokenizer.decode(tt, skip_special_tokens=True).strip()
-                        if tt
-                        else ""
-                    )
-                    d._body = self.tokenizer.decode(bt, skip_special_tokens=True).strip()
+                flat = [d for docs in retrieved for d in docs]
+                if self.jobs > 2 and len(flat) > 1:
+                    self._mp_detokenize(flat)
+                else:
+                    # reference detokenize_retrieved strips surrounding
+                    # whitespace (retrieval.py:777-778), unlike lazy .text()
+                    for d in flat:
+                        tt, bt = d.split_tokens(d.raw_tokens())
+                        d._title = (
+                            self.tokenizer.decode(tt, skip_special_tokens=True).strip()
+                            if tt
+                            else ""
+                        )
+                        d._body = self.tokenizer.decode(bt, skip_special_tokens=True).strip()
         if self.progress:
             timer.log_summary()
         self.metrics.observe_batch(

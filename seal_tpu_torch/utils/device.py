@@ -26,6 +26,20 @@ def checked_device(device) -> torch.device:
     return dev
 
 
+def resolve_device(name) -> torch.device:
+    """A ``--device`` flag's value: ``auto``, ``cuda`` and ``cuda:N`` name the
+    card (``auto`` never falls back to the CPU), ``cpu`` the CPU; raises
+    ``RuntimeError`` for CUDA without a card and ``ValueError`` for any
+    other device."""
+    try:
+        dev = torch.device("cuda" if name in (None, "", "auto") else name)
+    except RuntimeError as e:  # a device type torch does not know
+        raise ValueError(f"device {name!r}: the port runs on cuda or cpu") from e
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device {name!r}: the port runs on cuda or cpu")
+    return checked_device(dev)
+
+
 def tensor_bytes(obj) -> int:
     """Device bytes of every tensor field of the dataclass ``obj``."""
     arrays = [getattr(obj, f.name) for f in dataclasses.fields(obj)]

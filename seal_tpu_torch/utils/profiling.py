@@ -1,19 +1,45 @@
-"""Phase timer and serving counters of the searcher.
+"""Tracing, the phase timer and the serving counters of the searcher.
 
-The port's copy of ``seal_tpu/utils/profiling.py`` :34-118 (``PhaseTimer``,
-``ServingMetrics``).  ``device_trace`` stays behind: it wraps
-``jax.profiler``; the port profiles with ``torch.profiler``
-(``seal_tpu_torch/bench_generate.py:profile_batch``).
+The port's counterpart of ``seal_tpu/utils/profiling.py``: ``PhaseTimer``
+and ``ServingMetrics`` are copies; ``device_trace`` captures a
+``torch.profiler`` trace where the JAX module starts ``jax.profiler``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 from typing import Dict, Optional
 
 logger = logging.getLogger(__name__)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]):
+    """Capture a profile of the block into ``log_dir`` as a Chrome trace
+    (``trace_<pid>.json``: the host's ops, and the card's kernels where a
+    CUDA device exists); a no-op when ``log_dir`` is None or empty."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        path = os.path.join(log_dir, f"trace_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        logger.warning("device trace written to %s", path)
 
 
 class PhaseTimer:

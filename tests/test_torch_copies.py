@@ -19,24 +19,28 @@ from seal_tpu.cli import make_supervised_dpr_dataset as jdpr_cli
 from seal_tpu.cli import make_supervised_kilt_dataset as jkilt_cli
 from seal_tpu.cli import make_unsupervised_dataset as junsup_cli
 from seal_tpu.cpp import native as jnative
+from seal_tpu.data import formats as jformats
 from seal_tpu.index import suffix_array as jsa
 from seal_tpu.index.fm_index import FMIndex as JFMIndex
 from seal_tpu.parallel import sharded_index as jsi
 from seal_tpu.retrieval.document import SEALDocument as JDoc
 from seal_tpu.scoring import keys as jk
 from seal_tpu.training import data_gen as jdg
+from seal_tpu.utils import batching as jbatching
 from seal_tpu.utils import profiling as jprof
 from seal_tpu.utils import textfix as jtf
 from seal_tpu_torch.cli import make_supervised_dpr_dataset as tdpr_cli
 from seal_tpu_torch.cli import make_supervised_kilt_dataset as tkilt_cli
 from seal_tpu_torch.cli import make_unsupervised_dataset as tunsup_cli
 from seal_tpu_torch.cpp import native as tnative
+from seal_tpu_torch.data import formats as tformats
 from seal_tpu_torch.index import suffix_array as tsa
 from seal_tpu_torch.index.fm_index import SHIFT
 from seal_tpu_torch.index.fm_index import FMIndex as TFMIndex
 from seal_tpu_torch.parallel import sharded_index as tsi
 from seal_tpu_torch.retrieval.document import SEALDocument as TDoc
 from seal_tpu_torch.training import data_gen as tdg
+from seal_tpu_torch.utils import batching as tbatching
 from seal_tpu_torch.utils import profiling as tprof
 from seal_tpu_torch.utils import textfix as ttf
 
@@ -451,3 +455,87 @@ def test_dataset_cli_outputs_equal(tmp_path, cli):
             files = [out + ".source", out + ".target"]
         outs[tag] = [open(f).read() for f in files]
     assert outs["t"] == outs["j"] and outs["t"][0]
+
+
+def _topic_files(d):
+    """One topics file for each ``TopicsFormat``."""
+    files = {}
+    files["default"] = d / "t.tsv"
+    files["default"].write_text("q1\twho is it\nq2\twhat is that\n\n")
+    kilt = [{"id": "k1", "input": "first?", "meta": {"template_questions": ["tmpl one"]}},
+            {"id": "k2", "input": "second?", "meta": {"template_questions": ["tmpl two"]}}]
+    files["kilt"] = files["kilt_template"] = d / "t.jsonl"
+    files["kilt"].write_text("".join(json.dumps(o) + "\n" for o in kilt))
+    files["dpr"] = d / "t.json"
+    files["dpr"].write_text(json.dumps([{"question": "a?", "answers": ["x"]},
+                                        {"question": "b?", "answers": ["y"]}]))
+    files["dpr_qas"] = d / "qas.tsv"
+    files["dpr_qas"].write_text('who?\t["a", "b"]\nwhat?\t["c"]\n')
+    files["nq"] = d / "nq.jsonl"
+    files["nq"].write_text(json.dumps({"example_id": 7, "question_text": "why?"}) + "\n")
+    return files
+
+
+@pytest.mark.parametrize("fmt", [f.value for f in jformats.TopicsFormat])
+def test_query_iterators_equal(tmp_path, fmt):
+    path = str(_topic_files(tmp_path)[fmt])
+    t = tformats.get_query_iterator(path, tformats.TopicsFormat(fmt))
+    j = jformats.get_query_iterator(path, jformats.TopicsFormat(fmt))
+    assert list(t) == list(j) and len(t) == len(j) and t.topics == j.topics
+
+
+@pytest.mark.parametrize("fmt", [f.value for f in jformats.OutputFormat])
+@pytest.mark.parametrize("max_passage", [False, True])
+def test_output_writers_equal(tmp_path, fmt, max_passage):
+    """Each writer over the same hits (the port's documents beside JAX's, on
+    the same index) writes the same bytes."""
+    docs = [[7, 8, 50, 9, 10, 2], [4, 50, 5, 6, 2], [11, 50, 12, 2], [13, 50, 14, 2]]
+    labels = ["12-3", "12-4", "45-6-7", "99"]
+    t, j = _build(TFMIndex, docs, "memory"), _build(JFMIndex, docs, "memory")
+    t.labels, j.labels = labels, list(labels)
+    out = {}
+    for tag, mod, index, doc in (("t", tformats, t, TDoc), ("j", jformats, j, JDoc)):
+        topics = {"q1": {"question": "a?"}, "q2": {"question": "b?"}}
+        path = str(tmp_path / f"{tag}.out")
+        writer = mod.get_output_writer(path, mod.OutputFormat(fmt), max_hits=3, tag="run",
+                                       topics=topics, use_max_passage=max_passage,
+                                       max_passage_delimiter="-", max_passage_hits=2)
+        with writer:
+            for q, idxs in (("q1", [0, 1, 2, 3]), ("q2", [3, 2])):
+                writer.write(q, [doc(i, 2.5 - i / 3, index, _Tok(), 50, None,
+                                     keys=[("k", 1, 0.5)] if i == 0 else None, query=q)
+                                 for i in idxs])
+        out[tag] = open(path).read()
+    assert out["t"] == out["j"] and out["t"]
+
+
+def test_batching_equal():
+    """``chunks`` and ``adaptive_batches`` (a stream without a descriptor, a
+    parser that skips) batch as the originals."""
+    import io
+
+    items = list(range(11))
+    for n in (1, 3, 11, 20):
+        assert list(tbatching.chunks(iter(items), n)) == list(jbatching.chunks(iter(items), n))
+    text = "a\n\nb\nskip\nc\nd\ne"
+    parse = lambda x: None if x.strip() in ("", "skip") else x.strip()  # noqa: E731
+    for n in (1, 2, 4):
+        assert list(tbatching.adaptive_batches(io.StringIO(text), parse, n)) == list(
+            jbatching.adaptive_batches(io.StringIO(text), parse, n))
+
+
+def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
+    """``device_trace``: a Chrome trace of the block's ops in the directory
+    (made if missing); nothing without a directory."""
+    import torch
+
+    with tprof.device_trace(None):
+        pass
+    with tprof.device_trace(""):
+        pass
+    log_dir = tmp_path / "trace" / "here"
+    with tprof.device_trace(str(log_dir)):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    (path,) = list(log_dir.iterdir())
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any("mm" in str(e.get("name", "")) for e in events)

@@ -3371,3 +3371,51 @@ def test_train_steps_on_card_match_cpu(cuda):
     res = parity.card_against_cpu(cuda)
     assert res["cpu_launches"] == (0, 0) and res["launches"] == (3, 3)
     assert res["ok"], res
+
+
+def _tiny_files(tmp_path):
+    """A tiny word-vocab index (``build_fm_index``) and a bart_tiny HF
+    checkpoint directory from a seed."""
+    import chip_smoke
+    from seal_tpu_torch.cli import build_fm_index
+    from seal_tpu_torch.models.tokenizer import WordVocabTokenizer
+
+    with open(tmp_path / "corpus.tsv", "w") as f:
+        f.write("".join(f"{i}\t{t}\t{b}\n" for i, t, b in bench_search.TINY_CORPUS))
+    idx = str(tmp_path / "idx")
+    assert build_fm_index.main([str(tmp_path / "corpus.tsv"), idx, "--include_title",
+                                "--train_word_vocab"]) == 0
+    tok = WordVocabTokenizer.load(idx + ".word_vocab.json")
+    (tmp_path / "hf").mkdir()
+    params = bart.init_params(bart_tiny(vocab_size=tok.vocab_size), seed=0, device="cpu")
+    torch.save(chip_smoke.port_state_dict(torch, params, "hf"),
+               str(tmp_path / "hf" / "pytorch_model.bin"))
+    return idx, str(tmp_path / "hf")
+
+
+@pytest.mark.parametrize("shards", [0, 2])
+def test_searcher_load_defaults_to_the_card(cuda, tmp_path, shards):
+    """``SEALSearcher.load`` without a device: the index (or its shards) and
+    every parameter on the card, and a search runs there."""
+    from seal_tpu_torch.retrieval.searcher import SEALSearcher
+    from seal_tpu_torch.training.trainer import tree_leaves
+
+    idx, ckpt = _tiny_files(tmp_path)
+    s = SEALSearcher.load(idx, ckpt, tokenizer_path=idx + ".word_vocab.json",
+                          backbone="tiny-word", beam=4, length=4, batch_size=2,
+                          index_shards=shards)
+    index = s.sharded_index if shards else s.device_index
+    assert index.device.type == "cuda"
+    assert all(p.is_cuda for p in tree_leaves(s.params))
+    assert len(s.batch_search(bench_search.TINY_QUERIES, k=3)) == len(bench_search.TINY_QUERIES)
+
+
+def test_tiny_cli_flow_on_card_matches_cpu(cuda, tmp_path):
+    """``chip_smoke.tiny_cli_flow``: build, search on the card and with
+    ``--device cpu`` (the same documents in the same order), the train CLI
+    from ``--init_checkpoint``."""
+    import chip_smoke
+
+    chip_smoke.FAILURES.clear()
+    res = chip_smoke.tiny_cli_flow(np, torch, str(tmp_path))
+    assert not chip_smoke.FAILURES and res["docs"] > 0

@@ -366,7 +366,10 @@ assert {"seal_tpu_torch.kernels.locate", "seal_tpu_torch.kernels.row_select",
         "seal_tpu_torch.utils.textfix",
         "seal_tpu_torch.cli.train", "seal_tpu_torch.cli.make_supervised_dpr_dataset",
         "seal_tpu_torch.cli.make_supervised_kilt_dataset",
-        "seal_tpu_torch.cli.make_unsupervised_dataset"} <= set(mods)
+        "seal_tpu_torch.cli.make_unsupervised_dataset",
+        "seal_tpu_torch.cli.build_fm_index", "seal_tpu_torch.cli.search",
+        "seal_tpu_torch.cli.serve", "seal_tpu_torch.data.formats",
+        "seal_tpu_torch.utils.batching"} <= set(mods)
 for m in mods:
     importlib.import_module(m)
 import chip_smoke

@@ -4,8 +4,8 @@ rescoring, query decomposition, unigram scores and the ranker, through the
 same word-vocab corpus, the same bart_tiny weights (``params_from_jax``)
 and a deterministic logit bias, with ``pipeline`` on and off.  Doc ids
 equal and in the same order, scores within 1e-4 relative, ``include_keys``
-key lists equal.  Also the ``res/sample`` corpus end to end, the knobs not
-ported yet, and the raw title keys' grounding."""
+key lists equal.  Also the ``res/sample`` corpus end to end, the knobs the
+port once refused, and the raw title keys' grounding."""
 
 import os
 
@@ -210,13 +210,14 @@ def test_defaults_match_jax():
 @pytest.mark.parametrize("knob", [dict(index_shards=2), dict(jobs=2), dict(decode_code=True),
                                   dict(index_shards=2, backbone="t5-small")])
 def test_unported_knobs_raise(searchers, knob):
-    """Each knob not ported yet raises at construction, and when flipped
-    after it, at the next search; a T5 backbone is ported (its searcher is
-    held to JAX's in ``test_torch_t5_generate.py``) and raises only for
-    such a knob, which is then flipped on a T5 searcher.  ``index_shards``
-    > 1 is ported (``tests/test_torch_sharded_generate.py``): without a
-    sharded index both packages raise JAX's ``ValueError`` at construction,
-    on a BART and on a T5 searcher."""
+    """The knobs the port once refused.  ``index_shards`` > 1 without a
+    sharded index raises JAX's ``ValueError`` at construction in both
+    packages, on a BART and on a T5 searcher (the sharded mode itself:
+    ``tests/test_torch_sharded_generate.py``).  ``jobs`` >= 2 and
+    ``decode_code`` are ported (held to JAX in
+    ``tests/test_torch_searcher_load.py``): they construct, ``jobs`` starts
+    no worker before its first search, and a ``decode_code`` search keeps
+    only grounded keys."""
     js, ts = searchers
     name, value = next(iter(knob.items()))
     if name == "index_shards":
@@ -225,21 +226,16 @@ def test_unported_knobs_raise(searchers, knob):
                 cls(s.fm_index, s.tokenizer, s.model_cfg, s.params,
                     device_index=s.device_index, **dict(KNOBS, **knob))
         return
-    with pytest.raises(NotImplementedError, match=name):
-        TSearcher(ts.fm_index, ts.tokenizer, ts.model_cfg, ts.params,
-                  device_index=ts.device_index, **dict(KNOBS, **knob))
-    rest = {k: v for k, v in knob.items() if k != name}
-    if rest:
-        ts = TSearcher(ts.fm_index, ts.tokenizer, ts.model_cfg, ts.params,
-                       device_index=ts.device_index, **dict(KNOBS, **rest))
-        assert ts.title_eos_token_id == 32000  # the t5 branch's constants
-    old = getattr(ts, name)
-    setattr(ts, name, value)
-    try:
-        with pytest.raises(NotImplementedError, match=name):
-            ts.batch_search(QUERIES[:1], k=1)
-    finally:
-        setattr(ts, name, old)
+    tk = TSearcher(ts.fm_index, ts.tokenizer, ts.model_cfg, ts.params,
+                   device_index=ts.device_index, **dict(KNOBS, **knob))
+    assert getattr(tk, name) == value
+    if name == "jobs":
+        assert tk._pool is None
+        tk.close()
+        return
+    keys, _ = tk.generate_keys(QUERIES[0])
+    assert keys and all(tk.fm_index.get_count(list(k)) > 0 for k, _ in keys)
+    assert len(tk.batch_search(QUERIES[:2], k=5)) == 2
 
 
 @pytest.mark.parametrize("modes", [dict(exact_mask=True), dict(exact_ties=True),

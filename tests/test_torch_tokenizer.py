@@ -78,9 +78,10 @@ def test_word_vocab_tokenizer_matches_jax(corpus, tmp_path):
     assert json.loads(path.read_text()) == jtok.encoder
     for p in (str(path), str(tmp_path)):
         assert tt.load_tokenizer(p).encoder == jt.load_tokenizer(p).encoder
+    # merges.txt without vocab.json and no word vocab: nothing to load
     (tmp_path / "merges.txt").write_text("")
     (tmp_path / "word_vocab.json").unlink()
-    with pytest.raises(NotImplementedError, match="byte-level BPE"):
+    with pytest.raises(FileNotFoundError, match="cannot resolve tokenizer"):
         tt.load_tokenizer(str(tmp_path))
 
 

@@ -319,8 +319,10 @@ def test_unported_routes_and_the_card_default_raise(tmp_path, monkeypatch):
     _, tok_path = _word_data(tmp_path, ["alpha beta"], 2)
     base = [str(tmp_path / "train"), str(tmp_path / "save"), "--tokenizer", tok_path,
             "--backbone", "tiny", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tcli.main(base + ["--init_checkpoint", "model.pt"])
+    # --init_checkpoint loads now (test_train_cli_starts_from_init_checkpoint):
+    # a missing file raises as torch.load does in the JAX CLI
+    with pytest.raises(FileNotFoundError):
+        tcli.main(base + ["--init_checkpoint", str(tmp_path / "model.pt")])
     with pytest.raises(NotImplementedError, match="A.7"):
         tcli.main(base + ["--tensor_parallel", "2"])
     with pytest.raises(NotImplementedError, match="A.7"):
@@ -330,3 +332,36 @@ def test_unported_routes_and_the_card_default_raise(tmp_path, monkeypatch):
         tt.init_train_state(bart_tiny(), tt.TrainConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(base[:-2])
+
+
+@pytest.mark.parametrize("layout", ["fairseq", "hf"])
+def test_train_cli_starts_from_init_checkpoint(tmp_path, layout):
+    """``--init_checkpoint`` (a fairseq ``.pt``, or a HF directory): the
+    CLI starts from the loaders' parameters (JAX's, bit for bit) and a zero
+    optimizer state; at lr 0 two steps leave the parameters as loaded and
+    count 2."""
+    from seal_tpu.models import convert as jconvert
+    from chip_smoke import port_state_dict
+    from test_torch_loading import assert_trees_equal, seeded_tree
+
+    tok, tok_path = _word_data(tmp_path, ["alpha beta gamma", "delta epsilon zeta"], 4)
+    jcfg = jtiny(vocab_size=tok.vocab_size)
+    tree = seeded_tree(jcfg, seed=2)
+    if layout == "fairseq":
+        path = str(tmp_path / "init.pt")
+        torch.save({"model": port_state_dict(torch, tree, "fairseq")}, path)
+        want = jconvert.load_fairseq_checkpoint(path, jcfg)
+    else:
+        path = str(tmp_path / "hf")
+        (tmp_path / "hf").mkdir()
+        torch.save(port_state_dict(torch, tree, "hf"), str(tmp_path / "hf" / "pytorch_model.bin"))
+        want = jconvert.load_hf_checkpoint(path, jcfg)
+    want = convert.params_from_jax(jax.device_get(want), None, device="cpu")
+    save = str(tmp_path / "save")
+    assert tcli.main([str(tmp_path / "train"), save, "--tokenizer", tok_path, "--backbone", "tiny",
+                      "--batch_size", "4", "--max_update", "2", "--lr", "0", "--device", "cpu",
+                      "--init_checkpoint", path]) == 0
+    template = {"params": want, "opt_state": tt.make_optimizer(tt.TrainConfig()).init(want)}
+    step, state = tckpt.restore_checkpoint(save, template)
+    assert step == 2 and state["opt_state"].count == 2
+    assert_trees_equal(state["params"], want)
