@@ -221,6 +221,24 @@
    and on the manifest's, the aggregate phase of each and the pools' start
    split (the parent's files, each worker's spawn and imports, its
    initializer).
+18. Drives the mesh's ``data`` axis: two ranks ``spawn``ed on the one card,
+   joined by a gloo process group (NCCL refuses two ranks on one device),
+   each with its 2 of section 12's 4 shards placed on the card
+   (``ShardedTorchIndex.place``), run ``sharded_fm_index_generate`` at the
+   generation point: the fast path and ``exact_mask`` bit-equal (tokens,
+   score bits) to section 12's one-card 4-shard decode, each rank's
+   launches equal to that decode's (one launch of each shard mode a merged
+   op, over 2 shards), the merged fallback count equal on both ranks, the
+   wall and queries/s beside the one-card decode's (timed here just before),
+   the collectives a step and their share of a step (the device
+   synchronized around each, in one more run); ``fm_index_generate(mesh=)``
+   over the monolithic Psi index: each rank's 16 rows bit-equal to this
+   process decoding those rows, a sampled decode's draws equal to this
+   process's whole-batch draws (kernel 20's ``row_offset``); and
+   ``SEALSearcher.build_sharded(..., mesh=)`` at the e2e point: the
+   documents and order of section 12's sharded searcher, scores within
+   1e-6 relative.  A rank that fails or outlasts its timeout fails the run.
+   The collectives are gloo's, through host memory, on one shared card.
 
 Each path's launch counts come from that path's own run (every count set
 to 0 just before it, read just after); on every decoding path kernels 9
@@ -854,7 +872,8 @@ def log_kernel(row) -> None:
                                                "searcher_contains_graph_ms",
                                                "searcher_advance_shape",
                                                "searcher_advance_graph_ms", "fwd_bwd_ms",
-                                               "library_abs_err", "lse_abs_err")
+                                               "library_abs_err", "lse_abs_err", "offset_ms",
+                                               "offset_graph_ms", "offset_errors")
                   if k in row))
 
 
@@ -2668,6 +2687,53 @@ def sample_kernel_phases(np, torch, cfg, V, B, K, window, device="cuda"):
     if err20 or err_list or err_counts:
         fail(f"sample_select: {err20} V-wide, {err_list} list and {err_counts} count-reading "
              "outputs differ from the plain version on clear draws")
+    # with a row offset (a data-parallel rank's rows): each route's call on
+    # the second half of its queries, the offset its first chain's row, bit
+    # for bit the whole call's rows, and the plain version's on clear draws
+    q, q8 = B // 2, B // 8
+    o, o8 = q * K, q8 * K
+    zk = torch.zeros(B, K, device=dev)
+    offset_calls = {  # route: (the whole call, the half's inputs, its clear chains, keywords,
+        # (seed, step))
+        "wide": (lambda **kw: k20.sample_select(lp, lp, None, zk, 5, 0, eos=eos, pad=pad,
+                                                mask=corpus, **kw), (lp[o:], lp[o:], None, zk[q:]),
+                 clear0[o:], dict(mask=corpus), (5, 0)),
+        "cluster": (lambda **kw: k20.sample_select(lp[:r8], lp[:r8], None, zk[:B // 4], 5, 0,
+                                                   eos=eos, pad=pad, mask=corpus, **kw),
+                    (lp[o8:r8], lp[o8:r8], None, zk[q8:B // 4]), clear0[o8:r8],
+                    dict(mask=corpus), (5, 0)),
+        "list": (lambda **kw: k20.sample_select(*args1, eos=eos, pad=pad, **kw),
+                 (cons8[q:], lp8[q:], tok8[q:], bs[q:]), clear1[o:], {}, (5, 3)),
+    }
+    err_offset, offset_routes = 0, {}
+    for route, (whole, part_args, clear, extra, (seed_, step_)) in offset_calls.items():
+        first = o8 if route == "cluster" else o
+        part = k20.sample_select(*part_args, seed_, step_, eos=eos, pad=pad, row_offset=first,
+                                 **extra)
+        wrows = whole()
+        skip = q8 if route == "cluster" else q
+        err_offset += mismatches(torch, part, [x[skip:] for x in wrows])
+        err_offset += sample_mismatches(torch, part, k20.sample_select_plain(
+            *part_args, seed_, step_, eos=eos, pad=pad, row_offset=first, **extra), clear)
+        p_ = k20.plan(part_args[0].numel() // part_args[0].shape[-1], part_args[0].shape[-1])
+        offset_routes[route] = f"{p_.route}/{p_.splits}"
+    cpart = (cmask[q:], lp[o:], prev_count[q:], finished[q:], bs[q:], 5, 4)
+    part = k20.sample_select_counts(*cpart, row_offset=o, **ckw)
+    err_offset += mismatches(torch, part, [x[q:] for x in k20.sample_select_counts(*cargs,
+                                                                                   **ckw)])
+    err_offset += sample_mismatches(torch, part, k20.sample_select_counts_plain(
+        *cpart, row_offset=o, **ckw), clear_c[o:])
+    pc = k20.plan(rows - o, V)
+    offset_routes["count-reading"] = f"{pc.route}/{pc.splits}"
+    words, _ = k20.noise_on_card(5, 0, rows, V, dev, row_offset=rows)
+    err_offset += int((words != k20.philox_words(5, 0, rows, V, dev, row_offset=rows)).sum())
+    del words
+    if err_offset:
+        fail(f"sample_select with a row offset: {err_offset} outputs or words differ from the "
+             "whole call's rows or the plain version's")
+    log(f"sample_select row offset: the second half of each call's queries with its offset "
+        f"(routes {offset_routes}) bit for bit the whole call's rows and the plain version's "
+        f"on clear draws: {err_offset == 0}; Philox words at offset {rows} equal")
 
     def composed_counts():  # the scores written, then drawn: two launches
         cons = k17.dense_scores(cmask, lp, prev_count, finished, zero, **ckw)
@@ -2682,6 +2748,12 @@ def sample_kernel_phases(np, torch, cfg, V, B, K, window, device="cuda"):
         cluster_ms=time_ms(lambda: k20.sample_select(*args8, eos=eos, pad=pad, mask=corpus)),
         cluster_graph_ms=graph_ms(lambda: k20.sample_select(*args8, eos=eos, pad=pad,
                                                             mask=corpus)),
+        # the same call at a non-zero row offset (a second rank's rows)
+        offset_ms=time_ms(lambda: k20.sample_select(*args0, eos=eos, pad=pad, mask=corpus,
+                                                    row_offset=rows)),
+        offset_graph_ms=graph_ms(lambda: k20.sample_select(*args0, eos=eos, pad=pad, mask=corpus,
+                                                           row_offset=rows)),
+        offset_errors=err_offset,
         ulps=ulps, chi_square_p=p_chi,
         shape=f"[{rows},{V}] under a corpus mask, {k20.plan(rows, V).splits} CTA a row "
               f"(cluster_ms: [{r8},{V}], {k20.plan(r8, V).splits} CTAs a row)",
@@ -4229,7 +4301,8 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
     zero_counts()
     op_calls.clear()
     dense = run(exact_mask=True)
-    once_per_call("generate_sharded_dense", read_counts("generate_sharded_dense"))
+    by_dense = read_counts("generate_sharded_dense")
+    once_per_call("generate_sharded_dense", by_dense)
     same_dense = same_or_tie(canon_of(dense), canon_of(hyps),
                              lambda: run(exact_mask=True, exact_ties=True),
                              lambda: run(exact_ties=True), "generate_sharded_dense")
@@ -4414,7 +4487,11 @@ def sharded_phase(np, torch, m, zero_counts, read_counts, op_calls):
     table += large_select_phase(np, torch, cfg, bench_generate.VOCAB, B, K32, S)
     return table, dict(qps=B / per_batch, turns=qps, beam32_qps=B / b32_s,
                        bytes_per_token=si.memory_bytes() / n_tokens,
-                       search_qps=len(queries) / s_search, mono_search_qps=len(queries) / m_search)
+                       search_qps=len(queries) / s_search, mono_search_qps=len(queries) / m_search,
+                       # what section 18 holds its ranks to
+                       hyps=one, dense=dense, one_counts=one_counts,
+                       dense_counts=by_dense, hosts=hosts,
+                       search_res=[[(d.docid, d.score) for d in r] for r in s_res])
 
 
 # the training phase: kernels 22 and 23 and the train step at BART-large's
@@ -5289,39 +5366,256 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def main() -> int:
-    try:
-        import numpy as np
-        import torch
-    except ImportError as e:
-        print(f"chip_smoke: {e}", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    if not os.path.isdir(os.path.join(HERE, "seal_tpu_torch")):
-        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
-        return 1
-    sys.path.insert(0, HERE)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True,
-    )
-    global CARD
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "unknown"
-    CARD = card
-    log(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+# ---- section 18: the mesh's data axis, two ranks on the one card ------------
+
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 240  # a rank's collective that waits longer raises
+MESH_SAMPLE_SEED = 7
+
+
+def mesh_rank(rank: int, spec: dict) -> dict:
+    """One rank of section 18, in a process of its own on cuda:0: its block
+    of the 4 shards, the sharded and data-parallel decodes, the sharded
+    searcher; each run's launches read from this process's counters, set
+    to 0 just before it."""
+    import pickle
+
+    import torch
 
     from seal_tpu_torch import bench_generate, bench_search
     from seal_tpu_torch.decoding import generate
+    from seal_tpu_torch.index.device_index import TorchFMIndex
+    from seal_tpu_torch.index.fm_index import FMIndex
+    from seal_tpu_torch.kernels import build
+    from seal_tpu_torch.models import bart, convert
+    from seal_tpu_torch.parallel import mesh as mesh_lib
+    from seal_tpu_torch.parallel.sharded_decode import sharded_fm_index_generate
+    from seal_tpu_torch.parallel.sharded_index import ShardedTorchIndex
+    from seal_tpu_torch.retrieval.searcher import SEALSearcher
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    build.lib()
+    mesh = mesh_lib.make_mesh(device=dev)
+    counters = kernel_counters()
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+
+    def read():
+        return {name: c.launches for name, c in counters.items()}
+
+    _, tokens, _ = bench_generate.build_corpus()
+    cfg, params = bench_generate.build_model(tokens, dev)
+    ids, mask, kw = spec["ids"], spec["mask"], spec["kw"]
+    hosts = [FMIndex.load(path) for path in spec["shard_paths"]]
+    si = ShardedTorchIndex.from_hosts(hosts, bench_generate.VOCAB, device="cpu").place(mesh)
+    out = dict(setup_s=time.perf_counter() - t0, n_shards=si.n_shards,
+               first_shard=si.first_shard, bytes=si.memory_bytes())
+
+    def sharded(**extra):
+        r = sharded_fm_index_generate(cfg, params, si, mesh, ids, mask, **{**kw, **extra})
+        torch.cuda.synchronize()
+        return r
+
+    sharded()  # warm-up
+    zero()
+    mesh.stats.clear()
+    out["hyps"] = sharded()
+    out["counts"], out["collectives"] = read(), dict(mesh.stats)
+    out["fallback"] = generate.LAST_DECODE_STATS["fallback_steps"]
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        sharded()
+        walls.append(time.perf_counter() - t)
+    out["walls"] = walls
+    mesh.stats.clear()
+    mesh.timed, mesh.seconds = True, 0.0
+    t = time.perf_counter()
+    sharded()
+    out["timed_wall"], out["collective_s"] = time.perf_counter() - t, mesh.seconds
+    out["timed_collectives"] = dict(mesh.stats)
+    mesh.timed = False
+    zero()
+    out["dense"] = sharded(exact_mask=True)
+    out["dense_counts"] = read()
+    del si
+
+    host = FMIndex.load(spec["host_path"])
+    index = TorchFMIndex.from_host(host, vocab=bench_generate.VOCAB, device=dev)
+
+    def dp(**extra):
+        r = generate.fm_index_generate(cfg, params, index, ids, mask, mesh=mesh, **{**kw, **extra})
+        torch.cuda.synchronize()
+        return r
+
+    dp()  # warm-up
+    zero()
+    t = time.perf_counter()
+    out["dp"] = dp()
+    out["dp_wall"], out["dp_counts"] = time.perf_counter() - t, read()
+    out["dp_sample"] = dp(sample=True, seed=MESH_SAMPLE_SEED)
+    del index, params
+
+    with open(spec["searcher_path"], "rb") as f:
+        sp = pickle.load(f)
+    sparams = convert.apply_seal_logits_bias(bart.init_params(sp["cfg"], seed=0, device=dev),
+                                             sp["cfg"])
+    t = time.perf_counter()
+    searcher = SEALSearcher.build_sharded(sp["docs"], sp["labels"], sp["tok"], sp["cfg"],
+                                          sparams, bench_generate.SHARDS, mesh=mesh,
+                                          **sp["knobs"])
+    out["search_setup_s"] = time.perf_counter() - t
+    searcher.batch_search(sp["queries"][: searcher.batch_size], k=bench_search.TOP_K)
+    torch.cuda.synchronize()
+    zero()
+    t = time.perf_counter()
+    res = searcher.batch_search(sp["queries"], k=bench_search.TOP_K)
+    torch.cuda.synchronize()
+    out["search_wall"], out["search_counts"] = time.perf_counter() - t, read()
+    out["search"] = [[(d.docid, d.score) for d in r] for r in res]
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_phase(np, torch, m, sh, by_path):
+    """Section 18 (the module docstring's item 18): two ranks on the one
+    card over a gloo group, against section 12's one-card 4-shard decode
+    and sharded searcher (``sh``) and this process's decodes of the same
+    rows.  Adds each rank's runs to ``by_path``; returns the readings."""
+    import pickle
+    import tempfile
+
+    from seal_tpu_torch import bench_generate
+    from seal_tpu_torch.decoding import generate
+    from seal_tpu_torch.parallel import multihost
+    from seal_tpu_torch.parallel.sharded_decode import sharded_fm_index_generate
+    from seal_tpu_torch.parallel.sharded_index import ShardedTorchIndex
+    from seal_tpu_torch.retrieval.searcher import SEALSearcher
+
+    t_phase = time.perf_counter()
+    n_failed = len(FAILURES)
+    cfg, params, ids, mask, kw, index = (m[k] for k in ("cfg", "params", "ids", "mask", "kw",
+                                                         "index"))
+    B = ids.shape[0]
+    half = B // MESH_RANKS
+    # this process's references: each rank's rows decoded alone, the whole
+    # batch sampled, and the one-card 4-shard decode timed just before
+    rows_ref = [generate.fm_index_generate(cfg, params, index, ids[r * half:(r + 1) * half],
+                                           mask[r * half:(r + 1) * half], **kw)
+                for r in range(MESH_RANKS)]
+    sample_ref = generate.fm_index_generate(cfg, params, index, ids, mask, sample=True,
+                                            seed=MESH_SAMPLE_SEED, **kw)
+    si = ShardedTorchIndex.from_hosts(sh["hosts"], bench_generate.VOCAB, device="cuda")
+    one_walls, mono_walls = [], []
+    for _ in range(3):  # in turns: 4 shards, then the monolithic index, on this card
+        for walls, fn in ((one_walls, lambda: sharded_fm_index_generate(
+                cfg, params, si, None, ids, mask, **kw)),
+                          (mono_walls, lambda: generate.fm_index_generate(
+                              cfg, params, index, ids, mask, **kw))):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+    del si
+    searcher = m["searcher"]
+    shost = searcher.fm_index
+    with tempfile.TemporaryDirectory(prefix="seal_mesh_") as tmp:
+        spec = dict(ids=ids, mask=mask, kw=kw, host_path=os.path.join(tmp, "host"),
+                    shard_paths=[os.path.join(tmp, f"shard{s}") for s in range(len(sh["hosts"]))],
+                    searcher_path=os.path.join(tmp, "searcher.pkl"))
+        m["host"].save(spec["host_path"])
+        for h, path in zip(sh["hosts"], spec["shard_paths"]):
+            h.save(path)
+        with open(spec["searcher_path"], "wb") as f:
+            pickle.dump(dict(docs=[shost.get_doc(i) for i in range(shost.n_docs)],
+                             labels=shost.labels, tok=searcher.tokenizer, cfg=searcher.model_cfg,
+                             knobs={k: getattr(searcher, k) for k in SEALSearcher.DEFAULTS},
+                             queries=m["queries"]), f)
+        t = time.perf_counter()
+        outs = multihost.spawn_ranks(mesh_rank, MESH_RANKS, (spec,), timeout_s=MESH_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t
+
+    names = set(kernel_counters())
+    worst = {}
+    for r, out in enumerate(outs):
+        what = f"mesh rank {r}"
+        if out["hyps"] != sh["hyps"]:
+            fail(f"{what}: the sharded decode differs from the one-card 4-shard decode")
+        if out["dense"] != sh["dense"]:
+            fail(f"{what}: the exact_mask sharded decode differs from the one-card decode")
+        for run, want in (("counts", sh["one_counts"]), ("dense_counts", sh["dense_counts"])):
+            diff = {n: (out[run][n], want[n]) for n in names if out[run][n] != want[n]}
+            if diff:
+                fail(f"{what}: launches differ from the one-card decode's: {diff}")
+        block = len(sh["hosts"]) // MESH_RANKS
+        if (out["n_shards"], out["first_shard"]) != (block, r * block):
+            fail(f"{what}: placed shards [{out['first_shard']}, +{out['n_shards']}), not "
+                 f"[{r * block}, +{block})")
+        if out["dp"][r * half:(r + 1) * half] != rows_ref[r]:
+            fail(f"{what}: the data-parallel decode's rows differ from this process's decode "
+                 "of those rows")
+        if out["dp_sample"] != sample_ref:
+            fail(f"{what}: the sampled data-parallel decode differs from this process's "
+                 "whole-batch draws")
+        worst[r] = same_docs(np, out["search"], sh["search_res"], LAYOUT_SEARCH_RTOL,
+                             f"{what}: the sharded searcher against section 12's")
+        by_path[f"mesh_sharded_rank{r}"] = out["counts"]
+        by_path[f"mesh_sharded_dense_rank{r}"] = out["dense_counts"]
+        by_path[f"mesh_dp_rank{r}"] = out["dp_counts"]
+        by_path[f"mesh_batch_search_rank{r}"] = out["search_counts"]
+    if outs[0]["dp"] != outs[1]["dp"] or outs[0]["fallback"] != outs[1]["fallback"]:
+        fail("mesh: the ranks' data-parallel hypotheses or merged fallback counts differ")
+    steps = kw["max_length"] - 1
+    decodes = 1 + (outs[0]["fallback"] > 0)
+    for r, out in enumerate(outs):
+        wall = statistics.median(out["walls"])
+        n_coll = sum(out["timed_collectives"].values())
+        log(f"mesh rank {r} ({CARD}; gloo through host memory, both ranks on this card): shards "
+            f"[{out['first_shard']}, {out['first_shard'] + out['n_shards']}) placed, "
+            f"{out['bytes']} B; set-up {out['setup_s']:.1f} s; sharded decode "
+            f"{[round(t, 4) for t in out['walls']]} s/batch, median {wall:.4f} s = "
+            f"{B / wall:.1f} queries/s (one card, 4 shards, just before: "
+            f"{[round(t, 4) for t in one_walls]} s, {B / statistics.median(one_walls):.1f} "
+            f"queries/s); fallback_steps {out['fallback']}; collectives a decode {n_coll} = "
+            f"{n_coll / (steps * decodes):.1f} a step ({out['timed_collectives']}), "
+            f"{out['collective_s']:.4f} s of a synchronized {out['timed_wall']:.4f} s decode "
+            f"({100 * out['collective_s'] / out['timed_wall']:.1f}%); data-parallel decode "
+            f"(16 rows a rank) {out['dp_wall']:.4f} s = {B / out['dp_wall']:.1f} queries/s "
+            f"(the monolithic index on one card, just before: "
+            f"{[round(t, 4) for t in mono_walls]} s); "
+            f"sharded searcher set-up {out['search_setup_s']:.1f} s, {len(m['queries'])} "
+            f"queries in {out['search_wall']:.3f} s = "
+            f"{len(m['queries']) / out['search_wall']:.2f} queries/s; rank wall "
+            f"{out['wall']:.1f} s")
+    log(f"mesh checks: the sharded decode (fast path and exact_mask) bit-equal to the one-card "
+        f"4-shard decode on both ranks, each rank's launches equal to it, the merged fallback "
+        f"count {outs[0]['fallback']} on both, each rank's 16 data-parallel rows bit-equal to "
+        f"this process's, the sampled data-parallel draws equal to this process's whole batch, "
+        f"the sharded searcher's documents and order equal to section 12's (scores within "
+        f"{max(worst.values()):.3e} relative): {len(FAILURES) == n_failed}; ranks spawned and "
+        f"joined in {spawn_s:.1f} s; mesh phase wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(qps=B / statistics.median(outs[0]["walls"]),
+                one_qps=B / statistics.median(one_walls),
+                collectives=sum(outs[0]["timed_collectives"].values()) / (steps * decodes),
+                collective_share=outs[0]["collective_s"] / outs[0]["timed_wall"],
+                dp_wall=outs[0]["dp_wall"], mono_wall=statistics.median(mono_walls),
+                wall=time.perf_counter() - t_phase)
+
+
+def kernel_counters() -> dict:
+    """Each kernel row's launch counter (a wrapper's ``launches``, or a
+    mode's ``Launches``), by row name: what a path's run is read from, in
+    this process or in a rank's."""
     from seal_tpu_torch.kernels import (
         adamw,
         beam_select,
         bucket_counts,
-        build,
         decode_attention,
         dense_scores,
         diverse_select,
@@ -5339,12 +5633,8 @@ def main() -> int:
         wt_search,
         wt_window,
     )
-    from seal_tpu_torch.models import bart, t5
-    from seal_tpu_torch.parallel import sharded_decode
-    from seal_tpu_torch.retrieval.searcher import SEALSearcher
-    from seal_tpu_torch.scoring import keys as scoring
 
-    counters = {
+    return {
         "fm_search": fm_search.fm_search,
         "window_gather": window_gather.window_gather,
         "row_topk": row_topk.row_topk,
@@ -5416,6 +5706,64 @@ def main() -> int:
         "clip_global_norm": adamw.global_norm,
         "adamw_update": adamw.adamw_update,
     }
+
+
+def main() -> int:
+    try:
+        import numpy as np
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(HERE, "seal_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    )
+    global CARD
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "unknown"
+    CARD = card
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+
+    from seal_tpu_torch import bench_generate, bench_search
+    from seal_tpu_torch.decoding import generate
+    from seal_tpu_torch.kernels import (
+        adamw,
+        beam_select,
+        bucket_counts,
+        build,
+        decode_attention,
+        dense_scores,
+        diverse_select,
+        fm_search,
+        locate,
+        reorder_cache,
+        rescore,
+        row_select,
+        row_topk,
+        sample_select,
+        train_loss,
+        triton_logsoftmax,
+        window_gather,
+        wt_bucket_counts,
+        wt_search,
+        wt_window,
+    )
+    from seal_tpu_torch.models import bart, t5
+    from seal_tpu_torch.parallel import sharded_decode
+    from seal_tpu_torch.retrieval.searcher import SEALSearcher
+    from seal_tpu_torch.scoring import keys as scoring
+
+    counters = kernel_counters()
     # the calls of the sharded index's ops (each must be one launch)
     op_calls: collections.Counter = collections.Counter()
 
@@ -6322,6 +6670,10 @@ def main() -> int:
     # ---- the entry points: the CLIs and SEALSearcher.load on the card ------
     ep_run = entry_points_phase(np, torch, zero_counts, read_counts)
     log(f"entry points phase wall {ep_run['wall']:.1f} s")
+    # ---- the mesh's data axis: two ranks on the one card (gloo) -----------
+    mesh_run = mesh_phase(np, torch, dict(cfg=cfg, params=params, ids=ids, mask=mask, kw=kw,
+                                          host=host, index=index, searcher=searcher,
+                                          queries=queries), sh_run, by_path)
     total = {name: sum(p[name] for p in by_path.values()) for name in counters}
     for name, n in total.items():
         if n <= 0 and name not in ENTRY_POINTS_ONLY:
@@ -6364,7 +6716,12 @@ def main() -> int:
         f"CLI {ep_run['cli_s']:.1f} s ({ep_run['cli_qps']} queries/s), from_args load "
         f"{ep_run['load_s']:.1f} s then {ep_run['qps']:.2f} queries/s, serve CLI "
         f"{ep_run['serve_s']:.1f} s ({ep_run['serve_qps']} queries/s); phase "
-        f"{ep_run['wall']:.1f} s")
+        f"{ep_run['wall']:.1f} s"
+        f"; mesh (2 ranks on this card, gloo): sharded decode {mesh_run['qps']:.1f} queries/s "
+        f"(one card {mesh_run['one_qps']:.1f}), {mesh_run['collectives']:.1f} collectives a "
+        f"step, {100 * mesh_run['collective_share']:.1f}% of a synchronized decode, "
+        f"data-parallel decode {mesh_run['dp_wall']:.4f} s (one card "
+        f"{mesh_run['mono_wall']:.4f}); phase {mesh_run['wall']:.1f} s")
     log(f"launches by path: {json.dumps(by_path)}")
     kernels = []
     for row in table:
@@ -6408,7 +6765,8 @@ def main() -> int:
                                    "counts_group_graph_ms", "limit_graph_ms",
                                    "searcher_contains_shape", "searcher_contains_graph_ms",
                                    "searcher_advance_shape", "searcher_advance_graph_ms",
-                                   "fwd_bwd_ms", "library_abs_err", "lse_abs_err")
+                                   "fwd_bwd_ms", "library_abs_err", "lse_abs_err",
+                                   "offset_ms", "offset_graph_ms", "offset_errors")
                if k in row},
         })
     missing = set(SOURCES) - {k["name"] for k in kernels}

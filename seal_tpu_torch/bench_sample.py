@@ -154,18 +154,18 @@ def main() -> int:
     def wide(lib, x):
         return lambda: lib.seal_sample_select(
             x.data_ptr(), x.data_ptr(), None, corpus.data_ptr(), zero.data_ptr(), rows, K, V, 5,
-            0, 2, 1, NEG_INF, k20.plan(rows, V).code, *ptrs, stream())
+            0, 0, 2, 1, NEG_INF, k20.plan(rows, V).code, *ptrs, stream())
 
     def count(lib):
         return lambda: lib.seal_sample_counts(
             counts.data_ptr(), flat.data_ptr(), V, prev.data_ptr(), fin.data_ptr(),
-            zero.data_ptr(), rows, K, V, 2, 1, 0, 0, 5, 4, NEG_INF, k20.plan(rows, V).code,
+            zero.data_ptr(), rows, K, V, 2, 1, 0, 0, 5, 4, 0, NEG_INF, k20.plan(rows, V).code,
             *ptrs, stream())
 
     def lists(lib, code):
         return lambda: lib.seal_sample_select(
             consl.data_ptr(), lpl.data_ptr(), tok.data_ptr(), None, zero.data_ptr(), rows, K, n,
-            5, 3, 2, 1, NEG_INF, code, *ptrs, stream())
+            5, 3, 0, 2, 1, NEG_INF, code, *ptrs, stream())
 
     def draws(fn):
         fn()

@@ -6,8 +6,12 @@ Flags are generated from ``SEALSearcher.DEFAULTS`` (``--dont_X`` for True
 defaults, ``--X`` for False ones), plus topics/output format options.
 ``--device`` (default ``auto``) serves on the card and raises without one;
 ``--device cpu`` runs the kernels' plain versions.  ``--profile_dir``
-writes a ``torch.profiler`` trace.  ``--multihost`` (processes across
-hosts) is not ported yet and raises.
+writes a ``torch.profiler`` trace.  ``--multihost`` (as JAX's) initializes
+``torch.distributed`` from torchrun's variables (``parallel/multihost.py``;
+a no-op without ``MASTER_ADDR``): each rank searches its
+``process_slice`` of the topics on its own card (``cuda:LOCAL_RANK``, or
+``--device cpu``), with no mesh, and writes ``<output>.<rank>`` when there
+is more than one rank.
 
     python -m seal_tpu_torch.cli.search --topics q.json --topics_format dpr \\
         --output run.trec --fm_index idx --checkpoint model.pt
@@ -58,14 +62,11 @@ def main(argv=None):
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace into this directory")
     parser.add_argument("--multihost", action="store_true", default=False,
-                        help="serve across hosts (not ported yet: raises)")
+                        help="init torch.distributed (coordinator from env): each rank "
+                        "searches its slice of the topics")
     SEALSearcher.add_args(parser)
     args = parser.parse_args(argv)
     print(args)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: processes across hosts are not ported to seal_tpu_torch yet "
-            "(ROADMAP.md A.7)")
     if args.hybrid != "none":
         print(
             f"warning: --hybrid {args.hybrid} is accepted for compatibility "
@@ -73,9 +74,22 @@ def main(argv=None):
             file=sys.stderr,
         )
 
+    output_path = args.output
     query_iterator = get_query_iterator(args.topics, TopicsFormat(args.topics_format))
+    if args.multihost:
+        from seal_tpu_torch.parallel import multihost
+
+        multihost.init_distributed()
+        args.device = str(multihost.local_device(args.device))
+        if multihost.process_count() > 1:
+            output_path = f"{args.output}.{multihost.process_index()}"
+            start, end = multihost.process_slice(len(query_iterator.order))
+            query_iterator.order = query_iterator.order[start:end]
+            query_iterator.topics = {
+                t: query_iterator.topics[t] for t in query_iterator.order
+            }
     output_writer = get_output_writer(
-        args.output,
+        output_path,
         OutputFormat(args.output_format),
         "w",
         max_hits=args.hits,

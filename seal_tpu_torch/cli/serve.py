@@ -16,8 +16,11 @@ point (its CLI is batch evaluation only); this is the long-running-worker
 shape: stateless, index and model loaded once -- restart/reload IS the
 fault-recovery story.  ``--device`` (default ``auto``) serves on the card
 and raises without one; ``--device cpu`` runs the kernels' plain
-versions.  ``--multihost`` (processes across hosts) is not ported yet and
-raises.
+versions.  ``--multihost`` (as JAX's) initializes ``torch.distributed``
+from torchrun's variables (``parallel/multihost.py``; a no-op without
+``MASTER_ADDR``): each rank serves its own input on its own card
+(``cuda:LOCAL_RANK``, or ``--device cpu``), with no mesh, and writes
+``<output>.<rank>`` when there is more than one rank.
 
     python -m seal_tpu_torch.cli.serve --fm_index idx --checkpoint model.pt < queries.jsonl
 """
@@ -70,15 +73,18 @@ def main(argv=None, stdin=None, stdout=None):
                         help="JSONL results file (default: stdout)")
     parser.add_argument("--hits", type=int, default=10)
     parser.add_argument("--multihost", action="store_true", default=False,
-                        help="serve across hosts (not ported yet: raises)")
+                        help="init torch.distributed (coordinator from env)")
     SEALSearcher.add_args(parser)
     args = parser.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: processes across hosts are not ported to seal_tpu_torch yet "
-            "(ROADMAP.md A.7)")
 
     output_path = args.output
+    if args.multihost:
+        from seal_tpu_torch.parallel import multihost
+
+        multihost.init_distributed()
+        args.device = str(multihost.local_device(args.device))
+        if multihost.process_count() > 1 and output_path:
+            output_path = f"{output_path}.{multihost.process_index()}"
     searcher = SEALSearcher.from_args(args)
     in_f = open(args.input) if (stdin is None and args.input) else None
     out_f = open(output_path, "w") if (stdout is None and output_path) else None

@@ -108,8 +108,8 @@ def main(argv=None):
 
     if args.tensor_parallel > 1:
         raise NotImplementedError(
-            "--tensor_parallel > 1: the mesh across cards is not ported to seal_tpu_torch yet "
-            "(ROADMAP.md A.7)")
+            "--tensor_parallel > 1: the mesh's model axis is not ported to seal_tpu_torch yet "
+            "(ROADMAP.md A.7b)")
     device = checked_device(args.device)
 
     tokenizer = load_tokenizer(args.tokenizer)

@@ -158,6 +158,11 @@ class SingleIndexOps:
         """True where the first ``rows_done`` rows enumerate all of [lo, hi)."""
         return (hi - lo) <= rows_done
 
+    def host_any(self, x) -> bool:
+        """A decode branch's host read: whether ``x`` holds a true element
+        (one host sync; over a mesh, ``ShardedIndexOps`` merges it)."""
+        return bool(x.any())
+
     def bucket_counts(self, lo, hi):
         return self._ops.bucket_counts(self.index, lo, hi)
 
@@ -311,11 +316,11 @@ def _step_window(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished):
     (tok, valid, lp) [B, K, chunk] or None).  A beam is exempt when it has
     finished, ``stop_at_count`` stops it, or the window enumerates its whole
     interval (LM proposals could only duplicate the window); the slab is
-    read only where some beam is not (one host sync)."""
+    read only where some beam is not (one host sync, ``ops.host_any``)."""
     count_eff = torch.where(finished, 0, prev_count)
     stop_trig = (count_eff <= cfg.stop_at_count) & (cfg.stop_at_count > 0)
     exempt = finished | stop_trig | ops.window_exhaustive(lo, hi, cfg.window)
-    if not bool((~exempt).any()):
+    if not ops.host_any(~exempt):
         return ops.window_gather(lo, hi, cfg.window, lp, cfg.pad_token_id), exempt, None
     out = ops.window_slab(lo, hi, cfg.window, _round0_width(cfg, lp.shape[-1]), lp,
                           cfg.pad_token_id)
@@ -390,7 +395,7 @@ def _exact_proposals(
     buf, th_lp, th_ix, dead, covered, eos_ok = round0()
     bits = None
     it = 1
-    while chunk + (it - 1) * chunk_l < V and bool(unproven(buf, th_lp, dead, covered).any()):
+    while chunk + (it - 1) * chunk_l < V and ops.host_any(unproven(buf, th_lp, dead, covered)):
         if bits is None:
             # bucket-support pruning: a token whose symbol bucket has no
             # row in [lo, hi) cannot continue the range
@@ -588,33 +593,38 @@ def _general_candidates(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished
 
 
 def _sample_dense_select(ops, cfg: DecodeConfig, lp, lo, hi, prev_count, finished, beam_scores,
-                         seed: int, step: int):
+                         seed: int, step: int, row_offset: int = 0):
     """A sampled ``exact_mask`` step: every beam's count mask (kernel 15's
     or 16's mask mode), then kernel 20's count-reading mode, which applies
     kernel 17's branches as it reads the mask (cons = lp where allowed, at
     zero beam scores) and draws each chain's token: no [B, K * V] scores
     are written, and kernel 17's streaming pass is not launched."""
     return sample_select_counts(_dense_mask(ops, cfg, lp, lo, hi), lp, prev_count, finished,
-                                beam_scores, seed, step, **_branches(cfg))
+                                beam_scores, seed, step, row_offset=row_offset, **_branches(cfg))
 
 
 def _mode_select(cfg: DecodeConfig, cons, cand_lp, tokens, beam_scores, seed: int, step: int,
-                 V: int, mask=None):
+                 V: int, mask=None, row_offset: int = 0):
     """``dispatch_select`` (:1268-1286) for the sampling (kernel 20) and
     diverse-group (kernel 21) modes; ``step`` keys draw ``step``'s noise,
-    ``V`` sizes the tie id's token field."""
+    ``row_offset`` its first chain's global row, ``V`` sizes the tie id's
+    token field."""
     if cfg.sample:
         return sample_select(cons, cand_lp, tokens, beam_scores, seed, step,
-                             eos=cfg.eos_token_id, pad=cfg.pad_token_id, mask=mask)
+                             eos=cfg.eos_token_id, pad=cfg.pad_token_id, mask=mask,
+                             row_offset=row_offset)
     return diverse_select(cons, tokens, beam_scores, groups=cfg.num_groups,
                           penalty=cfg.diversity_penalty, eos=cfg.eos_token_id,
                           ties=cfg.exact_ties, vocab=V, mask=mask)
 
 
 def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out,
-                            enc_mask, seed: int = 0, index_ops=None) -> BeamSearchOutput:
+                            enc_mask, seed: int = 0, index_ops=None,
+                            row_offset: int = 0) -> BeamSearchOutput:
     """Constrained beam search for a batch of queries (tensors on the
-    index's device); ``seed`` keys the sampling mode's noise.
+    index's device); ``seed`` keys the sampling mode's noise, and
+    ``row_offset`` is the global query of the batch's first (a
+    data-parallel rank's rows: its chains draw the whole batch's noise).
     ``index_ops``: the constraint-op adapter (default ``SingleIndexOps``
     over ``index``; ``parallel.sharded_decode.ShardedIndexOps`` for a
     sharded index, whose ranges carry a leading shard axis)."""
@@ -697,7 +707,8 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
             corpus_mask[cfg.eos_token_id] = True
     if modes:
         # kernel 20 or 21 reads the V-wide rows under the corpus mask
-        out = _mode_select(cfg, lp, lp, None, beam_scores, seed, 0, V, mask=corpus_mask)
+        out = _mode_select(cfg, lp, lp, None, beam_scores, seed, 0, V, mask=corpus_mask,
+                           row_offset=row_offset * K)
     else:
         cons0 = lp.reshape(B, K0, V)
         if corpus_mask is not None:
@@ -734,11 +745,12 @@ def constrained_beam_search(model_cfg, params, index, cfg: DecodeConfig, enc_out
         finished = ((last == cfg.eos_token_id) | (last == cfg.pad_token_id)).reshape(B, K)
         if modes and cfg.sample and cfg.exact_mask and constrained:
             out = _sample_dense_select(ops, cfg, lp, lo, hi, prev_count, finished, beam_scores,
-                                       seed, t + 1)
+                                       seed, t + 1, row_offset * K)
         elif modes:
             tok_c, cons, cand_lp = _general_candidates(ops, cfg, lp, lo, hi, prev_count, finished,
                                                        K)
-            out = _mode_select(cfg, cons, cand_lp, tok_c, beam_scores, seed, t + 1, V)
+            out = _mode_select(cfg, cons, cand_lp, tok_c, beam_scores, seed, t + 1, V,
+                               row_offset=row_offset * K)
         elif not constrained:
             out = _free_select(cfg, lp, beam_scores, K)
         elif cfg.exact_mask:

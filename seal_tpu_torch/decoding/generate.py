@@ -2,6 +2,14 @@
 ``seal_tpu/decoding/generate.py``): encode, constrained beam search on the
 index's device, then hypothesis extraction on the host.
 
+With a ``mesh`` (``parallel/mesh.py``) the decode is data-parallel, as
+JAX's ``mesh=`` decode with one ``model`` rank (``generate.py:79-117``):
+every rank passes the whole batch and decodes its own block of rows, and
+the hypotheses are all-gathered in row order, so every rank returns the
+whole list.  A sharded index placed on the mesh is JAX's sharded decode
+instead (``parallel/sharded_decode.py``): every rank decodes every row
+over its own shards.
+
 ``extract_hypotheses`` and ``pad_batch`` are numpy copies of the JAX
 module's (which imports jax); the tests hold them equal to the originals.
 """
@@ -21,6 +29,7 @@ from seal_tpu_torch.decoding.constrained import (
     resolve_window,
 )
 from seal_tpu_torch.models import api as model_api
+from seal_tpu_torch.parallel import mesh as mesh_lib
 from seal_tpu_torch.parallel.sharded_index import ShardedTorchIndex
 
 #: Most recent decode's fast-path fallback counters (single-dispatch
@@ -99,16 +108,27 @@ def _to_host(out: BeamSearchOutput) -> BeamSearchOutput:
     )
 
 
-def _search(model_cfg, params, index, dcfg, ids, mask, seed: int = 0) -> BeamSearchOutput:
+def _search(model_cfg, params, index, dcfg, ids, mask, seed: int = 0, mesh=None,
+            row_offset: int = 0) -> BeamSearchOutput:
     ops = None
     if isinstance(index, ShardedTorchIndex):  # sharded_fm_index_generate's route
         from seal_tpu_torch.parallel.sharded_decode import ShardedIndexOps
 
-        ops = ShardedIndexOps(index)
+        ops = ShardedIndexOps(index, mesh)
     with torch.inference_mode():
         enc = model_api.module_for(model_cfg).encode(model_cfg, params, ids, mask)
         return constrained_beam_search(model_cfg, params, index, dcfg, enc, mask, seed=seed,
-                                       index_ops=ops)
+                                       index_ops=ops, row_offset=row_offset)
+
+
+def _data_rows(mesh, B: int) -> slice:
+    """This rank's block of a data-parallel batch of ``B`` rows."""
+    n = mesh.size("data")
+    if B % n:
+        raise ValueError(f"data-parallel decode: a batch of {B} rows over a data axis of {n} "
+                         "ranks (pad the batch to a multiple of the ranks)")
+    b = B // n
+    return slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
 
 
 def fm_index_generate_async(
@@ -158,13 +178,13 @@ def fm_index_generate_async(
     ``int``), ``sample`` with its ``seed`` and diverse groups
     (``diverse_bs_groups``, ``diverse_bs_penalty``) run as in JAX; the
     sampler's noise is the port's own (counter-based Philox keyed by
-    ``seed``), so a seed gives other draws than JAX's.  A ``mesh``
-    (data-parallel decode) is not ported and raises
-    ``NotImplementedError``."""
+    ``seed``), so a seed gives other draws than JAX's.  ``mesh``: a
+    data-parallel decode over the mesh's ``data`` ranks (the batch's rows
+    must divide by them; every rank passes the whole batch and gets every
+    row's hypotheses; a sampled decode draws what one process draws), or,
+    for a sharded index placed on the mesh, the sharded decode."""
     del length_penalty, keep_history  # no effect on the exact beam path
     del exact_topk_blk
-    if mesh is not None:
-        raise NotImplementedError("not ported to seal_tpu_torch yet: mesh (data-parallel decode)")
     dev = index.device
     if isinstance(input_ids, (list, tuple)):
         input_ids, attention_mask = pad_batch(input_ids, model_cfg.pad_token_id)
@@ -173,6 +193,13 @@ def fm_index_generate_async(
         mask = (ids != model_cfg.pad_token_id).to(torch.int32)
     else:
         mask = torch.as_tensor(np.asarray(attention_mask), dtype=torch.int32).to(dev)
+    if mesh is not None and mesh.size("model") > 1:
+        raise NotImplementedError(mesh_lib.MODEL_AXIS)
+    data_parallel = mesh is not None and not isinstance(index, ShardedTorchIndex)
+    row_offset = 0
+    if data_parallel:
+        rows = _data_rows(mesh, ids.shape[0])
+        ids, mask, row_offset = ids[rows], mask[rows], rows.start
     if forced_bos_token_id == "default":
         forced_bos_token_id = model_cfg.forced_bos_token_id
 
@@ -203,19 +230,24 @@ def fm_index_generate_async(
         diversity_penalty=diverse_bs_penalty,
         force_full=force_full,
     )
-    out = _search(model_cfg, params, index, dcfg, ids, mask, seed)
+    out = _search(model_cfg, params, index, dcfg, ids, mask, seed, mesh, row_offset)
 
     def finalize() -> List[List[Tuple[float, List[int]]]]:
         fetched = _to_host(out)
-        n_fallback = int(fetched.fallback_steps)
+        # the largest rank's count: every rank takes the redo branch together
+        n_fallback = int(mesh_lib.pmax(mesh, out.fallback_steps.reshape(1).clone()).item())
         LAST_DECODE_STATS["fallback_steps"] = n_fallback
         LAST_DECODE_STATS["num_steps"] = dcfg.num_steps
         if n_fallback and not dcfg.force_full:
             # some step's round-0 candidate set could not be proven
             # sufficient: redecode the batch through the proven loop
             full = dataclasses.replace(dcfg, force_full=True)
-            fetched = _to_host(_search(model_cfg, params, index, full, ids, mask, seed))
-        return extract_hypotheses(fetched, dcfg)
+            fetched = _to_host(_search(model_cfg, params, index, full, ids, mask, seed, mesh,
+                                       row_offset))
+        hyps = extract_hypotheses(fetched, dcfg)
+        if data_parallel:  # every rank's rows, in row order
+            hyps = [h for part in mesh_lib.gather_objects(mesh, hyps) for h in part]
+        return hyps
 
     return finalize
 

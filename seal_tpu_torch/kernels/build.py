@@ -209,16 +209,17 @@ SIGNATURES = {
     "seal_beam_candidates": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I,
                              _I, _I, _I, _F, _P, _I, _P, _P, _P, _P],
     # cons, cand_lp, tokens (None: token = column), mask (None), beam_scores,
-    # rows, K, N, seed, step, eos, pad, neg_inf, splits (0: the warp route;
-    # kernels/sample_select.py:Plan.code), 8 outputs, stream
-    "seal_sample_select": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I, _F, _I] + [_P] * 9,
-    # counts, lp, lp_stride, prev_count, finished, beam_scores, rows, K, V,
-    # eos, pad, stop_at_count, always_allow_eos, seed, step, neg_inf, splits,
-    # 8 outputs, stream
-    "seal_sample_counts": [_P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _L, _L, _F, _I]
+    # rows, K, N, seed, step, row_offset, eos, pad, neg_inf, splits (0: the
+    # warp route; kernels/sample_select.py:Plan.code), 8 outputs, stream
+    "seal_sample_select": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _L, _I, _I, _F, _I]
                           + [_P] * 9,
-    # rows, n, seed, step, words, g, stream
-    "seal_gumbel_noise": [_L, _I, _L, _L, _P, _P, _P],
+    # counts, lp, lp_stride, prev_count, finished, beam_scores, rows, K, V,
+    # eos, pad, stop_at_count, always_allow_eos, seed, step, row_offset,
+    # neg_inf, splits, 8 outputs, stream
+    "seal_sample_counts": [_P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _L, _L, _L, _F,
+                           _I] + [_P] * 9,
+    # rows, n, seed, step, row_offset, words, g, stream
+    "seal_gumbel_noise": [_L, _I, _L, _L, _L, _P, _P, _P],
     # cons, tokens (None: token = column), mask (None), beam_scores, n_queries,
     # K, N, G, eos, tie_bits (0: lax.top_k's order), penalize, penalty,
     # neg_inf, part_key, part_slot, 8 outputs, stream

@@ -11,8 +11,10 @@
 //
 // Noise: counter-based, with no state between calls.  Philox4x32-10
 // (Random123's round and key schedule) with key (seed mod 2^32, step) and
-// counter (column / 4, row, 0, 0) gives the 32-bit word w of each column
-// (word column % 4); u = ((w >> 9) + 0.5) * 2^-23 lies strictly inside
+// counter (column / 4, row_offset + row, 0, 0) gives the 32-bit word w of
+// each column (word column % 4); row_offset is the global row of the call's
+// first row (a data-parallel rank decodes rows past the earlier ranks', and
+// draws what one process draws for the whole batch); u = ((w >> 9) + 0.5) * 2^-23 lies strictly inside
 // (0, 1) and is exact in f32, and g = -logf(-logf(u)).  (Twenty-four bits,
 // (w >> 8) + 0.5, would need 25 and round to 1.0 at the top.)  The plain
 // version computes the same words in int64 torch arithmetic, bit for bit.
@@ -450,6 +452,7 @@ struct Common {
   unsigned seed, step;
   float neg_inf;
   bool listed;  // the EOS slot comes from a token table
+  long long row0;  // the global row of row 0: the noise counter's row word is row0 + row
 };
 
 // The chain's outputs from its reduced draw
@@ -497,10 +500,10 @@ sample_warp_kernel(Cols cols, Common a, SampleOut o) {
   const int nq = (a.N + 3) >> 2;
   if constexpr (Cols::kLists) {
     __shared__ WarpLists lists[WARP_THREADS / 32];
-    draw_quads(cols, R, row, lane, nq, 32, a.seed, a.step, a.fin_cut, gub,
+    draw_quads(cols, R, a.row0 + row, lane, nq, 32, a.seed, a.step, a.fin_cut, gub,
                lists[threadIdx.x >> 5], d);
   } else {
-    draw_lane(cols, R, row, lane, nq, 32, a.seed, a.step, a.fin_cut, gub, d);
+    draw_lane(cols, R, a.row0 + row, lane, nq, 32, a.seed, a.step, a.fin_cut, gub, d);
   }
   d = warp_reduce(d);
   if (lane == 0)
@@ -538,10 +541,10 @@ sample_block_kernel(Cols cols, Common a, SampleOut o) {
   const int q0 = c * per + tid, q1 = min(nq, (c + 1) * per);
   if constexpr (Cols::kLists) {
     __shared__ WarpLists lists[BLOCK_THREADS / 32];
-    draw_quads(cols, R, row, q0, q1, BLOCK_THREADS, a.seed, a.step, a.fin_cut, gub, lists[warp],
-               d);
+    draw_quads(cols, R, a.row0 + row, q0, q1, BLOCK_THREADS, a.seed, a.step, a.fin_cut, gub,
+               lists[warp], d);
   } else {
-    draw_lane(cols, R, row, q0, q1, BLOCK_THREADS, a.seed, a.step, a.fin_cut, gub, d);
+    draw_lane(cols, R, a.row0 + row, q0, q1, BLOCK_THREADS, a.seed, a.step, a.fin_cut, gub, d);
   }
   d = warp_reduce(d);
   if (lane == 0) s_warp[warp] = d;
@@ -594,10 +597,12 @@ int launch(const Cols& cols, const Common& a, const SampleOut& o, int splits,
 
 // The noise alone, [rows, n] words and Gumbel values, for checking the
 // generator against its plain version.
-__global__ void noise_kernel(int n, unsigned seed, unsigned step, unsigned* words, float* g) {
+__global__ void noise_kernel(int n, unsigned seed, unsigned step, long long row0,
+                             unsigned* words, float* g) {
   const long long row = blockIdx.x;
   for (int q = threadIdx.x; 4 * q < n; q += blockDim.x) {
-    const uint4 w = philox4x32_10(make_uint4((unsigned)q, (unsigned)row, 0u, 0u), seed, step);
+    const uint4 w =
+        philox4x32_10(make_uint4((unsigned)q, (unsigned)(row0 + row), 0u, 0u), seed, step);
     for (int i = 0; i < 4 && 4 * q + i < n; ++i) {
       words[row * n + 4 * q + i] = word_of(w, i);
       g[row * n + 4 * q + i] = gumbel_of(word_of(w, i));
@@ -614,13 +619,13 @@ extern "C" {
 // splits 0 (the warp route) or 1-8 CTAs a row (kernels/sample_select.py:plan)
 int seal_sample_select(const float* cons, const float* cand_lp, const int* tokens,
                        const unsigned char* mask, const float* beam_scores, long long rows, int K,
-                       int N, long long seed, long long step, int eos, int pad, float neg_inf,
-                       int splits, int* c_tok, int* c_par, float* c_sco, unsigned char* c_fin,
+                       int N, long long seed, long long step, long long row_offset, int eos,
+                       int pad, float neg_inf, int splits, int* c_tok, int* c_par, float* c_sco, unsigned char* c_fin,
                        int* sel_tok, int* sel_par, float* sel_sco, unsigned char* sel_fin,
                        void* stream) {
   const SampleOut o{c_tok, c_par, c_sco, c_fin, sel_tok, sel_par, sel_sco, sel_fin};
   const Common a{neg_inf / 4.0f, cand_lp, N, beam_scores, rows, K, N, eos, pad,
-                 (unsigned)seed, (unsigned)step, neg_inf, tokens != nullptr};
+                 (unsigned)seed, (unsigned)step, neg_inf, tokens != nullptr, row_offset};
   if (tokens != nullptr)
     return launch(ListCols{cons, tokens, N, eos}, a, o, splits, (cudaStream_t)stream);
   if (((unsigned long long)mask & 3) != 0) return (int)cudaErrorInvalidValue;
@@ -635,23 +640,24 @@ int seal_sample_counts(const unsigned* mask, const float* lp, long long lp_strid
                        const int* prev_count, const unsigned char* finished,
                        const float* beam_scores, long long rows, int K, int V, int eos, int pad,
                        int stop_at_count, int always_allow_eos, long long seed, long long step,
-                       float neg_inf, int splits, int* c_tok, int* c_par, float* c_sco,
-                       unsigned char* c_fin, int* sel_tok, int* sel_par, float* sel_sco,
-                       unsigned char* sel_fin, void* stream) {
+                       long long row_offset, float neg_inf, int splits, int* c_tok, int* c_par,
+                       float* c_sco, unsigned char* c_fin, int* sel_tok, int* sel_par,
+                       float* sel_sco, unsigned char* sel_fin, void* stream) {
   const SampleOut o{c_tok, c_par, c_sco, c_fin, sel_tok, sel_par, sel_sco, sel_fin};
   const Common a{neg_inf / 4.0f, lp, lp_stride, beam_scores, rows, K, V, eos, pad,
-                 (unsigned)seed, (unsigned)step, neg_inf, false};
+                 (unsigned)seed, (unsigned)step, neg_inf, false, row_offset};
   const Branches br{prev_count, finished, beam_scores, eos, pad, stop_at_count, always_allow_eos,
                     neg_inf};
   return launch(CountCols{mask, lp, lp_stride, br, V, 4 * ((V + 127) / 128)}, a, o, splits,
                 (cudaStream_t)stream);
 }
 
-int seal_gumbel_noise(long long rows, int n, long long seed, long long step, unsigned* words,
-                      float* g, void* stream) {
+int seal_gumbel_noise(long long rows, int n, long long seed, long long step, long long row_offset,
+                      unsigned* words, float* g, void* stream) {
   if (rows <= 0) return (int)cudaGetLastError();
   noise_kernel<<<(unsigned)rows, 256, 0, (cudaStream_t)stream>>>(n, (unsigned)seed,
-                                                                  (unsigned)step, words, g);
+                                                                  (unsigned)step, row_offset, words,
+                                                                  g);
   return (int)cudaGetLastError();
 }
 

@@ -9,8 +9,12 @@ slots, and accumulates that slot's log-prob; a chain with no finite slot
 takes EOS.
 
 The noise is counter-based, as the source states: Philox4x32-10 words
-under key (seed mod 2^32, step) and counter (column // 4, row, 0, 0), u =
-((w >> 9) + 0.5) * 2^-23 and g = -log(-log(u)).  The plain version computes
+under key (seed mod 2^32, step) and counter (column // 4, row_offset +
+row, 0, 0), u = ((w >> 9) + 0.5) * 2^-23 and g = -log(-log(u)).  Every
+entry point takes ``row_offset`` (default 0), the global row of the
+call's first row: a data-parallel rank that decodes rows [r0, r1) of a
+batch passes r0 (in chains, K a query) and draws what one process draws
+for those rows of the whole batch.  The plain version computes
 the words in int64 torch arithmetic (32-bit words, products in 16-bit
 halves), so they equal the kernel's bit for bit; ``log`` may differ from
 the kernel's ``logf`` by an ulp.  It also takes a ``noise`` tensor in place
@@ -68,11 +72,13 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int, rounds: int = 10):
     return c0, c1, c2, c3
 
 
-def philox_words(seed: int, step: int, rows: int, n: int, device="cpu"):
-    """The 32-bit word of every (row, column) of a [rows, n] draw, int64."""
+def philox_words(seed: int, step: int, rows: int, n: int, device="cpu", row_offset: int = 0):
+    """The 32-bit word of every (row, column) of a [rows, n] draw, int64;
+    row r takes the counter of global row ``row_offset + r``."""
     q = (n + 3) // 4
     c0 = torch.arange(q, dtype=torch.int64, device=device).expand(rows, q)
-    c1 = torch.arange(rows, dtype=torch.int64, device=device)[:, None].expand(rows, q)
+    c1 = (torch.arange(rows, dtype=torch.int64, device=device) + row_offset) & MASK32
+    c1 = c1[:, None].expand(rows, q)
     zero = torch.zeros((rows, q), dtype=torch.int64, device=device)
     words = philox4x32(c0, c1, zero, zero, seed & MASK32, step & MASK32)
     return torch.stack(words, -1).reshape(rows, 4 * q)[:, :n]
@@ -85,21 +91,21 @@ def gumbel_of_words(words):
     return -torch.log(-torch.log(u))
 
 
-def gumbel_noise(seed: int, step: int, rows: int, n: int, device="cpu"):
+def gumbel_noise(seed: int, step: int, rows: int, n: int, device="cpu", row_offset: int = 0):
     """The plain version's noise for draw ``step`` of a [rows, n] candidate
-    matrix under ``seed``."""
-    return gumbel_of_words(philox_words(seed, step, rows, n, device))
+    matrix under ``seed``, its rows from global row ``row_offset`` on."""
+    return gumbel_of_words(philox_words(seed, step, rows, n, device, row_offset))
 
 
-def noise_on_card(seed: int, step: int, rows: int, n: int, device):
+def noise_on_card(seed: int, step: int, rows: int, n: int, device, row_offset: int = 0):
     """The kernel's own words (int64) and Gumbel values for the same draw,
     for checking the generator against :func:`philox_words`."""
     from seal_tpu_torch.kernels import build
 
     words = torch.empty((rows, n), dtype=torch.int32, device=device)
     g = torch.empty((rows, n), dtype=torch.float32, device=device)
-    rc = build.lib().seal_gumbel_noise(rows, n, seed, step, words.data_ptr(), g.data_ptr(),
-                                       build.stream_ptr(words))
+    rc = build.lib().seal_gumbel_noise(rows, n, seed, step, row_offset, words.data_ptr(),
+                                       g.data_ptr(), build.stream_ptr(words))
     build.check(rc, "gumbel_noise")
     return words.to(torch.int64) & MASK32, g
 
@@ -138,7 +144,7 @@ def plan(rows: int, n: int) -> Plan:
 
 
 def sample_select_plain(cons, cand_lp, tokens, beam_scores, seed: int, step: int, *, eos: int,
-                        pad: int, mask=None, noise=None):
+                        pad: int, mask=None, noise=None, row_offset: int = 0):
     B, K = beam_scores.shape
     N = cons.shape[-1]
     cons = cons.reshape(B, K, N)
@@ -149,7 +155,7 @@ def sample_select_plain(cons, cand_lp, tokens, beam_scores, seed: int, step: int
         tokens = torch.arange(N, dtype=torch.int32, device=cons.device).expand(B, K, N)
     tokens = tokens.reshape(B, K, N)
     if noise is None:
-        noise = gumbel_noise(seed, step, B * K, N, cons.device)
+        noise = gumbel_noise(seed, step, B * K, N, cons.device, row_offset)
     finite = cons > NEG_INF / 4
     idx = torch.where(finite, cons + noise.reshape(B, K, N), NEG_INF).argmax(-1, keepdim=True)
     dead = ~finite.any(-1)
@@ -170,7 +176,7 @@ def sample_select_plain(cons, cand_lp, tokens, beam_scores, seed: int, step: int
 
 
 def sample_select(cons, cand_lp, tokens, beam_scores, seed: int, step: int, *, eos: int, pad: int,
-                  mask=None):
+                  mask=None, row_offset: int = 0):
     """One sampling step of K independent chains per query.
 
     ``cons`` f32 [B, K, N]: constrained log-probs, without the chain scores
@@ -178,7 +184,7 @@ def sample_select(cons, cand_lp, tokens, beam_scores, seed: int, step: int, *, e
     ``tokens`` int32 [B, K, N], or None where the token is the column;
     ``beam_scores`` f32 [B, K]; ``mask`` bool [N] (with ``tokens`` None):
     columns allowed at all, applied to ``cons``.  ``seed`` and ``step`` key
-    the noise.  Returns ``_select_sample``'s eight outputs: the [B, 2K]
+    the noise; chain row r draws global row ``row_offset + r``'s.  Returns ``_select_sample``'s eight outputs: the [B, 2K]
     history (the K draws, then K PAD slots at ``NEG_INF``; parents 0..K-1
     twice; finite true then false) and the [B, K] selection (token, parent
     = the chain itself, score, finite = true).
@@ -187,7 +193,7 @@ def sample_select(cons, cand_lp, tokens, beam_scores, seed: int, step: int, *, e
     """
     if not cons.is_cuda:
         return sample_select_plain(cons, cand_lp, tokens, beam_scores, seed, step, eos=eos,
-                                   pad=pad, mask=mask)
+                                   pad=pad, mask=mask, row_offset=row_offset)
     from seal_tpu_torch.kernels import build
 
     B, K = beam_scores.shape
@@ -214,7 +220,7 @@ def sample_select(cons, cand_lp, tokens, beam_scores, seed: int, step: int, *, e
     p = plan(B * K, N)
     rc = build.lib().seal_sample_select(
         cons.data_ptr(), cand_lp.data_ptr(), opt(tokens), opt(mask), beam_scores.data_ptr(), B * K,
-        K, N, seed, step, eos, pad, NEG_INF, p.code, *(t.data_ptr() for t in outs),
+        K, N, seed, step, row_offset, eos, pad, NEG_INF, p.code, *(t.data_ptr() for t in outs),
         build.stream_ptr(cons),
     )
     build.check(rc, "sample_select")
@@ -229,7 +235,7 @@ sample_select.launches = 0
 
 def sample_select_counts_plain(mask, lp, prev_count, finished, beam_scores, seed: int,
                                step: int, *, eos: int, pad: int, stop_at_count: int = 0,
-                               always_allow_eos: bool = False, noise=None):
+                               always_allow_eos: bool = False, noise=None, row_offset: int = 0):
     from seal_tpu_torch.kernels.dense_scores import dense_scores_plain
 
     B, K = mask.shape[:2]
@@ -239,12 +245,12 @@ def sample_select_counts_plain(mask, lp, prev_count, finished, beam_scores, seed
     cons = dense_scores_plain(mask, lp, prev_count, finished, zero, eos=eos, pad=pad,
                               stop_at_count=stop_at_count, always_allow_eos=always_allow_eos)
     return sample_select_plain(cons.reshape(B, K, V), lp, None, beam_scores, seed, step, eos=eos,
-                               pad=pad, noise=noise)
+                               pad=pad, noise=noise, row_offset=row_offset)
 
 
 def sample_select_counts(mask, lp, prev_count, finished, beam_scores, seed: int, step: int, *,
                          eos: int, pad: int, stop_at_count: int = 0,
-                         always_allow_eos: bool = False):
+                         always_allow_eos: bool = False, row_offset: int = 0):
     """One sampling step of the ``exact_mask`` mode: :func:`sample_select`
     over ``dense_scores(mask, lp, ..., zero beam scores)`` (kernel 17's
     candidates, N = V), the scores never written.
@@ -253,7 +259,8 @@ def sample_select_counts(mask, lp, prev_count, finished, beam_scores, seed: int,
     (``dense_mask``, a bit a token); ``lp`` f32 [B*K, V] (any row stride);
     ``prev_count``, ``finished``, ``beam_scores`` [B, K].  A token is
     allowed by kernel 17's branches (stop-forced beams: EOS only; finished
-    beams: PAD only; else its bit; ``always_allow_eos`` adds EOS).  Returns
+    beams: PAD only; else its bit; ``always_allow_eos`` adds EOS).
+    ``row_offset`` as :func:`sample_select`'s.  Returns
     :func:`sample_select`'s eight outputs.
 
     CPU tensors run the plain version; CUDA tensors launch kernel 20's
@@ -267,7 +274,7 @@ def sample_select_counts(mask, lp, prev_count, finished, beam_scores, seed: int,
                          f"{tuple(beam_scores.shape)} vs the count mask {tuple(mask.shape)}")
     if not lp.is_cuda:
         return sample_select_counts_plain(mask, lp, prev_count, finished, beam_scores, seed,
-                                          step, **kw)
+                                          step, row_offset=row_offset, **kw)
     from seal_tpu_torch.kernels import build
 
     if lp.stride(1) != 1:
@@ -282,7 +289,8 @@ def sample_select_counts(mask, lp, prev_count, finished, beam_scores, seed: int,
     rc = build.lib().seal_sample_counts(
         mask.data_ptr(), lp.data_ptr(), lp.stride(0), prev_count.data_ptr(),
         finished.data_ptr(), beam_scores.data_ptr(), B * K, K, V, eos, pad, stop_at_count,
-        int(always_allow_eos), seed, step, NEG_INF, p.code, *(t.data_ptr() for t in outs),
+        int(always_allow_eos), seed, step, row_offset, NEG_INF, p.code,
+        *(t.data_ptr() for t in outs),
         build.stream_ptr(lp),
     )
     build.check(rc, "sample_select_counts")

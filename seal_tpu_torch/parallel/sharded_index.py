@@ -16,9 +16,13 @@ module's (which imports jax); the tests hold them equal to the originals.
 ``ShardedTorchIndex`` is the counterpart of ``ShardedFMIndex``: the same
 stacked arrays, ``bwt`` as int32 and, as there, no head directory.
 
-A ``mesh`` other than ``None`` (shards on several cards) is not ported:
-``sharded_count_sequences`` and ``sharded_allowed_mask`` raise
-``NotImplementedError`` for one.
+Over a mesh (``parallel/mesh.py``: processes on the ``data`` axis), each
+rank keeps a contiguous block of the shards on its own device
+(``ShardedTorchIndex.place``): rank r of n holds shards [r * S / n,
+(r + 1) * S / n), so the union window's slots keep the one-card order.
+The kernels' shard modes merge a rank's own shards, and a collective on
+the mesh's ``data`` group merges the ranks (``sharded_count_sequences``
+and ``sharded_allowed_mask``: a SUM).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from seal_tpu_torch.index.device_index import (
 )
 from seal_tpu_torch.index.fm_index import FMIndex, SHIFT
 from seal_tpu_torch.kernels.fm_search import fm_search_sharded, fm_sequences_sharded
+from seal_tpu_torch.parallel import mesh as mesh_lib
 from seal_tpu_torch.utils.device import DEFAULT_DEVICE, checked_device, tensor_bytes
 
 PAD_BEGINNING = 2**30  # fills the beginnings rows of shards with fewer documents
@@ -135,6 +140,8 @@ class ShardedTorchIndex:
     bucket_rows: int = BUCKET_ROWS
     bucket_size: int = 1
     n_buckets: int = N_BUCKETS
+    mesh: object = None  # the mesh this rank's block of shards was placed on
+    first_shard: int = 0  # the global index of this block's first shard
 
     @property
     def device(self) -> torch.device:
@@ -146,8 +153,36 @@ class ShardedTorchIndex:
         return int(self.psi.shape[1])
 
     def memory_bytes(self) -> int:
-        """Device bytes of every array."""
+        """Device bytes of every array (on a mesh, this rank's)."""
         return tensor_bytes(self)
+
+    def place(self, mesh) -> "ShardedTorchIndex":
+        """This rank's block of the shards on ``mesh.device`` (counterpart
+        of ``ShardedFMIndex.place``): rank r of the ``data`` axis's n keeps
+        shards [r * S / n, (r + 1) * S / n), copied, with the union's
+        ``corpus_counts`` and the whole index's padded sizes (``n_max``,
+        ``sigma``, ``search_iters``), so that its kernels run as the
+        one-card index's do on those shards.  Every rank places the same
+        index; S must divide by n.  Nothing of another rank's shards
+        reaches this rank's device."""
+        if self.mesh is not None:
+            raise ValueError("place: the index is already placed on a mesh")
+        n, r = mesh.size("data"), mesh.data_rank
+        if self.n_shards % n:
+            raise ValueError(f"place: {self.n_shards} shards over a data axis of {n} ranks")
+        k = self.n_shards // n
+        block = slice(r * k, (r + 1) * k)
+
+        def put(t, whole=False):
+            return (t if whole else t[block]).to(mesh.device, copy=True).contiguous()
+
+        return dataclasses.replace(
+            self, psi=put(self.psi), bwt=put(self.bwt), C=put(self.C),
+            sym_dir=put(self.sym_dir), n_rows=put(self.n_rows),
+            beginnings=put(self.beginnings), n_docs_shard=put(self.n_docs_shard),
+            bucket_occ=put(self.bucket_occ), corpus_counts=put(self.corpus_counts, whole=True),
+            n_shards=k, shard_rows=self.shard_rows[block], mesh=mesh, first_shard=r * k,
+        )
 
     @classmethod
     def build(
@@ -371,24 +406,29 @@ class UnionHostIndex:
         return self.hosts[s].get_doc_length(local)
 
 
-def require_no_mesh(mesh) -> None:
-    """Raise for a ``mesh``: shards on several cards are not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported to seal_tpu_torch yet: mesh (shards on several cards); pass mesh=None "
-            "to run every shard on the index's own device"
-        )
+def mesh_of(si: ShardedTorchIndex, mesh):
+    """``mesh`` checked against the one ``si`` was placed on: the index
+    of one card takes ``None``, a placed block of shards its own mesh
+    (a rank's shards alone would give that rank's part of every count)."""
+    if mesh is not si.mesh:
+        raise ValueError(
+            "a sharded index runs on the mesh it was placed on (ShardedTorchIndex.place), "
+            f"and an unplaced one with mesh=None; got {mesh!r} for an index placed on "
+            f"{si.mesh!r}")
+    return mesh
 
 
-def sharded_count_sequences(si: ShardedTorchIndex, mesh, tokens, lengths):
+def sharded_count_sequences(si: ShardedTorchIndex, mesh, tokens, lengths, lane: int = 0):
     """Global corpus counts of padded sequences: the per-shard counts,
-    summed (kernel 5's shard count mode).
+    summed (kernel 5's shard count mode over this rank's shards, then a
+    SUM over the mesh's ranks on collective lane ``lane``).
 
     tokens: [B, L]; lengths: [B].  Returns int32 [B] global counts.
-    ``mesh`` must be ``None``: the shards live on ``si.device``.
+    ``mesh``: the one ``si`` was placed on, or ``None`` for an index on one
+    device.
     """
-    require_no_mesh(mesh)
-    return fm_sequences_sharded(si, tokens, lengths, count=True)
+    return mesh_lib.psum(mesh_of(si, mesh), fm_sequences_sharded(si, tokens, lengths, count=True),
+                         lane)
 
 
 def sharded_allowed_mask(si: ShardedTorchIndex, mesh, tokens, lengths, cand_tokens):
@@ -396,9 +436,9 @@ def sharded_allowed_mask(si: ShardedTorchIndex, mesh, tokens, lengths, cand_toke
 
     tokens: [B, L] prefix batch; cand_tokens: [B, M].  Returns [B, M] global
     counts of prefix+candidate (0 = not allowed anywhere): kernel 5's shard
-    ranges, then kernel 1's shard count mode.  ``mesh`` must be ``None``.
+    ranges, then kernel 1's shard count mode, then a SUM over the mesh.
     """
-    require_no_mesh(mesh)
+    mesh_of(si, mesh)
     lo, hi = fm_sequences_sharded(si, tokens, lengths)
     cands = torch.as_tensor(np.asarray(cand_tokens), dtype=torch.int32, device=si.device)
-    return fm_search_sharded(si, "validate", cands, lo, hi)
+    return mesh_lib.psum(mesh, fm_search_sharded(si, "validate", cands, lo, hi))

@@ -29,8 +29,15 @@ What changed in translation:
   as with a ``BartConfig``.
 * ``index_shards`` > 1: ``build_sharded`` or ``sharded_index=`` (a
   ``ShardedTorchIndex`` with every shard on one card, ranked over a
-  ``UnionHostIndex``), as the JAX searcher's sharded serving mode; a
-  ``mesh`` (shards on several cards) raises ``NotImplementedError``.
+  ``UnionHostIndex``), as the JAX searcher's sharded serving mode.  With
+  ``mesh=`` (``parallel/mesh.py``) the shards spread over the ranks, as
+  JAX's over its devices: every rank builds or loads all the shards' host
+  indexes for the ranker, keeps its own block of shards on its device
+  (``ShardedTorchIndex.place``), and runs ``batch_search`` on the same
+  queries; the decode and the counts merge over the ranks, and every rank
+  returns the same documents.  The ranker's counts take the mesh's second
+  collective lane, the key producer's decode and count filter its first,
+  so the two threads' collectives never interleave in one group.
 * ``load`` / ``from_args`` put the index and the parameters on the device
   they are given (``--device``: ``auto``, ``cuda`` and ``cuda:N`` mean the
   card and raise where there is none; ``cpu`` the CPU).  A ``checkpoint``
@@ -78,7 +85,6 @@ from seal_tpu_torch.parallel.sharded_index import (
     ShardedTorchIndex,
     UnionHostIndex,
     load_sharded_hosts,
-    require_no_mesh,
     sharded_count_sequences,
 )
 from seal_tpu_torch.retrieval.document import SEALDocument
@@ -98,6 +104,10 @@ _WORKER: Dict[str, object] = {}
 
 # arrays at least this large reach the workers as mapped files
 _MAPPED_MIN_BYTES = 1 << 20
+
+# a mesh's collective lanes (parallel/mesh.py): the key producer's (the
+# decode and the count filter, on the pipeline's thread) and the ranker's
+PRODUCER_LANE, RANKER_LANE = 0, 1
 
 
 def _mapped_array(path: str) -> np.ndarray:
@@ -221,11 +231,13 @@ class SEALSearcher:
         code_params=None,
         device_index: Optional[Union[TorchFMIndex, WaveletIndex]] = None,
         sharded_index: Optional[ShardedTorchIndex] = None,  # serving mode over shards
-        mesh=None,
+        mesh=None,  # the mesh ``sharded_index`` was placed on
         device=None,  # where the index goes; default: the device of ``params``
         **kwargs,
     ):
-        require_no_mesh(mesh)
+        if mesh is not None and (sharded_index is None or sharded_index.mesh is not mesh):
+            raise ValueError("a mesh serves a sharded index placed on it: "
+                             "SEALSearcher(..., sharded_index=si.place(mesh), mesh=mesh)")
         self.fm_index = fm_index
         self.tokenizer = tokenizer
         self.model_cfg = model_cfg
@@ -484,8 +496,8 @@ class SEALSearcher:
         **params,
     ) -> "SEALSearcher":
         """Sharded serving straight from the per-shard index files, every
-        shard on ``device``."""
-        require_no_mesh(mesh)
+        shard on ``device``; with ``mesh``, this rank's block of shards on
+        the mesh's device (every rank loads every shard's host index)."""
         device = checked_device(device)
         hosts, assignments, labels = load_sharded_hosts(fm_index_path)
         n_shards = len(hosts)
@@ -503,9 +515,14 @@ class SEALSearcher:
             checkpoint, scorer_checkpoint, title_checkpoint, code_checkpoint,
             tokenizer_path, model_cfg, params, device,
         )
-        si = ShardedTorchIndex.from_hosts(hosts, vocab=model_cfg.vocab_size, device=device)
+        if mesh is None:
+            si = ShardedTorchIndex.from_hosts(hosts, vocab=model_cfg.vocab_size, device=device)
+        else:
+            si = ShardedTorchIndex.from_hosts(hosts, vocab=model_cfg.vocab_size,
+                                              device="cpu").place(mesh)
         union = UnionHostIndex(hosts, assignments, labels=labels)
-        return cls(union, tokenizer, model_cfg, main, sharded_index=si, **extra, **params)
+        return cls(union, tokenizer, model_cfg, main, sharded_index=si, mesh=mesh, **extra,
+                   **params)
 
     @classmethod
     def build_sharded(
@@ -521,15 +538,19 @@ class SEALSearcher:
     ) -> "SEALSearcher":
         """Serving mode with the FM-index split into ``n_shards`` shards, all
         on the device of ``params`` (or ``device=``): generation runs the
-        sharded decoder, ranking runs against the union host view."""
-        require_no_mesh(mesh)
+        sharded decoder, ranking runs against the union host view.  With
+        ``mesh``, every rank builds every shard and keeps its own block on
+        the mesh's device."""
         device = kwargs.pop("device", None)
         device = params["shared"].device if device is None else device
         si, hosts, assignments = ShardedTorchIndex.build(
-            docs, n_shards=n_shards, vocab=model_cfg.vocab_size, labels=labels, device=device
+            docs, n_shards=n_shards, vocab=model_cfg.vocab_size, labels=labels,
+            device=device if mesh is None else "cpu",
         )
+        if mesh is not None:
+            si = si.place(mesh)
         union = UnionHostIndex(hosts, assignments, labels=labels)
-        return cls(union, tokenizer, model_cfg, params, sharded_index=si, **kwargs)
+        return cls(union, tokenizer, model_cfg, params, sharded_index=si, mesh=mesh, **kwargs)
 
     # ---------------------------------------------------------- key generation
 
@@ -551,41 +572,54 @@ class SEALSearcher:
 
     # ------------------------------------------------- batched index queries
 
-    def _device_ranges(self, seqs: Sequence[Sequence[int]]):
+    def _device_ranges(self, seqs: Sequence[Sequence[int]], lane: int = RANKER_LANE):
         """get_range for many keys in one call: over a sharded index, (0,
         count) surrogate ranges of the summed shard counts (kernel 5's shard
-        count mode); else the host's native batch when the host index has
-        psi (sub-ms, no device round trip), else the device index's sequence
-        kernel (kernel 5 on the Psi layout, kernel 12 on the wavelet
-        layouts)."""
+        count mode; on a mesh summed over the ranks on collective ``lane``:
+        the ranker's by default, the key producer's for the count filter);
+        else the host's native batch when the host index has psi (sub-ms, no
+        device round trip), else the device index's sequence kernel (kernel
+        5 on the Psi layout, kernel 12 on the wavelet layouts)."""
         seqs = list(seqs)
         if not seqs:
             return []
         if self.sharded_index is None and getattr(self.fm_index, "psi", None) is not None:
             return self.fm_index.get_ranges_batch(seqs)
-        L = max(len(s) for s in seqs)
-        toks = np.zeros((len(seqs), L), np.int32)
-        lens = np.zeros(len(seqs), np.int32)
-        for i, s in enumerate(seqs):
+        rows = seqs
+        if self.mesh is not None:
+            # a collective's rows must be the same on every rank, and the
+            # caller's order may follow this process's string hashes (the
+            # query decomposition's set): each distinct key once, sorted
+            rows = sorted({tuple(s) for s in seqs})
+        L = max(len(s) for s in rows)
+        toks = np.zeros((len(rows), L), np.int32)
+        lens = np.zeros(len(rows), np.int32)
+        for i, s in enumerate(rows):
             toks[i, : len(s)] = s
             lens[i] = len(s)
         if self.sharded_index is not None:
-            counts = sharded_count_sequences(self.sharded_index, self.mesh, toks, lens)
+            counts = sharded_count_sequences(self.sharded_index, self.mesh, toks, lens, lane)
+            counts = counts.cpu().tolist()
+            if self.mesh is not None:
+                of = dict(zip(rows, counts))
+                counts = [of[tuple(s)] for s in seqs]
             # only the difference of a surrogate range is meaningful
-            return [(0, c) for c in counts.cpu().tolist()]
+            return [(0, c) for c in counts]
         lo, hi = index_ops(self.device_index).range_for_sequences(self.device_index, toks, lens)
         return list(zip(lo.cpu().tolist(), hi.cpu().tolist()))
 
-    def _device_counts(self, seqs: Sequence[Sequence[int]]) -> List[int]:
-        return [hi - lo for lo, hi in self._device_ranges(seqs)]
+    def _device_counts(self, seqs: Sequence[Sequence[int]],
+                       lane: int = RANKER_LANE) -> List[int]:
+        return [hi - lo for lo, hi in self._device_ranges(seqs, lane)]
 
     def _count_filter(self, fk):
         """Drop (score, key) pairs whose key does not occur in the corpus
-        (reference retrieval.py:91), in one batched call."""
+        (reference retrieval.py:91), in one batched call (on the key
+        producer's collective lane)."""
         fk = [(sc, k) for sc, k in fk if k]
         if not fk:
             return fk
-        counts = self._device_counts([k for _, k in fk])
+        counts = self._device_counts([k for _, k in fk], PRODUCER_LANE)
         return [(sc, k) for (sc, k), c in zip(fk, counts) if c > 0]
 
     def _marked(self, inputs: Sequence[str], marker: str) -> List[str]:
@@ -675,7 +709,7 @@ class SEALSearcher:
                 if self.min_length > 0:
                     new_fk = [k for k in new_fk if len(k) == self.min_length]
                 new_fk = [k for k in new_fk if k]
-                counts = self._device_counts(new_fk)
+                counts = self._device_counts(new_fk, PRODUCER_LANE)
                 new_fk = [k for k, c in zip(new_fk, counts) if c > 0]
                 decomposed.append(new_fk)
             marked = self._tokenize_batch(self._marked(inputs, "body"))

@@ -200,8 +200,8 @@ def make_sharded_train_step(model_cfg: BartConfig, tcfg: TrainConfig, mesh,
                             tensor_parallel: bool = True):
     """Not ported: the data- and tensor-parallel step over a mesh of cards."""
     raise NotImplementedError(
-        "not ported to seal_tpu_torch yet: the sharded train step (the mesh across cards, "
-        "ROADMAP.md A.7); make_train_step trains on one device"
+        "not ported to seal_tpu_torch yet: the sharded train step (the mesh's model axis and "
+        "the train step over the mesh, ROADMAP.md A.7b); make_train_step trains on one device"
     )
 
 

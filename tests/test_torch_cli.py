@@ -7,7 +7,9 @@ files (KILT, DPR, ``--shards 2``: the shard files and the manifest).
 same documents in the same order, scores within 1e-4 relative (the
 searcher tests' tolerance) and the same texts.  ``serve``: the same JSONL
 out for the same JSONL in, malformed lines skipped.  ``adaptive_batches``
-flushes a partial batch on an idle pipe; ``--multihost`` raises."""
+flushes a partial batch on an idle pipe; ``--multihost`` without a card
+(and without ``--device cpu``) raises; its two-rank runs are in
+``test_torch_mesh.py``."""
 
 import io
 import json
@@ -16,6 +18,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from seal_tpu.cli import build_fm_index as jbuild
 from seal_tpu.cli import search as jsearch
@@ -182,9 +185,15 @@ def test_adaptive_batches_flushes_on_idle_pipe():
 
 
 @pytest.mark.parametrize("cli", [tsearch, tserve])
-def test_multihost_raises(built, tmp_path, cli):
-    argv = ["--fm_index", "x", "--multihost", "--device", "cpu"]
+def test_multihost_raises(built, tmp_path, monkeypatch, cli):
+    """``--multihost`` serves each rank on its own card (``cuda:LOCAL_RANK``):
+    with no card and no ``--device cpu`` it raises, also as one process (no
+    coordinator: ``init_distributed`` is a no-op)."""
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--fm_index", "x", "--multihost"]
     if cli is tsearch:
-        argv += ["--topics", str(built / "topics.json"), "--output", str(tmp_path / "o")]
-    with pytest.raises(NotImplementedError, match="multihost"):
+        argv += ["--topics", str(built / "topics.json"), "--topics_format", "dpr", "--output",
+                 str(tmp_path / "o")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(argv)

@@ -1828,6 +1828,52 @@ def test_sample_select_counts_matches_plain(cuda, B, K, V, lp_case, case, graph)
     _same_clear(got, want, cons, sample_select.gumbel_noise(7, 2, B * K, V, cuda), None)
 
 
+@pytest.mark.parametrize("case", sorted(SAMPLE_ROUTES) + ["counts", "counts_cluster"])
+def test_sample_select_row_offset(cuda, case):
+    """Kernel 20 with ``row_offset`` (a data-parallel rank's rows): a call on
+    the second half of a batch's queries with the offset of its first chain
+    equals the whole batch's call on those chains bit for bit, on each route
+    (warp, block, cluster, count-reading); the offset noise's words equal
+    the plain version's exactly, and the draws equal the plain version's
+    with that offset on the chains clear of near-ties."""
+    w0, _ = sample_select.noise_on_card(3, 4, 6, 37, cuda, row_offset=2**32 - 2)
+    assert torch.equal(w0, sample_select.philox_words(3, 4, 6, 37, cuda, row_offset=2**32 - 2))
+    if case.startswith("counts"):
+        B, K, V = (32, 15, 50265) if case == "counts" else (8, 15, 50265)
+        g = torch.Generator(device=cuda).manual_seed(B * K + 1)
+        mask, lp, prev, fin, bs = _dense_inputs(g, B, K, V, cuda, lp=_lp(g, B * K, V, cuda),
+                                                allowed=0.067)
+        h, o = B // 2, B // 2 * K
+        kw = dict(eos=2, pad=1, stop_at_count=2, always_allow_eos=True)
+        whole = sample_select.sample_select_counts(mask, lp, prev, fin, bs, 7, 2, **kw)
+        part = sample_select.sample_select_counts(mask[h:], lp[o:], prev[h:], fin[h:], bs[h:], 7,
+                                                  2, row_offset=o, **kw)
+        want = sample_select.sample_select_counts_plain(mask[h:], lp[o:], prev[h:], fin[h:],
+                                                        bs[h:], 7, 2, row_offset=o, **kw)
+        zero = torch.zeros_like(bs[h:])
+        cons = dense_scores.dense_scores_plain(mask[h:], lp[o:], prev[h:], fin[h:], zero, **kw)
+        noise = sample_select.gumbel_noise(7, 2, (B - h) * K, V, cuda, row_offset=o)
+        mask_n = None
+    else:
+        rows, n, listed, route = SAMPLE_ROUTES[case]
+        g = torch.Generator(device=cuda).manual_seed(rows + n + 1)
+        cons, lp, tokens, bs, mask_n = _draw_inputs(g, rows, n, listed, cuda)
+        B, K = bs.shape
+        h, o = B // 2, B // 2 * K
+        assert sample_select.plan((B - h) * K, n).route == route
+        cut = lambda t: t[h:] if t is not None else None  # noqa: E731
+        whole = sample_select.sample_select(cons, lp, tokens, bs, 3, 4, eos=2, pad=1,
+                                            mask=mask_n)
+        part = sample_select.sample_select(cut(cons), cut(lp), cut(tokens), bs[h:], 3, 4, eos=2,
+                                           pad=1, mask=mask_n, row_offset=o)
+        want = sample_select.sample_select_plain(cut(cons), cut(lp), cut(tokens), bs[h:], 3, 4,
+                                                 eos=2, pad=1, mask=mask_n, row_offset=o)
+        cons = cons[h:]
+        noise = sample_select.gumbel_noise(3, 4, (B - h) * K, n, cuda, row_offset=o)
+    _same(part, [x[h:] for x in whole])
+    _same_clear(part, want, cons, noise, mask_n)
+
+
 def _past_2_31(cuda):
     """F3's second size: B * K * V just past 2^31 elements (32 x 1,336 x
     50,265: a 51 MB count mask, where the counts took 8.6 GB).  Only tokens
@@ -2425,6 +2471,43 @@ def test_sharded_generate_on_card_matches_cpu(cuda, S, mode):
         assert [t for t, _ in ka] == [t for t, _ in kb]
         np.testing.assert_allclose([sc for _, sc in kb], [sc for _, sc in ka], atol=1e-4)
 
+
+
+def _two_rank_sharded_decode(rank, queries, modes):
+    """A rank of ``test_sharded_generate_two_ranks_on_one_card``: its 2 of
+    the 4 shards on cuda:0, every mode's hypotheses."""
+    from seal_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.cuda.set_device(0)
+    mesh = mesh_lib.make_mesh(device="cuda:0")
+    si = _sharded(4, "cpu")[0].place(mesh)
+    cfg = bart_tiny(vocab_size=40)
+    params = bart.init_params(cfg, seed=1, device="cuda:0")
+    return {m: sharded_decode.sharded_fm_index_generate(cfg, params, si, mesh, queries, **kw)
+            for m, kw in modes.items()}
+
+
+def test_sharded_generate_two_ranks_on_one_card(cuda):
+    """Two ranks of a gloo group on the one card, 2 shards each
+    (``ShardedTorchIndex.place``): every mode's hypotheses bit-equal (tokens,
+    score bits) to one process's 4-shard decode on the card."""
+    from seal_tpu_torch.parallel import multihost
+
+    base = dict(num_beams=4, max_length=5, min_length=1, forced_bos_token_id=None, window=4,
+                exact_chunk=4)
+    modes = {"fast": base, "force_full": dict(base, force_full=True),
+             "exact_mask": dict(base, exact_mask=True),
+             "sample": dict(base, sample=True, seed=3, top_m=8)}
+    queries = [[0, 5, 7, 9, 11, 2], [0, 6, 6, 8, 2], [0, 12, 4, 2]]
+    si = sharded_index.ShardedTorchIndex.from_hosts(_sharded(4, "cpu")[1], 40, device=cuda)
+    cfg = bart_tiny(vocab_size=40)
+    params = bart.init_params(cfg, seed=1, device=cuda)
+    want = {m: sharded_decode.sharded_fm_index_generate(cfg, params, si, None, queries, **kw)
+            for m, kw in modes.items()}
+    outs = multihost.spawn_ranks(_two_rank_sharded_decode, 2, (queries, modes), timeout_s=240)
+    for out in outs:
+        for m in modes:
+            assert out[m] == want[m] and sum(map(len, want[m])) > 0, m
 
 
 # ---- kernel 8's selection routes and the routes past shared memory (F1, F2)

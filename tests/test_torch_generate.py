@@ -34,6 +34,7 @@ from seal_tpu_torch.index.device_index import TorchFMIndex
 from seal_tpu_torch.models import bart as tbart
 from seal_tpu_torch.models import convert as tconvert
 from seal_tpu_torch.models.config import bart_tiny as ttiny
+from seal_tpu_torch.parallel.mesh import Mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCORE_ATOL = 1e-4
@@ -332,8 +333,9 @@ def test_generate_keywords_match_jax():
     assert captured["dcfg"].top_m == 30
 
 
-@pytest.mark.parametrize("option", [dict(mesh=object())])
+@pytest.mark.parametrize("option", [dict(mesh=Mesh(1, 2, 0, "cpu"))])
 def test_unported_modes_raise(models, option):
+    """A mesh with a ``model`` axis (tensor-parallel decode, ROADMAP A.7b)."""
     jcfg, tcfg, _, tparams = models
     host, queries = _random_corpus(0)
     with pytest.raises(NotImplementedError):
@@ -369,7 +371,8 @@ assert {"seal_tpu_torch.kernels.locate", "seal_tpu_torch.kernels.row_select",
         "seal_tpu_torch.cli.make_unsupervised_dataset",
         "seal_tpu_torch.cli.build_fm_index", "seal_tpu_torch.cli.search",
         "seal_tpu_torch.cli.serve", "seal_tpu_torch.data.formats",
-        "seal_tpu_torch.utils.batching"} <= set(mods)
+        "seal_tpu_torch.utils.batching", "seal_tpu_torch.parallel.mesh",
+        "seal_tpu_torch.parallel.multihost"} <= set(mods)
 for m in mods:
     importlib.import_module(m)
 import chip_smoke

@@ -52,8 +52,8 @@ def _jax_noise(seed, steps, B, K):
         key, sk = jax.random.split(key)
         keys.append(sk)
 
-    def noise(seed_, step, rows, n, device="cpu"):
-        assert seed_ == seed and rows == B * K
+    def noise(seed_, step, rows, n, device="cpu", row_offset=0):
+        assert seed_ == seed and rows == B * K and row_offset == 0
         g = np.array(jax.random.gumbel(keys[step], (B, K, n), jnp.float32))
         return torch.as_tensor(g).reshape(rows, n)
 

@@ -286,9 +286,9 @@ def test_jobs_ranges_found_in_the_parent(files, monkeypatch):
     calls = []
     ranges = ts._device_ranges
 
-    def spy(seqs):
+    def spy(seqs, *lane):
         calls.append(sorted(map(tuple, seqs)))
-        return ranges(seqs)
+        return ranges(seqs, *lane)
 
     ts._device_ranges = spy
     runs = {}

@@ -100,11 +100,12 @@ def test_sharded_index_defaults_to_cuda_and_refuses_a_mesh(monkeypatch):
         tsi.ShardedTorchIndex.build(docs, 2, V)
     t, _, _ = tsi.ShardedTorchIndex.build(docs, 2, V, device="cpu")
     toks, lens = np.array([[5, 6]], np.int32), np.array([2], np.int32)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh the index was not placed on (ShardedTorchIndex.place)
+    with pytest.raises(ValueError, match="placed"):
         tsi.sharded_count_sequences(t, "mesh", toks, lens)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="placed"):
         tsi.sharded_allowed_mask(t, "mesh", toks, lens, toks)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="placed"):
         tsd.sharded_fm_index_generate(None, None, t, "mesh", toks)
     with pytest.raises(TypeError, match="ShardedTorchIndex"):
         tsd.sharded_fm_index_generate(None, None, t.shard_view(0), None, toks)
